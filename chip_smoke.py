@@ -11,16 +11,26 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: every kernel in ``deepspeed_tpu_torch/csrc`` with ``nvcc``
    (timed as set-up);
 3. each kernel against its plain PyTorch version at the slice's shapes
-   (GPT-3 6.7B heads: H=32, D=128, bf16), with its time, the plain
-   version's time, one PyTorch library call's time where one computes
-   the same function, and the least time the card could take;
+   (serving: GPT-3 6.7B heads, H=32, D=128; training: GPT-2 125M
+   attention, B*H = 64 x 12, T = 1024, D = 64; bf16), with its time, the
+   plain version's time, one PyTorch library call's time where one
+   computes the same function, and the least time the card could take;
 4. ``init_inference(TransformerLM(gpt2_config("6.7b")))`` with random
    weights from seed 0, then ``generate()`` on 8 prompts of 128 tokens,
    64 new tokens, greedy: every decode step goes through kernel B5;
+   then ``forward()`` on the same prompts through kernel B1, its
+   last-position logits checked against ``generate()``'s prefill;
 5. the continuous-batching server on the same engine: 16 greedy requests
    with prompt lengths 16-512, 32 new tokens each, drained with
    ``run()``: decode through kernel B6, prompt chunks through kernel B7;
-   first-step logits of 4 requests checked against ``generate()``'s.
+   first-step logits of 4 requests checked against ``generate()``'s;
+6. training: ``initialize`` on GPT-2 125M (all 12 layers, seq 1024,
+   ``remat="full"``, flash attention, fused loss head at chunk 256) with
+   ``bench.py``'s config (micro batch 64, AdamW, bf16 over f32 masters,
+   clipping 1.0), weights from seed 0, 20 ``train_step``s on one seeded
+   batch: every layer's forward (twice, with the remat recompute) runs
+   kernel B1 and its backward kernel B2; then the same step with plain
+   attention at micro batch 8 for 3 steps, checked against the kernels'.
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -51,8 +61,27 @@ KERNEL_ATOL, KERNEL_RTOL = 4e-3, 8e-3
 #: serving-vs-generate first-step logits: the two paths round bf16
 #: activations at different places (chunked paged prefill vs dense
 #: prefill) through 32 layers; they must agree to this fraction of the
-#: reference logits' largest magnitude.
+#: reference logits' largest magnitude.  The same limit holds
+#: forward()'s logits (kernel B1) against generate()'s prefill (plain
+#: attention).
 LOGITS_REL_TOL = 0.05
+
+#: flash vs plain attention through the whole training step (3 steps at
+#: micro batch 8): bf16 activations are rounded at different places in
+#: the two attention paths (B1 rounds the probabilities before P.V and
+#: writes o once; the plain path rounds the probabilities and the P.V
+#: product), and AdamW's first steps amplify small gradient differences
+#: (the update is about lr * sign(g)), so the losses must agree to this
+#: fraction and the gradient norms to STEP_GNORM_REL_TOL (readings on an
+#: H100: at most 1.2e-4 and 2.7e-3).
+STEP_LOSS_REL_TOL = 2e-3
+STEP_GNORM_REL_TOL = 2e-2
+
+#: lse (float32 in both versions) may differ by the order of the sums
+LSE_ATOL = 1e-3
+
+#: the training phase: bench.py's GPT-2 125M step (seq 1024, micro 64)
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 20
 
 N_TIMED, N_WARM = 30, 5
 
@@ -249,7 +278,85 @@ def kernel_checks(torch, dev, flush):
                        **acc, ms=ms, plain_ms=plain,
                        library_ms=None, bound_ms=bnd, bound_by=by))
     results["paged_prefill_attention"] = b7
+    results.update(flash_checks(torch, dev, flush))
     return results
+
+
+def flash_checks(torch, dev, flush):
+    """B1 and B2 at the training shape (B*H = 64 x 12, T = 1024, D = 64,
+    causal), at a ragged T (1000) and without the causal mask.  The
+    planted fault is the plain version with each query's last visible
+    key left out (row 0 of a causal case keeps its only key)."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    BH, D = TRAIN_MICRO * 12, 64
+    b1, b2 = [], []
+    for T, causal in ((1024, True), (1000, True), (1024, False)):
+        q, k, v, do = (torch.randn((BH, T, D), generator=g,
+                                   device=dev).to(bf16) for _ in range(4))
+        keep = torch.ones((T, T), dtype=torch.bool, device=dev)
+        if causal:
+            keep = keep.tril()
+            drop = torch.arange(1, T, device=dev)
+            keep[drop, drop] = False          # the diagonal key, rows >= 1
+        else:
+            keep[:, T - 1] = False
+        case = f"B*H={BH} T={T} D={D} {'causal' if causal else 'full'}"
+        # B1
+        o, lse = FA.flash_attention_fwd(q, k, v, causal)
+        o_p, lse_p = FA.flash_attention_fwd_plain(q, k, v, causal)
+        o_f, _ = FA.flash_attention_fwd_plain(q, k, v, causal, keep=keep)
+        torch.cuda.synchronize()
+        acc = agree(f"B1 {case}", o, o_p, o_f)
+        lse_err = max_err(lse, lse_p)
+        check(lse_err <= LSE_ATOL, f"B1 {case}: lse off by {lse_err}")
+        ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal), torch,
+                     flush)
+        plain = time_ms(lambda: FA.flash_attention_fwd_plain(q, k, v,
+                                                             causal),
+                        torch, flush)
+        q4, k4, v4 = (x.view(1, BH, T, D) for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), torch, flush)
+        pairs = BH * (T * (T + 1) // 2 if causal else T * T)
+        nbytes = 4 * BH * T * D * 2 + BH * T * 4
+        bnd, by = bound_ms(nbytes, 4.0 * D * pairs)
+        b1.append(dict(case=case, **acc, lse_err=lse_err, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by))
+        # B2, from the sound forward's o and lse
+        got = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+        want = FA.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, causal)
+        fault = FA.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do,
+                                             causal, keep=keep)
+        again = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+        torch.cuda.synchronize()
+
+        def flat(ts):
+            return torch.cat([t.float().flatten() for t in ts])
+        acc = agree(f"B2 {case}", flat(got), flat(want), flat(fault))
+        rerun = max_err(flat(got), flat(again))
+        check(rerun == 0.0, f"B2 {case}: two launches differ by {rerun}")
+        del want, fault, again
+        ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o_p, lse_p, do,
+                                                    causal), torch, flush)
+        plain = time_ms(lambda: FA.flash_attention_bwd_plain(
+            q, k, v, o_p, lse_p, do, causal), torch, flush)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        do4 = do.view(1, BH, T, D)
+        lib = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do4, retain_graph=True), torch, flush)
+        del out
+        nbytes = 7 * BH * T * D * 2 + 2 * BH * T * 4
+        bnd, by = bound_ms(nbytes, 10.0 * D * pairs)
+        b2.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by))
+    return {"flash_attention_fwd": b1, "flash_attention_bwd": b2}
 
 
 def main() -> int:
@@ -303,7 +410,11 @@ def main() -> int:
                   f"{c['fault_limit_share']:.3g} of it; {c['ms']:.4f} ms, plain "
                   f"{c['plain_ms']:.4f} ms, library "
                   f"{'-' if c['library_ms'] is None else '%.4f' % c['library_ms']}"
-                  f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+                  f" ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+                  + (f"; lse max|err| {c['lse_err']:.3g}"
+                     if "lse_err" in c else "")
+                  + (f"; two launches differ by {c['rerun_diff']:.3g}"
+                     if "rerun_diff" in c else ""))
     del flush
 
     # -- 4. generate() at GPT-3 6.7B width ------------------------------
@@ -340,6 +451,40 @@ def main() -> int:
 
     device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
                    "generate 8 x 128 prompts, 16 new tokens")
+
+    # forward() through kernel B1, against generate()'s prefill logits
+    prefill = eng._prefill
+    gen_last = {}
+
+    def recording_prefill(ids, true_len, cache_len):
+        cache, last = prefill(ids, true_len, cache_len)
+        gen_last["logits"] = last.float()
+        return cache, last
+    eng._prefill = recording_prefill
+    eng.generate(prompts, max_new_tokens=1)
+    eng._prefill = prefill
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    fwd = eng.forward(prompts)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_counts = dict(build.launch_counts)
+    check(tuple(fwd.shape) == (8, 128, cfg.vocab_size)
+          and bool(fwd.isfinite().all()), f"forward logits {fwd.shape}")
+    check(fwd_counts["flash_attention_fwd"] == cfg.num_layers,
+          f"forward: B1 launches {fwd_counts['flash_attention_fwd']} != "
+          f"{cfg.num_layers}")
+    ref = gen_last["logits"]
+    fwd_err = float((fwd[:, -1] - ref).abs().max())
+    fwd_rel = fwd_err / float(ref.abs().max())
+    same = int((fwd[:, -1].argmax(-1) == ref.argmax(-1)).sum())
+    print(f"forward: 8 x 128 prompts in {fwd_s * 1e3:.1f} ms, B1 launches "
+          f"{fwd_counts['flash_attention_fwd']}; last-position logits "
+          f"max|forward - generate prefill| {fwd_err:.4f} = {fwd_rel:.4f} of "
+          f"max|logit| (limit {LOGITS_REL_TOL}), argmax equal on {same} of 8")
+    check(fwd_rel <= LOGITS_REL_TOL,
+          f"forward/generate logits differ by {fwd_rel:.4f} of their scale")
+    del fwd, ref
 
     # -- 5. serving ------------------------------------------------------
     srv = eng.serving_engine()
@@ -426,6 +571,13 @@ def main() -> int:
             srv.submit(p, max_new_tokens=8)
         srv.run()
     device_profile(torch, serve_burst, "serving 8 requests, 8 new tokens")
+    del srv, model, eng
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6. training ------------------------------------------------------
+    train = train_phase(torch, np)
 
     # -- result lines ------------------------------------------------------
     replaces = {
@@ -435,16 +587,24 @@ def main() -> int:
             "deepspeed_tpu/ops/transformer/paged_decode_attention.py:143",
         "paged_prefill_attention":
             "deepspeed_tpu/ops/transformer/paged_decode_attention.py:358",
+        "flash_attention_fwd":
+            "deepspeed_tpu/ops/transformer/flash_attention.py:94",
+        "flash_attention_bwd":
+            "deepspeed_tpu/ops/transformer/flash_attention.py:300",
     }
     launches = {"decode_attention": gen_counts["decode_attention"],
                 "paged_decode_attention":
                     srv_counts["paged_decode_attention"],
                 "paged_prefill_attention":
-                    srv_counts["paged_prefill_attention"]}
+                    srv_counts["paged_prefill_attention"],
+                "flash_attention_fwd": train["flash_attention_fwd"],
+                "flash_attention_bwd": train["flash_attention_bwd"]}
     # the main-path case of each kernel: B5 at generate()'s last step
-    # (cache 192), B6 at 8 ragged slots, B7 at a 256-chunk on 256 rows
+    # (cache 192), B6 at 8 ragged slots, B7 at a 256-chunk on 256 rows,
+    # B1/B2 at the training shape (T = 1024, causal)
     main_case = {"decode_attention": 0, "paged_decode_attention": 0,
-                 "paged_prefill_attention": 1}
+                 "paged_prefill_attention": 1, "flash_attention_fwd": 0,
+                 "flash_attention_bwd": 0}
     kernels = []
     for name in build.KERNELS:
         c = kres[name][main_case[name]]
@@ -462,6 +622,154 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def train_phase(torch, np) -> dict:
+    """GPT-2 125M at bench.py's configuration for TRAIN_STEPS steps on one
+    seeded batch (B1/B2 launches counted over exactly those steps), its
+    profile, then flash against plain attention at micro batch 8."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+
+    def make(attn_impl, micro):
+        cfg = gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat="full",
+                          attn_impl=attn_impl, loss_chunk=256)
+        config = {       # bench.py:171-180
+            "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 6e-4, "weight_decay": 0.1}},
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 0},
+            "gradient_clipping": 1.0,
+            "steps_per_print": 0,
+        }
+        eng, _, _, _ = initialize(model=TransformerLM(cfg), config=config)
+        return cfg, eng
+
+    cfg, eng = make("flash", TRAIN_MICRO)
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size,
+                                     (TRAIN_MICRO, TRAIN_SEQ),
+                                     dtype=np.int32)}
+    n_params = eng.num_parameters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [eng.train_step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"training: non-finite loss or grad norm {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"training: loss did not fall ({losses[0]} -> {losses[-1]})")
+    want = {"flash_attention_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS}
+    for name, n in want.items():
+        check(counts[name] == n, f"training: {name} launches "
+                                 f"{counts[name]} != {n}")
+    step_s = wall / TRAIN_STEPS
+    tok_s = TRAIN_MICRO * TRAIN_SEQ / step_s
+    # bench.py:212-215: 6 N per token plus the attention term
+    flops_per_tok = 6 * n_params + 12 * cfg.num_layers * cfg.d_model \
+        * TRAIN_SEQ
+    mfu = tok_s * flops_per_tok / BF16_FLOPS
+    print(f"training: GPT-2 125M ({n_params / 1e6:.1f} M params), seq "
+          f"{TRAIN_SEQ}, micro {TRAIN_MICRO}, remat full, flash, fused "
+          f"head chunk 256, AdamW bf16/f32: {TRAIN_STEPS} steps in "
+          f"{wall:.2f} s = {step_s * 1e3:.1f} ms/step (the first step "
+          f"included), {tok_s:.0f} tokens/s, MFU {100 * mfu:.2f} % of "
+          f"989 TF/s; peak memory {peak:.1f} GiB")
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f} (every step: "
+          f"{' '.join(f'{x:.3f}' for x in losses)}); grad norm "
+          f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}")
+    print(f"  launches over {TRAIN_STEPS} steps: B1 "
+          f"{counts['flash_attention_fwd']} "
+          f"({counts['flash_attention_fwd'] // TRAIN_STEPS} per step), B2 "
+          f"{counts['flash_attention_bwd']} "
+          f"({counts['flash_attention_bwd'] // TRAIN_STEPS} per step)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.train_step(batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"  3 more steps (warm): {warm_ms:.1f} ms/step")
+    head = loss_head_ms(torch, eng, batch)
+    print(f"  loss head alone (fused, chunk 256, bf16 logits widened to "
+          f"f32, f32 backward products): forward {head['fwd']:.1f} ms, "
+          f"forward + backward {head['both']:.1f} ms = "
+          f"{100 * head['both'] / warm_ms:.1f} % of the warm step")
+    device_profile(torch, lambda: [eng.train_step(batch) for _ in range(2)],
+                   "training 2 steps")
+    out = {"flash_attention_fwd": counts["flash_attention_fwd"],
+           "flash_attention_bwd": counts["flash_attention_bwd"]}
+    del eng, metrics
+    torch.cuda.empty_cache()
+
+    # the whole step with B1/B2 against plain attention
+    small = {"input_ids": batch["input_ids"][:8]}
+    runs = {}
+    for impl in ("flash", "xla"):
+        _, e = make(impl, 8)
+        ms = [e.train_step(small) for _ in range(3)]
+        runs[impl] = ([float(m["loss"]) for m in ms],
+                      [float(m["grad_norm"]) for m in ms])
+        del e, ms
+    for i in range(3):
+        (lf, gf), (lx, gx) = ((runs[k][0][i], runs[k][1][i])
+                              for k in ("flash", "xla"))
+        print(f"  step {i} at micro 8: loss flash {lf:.5f} plain {lx:.5f} "
+              f"({abs(lf - lx) / abs(lx) / STEP_LOSS_REL_TOL:.3g} of the "
+              f"limit); grad norm flash {gf:.4f} plain {gx:.4f} "
+              f"({abs(gf - gx) / abs(gx) / STEP_GNORM_REL_TOL:.3g} of the "
+              f"limit)")
+        check(abs(lf - lx) <= STEP_LOSS_REL_TOL * abs(lx),
+              f"training step {i}: loss flash {lf} vs plain {lx}")
+        check(abs(gf - gx) <= STEP_GNORM_REL_TOL * abs(gx),
+              f"training step {i}: grad norm flash {gf} vs plain {gx}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def loss_head_ms(torch, eng, batch) -> dict:
+    """Device ms of the loss head alone (``nll_from_hidden`` on the
+    engine's bf16 params), forward and forward + backward, at the step's
+    shape: hidden states [micro, seq, d_model] from a seeded generator."""
+    dev = eng.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(99)
+    w = eng.state["params"]["embed"]["embedding"].detach().requires_grad_(
+        True)
+    x = torch.randn((TRAIN_MICRO, TRAIN_SEQ, eng.model.config.d_model),
+                    generator=g, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    labels = torch.as_tensor(batch["input_ids"]).long().to(dev)
+
+    def nll():
+        return eng.model.nll_from_hidden(
+            {"embed": {"embedding": w.to(torch.bfloat16)}}, x, labels)
+
+    def both():
+        torch.autograd.grad(nll(), (x, w))
+    out = {}
+    for key, fn in (("fwd", nll), ("both", both)):
+        fn()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(3):
+            fn()
+        b.record()
+        b.synchronize()
+        out[key] = a.elapsed_time(b) / 3
+    return out
 
 
 def device_profile(torch, fn, label: str) -> None:

@@ -2,9 +2,9 @@
 
 The same JSON schema as ``deepspeed_tpu/inference/config.py`` (keys,
 defaults from ``runtime/constants.py`` and validation messages), built on
-plain ``dataclasses`` instead of pydantic.  As in the JAX ``ConfigModel``:
-unknown keys are rejected, a ``None`` value means "use the default", and
-a value of the wrong type raises ``ValueError``.
+plain ``dataclasses`` by ``runtime/config_utils.py``: unknown keys are
+rejected, a ``None`` value means "use the default", and a value of the
+wrong type raises ``ValueError``.
 
 Blocks the first slice of the port does not run (``quant``,
 ``tensor_parallel`` beyond one device, ``moe``, ``observability``,
@@ -14,103 +14,24 @@ Blocks the first slice of the port does not run (``quant``,
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Union, get_type_hints
+from typing import Any, Dict, Optional
 
 import torch
 
-# serving defaults (deepspeed_tpu/runtime/constants.py)
-SERVING_ENABLED_DEFAULT = False
-SERVING_KV_BLOCK_SIZE_DEFAULT = 16
-SERVING_NUM_KV_BLOCKS_DEFAULT = 512
-SERVING_MAX_BATCH_SLOTS_DEFAULT = 8
-SERVING_PREFILL_CHUNK_TOKENS_DEFAULT = 256
-SERVING_PREFIX_CACHE_DEFAULT = True
-SERVING_MAX_QUEUE_DEPTH_DEFAULT = 1024
-SERVING_MAX_PREEMPTIONS_DEFAULT = 8
-SERVING_NO_PROGRESS_STEPS_DEFAULT = 64
-SERVING_SPEC_K_DEFAULT = 3
-SERVING_DEFAULT_DEADLINE_S_DEFAULT = 0.0
-SERVING_KV_CACHE_BITS_DEFAULT = 0
-SERVING_MESH_DATA_DEFAULT = 1
-SERVING_MESH_MODEL_DEFAULT = 1
+from ..runtime.config_utils import from_dict
+from ..runtime.constants import (
+    SERVING_DEFAULT_DEADLINE_S_DEFAULT, SERVING_ENABLED_DEFAULT,
+    SERVING_KV_BLOCK_SIZE_DEFAULT, SERVING_KV_CACHE_BITS_DEFAULT,
+    SERVING_MAX_BATCH_SLOTS_DEFAULT, SERVING_MAX_PREEMPTIONS_DEFAULT,
+    SERVING_MAX_QUEUE_DEPTH_DEFAULT, SERVING_MESH_DATA_DEFAULT,
+    SERVING_MESH_MODEL_DEFAULT, SERVING_NO_PROGRESS_STEPS_DEFAULT,
+    SERVING_NUM_KV_BLOCKS_DEFAULT, SERVING_PREFILL_CHUNK_TOKENS_DEFAULT,
+    SERVING_PREFIX_CACHE_DEFAULT, SERVING_SPEC_K_DEFAULT)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32, "bf16": torch.bfloat16,
           "fp16": torch.float16, "fp32": torch.float32}
-
-
-_TRUE = {"1", "on", "t", "true", "y", "yes"}
-_FALSE = {"0", "off", "f", "false", "n", "no"}
-
-
-def _coerce(value: Any, hint: Any) -> Any:
-    """pydantic's lax scalar rules for the field types the schema uses:
-    integral floats and numeric strings for ints, numbers and numeric
-    strings for floats, 0/1 and yes/no-style strings for bools.  Raises
-    ValueError (or TypeError) on anything else."""
-    if hint is str:
-        if not isinstance(value, str):
-            raise TypeError("expected a string")
-        return value
-    if hint is bool:
-        if isinstance(value, bool):
-            return value
-        if isinstance(value, int) and value in (0, 1):
-            return bool(value)
-        if isinstance(value, str) and value.lower() in _TRUE | _FALSE:
-            return value.lower() in _TRUE
-        raise ValueError("expected a boolean")
-    if isinstance(value, bool) or not isinstance(value, (int, float, str)):
-        raise TypeError(f"expected {hint.__name__}")
-    if hint is float:
-        return float(value)
-    if isinstance(value, float) and not value.is_integer():
-        raise ValueError("expected an integer, got a fractional number")
-    return int(float(value)) if isinstance(value, float) else int(value)
-
-
-def _check_type(path: str, value: Any, hint: Any) -> Any:
-    origin = getattr(hint, "__origin__", None)
-    if origin is Union:                        # Optional[X]
-        args = [a for a in hint.__args__ if a is not type(None)]
-        return _check_type(path, value, args[0])
-    try:
-        return _coerce(value, hint)
-    except (TypeError, ValueError) as e:
-        raise ValueError(f"{path}: {e}, got {type(value).__name__} "
-                         f"{value!r}") from None
-
-
-def _from_dict(cls, data: Optional[Dict[str, Any]], path: str):
-    """Build config dataclass ``cls`` from a JSON block."""
-    if data is None:
-        return cls()
-    if isinstance(data, cls):
-        return data
-    if not isinstance(data, dict):
-        raise ValueError(f"{path or 'config'}: expected a JSON object, "
-                         f"got {type(data).__name__}")
-    hints = get_type_hints(cls)
-    names = {f.name for f in dataclasses.fields(cls)}
-    unknown = sorted(set(data) - names)
-    if unknown:
-        raise ValueError(f"{path or 'config'}: unknown key(s) {unknown} "
-                         f"(extra keys are forbidden)")
-    kw = {}
-    for name, value in data.items():
-        if value is None:                      # None = keep the default
-            continue
-        hint = hints[name]
-        sub = f"{path}.{name}" if path else name
-        if dataclasses.is_dataclass(hint):
-            kw[name] = _from_dict(hint, value, sub)
-        elif hint is Any or hint == Optional[Dict[str, Any]]:
-            kw[name] = value
-        else:
-            kw[name] = _check_type(sub, value, hint)
-    return cls(**kw)
 
 
 @dataclass
@@ -282,7 +203,7 @@ class DeepSpeedInferenceConfig:
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]
                   ) -> "DeepSpeedInferenceConfig":
-        return _from_dict(cls, data, "")
+        return from_dict(cls, data, "")
 
     def compute_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]

@@ -2,8 +2,10 @@
 and the continuous-batching server.
 
 Counterpart of ``deepspeed_tpu/inference/engine.py`` on one device.
-``generate()`` prefills a dense KV cache through plain attention and
-then decodes one token at a time; with kernel injection
+``forward()`` returns full-sequence logits through the uncached forward
+(kernel B1 with kernel injection).  ``generate()`` prefills a dense KV
+cache through plain attention and then decodes one token at a time; with
+kernel injection
 (``replace_with_kernel_inject``, the default) the model's attention is
 ``flash`` and each decode step runs kernel B5 over the cache.  Where the
 JAX engine compiles two programs, this one runs eagerly: the prompt
@@ -86,10 +88,14 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def forward(self, input_ids):
-        raise NotImplementedError(
-            "InferenceEngine.forward runs the flash-attention kernel (B1), "
-            "a later slice of the PyTorch port")
+    @torch.inference_mode()
+    def forward(self, input_ids) -> torch.Tensor:
+        """Full-sequence f32 logits ``[B, T, V]`` of ``input_ids [B, T]``
+        through the uncached forward (kernel B1 with kernel injection)."""
+        ids = (input_ids if isinstance(input_ids, torch.Tensor)
+               else torch.as_tensor(np.asarray(input_ids)))
+        return self.module.apply(self.params,
+                                 ids.to(self.device, torch.int64))
 
     __call__ = forward
 

@@ -1,11 +1,13 @@
-"""Weights between the JAX package and the port.
+"""Weights and train states between the JAX package and the port.
 
 The JAX ``TransformerLM.init`` tree (after ``jax.device_get``: nested
 dicts of numpy arrays, block leaves stacked on the leading layer axis
 for ``lax.scan``) and the port's tree have the same paths, shapes and
 layouts, so the bridge is a leaf-by-leaf numpy <-> torch map.  bfloat16
 arrays (``ml_dtypes.bfloat16`` on the numpy side) cross bit-exactly
-through their 16-bit patterns.
+through their 16-bit patterns.  A train state crosses as its counters
+(``step``, ``skipped``, the optimizer's ``step``) plus three trees of the
+params' shape (``params``, ``opt.m``, ``opt.v``).
 """
 from __future__ import annotations
 
@@ -79,3 +81,37 @@ def params_from_jax(tree: Dict[str, Any], model: TransformerLM,
 def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's tree → numpy leaves in the JAX package's layout."""
     return tree_map(params, _leaf_to_numpy)
+
+
+def state_from_jax(tree: Dict[str, Any], model: TransformerLM,
+                   device="cpu") -> Dict[str, Any]:
+    """A JAX train state ``{step, skipped, params, opt: {step, m, v}}``
+    (numpy leaves, after ``jax.device_get``) → the port engine's state
+    on ``device``: counters as int32 scalars, params and moments as
+    given (float32 masters and moments)."""
+    for tree_name in ("params", "m", "v"):
+        check_params(model, tree[tree_name] if tree_name == "params"
+                     else tree["opt"][tree_name])
+
+    def counter(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=device)
+    return {"step": counter(tree["step"]),
+            "skipped": counter(tree["skipped"]),
+            "params": params_from_jax(tree["params"], model, device),
+            "opt": {"step": counter(tree["opt"]["step"]),
+                    "m": params_from_jax(tree["opt"]["m"], model, device),
+                    "v": params_from_jax(tree["opt"]["v"], model, device)}}
+
+
+def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port engine's state → numpy leaves in the JAX engine's layout
+    (int32 counters as 0-d arrays)."""
+    def counter(t):
+        return np.asarray(int(t), dtype=np.int32)
+    return {"step": counter(state["step"]),
+            "skipped": counter(state["skipped"]),
+            "params": params_to_jax(state["params"]),
+            "opt": {"step": counter(state["opt"]["step"]),
+                    "m": params_to_jax(state["opt"]["m"]),
+                    "v": params_to_jax(state["opt"]["v"])}}

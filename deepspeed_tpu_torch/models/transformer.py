@@ -10,7 +10,17 @@ Parameters are a nested dict in the JAX package's layout (dense kernels
 ``models/convert.py`` moves weights between the packages with no
 transpose.  Where the JAX model runs ``lax.scan`` over the stacked
 blocks, this one runs a Python loop over layer views of the same
-tensors.
+tensors, taken with one ``unbind(0)`` per leaf (under autograd its
+backward is one ``stack``, where per-layer indexing would build a zero
+tensor of the whole stack for every layer).
+
+Training: ``loss`` (labels shifted, the last position masked) runs
+``hidden_states`` and ``nll_from_hidden`` (the fused loss head, the
+chunked checkpointed head, or the dense head, as in the JAX package).
+With ``attn_impl="flash"`` the uncached forward runs kernel B1 and its
+backward kernel B2; ``remat="full"`` recomputes each block in the
+backward (``torch.utils.checkpoint``), so B1 runs twice per layer and
+step.
 
 Caches are updated IN PLACE (JAX returns new arrays): ``apply`` writes
 the new rows into the dense cache tensors it was given, and the paged
@@ -20,14 +30,17 @@ before the attention kernels read them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from ..accelerator import resolve_device
 from ..ops.transformer.decode_attention import decode_attention
+from ..ops.transformer.flash_attention import flash_attention_bthd
+from ..ops.transformer.fused_loss import fused_linear_xent
 from ..ops.transformer.paged_decode_attention import (
     paged_decode_attention, paged_prefill_attention)
 
@@ -56,9 +69,14 @@ class TransformerConfig:
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16        # activation dtype
     param_dtype: torch.dtype = torch.float32
+    remat: str = "none"                # none | full (per block)
     attn_impl: str = "xla"             # xla | flash (kernel injection)
     layernorm_eps: float = 1e-5
     attn_softmax_scale: float = 0.0
+    # chunked cross-entropy: tokens per loss chunk (0 = off)
+    loss_chunk: int = 512
+    # analytic loss head (ops/transformer/fused_loss.py)
+    fused_loss_head: bool = True
     moe_num_experts: int = 0
 
     @property
@@ -129,6 +147,10 @@ _OUT_OF_SLICE = (
 )
 
 
+#: remat policies of the JAX model that this slice runs
+REMAT_POLICIES = ("none", "full")
+
+
 def check_in_slice(c: TransformerConfig) -> None:
     for test, what in _OUT_OF_SLICE:
         if test(c):
@@ -136,12 +158,37 @@ def check_in_slice(c: TransformerConfig) -> None:
                 f"{what.format(**dataclasses.asdict(c))} is outside the "
                 f"first slice of the PyTorch port (GPT-2 family); the "
                 f"model-families slice of ROADMAP.md queue A brings it")
+    if c.remat not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat={c.remat!r}: the training slice of the PyTorch port "
+            f"runs remat 'none' and 'full'; the other policies come with "
+            f"the training follow-ups of ROADMAP.md queue A item 1 "
+            f"('host_offload' with offload, item 8)")
 
 
-def layer_params(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s view of the stacked block tree (no copy)."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
-            for k, v in blocks.items()}
+def layer_views(blocks: Params) -> List[Params]:
+    """Per-layer views of the stacked block tree (no copy): one
+    ``unbind(0)`` per leaf."""
+    flat = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                flat[path + (k,)] = v.unbind(0)
+    walk(blocks, ())
+    n = len(next(iter(flat.values())))
+    layers = []
+    for i in range(n):
+        layer: Params = {}
+        for path, views in flat.items():
+            node = layer
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = views[i]
+        layers.append(layer)
+    return layers
 
 
 class TransformerLM(nn.Module):
@@ -270,25 +317,15 @@ class TransformerLM(nn.Module):
         c = self.config
         b, t = input_ids.shape
         if cache is None:
-            if c.attn_impl == "flash":
-                raise NotImplementedError(
-                    "the uncached forward with attn_impl='flash' runs the "
-                    "flash-attention kernel (B1), a later slice of the "
-                    "port")
-            pos = torch.arange(t, device=input_ids.device)[None]
-            x = self._embed(params, input_ids, pos)
-            for i in range(c.num_layers):
-                def attend(q, k, v):
-                    return L.causal_attention(q, k, v).reshape(b, t, -1)
-                x = self._block(layer_params(params["blocks"], i), x, attend)
-            return self._project(params, self._norm(params["ln_f"], x))
+            return self._project(params, self.hidden_states(params,
+                                                            input_ids))
         idx = int(cache["index"])
         if idx + t > cache["k"].shape[2]:
             raise ValueError(f"cache holds {cache['k'].shape[2]} rows, "
                              f"writing {t} at {idx}")
         pos = idx + torch.arange(t, device=input_ids.device)[None]
         x = self._embed(params, input_ids, pos)
-        for i in range(c.num_layers):
+        for i, bp in enumerate(layer_views(params["blocks"])):
             ck, cv = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, ck=ck, cv=cv):
@@ -302,11 +339,112 @@ class TransformerLM(nn.Module):
                 o = L.causal_attention(q, ck[:, :idx + t], cv[:, :idx + t],
                                        kv_positions_offset=idx)
                 return o.reshape(b, t, -1)
-            x = self._block(layer_params(params["blocks"], i), x, attend)
+            x = self._block(bp, x, attend)
         logits = self._project(params, self._norm(params["ln_f"], x))
         return logits, {"k": cache["k"], "v": cache["v"], "index": idx + t}
 
     forward = apply
+
+    # -- training ----------------------------------------------------------
+    def _remat(self, fn):
+        """Wrap a block function with the configured remat policy:
+        "full" keeps only the block's input and recomputes the rest in
+        the backward."""
+        if self.config.remat == "none":
+            return fn
+
+        def wrapped(*args):
+            # the blocks draw no random numbers: no RNG state to replay
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return wrapped
+
+    def _attend_full(self, q, k, v):
+        """Causal self-attention over a whole sequence ``[B, T, H, D]``
+        → ``[B, T, H*D]``: kernels B1/B2 with ``flash``, plain attention
+        with ``xla``."""
+        b, t = q.shape[0], q.shape[1]
+        if self.config.attn_impl == "flash":
+            o = flash_attention_bthd(q, k, v, causal=True)
+        else:
+            o = L.causal_attention(q, k, v)
+        return o.reshape(b, t, -1)
+
+    def hidden_states(self, params: Params,
+                      input_ids: torch.Tensor) -> torch.Tensor:
+        """Forward up to the final norm, pre-projection: ``[B, T, D]``."""
+        t = input_ids.shape[1]
+        pos = torch.arange(t, device=input_ids.device)[None]
+        x = self._embed(params, input_ids, pos)
+        block = self._remat(
+            lambda bp, x: self._block(bp, x, self._attend_full))
+        for bp in layer_views(params["blocks"]):
+            x = block(bp, x)
+        return self._norm(params["ln_f"], x)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Causal LM loss.  ``batch``: {"input_ids" [B, T]} (labels are
+        the ids shifted left, the last position masked out) or explicit
+        {"input_ids", "labels", optional "loss_mask"}."""
+        ids = batch["input_ids"]
+        mask = batch.get("loss_mask")
+        if "labels" in batch:
+            labels = batch["labels"]
+        else:
+            # keep the full T through the model and mask the final
+            # position instead of slicing it off
+            labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])],
+                               dim=1)
+            last = torch.ones(ids.shape, dtype=torch.float32,
+                              device=ids.device)
+            last[:, -1] = 0.0
+            mask = last if mask is None else mask * last
+        x = self.hidden_states(params, ids)
+        return self.nll_from_hidden(params, x, labels, mask)
+
+    def nll_from_hidden(self, params: Params, x: torch.Tensor,
+                        labels: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean masked NLL from final hidden states ``[B, T, D]``: the
+        loss head alone (fused, chunked with remat, or dense)."""
+        c = self.config
+        chunk = c.loss_chunk
+        b, t = labels.shape
+        if c.fused_loss_head:
+            rows = b * t
+            # chunk in whole token columns, like the checkpointed path
+            row_chunk = b * chunk if (chunk and t > chunk
+                                      and t % chunk == 0) else 0
+            tot, cnt = fused_linear_xent(
+                x.reshape(rows, x.shape[-1]), params["embed"]["embedding"],
+                labels.reshape(rows),
+                None if mask is None else mask.reshape(rows),
+                transpose_w=True, chunk=row_chunk)
+            return tot / torch.clamp(cnt, min=1.0)
+        if chunk and t > chunk and t % chunk == 0:
+            def chunk_nll(xc, yc, mc):
+                logits = self._project(params, xc)
+                lse = torch.logsumexp(logits, dim=-1)
+                tgt = logits.gather(-1, yc[..., None])[..., 0]
+                return torch.sum((lse - tgt) * mc)
+            mc_all = (mask.to(torch.float32) if mask is not None else
+                      torch.ones(labels.shape, dtype=torch.float32,
+                                 device=labels.device))
+            tot = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c0 in range(0, t, chunk):
+                sl = slice(c0, c0 + chunk)
+                tot = tot + checkpoint(chunk_nll, x[:, sl], labels[:, sl],
+                                       mc_all[:, sl], use_reentrant=False,
+                                       preserve_rng_state=False)
+            return tot / torch.clamp(mc_all.sum(), min=1.0)
+        logits = self._project(params, x)
+        lse = torch.logsumexp(logits, dim=-1)
+        nll = lse - logits.gather(-1, labels[..., None])[..., 0]
+        if mask is None:
+            return nll.mean()
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None,
@@ -401,7 +539,7 @@ class TransformerLM(nn.Module):
         x = self._embed(params, ids, positions)
         t = bsl + nc
 
-        for i in range(c.num_layers):
+        for i, bp in enumerate(layer_views(params["blocks"])):
             pk, pv = pool_k[i], pool_v[i]
 
             def attend(q, k, v, pk=pk, pv=pv):
@@ -417,7 +555,7 @@ class TransformerLM(nn.Module):
                         q[0, bsl:].contiguous(), pk, pv, chunk_start,
                         chunk_len, ctable))
                 return torch.cat(parts).reshape(1, t, -1)
-            x = self._block(layer_params(params["blocks"], i), x, attend)
+            x = self._block(bp, x, attend)
         x = self._norm(params["ln_f"], x)
         rows = [x[0, :bsl]]
         if nc:

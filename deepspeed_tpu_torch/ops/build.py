@@ -31,7 +31,8 @@ BUILD_DIR = _PKG / "_build"
 
 #: every kernel source of the port, by library name
 KERNELS = ("decode_attention", "paged_decode_attention",
-           "paged_prefill_attention")
+           "paged_prefill_attention", "flash_attention_fwd",
+           "flash_attention_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,545 @@
+"""Master training configuration of the port.
+
+Counterpart of ``deepspeed_tpu/runtime/config.py``: the same DeepSpeed
+JSON keys, defaults and validation messages, on ``dataclasses`` built by
+``runtime/config_utils.py``.  The batch triple follows the same rule:
+
+    train_batch_size == micro_batch_per_device * gradient_accumulation_steps
+                        * data_parallel_world_size
+
+given any two, the third is inferred; all three given must agree.
+
+This slice trains on one device.  Blocks it parses but does not run are
+refused by :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls
+it) with ``NotImplementedError`` naming the ``ROADMAP.md`` queue A slice
+that brings them: ``fp16``, ZeRO stage > 0 and offload, a mesh of more
+than one device, pipeline stages, tensor and sequence parallelism, and
+the monitor and observability blocks.
+"""
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+from . import constants as C
+from .config_utils import dict_raise_error_on_duplicate_keys, from_dict
+
+
+# -- precision ---------------------------------------------------------------------
+@dataclass
+class FP16Config:
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = C.FP16_LOSS_SCALE_DEFAULT  # 0 => dynamic
+    initial_scale_power: int = C.FP16_INITIAL_SCALE_POWER_DEFAULT
+    loss_scale_window: int = C.FP16_LOSS_SCALE_WINDOW_DEFAULT
+    hysteresis: int = C.FP16_HYSTERESIS_DEFAULT
+    min_loss_scale: float = C.FP16_MIN_LOSS_SCALE_DEFAULT
+
+    @property
+    def dynamic(self) -> bool:
+        return self.enabled and self.loss_scale == 0
+
+
+@dataclass
+class BF16Config:
+    """bf16 compute over f32 master params (``master_weights``)."""
+    enabled: bool = False
+    master_weights: bool = True
+
+
+# -- ZeRO --------------------------------------------------------------------------------
+_OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+@dataclass
+class ZeroConfig:
+    """``zero_optimization`` block.  Only stage 0 (replicated state on one
+    device) runs in this slice; the offload sub-blocks are kept as
+    dicts and refused when they name a device."""
+    stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = int(5e8)
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = int(5e8)
+    overlap_comm: Optional[bool] = None
+    load_from_fp32_weights: bool = True
+    elastic_checkpoint: bool = False
+    offload_param: Optional[Dict[str, Any]] = None
+    offload_optimizer: Optional[Dict[str, Any]] = None
+    sub_group_size: int = int(1e9)
+    cpu_offload: Optional[bool] = None
+    cpu_offload_params: Optional[bool] = None
+    prefetch_bucket_size: int = int(5e7)
+    param_persistence_threshold: int = int(1e5)
+    model_persistence_threshold: int = int(1e14)
+    max_live_parameters: int = int(1e9)
+    max_reuse_distance: int = int(1e9)
+    gather_16bit_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    legacy_stage1: bool = False
+    round_robin_gradients: bool = False
+    zero_hpz_partition_size: int = 1
+    stage3_scan_layers: int = 0
+    infinity_host_init: bool = False
+    offload_wire_bits: int = 0
+    offload_param_bits: int = 0
+
+    def __post_init__(self):
+        if not 0 <= self.stage <= 3:
+            raise ValueError(
+                f"zero_optimization.stage must be 0..3, got {self.stage}")
+        if self.offload_param_bits not in (0, 4, 8):
+            raise ValueError(
+                f"zero_optimization.offload_param_bits must be 0, 4 or 8; "
+                f"got {self.offload_param_bits}")
+        if self.offload_wire_bits not in (0, 1, 4, 8):
+            raise ValueError(
+                f"zero_optimization.offload_wire_bits must be 0, 1, 4 or "
+                f"8; got {self.offload_wire_bits}")
+        for name in ("offload_param", "offload_optimizer"):
+            block = getattr(self, name)
+            if block is None:
+                continue
+            if not isinstance(block, dict):
+                raise ValueError(f"zero_optimization.{name}: expected a "
+                                 f"JSON object")
+            dev = block.get("device", "none")
+            if dev not in _OFFLOAD_DEVICES:
+                raise ValueError(f"zero_optimization.{name}.device must be "
+                                 f"one of {list(_OFFLOAD_DEVICES)}, got "
+                                 f"{dev!r}")
+
+    def offload_device(self, name: str) -> str:
+        """The device an offload sub-block names ("none" when absent);
+        the deprecated ``cpu_offload``/``cpu_offload_params`` aliases
+        count as "cpu"."""
+        block = getattr(self, name)
+        alias = (self.cpu_offload if name == "offload_optimizer"
+                 else self.cpu_offload_params)
+        if block is None:
+            return "cpu" if alias else "none"
+        return block.get("device", "none")
+
+
+# -- optimizer / scheduler --------------------------------------------------------
+@dataclass
+class OptimizerConfig:
+    type: str = "AdamW"
+    params: Dict[str, Any] = field(default_factory=dict)
+    legacy_fusion: bool = False
+
+
+@dataclass
+class SchedulerConfig:
+    type: str = "WarmupLR"
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+# -- topology ---------------------------------------------------------------------------
+@dataclass
+class MeshConfig:
+    """Named-axis device mesh; -1 absorbs the remaining devices (``data``
+    defaults to -1).  On one device every axis resolves to 1."""
+    data: int = -1
+    model: int = 1
+    pipe: int = 1
+    expert: int = 1
+    sequence: int = 1
+    dcn_data: int = 1
+
+    def sizes(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model, "pipe": self.pipe,
+                "expert": self.expert, "sequence": self.sequence,
+                "dcn_data": self.dcn_data}
+
+
+@dataclass
+class PipelineConfig:
+    stages: Any = C.PIPE_STAGES_DEFAULT
+    partition: str = "parameters"
+    seed_layers: bool = False
+    activation_checkpoint_interval: int = 0
+    pipe_partitioned: bool = True
+    grad_partitioned: bool = True
+    micro_batches: Optional[int] = None
+    schedule: str = C.PIPE_SCHEDULE_DEFAULT
+
+    def __post_init__(self):
+        s = self.stages
+        if isinstance(s, str) and s != "auto":
+            if not s.isdigit():
+                raise ValueError(
+                    f"pipeline.stages must be 'auto' or a positive int, "
+                    f"got {s!r}")
+            self.stages = int(s)
+        if isinstance(self.stages, int) and self.stages < 1:
+            raise ValueError(
+                f"pipeline.stages must be >= 1, got {self.stages}")
+        if self.schedule not in C.PIPE_SCHEDULES:
+            raise ValueError(
+                f"pipeline.schedule must be one of {C.PIPE_SCHEDULES}, "
+                f"got {self.schedule!r}")
+
+
+@dataclass
+class SequenceParallelConfig:
+    enabled: bool = False
+    mode: str = "ring"
+    axis: str = "sequence"
+
+
+@dataclass
+class TensorParallelConfig:
+    enabled: bool = False
+    tp_size: int = 1
+    autotp_size: int = 0
+
+
+# -- monitors -----------------------------------------------------------------------
+@dataclass
+class TensorBoardConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJobName"
+
+
+@dataclass
+class WandbConfig:
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed_tpu"
+
+
+@dataclass
+class CSVConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJobName"
+
+
+@dataclass
+class MonitorConfig:
+    tensorboard: TensorBoardConfig = field(default_factory=TensorBoardConfig)
+    wandb: WandbConfig = field(default_factory=WandbConfig)
+    csv_monitor: CSVConfig = field(default_factory=CSVConfig)
+
+    @property
+    def enabled(self) -> bool:
+        return (self.tensorboard.enabled or self.wandb.enabled
+                or self.csv_monitor.enabled)
+
+
+# -- resilience ---------------------------------------------------------------------
+@dataclass
+class ResilienceConfig:
+    """``resilience`` block.  The training step reads
+    ``skip_nonfinite_grad_steps``; the checkpoint, retry, liveness and
+    fault-injection keys parse for schema parity."""
+    checkpoint_integrity: bool = C.RESILIENCE_CHECKPOINT_INTEGRITY_DEFAULT
+    verify_on_save: bool = C.RESILIENCE_VERIFY_ON_SAVE_DEFAULT
+    fallback_to_last_good: bool = C.RESILIENCE_FALLBACK_DEFAULT
+    io_retry_attempts: int = C.RESILIENCE_IO_RETRY_ATTEMPTS_DEFAULT
+    io_retry_base_delay_s: float = C.RESILIENCE_IO_RETRY_BASE_DELAY_DEFAULT
+    io_retry_max_delay_s: float = C.RESILIENCE_IO_RETRY_MAX_DELAY_DEFAULT
+    io_retry_jitter: float = C.RESILIENCE_IO_RETRY_JITTER_DEFAULT
+    skip_nonfinite_grad_steps: bool = C.RESILIENCE_SKIP_NONFINITE_DEFAULT
+    heartbeat_interval_s: float = C.RESILIENCE_HEARTBEAT_INTERVAL_DEFAULT
+    watchdog_timeout_s: float = C.RESILIENCE_WATCHDOG_TIMEOUT_DEFAULT
+    fault_injection: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.io_retry_attempts < 1:
+            raise ValueError(
+                f"resilience.io_retry_attempts must be >= 1, got "
+                f"{self.io_retry_attempts}")
+        if self.io_retry_base_delay_s < 0 or \
+                self.io_retry_max_delay_s < self.io_retry_base_delay_s:
+            raise ValueError(
+                "resilience: need 0 <= io_retry_base_delay_s <= "
+                f"io_retry_max_delay_s, got {self.io_retry_base_delay_s}/"
+                f"{self.io_retry_max_delay_s}")
+        if not 0.0 <= self.io_retry_jitter <= 1.0:
+            raise ValueError(
+                f"resilience.io_retry_jitter must be in [0, 1], got "
+                f"{self.io_retry_jitter}")
+        if self.watchdog_timeout_s < 0 or self.heartbeat_interval_s <= 0:
+            raise ValueError(
+                "resilience: watchdog_timeout_s must be >= 0 (0 disables) "
+                "and heartbeat_interval_s > 0")
+        if self.watchdog_timeout_s and \
+                self.watchdog_timeout_s < 2 * self.heartbeat_interval_s:
+            raise ValueError(
+                f"resilience.watchdog_timeout_s "
+                f"({self.watchdog_timeout_s}) must be at least twice "
+                f"heartbeat_interval_s ({self.heartbeat_interval_s}) or a "
+                f"healthy worker one beat behind gets killed")
+
+
+# -- training hot path --------------------------------------------------------------
+#: remat policies the JAX model accepts; the port runs "none" and "full"
+TRAINING_REMAT_POLICIES = ("none", "full", "dots_saveable",
+                           "dots_no_batch", "nothing_saveable",
+                           "host_offload")
+
+
+@dataclass
+class TrainingConfig:
+    """``training`` block: per-run overrides of the model's hot-path
+    knobs (None = keep the model config's setting), applied by the
+    engine when it is built."""
+    remat: Optional[str] = C.TRAINING_REMAT_DEFAULT
+    fused_loss_head: Optional[bool] = C.TRAINING_FUSED_LOSS_HEAD_DEFAULT
+    loss_chunk: Optional[int] = C.TRAINING_LOSS_CHUNK_DEFAULT
+    donate_batch: bool = C.TRAINING_DONATE_BATCH_DEFAULT
+
+    def __post_init__(self):
+        if self.remat is not None and \
+                self.remat not in TRAINING_REMAT_POLICIES:
+            raise ValueError(
+                f"training.remat must be one of "
+                f"{list(TRAINING_REMAT_POLICIES)}, got {self.remat!r}")
+        if self.loss_chunk is not None and self.loss_chunk < 0:
+            raise ValueError(
+                f"training.loss_chunk must be >= 0 (0 = dense), got "
+                f"{self.loss_chunk}")
+
+    def model_overrides(self) -> Dict[str, Any]:
+        """The non-None model-config overrides this block carries."""
+        return {k: getattr(self, k)
+                for k in ("remat", "fused_loss_head", "loss_chunk")
+                if getattr(self, k) is not None}
+
+
+def _block(cls, pd: dict, key: str):
+    return from_dict(cls, pd.get(key), key)
+
+
+# -- master config --------------------------------------------------------------------
+class DeepSpeedConfig:
+    """Parses the master dict (or a JSON path) and exposes the typed
+    blocks, as the JAX ``DeepSpeedConfig`` does."""
+
+    def __init__(self, config: Any, world_size: Optional[int] = None):
+        if isinstance(config, str):
+            with open(config, "r") as f:
+                self._param_dict = json.load(
+                    f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
+        elif isinstance(config, dict):
+            self._param_dict = dict(config)
+        else:
+            raise ValueError(
+                f"Expected a dict or a json path, got {type(config)}")
+        self._world_size = world_size
+        self._initialize_params(self._param_dict)
+        self._configure_train_batch_size()
+        self._do_sanity_check()
+
+    def _initialize_params(self, pd: dict) -> None:
+        g = pd.get
+        self.train_batch_size = g(C.TRAIN_BATCH_SIZE,
+                                  C.TRAIN_BATCH_SIZE_DEFAULT)
+        self.train_micro_batch_size_per_gpu = g(
+            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT)
+        self.gradient_accumulation_steps = g(
+            C.GRADIENT_ACCUMULATION_STEPS,
+            C.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
+        self.steps_per_print = g(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
+        self.dump_state = g(C.DUMP_STATE, False)
+        self.gradient_clipping = g(C.GRADIENT_CLIPPING,
+                                   C.GRADIENT_CLIPPING_DEFAULT)
+        # legacy DeepSpeed alias: top-level max_grad_norm == gradient_clipping
+        mgn = g(C.MAX_GRAD_NORM)
+        if mgn is not None:
+            if C.GRADIENT_CLIPPING in pd and pd[C.GRADIENT_CLIPPING] != mgn:
+                raise ValueError(
+                    f"both {C.GRADIENT_CLIPPING} "
+                    f"({pd[C.GRADIENT_CLIPPING]}) and its legacy alias "
+                    f"{C.MAX_GRAD_NORM} ({mgn}) are set and disagree")
+            self.gradient_clipping = mgn
+        amp = g(C.AMP) or {}
+        amp_on = (amp.get("enabled", False) if isinstance(amp, dict)
+                  else bool(amp))
+        if amp_on:
+            raise NotImplementedError(
+                "amp (apex) is CUDA-specific and not supported on TPU — "
+                "use bf16: {enabled: true} (native) or fp16 with dynamic "
+                "loss scaling instead")
+        self.prescale_gradients = g(C.PRESCALE_GRADIENTS,
+                                    C.PRESCALE_GRADIENTS_DEFAULT)
+        self.gradient_predivide_factor = g(
+            C.GRADIENT_PREDIVIDE_FACTOR, C.GRADIENT_PREDIVIDE_FACTOR_DEFAULT)
+        self.sparse_gradients_enabled = g(C.SPARSE_GRADIENTS,
+                                          C.SPARSE_GRADIENTS_DEFAULT)
+        self.wall_clock_breakdown = g(C.WALL_CLOCK_BREAKDOWN,
+                                      C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.communication_data_type = g(C.COMMUNICATION_DATA_TYPE)
+        self.disable_allgather = g(C.DISABLE_ALLGATHER, False)
+        self.memory_breakdown = g(C.MEMORY_BREAKDOWN, False)
+
+        self.fp16 = _block(FP16Config, pd, C.FP16)
+        self.bf16 = _block(BF16Config, pd, C.BF16)
+        self.zero_config = _block(ZeroConfig, pd, C.ZERO_OPTIMIZATION)
+        self.optimizer = (_block(OptimizerConfig, pd, C.OPTIMIZER)
+                          if C.OPTIMIZER in pd else None)
+        self.scheduler = (_block(SchedulerConfig, pd, C.SCHEDULER)
+                          if C.SCHEDULER in pd else None)
+        self.mesh = _block(MeshConfig, pd, C.MESH)
+        self.pipeline = _block(PipelineConfig, pd, C.PIPELINE)
+        self.sequence_parallel = _block(SequenceParallelConfig, pd,
+                                        C.SEQUENCE_PARALLEL)
+        self.tensor_parallel = _block(TensorParallelConfig, pd,
+                                      C.TENSOR_PARALLEL)
+        self.monitor = MonitorConfig(
+            tensorboard=_block(TensorBoardConfig, pd, C.MONITOR_TENSORBOARD),
+            wandb=_block(WandbConfig, pd, C.MONITOR_WANDB),
+            csv_monitor=_block(CSVConfig, pd, C.MONITOR_CSV))
+        self.resilience = _block(ResilienceConfig, pd, C.RESILIENCE)
+        self.training = _block(TrainingConfig, pd, C.TRAINING)
+        # blocks whose subsystems are later slices: kept as given
+        self.observability_dict = g(C.OBSERVABILITY)
+        self.activation_checkpointing_dict = g(C.ACTIVATION_CHECKPOINTING)
+        self.flops_profiler_dict = g(C.FLOPS_PROFILER)
+        self.checkpoint_dict = g(C.CHECKPOINT)
+        self.comms_logger_dict = g(C.COMMS_LOGGER)
+        self.aio_dict = g(C.AIO)
+        self.elasticity_dict = g(C.ELASTICITY)
+        self.autotuning_dict = g(C.AUTOTUNING)
+        self.compression_dict = g(C.COMPRESSION_TRAINING)
+        self.data_efficiency_dict = g(C.DATA_EFFICIENCY)
+        self.curriculum_learning_legacy = g(C.CURRICULUM_LEARNING_LEGACY)
+
+    @property
+    def zero_enabled(self) -> bool:
+        return self.zero_config.stage > 0
+
+    @property
+    def zero_optimization_stage(self) -> int:
+        return self.zero_config.stage
+
+    @property
+    def precision_dtype(self) -> str:
+        if self.bf16.enabled:
+            return "bfloat16"
+        if self.fp16.enabled:
+            return "float16"
+        return "float32"
+
+    # -- batch reconciliation -------------------------------------------------
+    def _configure_train_batch_size(self) -> None:
+        if not hasattr(self, "_user_batch_triple"):
+            self._user_batch_triple = (self.train_batch_size,
+                                       self.train_micro_batch_size_per_gpu,
+                                       self.gradient_accumulation_steps)
+        tb, mb, gas = self._user_batch_triple
+        ws = self._world_size
+
+        def _exact_div(num, den, what):
+            if num % den != 0:
+                raise ValueError(
+                    f"train_batch_size ({num}) is not divisible by {what} "
+                    f"({den}); the triple train_batch = micro_batch * "
+                    f"gradient_accumulation_steps * dp_world must hold exactly")
+            return num // den
+
+        if ws is not None:
+            if tb is not None and mb is not None and gas is not None:
+                if tb != mb * gas * ws:
+                    raise ValueError(
+                        f"train_batch_size ({tb}) != micro_batch ({mb}) * "
+                        f"gradient_accumulation_steps ({gas}) * dp_world ({ws})")
+            elif tb is not None and mb is not None:
+                gas = _exact_div(tb, mb * ws, "micro_batch * dp_world")
+            elif tb is not None and gas is not None:
+                mb = _exact_div(tb, gas * ws,
+                                "gradient_accumulation_steps * dp_world")
+            elif mb is not None and gas is not None:
+                tb = mb * gas * ws
+            elif tb is not None:
+                gas = 1
+                mb = _exact_div(tb, ws, "dp_world")
+            elif mb is not None:
+                gas = 1
+                tb = mb * ws
+            else:
+                raise ValueError(
+                    "Need at least train_batch_size or "
+                    "train_micro_batch_size_per_gpu in config")
+        else:
+            if gas is None:
+                gas = 1
+            if mb is None and tb is not None:
+                mb = tb  # resolved once the device count is known
+        self.train_batch_size = tb
+        self.train_micro_batch_size_per_gpu = mb
+        self.gradient_accumulation_steps = gas
+
+    def resolve_batch_sizes(self, dp_world: int) -> None:
+        """Re-run the triple reconciliation once the data-parallel world
+        size is known (1 on one device)."""
+        self._world_size = dp_world
+        self._configure_train_batch_size()
+        self._do_sanity_check()
+
+    def _do_sanity_check(self) -> None:
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
+        for v, name in ((self.train_batch_size, C.TRAIN_BATCH_SIZE),
+                        (self.train_micro_batch_size_per_gpu,
+                         C.TRAIN_MICRO_BATCH_SIZE_PER_GPU),
+                        (self.gradient_accumulation_steps,
+                         C.GRADIENT_ACCUMULATION_STEPS)):
+            if v is not None and v <= 0:
+                raise ValueError(f"{name} must be positive, got {v}")
+        z = self.zero_config
+        if z.stage < 3 and z.offload_device("offload_param") != "none":
+            raise ValueError("offload_param requires ZeRO stage 3")
+
+    # -- this slice ------------------------------------------------------------------
+    def refuse_out_of_slice(self) -> None:
+        """Raise ``NotImplementedError`` for every block this slice of
+        the port parses but cannot run, naming the slice that brings it."""
+        later: List[str] = []
+        if self.fp16.enabled:
+            later.append("fp16 (dynamic loss scaling): the training "
+                         "follow-ups of queue A item 1")
+        if self.zero_config.stage > 0:
+            later.append(f"zero_optimization.stage "
+                         f"{self.zero_config.stage}: multi-device (queue A "
+                         f"item 7)")
+        for name in ("offload_param", "offload_optimizer"):
+            if self.zero_config.offload_device(name) != "none":
+                later.append(f"zero_optimization.{name}: offload (queue A "
+                             f"item 8)")
+        big = {k: v for k, v in self.mesh.sizes().items()
+               if v not in (1, -1)}
+        if big:
+            later.append(f"mesh {big}: a mesh of more than one device "
+                         f"(queue A item 7)")
+        if self.pipeline.stages not in ("auto", 1):
+            later.append(f"pipeline.stages {self.pipeline.stages}: pipeline "
+                         f"parallelism (queue A item 7)")
+        if self.sequence_parallel.enabled:
+            later.append("sequence_parallel: multi-device (queue A item 7)")
+        if self.tensor_parallel.enabled and \
+                max(self.tensor_parallel.tp_size,
+                    self.tensor_parallel.autotp_size) > 1:
+            later.append("tensor_parallel: multi-device (queue A item 7)")
+        if self.monitor.enabled:
+            later.append("tensorboard / wandb / csv_monitor: monitors "
+                         "(queue A item 9)")
+        if self.observability_dict:
+            later.append("observability: tracing and metrics (queue A "
+                         "item 4)")
+        if later:
+            raise NotImplementedError(
+                "not in the training slice of the PyTorch port: "
+                + "; ".join(later) + " (see ROADMAP.md queue A)")
+
+    def print_config(self) -> str:
+        return json.dumps(self._param_dict, indent=2, sort_keys=True,
+                          default=str)

@@ -1,0 +1,379 @@
+"""Training engine of the port on one device.
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``)
+for ZeRO stage 0 on one card: the same state tree, the same step
+semantics, the same native (``train_step``/``train_batch``) and compat
+(``forward``/``backward``/``step``) surfaces.  Where the JAX engine
+compiles the step into one program, this one runs it eagerly:
+
+* state: ``{"step", "skipped", "params", "opt": {"step", "m", "v"}}``
+  with float32 master params and moments and int32 counters, all on the
+  engine's device;
+* each micro batch runs the model's loss on the params cast to the
+  compute dtype (bf16 with ``bf16.enabled``); the gradient reaches the
+  float32 masters through the cast's backward, and the gas loop sums
+  float32 gradients and scaled losses;
+* ``_apply_grads`` divides by ``scale * gas``, takes the global norm
+  before clipping, clips by ``min(1, clip / max(norm, 1e-6))``, reads
+  the lr of ``state["step"]`` before the increment, and on overflow or a
+  non-finite norm keeps params, moments and Adam's step (``torch.where``
+  on the device, no host sync) while ``skipped`` counts the step.
+
+Metrics come back as device tensors, as the JAX engine returns device
+scalars; nothing in a step waits for the card unless ``steps_per_print``
+or ``wall_clock_breakdown`` asks to read them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..accelerator import resolve_device
+from ..models.convert import check_params, leaf_to_torch
+from ..utils.logging import logger
+from . import lr_schedules
+from .config import DeepSpeedConfig
+from .optimizers import Optimizer, get_optimizer, tree_leaves, tree_map
+
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                   "float32": torch.float32}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree_leaves(tree)))
+
+
+class DeepSpeedEngine:
+    """Training engine on one device (``device`` None = the card; raises
+    without one).  ``params`` seeds the masters (a tree of tensors or
+    numpy arrays, e.g. from the JAX package through
+    ``models/convert.py``); without it the model's own init runs from
+    ``seed``."""
+
+    def __init__(self, model, config: Any = None,
+                 optimizer: Optional[Optimizer] = None,
+                 lr_scheduler: Optional[Callable] = None,
+                 loss_fn: Optional[Callable] = None,
+                 params: Optional[Dict[str, Any]] = None,
+                 device=None, seed: int = 0):
+        self._config = (config if isinstance(config, DeepSpeedConfig)
+                        else DeepSpeedConfig(config or {}))
+        self._config.refuse_out_of_slice()
+        self.device = resolve_device(device)
+        model = self._apply_training_overrides(model)
+        self.model = model
+        self.dp_world_size = 1
+        self._config.resolve_batch_sizes(self.dp_world_size)
+        self.zero_stage = self._config.zero_optimization_stage
+        self.fp16_enabled = self._config.fp16.enabled
+        self.bf16_enabled = self._config.bf16.enabled
+        self.compute_dtype = _COMPUTE_DTYPES[self._config.precision_dtype]
+        self.gradient_accumulation_steps = (
+            self._config.gradient_accumulation_steps or 1)
+        self.train_micro_batch_size_per_gpu = \
+            self._config.train_micro_batch_size_per_gpu
+        self.train_batch_size = self._config.train_batch_size
+        self._loss_fn = loss_fn or getattr(model, "loss", None)
+        if self._loss_fn is None:
+            raise ValueError("Need model.loss or an explicit loss_fn")
+        if isinstance(optimizer, Optimizer):
+            self.optimizer = optimizer
+        elif optimizer is not None:
+            raise NotImplementedError(
+                "the PyTorch port takes an Optimizer from "
+                "runtime/optimizers.get_optimizer or the config's "
+                "optimizer block")
+        else:
+            oc = self._config.optimizer
+            self.optimizer = (get_optimizer("adamw") if oc is None else
+                              get_optimizer(oc.type, **dict(oc.params)))
+        self.lr_schedule = self._configure_lr_schedule(lr_scheduler)
+        self.loss_scaler = None         # fp16 is refused above
+        self.global_steps = 0
+        self.micro_steps = 0
+        self._step_times: list = []
+        self.state = self.init_state(params, seed)
+        self._grad_acc = None
+        self._grad_acc_count = 0
+        self._last_metrics: Optional[Dict[str, torch.Tensor]] = None
+        self._last_lr = float(self.optimizer.hyperparams.get("lr", 0.0))
+
+    # ------------------------------------------------------------------
+    # configuration
+    # ------------------------------------------------------------------
+    def _configure_lr_schedule(self, lr_scheduler):
+        if callable(lr_scheduler):
+            return lr_scheduler
+        sc = self._config.scheduler
+        if sc is None:
+            return lr_schedules.constant_lr(
+                self.optimizer.hyperparams.get("lr", 1e-3))
+        return lr_schedules.get_lr_schedule(sc.type, dict(sc.params))
+
+    def _apply_training_overrides(self, model):
+        """Rebuild ``model`` with the ``training`` block's model-side
+        overrides (remat / fused_loss_head / loss_chunk)."""
+        overrides = self._config.training.model_overrides()
+        if not overrides:
+            return model
+        mcfg = getattr(model, "config", None)
+        if mcfg is None or not dataclasses.is_dataclass(mcfg):
+            raise ValueError(
+                f"config has training overrides {sorted(overrides)} but "
+                f"{type(model).__name__} has no dataclass .config to "
+                f"rebuild from")
+        applicable = {k: v for k, v in overrides.items()
+                      if hasattr(mcfg, k)}
+        missing = set(overrides) - set(applicable)
+        if missing:
+            raise ValueError(
+                f"training overrides {sorted(missing)} have no matching "
+                f"field on {type(mcfg).__name__}")
+        if all(getattr(mcfg, k) == v for k, v in applicable.items()):
+            return model
+        return type(model)(dataclasses.replace(mcfg, **applicable))
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+    def init_state(self, params: Optional[Dict[str, Any]] = None,
+                   seed: int = 0) -> Dict[str, Any]:
+        """The train state on the engine's device: float32 masters (bf16
+        when ``bf16.master_weights`` is off), float32 moments, int32
+        counters."""
+        if params is None:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed)
+            params = self.model.init(g, self.device, torch.float32)
+        else:
+            if hasattr(self.model, "param_shapes"):
+                check_params(self.model, params)
+            params = tree_map(
+                lambda a: (a if isinstance(a, torch.Tensor)
+                           else leaf_to_torch(a, "cpu")).to(
+                    self.device, torch.float32), params)
+        if not self._config.bf16.master_weights and self.bf16_enabled:
+            params = tree_map(lambda p: p.to(torch.bfloat16), params)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        return {"step": zero.clone(), "skipped": zero.clone(),
+                "params": params, "opt": self.optimizer.init(params)}
+
+    def _cast_for_compute(self, params):
+        if self.compute_dtype == torch.float32:
+            return params
+        return tree_map(lambda p: p.to(self.compute_dtype)
+                        if p.is_floating_point() else p, params)
+
+    def _current_scale(self) -> torch.Tensor:
+        return torch.ones((), dtype=torch.float32, device=self.device)
+
+    def _micro_loss_and_grads(self, params, micro_batch, scale):
+        """(scaled loss, float32 grads of the masters) of one micro
+        batch: the loss runs on the compute-dtype cast of the masters and
+        the gradient comes back through the cast."""
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = self._loss_fn(self._cast_for_compute(leaves),
+                             micro_batch) * scale
+        flat = list(tree_leaves(leaves))
+        grads = torch.autograd.grad(loss, flat)
+        it = iter(g.to(torch.float32) for g in grads)
+        return loss.detach(), tree_map(lambda _: next(it), leaves)
+
+    def _accumulate_micro_grads(self, state, batch, scale):
+        """The gas loop: sum float32 grads and scaled losses over the
+        micro batches of ``batch`` (leaves ``[gas, micro, ...]``)."""
+        gsum, lsum = None, torch.zeros((), dtype=torch.float32,
+                                       device=self.device)
+        for i in range(self.gradient_accumulation_steps):
+            mb = {k: v[i] for k, v in batch.items()}
+            loss, grads = self._micro_loss_and_grads(state["params"], mb,
+                                                     scale)
+            gsum = grads if gsum is None else tree_map(torch.add, gsum,
+                                                       grads)
+            lsum = lsum + loss
+        return gsum, lsum
+
+    def _apply_grads(self, state, grads, n_micro, overflow=None):
+        """Summed grads → clipped AdamW update → (new state, metrics)."""
+        cfg = self._config
+        scale = self._current_scale()
+        denom = scale * n_micro
+        grads = tree_map(lambda g: g.to(torch.float32) / denom, grads)
+        if overflow is None:
+            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        gnorm = global_norm(grads)
+        if cfg.resilience.skip_nonfinite_grad_steps:
+            # a NaN/Inf global norm would poison params and moments:
+            # skip the update and count it in state["skipped"]
+            overflow = overflow | ~torch.isfinite(gnorm)
+        if cfg.gradient_clipping and cfg.gradient_clipping > 0:
+            factor = torch.clamp(
+                cfg.gradient_clipping / torch.clamp(gnorm, min=1e-6),
+                max=1.0)
+            grads = tree_map(lambda g: g * factor, grads)
+        lr = self.lr_schedule(state["step"])
+        new_params, new_opt = self.optimizer.apply(
+            grads, state["opt"], state["params"], lr)
+
+        def select(new, old):
+            return tree_map(lambda n, o: torch.where(overflow, o, n),
+                            new, old)
+        new_state = {
+            "step": state["step"] + (~overflow).to(torch.int32),
+            "skipped": state["skipped"] + overflow.to(torch.int32),
+            "params": select(new_params, state["params"]),
+            "opt": select(new_opt, state["opt"])}
+        metrics = {"grad_norm": gnorm, "lr": lr,
+                   "overflow": overflow.to(torch.int32),
+                   "loss_scale": scale}
+        return new_state, metrics
+
+    # ------------------------------------------------------------------
+    # native API
+    # ------------------------------------------------------------------
+    def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Host batch ``[gas * micro, ...]`` or ``[gas, micro, ...]`` →
+        tensors ``[gas, micro, ...]`` on the engine's device (token ids
+        as int64)."""
+        gas = self.gradient_accumulation_steps
+        global_b = self.train_batch_size
+
+        def prep(x):
+            t = x if isinstance(x, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+            if not t.is_floating_point():
+                t = t.long()
+            if t.dim() >= 1 and t.shape[0] == global_b:
+                t = t.reshape((gas, global_b // gas) + tuple(t.shape[1:]))
+            elif not (t.dim() >= 2 and t.shape[0] == gas):
+                raise ValueError(
+                    f"batch leading dim {t.shape[0]} matches neither the "
+                    f"batch ({global_b}) nor [gas={gas}, ...] layout")
+            return t.to(self.device, non_blocking=True)
+        return {k: prep(v) for k, v in batch.items()}
+
+    def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One optimizer step over ``gas`` micro batches; returns metrics
+        as device tensors (loss, grad_norm, lr, overflow, loss_scale)."""
+        batch = self.shard_batch(batch)
+        t0 = time.perf_counter()
+        scale = self._current_scale()
+        gsum, lsum = self._accumulate_micro_grads(self.state, batch, scale)
+        gas = self.gradient_accumulation_steps
+        self.state, metrics = self._apply_grads(self.state, gsum,
+                                                float(gas))
+        metrics["loss"] = lsum / (scale * gas)
+        self.global_steps += 1
+        self.micro_steps += gas
+        if self._config.wall_clock_breakdown:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._step_times.append(time.perf_counter() - t0)
+        self._last_metrics = metrics
+        self._post_step_observe(metrics)
+        return metrics
+
+    def _post_step_observe(self, metrics: Dict[str, torch.Tensor]) -> None:
+        """The periodic log line (reads the metrics: a host sync)."""
+        every = self._config.steps_per_print
+        if not every or self.global_steps % every:
+            return
+        m = {k: float(v) for k, v in metrics.items()}
+        logger.info(f"step={self.global_steps} loss={m['loss']:.4f} "
+                    f"lr={m['lr']:.3e} grad_norm={m['grad_norm']:.3f} "
+                    f"loss_scale={m['loss_scale']:.0f}")
+
+    def train_batch(self, data_iter: Optional[Iterable] = None,
+                    batch: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """Pull one batch from ``data_iter`` (a loader is iterated across
+        calls and restarted at its end) and step."""
+        if batch is None:
+            if not hasattr(data_iter, "__next__"):
+                if getattr(self, "_data_iter_src", None) is not data_iter:
+                    self._data_iter_src = data_iter
+                    self._data_iter = iter(data_iter)
+                try:
+                    batch = next(self._data_iter)
+                except StopIteration:
+                    self._data_iter = iter(data_iter)
+                    batch = next(self._data_iter)
+            else:
+                batch = next(data_iter)
+        return self.train_step(batch)
+
+    @torch.no_grad()
+    def eval_loss(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The loss of the whole batch (micro batches flattened), no
+        gradient."""
+        sq = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+              for k, v in self.shard_batch(batch).items()}
+        return self._loss_fn(self._cast_for_compute(self.state["params"]),
+                             sq)
+
+    # ------------------------------------------------------------------
+    # compat API: forward / backward / step
+    # ------------------------------------------------------------------
+    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Loss and gradients of one micro batch ``[micro, ...]``; the
+        gradients wait for :meth:`backward`."""
+        mb = {k: (v if isinstance(v, torch.Tensor) else
+                  torch.from_numpy(np.ascontiguousarray(np.asarray(v))))
+              for k, v in batch.items()}
+        mb = {k: (v if v.is_floating_point() else v.long()).to(self.device)
+              for k, v in mb.items()}
+        self._last_loss, self._last_grads = self._micro_loss_and_grads(
+            self.state["params"], mb, self._current_scale())
+        return self._last_loss
+
+    __call__ = forward
+
+    def backward(self, loss=None) -> None:
+        """Accumulate the gradients of the last forward."""
+        del loss  # the gradients were taken alongside forward
+        grads = self._last_grads
+        self._grad_acc = (grads if self._grad_acc is None else
+                          tree_map(torch.add, self._grad_acc, grads))
+        self._grad_acc_count += 1
+        self.micro_steps += 1
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self._grad_acc_count >= self.gradient_accumulation_steps
+
+    def step(self) -> None:
+        if self._grad_acc is None:
+            return
+        n = torch.tensor(float(self._grad_acc_count), dtype=torch.float32,
+                         device=self.device)
+        self.state, metrics = self._apply_grads(self.state, self._grad_acc,
+                                                n)
+        self._grad_acc = None
+        self._grad_acc_count = 0
+        self.global_steps += 1
+        self._last_metrics = metrics
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+    def get_lr(self) -> float:
+        return float(self.lr_schedule(self.state["step"]))
+
+    def get_global_grad_norm(self) -> Optional[float]:
+        m = self._last_metrics
+        return float(m["grad_norm"]) if m else None
+
+    @property
+    def skipped_steps(self) -> int:
+        return int(self.state["skipped"])
+
+    @property
+    def loss_scale(self) -> float:
+        return 1.0
+
+    def num_parameters(self) -> int:
+        return sum(int(p.numel()) for p in tree_leaves(self.state["params"]))

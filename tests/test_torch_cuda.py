@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B5, B6, B7) against their plain PyTorch
-versions, on the card.
+"""The port's CUDA kernels (B1, B2, B5, B6, B7) against their plain
+PyTorch versions, on the card.
 
 These tests need an NVIDIA card with ``nvcc`` (the kernels are built from
 ``deepspeed_tpu_torch/csrc`` at first use and have no CPU mode) and skip
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
+from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
 from deepspeed_tpu_torch.ops.transformer import paged_decode_attention as PA
 
 
@@ -82,3 +83,42 @@ def test_cuda_kernels_match_plain(dtype):
             want = PA.paged_prefill_attention_plain(qc, t(pk), t(pv), base,
                                                     clen, table)
             torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t_len,d", [(128, 64), (100, 64), (1000, 64),
+                                     (77, 16), (64, 128)])
+def test_cuda_flash_attention_matches_plain(dtype, causal, t_len, d):
+    """B1 (o, lse) and B2 (dq, dk, dv) on the card against their plain
+    versions on the same inputs: whole tiles, ragged T (100, 1000, 77:
+    rows past T never read) and four head dims.  Tolerance: f32 1e-4
+    (the kernel's online softmax and tile-by-tile sums round in another
+    order than the plain version's single pass); bf16 atol 4e-3, rtol
+    8e-3 (both sides round the same f32 values to bf16 at the same
+    points, so they differ by about one bf16 ulp, 2^-7 of the value)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    tol = (dict(atol=1e-4, rtol=1e-4) if dt == torch.float32
+           else dict(atol=4e-3, rtol=8e-3))
+    rng = np.random.default_rng(t_len + d + causal)
+
+    def t(*shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dt)
+    q, k, v, do = (t(6, t_len, d) for _ in range(4))
+    o, lse = FA.flash_attention_fwd(q, k, v, causal)
+    o_p, lse_p = FA.flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(o, o_p, **tol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    got = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **tol)
+    # deterministic: a second launch gives the same bits
+    again = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)

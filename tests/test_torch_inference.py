@@ -73,6 +73,20 @@ def test_generate_matches_jax_greedy(engines):
     assert stats["ttft_p50_ms"] > 0 and stats["p50_ms"] > 0
 
 
+def test_engine_forward_matches_jax(engines):
+    """``InferenceEngine.forward``: full-sequence logits through the
+    uncached forward with kernel injection (B1's plain version on the
+    CPU) against the JAX engine's forward on the same weights (its XLA
+    path), float32, atol = rtol = 1e-5."""
+    jeng, peng, _ = engines
+    assert peng.module.config.attn_impl == "flash"
+    x = np.random.RandomState(3).randint(0, 64, (3, 21)).astype(np.int32)
+    want = np.asarray(jeng.forward(x))
+    got = peng.forward(x)
+    assert tuple(got.shape) == (3, 21, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
 def test_serving_streams_match_generate(engines):
     """Eight staggered requests, four of them longer than the 16-token
     prefill chunk: every stream equals the port's and the JAX package's
@@ -247,9 +261,15 @@ def test_out_of_slice_serving_options_raise(engines, serving):
 
 
 def test_out_of_slice_entry_points_raise(engines):
+    """forward() runs B1 for a sequence of one block; past 1024 tokens
+    the JAX package runs the two-pass kernels B3/B4, a later slice."""
     _, peng, _ = engines
-    with pytest.raises(NotImplementedError, match="B1"):
-        peng.forward(np.zeros((1, 4), np.int32))
+    long = dt.init_inference(
+        tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
+                                        **{**TINY, "max_seq_len": 1100})),
+        BASE, device="cpu")
+    with pytest.raises(NotImplementedError, match="B3.*B4"):
+        long.forward(np.zeros((1, 1030), np.int32))
     with pytest.raises(NotImplementedError, match="speculative"):
         peng.serving_engine(draft_model=object())
 

@@ -128,9 +128,38 @@ def test_out_of_slice_families_raise(override):
 
 
 def test_uncached_flash_forward_raises():
-    """The uncached forward with kernel injection is flash attention
-    (kernel B1), a later slice."""
-    pm = port_model("flash")
-    with pytest.raises(NotImplementedError, match="B1"):
+    """The uncached forward with kernel injection runs flash attention
+    (kernels B1/B2) for a sequence that fits one block; past 1024 tokens
+    the JAX package runs the two-pass kernels B3/B4, a later slice."""
+    cfg = tt.gpt2_config("125m", dtype=torch.float32, attn_impl="flash",
+                         **{**TINY, "max_seq_len": 1100})
+    pm = tt.TransformerLM(cfg)
+    with pytest.raises(NotImplementedError, match="B3.*B4"):
         pm.apply(pm.init(torch.Generator().manual_seed(0), "cpu"),
-                 torch.zeros((1, 4), dtype=torch.long))
+                 torch.zeros((1, 1030), dtype=torch.long))
+
+
+@pytest.mark.parametrize("t", [11, 64])
+def test_uncached_flash_forward_matches_jax(weights, t):
+    """Full-sequence logits through flash attention (the port's B1 plain
+    version; the JAX Pallas kernel in interpret mode) on the same
+    weights."""
+    jp, tp = weights
+    x = ids(2, t, 2)
+    want = np.asarray(jax_model("flash").apply(jp, jnp.asarray(x)))
+    got = port_model("flash").apply(tp, torch.from_numpy(x).long()).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_layer_views_are_views_of_the_stack(weights):
+    """One unbind per leaf: layer i's leaves share storage with the
+    stacked tensors, and their gradient flows back as one stack."""
+    _, tp = weights
+    stack = tp["blocks"]["mlp"]["fc_in"]["kernel"].clone().requires_grad_()
+    layers = tt.layer_views({"mlp": {"fc_in": {"kernel": stack}}})
+    assert len(layers) == TINY["num_layers"]
+    assert layers[2]["mlp"]["fc_in"]["kernel"].data_ptr() == \
+        stack[2].data_ptr()
+    sum((i + 1) * l["mlp"]["fc_in"]["kernel"].sum()
+        for i, l in enumerate(layers)).backward()
+    assert [float(g.mean()) for g in stack.grad] == [1.0, 2.0, 3.0, 4.0]
