@@ -10,11 +10,14 @@ Phases (any failure exits non-zero and prints no result line):
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
 2. build: every kernel in ``deepspeed_tpu_torch/csrc`` with ``nvcc``
    (timed as set-up);
-3. each kernel against its plain PyTorch version at the slice's shapes
+3. each kernel against its plain PyTorch version at the slices' shapes
    (serving: GPT-3 6.7B heads, H=32, D=128; training: GPT-2 125M
-   attention, B*H = 64 x 12, T = 1024, D = 64; bf16), with its time, the
-   plain version's time, one PyTorch library call's time where one
-   computes the same function, and the least time the card could take;
+   attention, B*H = 64 x 12, T = 1024, D = 64, and TinyLlama-1.1B
+   attention, B*H = 8 x 32 query heads over B*KVH = 8 x 4 kv heads,
+   T = 2048, D = 64, also at a ragged T (2000), without the causal mask
+   and with one kv head per query head; bf16), with its time, the plain
+   version's time, one PyTorch library call's time where one computes
+   the same function, and the least time the card could take;
 4. ``init_inference(TransformerLM(gpt2_config("6.7b")))`` with random
    weights from seed 0, then ``generate()`` on 8 prompts of 128 tokens,
    64 new tokens, greedy: every decode step goes through kernel B5;
@@ -30,7 +33,18 @@ Phases (any failure exits non-zero and prints no result line):
    clipping 1.0), weights from seed 0, 20 ``train_step``s on one seeded
    batch: every layer's forward (twice, with the remat recompute) runs
    kernel B1 and its backward kernel B2; then the same step with plain
-   attention at micro batch 8 for 3 steps, checked against the kernels'.
+   attention at micro batch 8 for 3 steps, checked against the kernels';
+7. training TinyLlama-1.1B (``hf_llama_config`` on its published
+   config: all 22 layers, d_model 2048, 32 query heads over 4 kv heads,
+   seq 2048, micro 8, ``remat="full"``, flash attention, fused untied
+   loss head at chunk 256, AdamW lr 4e-4, weight decay 0.1, betas
+   (0.9, 0.95), clipping 1.0, bf16 over f32 masters), 10 steps on one
+   seeded batch: B1 with a kv group of 8 twice per layer, and B3 and B4
+   once (the sequence spans two 1024-row blocks and attention is
+   grouped), never B2; then flash against plain attention at micro 2;
+8. TinyLlama-1.1B served as in phases 4-5 (bf16, random weights from
+   seed 0): ``generate()`` on B5 over each kv group's expanded cache,
+   ``forward()`` on B1, and the server on B6/B7 at kv-head width.
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -66,14 +80,18 @@ KERNEL_ATOL, KERNEL_RTOL = 4e-3, 8e-3
 #: attention).
 LOGITS_REL_TOL = 0.05
 
-#: flash vs plain attention through the whole training step (3 steps at
-#: micro batch 8): bf16 activations are rounded at different places in
-#: the two attention paths (B1 rounds the probabilities before P.V and
-#: writes o once; the plain path rounds the probabilities and the P.V
-#: product), and AdamW's first steps amplify small gradient differences
-#: (the update is about lr * sign(g)), so the losses must agree to this
-#: fraction and the gradient norms to STEP_GNORM_REL_TOL (readings on an
-#: H100: at most 1.2e-4 and 2.7e-3).
+#: flash vs plain attention through the whole training step (3 steps,
+#: each taken by both from the same state): bf16 activations are rounded
+#: at different places in the two attention paths (B1 rounds the
+#: probabilities before P.V and writes o once; the plain path rounds the
+#: probabilities and the P.V product), so the losses must agree to this
+#: fraction and the gradient norms to STEP_GNORM_REL_TOL.  Each step
+#: starts from one state because AdamW's first updates are about
+#: lr * sign(g): rounding-level gradient differences become lr-sized
+#: parameter differences, and two free trajectories part within two or
+#: three steps (on an H100, TinyLlama-1.1B at micro 2 parted at its
+#: third step by 6x the loss limit with each earlier step within 0.1 of
+#: it).
 STEP_LOSS_REL_TOL = 2e-3
 STEP_GNORM_REL_TOL = 2e-2
 
@@ -83,7 +101,14 @@ LSE_ATOL = 1e-3
 #: the training phase: bench.py's GPT-2 125M step (seq 1024, micro 64)
 TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 20
 
+#: the TinyLlama-1.1B training phase: seq 2048, micro 8, 10 steps; flash
+#: against plain attention at micro 2
+LLAMA_SEQ, LLAMA_MICRO, LLAMA_STEPS, LLAMA_CHECK_MICRO = 2048, 8, 10, 2
+
 N_TIMED, N_WARM = 30, 5
+#: timed calls of a plain version over [B*H, 2048, 2048] scores (each
+#: takes tens of ms; its time is a yardstick, not a result)
+N_TIMED_PLAIN = 10
 
 
 def fail(msg: str) -> None:
@@ -101,8 +126,8 @@ def check(cond: bool, msg: str) -> None:
 SPIN_CYCLES = 2_000_000
 
 
-def time_ms(fn, torch, flush) -> float:
-    """Median device ms of one call of ``fn`` over N_TIMED calls after
+def time_ms(fn, torch, flush, n_timed: int = N_TIMED) -> float:
+    """Median device ms of one call of ``fn`` over ``n_timed`` calls after
     N_WARM, each between two CUDA events.  Before each call the L2 cache
     is flushed (a decode step finds it cold: 32 layers of KV exceed the
     50 MB L2), then a spin kernel holds the stream while the host
@@ -111,7 +136,7 @@ def time_ms(fn, torch, flush) -> float:
     for _ in range(N_WARM):
         fn()
     times = []
-    for _ in range(N_TIMED):
+    for _ in range(n_timed):
         flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
@@ -279,7 +304,29 @@ def kernel_checks(torch, dev, flush):
                        library_ms=None, bound_ms=bnd, bound_by=by))
     results["paged_prefill_attention"] = b7
     results.update(flash_checks(torch, dev, flush))
+    for name, cases in gqa_flash_checks(torch, dev, flush).items():
+        results.setdefault(name, []).extend(cases)
     return results
+
+
+def fault_keep(torch, T, causal, dev):
+    """The planted fault's visibility mask: each query's last visible key
+    left out (the diagonal key of rows >= 1 when causal; row 0 keeps its
+    only key), or the last key of every row without the causal mask."""
+    keep = torch.ones((T, T), dtype=torch.bool, device=dev)
+    if causal:
+        keep = keep.tril()
+        drop = torch.arange(1, T, device=dev)
+        keep[drop, drop] = False
+    else:
+        keep[:, T - 1] = False
+    return keep
+
+
+def flat(ts):
+    """One f32 vector of every tensor of ``ts`` (a kernel's outputs)."""
+    import torch
+    return torch.cat([t.float().flatten() for t in ts])
 
 
 def flash_checks(torch, dev, flush):
@@ -297,13 +344,7 @@ def flash_checks(torch, dev, flush):
     for T, causal in ((1024, True), (1000, True), (1024, False)):
         q, k, v, do = (torch.randn((BH, T, D), generator=g,
                                    device=dev).to(bf16) for _ in range(4))
-        keep = torch.ones((T, T), dtype=torch.bool, device=dev)
-        if causal:
-            keep = keep.tril()
-            drop = torch.arange(1, T, device=dev)
-            keep[drop, drop] = False          # the diagonal key, rows >= 1
-        else:
-            keep[:, T - 1] = False
+        keep = fault_keep(torch, T, causal, dev)
         case = f"B*H={BH} T={T} D={D} {'causal' if causal else 'full'}"
         # B1
         o, lse = FA.flash_attention_fwd(q, k, v, causal)
@@ -334,9 +375,6 @@ def flash_checks(torch, dev, flush):
                                              causal, keep=keep)
         again = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
         torch.cuda.synchronize()
-
-        def flat(ts):
-            return torch.cat([t.float().flatten() for t in ts])
         acc = agree(f"B2 {case}", flat(got), flat(want), flat(fault))
         rerun = max_err(flat(got), flat(again))
         check(rerun == 0.0, f"B2 {case}: two launches differ by {rerun}")
@@ -359,6 +397,118 @@ def flash_checks(torch, dev, flush):
     return {"flash_attention_fwd": b1, "flash_attention_bwd": b2}
 
 
+def gqa_flash_checks(torch, dev, flush):
+    """B1 with a kv group, B3 and B4 at TinyLlama-1.1B's training shape
+    (micro 8: B*H = 256 query heads over B*KVH = 32 kv heads, T = 2048,
+    D = 64, bf16, causal), at a ragged T (2000), without the causal mask,
+    and with one kv head per query head (g = 1) at T = 2048, which spans
+    two 1024-row blocks and so also runs B3/B4.  The planted fault is the
+    plain version with each query's last visible key left out; B3 and B4
+    are run twice and must give the same bits.  The yardstick is SDPA
+    with ``enable_gqa``: its forward for B1, its backward (dq, dk and dv
+    in one call) for B3 and B4 together."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(5678)
+    B, H, D = LLAMA_MICRO, 32, 64
+    BH = B * H
+    b1, b3, b4 = [], [], []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+    for T, causal, group in ((2048, True, 8), (2000, True, 8),
+                             (2048, False, 8), (2048, True, 1)):
+        BKV = BH // group
+        q, do = randn(BH, T, D), randn(BH, T, D)
+        k, v = randn(BKV, T, D), randn(BKV, T, D)
+        keep = fault_keep(torch, T, causal, dev)
+        case = (f"B*H={BH} B*KVH={BKV} T={T} D={D} "
+                f"{'causal' if causal else 'full'}")
+        pairs = BH * (T * (T + 1) // 2 if causal else T * T)
+        qbytes, kvbytes, rowbytes = BH * T * D * 2, BKV * T * D * 2, BH * T * 4
+        q4 = q.view(B, H, T, D)
+        k4, v4 = (x.view(B, H // group, T, D) for x in (k, v))
+        # B1
+        o, lse = FA.flash_attention_fwd(q, k, v, causal)
+        o_p, lse_p = FA.flash_attention_fwd_plain(q, k, v, causal)
+        o_f, _ = FA.flash_attention_fwd_plain(q, k, v, causal, keep=keep)
+        torch.cuda.synchronize()
+        acc = agree(f"B1 {case}", o, o_p, o_f)
+        lse_err = max_err(lse, lse_p)
+        check(lse_err <= LSE_ATOL, f"B1 {case}: lse off by {lse_err}")
+        del o_f
+        ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal), torch,
+                     flush)
+        plain = time_ms(lambda: FA.flash_attention_fwd_plain(q, k, v,
+                                                             causal),
+                        torch, flush, N_TIMED_PLAIN)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, enable_gqa=True), torch, flush)
+        bnd, by = bound_ms(2 * qbytes + 2 * kvbytes + rowbytes,
+                           4.0 * D * pairs)
+        b1.append(dict(case=case, **acc, lse_err=lse_err, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by))
+        del o, lse
+        # SDPA's backward: dq, dk and dv in one call (B3 + B4's yardstick)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                             enable_gqa=True)
+        do4 = do.view(B, H, T, D)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do4, retain_graph=True), torch, flush)
+        del out, qg, kg, vg
+        delta = (do.float() * o_p.float()).sum(dim=-1)
+        # B3, from the sound forward's o and lse
+        got = FA.flash_attention_bwd_dq(q, k, v, o_p, lse_p, do, causal)
+        again = FA.flash_attention_bwd_dq(q, k, v, o_p, lse_p, do, causal)
+        want = FA.flash_attention_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                               causal)
+        fault = FA.flash_attention_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                                causal, keep=keep)
+        torch.cuda.synchronize()
+        acc = agree(f"B3 {case}", got, want, fault)
+        rerun = max_err(got, again)
+        check(rerun == 0.0, f"B3 {case}: two launches differ by {rerun}")
+        del got, again, want, fault
+        ms = time_ms(lambda: FA.flash_attention_bwd_dq(
+            q, k, v, o_p, lse_p, do, causal, None, delta), torch, flush)
+        plain = time_ms(lambda: FA.flash_attention_bwd_dq_plain(
+            q, k, v, o_p, lse_p, do, causal), torch, flush, N_TIMED_PLAIN)
+        bnd, by = bound_ms(3 * qbytes + 2 * kvbytes + 2 * rowbytes,
+                           6.0 * D * pairs)
+        b3.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
+                       plain_ms=plain, library_ms=lib_bwd, bound_ms=bnd,
+                       bound_by=by))
+        # B4
+        got = FA.flash_attention_bwd_dkv(q, k, v, o_p, lse_p, do, causal)
+        again = FA.flash_attention_bwd_dkv(q, k, v, o_p, lse_p, do, causal)
+        want = FA.flash_attention_bwd_dkv_plain(q, k, v, o_p, lse_p, do,
+                                                causal)
+        fault = FA.flash_attention_bwd_dkv_plain(q, k, v, o_p, lse_p, do,
+                                                 causal, keep=keep)
+        torch.cuda.synchronize()
+        acc = agree(f"B4 {case}", flat(got), flat(want), flat(fault))
+        rerun = max_err(flat(got), flat(again))
+        check(rerun == 0.0, f"B4 {case}: two launches differ by {rerun}")
+        del got, again, want, fault
+        ms = time_ms(lambda: FA.flash_attention_bwd_dkv(
+            q, k, v, o_p, lse_p, do, causal, None, delta), torch, flush)
+        plain = time_ms(lambda: FA.flash_attention_bwd_dkv_plain(
+            q, k, v, o_p, lse_p, do, causal), torch, flush, N_TIMED_PLAIN)
+        bnd, by = bound_ms(2 * qbytes + 4 * kvbytes + 2 * rowbytes,
+                           8.0 * D * pairs)
+        b4.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
+                       plain_ms=plain, library_ms=lib_bwd, bound_ms=bnd,
+                       bound_by=by))
+        del q, k, v, do, o_p, lse_p, delta
+        torch.cuda.empty_cache()
+    return {"flash_attention_fwd": b1, "flash_attention_bwd_dq": b3,
+            "flash_attention_bwd_dkv": b4}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -371,10 +521,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import numpy as np
-    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch import hf_llama_config
     from deepspeed_tpu_torch.accelerator import device_report, nvidia_smi_line
-    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
-                                                        gpt2_config)
+    from deepspeed_tpu_torch.models.transformer import gpt2_config
+    from deepspeed_tpu_torch.module_inject.policies import TINYLLAMA_1_1B
     from deepspeed_tpu_torch.ops import build
     dev = torch.device("cuda", 0)
 
@@ -417,8 +567,101 @@ def main() -> int:
                      if "rerun_diff" in c else ""))
     del flush
 
-    # -- 4. generate() at GPT-3 6.7B width ------------------------------
-    cfg = gpt2_config("6.7b")
+    # -- 4-5. generate(), forward() and the server at GPT-3 6.7B width --
+    served = serve_phase(torch, np, "GPT-3 6.7B", gpt2_config("6.7b"))
+
+    # -- 6. training GPT-2 125M at bench.py's configuration -------------
+    def gpt2_model(attn_impl):
+        return gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat="full",
+                           attn_impl=attn_impl, loss_chunk=256)
+
+    def gpt2_optimizer():        # bench.py:171-180
+        return {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}}
+    gpt2 = train_phase(torch, np, "GPT-2 125M", gpt2_model, gpt2_optimizer(),
+                       TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS,
+                       {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                        "flash_attention_bwd_dq": 0,
+                        "flash_attention_bwd_dkv": 0}, check_micro=8)
+
+    # -- 7. training TinyLlama-1.1B ---------------------------------------
+    def llama_model(attn_impl):
+        return hf_llama_config(TINYLLAMA_1_1B, remat="full",
+                               attn_impl=attn_impl, loss_chunk=256)
+    llama_opt = {"type": "AdamW", "params": {
+        "lr": 4e-4, "weight_decay": 0.1, "betas": [0.9, 0.95]}}
+    n_layers = llama_model("flash").num_layers
+    llama = train_phase(torch, np, "TinyLlama-1.1B", llama_model, llama_opt,
+                        LLAMA_MICRO, LLAMA_SEQ, LLAMA_STEPS,
+                        {"flash_attention_fwd": 2 * n_layers,
+                         "flash_attention_bwd": 0,
+                         "flash_attention_bwd_dq": n_layers,
+                         "flash_attention_bwd_dkv": n_layers},
+                        check_micro=LLAMA_CHECK_MICRO)
+
+    # -- 8. generate(), forward() and the server for TinyLlama-1.1B -----
+    llama_served = serve_phase(torch, np, "TinyLlama-1.1B",
+                               hf_llama_config(TINYLLAMA_1_1B))
+
+    # -- result lines ------------------------------------------------------
+    flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
+    paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
+    # (TPU kernel replaced, launches over its main path's run, index of
+    # the main-path case in the phase-3 results): B5-B7 from GPT-3 6.7B
+    # serving, B1/B3/B4 from TinyLlama training (B1 at its GQA shape), B2
+    # from GPT-2 training
+    rows = {
+        "decode_attention": (
+            "deepspeed_tpu/ops/transformer/decode_attention.py:56",
+            served["decode_attention"], 0),
+        "paged_decode_attention": (
+            f"{paged}:143", served["paged_decode_attention"], 0),
+        "paged_prefill_attention": (
+            f"{paged}:358", served["paged_prefill_attention"], 1),
+        "flash_attention_fwd": (f"{flash}:94", llama["flash_attention_fwd"],
+                                3),
+        "flash_attention_bwd": (f"{flash}:300", gpt2["flash_attention_bwd"],
+                                0),
+        "flash_attention_bwd_dq": (
+            f"{flash}:196", llama["flash_attention_bwd_dq"], 0),
+        "flash_attention_bwd_dkv": (
+            f"{flash}:241", llama["flash_attention_bwd_dkv"], 0),
+    }
+    print(f"TinyLlama serving launches: B5 "
+          f"{llama_served['decode_attention']}, B6 "
+          f"{llama_served['paged_decode_attention']}, B7 "
+          f"{llama_served['paged_prefill_attention']}, B1 (forward) "
+          f"{llama_served['flash_attention_fwd']}")
+    kernels = []
+    for name in build.KERNELS:
+        replaces, launches, main = rows[name]
+        c = kres[name][main]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"deepspeed_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in kres[name]),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi_line(0))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def serve_phase(torch, np, label, cfg) -> dict:
+    """``init_inference`` on ``cfg`` in bf16 with random weights from
+    seed 0, then ``generate()`` (8 x 128 prompts, 64 new tokens, greedy:
+    every decode step on B5), ``forward()`` on B1 against ``generate()``'s
+    prefill, and the server (16 requests, prompts 16-512, 32 new each: B6
+    and B7).  Returns the launch counts of the main paths: B5 over the
+    64-token ``generate()``, B1 over ``forward()``, B6/B7 over the
+    drain."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+    from deepspeed_tpu_torch.ops import build
     t0 = time.perf_counter()
     eng = init_inference(TransformerLM(cfg), {
         "dtype": "bfloat16", "temperature": 0.0,
@@ -426,7 +669,7 @@ def main() -> int:
                     "num_kv_blocks": 512, "max_batch_slots": 8,
                     "prefill_chunk_tokens": 256}})
     torch.cuda.synchronize()
-    print(f"init: {cfg.num_params() / 1e9:.2f} B params "
+    print(f"{label} init: {cfg.num_params() / 1e9:.2f} B params "
           f"({sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9:.2f} GB bf16) "
           f"in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
@@ -443,14 +686,14 @@ def main() -> int:
     check(gen_counts["decode_attention"] == want,
           f"B5 launches {gen_counts['decode_attention']} != {want}")
     stats = eng.latency_stats()
-    print(f"generate: 8 x 128-token prompts, 64 new tokens: TTFT "
+    print(f"{label} generate: 8 x 128-token prompts, 64 new tokens: TTFT "
           f"{stats['ttft_p50_ms']:.1f} ms, decode "
           f"{stats['p50_ms']:.2f} ms/token ({8 * stats['tokens_per_sec']:.0f}"
           f" tokens/s over the batch); B5 launches "
           f"{gen_counts['decode_attention']}")
 
     device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
-                   "generate 8 x 128 prompts, 16 new tokens")
+                   f"{label} generate 8 x 128 prompts, 16 new tokens")
 
     # forward() through kernel B1, against generate()'s prefill logits
     prefill = eng._prefill
@@ -478,15 +721,15 @@ def main() -> int:
     fwd_err = float((fwd[:, -1] - ref).abs().max())
     fwd_rel = fwd_err / float(ref.abs().max())
     same = int((fwd[:, -1].argmax(-1) == ref.argmax(-1)).sum())
-    print(f"forward: 8 x 128 prompts in {fwd_s * 1e3:.1f} ms, B1 launches "
-          f"{fwd_counts['flash_attention_fwd']}; last-position logits "
-          f"max|forward - generate prefill| {fwd_err:.4f} = {fwd_rel:.4f} of "
-          f"max|logit| (limit {LOGITS_REL_TOL}), argmax equal on {same} of 8")
+    print(f"{label} forward: 8 x 128 prompts in {fwd_s * 1e3:.1f} ms, B1 "
+          f"launches {fwd_counts['flash_attention_fwd']}; last-position "
+          f"logits max|forward - generate prefill| {fwd_err:.4f} = "
+          f"{fwd_rel:.4f} of max|logit| (limit {LOGITS_REL_TOL}), argmax "
+          f"equal on {same} of 8")
     check(fwd_rel <= LOGITS_REL_TOL,
           f"forward/generate logits differ by {fwd_rel:.4f} of their scale")
     del fwd, ref
 
-    # -- 5. serving ------------------------------------------------------
     srv = eng.serving_engine()
     model = srv.model
     first_logits = {}
@@ -522,7 +765,7 @@ def main() -> int:
     check(srv_counts["paged_decode_attention"] > 0, "B6 never launched")
     check(srv_counts["paged_prefill_attention"] > 0, "B7 never launched")
     ntok = sum(len(r.output) for r in reqs)
-    print(f"serving: 16 requests, prompts {int(lens.min())}-"
+    print(f"{label} serving: 16 requests, prompts {int(lens.min())}-"
           f"{int(lens.max())} tokens ({int(lens.sum())} total), 32 new "
           f"each: {ntok} tokens in {wall:.2f} s = {ntok / wall:.1f} "
           f"tokens/s ({srv.counts['dispatches']} dispatches, "
@@ -541,10 +784,13 @@ def main() -> int:
         return cache, last
     eng._prefill = recording_prefill
     same = 0
+    same_streams = 0
     worst = 0.0
     for i, r in enumerate(reqs):
         ref = eng.generate(np.asarray(r.prompt)[None], max_new_tokens=32)
-        same += int(sum(a == b for a, b in zip(r.output, ref[0].tolist())))
+        ref = ref[0].tolist()
+        same += int(sum(a == b for a, b in zip(r.output, ref)))
+        same_streams += int(r.output == ref)
         if i < 4:
             a, b = first_logits[r.req_id], gen_first["last"]
             err = float((a - b).abs().max())
@@ -558,7 +804,8 @@ def main() -> int:
     check(worst <= LOGITS_REL_TOL,
           f"serving/generate first-step logits differ by {worst:.4f} of "
           f"their scale (> {LOGITS_REL_TOL})")
-    print(f"serving streams equal to generate(): {same} of {ntok} tokens "
+    print(f"{label} serving streams equal to generate(): {same_streams} of "
+          f"16 streams, {same} of {ntok} tokens "
           f"({100.0 * same / ntok:.1f} %)")
 
     # fresh prompts of the first 8 lengths for each of device_profile's
@@ -570,96 +817,57 @@ def main() -> int:
         for p in next(bursts):
             srv.submit(p, max_new_tokens=8)
         srv.run()
-    device_profile(torch, serve_burst, "serving 8 requests, 8 new tokens")
+    device_profile(torch, serve_burst,
+                   f"{label} serving 8 requests, 8 new tokens")
     del srv, model, eng
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-
-    # -- 6. training ------------------------------------------------------
-    train = train_phase(torch, np)
-
-    # -- result lines ------------------------------------------------------
-    replaces = {
-        "decode_attention":
-            "deepspeed_tpu/ops/transformer/decode_attention.py:56",
-        "paged_decode_attention":
-            "deepspeed_tpu/ops/transformer/paged_decode_attention.py:143",
-        "paged_prefill_attention":
-            "deepspeed_tpu/ops/transformer/paged_decode_attention.py:358",
-        "flash_attention_fwd":
-            "deepspeed_tpu/ops/transformer/flash_attention.py:94",
-        "flash_attention_bwd":
-            "deepspeed_tpu/ops/transformer/flash_attention.py:300",
-    }
-    launches = {"decode_attention": gen_counts["decode_attention"],
-                "paged_decode_attention":
-                    srv_counts["paged_decode_attention"],
-                "paged_prefill_attention":
-                    srv_counts["paged_prefill_attention"],
-                "flash_attention_fwd": train["flash_attention_fwd"],
-                "flash_attention_bwd": train["flash_attention_bwd"]}
-    # the main-path case of each kernel: B5 at generate()'s last step
-    # (cache 192), B6 at 8 ragged slots, B7 at a 256-chunk on 256 rows,
-    # B1/B2 at the training shape (T = 1024, causal)
-    main_case = {"decode_attention": 0, "paged_decode_attention": 0,
-                 "paged_prefill_attention": 1, "flash_attention_fwd": 0,
-                 "flash_attention_bwd": 0}
-    kernels = []
-    for name in build.KERNELS:
-        c = kres[name][main_case[name]]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"deepspeed_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max(x["max_abs_err"] for x in kres[name]),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"]})
-    print(json.dumps({"kernels": kernels}))
-    print(nvidia_smi_line(0))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return {"decode_attention": gen_counts["decode_attention"],
+            "flash_attention_fwd": fwd_counts["flash_attention_fwd"],
+            "paged_decode_attention": srv_counts["paged_decode_attention"],
+            "paged_prefill_attention": srv_counts["paged_prefill_attention"]}
 
 
-def train_phase(torch, np) -> dict:
-    """GPT-2 125M at bench.py's configuration for TRAIN_STEPS steps on one
-    seeded batch (B1/B2 launches counted over exactly those steps), its
-    profile, then flash against plain attention at micro batch 8."""
+def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
+                per_step, check_micro) -> dict:
+    """``initialize`` on ``model_cfg("flash")`` (bf16 over f32 masters,
+    clipping 1.0, ZeRO 0, weights from seed 0) for ``steps`` steps on one
+    seeded batch ``[micro, seq]``, re-fed: the loss must fall and each
+    flash kernel must launch exactly ``per_step[name]`` times a step.
+    Then 3 warm steps, the loss head alone, a profile, and the whole step
+    with flash against plain attention at micro ``check_micro`` for 3
+    steps, each taken by both from the flash trajectory's state.  Returns
+    the launch counts over the ``steps`` steps."""
     from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
-                                                        gpt2_config)
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
     from deepspeed_tpu_torch.ops import build
 
-    def make(attn_impl, micro):
-        cfg = gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat="full",
-                          attn_impl=attn_impl, loss_chunk=256)
-        config = {       # bench.py:171-180
-            "train_micro_batch_size_per_gpu": micro,
+    def make(attn_impl, mb, loss_fn=None):
+        cfg = model_cfg(attn_impl)
+        config = {
+            "train_micro_batch_size_per_gpu": mb,
             "gradient_accumulation_steps": 1,
-            "optimizer": {"type": "AdamW",
-                          "params": {"lr": 6e-4, "weight_decay": 0.1}},
+            "optimizer": optimizer,
             "bf16": {"enabled": True},
             "zero_optimization": {"stage": 0},
             "gradient_clipping": 1.0,
             "steps_per_print": 0,
         }
-        eng, _, _, _ = initialize(model=TransformerLM(cfg), config=config)
+        eng, _, _, _ = initialize(model=TransformerLM(cfg), config=config,
+                                  loss_fn=loss_fn)
         return cfg, eng
 
-    cfg, eng = make("flash", TRAIN_MICRO)
+    cfg, eng = make("flash", micro)
     rs = np.random.RandomState(0)
-    batch = {"input_ids": rs.randint(0, cfg.vocab_size,
-                                     (TRAIN_MICRO, TRAIN_SEQ),
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size, (micro, seq),
                                      dtype=np.int32)}
     n_params = eng.num_parameters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    metrics = [eng.train_step(batch) for _ in range(TRAIN_STEPS)]
+    metrics = [eng.train_step(batch) for _ in range(steps)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(build.launch_counts)
@@ -667,95 +875,106 @@ def train_phase(torch, np) -> dict:
     gnorms = [float(m["grad_norm"]) for m in metrics]
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
-          f"training: non-finite loss or grad norm {losses} {gnorms}")
+          f"{label} training: non-finite loss or grad norm {losses} "
+          f"{gnorms}")
     check(losses[-1] < losses[0],
-          f"training: loss did not fall ({losses[0]} -> {losses[-1]})")
-    want = {"flash_attention_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS}
-    for name, n in want.items():
-        check(counts[name] == n, f"training: {name} launches "
-                                 f"{counts[name]} != {n}")
-    step_s = wall / TRAIN_STEPS
-    tok_s = TRAIN_MICRO * TRAIN_SEQ / step_s
+          f"{label} training: loss did not fall ({losses[0]} -> "
+          f"{losses[-1]})")
+    for name, n in per_step.items():
+        check(counts[name] == n * steps,
+              f"{label} training: {name} launches {counts[name]} != "
+              f"{n * steps}")
+    step_s = wall / steps
+    tok_s = micro * seq / step_s
     # bench.py:212-215: 6 N per token plus the attention term
-    flops_per_tok = 6 * n_params + 12 * cfg.num_layers * cfg.d_model \
-        * TRAIN_SEQ
+    flops_per_tok = 6 * n_params + 12 * cfg.num_layers * cfg.d_model * seq
     mfu = tok_s * flops_per_tok / BF16_FLOPS
-    print(f"training: GPT-2 125M ({n_params / 1e6:.1f} M params), seq "
-          f"{TRAIN_SEQ}, micro {TRAIN_MICRO}, remat full, flash, fused "
-          f"head chunk 256, AdamW bf16/f32: {TRAIN_STEPS} steps in "
-          f"{wall:.2f} s = {step_s * 1e3:.1f} ms/step (the first step "
-          f"included), {tok_s:.0f} tokens/s, MFU {100 * mfu:.2f} % of "
-          f"989 TF/s; peak memory {peak:.1f} GiB")
+    print(f"training: {label} ({n_params / 1e6:.1f} M params), seq {seq}, "
+          f"micro {micro}, remat full, flash, fused head chunk 256, AdamW "
+          f"bf16/f32: {steps} steps in {wall:.2f} s = "
+          f"{step_s * 1e3:.1f} ms/step (the first step included), "
+          f"{tok_s:.0f} tokens/s, MFU {100 * mfu:.2f} % of 989 TF/s; peak "
+          f"memory {peak:.1f} GiB")
     print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f} (every step: "
           f"{' '.join(f'{x:.3f}' for x in losses)}); grad norm "
           f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}")
-    print(f"  launches over {TRAIN_STEPS} steps: B1 "
-          f"{counts['flash_attention_fwd']} "
-          f"({counts['flash_attention_fwd'] // TRAIN_STEPS} per step), B2 "
-          f"{counts['flash_attention_bwd']} "
-          f"({counts['flash_attention_bwd'] // TRAIN_STEPS} per step)")
+    print(f"  launches over {steps} steps: " + ", ".join(
+        f"{name} {counts[name]} ({counts[name] // steps} per step)"
+        for name in per_step))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
         eng.train_step(batch)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) / 3 * 1e3
-    print(f"  3 more steps (warm): {warm_ms:.1f} ms/step")
-    head = loss_head_ms(torch, eng, batch)
-    print(f"  loss head alone (fused, chunk 256, bf16 logits widened to "
-          f"f32, f32 backward products): forward {head['fwd']:.1f} ms, "
-          f"forward + backward {head['both']:.1f} ms = "
+    warm_tok_s = micro * seq / warm_ms * 1e3
+    print(f"  3 more steps (warm): {warm_ms:.1f} ms/step = "
+          f"{warm_tok_s:.0f} tokens/s, MFU "
+          f"{100 * warm_tok_s * flops_per_tok / BF16_FLOPS:.2f} %")
+    head = loss_head_ms(torch, eng, batch, micro, seq)
+    print(f"  loss head alone (fused, chunk 256, f32 logits from bf16 "
+          f"operands, f32 backward products): forward {head['fwd']:.1f} "
+          f"ms, forward + backward {head['both']:.1f} ms = "
           f"{100 * head['both'] / warm_ms:.1f} % of the warm step")
     device_profile(torch, lambda: [eng.train_step(batch) for _ in range(2)],
-                   "training 2 steps")
-    out = {"flash_attention_fwd": counts["flash_attention_fwd"],
-           "flash_attention_bwd": counts["flash_attention_bwd"]}
+                   f"{label} training 2 steps")
     del eng, metrics
     torch.cuda.empty_cache()
 
-    # the whole step with B1/B2 against plain attention
-    small = {"input_ids": batch["input_ids"][:8]}
-    runs = {}
-    for impl in ("flash", "xla"):
-        _, e = make(impl, 8)
-        ms = [e.train_step(small) for _ in range(3)]
-        runs[impl] = ([float(m["loss"]) for m in ms],
-                      [float(m["grad_norm"]) for m in ms])
-        del e, ms
+    # the whole step with the flash kernels against plain attention: one
+    # engine whose loss runs either model; a step leaves its input state
+    # untouched (it builds a new one), so both take each step from it
+    small = {"input_ids": batch["input_ids"][:check_micro]}
+    models = {impl: TransformerLM(model_cfg(impl))
+              for impl in ("flash", "xla")}
+    impl = {"now": "flash"}
+    _, e = make("flash", check_micro,
+                loss_fn=lambda p, b: models[impl["now"]].loss(p, b))
     for i in range(3):
-        (lf, gf), (lx, gx) = ((runs[k][0][i], runs[k][1][i])
-                              for k in ("flash", "xla"))
-        print(f"  step {i} at micro 8: loss flash {lf:.5f} plain {lx:.5f} "
-              f"({abs(lf - lx) / abs(lx) / STEP_LOSS_REL_TOL:.3g} of the "
-              f"limit); grad norm flash {gf:.4f} plain {gx:.4f} "
-              f"({abs(gf - gx) / abs(gx) / STEP_GNORM_REL_TOL:.3g} of the "
-              f"limit)")
+        start = e.state
+        impl["now"] = "xla"
+        mx = e.train_step(small)
+        lx, gx = float(mx["loss"]), float(mx["grad_norm"])
+        e.state, impl["now"] = start, "flash"
+        mf = e.train_step(small)
+        lf, gf = float(mf["loss"]), float(mf["grad_norm"])
+        del start, mx, mf
+        loss_share = abs(lf - lx) / abs(lx) / STEP_LOSS_REL_TOL
+        gnorm_share = abs(gf - gx) / abs(gx) / STEP_GNORM_REL_TOL
+        print(f"  step {i} at micro {check_micro}, both from one state: "
+              f"loss flash {lf:.5f} plain {lx:.5f} ({loss_share:.3g} of "
+              f"the limit); grad norm flash {gf:.4f} plain {gx:.4f} "
+              f"({gnorm_share:.3g} of the limit)")
         check(abs(lf - lx) <= STEP_LOSS_REL_TOL * abs(lx),
-              f"training step {i}: loss flash {lf} vs plain {lx}")
+              f"{label} training step {i}: loss flash {lf} vs plain {lx}")
         check(abs(gf - gx) <= STEP_GNORM_REL_TOL * abs(gx),
-              f"training step {i}: grad norm flash {gf} vs plain {gx}")
+              f"{label} training step {i}: grad norm flash {gf} vs plain "
+              f"{gx}")
+    del e
     torch.cuda.empty_cache()
-    return out
+    return {name: counts[name] for name in per_step}
 
 
-def loss_head_ms(torch, eng, batch) -> dict:
+def loss_head_ms(torch, eng, batch, micro, seq) -> dict:
     """Device ms of the loss head alone (``nll_from_hidden`` on the
-    engine's bf16 params), forward and forward + backward, at the step's
-    shape: hidden states [micro, seq, d_model] from a seeded generator."""
+    engine's bf16 head weight: the tied embedding or the untied
+    ``lm_head``), forward and forward + backward, at the step's shape:
+    hidden states [micro, seq, d_model] from a seeded generator."""
     dev = eng.device
     g = torch.Generator(device=dev)
     g.manual_seed(99)
-    w = eng.state["params"]["embed"]["embedding"].detach().requires_grad_(
-        True)
-    x = torch.randn((TRAIN_MICRO, TRAIN_SEQ, eng.model.config.d_model),
-                    generator=g, device=dev).to(torch.bfloat16)
+    params = eng.state["params"]
+    path = (("embed", "embedding") if eng.model.config.tie_embeddings
+            else ("lm_head", "kernel"))
+    w = params[path[0]][path[1]].detach().requires_grad_(True)
+    x = torch.randn((micro, seq, eng.model.config.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
     x.requires_grad_(True)
     labels = torch.as_tensor(batch["input_ids"]).long().to(dev)
 
     def nll():
         return eng.model.nll_from_hidden(
-            {"embed": {"embedding": w.to(torch.bfloat16)}}, x, labels)
+            {path[0]: {path[1]: w.to(torch.bfloat16)}}, x, labels)
 
     def both():
         torch.autograd.grad(nll(), (x, w))

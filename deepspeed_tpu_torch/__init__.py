@@ -10,8 +10,9 @@ plain PyTorch version instead.
 Serving: ``init_inference`` → ``generate()``, ``forward()`` and the
 continuous-batching server.  Training: ``initialize`` →
 ``engine.train_step`` / ``train_batch`` (and the compat
-``forward``/``backward``/``step``).  Both for the GPT-2/GPT-3 model
-family.
+``forward``/``backward``/``step``).  Both for the GPT-2/GPT-3 and
+LLaMA model families (``hf_llama_config`` maps a Hugging Face LLaMA
+config; ``module_inject/policies.py`` also loads its state dict).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .models.transformer import TransformerConfig, TransformerLM, gpt2_config
+from .module_inject.policies import hf_llama_config
 from .runtime.config import DeepSpeedConfig
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .runtime.engine import DeepSpeedEngine
@@ -27,7 +29,7 @@ from .runtime.engine import DeepSpeedEngine
 __all__ = ["DeepSpeedConfig", "DeepSpeedDataLoader", "DeepSpeedEngine",
            "DeepSpeedInferenceConfig", "InferenceEngine", "RepeatingLoader",
            "TransformerConfig", "TransformerLM", "gpt2_config",
-           "init_inference", "initialize"]
+           "hf_llama_config", "init_inference", "initialize"]
 
 
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,

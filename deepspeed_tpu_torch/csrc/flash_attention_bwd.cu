@@ -39,31 +39,6 @@ using namespace dstt::flash;
 
 namespace {
 
-// p (rounded to T) and ds (rounded to T) of one [64 q rows, 64 kv rows]
-// tile pair into ps / dss, from q/dO/k/v tiles already in shared memory.
-template <typename T, int D>
-__device__ __forceinline__ void probs_and_dscores(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* lse_s, const float* delta_s, int q0, int k0, int t_len,
-    float sm_scale, int causal, int tx, int ty, float* ps, float* dss) {
-  float s[kRowsPT][4], dp[kRowsPT][4];
-  mm_abt<D>(qs, ks, tx, ty, s);
-  mm_abt<D>(dos, vs, tx, ty, dp);
-#pragma unroll
-  for (int a = 0; a < kRowsPT; ++a) {
-    const int r = ty + 16 * a, row = q0 + r;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = tx + 16 * b, col = k0 + c;
-      const bool keep = row < t_len && col < t_len && (!causal || col <= row);
-      const float p = keep ? expf(s[a][b] * sm_scale - lse_s[r]) : 0.f;
-      const float ds = p * (dp[a][b] - delta_s[r]) * sm_scale;
-      if (ps != nullptr) ps[r * kPStride + c] = round_to<T>(p);
-      dss[r * kPStride + c] = round_to<T>(ds);
-    }
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -88,15 +63,6 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const float one[kRowsPT] = {1.f, 1.f, 1.f, 1.f};
 
-  auto load_rowstats = [&](int q0) {
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const bool ok = row < t_len;
-      lse_s[threadIdx.x] = ok ? lse[bh * t_len + row] : 0.f;
-      delta_s[threadIdx.x] = ok ? delta[bh * t_len + row] : 0.f;
-    }
-  };
-
   if (blockIdx.z == 0) {
     // dK, dV of kv tile kt; causal: the earliest kv tiles walk the most
     // query tiles and are launched first
@@ -113,7 +79,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // the previous tile's products are done
       load_tile<T, D>(q + base, q0, t_len, qs);
       load_tile<T, D>(dout + base, q0, t_len, dos);
-      load_rowstats(q0);
+      load_rowstats(lse, delta, bh, q0, t_len, lse_s, delta_s);
       __syncthreads();
       probs_and_dscores<T, D>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, t_len,
                               sm_scale, causal, tx, ty, ps, dss);
@@ -129,7 +95,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qt = n_tiles - 1 - blockIdx.x, q0 = qt * kTile;
     load_tile<T, D>(q + base, q0, t_len, qs);
     load_tile<T, D>(dout + base, q0, t_len, dos);
-    load_rowstats(q0);
+    load_rowstats(lse, delta, bh, q0, t_len, lse_s, delta_s);
     float dq_acc[kRowsPT][C];
 #pragma unroll
     for (int a = 0; a < kRowsPT; ++a)

@@ -1,0 +1,160 @@
+// Flash-attention backward, dk/dv pass (kernel B4) for sm_90a.
+//
+// Replaces: deepspeed_tpu/ops/transformer/flash_attention.py
+//   `_bwd_dkv_kernel` (launched by `_bwd` `:400`), the dk/dv half of the
+//   two-pass backward: dk and dv at kv-head width, summed over the g query
+//   heads of a group and over their query tiles.  With
+//   p = exp(q k^T * sm_scale - lse) and ds = p * (dO v^T - delta) *
+//   sm_scale,
+//     dv = sum over the group of p^T dO,   dk = sum of ds^T q.
+//   p is rounded to dO's dtype before the dv product and ds to q's dtype
+//   before the dk product (`:283-292`); every sum is f32.
+//
+// Bound on the H100: at TinyLlama's training shape (B.H 256, B.KVH 32,
+//   T 2048, D 64, bf16, causal) the four causal products (s, dV, dP, dK;
+//   8 D flops per visible pair, 275 GFLOP) take 0.278 ms on the tensor
+//   cores and the least bytes (q, dO, lse, delta per query head, k, v,
+//   dk, dv per kv head: ~172 MB) 0.051 ms, so the bound is operations.
+//   This first version runs its products on the CUDA cores in f32, so it
+//   sits well above that bound; mma/wgmma is the later step.
+//
+// Design: one block of 256 threads per (kv head row, 64-row kv tile)
+//   keeps its K/V tile in shared memory and walks the g query heads of
+//   its group (rows kv * g .. kv * g + g - 1) and, for each, the query
+//   tiles that see the kv tile (every tile, or those at or after it when
+//   causal: the causal start tile is the kv tile's own index for every
+//   query head).  dK and dV accumulate in f32 registers (4 rows x D/16
+//   columns each a thread) and each dk/dv row is written once, with no
+//   atomics, so the kernel is deterministic as the TPU kernel is.  Query
+//   rows at or past T are never loaded: their q/dO rows are zero and
+//   their p and ds are 0, so they add nothing (`:264-274`).
+//
+// Filling 132 SMs: the grid is only B.KVH x T/64 blocks (32 x 32 = 1024
+//   at micro 8), each walking up to g x T/64 tile pairs (256).  A block
+//   takes ~100 KB of shared memory at D 64, so two are resident per SM
+//   (264 at once), about four waves.  Causal work falls linearly with
+//   the kv tile, so kv tiles launch first-first: the longest walks start
+//   in the first wave and the short ones fill the tail.  Splitting the
+//   group across blocks would need a cross-block sum (atomics, which are
+//   not deterministic, or a second pass); it is left for the tensor-core
+//   version, where a block's walk gets shorter.
+#include "flash_tiles.cuh"
+
+using namespace dstt;
+using namespace dstt::flash;
+
+namespace {
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int t_len, int group,
+                     float sm_scale, int causal) {
+  constexpr int S = Dims<D>::kStride, C = Dims<D>::kColsPT;
+  extern __shared__ float smem[];
+  float* qs = smem;                       // [64][D + 1]
+  float* dos = qs + kTile * S;            // [64][D + 1]
+  float* ks = dos + kTile * S;            // [64][D + 1]
+  float* vs = ks + kTile * S;             // [64][D + 1]
+  float* ps = vs + kTile * S;             // [64][65]
+  float* dss = ps + kTile * kPStride;     // [64][65]
+  float* lse_s = dss + kTile * kPStride;  // [64]
+  float* delta_s = lse_s + kTile;         // [64]
+
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+  const size_t kvh = blockIdx.y;
+  const size_t kv_base = kvh * t_len * D;
+  const int kt = blockIdx.x, k0 = kt * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float one[kRowsPT] = {1.f, 1.f, 1.f, 1.f};
+
+  load_tile<T, D>(k + kv_base, k0, t_len, ks);
+  load_tile<T, D>(v + kv_base, k0, t_len, vs);
+  float dk_acc[kRowsPT][C], dv_acc[kRowsPT][C];
+#pragma unroll
+  for (int a = 0; a < kRowsPT; ++a)
+#pragma unroll
+    for (int b = 0; b < C; ++b) dk_acc[a][b] = dv_acc[a][b] = 0.f;
+
+  for (int m = 0; m < group; ++m) {
+    const size_t bh = kvh * group + m;
+    const size_t base = bh * t_len * D;
+    for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
+      const int q0 = qt * kTile;
+      __syncthreads();  // the previous pair's products are done
+      load_tile<T, D>(q + base, q0, t_len, qs);
+      load_tile<T, D>(dout + base, q0, t_len, dos);
+      load_rowstats(lse, delta, bh, q0, t_len, lse_s, delta_s);
+      __syncthreads();
+      probs_and_dscores<T, D>(qs, dos, ks, vs, lse_s, delta_s, q0, k0,
+                              t_len, sm_scale, causal, tx, ty, ps, dss);
+      __syncthreads();
+      mm_ptb<D>(ps, dos, tx, ty, dv_acc);
+      mm_ptb<D>(dss, qs, tx, ty, dk_acc);
+    }
+  }
+  store_rows<T, D>(dk + kv_base, k0, t_len, tx, ty, dk_acc, one);
+  store_rows<T, D>(dv + kv_base, k0, t_len, tx, ty, dv_acc, one);
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv, int bkv,
+           int group, int t_len, float sm_scale, int causal,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
+                                       2 * kTile * kPStride + 2 * kTile);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_len + kTile - 1) / kTile, bkv);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), t_len, group, sm_scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dk, void* dv, int bkv,
+             int group, int t_len, int d, float sm_scale, int causal,
+             cudaStream_t st) {
+  switch (d) {
+    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  q/dout [BKV * group, T, D] and
+// k/v/dk/dv [BKV, T, D] contiguous; lse and delta [BKV * group, T]
+// float32.  D in {16, 32, 64, 128}; BKV <= 65535.
+extern "C" int dstt_flash_attention_bwd_dkv(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const void* lse, const void* delta,
+                                            void* dk, void* dv, int bkv,
+                                            int group, int t_len, int d,
+                                            float sm_scale, int causal,
+                                            int dtype, void* stream) {
+  if (bkv < 1 || bkv > 65535 || t_len < 1 || group < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, dout, lse, delta, dk, dv, bkv, group,
+                           t_len, d, sm_scale, causal, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bkv,
+                                   group, t_len, d, sm_scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+DSTT_DEFINE_ERROR_STRING(dstt_flash_attention_bwd_dkv)

@@ -1,0 +1,145 @@
+// Flash-attention backward, dq pass (kernel B3) for sm_90a.
+//
+// Replaces: deepspeed_tpu/ops/transformer/flash_attention.py
+//   `_bwd_dq_kernel` (launched by `_bwd` `:377`), the dq half of the
+//   two-pass backward JAX runs whenever the fused backward does not
+//   apply (a sequence past one block, or grouped-query attention).  From
+//   the forward's logsumexp and delta = rowsum(dO * O), with
+//   p = exp(q k^T * sm_scale - lse):
+//     ds = p * (dO v^T - delta) * sm_scale,   dq = ds k.
+//   ds is rounded to q's dtype before the dq product, as the TPU kernel
+//   rounds it to k's (`:229-231`; q and k share one dtype); every sum is
+//   f32.  Query head row b reads kv head row b / g (the TPU kernel's
+//   k/v index map `b // g`).
+//
+// Bound on the H100: at TinyLlama's training shape (B.H 256, B.KVH 32,
+//   T 2048, D 64, bf16, causal) the three causal products (s, dP, dQ;
+//   6 D flops per visible pair, 206 GFLOP) take 0.209 ms on the tensor
+//   cores and the least bytes (q, dO, dq, lse, delta per query head, k
+//   and v per kv head: ~222 MB) 0.066 ms, so the bound is operations.
+//   This first version runs its products on the CUDA cores in f32 (67
+//   TF/s peak), so it sits well above that bound; moving them onto
+//   mma/wgmma is the later step.
+//
+// Design: one block of 256 threads per (query head row, 64-row query
+//   tile) keeps its Q and dO tiles, lse and delta in shared memory and
+//   walks the 64-row K/V tiles of its kv head (up to the diagonal tile
+//   when causal), the TPU grid's sequential kv axis becoming that loop;
+//   dQ accumulates in registers (4 rows x D/16 columns a thread) and each
+//   dq row is written once, with no atomics, so the kernel is
+//   deterministic as the TPU kernel is.  K/V rows at or past T are never
+//   loaded (zeros in shared memory, p = 0), so no garbage reaches ds.k
+//   (`:211-218`).  Query tiles launch last-first so the longest causal
+//   walks start first; B.H x T/64 blocks (8192 at the training shape)
+//   fill the 132 SMs many times over.
+#include "flash_tiles.cuh"
+
+using namespace dstt;
+using namespace dstt::flash;
+
+namespace {
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int t_len, int group, float sm_scale, int causal) {
+  constexpr int S = Dims<D>::kStride, C = Dims<D>::kColsPT;
+  extern __shared__ float smem[];
+  float* qs = smem;                       // [64][D + 1]
+  float* dos = qs + kTile * S;            // [64][D + 1]
+  float* ks = dos + kTile * S;            // [64][D + 1]
+  float* vs = ks + kTile * S;             // [64][D + 1]
+  float* dss = vs + kTile * S;            // [64][65]
+  float* lse_s = dss + kTile * kPStride;  // [64]
+  float* delta_s = lse_s + kTile;         // [64]
+
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * t_len * D;
+  const size_t kv_base = (bh / group) * t_len * D;
+  const int qt = n_tiles - 1 - blockIdx.x, q0 = qt * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float one[kRowsPT] = {1.f, 1.f, 1.f, 1.f};
+
+  load_tile<T, D>(q + base, q0, t_len, qs);
+  load_tile<T, D>(dout + base, q0, t_len, dos);
+  load_rowstats(lse, delta, bh, q0, t_len, lse_s, delta_s);
+  float dq_acc[kRowsPT][C];
+#pragma unroll
+  for (int a = 0; a < kRowsPT; ++a)
+#pragma unroll
+    for (int b = 0; b < C; ++b) dq_acc[a][b] = 0.f;
+
+  const int last_kt = causal ? qt : n_tiles - 1;
+  for (int kt = 0; kt <= last_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's dQ product is done with ks/dss
+    load_tile<T, D>(k + kv_base, k0, t_len, ks);
+    load_tile<T, D>(v + kv_base, k0, t_len, vs);
+    __syncthreads();
+    probs_and_dscores<T, D>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, t_len,
+                            sm_scale, causal, tx, ty, nullptr, dss);
+    __syncthreads();
+    mm_pb<D>(dss, ks, tx, ty, dq_acc);
+  }
+  store_rows<T, D>(dq + base, q0, t_len, tx, ty, dq_acc, one);
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, int bh, int group,
+           int t_len, float sm_scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
+                                       kTile * kPStride + 2 * kTile);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_len + kTile - 1) / kTile, bh);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), t_len, group, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, int bh, int group,
+             int t_len, int d, float sm_scale, int causal, cudaStream_t st) {
+  switch (d) {
+    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
+    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
+    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
+    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  q/dout/dq [BH, T, D] and k/v
+// [BH / group, T, D] contiguous; lse and delta [BH, T] float32.  D in
+// {16, 32, 64, 128}; BH <= 65535 and a multiple of group.
+extern "C" int dstt_flash_attention_bwd_dq(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse, const void* delta,
+                                           void* dq, int bh, int group,
+                                           int t_len, int d, float sm_scale,
+                                           int causal, int dtype,
+                                           void* stream) {
+  if (bh < 1 || bh > 65535 || t_len < 1 || group < 1 || bh % group)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, dout, lse, delta, dq, bh, group, t_len,
+                           d, sm_scale, causal, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, group,
+                                   t_len, d, sm_scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+DSTT_DEFINE_ERROR_STRING(dstt_flash_attention_bwd_dq)

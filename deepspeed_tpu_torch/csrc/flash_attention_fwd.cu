@@ -3,14 +3,20 @@
 // Replaces: deepspeed_tpu/ops/transformer/flash_attention.py `_fwd_kernel`
 //   (launched by `_fwd`): o = softmax(q k^T * sm_scale) v per (batch x
 //   head), causal or not, with online softmax and f32 accumulators; also
-//   writes the per-row logsumexp the backward (kernel B2) reads.  The
-//   probabilities are rounded to v's dtype before the P.V product, as the
-//   TPU kernel does; the running sum l takes them unrounded.
+//   writes the per-row logsumexp the backward (kernels B2, B3, B4)
+//   reads.  The probabilities are rounded to v's dtype before the P.V
+//   product, as the TPU kernel does; the running sum l takes them
+//   unrounded.  Grouped-query attention: q/o/lse hold B.H head rows and
+//   k/v B.KVH, g = H / KVH; query head row b reads kv head row b / g, the
+//   TPU kernel's k/v index map `b // g` (`_fwd`), so k/v are never
+//   repeated through memory.  With g = 1 the kernel is the MHA kernel.
 //
-// Bound on the H100: at the training shape (B.H 768, T 1024, D 64, bf16,
-//   causal) the least bytes (q, k, v read once, o written once) take
-//   0.12 ms and the causal products about 0.10 ms on the tensor cores, so
-//   the bound is bytes.  This first version does both products on the
+// Bound on the H100: at GPT-2 125M's training shape (B.H 768, T 1024,
+//   D 64, bf16, causal) the least bytes (q, k, v read once, o written
+//   once) take 0.12 ms and the causal products about 0.10 ms on the
+//   tensor cores, so the bound is bytes; at TinyLlama's (B.H 256, B.KVH
+//   32, T 2048, D 64, g 8) the k/v bytes shrink by g and the products
+//   (137.5 GFLOP, 0.139 ms) bound it.  This first version does both products on the
 //   CUDA cores in f32 (67 TF/s peak), so it is bound by those operations;
 //   moving them onto mma/wgmma is the later step.
 //
@@ -38,8 +44,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int t_len, float sm_scale,
-                 int causal) {
+                 float* __restrict__ lse, int t_len, int group,
+                 float sm_scale, int causal) {
   constexpr int S = Dims<D>::kStride, C = Dims<D>::kColsPT;
   extern __shared__ float smem[];
   float* qs = smem;                 // [64][D + 1]
@@ -50,6 +56,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_tiles = (t_len + kTile - 1) / kTile;
   const int qt = n_tiles - 1 - blockIdx.x;  // longest causal walks first
   const size_t base = static_cast<size_t>(blockIdx.y) * t_len * D;
+  const size_t kv_base = static_cast<size_t>(blockIdx.y / group) * t_len * D;
   const int q0 = qt * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
@@ -68,8 +75,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= last_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's P.V is done with ks/vs/ps
-    load_tile<T, D>(k + base, k0, t_len, ks);
-    load_tile<T, D>(v + base, k0, t_len, vs);
+    load_tile<T, D>(k + kv_base, k0, t_len, ks);
+    load_tile<T, D>(v + kv_base, k0, t_len, vs);
     __syncthreads();
 
     float s[kRowsPT][4];
@@ -118,7 +125,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int bh, int t_len, float sm_scale, int causal,
+           int bh, int group, int t_len, float sm_scale, int causal,
            cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (3 * kTile * Dims<D>::kStride + kTile * kPStride);
@@ -128,40 +135,42 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), t_len, sm_scale, causal);
+      static_cast<float*>(lse), t_len, group, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
-             int bh, int t_len, int d, float sm_scale, int causal,
+             int bh, int group, int t_len, int d, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t_len, sm_scale, causal, st);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t_len, sm_scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t_len, sm_scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t_len, sm_scale, causal, st);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/k/v/o [BH, T, D] contiguous;
-// lse [BH, T] float32.  D in {16, 32, 64, 128}; BH <= 65535.
+// dtype: 0 = float32, 1 = bfloat16.  q/o [BH, T, D] and k/v
+// [BH / group, T, D] contiguous; lse [BH, T] float32.  D in {16, 32, 64,
+// 128}; BH <= 65535 and a multiple of group.
 extern "C" int dstt_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        int bh, int t_len, int d,
+                                        int bh, int group, int t_len, int d,
                                         float sm_scale, int causal, int dtype,
                                         void* stream) {
-  if (bh < 1 || bh > 65535 || t_len < 1)
+  if (bh < 1 || bh > 65535 || t_len < 1 || group < 1 || bh % group)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, lse, bh, t_len, d, sm_scale, causal, st);
+    return dispatch<float>(q, k, v, o, lse, bh, group, t_len, d, sm_scale,
+                           causal, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, t_len, d, sm_scale,
-                                   causal, st);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, group, t_len, d,
+                                   sm_scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,13 @@
-// Shared pieces of the flash-attention kernels B1 (forward) and B2
-// (fused backward): 64-row tiles staged in shared memory as f32, and the
-// three tile products they need, computed on the CUDA cores in f32.
+// Shared pieces of the flash-attention kernels B1 (forward), B2 (fused
+// backward), B3 (dq pass) and B4 (dk/dv pass): 64-row tiles staged in
+// shared memory as f32, the three tile products they need, computed on
+// the CUDA cores in f32, and the backward's probabilities and score
+// gradients of one tile pair.
+//
+// Grouped-query attention: q, o, dO, dq, lse and delta are [B.H, T, ...]
+// and k, v, dk, dv [B.KVH, T, D] with H = g.KVH; query head b reads kv
+// head b / g (the JAX kernels' k/v index map `b // g`), so k/v are never
+// repeated through memory.
 //
 // Thread layout (256 threads, tx = tid % 16, ty = tid / 16): a thread
 // owns rows ty + 16 * a (a < 4) and columns tx + 16 * b of every 64-row
@@ -152,6 +159,49 @@ __device__ __forceinline__ float row_sum16(float x) {
   for (int off = 8; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// lse and delta of query rows q0 .. q0 + 63 of head row `bh` into
+// lse_s / delta_s ([64] each); rows at or past t_len hold 0.
+__device__ __forceinline__ void load_rowstats(const float* __restrict__ lse,
+                                              const float* __restrict__ delta,
+                                              size_t bh, int q0, int t_len,
+                                              float* lse_s, float* delta_s) {
+  if (threadIdx.x < kTile) {
+    const int row = q0 + threadIdx.x;
+    const bool ok = row < t_len;
+    lse_s[threadIdx.x] = ok ? lse[bh * t_len + row] : 0.f;
+    delta_s[threadIdx.x] = ok ? delta[bh * t_len + row] : 0.f;
+  }
+}
+
+// p (rounded to T) and ds (rounded to T) of one [64 q rows, 64 kv rows]
+// tile pair into ps / dss, from q/dO/k/v tiles already in shared memory:
+//   p = exp(q k^T * sm_scale - lse),  ds = p * (dO v^T - delta) * sm_scale.
+// A pair outside the sequence (row or column at or past t_len) or above
+// the diagonal when causal has p = ds = 0.  ps may be null (the dq pass
+// needs ds only).
+template <typename T, int D>
+__device__ __forceinline__ void probs_and_dscores(
+    const float* qs, const float* dos, const float* ks, const float* vs,
+    const float* lse_s, const float* delta_s, int q0, int k0, int t_len,
+    float sm_scale, int causal, int tx, int ty, float* ps, float* dss) {
+  float s[kRowsPT][4], dp[kRowsPT][4];
+  mm_abt<D>(qs, ks, tx, ty, s);
+  mm_abt<D>(dos, vs, tx, ty, dp);
+#pragma unroll
+  for (int a = 0; a < kRowsPT; ++a) {
+    const int r = ty + 16 * a, row = q0 + r;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = tx + 16 * b, col = k0 + c;
+      const bool keep = row < t_len && col < t_len && (!causal || col <= row);
+      const float p = keep ? expf(s[a][b] * sm_scale - lse_s[r]) : 0.f;
+      const float ds = p * (dp[a][b] - delta_s[r]) * sm_scale;
+      if (ps != nullptr) ps[r * kPStride + c] = round_to<T>(p);
+      dss[r * kPStride + c] = round_to<T>(ds);
+    }
+  }
 }
 
 // Set the dynamic shared-memory limit of `kernel` when it needs more

@@ -1,9 +1,16 @@
-"""Decoder-only transformer LM of the port: the GPT-2/GPT-3 family.
+"""Decoder-only transformer LM of the port: the GPT-2/GPT-3 and LLaMA
+families.
 
-Counterpart of ``deepspeed_tpu/models/transformer.py`` for the subset
-``gpt2_config`` defines: learned positions, pre-norm LayerNorm, tanh-GELU
-MLP, tied embeddings, multi-head attention, bf16 activations with f32
-LayerNorm and softmax.  Other families raise ``NotImplementedError``.
+Counterpart of ``deepspeed_tpu/models/transformer.py`` for the pre-norm
+serial-residual decoders: learned positions or rotary embeddings
+(``rotary_pct``, ``rotary_base``, GPT-J interleaved or rotate-half
+pairing), LayerNorm or RMSNorm, a plain or gated (SwiGLU) MLP with any
+of the JAX package's activations, multi-head or grouped-query attention
+(``num_kv_heads``; the fused qkv projection is q | k | v along its
+output), tied or untied (``lm_head``) output, with or without biases;
+bf16 activations with f32 norms, rotary, softmax and logits.  ALiBi,
+parallel residual, MoE, encoders and ``attn_softmax_scale`` raise
+``NotImplementedError``.
 
 Parameters are a nested dict in the JAX package's layout (dense kernels
 ``[in, out]``, block leaves stacked on a leading layer axis), so
@@ -17,10 +24,11 @@ tensor of the whole stack for every layer).
 Training: ``loss`` (labels shifted, the last position masked) runs
 ``hidden_states`` and ``nll_from_hidden`` (the fused loss head, the
 chunked checkpointed head, or the dense head, as in the JAX package).
-With ``attn_impl="flash"`` the uncached forward runs kernel B1 and its
-backward kernel B2; ``remat="full"`` recomputes each block in the
-backward (``torch.utils.checkpoint``), so B1 runs twice per layer and
-step.
+With ``attn_impl="flash"`` the uncached forward runs kernel B1 (k/v at
+kv-head width) and its backward kernel B2, or B3 and B4 for a sequence
+past one 1024-row block or grouped-query attention (the JAX dispatch
+rule); ``remat="full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``), so B1 runs twice per layer and step.
 
 Caches are updated IN PLACE (JAX returns new arrays): ``apply`` writes
 the new rows into the dense cache tensors it was given, and the paged
@@ -57,7 +65,7 @@ class TransformerConfig:
     d_model: int = 768
     d_ff: int = 0                      # 0 -> 4 * d_model
     head_dim: int = 0                  # 0 -> d_model // num_heads
-    pos_embedding: str = "learned"     # the JAX package also has rotary|alibi|none
+    pos_embedding: str = "learned"     # learned | rotary (JAX also alibi|none)
     causal: bool = True
     norm_position: str = "pre"
     final_layernorm: bool = True
@@ -72,6 +80,11 @@ class TransformerConfig:
     remat: str = "none"                # none | full (per block)
     attn_impl: str = "xla"             # xla | flash (kernel injection)
     layernorm_eps: float = 1e-5
+    rotary_pct: float = 1.0
+    rotary_base: float = 10000.0
+    # True = GPT-J "rotate_every_two" pairing, False = rotate_half (NeoX,
+    # LLaMA)
+    rotary_interleaved: bool = True
     attn_softmax_scale: float = 0.0
     # chunked cross-entropy: tokens per loss chunk (0 = off)
     loss_chunk: int = 512
@@ -99,14 +112,26 @@ class TransformerConfig:
     def qkv_dim(self) -> int:
         return (self.num_heads + 2 * self.kv_heads) * self.hdim
 
+    @property
+    def rotary_dim(self) -> int:
+        d = int(self.hdim * self.rotary_pct)
+        return d - d % 2
+
     def num_params(self) -> int:
         d, f, v = self.d_model, self.ff_dim, self.vocab_size
         nhd = self.num_heads * self.hdim
-        per_layer = d * self.qkv_dim + nhd * d + 2 * d * f + 4 * d
+        norm = 2 * d if self.norm_type == "layernorm" else d
+        per_layer = d * self.qkv_dim + nhd * d + 2 * d * f + 2 * norm
+        if self.gated_mlp:
+            per_layer += d * f
         if self.use_bias:
             per_layer += self.qkv_dim + d + f + d
-        return (self.num_layers * per_layer + v * d
-                + self.max_seq_len * d + 2 * d)
+            if self.gated_mlp:
+                per_layer += f
+        emb = v * d + (self.max_seq_len * d
+                       if self.pos_embedding == "learned" else 0)
+        head = 0 if self.tie_embeddings else d * v
+        return self.num_layers * per_layer + emb + head + norm
 
 
 GPT2_SIZES = {
@@ -126,21 +151,15 @@ def gpt2_config(size: str = "125m", **kw) -> TransformerConfig:
                                 **GPT2_SIZES[size], **kw})
 
 
-#: what each configuration outside the GPT-2 family needs, and the later
-#: slice of the port (ROADMAP.md queue A) that brings it
+#: what each configuration outside the GPT-2 and LLaMA families needs,
+#: and the later slice of the port (ROADMAP.md queue A) that brings it
 _OUT_OF_SLICE = (
-    (lambda c: c.pos_embedding != "learned",
-     "pos_embedding={pos_embedding!r} (rotary/ALiBi families)"),
-    (lambda c: c.norm_type != "layernorm", "norm_type={norm_type!r} (RMSNorm)"),
-    (lambda c: c.gated_mlp, "gated_mlp (SwiGLU)"),
-    (lambda c: c.activation != "gelu", "activation={activation!r}"),
-    (lambda c: c.num_kv_heads not in (0, c.num_heads),
-     "num_kv_heads={num_kv_heads} (GQA models)"),
+    (lambda c: c.pos_embedding not in ("learned", "rotary"),
+     "pos_embedding={pos_embedding!r} (ALiBi: the BLOOM family)"),
     (lambda c: c.parallel_residual, "parallel_residual (NeoX)"),
     (lambda c: c.moe_num_experts > 0, "moe_num_experts (MoE)"),
     (lambda c: not c.causal or c.norm_position != "pre"
      or not c.final_layernorm, "encoder / post-norm families (BERT)"),
-    (lambda c: not c.tie_embeddings, "untied lm_head"),
     (lambda c: c.attn_softmax_scale, "attn_softmax_scale (GPT-Neo)"),
     (lambda c: c.attn_impl not in ("xla", "flash"),
      "attn_impl={attn_impl!r}"),
@@ -156,8 +175,9 @@ def check_in_slice(c: TransformerConfig) -> None:
         if test(c):
             raise NotImplementedError(
                 f"{what.format(**dataclasses.asdict(c))} is outside the "
-                f"first slice of the PyTorch port (GPT-2 family); the "
-                f"model-families slice of ROADMAP.md queue A brings it")
+                f"slices of the PyTorch port so far (the GPT-2 and LLaMA "
+                f"families); the model-families slice of ROADMAP.md queue "
+                f"A brings it")
     if c.remat not in REMAT_POLICIES:
         raise NotImplementedError(
             f"remat={c.remat!r}: the training slice of the PyTorch port "
@@ -200,10 +220,16 @@ class TransformerLM(nn.Module):
         super().__init__()
         check_in_slice(config)
         self.config = config
+        # rotary (cos, sin) tables per device, built on first use
+        self._rotary: Dict[torch.device, Tuple[torch.Tensor,
+                                               torch.Tensor]] = {}
 
     # -- parameters ---------------------------------------------------------
     def param_shapes(self) -> Params:
-        """The params tree's leaf shapes (the JAX package's tree)."""
+        """The params tree's leaf shapes (the JAX package's tree: no
+        ``pos_embed`` with rotary, RMSNorm leaves hold ``scale`` only,
+        ``mlp.fc_gate`` with a gated MLP, ``lm_head.kernel [D, V]`` when
+        untied, no biases without ``use_bias``)."""
         c = self.config
         d, f, n = c.d_model, c.ff_dim, c.num_layers
         hd = c.num_heads * c.hdim
@@ -213,25 +239,36 @@ class TransformerLM(nn.Module):
             if c.use_bias:
                 p["bias"] = (n, o)
             return p
-        norm = {"scale": (n, d), "bias": (n, d)}
-        return {
+
+        def norm(*lead):
+            p = {"scale": lead + (d,)}
+            if c.norm_type == "layernorm":
+                p["bias"] = lead + (d,)
+            return p
+        mlp = {"fc_in": dense(d, f), "fc_out": dense(f, d)}
+        if c.gated_mlp:
+            mlp["fc_gate"] = dense(d, f)
+        tree = {
             "embed": {"embedding": (c.vocab_size, d)},
-            "pos_embed": {"embedding": (c.max_seq_len, d)},
-            "ln_f": {"scale": (d,), "bias": (d,)},
-            "blocks": {"ln1": dict(norm), "ln2": dict(norm),
+            "ln_f": norm(),
+            "blocks": {"ln1": norm(n), "ln2": norm(n),
                        "attn": {"qkv": dense(d, c.qkv_dim),
                                 "out": dense(hd, d)},
-                       "mlp": {"fc_in": dense(d, f),
-                               "fc_out": dense(f, d)}},
+                       "mlp": mlp},
         }
+        if c.pos_embedding == "learned":
+            tree["pos_embed"] = {"embedding": (c.max_seq_len, d)}
+        if not c.tie_embeddings:
+            tree["lm_head"] = {"kernel": (d, c.vocab_size)}
+        return tree
 
     def init(self, generator: torch.Generator, device=None,
              dtype: Optional[torch.dtype] = None) -> Params:
-        """Fresh weights from ``generator`` (GPT-2 init: N(0, 0.02),
-        positions N(0, 0.01), residual-branch outputs scaled by
-        1/sqrt(2 L), LayerNorm 1/0, biases 0), drawn one layer at a time
-        on ``device`` (default the card; raises without one) in f32 and
-        stored in ``dtype`` (default ``param_dtype``).  Random numbers
+        """Fresh weights from ``generator`` (the JAX package's init:
+        N(0, 0.02), positions N(0, 0.01), residual-branch outputs scaled
+        by 1/sqrt(2 L), norm scales 1 and biases 0), drawn one layer at a
+        time on ``device`` (default the card; raises without one) in f32
+        and stored in ``dtype`` (default ``param_dtype``).  Random numbers
         differ from the JAX init."""
         c = self.config
         dtype = dtype or c.param_dtype
@@ -263,50 +300,104 @@ class TransformerLM(nn.Module):
             if c.use_bias:
                 p["bias"] = zeros(n, o)
             return p
-        return {
-            "embed": {"embedding": normal((c.vocab_size, d), 0.02)},
-            "pos_embed": {"embedding": normal((c.max_seq_len, d), 0.01)},
-            "ln_f": {"scale": ones(d), "bias": zeros(d)},
-            "blocks": {
-                "ln1": {"scale": ones(n, d), "bias": zeros(n, d)},
-                "attn": {"qkv": dense(d, c.qkv_dim),
-                         "out": dense(hd, d, scaled=True)},
-                "ln2": {"scale": ones(n, d), "bias": zeros(n, d)},
-                "mlp": {"fc_in": dense(d, f),
-                        "fc_out": dense(f, d, scaled=True)},
-            },
+
+        def norm(*lead):
+            p = {"scale": ones(*lead, d)}
+            if c.norm_type == "layernorm":
+                p["bias"] = zeros(*lead, d)
+            return p
+        params = {"embed": {"embedding": normal((c.vocab_size, d), 0.02)}}
+        if c.pos_embedding == "learned":
+            params["pos_embed"] = {"embedding": normal((c.max_seq_len, d),
+                                                       0.01)}
+        params["ln_f"] = norm()
+        blocks = {
+            "ln1": norm(n),
+            "attn": {"qkv": dense(d, c.qkv_dim),
+                     "out": dense(hd, d, scaled=True)},
+            "ln2": norm(n),
+            "mlp": {"fc_in": dense(d, f),
+                    "fc_out": dense(f, d, scaled=True)},
         }
+        if c.gated_mlp:
+            blocks["mlp"]["fc_gate"] = dense(d, f)
+        params["blocks"] = blocks
+        if not c.tie_embeddings:
+            params["lm_head"] = {"kernel": normal((d, c.vocab_size), 0.02)}
+        return params
 
     # -- pieces ---------------------------------------------------------------
     def _norm(self, p: Params, x: torch.Tensor) -> torch.Tensor:
-        return L.layernorm_apply(p, x, eps=self.config.layernorm_eps)
+        norm = (L.layernorm_apply if self.config.norm_type == "layernorm"
+                else L.rmsnorm_apply)
+        return norm(p, x, eps=self.config.layernorm_eps)
 
     def _embed(self, params: Params, ids: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
         c = self.config
-        return (L.embedding_apply(params["embed"], ids, c.dtype)
-                + L.embedding_apply(params["pos_embed"], positions, c.dtype))
+        x = L.embedding_apply(params["embed"], ids, c.dtype)
+        if c.pos_embedding == "learned":
+            x = x + L.embedding_apply(params["pos_embed"], positions, c.dtype)
+        return x
 
-    def _qkv(self, p: Params, h: torch.Tensor):
+    def _rotary_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """f32 (cos, sin) ``[max_seq_len, rotary_dim / 2]`` on ``device``,
+        computed on the CPU once and copied, so every device sees the
+        same bits."""
+        tables = self._rotary.get(device)
+        if tables is None:
+            c = self.config
+            cos, sin = L.rotary_freqs(c.rotary_dim, c.max_seq_len,
+                                      c.rotary_base)
+            tables = self._rotary[device] = (cos.to(device), sin.to(device))
+        return tables
+
+    def _qkv(self, p: Params, h: torch.Tensor,
+             positions: Optional[torch.Tensor] = None):
+        """q ``[B, T, H, D]`` and k, v ``[B, T, KVH, D]`` from the fused
+        projection (q | k | v along its output), rotary applied at
+        ``positions`` (``[B|1, T]``; None = 0 .. T-1)."""
         c = self.config
+        nh, nkv, hd = c.num_heads, c.kv_heads, c.hdim
         qkv = L.dense_apply(p["qkv"], h)
         b, t = qkv.shape[0], qkv.shape[1]
-        qkv = qkv.view(b, t, 3, c.num_heads, c.hdim)
-        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if nkv == nh:
+            qkv = qkv.view(b, t, 3, nh, hd)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q = qkv[..., :nh * hd].reshape(b, t, nh, hd)
+            k = qkv[..., nh * hd:(nh + nkv) * hd].reshape(b, t, nkv, hd)
+            v = qkv[..., (nh + nkv) * hd:].reshape(b, t, nkv, hd)
+        if c.pos_embedding == "rotary":
+            cos, sin = self._rotary_tables(qkv.device)
+            q = L.apply_rotary(q, cos, sin, positions,
+                               interleaved=c.rotary_interleaved)
+            k = L.apply_rotary(k, cos, sin, positions,
+                               interleaved=c.rotary_interleaved)
+        return q, k, v
 
     def _mlp(self, p: Params, x: torch.Tensor) -> torch.Tensor:
-        return L.dense_apply(p["fc_out"],
-                             L.gelu(L.dense_apply(p["fc_in"], x)))
+        act = L.ACT_FNS[self.config.activation]
+        if self.config.gated_mlp:
+            g = act(L.dense_apply(p["fc_gate"], x))
+            return L.dense_apply(p["fc_out"],
+                                 g * L.dense_apply(p["fc_in"], x))
+        return L.dense_apply(p["fc_out"], act(L.dense_apply(p["fc_in"], x)))
 
-    def _block(self, bp: Params, x: torch.Tensor, attend) -> torch.Tensor:
+    def _block(self, bp: Params, x: torch.Tensor, attend,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pre-norm serial residual block; ``attend(q, k, v)`` returns
         ``[.., T, H*D]`` attention output for this layer."""
-        q, k, v = self._qkv(bp["attn"], self._norm(bp["ln1"], x))
+        q, k, v = self._qkv(bp["attn"], self._norm(bp["ln1"], x), positions)
         x = x + L.dense_apply(bp["attn"]["out"], attend(q, k, v))
         return x + self._mlp(bp["mlp"], self._norm(bp["ln2"], x))
 
     def _project(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return L.embedding_attend(params["embed"], x)
+        """f32 logits: the tied embedding or the untied ``lm_head``, from
+        operands in x's dtype."""
+        if self.config.tie_embeddings:
+            return L.embedding_attend(params["embed"], x)
+        return L.f32_product(x, params["lm_head"]["kernel"])
 
     # -- full forward and dense-cache decode ------------------------------
     def apply(self, params: Params, input_ids: torch.Tensor,
@@ -325,6 +416,7 @@ class TransformerLM(nn.Module):
                              f"writing {t} at {idx}")
         pos = idx + torch.arange(t, device=input_ids.device)[None]
         x = self._embed(params, input_ids, pos)
+        group = c.num_heads // c.kv_heads
         for i, bp in enumerate(layer_views(params["blocks"])):
             ck, cv = cache["k"][i], cache["v"][i]
 
@@ -332,14 +424,22 @@ class TransformerLM(nn.Module):
                 ck[:, idx:idx + t] = k
                 cv[:, idx:idx + t] = v
                 if t == 1 and c.attn_impl == "flash":
-                    # token-at-a-time hot path: kernel B5 over the cache
-                    o = decode_attention(q[:, 0].contiguous(), ck, cv,
+                    # token-at-a-time hot path: kernel B5 over the cache;
+                    # B5 takes one kv head per query head, so a GQA cache
+                    # is expanded over the group first, as the JAX model
+                    # does (`expand_kv`)
+                    kk, vv = ck, cv
+                    if group > 1:
+                        kk = ck[:, :idx + 1].repeat_interleave(group, dim=2)
+                        vv = cv[:, :idx + 1].repeat_interleave(group, dim=2)
+                    o = decode_attention(q[:, 0].contiguous(), kk, vv,
                                          idx + 1)
                     return o.reshape(b, 1, -1)
-                o = L.causal_attention(q, ck[:, :idx + t], cv[:, :idx + t],
-                                       kv_positions_offset=idx)
+                attn = L.gqa_attention if group > 1 else L.causal_attention
+                o = attn(q, ck[:, :idx + t], cv[:, :idx + t],
+                         kv_positions_offset=idx)
                 return o.reshape(b, t, -1)
-            x = self._block(bp, x, attend)
+            x = self._block(bp, x, attend, pos)
         logits = self._project(params, self._norm(params["ln_f"], x))
         return logits, {"k": cache["k"], "v": cache["v"], "index": idx + t}
 
@@ -360,12 +460,14 @@ class TransformerLM(nn.Module):
         return wrapped
 
     def _attend_full(self, q, k, v):
-        """Causal self-attention over a whole sequence ``[B, T, H, D]``
-        → ``[B, T, H*D]``: kernels B1/B2 with ``flash``, plain attention
-        with ``xla``."""
+        """Causal self-attention over a whole sequence, q ``[B, T, H, D]``
+        and k/v ``[B, T, KVH, D]`` → ``[B, T, H*D]``: kernels B1 and B2
+        (or B3/B4) with ``flash``, plain attention with ``xla``."""
         b, t = q.shape[0], q.shape[1]
         if self.config.attn_impl == "flash":
             o = flash_attention_bthd(q, k, v, causal=True)
+        elif k.shape[2] != q.shape[2]:
+            o = L.gqa_attention(q, k, v)
         else:
             o = L.causal_attention(q, k, v)
         return o.reshape(b, t, -1)
@@ -412,15 +514,20 @@ class TransformerLM(nn.Module):
         chunk = c.loss_chunk
         b, t = labels.shape
         if c.fused_loss_head:
+            if c.tie_embeddings:
+                w, bias, tw = params["embed"]["embedding"], None, True
+            else:
+                w = params["lm_head"]["kernel"]
+                bias = params["lm_head"].get("bias")
+                tw = False
             rows = b * t
             # chunk in whole token columns, like the checkpointed path
             row_chunk = b * chunk if (chunk and t > chunk
                                       and t % chunk == 0) else 0
             tot, cnt = fused_linear_xent(
-                x.reshape(rows, x.shape[-1]), params["embed"]["embedding"],
-                labels.reshape(rows),
-                None if mask is None else mask.reshape(rows),
-                transpose_w=True, chunk=row_chunk)
+                x.reshape(rows, x.shape[-1]), w, labels.reshape(rows),
+                None if mask is None else mask.reshape(rows), bias=bias,
+                transpose_w=tw, chunk=row_chunk)
             return tot / torch.clamp(cnt, min=1.0)
         if chunk and t > chunk and t % chunk == 0:
             def chunk_nll(xc, yc, mc):
@@ -461,10 +568,17 @@ class TransformerLM(nn.Module):
 
     # -- paged serving state -------------------------------------------------
     def _paged_supported(self) -> Optional[str]:
-        """None when the paged path serves this config (the slice's
-        family always is, given a head_dim that is a multiple of 8)."""
-        if self.config.hdim % 8:
-            return (f"head_dim {self.config.hdim} is not a multiple of 8")
+        """None when the paged decode path serves this config, else the
+        reason it cannot (the JAX model's rule)."""
+        c = self.config
+        if not c.causal:
+            return "paged decode needs a causal (decoder) model"
+        if c.moe_num_experts > 0:
+            return "paged decode does not cover MoE block stacks yet"
+        if c.pos_embedding == "alibi":
+            return "paged decode does not carry the ALiBi bias yet"
+        if c.hdim % 8:
+            return f"head_dim {c.hdim} is not lane-aligned (multiple of 8)"
         return None
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
@@ -524,8 +638,9 @@ class TransformerLM(nn.Module):
         wd = torch.where(act, dtables[slot, page].long() * blk
                          + dlens_l % blk, torch.zeros_like(dlens_l))
         ci = torch.arange(nc, device=dev)
-        # padded chunk rows take position 0 (the learned table's bound)
-        # and write into the null block
+        # padded chunk rows take position 0 (past chunk_len, base + i can
+        # exceed the learned or rotary table) and write into the null
+        # block
         cpos = torch.where(ci < chunk_len, chunk_start + ci,
                            torch.zeros_like(ci))
         ctable = tables[chunk_slot] if nc else tables[0]
@@ -555,7 +670,7 @@ class TransformerLM(nn.Module):
                         q[0, bsl:].contiguous(), pk, pv, chunk_start,
                         chunk_len, ctable))
                 return torch.cat(parts).reshape(1, t, -1)
-            x = self._block(bp, x, attend)
+            x = self._block(bp, x, attend, positions)
         x = self._norm(params["ln_f"], x)
         rows = [x[0, :bsl]]
         if nc:

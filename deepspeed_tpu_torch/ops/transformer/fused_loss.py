@@ -15,9 +15,10 @@ to the backward:
 Saved for the backward: x, w, bias, labels and the mask.  The head is
 tied (``w [V, D]``, ``transpose_w=True``) or untied (``w [D, V]`` with an
 optional bias ``[V]``).  The logits product casts w to x's dtype and
-returns float32 logits (on the card with bf16 operands the product is
-rounded to bf16 and widened, see ``PERF.md``); the backward products run
-in float32 on an upcast w, as in the JAX package.  The products are
+returns float32 logits from those operands with float32 accumulation
+(``models/layers.py::f32_product``, the JAX package's
+``preferred_element_type=float32``); the backward products run in
+float32 on an upcast w, as in the JAX package.  The products are
 ``torch`` matrix products: the JAX package leaves them to XLA, outside
 any Pallas kernel.
 """
@@ -27,10 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...models.layers import f32_product
+
 
 def _logits(xc, w, b, transpose_w: bool) -> torch.Tensor:
-    wc = w if w.dtype == xc.dtype else w.to(xc.dtype)
-    lg = torch.matmul(xc, wc.t() if transpose_w else wc).float()
+    lg = f32_product(xc, w.t() if transpose_w else w)
     return lg if b is None else lg + b.float()
 
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1, B2, B5, B6, B7) against their plain
-PyTorch versions, on the card.
+"""The port's CUDA kernels (B1 to B7) against their plain PyTorch
+versions, and the f32 logits products, on the card.
 
 These tests need an NVIDIA card with ``nvcc`` (the kernels are built from
 ``deepspeed_tpu_torch/csrc`` at first use and have no CPU mode) and skip
@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.models import layers as L
 from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
 from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
+from deepspeed_tpu_torch.ops.transformer import fused_loss
 from deepspeed_tpu_torch.ops.transformer import paged_decode_attention as PA
 
 
@@ -122,3 +124,77 @@ def test_cuda_flash_attention_matches_plain(dtype, causal, t_len, d):
     again = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t_len,g,d", [(200, 4, 64), (130, 1, 128),
+                                       (77, 2, 16)])
+def test_cuda_gqa_flash_attention_matches_plain(dtype, causal, t_len, g, d):
+    """B1 with a kv group (k/v at kv-head width), B3 (dq) and B4 (dk/dv
+    summed over the group) on the card against their plain versions on
+    the same inputs: ragged T (rows past T never read), groups of 1, 2
+    and 4.  B3 and B4 give the same bits on a second launch (no atomics).
+    Tolerance as above: f32 1e-4; bf16 atol 4e-3, rtol 8e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    tol = (dict(atol=1e-4, rtol=1e-4) if dt == torch.float32
+           else dict(atol=4e-3, rtol=8e-3))
+    rng = np.random.default_rng(t_len + g + causal)
+
+    def t(*shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dt)
+    q, do = t(3 * g, t_len, d), t(3 * g, t_len, d)
+    k, v = t(3, t_len, d), t(3, t_len, d)
+    o, lse = FA.flash_attention_fwd(q, k, v, causal)
+    o_p, lse_p = FA.flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(o, o_p, **tol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    dq = FA.flash_attention_bwd_dq(q, k, v, o_p, lse_p, do, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, o_p, lse_p, do, causal)
+    torch.testing.assert_close(
+        dq, FA.flash_attention_bwd_dq_plain(q, k, v, o_p, lse_p, do, causal),
+        **tol)
+    for got, want in zip((dk, dv), FA.flash_attention_bwd_dkv_plain(
+            q, k, v, o_p, lse_p, do, causal)):
+        assert got.shape == k.shape
+        torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(dq, FA.flash_attention_bwd_dq(q, k, v, o_p, lse_p,
+                                                     do, causal))
+    for a, b in zip((dk, dv), FA.flash_attention_bwd_dkv(q, k, v, o_p,
+                                                         lse_p, do, causal)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["embedding_attend", "untied_head",
+                                  "fused_loss_logits"])
+def test_cuda_logits_are_f32_products_of_bf16_operands(site):
+    """The card's logits products take bf16 operands and return f32 with
+    f32 accumulation, as XLA's ``preferred_element_type=float32`` does:
+    each site equals the f32 product of the same bf16 values to f32
+    rounding (rtol 1e-5), where rounding the product to bf16 and
+    widening it (the former form) misses that limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the products are cuBLAS's")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn((96, 256), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((256, 500), generator=g, device=dev)   # f32 master
+    wb = w.to(torch.bfloat16)
+    want = torch.matmul(x.float(), wb.float())
+    got = {"embedding_attend": lambda: L.embedding_attend(
+               {"embedding": w.t().contiguous()}, x),
+           "untied_head": lambda: L.f32_product(x, w),
+           "fused_loss_logits": lambda: fused_loss._logits(x, w, None,
+                                                           False)}[site]()
+    assert got.dtype == torch.float32
+    tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(got, want, **tol)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(torch.matmul(x, wb).float(), want, **tol)

@@ -1,5 +1,5 @@
-"""The port's flash attention (kernels B1 and B2 behind one autograd
-function) against the JAX package's Pallas kernels.
+"""The port's flash attention (kernels B1, B2, B3 and B4 behind one
+autograd function) against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers run their plain versions (the tensors lie
 on the CPU); the JAX kernels run in interpret mode, as
@@ -73,25 +73,92 @@ def test_bthd_layout_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
 
 
+def jax_fwd_and_vjp(q, k, v, do, causal, blocks):
+    """The JAX kernels' (o, [dq, dk, dv]) in interpret mode."""
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+
+    def f(a, b, c):
+        return JFA.flash_attention(a, b, c, causal, None, *blocks, True)
+    o, vjp = jax.vjp(f, jq, jk, jv)
+    return np.asarray(o), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def port_fwd_and_grads(q, k, v, do, causal, blocks):
+    """The port's (o, [dq, dk, dv]) through ``flash_attention``'s
+    autograd (B1, then B2 or B3 + B4: their plain versions on the CPU)."""
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    o = FA.flash_attention(tq, tk, tv, causal, None, *blocks)
+    o.backward(torch.from_numpy(do))
+    return o.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+def qkv_grouped(bkv, g, t, d, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((bkv * g, t, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((bkv, t, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,blocks", [(40, (16, 16)), (64, (1024, 1024))])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_gqa_forward_and_vjp_match_jax(g, t, blocks, causal):
+    """o and the three gradients against JAX's VJP for query groups of
+    1, 2 and 4 heads per kv head (k/v at kv-head width on both sides):
+    T 40 in 16-row blocks is ragged and multi-block (JAX's and the
+    port's two-pass backward, B3 + B4); T 64 in one block takes the
+    fused B2 for g = 1 and B3 + B4 otherwise, by the JAX rule."""
+    q, k, v, do = qkv_grouped(2, g, t, 16, seed=7 * g + t + causal)
+    assert FA.check_dispatch(q.shape, k.shape, *blocks) == (
+        g == 1 and blocks == (1024, 1024))
+    o_j, grads_j = jax_fwd_and_vjp(q, k, v, do, causal, blocks)
+    o_t, grads_t = port_fwd_and_grads(q, k, v, do, causal, blocks)
+    np.testing.assert_allclose(o_t, o_j, **FWD_TOL)
+    for got, want in zip(grads_t, grads_j):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("case", ["gqa", "t_past_block", "small_blocks"])
 def test_two_pass_cases_raise_naming_b3_b4(case):
     """The JAX dispatch rule sends GQA and multi-block sequences to the
-    two-pass backward (B3/B4), a later slice: the port raises, and so
-    does the B2 wrapper itself at its 1024-row block."""
-    rng = np.random.default_rng(0)
+    two-pass backward, B3 then B4: each such case dispatches there and
+    matches JAX's kernels (forward and the three gradients); the fused
+    B2 wrapper itself still refuses GQA, naming B3 and B4."""
     shape_q, shape_k, blocks = {
         "gqa": ((4, 64, 16), (2, 64, 16), (1024, 1024)),
         "t_past_block": ((2, 1030, 16), (2, 1030, 16), (1024, 1024)),
         "small_blocks": ((2, 128, 16), (2, 128, 16), (64, 64)),
     }[case]
-    q = torch.from_numpy(rng.standard_normal(shape_q).astype(np.float32))
-    k = torch.from_numpy(rng.standard_normal(shape_k).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="B3.*B4"):
-        FA.flash_attention(q, k, k.clone(), True, None, *blocks)
-    if blocks == (1024, 1024):
+    q, k, v, do = qkv_grouped(shape_k[0], shape_q[0] // shape_k[0],
+                              shape_q[1], shape_q[2], seed=len(case))
+    assert FA.check_dispatch(q.shape, k.shape, *blocks) is False
+    o_j, grads_j = jax_fwd_and_vjp(q, k, v, do, True, blocks)
+    o_t, grads_t = port_fwd_and_grads(q, k, v, do, True, blocks)
+    np.testing.assert_allclose(o_t, o_j, **FWD_TOL)
+    for got, want in zip(grads_t, grads_j):
+        np.testing.assert_allclose(got, want, **GRAD_TOL)
+    if case == "gqa":
+        tq, tk = torch.from_numpy(q), torch.from_numpy(k)
         lse = torch.zeros(shape_q[:2])
-        with pytest.raises(NotImplementedError, match="B3.*B4"):
-            FA.flash_attention_bwd(q, k, k.clone(), q, lse, q, True)
+        with pytest.raises(ValueError, match="B3.*B4"):
+            FA.flash_attention_bwd(tq, tk, tk.clone(), tq, lse, tq, True)
+
+
+def test_dispatch_rule_is_jax_rule():
+    """B2 exactly when the sequence fits one block and there is one kv
+    head per query head; only Tq != Tk raises."""
+    assert FA.check_dispatch((8, 1024, 64), (8, 1024, 64))
+    assert not FA.check_dispatch((8, 1025, 64), (8, 1025, 64))
+    assert not FA.check_dispatch((8, 64, 64), (2, 64, 64))
+    assert not FA.check_dispatch((8, 128, 64), (8, 128, 64), 64, 64)
+    with pytest.raises(ValueError, match="divisible"):
+        FA.check_dispatch((6, 64, 64), (4, 64, 64))
+    with pytest.raises(NotImplementedError, match="key length"):
+        FA.check_dispatch((4, 64, 64), (4, 65, 64))
 
 
 def test_plain_versions_keep_the_rounding_points():

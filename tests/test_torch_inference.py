@@ -8,7 +8,8 @@ port's ``generate()`` (decode through kernel B5's plain version on the
 CPU) against the JAX ``generate()`` (its XLA decode path, as the JAX
 serving suite pins its baseline), and the port's serving streams
 (kernels B6/B7's plain versions, chunked prefill, preemption) against
-both.
+both.  The tiny LLaMA (GQA 8/2, RMSNorm, SiLU gated MLP, untied head,
+no biases, rotate-half rotary) is held to the same exactness.
 """
 import dataclasses
 
@@ -35,6 +36,11 @@ TINY = dict(num_layers=4, d_model=32, num_heads=4, vocab_size=64,
 BASE = {"dtype": "float32", "max_out_tokens": 64, "temperature": 0.0}
 SERVING = {"enabled": True, "kv_block_size": 8, "num_kv_blocks": 48,
            "max_batch_slots": 8, "prefill_chunk_tokens": 16}
+LLAMA = dict(num_layers=4, d_model=64, num_heads=8, num_kv_heads=2,
+             d_ff=96, vocab_size=64, max_seq_len=64,
+             pos_embedding="rotary", rotary_interleaved=False,
+             norm_type="rmsnorm", activation="silu", gated_mlp=True,
+             tie_embeddings=False, use_bias=False)
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +66,54 @@ def jax_gen(jeng, prompt, n):
 def prompts_of(lens, seed):
     rs = np.random.RandomState(seed)
     return [rs.randint(0, 64, (n,)).tolist() for n in lens]
+
+
+@pytest.fixture(scope="module")
+def llama_engines():
+    """(JAX engine, port engine) of the tiny LLaMA on the same
+    JAX-initialised weights."""
+    jm = jax_tf.TransformerLM(jax_tf.TransformerConfig(dtype=jnp.float32,
+                                                       **LLAMA))
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(9)))
+    jeng = ds.init_inference(jm, config={
+        **BASE, "replace_with_kernel_inject": False}, params=jp)
+    pm = tt.TransformerLM(tt.TransformerConfig(dtype=torch.float32,
+                                               **LLAMA))
+    peng = dt.init_inference(pm, {**BASE, "serving": SERVING},
+                             params=params_from_jax(jp, pm), device="cpu")
+    return jeng, peng
+
+
+def test_llama_generate_forward_and_server_match_jax(llama_engines):
+    """The tiny LLaMA: ``generate()`` (B5's plain version over the cache
+    expanded over each kv group), ``forward()`` (B1's plain version at
+    kv-head width) and the server (B6/B7's plain versions reading the
+    pool at kv-head width, rotary at each row's position, chunked
+    prefill) against the JAX engine: greedy streams exactly equal,
+    logits within 1e-5."""
+    jeng, peng = llama_engines
+    batch = np.random.RandomState(1).randint(0, 64, (2, 7)).astype(np.int32)
+    np.testing.assert_array_equal(
+        peng.generate(batch, max_new_tokens=8).numpy(),
+        np.asarray(jeng.generate(batch, max_new_tokens=8, temperature=0.0)))
+    x = np.random.RandomState(4).randint(0, 64, (2, 19)).astype(np.int32)
+    np.testing.assert_allclose(peng.forward(x).numpy(),
+                               np.asarray(jeng.forward(x)), atol=1e-5,
+                               rtol=1e-5)
+    srv = peng.serving_engine()
+    prompts = prompts_of((5, 9, 20, 33, 3, 14), 8)
+    reqs = [srv.submit(p, max_new_tokens=8) for p in prompts[:3]]
+    srv.step()
+    reqs += [srv.submit(p, max_new_tokens=8) for p in prompts[3:]]
+    assert len(srv.run(max_steps=300)) == 6
+    for p, r in zip(prompts, reqs):
+        assert r.status.value == "ok"
+        want = jax_gen(jeng, p, 8)
+        np.testing.assert_array_equal(r.output, want, err_msg=f"{p}")
+        np.testing.assert_array_equal(
+            peng.generate([p], max_new_tokens=8)[0].numpy(), want)
+    srv.allocator.assert_consistent()
+    assert srv.allocator.num_used == 0
 
 
 def test_generate_matches_jax_greedy(engines):
@@ -261,15 +315,22 @@ def test_out_of_slice_serving_options_raise(engines, serving):
 
 
 def test_out_of_slice_entry_points_raise(engines):
-    """forward() runs B1 for a sequence of one block; past 1024 tokens
-    the JAX package runs the two-pass kernels B3/B4, a later slice."""
+    """forward() past one 1024-row block runs (B1 takes any T; the
+    two-pass kernels B3/B4 are its backward) and equals the JAX model's
+    logits on the same weights; speculative decoding still raises."""
     _, peng, _ = engines
-    long = dt.init_inference(
-        tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
-                                        **{**TINY, "max_seq_len": 1100})),
-        BASE, device="cpu")
-    with pytest.raises(NotImplementedError, match="B3.*B4"):
-        long.forward(np.zeros((1, 1030), np.int32))
+    long_tiny = {**TINY, "max_seq_len": 1100}
+    jm = jax_tf.TransformerLM(jax_tf.gpt2_config("125m", dtype=jnp.float32,
+                                                 **long_tiny))
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(2)))
+    pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
+                                         **long_tiny))
+    long = dt.init_inference(pm, BASE, params=params_from_jax(jp, pm),
+                             device="cpu")
+    x = np.random.RandomState(6).randint(0, 64, (1, 1030)).astype(np.int32)
+    np.testing.assert_allclose(long.forward(x).numpy(),
+                               np.asarray(jm.apply(jp, jnp.asarray(x))),
+                               atol=1e-5, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="speculative"):
         peng.serving_engine(draft_model=object())
 

@@ -1,11 +1,14 @@
-"""The port's GPT-2 model against the JAX package's, on the same weights.
+"""The port's GPT-2 and LLaMA models against the JAX package's, on the
+same weights.
 
 Weights come from the JAX ``TransformerLM.init`` and cross with
-``params_from_jax``; the model is the serving suite's ``tiny_cfg``
-(4 layers, d_model 32, 4 heads, vocab 64) in float32.  Logits are
-compared at atol = rtol = 1e-5 (same math in f32; only the summation
-order differs).  The JAX side's Pallas decode kernel runs in interpret
-mode on the CPU.
+``params_from_jax``; the GPT-2 model is the serving suite's ``tiny_cfg``
+(4 layers, d_model 32, 4 heads, vocab 64) and the LLaMA model ``LLAMA``
+(4 layers, d_model 64, 8 query heads over 2 kv heads, d_ff 96, vocab 64,
+RMSNorm, SiLU gated MLP, untied head, no biases, rotary in both
+pairings), in float32.  Logits are compared at atol = rtol = 1e-5 (same
+math in f32; only the summation order differs).  The JAX side's Pallas
+kernels run in interpret mode on the CPU.
 """
 import dataclasses
 
@@ -24,6 +27,13 @@ from deepspeed_tpu_torch.models.convert import (check_params,
 TOL = dict(atol=1e-5, rtol=1e-5)
 TINY = dict(num_layers=4, d_model=32, num_heads=4, vocab_size=64,
             max_seq_len=64)
+#: the tiny LLaMA: GQA 8/2, RMSNorm, SiLU gated MLP, untied head, no
+#: bias, rotate-half rotary (``rotary_interleaved`` varies in the tests)
+LLAMA = dict(num_layers=4, d_model=64, num_heads=8, num_kv_heads=2,
+             d_ff=96, vocab_size=64, max_seq_len=1100,
+             pos_embedding="rotary", rotary_interleaved=False,
+             norm_type="rmsnorm", activation="silu", gated_mlp=True,
+             tie_embeddings=False, use_bias=False)
 
 
 def jax_model(attn_impl="xla"):
@@ -46,6 +56,86 @@ def weights():
 def ids(b, t, seed):
     return np.random.default_rng(seed).integers(0, 64, (b, t)).astype(
         np.int32)
+
+
+def llama_models(attn_impl="xla", **kw):
+    """(JAX model, port model) of the tiny LLaMA in float32."""
+    cfg = {**LLAMA, "attn_impl": attn_impl, **kw}
+    return (jax_tf.TransformerLM(jax_tf.TransformerConfig(
+                dtype=jnp.float32, **cfg)),
+            tt.TransformerLM(tt.TransformerConfig(dtype=torch.float32,
+                                                  **cfg)))
+
+
+@pytest.fixture(scope="module")
+def llama_weights():
+    """JAX init (seed 11) of the tiny LLaMA as numpy, and as port
+    tensors."""
+    jm, pm = llama_models()
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(11)))
+    return jp, params_from_jax(jp, pm)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_llama_full_sequence_logits_match_jax(llama_weights, attn_impl,
+                                              interleaved):
+    """Full-sequence logits: plain GQA attention (``xla``) or flash
+    attention at kv-head width (B1's plain version; the JAX kernel in
+    interpret mode), rotary in both pairings."""
+    jp, tp = llama_weights
+    jm, pm = llama_models(attn_impl, rotary_interleaved=interleaved)
+    x = ids(2, 13, 4)
+    want = np.asarray(jm.apply(jp, jnp.asarray(x)))
+    got = pm.apply(tp, torch.from_numpy(x).long()).numpy()
+    assert got.shape == (2, 13, 64) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("attn_impl", ["flash", "xla"])
+def test_llama_cache_prefill_and_decode_match_jax(llama_weights, attn_impl,
+                                                  interleaved):
+    """Dense-cache prefill then three t == 1 decode steps: the cache at
+    kv-head width, rotary at the cache index; decode through kernel B5
+    (its plain version) over k/v expanded over the group with
+    ``flash``, plain GQA attention with ``xla``."""
+    jp, tp = llama_weights
+    jm, pm = llama_models(attn_impl, rotary_interleaved=interleaved)
+    x = ids(2, 9, 5)
+    jc = jm.init_cache(2, 16, dtype=jnp.float32)
+    pc = pm.init_cache(2, 16, dtype=torch.float32, device="cpu")
+    assert tuple(pc["k"].shape) == (4, 2, 16, 2, 8)
+    jl, jc = jm.apply(jp, jnp.asarray(x), cache=jc)
+    pl_, pc = pm.apply(tp, torch.from_numpy(x).long(), cache=pc)
+    np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **TOL)
+    for step in range(3):
+        tok = ids(2, 1, 20 + step)
+        jl, jc = jm.apply(jp, jnp.asarray(tok), cache=jc)
+        pl_, pc = pm.apply(tp, torch.from_numpy(tok).long(), cache=pc)
+        np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(pc["k"].numpy()[:, :, :12],
+                               np.asarray(jc["k"])[:, :, :12], **TOL)
+
+
+def test_llama_param_tree_and_sizes_match_jax(llama_weights):
+    """The LLaMA tree (no pos_embed, scale-only RMSNorm, fc_gate,
+    lm_head, no biases) has JAX's paths and shapes, its size is JAX's
+    num_params, and it crosses back unchanged."""
+    jp, tp = llama_weights
+    jm, pm = llama_models()
+    jshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jp)
+    pshapes = jax.tree_util.tree_map(tuple, pm.param_shapes(),
+                                     is_leaf=lambda x: isinstance(x, tuple))
+    assert jshapes == pshapes
+    assert "pos_embed" not in tp and set(tp["ln_f"]) == {"scale"}
+    assert tuple(tp["lm_head"]["kernel"].shape) == (64, 64)
+    assert pm.config.num_params() == jm.config.num_params() == sum(
+        int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(jp))
+    jax.tree_util.tree_map(np.testing.assert_array_equal,
+                           params_to_jax(tp), jp)
+    fresh = pm.init(torch.Generator().manual_seed(1), "cpu")
+    check_params(pm, fresh)
 
 
 def test_full_sequence_logits_match_jax(weights):
@@ -115,6 +205,12 @@ def test_params_shape_mismatch_is_named(weights):
         params_from_jax(bad, port_model())
 
 
+#: the overrides that still raise (ALiBi, parallel residual, MoE: later
+#: slices); the others are the LLaMA family's pieces
+_STILL_OUT = (dict(pos_embedding="alibi"), dict(parallel_residual=True),
+              dict(moe_num_experts=4))
+
+
 @pytest.mark.parametrize("override", [
     dict(pos_embedding="rotary"), dict(pos_embedding="alibi"),
     dict(norm_type="rmsnorm"), dict(gated_mlp=True),
@@ -122,21 +218,36 @@ def test_params_shape_mismatch_is_named(weights):
     dict(moe_num_experts=4), dict(activation="silu"),
 ])
 def test_out_of_slice_families_raise(override):
+    """ALiBi, NeoX's parallel residual and MoE still raise, naming the
+    slice; rotary, RMSNorm, the gated MLP, GQA and SiLU are the LLaMA
+    family's pieces, and each alone on the GPT-2 model gives JAX's
+    logits on JAX's weights."""
     cfg = dataclasses.replace(tt.gpt2_config("125m", **TINY), **override)
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        tt.TransformerLM(cfg)
+    if override in _STILL_OUT:
+        with pytest.raises(NotImplementedError, match="later|slice"):
+            tt.TransformerLM(cfg)
+        return
+    jm = jax_tf.TransformerLM(jax_tf.gpt2_config(
+        "125m", dtype=jnp.float32, **TINY, **override))
+    pm = tt.TransformerLM(dataclasses.replace(cfg, dtype=torch.float32))
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(4)))
+    x = ids(2, 10, 6)
+    np.testing.assert_allclose(
+        pm.apply(params_from_jax(jp, pm), torch.from_numpy(x).long()).numpy(),
+        np.asarray(jm.apply(jp, jnp.asarray(x))), **TOL)
 
 
-def test_uncached_flash_forward_raises():
-    """The uncached forward with kernel injection runs flash attention
-    (kernels B1/B2) for a sequence that fits one block; past 1024 tokens
-    the JAX package runs the two-pass kernels B3/B4, a later slice."""
-    cfg = tt.gpt2_config("125m", dtype=torch.float32, attn_impl="flash",
-                         **{**TINY, "max_seq_len": 1100})
-    pm = tt.TransformerLM(cfg)
-    with pytest.raises(NotImplementedError, match="B3.*B4"):
-        pm.apply(pm.init(torch.Generator().manual_seed(0), "cpu"),
-                 torch.zeros((1, 1030), dtype=torch.long))
+def test_uncached_flash_forward_raises(llama_weights):
+    """Past one 1024-row block the uncached flash forward runs (B1 takes
+    any T; its backward is B3/B4): the tiny LLaMA's logits at T 1030
+    match the JAX model's flash forward (its Pallas kernel in interpret
+    mode, two 1024-row blocks)."""
+    jp, tp = llama_weights
+    jm, pm = llama_models("flash")
+    x = ids(1, 1030, 7)
+    want = np.asarray(jm.apply(jp, jnp.asarray(x)))
+    got = pm.apply(tp, torch.from_numpy(x).long()).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("t", [11, 64])
