@@ -162,49 +162,22 @@ def embedding_attend(params: Params, x: torch.Tensor) -> torch.Tensor:
     return f32_product(x, params["embedding"].t())
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     *, mask: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None,
-                     kv_positions_offset: int = 0) -> torch.Tensor:
-    """Plain attention, q ``[B, Tq, H, D]``, k/v ``[B, Tk, H, D]``:
-    scores and softmax in f32, probabilities cast to q's dtype for the
-    value product; causal with query i at position
-    ``kv_positions_offset + i``; ``mask`` (broadcastable to
-    ``[B, H, Tq, Tk]``) keeps True entries.  Returns ``[B, Tq, H, D]``."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    tq, tk = q.shape[1], k.shape[1]
-    q_pos = torch.arange(tq, device=q.device) + kv_positions_offset
-    k_pos = torch.arange(tk, device=q.device)
-    keep = q_pos[:, None] >= k_pos[None, :]
-    if mask is not None:
-        keep = keep & mask
-    logits = logits.masked_fill(~keep, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
-
-
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  *, mask: Optional[torch.Tensor] = None,
-                  scale: Optional[float] = None,
-                  kv_positions_offset: int = 0) -> torch.Tensor:
-    """Plain grouped-query attention, q ``[B, Tq, H, D]`` with H = g KVH
-    against k/v ``[B, Tk, KVH, D]``, through a group einsum that never
-    materialises expanded k/v; scores and softmax in f32, causal as
-    :func:`causal_attention`; ``mask`` broadcastable to
-    ``[B, KVH, g, Tq, Tk]``.  Returns ``[B, Tq, H, D]``."""
+                  *, kv_positions_offset: int = 0) -> torch.Tensor:
+    """Plain causal attention, q ``[B, Tq, H, D]`` with H = g KVH against
+    k/v ``[B, Tk, KVH, D]`` (multi-head attention is g = 1), through a
+    group einsum that never materialises expanded k/v: scores and softmax
+    in f32, probabilities cast to q's dtype for the value product, query
+    i at position ``kv_positions_offset + i``.  Returns
+    ``[B, Tq, H, D]``."""
     b, tq, nh, hd = q.shape
     nkv = k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(b, tq, nkv, nh // nkv, hd)
-    logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
+    logits = (torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+              / math.sqrt(hd))
     tk = k.shape[1]
     q_pos = torch.arange(tq, device=q.device) + kv_positions_offset
     keep = q_pos[:, None] >= torch.arange(tk, device=q.device)[None, :]
-    if mask is not None:
-        keep = keep & mask
     logits = logits.masked_fill(~keep, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(q.dtype))

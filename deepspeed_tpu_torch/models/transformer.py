@@ -361,13 +361,9 @@ class TransformerLM(nn.Module):
         nh, nkv, hd = c.num_heads, c.kv_heads, c.hdim
         qkv = L.dense_apply(p["qkv"], h)
         b, t = qkv.shape[0], qkv.shape[1]
-        if nkv == nh:
-            qkv = qkv.view(b, t, 3, nh, hd)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        else:
-            q = qkv[..., :nh * hd].reshape(b, t, nh, hd)
-            k = qkv[..., nh * hd:(nh + nkv) * hd].reshape(b, t, nkv, hd)
-            v = qkv[..., (nh + nkv) * hd:].reshape(b, t, nkv, hd)
+        q = qkv[..., :nh * hd].reshape(b, t, nh, hd)
+        k = qkv[..., nh * hd:(nh + nkv) * hd].reshape(b, t, nkv, hd)
+        v = qkv[..., (nh + nkv) * hd:].reshape(b, t, nkv, hd)
         if c.pos_embedding == "rotary":
             cos, sin = self._rotary_tables(qkv.device)
             q = L.apply_rotary(q, cos, sin, positions,
@@ -435,9 +431,8 @@ class TransformerLM(nn.Module):
                     o = decode_attention(q[:, 0].contiguous(), kk, vv,
                                          idx + 1)
                     return o.reshape(b, 1, -1)
-                attn = L.gqa_attention if group > 1 else L.causal_attention
-                o = attn(q, ck[:, :idx + t], cv[:, :idx + t],
-                         kv_positions_offset=idx)
+                o = L.gqa_attention(q, ck[:, :idx + t], cv[:, :idx + t],
+                                    kv_positions_offset=idx)
                 return o.reshape(b, t, -1)
             x = self._block(bp, x, attend, pos)
         logits = self._project(params, self._norm(params["ln_f"], x))
@@ -466,10 +461,8 @@ class TransformerLM(nn.Module):
         b, t = q.shape[0], q.shape[1]
         if self.config.attn_impl == "flash":
             o = flash_attention_bthd(q, k, v, causal=True)
-        elif k.shape[2] != q.shape[2]:
-            o = L.gqa_attention(q, k, v)
         else:
-            o = L.causal_attention(q, k, v)
+            o = L.gqa_attention(q, k, v)
         return o.reshape(b, t, -1)
 
     def hidden_states(self, params: Params,

@@ -246,7 +246,6 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale)
     _check("flash_attention_fwd", q, k, v)
-    build.dtype_code(q, "flash_attention_fwd")
     _check_kernel(_FWD, (("q", q), ("k", k), ("v", v)))
     bh, t_len, d = q.shape
     o = torch.empty_like(q)
@@ -259,7 +258,6 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
 def _bwd_inputs(what, q, k, v, o, lse, do, delta):
     """Check a backward kernel's operands; ``delta`` computed when None."""
     _check(what, q, k, v, o, do)
-    build.dtype_code(q, what)
     _check_kernel(what, (("q", q), ("k", k), ("v", v), ("o", o),
                          ("do", do)))
     _check_rows(what, "lse", lse, q)
