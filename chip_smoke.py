@@ -44,7 +44,23 @@ Phases (any failure exits non-zero and prints no result line):
    grouped), never B2; then flash against plain attention at micro 2;
 8. TinyLlama-1.1B served as in phases 4-5 (bf16, random weights from
    seed 0): ``generate()`` on B5 over each kv group's expanded cache,
-   ``forward()`` on B1, and the server on B6/B7 at kv-head width.
+   ``forward()`` on B1, and the server on B6/B7 at kv-head width;
+9. training block-sparse GPT-2 125M (all 12 layers, ``attn_impl=
+   "blocksparse"`` with ``FixedSparsityConfig(block=64, 4 local blocks,
+   1 global, unidirectional)``, seq 8192, micro 8, ``remat="full"``,
+   fused loss head at chunk 256, AdamW and bf16 as in phase 6), 10 steps:
+   every layer runs kernel B8 twice and B9 and B10 once, never B1-B4;
+   then the kernels against plain attention masked by the layout at
+   micro 1, and the same model with dense flash attention for 3 steps;
+10. the block-sparse model served (``init_inference``, kernel injection
+   on): ``forward()`` on 2 x 8192 tokens through B8, ``generate()`` on 2
+   x 4096-token prompts on the dense cache with the layout as a mask,
+   checked against ``forward()``; the server must refuse the model.
+
+Phase 3 also holds B8, B9 and B10 (block-sparse forward, dq and dk/dv)
+against their plain versions: at phase 9's attention shape, at
+``bench_all.py``'s block-sparse lane (T 16384, 512-row blocks) and with
+16-row blocks of a per-head BigBird layout.
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -104,6 +120,11 @@ TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 20
 #: the TinyLlama-1.1B training phase: seq 2048, micro 8, 10 steps; flash
 #: against plain attention at micro 2
 LLAMA_SEQ, LLAMA_MICRO, LLAMA_STEPS, LLAMA_CHECK_MICRO = 2048, 8, 10, 2
+
+#: the block-sparse GPT-2 125M phase: seq 8192, micro 8 (bench.py's 65536
+#: tokens per step), 10 steps; kernels against masked plain attention at
+#: micro 1
+SPARSE_SEQ, SPARSE_MICRO, SPARSE_STEPS = 8192, 8, 10
 
 N_TIMED, N_WARM = 30, 5
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
@@ -306,6 +327,7 @@ def kernel_checks(torch, dev, flush):
     results.update(flash_checks(torch, dev, flush))
     for name, cases in gqa_flash_checks(torch, dev, flush).items():
         results.setdefault(name, []).extend(cases)
+    results.update(blocksparse_checks(torch, dev, flush))
     return results
 
 
@@ -509,6 +531,178 @@ def gqa_flash_checks(torch, dev, flush):
             "flash_attention_bwd_dkv": b4}
 
 
+#: the block-sparse slice's layout (GPT-2 125M's 12 heads at seq 8192)
+def sparse_config(heads: int = 12):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    return FixedSparsityConfig(num_heads=heads, block=64, num_local_blocks=4,
+                               num_global_blocks=1,
+                               attention="unidirectional")
+
+
+def visible_pairs(lay, block: int, causal: bool) -> int:
+    """(q, k) pairs one sequence's heads see under a bool block layout
+    ``[heads, nb, nb]``: a whole block off the diagonal, the lower
+    triangle with the diagonal of a diagonal block when causal."""
+    import numpy as np
+    n = int(lay.sum())
+    if not causal:
+        return n * block * block
+    diag = int(np.trace(lay, axis1=1, axis2=2).sum())
+    return (n - diag) * block * block + diag * block * (block + 1) // 2
+
+
+def sparse_kernel_cases():
+    """(tag, B, H, T, D, causal, block, bool layout ``[1|H, nb, nb]``) of
+    phase 3's block-sparse cases: (a) the training shape of phase 9 (B*H
+    = 8 x 12, T 8192, D 64, ``sparse_config()``: 64-row blocks, causal);
+    (b) ``bench_all.py``'s block-sparse lane (B*H = 1 x 8, T 16384, D
+    128, a causal sliding window of three 512-row blocks: each block
+    spans 8 x 8 tiles); (c) 16-row blocks of a BigBird layout drawn per
+    head (a different seed for each of 12 heads), non-causal, B*H = 2 x
+    12, T 2048, D 64 (4 x 4 sub-blocks share each 64-row tile pair)."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, LocalSlidingWindowSparsityConfig)
+
+    def causal_layout(cfg, t_len):
+        lay = cfg.make_layout(t_len)
+        return (lay & np.tril(np.ones_like(lay)))[None]
+    big = [BigBirdSparsityConfig(block=16, num_random_blocks=2, seed=h)
+           for h in range(12)]
+    return (
+        ("a", 8, 12, 8192, 64, True, 64,
+         causal_layout(sparse_config(), 8192)),
+        ("b", 1, 8, 16384, 128, True, 512, causal_layout(
+            LocalSlidingWindowSparsityConfig(
+                num_heads=8, block=512, num_sliding_window_blocks=3),
+            16384)),
+        ("c", 2, 12, 2048, 64, False, 16,
+         np.stack([c.make_layout(2048) for c in big])),
+    )
+
+
+def blocksparse_checks(torch, dev, flush):
+    """B8, B9 and B10 against their plain versions (which walk the same
+    compressed layout one tile at a time) in the cases of
+    ``sparse_kernel_cases()``.  The planted fault is the
+    plain version with one set block left out of one row of its layout;
+    B9 and B10 run twice and must give the same bits.  Yardsticks: SDPA
+    with the layout expanded into a boolean ``attn_mask`` (its forward
+    for B8, its backward for B9 + B10: the same function with dense
+    work), and dense B1, B3 and B4 on the same inputs (what the sparsity
+    saves)."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        blocksparse_flash as BS)
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(8765)
+    b8, b9, b10 = [], [], []
+    for tag, B, H, T, D, causal, blk, lay in sparse_kernel_cases():
+        BH = B * H
+        q, k, v, do = (torch.randn((BH, T, D), generator=g,
+                                   device=dev).to(bf16) for _ in range(4))
+        lc = BS.compress_layout(lay)
+        # the planted fault: a row with two or more blocks loses its last
+        rows = np.argwhere(lay.sum(-1) >= 2)
+        h, r = rows[len(rows) // 3]
+        bad = lay.copy()
+        bad[h, r, np.nonzero(lay[h, r])[0][-1]] = False
+        lc_bad = BS.compress_layout(bad)
+        args = (lc, blk, H, causal)
+        pairs = B * (H // lay.shape[0]) * visible_pairs(lay, blk, causal)
+        case = (f"({tag}) B*H={BH} T={T} D={D} block={blk} "
+                f"{'causal' if causal else 'full'}, "
+                f"{int(lay.sum())} blocks of {lay.size}, {pairs} pairs")
+        mask = torch.from_numpy(lay).to(dev)
+        mask = mask.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+        if causal:
+            mask = mask & torch.ones((T, T), dtype=torch.bool,
+                                     device=dev).tril()
+        mask = mask[None]                                  # [1, H|1, T, T]
+        q4, k4, v4, do4 = (x.view(B, H, T, D) for x in (q, k, v, do))
+        qbytes, rowbytes = BH * T * D * 2, BH * T * 4
+        # B8
+        o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+        o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+        o_f, _ = BS.blocksparse_attention_fwd_plain(q, k, v, lc_bad, blk, H,
+                                                    causal)
+        torch.cuda.synchronize()
+        acc = agree(f"B8 {case}", o, o_p, o_f)
+        lse_err = max_err(lse, lse_p)
+        check(lse_err <= LSE_ATOL, f"B8 {case}: lse off by {lse_err}")
+        del o, lse, o_f
+        ms = time_ms(lambda: BS.blocksparse_attention_fwd(q, k, v, *args),
+                     torch, flush)
+        plain = time_ms(lambda: BS.blocksparse_attention_fwd_plain(
+            q, k, v, *args), torch, flush, N_TIMED_PLAIN)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask), torch, flush, N_TIMED_PLAIN)
+        dense = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal),
+                        torch, flush, N_TIMED_PLAIN)
+        bnd, by = bound_ms(4 * qbytes + rowbytes, 4.0 * D * pairs)
+        b8.append(dict(case=case, **acc, lse_err=lse_err, ms=ms,
+                       plain_ms=plain, library_ms=lib, dense_ms=dense,
+                       bound_ms=bnd, bound_by=by, pairs=pairs))
+        # SDPA's backward with the mask: B9 + B10's yardstick
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do4, retain_graph=True), torch, flush,
+            N_TIMED_PLAIN)
+        del out, qg, kg, vg
+        delta = (do.float() * o_p.float()).sum(dim=-1)
+        bwd = (q, k, v, o_p, lse_p, do)
+        # B9, from the sound forward's o and lse
+        got = BS.blocksparse_attention_bwd_dq(*bwd, *args)
+        again = BS.blocksparse_attention_bwd_dq(*bwd, *args)
+        want = BS.blocksparse_attention_bwd_dq_plain(*bwd, *args)
+        fault = BS.blocksparse_attention_bwd_dq_plain(*bwd, lc_bad, blk, H,
+                                                      causal)
+        torch.cuda.synchronize()
+        acc = agree(f"B9 {case}", got, want, fault)
+        rerun = max_err(got, again)
+        check(rerun == 0.0, f"B9 {case}: two launches differ by {rerun}")
+        del got, again, want, fault
+        ms = time_ms(lambda: BS.blocksparse_attention_bwd_dq(
+            *bwd, *args, None, delta), torch, flush)
+        plain = time_ms(lambda: BS.blocksparse_attention_bwd_dq_plain(
+            *bwd, *args), torch, flush, N_TIMED_PLAIN)
+        dense = time_ms(lambda: FA.flash_attention_bwd_dq(
+            *bwd, causal, None, delta), torch, flush, N_TIMED_PLAIN)
+        bnd, by = bound_ms(5 * qbytes + 2 * rowbytes, 6.0 * D * pairs)
+        b9.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
+                       plain_ms=plain, library_ms=lib_bwd, dense_ms=dense,
+                       bound_ms=bnd, bound_by=by, pairs=pairs))
+        # B10
+        got = BS.blocksparse_attention_bwd_dkv(*bwd, *args)
+        again = BS.blocksparse_attention_bwd_dkv(*bwd, *args)
+        want = BS.blocksparse_attention_bwd_dkv_plain(*bwd, *args)
+        fault = BS.blocksparse_attention_bwd_dkv_plain(*bwd, lc_bad, blk, H,
+                                                       causal)
+        torch.cuda.synchronize()
+        acc = agree(f"B10 {case}", flat(got), flat(want), flat(fault))
+        rerun = max_err(flat(got), flat(again))
+        check(rerun == 0.0, f"B10 {case}: two launches differ by {rerun}")
+        del got, again, want, fault
+        ms = time_ms(lambda: BS.blocksparse_attention_bwd_dkv(
+            *bwd, *args, None, delta), torch, flush)
+        plain = time_ms(lambda: BS.blocksparse_attention_bwd_dkv_plain(
+            *bwd, *args), torch, flush, N_TIMED_PLAIN)
+        dense = time_ms(lambda: FA.flash_attention_bwd_dkv(
+            *bwd, causal, None, delta), torch, flush, N_TIMED_PLAIN)
+        bnd, by = bound_ms(6 * qbytes + 2 * rowbytes, 8.0 * D * pairs)
+        b10.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
+                        plain_ms=plain, library_ms=lib_bwd, dense_ms=dense,
+                        bound_ms=bnd, bound_by=by, pairs=pairs))
+        del q, k, v, do, o_p, lse_p, delta, mask, bwd
+        torch.cuda.empty_cache()
+    return {"blocksparse_flash_fwd": b8, "blocksparse_flash_bwd_dq": b9,
+            "blocksparse_flash_bwd_dkv": b10}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -564,7 +758,9 @@ def main() -> int:
                   + (f"; lse max|err| {c['lse_err']:.3g}"
                      if "lse_err" in c else "")
                   + (f"; two launches differ by {c['rerun_diff']:.3g}"
-                     if "rerun_diff" in c else ""))
+                     if "rerun_diff" in c else "")
+                  + (f"; dense kernel {c['dense_ms']:.4f} ms"
+                     if "dense_ms" in c else ""))
     del flush
 
     # -- 4-5. generate(), forward() and the server at GPT-3 6.7B width --
@@ -602,13 +798,46 @@ def main() -> int:
     llama_served = serve_phase(torch, np, "TinyLlama-1.1B",
                                hf_llama_config(TINYLLAMA_1_1B))
 
+    # -- 9. training block-sparse GPT-2 125M at seq 8192 -------------------
+    def sparse_model(attn_impl):
+        return gpt2_config("125m", max_seq_len=SPARSE_SEQ, remat="full",
+                           attn_impl="blocksparse", loss_chunk=256,
+                           sparsity_config=sparse_config())
+    lay = sparse_config().make_layout(SPARSE_SEQ)
+    keys = visible_pairs((lay & np.tril(np.ones_like(lay)))[None], 64,
+                         True) / SPARSE_SEQ
+    sparse_steps = {"blocksparse_flash_fwd": 24,
+                    "blocksparse_flash_bwd_dq": 12,
+                    "blocksparse_flash_bwd_dkv": 12,
+                    **{name: 0 for name in build.KERNELS
+                       if name.startswith("flash_attention")}}
+    sparse = train_phase(torch, np, "block-sparse GPT-2 125M", sparse_model,
+                         gpt2_optimizer(), SPARSE_MICRO, SPARSE_SEQ,
+                         SPARSE_STEPS, sparse_steps, check_micro=1,
+                         plain_model=masked_plain_model,
+                         keys_per_query=keys)
+    print(f"  MFU's attention term: {keys:.1f} visible keys per query "
+          f"(the layout's {int((lay & np.tril(np.ones_like(lay))).sum())} "
+          f"causal blocks of 64 at seq {SPARSE_SEQ})")
+    step_time_phase(torch, np, "GPT-2 125M dense flash at the same seq",
+                    gpt2_config("125m", max_seq_len=SPARSE_SEQ, remat="full",
+                                attn_impl="flash", loss_chunk=256),
+                    gpt2_optimizer(), SPARSE_MICRO, SPARSE_SEQ, 3,
+                    {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 12,
+                     "flash_attention_bwd_dkv": 12,
+                     "blocksparse_flash_fwd": 0})
+
+    # -- 10. forward() and generate() of the block-sparse model ----------
+    sparse_served = sparse_serve_phase(torch, np, sparse_model("blocksparse"))
+
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
     paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
+    sparse_file = "deepspeed_tpu/ops/sparse_attention/blocksparse_flash.py"
     # (TPU kernel replaced, launches over its main path's run, index of
     # the main-path case in the phase-3 results): B5-B7 from GPT-3 6.7B
     # serving, B1/B3/B4 from TinyLlama training (B1 at its GQA shape), B2
-    # from GPT-2 training
+    # from GPT-2 training, B8-B10 from block-sparse GPT-2 training
     rows = {
         "decode_attention": (
             "deepspeed_tpu/ops/transformer/decode_attention.py:56",
@@ -625,12 +854,19 @@ def main() -> int:
             f"{flash}:196", llama["flash_attention_bwd_dq"], 0),
         "flash_attention_bwd_dkv": (
             f"{flash}:241", llama["flash_attention_bwd_dkv"], 0),
+        "blocksparse_flash_fwd": (
+            f"{sparse_file}:75", sparse["blocksparse_flash_fwd"], 0),
+        "blocksparse_flash_bwd_dq": (
+            f"{sparse_file}:165", sparse["blocksparse_flash_bwd_dq"], 0),
+        "blocksparse_flash_bwd_dkv": (
+            f"{sparse_file}:204", sparse["blocksparse_flash_bwd_dkv"], 0),
     }
     print(f"TinyLlama serving launches: B5 "
           f"{llama_served['decode_attention']}, B6 "
           f"{llama_served['paged_decode_attention']}, B7 "
           f"{llama_served['paged_prefill_attention']}, B1 (forward) "
-          f"{llama_served['flash_attention_fwd']}")
+          f"{llama_served['flash_attention_fwd']}; block-sparse forward() "
+          f"B8 {sparse_served['blocksparse_flash_fwd']}")
     kernels = []
     for name in build.KERNELS:
         replaces, launches, main = rows[name]
@@ -830,15 +1066,19 @@ def serve_phase(torch, np, label, cfg) -> dict:
 
 
 def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
-                per_step, check_micro) -> dict:
+                per_step, check_micro, plain_model=None,
+                keys_per_query=None) -> dict:
     """``initialize`` on ``model_cfg("flash")`` (bf16 over f32 masters,
     clipping 1.0, ZeRO 0, weights from seed 0) for ``steps`` steps on one
     seeded batch ``[micro, seq]``, re-fed: the loss must fall and each
-    flash kernel must launch exactly ``per_step[name]`` times a step.
-    Then 3 warm steps, the loss head alone, a profile, and the whole step
-    with flash against plain attention at micro ``check_micro`` for 3
-    steps, each taken by both from the flash trajectory's state.  Returns
-    the launch counts over the ``steps`` steps."""
+    kernel must launch exactly ``per_step[name]`` times a step.  Then 3
+    warm steps, the loss head alone, a profile, and the whole step with
+    the kernels against plain attention (``plain_model`` of
+    ``model_cfg("xla")``, default the model itself) at micro
+    ``check_micro`` for 3 steps, each taken by both from the kernel
+    trajectory's state.  MFU's attention term counts ``keys_per_query``
+    keys (default ``seq``, as ``bench.py``).  Returns the launch counts
+    over the ``steps`` steps."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.transformer import TransformerLM
     from deepspeed_tpu_torch.ops import build
@@ -887,10 +1127,12 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
     step_s = wall / steps
     tok_s = micro * seq / step_s
     # bench.py:212-215: 6 N per token plus the attention term
-    flops_per_tok = 6 * n_params + 12 * cfg.num_layers * cfg.d_model * seq
+    flops_per_tok = 6 * n_params + 12 * cfg.num_layers * cfg.d_model * (
+        keys_per_query or seq)
     mfu = tok_s * flops_per_tok / BF16_FLOPS
     print(f"training: {label} ({n_params / 1e6:.1f} M params), seq {seq}, "
-          f"micro {micro}, remat full, flash, fused head chunk 256, AdamW "
+          f"micro {micro}, remat full, {cfg.attn_impl}, fused head chunk "
+          f"256, AdamW "
           f"bf16/f32: {steps} steps in {wall:.2f} s = "
           f"{step_s * 1e3:.1f} ms/step (the first step included), "
           f"{tok_s:.0f} tokens/s, MFU {100 * mfu:.2f} % of 989 TF/s; peak "
@@ -921,12 +1163,12 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
     del eng, metrics
     torch.cuda.empty_cache()
 
-    # the whole step with the flash kernels against plain attention: one
-    # engine whose loss runs either model; a step leaves its input state
+    # the whole step with the kernels against plain attention: one engine
+    # whose loss runs either model; a step leaves its input state
     # untouched (it builds a new one), so both take each step from it
     small = {"input_ids": batch["input_ids"][:check_micro]}
-    models = {impl: TransformerLM(model_cfg(impl))
-              for impl in ("flash", "xla")}
+    models = {"flash": TransformerLM(model_cfg("flash")),
+              "xla": (plain_model or TransformerLM)(model_cfg("xla"))}
     impl = {"now": "flash"}
     _, e = make("flash", check_micro,
                 loss_fn=lambda p, b: models[impl["now"]].loss(p, b))
@@ -942,17 +1184,165 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
         loss_share = abs(lf - lx) / abs(lx) / STEP_LOSS_REL_TOL
         gnorm_share = abs(gf - gx) / abs(gx) / STEP_GNORM_REL_TOL
         print(f"  step {i} at micro {check_micro}, both from one state: "
-              f"loss flash {lf:.5f} plain {lx:.5f} ({loss_share:.3g} of "
-              f"the limit); grad norm flash {gf:.4f} plain {gx:.4f} "
+              f"loss kernels {lf:.5f} plain {lx:.5f} ({loss_share:.3g} of "
+              f"the limit); grad norm kernels {gf:.4f} plain {gx:.4f} "
               f"({gnorm_share:.3g} of the limit)")
         check(abs(lf - lx) <= STEP_LOSS_REL_TOL * abs(lx),
-              f"{label} training step {i}: loss flash {lf} vs plain {lx}")
+              f"{label} training step {i}: loss kernels {lf} vs plain {lx}")
         check(abs(gf - gx) <= STEP_GNORM_REL_TOL * abs(gx),
-              f"{label} training step {i}: grad norm flash {gf} vs plain "
+              f"{label} training step {i}: grad norm kernels {gf} vs plain "
               f"{gx}")
     del e
     torch.cuda.empty_cache()
     return {name: counts[name] for name in per_step}
+
+
+def masked_plain_model(cfg):
+    """The block-sparse model with plain attention masked by its layout
+    (the JAX model's path for a T that the block does not divide) in
+    place of B8-B10: the plain side of the block-sparse step check."""
+    from deepspeed_tpu_torch.models import layers as L
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+
+    class MaskedPlain(TransformerLM):
+        def _attend_full(self, q, k, v):
+            b, t = q.shape[0], q.shape[1]
+            mask = self._sparse_mask(0, t, t, q.device)
+            return L.gqa_attention(q, k, v, mask=mask).reshape(b, t, -1)
+    return MaskedPlain(cfg)
+
+
+def step_time_phase(torch, np, label, cfg, optimizer, micro, seq, steps,
+                    per_step) -> float:
+    """``initialize`` on ``cfg`` as ``train_phase`` does, one step to warm
+    up, then ``steps`` timed steps on one seeded batch: ms/step, tokens/s,
+    MFU (``bench.py``'s formula), peak memory and the kernels' launches
+    per step, which must equal ``per_step``.  Returns ms/step."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+    from deepspeed_tpu_torch.ops import build
+    eng, _, _, _ = initialize(model=TransformerLM(cfg), config={
+        "train_micro_batch_size_per_gpu": micro,
+        "gradient_accumulation_steps": 1, "optimizer": optimizer,
+        "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+        "gradient_clipping": 1.0, "steps_per_print": 0})
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size, (micro, seq),
+                                     dtype=np.int32)}
+    n_params = eng.num_parameters()
+    torch.cuda.reset_peak_memory_stats()
+    eng.train_step(batch)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [float(eng.train_step(batch)["loss"]) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = dict(build.launch_counts)
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    for name, n in per_step.items():
+        check(counts[name] == n * steps,
+              f"{label}: {name} launches {counts[name]} != {n * steps}")
+    tok_s = micro * seq / step_ms * 1e3
+    flops_per_tok = 6 * n_params + 12 * cfg.num_layers * cfg.d_model * seq
+    print(f"training: {label}, seq {seq}, micro {micro}, {cfg.attn_impl}: "
+          f"{steps} warm steps at {step_ms:.1f} ms/step = {tok_s:.0f} "
+          f"tokens/s, MFU {100 * tok_s * flops_per_tok / BF16_FLOPS:.2f} % "
+          f"(bench.py's formula); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
+          f"per step: " + ", ".join(f"{name} {counts[name] // steps}"
+                                    for name in per_step))
+    del eng
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def sparse_serve_phase(torch, np, cfg) -> dict:
+    """``init_inference`` on the block-sparse GPT-2 125M (bf16, random
+    weights from seed 0, kernel injection on, which must keep
+    ``blocksparse``): ``forward()`` on 2 prompts of 8192 tokens through
+    B8 (one launch per layer, no other kernel); ``generate()`` on 2
+    prompts of 4096 tokens, 16 new, greedy, on the dense cache with the
+    layout as a mask (no kernel: B5 takes no layout), its prefill's
+    last-position logits against ``forward()``'s on the same prompts;
+    the server must refuse the model.  Returns B8's launches over the
+    8192-token ``forward()``."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+    from deepspeed_tpu_torch.ops import build
+    eng = init_inference(TransformerLM(cfg), {
+        "dtype": "bfloat16", "temperature": 0.0,
+        "max_out_tokens": cfg.max_seq_len,
+        "serving": {"enabled": True, "kv_block_size": 16,
+                    "num_kv_blocks": 512, "max_batch_slots": 8,
+                    "prefill_chunk_tokens": 256}})
+    check(eng.module.config.attn_impl == "blocksparse",
+          f"init_inference rewrote attn_impl to "
+          f"{eng.module.config.attn_impl!r}")
+    rng = np.random.default_rng(1)
+    V, L = cfg.vocab_size, cfg.num_layers
+    long = rng.integers(0, V, (2, cfg.max_seq_len))
+    eng.forward(long[:, :1024])                       # warm-up
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    fwd = eng.forward(long)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_counts = dict(build.launch_counts)
+    check(tuple(fwd.shape) == (2, cfg.max_seq_len, V)
+          and bool(fwd.isfinite().all()), f"forward logits {fwd.shape}")
+    for name, n in fwd_counts.items():
+        want = L if name == "blocksparse_flash_fwd" else 0
+        check(n == want, f"block-sparse forward: {name} launches {n} != "
+                         f"{want}")
+    del fwd
+    prompts = rng.integers(0, V, (2, cfg.max_seq_len // 2))
+    prefill = eng._prefill
+    gen_last = {}
+
+    def recording_prefill(ids, true_len, cache_len):
+        cache, last = prefill(ids, true_len, cache_len)
+        gen_last["logits"] = last.float()
+        return cache, last
+    eng._prefill = recording_prefill
+    build.reset_launch_counts()
+    out = eng.generate(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    eng._prefill = prefill
+    gen_counts = dict(build.launch_counts)
+    check(tuple(out.shape) == (2, 16)
+          and bool(((out >= 0) & (out < V)).all()),
+          f"generate tokens {tuple(out.shape)}")
+    check(not any(gen_counts.values()),
+          f"block-sparse generate() launched {gen_counts}")
+    stats = eng.latency_stats()
+    ref = gen_last["logits"]
+    last = eng.forward(prompts)[:, -1]
+    torch.cuda.synchronize()
+    err = float((last - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    same = int((last.argmax(-1) == ref.argmax(-1)).sum())
+    print(f"block-sparse serving: forward() on 2 x {cfg.max_seq_len} "
+          f"tokens in {fwd_ms:.1f} ms, B8 launches "
+          f"{fwd_counts['blocksparse_flash_fwd']}; generate() on 2 x "
+          f"{prompts.shape[1]} prompts, 16 new: TTFT "
+          f"{stats['ttft_p50_ms']:.1f} ms, decode {stats['p50_ms']:.2f} "
+          f"ms/token (plain attention masked by the layout; no kernel "
+          f"launched); prefill last-position logits max|forward - "
+          f"prefill| {err:.4f} = {rel:.4f} of max|logit| (limit "
+          f"{LOGITS_REL_TOL}), argmax equal on {same} of 2")
+    check(rel <= LOGITS_REL_TOL,
+          f"block-sparse forward/generate logits differ by {rel:.4f} of "
+          f"their scale")
+    try:
+        eng.serving_engine()
+    except NotImplementedError as e:
+        print(f"  serving_engine() refuses the model: {e}")
+    else:
+        fail("serving_engine() accepted a block-sparse model")
+    del eng, last, ref
+    torch.cuda.empty_cache()
+    return fwd_counts
 
 
 def loss_head_ms(torch, eng, batch, micro, seq) -> dict:

@@ -1,0 +1,164 @@
+// Block-sparse flash-attention backward, dk/dv pass (kernel B10) for
+// sm_90a.
+//
+// Replaces: deepspeed_tpu/ops/sparse_attention/blocksparse_flash.py
+//   `_bwd_dkv_kernel` (launched by `_bwd`), which walks the TRANSPOSED
+//   layout (each kv block's list of query blocks).  With
+//   p = exp(q k^T * sm_scale - lse) (0 outside the layout and above the
+//   diagonal when causal) and ds = p * (dO v^T - delta) * sm_scale,
+//     dv = p^T dO,   dk = ds^T q.
+//   p is rounded to dO's dtype before the dv product and ds to q's dtype
+//   before the dk product, as the TPU kernel does; every sum is f32.
+//
+// Bound on the H100: at GPT-2 125M's block-sparse training shape (B.H 96,
+//   T 8192, D 64, bf16, FixedSparsityConfig block 64, 4 local + 1
+//   global, unidirectional: 8.81e8 visible pairs) the four products (s,
+//   dV, dP, dK; 8 D flops per pair, 451.2 GFLOP) take 0.456 ms on the
+//   tensor cores and the least bytes (q, k, v, dO read, dk, dv written,
+//   lse and delta: ~610 MB) 0.182 ms, so the bound is operations.  This
+//   first version runs its products on the CUDA cores in f32, as B4 does.
+//
+// Design: B4 (csrc/flash_attention_bwd_dkv.cu) with the transposed walk:
+//   one block of 256 threads per (head row, 64-row kv tile) keeps its K/V
+//   tile in shared memory and walks the query tiles that read it (`idx`,
+//   `cnt` of the transposed lists), testing each element's sub-block bit
+//   (`bits`) for layout blocks of 16 or 32.  dK and dV accumulate in f32
+//   registers and each row is written once, with no atomics, so the
+//   kernel is deterministic as the TPU kernel is; a kv tile no query
+//   reads writes zeros.  Walks are very uneven (at the shape above a
+//   "summary" kv tile is read by up to 125 query tiles, a local one by
+//   at most 4), so kv tiles launch in `order`, longest walk first, and
+//   the short walks fill the tail.
+#include "flash_tiles.cuh"
+
+using namespace dstt;
+using namespace dstt::flash;
+
+namespace {
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bsa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, const int* __restrict__ idx,
+                   const int* __restrict__ cnt, const int* __restrict__ bits,
+                   const int* __restrict__ order, int t_len, int lheads,
+                   int jmax, int sub_shift, float sm_scale, int causal) {
+  constexpr int S = Dims<D>::kStride, C = Dims<D>::kColsPT;
+  extern __shared__ float smem[];
+  float* qs = smem;                       // [64][D + 1]
+  float* dos = qs + kTile * S;            // [64][D + 1]
+  float* ks = dos + kTile * S;            // [64][D + 1]
+  float* vs = ks + kTile * S;             // [64][D + 1]
+  float* ps = vs + kTile * S;             // [64][65]
+  float* dss = ps + kTile * kPStride;     // [64][65]
+  float* lse_s = dss + kTile * kPStride;  // [64]
+  float* delta_s = lse_s + kTile;         // [64]
+
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+  const int kt = order[blockIdx.x], k0 = kt * kTile;
+  const size_t bh = blockIdx.y;
+  const size_t base = bh * t_len * D;
+  const size_t walk = (bh % lheads) * n_tiles + kt;
+  const int* qts = idx + walk * jmax;
+  const int* qbits = bits + walk * jmax;
+  const int n_walk = cnt[walk];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float one[kRowsPT] = {1.f, 1.f, 1.f, 1.f};
+
+  load_tile<T, D>(k + base, k0, t_len, ks);
+  load_tile<T, D>(v + base, k0, t_len, vs);
+  float dk_acc[kRowsPT][C], dv_acc[kRowsPT][C];
+#pragma unroll
+  for (int a = 0; a < kRowsPT; ++a)
+#pragma unroll
+    for (int b = 0; b < C; ++b) dk_acc[a][b] = dv_acc[a][b] = 0.f;
+
+  for (int j = 0; j < n_walk; ++j) {
+    const int q0 = qts[j] * kTile;
+    __syncthreads();  // the previous pair's products are done
+    load_tile<T, D>(q + base, q0, t_len, qs);
+    load_tile<T, D>(dout + base, q0, t_len, dos);
+    load_rowstats(lse, delta, bh, q0, t_len, lse_s, delta_s);
+    __syncthreads();
+    probs_and_dscores<T, D, true>(qs, dos, ks, vs, lse_s, delta_s, q0, k0,
+                                  t_len, sm_scale, causal, tx, ty, ps, dss,
+                                  static_cast<unsigned>(qbits[j]),
+                                  sub_shift);
+    __syncthreads();
+    mm_ptb<D>(ps, dos, tx, ty, dv_acc);
+    mm_ptb<D>(dss, qs, tx, ty, dk_acc);
+  }
+  store_rows<T, D>(dk + base, k0, t_len, tx, ty, dk_acc, one);
+  store_rows<T, D>(dv + base, k0, t_len, tx, ty, dv_acc, one);
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv,
+           const void* idx, const void* cnt, const void* bits,
+           const void* order, int bh, int lheads, int t_len, int jmax,
+           int sub_shift, float sm_scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
+                                       2 * kTile * kPStride + 2 * kTile);
+  cudaError_t err = allow_smem(bsa_bwd_dkv_kernel<T, D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_len + kTile - 1) / kTile, bh);
+  bsa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<const int*>(idx),
+      static_cast<const int*>(cnt), static_cast<const int*>(bits),
+      static_cast<const int*>(order), t_len, lheads, jmax, sub_shift,
+      sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dk, void* dv,
+             const void* idx, const void* cnt, const void* bits,
+             const void* order, int bh, int lheads, int t_len, int jmax,
+             int d, int sub_shift, float sm_scale, int causal,
+             cudaStream_t st) {
+  switch (d) {
+    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  q/k/v/dout/dk/dv [BH, T, D]
+// contiguous; lse and delta [BH, T] float32; the transposed walk
+// (idx/bits [lheads, n, jmax]: each kv tile's query tiles, cnt [lheads,
+// n], order [n], n = ceil(T / 64)).  D in {16, 32, 64, 128}; BH <= 65535
+// and a multiple of lheads; sub_shift 4, 5 or 6.
+extern "C" int dstt_blocksparse_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* idx,
+    const void* cnt, const void* bits, const void* order, int bh, int lheads,
+    int t_len, int jmax, int d, int sub_shift, float sm_scale, int causal,
+    int dtype, void* stream) {
+  if (bh < 1 || bh > 65535 || t_len < 1 || lheads < 1 || bh % lheads ||
+      jmax < 1 || sub_shift < 4 || sub_shift > 6)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
+                           order, bh, lheads, t_len, jmax, d, sub_shift,
+                           sm_scale, causal, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, idx,
+                                   cnt, bits, order, bh, lheads, t_len, jmax,
+                                   d, sub_shift, sm_scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+DSTT_DEFINE_ERROR_STRING(dstt_blocksparse_flash_bwd_dkv)

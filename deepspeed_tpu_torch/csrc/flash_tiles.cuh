@@ -161,6 +161,13 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
+// Whether tile row r and column c fall in a kept sub-block of `bits`
+// (bit 4 i + j for row sub-block i = r >> sub_shift, column sub-block j).
+__device__ __forceinline__ bool sub_block_kept(unsigned bits, int sub_shift,
+                                               int r, int c) {
+  return (bits >> (((r >> sub_shift) << 2) | (c >> sub_shift))) & 1u;
+}
+
 // lse and delta of query rows q0 .. q0 + 63 of head row `bh` into
 // lse_s / delta_s ([64] each); rows at or past t_len hold 0.
 __device__ __forceinline__ void load_rowstats(const float* __restrict__ lse,
@@ -178,14 +185,19 @@ __device__ __forceinline__ void load_rowstats(const float* __restrict__ lse,
 // p (rounded to T) and ds (rounded to T) of one [64 q rows, 64 kv rows]
 // tile pair into ps / dss, from q/dO/k/v tiles already in shared memory:
 //   p = exp(q k^T * sm_scale - lse),  ds = p * (dO v^T - delta) * sm_scale.
-// A pair outside the sequence (row or column at or past t_len) or above
-// the diagonal when causal has p = ds = 0.  ps may be null (the dq pass
-// needs ds only).
-template <typename T, int D>
+// A pair outside the sequence (row or column at or past t_len), above
+// the diagonal when causal, or in a sub-block whose bit of `bits` is
+// clear has p = ds = 0.  ps may be null (the dq pass needs ds only).
+// With kSubBlocks, `bits` and `sub_shift` are the block-sparse kernels'
+// sub-block mask (bit 4 (r >> sub_shift) + (c >> sub_shift) for tile
+// row r and column c); the dense kernels compile without the test (on
+// the H100 a runtime test that keeps every pair cost B4 ~6 %).
+template <typename T, int D, bool kSubBlocks = false>
 __device__ __forceinline__ void probs_and_dscores(
     const float* qs, const float* dos, const float* ks, const float* vs,
     const float* lse_s, const float* delta_s, int q0, int k0, int t_len,
-    float sm_scale, int causal, int tx, int ty, float* ps, float* dss) {
+    float sm_scale, int causal, int tx, int ty, float* ps, float* dss,
+    unsigned bits = 0u, int sub_shift = 0) {
   float s[kRowsPT][4], dp[kRowsPT][4];
   mm_abt<D>(qs, ks, tx, ty, s);
   mm_abt<D>(dos, vs, tx, ty, dp);
@@ -195,7 +207,9 @@ __device__ __forceinline__ void probs_and_dscores(
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const int c = tx + 16 * b, col = k0 + c;
-      const bool keep = row < t_len && col < t_len && (!causal || col <= row);
+      const bool keep =
+          row < t_len && col < t_len && (!causal || col <= row) &&
+          (!kSubBlocks || sub_block_kept(bits, sub_shift, r, c));
       const float p = keep ? expf(s[a][b] * sm_scale - lse_s[r]) : 0.f;
       const float ds = p * (dp[a][b] - delta_s[r]) * sm_scale;
       if (ps != nullptr) ps[r * kPStride + c] = round_to<T>(p);

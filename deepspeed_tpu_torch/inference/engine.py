@@ -57,10 +57,14 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.dtype = self.config.compute_dtype()
         # kernel injection: flash routes t == 1 decode through kernel B5,
-        # xla keeps plain attention (the JAX engine's rewrite).  The
-        # model's activations take the engine's dtype, the dtype of its
-        # weights, caches and pools, so the kernels never meet a cast.
-        want = "flash" if self.config.replace_with_kernel_inject else "xla"
+        # xla keeps plain attention (the JAX engine's rewrite).  Only the
+        # xla/flash pair is rewritten: blocksparse is a model choice whose
+        # layout must survive serving.  The model's activations take the
+        # engine's dtype, the dtype of its weights, caches and pools, so
+        # the kernels never meet a cast.
+        want = model.config.attn_impl
+        if want in ("xla", "flash"):
+            want = "flash" if self.config.replace_with_kernel_inject else "xla"
         if (model.config.attn_impl, model.config.dtype) != (want, self.dtype):
             model = TransformerLM(dataclasses.replace(
                 model.config, attn_impl=want, dtype=self.dtype))
@@ -91,7 +95,8 @@ class InferenceEngine:
     @torch.inference_mode()
     def forward(self, input_ids) -> torch.Tensor:
         """Full-sequence f32 logits ``[B, T, V]`` of ``input_ids [B, T]``
-        through the uncached forward (kernel B1 with kernel injection)."""
+        through the uncached forward (kernel B1 with kernel injection, B8
+        on a block-sparse model)."""
         ids = (input_ids if isinstance(input_ids, torch.Tensor)
                else torch.as_tensor(np.asarray(input_ids)))
         return self.module.apply(self.params,

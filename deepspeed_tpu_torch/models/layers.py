@@ -163,13 +163,15 @@ def embedding_attend(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  *, kv_positions_offset: int = 0) -> torch.Tensor:
+                  *, mask: Optional[torch.Tensor] = None,
+                  kv_positions_offset: int = 0) -> torch.Tensor:
     """Plain causal attention, q ``[B, Tq, H, D]`` with H = g KVH against
     k/v ``[B, Tk, KVH, D]`` (multi-head attention is g = 1), through a
     group einsum that never materialises expanded k/v: scores and softmax
     in f32, probabilities cast to q's dtype for the value product, query
-    i at position ``kv_positions_offset + i``.  Returns
-    ``[B, Tq, H, D]``."""
+    i at position ``kv_positions_offset + i``.  ``mask`` (bool, True =
+    visible) is broadcastable to ``[B, KVH, g, Tq, Tk]`` and hides pairs
+    on top of the causal mask.  Returns ``[B, Tq, H, D]``."""
     b, tq, nh, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(b, tq, nkv, nh // nkv, hd)
@@ -179,6 +181,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos = torch.arange(tq, device=q.device) + kv_positions_offset
     keep = q_pos[:, None] >= torch.arange(tk, device=q.device)[None, :]
     logits = logits.masked_fill(~keep, -1e30)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(q.dtype))
     return out.reshape(b, tq, nh, hd)

@@ -28,7 +28,13 @@ With ``attn_impl="flash"`` the uncached forward runs kernel B1 (k/v at
 kv-head width) and its backward kernel B2, or B3 and B4 for a sequence
 past one 1024-row block or grouped-query attention (the JAX dispatch
 rule); ``remat="full"`` recomputes each block in the backward
-(``torch.utils.checkpoint``), so B1 runs twice per layer and step.
+(``torch.utils.checkpoint``), so B1 runs twice per layer and step.  With
+``attn_impl="blocksparse"`` and a ``sparsity_config`` the uncached
+forward walks the layout's blocks: k/v expanded over the group, then
+kernel B8 and, in the backward, B9 and B10 when T divides by the block;
+plain attention masked by the layout at any other T and on the dense
+cache (never kernel B5), as in the JAX model.  The paged server refuses
+such a model (its kernels do not apply the layout).
 
 Caches are updated IN PLACE (JAX returns new arrays): ``apply`` writes
 the new rows into the dense cache tensors it was given, and the paged
@@ -40,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -51,6 +58,8 @@ from ..ops.transformer.flash_attention import flash_attention_bthd
 from ..ops.transformer.fused_loss import fused_linear_xent
 from ..ops.transformer.paged_decode_attention import (
     paged_decode_attention, paged_prefill_attention)
+from ..ops.sparse_attention.blocksparse_flash import (
+    blocksparse_attention_bthd)
 
 Params = Dict[str, Any]
 
@@ -78,7 +87,10 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16        # activation dtype
     param_dtype: torch.dtype = torch.float32
     remat: str = "none"                # none | full (per block)
-    attn_impl: str = "xla"             # xla | flash (kernel injection)
+    attn_impl: str = "xla"             # xla | flash | blocksparse
+    # attn_impl="blocksparse": an ops.sparse_attention SparsityConfig
+    # whose layout the uncached forward walks (kernels B8-B10)
+    sparsity_config: Any = None
     layernorm_eps: float = 1e-5
     rotary_pct: float = 1.0
     rotary_base: float = 10000.0
@@ -161,7 +173,7 @@ _OUT_OF_SLICE = (
     (lambda c: not c.causal or c.norm_position != "pre"
      or not c.final_layernorm, "encoder / post-norm families (BERT)"),
     (lambda c: c.attn_softmax_scale, "attn_softmax_scale (GPT-Neo)"),
-    (lambda c: c.attn_impl not in ("xla", "flash"),
+    (lambda c: c.attn_impl not in ("xla", "flash", "blocksparse"),
      "attn_impl={attn_impl!r}"),
 )
 
@@ -223,6 +235,8 @@ class TransformerLM(nn.Module):
         # rotary (cos, sin) tables per device, built on first use
         self._rotary: Dict[torch.device, Tuple[torch.Tensor,
                                                torch.Tensor]] = {}
+        # the block-sparse layout at the training context, per device
+        self._layout: Dict[torch.device, torch.Tensor] = {}
 
     # -- parameters ---------------------------------------------------------
     def param_shapes(self) -> Params:
@@ -413,12 +427,23 @@ class TransformerLM(nn.Module):
         pos = idx + torch.arange(t, device=input_ids.device)[None]
         x = self._embed(params, input_ids, pos)
         group = c.num_heads // c.kv_heads
+        sparse = None
+        if c.attn_impl == "blocksparse":
+            sparse = self._sparse_mask(idx, t, cache["k"].shape[2],
+                                       input_ids.device)[..., :idx + t]
         for i, bp in enumerate(layer_views(params["blocks"])):
             ck, cv = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, ck=ck, cv=cv):
                 ck[:, idx:idx + t] = k
                 cv[:, idx:idx + t] = v
+                if sparse is not None:
+                    # the layout the model trained with, at the query
+                    # positions (the JAX model's dense-cache path)
+                    o = L.gqa_attention(q, ck[:, :idx + t], cv[:, :idx + t],
+                                        mask=sparse,
+                                        kv_positions_offset=idx)
+                    return o.reshape(b, t, -1)
                 if t == 1 and c.attn_impl == "flash":
                     # token-at-a-time hot path: kernel B5 over the cache;
                     # B5 takes one kv head per query head, so a GQA cache
@@ -457,13 +482,71 @@ class TransformerLM(nn.Module):
     def _attend_full(self, q, k, v):
         """Causal self-attention over a whole sequence, q ``[B, T, H, D]``
         and k/v ``[B, T, KVH, D]`` → ``[B, T, H*D]``: kernels B1 and B2
-        (or B3/B4) with ``flash``, plain attention with ``xla``."""
+        (or B3/B4) with ``flash``, B8 and B9/B10 with ``blocksparse``
+        (plain attention masked by the layout when T does not divide by
+        its block), plain attention with ``xla``."""
+        c = self.config
         b, t = q.shape[0], q.shape[1]
-        if self.config.attn_impl == "flash":
+        if c.attn_impl == "flash":
             o = flash_attention_bthd(q, k, v, causal=True)
+        elif c.attn_impl == "blocksparse":
+            scfg = self._sparsity_config()
+            if t % scfg.block == 0:
+                # the kernels take one kv head per query head (the JAX
+                # model's expand_kv)
+                g = c.num_heads // c.kv_heads
+                if g > 1:
+                    k = k.repeat_interleave(g, dim=2)
+                    v = v.repeat_interleave(g, dim=2)
+                o = blocksparse_attention_bthd(q, k, v, scfg)
+            else:
+                o = L.gqa_attention(q, k, v,
+                                    mask=self._sparse_mask(0, t, t, q.device))
         else:
             o = L.gqa_attention(q, k, v)
         return o.reshape(b, t, -1)
+
+    def _sparsity_config(self):
+        scfg = self.config.sparsity_config
+        if scfg is None:
+            raise ValueError(
+                "attn_impl='blocksparse' needs sparsity_config (an "
+                "ops.sparse_attention.SparsityConfig instance) on the "
+                "TransformerConfig")
+        return scfg
+
+    def _sparse_mask(self, idx: int, t: int, tk: int, device
+                     ) -> torch.Tensor:
+        """Bool mask of queries ``idx .. idx + t - 1`` over ``tk`` keys,
+        ``[1, KVH|1, g|1, t, tk]`` for :func:`layers.gqa_attention`: the
+        layout's block rows at the query positions, so the dense cache
+        applies the pattern the model trained with.  The layout is built
+        at the training context (``max_seq_len``), since a stochastic
+        layout (BigBird's random blocks) depends on the block count; a
+        cache past it raises, as in the JAX model."""
+        c = self.config
+        blk = self._sparsity_config().block
+        nbk = -(-tk // blk)
+        nb_train = c.max_seq_len // blk
+        if nbk > nb_train:
+            raise NotImplementedError(
+                f"blocksparse decode cache ({tk} tokens) exceeds the "
+                f"training context ({c.max_seq_len}) — the layout beyond "
+                f"it is undefined; cap max_out_tokens at max_seq_len")
+        layout = self._layout.get(device)
+        if layout is None:
+            lay = np.asarray(c.sparsity_config.make_layout(nb_train * blk),
+                             bool)
+            if lay.ndim == 2:
+                lay = lay[None]                           # [1|H, nb, nb]
+            layout = self._layout[device] = torch.from_numpy(
+                np.ascontiguousarray(lay)).to(device)
+        qpos = idx + torch.arange(t, device=device)
+        rows = layout[:, qpos // blk, :nbk]                # [1|H, t, nbk]
+        mask = rows.repeat_interleave(blk, dim=-1)[..., :tk]
+        if mask.shape[0] == 1:
+            return mask[None, :, None]
+        return mask.reshape(1, c.kv_heads, c.num_heads // c.kv_heads, t, tk)
 
     def hidden_states(self, params: Params,
                       input_ids: torch.Tensor) -> torch.Tensor:
@@ -572,6 +655,12 @@ class TransformerLM(nn.Module):
             return "paged decode does not carry the ALiBi bias yet"
         if c.hdim % 8:
             return f"head_dim {c.hdim} is not lane-aligned (multiple of 8)"
+        if c.attn_impl == "blocksparse":
+            # the JAX model's rule lets this through and its paged kernels
+            # then attend densely: a silent change of semantics
+            return ("paged decode does not apply the block-sparse layout "
+                    "(attn_impl='blocksparse'); generate() serves it on "
+                    "the dense cache")
         return None
 
     def init_paged_cache(self, num_blocks: int, block_size: int,

@@ -33,7 +33,8 @@ BUILD_DIR = _PKG / "_build"
 KERNELS = ("decode_attention", "paged_decode_attention",
            "paged_prefill_attention", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv")
+           "flash_attention_bwd_dkv", "blocksparse_flash_fwd",
+           "blocksparse_flash_bwd_dq", "blocksparse_flash_bwd_dkv")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

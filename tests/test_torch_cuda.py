@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1 to B7) against their plain PyTorch
+"""The port's CUDA kernels (B1 to B10) against their plain PyTorch
 versions, and the f32 logits products, on the card.
 
 These tests need an NVIDIA card with ``nvcc`` (the kernels are built from
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.models import layers as L
+from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_flash as BS
 from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
 from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
 from deepspeed_tpu_torch.ops.transformer import fused_loss
@@ -167,6 +168,61 @@ def test_cuda_gqa_flash_attention_matches_plain(dtype, causal, t_len, g, d):
                                                      do, causal))
     for a, b in zip((dk, dv), FA.flash_attention_bwd_dkv(q, k, v, o_p,
                                                          lse_p, do, causal)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block,t_len,d,causal,per_head", [
+    (16, 256, 64, True, True), (16, 208, 16, False, True),
+    (32, 192, 32, True, False), (64, 512, 64, True, True),
+    (64, 320, 128, False, False), (128, 512, 64, True, True),
+    (128, 384, 16, False, True)])
+def test_cuda_blocksparse_matches_plain(dtype, block, t_len, d, causal,
+                                        per_head):
+    """B8 (o, lse), B9 (dq) and B10 (dk, dv) on the card against their
+    plain versions on the same inputs, for layout blocks of 16 and 32
+    (several blocks share a 64-row tile pair: the sub-block mask), 64
+    and 128 (one block spans 2 x 2 tile pairs), T ragged against the
+    64-row tile (208, 320), per-head and shared layouts, causal or not.
+    B9 and B10 give the same bits on a second launch (no atomics).
+    Tolerance as for B1-B4: f32 1e-4; bf16 atol 4e-3, rtol 8e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    tol = (dict(atol=1e-4, rtol=1e-4) if dt == torch.float32
+           else dict(atol=4e-3, rtol=8e-3))
+    rng = np.random.default_rng(block + t_len + d + causal)
+    heads, nb = 3, t_len // block
+    layout = rng.random((heads if per_head else 1, nb, nb)) < 0.3
+    layout[:, np.arange(nb), np.arange(nb)] = True
+    layout = np.broadcast_to(layout, (heads, nb, nb))
+    if causal:
+        layout = layout & np.tril(np.ones((nb, nb), bool))
+    lc = BS.compress_layout(layout)
+    args = (lc, block, heads, causal)
+
+    def t():
+        a = rng.standard_normal((2 * heads, t_len, d)).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dt)
+    q, k, v, do = t(), t(), t(), t()
+    o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+    o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+    torch.testing.assert_close(o, o_p, **tol)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    dq = BS.blocksparse_attention_bwd_dq(q, k, v, o_p, lse_p, do, *args)
+    torch.testing.assert_close(dq, BS.blocksparse_attention_bwd_dq_plain(
+        q, k, v, o_p, lse_p, do, *args), **tol)
+    dk, dv = BS.blocksparse_attention_bwd_dkv(q, k, v, o_p, lse_p, do,
+                                              *args)
+    for got, want in zip((dk, dv), BS.blocksparse_attention_bwd_dkv_plain(
+            q, k, v, o_p, lse_p, do, *args)):
+        torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(dq, BS.blocksparse_attention_bwd_dq(
+        q, k, v, o_p, lse_p, do, *args))
+    for a, b in zip((dk, dv), BS.blocksparse_attention_bwd_dkv(
+            q, k, v, o_p, lse_p, do, *args)):
         assert torch.equal(a, b)
 
 

@@ -419,3 +419,49 @@ def test_chunk_only_dispatch_runs_no_decode_lane(engines):
                         cache=pm.init_cache(1, 16, device="cpu"))
     full = dense[0, -1]
     torch.testing.assert_close(chunk0, full, rtol=1e-5, atol=1e-5)
+
+
+def test_blocksparse_generate_and_forward_match_jax():
+    """The setting of the JAX suite's sparse-decode test (GPT-2 2 layers,
+    d_model 64, 2 heads, a sliding window of two 16-row blocks, prompt
+    48, 6 new tokens): kernel injection keeps ``blocksparse`` in both
+    engines; greedy ``generate()`` (the layout as a mask on the dense
+    cache) gives JAX's tokens, each equal to the argmax of ``forward()``
+    (B8's plain version) on the sequence so far; ``forward()``'s logits
+    match JAX's within 1e-5.  The server refuses the model at build: its
+    paged kernels do not apply the layout."""
+    from deepspeed_tpu.ops import sparse_attention as jax_sa
+    from deepspeed_tpu_torch.ops import sparse_attention as port_sa
+    cfg = dict(num_layers=2, d_model=64, num_heads=2, vocab_size=64,
+               max_seq_len=128, loss_chunk=0, attn_impl="blocksparse")
+    skw = dict(num_heads=2, block=16, num_sliding_window_blocks=2)
+    jm = jax_tf.TransformerLM(jax_tf.gpt2_config(
+        "125m", dtype=jnp.float32,
+        sparsity_config=jax_sa.LocalSlidingWindowSparsityConfig(**skw),
+        **cfg))
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(0)))
+    base = {"dtype": "float32", "max_out_tokens": 128, "prompt_bucket": 0,
+            "temperature": 0.0}
+    jeng = ds.init_inference(jm, params=jp, config=base)
+    pm = tt.TransformerLM(tt.gpt2_config(
+        "125m", dtype=torch.float32,
+        sparsity_config=port_sa.LocalSlidingWindowSparsityConfig(**skw),
+        **cfg))
+    peng = dt.init_inference(pm, {**base, "serving": SERVING},
+                             params=params_from_jax(jp, pm), device="cpu")
+    assert jeng.module.config.attn_impl == "blocksparse"
+    assert peng.module.config.attn_impl == "blocksparse"
+    x = np.random.RandomState(0).randint(0, 64, (2, 48)).astype(np.int32)
+    out = peng.generate(x, max_new_tokens=6).numpy()
+    np.testing.assert_array_equal(out, np.asarray(
+        jeng.generate(x, max_new_tokens=6, temperature=0.0)))
+    cur = x
+    for t in range(6):
+        logits = peng.forward(cur).numpy()
+        if t == 0:
+            np.testing.assert_allclose(logits, np.asarray(jeng.forward(cur)),
+                                       atol=1e-5, rtol=1e-5)
+        np.testing.assert_array_equal(out[:, t], logits[:, -1].argmax(-1))
+        cur = np.concatenate([cur, out[:, t:t + 1].astype(np.int32)], 1)
+    with pytest.raises(NotImplementedError, match="block-sparse layout"):
+        peng.serving_engine()

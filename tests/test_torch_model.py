@@ -274,3 +274,102 @@ def test_layer_views_are_views_of_the_stack(weights):
     sum((i + 1) * l["mlp"]["fc_in"]["kernel"].sum()
         for i, l in enumerate(layers)).backward()
     assert [float(g.mean()) for g in stack.grad] == [1.0, 2.0, 3.0, 4.0]
+
+
+# -- block-sparse attention ---------------------------------------------------
+from deepspeed_tpu.ops import sparse_attention as jax_sa  # noqa: E402
+from deepspeed_tpu_torch.ops import sparse_attention as port_sa  # noqa: E402
+
+#: the tiny block-sparse GPT-2: 2 layers, d_model 64, 2 heads, T 256
+SPARSE = dict(num_layers=2, d_model=64, num_heads=2, vocab_size=64,
+              max_seq_len=256, attn_impl="blocksparse")
+
+
+def sparse_models(family="FixedSparsityConfig", base=None, **skw):
+    """(JAX model, port model) in float32 with one sparsity config built
+    in each package from the same arguments."""
+    base = base or dict(SPARSE)
+    heads = base["num_heads"]
+    skw = skw or dict(block=32, num_local_blocks=2, num_global_blocks=1)
+    cfg = {**base, "attn_impl": "blocksparse"}
+    return (jax_tf.TransformerLM(jax_tf.TransformerConfig(
+                dtype=jnp.float32, sparsity_config=getattr(jax_sa, family)(
+                    num_heads=heads, **skw), **cfg)),
+            tt.TransformerLM(tt.TransformerConfig(
+                dtype=torch.float32, sparsity_config=getattr(port_sa, family)(
+                    num_heads=heads, **skw), **cfg)))
+
+
+@pytest.fixture(scope="module")
+def sparse_weights():
+    jm, pm = sparse_models()
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(12)))
+    return jp, params_from_jax(jp, pm)
+
+
+@pytest.mark.parametrize("t", [256, 200])
+def test_blocksparse_logits_match_jax(sparse_weights, t):
+    """Full-sequence logits of the block-sparse GPT-2 (Fixed layout,
+    block 32): at T 256 through B8 (its plain version; the JAX kernel in
+    interpret mode), at T 200, which the block does not divide, through
+    plain attention masked by the layout on both sides."""
+    jp, tp = sparse_weights
+    jm, pm = sparse_models()
+    x = ids(2, t, 8)
+    want = np.asarray(jm.apply(jp, jnp.asarray(x)))
+    got = pm.apply(tp, torch.from_numpy(x).long()).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_blocksparse_llama_expands_kv_as_jax():
+    """The tiny LLaMA (8 query heads over 2 kv heads) with a sliding
+    window of 16-row blocks: k/v expanded over the group, then B8 at
+    T 128; the same layout as a mask on the plain GQA path at T 120."""
+    base = {**LLAMA, "max_seq_len": 128}
+    jm, pm = sparse_models("LocalSlidingWindowSparsityConfig", base,
+                           block=16, num_sliding_window_blocks=3)
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(13)))
+    tp = params_from_jax(jp, pm)
+    for t in (128, 120):
+        x = ids(1, t, 9)
+        np.testing.assert_allclose(
+            pm.apply(tp, torch.from_numpy(x).long()).numpy(),
+            np.asarray(jm.apply(jp, jnp.asarray(x))), **TOL)
+
+
+def test_blocksparse_cache_decode_applies_the_layout(sparse_weights):
+    """Dense-cache prefill of 100 tokens and three decode steps apply the
+    trained layout through the mask, as the JAX model does (with a
+    Fixed layout of 32-row blocks, row 100 no longer sees rows 0-31);
+    a cache past max_seq_len raises."""
+    jp, tp = sparse_weights
+    jm, pm = sparse_models()
+    x = ids(2, 100, 10)
+    jc = jm.init_cache(2, 128, dtype=jnp.float32)
+    pc = pm.init_cache(2, 128, dtype=torch.float32, device="cpu")
+    jl, jc = jm.apply(jp, jnp.asarray(x), cache=jc)
+    pl_, pc = pm.apply(tp, torch.from_numpy(x).long(), cache=pc)
+    np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **TOL)
+    for step in range(3):
+        tok = ids(2, 1, 30 + step)
+        jl, jc = jm.apply(jp, jnp.asarray(tok), cache=jc)
+        pl_, pc = pm.apply(tp, torch.from_numpy(tok).long(), cache=pc)
+        np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **TOL)
+    big = pm.init_cache(1, 288, dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="exceeds the training"):
+        pm.apply(tp, torch.from_numpy(ids(1, 4, 0)).long(), cache=big)
+
+
+def test_blocksparse_needs_a_sparsity_config():
+    """attn_impl="blocksparse" without a sparsity_config raises JAX's
+    ValueError at the first forward; ring and ulysses still raise at
+    build."""
+    pm = tt.TransformerLM(tt.TransformerConfig(dtype=torch.float32,
+                                               **SPARSE))
+    tp = pm.init(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="sparsity_config"):
+        pm.loss(tp, {"input_ids": torch.zeros((1, 64), dtype=torch.long)})
+    for impl in ("ring", "ulysses"):
+        with pytest.raises(NotImplementedError, match=impl):
+            tt.TransformerLM(tt.TransformerConfig(**{**SPARSE,
+                                                     "attn_impl": impl}))
