@@ -55,12 +55,25 @@ Phases (any failure exits non-zero and prints no result line):
 10. the block-sparse model served (``init_inference``, kernel injection
    on): ``forward()`` on 2 x 8192 tokens through B8, ``generate()`` on 2
    x 4096-token prompts on the dense cache with the layout as a mask,
-   checked against ``forward()``; the server must refuse the model.
+   checked against ``forward()``; the server must refuse the model;
+11. quantized KV serving at GPT-3 6.7B width: the phase-5 server and
+   requests with ``serving.kv_cache_bits`` 8, then 4 (int8 / packed-int4
+   pools with f32 scales, bf16 weights from seed 0): the int8 and int4
+   variants of B6 and B7 run and the bf16 ones do not; pool bytes,
+   ``blocks_for_budget`` at the bf16 pool's budget, tokens/s, token
+   agreement with ``generate()``, first-step logits at 8 bits against
+   ``generate()``'s, and one recorded mixed step (a chunk plus decode
+   slots) rerun with the kernels' plain versions;
+12. int8 weight-only serving at GPT-3 6.7B width (``quant.enabled`` and
+   ``kv_cache_bits`` 8, the seed-0 weights quantized): parameter bytes,
+   ``generate()`` (TTFT, decode ms/token), ``forward()`` against phase
+   4's bf16 prefill logits, and the 16-request drain.
 
 Phase 3 also holds B8, B9 and B10 (block-sparse forward, dq and dk/dv)
 against their plain versions: at phase 9's attention shape, at
 ``bench_all.py``'s block-sparse lane (T 16384, 512-row blocks) and with
-16-row blocks of a per-head BigBird layout.
+16-row blocks of a per-head BigBird layout; and B6 and B7 over int8 and
+packed-int4 pools (``quant_kernel_checks``).
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -248,30 +261,10 @@ def kernel_checks(torch, dev, flush):
                        bound_by=by))
     results["decode_attention"] = b5
 
-    # B6: 8 slots of ragged lengths, two inactive, pool of 512 x 16-token
-    # blocks, 64 pages per table; a NaN block sits in slot 2's table just
-    # past its length and every unused row of a partly filled page is NaN
-    NB, BLK, NP = 512, 16, 64
-    lengths = [1, 17, 200, 513, 0, 96, 0, 255]
-    pk, pv = randn(NB, BLK, H, D), randn(NB, BLK, H, D)
-    perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(7))
-    perm = (perm + 1).tolist()
-    tables = torch.zeros((8, NP), dtype=torch.int32)
-    cursor = 0
-    for i, n in enumerate(lengths):
-        pages = -(-n // BLK)
-        tables[i, :pages] = torch.tensor(perm[cursor:cursor + pages])
-        cursor += pages
-        if n % BLK:
-            last = tables[i, pages - 1]
-            pk[last, n % BLK:] = float("nan")
-            pv[last, n % BLK:] = float("nan")
-    nan_block = perm[cursor]
-    pk[nan_block] = float("nan")
-    pv[nan_block] = float("nan")
-    tables[2, -(-lengths[2] // BLK)] = nan_block
-    tables = tables.to(dev)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    # B6: 8 slots of ragged lengths (PAGED_LENGTHS)
+    pk, pv, tables, lens, perm = paged_decode_case(torch, randn, dev, H, D)
+    lengths = PAGED_LENGTHS
+    NB, BLK, NP = PAGED_POOL
     q = randn(8, H, D)
     got = PA.paged_decode_attention(q, pk, pv, lens, tables)
     want = PA.paged_decode_attention_plain(q, pk, pv, lens, tables)
@@ -328,6 +321,185 @@ def kernel_checks(torch, dev, flush):
     for name, cases in gqa_flash_checks(torch, dev, flush).items():
         results.setdefault(name, []).extend(cases)
     results.update(blocksparse_checks(torch, dev, flush))
+    results.update(quant_kernel_checks(torch, dev, flush))
+    return results
+
+
+#: phase 3's paged pool (blocks, block size, pages a table) and its 8
+#: slots' lengths: two inactive, one of a single row, ragged others
+PAGED_POOL = (512, 16, 64)
+PAGED_LENGTHS = [1, 17, 200, 513, 0, 96, 0, 255]
+
+
+def paged_decode_case(torch, randn, dev, hkv, d):
+    """Pools ``[512, 16, hkv, d]`` from ``randn`` and the 8 slots' tables
+    (shuffled blocks; every unused row of a partly filled page is NaN, and
+    a NaN block sits in slot 2's table just past its length): (pk, pv,
+    tables, lengths, the shuffled block order)."""
+    NB, BLK, NP = PAGED_POOL
+    lengths = PAGED_LENGTHS
+    pk, pv = randn(NB, BLK, hkv, d), randn(NB, BLK, hkv, d)
+    perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(7))
+    perm = (perm + 1).tolist()
+    tables = torch.zeros((8, NP), dtype=torch.int32)
+    cursor = 0
+    for i, n in enumerate(lengths):
+        pages = -(-n // BLK)
+        tables[i, :pages] = torch.tensor(perm[cursor:cursor + pages])
+        cursor += pages
+        if n % BLK:
+            last = tables[i, pages - 1]
+            pk[last, n % BLK:] = float("nan")
+            pv[last, n % BLK:] = float("nan")
+    nan_block = perm[cursor]
+    pk[nan_block] = float("nan")
+    pv[nan_block] = float("nan")
+    tables[2, -(-lengths[2] // BLK)] = nan_block
+    return (pk, pv, tables.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev), perm)
+
+
+def swap_nibbles(torch, pool, block):
+    """A copy of a packed-int4 pool with the two nibble halves of every
+    byte of ``block``'s rows swapped (features j and j + D/2 exchanged):
+    the second planted fault of the int4 cases."""
+    bad = pool.clone()
+    x = bad[block].to(torch.int32)
+    bad[block] = (((x & 0xF) << 4) | ((x >> 4) & 0xF)).to(torch.int8)
+    return bad
+
+
+def quant_kernel_checks(torch, dev, flush):
+    """B6 and B7 over int8 and packed-int4 pools against their plain
+    versions (which dequantize with ``kv_dequantize``), bf16 queries.  B6:
+    the 8-slot case of phase 3 at GPT-3 6.7B's heads (H 32 = Hkv, D 128)
+    and TinyLlama-1.1B's (H 32 over Hkv 4, D 64); B7: C 256 at base 0,
+    base 256 and a short chunk, 6.7B heads.  The bf16 pools (NaN past every
+    length, a NaN block in a table) are encoded with ``kv_quantize``, so
+    NaN rows carry NaN scales.  Planted faults: one tail row left out;
+    at 4 bits also the nibble halves swapped in one block's rows of the
+    plain version's pool (B6: the block of the length-1 slot, whose output
+    is that row; B7: the table's first page).  One row alone among
+    hundreds moves the output by less than the limit's bf16 ulp, so the
+    swap takes a whole block.  Exactness: a single fully attended row
+    comes back as the dequantized v row rounded to bf16, through B6 and
+    B7."""
+    from deepspeed_tpu_torch.ops.quantizer import kv_dequantize, kv_quantize
+    from deepspeed_tpu_torch.ops.transformer import (
+        paged_decode_attention as PA)
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(2468)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+    results = {f"{k}_int{b}": [] for k in ("paged_decode_attention",
+                                           "paged_prefill_attention")
+               for b in (8, 4)}
+    H, C = 32, 256
+    NB, BLK, NP = PAGED_POOL
+
+    def encode(pk, pv, bits):
+        kq, ks = kv_quantize(pk, bits)
+        vq, vs = kv_quantize(pv, bits)
+        return kq, vq, dict(k_scale=ks, v_scale=vs, kv_bits=bits)
+
+    def nibble_fault(acc, fn, want, kq, vq, quant, block):
+        fault = fn(swap_nibbles(torch, kq, block),
+                   swap_nibbles(torch, vq, block), quant)
+        fm = margin(fault, want)
+        check(fm > 1.0, f"the limit misses the nibble-swap fault ({fm:.3g} "
+                        f"of the limit)")
+        acc.update(nibble_fault_err=max_err(fault, want),
+                   nibble_fault_limit_share=fm)
+    for hkv, d in ((H, 128), (4, 64)):
+        pk, pv, tables, lens, perm = paged_decode_case(torch, randn, dev,
+                                                       hkv, d)
+        q = randn(8, H, d)
+        rows = sum(PAGED_LENGTHS)
+        for bits in (8, 4):
+            kq, vq, quant = encode(pk, pv, bits)
+            name = f"B6 int{bits} Hkv={hkv} D={d}"
+
+            def plain(kq, vq, quant, lens=lens):
+                return PA.paged_decode_attention_plain(q, kq, vq, lens,
+                                                       tables, **quant)
+            got = PA.paged_decode_attention(q, kq, vq, lens, tables, **quant)
+            want = plain(kq, vq, quant)
+            fault = plain(kq, vq, quant, (lens - (lens > 0).int()).int())
+            torch.cuda.synchronize()
+            acc = agree(name, got, want, fault)
+            check(float(got[4].abs().max()) == 0.0 and
+                  float(got[6].abs().max()) == 0.0,
+                  f"{name}: inactive slots not zero")
+            if bits == 4:
+                nibble_fault(acc, plain, want, kq, vq, quant,
+                             int(tables[0, 0]))
+            if hkv == H:
+                # the length-1 slot alone: its output is its v row
+                one = tables[:1, :1].contiguous()
+                row = PA.paged_decode_attention(
+                    q[:1], kq, vq, lens[:1], one, **quant)
+                dq = kv_dequantize(vq[int(one[0, 0]), 0],
+                                   quant["v_scale"][int(one[0, 0]), 0], bits)
+                check(torch.equal(row[0], dq.to(bf16)),
+                      f"{name}: a single row is not its dequantized v row")
+            ms = time_ms(lambda: PA.paged_decode_attention(
+                q, kq, vq, lens, tables, **quant), torch, flush)
+            plain_ms = time_ms(lambda: plain(kq, vq, quant), torch, flush)
+            de = d if bits == 8 else d // 2
+            bnd, by = bound_ms(2 * rows * hkv * (de + 4) + 2 * 8 * H * d * 2
+                               + tables.numel() * 4, 4.0 * rows * H * d)
+            results[f"paged_decode_attention_int{bits}"].append(dict(
+                case=f"8 slots, H {H} over Hkv {hkv}, D {d}, lengths "
+                     f"{PAGED_LENGTHS}", **acc, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bnd, bound_by=by))
+        del pk, pv
+    table = torch.tensor(perm[:NP], dtype=torch.int32, device=dev)
+    for base, clen in ((0, 256), (256, 256), (64, 100)):
+        pk, pv = randn(NB, BLK, H, 128), randn(NB, BLK, H, 128)
+        total = base + clen
+        for pg in range(total // BLK, NP):
+            off = max(0, total - pg * BLK)
+            pk[int(table[pg]), off:] = float("nan")
+            pv[int(table[pg]), off:] = float("nan")
+        q = randn(C, H, 128)
+        pairs = sum(min(total, base + i + 1) for i in range(C))
+        for bits in (8, 4):
+            kq, vq, quant = encode(pk, pv, bits)
+            name = f"B7 int{bits} base={base} len={clen}"
+
+            def plain(kq, vq, quant, clen=clen):
+                return PA.paged_prefill_attention_plain(
+                    q, kq, vq, base, clen, table, **quant)
+            got = PA.paged_prefill_attention(q, kq, vq, base, clen, table,
+                                             **quant)
+            want = plain(kq, vq, quant)
+            fault = plain(kq, vq, quant, clen - 1)
+            torch.cuda.synchronize()
+            acc = agree(name, got, want, fault)
+            if bits == 4:
+                nibble_fault(acc, plain, want, kq, vq, quant, int(table[0]))
+            if base == 0:
+                # query 0 sees key 0 alone: its output is v row 0
+                first = PA.paged_prefill_attention(q[:1], kq, vq, 0, 1,
+                                                   table, **quant)
+                dq = kv_dequantize(vq[int(table[0]), 0],
+                                   quant["v_scale"][int(table[0]), 0], bits)
+                check(torch.equal(first[0], dq.to(bf16)),
+                      f"{name}: a single row is not its dequantized v row")
+            ms = time_ms(lambda: PA.paged_prefill_attention(
+                q, kq, vq, base, clen, table, **quant), torch, flush)
+            plain_ms = time_ms(lambda: plain(kq, vq, quant), torch, flush)
+            de = 128 if bits == 8 else 64
+            bnd, by = bound_ms(2 * total * H * (de + 4) + 2 * C * H * 128 * 2,
+                               4.0 * pairs * H * 128)
+            results[f"paged_prefill_attention_int{bits}"].append(dict(
+                case=f"C={C} base={base} chunk_len={clen}", **acc, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+                bound_by=by))
+        del pk, pv
+    torch.cuda.empty_cache()
     return results
 
 
@@ -760,7 +932,10 @@ def main() -> int:
                   + (f"; two launches differ by {c['rerun_diff']:.3g}"
                      if "rerun_diff" in c else "")
                   + (f"; dense kernel {c['dense_ms']:.4f} ms"
-                     if "dense_ms" in c else ""))
+                     if "dense_ms" in c else "")
+                  + (f"; nibble-swap fault {c['nibble_fault_err']:.3g} = "
+                     f"{c['nibble_fault_limit_share']:.3g} of the limit"
+                     if "nibble_fault_err" in c else ""))
     del flush
 
     # -- 4-5. generate(), forward() and the server at GPT-3 6.7B width --
@@ -830,6 +1005,15 @@ def main() -> int:
     # -- 10. forward() and generate() of the block-sparse model ----------
     sparse_served = sparse_serve_phase(torch, np, sparse_model("blocksparse"))
 
+    # -- 11. quantized KV serving at GPT-3 6.7B width --------------------
+    quant_served = quant_serve_phase(torch, np, "GPT-3 6.7B",
+                                     gpt2_config("6.7b"))
+
+    # -- 12. int8 weight-only serving at GPT-3 6.7B width ----------------
+    int8_served = int8_serve_phase(torch, np, "GPT-3 6.7B",
+                                   gpt2_config("6.7b"),
+                                   served["prefill_logits"])
+
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
     paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
@@ -837,7 +1021,9 @@ def main() -> int:
     # (TPU kernel replaced, launches over its main path's run, index of
     # the main-path case in the phase-3 results): B5-B7 from GPT-3 6.7B
     # serving, B1/B3/B4 from TinyLlama training (B1 at its GQA shape), B2
-    # from GPT-2 training, B8-B10 from block-sparse GPT-2 training
+    # from GPT-2 training, B8-B10 from block-sparse GPT-2 training; the
+    # int8/int4 B6/B7 from phase 11's drain at that width (B6 at the 6.7B
+    # heads, B7 at base 256)
     rows = {
         "decode_attention": (
             "deepspeed_tpu/ops/transformer/decode_attention.py:56",
@@ -861,19 +1047,29 @@ def main() -> int:
         "blocksparse_flash_bwd_dkv": (
             f"{sparse_file}:204", sparse["blocksparse_flash_bwd_dkv"], 0),
     }
+    for bits in build.QUANT_BITS:
+        for kernel, line, main in (("paged_decode_attention", 143, 0),
+                                   ("paged_prefill_attention", 358, 1)):
+            name = build.counter(kernel, bits)
+            rows[name] = (f"{paged}:{line} (kv_bits {bits})",
+                          quant_served[bits][name], main)
     print(f"TinyLlama serving launches: B5 "
           f"{llama_served['decode_attention']}, B6 "
           f"{llama_served['paged_decode_attention']}, B7 "
           f"{llama_served['paged_prefill_attention']}, B1 (forward) "
           f"{llama_served['flash_attention_fwd']}; block-sparse forward() "
-          f"B8 {sparse_served['blocksparse_flash_fwd']}")
+          f"B8 {sparse_served['blocksparse_flash_fwd']}; int8 weights + "
+          f"int8 KV drain: B6 int8 "
+          f"{int8_served['paged_decode_attention_int8']}, B7 int8 "
+          f"{int8_served['paged_prefill_attention_int8']}")
     kernels = []
-    for name in build.KERNELS:
+    for name in build.COUNTERS:
         replaces, launches, main = rows[name]
         c = kres[name][main]
+        source = name.rsplit("_int", 1)[0]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"deepspeed_tpu_torch/csrc/{name}.cu",
+            "source": f"deepspeed_tpu_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(x["max_abs_err"] for x in kres[name]),
             "ms": c["ms"], "plain_ms": c["plain_ms"],
@@ -900,16 +1096,12 @@ def serve_phase(torch, np, label, cfg) -> dict:
     from deepspeed_tpu_torch.ops import build
     t0 = time.perf_counter()
     eng = init_inference(TransformerLM(cfg), {
-        "dtype": "bfloat16", "temperature": 0.0,
-        "serving": {"enabled": True, "kv_block_size": 16,
-                    "num_kv_blocks": 512, "max_batch_slots": 8,
-                    "prefill_chunk_tokens": 256}})
+        "dtype": "bfloat16", "temperature": 0.0, "serving": SERVING})
     torch.cuda.synchronize()
     print(f"{label} init: {cfg.num_params() / 1e9:.2f} B params "
           f"({sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9:.2f} GB bf16) "
           f"in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size, (8, 128))
+    rng, prompts, lens, sprompts = serving_prompts(np, cfg.vocab_size)
     eng.generate(prompts, max_new_tokens=4)          # warm-up
     build.reset_launch_counts()
     out = eng.generate(prompts, max_new_tokens=64)
@@ -964,42 +1156,14 @@ def serve_phase(torch, np, label, cfg) -> dict:
           f"equal on {same} of 8")
     check(fwd_rel <= LOGITS_REL_TOL,
           f"forward/generate logits differ by {fwd_rel:.4f} of their scale")
+    prefill_logits = ref.cpu()
     del fwd, ref
 
     srv = eng.serving_engine()
-    model = srv.model
     first_logits = {}
-    mixed = model._apply_paged_mixed
-
-    def recording_mixed(params, cache, dec_tokens, dec_active, chunk_ids,
-                        chunk_slot, chunk_start, chunk_len):
-        res = mixed(params, cache, dec_tokens, dec_active, chunk_ids,
-                    chunk_slot, chunk_start, chunk_len)
-        if chunk_len:
-            req = srv.scheduler.running[chunk_slot]
-            if chunk_start + chunk_len == len(req.prompt):
-                first_logits[req.req_id] = res[1].float().cpu()
-        return res
-    model._apply_paged_mixed = recording_mixed
-    lens = rng.integers(16, 513, 16)
-    sprompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    build.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [srv.submit(p, max_new_tokens=32) for p in sprompts]
-    finished = srv.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    srv_counts = dict(build.launch_counts)
-    model._apply_paged_mixed = mixed
-    check(len(finished) == 16, f"{len(finished)} of 16 requests finished")
-    for r in reqs:
-        check(r.status is not None and r.status.value == "ok"
-              and len(r.output) == 32,
-              f"{r.req_id}: status {r.status}, {len(r.output)} tokens")
-    check(srv.allocator.num_used == 0,
-          f"allocator holds {srv.allocator.num_used} blocks after drain")
-    check(srv_counts["paged_decode_attention"] > 0, "B6 never launched")
-    check(srv_counts["paged_prefill_attention"] > 0, "B7 never launched")
+    reqs, srv_counts, wall = drain(
+        torch, srv, sprompts, f"{label} serving", 0,
+        lambda mixed: first_step_recorder(srv, mixed, first_logits))
     ntok = sum(len(r.output) for r in reqs)
     print(f"{label} serving: 16 requests, prompts {int(lens.min())}-"
           f"{int(lens.max())} tokens ({int(lens.sum())} total), 32 new "
@@ -1055,14 +1219,323 @@ def serve_phase(torch, np, label, cfg) -> dict:
         srv.run()
     device_profile(torch, serve_burst,
                    f"{label} serving 8 requests, 8 new tokens")
-    del srv, model, eng
+    del srv, eng
     import gc
     gc.collect()
     torch.cuda.empty_cache()
     return {"decode_attention": gen_counts["decode_attention"],
             "flash_attention_fwd": fwd_counts["flash_attention_fwd"],
             "paged_decode_attention": srv_counts["paged_decode_attention"],
-            "paged_prefill_attention": srv_counts["paged_prefill_attention"]}
+            "paged_prefill_attention": srv_counts["paged_prefill_attention"],
+            "prefill_logits": prefill_logits}
+
+
+#: phase 5's server: 512 blocks of 16 tokens, 8 slots, chunk 256
+SERVING = {"enabled": True, "kv_block_size": 16, "num_kv_blocks": 512,
+           "max_batch_slots": 8, "prefill_chunk_tokens": 256}
+
+
+def serving_prompts(np, vocab):
+    """Phase 4's 8 x 128 prompts and phase 5's 16 requests (prompts of
+    16-512 tokens) from seed 0: (the generator, prompts, request lengths,
+    request prompts)."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, vocab, (8, 128))
+    lens = rng.integers(16, 513, 16)
+    return (rng, prompts, lens,
+            [rng.integers(0, vocab, n).tolist() for n in lens])
+
+
+def first_step_recorder(srv, mixed, first_logits):
+    """``mixed`` (a model's mixed step) that also keeps, by request id,
+    the logits of each chunk that completes a prompt: the request's
+    first-step logits."""
+    def recording(params, cache, dec_tokens, dec_active, chunk_ids,
+                  chunk_slot, chunk_start, chunk_len):
+        res = mixed(params, cache, dec_tokens, dec_active, chunk_ids,
+                    chunk_slot, chunk_start, chunk_len)
+        if chunk_len:
+            req = srv.scheduler.running[chunk_slot]
+            if chunk_start + chunk_len == len(req.prompt):
+                first_logits[req.req_id] = res[1].float().cpu()
+        return res
+    return recording
+
+
+def drain(torch, srv, prompts, label, kv_bits, record=None):
+    """Submit ``prompts`` (32 new tokens each) to ``srv`` and ``run()``:
+    every request OK with 32 tokens, the allocator empty afterwards, the
+    B6/B7 variants of ``kv_bits`` launched and no other.  ``record(...)``
+    wraps the model's mixed step during the drain when given.  Returns
+    (requests, launch counts, seconds)."""
+    from deepspeed_tpu_torch.ops import build
+    model = srv.model
+    mixed = model._apply_paged_mixed
+    if record is not None:
+        model._apply_paged_mixed = record(mixed)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
+    finished = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    model._apply_paged_mixed = mixed
+    check(len(finished) == len(prompts),
+          f"{label}: {len(finished)} of {len(prompts)} requests finished")
+    for r in reqs:
+        check(r.status is not None and r.status.value == "ok"
+              and len(r.output) == 32,
+              f"{label} {r.req_id}: status {r.status}, {len(r.output)} "
+              f"tokens")
+    check(srv.allocator.num_used == 0,
+          f"{label}: allocator holds {srv.allocator.num_used} blocks after "
+          f"drain")
+    for kernel in build.QUANT_KERNELS:
+        for bits in (0,) + build.QUANT_BITS:
+            n = counts[build.counter(kernel, bits)]
+            name = build.counter(kernel, bits)
+            check(n > 0 if bits == kv_bits else n == 0,
+                  f"{label}: {name} launched {n} times at kv_bits "
+                  f"{kv_bits}")
+    return reqs, counts, wall
+
+
+def quant_serve_phase(torch, np, label, cfg) -> dict:
+    """Phase 11: the phase-5 server and requests over quantized KV pools
+    (``serving.kv_cache_bits`` 8, then 4), bf16 weights from seed 0 shared
+    with a bf16 engine whose ``generate()`` (dense bf16 cache) is the
+    reference.  Pool bytes exact; ``blocks_for_budget`` at the bf16 pool's
+    budget; the drain's tokens/s and launches (the int8 or int4 B6/B7,
+    never the bf16 ones); token agreement with ``generate()``; first-step
+    logits of 4 requests against ``generate()``'s prefill (limited at 8
+    bits, printed at 4); and the dispatch that carries a chunk and the
+    most decode slots, recorded with its pools and rerun from the same state
+    with the kernels' plain versions patched into the model: logits within
+    LOGITS_REL_TOL, the same rows written, layer 0's values and scales
+    bit-equal (deeper layers' k/v come through attention, where kernel
+    and plain round differently: their agreement is printed).  Returns
+    the drains' launch counts by width."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.serving.block_allocator import (
+        blocks_for_budget, kv_block_bytes)
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.ops.quantizer import kv_dequantize
+    from deepspeed_tpu_torch.ops.transformer import (
+        paged_decode_attention as PA)
+    base = {"dtype": "bfloat16", "temperature": 0.0}
+    ref = init_inference(tt.TransformerLM(cfg), {**base, "serving": SERVING})
+    _, _, lens, prompts = serving_prompts(np, cfg.vocab_size)
+    L, hkv, hd = cfg.num_layers, cfg.kv_heads, cfg.hdim
+    bf16_bytes = 512 * L * kv_block_bytes(16, hkv, hd, 0)
+    # the reference: generate() streams and prefill logits on the dense
+    # bf16 cache
+    prefill = ref._prefill
+    gen_first = []
+
+    def recording_prefill(ids, true_len, cache_len):
+        cache, last = prefill(ids, true_len, cache_len)
+        gen_first.append(last[0].float().cpu())
+        return cache, last
+    ref._prefill = recording_prefill
+    ref_streams = [ref.generate(np.asarray(p)[None], max_new_tokens=32)[0]
+                   .tolist() for p in prompts]
+    ref._prefill = prefill
+    counts = {}
+    for bits in (8, 4):
+        tag = f"{label} kv_cache_bits {bits}"
+        eng = init_inference(tt.TransformerLM(cfg), {
+            **base, "serving": {**SERVING, "kv_cache_bits": bits}},
+            params=ref.params)
+        srv = eng.serving_engine()
+        want_mib = {8: 2112, 4: 1088}[bits]
+        check(srv.kv_pool_bytes == want_mib * 2**20
+              == 512 * L * kv_block_bytes(16, hkv, hd, bits),
+              f"{tag}: pool {srv.kv_pool_bytes} bytes, not {want_mib} MiB")
+        nblocks = blocks_for_budget(bf16_bytes // L, 16, hkv, hd, bits)
+        first_logits, rec = {}, {}
+
+        def record(mixed):
+            def recording(params, cache, dec_tokens, dec_active, chunk_ids,
+                          chunk_slot, chunk_start, chunk_len):
+                args = (dec_tokens, dec_active, chunk_ids, chunk_slot,
+                        chunk_start, chunk_len)
+                pools = ("k", "v", "k_scale", "v_scale")
+                # keep the dispatch with a chunk and the most decode slots
+                ndec = int(dec_active.sum()) if dec_tokens.shape[0] else 0
+                grab = bool(chunk_len) and ndec > rec.get("ndec", 0)
+                if grab:
+                    rec["before"] = {k: cache[k].clone() for k in pools}
+                    rec["args"] = (params, cache["block_tables"].clone(),
+                                   cache["lens"].clone(),
+                                   *(a.clone() if torch.is_tensor(a) else a
+                                     for a in args))
+                res = mixed(params, cache, *args)
+                if grab:
+                    rec["logits"] = (res[0].float(), res[1].float())
+                    rec["after"] = {k: cache[k].clone() for k in pools}
+                    rec["ndec"] = ndec
+                return res
+            return first_step_recorder(srv, recording, first_logits)
+        reqs, c, wall = drain(torch, srv, prompts, tag, bits, record)
+        counts[bits] = c
+        ntok = sum(len(r.output) for r in reqs)
+        same = sum(int(a == b) for r, want in zip(reqs, ref_streams)
+                   for a, b in zip(r.output, want))
+        same_streams = sum(int(r.output == w)
+                           for r, w in zip(reqs, ref_streams))
+        worst = 0.0
+        for i, r in enumerate(reqs[:4]):
+            a, b = first_logits[r.req_id], gen_first[i]
+            worst = max(worst, float((a - b).abs().max())
+                        / float(b.abs().max()))
+        print(f"{tag}: pool {srv.kv_pool_bytes / 2**20:.1f} MiB (bf16 "
+              f"{bf16_bytes / 2**20:.1f} MiB); blocks_for_budget at the "
+              f"bf16 pool's budget: {nblocks} blocks of 16 (bf16: 512); 16 "
+              f"requests, {ntok} tokens in {wall:.2f} s = "
+              f"{ntok / wall:.1f} tokens/s ({srv.counts['dispatches']} "
+              f"dispatches, {srv.counts['preemptions']} preemptions); B6 "
+              f"int{bits} launches "
+              f"{c[f'paged_decode_attention_int{bits}']}, B7 int{bits} "
+              f"launches {c[f'paged_prefill_attention_int{bits}']}, bf16 "
+              f"B6/B7 {c['paged_decode_attention']}/"
+              f"{c['paged_prefill_attention']}")
+        print(f"  against generate() on the bf16 dense cache: {same_streams}"
+              f" of 16 streams, {same} of {ntok} tokens "
+              f"({100.0 * same / ntok:.1f} %) equal; first-step logits of 4 "
+              f"requests within {worst:.4f} of max|logit|"
+              + (f" (limit {LOGITS_REL_TOL})" if bits == 8
+                 else " (not limited at 4 bits)"))
+        if bits == 8:
+            check(worst <= LOGITS_REL_TOL,
+                  f"{tag}: first-step logits differ by {worst:.4f} of their "
+                  f"scale")
+        # the recorded mixed step again, from the same state, with the
+        # kernels' plain versions
+        check("args" in rec, f"{tag}: no dispatch carried a chunk and "
+                             f"decode slots")
+        params, tables, lens_t, *args = rec["args"]
+        state = {k: v.clone() for k, v in rec["before"].items()}
+        saved = (tt.paged_decode_attention, tt.paged_prefill_attention)
+        tt.paged_decode_attention = PA.paged_decode_attention_plain
+        tt.paged_prefill_attention = PA.paged_prefill_attention_plain
+        try:
+            res = srv.model._apply_paged_mixed(
+                params, {**state, "block_tables": tables, "lens": lens_t},
+                *args)
+        finally:
+            tt.paged_decode_attention, tt.paged_prefill_attention = saved
+        torch.cuda.synchronize()
+        act = args[1] > 0
+        kd, kc = rec["logits"]
+        pd, pc = res[0].float(), res[1].float()
+        step_rel = max(float((kd[act] - pd[act]).abs().max())
+                       / float(pd[act].abs().max()),
+                       float((kc - pc).abs().max()) / float(pc.abs().max()))
+        # a written row is one whose scales changed: [L, blocks, rows]
+        before = rec["before"]["k_scale"]
+        same_rows = torch.equal((rec["after"]["k_scale"] != before).any(-1),
+                                (state["k_scale"] != before).any(-1))
+        layer0 = all(torch.equal(rec["after"][k][0], state[k][0])
+                     for k in state)
+        one = torch.ones_like(state["k_scale"])
+        # the integer values: kv_dequantize at unit scale
+        diffs = {k: (kv_dequantize(rec["after"][k], one, bits)
+                     - kv_dequantize(state[k], one, bits)).abs()
+                 for k in ("k", "v")}
+        eq_share = min(float((d == 0).float().mean()) for d in diffs.values())
+        max_d = max(int(d.max()) for d in diffs.values())
+        s_rel = max(float(((rec["after"][k] - state[k]).abs()
+                           / state[k].abs().clamp_min(1e-30)).nan_to_num(
+                               0.0).max()) for k in ("k_scale", "v_scale"))
+        print(f"  one recorded mixed step ({int(act.sum())} decode slots + "
+              f"a {args[5]}-token chunk) rerun with the plain versions: "
+              f"logits within {step_rel:.4f} of max|logit| (limit "
+              f"{LOGITS_REL_TOL}); same rows written: {same_rows}; layer 0 "
+              f"values and scales bit-equal: {layer0}; all layers: "
+              f"{100 * eq_share:.3f} % of pool values equal, largest "
+              f"difference {max_d}, scales within {s_rel:.3g} relative")
+        check(step_rel <= LOGITS_REL_TOL,
+              f"{tag}: mixed step kernels vs plain logits differ by "
+              f"{step_rel:.4f} of their scale")
+        check(same_rows, f"{tag}: kernels and plain wrote different rows")
+        check(layer0, f"{tag}: layer 0's written values or scales differ "
+                      f"between kernels and plain")
+        del srv, eng, rec, state, res
+        torch.cuda.empty_cache()
+    del ref
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def int8_serve_phase(torch, np, label, cfg, bf16_prefill) -> dict:
+    """Phase 12: ``quant.enabled`` (int8 weights, f32 group scales; the
+    seed-0 weights of phases 4-5 quantized) with ``kv_cache_bits`` 8:
+    parameter bytes against bf16; ``generate()`` on phase 4's 8 x 128
+    prompts, 64 new (TTFT, decode ms/token; B5 on the dense bf16 cache,
+    each layer dequantized as it runs); ``forward()``'s last-position
+    logits against phase 4's bf16 prefill logits (``bf16_prefill``,
+    within LOGITS_REL_TOL); the 16-request drain on the int8 B6/B7.
+    Returns the drain's launch counts."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.ops import build
+    eng = init_inference(tt.TransformerLM(cfg), {
+        "dtype": "bfloat16", "temperature": 0.0, "quant": {"enabled": True},
+        "serving": {**SERVING, "kv_cache_bits": 8}})
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for tree in (eng.params, eng._scales) for t in _leaves(tree))
+    print(f"{label} int8 weights: parameters {nbytes / 1e9:.2f} GB (int8 "
+          f"blocks + f32 group scales, bf16 embeddings) against "
+          f"{cfg.num_params() * 2 / 1e9:.2f} GB bf16")
+    _, prompts, lens, sprompts = serving_prompts(np, cfg.vocab_size)
+    eng.generate(prompts, max_new_tokens=4)          # warm-up
+    build.reset_launch_counts()
+    out = eng.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    gen_counts = dict(build.launch_counts)
+    check(tuple(out.shape) == (8, 64)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{label} int8 generate tokens {tuple(out.shape)}")
+    check(gen_counts["decode_attention"] == cfg.num_layers * 63,
+          f"{label} int8 generate: B5 launches "
+          f"{gen_counts['decode_attention']}")
+    stats = eng.latency_stats()
+    device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
+                   f"{label} int8 weights generate 8 x 128 prompts, 16 new "
+                   f"tokens")
+    fwd = eng.forward(prompts)[:, -1]
+    torch.cuda.synchronize()
+    ref = bf16_prefill.to(fwd.device)
+    err = float((fwd - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    same = int((fwd.argmax(-1) == ref.argmax(-1)).sum())
+    print(f"{label} int8 generate: 8 x 128-token prompts, 64 new tokens: "
+          f"TTFT {stats['ttft_p50_ms']:.1f} ms, decode {stats['p50_ms']:.2f}"
+          f" ms/token; B5 launches {gen_counts['decode_attention']}; "
+          f"forward() last-position logits max|int8 - bf16 prefill| "
+          f"{err:.4f} = {rel:.4f} of max|logit| (limit {LOGITS_REL_TOL}), "
+          f"argmax equal on {same} of 8")
+    check(rel <= LOGITS_REL_TOL,
+          f"{label} int8 forward vs bf16 prefill logits differ by {rel:.4f} "
+          f"of their scale")
+    del fwd, ref
+    srv = eng.serving_engine()
+    reqs, c, wall = drain(torch, srv, sprompts, f"{label} int8", 8)
+    ntok = sum(len(r.output) for r in reqs)
+    print(f"{label} int8 weights + int8 KV serving: 16 requests, {ntok} "
+          f"tokens in {wall:.2f} s = {ntok / wall:.1f} tokens/s "
+          f"({srv.counts['dispatches']} dispatches); B6 int8 launches "
+          f"{c['paged_decode_attention_int8']}, B7 int8 launches "
+          f"{c['paged_prefill_attention_int8']}")
+    del srv, eng
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return c
 
 
 def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
@@ -1272,10 +1745,7 @@ def sparse_serve_phase(torch, np, cfg) -> dict:
     from deepspeed_tpu_torch.ops import build
     eng = init_inference(TransformerLM(cfg), {
         "dtype": "bfloat16", "temperature": 0.0,
-        "max_out_tokens": cfg.max_seq_len,
-        "serving": {"enabled": True, "kv_block_size": 16,
-                    "num_kv_blocks": 512, "max_batch_slots": 8,
-                    "prefill_chunk_tokens": 256}})
+        "max_out_tokens": cfg.max_seq_len, "serving": SERVING})
     check(eng.module.config.attn_impl == "blocksparse",
           f"init_inference rewrote attn_impl to "
           f"{eng.module.config.attn_impl!r}")

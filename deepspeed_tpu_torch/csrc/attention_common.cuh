@@ -1,10 +1,12 @@
 // Shared device helpers for the port's attention kernels (decode,
 // paged decode, paged prefill): 16-byte vector loads of bf16/f32 rows
+// and 8-/4-byte loads of int8/packed-int4 rows (times their f32 scale)
 // into f32 registers, and the online-softmax state (running max m,
 // running sum l, f32 accumulator) with its merge rule.
 //
 // Convention shared by every kernel here: a key/value row at or past a
-// sequence's valid length is never loaded.  Its registers hold zeros and
+// sequence's valid length is never loaded, and neither is its scale in a
+// quantized pool.  Its registers hold zeros and
 // its score is -inf, so a recycled pool block holding NaN/inf garbage
 // cannot reach the accumulator (0 * NaN never happens), and a row set
 // with no valid key ends with l == 0 and is written as zeros through
@@ -109,21 +111,19 @@ __device__ __forceinline__ void warp_merge_groups(float (&m)[G], float (&l)[G],
 // Online-softmax walk of one warp over key rows for G query heads that
 // share one kv head.  The warp is split into groups of `lanes_per_row`
 // lanes; each group owns one key row at a time, each lane a slice of N
-// features (16 bytes) at element offset `lane_off`.  Group r of the warp
-// visits positions warp_first + r + j * p_step (j = 0, 1, ...) below
-// p_end, U rows per iteration, so that 2 * U independent 16-byte loads
-// are in flight per lane.  `row_offset(p)` gives the element offset of
-// position p's row.  The trip count depends only on warp-uniform
-// values, and every lane of the warp must call this: the shuffles use
-// the full mask.
-template <typename T, int G, int U, typename RowOffset>
-__device__ __forceinline__ void attend_rows(
-    const float (&q)[G][VecWidth<T>::N], const T* __restrict__ k,
-    const T* __restrict__ v, RowOffset row_offset, int lane_off,
-    int lanes_per_row, int warp_first, int row_in_warp, int p_end,
-    int p_step, float sm_scale, float (&m)[G], float (&l)[G],
-    float (&acc)[G][VecWidth<T>::N]) {
-  constexpr int N = VecWidth<T>::N;
+// features.  Group r of the warp visits positions warp_first + r + j *
+// p_step (j = 0, 1, ...) below p_end, U rows per iteration, so that 2 * U
+// independent row loads are in flight per lane.  `load_row(p, kf, vf)`
+// widens this lane's slice of position p's key and value rows to f32; it
+// is called only for p < p_end, so a row (or a scale) at or past the
+// length is never read.  The trip count depends only on warp-uniform
+// values, and every lane of the warp must call this: the shuffles use the
+// full mask.
+template <int G, int N, int U, typename LoadRow>
+__device__ __forceinline__ void attend_rows_with(
+    const float (&q)[G][N], LoadRow load_row, int lanes_per_row,
+    int warp_first, int row_in_warp, int p_end, int p_step, float sm_scale,
+    float (&m)[G], float (&l)[G], float (&acc)[G][N]) {
   for (int w0 = warp_first; w0 < p_end; w0 += U * p_step) {
     float kf[U][N], vf[U][N];
     bool valid[U];
@@ -132,9 +132,7 @@ __device__ __forceinline__ void attend_rows(
       const int p = w0 + row_in_warp + u * p_step;
       valid[u] = p < p_end;
       if (valid[u]) {
-        const size_t off = row_offset(p) + lane_off;
-        load_vec(k + off, kf[u]);
-        load_vec(v + off, vf[u]);
+        load_row(p, kf[u], vf[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) { kf[u][i] = 0.f; vf[u][i] = 0.f; }
@@ -177,6 +175,77 @@ __device__ __forceinline__ void attend_rows(
       }
     }
   }
+}
+
+// attend_rows_with over rows of T: lane slices of N = 16 / sizeof(T)
+// elements at element offset `lane_off` of the row that `row_offset(p)`
+// gives, one 16-byte load each.
+template <typename T, int G, int U, typename RowOffset>
+__device__ __forceinline__ void attend_rows(
+    const float (&q)[G][VecWidth<T>::N], const T* __restrict__ k,
+    const T* __restrict__ v, RowOffset row_offset, int lane_off,
+    int lanes_per_row, int warp_first, int row_in_warp, int p_end,
+    int p_step, float sm_scale, float (&m)[G], float (&l)[G],
+    float (&acc)[G][VecWidth<T>::N]) {
+  constexpr int N = VecWidth<T>::N;
+  attend_rows_with<G, N, U>(
+      q,
+      [=](int p, float (&kf)[N], float (&vf)[N]) {
+        const size_t off = row_offset(p) + lane_off;
+        load_vec(k + off, kf);
+        load_vec(v + off, vf);
+      },
+      lanes_per_row, warp_first, row_in_warp, p_end, p_step, sm_scale, m,
+      l, acc);
+}
+
+// Eight features of one row of an int8 or packed-int4 KV pool, widened to
+// f32 and multiplied by the row's scale: the in-kernel decode of
+// ops/quantizer/quantizer.py::kv_dequantize (sign-extended ints, one f32
+// product each).  int8: bytes [p, p + 8) are eight consecutive features.
+// int4, split by feature: bytes [p, p + 4) of a row hold features j .. j + 3
+// in their low nibbles (out[0..3]) and j + D/2 .. j + D/2 + 3 in their high
+// nibbles (out[4..7]); both are sign-extended by arithmetic shifts.
+template <int KV_BITS>
+__device__ __forceinline__ void load_quant_vec(const int8_t* p, float scale,
+                                               float (&out)[8]);
+
+template <>
+__device__ __forceinline__ void load_quant_vec<8>(const int8_t* p,
+                                                  float scale,
+                                                  float (&out)[8]) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[i] = static_cast<float>(static_cast<int>(w.x << (24 - 8 * i)) >> 24)
+             * scale;
+    out[4 + i] =
+        static_cast<float>(static_cast<int>(w.y << (24 - 8 * i)) >> 24) *
+        scale;
+  }
+}
+
+template <>
+__device__ __forceinline__ void load_quant_vec<4>(const int8_t* p,
+                                                  float scale,
+                                                  float (&out)[8]) {
+  const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[i] = static_cast<float>(static_cast<int>(w << (28 - 8 * i)) >> 28) *
+             scale;
+    out[4 + i] =
+        static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 28) * scale;
+  }
+}
+
+// The row feature that element i of a lane's 8-feature slice holds, for
+// the lane at slice index `slice` of a quantized row of D features
+// (load_quant_vec's layout).
+template <int KV_BITS>
+__device__ __forceinline__ int quant_feature(int slice, int i, int D) {
+  if (KV_BITS == 4) return i < 4 ? slice * 4 + i : D / 2 + slice * 4 + i - 4;
+  return slice * 8 + i;
 }
 
 }  // namespace dstt

@@ -2,12 +2,15 @@
 // (kernel B7) for sm_90a.
 //
 // Replaces: deepspeed_tpu/ops/transformer/paged_decode_attention.py
-//   `_prefill_kernel` (launched by `paged_prefill_attention`) with
-//   kv_bits = 0: C query tokens at absolute rows base .. base + C - 1 of
+//   `_prefill_kernel` (launched by `paged_prefill_attention`) at kv_bits
+//   0, 8 and 4: C query tokens at absolute rows base .. base + C - 1 of
 //   one slot attend over that slot's pages; rows below `base` are fully
 //   visible, the chunk is causal inside (pos <= base + i), nothing at or
-//   past base + chunk_len is read.  Query rows past chunk_len come out
-//   finite and are ignored by callers.
+//   past base + chunk_len is read (neither rows nor, in a quantized pool,
+//   their scales).  Query rows past chunk_len come out finite and are
+//   ignored by callers.  A quantized pool (int8, or packed int4 split by
+//   feature, one f32 scale per row and kv head) is widened to f32 as
+//   int x scale while each tile is staged (`_dequant_rows`).
 //
 // Bound on the H100: device-memory bytes at the tensor-core rate.  The
 // K and V rows below base + chunk_len are read once per kv head (the
@@ -28,6 +31,10 @@
 //     chunk_len, base + last query of the tile + 1): rows past it are
 //     never read (the NaN-safety rule), and later tiles of a long chunk
 //     read more keys than earlier ones, exactly the causal triangle;
+//   * kv_bits is a template parameter that only the tile staging reads:
+//     the kv_bits 0 instantiation is the unquantized kernel, and a
+//     quantized one stages 8 features a load (8 bytes of int8 or 4 of
+//     int4) times the row's scale into the same f32 tile;
 //   * online softmax per query row in registers: scores lane-per-key,
 //     the weighted V sum lane-per-feature, probabilities broadcast by
 //     warp shuffles.
@@ -57,13 +64,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// element type of a pool row: T unquantized, int8 at 8 and 4 bits
+template <typename T, int KV_BITS> struct PoolElem { using type = int8_t; };
+template <typename T> struct PoolElem<T, 0> { using type = T; };
+
+template <typename T, int KV_BITS>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pk,
-                     const T* __restrict__ pv, const int* __restrict__ table,
-                     T* __restrict__ o, int C, int H, int Hkv, int D,
-                     int blk, int npages, int base, int chunk_len,
-                     float sm_scale) {
+paged_prefill_kernel(const T* __restrict__ q,
+                     const typename PoolElem<T, KV_BITS>::type* __restrict__ pk,
+                     const typename PoolElem<T, KV_BITS>::type* __restrict__ pv,
+                     const float* __restrict__ kscale,
+                     const float* __restrict__ vscale,
+                     const int* __restrict__ table, T* __restrict__ o, int C,
+                     int H, int Hkv, int D, int blk, int npages, int base,
+                     int chunk_len, float sm_scale) {
   constexpr int N = VecWidth<T>::N;
   extern __shared__ float smem[];
   const int G = H / Hkv;
@@ -97,27 +111,52 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pk,
 #pragma unroll
     for (int t = 0; t < kMaxDpl; ++t) acc[j][t] = 0.f;
   }
-  const int vec_per_row = D / N;
+  const int vec_per_row = D / (KV_BITS ? 8 : N);
   for (int k0 = 0; k0 < kend; k0 += kTk) {
     __syncthreads();  // previous tile consumed; q staged on the first pass
-    for (int idx = tid; idx < kTk * vec_per_row; idx += kThreads) {
-      const int j = idx / vec_per_row, c = (idx % vec_per_row) * N;
-      const int p = k0 + j;
-      float kf[N], vf[N];
-      if (p < kend) {
-        const size_t bid = __ldg(table + p / blk);
-        const size_t off = ((bid * blk + p % blk) * Hkv + kvh) *
-                               static_cast<size_t>(D) + c;
-        load_vec(pk + off, kf);
-        load_vec(pv + off, vf);
-      } else {
+    if constexpr (KV_BITS == 0) {
+      for (int idx = tid; idx < kTk * vec_per_row; idx += kThreads) {
+        const int j = idx / vec_per_row, c = (idx % vec_per_row) * N;
+        const int p = k0 + j;
+        float kf[N], vf[N];
+        if (p < kend) {
+          const size_t bid = __ldg(table + p / blk);
+          const size_t off = ((bid * blk + p % blk) * Hkv + kvh) *
+                                 static_cast<size_t>(D) + c;
+          load_vec(pk + off, kf);
+          load_vec(pv + off, vf);
+        } else {
 #pragma unroll
-        for (int e = 0; e < N; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
+          for (int e = 0; e < N; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
+        }
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          ks[j * ks_stride + c + e] = kf[e];
+          vs[j * ks_stride + c + e] = vf[e];
+        }
       }
+    } else {
+      const int de = KV_BITS == 8 ? D : D / 2;  // bytes a row
+      for (int idx = tid; idx < kTk * vec_per_row; idx += kThreads) {
+        const int j = idx / vec_per_row, slice = idx % vec_per_row;
+        const int p = k0 + j;
+        float kf[8], vf[8];
+        if (p < kend) {
+          const size_t bid = __ldg(table + p / blk);
+          const size_t r = (bid * blk + p % blk) * Hkv + kvh;
+          const size_t off = r * de + slice * (KV_BITS == 8 ? 8 : 4);
+          load_quant_vec<KV_BITS>(pk + off, __ldg(kscale + r), kf);
+          load_quant_vec<KV_BITS>(pv + off, __ldg(vscale + r), vf);
+        } else {
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        ks[j * ks_stride + c + e] = kf[e];
-        vs[j * ks_stride + c + e] = vf[e];
+          for (int e = 0; e < 8; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int f = quant_feature<KV_BITS>(slice, e, D);
+          ks[j * ks_stride + f] = kf[e];
+          vs[j * ks_stride + f] = vf[e];
+        }
       }
     }
     __syncthreads();
@@ -166,25 +205,47 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pk,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* pk, const void* pv, const void* table,
-           void* o, int C, int H, int Hkv, int D, int blk, int npages,
-           int base, int chunk_len, float sm_scale, cudaStream_t stream) {
+template <typename T, int KV_BITS>
+int launch(const void* q, const void* pk, const void* pv, const float* ks,
+           const float* vs, const void* table, void* o, int C, int H,
+           int Hkv, int D, int blk, int npages, int base, int chunk_len,
+           float sm_scale, cudaStream_t stream) {
+  using P = typename PoolElem<T, KV_BITS>::type;
   const int qt = kRows / (H / Hkv);
   const dim3 grid((C + qt - 1) / qt, Hkv);
   const size_t smem = sizeof(float) * (kRows * D + 2 * kTk * (D + 1));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        paged_prefill_kernel<T, KV_BITS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const int*>(table),
+  paged_prefill_kernel<T, KV_BITS><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(pk),
+      static_cast<const P*>(pv), ks, vs, static_cast<const int*>(table),
       static_cast<T*>(o), C, H, Hkv, D, blk, npages, base, chunk_len,
       sm_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int KV_BITS>
+int launch_dtype(const void* q, const void* pk, const void* pv,
+                 const float* ks, const float* vs, const void* table,
+                 void* o, int C, int H, int Hkv, int D, int blk, int npages,
+                 int base, int chunk_len, float sm_scale, int dtype,
+                 cudaStream_t st) {
+  if (dtype == 0)
+    return launch<float, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, D,
+                                  blk, npages, base, chunk_len, sm_scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H,
+                                          Hkv, D, blk, npages, base,
+                                          chunk_len, sm_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool bad_shape(int C, int H, int Hkv, int D) {
+  return D % 32 || D > 32 * kMaxDpl || H % Hkv || kRows % (H / Hkv) || C < 1;
 }
 
 }  // namespace
@@ -196,15 +257,30 @@ extern "C" int dstt_paged_prefill_attention(
     const void* q, const void* pk, const void* pv, const void* table,
     void* o, int C, int H, int Hkv, int D, int blk, int npages, int base,
     int chunk_len, float sm_scale, int dtype, void* stream) {
-  if (D % 32 || D > 32 * kMaxDpl || H % Hkv || kRows % (H / Hkv) || C < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(C, H, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<0>(q, pk, pv, nullptr, nullptr, table, o, C, H, Hkv, D,
+                         blk, npages, base, chunk_len, sm_scale, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The quantized pools: kv_bits 8 (int8 pools [num_blocks, blk, Hkv, D]) or
+// 4 (packed int4, [num_blocks, blk, Hkv, D / 2] int8), scales
+// [num_blocks, blk, Hkv] f32; the rest as above.
+extern "C" int dstt_paged_prefill_attention_quant(
+    const void* q, const void* pk, const void* pv, const void* k_scale,
+    const void* v_scale, const void* table, void* o, int C, int H, int Hkv,
+    int D, int blk, int npages, int base, int chunk_len, float sm_scale,
+    int dtype, int kv_bits, void* stream) {
+  if (bad_shape(C, H, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, pk, pv, table, o, C, H, Hkv, D, blk, npages,
-                         base, chunk_len, sm_scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, pk, pv, table, o, C, H, Hkv, D, blk,
-                                 npages, base, chunk_len, sm_scale, st);
+  if (kv_bits == 8)
+    return launch_dtype<8>(q, pk, pv, ks, vs, table, o, C, H, Hkv, D, blk,
+                           npages, base, chunk_len, sm_scale, dtype, st);
+  if (kv_bits == 4)
+    return launch_dtype<4>(q, pk, pv, ks, vs, table, o, C, H, Hkv, D, blk,
+                           npages, base, chunk_len, sm_scale, dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,11 +6,12 @@ plain ``dataclasses`` by ``runtime/config_utils.py``: unknown keys are
 rejected, a ``None`` value means "use the default", and a value of the
 wrong type raises ``ValueError``.
 
-Blocks the first slice of the port does not run (``quant``,
-``tensor_parallel`` beyond one device, ``moe``, ``observability``,
-``checkpoint``, ``serving.mesh`` beyond 1x1, ``serving.host_cache``,
-``serving.fleet``, quantized KV) parse here and are refused with
-``NotImplementedError`` by the engines that would run them.
+Blocks the slices of the port so far do not run (``tensor_parallel``
+beyond one device, ``moe``, ``observability``, ``checkpoint``,
+``serving.mesh`` beyond 1x1, ``serving.host_cache``, ``serving.fleet``)
+parse here and are refused with ``NotImplementedError`` by the engines
+that would run them.  ``quant`` (int8 weights) and
+``serving.kv_cache_bits`` (int8 or packed-int4 KV pools) run.
 """
 from __future__ import annotations
 

@@ -11,6 +11,15 @@ kernel injection
 JAX engine compiles two programs, this one runs eagerly: the prompt
 forward plus first sample is timed as TTFT, the remaining steps as
 decode latency, both ending in a device synchronise.
+
+``quant.enabled`` serves int8 weights (the JAX engine's "group" mode):
+every matrix leaf in scope becomes int8 values and f32 group scales, the
+stacked ``blocks`` quantized one layer at a time; ``forward()``,
+``generate()`` and the server take the model's params through
+``_model_params``, and the model dequantizes one layer at a time through
+its ``block_transform`` seam.  As in the JAX engine, scope is decided by
+the rank of the stacked leaf, so each layer's biases and norm scales
+(``[L, d]``) are quantized too.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from ..accelerator import resolve_device
 from ..models.convert import check_params, leaf_to_torch, tree_map
 from ..models.transformer import TransformerLM
+from ..ops.quantizer.quantizer import dequantize, quantize
 from ..utils.logging import logger
 from .config import DeepSpeedInferenceConfig
 from .sampling import sample_batch
@@ -32,8 +42,6 @@ from .sampling import sample_batch
 def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
     """Config blocks this slice of the port cannot run."""
     later = []
-    if cfg.quant.enabled:
-        later.append("quant.enabled (int8 weight-only serving)")
     if cfg.tensor_parallel.enabled and cfg.tensor_parallel.tp_size > 1:
         later.append("tensor_parallel.tp_size > 1 (multi-device)")
     if cfg.moe.enabled:
@@ -44,8 +52,39 @@ def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
         later.append("checkpoint (checkpoint loading)")
     if later:
         raise NotImplementedError(
-            f"{', '.join(later)}: not in the first slice of the PyTorch "
-            f"port; see ROADMAP.md queue A for the slice that brings it")
+            f"{', '.join(later)}: not in the slices of the PyTorch port so "
+            f"far; see ROADMAP.md queue A for the slice that brings it")
+
+
+def _map_with_path(tree, fn, path=()):
+    """``fn(path, leaf)`` over a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(v, fn, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _zip_map(fn, tree, *rest):
+    """``fn(leaf, *leaves)`` over nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _groups(shape) -> int:
+    """Quantization groups of a leaf: the largest divisor of its element
+    count at or under count / 2048 (the JAX engine's ``g_of``)."""
+    n = int(np.prod(shape))
+    for g in range(max(1, n // 2048), 0, -1):
+        if n % g == 0:
+            return g
+    return 1
+
+
+#: roots that keep full precision unless quant.quantize_embeddings
+_QUANT_SKIP_ROOTS = ("embed", "pos_embed", "type_embed", "lm_head",
+                     "mlm_head")
 
 
 class InferenceEngine:
@@ -78,6 +117,12 @@ class InferenceEngine:
             g = torch.Generator(device=self.device)
             g.manual_seed(0)
             self.params = model.init(g, self.device, self.dtype)
+        # int8 weight-only serving: int8 leaves in self.params, f32
+        # scales in the parallel tree self._scales
+        self._quantized = False
+        self._scales = None
+        if self.config.quant.enabled:
+            self._quantize_weights()
         self._latencies: list = []      # per-token DECODE-only seconds
         self._ttfts: list = []          # prefill -> first-token seconds
         self._serving = None
@@ -87,6 +132,86 @@ class InferenceEngine:
         if t.is_floating_point():
             t = t.to(self.dtype)
         return t.to(self.device)
+
+    # ------------------------------------------------------------------
+    # int8 weight-only
+    # ------------------------------------------------------------------
+    def _quantize_weights(self) -> None:
+        """Matrix leaves to int8 + f32 group scales, kept as parallel
+        trees.  A stacked ``blocks`` leaf ``[L, ...]`` quantizes per layer
+        (``[L, G, n / G]`` values, ``[L, G, 1]`` scales), so the model
+        dequantizes one layer at a time through ``block_transform``.  A
+        leaf out of scope keeps its tensor and an empty ``[(L,) 0, 1]``
+        scale, as in the JAX engine."""
+        bits = self.config.quant.bits or 8
+        skip = (() if self.config.quant.quantize_embeddings
+                else _QUANT_SKIP_ROOTS)
+
+        def flag(path, l):
+            return (l.dim() >= 2 and l.is_floating_point()
+                    and path[0] not in skip)
+        self._qflags = _map_with_path(self.params, flag)
+        # logical matrix shape per leaf: a block leaf's per-layer slice
+        self._qshapes = _map_with_path(
+            self.params, lambda p, l: tuple(l.shape[1:] if p[0] == "blocks"
+                                            else l.shape))
+
+        def one(l, shape):
+            q, s, _ = quantize(l, bits, _groups(shape), True)
+            return q.to(torch.int8), s
+
+        def qz(path, l):
+            flagged = flag(path, l)
+            if path[0] != "blocks":
+                if not flagged:
+                    return l, l.new_zeros((0, 1), dtype=torch.float32)
+                return one(l, tuple(l.shape))
+            n = l.shape[0]
+            if not flagged:
+                return l, l.new_zeros((n, 0, 1), dtype=torch.float32)
+            g = _groups(l.shape[1:])
+            q = torch.empty((n, g, l[0].numel() // g), dtype=torch.int8,
+                            device=l.device)
+            s = torch.empty((n, g, 1), dtype=torch.float32, device=l.device)
+            for i in range(n):
+                q[i], s[i] = one(l[i], tuple(l.shape[1:]))
+            return q, s
+        pairs = _map_with_path(self.params, qz)
+        self.params = _zip_map(lambda t: t[0], pairs)
+        self._scales = _zip_map(lambda t: t[1], pairs)
+        self._quantized = True
+        self.module.block_transform = self._block_dequant
+        q_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(self.params))
+        logger.info(f"int8 weight-only serving: params now "
+                    f"{q_bytes / 2**20:.1f} MiB on device (bits={bits})")
+
+    def _dequant_leaf(self, q, s, flagged, shape):
+        if not flagged:
+            return q
+        return dequantize(q, s, None, shape, self.dtype)
+
+    def _block_dequant(self, sl):
+        """The model's ``block_transform``: one layer's ``{q, s}`` view to
+        the standard block tree in the engine's dtype (full precision
+        lives for one layer)."""
+        return _zip_map(self._dequant_leaf, sl["q"], sl["s"],
+                        self._qflags["blocks"], self._qshapes["blocks"])
+
+    def _model_params(self, params=None, scales=None):
+        """The params tree the model takes: as stored when unquantized;
+        else non-block leaves dequantized here (none in the default
+        scope) and the int8 blocks passed on as ``{q, s}`` for the
+        per-layer seam."""
+        params = self.params if params is None else params
+        if not self._quantized:
+            return params
+        scales = self._scales if scales is None else scales
+        out = {k: _zip_map(self._dequant_leaf, v, scales[k],
+                           self._qflags[k], self._qshapes[k])
+               for k, v in params.items() if k != "blocks"}
+        out["blocks"] = {"q": params["blocks"], "s": scales["blocks"]}
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -99,7 +224,7 @@ class InferenceEngine:
         on a block-sparse model)."""
         ids = (input_ids if isinstance(input_ids, torch.Tensor)
                else torch.as_tensor(np.asarray(input_ids)))
-        return self.module.apply(self.params,
+        return self.module.apply(self._model_params(),
                                  ids.to(self.device, torch.int64))
 
     __call__ = forward
@@ -112,7 +237,8 @@ class InferenceEngine:
         the true length, f32 logits of the last true position)."""
         cache = self.module.init_cache(ids.shape[0], cache_len,
                                        dtype=self.dtype, device=self.device)
-        logits, cache = self.module.apply(self.params, ids, cache=cache)
+        logits, cache = self.module.apply(self._model_params(), ids,
+                                          cache=cache)
         # bucketing: rows past the true length hold padding; resetting the
         # index lets decode overwrite them, and no kernel reads past it
         cache["index"] = true_len
@@ -172,8 +298,9 @@ class InferenceEngine:
         self._sync()
         t1 = time.perf_counter()
         toks = [tok]
+        params = self._model_params()
         for j in range(1, max_new_tokens):
-            logits, cache = self.module.apply(self.params, tok[:, None],
+            logits, cache = self.module.apply(params, tok[:, None],
                                               cache=cache)
             nxt = sample(logits[:, -1], j)
             if eos_token_id is not None:
@@ -226,3 +353,11 @@ class InferenceEngine:
             from .serving.engine import ServingEngine
             self._serving = ServingEngine(self, seed=seed)
         return self._serving
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -35,8 +35,8 @@ Invariants (``assert_consistent`` checks them, tests fuzz them):
 
 Copy of ``deepspeed_tpu/inference/serving/block_allocator.py`` for the
 PyTorch port, without the tiered host cache (spill/promote), the
-fault-injection sites, copy-on-write ``fork`` and the capacity-planning
-helpers, which belong to later slices.
+fault-injection sites and copy-on-write ``fork``, which belong to later
+slices; the capacity-planning helpers take one model shard.
 """
 from __future__ import annotations
 
@@ -50,6 +50,51 @@ NULL_BLOCK = 0
 
 #: chain root: the "hash" of the empty prefix
 ROOT_HASH = b""
+
+#: bytes of each per-row per-head dequant scale (f32) stored alongside
+#: a quantized pool block
+_SCALE_BYTES = 4
+
+
+def kv_block_bytes(block_size: int, kv_heads: int, head_dim: int,
+                   kv_bits: int = 0, cache_itemsize: int = 2,
+                   model_shards: int = 1) -> int:
+    """Device bytes one pool block costs across k AND v, including the
+    per-row per-head f32 scales a quantized pool stores alongside
+    (``serving.kv_cache_bits``).  ``cache_itemsize`` is the unquantized
+    pool's dtype width (2 = bf16).  Pure ints: the capacity-planning
+    mirror of ``TransformerLM.init_paged_cache``.  ``model_shards`` > 1
+    (a model-sharded serving mesh) is the multi-device slice's."""
+    if kv_bits not in (0, 4, 8):
+        raise ValueError(f"kv_bits must be 0, 4 or 8, got {kv_bits}")
+    if model_shards < 1 or kv_heads % model_shards:
+        raise ValueError(
+            f"model_shards ({model_shards}) must be >= 1 and divide "
+            f"kv_heads ({kv_heads})")
+    if model_shards > 1:
+        raise NotImplementedError(
+            f"model_shards={model_shards}: a model-sharded serving mesh is "
+            f"not in the slices of the PyTorch port so far (ROADMAP.md "
+            f"queue A item 7)")
+    if kv_bits == 0:
+        per_row = kv_heads * head_dim * cache_itemsize
+    else:
+        values = kv_heads * ((head_dim * kv_bits + 7) // 8)
+        per_row = values + kv_heads * _SCALE_BYTES
+    return 2 * block_size * per_row          # k + v
+
+
+def blocks_for_budget(budget_bytes: int, block_size: int, kv_heads: int,
+                      head_dim: int, kv_bits: int = 0,
+                      cache_itemsize: int = 2,
+                      model_shards: int = 1) -> int:
+    """Pool blocks (INCLUDING the reserved null block 0) a device memory
+    budget admits at the given KV width: the same budget holds ~2x the
+    blocks at 8-bit and ~3.8x at packed 4-bit."""
+    return budget_bytes // kv_block_bytes(block_size, kv_heads, head_dim,
+                                          kv_bits, cache_itemsize,
+                                          model_shards)
+
 
 class BlockPoolError(ServingError):
     """Allocator invariant violation (double free, exhaustion, unknown

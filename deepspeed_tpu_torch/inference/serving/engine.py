@@ -5,7 +5,10 @@ Counterpart of the core of ``deepspeed_tpu/inference/serving/engine.py``:
 block tables (preempting under KV pressure), admits, and dispatches the
 mixed step: one decode token for every live slot plus up to
 ``prefill_chunk_tokens`` of one prompt chunk, through the model's
-``_apply_paged_mixed`` (kernels B6 and B7 over the paged pool).  Sampling
+``_apply_paged_mixed`` (kernels B6 and B7 over the paged pool, which
+``serving.kv_cache_bits`` 8 or 4 stores as int8 or packed int4 with f32
+scales beside it; with ``quant.enabled`` the step takes the engine's
+int8 weights through ``_model_params``).  Sampling
 is per request and per output index (``inference/sampling.py``), so a
 stream is reproducible across batch composition and preemption and,
 greedy, token-identical to ``generate()``.  A slot whose logits turn
@@ -37,19 +40,19 @@ from .scheduler import (ContinuousBatchingScheduler, Request, RequestStatus,
 
 def _refuse_out_of_slice(cfg) -> None:
     later = []
-    if cfg.kv_cache_bits:
-        later.append(f"serving.kv_cache_bits={cfg.kv_cache_bits} "
-                     f"(quantized KV pools)")
     if cfg.mesh.data != 1 or cfg.mesh.model != 1:
-        later.append("serving.mesh beyond 1x1 (multi-device serving)")
+        later.append("serving.mesh beyond 1x1 (multi-device serving, "
+                     "ROADMAP.md queue A item 7)")
     if cfg.host_cache.enabled:
-        later.append("serving.host_cache (tiered host prefix cache)")
+        later.append("serving.host_cache (the tiered host prefix cache "
+                     "and its KV wire codec, ROADMAP.md queue A item 4)")
     if cfg.fleet.enabled:
-        later.append("serving.fleet (replica fleet)")
+        later.append("serving.fleet (replica fleet, ROADMAP.md queue A "
+                     "item 4)")
     if later:
         raise NotImplementedError(
-            f"{', '.join(later)}: not in the first slice of the PyTorch "
-            f"port; see ROADMAP.md queue A for the slice that brings it")
+            f"{', '.join(later)}: not in the slices of the PyTorch port so "
+            f"far")
 
 
 class ServingEngine:
@@ -93,16 +96,22 @@ class ServingEngine:
         self.no_progress_steps = cfg.no_progress_steps
         self.default_deadline_s = cfg.default_deadline_s
         self._no_progress = 0
+        #: KV-cache width: 0 = engine dtype, 8 = int8, 4 = packed int4
+        self.kv_bits = cfg.kv_cache_bits
         pools = model.init_paged_cache(cfg.num_kv_blocks, self.block_size,
                                        dtype=engine.dtype,
+                                       kv_bits=self.kv_bits,
                                        device=self.device)
         self._pool_k, self._pool_v = pools["k"], pools["v"]
+        self._pool_ks = pools.get("k_scale")
+        self._pool_vs = pools.get("v_scale")
         logger.info(
             f"serving: paged KV pool {cfg.num_kv_blocks} x "
             f"{self.block_size}-token blocks "
-            f"({self.kv_pool_bytes / 2**20:.1f} MiB), {self.num_slots} "
-            f"decode slots, {self.max_pages} pages/seq, prefill chunk "
-            f"{self.chunk_tokens} tokens, prefix cache "
+            f"({self.kv_pool_bytes / 2**20:.1f} MiB"
+            f"{f', int{self.kv_bits} + f32 scales' if self.kv_bits else ''}"
+            f"), {self.num_slots} decode slots, {self.max_pages} pages/seq, "
+            f"prefill chunk {self.chunk_tokens} tokens, prefix cache "
             f"{'on' if cfg.prefix_cache else 'off'}")
         self.temperature = engine.config.temperature
         self.top_k = engine.config.top_k
@@ -122,8 +131,12 @@ class ServingEngine:
 
     @property
     def kv_pool_bytes(self) -> int:
-        return (self._pool_k.numel() * self._pool_k.element_size()
-                + self._pool_v.numel() * self._pool_v.element_size())
+        """Device memory held by the paged KV pool: values plus the
+        dequant scale planes when quantized."""
+        pools = [self._pool_k, self._pool_v]
+        if self._pool_ks is not None:
+            pools += [self._pool_ks, self._pool_vs]
+        return sum(t.numel() * t.element_size() for t in pools)
 
     # ------------------------------------------------------------------
     # request intake
@@ -253,10 +266,12 @@ class ServingEngine:
             chunk_ids = np.asarray(req.prefix[c_start:c_start + c_len],
                                    np.int32)
         cache = {"k": self._pool_k, "v": self._pool_v,
+                 "k_scale": self._pool_ks, "v_scale": self._pool_vs,
                  "block_tables": torch.from_numpy(tables).to(dev),
                  "lens": torch.from_numpy(lens).to(dev)}
         dec_logits, chunk_logits, _ = self.model._apply_paged_mixed(
-            self.engine.params, cache, torch.from_numpy(dec_tokens).to(dev),
+            self.engine._model_params(), cache,
+            torch.from_numpy(dec_tokens).to(dev),
             torch.from_numpy(dec_active).to(dev),
             torch.from_numpy(chunk_ids).to(dev), c_slot, c_start, c_len)
         self.counts["dispatches"] += 1

@@ -38,8 +38,14 @@ such a model (its kernels do not apply the layout).
 
 Caches are updated IN PLACE (JAX returns new arrays): ``apply`` writes
 the new rows into the dense cache tensors it was given, and the paged
-mixed step scatters every new k/v row into the pool tensors it was given
-before the attention kernels read them.
+mixed step scatters every new k/v row (encoded with ``kv_quantize`` into
+values and scales for an int8 or packed-int4 pool) into the pool tensors
+it was given before the attention kernels read them.
+
+``block_transform`` (default the identity) is applied to each layer's
+view of ``params["blocks"]`` in every layer loop: the seam through which
+the int8 weight-only engine hands the model quantized blocks and
+dequantizes one layer at a time, as the JAX model's scan body does.
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from ..accelerator import resolve_device
 from ..ops.transformer.decode_attention import decode_attention
 from ..ops.transformer.flash_attention import flash_attention_bthd
 from ..ops.transformer.fused_loss import fused_linear_xent
+from ..ops.quantizer.quantizer import kv_quantize
 from ..ops.transformer.paged_decode_attention import (
     paged_decode_attention, paged_prefill_attention)
 from ..ops.sparse_attention.blocksparse_flash import (
@@ -237,6 +244,9 @@ class TransformerLM(nn.Module):
                                                torch.Tensor]] = {}
         # the block-sparse layout at the training context, per device
         self._layout: Dict[torch.device, torch.Tensor] = {}
+        # per-layer params hook: one layer's view of params["blocks"] to
+        # the standard block tree (int8 serving dequantizes here)
+        self.block_transform = lambda bp: bp
 
     # -- parameters ---------------------------------------------------------
     def param_shapes(self) -> Params:
@@ -432,6 +442,7 @@ class TransformerLM(nn.Module):
             sparse = self._sparse_mask(idx, t, cache["k"].shape[2],
                                        input_ids.device)[..., :idx + t]
         for i, bp in enumerate(layer_views(params["blocks"])):
+            bp = self.block_transform(bp)
             ck, cv = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, ck=ck, cv=cv):
@@ -554,8 +565,8 @@ class TransformerLM(nn.Module):
         t = input_ids.shape[1]
         pos = torch.arange(t, device=input_ids.device)[None]
         x = self._embed(params, input_ids, pos)
-        block = self._remat(
-            lambda bp, x: self._block(bp, x, self._attend_full))
+        block = self._remat(lambda bp, x: self._block(
+            self.block_transform(bp), x, self._attend_full))
         for bp in layer_views(params["blocks"]):
             x = block(bp, x)
         return self._norm(params["ln_f"], x)
@@ -668,19 +679,41 @@ class TransformerLM(nn.Module):
                          kv_bits: int = 0, device=None) -> Dict[str, Any]:
         """Per-layer paged KV pools ``[L, num_blocks, block_size, kv_heads,
         head_dim]`` on ``device`` (default the card; raises without one).
-        Block 0 is the allocator's reserved null block."""
+        Block 0 is the allocator's reserved null block.  ``kv_bits`` 8 or 4
+        stores the pools compressed: int8 at head_dim (8-bit) or packed
+        nibbles at head_dim / 2 (4-bit), with per-row per-head f32 scales
+        ``k_scale``/``v_scale`` ``[L, num_blocks, block_size, kv_heads]``
+        that the attention kernels fold into their loads."""
+        c = self.config
         if kv_bits not in (0, 4, 8):
             raise ValueError(f"kv_bits must be 0, 4 or 8, got {kv_bits}")
-        if kv_bits:
-            raise NotImplementedError(
-                f"kv_bits={kv_bits} (quantized KV pools) is a later slice "
-                f"of the port")
-        c = self.config
-        shape = (c.num_layers, num_blocks, block_size, c.kv_heads, c.hdim)
+        if kv_bits == 4 and c.hdim % 2:
+            raise ValueError(
+                f"packed int4 KV needs an even head_dim, got {c.hdim}")
         dtype = dtype or c.dtype
         device = resolve_device(device)
+        if kv_bits:
+            d_eff = c.hdim if kv_bits == 8 else c.hdim // 2
+            shape = (c.num_layers, num_blocks, block_size, c.kv_heads,
+                     d_eff)
+            zeros = torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": zeros, "v_scale": zeros.clone()}
+        shape = (c.num_layers, num_blocks, block_size, c.kv_heads, c.hdim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    @staticmethod
+    def _paged_kv_bits(pool_k: torch.Tensor,
+                       k_scale: Optional[torch.Tensor], hd: int) -> int:
+        """The pool's kv-cache width from its shape: 0 when unquantized,
+        else 8 (int8 at full head_dim) or 4 (packed nibbles at head_dim /
+        2)."""
+        if k_scale is None:
+            return 0
+        return 8 if pool_k.shape[-1] == hd else 4
 
     def _apply_paged_mixed(self, params: Params, cache: Dict[str, Any],
                            dec_tokens: torch.Tensor,
@@ -696,17 +729,21 @@ class TransformerLM(nn.Module):
         ``chunk_len`` are padding).
 
         ``cache``: {"k"/"v": pools, "block_tables": ``[S, pages]`` int32,
-        "lens": ``[S]`` int32 rows already in the pool} for all S slots.
-        Every new k/v row is scattered into the pools in place in one
-        combined write per layer (decode rows at ``table[len // blk]``,
-        chunk rows at ``base + i`` of the chunk slot's table, inactive and
-        padded rows to the null block 0); then kernel B6 attends for the
+        "lens": ``[S]`` int32 rows already in the pool, and with a
+        quantized pool "k_scale"/"v_scale"} for all S slots.  Every new
+        k/v row is scattered into the pools in place in one combined write
+        per layer (decode rows at ``table[len // blk]``, chunk rows at
+        ``base + i`` of the chunk slot's table, inactive and padded rows to
+        the null block 0), encoded with ``kv_quantize`` into values and
+        scales when the pool is quantized; then kernel B6 attends for the
         decode slots and kernel B7 for the chunk.  A lane of width 0 runs
         no kernel.  Returns ``(dec_logits [B, V], chunk_logits [V] at the
         chunk's last valid row or None when C is 0, cache with the new
         lens)``."""
         c = self.config
         pool_k, pool_v = cache["k"], cache["v"]
+        pool_ks, pool_vs = cache.get("k_scale"), cache.get("v_scale")
+        kv_bits = self._paged_kv_bits(pool_k, pool_ks, c.hdim)
         tables, lens = cache["block_tables"], cache["lens"]
         dev = dec_tokens.device
         bsl, nc = dec_tokens.shape[0], chunk_ids.shape[0]
@@ -738,21 +775,31 @@ class TransformerLM(nn.Module):
 
         for i, bp in enumerate(layer_views(params["blocks"])):
             pk, pv = pool_k[i], pool_v[i]
+            ks = vs = None
+            if kv_bits:
+                ks, vs = pool_ks[i], pool_vs[i]
 
-            def attend(q, k, v, pk=pk, pv=pv):
-                flat = (nb * blk,) + tuple(pk.shape[2:])
-                pk.view(flat).index_copy_(0, write, k[0])
-                pv.view(flat).index_copy_(0, write, v[0])
+            def attend(q, k, v, pk=pk, pv=pv, ks=ks, vs=vs):
+                new = [(pk, k[0]), (pv, v[0])]
+                if kv_bits:
+                    (kq, kscale), (vq, vscale) = (kv_quantize(k[0], kv_bits),
+                                                  kv_quantize(v[0], kv_bits))
+                    new = [(pk, kq), (pv, vq), (ks, kscale), (vs, vscale)]
+                for pool, rows in new:
+                    pool.view((nb * blk,) + tuple(pool.shape[2:])).index_copy_(
+                        0, write, rows)
+                quant = dict(k_scale=ks, v_scale=vs, kv_bits=kv_bits)
                 parts = []
                 if bsl:
                     parts.append(paged_decode_attention(
-                        q[0, :bsl].contiguous(), pk, pv, dec_lens, dtables))
+                        q[0, :bsl].contiguous(), pk, pv, dec_lens, dtables,
+                        **quant))
                 if nc:
                     parts.append(paged_prefill_attention(
                         q[0, bsl:].contiguous(), pk, pv, chunk_start,
-                        chunk_len, ctable))
+                        chunk_len, ctable, **quant))
                 return torch.cat(parts).reshape(1, t, -1)
-            x = self._block(bp, x, attend, positions)
+            x = self._block(self.block_transform(bp), x, attend, positions)
         x = self._norm(params["ln_f"], x)
         rows = [x[0, :bsl]]
         if nc:
@@ -765,4 +812,6 @@ class TransformerLM(nn.Module):
             new_lens[chunk_slot] += chunk_len
         new_cache = {"k": pool_k, "v": pool_v, "block_tables": tables,
                      "lens": new_lens}
+        if kv_bits:
+            new_cache["k_scale"], new_cache["v_scale"] = pool_ks, pool_vs
         return logits[:bsl], (logits[bsl] if nc else None), new_cache

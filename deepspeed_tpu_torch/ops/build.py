@@ -10,7 +10,8 @@ A failed build raises; nothing falls back.
 
 ``launch_counts`` holds one plain integer per kernel: each wrapper adds
 one where it launches its kernel, so a run can show which kernels its
-path went through.
+path went through.  The quantized variants of B6 and B7 (int8 and packed
+int4 pools) are counted under keys of their own (``COUNTERS``).
 """
 from __future__ import annotations
 
@@ -36,11 +37,19 @@ KERNELS = ("decode_attention", "paged_decode_attention",
            "flash_attention_bwd_dkv", "blocksparse_flash_fwd",
            "blocksparse_flash_bwd_dq", "blocksparse_flash_bwd_dkv")
 
+#: the kernels with quantized-pool variants, and the kv_bits they take
+QUANT_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+QUANT_BITS = (8, 4)
+
+#: every launch counter: one per kernel, one per quantized variant
+COUNTERS = KERNELS + tuple(f"{name}_int{bits}" for name in QUANT_KERNELS
+                           for bits in QUANT_BITS)
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last reset (see reset_launch_counts)
-launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+launch_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -48,6 +57,11 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def counter(kernel: str, kv_bits: int = 0) -> str:
+    """The launch counter of ``kernel`` over a pool of ``kv_bits``."""
+    return f"{kernel}_int{kv_bits}" if kv_bits else kernel
 
 
 def nvcc_path() -> str:

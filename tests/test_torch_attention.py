@@ -1,11 +1,13 @@
-"""The port's attention kernels (B5, B6, B7) against the JAX package's
-Pallas kernels.
+"""The port's attention kernels (B5, B6, B7; B6 and B7 also over int8 and
+packed-int4 pools) against the JAX package's Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version (the tensors
 lie on the CPU); the JAX kernels run in interpret mode, as the JAX
 package's own serving suite runs them.  Inputs are made with numpy from a
 seed and handed to both; float32 throughout, compared at atol = rtol =
-1e-5 (both sides accumulate in f32; only the summation order differs).
+1e-5 (both sides accumulate in f32; only the summation order differs),
+quantized pools at 3e-5 as the JAX package's own sweep holds its
+kernels against its references.
 The CUDA kernels themselves are held against these plain versions on
 the card by ``tests/test_torch_cuda.py``.
 """
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.ops.quantizer import kv_quantize as jax_kv_quantize
 from deepspeed_tpu.ops.transformer.decode_attention import (
     decode_attention as jax_decode)
 from deepspeed_tpu.ops.transformer.paged_decode_attention import (
@@ -23,6 +26,7 @@ from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
 from deepspeed_tpu_torch.ops.transformer import paged_decode_attention as PA
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+QTOL = dict(atol=3e-5, rtol=0)
 
 
 def _np(x):
@@ -130,6 +134,98 @@ def test_paged_prefill_matches_jax(base, chunk_len, c, h, hkv):
         assert (got == 0).all()
 
 
+# -- B6/B7 over int8 and packed-int4 pools -----------------------------------
+def quantized(pk, pv, bits):
+    """JAX's ``kv_quantize`` of both pools (NaN rows quantize to zero
+    values and NaN scales) as numpy: the same bytes go to both sides."""
+    kq, ks = jax_kv_quantize(jnp.asarray(pk), bits)
+    vq, vs = jax_kv_quantize(jnp.asarray(pv), bits)
+    return tuple(np.array(a) for a in (kq, vq, ks, vs))
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("h,hkv,d", [(8, 2, 32), (4, 4, 16)])
+def test_paged_decode_quantized_matches_jax(kv_bits, h, hkv, d):
+    """JAX's sweep shape (lengths 3, 0, 37, 5, 17; 8-row blocks; GQA 8
+    over 2 heads, D 32) and MHA: NaN in every unread row, so NaN scales
+    past every length and in a NaN block of a table; the inactive slot
+    stays zero."""
+    rng = np.random.default_rng(kv_bits + h)
+    lens = [3, 0, 37, 5, 17]
+    bs, nb, npages = 8, 24, 6
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables(lens, bs, npages, nb, rng, pk, pv)
+    kq, vq, ks, vs = quantized(pk, pv, kv_bits)
+    assert np.isnan(ks).any()
+    q = rng.standard_normal((len(lens), h, d)).astype(np.float32)
+    ln = np.asarray(lens, np.int32)
+    want = _np(jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(ln),
+        jnp.asarray(bt), interpret=True, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), kv_bits=kv_bits))
+    t = torch.from_numpy
+    got = PA.paged_decode_attention(
+        t(q), t(kq), t(vq), t(ln), t(bt), k_scale=t(ks), v_scale=t(vs),
+        kv_bits=kv_bits).numpy()
+    assert np.isfinite(got).all() and (got[1] == 0).all()
+    np.testing.assert_allclose(got, want, **QTOL)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("base,chunk_len,c,h,hkv", [
+    (13, 11, 16, 8, 2),     # JAX's sweep case: prior context, GQA
+    (0, 8, 8, 4, 4),        # first chunk
+    (5, 3, 8, 4, 4),        # padded query rows
+    (0, 0, 8, 4, 2),        # zero-length chunk: all-zero rows
+])
+def test_paged_prefill_quantized_matches_jax(kv_bits, base, chunk_len, c, h,
+                                             hkv):
+    rng = np.random.default_rng(kv_bits + base + chunk_len)
+    bs, nb, d = 4, 24, 32
+    total = base + chunk_len
+    npages = max(1, -(-total // bs)) + 1
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables([total], bs, npages, nb, rng, pk, pv)[0]
+    kq, vq, ks, vs = quantized(pk, pv, kv_bits)
+    q = rng.standard_normal((c, h, d)).astype(np.float32)
+    want = _np(jax_paged_prefill(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), base, chunk_len,
+        jnp.asarray(bt), interpret=True, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), kv_bits=kv_bits))
+    t = torch.from_numpy
+    got = PA.paged_prefill_attention(
+        t(q), t(kq), t(vq), base, chunk_len, t(bt), k_scale=t(ks),
+        v_scale=t(vs), kv_bits=kv_bits).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **QTOL)
+    if total == 0:
+        assert (got == 0).all()
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_quantized_single_row_is_the_dequantized_row(kv_bits):
+    """JAX's ``test_kernel_dequant_matches_kv_dequantize_exactly``: one
+    fully attended row comes back as the dequantized v row, in the port
+    and in JAX's kernel."""
+    from deepspeed_tpu_torch.ops.quantizer import kv_dequantize
+    rng = np.random.default_rng(kv_bits)
+    pk, pv = make_pool(4, 4, 2, 16, rng)
+    kq, vq, ks, vs = quantized(pk, pv, kv_bits)
+    q = rng.standard_normal((1, 2, 16)).astype(np.float32)
+    bt = np.array([[3]], np.int32)
+    t = torch.from_numpy
+    got = PA.paged_decode_attention(
+        t(q), t(kq), t(vq), torch.ones(1, dtype=torch.int32), t(bt),
+        k_scale=t(ks), v_scale=t(vs), kv_bits=kv_bits).numpy()
+    want = kv_dequantize(t(vq)[3, 0], t(vs)[3, 0], kv_bits).numpy()
+    np.testing.assert_array_equal(got[0], want)
+    jgot = _np(jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.ones(1, jnp.int32), jnp.asarray(bt), interpret=True,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), kv_bits=kv_bits))
+    np.testing.assert_allclose(got, jgot, atol=1e-6, rtol=0)
+
+
 # -- wrapper errors -----------------------------------------------------------
 def _paged_args(h=4, hkv=4, d=16):
     rng = np.random.default_rng(0)
@@ -148,12 +244,15 @@ def _paged_args(h=4, hkv=4, d=16):
     ("paged_pool_shapes_differ", ValueError),
     ("paged_lengths_int64", TypeError),
     ("paged_tables_wrong_rows", ValueError),
-    ("paged_int8_pool", NotImplementedError),
+    ("paged_int8_pool", ValueError),
+    ("paged_scales_at_kv_bits_0", ValueError),
+    ("paged_scale_shape", ValueError),
     ("paged_bad_kv_bits", ValueError),
     ("prefill_table_2d", ValueError),
 ])
 def test_wrapper_errors(case, exc):
     q, pk, pv, ln, bt = _paged_args()
+    scale = torch.ones(pk.shape[:3])
     k = torch.zeros(2, 6, 4, 16)
     calls = {
         "decode_bad_rank": lambda: DA.decode_attention(q[0], k, k, 1),
@@ -168,8 +267,14 @@ def test_wrapper_errors(case, exc):
             q, pk, pv, ln.long(), bt),
         "paged_tables_wrong_rows": lambda: PA.paged_decode_attention(
             q, pk, pv, ln, bt[:1]),
+        # an int8 pool without scales
         "paged_int8_pool": lambda: PA.paged_decode_attention(
-            q, pk, pv, ln, bt, kv_bits=8),
+            q, pk.to(torch.int8), pv.to(torch.int8), ln, bt, kv_bits=8),
+        "paged_scales_at_kv_bits_0": lambda: PA.paged_decode_attention(
+            q, pk, pv, ln, bt, k_scale=scale, v_scale=scale),
+        "paged_scale_shape": lambda: PA.paged_decode_attention(
+            q, pk.to(torch.int8), pv.to(torch.int8), ln, bt,
+            k_scale=scale, v_scale=scale[:, :2], kv_bits=8),
         "paged_bad_kv_bits": lambda: PA.paged_decode_attention(
             q, pk, pv, ln, bt, kv_bits=3),
         "prefill_table_2d": lambda: PA.paged_prefill_attention(

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (B1 to B10) against their plain PyTorch
-versions, and the f32 logits products, on the card.
+"""The port's CUDA kernels (B1 to B10, and the int8/int4 variants of B6
+and B7) against their plain PyTorch versions, the KV codec and the f32
+logits products, on the card.
 
 These tests need an NVIDIA card with ``nvcc`` (the kernels are built from
 ``deepspeed_tpu_torch/csrc`` at first use and have no CPU mode) and skip
@@ -8,6 +9,8 @@ installed::
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import blocksparse_flash as BS
 from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
 from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
 from deepspeed_tpu_torch.ops.transformer import fused_loss
+from deepspeed_tpu_torch.ops.quantizer import kv_dequantize, kv_quantize
 from deepspeed_tpu_torch.ops.transformer import paged_decode_attention as PA
 
 
@@ -254,3 +258,160 @@ def test_cuda_logits_are_f32_products_of_bf16_operands(site):
     torch.testing.assert_close(got, want, **tol)
     with pytest.raises(AssertionError):
         torch.testing.assert_close(torch.matmul(x, wb).float(), want, **tol)
+
+
+def quantized_pools(pk, pv, bits, dev):
+    """``kv_quantize`` of numpy pools on the CPU, moved to ``dev``: NaN
+    rows quantize to zero values and NaN scales, what a recycled block
+    holds after a quarantine."""
+    kq, ks = kv_quantize(torch.from_numpy(pk), bits)
+    vq, vs = kv_quantize(torch.from_numpy(pv), bits)
+    return tuple(x.to(dev) for x in (kq, vq, ks, vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,d", [(1, 128), (2, 64), (4, 128), (8, 64)])
+def test_cuda_quantized_paged_kernels_match_plain(kv_bits, dtype, g, d):
+    """B6 and B7 over int8 and packed-int4 pools on the card against their
+    plain versions (which dequantize with ``kv_dequantize``) on the same
+    inputs: query groups 1 to 8 over 2 kv heads, head dims 64 and 128,
+    ragged lengths and an inactive slot, NaN rows and NaN scales past
+    every length and in a NaN block of a table.  Both sides widen each
+    row to the same f32 values, so the tolerance is the unquantized
+    kernels': f32 1e-4; bf16 atol 4e-3, rtol 8e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    tol = (dict(atol=1e-4, rtol=1e-4) if dt == torch.float32
+           else dict(atol=4e-3, rtol=8e-3))
+    rng = np.random.default_rng(kv_bits + 10 * g + d)
+    hkv, h = 2, 2 * g
+    lens = [0, 37, 130, 5]
+    pk, pv = make_pool(64, 16, hkv, d, rng)
+    bt = make_tables(lens, 16, 10, 64, rng, pk, pv)
+    kq, vq, ks, vs = quantized_pools(pk, pv, kv_bits, dev)
+    assert bool(ks.isnan().any())            # NaN scales past the lengths
+    quant = dict(k_scale=ks, v_scale=vs, kv_bits=kv_bits)
+    q = torch.from_numpy(rng.standard_normal((4, h, d)).astype(
+        np.float32)).to(dev, dt)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = torch.from_numpy(bt).to(dev)
+    got = PA.paged_decode_attention(q, kq, vq, ln, tables, **quant)
+    want = PA.paged_decode_attention_plain(q, kq, vq, ln, tables, **quant)
+    assert bool(got.isfinite().all()) and not bool(got[0].any())
+    torch.testing.assert_close(got, want, **tol)
+    qc = torch.from_numpy(rng.standard_normal((40, h, d)).astype(
+        np.float32)).to(dev, dt)
+    table = tables[2].contiguous()
+    for base, clen in ((0, 40), (90, 40), (100, 17)):
+        got = PA.paged_prefill_attention(qc, kq, vq, base, clen, table,
+                                         **quant)
+        want = PA.paged_prefill_attention_plain(qc, kq, vq, base, clen,
+                                                table, **quant)
+        assert bool(got.isfinite().all())
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kv_quantize_is_bit_equal_to_cpu(kv_bits, dtype):
+    """The codec the serving step runs on the card gives the CPU's bits:
+    values equal, scales equal (NaN rows included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(kv_bits)
+    x = rng.standard_normal((64, 16, 4, 128)).astype(np.float32) * 3.0
+    x[5, 3] = np.nan
+    x[9, :, 1] = 0.0
+    xc = torch.from_numpy(x).to(getattr(torch, dtype))
+    q_c, s_c = kv_quantize(xc, kv_bits)
+    q_g, s_g = kv_quantize(xc.cuda(), kv_bits)
+    assert torch.equal(q_g.cpu(), q_c)
+    torch.testing.assert_close(s_g.cpu(), s_c, atol=0, rtol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quantized_single_row_is_the_dequantized_row(kv_bits, dtype):
+    """The in-kernel decode is ``kv_dequantize`` exactly: one fully
+    attended row comes back as the dequantized v row rounded to the
+    query's dtype, through B6 (a slot of length 1) and B7 (a chunk of
+    one token at base 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(3 + kv_bits)
+    pk, pv = make_pool(4, 8, 2, 64, rng)
+    kq, vq, ks, vs = quantized_pools(pk, pv, kv_bits, dev)
+    quant = dict(k_scale=ks, v_scale=vs, kv_bits=kv_bits)
+    table = torch.tensor([[2]], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 64)).astype(
+        np.float32)).to(dev, dt)
+    want = kv_dequantize(vq[2, 0], vs[2, 0], kv_bits)      # [Hkv, D]
+    want = want.repeat_interleave(2, dim=0).to(dt)         # [H, D]
+    got = PA.paged_decode_attention(
+        q, kq, vq, torch.ones(1, dtype=torch.int32, device=dev), table,
+        **quant)
+    assert torch.equal(got[0], want)
+    got = PA.paged_prefill_attention(q, kq, vq, 0, 1, table[0], **quant)
+    assert torch.equal(got[0], want)
+
+
+#: sha256 of the unquantized B6 and B7 outputs on ``unquantized_case``'s
+#: inputs, as the kernels of the parent commit ae98d66 gave them on an
+#: H100 80GB HBM3: the kv_bits 0 instantiations keep their bits
+UNQUANTIZED_DIGESTS = {
+    "B6 float32":
+        "87b0ab5a4424d43b41275e257ec639c19c4b80e705f2a94bab1bd06db9fab349",
+    "B7 float32":
+        "e2306372be539fd20801e3f86ad5be328c2347b54f0dd37900f6c3c6094ccacd",
+    "B6 bfloat16":
+        "f5ba97f5023b48d56cea0b066d022f576630f37b109bb8aec6a7f9b3c6405ac8",
+    "B7 bfloat16":
+        "533ef447e513e1b12b9a8343a1a22c382a5f82d6cf4caa90e533e93318abbe32",
+}
+
+
+def unquantized_digests():
+    """B6 and B7 at kv_bits 0 on fixed inputs (f32 and bf16, GQA 8 over 2
+    kv heads, D 128, ragged lengths with NaN past them): the sha256 of
+    each output's bytes."""
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(11)
+        lens = [0, 37, 130, 200]
+        pk, pv = make_pool(64, 16, 2, 128, rng)
+        bt = make_tables(lens, 16, 14, 64, rng, pk, pv)
+        q = rng.standard_normal((4, 8, 128)).astype(np.float32)
+        qc = rng.standard_normal((40, 8, 128)).astype(np.float32)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+        tables = torch.from_numpy(bt).to(dev)
+        b6 = PA.paged_decode_attention(
+            t(q), t(pk), t(pv),
+            torch.tensor(lens, dtype=torch.int32, device=dev), tables)
+        b7 = PA.paged_prefill_attention(t(qc), t(pk), t(pv), 160, 40,
+                                        tables[3].contiguous())
+        for name, o in (("B6", b6), ("B7", b7)):
+            raw = o.view(torch.int16 if dtype == torch.bfloat16
+                         else torch.int32).cpu().numpy().tobytes()
+            out[f"{name} {str(dtype)[6:]}"] = hashlib.sha256(raw).hexdigest()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_unquantized_paged_kernels_keep_their_bits():
+    """kv_bits is a template parameter of B6 and B7: their unquantized
+    instantiations give the parent commit's bits on fixed inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert unquantized_digests() == UNQUANTIZED_DIGESTS

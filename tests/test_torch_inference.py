@@ -9,7 +9,10 @@ CPU) against the JAX ``generate()`` (its XLA decode path, as the JAX
 serving suite pins its baseline), and the port's serving streams
 (kernels B6/B7's plain versions, chunked prefill, preemption) against
 both.  The tiny LLaMA (GQA 8/2, RMSNorm, SiLU gated MLP, untied head,
-no biases, rotate-half rotary) is held to the same exactness.
+no biases, rotate-half rotary) is held to the same exactness, and so are
+the server over an int8 KV pool (``serving.kv_cache_bits`` 8: int8
+error is far below the toy models' logit gaps, as the JAX suite pins)
+and the int8 weight-only engine (``quant.enabled``).
 """
 import dataclasses
 
@@ -25,7 +28,9 @@ from deepspeed_tpu.inference.config import \
     DeepSpeedInferenceConfig as JaxConfig
 from deepspeed_tpu.inference.sampling import sample_tokens_per_row
 from deepspeed_tpu.models import transformer as jax_tf
+from deepspeed_tpu.inference.serving import block_allocator as jax_alloc
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.inference.serving import block_allocator as alloc
 from deepspeed_tpu_torch.inference.sampling import (filter_logits,
                                                     sample_tokens)
 from deepspeed_tpu_torch.models import transformer as tt
@@ -286,7 +291,6 @@ def test_config_defaults_and_coercion_match_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"quant": {"enabled": True}},
     {"tensor_parallel": {"tp_size": 2}},
     {"moe": {"enabled": True}},
     {"observability": {}},
@@ -300,7 +304,6 @@ def test_out_of_slice_engine_options_raise(override):
 
 
 @pytest.mark.parametrize("serving", [
-    {"kv_cache_bits": 8},
     {"mesh": {"model": 2}},
     {"host_cache": {"enabled": True, "dram_budget_bytes": 1 << 20}},
     {"fleet": {"enabled": True}},
@@ -465,3 +468,176 @@ def test_blocksparse_generate_and_forward_match_jax():
         cur = np.concatenate([cur, out[:, t:t + 1].astype(np.int32)], 1)
     with pytest.raises(NotImplementedError, match="block-sparse layout"):
         peng.serving_engine()
+
+
+# -- quantized KV pools and int8 weights --------------------------------------
+#: JAX's kv8 pin: a 24-token prompt (3 full blocks) shared by a warm
+#: resubmission, and two more
+KV8_LENS, KV8_SEED, KV8_NEW = (24, 7, 13), 17, 6
+
+
+def _serve(eng, prompts, new):
+    """Drain ``prompts`` then resubmit the first (warm: it hits the
+    committed blocks): (streams, the resubmission's hit tokens, server)."""
+    srv = eng.serving_engine()
+    reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    srv.run(max_steps=300)
+    warm = srv.submit(prompts[0], max_new_tokens=new)
+    srv.run(max_steps=300)
+    return ([list(map(int, r.output)) for r in reqs + [warm]],
+            warm.cache_hit_tokens, srv)
+
+
+@pytest.fixture(scope="module")
+def kv8_oracles():
+    """The JAX servers' greedy kv8 streams (GPT-2 and LLaMA), run once."""
+    out = {}
+    for name, cfg, seed in (
+            ("gpt2", jax_tf.gpt2_config("125m", dtype=jnp.float32, **TINY),
+             7),
+            ("llama", jax_tf.TransformerConfig(dtype=jnp.float32, **LLAMA),
+             9)):
+        jm = jax_tf.TransformerLM(cfg)
+        jp = jax.device_get(jm.init(jax.random.PRNGKey(seed)))
+        jeng = ds.init_inference(jm, config={
+            **BASE, "replace_with_kernel_inject": False,
+            "serving": {**SERVING, "kv_cache_bits": 8}}, params=jp)
+        prompts = prompts_of(KV8_LENS, KV8_SEED)
+        out[name] = (jp, _serve(jeng, prompts, KV8_NEW)[:2])
+    return out
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_kv8_server_streams_match_generate_and_jax(kv8_oracles, family):
+    """``serving.kv_cache_bits`` 8 (int8 pools, f32 scales; kernels B6/B7's
+    plain versions dequantize the rows): greedy streams EXACTLY equal to
+    ``generate()`` on the dense f32 cache and to the JAX server's; the
+    warm resubmission reuses the quantized blocks (16 hit tokens: values
+    and scales ride the block ids) and still gives the same stream."""
+    jp, (jstreams, jhit) = kv8_oracles[family]
+    cfg = (tt.gpt2_config("125m", dtype=torch.float32, **TINY)
+           if family == "gpt2"
+           else tt.TransformerConfig(dtype=torch.float32, **LLAMA))
+    pm = tt.TransformerLM(cfg)
+    eng = dt.init_inference(pm, {**BASE, "serving": {
+        **SERVING, "kv_cache_bits": 8}}, params=params_from_jax(jp, pm),
+        device="cpu")
+    prompts = prompts_of(KV8_LENS, KV8_SEED)
+    streams, hit, srv = _serve(eng, prompts, KV8_NEW)
+    assert srv.kv_bits == 8 and srv._pool_k.dtype == torch.int8
+    assert srv._pool_ks.dtype == torch.float32
+    assert hit == jhit == 16
+    assert streams == jstreams
+    for p, got in zip(prompts + prompts[:1], streams):
+        assert got == eng.generate([p], max_new_tokens=KV8_NEW)[0].tolist()
+    srv.allocator.assert_consistent()
+    assert srv.allocator.num_used == 0
+
+
+def test_kv4_server_drains_clean(engines):
+    """Packed int4 (JAX's ``test_kv4_serves_and_drains_clean``): streams are
+    not pinned exact (4-bit KV on an 8-dim toy head is lossy) but the
+    server drains leak-free with full-length in-vocab streams, over a pool
+    packed at head_dim / 2."""
+    _, peng, _ = engines
+    pm = peng.module
+    eng = dt.init_inference(pm, {**BASE, "serving": {
+        **SERVING, "kv_cache_bits": 4}}, params=peng.params, device="cpu")
+    srv = eng.serving_engine()
+    assert srv._pool_k.shape[-1] == pm.config.hdim // 2 == 4
+    reqs = [srv.submit(p, max_new_tokens=5) for p in prompts_of((9, 6), 19)]
+    assert len(srv.run(max_steps=200)) == 2
+    for r in reqs:
+        assert r.status.value == "ok" and len(r.output) == 5
+        assert all(0 <= t < 64 for t in r.output)
+    srv.allocator.assert_consistent()
+    assert srv.allocator.num_used == 0
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_kv_block_bytes_match_jax_and_the_pool(kv_bits):
+    """The capacity helpers equal JAX's and are pinned to the bytes
+    ``init_paged_cache`` allocates; a model-sharded mesh is refused."""
+    for blk, hkv, hd, item in ((16, 32, 128, 2), (8, 4, 8, 4),
+                               (16, 4, 64, 2)):
+        assert alloc.kv_block_bytes(blk, hkv, hd, kv_bits, item) == \
+            jax_alloc.kv_block_bytes(blk, hkv, hd, kv_bits, item)
+        for budget in (1 << 20, 4096 * 2 ** 20):
+            assert alloc.blocks_for_budget(budget, blk, hkv, hd, kv_bits,
+                                           item) == \
+                jax_alloc.blocks_for_budget(budget, blk, hkv, hd, kv_bits,
+                                            item)
+    pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
+                                         **TINY))
+    pools = pm.init_paged_cache(12, 8, kv_bits=kv_bits, device="cpu")
+    nbytes = sum(t.numel() * t.element_size() for t in pools.values())
+    per_layer = alloc.kv_block_bytes(8, pm.config.kv_heads, pm.config.hdim,
+                                     kv_bits, cache_itemsize=4)
+    assert nbytes == 12 * pm.config.num_layers * per_layer
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        alloc.kv_block_bytes(16, 4, 64, kv_bits, model_shards=2)
+
+
+@pytest.fixture(scope="module")
+def int8_engines(engines):
+    """JAX and port engines with ``quant.enabled`` on the same weights."""
+    _, peng, jp = engines
+    cfg = {**BASE, "quant": {"enabled": True, "bits": 8}}
+    jm = jax_tf.TransformerLM(jax_tf.gpt2_config("125m", dtype=jnp.float32,
+                                                 **TINY))
+    jeng = ds.init_inference(jm, config={
+        **cfg, "replace_with_kernel_inject": False}, params=jp)
+    pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
+                                         **TINY))
+    qeng = dt.init_inference(pm, {**cfg, "serving": SERVING},
+                             params=params_from_jax(jp, pm), device="cpu")
+    return jeng, qeng
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def test_int8_weights_equal_jax_leaf_by_leaf(int8_engines):
+    """``quant.enabled``: the int8 values and f32 group scales equal the
+    JAX engine's leaf by leaf, the blocks' 1-D leaves (biases, LayerNorm
+    scales, stacked ``[L, d]``) included, embeddings kept in f32."""
+    jeng, qeng = int8_engines
+    jparams = dict(_flat(jax.device_get(jeng.params)))
+    jscales = dict(_flat(jax.device_get(jeng._scales)))
+    pparams, pscales = dict(_flat(qeng.params)), dict(_flat(qeng._scales))
+    assert set(pparams) == set(jparams) and set(pscales) == set(jscales)
+    for path, want in jparams.items():
+        got = pparams[path]
+        assert str(got.dtype).split(".")[-1] == want.dtype.name, path
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{path}")
+        np.testing.assert_array_equal(pscales[path].numpy(), jscales[path],
+                                      err_msg=f"{path}")
+    assert pparams[("blocks", "ln1", "bias")].dtype == torch.int8
+    assert pparams[("embed", "embedding")].dtype == torch.float32
+
+
+def test_int8_weights_forward_generate_and_server_match_jax(int8_engines):
+    """The int8 engine's ``forward()`` logits within 1e-5 of the JAX int8
+    engine's; greedy ``generate()`` equal to JAX's; the server (per-layer
+    dequant through the model's seam, here over an f32 pool) equal to
+    both, as JAX's ``test_int8_weights_serve_through_paged_path``."""
+    jeng, qeng = int8_engines
+    x = np.random.RandomState(3).randint(0, 64, (2, 11)).astype(np.int32)
+    np.testing.assert_allclose(qeng.forward(x).numpy(),
+                               np.asarray(jeng.forward(x)), atol=1e-5,
+                               rtol=1e-5)
+    prompts = prompts_of((6, 10), 2)
+    srv = qeng.serving_engine()
+    reqs = [srv.submit(p, max_new_tokens=5) for p in prompts]
+    srv.run(max_steps=100)
+    for p, r in zip(prompts, reqs):
+        want = jax_gen(jeng, p, 5)
+        np.testing.assert_array_equal(
+            qeng.generate([p], max_new_tokens=5)[0].numpy(), want)
+        np.testing.assert_array_equal(r.output, want)
+    assert srv.allocator.num_used == 0

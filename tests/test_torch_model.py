@@ -373,3 +373,87 @@ def test_blocksparse_needs_a_sparsity_config():
         with pytest.raises(NotImplementedError, match=impl):
             tt.TransformerLM(tt.TransformerConfig(**{**SPARSE,
                                                      "attn_impl": impl}))
+
+
+# -- quantized paged pools (serving.kv_cache_bits) --------------------------
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_init_paged_cache_quantized_matches_jax(kv_bits):
+    """int8 pools at head_dim (8-bit) or packed at head_dim / 2 (4-bit),
+    f32 scales ``[L, nb, blk, Hkv]``: the JAX model's shapes and dtypes,
+    all zeros; an odd head_dim cannot pack and a width outside 0/4/8
+    raises."""
+    jc = jax_model().init_paged_cache(6, 8, kv_bits=kv_bits)
+    pc = port_model().init_paged_cache(6, 8, kv_bits=kv_bits, device="cpu")
+    assert set(pc) == set(jc) == {"k", "v", "k_scale", "v_scale"}
+    for key in jc:
+        assert tuple(pc[key].shape) == jc[key].shape
+        assert str(pc[key].dtype).split(".")[-1] == jc[key].dtype.name
+        assert not pc[key].any()
+    assert pc["k"].shape[-1] == (8 if kv_bits == 8 else 4)
+    odd = tt.TransformerLM(tt.gpt2_config(
+        "125m", dtype=torch.float32, **{**TINY, "d_model": 36}))
+    with pytest.raises(ValueError, match="even head_dim"):
+        odd.init_paged_cache(6, 8, kv_bits=4, device="cpu")
+    with pytest.raises(ValueError, match="kv_bits"):
+        port_model().init_paged_cache(6, 8, kv_bits=3, device="cpu")
+
+
+def _ints(pool: np.ndarray, kv_bits: int) -> np.ndarray:
+    """A pool's integer values (packed int4 split back into features)."""
+    x = pool.astype(np.int32)
+    if kv_bits == 4:
+        x = np.concatenate([((x & 0xF) ^ 8) - 8, x >> 4], axis=-1)
+    return x
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_paged_mixed_steps_quantized_match_jax(weights, kv_bits):
+    """Three mixed steps on a quantized pool, each run by the JAX model
+    (its Pallas kernels interpreted) and the port on its own cache, each
+    chunk padded to 16 tokens: a 13-token chunk; a decode row plus a
+    second slot's 10-token chunk; two decode rows plus a third slot's
+    7-token chunk.  Logits within 1e-5; the
+    written scales within 1e-6 relative; the integer values equal on at
+    least 99.9 % of entries and never off by more than 1 (k/v differ at
+    f32 rounding, which moves a value sitting on a .5 boundary)."""
+    jp, pp = weights
+    jm, pm = jax_model(), port_model()
+    nb, blk, nslots, npages = 24, 8, 4, 6
+    jc = dict(jm.init_paged_cache(nb, blk, kv_bits=kv_bits))
+    pc = pm.init_paged_cache(nb, blk, kv_bits=kv_bits, device="cpu")
+    tables = np.zeros((nslots, npages), np.int32)
+    tables[0, :3], tables[1, :2], tables[2, :2] = [4, 9, 2], [7, 11], [3, 15]
+    rng = np.random.default_rng(kv_bits)
+    prompts = [rng.integers(0, 64, n).astype(np.int32) for n in (13, 10, 7)]
+    lens = np.zeros(nslots, np.int32)
+    jax_step = jax.jit(jm._apply_paged_mixed)      # one program, 3 steps
+    for decoding, slot in (([], 0), ([0], 1), ([0, 1], 2)):
+        dec_active = np.zeros(nslots, np.int32)
+        dec_active[decoding] = 1
+        dec_tokens = rng.integers(0, 64, nslots).astype(np.int32)
+        n = len(prompts[slot])
+        chunk = np.zeros(16, np.int32)
+        chunk[:n] = prompts[slot]
+        args = (dec_tokens, dec_active, chunk, slot, 0, n)
+        jd, jcl, jc = jax_step(
+            jp, {**jc, "block_tables": jnp.asarray(tables),
+                 "lens": jnp.asarray(lens)},
+            *(jnp.asarray(a, jnp.int32) for a in args))
+        pd, pcl, pcache = pm._apply_paged_mixed(
+            pp, {**pc, "block_tables": torch.from_numpy(tables),
+                 "lens": torch.from_numpy(lens)},
+            *(torch.as_tensor(a, dtype=torch.int32) for a in args))
+        np.testing.assert_allclose(pd.numpy(), np.asarray(jd), **TOL)
+        np.testing.assert_allclose(pcl.numpy(), np.asarray(jcl), **TOL)
+        for key in ("k_scale", "v_scale"):
+            np.testing.assert_allclose(pcache[key].numpy(),
+                                       np.asarray(jc[key]), rtol=1e-6,
+                                       atol=0)
+        for key in ("k", "v"):
+            diff = _ints(pcache[key].numpy(), kv_bits) - _ints(
+                np.asarray(jc[key]), kv_bits)
+            assert np.abs(diff).max() <= 1
+            assert (diff == 0).mean() >= 0.999
+        assert pcache["lens"].tolist() == np.asarray(jc["lens"]).tolist()
+        lens = np.array(jc["lens"])
+        jc = {k: jc[k] for k in ("k", "v", "k_scale", "v_scale")}
