@@ -17,7 +17,9 @@ Phases (any failure exits non-zero and prints no result line):
    T = 2048, D = 64, also at a ragged T (2000), without the causal mask
    and with one kv head per query head; bf16), with its time, the plain
    version's time, one PyTorch library call's time where one computes
-   the same function, and the least time the card could take;
+   the same function, and the least time the card could take; first,
+   the bf16 B3 and B4 must show tensor-core instructions (``HMMA``) in
+   ``cuobjdump -sass`` of their libraries and no ptxas spill at D 64;
 4. ``init_inference(TransformerLM(gpt2_config("6.7b")))`` with random
    weights from seed 0, then ``generate()`` on 8 prompts of 128 tokens,
    64 new tokens, greedy: every decode step goes through kernel B5;
@@ -41,7 +43,8 @@ Phases (any failure exits non-zero and prints no result line):
    (0.9, 0.95), clipping 1.0, bf16 over f32 masters), 10 steps on one
    seeded batch: B1 with a kv group of 8 twice per layer, and B3 and B4
    once (the sequence spans two 1024-row blocks and attention is
-   grouped), never B2; then flash against plain attention at micro 2;
+   grouped), never B2; the profile prints B3 + B4's share of the step's
+   device time; then flash against plain attention at micro 2;
 8. TinyLlama-1.1B served as in phases 4-5 (bf16, random weights from
    seed 0): ``generate()`` on B5 over each kv group's expanded cache,
    ``forward()`` on B1, and the server on B6/B7 at kv-head width;
@@ -81,6 +84,7 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -703,6 +707,66 @@ def gqa_flash_checks(torch, dev, flush):
             "flash_attention_bwd_dkv": b4}
 
 
+#: the libraries whose bf16 kernels run their products on the tensor
+#: cores, and the name of that kernel in each
+TENSOR_CORE_KERNELS = {"flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel",
+                       "flash_attention_bwd_dkv": "flash_bwd_dkv_mma_kernel"}
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of every kernel in an ``-Xptxas -v``
+    report, by mangled name."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def tensor_core_check(build) -> dict:
+    """Phase 3's proof that the bf16 B3 and B4 run on the tensor cores:
+    ``cuobjdump -sass`` of each built library must hold mma instructions
+    (``HMMA``; ``HGMMA`` for wgmma), and ptxas must report no spill for
+    the tensor-core kernel at D 64 (the main path's head dim).  Prints
+    the counts and each instantiation's registers and spills."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = {}
+    for name, kernel in TENSOR_CORE_KERNELS.items():
+        path = build.library_path(name)
+        sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\.", sass))
+                  for op in ("HMMA", "HGMMA")}
+        check(counts["HMMA"] + counts["HGMMA"] > 0,
+              f"{name}: no tensor-core instruction in its SASS")
+        regs = {}
+        for fn, rep in ptxas_report(Path(f"{path}.log").read_text()).items():
+            m = re.search(kernel + r"ILi(\d+)E", fn)
+            if m:
+                regs[int(m.group(1))] = rep
+        check(sorted(regs) == [16, 32, 64, 128],
+              f"{name}: ptxas reported {sorted(regs)} of {kernel}'s head "
+              f"dims")
+        check(regs[64].get("spill", 0) == 0,
+              f"{name}: {kernel} spills {regs[64]['spill']} bytes at D 64")
+        print(f"tensor cores: {name}: {counts['HMMA']} HMMA, "
+              f"{counts['HGMMA']} HGMMA in its SASS; {kernel} " + ", ".join(
+                  f"D {d}: {r.get('registers')} registers, "
+                  f"{r.get('spill', 0)} bytes spilled"
+                  for d, r in sorted(regs.items())))
+        out[name] = dict(sass=counts, ptxas=regs)
+    return out
+
+
 #: the block-sparse slice's layout (GPT-2 125M's 12 heads at seq 8192)
 def sparse_config(heads: int = 12):
     from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
@@ -915,6 +979,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions -----------------------
+    tensor_core_check(build)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     kres = kernel_checks(torch, dev, flush)
     for name, cases in kres.items():
@@ -967,7 +1032,9 @@ def main() -> int:
                          "flash_attention_bwd": 0,
                          "flash_attention_bwd_dq": n_layers,
                          "flash_attention_bwd_dkv": n_layers},
-                        check_micro=LLAMA_CHECK_MICRO)
+                        check_micro=LLAMA_CHECK_MICRO,
+                        profile_shares={"B3 + B4": tuple(
+                            TENSOR_CORE_KERNELS.values())})
 
     # -- 8. generate(), forward() and the server for TinyLlama-1.1B -----
     llama_served = serve_phase(torch, np, "TinyLlama-1.1B",
@@ -1540,7 +1607,7 @@ def int8_serve_phase(torch, np, label, cfg, bf16_prefill) -> dict:
 
 def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
                 per_step, check_micro, plain_model=None,
-                keys_per_query=None) -> dict:
+                keys_per_query=None, profile_shares=None) -> dict:
     """``initialize`` on ``model_cfg("flash")`` (bf16 over f32 masters,
     clipping 1.0, ZeRO 0, weights from seed 0) for ``steps`` steps on one
     seeded batch ``[micro, seq]``, re-fed: the loss must fall and each
@@ -1550,8 +1617,9 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
     ``model_cfg("xla")``, default the model itself) at micro
     ``check_micro`` for 3 steps, each taken by both from the kernel
     trajectory's state.  MFU's attention term counts ``keys_per_query``
-    keys (default ``seq``, as ``bench.py``).  Returns the launch counts
-    over the ``steps`` steps."""
+    keys (default ``seq``, as ``bench.py``); the profile prints the
+    device-time share of each group of ``profile_shares``.  Returns the
+    launch counts over the ``steps`` steps."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.transformer import TransformerLM
     from deepspeed_tpu_torch.ops import build
@@ -1632,7 +1700,7 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
           f"ms, forward + backward {head['both']:.1f} ms = "
           f"{100 * head['both'] / warm_ms:.1f} % of the warm step")
     device_profile(torch, lambda: [eng.train_step(batch) for _ in range(2)],
-                   f"{label} training 2 steps")
+                   f"{label} training 2 steps", profile_shares)
     del eng, metrics
     torch.cuda.empty_cache()
 
@@ -1851,11 +1919,13 @@ def loss_head_ms(torch, eng, batch, micro, seq) -> dict:
     return out
 
 
-def device_profile(torch, fn, label: str) -> None:
+def device_profile(torch, fn, label: str, shares=None) -> None:
     """Run ``fn`` once unprofiled for its wall time, then once under
     ``torch.profiler`` (CUDA activity only) for the kernel time, and
     print the card's busy share (kernel time over the unprofiled wall
-    time) and the kernels that took the most time."""
+    time), the kernels that took the most time and, for each entry of
+    ``shares`` (label: kernel-name substrings), the share of device time
+    of the kernels whose names hold one of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1879,6 +1949,11 @@ def device_profile(torch, fn, label: str) -> None:
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {100 * e.self_device_time_total / busy:5.1f} %  "
               f"{e.count:6d} x  {e.key[:90]}")
+    for name, keys in (shares or {}).items():
+        hit = [e for e in kern if any(k in e.key for k in keys)]
+        t = sum(e.self_device_time_total for e in hit)
+        print(f"  {name}: {t / 1e3:.1f} ms = {100 * t / busy:.1f} % of "
+              f"device time, {sum(e.count for e in hit)} launches")
 
 
 def _leaves(tree):

@@ -12,33 +12,43 @@
 //
 // Bound on the H100: at TinyLlama's training shape (B.H 256, B.KVH 32,
 //   T 2048, D 64, bf16, causal) the four causal products (s, dV, dP, dK;
-//   8 D flops per visible pair, 275 GFLOP) take 0.278 ms on the tensor
+//   8 D flops per visible pair, 275 GFLOP) take 0.2781 ms on the tensor
 //   cores and the least bytes (q, dO, lse, delta per query head, k, v,
 //   dk, dv per kv head: ~172 MB) 0.051 ms, so the bound is operations.
-//   This first version runs its products on the CUDA cores in f32, so it
-//   sits well above that bound; mma/wgmma is the later step.
 //
-// Design: one block of 256 threads per (kv head row, 64-row kv tile)
-//   keeps its K/V tile in shared memory and walks the g query heads of
-//   its group (rows kv * g .. kv * g + g - 1) and, for each, the query
-//   tiles that see the kv tile (every tile, or those at or after it when
-//   causal: the causal start tile is the kv tile's own index for every
-//   query head).  dK and dV accumulate in f32 registers (4 rows x D/16
-//   columns each a thread) and each dk/dv row is written once, with no
-//   atomics, so the kernel is deterministic as the TPU kernel is.  Query
-//   rows at or past T are never loaded: their q/dO rows are zero and
-//   their p and ds are 0, so they add nothing (`:264-274`).
+// bf16 design (tensor cores): one block of 4 warps per (kv head row, 64-row kv
+//   tile); each warp owns 16 kv rows and keeps their K as mma.sync A fragments
+//   in registers (read from shared memory at each use at D = 128, where they
+//   would spill).  V's fragments are read from shared memory at each use:
+//   holding them too takes B4 past the 168 registers a thread at which three
+//   blocks fit an SM, and the third block is worth more than the loads holding
+//   V would save.  The block walks the g query heads of its group (rows kv * g
+//   .. kv * g + g - 1) and, for each, the query tiles that see the kv tile
+//   (every tile, or from the kv tile's own index when causal: a q tile whose
+//   rows all precede the kv tile is never loaded), with each pair's Q and dO
+//   tiles and their lse and delta staged by cp.async in a two-stage ring.  Per
+//   32 query columns a warp computes the transposed products S^T = K Q^T and
+//   dP^T = V dO^T (Q and dO by ldmatrix), so p^T and ds^T come out as the
+//   warp's own kv rows; lse and delta index by column (the query row) and are
+//   read from shared memory per column; masks apply in fragment coordinates on
+//   the diagonal and ragged tiles only.  p^T and ds^T are packed to bf16 A
+//   fragments in registers (the rounding points) for dV += p^T dO and dK +=
+//   ds^T Q (dO and Q by ldmatrix.trans).  dK and dV are f32 fragments, 16 x D
+//   each a warp, written once: no atomics, so two launches give the same bits.
+//   Query rows at or past T are zero-filled, never read (`:264-274`).  The
+//   grid is B.KVH x T/64 blocks (1024 at micro 8) of uneven causal walks, so
+//   kv tiles launch first-first: the longest walks start in the first wave and
+//   the short ones fill the tail.
 //
-// Filling 132 SMs: the grid is only B.KVH x T/64 blocks (32 x 32 = 1024
-//   at micro 8), each walking up to g x T/64 tile pairs (256).  A block
-//   takes ~100 KB of shared memory at D 64, so two are resident per SM
-//   (264 at once), about four waves.  Causal work falls linearly with
-//   the kv tile, so kv tiles launch first-first: the longest walks start
-//   in the first wave and the short ones fill the tail.  Splitting the
-//   group across blocks would need a cross-block sum (atomics, which are
-//   not deterministic, or a second pass); it is left for the tensor-core
-//   version, where a block's walk gets shorter.
+// f32 design (CUDA cores, kept as it was: the tensor cores would round f32
+//   operands to TF32): one block of 256 threads per (kv head row, 64-row kv
+//   tile) keeps its K/V tile in shared memory as f32 and walks the same
+//   query tiles; dK and dV accumulate in f32 registers (4 rows x D/16
+//   columns each a thread), written once.
+#include "flash_mma.cuh"
 #include "flash_tiles.cuh"
+
+#include <type_traits>
 
 using namespace dstt;
 using namespace dstt::flash;
@@ -119,16 +129,185 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace tc = dstt::mma;
+
+// query columns of one S^T / dP^T chunk (the fragments of 32 columns
+// leave room for dK, dV and K in registers at D = 64)
+constexpr int kChunk = 32;
+
+// The bf16 tensor-core kernel (see the note at the top).  At D <= 64 it
+// is held to 168 registers a thread so that three blocks share an SM.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
+flash_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
+                         const tc::bf16* __restrict__ k,
+                         const tc::bf16* __restrict__ v,
+                         const tc::bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv,
+                         int t_len, int group, float sm_scale, int causal) {
+  constexpr int E = tc::Tile<D>::kElems, T64 = tc::kTile;
+  constexpr int NT = D / 8;        // C tiles across the head dim
+  // bf16 elements of one ring stage: Q, dO, then 2 x 64 f32 statistics
+  constexpr int kStage = 2 * E + 4 * T64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::bf16* ks = reinterpret_cast<tc::bf16*>(smem_raw);  // [64][D + 8]
+  tc::bf16* vs = ks + E;                                 // [64][D + 8]
+  // 2 stages of Q [64][D + 8], dO [64][D + 8], lse [64], delta [64] (f32)
+  tc::bf16* ring = vs + E;
+
+  const int n_tiles = (t_len + T64 - 1) / T64;
+  const size_t kvh = blockIdx.y;
+  const size_t kv_base = kvh * t_len * D;
+  const int kt = blockIdx.x, k0 = kt * T64;
+  const int m0 = 16 * (threadIdx.x >> 5);  // this warp's rows in the tile
+  const float scale2 = sm_scale * tc::kLog2e;
+  const int qt0 = causal ? kt : 0, nq = n_tiles - qt0;
+  const int n_pairs = group * nq;  // (query head, q tile) pairs to walk
+
+  // stage pair i: query head kvh * g + i / nq, q tile qt0 + i % nq
+  auto load_pair = [&](int i) {
+    tc::bf16* st = ring + (i & 1) * kStage;
+    float* stats = reinterpret_cast<float*>(st + 2 * E);
+    const size_t bh = kvh * group + i / nq;
+    const int q0 = (qt0 + i % nq) * T64;
+    tc::load_tile_async<D>(q + bh * t_len * D, q0, t_len, st);
+    tc::load_tile_async<D>(dout + bh * t_len * D, q0, t_len, st + E);
+    tc::load_stats_async(lse + bh * t_len, delta + bh * t_len, q0, t_len,
+                         stats, stats + T64);
+  };
+  tc::load_tile_async<D>(k + kv_base, k0, t_len, ks);
+  tc::load_tile_async<D>(v + kv_base, k0, t_len, vs);
+  load_pair(0);
+  tc::cp_async_commit();
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+  tc::RowFrags<D, (D <= 64)> kf;
+  tc::RowFrags<D, false> vf;  // see the note at the top
+
+  for (int i = 0; i < n_pairs; ++i) {
+    if (i + 1 < n_pairs) load_pair(i + 1);  // into the other stage
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this pair (and, at i 0, K and V) landed
+    __syncthreads();
+    if (i == 0) {
+      kf.fill(ks, m0);
+      vf.fill(vs, m0);
+    }
+    const tc::bf16* qs = ring + (i & 1) * kStage;
+    const tc::bf16* dos = qs + E;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * E);
+    const float* delta_s = lse_s + T64;
+    const int qt = qt0 + i % nq, q0 = qt * T64;
+    const bool edge = (causal && qt == kt) || q0 + T64 > t_len ||
+                      k0 + T64 > t_len;
+
+#pragma unroll
+    for (int qc = 0; qc < T64; qc += kChunk) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 32 query columns
+      float s[kChunk / 8][4], dp[kChunk / 8][4];
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4], av[4];
+        kf.get(a, ks, m0, kk);
+        vf.get(av, vs, m0, kk);
+#pragma unroll
+        for (int jp = 0; jp < kChunk / 16; ++jp) {
+          uint32_t b[4];
+          tc::load_b_nk<D>(b, qs, qc + 16 * jp, 16 * kk);
+          tc::mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
+          tc::load_b_nk<D>(b, dos, qc + 16 * jp, 16 * kk);
+          tc::mma_pair(dp[2 * jp], dp[2 * jp + 1], av, b);
+        }
+      }
+
+      // p^T and ds^T; lse and delta by column (query row)
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = qc + 8 * j + tc::frag_col(e);  // column in the tile
+          const int row = k0 + m0 + tc::frag_row(e), col = q0 + c;
+          const bool keep = !edge || (row < t_len && col < t_len &&
+                                      (!causal || row <= col));
+          tc::softmax_grad(s[j][e], dp[j][e], lse_s[c] * tc::kLog2e,
+                           delta_s[c], scale2, sm_scale, keep);
+        }
+
+      // dV += p^T dO and dK += ds^T Q over this chunk's query rows
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        tc::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        tc::c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int jj = 0; jj < D / 16; ++jj) {
+          uint32_t b[4];
+          tc::load_b_kn<D>(b, dos, qc + 16 * kk, 16 * jj);
+          tc::mma_pair(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
+          tc::load_b_kn<D>(b, qs, qc + 16 * kk, 16 * jj);
+          tc::mma_pair(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  tc::store_acc<D>(dk + kv_base, k0 + m0, t_len, dk_acc);
+  tc::store_acc<D>(dv + kv_base, k0 + m0, t_len, dv_acc);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               int bkv, int group, int t_len, float sm_scale, int causal,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(tc::bf16) * 6 * tc::Tile<D>::kElems +
+                      sizeof(float) * 4 * tc::kTile;
+  cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bkv);
+  flash_bwd_dkv_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), t_len, group,
+      sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+template <typename T, int D>
+int launch_route(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int bkv, int group, int t_len,
+                 float sm_scale, int causal, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<T, D>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len,
+                        sm_scale, causal, stream);
+  else
+    return launch_mma<D>(q, k, v, dout, lse, delta, dk, dv, bkv, group,
+                         t_len, sm_scale, causal, stream);
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dk, void* dv, int bkv,
              int group, int t_len, int d, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
-    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -344,7 +344,7 @@ class InferenceEngine:
         if draft_model is not None or draft_params is not None:
             raise NotImplementedError(
                 "speculative decoding (draft_model, serving.spec_k) is not "
-                "in the first slice of the PyTorch port")
+                "in the PyTorch port yet (queue A item 4)")
         if not self.config.serving.enabled:
             raise ValueError(
                 "continuous-batching serving is disabled — set "

@@ -175,6 +175,131 @@ def test_cuda_gqa_flash_attention_matches_plain(dtype, causal, t_len, g, d):
         assert torch.equal(a, b)
 
 
+def gqa_case(t_len, g, d, dtype, seed, heads=2):
+    """Seeded q, k, v, dO for ``heads`` kv heads in groups of ``g`` (k/v
+    at kv-head width) on the card, with the plain forward's o and lse."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+    q, do = t(heads * g, t_len, d), t(heads * g, t_len, d)
+    k, v = t(heads, t_len, d), t(heads, t_len, d)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("t_len", [64, 40, 150])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_gqa_backward_on_tensor_cores_matches_plain(d, t_len, g, causal):
+    """The bf16 B3 (dq) and B4 (dk, dv) run their products on the tensor
+    cores (mma.sync m16n8k16 fragments): every head dim they take, T of
+    one whole tile (64), below one tile (40) and ragged past one (150),
+    groups of 1 to 8, causal and full, against their plain versions on
+    the same inputs, and bit-equal on a second launch.  Tolerance: atol
+    4e-3, rtol 8e-3 (both sides round ds and p to bf16 at the same
+    points and the outputs once, so they differ by about one bf16 ulp,
+    2^-7 of the value)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    tol = dict(atol=4e-3, rtol=8e-3)
+    q, k, v, do = gqa_case(t_len, g, d, torch.bfloat16,
+                           1000 * d + 10 * t_len + 2 * g + causal)
+    o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+    dq = FA.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal)
+    torch.testing.assert_close(
+        dq, FA.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal),
+        **tol)
+    for got, want in zip((dk, dv), FA.flash_attention_bwd_dkv_plain(
+            q, k, v, o, lse, do, causal)):
+        torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(dq, FA.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                     causal))
+    for a, b in zip((dk, dv), FA.flash_attention_bwd_dkv(q, k, v, o, lse,
+                                                         do, causal)):
+        assert torch.equal(a, b)
+
+
+def off_limit(got, want, atol=4e-3, rtol=8e-3):
+    """Indices of the elements of ``got`` outside the limit of ``want``."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() > atol + rtol * want.abs()).nonzero().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_gqa_backward_one_tile_every_element(causal):
+    """T = 64, D = 16 (one tile, one mma k-step over the head dim), g = 2:
+    every element of the bf16 B3 and B4 outputs sits within the limit of
+    the plain version's (atol 4e-3, rtol 8e-3), listed by index where it
+    does not; and the same check catches one 8 x 8 fragment of the plain
+    result transposed, the fault a wrong ldmatrix or lane map leaves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do = gqa_case(64, 2, 16, torch.bfloat16, 64 + causal)
+    o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+    got = (FA.flash_attention_bwd_dq(q, k, v, o, lse, do, causal),
+           *FA.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal))
+    want = (FA.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal),
+            *FA.flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, causal))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        bad = off_limit(a, b)
+        assert not bad, f"{name}: {len(bad)} elements off, first {bad[:8]}"
+        flipped = b.clone()
+        flipped[1, 40:48, 8:16] = b[1, 40:48, 8:16].t()
+        assert off_limit(flipped, b), f"{name}: a transposed fragment passes"
+
+
+#: sha256 of the float32 B3 (dq) and B4 (dk, dv) outputs on
+#: ``f32_backward_case``'s inputs, as the kernels of the parent commit
+#: a9808ad gave them on an H100 80GB HBM3: the f32 instantiations, which
+#: stay on the CUDA cores, keep their bits
+F32_BACKWARD_DIGESTS = {
+    "dq T200 D64":
+        "986ae5e5940ecf2acef0bd5ecc75db548bcd4e06c328c6e8bcfe6928598d2bb0",
+    "dk T200 D64":
+        "08fa5af3298dd85df053784c1caf38c9f4d78cbc86ea8bc43ecb5f579b17c8cd",
+    "dv T200 D64":
+        "cee3d796eca22628067832e7d1d5cc2413b15e135b69a2a1c2332432fb623f48",
+    "dq T100 D128":
+        "3a7b87cbc0930aed0e0acc77a01f55bc5385bd135b96e4be9a3c0fb60af75452",
+    "dk T100 D128":
+        "cd00681aa1bcf1d6cd0385b68dfb71f38e1d847a2a36b24c78ec265c60515a87",
+    "dv T100 D128":
+        "99ef073e9a3f7e8f82934ac3979903192610063c878daa9ce28c47883f18ff54",
+}
+
+
+def f32_backward_digests():
+    """B3 and B4 in float32 on fixed inputs (GQA 4 over 2 kv heads, T 200
+    causal at D 64, T 100 full at D 128): the sha256 of each output's
+    bytes."""
+    out = {}
+    for t_len, d, causal in ((200, 64, True), (100, 128, False)):
+        q, k, v, do = gqa_case(t_len, 4, d, torch.float32, 7)
+        o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+        outs = (FA.flash_attention_bwd_dq(q, k, v, o, lse, do, causal),
+                *FA.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal))
+        for name, x in zip(("dq", "dk", "dv"), outs):
+            raw = x.view(torch.int32).cpu().numpy().tobytes()
+            out[f"{name} T{t_len} D{d}"] = hashlib.sha256(raw).hexdigest()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_f32_gqa_backward_keeps_its_bits():
+    """The float32 B3 and B4 keep the CUDA-core kernels of the parent
+    commit: their outputs on fixed inputs have the parent's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert f32_backward_digests() == F32_BACKWARD_DIGESTS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("block,t_len,d,causal,per_head", [
