@@ -17,9 +17,14 @@ Phases (any failure exits non-zero and prints no result line):
    T = 2048, D = 64, also at a ragged T (2000), without the causal mask
    and with one kv head per query head; bf16), with its time, the plain
    version's time, one PyTorch library call's time where one computes
-   the same function, and the least time the card could take; first,
-   the bf16 B3 and B4 must show tensor-core instructions (``HMMA``) in
-   ``cuobjdump -sass`` of their libraries and no ptxas spill at D 64;
+   the same function, and the least time the card could take; B1 and
+   B2 must give the same bits on two launches; B2's time is the
+   wrapper's call, which computes delta = rowsum(dO * O) in eager
+   PyTorch, and that rowsum and the kernel alone are timed beside it,
+   as is the kernel's other layout, two launches (B3 then B4 at g = 1);
+   first, the bf16 B1, B2, B3 and B4 must show tensor-core instructions
+   (``HMMA``) in ``cuobjdump -sass`` of their libraries and no ptxas
+   spill at D 64 (registers and spills printed for every head dim);
 4. ``init_inference(TransformerLM(gpt2_config("6.7b")))`` with random
    weights from seed 0, then ``generate()`` on 8 prompts of 128 tokens,
    64 new tokens, greedy: every decode step goes through kernel B5;
@@ -34,7 +39,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``bench.py``'s config (micro batch 64, AdamW, bf16 over f32 masters,
    clipping 1.0), weights from seed 0, 20 ``train_step``s on one seeded
    batch: every layer's forward (twice, with the remat recompute) runs
-   kernel B1 and its backward kernel B2; then the same step with plain
+   kernel B1 and its backward kernel B2 (the profile prints their shares
+   of the step's device time); then the same step with plain
    attention at micro batch 8 for 3 steps, checked against the kernels';
 7. training TinyLlama-1.1B (``hf_llama_config`` on its published
    config: all 22 layers, d_model 2048, 32 query heads over 4 kv heads,
@@ -43,8 +49,8 @@ Phases (any failure exits non-zero and prints no result line):
    (0.9, 0.95), clipping 1.0, bf16 over f32 masters), 10 steps on one
    seeded batch: B1 with a kv group of 8 twice per layer, and B3 and B4
    once (the sequence spans two 1024-row blocks and attention is
-   grouped), never B2; the profile prints B3 + B4's share of the step's
-   device time; then flash against plain attention at micro 2;
+   grouped), never B2; the profile prints B1's and B3 + B4's shares of
+   the step's device time; then flash against plain attention at micro 2;
 8. TinyLlama-1.1B served as in phases 4-5 (bf16, random weights from
    seed 0): ``generate()`` on B5 over each kv group's expanded cache,
    ``forward()`` on B1, and the server on B6/B7 at kv-head width;
@@ -548,10 +554,14 @@ def flash_checks(torch, dev, flush):
         o, lse = FA.flash_attention_fwd(q, k, v, causal)
         o_p, lse_p = FA.flash_attention_fwd_plain(q, k, v, causal)
         o_f, _ = FA.flash_attention_fwd_plain(q, k, v, causal, keep=keep)
+        o2, lse2 = FA.flash_attention_fwd(q, k, v, causal)
         torch.cuda.synchronize()
         acc = agree(f"B1 {case}", o, o_p, o_f)
         lse_err = max_err(lse, lse_p)
         check(lse_err <= LSE_ATOL, f"B1 {case}: lse off by {lse_err}")
+        rerun = max(max_err(o, o2), max_err(lse, lse2))
+        check(rerun == 0.0, f"B1 {case}: two launches differ by {rerun}")
+        del o2, lse2
         ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal), torch,
                      flush)
         plain = time_ms(lambda: FA.flash_attention_fwd_plain(q, k, v,
@@ -563,8 +573,8 @@ def flash_checks(torch, dev, flush):
         pairs = BH * (T * (T + 1) // 2 if causal else T * T)
         nbytes = 4 * BH * T * D * 2 + BH * T * 4
         bnd, by = bound_ms(nbytes, 4.0 * D * pairs)
-        b1.append(dict(case=case, **acc, lse_err=lse_err, ms=ms,
-                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
+        b1.append(dict(case=case, **acc, lse_err=lse_err, rerun_diff=rerun,
+                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                        bound_by=by))
         # B2, from the sound forward's o and lse
         got = FA.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal)
@@ -577,8 +587,22 @@ def flash_checks(torch, dev, flush):
         rerun = max_err(flat(got), flat(again))
         check(rerun == 0.0, f"B2 {case}: two launches differ by {rerun}")
         del want, fault, again
+        # the wrapper's call, delta = rowsum(dO * O) computed in it in
+        # eager PyTorch, as SDPA's backward computes its own; then that
+        # rowsum alone, and the kernel alone with delta given
         ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o_p, lse_p, do,
                                                     causal), torch, flush)
+        delta_ms = time_ms(lambda: FA._delta(o_p, do), torch, flush)
+        delta = FA._delta(o_p, do)
+        kernel_ms = time_ms(lambda: FA.flash_attention_bwd(
+            q, k, v, o_p, lse_p, do, causal, None, delta), torch, flush)
+        # the other layout of the same two walks, delta given: two
+        # launches, B3's kernel then B4's at g = 1
+        split = time_ms(lambda: (
+            FA.flash_attention_bwd_dq(q, k, v, o_p, lse_p, do, causal, None,
+                                      delta),
+            FA.flash_attention_bwd_dkv(q, k, v, o_p, lse_p, do, causal, None,
+                                       delta)), torch, flush)
         plain = time_ms(lambda: FA.flash_attention_bwd_plain(
             q, k, v, o_p, lse_p, do, causal), torch, flush)
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
@@ -590,8 +614,9 @@ def flash_checks(torch, dev, flush):
         nbytes = 7 * BH * T * D * 2 + 2 * BH * T * 4
         bnd, by = bound_ms(nbytes, 10.0 * D * pairs)
         b2.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
-                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                       bound_by=by))
+                       delta_ms=delta_ms, kernel_ms=kernel_ms,
+                       split_ms=split, plain_ms=plain, library_ms=lib,
+                       bound_ms=bnd, bound_by=by))
     return {"flash_attention_fwd": b1, "flash_attention_bwd": b2}
 
 
@@ -632,11 +657,14 @@ def gqa_flash_checks(torch, dev, flush):
         o, lse = FA.flash_attention_fwd(q, k, v, causal)
         o_p, lse_p = FA.flash_attention_fwd_plain(q, k, v, causal)
         o_f, _ = FA.flash_attention_fwd_plain(q, k, v, causal, keep=keep)
+        o2, lse2 = FA.flash_attention_fwd(q, k, v, causal)
         torch.cuda.synchronize()
         acc = agree(f"B1 {case}", o, o_p, o_f)
         lse_err = max_err(lse, lse_p)
         check(lse_err <= LSE_ATOL, f"B1 {case}: lse off by {lse_err}")
-        del o_f
+        rerun = max(max_err(o, o2), max_err(lse, lse2))
+        check(rerun == 0.0, f"B1 {case}: two launches differ by {rerun}")
+        del o_f, o2, lse2
         ms = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal), torch,
                      flush)
         plain = time_ms(lambda: FA.flash_attention_fwd_plain(q, k, v,
@@ -646,8 +674,8 @@ def gqa_flash_checks(torch, dev, flush):
             q4, k4, v4, is_causal=causal, enable_gqa=True), torch, flush)
         bnd, by = bound_ms(2 * qbytes + 2 * kvbytes + rowbytes,
                            4.0 * D * pairs)
-        b1.append(dict(case=case, **acc, lse_err=lse_err, ms=ms,
-                       plain_ms=plain, library_ms=lib, bound_ms=bnd,
+        b1.append(dict(case=case, **acc, lse_err=lse_err, rerun_diff=rerun,
+                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                        bound_by=by))
         del o, lse
         # SDPA's backward: dq, dk and dv in one call (B3 + B4's yardstick)
@@ -709,7 +737,9 @@ def gqa_flash_checks(torch, dev, flush):
 
 #: the libraries whose bf16 kernels run their products on the tensor
 #: cores, and the name of that kernel in each
-TENSOR_CORE_KERNELS = {"flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel",
+TENSOR_CORE_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
+                       "flash_attention_bwd": "flash_bwd_mma_kernel",
+                       "flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel",
                        "flash_attention_bwd_dkv": "flash_bwd_dkv_mma_kernel"}
 
 
@@ -732,7 +762,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def tensor_core_check(build) -> dict:
-    """Phase 3's proof that the bf16 B3 and B4 run on the tensor cores:
+    """Phase 3's proof that the bf16 B1, B2, B3 and B4 run on the tensor
+    cores:
     ``cuobjdump -sass`` of each built library must hold mma instructions
     (``HMMA``; ``HGMMA`` for wgmma), and ptxas must report no spill for
     the tensor-core kernel at D 64 (the main path's head dim).  Prints
@@ -996,6 +1027,10 @@ def main() -> int:
                      if "lse_err" in c else "")
                   + (f"; two launches differ by {c['rerun_diff']:.3g}"
                      if "rerun_diff" in c else "")
+                  + (f"; of it rowsum(dO * O) {c['delta_ms']:.4f} ms; the "
+                     f"kernel alone (delta given) {c['kernel_ms']:.4f} ms, "
+                     f"as two launches (B3 then B4 at g 1) "
+                     f"{c['split_ms']:.4f} ms" if "split_ms" in c else "")
                   + (f"; dense kernel {c['dense_ms']:.4f} ms"
                      if "dense_ms" in c else "")
                   + (f"; nibble-swap fault {c['nibble_fault_err']:.3g} = "
@@ -1011,13 +1046,17 @@ def main() -> int:
         return gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat="full",
                            attn_impl=attn_impl, loss_chunk=256)
 
+    tck = TENSOR_CORE_KERNELS
+
     def gpt2_optimizer():        # bench.py:171-180
         return {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}}
     gpt2 = train_phase(torch, np, "GPT-2 125M", gpt2_model, gpt2_optimizer(),
                        TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS,
                        {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
                         "flash_attention_bwd_dq": 0,
-                        "flash_attention_bwd_dkv": 0}, check_micro=8)
+                        "flash_attention_bwd_dkv": 0}, check_micro=8,
+                       profile_shares={"B1": (tck["flash_attention_fwd"],),
+                                       "B2": (tck["flash_attention_bwd"],)})
 
     # -- 7. training TinyLlama-1.1B ---------------------------------------
     def llama_model(attn_impl):
@@ -1033,8 +1072,10 @@ def main() -> int:
                          "flash_attention_bwd_dq": n_layers,
                          "flash_attention_bwd_dkv": n_layers},
                         check_micro=LLAMA_CHECK_MICRO,
-                        profile_shares={"B3 + B4": tuple(
-                            TENSOR_CORE_KERNELS.values())})
+                        profile_shares={
+                            "B1": (tck["flash_attention_fwd"],),
+                            "B3 + B4": (tck["flash_attention_bwd_dq"],
+                                        tck["flash_attention_bwd_dkv"])})
 
     # -- 8. generate(), forward() and the server for TinyLlama-1.1B -----
     llama_served = serve_phase(torch, np, "TinyLlama-1.1B",

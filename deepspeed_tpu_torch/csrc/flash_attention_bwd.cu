@@ -14,25 +14,40 @@
 // Bound on the H100: at the training shape (B.H 768, T 1024, D 64, bf16,
 //   causal) the least bytes take 0.21 ms and the five causal products
 //   (s, dP, dV, dQ, dK) 0.26 ms on the tensor cores, so the bound is
-//   operations.  This first version runs its products on the CUDA cores
-//   in f32 and recomputes s and dP once more than the least (seven
-//   products), so it sits well above that bound.
+//   operations.  The kernel runs seven: s and dP are recomputed by the dq
+//   blocks, since summing dq across kv tiles in one pass needs atomics
+//   (two launches would then differ) or a dq scratch per kv tile (a
+//   kernel allocates nothing).
 //
 // Design: the TPU kernel holds the whole [T, T] score matrix of one
 //   (batch, head) in VMEM; 228 KB of shared memory holds 64-row tiles.
-//   Summing dq across kv tiles with atomics would make the result change
-//   from run to run, and the JAX kernel is deterministic, so one launch
-//   runs two kinds of block, told apart by blockIdx.z:
-//   * z = 0, one per (kv tile, batch x head): keeps its K/V tile in
-//     shared memory and walks the query tiles that see it (all of them,
-//     or those at or after it when causal), accumulating dK and dV in
-//     registers;
+//   One launch runs two kinds of block, told apart by blockIdx.z, as the
+//   JAX kernel is one pallas_call:
+//   * z = 0, one per (kv tile, batch x head): keeps its K/V tile and
+//     walks the query tiles that see it (all of them, or those at or
+//     after it when causal), accumulating dK and dV; the earliest kv
+//     tiles walk the most and launch first;
 //   * z = 1, one per (query tile, batch x head): keeps its Q/dO tile and
-//     walks the kv tiles it sees, accumulating dQ in registers.
+//     walks the kv tiles it sees, accumulating dQ; the last query tiles
+//     walk the most and launch first.
 //   Each output row is written once by one block, in a fixed order, so
-//   the kernel is deterministic.  Rows at or past T are never loaded and
-//   their probabilities are zero.
+//   two launches give the same bits.  Rows at or past T are never loaded
+//   and their probabilities are zero.
+//
+// bf16 (tensor cores): the z = 0 blocks run B4's `dkv_walk` and the
+//   z = 1 blocks B3's `dq_walk` (flash_bwd_mma.cuh) at g = 1: mma.sync
+//   m16n8k16 fed by ldmatrix from a two-stage cp.async ring, p and ds
+//   packed to bf16 operand fragments in registers.  The kernel takes B4's
+//   register budget (168 a thread at D <= 64, three blocks an SM), which
+//   the dq walk already fits.
+//
+// f32 (CUDA cores, kept as it was: the tensor cores would round f32
+//   operands to TF32): 256 threads a block, 64-row tiles in shared memory
+//   as f32 (flash_tiles.cuh), accumulators in registers.
+#include "flash_bwd_mma.cuh"
 #include "flash_tiles.cuh"
+
+#include <type_traits>
 
 using namespace dstt;
 using namespace dstt::flash;
@@ -136,16 +151,76 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace tc = dstt::mma;
+
+// The bf16 tensor-core kernel (see the note at the top).  `group` is 1,
+// passed at run time so that each walk compiles as it does in B3 and B4
+// (a constant 1 changes the dk/dv walk's register allocation, which then
+// spills at D 64).
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
+flash_bwd_mma_kernel(const tc::bf16* __restrict__ q,
+                     const tc::bf16* __restrict__ k,
+                     const tc::bf16* __restrict__ v,
+                     const tc::bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     tc::bf16* __restrict__ dq, tc::bf16* __restrict__ dk,
+                     tc::bf16* __restrict__ dv, int t_len, int group,
+                     float sm_scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.z == 0)
+    tc::dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, group,
+                    sm_scale, causal, blockIdx.y, blockIdx.x, smem_raw);
+  else
+    tc::dq_walk<D>(q, k, v, dout, lse, delta, dq, t_len, group, sm_scale,
+                   causal, blockIdx.y, blockIdx.x, smem_raw);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, void* dk,
+               void* dv, int bh, int t_len, float sm_scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = tc::dkv_walk_smem<D>() > tc::dq_walk_smem<D>()
+                              ? tc::dkv_walk_smem<D>()
+                              : tc::dq_walk_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh, 2);
+  flash_bwd_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<tc::bf16*>(dq), static_cast<tc::bf16*>(dk),
+      static_cast<tc::bf16*>(dv), t_len, 1, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+template <typename T, int D>
+int launch_route(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, void* dk, void* dv, int bh, int t_len,
+                 float sm_scale, int causal, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<T, D>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len,
+                        sm_scale, causal, stream);
+  else
+    return launch_mma<D>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len,
+                         sm_scale, causal, stream);
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, void* dk, void* dv,
              int bh, int t_len, int d, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
-    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
+    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
+    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
+    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
+    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

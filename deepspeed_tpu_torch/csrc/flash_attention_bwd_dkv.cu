@@ -16,7 +16,8 @@
 //   cores and the least bytes (q, dO, lse, delta per query head, k, v,
 //   dk, dv per kv head: ~172 MB) 0.051 ms, so the bound is operations.
 //
-// bf16 design (tensor cores): one block of 4 warps per (kv head row, 64-row kv
+// bf16 design (tensor cores; `dkv_walk` in flash_bwd_mma.cuh, which B2
+//   shares at g = 1): one block of 4 warps per (kv head row, 64-row kv
 //   tile); each warp owns 16 kv rows and keeps their K as mma.sync A fragments
 //   in registers (read from shared memory at each use at D = 128, where they
 //   would spill).  V's fragments are read from shared memory at each use:
@@ -45,7 +46,7 @@
 //   tile) keeps its K/V tile in shared memory as f32 and walks the same
 //   query tiles; dK and dV accumulate in f32 registers (4 rows x D/16
 //   columns each a thread), written once.
-#include "flash_mma.cuh"
+#include "flash_bwd_mma.cuh"
 #include "flash_tiles.cuh"
 
 #include <type_traits>
@@ -131,12 +132,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc = dstt::mma;
 
-// query columns of one S^T / dP^T chunk (the fragments of 32 columns
-// leave room for dK, dV and K in registers at D = 64)
-constexpr int kChunk = 32;
-
-// The bf16 tensor-core kernel (see the note at the top).  At D <= 64 it
-// is held to 168 registers a thread so that three blocks share an SM.
+// The bf16 tensor-core kernel (see the note at the top): one dk/dv walk
+// a block (flash_bwd_mma.cuh).  At D <= 64 it is held to 168 registers a
+// thread so that three blocks share an SM.
 template <int D>
 __global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
 flash_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
@@ -147,122 +145,9 @@ flash_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
                          const float* __restrict__ delta,
                          tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv,
                          int t_len, int group, float sm_scale, int causal) {
-  constexpr int E = tc::Tile<D>::kElems, T64 = tc::kTile;
-  constexpr int NT = D / 8;        // C tiles across the head dim
-  // bf16 elements of one ring stage: Q, dO, then 2 x 64 f32 statistics
-  constexpr int kStage = 2 * E + 4 * T64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  tc::bf16* ks = reinterpret_cast<tc::bf16*>(smem_raw);  // [64][D + 8]
-  tc::bf16* vs = ks + E;                                 // [64][D + 8]
-  // 2 stages of Q [64][D + 8], dO [64][D + 8], lse [64], delta [64] (f32)
-  tc::bf16* ring = vs + E;
-
-  const int n_tiles = (t_len + T64 - 1) / T64;
-  const size_t kvh = blockIdx.y;
-  const size_t kv_base = kvh * t_len * D;
-  const int kt = blockIdx.x, k0 = kt * T64;
-  const int m0 = 16 * (threadIdx.x >> 5);  // this warp's rows in the tile
-  const float scale2 = sm_scale * tc::kLog2e;
-  const int qt0 = causal ? kt : 0, nq = n_tiles - qt0;
-  const int n_pairs = group * nq;  // (query head, q tile) pairs to walk
-
-  // stage pair i: query head kvh * g + i / nq, q tile qt0 + i % nq
-  auto load_pair = [&](int i) {
-    tc::bf16* st = ring + (i & 1) * kStage;
-    float* stats = reinterpret_cast<float*>(st + 2 * E);
-    const size_t bh = kvh * group + i / nq;
-    const int q0 = (qt0 + i % nq) * T64;
-    tc::load_tile_async<D>(q + bh * t_len * D, q0, t_len, st);
-    tc::load_tile_async<D>(dout + bh * t_len * D, q0, t_len, st + E);
-    tc::load_stats_async(lse + bh * t_len, delta + bh * t_len, q0, t_len,
-                         stats, stats + T64);
-  };
-  tc::load_tile_async<D>(k + kv_base, k0, t_len, ks);
-  tc::load_tile_async<D>(v + kv_base, k0, t_len, vs);
-  load_pair(0);
-  tc::cp_async_commit();
-
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
-  tc::RowFrags<D, (D <= 64)> kf;
-  tc::RowFrags<D, false> vf;  // see the note at the top
-
-  for (int i = 0; i < n_pairs; ++i) {
-    if (i + 1 < n_pairs) load_pair(i + 1);  // into the other stage
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();  // this pair (and, at i 0, K and V) landed
-    __syncthreads();
-    if (i == 0) {
-      kf.fill(ks, m0);
-      vf.fill(vs, m0);
-    }
-    const tc::bf16* qs = ring + (i & 1) * kStage;
-    const tc::bf16* dos = qs + E;
-    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * E);
-    const float* delta_s = lse_s + T64;
-    const int qt = qt0 + i % nq, q0 = qt * T64;
-    const bool edge = (causal && qt == kt) || q0 + T64 > t_len ||
-                      k0 + T64 > t_len;
-
-#pragma unroll
-    for (int qc = 0; qc < T64; qc += kChunk) {
-      // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 32 query columns
-      float s[kChunk / 8][4], dp[kChunk / 8][4];
-#pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4], av[4];
-        kf.get(a, ks, m0, kk);
-        vf.get(av, vs, m0, kk);
-#pragma unroll
-        for (int jp = 0; jp < kChunk / 16; ++jp) {
-          uint32_t b[4];
-          tc::load_b_nk<D>(b, qs, qc + 16 * jp, 16 * kk);
-          tc::mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
-          tc::load_b_nk<D>(b, dos, qc + 16 * jp, 16 * kk);
-          tc::mma_pair(dp[2 * jp], dp[2 * jp + 1], av, b);
-        }
-      }
-
-      // p^T and ds^T; lse and delta by column (query row)
-#pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = qc + 8 * j + tc::frag_col(e);  // column in the tile
-          const int row = k0 + m0 + tc::frag_row(e), col = q0 + c;
-          const bool keep = !edge || (row < t_len && col < t_len &&
-                                      (!causal || row <= col));
-          tc::softmax_grad(s[j][e], dp[j][e], lse_s[c] * tc::kLog2e,
-                           delta_s[c], scale2, sm_scale, keep);
-        }
-
-      // dV += p^T dO and dK += ds^T Q over this chunk's query rows
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        tc::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        tc::c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int jj = 0; jj < D / 16; ++jj) {
-          uint32_t b[4];
-          tc::load_b_kn<D>(b, dos, qc + 16 * kk, 16 * jj);
-          tc::mma_pair(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
-          tc::load_b_kn<D>(b, qs, qc + 16 * kk, 16 * jj);
-          tc::mma_pair(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-  tc::store_acc<D>(dk + kv_base, k0 + m0, t_len, dk_acc);
-  tc::store_acc<D>(dv + kv_base, k0 + m0, t_len, dv_acc);
+  tc::dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, group, sm_scale,
+                  causal, blockIdx.y, blockIdx.x, smem_raw);
 }
 
 template <int D>
@@ -270,8 +155,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int bkv, int group, int t_len, float sm_scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = sizeof(tc::bf16) * 6 * tc::Tile<D>::kElems +
-                      sizeof(float) * 4 * tc::kTile;
+  const size_t smem = tc::dkv_walk_smem<D>();
   cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bkv);

@@ -18,7 +18,8 @@
 //   cores and the least bytes (q, dO, dq, lse, delta per query head, k
 //   and v per kv head: ~222 MB) 0.066 ms, so the bound is operations.
 //
-// bf16 design (tensor cores): one block of 4 warps per (query head row,
+// bf16 design (tensor cores; `dq_walk` in flash_bwd_mma.cuh, which B2
+//   shares at g = 1): one block of 4 warps per (query head row,
 //   64-row query tile); each warp owns 16 query rows and keeps their Q
 //   and dO as mma.sync A fragments in registers for the whole walk (read
 //   from shared memory at each use at D = 128, where they would spill),
@@ -41,7 +42,7 @@
 //   64-row query tile) keeps its Q and dO tiles, lse and delta in shared
 //   memory as f32 and walks the K/V tiles of its kv head; dQ accumulates
 //   in registers (4 rows x D/16 columns a thread), written once.
-#include "flash_mma.cuh"
+#include "flash_bwd_mma.cuh"
 #include "flash_tiles.cuh"
 
 #include <type_traits>
@@ -119,7 +120,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc = dstt::mma;
 
-// The bf16 tensor-core kernel (see the note at the top).
+// The bf16 tensor-core kernel (see the note at the top): one dq walk a
+// block (flash_bwd_mma.cuh).
 template <int D>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
@@ -130,112 +132,9 @@ flash_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
                         const float* __restrict__ delta,
                         tc::bf16* __restrict__ dq, int t_len, int group,
                         float sm_scale, int causal) {
-  constexpr int E = tc::Tile<D>::kElems, T64 = tc::kTile;
-  constexpr int NT = D / 8;        // C tiles across the head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  tc::bf16* qs = reinterpret_cast<tc::bf16*>(smem_raw);  // [64][D + 8]
-  tc::bf16* dos = qs + E;                                // [64][D + 8]
-  tc::bf16* kvs = dos + E;  // 2 stages of K then V, [64][D + 8] each
-
-  const int n_tiles = (t_len + T64 - 1) / T64;
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * t_len * D;
-  const size_t kv_base = (bh / group) * t_len * D;
-  const int qt = n_tiles - 1 - blockIdx.x, q0 = qt * T64;
-  const int m0 = 16 * (threadIdx.x >> 5);  // this warp's rows in the tile
-  const float scale2 = sm_scale * tc::kLog2e;
-
-  tc::load_tile_async<D>(q + base, q0, t_len, qs);
-  tc::load_tile_async<D>(dout + base, q0, t_len, dos);
-  tc::load_tile_async<D>(k + kv_base, 0, t_len, kvs);
-  tc::load_tile_async<D>(v + kv_base, 0, t_len, kvs + E);
-  tc::cp_async_commit();
-
-  // lse (times log2 e) and delta of this lane's rows g and g + 8
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + m0 + tc::frag_row(2 * h);
-    const bool ok = row < t_len;
-    lse2[h] = ok ? lse[bh * t_len + row] * tc::kLog2e : 0.f;
-    dlt[h] = ok ? delta[bh * t_len + row] : 0.f;
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  tc::RowFrags<D, (D <= 64)> qf, dof;
-
-  const int last_kt = causal ? qt : n_tiles - 1;
-  for (int kt = 0; kt <= last_kt; ++kt) {
-    if (kt < last_kt) {  // the next tile into the other stage
-      tc::bf16* nxt = kvs + ((kt + 1) & 1) * 2 * E;
-      tc::load_tile_async<D>(k + kv_base, (kt + 1) * T64, t_len, nxt);
-      tc::load_tile_async<D>(v + kv_base, (kt + 1) * T64, t_len, nxt + E);
-    }
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();  // this tile (and, at kt 0, Q and dO) landed
-    __syncthreads();
-    if (kt == 0) {
-      qf.fill(qs, m0);
-      dof.fill(dos, m0);
-    }
-    const tc::bf16* ks = kvs + (kt & 1) * 2 * E;
-    const tc::bf16* vs = ks + E;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 kv columns a warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4], ad[4];
-      qf.get(a, qs, m0, kk);
-      dof.get(ad, dos, m0, kk);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t b[4];
-        tc::load_b_nk<D>(b, ks, 16 * jp, 16 * kk);
-        tc::mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
-        tc::load_b_nk<D>(b, vs, 16 * jp, 16 * kk);
-        tc::mma_pair(dp[2 * jp], dp[2 * jp + 1], ad, b);
-      }
-    }
-
-    // p and ds on the fragments; masks only on the diagonal / ragged tiles
-    const int k0 = kt * T64;
-    const bool edge = (causal && kt == qt) || k0 + T64 > t_len ||
-                      q0 + T64 > t_len;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + m0 + tc::frag_row(i);
-        const int col = k0 + 8 * j + tc::frag_col(i);
-        const bool keep = !edge || (row < t_len && col < t_len &&
-                                    (!causal || col <= row));
-        tc::softmax_grad(s[j][i], dp[j][i], lse2[i >> 1], dlt[i >> 1],
-                         scale2, sm_scale, keep);
-      }
-
-    // dQ += dS K: ds (now in dp) packed to bf16 A fragments, K by .trans
-#pragma unroll
-    for (int kk = 0; kk < T64 / 16; ++kk) {
-      uint32_t a[4];
-      tc::c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj) {
-        uint32_t b[4];
-        tc::load_b_kn<D>(b, ks, 16 * kk, 16 * jj);
-        tc::mma_pair(acc[2 * jj], acc[2 * jj + 1], a, b);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-  tc::store_acc<D>(dq + base, q0 + m0, t_len, acc);
+  tc::dq_walk<D>(q, k, v, dout, lse, delta, dq, t_len, group, sm_scale,
+                 causal, blockIdx.y, blockIdx.x, smem_raw);
 }
 
 template <int D>
@@ -243,7 +142,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, int bh,
                int group, int t_len, float sm_scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = sizeof(tc::bf16) * 6 * tc::Tile<D>::kElems;
+  const size_t smem = tc::dq_walk_smem<D>();
   cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);

@@ -1,5 +1,5 @@
-// Shared pieces of the tensor-core flash-attention kernels (the bf16 B3
-// and B4 today): bf16 tiles staged in shared memory by cp.async,
+// Shared pieces of the tensor-core flash-attention kernels (the bf16 B1,
+// B2, B3 and B4): bf16 tiles staged in shared memory by cp.async,
 // ldmatrix loads of mma.sync m16n8k16 operand fragments from them, the
 // bf16 x bf16 -> f32 product, the accumulator-to-operand repack that
 // lets p and ds feed the next product from registers, and the masked

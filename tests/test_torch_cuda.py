@@ -189,38 +189,70 @@ def gqa_case(t_len, g, d, dtype, seed, heads=2):
     return q, k, v, do
 
 
+def _bwd_pair(dq, dkv):
+    """B3 and B4 (or their plain versions) as one function of dq, dk, dv."""
+    def run(*args):
+        return (dq(*args), *dkv(*args))
+    return run
+
+
+#: each bf16 tensor-core kernel (B3/B4 the pair): (kernel, plain version)
+TENSOR_CORE = {
+    "B1": (FA.flash_attention_fwd, FA.flash_attention_fwd_plain),
+    "B2": (FA.flash_attention_bwd, FA.flash_attention_bwd_plain),
+    "B3/B4": (_bwd_pair(FA.flash_attention_bwd_dq,
+                        FA.flash_attention_bwd_dkv),
+              _bwd_pair(FA.flash_attention_bwd_dq_plain,
+                        FA.flash_attention_bwd_dkv_plain)),
+}
+
+
+def tensor_core_outputs(kernel, q, k, v, do, causal):
+    """The kernel's outputs, its plain version's and the kernel's again on
+    a second launch: B1's (o, lse), or B2's or B3/B4's (dq, dk, dv) from
+    the plain forward's o and lse."""
+    fn, plain = TENSOR_CORE[kernel]
+    args = (q, k, v, causal)
+    if kernel != "B1":
+        args = (q, k, v, *FA.flash_attention_fwd_plain(q, k, v, causal), do,
+                causal)
+    return fn(*args), plain(*args), fn(*args)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
-@pytest.mark.parametrize("t_len", [64, 40, 150])
+@pytest.mark.parametrize("kernel,g", [("B1", 1), ("B1", 2), ("B1", 4),
+                                      ("B1", 8), ("B2", 1), ("B3/B4", 1),
+                                      ("B3/B4", 2), ("B3/B4", 4),
+                                      ("B3/B4", 8)])
+@pytest.mark.parametrize("t_len", [40, 64, 150, 1000])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_cuda_gqa_backward_on_tensor_cores_matches_plain(d, t_len, g, causal):
-    """The bf16 B3 (dq) and B4 (dk, dv) run their products on the tensor
-    cores (mma.sync m16n8k16 fragments): every head dim they take, T of
-    one whole tile (64), below one tile (40) and ragged past one (150),
-    groups of 1 to 8, causal and full, against their plain versions on
-    the same inputs, and bit-equal on a second launch.  Tolerance: atol
-    4e-3, rtol 8e-3 (both sides round ds and p to bf16 at the same
-    points and the outputs once, so they differ by about one bf16 ulp,
-    2^-7 of the value)."""
+def test_cuda_flash_on_tensor_cores_matches_plain(d, t_len, kernel, g,
+                                                  causal):
+    """The bf16 B1 (o, lse), B2 and B3/B4 (dq, dk, dv) run their products
+    on the tensor cores (mma.sync m16n8k16 fragments): every head dim
+    they take, T below one tile (40), of one whole tile (64), ragged past
+    one (150) and of many tiles (1000), kv groups of 1 to 8 (B2 takes
+    one kv head per query head), causal and full, against their plain
+    versions on the same inputs, and bit-equal on a second launch.
+    Tolerance: atol 4e-3, rtol 8e-3 (both sides round p (and ds) to bf16
+    at the same points and the outputs once, so they differ by about one
+    bf16 ulp, 2^-7 of the value); B1's lse, f32 in both, atol and rtol
+    1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     tol = dict(atol=4e-3, rtol=8e-3)
-    q, k, v, do = gqa_case(t_len, g, d, torch.bfloat16,
-                           1000 * d + 10 * t_len + 2 * g + causal)
-    o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
-    dq = FA.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
-    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal)
-    torch.testing.assert_close(
-        dq, FA.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal),
-        **tol)
-    for got, want in zip((dk, dv), FA.flash_attention_bwd_dkv_plain(
-            q, k, v, o, lse, do, causal)):
-        torch.testing.assert_close(got, want, **tol)
-    assert torch.equal(dq, FA.flash_attention_bwd_dq(q, k, v, o, lse, do,
-                                                     causal))
-    for a, b in zip((dk, dv), FA.flash_attention_bwd_dkv(q, k, v, o, lse,
-                                                         do, causal)):
+    seed = 1000 * d + 10 * t_len + 2 * g + causal + (7 if kernel == "B2"
+                                                     else 0)
+    case = gqa_case(t_len, g, d, torch.bfloat16, seed,
+                    heads=3 if kernel == "B2" else 2)
+    got, want, again = tensor_core_outputs(kernel, *case, causal)
+    if kernel == "B1":
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-4)
+        got, want = got[:1], want[:1]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **tol)
+    for a, b in zip(got, again):
         assert torch.equal(a, b)
 
 
@@ -232,21 +264,21 @@ def off_limit(got, want, atol=4e-3, rtol=8e-3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_gqa_backward_one_tile_every_element(causal):
-    """T = 64, D = 16 (one tile, one mma k-step over the head dim), g = 2:
-    every element of the bf16 B3 and B4 outputs sits within the limit of
-    the plain version's (atol 4e-3, rtol 8e-3), listed by index where it
-    does not; and the same check catches one 8 x 8 fragment of the plain
-    result transposed, the fault a wrong ldmatrix or lane map leaves."""
+@pytest.mark.parametrize("kernel,g,seed", [("B1", 2, 164), ("B2", 1, 264),
+                                           ("B3/B4", 2, 64)])
+def test_cuda_flash_one_tile_every_element(kernel, g, seed, causal):
+    """T = 64, D = 16 (one tile, one mma k-step over the head dim): every
+    element of the bf16 B1 output o and of B2's and B3/B4's dq, dk and dv
+    sits within the limit of the plain version's (atol 4e-3, rtol 8e-3),
+    listed by index where it does not; and the same check catches one
+    8 x 8 fragment of the plain result transposed, the fault a wrong
+    ldmatrix or lane map leaves."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v, do = gqa_case(64, 2, 16, torch.bfloat16, 64 + causal)
-    o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
-    got = (FA.flash_attention_bwd_dq(q, k, v, o, lse, do, causal),
-           *FA.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal))
-    want = (FA.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal),
-            *FA.flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, causal))
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+    case = gqa_case(64, g, 16, torch.bfloat16, seed + causal)
+    got, want, _ = tensor_core_outputs(kernel, *case, causal)
+    names = ("o",) if kernel == "B1" else ("dq", "dk", "dv")
+    for name, a, b in zip(names, got, want):
         assert a.shape == b.shape
         bad = off_limit(a, b)
         assert not bad, f"{name}: {len(bad)} elements off, first {bad[:8]}"
@@ -255,49 +287,113 @@ def test_cuda_gqa_backward_one_tile_every_element(causal):
         assert off_limit(flipped, b), f"{name}: a transposed fragment passes"
 
 
-#: sha256 of the float32 B3 (dq) and B4 (dk, dv) outputs on
-#: ``f32_backward_case``'s inputs, as the kernels of the parent commit
-#: a9808ad gave them on an H100 80GB HBM3: the f32 instantiations, which
-#: stay on the CUDA cores, keep their bits
-F32_BACKWARD_DIGESTS = {
-    "dq T200 D64":
+def digest(x):
+    """sha256 of a tensor's bytes (bf16 read as int16, f32 as int32)."""
+    raw = x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+
+
+#: sha256 of the float32 B1 (o, lse), B2 and B3/B4 (dq, dk, dv) outputs
+#: and of the bfloat16 B3/B4 outputs on ``flash_digests``' inputs, as the
+#: kernels of commit a9cfd4d gave them on an H100 80GB HBM3 (the f32
+#: B3/B4 ones also a9808ad's): the f32 kernels stay on the CUDA cores,
+#: and the bf16 B3/B4 keep their bits through the move of their bodies
+#: into a header shared with B2
+FLASH_DIGESTS = {
+    "f32 B1 o T200 D64":
+        "8da212611f86dcd7a5e3e4011e191a5758a24e5e88bc4e136cb5bf7111891acf",
+    "f32 B1 lse T200 D64":
+        "05c291eb3e6204a28692df9b5397ab8ace07dc327ebdb0a2872d7ec0422f0c0c",
+    "f32 B2 dq T200 D64":
+        "65eab8e63e7353ee803abb55f8e186402e7b25c972cf617ff7043849bd4c44cc",
+    "f32 B2 dk T200 D64":
+        "d6abfe3077b5d928ae46a853c1a945d4db894cd887fa1107630b9ffb184c3deb",
+    "f32 B2 dv T200 D64":
+        "9b52901513f8470066cf4f3319b76e174305ba95e292ff19e353dd6c84e436e5",
+    "f32 B1 g4 o T200 D64":
+        "13abe8defa1ef77074db236c11a10f71651cfcc02ab1780e4db186a6c0d14a34",
+    "f32 B1 g4 lse T200 D64":
+        "b0c0572e8b472d228484ff2cabf44f35161b26178f3e2ef8044eb262bc9d94ab",
+    "f32 B3/B4 dq T200 D64":
         "986ae5e5940ecf2acef0bd5ecc75db548bcd4e06c328c6e8bcfe6928598d2bb0",
-    "dk T200 D64":
+    "f32 B3/B4 dk T200 D64":
         "08fa5af3298dd85df053784c1caf38c9f4d78cbc86ea8bc43ecb5f579b17c8cd",
-    "dv T200 D64":
+    "f32 B3/B4 dv T200 D64":
         "cee3d796eca22628067832e7d1d5cc2413b15e135b69a2a1c2332432fb623f48",
-    "dq T100 D128":
+    "bf16 B3/B4 dq T200 D64":
+        "255109793000cc7a6cacff0cb77c8f45790867752ff9031e27896c36e0d35f30",
+    "bf16 B3/B4 dk T200 D64":
+        "2046ffd1c4ec40a340790fff10605ddad715d7b01b3b850329462e4e070d766f",
+    "bf16 B3/B4 dv T200 D64":
+        "639f23868a5255621e8041a2948c40caf6366d7199a751a803cdc2dbddcd1728",
+    "f32 B1 o T100 D128":
+        "7a7fe9477ffd7b48ff0d525215fe1d974b71688e2eb77dea081db03030703a90",
+    "f32 B1 lse T100 D128":
+        "a9fb4d8de69537982dc3c81db1ea27ea28af77feeb75cffc769660f056bcc607",
+    "f32 B2 dq T100 D128":
+        "2d6855998fa40b6a74d6946e8bd8894112184ad2fce8b4fc28e381d9d143e63e",
+    "f32 B2 dk T100 D128":
+        "d3916fa09e0dcfdf090e7ff7128d1a7bdcb32410200ab81d80daedb44d0f731b",
+    "f32 B2 dv T100 D128":
+        "650fa5b6a3111edbdfe21e9c1e595c6c5da5051765e5838d0fb67ebed310d898",
+    "f32 B1 g4 o T100 D128":
+        "de9c4202f4a01aa21ad467f6d56b70174870f77211781f745c836235bb2a046d",
+    "f32 B1 g4 lse T100 D128":
+        "99f5f5452dcdf200d9e0a79a888c9c9c5729c4c04b46fceb633a64732c20dd26",
+    "f32 B3/B4 dq T100 D128":
         "3a7b87cbc0930aed0e0acc77a01f55bc5385bd135b96e4be9a3c0fb60af75452",
-    "dk T100 D128":
+    "f32 B3/B4 dk T100 D128":
         "cd00681aa1bcf1d6cd0385b68dfb71f38e1d847a2a36b24c78ec265c60515a87",
-    "dv T100 D128":
+    "f32 B3/B4 dv T100 D128":
         "99ef073e9a3f7e8f82934ac3979903192610063c878daa9ce28c47883f18ff54",
+    "bf16 B3/B4 dq T100 D128":
+        "a581283202a4c20d2ee2ec73331675417bbff7a67292428b43663dbb7245f722",
+    "bf16 B3/B4 dk T100 D128":
+        "8fa9677abe0baa757775c4a474a9f5bd5be7f0ab321eefd9c7c02734fb91adea",
+    "bf16 B3/B4 dv T100 D128":
+        "d61b0aac421723192a67693809fa4e80ce28f52712749f7f0c4ba12a92c47bd6",
 }
 
 
-def f32_backward_digests():
-    """B3 and B4 in float32 on fixed inputs (GQA 4 over 2 kv heads, T 200
-    causal at D 64, T 100 full at D 128): the sha256 of each output's
-    bytes."""
+def flash_digests():
+    """B1 and B2 in float32 (MHA over 4 heads; B1 also GQA 4 over 2 kv
+    heads), B3 and B4 in float32 and in bfloat16 (GQA 4 over 2 kv heads),
+    on fixed inputs at T 200 causal, D 64 and T 100 full, D 128: the
+    sha256 of each output."""
     out = {}
     for t_len, d, causal in ((200, 64, True), (100, 128, False)):
-        q, k, v, do = gqa_case(t_len, 4, d, torch.float32, 7)
+        case = f"T{t_len} D{d}"
+        q, k, v, do = gqa_case(t_len, 1, d, torch.float32, 8, heads=4)
+        o, lse = FA.flash_attention_fwd(q, k, v, causal)
+        out[f"f32 B1 o {case}"], out[f"f32 B1 lse {case}"] = (
+            digest(o), digest(lse))
         o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
-        outs = (FA.flash_attention_bwd_dq(q, k, v, o, lse, do, causal),
-                *FA.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal))
-        for name, x in zip(("dq", "dk", "dv"), outs):
-            raw = x.view(torch.int32).cpu().numpy().tobytes()
-            out[f"{name} T{t_len} D{d}"] = hashlib.sha256(raw).hexdigest()
+        for name, x in zip(("dq", "dk", "dv"), FA.flash_attention_bwd(
+                q, k, v, o, lse, do, causal)):
+            out[f"f32 B2 {name} {case}"] = digest(x)
+        q, k, v, _ = gqa_case(t_len, 4, d, torch.float32, 9)
+        o, lse = FA.flash_attention_fwd(q, k, v, causal)
+        out[f"f32 B1 g4 o {case}"], out[f"f32 B1 g4 lse {case}"] = (
+            digest(o), digest(lse))
+        for kind, dtype, seed in (("f32", torch.float32, 7),
+                                  ("bf16", torch.bfloat16, 10)):
+            q, k, v, do = gqa_case(t_len, 4, d, dtype, seed)
+            o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+            outs = (FA.flash_attention_bwd_dq(q, k, v, o, lse, do, causal),
+                    *FA.flash_attention_bwd_dkv(q, k, v, o, lse, do, causal))
+            for name, x in zip(("dq", "dk", "dv"), outs):
+                out[f"{kind} B3/B4 {name} {case}"] = digest(x)
     return out
 
 
 @pytest.mark.cuda
-def test_cuda_f32_gqa_backward_keeps_its_bits():
-    """The float32 B3 and B4 keep the CUDA-core kernels of the parent
-    commit: their outputs on fixed inputs have the parent's bits."""
+def test_cuda_flash_kernels_keep_their_bits():
+    """The float32 B1, B2, B3 and B4 keep the CUDA-core kernels of the
+    parent commit, and the bfloat16 B3 and B4 its tensor-core kernels:
+    their outputs on fixed inputs have the parent's bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    assert f32_backward_digests() == F32_BACKWARD_DIGESTS
+    assert flash_digests() == FLASH_DIGESTS
 
 
 @pytest.mark.cuda
@@ -540,3 +636,67 @@ def test_cuda_unquantized_paged_kernels_keep_their_bits():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     assert unquantized_digests() == UNQUANTIZED_DIGESTS
+
+
+SAMPLING_CASES = [(0.9, 12, 0.95), (1.3, 0, 0.8), (0.7, 5, 1.0),
+                  (1.0, 64, 0.3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temp,top_k,top_p", SAMPLING_CASES)
+def test_cuda_seeded_sampled_server_stream_matches_generate(temp, top_k,
+                                                            top_p):
+    """Sampled decoding on the card: output token j of a request draws
+    with (seed, j) from a CUDA generator in both paths, so a seeded
+    ``temperature > 0`` serving stream (paged kernels B6/B7, beside
+    another sampled request) equals a seeded ``generate()`` of the same
+    prompt at batch 1 (dense decode, B5).  The model is a tiny GPT-2 (4
+    layers, d_model 64, 2 heads of 32, the narrowest head the paged
+    kernels take) in float32 with seed-0 weights, where the two paths'
+    logits differ by f32 rounding only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import transformer as tt
+    cfg = tt.gpt2_config("125m", dtype=torch.float32, num_layers=4,
+                         d_model=64, num_heads=2, vocab_size=64,
+                         max_seq_len=64)
+    eng = dt.init_inference(tt.TransformerLM(cfg), {
+        "dtype": "float32", "max_out_tokens": 64, "temperature": 0.0,
+        "serving": {"enabled": True, "kv_block_size": 8,
+                    "num_kv_blocks": 48, "max_batch_slots": 8,
+                    "prefill_chunk_tokens": 16}})
+    rng = np.random.default_rng(int(10 * temp) + top_k)
+    prompt = rng.integers(0, 64, 11).tolist()
+    srv = eng.serving_engine()
+    req = srv.submit(prompt, max_new_tokens=12, temperature=temp,
+                     top_k=top_k, top_p=top_p, seed=11)
+    other = srv.submit(rng.integers(0, 64, 5).tolist(), max_new_tokens=12,
+                       temperature=0.9, seed=12)
+    srv.run(max_steps=200)
+    want = eng.generate([prompt], max_new_tokens=12, temperature=temp,
+                        top_k=top_k, top_p=top_p, seed=11)[0].tolist()
+    assert req.output == want
+    assert len(other.output) == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temp,top_k,top_p", SAMPLING_CASES)
+def test_cuda_sampling_kept_set_equals_cpu(temp, top_k, top_p):
+    """With top-k / top-p the kept set on the card equals the CPU's on the
+    same logits (16 rows over a vocab of 1000), and the card's seeded
+    draws stay inside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.inference.sampling import (filter_logits,
+                                                        sample_tokens)
+    rng = np.random.default_rng(int(100 * top_p) + top_k)
+    logits = torch.from_numpy(
+        (rng.standard_normal((16, 1000)) * 1.5).astype(np.float32))
+    kept = torch.isfinite(filter_logits(logits, temp, top_k, top_p))
+    kept_card = torch.isfinite(filter_logits(logits.cuda(), temp, top_k,
+                                             top_p)).cpu()
+    assert torch.equal(kept_card, kept)
+    draws = sample_tokens(logits.cuda(), list(range(16)), [3] * 16,
+                          [temp] * 16, [top_k] * 16, [top_p] * 16).cpu()
+    assert bool(kept[torch.arange(16), draws].all())
