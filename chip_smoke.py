@@ -22,9 +22,10 @@ Phases (any failure exits non-zero and prints no result line):
    wrapper's call, which computes delta = rowsum(dO * O) in eager
    PyTorch, and that rowsum and the kernel alone are timed beside it,
    as is the kernel's other layout, two launches (B3 then B4 at g = 1);
-   first, the bf16 B1, B2, B3 and B4 must show tensor-core instructions
-   (``HMMA``) in ``cuobjdump -sass`` of their libraries and no ptxas
-   spill at D 64 (registers and spills printed for every head dim);
+   first, the bf16 B1, B2, B3, B4, B9 and B10 must show tensor-core
+   instructions (``HMMA``) in ``cuobjdump -sass`` of their libraries and
+   no ptxas spill at D 64 (registers and spills printed for every head
+   dim);
 4. ``init_inference(TransformerLM(gpt2_config("6.7b")))`` with random
    weights from seed 0, then ``generate()`` on 8 prompts of 128 tokens,
    64 new tokens, greedy: every decode step goes through kernel B5;
@@ -58,9 +59,11 @@ Phases (any failure exits non-zero and prints no result line):
    "blocksparse"`` with ``FixedSparsityConfig(block=64, 4 local blocks,
    1 global, unidirectional)``, seq 8192, micro 8, ``remat="full"``,
    fused loss head at chunk 256, AdamW and bf16 as in phase 6), 10 steps:
-   every layer runs kernel B8 twice and B9 and B10 once, never B1-B4;
-   then the kernels against plain attention masked by the layout at
-   micro 1, and the same model with dense flash attention for 3 steps;
+   every layer runs kernel B8 twice and B9 and B10 once, never B1-B4
+   (the profile prints B8's and B9 + B10's shares of the step's device
+   time); then the kernels against plain attention masked by the layout
+   at micro 1, and the same model with dense flash attention for 3
+   steps;
 10. the block-sparse model served (``init_inference``, kernel injection
    on): ``forward()`` on 2 x 8192 tokens through B8, ``generate()`` on 2
    x 4096-token prompts on the dense cache with the layout as a mask,
@@ -81,8 +84,12 @@ Phases (any failure exits non-zero and prints no result line):
 Phase 3 also holds B8, B9 and B10 (block-sparse forward, dq and dk/dv)
 against their plain versions: at phase 9's attention shape, at
 ``bench_all.py``'s block-sparse lane (T 16384, 512-row blocks) and with
-16-row blocks of a per-head BigBird layout; and B6 and B7 over int8 and
-packed-int4 pools (``quant_kernel_checks``).
+16-row blocks of a per-head BigBird layout, each with the whole
+backward as the autograd function runs it (eager delta, B9, B10: the
+span of SDPA's masked backward), and at phase 9's shape B10's longest
+and mean walk and B9/B10 over the layout's local blocks alone (no
+summary column: even walks); and B6 and B7 over int8 and packed-int4
+pools (``quant_kernel_checks``).
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -740,7 +747,9 @@ def gqa_flash_checks(torch, dev, flush):
 TENSOR_CORE_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
                        "flash_attention_bwd": "flash_bwd_mma_kernel",
                        "flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel",
-                       "flash_attention_bwd_dkv": "flash_bwd_dkv_mma_kernel"}
+                       "flash_attention_bwd_dkv": "flash_bwd_dkv_mma_kernel",
+                       "blocksparse_flash_bwd_dq": "bsa_bwd_dq_mma_kernel",
+                       "blocksparse_flash_bwd_dkv": "bsa_bwd_dkv_mma_kernel"}
 
 
 def ptxas_report(log: str) -> dict:
@@ -762,8 +771,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def tensor_core_check(build) -> dict:
-    """Phase 3's proof that the bf16 B1, B2, B3 and B4 run on the tensor
-    cores:
+    """Phase 3's proof that the bf16 B1, B2, B3, B4, B9 and B10 run on
+    the tensor cores:
     ``cuobjdump -sass`` of each built library must hold mma instructions
     (``HMMA``; ``HGMMA`` for wgmma), and ptxas must report no spill for
     the tensor-core kernel at D 64 (the main path's head dim).  Prints
@@ -964,6 +973,39 @@ def blocksparse_checks(torch, dev, flush):
         b10.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
                         plain_ms=plain, library_ms=lib_bwd, dense_ms=dense,
                         bound_ms=bnd, bound_by=by, pairs=pairs))
+        # the whole backward as the autograd function runs it (eager
+        # delta = rowsum(dO * O), then B9 and B10): the span SDPA's
+        # masked backward covers
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = BS.blocksparse_attention(qg, kg, vg, *args)
+        whole = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), torch, flush)
+        delta_ms = time_ms(lambda: FA._delta(o_p, do), torch, flush)
+        del out, qg, kg, vg
+        for rec in (b9[-1], b10[-1]):
+            rec.update(backward_ms=whole, delta_ms=delta_ms)
+        if tag == "a":
+            # B10's walks (query tiles a kv tile's list holds) and both
+            # kernels over the local blocks alone: no summary column, so
+            # every walk is as long as its window
+            cnt = BS.tile_layout(lc, blk, T).kv_walk[1]
+            w = np.arange(lay.shape[-1]) // sparse_config().num_local_blocks
+            local = ((w[:, None] == w[None, :])
+                     & np.tril(np.ones_like(lay[0])))[None]
+            lc_local = BS.compress_layout(local)
+            largs = (lc_local, blk, H, causal)
+            o_l, lse_l = BS.blocksparse_attention_fwd(q, k, v, *largs)
+            d_l = FA._delta(o_l, do)
+            lbwd = (q, k, v, o_l, lse_l, do)
+            b10[-1].update(
+                walk_max=int(cnt.max()), walk_mean=float(cnt.mean()),
+                local_pairs=B * H * visible_pairs(local, blk, causal),
+                local_dq_ms=time_ms(lambda: BS.blocksparse_attention_bwd_dq(
+                    *lbwd, *largs, None, d_l), torch, flush),
+                local_dkv_ms=time_ms(
+                    lambda: BS.blocksparse_attention_bwd_dkv(
+                        *lbwd, *largs, None, d_l), torch, flush))
+            del o_l, lse_l, d_l, lbwd
         del q, k, v, do, o_p, lse_p, delta, mask, bwd
         torch.cuda.empty_cache()
     return {"blocksparse_flash_fwd": b8, "blocksparse_flash_bwd_dq": b9,
@@ -1033,6 +1075,17 @@ def main() -> int:
                      f"{c['split_ms']:.4f} ms" if "split_ms" in c else "")
                   + (f"; dense kernel {c['dense_ms']:.4f} ms"
                      if "dense_ms" in c else "")
+                  + (f"; the whole backward (eager rowsum(dO * O) "
+                     f"{c['delta_ms']:.4f} ms, B9, B10) "
+                     f"{c['backward_ms']:.4f} ms against SDPA's masked "
+                     f"backward {c['library_ms']:.4f} ms"
+                     if "backward_ms" in c else "")
+                  + (f"; B10's walks: longest {c['walk_max']}, mean "
+                     f"{c['walk_mean']:.2f} query tiles; the local blocks "
+                     f"alone ({c['local_pairs']} pairs, no summary column):"
+                     f" B9 {c['local_dq_ms']:.4f} ms, B10 "
+                     f"{c['local_dkv_ms']:.4f} ms"
+                     if "walk_max" in c else "")
                   + (f"; nibble-swap fault {c['nibble_fault_err']:.3g} = "
                      f"{c['nibble_fault_limit_share']:.3g} of the limit"
                      if "nibble_fault_err" in c else ""))
@@ -1098,7 +1151,11 @@ def main() -> int:
                          gpt2_optimizer(), SPARSE_MICRO, SPARSE_SEQ,
                          SPARSE_STEPS, sparse_steps, check_micro=1,
                          plain_model=masked_plain_model,
-                         keys_per_query=keys)
+                         keys_per_query=keys,
+                         profile_shares={
+                             "B8": ("bsa_fwd_kernel",),
+                             "B9 + B10": (tck["blocksparse_flash_bwd_dq"],
+                                          tck["blocksparse_flash_bwd_dkv"])})
     print(f"  MFU's attention term: {keys:.1f} visible keys per query "
           f"(the layout's {int((lay & np.tril(np.ones_like(lay))).sum())} "
           f"causal blocks of 64 at seq {SPARSE_SEQ})")

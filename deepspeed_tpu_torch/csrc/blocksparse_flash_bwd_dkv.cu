@@ -15,21 +15,42 @@
 //   global, unidirectional: 8.81e8 visible pairs) the four products (s,
 //   dV, dP, dK; 8 D flops per pair, 451.2 GFLOP) take 0.456 ms on the
 //   tensor cores and the least bytes (q, k, v, dO read, dk, dv written,
-//   lse and delta: ~610 MB) 0.182 ms, so the bound is operations.  This
-//   first version runs its products on the CUDA cores in f32, as B4 does.
+//   lse and delta: ~610 MB) 0.182 ms, so the bound is operations.
 //
-// Design: B4 (csrc/flash_attention_bwd_dkv.cu) with the transposed walk:
-//   one block of 256 threads per (head row, 64-row kv tile) keeps its K/V
-//   tile in shared memory and walks the query tiles that read it (`idx`,
-//   `cnt` of the transposed lists), testing each element's sub-block bit
-//   (`bits`) for layout blocks of 16 or 32.  dK and dV accumulate in f32
-//   registers and each row is written once, with no atomics, so the
-//   kernel is deterministic as the TPU kernel is; a kv tile no query
-//   reads writes zeros.  Walks are very uneven (at the shape above a
-//   "summary" kv tile is read by up to 125 query tiles, a local one by
-//   at most 4), so kv tiles launch in `order`, longest walk first, and
-//   the short walks fill the tail.
+// bf16 design (tensor cores; `bsa_dkv_walk` in blocksparse_bwd_mma.cuh):
+//   B4's `dkv_walk` at one query head per kv head, over a TileList, the
+//   query tiles that read the block's kv tile (the transposed lists' `idx`,
+//   `cnt`) in increasing order.  One block of 4 warps per (head row, 64-row
+//   kv tile); each warp owns 16 kv rows and keeps their K as mma.sync A
+//   fragments (read from shared memory at each use at D = 128) and reads V
+//   from shared memory; the (Q, dO, lse, delta) stage of entry i + 1 loads
+//   by cp.async into the other stage of a two-stage ring while entry i's
+//   products run.  Per 32 query columns S^T = K Q^T and dP^T = V dO^T on
+//   m16n8k16, p^T and ds^T packed to bf16 A fragments in registers (the
+//   rounding points), dV += p^T dO and dK += ds^T Q with dO and Q by
+//   ldmatrix.trans.  The mask runs only on the causal diagonal, a tile
+//   holding rows at or past T, or a pair whose sub-block mask is not full.
+//   The lists transpose the tile grid but not a pair's bits: bit 4 i + j is
+//   still query sub-block i and key sub-block j, and a fragment's row is a
+//   KV row, so the sub-block test takes (column, row).  Causal walks leave
+//   out the query tiles before the kv tile (every element above the
+//   diagonal).  dK and dV are written once, with no atomics, so two launches
+//   give the same bits; a kv tile no query reads loads nothing and writes
+//   zeros.  Walks are very uneven (at the shape above a "summary" kv tile is
+//   read by up to 125 query tiles, a local one by at most 4), so kv tiles
+//   launch in `order`, longest walk first, and the short walks fill the
+//   tail.  Three blocks share an SM at D <= 64 (at most 168 registers a
+//   thread, as B4), which needs the 32-column chunks as a loop, not
+//   unrolled; two blocks an SM without the cap were slower.
+//
+// f32 design (CUDA cores, kept as it was: the tensor cores would round f32
+//   operands to TF32): B4's f32 kernel with the transposed walk, one block
+//   of 256 threads per (head row, 64-row kv tile) keeping K and V in
+//   shared memory as f32 and testing each element's sub-block bit.
+#include "blocksparse_bwd_mma.cuh"
 #include "flash_tiles.cuh"
+
+#include <type_traits>
 
 using namespace dstt;
 using namespace dstt::flash;
@@ -117,6 +138,75 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace tc = dstt::mma;
+
+// The bf16 tensor-core kernel (see the note at the top): one dk/dv walk
+// over a tile list a block.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
+bsa_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
+                       const tc::bf16* __restrict__ k,
+                       const tc::bf16* __restrict__ v,
+                       const tc::bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv,
+                       const int* __restrict__ idx,
+                       const int* __restrict__ cnt,
+                       const int* __restrict__ bits,
+                       const int* __restrict__ order, int t_len, int lheads,
+                       int jmax, int sub_shift, float sm_scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_tiles = (t_len + tc::kTile - 1) / tc::kTile;
+  const int kt = order[blockIdx.x];
+  const size_t bh = blockIdx.y;
+  const int row = static_cast<int>(bh % lheads) * n_tiles + kt;
+  tc::TileList walk{idx, bits, row * jmax, cnt[row], kt, sub_shift};
+  if (causal) walk.drop_before(kt);
+  tc::bsa_dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, sm_scale,
+                      causal, bh, walk, smem_raw);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               const void* idx, const void* cnt, const void* bits,
+               const void* order, int bh, int lheads, int t_len, int jmax,
+               int sub_shift, float sm_scale, int causal,
+               cudaStream_t stream) {
+  const size_t smem = tc::dkv_walk_smem<D>();
+  cudaError_t err = allow_smem(bsa_bwd_dkv_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);
+  bsa_bwd_dkv_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv),
+      static_cast<const int*>(idx), static_cast<const int*>(cnt),
+      static_cast<const int*>(bits), static_cast<const int*>(order), t_len,
+      lheads, jmax, sub_shift, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+template <typename T, int D>
+int launch_route(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, const void* idx, const void* cnt,
+                 const void* bits, const void* order, int bh, int lheads,
+                 int t_len, int jmax, int sub_shift, float sm_scale,
+                 int causal, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<T, D>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
+                        order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
+                        causal, stream);
+  else
+    return launch_mma<D>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
+                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
+                         causal, stream);
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dk, void* dv,
@@ -125,10 +215,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              int d, int sub_shift, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

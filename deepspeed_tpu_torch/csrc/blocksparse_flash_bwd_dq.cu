@@ -14,18 +14,36 @@
 //   global, unidirectional: 8.81e8 visible pairs) the three products (s,
 //   dP, dQ; 6 D flops per pair, 338.4 GFLOP) take 0.342 ms on the tensor
 //   cores and the least bytes (q, k, v, dO read, dq written, lse and
-//   delta: ~509 MB) 0.152 ms, so the bound is operations.  This first
-//   version runs its products on the CUDA cores in f32, as B3 does.
+//   delta: ~509 MB) 0.152 ms, so the bound is operations.
 //
-// Design: B3 (csrc/flash_attention_bwd_dq.cu) with the walk of B8: one
-//   block of 256 threads per (head row, 64-row query tile) keeps its Q and
-//   dO tiles, lse and delta in shared memory and walks the kv tiles of its
-//   layout row (`idx`, `cnt`), testing each element's sub-block bit
-//   (`bits`) for layout blocks of 16 or 32.  dQ accumulates in registers
-//   and each dq row is written once, with no atomics, so the kernel is
-//   deterministic as the TPU kernel is.  Query tiles launch in `order`,
-//   longest walk first.
+// bf16 design (tensor cores; `bsa_dq_walk` in blocksparse_bwd_mma.cuh):
+//   B3's `dq_walk` over a TileList, the kv tiles of the block's layout row
+//   (`idx`, `cnt`) in increasing order.  One block of 4 warps per (head
+//   row, 64-row query tile); each warp owns 16 query rows and keeps their Q
+//   and dO as mma.sync A fragments (read from shared memory at each use at
+//   D = 128), the K/V tiles of entry j + 1 load by cp.async into the other
+//   stage of a two-stage ring while entry j's products run.  S = Q K^T and
+//   dP = dO V^T on m16n8k16, ds packed to bf16 A fragments in registers
+//   (the rounding point), dQ += dS K with K by ldmatrix.trans.  The mask
+//   runs only on the pairs that need it: the causal diagonal, a tile
+//   holding rows at or past T, or a pair whose sub-block mask (`bits`, bit
+//   4 i + j for query sub-block i and key sub-block j of 16 or 32 rows) is
+//   not full; there an element is kept when the causal, length and
+//   sub-block tests pass.  Causal walks leave out the kv tiles past the
+//   diagonal (a layout block of 128 rows or more lists them; every element
+//   would be masked).  Each dq row is written once, with no atomics, so two
+//   launches give the same bits.  Query tiles launch in `order`, longest
+//   walk first.
+//
+// f32 design (CUDA cores, kept as it was: the tensor cores would round f32
+//   operands to TF32): B3's f32 kernel with the walk of B8, one block of
+//   256 threads per (head row, 64-row query tile) keeping Q, dO, lse and
+//   delta in shared memory as f32 and testing each element's sub-block
+//   bit.
+#include "blocksparse_bwd_mma.cuh"
 #include "flash_tiles.cuh"
+
+#include <type_traits>
 
 using namespace dstt;
 using namespace dstt::flash;
@@ -110,6 +128,73 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace tc = dstt::mma;
+
+// The bf16 tensor-core kernel (see the note at the top): one dq walk over
+// a tile list a block.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads)
+bsa_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
+                      const tc::bf16* __restrict__ k,
+                      const tc::bf16* __restrict__ v,
+                      const tc::bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      tc::bf16* __restrict__ dq, const int* __restrict__ idx,
+                      const int* __restrict__ cnt,
+                      const int* __restrict__ bits,
+                      const int* __restrict__ order, int t_len, int lheads,
+                      int jmax, int sub_shift, float sm_scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_tiles = (t_len + tc::kTile - 1) / tc::kTile;
+  const int qt = order[blockIdx.x];
+  const size_t bh = blockIdx.y;
+  const int row = static_cast<int>(bh % lheads) * n_tiles + qt;
+  tc::TileList walk{idx, bits, row * jmax, cnt[row], qt, sub_shift};
+  if (causal) walk.drop_after(qt);
+  tc::bsa_dq_walk<D>(q, k, v, dout, lse, delta, dq, t_len, sm_scale, causal,
+                     bh, walk, smem_raw);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, const void* idx,
+               const void* cnt, const void* bits, const void* order, int bh,
+               int lheads, int t_len, int jmax, int sub_shift,
+               float sm_scale, int causal, cudaStream_t stream) {
+  const size_t smem = tc::dq_walk_smem<D>();
+  cudaError_t err = allow_smem(bsa_bwd_dq_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);
+  bsa_bwd_dq_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<tc::bf16*>(dq), static_cast<const int*>(idx),
+      static_cast<const int*>(cnt), static_cast<const int*>(bits),
+      static_cast<const int*>(order), t_len, lheads, jmax, sub_shift,
+      sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+template <typename T, int D>
+int launch_route(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, const void* idx, const void* cnt,
+                 const void* bits, const void* order, int bh, int lheads,
+                 int t_len, int jmax, int sub_shift, float sm_scale,
+                 int causal, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<T, D>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order,
+                        bh, lheads, t_len, jmax, sub_shift, sm_scale, causal,
+                        stream);
+  else
+    return launch_mma<D>(q, k, v, dout, lse, delta, dq, idx, cnt, bits,
+                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
+                         causal, stream);
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, const void* idx,
@@ -117,10 +202,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              int lheads, int t_len, int jmax, int d, int sub_shift,
              float sm_scale, int causal, cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

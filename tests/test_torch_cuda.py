@@ -10,6 +10,7 @@ installed::
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 import hashlib
+import math
 
 import numpy as np
 import pytest
@@ -293,12 +294,11 @@ def digest(x):
     return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
 
 
-#: sha256 of the float32 B1 (o, lse), B2 and B3/B4 (dq, dk, dv) outputs
-#: and of the bfloat16 B3/B4 outputs on ``flash_digests``' inputs, as the
-#: kernels of commit a9cfd4d gave them on an H100 80GB HBM3 (the f32
-#: B3/B4 ones also a9808ad's): the f32 kernels stay on the CUDA cores,
-#: and the bf16 B3/B4 keep their bits through the move of their bodies
-#: into a header shared with B2
+#: sha256 of the float32 and bfloat16 B1 (o, lse), B2 and B3/B4 (dq, dk,
+#: dv) outputs on ``flash_digests``' inputs, as the kernels of commit
+#: 12df449 gave them on an H100 80GB HBM3 (the f32 ones and the bf16
+#: B3/B4 ones also a9cfd4d's): the f32 kernels stay on the CUDA cores and
+#: the bf16 ones keep their tensor-core code
 FLASH_DIGESTS = {
     "f32 B1 o T200 D64":
         "8da212611f86dcd7a5e3e4011e191a5758a24e5e88bc4e136cb5bf7111891acf",
@@ -314,6 +314,16 @@ FLASH_DIGESTS = {
         "13abe8defa1ef77074db236c11a10f71651cfcc02ab1780e4db186a6c0d14a34",
     "f32 B1 g4 lse T200 D64":
         "b0c0572e8b472d228484ff2cabf44f35161b26178f3e2ef8044eb262bc9d94ab",
+    "bf16 B1 o T200 D64":
+        "434a76654cfbed613dc03c469e5940e8dea19f7076e03d8f1443a013b6848d8c",
+    "bf16 B1 lse T200 D64":
+        "b3b1704d55080f4f5ccfb02e23695b953d3398d6ab1dfc0de2418e397e92be4c",
+    "bf16 B2 dq T200 D64":
+        "9cbdc3c97bc7b5d35e745ca6620c95565e0f911352c5fe1ce27532492eccf4d0",
+    "bf16 B2 dk T200 D64":
+        "d83b5e06b4244ac121cca285cd2365e15000deba796413f52cb10ee5da2e5722",
+    "bf16 B2 dv T200 D64":
+        "9d367ca39c8b2b61f2af5c4a24a7228427aa7430d22738369e631fa85f228d96",
     "f32 B3/B4 dq T200 D64":
         "986ae5e5940ecf2acef0bd5ecc75db548bcd4e06c328c6e8bcfe6928598d2bb0",
     "f32 B3/B4 dk T200 D64":
@@ -340,6 +350,16 @@ FLASH_DIGESTS = {
         "de9c4202f4a01aa21ad467f6d56b70174870f77211781f745c836235bb2a046d",
     "f32 B1 g4 lse T100 D128":
         "99f5f5452dcdf200d9e0a79a888c9c9c5729c4c04b46fceb633a64732c20dd26",
+    "bf16 B1 o T100 D128":
+        "b1ecfef713398fc759cd1cc6045a38fd04da4645c56791de0fef78932d08301e",
+    "bf16 B1 lse T100 D128":
+        "dc808c328853a082c7fe38db60ff8fd99a3a95ab159cdb80fbe239494ac7d2ae",
+    "bf16 B2 dq T100 D128":
+        "cf3d0cb33b927b91ef37dcfacb77c45b66d72552fc653373480ef48fc678a57f",
+    "bf16 B2 dk T100 D128":
+        "040f14826cf319fa3990e6b28c7fd7eeba1705e74d8e7b8260ce4b8175a2944c",
+    "bf16 B2 dv T100 D128":
+        "9d531917d75a027c3e2d6c4e75e4d1df24aab7bda6bd0f3dcf0b47c2ada6b0db",
     "f32 B3/B4 dq T100 D128":
         "3a7b87cbc0930aed0e0acc77a01f55bc5385bd135b96e4be9a3c0fb60af75452",
     "f32 B3/B4 dk T100 D128":
@@ -356,10 +376,10 @@ FLASH_DIGESTS = {
 
 
 def flash_digests():
-    """B1 and B2 in float32 (MHA over 4 heads; B1 also GQA 4 over 2 kv
-    heads), B3 and B4 in float32 and in bfloat16 (GQA 4 over 2 kv heads),
-    on fixed inputs at T 200 causal, D 64 and T 100 full, D 128: the
-    sha256 of each output."""
+    """B1 and B2 in float32 and in bfloat16 (MHA over 4 heads; the f32 B1
+    also GQA 4 over 2 kv heads), B3 and B4 in float32 and in bfloat16 (GQA
+    4 over 2 kv heads), on fixed inputs at T 200 causal, D 64 and T 100
+    full, D 128: the sha256 of each output."""
     out = {}
     for t_len, d, causal in ((200, 64, True), (100, 128, False)):
         case = f"T{t_len} D{d}"
@@ -375,6 +395,14 @@ def flash_digests():
         o, lse = FA.flash_attention_fwd(q, k, v, causal)
         out[f"f32 B1 g4 o {case}"], out[f"f32 B1 g4 lse {case}"] = (
             digest(o), digest(lse))
+        q, k, v, do = gqa_case(t_len, 1, d, torch.bfloat16, 11, heads=4)
+        o, lse = FA.flash_attention_fwd(q, k, v, causal)
+        out[f"bf16 B1 o {case}"], out[f"bf16 B1 lse {case}"] = (
+            digest(o), digest(lse))
+        o, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+        for name, x in zip(("dq", "dk", "dv"), FA.flash_attention_bwd(
+                q, k, v, o, lse, do, causal)):
+            out[f"bf16 B2 {name} {case}"] = digest(x)
         for kind, dtype, seed in (("f32", torch.float32, 7),
                                   ("bf16", torch.bfloat16, 10)):
             q, k, v, do = gqa_case(t_len, 4, d, dtype, seed)
@@ -388,9 +416,10 @@ def flash_digests():
 
 @pytest.mark.cuda
 def test_cuda_flash_kernels_keep_their_bits():
-    """The float32 B1, B2, B3 and B4 keep the CUDA-core kernels of the
-    parent commit, and the bfloat16 B3 and B4 its tensor-core kernels:
-    their outputs on fixed inputs have the parent's bits."""
+    """The float32 B1, B2, B3 and B4 keep their CUDA-core kernels, and the
+    bfloat16 B1, B2, B3 and B4 their tensor-core kernels through the walks'
+    move onto a shared walk policy (``flash_bwd_mma.cuh``): their outputs
+    on fixed inputs have the pinned bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     assert flash_digests() == FLASH_DIGESTS
@@ -449,6 +478,217 @@ def test_cuda_blocksparse_matches_plain(dtype, block, t_len, d, causal,
     for a, b in zip((dk, dv), BS.blocksparse_attention_bwd_dkv(
             q, k, v, o_p, lse_p, do, *args)):
         assert torch.equal(a, b)
+
+
+def sparse_case(block, t_len, d, causal, per_head, dtype, seed, heads=3,
+                empty_kv=False):
+    """Seeded q, k, v, dO ``[2 * heads, T, D]`` on the card and the
+    kernels' layout arguments of a random block layout (density 0.3, the
+    diagonal set, the upper triangle cleared when causal; one per head or
+    one shared).  ``empty_kv``: the third kv block column is cleared (its
+    rows then hold a block left of it), so no query reads that kv tile."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    nb = t_len // block
+    layout = rng.random((heads if per_head else 1, nb, nb)) < 0.3
+    layout[:, np.arange(nb), np.arange(nb)] = True
+    if empty_kv:
+        layout[:, :, 2] = False
+        layout[:, 2, 0] = True
+    layout = np.broadcast_to(layout, (heads, nb, nb))
+    if causal:
+        layout = layout & np.tril(np.ones((nb, nb), bool))
+
+    def t():
+        a = rng.standard_normal((2 * heads, t_len, d)).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+    q, k, v, do = t(), t(), t(), t()
+    return q, k, v, do, layout, (BS.compress_layout(layout), block, heads,
+                                 causal)
+
+
+def sparse_outputs(q, k, v, do, args):
+    """(dq, dk, dv) of B9 and B10, of their plain versions and of the
+    kernels again on a second launch, from the plain forward's o and
+    lse."""
+    o, lse = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+
+    def run(dq, dkv):
+        return (dq(q, k, v, o, lse, do, *args),
+                *dkv(q, k, v, o, lse, do, *args))
+    got = run(BS.blocksparse_attention_bwd_dq,
+              BS.blocksparse_attention_bwd_dkv)
+    want = run(BS.blocksparse_attention_bwd_dq_plain,
+               BS.blocksparse_attention_bwd_dkv_plain)
+    again = run(BS.blocksparse_attention_bwd_dq,
+                BS.blocksparse_attention_bwd_dkv)
+    return got, want, again, (o, lse)
+
+
+def dense_dkv(q, k, v, do, o, lse, keep):
+    """dk and dv of plain attention under an element mask ``keep [H, T,
+    T]`` (head row b reads ``keep[b % H]``), at B10's rounding points:
+    the oracle of a kernel that tests the wrong sub-block bits."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    h = keep.shape[0]
+    keep = keep.repeat(q.shape[0] // h, 1, 1)
+    s = q.float() @ k.float().transpose(1, 2) * scale
+    p = torch.exp(s - lse[..., None]).masked_fill(~keep, 0.0)
+    dp = do.float() @ v.float().transpose(1, 2)
+    delta = (do.float() * o.float()).sum(-1)
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dv = p.to(do.dtype).float().transpose(1, 2) @ do.float()
+    dk = ds.transpose(1, 2) @ q.float()
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: the bf16 B9/B10 card cases: (name, block, T, causal, per-head layout)
+SPARSE_TC_CASES = [
+    ("block16-ragged-full", 16, 208, False, True),
+    ("block32-ragged-causal", 32, 224, True, False),
+    ("block64-causal", 64, 320, True, True),
+    ("block128-full", 128, 384, False, False),
+    ("block512-causal", 512, 1024, True, False),
+    ("empty-kv-tile", 64, 256, False, True),
+    ("asymmetric16", 16, 128, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,block,t_len,causal,per_head", SPARSE_TC_CASES,
+                         ids=[c[0] for c in SPARSE_TC_CASES])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_blocksparse_on_tensor_cores_matches_plain(d, name, block,
+                                                        t_len, causal,
+                                                        per_head):
+    """The bf16 B9 (dq) and B10 (dk, dv) run their products on the tensor
+    cores (mma.sync over the tile lists): every head dim they take, layout
+    blocks of 16 and 32 (sub-block masks inside a 64-row tile pair), 64,
+    128 and 512 (a block spans 2 x 2 and 8 x 8 tile pairs; causal, the
+    pairs above the diagonal are left out), T ragged against the tile
+    (208, 224), per-head and shared layouts, causal and full, against
+    their plain versions, and bit-equal on a second launch.  A kv tile no
+    query reads gets dk = dv = 0.  The asymmetric 16-row layout also
+    proves that the limit catches B10 testing a pair's sub-block bits with
+    its kv and query sub-blocks swapped (the transposed lists keep the
+    bits query-major).  Tolerance: atol 4e-3, rtol 8e-3 (one bf16 ulp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do, layout, args = sparse_case(
+        block, t_len, d, causal, per_head, torch.bfloat16,
+        seed=100 * d + block + t_len + causal,
+        empty_kv=name == "empty-kv-tile")
+    got, want, again, (o, lse) = sparse_outputs(q, k, v, do, args)
+    for x, a, b in zip(("dq", "dk", "dv"), got, want):
+        bad = off_limit(a, b)
+        assert not bad, f"{x}: {len(bad)} elements off, first {bad[:8]}"
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if name == "empty-kv-tile":
+        for a in got[1:]:
+            assert not a[:, 128:192].any()
+    if name == "asymmetric16":
+        n = t_len // 64
+        fine = torch.from_numpy(layout.copy()).to(q.device)
+        keep = fine.repeat_interleave(16, 1).repeat_interleave(16, 2)
+        swapped = (fine.view(-1, n, 4, n, 4).transpose(2, 4)
+                   .reshape(fine.shape)
+                   .repeat_interleave(16, 1).repeat_interleave(16, 2))
+        assert not torch.equal(keep, swapped)
+        for a, b in zip(dense_dkv(q, k, v, do, o, lse, keep), got[1:]):
+            assert not off_limit(a, b)
+        assert any(off_limit(a, b) for a, b in zip(
+            dense_dkv(q, k, v, do, o, lse, swapped), want[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_blocksparse_one_tile_every_element(causal):
+    """T = 64, D = 16, a per-head layout of 16-row blocks (one tile pair
+    of 4 x 4 sub-blocks): every element of the bf16 B9's dq and B10's dk
+    and dv sits within the limit of the plain version's, listed by index
+    where it does not; and the same check catches one 8 x 8 fragment of
+    the plain result transposed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do, _, args = sparse_case(16, 64, 16, causal, True,
+                                       torch.bfloat16, seed=364 + causal,
+                                       heads=2)
+    got, want, _, _ = sparse_outputs(q, k, v, do, args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        bad = off_limit(a, b)
+        assert not bad, f"{name}: {len(bad)} elements off, first {bad[:8]}"
+        flipped = b.clone()
+        flipped[1, 40:48, 8:16] = b[1, 40:48, 8:16].t()
+        assert off_limit(flipped, b), f"{name}: a transposed fragment passes"
+
+
+#: sha256 of the float32 B8 (o, lse), B9 (dq) and B10 (dk, dv) outputs and
+#: of the bfloat16 B8 outputs on ``blocksparse_digests``' inputs, as the
+#: kernels of commit 12df449 gave them on an H100 80GB HBM3: the f32
+#: kernels stay on the CUDA cores and the bf16 B8 is untouched
+BLOCKSPARSE_DIGESTS = {
+    "f32 B8 o block16 T208 D64":
+        "646fe390c60609a5418fde0db1783ac3d79ac6f124c309db47438f731b77d1da",
+    "f32 B8 lse block16 T208 D64":
+        "6ab8024f4cd6b1495114ea2daa181903bc2b6ee7d3171bef4e643852f351bdc7",
+    "f32 B9/B10 dq block16 T208 D64":
+        "d74e28a0988f96e1ff19dbe2afec2c7c622664d15ac8714a46cfb78663c8b5cd",
+    "f32 B9/B10 dk block16 T208 D64":
+        "75921a30fca49c029324a8cb4814916774c8e03384948cfdb27c2d56aae4680e",
+    "f32 B9/B10 dv block16 T208 D64":
+        "cd55f6a34a18647ec066f59a573d0f7e68e5af28d9e93d2399e0fdb54119da4c",
+    "bf16 B8 o block16 T208 D64":
+        "a7962b3d68c4b16f0f4a253025d66c74b830fc0f45685113bd8376def4d8ddfa",
+    "bf16 B8 lse block16 T208 D64":
+        "093566e00503c98427a49293761780cc2f662689eb7a726fe22c6a4094874b31",
+    "f32 B8 o block128 T384 D32":
+        "114c1d9a35e4cfd08d3e272d004e392f0aac6b4fcec70f76ad9c867ccef7ad1a",
+    "f32 B8 lse block128 T384 D32":
+        "fd28b04e60cf0891a53bcab2b192c1575ece5be708e9f71ca10c8dbf1ae457fc",
+    "f32 B9/B10 dq block128 T384 D32":
+        "126f4c18ef57cd21e3fea28d004bd1f4b70c74bcba43e388852848b877fac592",
+    "f32 B9/B10 dk block128 T384 D32":
+        "019b5e4c743c538e353dec13584ca5afcfd812bfd75370d584cee527705c1727",
+    "f32 B9/B10 dv block128 T384 D32":
+        "67b3d432339a51549991b0cfd64ad98d7e454768578b776e01d8555f35e7072b",
+    "bf16 B8 o block128 T384 D32":
+        "3059d54e39e4d897ab91d39f9f281f007cdf9c11fc641d5b52bb2d3e105b50c8",
+    "bf16 B8 lse block128 T384 D32":
+        "f4dc72dc99e28030d4e7ebe98329e57a7b2ec7520cbd3db7040dc496779cc15e",
+}
+
+
+def blocksparse_digests():
+    """B8, B9 and B10 in float32 and B8 in bfloat16 on fixed inputs (a
+    per-head layout of 16-row blocks, full, T 208, D 64; a shared layout
+    of 128-row blocks, causal, T 384, D 32): the sha256 of each output."""
+    out = {}
+    for block, t_len, d, causal, per_head in ((16, 208, 64, False, True),
+                                              (128, 384, 32, True, False)):
+        case = f"block{block} T{t_len} D{d}"
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v, do, _, args = sparse_case(block, t_len, d, causal,
+                                               per_head, dtype, seed=block)
+            o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+            out[f"{kind} B8 o {case}"], out[f"{kind} B8 lse {case}"] = (
+                digest(o), digest(lse))
+            if kind == "f32":
+                got = sparse_outputs(q, k, v, do, args)[0]
+                for name, x in zip(("dq", "dk", "dv"), got):
+                    out[f"f32 B9/B10 {name} {case}"] = digest(x)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_blocksparse_kernels_keep_their_bits():
+    """The float32 B8, B9 and B10 keep their CUDA-core kernels and the
+    bfloat16 B8 its kernel: their outputs on fixed inputs have the pinned
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert blocksparse_digests() == BLOCKSPARSE_DIGESTS
 
 
 @pytest.mark.cuda

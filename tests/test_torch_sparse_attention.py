@@ -160,30 +160,82 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_run():
                               blk, 2 * blk).sub_shift == shift
 
 
-def test_tile_walks_cover_the_layout():
-    """The 64-row tile walks: a 16-row block layout folds into 4 x 4
-    sub-block bits per tile pair, and the transposed walk lists every
-    pair of the forward walk once."""
+#: the sub-block mask of a tile pair whose sub-blocks are all set, by
+#: sub_shift (``TileList::full`` in csrc/blocksparse_bwd_mma.cuh)
+FULL_SUB_BITS = {6: 0x1, 5: 0x33, 4: 0xFFFF}
+
+
+def pair_needs_mask(bits, sub_shift, qt, kt, t_len, causal):
+    """The tensor-core B9/B10's rule (``blocksparse_bwd_mma.cuh``): a walked
+    tile pair is masked element by element when it is the causal
+    diagonal, holds rows at or past T, or its sub-block mask is not
+    full; every element of any other pair is kept."""
+    ragged = (qt + 1) * PB.TILE > t_len or (kt + 1) * PB.TILE > t_len
+    return ((causal and kt == qt) or ragged
+            or bits != FULL_SUB_BITS[sub_shift])
+
+
+@pytest.mark.parametrize("block,t_len,causal", [
+    (16, 256, True), (16, 208, False), (32, 256, True), (32, 224, False),
+    (64, 320, True), (128, 384, False), (128, 512, True)])
+def test_tile_walks_cover_the_layout(block, t_len, causal):
+    """The 64-row tile walks: a layout of 16- or 32-row blocks folds into
+    4 x 4 or 2 x 2 sub-block bits per tile pair (bit 4 i + j), a block of
+    64 rows or more spans whole pairs (bit 0); the transposed walk lists
+    every pair of the forward walk once, with the same query-major bits;
+    no visible element lies outside the walk.  On each walked pair the
+    kernels' mask rule (``pair_needs_mask``) is false exactly where every
+    element is visible in the expanded layout (T ragged against the tile
+    included); a causal pair past the diagonal, which the kernels leave
+    out, holds no visible element."""
     rng = np.random.default_rng(0)
-    lay = random_layout(rng, 3, 16, True, True)            # T 256, block 16
-    tl = PB.tile_layout(PB.compress_layout(lay), 16, 256)
+    nb, tile = t_len // block, PB.TILE
+    lay = random_layout(rng, 3, nb, causal, True).copy()
+    if block < tile:     # tile pair (1, 0) whole: a pair that needs no mask
+        lay[:, tile // block:2 * tile // block, :tile // block] = True
+    tl = PB.tile_layout(PB.compress_layout(lay), block, t_len)
+    n = tl.n_tiles
     idx, cnt, bits, _ = tl.q_walk
     idx_t, cnt_t, bits_t, _ = tl.kv_walk
     pairs, pairs_t = {}, {}
     for h in range(3):
-        for t in range(4):
+        for t in range(n):
             for j in range(cnt[h, t]):
                 pairs[h, t, idx[h, t, j]] = bits[h, t, j]
             for j in range(cnt_t[h, t]):
                 pairs_t[h, idx_t[h, t, j], t] = bits_t[h, t, j]
     assert pairs == pairs_t
+    sub = min(block, tile)
+    r = tile // sub
+    assert tl.sub_shift == int(np.log2(sub))
+    fine = np.zeros((3, n * r, n * r), bool)
+    if block < tile:
+        fine[:, :nb, :nb] = lay
+    visible = np.zeros((3, n * tile, n * tile), bool)
+    visible[:, :t_len, :t_len] = lay.repeat(block, 1).repeat(block, 2)
+    if causal:
+        visible &= np.tril(np.ones((n * tile, n * tile), bool))
+    masked = []
     for h in range(3):
-        for qt in range(4):
-            for kt in range(4):
-                sub = lay[h, 4 * qt:4 * qt + 4, 4 * kt:4 * kt + 4]
-                want = sum(1 << (4 * i + j) for i in range(4)
-                           for j in range(4) if sub[i, j])
+        for qt in range(n):
+            for kt in range(n):
+                if block < tile:
+                    want = sum(1 << (4 * i + j) for i in range(r)
+                               for j in range(r)
+                               if fine[h, qt * r + i, kt * r + j])
+                else:
+                    m = block // tile
+                    want = int(lay[h, qt // m, kt // m])
                 assert pairs.get((h, qt, kt), 0) == want
+                seen = visible[h, qt * tile:(qt + 1) * tile,
+                               kt * tile:(kt + 1) * tile]
+                if (h, qt, kt) not in pairs or (causal and kt > qt):
+                    assert not seen.any()
+                    continue
+                masked.append(pair_needs_mask(want, tl.sub_shift, qt, kt,
+                                              t_len, causal))
+                assert masked[-1] == (not seen.all())
+    assert not all(masked)       # the rule's "keep all" side is tested
 
 
 SELF_ATTN = [
