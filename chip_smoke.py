@@ -22,7 +22,7 @@ Phases (any failure exits non-zero and prints no result line):
    wrapper's call, which computes delta = rowsum(dO * O) in eager
    PyTorch, and that rowsum and the kernel alone are timed beside it,
    as is the kernel's other layout, two launches (B3 then B4 at g = 1);
-   first, the bf16 B1, B2, B3, B4, B9 and B10 must show tensor-core
+   first, the bf16 B1, B2, B3, B4, B8, B9 and B10 must show tensor-core
    instructions (``HMMA``) in ``cuobjdump -sass`` of their libraries and
    no ptxas spill at D 64 (registers and spills printed for every head
    dim);
@@ -53,7 +53,9 @@ Phases (any failure exits non-zero and prints no result line):
    grouped), never B2; the profile prints B1's and B3 + B4's shares of
    the step's device time; then flash against plain attention at micro 2;
 8. TinyLlama-1.1B served as in phases 4-5 (bf16, random weights from
-   seed 0): ``generate()`` on B5 over each kv group's expanded cache,
+   seed 0): ``generate()`` on B5 over the cache at kv-head width (B5
+   must see the layer's cache of 4 kv heads, never a copy expanded over
+   the group),
    ``forward()`` on B1, and the server on B6/B7 at kv-head width;
 9. training block-sparse GPT-2 125M (all 12 layers, ``attn_impl=
    "blocksparse"`` with ``FixedSparsityConfig(block=64, 4 local blocks,
@@ -81,7 +83,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``generate()`` (TTFT, decode ms/token), ``forward()`` against phase
    4's bf16 prefill logits, and the 16-request drain.
 
-Phase 3 also holds B8, B9 and B10 (block-sparse forward, dq and dk/dv)
+Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
+caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
+over Hkv 4, D 64, cache 192), bit-equal on two launches, against SDPA
+with ``enable_gqa``; at the GQA shape also the cache expanded over the
+group then B5 (the model's path before B5 read at kv-head width).  It
+also holds B8, B9 and B10 (block-sparse forward, dq and dk/dv)
 against their plain versions: at phase 9's attention shape, at
 ``bench_all.py``'s block-sparse lane (T 16384, 512-row blocks) and with
 16-row blocks of a per-head BigBird layout, each with the whole
@@ -248,21 +255,32 @@ def kernel_checks(torch, dev, flush):
         return torch.randn(shape, generator=g, device=dev).to(bf16)
 
     results = {}
+    SMS = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # B5: dense decode at the generate() shape (8 rows, cache 192) and a
-    # long cache; lengths full and not a multiple of any chunk; rows past
-    # the length hold NaN (so the planted fault at length - 1 reads none)
+    # long cache, GPT-3 6.7B's heads (H = Hkv 32, D 128), then
+    # TinyLlama-1.1B's decode shape at kv-head width (H 32 over Hkv 4, D
+    # 64); lengths full and not a multiple of any chunk; rows past the
+    # length hold NaN (so the planted fault at length - 1 reads none)
     b5 = []
-    for S, length in ((192, 192), (192, 130), (1024, 1024), (1024, 1000)):
-        B = 8
-        q, k, v = randn(B, H, D), randn(B, S, H, D), randn(B, S, H, D)
+    for S, length, Hq, Hkv, Dh in ((192, 192, H, H, D), (192, 130, H, H, D),
+                                   (1024, 1024, H, H, D),
+                                   (1024, 1000, H, H, D),
+                                   (192, 192, 32, 4, 64),
+                                   (192, 130, 32, 4, 64)):
+        B, grp = 8, Hq // Hkv
+        q, k, v = randn(B, Hq, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh)
         k[:, length:] = float("nan")
         v[:, length:] = float("nan")
         got = DA.decode_attention(q, k, v, length)
+        again = DA.decode_attention(q, k, v, length)
         want = DA.decode_attention_plain(q, k, v, length)
         fault = DA.decode_attention_plain(q, k, v, length - 1)
         torch.cuda.synchronize()
-        acc = agree(f"B5 S={S} len={length}", got, want, fault)
+        case = f"B={B} H={Hq} Hkv={Hkv} D={Dh} S={S} length={length}"
+        acc = agree(f"B5 {case}", got, want, fault)
+        rerun = max_err(got, again)
+        check(rerun == 0.0, f"B5 {case}: two launches differ by {rerun}")
         ms = time_ms(lambda: DA.decode_attention(q, k, v, length), torch,
                      flush)
         plain = time_ms(lambda: DA.decode_attention_plain(q, k, v, length),
@@ -270,12 +288,20 @@ def kernel_checks(torch, dev, flush):
         kt = k[:, :length].transpose(1, 2)
         vt = v[:, :length].transpose(1, 2)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt), torch, flush)
-        nbytes = 2 * B * length * H * D * 2 + 2 * B * H * D * 2
-        bnd, by = bound_ms(nbytes, 4.0 * B * H * length * D)
-        b5.append(dict(case=f"B={B} S={S} length={length}", **acc,
-                       ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                       bound_by=by))
+            q[:, :, None], kt, vt, enable_gqa=True), torch, flush)
+        nbytes = 2 * B * length * Hkv * Dh * 2 + 2 * B * Hq * Dh * 2
+        bnd, by = bound_ms(nbytes, 4.0 * B * Hq * length * Dh)
+        rec = dict(case=case, **acc, rerun_diff=rerun, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                   plan=DA.cluster_plan(B, Hkv, length, SMS))
+        if grp > 1:
+            # the parent's model path: the valid cache expanded over the
+            # group (repeat_interleave), then B5 at one kv head a head
+            rec["expand_ms"] = time_ms(lambda: DA.decode_attention(
+                q, k[:, :length].repeat_interleave(grp, dim=2),
+                v[:, :length].repeat_interleave(grp, dim=2), length), torch,
+                flush)
+        b5.append(rec)
     results["decode_attention"] = b5
 
     # B6: 8 slots of ragged lengths (PAGED_LENGTHS)
@@ -745,6 +771,7 @@ def gqa_flash_checks(torch, dev, flush):
 #: the libraries whose bf16 kernels run their products on the tensor
 #: cores, and the name of that kernel in each
 TENSOR_CORE_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
+                       "blocksparse_flash_fwd": "bsa_fwd_mma_kernel",
                        "flash_attention_bwd": "flash_bwd_mma_kernel",
                        "flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel",
                        "flash_attention_bwd_dkv": "flash_bwd_dkv_mma_kernel",
@@ -771,8 +798,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def tensor_core_check(build) -> dict:
-    """Phase 3's proof that the bf16 B1, B2, B3, B4, B9 and B10 run on
-    the tensor cores:
+    """Phase 3's proof that the bf16 B1, B2, B3, B4, B8, B9 and B10 run
+    on the tensor cores:
     ``cuobjdump -sass`` of each built library must hold mma instructions
     (``HMMA``; ``HGMMA`` for wgmma), and ptxas must report no spill for
     the tensor-core kernel at D 64 (the main path's head dim).  Prints
@@ -902,6 +929,7 @@ def blocksparse_checks(torch, dev, flush):
         qbytes, rowbytes = BH * T * D * 2, BH * T * 4
         # B8
         o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+        o2, lse2 = BS.blocksparse_attention_fwd(q, k, v, *args)
         o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
         o_f, _ = BS.blocksparse_attention_fwd_plain(q, k, v, lc_bad, blk, H,
                                                     causal)
@@ -909,7 +937,9 @@ def blocksparse_checks(torch, dev, flush):
         acc = agree(f"B8 {case}", o, o_p, o_f)
         lse_err = max_err(lse, lse_p)
         check(lse_err <= LSE_ATOL, f"B8 {case}: lse off by {lse_err}")
-        del o, lse, o_f
+        rerun = max(max_err(o, o2), max_err(lse, lse2))
+        check(rerun == 0.0, f"B8 {case}: two launches differ by {rerun}")
+        del o, lse, o_f, o2, lse2
         ms = time_ms(lambda: BS.blocksparse_attention_fwd(q, k, v, *args),
                      torch, flush)
         plain = time_ms(lambda: BS.blocksparse_attention_fwd_plain(
@@ -919,8 +949,8 @@ def blocksparse_checks(torch, dev, flush):
         dense = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal),
                         torch, flush, N_TIMED_PLAIN)
         bnd, by = bound_ms(4 * qbytes + rowbytes, 4.0 * D * pairs)
-        b8.append(dict(case=case, **acc, lse_err=lse_err, ms=ms,
-                       plain_ms=plain, library_ms=lib, dense_ms=dense,
+        b8.append(dict(case=case, **acc, lse_err=lse_err, rerun_diff=rerun,
+                       ms=ms, plain_ms=plain, library_ms=lib, dense_ms=dense,
                        bound_ms=bnd, bound_by=by, pairs=pairs))
         # SDPA's backward with the mask: B9 + B10's yardstick
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
@@ -1075,6 +1105,11 @@ def main() -> int:
                      f"{c['split_ms']:.4f} ms" if "split_ms" in c else "")
                   + (f"; dense kernel {c['dense_ms']:.4f} ms"
                      if "dense_ms" in c else "")
+                  + (f"; plan {c['plan'][0]} split(s) of {c['plan'][1]} "
+                     f"positions" if "plan" in c else "")
+                  + (f"; the cache expanded over the group "
+                     f"(repeat_interleave) then B5 {c['expand_ms']:.4f} ms"
+                     if "expand_ms" in c else "")
                   + (f"; the whole backward (eager rowsum(dO * O) "
                      f"{c['delta_ms']:.4f} ms, B9, B10) "
                      f"{c['backward_ms']:.4f} ms against SDPA's masked "
@@ -1153,7 +1188,7 @@ def main() -> int:
                          plain_model=masked_plain_model,
                          keys_per_query=keys,
                          profile_shares={
-                             "B8": ("bsa_fwd_kernel",),
+                             "B8": (tck["blocksparse_flash_fwd"],),
                              "B9 + B10": (tck["blocksparse_flash_bwd_dq"],
                                           tck["blocksparse_flash_bwd_dkv"])})
     print(f"  MFU's attention term: {keys:.1f} visible keys per query "
@@ -1248,6 +1283,27 @@ def main() -> int:
     return 0
 
 
+def warm_up_at_kv_head_width(eng, prompts, label, kv_heads) -> None:
+    """``generate()`` 4 new tokens as the untimed warm-up, with a spy on
+    the model's B5 call that fails unless every call sees the layer's
+    cache at the model's ``kv_heads``, never a copy expanded over the
+    group.  The spy is gone before the timed run."""
+    from deepspeed_tpu_torch.models import transformer as model_mod
+    real_b5 = model_mod.decode_attention
+    seen = set()
+
+    def b5_spy(q, k, v, length, sm_scale=None):
+        seen.add(int(k.shape[2]))
+        return real_b5(q, k, v, length, sm_scale)
+    model_mod.decode_attention = b5_spy
+    try:
+        eng.generate(prompts, max_new_tokens=4)
+    finally:
+        model_mod.decode_attention = real_b5
+    check(seen == {kv_heads}, f"{label}: B5 saw caches of {sorted(seen)} "
+          f"kv heads, not the model's {kv_heads}")
+
+
 def serve_phase(torch, np, label, cfg) -> dict:
     """``init_inference`` on ``cfg`` in bf16 with random weights from
     seed 0, then ``generate()`` (8 x 128 prompts, 64 new tokens, greedy:
@@ -1267,7 +1323,7 @@ def serve_phase(torch, np, label, cfg) -> dict:
           f"({sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9:.2f} GB bf16) "
           f"in {time.perf_counter() - t0:.1f} s")
     rng, prompts, lens, sprompts = serving_prompts(np, cfg.vocab_size)
-    eng.generate(prompts, max_new_tokens=4)          # warm-up
+    warm_up_at_kv_head_width(eng, prompts, label, cfg.kv_heads)
     build.reset_launch_counts()
     out = eng.generate(prompts, max_new_tokens=64)
     torch.cuda.synchronize()
@@ -1283,7 +1339,8 @@ def serve_phase(torch, np, label, cfg) -> dict:
           f"{stats['ttft_p50_ms']:.1f} ms, decode "
           f"{stats['p50_ms']:.2f} ms/token ({8 * stats['tokens_per_sec']:.0f}"
           f" tokens/s over the batch); B5 launches "
-          f"{gen_counts['decode_attention']}")
+          f"{gen_counts['decode_attention']}, each over the cache at "
+          f"{cfg.kv_heads} kv heads ({cfg.num_heads} query heads)")
 
     device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
                    f"{label} generate 8 x 128 prompts, 16 new tokens")
@@ -1657,7 +1714,7 @@ def int8_serve_phase(torch, np, label, cfg, bf16_prefill) -> dict:
           f"blocks + f32 group scales, bf16 embeddings) against "
           f"{cfg.num_params() * 2 / 1e9:.2f} GB bf16")
     _, prompts, lens, sprompts = serving_prompts(np, cfg.vocab_size)
-    eng.generate(prompts, max_new_tokens=4)          # warm-up
+    warm_up_at_kv_head_width(eng, prompts, label, cfg.kv_heads)
     build.reset_launch_counts()
     out = eng.generate(prompts, max_new_tokens=64)
     torch.cuda.synchronize()

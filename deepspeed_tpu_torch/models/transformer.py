@@ -436,7 +436,6 @@ class TransformerLM(nn.Module):
                              f"writing {t} at {idx}")
         pos = idx + torch.arange(t, device=input_ids.device)[None]
         x = self._embed(params, input_ids, pos)
-        group = c.num_heads // c.kv_heads
         sparse = None
         if c.attn_impl == "blocksparse":
             sparse = self._sparse_mask(idx, t, cache["k"].shape[2],
@@ -456,15 +455,11 @@ class TransformerLM(nn.Module):
                                         kv_positions_offset=idx)
                     return o.reshape(b, t, -1)
                 if t == 1 and c.attn_impl == "flash":
-                    # token-at-a-time hot path: kernel B5 over the cache;
-                    # B5 takes one kv head per query head, so a GQA cache
-                    # is expanded over the group first, as the JAX model
-                    # does (`expand_kv`)
-                    kk, vv = ck, cv
-                    if group > 1:
-                        kk = ck[:, :idx + 1].repeat_interleave(group, dim=2)
-                        vv = cv[:, :idx + 1].repeat_interleave(group, dim=2)
-                    o = decode_attention(q[:, 0].contiguous(), kk, vv,
+                    # token-at-a-time hot path: kernel B5 over the cache
+                    # at kv-head width (query head h reads kv head h // g;
+                    # the JAX model expands the cache with `expand_kv`
+                    # first, which gives the same result)
+                    o = decode_attention(q[:, 0].contiguous(), ck, cv,
                                          idx + 1)
                     return o.reshape(b, 1, -1)
                 o = L.gqa_attention(q, ck[:, :idx + t], cv[:, :idx + t],

@@ -2,16 +2,24 @@
 
 Counterpart of ``deepspeed_tpu/ops/transformer/decode_attention.py``
 (`_kernel_heads` via `decode_attention`).  One new query token per batch
-row attends over the contiguous ``[B, S, H, D]`` KV cache up to one
-valid length.  The kernel is ``csrc/decode_attention.cu``; the plain
-PyTorch version beside it is what the CPU runs and what the card's
-kernel is checked against.
+row attends over the contiguous KV cache up to one valid length.  The
+kernel is ``csrc/decode_attention.cu``; the plain PyTorch version beside
+it is what the CPU runs and what the card's kernel is checked against.
 
-Layout contract (the JAX package's): q ``[B, H, D]``, k/v
-``[B, S, H, D]``, ``length`` the valid cache prefix (index of the new
-token + 1); returns ``[B, H, D]``.  Rows at or past ``length`` are never
-read, so any content there (NaN included) cannot reach the result, and
-``length == 0`` gives zero rows.
+Layout contract: q ``[B, H, D]``, k/v ``[B, S, Hkv, D]`` with ``H % Hkv
+== 0``, ``length`` the valid cache prefix (index of the new token + 1);
+returns ``[B, H, D]``.  Query head h reads kv head ``h // (H / Hkv)``
+(the map of B1, B6 and B7), so a grouped-query cache is read at kv-head
+width and never expanded; ``Hkv == H`` is the JAX kernel's contract (the
+JAX model expands a grouped cache with ``expand_kv`` first, which gives
+the same result).  Rows at or past ``length`` are never read, so any
+content there (NaN included) cannot reach the result, and ``length ==
+0`` gives zero rows.
+
+The bf16 kernel runs one block per (batch row, kv head, split) and
+merges a row's splits inside one thread-block cluster
+(:func:`cluster_plan`); the f32 kernel keeps one warp per head and a
+second merge launch over a scratch (:func:`split_plan`).
 """
 from __future__ import annotations
 
@@ -27,25 +35,31 @@ from .. import build
 _NAME = "decode_attention"
 _SYM = "dstt_decode_attention"
 
-#: heads per block and key rows per block iteration in the kernel
+#: heads per block of the f32 kernel
 _HEADS_PER_BLOCK = 4
 #: a split never holds fewer positions than this
 _MIN_SPLIT_ROWS = 64
+#: the bf16 kernel's cluster holds at most this many splits (the portable
+#: cluster size) and a block at most this many output features (g * D)
+_MAX_SPLITS = 8
+_MAX_GROUP_DIM = 4096
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            length: int) -> None:
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"decode_attention: q must be [B, H, D] and k/v "
-                         f"[B, S, H, D], got {tuple(q.shape)}, "
+                         f"[B, S, Hkv, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
     if k.shape != v.shape:
         raise ValueError(f"decode_attention: k {tuple(k.shape)} != v "
                          f"{tuple(v.shape)}")
     b, h, d = q.shape
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+    hkv = k.shape[2]
+    if (k.shape[0], k.shape[3]) != (b, d) or hkv < 1 or h % hkv:
         raise ValueError(f"decode_attention: cache {tuple(k.shape)} does "
-                         f"not match q {tuple(q.shape)} as [B, S, H, D]")
+                         f"not match q {tuple(q.shape)} as [B, S, Hkv, D] "
+                         f"with H a multiple of Hkv")
     if not 0 <= int(length) <= k.shape[1]:
         raise ValueError(f"decode_attention: length {length} outside "
                          f"[0, {k.shape[1]}]")
@@ -66,8 +80,9 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     if length == 0:
         return torch.zeros_like(q)
     scale = sm_scale or 1.0 / math.sqrt(q.shape[-1])
-    kf = k[:, :length].float()
-    vf = v[:, :length].float()
+    g = q.shape[1] // k.shape[2]
+    kf = k[:, :length].float().repeat_interleave(g, dim=2)
+    vf = v[:, :length].float().repeat_interleave(g, dim=2)
     s = torch.einsum("bhd,bshd->bhs", q.float(), kf) * scale
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, vf).to(q.dtype)
@@ -80,12 +95,27 @@ def _sm_count(index: int) -> int:
 
 def split_plan(batch: int, heads: int, length: int, sms: int
                ) -> Tuple[int, int]:
-    """(number of position splits, positions per split): enough blocks
-    for about two per SM, no split shorter than ``_MIN_SPLIT_ROWS``."""
+    """The f32 kernel's (number of position splits, positions per
+    split): enough blocks for about two per SM, no split shorter than
+    ``_MIN_SPLIT_ROWS``."""
     blocks = batch * -(-heads // _HEADS_PER_BLOCK)
     nsplit = max(1, min(-(-2 * sms // blocks),
                         -(-length // _MIN_SPLIT_ROWS)))
     split_len = max(1, -(-length // nsplit))
+    return -(-max(length, 1) // split_len), split_len
+
+
+def cluster_plan(batch: int, kv_heads: int, length: int, sms: int
+                 ) -> Tuple[int, int]:
+    """The bf16 kernel's (splits of one (row, kv head), positions per
+    split): positions are split only until the B * Hkv * nsplit blocks
+    reach one an SM, into at most ``_MAX_SPLITS`` (one cluster) splits of
+    at least ``_MIN_SPLIT_ROWS`` rows, each a whole number of them."""
+    blocks = batch * kv_heads
+    nsplit = max(1, min(-(-sms // blocks), _MAX_SPLITS,
+                        -(-length // _MIN_SPLIT_ROWS)))
+    split_len = -(-max(length, 1) // nsplit)
+    split_len = -(-split_len // _MIN_SPLIT_ROWS) * _MIN_SPLIT_ROWS
     return -(-max(length, 1) // split_len), split_len
 
 
@@ -94,7 +124,7 @@ def _kernel():
     lib = build.load_library(_NAME)
     fn = getattr(lib, _SYM)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float,
+    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float,
                    I, P]
     fn.restype = I
     return lib, fn
@@ -111,14 +141,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check_layout(_NAME, (("q", q), ("k", k), ("v", v)), q.shape[-1],
                        q.element_size())
     b, h, d = q.shape
-    s = k.shape[1]
+    s, hkv = k.shape[1], k.shape[2]
     length = int(length)
     scale = sm_scale or 1.0 / math.sqrt(d)
-    nsplit, split_len = split_plan(b, h, length,
-                                   _sm_count(q.device.index or 0))
+    sms = _sm_count(q.device.index or 0)
+    if code == 0:
+        nsplit, split_len = split_plan(b, h, length, sms)
+    else:
+        if (h // hkv) * d > _MAX_GROUP_DIM:
+            raise ValueError(f"decode_attention kernel: a kv group of "
+                             f"{h // hkv} heads x head_dim {d} exceeds "
+                             f"{_MAX_GROUP_DIM} features a block")
+        nsplit, split_len = cluster_plan(b, hkv, length, sms)
     out = torch.empty_like(q)
     part_ml = part_acc = None
-    if nsplit > 1:
+    if code == 0 and nsplit > 1:
         part_ml = torch.empty((b * h * nsplit * 2,), dtype=torch.float32,
                               device=q.device)
         part_acc = torch.empty((b * h * nsplit * d,), dtype=torch.float32,
@@ -127,7 +164,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
-            b, s, h, d, length, nsplit, split_len, scale, code,
+            b, s, h, hkv, d, length, nsplit, split_len, scale, code,
             build.current_stream(q.device))
     build.check_launch(lib, _SYM, rc)
     build.launch_counts[_NAME] += 1

@@ -34,18 +34,32 @@ def _np(x):
 
 
 # -- B5: dense decode ---------------------------------------------------------
-@pytest.mark.parametrize("s,length", [(24, 24), (24, 13), (40, 1), (24, 0)])
-def test_decode_attention_matches_jax(s, length):
+#: (S, length, Hkv) under H 4: the JAX kernel's contract (Hkv = H, the
+#: original ids) and the port's kv-head width (Hkv 2 and 1)
+DECODE_CASES = [(24, 24, 4), (24, 13, 4), (40, 1, 4), (24, 0, 4),
+                (24, 24, 2), (24, 13, 2), (40, 1, 1), (24, 0, 2),
+                (24, 17, 1)]
+
+
+@pytest.mark.parametrize("s,length,hkv", DECODE_CASES, ids=[
+    f"{s}-{n}" if hkv == 4 else f"{s}-{n}-kv{hkv}"
+    for s, n, hkv in DECODE_CASES])
+def test_decode_attention_matches_jax(s, length, hkv):
     """Full, ragged and empty valid lengths; rows past the length hold
-    NaN, which must not reach either result."""
-    rng = np.random.default_rng(s + length)
+    NaN, which must not reach either result.  With Hkv < H the port reads
+    the cache at kv-head width (query head h reads kv head h // (H /
+    Hkv)); JAX's kernel takes one kv head per query head, so it gets the
+    cache expanded over the group, as the JAX model's ``expand_kv``
+    gives it."""
+    rng = np.random.default_rng(s + length + 100 * (hkv != 4) + hkv)
     b, h, d = 2, 4, 16
     q = rng.standard_normal((b, h, d)).astype(np.float32)
-    k = rng.standard_normal((b, s, h, d)).astype(np.float32)
-    v = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
     k[:, length:] = np.nan
     v[:, length:] = np.nan
-    want = _np(jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    ke, ve = (np.repeat(x, h // hkv, axis=2) for x in (k, v))
+    want = _np(jax_decode(jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve),
                           length, interpret=True))
     got = DA.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), length).numpy()
@@ -53,6 +67,22 @@ def test_decode_attention_matches_jax(s, length):
     np.testing.assert_allclose(got, want, **TOL)
     if length == 0:
         assert (got == 0).all()
+
+
+@pytest.mark.parametrize("b,hkv,length,sms,want", [
+    (8, 32, 192, 132, (1, 192)),    # GPT-3 6.7B: 256 blocks fill the card
+    (8, 4, 192, 132, (3, 64)),      # TinyLlama: 32 blocks, 3 splits of 64
+    (8, 4, 130, 132, (3, 64)),      # ragged: the last split holds 2 rows
+    (1, 4, 4000, 132, (8, 512)),    # at most one cluster of 8
+    (2, 2, 0, 132, (1, 64)),        # length 0: one empty split
+])
+def test_cluster_plan(b, hkv, length, sms, want):
+    """B5's bf16 split plan: split only until the blocks fill the card,
+    at most 8 splits (one cluster), each a whole number of 64-row
+    chunks that together cover the length."""
+    nsplit, split_len = DA.cluster_plan(b, hkv, length, sms)
+    assert (nsplit, split_len) == want
+    assert (nsplit - 1) * split_len < max(length, 1) <= nsplit * split_len
 
 
 # -- B6: batched paged decode -----------------------------------------------
@@ -240,6 +270,7 @@ def _paged_args(h=4, hkv=4, d=16):
     ("decode_bad_rank", ValueError),
     ("decode_length_past_cache", ValueError),
     ("decode_dtype_mismatch", TypeError),
+    ("decode_heads_not_multiple", ValueError),
     ("paged_heads_not_multiple", ValueError),
     ("paged_pool_shapes_differ", ValueError),
     ("paged_lengths_int64", TypeError),
@@ -259,6 +290,9 @@ def test_wrapper_errors(case, exc):
         "decode_length_past_cache": lambda: DA.decode_attention(q, k, k, 7),
         "decode_dtype_mismatch": lambda: DA.decode_attention(
             q, k.double(), k.double(), 1),
+        # H 4 over a cache of 3 kv heads
+        "decode_heads_not_multiple": lambda: DA.decode_attention(
+            q, k[:, :, :3], k[:, :, :3], 1),
         "paged_heads_not_multiple": lambda: PA.paged_decode_attention(
             *_paged_args(h=4, hkv=3)),
         "paged_pool_shapes_differ": lambda: PA.paged_decode_attention(

@@ -93,6 +93,80 @@ def test_cuda_kernels_match_plain(dtype):
             torch.testing.assert_close(got, want, **tol)
 
 
+def decode_case(b, h, hkv, s_len, d, dtype, seed):
+    """Seeded q ``[B, H, D]`` and a cache k, v ``[B, S, Hkv, D]`` on the
+    card."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def t(*shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+    return t(b, h, d), t(b, s_len, hkv, d), t(b, s_len, hkv, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 8, 16])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b,length", [(3, 300), (3, 131), (1, 300),
+                                      (2, 1), (2, 0)])
+def test_cuda_decode_attention_at_kv_head_width(g, d, b, length):
+    """The bf16 B5 (one block per (row, kv head, split), the group's g
+    query heads together, splits merged in one thread-block cluster) on
+    a cache at kv-head width (H 16 over 16 / g kv heads), at every head
+    dim the kernel takes: D 8 gives one 16-byte vector a row, and g 16
+    gives a thread two output vectors at D 128 and four at D 256 (g * D
+    4096, the most a block holds).  Held against its
+    plain version on the same inputs, with NaN in every row past the
+    length (never read); bit-equal on a second launch.  The plan
+    (``cluster_plan``) splits these caches into 3 to 5 ranks of a
+    cluster; length 0 gives zero rows.  Tolerance: atol
+    4e-3, rtol 8e-3 (both sides round the f32 result to bf16 once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    h, s_len = 16, 300
+    q, k, v = decode_case(b, h, h // g, s_len, d, torch.bfloat16,
+                          seed=10 * g + d + b + length)
+    k[:, length:] = float("nan")
+    v[:, length:] = float("nan")
+    got = DA.decode_attention(q, k, v, length)
+    want = DA.decode_attention_plain(q, k, v, length)
+    assert bool(got.isfinite().all())
+    bad = off_limit(got, want)
+    assert not bad, f"{len(bad)} elements off, first {bad[:8]}"
+    assert torch.equal(got, DA.decode_attention(q, k, v, length))
+    if length == 0:
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,d,length,nsplit", [
+    (8, 32, 32, 128, 192, 1),    # GPT-3 6.7B's decode step
+    (8, 32, 4, 64, 192, 3),      # TinyLlama-1.1B's: three splits merged
+])
+def test_cuda_decode_attention_is_one_launch(b, h, hkv, d, length, nsplit):
+    """At the main paths' decode shapes the bf16 B5 is one kernel launch
+    a call (a trace of the call holds one CUDA kernel), whether or not
+    its positions are split: the splits of a (row, kv head) merge inside
+    their cluster, with no second kernel and no scratch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = decode_case(b, h, hkv, length, d, torch.bfloat16, seed=7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert DA.cluster_plan(b, hkv, length, sms)[0] == nsplit
+    DA.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        DA.decode_attention(q, k, v, length)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    assert "decode_cluster_kernel" in kernels[0].key
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -292,6 +366,50 @@ def digest(x):
     """sha256 of a tensor's bytes (bf16 read as int16, f32 as int32)."""
     raw = x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
     return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+
+
+#: sha256 of the float32 B5 outputs on ``decode_digests``' inputs (one kv
+#: head a query head), as the kernel of commit f00a71f gave them on an
+#: H100 80GB HBM3: the f32 B5 keeps its CUDA-core kernel, with the kv
+#: head index h / g added
+DECODE_DIGESTS = {
+    "f32 B5 S70 length45 D128":
+        "4f3d4c105d4e92684cd02d55aa55156061b4cd2aba7a475cbd15f7ad49bee384",
+    "f32 B5 S700 length650 D64":
+        "386e01e911e34f63e67dfc081eb4bf3c8619af215127f3bed93bd674d681dab2",
+}
+
+
+def decode_digests():
+    """The float32 B5 on fixed inputs at Hkv = H (the contract the parent
+    kernel took): a short cache in one pass and a long one split over
+    eleven blocks a head and merged by the second kernel; the sha256 of
+    each output."""
+    dev = torch.device("cuda")
+    out = {}
+    for b, h, s_len, d, length in ((3, 8, 70, 128, 45),
+                                   (2, 8, 700, 64, 650)):
+        rng = np.random.default_rng(s_len + length)
+
+        def t(*shape):
+            a = rng.standard_normal(shape).astype(np.float32)
+            return torch.from_numpy(a).to(dev)
+        q, k, v = t(b, h, d), t(b, s_len, h, d), t(b, s_len, h, d)
+        k[:, length:] = float("nan")
+        v[:, length:] = float("nan")
+        out[f"f32 B5 S{s_len} length{length} D{d}"] = digest(
+            DA.decode_attention(q, k, v, length))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_decode_f32_keeps_its_bits():
+    """The float32 B5 keeps its CUDA-core kernel when the bf16 one moves
+    to the cluster design: its outputs on fixed inputs have the pinned
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert decode_digests() == DECODE_DIGESTS
 
 
 #: sha256 of the float32 and bfloat16 B1 (o, lse), B2 and B3/B4 (dq, dk,
@@ -624,10 +742,109 @@ def test_cuda_blocksparse_one_tile_every_element(causal):
         assert off_limit(flipped, b), f"{name}: a transposed fragment passes"
 
 
-#: sha256 of the float32 B8 (o, lse), B9 (dq) and B10 (dk, dv) outputs and
-#: of the bfloat16 B8 outputs on ``blocksparse_digests``' inputs, as the
-#: kernels of commit 12df449 gave them on an H100 80GB HBM3: the f32
-#: kernels stay on the CUDA cores and the bf16 B8 is untouched
+#: the bf16 B8 card cases: (name, block, T, causal, per-head layout)
+SPARSE_FWD_CASES = [
+    ("block16-ragged-full", 16, 208, False, True),
+    ("block16-causal", 16, 256, True, True),
+    ("block32-ragged-causal", 32, 224, True, False),
+    ("block64-causal", 64, 320, True, True),
+    ("block128-full", 128, 384, False, False),
+    ("block128-causal", 128, 512, True, True),
+]
+
+
+def masked_first_pair_layout(causal):
+    """A per-head layout of 16-row blocks over T 128 (two 64-row tiles)
+    in which query block 4 (the first rows of query tile 1) sees key block
+    4 alone while query block 5 also sees key block 0: tile 1's walk
+    starts with the pair (1, 0), where block 4's rows see no key, and
+    their first real maximum comes in the next pair."""
+    nb = 8
+    lay = np.zeros((2, nb, nb), bool)
+    lay[:, np.arange(nb), np.arange(nb)] = True
+    lay[:, 1, 0] = lay[:, 3, 2] = True
+    lay[:, 5, 0] = lay[:, 7, 1] = True
+    if causal:
+        lay &= np.tril(np.ones((nb, nb), bool))
+    return lay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,block,t_len,causal,per_head",
+                         SPARSE_FWD_CASES,
+                         ids=[c[0] for c in SPARSE_FWD_CASES])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_blocksparse_fwd_on_tensor_cores_matches_plain(d, name, block,
+                                                            t_len, causal,
+                                                            per_head):
+    """The bf16 B8 runs its products on the tensor cores (mma.sync over
+    the layout's tile lists): every head dim it takes, layout blocks of
+    16 and 32 (sub-block masks inside a 64-row tile pair), 64 and 128 (a
+    block spans 2 x 2 tile pairs; causal, the pair above the diagonal is
+    walked and wholly masked), T ragged against the tile (208, 224),
+    per-head and shared layouts, causal and full: o and lse against the
+    plain version on the same inputs, and bit-equal on a second launch.
+    Tolerance: o atol 4e-3, rtol 8e-3 (one bf16 ulp); lse, f32 in both,
+    atol and rtol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, _, _, args = sparse_case(block, t_len, d, causal, per_head,
+                                      torch.bfloat16,
+                                      seed=300 * d + block + t_len + causal)
+    o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+    o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+    bad = off_limit(o, o_p)
+    assert not bad, f"o: {len(bad)} elements off, first {bad[:8]}"
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    o2, lse2 = BS.blocksparse_attention_fwd(q, k, v, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_cuda_blocksparse_fwd_masked_first_pair(d, causal):
+    """Rows that see no key in the first pair of their walk: B8 gives
+    their masked scores MASK_VALUE in the base-2 domain, so the pair's
+    maximum is finite (not -inf, which would make -inf - -inf = NaN), and
+    the next pair's real maximum scales its junk to 0.  o and lse
+    against the plain version (which softmaxes the whole walk at once),
+    every element, and bit-equal on a second launch; the rows are seen
+    to differ from the fault of a kernel that kept the junk (their o
+    from the first pair alone)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    lay = masked_first_pair_layout(causal)
+    lc = BS.compress_layout(lay)
+    rng = np.random.default_rng(d + causal)
+
+    def t():
+        a = rng.standard_normal((4, 128, d)).astype(np.float32)
+        return torch.from_numpy(a).to(dev, torch.bfloat16)
+    q, k, v = t(), t(), t()
+    args = (lc, 16, 2, causal)
+    walk = BS.tile_layout(lc, 16, 128).q_walk
+    assert list(walk[0][0, 1, :2]) == [0, 1]            # tile 1 walks 0, 1
+    assert not walk[2][0, 1, 0] & 0xF                   # block 4: no key
+    assert walk[2][0, 1, 0] & 0x10                      # block 5: key 0
+    o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+    o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+    assert bool(o.isfinite().all()) and bool(lse.isfinite().all())
+    bad = off_limit(o, o_p)
+    assert not bad, f"o: {len(bad)} elements off, first {bad[:8]}"
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    o2, lse2 = BS.blocksparse_attention_fwd(q, k, v, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    junk = v[:, :64].float().mean(dim=1)                # p = 1 on tile 0
+    assert off_limit(junk[:, None].expand(-1, 16, -1), o_p[:, 64:80])
+
+
+#: sha256 of the float32 B8 (o, lse), B9 (dq) and B10 (dk, dv) outputs on
+#: ``blocksparse_digests``' inputs, as the kernels of commit 12df449 gave
+#: them on an H100 80GB HBM3: the f32 kernels stay on the CUDA cores (the
+#: bf16 B8, now on the tensor cores, is held to its plain version and to
+#: its own bits on a second launch instead)
 BLOCKSPARSE_DIGESTS = {
     "f32 B8 o block16 T208 D64":
         "646fe390c60609a5418fde0db1783ac3d79ac6f124c309db47438f731b77d1da",
@@ -639,10 +856,6 @@ BLOCKSPARSE_DIGESTS = {
         "75921a30fca49c029324a8cb4814916774c8e03384948cfdb27c2d56aae4680e",
     "f32 B9/B10 dv block16 T208 D64":
         "cd55f6a34a18647ec066f59a573d0f7e68e5af28d9e93d2399e0fdb54119da4c",
-    "bf16 B8 o block16 T208 D64":
-        "a7962b3d68c4b16f0f4a253025d66c74b830fc0f45685113bd8376def4d8ddfa",
-    "bf16 B8 lse block16 T208 D64":
-        "093566e00503c98427a49293761780cc2f662689eb7a726fe22c6a4094874b31",
     "f32 B8 o block128 T384 D32":
         "114c1d9a35e4cfd08d3e272d004e392f0aac6b4fcec70f76ad9c867ccef7ad1a",
     "f32 B8 lse block128 T384 D32":
@@ -653,39 +866,33 @@ BLOCKSPARSE_DIGESTS = {
         "019b5e4c743c538e353dec13584ca5afcfd812bfd75370d584cee527705c1727",
     "f32 B9/B10 dv block128 T384 D32":
         "67b3d432339a51549991b0cfd64ad98d7e454768578b776e01d8555f35e7072b",
-    "bf16 B8 o block128 T384 D32":
-        "3059d54e39e4d897ab91d39f9f281f007cdf9c11fc641d5b52bb2d3e105b50c8",
-    "bf16 B8 lse block128 T384 D32":
-        "f4dc72dc99e28030d4e7ebe98329e57a7b2ec7520cbd3db7040dc496779cc15e",
 }
 
 
 def blocksparse_digests():
-    """B8, B9 and B10 in float32 and B8 in bfloat16 on fixed inputs (a
-    per-head layout of 16-row blocks, full, T 208, D 64; a shared layout
-    of 128-row blocks, causal, T 384, D 32): the sha256 of each output."""
+    """B8, B9 and B10 in float32 on fixed inputs (a per-head layout of
+    16-row blocks, full, T 208, D 64; a shared layout of 128-row blocks,
+    causal, T 384, D 32): the sha256 of each output."""
     out = {}
     for block, t_len, d, causal, per_head in ((16, 208, 64, False, True),
                                               (128, 384, 32, True, False)):
         case = f"block{block} T{t_len} D{d}"
-        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            q, k, v, do, _, args = sparse_case(block, t_len, d, causal,
-                                               per_head, dtype, seed=block)
-            o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
-            out[f"{kind} B8 o {case}"], out[f"{kind} B8 lse {case}"] = (
-                digest(o), digest(lse))
-            if kind == "f32":
-                got = sparse_outputs(q, k, v, do, args)[0]
-                for name, x in zip(("dq", "dk", "dv"), got):
-                    out[f"f32 B9/B10 {name} {case}"] = digest(x)
+        q, k, v, do, _, args = sparse_case(block, t_len, d, causal,
+                                           per_head, torch.float32,
+                                           seed=block)
+        o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+        out[f"f32 B8 o {case}"], out[f"f32 B8 lse {case}"] = (
+            digest(o), digest(lse))
+        got = sparse_outputs(q, k, v, do, args)[0]
+        for name, x in zip(("dq", "dk", "dv"), got):
+            out[f"f32 B9/B10 {name} {case}"] = digest(x)
     return out
 
 
 @pytest.mark.cuda
 def test_cuda_blocksparse_kernels_keep_their_bits():
-    """The float32 B8, B9 and B10 keep their CUDA-core kernels and the
-    bfloat16 B8 its kernel: their outputs on fixed inputs have the pinned
-    bits."""
+    """The float32 B8, B9 and B10 keep their CUDA-core kernels: their
+    outputs on fixed inputs have the pinned bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     assert blocksparse_digests() == BLOCKSPARSE_DIGESTS

@@ -98,8 +98,9 @@ def test_llama_cache_prefill_and_decode_match_jax(llama_weights, attn_impl,
                                                   interleaved):
     """Dense-cache prefill then three t == 1 decode steps: the cache at
     kv-head width, rotary at the cache index; decode through kernel B5
-    (its plain version) over k/v expanded over the group with
-    ``flash``, plain GQA attention with ``xla``."""
+    (its plain version) over the cache at kv-head width with ``flash``
+    (JAX expands it over the group first), plain GQA attention with
+    ``xla``."""
     jp, tp = llama_weights
     jm, pm = llama_models(attn_impl, rotary_interleaved=interleaved)
     x = ids(2, 9, 5)
@@ -116,6 +117,42 @@ def test_llama_cache_prefill_and_decode_match_jax(llama_weights, attn_impl,
         np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **TOL)
     np.testing.assert_allclose(pc["k"].numpy()[:, :, :12],
                                np.asarray(jc["k"])[:, :, :12], **TOL)
+
+
+def test_llama_dense_decode_reads_the_cache_at_kv_head_width(
+        llama_weights, monkeypatch):
+    """The flash model's t == 1 decode hands kernel B5 the layer's cache
+    as it is, [B, S, Hkv, D] with Hkv = kv_heads (no copy expanded over
+    the group), and its logits still equal the JAX model's, which
+    expands the cache with ``expand_kv`` before its kernel."""
+    jp, tp = llama_weights
+    jm, pm = llama_models("flash")
+    seen = []
+
+    def spy(q, k, v, length, sm_scale=None):
+        seen.append((tuple(q.shape), tuple(k.shape), k.data_ptr()))
+        return real(q, k, v, length, sm_scale)
+    real = tt.decode_attention
+    monkeypatch.setattr(tt, "decode_attention", spy)
+    x = ids(2, 7, 41)
+    jc = jm.init_cache(2, 12, dtype=jnp.float32)
+    pc = pm.init_cache(2, 12, dtype=torch.float32, device="cpu")
+    jl, jc = jm.apply(jp, jnp.asarray(x), cache=jc)
+    _, pc = pm.apply(tp, torch.from_numpy(x).long(), cache=pc)
+    assert not seen                      # the prefill does not decode
+    for step in range(2):
+        tok = ids(2, 1, 50 + step)
+        jl, jc = jm.apply(jp, jnp.asarray(tok), cache=jc)
+        pl_, pc = pm.apply(tp, torch.from_numpy(tok).long(), cache=pc)
+        np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), **TOL)
+    cfg = pm.config
+    assert len(seen) == 2 * cfg.num_layers
+    layer_ptrs = {pc["k"][i].data_ptr() for i in range(cfg.num_layers)}
+    for qs, ks, ptr in seen:
+        assert qs == (2, cfg.num_heads, cfg.hdim)
+        assert ks == (2, 12, cfg.kv_heads, cfg.hdim)
+        assert cfg.kv_heads < cfg.num_heads
+        assert ptr in layer_ptrs         # the cache itself, not a copy
 
 
 def test_llama_param_tree_and_sizes_match_jax(llama_weights):
