@@ -25,7 +25,10 @@ Phases (any failure exits non-zero and prints no result line):
    first, the bf16 B1, B2, B3, B4, B8, B9 and B10 must show tensor-core
    instructions (``HMMA``) in ``cuobjdump -sass`` of their libraries and
    no ptxas spill at D 64 (registers and spills printed for every head
-   dim);
+   dim), and the bf16 B7 (``paged_prefill_mma_kernel``) ``HMMA`` and no
+   spill at D 64 and 128 for kv_bits 0, 8 and 4 (its registers and B6's
+   cluster kernel's printed); B5-B7 must give the same bits on two
+   launches;
 4. ``init_inference(TransformerLM(gpt2_config("6.7b")))`` with random
    weights from seed 0, then ``generate()`` on 8 prompts of 128 tokens,
    64 new tokens, greedy: every decode step goes through kernel B5;
@@ -34,7 +37,9 @@ Phases (any failure exits non-zero and prints no result line):
 5. the continuous-batching server on the same engine: 16 greedy requests
    with prompt lengths 16-512, 32 new tokens each, drained with
    ``run()``: decode through kernel B6, prompt chunks through kernel B7;
-   first-step logits of 4 requests checked against ``generate()``'s;
+   first-step logits of 4 requests checked against ``generate()``'s; the
+   profiles of a short burst and of the drain run again on fresh prompts
+   print the device time and B6's and B7's shares of it;
 6. training: ``initialize`` on GPT-2 125M (all 12 layers, seq 1024,
    ``remat="full"``, flash attention, fused loss head at chunk 256) with
    ``bench.py``'s config (micro batch 64, AdamW, bf16 over f32 masters,
@@ -56,7 +61,8 @@ Phases (any failure exits non-zero and prints no result line):
    seed 0): ``generate()`` on B5 over the cache at kv-head width (B5
    must see the layer's cache of 4 kv heads, never a copy expanded over
    the group),
-   ``forward()`` on B1, and the server on B6/B7 at kv-head width;
+   ``forward()`` on B1, and the server on B6/B7 at kv-head width (the
+   drain's profile with B6's and B7's shares as in phase 5);
 9. training block-sparse GPT-2 125M (all 12 layers, ``attn_impl=
    "blocksparse"`` with ``FixedSparsityConfig(block=64, 4 local blocks,
    1 global, unidirectional)``, seq 8192, micro 8, ``remat="full"``,
@@ -76,8 +82,9 @@ Phases (any failure exits non-zero and prints no result line):
    variants of B6 and B7 run and the bf16 ones do not; pool bytes,
    ``blocks_for_budget`` at the bf16 pool's budget, tokens/s, token
    agreement with ``generate()``, first-step logits at 8 bits against
-   ``generate()``'s, and one recorded mixed step (a chunk plus decode
-   slots) rerun with the kernels' plain versions;
+   ``generate()``'s, one recorded mixed step (a chunk plus decode slots)
+   rerun with the kernels' plain versions, and the drain's profile with
+   the int8/int4 B6's and B7's shares;
 12. int8 weight-only serving at GPT-3 6.7B width (``quant.enabled`` and
    ``kv_cache_bits`` 8, the seed-0 weights quantized): parameter bytes,
    ``generate()`` (TTFT, decode ms/token), ``forward()`` against phase
@@ -310,6 +317,7 @@ def kernel_checks(torch, dev, flush):
     NB, BLK, NP = PAGED_POOL
     q = randn(8, H, D)
     got = PA.paged_decode_attention(q, pk, pv, lens, tables)
+    again = PA.paged_decode_attention(q, pk, pv, lens, tables)
     want = PA.paged_decode_attention_plain(q, pk, pv, lens, tables)
     fault = PA.paged_decode_attention_plain(
         q, pk, pv, (lens - (lens > 0).int()).int(), tables)
@@ -317,6 +325,8 @@ def kernel_checks(torch, dev, flush):
     acc = agree("B6", got, want, fault)
     check(float(got[4].abs().max()) == 0.0 and
           float(got[6].abs().max()) == 0.0, "B6: inactive slots not zero")
+    rerun = max_err(got, again)
+    check(rerun == 0.0, f"B6: two launches differ by {rerun}")
     ms = time_ms(lambda: PA.paged_decode_attention(q, pk, pv, lens, tables),
                  torch, flush)
     plain = time_ms(lambda: PA.paged_decode_attention_plain(
@@ -325,8 +335,9 @@ def kernel_checks(torch, dev, flush):
     bnd, by = bound_ms(2 * rows * H * D * 2 + 2 * 8 * H * D * 2
                        + tables.numel() * 4, 4.0 * rows * H * D)
     results["paged_decode_attention"] = [dict(
-        case=f"8 slots, lengths {lengths}", **acc, ms=ms,
-        plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)]
+        case=f"8 slots, lengths {lengths}", **acc, rerun_diff=rerun, ms=ms,
+        plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
+        plan=DA.paged_split_plan(NP, BLK))]
 
     # B7: chunk of 256 through one slot's table at base 0, at base 256,
     # and a short chunk (chunk_len < C); rows past base + chunk_len are NaN
@@ -342,12 +353,17 @@ def kernel_checks(torch, dev, flush):
             pv2[perm[pg], off:] = float("nan")
         q = randn(C, H, D)
         got = PA.paged_prefill_attention(q, pk2, pv2, base, clen, table)
+        again = PA.paged_prefill_attention(q, pk2, pv2, base, clen, table)
         want = PA.paged_prefill_attention_plain(q, pk2, pv2, base, clen,
                                                 table)
         fault = PA.paged_prefill_attention_plain(q, pk2, pv2, base,
                                                  clen - 1, table)
         torch.cuda.synchronize()
         acc = agree(f"B7 base={base} len={clen}", got, want, fault)
+        rerun = max_err(got, again)
+        check(rerun == 0.0, f"B7 base={base} len={clen}: two launches "
+                            f"differ by {rerun}")
+        acc["rerun_diff"] = rerun
         ms = time_ms(lambda: PA.paged_prefill_attention(
             q, pk2, pv2, base, clen, table), torch, flush)
         plain = time_ms(lambda: PA.paged_prefill_attention_plain(
@@ -468,10 +484,14 @@ def quant_kernel_checks(torch, dev, flush):
                 return PA.paged_decode_attention_plain(q, kq, vq, lens,
                                                        tables, **quant)
             got = PA.paged_decode_attention(q, kq, vq, lens, tables, **quant)
+            again = PA.paged_decode_attention(q, kq, vq, lens, tables,
+                                              **quant)
             want = plain(kq, vq, quant)
             fault = plain(kq, vq, quant, (lens - (lens > 0).int()).int())
             torch.cuda.synchronize()
             acc = agree(name, got, want, fault)
+            acc["rerun_diff"] = max_err(got, again)
+            check(acc["rerun_diff"] == 0.0, f"{name}: two launches differ")
             check(float(got[4].abs().max()) == 0.0 and
                   float(got[6].abs().max()) == 0.0,
                   f"{name}: inactive slots not zero")
@@ -517,10 +537,14 @@ def quant_kernel_checks(torch, dev, flush):
                     q, kq, vq, base, clen, table, **quant)
             got = PA.paged_prefill_attention(q, kq, vq, base, clen, table,
                                              **quant)
+            again = PA.paged_prefill_attention(q, kq, vq, base, clen, table,
+                                               **quant)
             want = plain(kq, vq, quant)
             fault = plain(kq, vq, quant, clen - 1)
             torch.cuda.synchronize()
             acc = agree(name, got, want, fault)
+            acc["rerun_diff"] = max_err(got, again)
+            check(acc["rerun_diff"] == 0.0, f"{name}: two launches differ")
             if bits == 4:
                 nibble_fault(acc, plain, want, kq, vq, quant, int(table[0]))
             if base == 0:
@@ -834,6 +858,46 @@ def tensor_core_check(build) -> dict:
     return out
 
 
+def paged_kernel_check(build) -> dict:
+    """Phase 3's proof that the bf16 B7 runs on the tensor cores:
+    ``cuobjdump -sass`` of its library must hold ``HMMA``, and ptxas must
+    report ``paged_prefill_mma_kernel`` at D 32, 64 and 128 for kv_bits 0,
+    8 and 4, with no spill at D 64 and 128 (the served head dims).  Prints
+    the count and the registers of every instantiation of B7's
+    tensor-core kernel and of B6's cluster kernel (D 8-256)."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = {}
+    for name, kernel in (("paged_prefill_attention",
+                          "paged_prefill_mma_kernel"),
+                         ("paged_decode_attention",
+                          "paged_decode_cluster_kernel")):
+        path = build.library_path(name)
+        sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        hmma = len(re.findall(r"\bHMMA\.", sass))
+        regs = {}
+        for fn, rep in ptxas_report(Path(f"{path}.log").read_text()).items():
+            m = re.search(kernel + r"ILi(\d+)ELi(\d+)E", fn)
+            if m:
+                regs[int(m.group(1)), int(m.group(2))] = rep
+        if name == "paged_prefill_attention":
+            check(hmma > 0, f"{name}: no tensor-core instruction in its SASS")
+            want = {(d, b) for d in (32, 64, 128) for b in (0, 8, 4)}
+            check(set(regs) == want, f"{name}: ptxas reported "
+                  f"{sorted(regs)} of {kernel}'s (head dim, kv_bits)")
+            for (d, b), rep in regs.items():
+                check(d == 32 or rep.get("spill", 0) == 0,
+                      f"{name}: {kernel} spills {rep['spill']} bytes at D "
+                      f"{d}, kv_bits {b}")
+        print(f"paged kernels: {name}: {hmma} HMMA in its SASS; {kernel} "
+              + ", ".join(f"D {d} kv_bits {b}: {r.get('registers')} "
+                          f"registers, {r.get('spill', 0)} bytes spilled"
+                          for (d, b), r in sorted(regs.items())))
+        out[name] = dict(hmma=hmma, ptxas=regs)
+    return out
+
+
 #: the block-sparse slice's layout (GPT-2 125M's 12 heads at seq 8192)
 def sparse_config(heads: int = 12):
     from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
@@ -1083,6 +1147,7 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions -----------------------
     tensor_core_check(build)
+    paged_kernel_check(build)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     kres = kernel_checks(torch, dev, flush)
     for name, cases in kres.items():
@@ -1440,7 +1505,9 @@ def serve_phase(torch, np, label, cfg) -> dict:
             srv.submit(p, max_new_tokens=8)
         srv.run()
     device_profile(torch, serve_burst,
-                   f"{label} serving 8 requests, 8 new tokens")
+                   f"{label} serving 8 requests, 8 new tokens",
+                   shares=PAGED_SHARES)
+    drain_profile(torch, srv, lens, cfg.vocab_size, rng, label)
     del srv, eng
     import gc
     gc.collect()
@@ -1450,6 +1517,27 @@ def serve_phase(torch, np, label, cfg) -> dict:
             "paged_decode_attention": srv_counts["paged_decode_attention"],
             "paged_prefill_attention": srv_counts["paged_prefill_attention"],
             "prefill_logits": prefill_logits}
+
+
+#: B6's and B7's kernels in a profile, by name (every dtype and kv_bits)
+PAGED_SHARES = {"B6": ("paged_decode",), "B7": ("paged_prefill",)}
+
+
+def drain_profile(torch, srv, lens, vocab, rng, label) -> None:
+    """``device_profile`` of phase 5's drain again on ``srv``: 16
+    requests of the drain's prompt lengths ``lens`` (fresh tokens from
+    ``rng``: the served prompts sit in the prefix cache), 32 new each,
+    with B6's and B7's shares of the drain's device time."""
+    runs = iter([[rng.integers(0, vocab, n).tolist() for n in lens]
+                 for _ in range(2)])
+
+    def run():
+        for prompt in next(runs):
+            srv.submit(prompt, max_new_tokens=32)
+        srv.run()
+    device_profile(torch, run, f"{label} drain again: {len(lens)} "
+                               f"requests, 32 new tokens each",
+                   shares=PAGED_SHARES)
 
 
 #: phase 5's server: 512 blocks of 16 tokens, 8 slots, chunk 256
@@ -1683,7 +1771,10 @@ def quant_serve_phase(torch, np, label, cfg) -> dict:
         check(same_rows, f"{tag}: kernels and plain wrote different rows")
         check(layer0, f"{tag}: layer 0's written values or scales differ "
                       f"between kernels and plain")
-        del srv, eng, rec, state, res
+        del rec, state, res
+        drain_profile(torch, srv, lens, cfg.vocab_size,
+                      np.random.default_rng(bits), tag)
+        del srv, eng
         torch.cuda.empty_cache()
     del ref
     import gc

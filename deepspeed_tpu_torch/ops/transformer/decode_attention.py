@@ -19,7 +19,9 @@ content there (NaN included) cannot reach the result, and ``length ==
 The bf16 kernel runs one block per (batch row, kv head, split) and
 merges a row's splits inside one thread-block cluster
 (:func:`cluster_plan`); the f32 kernel keeps one warp per head and a
-second merge launch over a scratch (:func:`split_plan`).
+second merge launch over a scratch (:func:`split_plan`).  The paged
+decode kernel B6 splits each slot's table the same way
+(:func:`paged_split_plan`).
 """
 from __future__ import annotations
 
@@ -117,6 +119,21 @@ def cluster_plan(batch: int, kv_heads: int, length: int, sms: int
     split_len = -(-max(length, 1) // nsplit)
     split_len = -(-split_len // _MIN_SPLIT_ROWS) * _MIN_SPLIT_ROWS
     return -(-max(length, 1) // split_len), split_len
+
+
+def paged_split_plan(npages: int, block: int) -> Tuple[int, int]:
+    """The bf16 paged decode kernel B6's (ranks of one cluster, rows a
+    rank): a slot's table of ``npages`` pages of ``block`` rows cut into
+    at most ``_MAX_SPLITS`` splits of whole pages, each at least
+    ``_MIN_SPLIT_ROWS`` rows (a shorter table is one split).  The plan
+    comes from the table's width because the slots' lengths live on the
+    card; rank r walks rows ``[r * split_len, min((r + 1) * split_len,
+    length))``, and a rank whose split starts at or past the length adds
+    nothing."""
+    npages = max(1, npages)
+    pages = max(-(-npages // _MAX_SPLITS), -(-_MIN_SPLIT_ROWS // block))
+    pages = min(pages, npages)
+    return -(-npages // pages), pages * block
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,7 +6,11 @@ Counterpart of ``deepspeed_tpu/ops/transformer/paged_decode_attention.py``
 `paged_prefill_attention`) at ``kv_bits`` 0, 8 and 4.  Kernels:
 ``csrc/paged_decode_attention.cu`` and ``csrc/paged_prefill_attention.cu``
 (kv_bits a template parameter of each; a quantized launch is counted
-under ``<kernel>_int8`` or ``<kernel>_int4``).
+under ``<kernel>_int8`` or ``<kernel>_int4``).  At bf16 queries B6 splits
+each slot's table into up to 8 ranks of one thread-block cluster
+(``decode_attention.paged_split_plan``) and B7 runs on the tensor cores
+at head dims 32, 64 and 128 (other head dims, and f32, on the CUDA-core
+kernels: a route by shape).
 
 Layout contract (the JAX package's): pools ``[num_blocks, block, Hkv,
 De]``: the activation dtype at ``De = D``, or, with ``kv_bits`` 8 or 4,
@@ -35,6 +39,7 @@ import torch
 
 from .. import build
 from ..quantizer.quantizer import kv_dequantize
+from .decode_attention import paged_split_plan
 
 _DEC, _DEC_SYM = "paged_decode_attention", "dstt_paged_decode_attention"
 _PRE, _PRE_SYM = "paged_prefill_attention", "dstt_paged_prefill_attention"
@@ -185,7 +190,8 @@ def _decode_kernel(quant: bool):
     P, I = ctypes.c_void_p, ctypes.c_int
     ptrs = [P] * (7 if quant else 5)
     tail = [I, I] if quant else [I]          # dtype (, kv_bits)
-    fn.argtypes = ptrs + [P, I, I, I, I, I, I, ctypes.c_float] + tail + [P]
+    fn.argtypes = (ptrs + [P, I, I, I, I, I, I, I, I, ctypes.c_float] + tail
+                   + [P])
     fn.restype = I
     return lib, fn
 
@@ -228,7 +234,8 @@ def paged_decode_attention(q, pool_k, pool_v, lengths, block_tables,
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if kv_bits else ()
     rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-            b, h, hkv, d, blk, npages, sm_scale or 1.0 / math.sqrt(d), code,
+            b, h, hkv, d, blk, npages, *paged_split_plan(npages, blk),
+            sm_scale or 1.0 / math.sqrt(d), code,
             *((kv_bits,) if kv_bits else ()),
             build.current_stream(q.device))
     build.check_launch(lib, _DEC_SYM, rc)

@@ -85,6 +85,30 @@ def test_cluster_plan(b, hkv, length, sms, want):
     assert (nsplit - 1) * split_len < max(length, 1) <= nsplit * split_len
 
 
+@pytest.mark.parametrize("npages,blk", [(64, 16), (10, 16), (5, 8), (1, 16),
+                                        (3, 64), (200, 4), (9, 128)])
+def test_paged_split_plan(npages, blk):
+    """B6's bf16 split plan from the table's width: at most 8 ranks (one
+    cluster), splits of whole pages that cover the table and none that
+    starts past it, and under the kernel's walk (rank r takes rows [r *
+    split_len, min((r + 1) * split_len, length))) every row below the
+    length in exactly one split, for lengths 0, 1, on a page boundary,
+    on a split boundary, one past it and the table's full width."""
+    nsplit, split_len = DA.paged_split_plan(npages, blk)
+    width = npages * blk
+    assert 1 <= nsplit <= 8
+    assert split_len % blk == 0
+    assert (nsplit - 1) * split_len < width <= nsplit * split_len
+    for length in sorted({0, 1, blk, min(split_len, width),
+                          min(split_len + 1, width), width - 1, width}):
+        owners = np.zeros(length, np.int64)
+        for r in range(nsplit):
+            owners[r * split_len:min((r + 1) * split_len, length)] += 1
+        assert (owners == 1).all(), (length, nsplit, split_len)
+    if npages % 8 == 0 and width >= 8 * 64:
+        assert nsplit == 8      # a wide table takes the whole cluster
+
+
 # -- B6: batched paged decode -----------------------------------------------
 def make_pool(nb, bs, hkv, d, rng):
     pk = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)
@@ -134,6 +158,27 @@ def test_paged_decode_matches_jax(h, hkv):
     assert (got[1] == 0).all() and (got[4] == 0).all()
 
 
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
+def test_paged_decode_full_width_matches_jax(h, hkv):
+    """One slot over its table's full width (every rank of the kernel's
+    split plan has rows) beside an inactive slot and a one-row slot."""
+    rng = np.random.default_rng(7 * h + hkv)
+    lens = [48, 0, 1]
+    bs, nb, npages, d = 8, 24, 6, 16
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables(lens, bs, npages, nb, rng, pk, pv)
+    q = rng.standard_normal((len(lens), h, d)).astype(np.float32)
+    ln = np.asarray(lens, np.int32)
+    want = _np(jax_paged_decode(jnp.asarray(q), jnp.asarray(pk),
+                                jnp.asarray(pv), jnp.asarray(ln),
+                                jnp.asarray(bt), interpret=True))
+    got = PA.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
+        torch.from_numpy(ln), torch.from_numpy(bt)).numpy()
+    assert np.isfinite(got).all() and (got[1] == 0).all()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 # -- B7: chunked prefill -----------------------------------------------------
 @pytest.mark.parametrize("base,chunk_len,c,h,hkv", [
     (0, 8, 8, 4, 4),        # first chunk of a prompt
@@ -141,6 +186,7 @@ def test_paged_decode_matches_jax(h, hkv):
     (5, 3, 8, 4, 4),        # chunk_len < C: padded query rows
     (0, 0, 8, 4, 4),        # zero-length chunk: all-zero rows
     (9, 6, 8, 4, 2),        # GQA
+    (13, 7, 8, 8, 1),       # GQA 8 at base % block != 0, padded rows
 ])
 def test_paged_prefill_matches_jax(base, chunk_len, c, h, hkv):
     """Every query row (padded rows too) against the JAX kernel; rows at
@@ -207,6 +253,7 @@ def test_paged_decode_quantized_matches_jax(kv_bits, h, hkv, d):
     (0, 8, 8, 4, 4),        # first chunk
     (5, 3, 8, 4, 4),        # padded query rows
     (0, 0, 8, 4, 2),        # zero-length chunk: all-zero rows
+    (13, 7, 8, 8, 1),       # GQA 8 at base % block != 0, padded rows
 ])
 def test_paged_prefill_quantized_matches_jax(kv_bits, base, chunk_len, c, h,
                                              hkv):

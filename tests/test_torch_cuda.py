@@ -1032,57 +1032,136 @@ def test_cuda_quantized_single_row_is_the_dequantized_row(kv_bits, dtype):
     assert torch.equal(got[0], want)
 
 
-#: sha256 of the unquantized B6 and B7 outputs on ``unquantized_case``'s
-#: inputs, as the kernels of the parent commit ae98d66 gave them on an
-#: H100 80GB HBM3: the kv_bits 0 instantiations keep their bits
+#: sha256 of the f32 B6 and B7 outputs on ``unquantized_case``'s inputs,
+#: as the kernels of the parent commit ae98d66 gave them on an H100 80GB
+#: HBM3: the f32 instantiations keep their bits.  (The bf16 B6 and B7
+#: were redesigned, split across a cluster and moved onto the tensor
+#: cores; they are held to their plain versions and to their own bits on
+#: a second launch by ``test_cuda_bf16_paged_kernels_match_plain``.)
 UNQUANTIZED_DIGESTS = {
     "B6 float32":
         "87b0ab5a4424d43b41275e257ec639c19c4b80e705f2a94bab1bd06db9fab349",
     "B7 float32":
         "e2306372be539fd20801e3f86ad5be328c2347b54f0dd37900f6c3c6094ccacd",
-    "B6 bfloat16":
-        "f5ba97f5023b48d56cea0b066d022f576630f37b109bb8aec6a7f9b3c6405ac8",
-    "B7 bfloat16":
-        "533ef447e513e1b12b9a8343a1a22c382a5f82d6cf4caa90e533e93318abbe32",
 }
 
 
-def unquantized_digests():
-    """B6 and B7 at kv_bits 0 on fixed inputs (f32 and bf16, GQA 8 over 2
-    kv heads, D 128, ragged lengths with NaN past them): the sha256 of
-    each output's bytes."""
+def unquantized_case(dtype):
+    """B6 and B7 at kv_bits 0 on fixed inputs (GQA 8 over 2 kv heads, D
+    128, ragged lengths with NaN past them): (B6's output, B7's)."""
     dev = torch.device("cuda")
-    out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        rng = np.random.default_rng(11)
-        lens = [0, 37, 130, 200]
-        pk, pv = make_pool(64, 16, 2, 128, rng)
-        bt = make_tables(lens, 16, 14, 64, rng, pk, pv)
-        q = rng.standard_normal((4, 8, 128)).astype(np.float32)
-        qc = rng.standard_normal((40, 8, 128)).astype(np.float32)
+    rng = np.random.default_rng(11)
+    lens = [0, 37, 130, 200]
+    pk, pv = make_pool(64, 16, 2, 128, rng)
+    bt = make_tables(lens, 16, 14, 64, rng, pk, pv)
+    q = rng.standard_normal((4, 8, 128)).astype(np.float32)
+    qc = rng.standard_normal((40, 8, 128)).astype(np.float32)
 
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-        tables = torch.from_numpy(bt).to(dev)
-        b6 = PA.paged_decode_attention(
-            t(q), t(pk), t(pv),
-            torch.tensor(lens, dtype=torch.int32, device=dev), tables)
-        b7 = PA.paged_prefill_attention(t(qc), t(pk), t(pv), 160, 40,
-                                        tables[3].contiguous())
-        for name, o in (("B6", b6), ("B7", b7)):
-            raw = o.view(torch.int16 if dtype == torch.bfloat16
-                         else torch.int32).cpu().numpy().tobytes()
-            out[f"{name} {str(dtype)[6:]}"] = hashlib.sha256(raw).hexdigest()
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+    tables = torch.from_numpy(bt).to(dev)
+    b6 = PA.paged_decode_attention(
+        t(q), t(pk), t(pv),
+        torch.tensor(lens, dtype=torch.int32, device=dev), tables)
+    b7 = PA.paged_prefill_attention(t(qc), t(pk), t(pv), 160, 40,
+                                    tables[3].contiguous())
+    return b6, b7
+
+
+def unquantized_digests():
+    """The sha256 of the f32 B6 and B7 outputs' bytes on
+    ``unquantized_case``'s inputs."""
+    out = {}
+    b6, b7 = unquantized_case(torch.float32)
+    for name, o in (("B6", b6), ("B7", b7)):
+        raw = o.view(torch.int32).cpu().numpy().tobytes()
+        out[f"{name} float32"] = hashlib.sha256(raw).hexdigest()
     return out
 
 
 @pytest.mark.cuda
 def test_cuda_unquantized_paged_kernels_keep_their_bits():
-    """kv_bits is a template parameter of B6 and B7: their unquantized
-    instantiations give the parent commit's bits on fixed inputs."""
+    """kv_bits is a template parameter of B6 and B7: their f32
+    unquantized instantiations give the parent commit's bits on fixed
+    inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     assert unquantized_digests() == UNQUANTIZED_DIGESTS
+
+
+def paged_pools(pk, pv, kv_bits, dev):
+    """bf16 pools at kv_bits 0, else ``quantized_pools``: (pool_k, pool_v,
+    the scale keywords)."""
+    if kv_bits == 0:
+        return (torch.from_numpy(pk).to(dev, torch.bfloat16),
+                torch.from_numpy(pv).to(dev, torch.bfloat16), {})
+    kq, vq, ks, vs = quantized_pools(pk, pv, kv_bits, dev)
+    return kq, vq, dict(k_scale=ks, v_scale=vs, kv_bits=kv_bits)
+
+
+#: B6's lengths over a table of 64 pages of 16 rows (``paged_split_plan``:
+#: 8 ranks of 128 rows): inactive, one row, a page boundary, a length
+#: ending exactly on a split boundary, one past it, a slot spanning all
+#: ranks (the table's full width), and ragged others
+BF16_PAGED_LENS = [0, 1, 16, 128, 129, 1024, 513, 255]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("g,d,hkv", [(1, 128, 4), (8, 64, 2), (4, 32, 2),
+                                     (2, 256, 2)])
+def test_cuda_bf16_paged_kernels_match_plain(kv_bits, g, d, hkv):
+    """The bf16 B6 (splits of a slot merged in one cluster) and B7 (on the
+    tensor cores at D 32, 64 and 128; on the CUDA cores at D 256, the route
+    by shape) at kv_bits 0, 8 and 4 against their plain versions, and
+    bit-equal on a second launch.  B6: lengths ending on a page and on a
+    split boundary, a slot over the table's full width (every rank), an
+    inactive slot (all zeros); B7: chunks with chunk_len < C at a base
+    that is not a multiple of the block, the first chunk, a zero-length
+    chunk at base 0 (all zeros).  NaN rows (and NaN scales) past every
+    length and in a NaN block of a table never reach an output.
+    Tolerance atol 4e-3, rtol 8e-3: both sides round the f32 result to
+    bf16 once; the kernels also round p (B7) and the dequantized v (B7)
+    to bf16 for the products, far inside that limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    tol = dict(atol=4e-3, rtol=8e-3)
+    rng = np.random.default_rng(100 * g + d + kv_bits)
+    h, bs, npages, nb = g * hkv, 16, 64, 200
+    lens = BF16_PAGED_LENS
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables(lens, bs, npages, nb, rng, pk, pv)
+    kp, vp, quant = paged_pools(pk, pv, kv_bits, dev)
+    q = torch.from_numpy(rng.standard_normal((len(lens), h, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = torch.from_numpy(bt).to(dev)
+    got = PA.paged_decode_attention(q, kp, vp, ln, tables, **quant)
+    again = PA.paged_decode_attention(q, kp, vp, ln, tables, **quant)
+    want = PA.paged_decode_attention_plain(q, kp, vp, ln, tables, **quant)
+    assert bool(got.isfinite().all()) and not bool(got[0].any())
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **tol)
+    qc = torch.from_numpy(rng.standard_normal((128, h, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    for base, clen in ((77, 100), (0, 128), (509, 3), (900, 124), (0, 0)):
+        # a slot of base + clen rows: NaN past them and in the next block
+        pk, pv = make_pool(nb, bs, hkv, d, rng)
+        bt = make_tables([base + clen], bs, npages + 1, nb, rng, pk, pv)
+        kp, vp, quant = paged_pools(pk, pv, kv_bits, dev)
+        table = torch.from_numpy(bt[0]).to(dev)
+        got = PA.paged_prefill_attention(qc, kp, vp, base, clen, table,
+                                         **quant)
+        again = PA.paged_prefill_attention(qc, kp, vp, base, clen, table,
+                                           **quant)
+        want = PA.paged_prefill_attention_plain(qc, kp, vp, base, clen,
+                                                table, **quant)
+        assert bool(got.isfinite().all()), (base, clen)
+        assert torch.equal(got, again), (base, clen)
+        torch.testing.assert_close(got, want, **tol)
+        if base + clen == 0:
+            assert not bool(got.any())
 
 
 SAMPLING_CASES = [(0.9, 12, 0.95), (1.3, 0, 0.8), (0.7, 5, 1.0),

@@ -78,3 +78,18 @@ def test_chip_smoke_imports_nothing_of_jax():
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
     assert not [n for n in names if _forbidden(n)], names
+
+
+@pytest.mark.parametrize("script", ["b5_variants.py", "paged_variants.py",
+                                    "drain_profile.py"])
+def test_card_scripts_import_nothing_of_jax(script):
+    """The root scripts that run on the card's machine (which has no jax)
+    import neither jax nor the JAX package."""
+    tree = ast.parse((REPO / script).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert not [n for n in names if _forbidden(n)], names
