@@ -136,7 +136,7 @@ def launch_at(torch, build, DA, q, k, v, length, nsplit):
     out = torch.empty_like(q)
     lib, fn = DA._kernel()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-            None, b, s, h, hkv, d, length, *plan, d ** -0.5,
+            None, b, s, h, hkv, d, 1, length, *plan, d ** -0.5,
             build.DTYPE_CODES[torch.bfloat16], build.current_stream(q.device))
     build.check_launch(lib, DA._SYM, rc)
     return out, plan

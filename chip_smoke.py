@@ -89,6 +89,20 @@ Phases (any failure exits non-zero and prints no result line):
    ``kv_cache_bits`` 8, the seed-0 weights quantized): parameter bytes,
    ``generate()`` (TTFT, decode ms/token), ``forward()`` against phase
    4's bf16 prefill logits, and the 16-request drain.
+13. GPT-3 2.7B served as in phases 4-5 (all 32 layers, d_model 2560, 32
+   heads of 80; bf16, random weights from seed 0): ``generate()`` on B5,
+   ``forward()`` on B1 and the server on B6/B7, all at head dim 80, with
+   the same logit checks, and B5's share of ``generate()``'s device time
+   beside B6's and B7's of the drain;
+14. fp16 training of GPT-3 760M (all 24 layers, d_model 1536, 16 heads
+   of 96, seq 1024, micro 16, ``remat="full"``, flash, fused loss head at
+   chunk 256, ``bench.py``'s AdamW, clipping 1.0, ``fp16`` with dynamic
+   loss scaling from 2^16, window 1000, hysteresis 2, min scale 1): 10
+   steps launching exactly 48 float16 B1 and 24 float16 B2 a step at D
+   96 and no other flash kernel, the loss-scale trajectory and skipped
+   steps, 3 warm steps (tokens/s, MFU); an inf planted in one embedding
+   entry until the scale falls (each such step skipped, ``step`` held);
+   then 2 steps at seq 2048 (GPT-3's context): float16 B1, B3 and B4.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -103,7 +117,15 @@ backward as the autograd function runs it (eager delta, B9, B10: the
 span of SDPA's masked backward), and at phase 9's shape B10's longest
 and mean walk and B9/B10 over the layout's local blocks alone (no
 summary column: even walks); and B6 and B7 over int8 and packed-int4
-pools (``quant_kernel_checks``).
+pools (``quant_kernel_checks``).  And it holds the kernels at the head
+dims, groups and dtypes of phases 13-14 and of the reference's other
+configurations (``c1_flash_checks``, ``c1_decode_checks``,
+``c1_sparse_checks``): B1-B4 at D 80, 96 and 256 in bf16 and in float16
+at 760M's, GPT-2's and TinyLlama's shapes (float16 within
+``F16_TOL``); B5-B7 at D 80, 96 and 256 and kv groups 3, 16 and 32
+(MQA), B6/B7 at kv_bits 0, 8 and 4; B8-B10 at D 96 over 48-row blocks
+and D 80 over 128-row blocks; each with its planted fault, two launches
+bit-equal, its time, bound and SDPA's time where one call computes it.
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -157,6 +179,16 @@ STEP_GNORM_REL_TOL = 2e-2
 
 #: lse (float32 in both versions) may differ by the order of the sums
 LSE_ATOL = 1e-3
+
+#: float16 kernel-vs-plain tolerance: two f16 ulps (2^-9 of a value in
+#: [1, 2)).  Both sides round p and ds to f16 at the same points, but an
+#: f16 ulp is 8x finer than a bf16 one, so the kernel's and the plain
+#: version's f32 values (ex2.approx against exp, sums in another order)
+#: straddle f16 rounding boundaries 8x as often: on an H100 one element
+#: of the f16 B2 at GPT-2's shape (of 150 M) came out 2 ulps off, 1.03 of
+#: a one-ulp limit (atol 5e-4 + rtol 1e-3).  The planted fault must exceed
+#: this limit too.
+F16_TOL = (1e-3, 2e-3)
 
 #: the training phase: bench.py's GPT-2 125M step (seq 1024, micro 64)
 TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 20
@@ -225,22 +257,24 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def margin(a, b) -> float:
-    """Largest |a - b| as a share of the limit at that element: the
-    check passes where this is at most 1."""
+def margin(a, b, tol=None) -> float:
+    """Largest |a - b| as a share of the limit ``tol`` (atol, rtol;
+    default the bf16 one) at that element: the check passes where this is
+    at most 1."""
+    atol, rtol = tol or (KERNEL_ATOL, KERNEL_RTOL)
     a, b = a.float(), b.float()
-    return float(((a - b).abs()
-                  / (KERNEL_ATOL + KERNEL_RTOL * b.abs())).max())
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
 
 
-def agree(name, got, want, fault) -> dict:
-    """Hold a kernel's output against its plain version, and check that
-    the limit catches the planted fault ``fault`` (the plain version with
-    one tail row left out) on the same inputs."""
+def agree(name, got, want, fault, tol=None) -> dict:
+    """Hold a kernel's output against its plain version within ``tol``
+    (default the bf16 limit), and check that the limit catches the
+    planted fault ``fault`` (the plain version with one tail row left
+    out) on the same inputs."""
     check(bool(got.isfinite().all()), f"{name}: non-finite output")
-    err, m = max_err(got, want), margin(got, want)
+    err, m = max_err(got, want), margin(got, want, tol)
     check(m <= 1.0, f"{name}: max |err| {err} ({m:.3g} of the limit)")
-    fm = margin(fault, want)
+    fm = margin(fault, want, tol)
     check(fm > 1.0, f"{name}: the limit misses a planted fault (one tail "
                     f"row left out: {fm:.3g} of the limit)")
     return dict(max_abs_err=err, limit_share=m,
@@ -381,7 +415,336 @@ def kernel_checks(torch, dev, flush):
         results.setdefault(name, []).extend(cases)
     results.update(blocksparse_checks(torch, dev, flush))
     results.update(quant_kernel_checks(torch, dev, flush))
+    for extra in (c1_flash_checks, c1_decode_checks, c1_sparse_checks):
+        for name, cases in extra(torch, dev, flush).items():
+            results.setdefault(name, []).extend(cases)
     return results
+
+
+# -- phase 3 (C1, fp16): the head dims, groups and dtypes of this slice ----
+#: (label, B*H, B*KVH, T, D, dtype, kernels) of the flash cases: GPT-3
+#: 2.7B's attention (32 heads of 80) and 760M's (16 heads of 96) at micro 8
+#: and 16, seq 1024; GPT-J's head of 256 (16 heads, micro 4); and the
+#: float16 kernels at 760M's shape, at phase 3's GPT-2 and TinyLlama
+#: shapes (the kv group of 8 takes B1, B3 and B4) and at 760M's seq 2048
+#: step (B3 and B4)
+C1_FLASH_CASES = (
+    ("GPT-3 2.7B", 256, 256, 1024, 80, "bfloat16", ("B1", "B2", "B3", "B4")),
+    ("GPT-3 760M", 256, 256, 1024, 96, "bfloat16", ("B1", "B2", "B3", "B4")),
+    ("GPT-J", 64, 64, 1024, 256, "bfloat16", ("B1", "B2", "B3", "B4")),
+    ("GPT-3 760M fp16", 256, 256, 1024, 96, "float16", ("B1", "B2")),
+    ("GPT-2 125M fp16", 768, 768, 1024, 64, "float16", ("B1", "B2")),
+    ("TinyLlama fp16", 256, 32, 2048, 64, "float16", ("B1", "B3", "B4")),
+    ("GPT-3 760M fp16 seq 2048", 256, 256, 2048, 96, "float16",
+     ("B3", "B4")),
+)
+
+
+def c1_flash_checks(torch, dev, flush):
+    """B1-B4 at ``C1_FLASH_CASES``, causal: each against its plain version
+    (bf16 limit, or ``F16_TOL`` for float16) with the planted fault of
+    ``flash_checks`` caught, bit-equal on two launches, timed beside its
+    bound and SDPA (its forward for B1, its backward for B2-B4; the
+    backward kernels timed with delta given).  Results are keyed by the
+    kernel's launch counter (``_f16`` for float16)."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
+    F = torch.nn.functional
+    g = torch.Generator(device=dev)
+    g.manual_seed(1111)
+    out = {}
+    names = {"B1": "flash_attention_fwd", "B2": "flash_attention_bwd",
+             "B3": "flash_attention_bwd_dq", "B4": "flash_attention_bwd_dkv"}
+    for label, BH, BKV, T, D, dtype, kinds in C1_FLASH_CASES:
+        dt = getattr(torch, dtype)
+        tol = F16_TOL if dt == torch.float16 else None
+        grp = BH // BKV
+
+        def randn(n):
+            return torch.randn((n, T, D), generator=g, device=dev).to(dt)
+        q, do, k, v = randn(BH), randn(BH), randn(BKV), randn(BKV)
+        keep = fault_keep(torch, T, True, dev)
+        case = f"{label}: B*H={BH} B*KVH={BKV} T={T} D={D} {dtype} causal"
+        pairs = BH * T * (T + 1) // 2
+        qb, kvb, rb = BH * T * D * 2, BKV * T * D * 2, BH * T * 4
+        o_p, lse_p = FA.flash_attention_fwd_plain(q, k, v, True)
+        delta = FA._delta(o_p, do)
+        q4 = q.view(1, BH, T, D)
+        k4, v4 = (x.view(1, BKV, T, D) for x in (k, v))
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              enable_gqa=grp > 1)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), do.view(1, BH, T, D), retain_graph=True),
+            torch, flush)
+        del sdpa, qg, kg, vg
+        for kind in kinds:
+            run = {
+                "B1": (lambda: FA.flash_attention_fwd(q, k, v, True)[0],
+                       lambda keep=None: FA.flash_attention_fwd_plain(
+                           q, k, v, True, keep=keep)[0]),
+                "B2": (lambda: flat(FA.flash_attention_bwd(
+                    q, k, v, o_p, lse_p, do, True, None, delta)),
+                       lambda keep=None: flat(FA.flash_attention_bwd_plain(
+                           q, k, v, o_p, lse_p, do, True, keep=keep))),
+                "B3": (lambda: FA.flash_attention_bwd_dq(
+                    q, k, v, o_p, lse_p, do, True, None, delta),
+                       lambda keep=None: FA.flash_attention_bwd_dq_plain(
+                           q, k, v, o_p, lse_p, do, True, keep=keep)),
+                "B4": (lambda: flat(FA.flash_attention_bwd_dkv(
+                    q, k, v, o_p, lse_p, do, True, None, delta)),
+                       lambda keep=None: flat(FA.flash_attention_bwd_dkv_plain(
+                           q, k, v, o_p, lse_p, do, True, keep=keep))),
+            }[kind]
+            got, again = run[0](), run[0]()
+            want, fault = run[1](), run[1](keep)
+            torch.cuda.synchronize()
+            acc = agree(f"{kind} {case}", got, want, fault, tol)
+            rerun = max_err(got, again)
+            check(rerun == 0.0, f"{kind} {case}: two launches differ by "
+                                f"{rerun}")
+            del got, again, want, fault
+            ms = time_ms(run[0], torch, flush)
+            plain = time_ms(run[1], torch, flush, N_TIMED_PLAIN)
+            if kind == "B1":
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, enable_gqa=grp > 1), torch,
+                    flush)
+                nbytes, flops = 2 * qb + 2 * kvb + rb, 4.0 * D * pairs
+            elif kind == "B2":
+                lib = lib_bwd
+                nbytes, flops = 4 * qb + 3 * kvb + 2 * rb, 10.0 * D * pairs
+            elif kind == "B3":
+                lib = lib_bwd
+                nbytes, flops = 3 * qb + 2 * kvb + 2 * rb, 6.0 * D * pairs
+            else:
+                lib = lib_bwd
+                nbytes, flops = 2 * qb + 4 * kvb + 2 * rb, 8.0 * D * pairs
+            bnd, by = bound_ms(nbytes, flops)
+            out.setdefault(build.counter(names[kind], dtype=dt), []).append(
+                dict(case=case, **acc, rerun_diff=rerun, ms=ms,
+                     plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                     bound_by=by, tol=tol or (KERNEL_ATOL, KERNEL_RTOL)))
+        del q, do, k, v, o_p, lse_p, delta, keep
+        torch.cuda.empty_cache()
+    return out
+
+
+#: (label, H, Hkv, D) of the decode cases: GPT-3 2.7B's heads, 760M's,
+#: GPT-J's head of 256, and kv groups of 3, 16 and 32 (MQA) at D 128
+C1_DECODE_CASES = (("GPT-3 2.7B", 32, 32, 80), ("GPT-3 760M", 16, 16, 96),
+                   ("GPT-J", 16, 16, 256), ("g 3", 12, 4, 128),
+                   ("g 16", 32, 2, 128), ("g 32 (MQA)", 32, 1, 128))
+
+
+def c1_decode_checks(torch, dev, flush):
+    """B5 (8 rows, cache 192, length 130), B6 (phase 3's 8 slots) and B7
+    (C 256 at base 256) at ``C1_DECODE_CASES``, B6 and B7 at kv_bits 0, 8
+    and 4: each against its plain version with phase 3's planted faults
+    caught, bit-equal on two launches, timed beside its bound (and B5
+    beside SDPA with ``enable_gqa``)."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.quantizer import kv_quantize
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
+    from deepspeed_tpu_torch.ops.transformer import (
+        paged_decode_attention as PA)
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(2222)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+    out = {}
+    NB, BLK, NP = PAGED_POOL
+    for label, H, Hkv, D in C1_DECODE_CASES:
+        # B5
+        B, S, length = 8, 192, 130
+        q, k, v = randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        k[:, length:] = float("nan")
+        v[:, length:] = float("nan")
+        case = f"{label}: B={B} H={H} Hkv={Hkv} D={D} S={S} length={length}"
+        got, again = (DA.decode_attention(q, k, v, length) for _ in range(2))
+        want = DA.decode_attention_plain(q, k, v, length)
+        fault = DA.decode_attention_plain(q, k, v, length - 1)
+        acc = agree(f"B5 {case}", got, want, fault)
+        rerun = max_err(got, again)
+        check(rerun == 0.0, f"B5 {case}: two launches differ by {rerun}")
+        kt, vt = (x[:, :length].transpose(1, 2) for x in (k, v))
+        bnd, by = bound_ms(2 * B * length * Hkv * D * 2 + 2 * B * H * D * 2,
+                           4.0 * B * H * length * D)
+        out.setdefault("decode_attention", []).append(dict(
+            case=case, **acc, rerun_diff=rerun,
+            ms=time_ms(lambda: DA.decode_attention(q, k, v, length), torch,
+                       flush),
+            plain_ms=time_ms(lambda: DA.decode_attention_plain(
+                q, k, v, length), torch, flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, enable_gqa=True), torch, flush),
+            bound_ms=bnd, bound_by=by,
+            parts=build.group_parts(H // Hkv, D, DA._MAX_GROUP_DIM)))
+        del q, k, v, kt, vt
+        # B6 and B7 at kv_bits 0, 8, 4
+        pk, pv, tables, lens, perm = paged_decode_case(torch, randn, dev,
+                                                       Hkv, D)
+        table = torch.tensor(perm[:NP], dtype=torch.int32, device=dev)
+        qd, qc = randn(8, H, D), randn(256, H, D)
+        rows = sum(PAGED_LENGTHS)
+        base, clen = 256, 256
+        total = base + clen
+        pairs = sum(min(total, base + i + 1) for i in range(256))
+        # B7's slot: fresh pools, NaN in every row of its table past total
+        pk2, pv2 = randn(NB, BLK, Hkv, D), randn(NB, BLK, Hkv, D)
+        for pg in range(total // BLK, NP):
+            off = max(0, total - pg * BLK)
+            pk2[perm[pg], off:] = float("nan")
+            pv2[perm[pg], off:] = float("nan")
+
+        def pools(bits, pk, pv):
+            if not bits:
+                return pk, pv, {}
+            kq, ks = kv_quantize(pk, bits)
+            vq, vs = kv_quantize(pv, bits)
+            return kq, vq, dict(k_scale=ks, v_scale=vs, kv_bits=bits)
+        for bits in (0, 8, 4):
+            rowb = 2 * D if not bits else (D if bits == 8 else D // 2) + 4
+            kq, vq, quant = pools(bits, pk, pv)
+            tag = f"{case.split(':')[0]}: H={H} Hkv={Hkv} D={D} kv_bits {bits}"
+            got, again = (PA.paged_decode_attention(qd, kq, vq, lens, tables,
+                                                    **quant)
+                          for _ in range(2))
+            want = PA.paged_decode_attention_plain(qd, kq, vq, lens, tables,
+                                                   **quant)
+            fault = PA.paged_decode_attention_plain(
+                qd, kq, vq, (lens - (lens > 0).int()).int(), tables, **quant)
+            acc = agree(f"B6 {tag}", got, want, fault)
+            rerun = max_err(got, again)
+            check(rerun == 0.0, f"B6 {tag}: two launches differ by {rerun}")
+            bnd, by = bound_ms(2 * rows * Hkv * rowb + 2 * 8 * H * D * 2
+                               + tables.numel() * 4, 4.0 * rows * H * D)
+            out.setdefault(build.counter("paged_decode_attention", bits),
+                           []).append(dict(
+                case=f"8 slots, {tag}", **acc, rerun_diff=rerun,
+                ms=time_ms(lambda: PA.paged_decode_attention(
+                    qd, kq, vq, lens, tables, **quant), torch, flush),
+                plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
+                    qd, kq, vq, lens, tables, **quant), torch, flush),
+                library_ms=None, bound_ms=bnd, bound_by=by))
+            kq, vq, quant = pools(bits, pk2, pv2)
+            got, again = (PA.paged_prefill_attention(qc, kq, vq, base, clen,
+                                                     table, **quant)
+                          for _ in range(2))
+            want = PA.paged_prefill_attention_plain(qc, kq, vq, base, clen,
+                                                    table, **quant)
+            fault = PA.paged_prefill_attention_plain(qc, kq, vq, base,
+                                                     clen - 1, table, **quant)
+            acc = agree(f"B7 {tag}", got, want, fault)
+            rerun = max_err(got, again)
+            check(rerun == 0.0, f"B7 {tag}: two launches differ by {rerun}")
+            bnd, by = bound_ms(2 * total * Hkv * rowb + 2 * 256 * H * D * 2,
+                               4.0 * pairs * H * D)
+            out.setdefault(build.counter("paged_prefill_attention", bits),
+                           []).append(dict(
+                case=f"C=256 base={base} chunk_len={clen}, {tag}", **acc,
+                rerun_diff=rerun,
+                ms=time_ms(lambda: PA.paged_prefill_attention(
+                    qc, kq, vq, base, clen, table, **quant), torch, flush),
+                plain_ms=time_ms(lambda: PA.paged_prefill_attention_plain(
+                    qc, kq, vq, base, clen, table, **quant), torch, flush),
+                library_ms=None, bound_ms=bnd, bound_by=by))
+        del pk, pv, pk2, pv2, kq, vq, qd, qc
+        torch.cuda.empty_cache()
+    return out
+
+
+def c1_sparse_checks(torch, dev, flush):
+    """B8, B9 and B10 at the new head dims and layout blocks: 760M's
+    heads (16 of 96) over a Fixed layout of 48-row blocks at T 3072 (the
+    tile pairs carry the layout in 16-row sub-blocks), and 2.7B's (32 of
+    80) over 128-row blocks at T 4096, micro 2, causal: against their
+    plain versions with a block left out of one layout row as the planted
+    fault, bit-equal on two launches, timed beside their bound and SDPA
+    with the layout as a boolean mask."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig, blocksparse_flash as BS)
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(3333)
+    out = {}
+    for label, B, H, T, D, blk in (("GPT-3 760M", 2, 16, 3072, 96, 48),
+                                   ("GPT-3 2.7B", 2, 32, 4096, 80, 128)):
+        cfg = FixedSparsityConfig(num_heads=H, block=blk, num_local_blocks=4,
+                                  num_global_blocks=1,
+                                  attention="unidirectional")
+        lay = cfg.make_layout(T)
+        lay = (lay & np.tril(np.ones_like(lay)))[None]
+        lc = BS.compress_layout(lay)
+        rows = np.argwhere(lay.sum(-1) >= 2)
+        h, r = rows[len(rows) // 3]
+        bad = lay.copy()
+        bad[h, r, np.nonzero(lay[h, r])[0][-1]] = False
+        lc_bad = BS.compress_layout(bad)
+        args, bad_args = (lc, blk, H, True), (lc_bad, blk, H, True)
+        BH = B * H
+        q, k, v, do = (torch.randn((BH, T, D), generator=g,
+                                   device=dev).to(bf16) for _ in range(4))
+        pairs = B * H * visible_pairs(lay, blk, True)
+        case = (f"{label}: B*H={BH} T={T} D={D} block={blk} causal, "
+                f"{int(lay.sum())} blocks of {lay.size}")
+        mask = torch.from_numpy(lay).to(dev)
+        mask = (mask.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
+                & torch.ones((T, T), dtype=torch.bool, device=dev).tril())
+        q4, k4, v4, do4 = (x.view(B, H, T, D) for x in (q, k, v, do))
+        qb, rb = BH * T * D * 2, BH * T * 4
+        o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+        delta = FA._delta(o_p, do)
+        runs = {
+            "blocksparse_flash_fwd": (
+                lambda a=args: BS.blocksparse_attention_fwd(q, k, v, *a)[0],
+                lambda a=args: BS.blocksparse_attention_fwd_plain(
+                    q, k, v, *a)[0], 4 * qb + rb, 4.0 * D * pairs),
+            "blocksparse_flash_bwd_dq": (
+                lambda a=args: BS.blocksparse_attention_bwd_dq(
+                    q, k, v, o_p, lse_p, do, *a, delta=delta),
+                lambda a=args: BS.blocksparse_attention_bwd_dq_plain(
+                    q, k, v, o_p, lse_p, do, *a), 5 * qb + 2 * rb,
+                6.0 * D * pairs),
+            "blocksparse_flash_bwd_dkv": (
+                lambda a=args: flat(BS.blocksparse_attention_bwd_dkv(
+                    q, k, v, o_p, lse_p, do, *a, delta=delta)),
+                lambda a=args: flat(BS.blocksparse_attention_bwd_dkv_plain(
+                    q, k, v, o_p, lse_p, do, *a)), 6 * qb + 2 * rb,
+                8.0 * D * pairs),
+        }
+        m4 = mask[None]                                    # [1, 1, T, T]
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4), torch, flush)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+        sd = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m4)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            sd, (qg, kg, vg), do4, retain_graph=True), torch, flush)
+        del sd, qg, kg, vg
+        for name, (fn, plain, nbytes, flops) in runs.items():
+            got, again = fn(), fn()
+            want, fault = plain(), plain(bad_args)
+            acc = agree(f"{name} {case}", got, want, fault)
+            rerun = max_err(got, again)
+            check(rerun == 0.0, f"{name} {case}: two launches differ by "
+                                f"{rerun}")
+            del got, again, want, fault
+            bnd, by = bound_ms(nbytes, flops)
+            out.setdefault(name, []).append(dict(
+                case=case, **acc, rerun_diff=rerun,
+                ms=time_ms(fn, torch, flush),
+                plain_ms=time_ms(plain, torch, flush, N_TIMED_PLAIN),
+                library_ms=lib_fwd if name.endswith("fwd") else lib_bwd,
+                bound_ms=bnd, bound_by=by))
+        del q, k, v, do, o_p, lse_p, delta, mask, m4
+        torch.cuda.empty_cache()
+    return out
 
 
 #: phase 3's paged pool (blocks, block size, pages a table) and its 8
@@ -803,6 +1166,13 @@ TENSOR_CORE_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
                        "blocksparse_flash_bwd_dkv": "bsa_bwd_dkv_mma_kernel"}
 
 
+def short_name(fn: str) -> str:
+    """A kernel's name and template arguments from its mangled name, e.g.
+    ``flash_bwd_mma_kernel<Li48E6__half>``."""
+    m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)I(.+?)EE", fn)
+    return f"{m.group(1)}<{m.group(2)}>" if m else fn[:80]
+
+
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes of every kernel in an ``-Xptxas -v``
     report, by mangled name."""
@@ -822,12 +1192,13 @@ def ptxas_report(log: str) -> dict:
 
 
 def tensor_core_check(build) -> dict:
-    """Phase 3's proof that the bf16 B1, B2, B3, B4, B8, B9 and B10 run
-    on the tensor cores:
-    ``cuobjdump -sass`` of each built library must hold mma instructions
-    (``HMMA``; ``HGMMA`` for wgmma), and ptxas must report no spill for
-    the tensor-core kernel at D 64 (the main path's head dim).  Prints
-    the counts and each instantiation's registers and spills."""
+    """Phase 3's proof that the bf16 (and f16) B1, B2, B3, B4, B8, B9 and
+    B10 run on the tensor cores: ``cuobjdump -sass`` of each built
+    library must hold mma instructions (``HMMA``; ``HGMMA`` for wgmma),
+    ptxas must report the tensor-core kernel at every head dim of
+    ``build.FLASH_HEAD_DIMS`` (in bf16 and, for B1-B4, f16) and no spill
+    at D 64 (the main paths' head dim).  Prints the counts and each
+    instantiation's registers and spills."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     out = {}
     for name, kernel in TENSOR_CORE_KERNELS.items():
@@ -841,19 +1212,24 @@ def tensor_core_check(build) -> dict:
               f"{name}: no tensor-core instruction in its SASS")
         regs = {}
         for fn, rep in ptxas_report(Path(f"{path}.log").read_text()).items():
-            m = re.search(kernel + r"ILi(\d+)E", fn)
+            m = re.search(kernel + r"ILi(\d+)E(6__half)?", fn)
             if m:
-                regs[int(m.group(1))] = rep
-        check(sorted(regs) == [16, 32, 64, 128],
-              f"{name}: ptxas reported {sorted(regs)} of {kernel}'s head "
-              f"dims")
-        check(regs[64].get("spill", 0) == 0,
-              f"{name}: {kernel} spills {regs[64]['spill']} bytes at D 64")
+                regs[int(m.group(1)), "f16" if m.group(2) else "bf16"] = rep
+        types = (("bf16", "f16") if name in build.FLASH_KERNELS
+                 else ("bf16",))
+        want = {(d, t) for d in build.FLASH_HEAD_DIMS for t in types}
+        check(set(regs) == want,
+              f"{name}: ptxas reported {sorted(regs)} of {kernel}'s (head "
+              f"dim, dtype)")
+        for t in types:
+            check(regs[64, t].get("spill", 0) == 0,
+                  f"{name}: {kernel} spills {regs[64, t]['spill']} bytes at "
+                  f"D 64 ({t})")
         print(f"tensor cores: {name}: {counts['HMMA']} HMMA, "
               f"{counts['HGMMA']} HGMMA in its SASS; {kernel} " + ", ".join(
-                  f"D {d}: {r.get('registers')} registers, "
+                  f"D {d} {t}: {r.get('registers')} registers, "
                   f"{r.get('spill', 0)} bytes spilled"
-                  for d, r in sorted(regs.items())))
+                  for (d, t), r in sorted(regs.items())))
         out[name] = dict(sass=counts, ptxas=regs)
     return out
 
@@ -861,8 +1237,10 @@ def tensor_core_check(build) -> dict:
 def paged_kernel_check(build) -> dict:
     """Phase 3's proof that the bf16 B7 runs on the tensor cores:
     ``cuobjdump -sass`` of its library must hold ``HMMA``, and ptxas must
-    report ``paged_prefill_mma_kernel`` at D 32, 64 and 128 for kv_bits 0,
-    8 and 4, with no spill at D 64 and 128 (the served head dims).  Prints
+    report ``paged_prefill_mma_kernel`` at every multiple of 16 up to 128
+    for kv_bits 0, 8 and 4, with no spill at D 64, 80 and 128 (the served
+    head dims) where the kv group fills the tile (the split-group
+    instantiations are printed apart).  Prints
     the count and the registers of every instantiation of B7's
     tensor-core kernel and of B6's cluster kernel (D 8-256)."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -876,24 +1254,30 @@ def paged_kernel_check(build) -> dict:
                               capture_output=True, text=True,
                               timeout=300).stdout
         hmma = len(re.findall(r"\bHMMA\.", sass))
-        regs = {}
+        regs, split = {}, {}
         for fn, rep in ptxas_report(Path(f"{path}.log").read_text()).items():
-            m = re.search(kernel + r"ILi(\d+)ELi(\d+)E", fn)
+            m = re.search(kernel + r"ILi(\d+)ELi(\d+)E(?:Li4ELb([01])E)?",
+                          fn)
             if m:
-                regs[int(m.group(1)), int(m.group(2))] = rep
+                (split if m.group(3) == "1" else regs)[
+                    int(m.group(1)), int(m.group(2))] = rep
         if name == "paged_prefill_attention":
             check(hmma > 0, f"{name}: no tensor-core instruction in its SASS")
-            want = {(d, b) for d in (32, 64, 128) for b in (0, 8, 4)}
+            want = {(d, b) for d in range(16, 129, 16) for b in (0, 8, 4)}
             check(set(regs) == want, f"{name}: ptxas reported "
                   f"{sorted(regs)} of {kernel}'s (head dim, kv_bits)")
             for (d, b), rep in regs.items():
-                check(d == 32 or rep.get("spill", 0) == 0,
+                check(d not in (64, 80, 128) or rep.get("spill", 0) == 0,
                       f"{name}: {kernel} spills {rep['spill']} bytes at D "
                       f"{d}, kv_bits {b}")
         print(f"paged kernels: {name}: {hmma} HMMA in its SASS; {kernel} "
               + ", ".join(f"D {d} kv_bits {b}: {r.get('registers')} "
                           f"registers, {r.get('spill', 0)} bytes spilled"
-                          for (d, b), r in sorted(regs.items())))
+                          for (d, b), r in sorted(regs.items()))
+              + ("; with a split group: " + ", ".join(
+                  f"D {d} kv_bits {b}: {r.get('registers')} registers, "
+                  f"{r.get('spill', 0)} bytes spilled"
+                  for (d, b), r in sorted(split.items())) if split else ""))
         out[name] = dict(hmma=hmma, ptxas=regs)
     return out
 
@@ -1141,9 +1525,16 @@ def main() -> int:
     print(f"build: {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s (set-up)")
     for name, path in libs.items():
-        for line in Path(f"{path}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        log = Path(f"{path}.log").read_text()
+        rep = ptxas_report(log)
+        spills = {short_name(fn): r["spill"] for fn, r in rep.items()
+                  if r.get("spill")}
+        secs = re.search(r"nvcc wall time: ([\d.]+) s", log)
+        print(f"  {name}: {len(rep)} kernels"
+              + (f" in {secs.group(1)} s" if secs else "")
+              + f", at most {max(r.get('registers', 0) for r in rep.values())}"
+              f" registers; spilling: " + (", ".join(
+                  f"{fn} {n} bytes" for fn, n in spills.items()) or "none"))
 
     # -- 3. kernels against their plain versions -----------------------
     tensor_core_check(build)
@@ -1152,9 +1543,10 @@ def main() -> int:
     kres = kernel_checks(torch, dev, flush)
     for name, cases in kres.items():
         for c in cases:
+            atol, rtol = c.get("tol", (KERNEL_ATOL, KERNEL_RTOL))
             print(f"kernel {name} [{c['case']}]: max|err| "
                   f"{c['max_abs_err']:.3g} = {c['limit_share']:.3g} of the "
-                  f"limit (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL}); planted "
+                  f"limit (atol {atol}, rtol {rtol}); planted "
                   f"fault {c['fault_err']:.3g} = "
                   f"{c['fault_limit_share']:.3g} of it; {c['ms']:.4f} ms, plain "
                   f"{c['plain_ms']:.4f} ms, library "
@@ -1279,6 +1671,15 @@ def main() -> int:
                                    gpt2_config("6.7b"),
                                    served["prefill_logits"])
 
+    # -- 13. generate(), forward() and the server at GPT-3 2.7B width --
+    served27 = serve_phase(torch, np, "GPT-3 2.7B", gpt2_config("2.7b"))
+
+    # -- 14. fp16 training of GPT-3 760M ------------------------------------
+    fp16 = fp16_train_phase(
+        torch, np, "GPT-3 760M",
+        gpt2_config("760m", max_seq_len=FP16_LONG_SEQ, remat="full",
+                    attn_impl="flash", loss_chunk=256), gpt2_optimizer())
+
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
     paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
@@ -1318,6 +1719,16 @@ def main() -> int:
             name = build.counter(kernel, bits)
             rows[name] = (f"{paged}:{line} (kv_bits {bits})",
                           quant_served[bits][name], main)
+    # the float16 B1-B4 from GPT-3 760M fp16 training: B1 and B2 over its
+    # 10 steps at seq 1024 (phase 3's 760M case), B3 and B4 over its 2
+    # steps at seq 2048 (phase 3's 760M seq 2048 case)
+    for kernel, line, launches, main in (
+            ("flash_attention_fwd", 94, fp16["steps"], 0),
+            ("flash_attention_bwd", 300, fp16["steps"], 0),
+            ("flash_attention_bwd_dq", 196, fp16["long"], 1),
+            ("flash_attention_bwd_dkv", 241, fp16["long"], 1)):
+        name = build.counter(kernel, dtype=torch.float16)
+        rows[name] = (f"{flash}:{line} (float16)", launches[name], main)
     print(f"TinyLlama serving launches: B5 "
           f"{llama_served['decode_attention']}, B6 "
           f"{llama_served['paged_decode_attention']}, B7 "
@@ -1326,12 +1737,16 @@ def main() -> int:
           f"B8 {sparse_served['blocksparse_flash_fwd']}; int8 weights + "
           f"int8 KV drain: B6 int8 "
           f"{int8_served['paged_decode_attention_int8']}, B7 int8 "
-          f"{int8_served['paged_prefill_attention_int8']}")
+          f"{int8_served['paged_prefill_attention_int8']}; GPT-3 2.7B "
+          f"(D 80): B5 {served27['decode_attention']}, B1 (forward) "
+          f"{served27['flash_attention_fwd']}, B6 "
+          f"{served27['paged_decode_attention']}, B7 "
+          f"{served27['paged_prefill_attention']}")
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
         c = kres[name][main]
-        source = name.rsplit("_int", 1)[0]
+        source = name.rsplit("_int", 1)[0].removesuffix("_f16")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"deepspeed_tpu_torch/csrc/{source}.cu",
@@ -1408,7 +1823,8 @@ def serve_phase(torch, np, label, cfg) -> dict:
           f"{cfg.kv_heads} kv heads ({cfg.num_heads} query heads)")
 
     device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
-                   f"{label} generate 8 x 128 prompts, 16 new tokens")
+                   f"{label} generate 8 x 128 prompts, 16 new tokens",
+                   shares={"B5": ("decode_cluster", "decode_attention")})
 
     # forward() through kernel B1, against generate()'s prefill logits
     prefill = eng._prefill
@@ -1982,6 +2398,172 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
     del e
     torch.cuda.empty_cache()
     return {name: counts[name] for name in per_step}
+
+
+#: the GPT-3 760M fp16 phase: seq 1024, micro 16, 10 steps; then 2 steps at
+#: seq 2048 (GPT-3's context), where the sequence spans two 1024-row
+#: blocks and the backward is B3 + B4
+FP16_SEQ, FP16_MICRO, FP16_STEPS = 1024, 16, 10
+FP16_LONG_SEQ = 2048
+#: fp16 block of the phase: dynamic loss scaling from 2^16
+FP16_CONFIG = {"enabled": True, "initial_scale_power": 16,
+               "loss_scale_window": 1000, "hysteresis": 2,
+               "min_loss_scale": 1}
+
+
+def fp16_train_phase(torch, np, label, cfg, optimizer) -> dict:
+    """``initialize`` on ``cfg`` (flash, remat full, fused head at chunk
+    256) with ``fp16`` (``FP16_CONFIG``: the model runs in float16 over
+    f32 masters, dynamic loss scaling), ``bench.py``'s AdamW and clipping
+    1.0, weights from seed 0: ``FP16_STEPS`` steps on one seeded batch
+    ``[FP16_MICRO, FP16_SEQ]``, each launching exactly 2 float16 B1 and 1
+    float16 B2 per layer (remat full) and no bf16 flash kernel; the scale
+    trajectory and the skipped steps printed; 3 warm steps, tokens/s and
+    MFU; then an inf planted in one embedding entry, re-planted until the
+    scale falls (the hysteresis): every such step must be skipped (step,
+    params held, ``skipped`` counted) and the scale must fall by the
+    factor once the hysteresis is spent; then 2 steps at seq
+    ``FP16_LONG_SEQ`` (B1, B3 and B4 in float16).  Returns the float16
+    launch counts of the 10 steps and of the long steps."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+    from deepspeed_tpu_torch.ops import build
+    config = {"train_micro_batch_size_per_gpu": FP16_MICRO,
+              "gradient_accumulation_steps": 1, "optimizer": optimizer,
+              "fp16": FP16_CONFIG, "zero_optimization": {"stage": 0},
+              "gradient_clipping": 1.0, "steps_per_print": 0}
+    eng, _, _, _ = initialize(model=TransformerLM(cfg), config=config)
+    check(eng.model.config.dtype == torch.float16,
+          f"{label}: the fp16 engine's model runs in "
+          f"{eng.model.config.dtype}")
+    L = cfg.num_layers
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size,
+                                     (FP16_MICRO, FP16_SEQ), dtype=np.int32)}
+    n_params = eng.num_parameters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [eng.train_step(batch) for _ in range(FP16_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    per_step = {"flash_attention_fwd_f16": 2 * L,
+                "flash_attention_bwd_f16": L}
+    for name in build.COUNTERS:
+        want = per_step.get(name, 0) * FP16_STEPS
+        check(counts[name] == want, f"{label}: {name} launches "
+                                    f"{counts[name]} != {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    scales = [float(m["loss_scale"]) for m in metrics]
+    skipped = [int(m["overflow"]) for m in metrics]
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    check(int(eng.state["step"]) == FP16_STEPS - sum(skipped),
+          f"{label}: step {int(eng.state['step'])} after {sum(skipped)} "
+          f"skipped of {FP16_STEPS}")
+    taken = [x for x, s in zip(losses, skipped) if not s]
+    check(len(taken) >= 2 and taken[-1] < taken[0],
+          f"{label}: the loss over the steps taken did not fall {losses}")
+    step_s = wall / FP16_STEPS
+    tok_s = FP16_MICRO * FP16_SEQ / step_s
+    flops_per_tok = 6 * n_params + 12 * L * cfg.d_model * FP16_SEQ
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training: {label} ({n_params / 1e6:.1f} M params, {L} layers, "
+          f"{cfg.num_heads} heads of {cfg.hdim}), seq {FP16_SEQ}, micro "
+          f"{FP16_MICRO}, remat full, flash, fused head chunk 256, AdamW, "
+          f"fp16 (float16 model over f32 masters, dynamic loss scale from "
+          f"2^16): {FP16_STEPS} steps in {wall:.2f} s = "
+          f"{step_s * 1e3:.1f} ms/step (the first included), "
+          f"{tok_s:.0f} tokens/s, MFU {100 * tok_s * flops_per_tok / BF16_FLOPS:.2f} "
+          f"% of 989 TF/s (f16 peak); peak memory {peak:.1f} GiB")
+    print(f"  loss {' '.join(f'{x:.3f}' for x in losses)}; loss scale "
+          f"{' '.join(f'{x:g}' for x in scales)}; skipped steps "
+          f"{sum(skipped)} ({skipped})")
+    print(f"  launches over {FP16_STEPS} steps: " + ", ".join(
+        f"{n} {counts[n]} ({counts[n] // FP16_STEPS} per step)"
+        for n in per_step) + "; every bf16 and f32 flash kernel 0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.train_step(batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    warm_tok_s = FP16_MICRO * FP16_SEQ / warm_ms * 1e3
+    print(f"  3 more steps (warm): {warm_ms:.1f} ms/step = "
+          f"{warm_tok_s:.0f} tokens/s, MFU "
+          f"{100 * warm_tok_s * flops_per_tok / BF16_FLOPS:.2f} %")
+    tck = TENSOR_CORE_KERNELS
+    device_profile(torch, lambda: [eng.train_step(batch) for _ in range(2)],
+                   f"{label} training 2 steps",
+                   {"B1": (tck["flash_attention_fwd"],),
+                    "B2": (tck["flash_attention_bwd"],)})
+
+    # the planted overflow: inf in one embedding entry until the scale
+    # falls; each such step skipped with step, params and moments held
+    emb = eng.state["params"]["embed"]["embedding"]
+    saved = emb[0, 0].clone()
+    sc = eng.state["scaler"]
+    scale0, hys0 = float(sc.scale), int(sc.hysteresis)
+    trail = []
+    for i in range(max(1, hys0)):
+        step0 = int(eng.state["step"])
+        skipped0 = int(eng.state["skipped"])
+        eng.state["params"]["embed"]["embedding"][0, 0] = float("inf")
+        probe = eng.state["params"]["blocks"]["ln1"]["scale"].clone()
+        m = eng.train_step(batch)
+        check(int(m["overflow"]) == 1,
+              f"{label}: the planted inf was not seen as an overflow")
+        check(int(eng.state["step"]) == step0 and
+              int(eng.state["skipped"]) == skipped0 + 1,
+              f"{label}: the overflow step moved step or skipped wrongly")
+        check(torch.equal(probe,
+                          eng.state["params"]["blocks"]["ln1"]["scale"]),
+              f"{label}: the overflow step changed the parameters")
+        trail.append((float(eng.state["scaler"].scale),
+                      int(eng.state["scaler"].hysteresis)))
+    want_scale = max(scale0 / 2, FP16_CONFIG["min_loss_scale"])
+    check(trail[-1][0] == want_scale,
+          f"{label}: the scale went {scale0:g} -> {trail} (want "
+          f"{want_scale:g} once the hysteresis of {hys0} is spent)")
+    eng.state["params"]["embed"]["embedding"][0, 0] = saved
+    print(f"  planted inf in embed[0, 0]: {len(trail)} step(s) skipped "
+          f"(step held at {int(eng.state['step'])}, skipped "
+          f"{int(eng.state['skipped'])}); (scale, hysteresis) "
+          f"{scale0:g}, {hys0} -> " + " -> ".join(
+              f"{s:g}, {h}" for s, h in trail))
+
+    # seq 2048: B1, and B3 + B4 (two 1024-row blocks), in float16
+    long = {"input_ids": rs.randint(0, cfg.vocab_size,
+                                    (FP16_MICRO, FP16_LONG_SEQ),
+                                    dtype=np.int32)}
+    eng.train_step(long)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm = [eng.train_step(long) for _ in range(2)]
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t0) / 2 * 1e3
+    long_counts = dict(build.launch_counts)
+    want = {"flash_attention_fwd_f16": 2 * L,
+            "flash_attention_bwd_dq_f16": L,
+            "flash_attention_bwd_dkv_f16": L}
+    for name in build.COUNTERS:
+        check(long_counts[name] == 2 * want.get(name, 0),
+              f"{label} seq {FP16_LONG_SEQ}: {name} launches "
+              f"{long_counts[name]} != {2 * want.get(name, 0)}")
+    check(all(np.isfinite(float(m["loss"])) for m in lm),
+          f"{label} seq {FP16_LONG_SEQ}: non-finite loss")
+    print(f"  seq {FP16_LONG_SEQ}, micro {FP16_MICRO}: 2 steps at "
+          f"{long_ms:.1f} ms/step, loss "
+          + " ".join("%.3f" % float(m["loss"]) for m in lm)
+          + "; launches per "
+          f"step: " + ", ".join(f"{n} {long_counts[n] // 2}" for n in want))
+    del eng, metrics, lm
+    torch.cuda.empty_cache()
+    return {"steps": {n: counts[n] for n in per_step},
+            "long": {n: long_counts[n] for n in want},
+            "ms": step_s * 1e3, "warm_ms": warm_ms}
 
 
 def masked_plain_model(cfg):

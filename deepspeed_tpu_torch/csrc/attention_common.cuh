@@ -22,6 +22,22 @@ namespace dstt {
 
 #define DSTT_NEG_INF (-INFINITY)
 
+// Dynamic shared memory one block can use on sm_90 (227 KB).
+constexpr size_t kMaxSmem = 232448;
+
+// X(D) for every head dim of the flash and block-sparse kernels (B1-B4,
+// B8-B10): the multiples of 16 up to 256.
+#define DSTT_FLASH_HEAD_DIMS(X)                                            \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176) \
+  X(192) X(208) X(224) X(240) X(256)
+
+// X(D) for every head dim of the decode kernels (B5, B6, B7): the
+// multiples of 8 up to 256, the reference's `head_dim % 8` gate.
+#define DSTT_DECODE_HEAD_DIMS(X)                                           \
+  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) \
+  X(104) X(112) X(120) X(128) X(136) X(144) X(152) X(160) X(168) X(176)  \
+  X(184) X(192) X(200) X(208) X(216) X(224) X(232) X(240) X(248) X(256)
+
 // elements of T in one 16-byte load
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };

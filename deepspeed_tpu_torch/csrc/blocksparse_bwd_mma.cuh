@@ -218,8 +218,9 @@ __device__ __forceinline__ void bsa_dq_walk(
 // dk and dv of kv tile walk.own of head row bh over the query tiles of
 // `walk` (B4's dkv_walk at g = 1 over a list).  q/k/v/dout/dk/dv [BH, T,
 // D], lse and delta [BH, T].  An empty walk loads nothing and writes
-// zeros.
-template <int D>
+// zeros.  kOut: both outputs, or (above D 128) only dV or only dK, as in
+// dkv_walk.
+template <int D, int kOut = kDkDv>
 __device__ __forceinline__ void bsa_dkv_walk(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -230,6 +231,7 @@ __device__ __forceinline__ void bsa_dkv_walk(
   constexpr int E = Tile<D>::kElems, T64 = kTile;
   constexpr int NT = D / 8;        // C tiles across the head dim
   constexpr int kChunk = kDkvChunk;
+  constexpr bool kDk = kOut != kDvOnly, kDv = kOut != kDkOnly;
   // bf16 elements of one ring stage: Q, dO, then 2 x 64 f32 statistics
   constexpr int kStage = 2 * E + 4 * T64;
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64][D + 8]
@@ -301,14 +303,16 @@ __device__ __forceinline__ void bsa_dkv_walk(
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t a[4], av[4];
         kf.get(a, ks, m0, kk);
-        vf.get(av, vs, m0, kk);
+        if constexpr (kDk) vf.get(av, vs, m0, kk);
 #pragma unroll
         for (int jp = 0; jp < kChunk / 16; ++jp) {
           uint32_t b[4];
           load_b_nk<D>(b, qs, qc + 16 * jp, 16 * kk);
           mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
-          load_b_nk<D>(b, dos, qc + 16 * jp, 16 * kk);
-          mma_pair(dp[2 * jp], dp[2 * jp + 1], av, b);
+          if constexpr (kDk) {
+            load_b_nk<D>(b, dos, qc + 16 * jp, 16 * kk);
+            mma_pair(dp[2 * jp], dp[2 * jp + 1], av, b);
+          }
         }
       }
 
@@ -336,17 +340,21 @@ __device__ __forceinline__ void bsa_dkv_walk(
 #pragma unroll
         for (int jj = 0; jj < D / 16; ++jj) {
           uint32_t b[4];
-          load_b_kn<D>(b, dos, qc + 16 * kk, 16 * jj);
-          mma_pair(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
-          load_b_kn<D>(b, qs, qc + 16 * kk, 16 * jj);
-          mma_pair(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
+          if constexpr (kDv) {
+            load_b_kn<D>(b, dos, qc + 16 * kk, 16 * jj);
+            mma_pair(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
+          }
+          if constexpr (kDk) {
+            load_b_kn<D>(b, qs, qc + 16 * kk, 16 * jj);
+            mma_pair(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
+          }
         }
       }
     }
     __syncthreads();  // every warp is done with this stage
   }
-  store_acc<D>(dk + base, k0 + m0, t_len, dk_acc);
-  store_acc<D>(dv + base, k0 + m0, t_len, dv_acc);
+  if constexpr (kDk) store_acc<D>(dk + base, k0 + m0, t_len, dk_acc);
+  if constexpr (kDv) store_acc<D>(dv + base, k0 + m0, t_len, dv_acc);
 }
 
 }  // namespace mma

@@ -43,6 +43,13 @@
 //   thread, as B4), which needs the 32-column chunks as a loop, not
 //   unrolled; two blocks an SM without the cap were slower.
 //
+// Head dims and blocks: every multiple of 16 up to 256, in bf16 on the
+//   tensor cores and f32 on the CUDA cores where its tiles fit shared
+//   memory; any layout block that is a multiple of 16 (the wrapper
+//   passes 16-row sub-block masks for blocks other than 16, 32 and
+//   multiples of 64).  Above D 128 each kv tile runs as a dV and a dK
+//   block, as B4 does.  float16 is ROADMAP queue C item C2.
+//
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): B4's f32 kernel with the transposed walk, one block
 //   of 256 threads per (head row, 64-row kv tile) keeping K and V in
@@ -116,14 +123,19 @@ bsa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv + base, k0, t_len, tx, ty, dv_acc, one);
 }
 
+// shared memory of the CUDA-core kernel: q, dO, k, v tiles, p, ds, lse
+// and delta, f32
+template <int D> constexpr size_t f32_smem() {
+  return sizeof(float) * (4 * kTile * Dims<D>::kStride + 2 * kTile * kPStride + 2 * kTile);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv,
            const void* idx, const void* cnt, const void* bits,
            const void* order, int bh, int lheads, int t_len, int jmax,
            int sub_shift, float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
-                                       2 * kTile * kPStride + 2 * kTile);
+  constexpr size_t smem = f32_smem<D>();
   cudaError_t err = allow_smem(bsa_bwd_dkv_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + kTile - 1) / kTile, bh);
@@ -141,7 +153,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 namespace tc = dstt::mma;
 
 // The bf16 tensor-core kernel (see the note at the top): one dk/dv walk
-// over a tile list a block.
+// over a tile list a block, or above D 128 a dV block (z 0) and a dK
+// block (z 1) per kv tile.
 template <int D>
 __global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
 bsa_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
@@ -163,8 +176,17 @@ bsa_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
   const int row = static_cast<int>(bh % lheads) * n_tiles + kt;
   tc::TileList walk{idx, bits, row * jmax, cnt[row], kt, sub_shift};
   if (causal) walk.drop_before(kt);
-  tc::bsa_dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, sm_scale,
-                      causal, bh, walk, smem_raw);
+  if constexpr (tc::dkv_outs<D>() == 1)
+    tc::bsa_dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, sm_scale,
+                        causal, bh, walk, smem_raw);
+  else if (blockIdx.z == 0)
+    tc::bsa_dkv_walk<D, tc::kDvOnly>(q, k, v, dout, lse, delta, dk, dv,
+                                     t_len, sm_scale, causal, bh, walk,
+                                     smem_raw);
+  else
+    tc::bsa_dkv_walk<D, tc::kDkOnly>(q, k, v, dout, lse, delta, dk, dv,
+                                     t_len, sm_scale, causal, bh, walk,
+                                     smem_raw);
 }
 
 template <int D>
@@ -177,7 +199,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   const size_t smem = tc::dkv_walk_smem<D>();
   cudaError_t err = allow_smem(bsa_bwd_dkv_mma_kernel<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);
+  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh,
+                  tc::dkv_outs<D>());
   bsa_bwd_dkv_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
@@ -189,7 +212,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+// f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
+// bf16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
@@ -197,14 +221,16 @@ int launch_route(const void* q, const void* k, const void* v,
                  const void* bits, const void* order, int bh, int lheads,
                  int t_len, int jmax, int sub_shift, float sm_scale,
                  int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_same<T, float>::value)
+    return launch_mma<D>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
+                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
+                         causal, stream);
+  else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
                         causal, stream);
   else
-    return launch_mma<D>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
-                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
-                         causal, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -215,10 +241,13 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              int d, int sub_shift, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+#define DSTT_CASE(D)                                                      \
+  case D:                                                                 \
+    return launch_route<T, D>(q, k, v, dout, lse, delta, dk, dv, idx, \
+                              cnt, bits, order, bh, lheads, t_len, \
+                              jmax, sub_shift, sm_scale, causal, st);
+    DSTT_FLASH_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -228,8 +257,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 // dtype: 0 = float32, 1 = bfloat16.  q/k/v/dout/dk/dv [BH, T, D]
 // contiguous; lse and delta [BH, T] float32; the transposed walk
 // (idx/bits [lheads, n, jmax]: each kv tile's query tiles, cnt [lheads,
-// n], order [n], n = ceil(T / 64)).  D in {16, 32, 64, 128}; BH <= 65535
-// and a multiple of lheads; sub_shift 4, 5 or 6.
+// n], order [n], n = ceil(T / 64)).  D a multiple of 16 up to 256
+// (float32: where its tiles fit shared memory); BH <= 65535 and a
+// multiple of lheads; sub_shift 4, 5 or 6.
 extern "C" int dstt_blocksparse_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, const void* idx,

@@ -35,6 +35,12 @@
 //   launches give the same bits.  Query tiles launch in `order`, longest
 //   walk first.
 //
+// Head dims and blocks: every multiple of 16 up to 256, in bf16 on the
+//   tensor cores and f32 on the CUDA cores where its tiles fit shared
+//   memory; any layout block that is a multiple of 16 (the wrapper
+//   passes 16-row sub-block masks for blocks other than 16, 32 and
+//   multiples of 64).  float16 is ROADMAP queue C item C2.
+//
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): B3's f32 kernel with the walk of B8, one block of
 //   256 threads per (head row, 64-row query tile) keeping Q, dO, lse and
@@ -106,14 +112,19 @@ bsa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq + base, q0, t_len, tx, ty, dq_acc, one);
 }
 
+// shared memory of the CUDA-core kernel: q, dO, k, v tiles, ds, lse and
+// delta, f32
+template <int D> constexpr size_t f32_smem() {
+  return sizeof(float) * (4 * kTile * Dims<D>::kStride + kTile * kPStride + 2 * kTile);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, const void* idx,
            const void* cnt, const void* bits, const void* order, int bh,
            int lheads, int t_len, int jmax, int sub_shift, float sm_scale,
            int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
-                                       kTile * kPStride + 2 * kTile);
+  constexpr size_t smem = f32_smem<D>();
   cudaError_t err = allow_smem(bsa_bwd_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + kTile - 1) / kTile, bh);
@@ -177,7 +188,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+// f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
+// bf16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
@@ -185,14 +197,16 @@ int launch_route(const void* q, const void* k, const void* v,
                  const void* bits, const void* order, int bh, int lheads,
                  int t_len, int jmax, int sub_shift, float sm_scale,
                  int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_same<T, float>::value)
+    return launch_mma<D>(q, k, v, dout, lse, delta, dq, idx, cnt, bits,
+                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
+                         causal, stream);
+  else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order,
                         bh, lheads, t_len, jmax, sub_shift, sm_scale, causal,
                         stream);
   else
-    return launch_mma<D>(q, k, v, dout, lse, delta, dq, idx, cnt, bits,
-                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
-                         causal, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -202,10 +216,13 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              int lheads, int t_len, int jmax, int d, int sub_shift,
              float sm_scale, int causal, cudaStream_t st) {
   switch (d) {
-    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+#define DSTT_CASE(D)                                                      \
+  case D:                                                                 \
+    return launch_route<T, D>(q, k, v, dout, lse, delta, dq, idx, cnt, \
+                              bits, order, bh, lheads, t_len, jmax, \
+                              sub_shift, sm_scale, causal, st);
+    DSTT_FLASH_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -214,8 +231,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16.  q/k/v/dout/dq [BH, T, D] contiguous;
 // lse and delta [BH, T] float32; the walk as in B8 (idx/bits [lheads, n,
-// jmax], cnt [lheads, n], order [n], n = ceil(T / 64)).  D in {16, 32,
-// 64, 128}; BH <= 65535 and a multiple of lheads; sub_shift 4, 5 or 6.
+// jmax], cnt [lheads, n], order [n], n = ceil(T / 64)).  D a multiple of
+// 16 up to 256 (float32: where its tiles fit shared memory); BH <= 65535
+// and a multiple of lheads; sub_shift 4, 5 or 6.
 extern "C" int dstt_blocksparse_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* idx,

@@ -54,6 +54,12 @@
 //   version).  Each output row is written once, with no atomics, so two
 //   launches give the same bits.
 //
+// Head dims and blocks: every multiple of 16 up to 256, in bf16 on the
+//   tensor cores and f32 on the CUDA cores where its tiles fit shared
+//   memory; any layout block that is a multiple of 16 (the wrapper
+//   passes 16-row sub-block masks for blocks other than 16, 32 and
+//   multiples of 64).  float16 is ROADMAP queue C item C2.
+//
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): B1's f32 kernel with this walk, one block of 256
 //   threads per 64-row query tile testing each element's sub-block bit.
@@ -157,13 +163,17 @@ bsa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(o + base, q0, t_len, tx, ty, acc, inv);
 }
 
+// shared memory of the CUDA-core kernel: q, k, v tiles and p, f32
+template <int D> constexpr size_t f32_smem() {
+  return sizeof(float) * (3 * kTile * Dims<D>::kStride + kTile * kPStride);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* idx, const void* cnt, const void* bits,
            const void* order, int bh, int lheads, int t_len, int jmax,
            int sub_shift, float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (3 * kTile * Dims<D>::kStride + kTile * kPStride);
+  constexpr size_t smem = f32_smem<D>();
   cudaError_t err = allow_smem(bsa_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + kTile - 1) / kTile, bh);
@@ -369,19 +379,22 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+// f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
+// bf16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v, void* o,
                  void* lse, const void* idx, const void* cnt,
                  const void* bits, const void* order, int bh, int lheads,
                  int t_len, int jmax, int sub_shift, float sm_scale,
                  int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_same<T, float>::value)
+    return launch_mma<D>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads,
+                         t_len, jmax, sub_shift, sm_scale, causal, stream);
+  else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads,
                         t_len, jmax, sub_shift, sm_scale, causal, stream);
   else
-    return launch_mma<D>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads,
-                         t_len, jmax, sub_shift, sm_scale, causal, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -391,10 +404,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
              int d, int sub_shift, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch_route<T, 16>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 32: return launch_route<T, 32>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 64: return launch_route<T, 64>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
-    case 128: return launch_route<T, 128>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads, t_len, jmax, sub_shift, sm_scale, causal, st);
+#define DSTT_CASE(D)                                                      \
+  case D:                                                                 \
+    return launch_route<T, D>(q, k, v, o, lse, idx, cnt, bits, order, \
+                              bh, lheads, t_len, jmax, sub_shift, \
+                              sm_scale, causal, st);
+    DSTT_FLASH_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -404,7 +420,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
 // dtype: 0 = float32, 1 = bfloat16.  q/k/v/o [BH, T, D] contiguous; lse
 // [BH, T] float32.  The walk (int32, lheads layout heads, n = ceil(T /
 // 64) tiles): idx/bits [lheads, n, jmax], cnt [lheads, n], order [n].
-// D in {16, 32, 64, 128}; BH <= 65535 and a multiple of lheads;
+// D a multiple of 16 up to 256 (float32: where its
+// tiles fit shared memory); BH <= 65535 and a multiple of lheads;
 // sub_shift 4, 5 or 6 (sub-blocks of 16, 32 or 64 rows).
 extern "C" int dstt_blocksparse_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,

@@ -47,6 +47,14 @@
 //     So one launch, no scratch, no atomics: two launches give the same
 //     bits.
 //
+// Head dims and groups (bf16): every multiple of 8 up to 256, the
+//   reference's gate (a row of D / 8 16-byte vectors; a score is split
+//   over SL lanes only where D / 8 divides by 2 SL), and any kv group: a
+//   group of more than 4096 output features (g x D) is split into the
+//   fewest `parts` blocks of g / parts heads (blockIdx.y = kv head x
+//   parts + part), each reading the kv head's rows again, never a copy
+//   at query-head width.
+//
 // f32 design (CUDA cores, kept as it was, with the kv head index h / g):
 //   one warp per head, four consecutive heads per block, each lane
 //   16-byte loads of a slice of a key row (attention_common.cuh's
@@ -231,13 +239,17 @@ decode_cluster_kernel(const tc::bf16* __restrict__ q,
                       const tc::bf16* __restrict__ k,
                       const tc::bf16* __restrict__ v,
                       tc::bf16* __restrict__ o, int S, int H, int Hkv,
-                      int length, int split_len, float sm_scale) {
+                      int parts, int length, int split_len,
+                      float sm_scale) {
   using G = Geo<D>;
   constexpr int R = G::kRows, VPR = D / 8;  // 16-byte vectors a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int g = H / Hkv;
+  // this block's g query heads: part blockIdx.y % parts of kv head
+  // blockIdx.y / parts's group of H / Hkv
+  const int g = H / Hkv / parts;
   const int split = blockIdx.x, nsplit = gridDim.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.y / parts, part = blockIdx.y % parts;
+  const int b = blockIdx.z;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int p0 = split * split_len;
   const int p1 = min(length, p0 + split_len);
@@ -276,20 +288,23 @@ decode_cluster_kernel(const tc::bf16* __restrict__ q,
     tc::cp_async_commit();
   }
 
-  // the group's query heads kvh * g .. kvh * g + g - 1 (contiguous in q)
-  const size_t qbase = (static_cast<size_t>(b) * H + kvh * g) * D;
+  // the block's query heads, contiguous in q from kvh * (H / Hkv) +
+  // part * g
+  const size_t qbase =
+      (static_cast<size_t>(b) * H + kvh * (H / Hkv) + part * g) * D;
   for (int i = t; i < g * VPR; i += kThreads)
     *reinterpret_cast<uint4*>(qs + 8 * i) =
         __ldg(reinterpret_cast<const uint4*>(q + qbase + 8 * i));
-  if (t < g) {
-    st_m[t] = DSTT_NEG_INF;
-    st_l[t] = 0.f;
+  for (int j = t; j < g; j += kThreads) {
+    st_m[j] = DSTT_NEG_INF;
+    st_l[j] = 0.f;
   }
 
   // score layout: (row, head) pairs, SL lanes a pair over D / SL features
   const int pairs = R * g;
   int SL = 1;
-  while (SL < 4 && pairs * SL * 2 <= kThreads && D / (SL * 2) >= 8) SL *= 2;
+  while (SL < 4 && pairs * SL * 2 <= kThreads && VPR % (SL * 2) == 0)
+    SL *= 2;
   const int slice = t % SL, item = t / SL, items = kThreads / SL;
   const int fpl = D / SL;
   // P.V layout: NV output vectors of 8 features; thread t owns vector
@@ -458,9 +473,9 @@ decode_cluster_kernel(const tc::bf16* __restrict__ q,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int Hkv, int length, int nsplit, int split_len,
-                float sm_scale, cudaStream_t stream) {
-  const size_t smem = cluster_smem<D>(H / Hkv, split_len);
+                int S, int H, int Hkv, int parts, int length, int nsplit,
+                int split_len, float sm_scale, cudaStream_t stream) {
+  const size_t smem = cluster_smem<D>(H / Hkv / parts, split_len);
   auto kernel = decode_cluster_kernel<D>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -469,7 +484,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, Hkv, B);
+  cfg.gridDim = dim3(nsplit, Hkv * parts, B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -483,24 +498,29 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const tc::bf16*>(q),
       static_cast<const tc::bf16*>(k), static_cast<const tc::bf16*>(v),
-      static_cast<tc::bf16*>(o), S, H, Hkv, length, split_len, sm_scale);
+      static_cast<tc::bf16*>(o), S, H, Hkv, parts, length, split_len,
+      sm_scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// A kv head's group is split into `parts` blocks of (H / Hkv) / parts
+// heads when it holds more than kMaxGroupDim output features (each part
+// reads the kv head's rows again: never a copy at query-head width).
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int H, int Hkv, int D, int length, int nsplit,
-                  int split_len, float sm_scale, cudaStream_t st) {
-  if (nsplit < 1 || nsplit > kMaxSplits || split_len < 1 ||
-      (H / Hkv) * D > kMaxGroupDim || Hkv > 65535 || B > 65535)
+                  int B, int S, int H, int Hkv, int D, int parts, int length,
+                  int nsplit, int split_len, float sm_scale, cudaStream_t st) {
+  if (nsplit < 1 || nsplit > kMaxSplits || split_len < 1 || parts < 1 ||
+      (H / Hkv) % parts || (H / Hkv / parts) * D > kMaxGroupDim ||
+      static_cast<long long>(Hkv) * parts > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 8: return launch_bf16<8>(q, k, v, o, B, S, H, Hkv, length, nsplit, split_len, sm_scale, st);
-    case 16: return launch_bf16<16>(q, k, v, o, B, S, H, Hkv, length, nsplit, split_len, sm_scale, st);
-    case 32: return launch_bf16<32>(q, k, v, o, B, S, H, Hkv, length, nsplit, split_len, sm_scale, st);
-    case 64: return launch_bf16<64>(q, k, v, o, B, S, H, Hkv, length, nsplit, split_len, sm_scale, st);
-    case 128: return launch_bf16<128>(q, k, v, o, B, S, H, Hkv, length, nsplit, split_len, sm_scale, st);
-    case 256: return launch_bf16<256>(q, k, v, o, B, S, H, Hkv, length, nsplit, split_len, sm_scale, st);
+#define DSTT_CASE(DD)                                                     \
+  case DD:                                                                \
+    return launch_bf16<DD>(q, k, v, o, B, S, H, Hkv, parts, length,      \
+                           nsplit, split_len, sm_scale, st);
+    DSTT_DECODE_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -509,16 +529,19 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16.  q/o [B, H, D], k/v [B, S, Hkv, D],
 // H a multiple of Hkv.  float32: part_ml [B*H*nsplit*2] and part_acc
-// [B*H*nsplit*D] f32 are scratch, read only when nsplit > 1.  bfloat16:
-// nsplit (1..8) splits of split_len positions form one cluster, no scratch
-// (part_* ignored); (H / Hkv) * D <= 4096.  Returns the cudaError_t of the
-// launches (0 = success).
+// [B*H*nsplit*D] f32 are scratch, read only when nsplit > 1; `parts` is
+// ignored.  bfloat16: D a multiple of 8 up to 256; nsplit (1..8) splits of
+// split_len positions form one cluster, no scratch (part_* ignored); each
+// kv head's group in `parts` blocks of (H / Hkv) / parts heads, (H / Hkv /
+// parts) * D <= 4096.  Returns the cudaError_t of the launches (0 =
+// success).
 extern "C" int dstt_decode_attention(const void* q, const void* k,
                                      const void* v, void* o, void* part_ml,
                                      void* part_acc, int B, int S, int H,
-                                     int Hkv, int D, int length, int nsplit,
-                                     int split_len, float sm_scale,
-                                     int dtype, void* stream) {
+                                     int Hkv, int D, int parts, int length,
+                                     int nsplit, int split_len,
+                                     float sm_scale, int dtype,
+                                     void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -526,8 +549,8 @@ extern "C" int dstt_decode_attention(const void* q, const void* k,
     return launch_f32(q, k, v, o, part_ml, part_acc, B, S, H, Hkv, D, length,
                       nsplit, split_len, sm_scale, st);
   if (dtype == 1)
-    return dispatch_bf16(q, k, v, o, B, S, H, Hkv, D, length, nsplit,
-                         split_len, sm_scale, st);
+    return dispatch_bf16(q, k, v, o, B, S, H, Hkv, D, parts, length,
+                         nsplit, split_len, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

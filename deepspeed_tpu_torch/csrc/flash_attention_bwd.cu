@@ -41,6 +41,14 @@
 //   register budget (168 a thread at D <= 64, three blocks an SM), which
 //   the dq walk already fits.
 //
+// Head dims and dtypes: every multiple of 16 up to 256 (the reference
+//   takes any head dim; its configurations use 64, 80, 96, 128 and 256),
+//   in bf16 and f16 on the tensor cores (the f16 kernel is the bf16 one
+//   with the .f16 mma.sync and p/ds packed to f16: ET in flash_mma.cuh),
+//   and in f32 on the CUDA cores where the f32 tiles fit shared memory
+//   (up to D 192).  Above D 128 the dk/dv walk is split into a dV and a
+//   dK block, as in B4.
+//
 // f32 (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): 256 threads a block, 64-row tiles in shared memory
 //   as f32 (flash_tiles.cuh), accumulators in registers.
@@ -132,13 +140,19 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// shared memory of the CUDA-core kernel: four tiles, p, ds, lse and
+// delta, f32
+template <int D> constexpr size_t f32_smem() {
+  return sizeof(float) *
+         (4 * kTile * Dims<D>::kStride + 2 * kTile * kPStride + 2 * kTile);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int bh, int t_len, float sm_scale, int causal,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
-                                       2 * kTile * kPStride + 2 * kTile);
+  constexpr size_t smem = f32_smem<D>();
   cudaError_t err = allow_smem(flash_bwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + kTile - 1) / kTile, bh, 2);
@@ -153,12 +167,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc = dstt::mma;
 
-// The bf16 tensor-core kernel (see the note at the top).  `group` is 1,
-// passed at run time so that each walk compiles as it does in B3 and B4
-// (a constant 1 changes the dk/dv walk's register allocation, which then
-// spills at D 64).
-template <int D>
-__global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
+// The bf16 / f16 tensor-core kernel (see the note at the top); ET is the
+// operands' type.  `group` is 1, passed at run time so that each walk
+// compiles as it does in B3 and B4 (a constant 1 changes the dk/dv walk's
+// register allocation, which then spills at D 64).  Above D 128 the dk/dv
+// walk is two blocks, as in B4: z 0 writes dV, z 1 runs the dq walk and z
+// 2 writes dK.  Three blocks an SM (168 registers) at D 16, 32 and 64; at
+// D 48 that budget spilled 52 bytes on an H100, so it takes one.
+template <int D, typename ET>
+__global__ void __launch_bounds__(tc::kThreads,
+                                  D <= 64 && (D & (D - 1)) == 0 ? 3 : 1)
 flash_bwd_mma_kernel(const tc::bf16* __restrict__ q,
                      const tc::bf16* __restrict__ k,
                      const tc::bf16* __restrict__ v,
@@ -169,15 +187,29 @@ flash_bwd_mma_kernel(const tc::bf16* __restrict__ q,
                      tc::bf16* __restrict__ dv, int t_len, int group,
                      float sm_scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  if (blockIdx.z == 0)
-    tc::dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, group,
-                    sm_scale, causal, blockIdx.y, blockIdx.x, smem_raw);
-  else
-    tc::dq_walk<D>(q, k, v, dout, lse, delta, dq, t_len, group, sm_scale,
-                   causal, blockIdx.y, blockIdx.x, smem_raw);
+  if constexpr (tc::dkv_outs<D>() == 1) {
+    if (blockIdx.z == 0)
+      tc::dkv_walk<D, ET>(q, k, v, dout, lse, delta, dk, dv, t_len, group,
+                          sm_scale, causal, blockIdx.y, blockIdx.x, smem_raw);
+    else
+      tc::dq_walk<D, ET>(q, k, v, dout, lse, delta, dq, t_len, group,
+                         sm_scale, causal, blockIdx.y, blockIdx.x, smem_raw);
+  } else {
+    if (blockIdx.z == 0)
+      tc::dkv_walk<D, ET, tc::kDvOnly>(q, k, v, dout, lse, delta, dk, dv,
+                                       t_len, group, sm_scale, causal,
+                                       blockIdx.y, blockIdx.x, smem_raw);
+    else if (blockIdx.z == 1)
+      tc::dq_walk<D, ET>(q, k, v, dout, lse, delta, dq, t_len, group,
+                         sm_scale, causal, blockIdx.y, blockIdx.x, smem_raw);
+    else
+      tc::dkv_walk<D, ET, tc::kDkOnly>(q, k, v, dout, lse, delta, dk, dv,
+                                       t_len, group, sm_scale, causal,
+                                       blockIdx.y, blockIdx.x, smem_raw);
+  }
 }
 
-template <int D>
+template <int D, typename ET>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, void* dk,
                void* dv, int bh, int t_len, float sm_scale, int causal,
@@ -185,10 +217,11 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   constexpr size_t smem = tc::dkv_walk_smem<D>() > tc::dq_walk_smem<D>()
                               ? tc::dkv_walk_smem<D>()
                               : tc::dq_walk_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_mma_kernel<D, ET>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh, 2);
-  flash_bwd_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh,
+                  1 + tc::dkv_outs<D>());
+  flash_bwd_mma_kernel<D, ET><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -197,18 +230,21 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+// f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
+// bf16 and f16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, void* dk, void* dv, int bh, int t_len,
                  float sm_scale, int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_same<T, float>::value)
+    return launch_mma<D, T>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len,
+                            sm_scale, causal, stream);
+  else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len,
                         sm_scale, causal, stream);
   else
-    return launch_mma<D>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len,
-                         sm_scale, causal, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -217,18 +253,21 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              int bh, int t_len, int d, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
-    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
-    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
-    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, sm_scale, causal, st);
+#define DSTT_CASE(D)                                                      \
+  case D:                                                                 \
+    return launch_route<T, D>(q, k, v, dout, lse, delta, dq, dk, dv, bh,  \
+                              t_len, sm_scale, causal, st);
+    DSTT_FLASH_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/k/v/dout/dq/dk/dv [BH, T, D]
-// contiguous; lse and delta [BH, T] float32.  D in {16, 32, 64, 128};
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/k/v/dout/dq/dk/dv
+// [BH, T, D] contiguous; lse and delta [BH, T] float32.  D a multiple of
+// 16 up to 256 (float32: up to 192, where its tiles fit shared memory);
 // BH <= 65535.
 extern "C" int dstt_flash_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* dout,
@@ -245,6 +284,9 @@ extern "C" int dstt_flash_attention_bwd(const void* q, const void* k,
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
                                    t_len, d, sm_scale, causal, st);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len,
+                            d, sm_scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

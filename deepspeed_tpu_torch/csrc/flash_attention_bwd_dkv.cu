@@ -41,6 +41,16 @@
 //   kv tiles launch first-first: the longest walks start in the first wave and
 //   the short ones fill the tail.
 //
+// Head dims and dtypes: every multiple of 16 up to 256 (the reference
+//   takes any head dim; its configurations use 64, 80, 96, 128 and 256),
+//   in bf16 and f16 on the tensor cores (the f16 kernel is the bf16 one
+//   with the .f16 mma.sync and p/ds packed to f16: ET in flash_mma.cuh),
+//   and in f32 on the CUDA cores where the f32 tiles fit shared memory
+//   (up to D 192).  Above D 128 dK and dV together would take 4 x D f32
+//   accumulators a thread, so each kv tile runs as two blocks
+//   (blockIdx.z): one accumulates dV (no dP product), the other dK
+//   (no P^T dO product): five products where one block does four.
+//
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): one block of 256 threads per (kv head row, 64-row kv
 //   tile) keeps its K/V tile in shared memory as f32 and walks the same
@@ -111,13 +121,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dv + kv_base, k0, t_len, tx, ty, dv_acc, one);
 }
 
+// shared memory of the CUDA-core kernel: q, dO, k, v tiles, p, ds, lse
+// and delta, f32
+template <int D> constexpr size_t f32_smem() {
+  return sizeof(float) *
+         (4 * kTile * Dims<D>::kStride + 2 * kTile * kPStride + 2 * kTile);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int bkv,
            int group, int t_len, float sm_scale, int causal,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
-                                       2 * kTile * kPStride + 2 * kTile);
+  constexpr size_t smem = f32_smem<D>();
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + kTile - 1) / kTile, bkv);
@@ -132,10 +148,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc = dstt::mma;
 
-// The bf16 tensor-core kernel (see the note at the top): one dk/dv walk
-// a block (flash_bwd_mma.cuh).  At D <= 64 it is held to 168 registers a
-// thread so that three blocks share an SM.
-template <int D>
+// The bf16 / f16 tensor-core kernel (see the note at the top): one dk/dv
+// walk a block (flash_bwd_mma.cuh), or above D 128 a dV block (z 0) and
+// a dK block (z 1) per kv tile; ET is the operands' type.  At D <= 64 it
+// is held to 168 registers a thread so that three blocks share an SM.
+template <int D, typename ET>
 __global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
 flash_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
                          const tc::bf16* __restrict__ k,
@@ -146,20 +163,30 @@ flash_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
                          tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv,
                          int t_len, int group, float sm_scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  tc::dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, group, sm_scale,
-                  causal, blockIdx.y, blockIdx.x, smem_raw);
+  if constexpr (tc::dkv_outs<D>() == 1)
+    tc::dkv_walk<D, ET>(q, k, v, dout, lse, delta, dk, dv, t_len, group,
+                        sm_scale, causal, blockIdx.y, blockIdx.x, smem_raw);
+  else if (blockIdx.z == 0)
+    tc::dkv_walk<D, ET, tc::kDvOnly>(q, k, v, dout, lse, delta, dk, dv,
+                                     t_len, group, sm_scale, causal,
+                                     blockIdx.y, blockIdx.x, smem_raw);
+  else
+    tc::dkv_walk<D, ET, tc::kDkOnly>(q, k, v, dout, lse, delta, dk, dv,
+                                     t_len, group, sm_scale, causal,
+                                     blockIdx.y, blockIdx.x, smem_raw);
 }
 
-template <int D>
+template <int D, typename ET>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int bkv, int group, int t_len, float sm_scale, int causal,
                cudaStream_t stream) {
   const size_t smem = tc::dkv_walk_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D, ET>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bkv);
-  flash_bwd_dkv_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+  const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bkv,
+                  tc::dkv_outs<D>());
+  flash_bwd_dkv_mma_kernel<D, ET><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -168,18 +195,21 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+// f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
+// bf16 and f16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dk, void* dv, int bkv, int group, int t_len,
                  float sm_scale, int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_same<T, float>::value)
+    return launch_mma<D, T>(q, k, v, dout, lse, delta, dk, dv, bkv, group,
+                            t_len, sm_scale, causal, stream);
+  else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len,
                         sm_scale, causal, stream);
   else
-    return launch_mma<D>(q, k, v, dout, lse, delta, dk, dv, bkv, group,
-                         t_len, sm_scale, causal, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -188,19 +218,22 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              int group, int t_len, int d, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
-    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
-    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
-    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dk, dv, bkv, group, t_len, sm_scale, causal, st);
+#define DSTT_CASE(D)                                                      \
+  case D:                                                                 \
+    return launch_route<T, D>(q, k, v, dout, lse, delta, dk, dv, bkv,     \
+                              group, t_len, sm_scale, causal, st);
+    DSTT_FLASH_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/dout [BKV * group, T, D] and
-// k/v/dk/dv [BKV, T, D] contiguous; lse and delta [BKV * group, T]
-// float32.  D in {16, 32, 64, 128}; BKV <= 65535.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/dout [BKV * group,
+// T, D] and k/v/dk/dv [BKV, T, D] contiguous; lse and delta [BKV * group,
+// T] float32.  D a multiple of 16 up to 256 (float32: up to 192, where its
+// tiles fit shared memory); BKV <= 65535.
 extern "C" int dstt_flash_attention_bwd_dkv(const void* q, const void* k,
                                             const void* v, const void* dout,
                                             const void* lse, const void* delta,
@@ -217,6 +250,9 @@ extern "C" int dstt_flash_attention_bwd_dkv(const void* q, const void* k,
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bkv,
                                    group, t_len, d, sm_scale, causal, st);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, dout, lse, delta, dk, dv, bkv, group,
+                            t_len, d, sm_scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

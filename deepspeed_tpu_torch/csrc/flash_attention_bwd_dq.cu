@@ -37,6 +37,14 @@
 //   rows at or past T are zero-filled, never read (`:211-218`).  Query
 //   tiles launch last-first so the longest causal walks start first.
 //
+// Head dims and dtypes: every multiple of 16 up to 256 (the reference
+//   takes any head dim; its configurations use 64, 80, 96, 128 and 256),
+//   in bf16 and f16 on the tensor cores (the f16 kernel is the bf16 one
+//   with the .f16 mma.sync and p/ds packed to f16: ET in flash_mma.cuh),
+//   and in f32 on the CUDA cores where the f32 tiles fit shared memory
+//   (up to D 208).  Above D 128 the dq accumulator is 2 x D f32 a
+//   thread, so those instantiations run near 255 registers.
+//
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): one block of 256 threads per (query head row,
 //   64-row query tile) keeps its Q and dO tiles, lse and delta in shared
@@ -101,12 +109,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq + base, q0, t_len, tx, ty, dq_acc, one);
 }
 
+// shared memory of the CUDA-core kernel: q, dO, k, v tiles, ds, lse and
+// delta, f32
+template <int D> constexpr size_t f32_smem() {
+  return sizeof(float) *
+         (4 * kTile * Dims<D>::kStride + kTile * kPStride + 2 * kTile);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int bh, int group,
            int t_len, float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * kTile * Dims<D>::kStride +
-                                       kTile * kPStride + 2 * kTile);
+  constexpr size_t smem = f32_smem<D>();
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + kTile - 1) / kTile, bh);
@@ -120,9 +134,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc = dstt::mma;
 
-// The bf16 tensor-core kernel (see the note at the top): one dq walk a
-// block (flash_bwd_mma.cuh).
-template <int D>
+// The bf16 / f16 tensor-core kernel (see the note at the top): one dq
+// walk a block (flash_bwd_mma.cuh); ET is the operands' type.
+template <int D, typename ET>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
                         const tc::bf16* __restrict__ k,
@@ -133,20 +147,20 @@ flash_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
                         tc::bf16* __restrict__ dq, int t_len, int group,
                         float sm_scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  tc::dq_walk<D>(q, k, v, dout, lse, delta, dq, t_len, group, sm_scale,
-                 causal, blockIdx.y, blockIdx.x, smem_raw);
+  tc::dq_walk<D, ET>(q, k, v, dout, lse, delta, dq, t_len, group, sm_scale,
+                     causal, blockIdx.y, blockIdx.x, smem_raw);
 }
 
-template <int D>
+template <int D, typename ET>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, int bh,
                int group, int t_len, float sm_scale, int causal,
                cudaStream_t stream) {
   const size_t smem = tc::dq_walk_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<D, ET>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);
-  flash_bwd_dq_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+  flash_bwd_dq_mma_kernel<D, ET><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -154,18 +168,21 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+// f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
+// bf16 and f16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, int bh, int group, int t_len, float sm_scale,
                  int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_same<T, float>::value)
+    return launch_mma<D, T>(q, k, v, dout, lse, delta, dq, bh, group, t_len,
+                            sm_scale, causal, stream);
+  else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, dout, lse, delta, dq, bh, group, t_len,
                         sm_scale, causal, stream);
   else
-    return launch_mma<D>(q, k, v, dout, lse, delta, dq, bh, group, t_len,
-                         sm_scale, causal, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -173,19 +190,22 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, int bh, int group,
              int t_len, int d, float sm_scale, int causal, cudaStream_t st) {
   switch (d) {
-    case 16: return launch_route<T, 16>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
-    case 32: return launch_route<T, 32>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
-    case 64: return launch_route<T, 64>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
-    case 128: return launch_route<T, 128>(q, k, v, dout, lse, delta, dq, bh, group, t_len, sm_scale, causal, st);
+#define DSTT_CASE(D)                                                     \
+  case D:                                                                \
+    return launch_route<T, D>(q, k, v, dout, lse, delta, dq, bh, group,  \
+                              t_len, sm_scale, causal, st);
+    DSTT_FLASH_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/dout/dq [BH, T, D] and k/v
-// [BH / group, T, D] contiguous; lse and delta [BH, T] float32.  D in
-// {16, 32, 64, 128}; BH <= 65535 and a multiple of group.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/dout/dq [BH, T, D]
+// and k/v [BH / group, T, D] contiguous; lse and delta [BH, T] float32.
+// D a multiple of 16 up to 256 (float32: up to 208, where its tiles fit
+// shared memory); BH <= 65535 and a multiple of group.
 extern "C" int dstt_flash_attention_bwd_dq(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* delta,
@@ -202,6 +222,9 @@ extern "C" int dstt_flash_attention_bwd_dq(const void* q, const void* k,
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, group,
                                    t_len, d, sm_scale, causal, st);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, dout, lse, delta, dq, bh, group, t_len,
+                            d, sm_scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -46,6 +46,12 @@
 //   16-row blocks a warp (128-row tiles, 233 registers) and 8 warps over
 //   a 128-row tile were both slower on an H100.
 //
+// Head dims and dtypes: every multiple of 16 up to 256 (the reference
+//   takes any head dim; its configurations use 64, 80, 96, 128 and 256),
+//   in bf16 and f16 on the tensor cores (the f16 kernel is the bf16 one
+//   with the .f16 mma.sync and p/ds packed to f16: ET in flash_mma.cuh),
+//   and in f32 on the CUDA cores where the f32 tiles fit shared memory.
+//
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): one block of 256 threads per 64-row query tile
 //   walks 64-row K/V tiles through shared memory (f32, odd row stride);
@@ -145,12 +151,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(o + base, q0, t_len, tx, ty, acc, inv);
 }
 
+// shared memory of the CUDA-core kernel: q, k, v tiles and p, f32
+template <int D> constexpr size_t f32_smem() {
+  return sizeof(float) * (3 * kTile * Dims<D>::kStride + kTile * kPStride);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int group, int t_len, float sm_scale, int causal,
            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (3 * kTile * Dims<D>::kStride + kTile * kPStride);
+  constexpr size_t smem = f32_smem<D>();
   cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + kTile - 1) / kTile, bh);
@@ -174,8 +184,9 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// The bf16 tensor-core kernel (see the note at the top).
-template <int D>
+// The bf16 / f16 tensor-core kernel (see the note at the top); ET is the
+// operands' type, the pointers 16-bit storage.
+template <int D, typename ET>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_fwd_mma_kernel(const tc::bf16* __restrict__ q,
                      const tc::bf16* __restrict__ k,
@@ -239,7 +250,7 @@ flash_fwd_mma_kernel(const tc::bf16* __restrict__ q,
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t b[4];
         tc::load_b_nk<D>(b, ks, 16 * jp, 16 * kk);
-        tc::mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
+        tc::mma_pair<ET>(s[2 * jp], s[2 * jp + 1], a, b);
       }
     }
 
@@ -290,12 +301,12 @@ flash_fwd_mma_kernel(const tc::bf16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < T64 / 16; ++kk) {
       uint32_t a[4];
-      tc::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+      tc::c_to_a<ET>(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int jj = 0; jj < D / 16; ++jj) {
         uint32_t b[4];
         tc::load_b_kn<D>(b, vs, 16 * kk, 16 * jj);
-        tc::mma_pair(acc[2 * jj], acc[2 * jj + 1], a, b);
+        tc::mma_pair<ET>(acc[2 * jj], acc[2 * jj + 1], a, b);
       }
     }
     __syncthreads();  // every warp is done with this stage
@@ -313,7 +324,7 @@ flash_fwd_mma_kernel(const tc::bf16* __restrict__ q,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] *= inv[i >> 1];
-  tc::store_acc<D>(o + base, q0 + m0, t_len, acc);
+  tc::store_acc<D, ET>(o + base, q0 + m0, t_len, acc);
   if ((threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -323,32 +334,35 @@ flash_fwd_mma_kernel(const tc::bf16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, typename ET>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int group, int t_len, float sm_scale,
                int causal, cudaStream_t stream) {
   const size_t smem = sizeof(tc::bf16) * 5 * tc::Tile<D>::kElems;
-  cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_fwd_mma_kernel<D, ET>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);
-  flash_fwd_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+  flash_fwd_mma_kernel<D, ET><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o),
       static_cast<float*>(lse), t_len, group, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 to the CUDA-core kernel, bf16 to the tensor-core one
+// f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
+// bf16 and f16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int group, int t_len, float sm_scale,
                  int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_same<T, float>::value)
+    return launch_mma<D, T>(q, k, v, o, lse, bh, group, t_len, sm_scale,
+                            causal, stream);
+  else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal,
                         stream);
   else
-    return launch_mma<D>(q, k, v, o, lse, bh, group, t_len, sm_scale,
-                         causal, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -356,19 +370,21 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
              int bh, int group, int t_len, int d, float sm_scale, int causal,
              cudaStream_t st) {
   switch (d) {
-    case 16: return launch_route<T, 16>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
-    case 32: return launch_route<T, 32>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
-    case 64: return launch_route<T, 64>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
-    case 128: return launch_route<T, 128>(q, k, v, o, lse, bh, group, t_len, sm_scale, causal, st);
+#define DSTT_CASE(D)                                                      \
+  case D:                                                                 \
+    return launch_route<T, D>(q, k, v, o, lse, bh, group, t_len, sm_scale, \
+                              causal, st);
+    DSTT_FLASH_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/o [BH, T, D] and k/v
-// [BH / group, T, D] contiguous; lse [BH, T] float32.  D in {16, 32, 64,
-// 128}; BH <= 65535 and a multiple of group.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/o [BH, T, D] and k/v
+// [BH / group, T, D] contiguous; lse [BH, T] float32.  D a multiple of 16
+// up to 256; BH <= 65535 and a multiple of group.
 extern "C" int dstt_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int bh, int group, int t_len, int d,
@@ -383,6 +399,9 @@ extern "C" int dstt_flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, group, t_len, d,
                                    sm_scale, causal, st);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, o, lse, bh, group, t_len, d, sm_scale,
+                            causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

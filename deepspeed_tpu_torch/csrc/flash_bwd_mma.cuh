@@ -1,6 +1,6 @@
-// The two tensor-core walks of the bf16 flash-attention backward, shared
-// by B3 (dq pass), B4 (dk/dv pass) and B2 (the fused backward, both walks
-// in one launch at g = 1).  Each is the whole body of one block; the
+// The two tensor-core walks of the bf16 and f16 flash-attention backward,
+// shared by B3 (dq pass), B4 (dk/dv pass) and B2 (the fused backward,
+// both walks in one launch at g = 1).  Each is the whole body of one block; the
 // kernels that call it only pick the block's head row and tile from the
 // grid and hand over their dynamic shared memory.
 //
@@ -36,8 +36,8 @@ template <int D> constexpr size_t dkv_walk_smem() {
 // dq of query tile n_tiles - 1 - qx (the last tiles, with the longest
 // causal walks, first) of query head row bh, whose kv head row is
 // bh / group.  q/dout/dq [BH, T, D], k/v [BH / group, T, D], lse and
-// delta [BH, T].
-template <int D>
+// delta [BH, T]; ET (bf16 or __half) is the operands' type.
+template <int D, typename ET = bf16>
 __device__ __forceinline__ void dq_walk(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -111,9 +111,9 @@ __device__ __forceinline__ void dq_walk(
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t b[4];
         load_b_nk<D>(b, ks, 16 * jp, 16 * kk);
-        mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
+        mma_pair<ET>(s[2 * jp], s[2 * jp + 1], a, b);
         load_b_nk<D>(b, vs, 16 * jp, 16 * kk);
-        mma_pair(dp[2 * jp], dp[2 * jp + 1], ad, b);
+        mma_pair<ET>(dp[2 * jp], dp[2 * jp + 1], ad, b);
       }
     }
 
@@ -137,27 +137,42 @@ __device__ __forceinline__ void dq_walk(
 #pragma unroll
     for (int kk = 0; kk < T64 / 16; ++kk) {
       uint32_t a[4];
-      c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+      c_to_a<ET>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int jj = 0; jj < D / 16; ++jj) {
         uint32_t b[4];
         load_b_kn<D>(b, ks, 16 * kk, 16 * jj);
-        mma_pair(acc[2 * jj], acc[2 * jj + 1], a, b);
+        mma_pair<ET>(acc[2 * jj], acc[2 * jj + 1], a, b);
       }
     }
     __syncthreads();  // every warp is done with this stage
   }
-  store_acc<D>(dq + base, q0 + m0, t_len, acc);
+  store_acc<D, ET>(dq + base, q0 + m0, t_len, acc);
 }
 
 // query columns of one S^T / dP^T chunk in dkv_walk (the fragments of 32
 // columns leave room for dK, dV and K in registers at D = 64)
 constexpr int kDkvChunk = 32;
 
+// Which outputs a dkv walk accumulates: both (every head dim up to 128),
+// or, above 128, where dK and dV together would need 2 x D / 2 f32
+// accumulators a thread, one of them a block (the kernels launch one
+// block of each kind per kv tile: the dV block skips the dP product, the
+// dK block the P^T dO product, so the pair does five products where one
+// walk does four).
+enum DkvOut { kDkDv = 0, kDvOnly = 1, kDkOnly = 2 };
+
+// Blocks of a kv tile at head dim D: one kDkDv block up to 128, else a
+// kDvOnly and a kDkOnly block (blockIdx.z picks).
+template <int D> __host__ __device__ constexpr int dkv_outs() {
+  return D <= 128 ? 1 : 2;
+}
+
 // dk and dv of kv tile kt of kv head row kvh, summed over query head rows
 // kvh * group .. kvh * group + group - 1.  q/dout [BKV * group, T, D],
-// k/v/dk/dv [BKV, T, D], lse and delta [BKV * group, T].
-template <int D>
+// k/v/dk/dv [BKV, T, D], lse and delta [BKV * group, T]; ET (bf16 or
+// __half) is the operands' type, kOut the outputs this block writes.
+template <int D, typename ET = bf16, int kOut = kDkDv>
 __device__ __forceinline__ void dkv_walk(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -168,6 +183,7 @@ __device__ __forceinline__ void dkv_walk(
   constexpr int E = Tile<D>::kElems, T64 = kTile;
   constexpr int NT = D / 8;        // C tiles across the head dim
   constexpr int kChunk = kDkvChunk;
+  constexpr bool kDk = kOut != kDvOnly, kDv = kOut != kDkOnly;
   // bf16 elements of one ring stage: Q, dO, then 2 x 64 f32 statistics
   constexpr int kStage = 2 * E + 4 * T64;
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64][D + 8]
@@ -236,14 +252,16 @@ __device__ __forceinline__ void dkv_walk(
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t a[4], av[4];
         kf.get(a, ks, m0, kk);
-        vf.get(av, vs, m0, kk);
+        if constexpr (kDk) vf.get(av, vs, m0, kk);
 #pragma unroll
         for (int jp = 0; jp < kChunk / 16; ++jp) {
           uint32_t b[4];
           load_b_nk<D>(b, qs, qc + 16 * jp, 16 * kk);
-          mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
-          load_b_nk<D>(b, dos, qc + 16 * jp, 16 * kk);
-          mma_pair(dp[2 * jp], dp[2 * jp + 1], av, b);
+          mma_pair<ET>(s[2 * jp], s[2 * jp + 1], a, b);
+          if constexpr (kDk) {
+            load_b_nk<D>(b, dos, qc + 16 * jp, 16 * kk);
+            mma_pair<ET>(dp[2 * jp], dp[2 * jp + 1], av, b);
+          }
         }
       }
 
@@ -264,22 +282,26 @@ __device__ __forceinline__ void dkv_walk(
 #pragma unroll
       for (int kk = 0; kk < kChunk / 16; ++kk) {
         uint32_t pa[4], da[4];
-        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+        c_to_a<ET>(pa, s[2 * kk], s[2 * kk + 1]);
+        c_to_a<ET>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int jj = 0; jj < D / 16; ++jj) {
           uint32_t b[4];
-          load_b_kn<D>(b, dos, qc + 16 * kk, 16 * jj);
-          mma_pair(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
-          load_b_kn<D>(b, qs, qc + 16 * kk, 16 * jj);
-          mma_pair(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
+          if constexpr (kDv) {
+            load_b_kn<D>(b, dos, qc + 16 * kk, 16 * jj);
+            mma_pair<ET>(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
+          }
+          if constexpr (kDk) {
+            load_b_kn<D>(b, qs, qc + 16 * kk, 16 * jj);
+            mma_pair<ET>(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
+          }
         }
       }
     }
     __syncthreads();  // every warp is done with this stage
   }
-  store_acc<D>(dk + kv_base, k0 + m0, t_len, dk_acc);
-  store_acc<D>(dv + kv_base, k0 + m0, t_len, dv_acc);
+  if constexpr (kDk) store_acc<D, ET>(dk + kv_base, k0 + m0, t_len, dk_acc);
+  if constexpr (kDv) store_acc<D, ET>(dv + kv_base, k0 + m0, t_len, dv_acc);
 }
 
 }  // namespace mma

@@ -1,9 +1,13 @@
-// Shared pieces of the tensor-core flash-attention kernels (the bf16 B1,
-// B2, B3 and B4): bf16 tiles staged in shared memory by cp.async,
-// ldmatrix loads of mma.sync m16n8k16 operand fragments from them, the
-// bf16 x bf16 -> f32 product, the accumulator-to-operand repack that
-// lets p and ds feed the next product from registers, and the masked
-// softmax-gradient step on accumulator fragments.
+// Shared pieces of the tensor-core flash-attention kernels (the bf16 and
+// f16 B1, B2, B3 and B4): 16-bit tiles staged in shared memory by
+// cp.async, ldmatrix loads of mma.sync m16n8k16 operand fragments from
+// them, the bf16 x bf16 (or f16 x f16) -> f32 product, the
+// accumulator-to-operand repack that lets p and ds feed the next product
+// from registers, and the masked softmax-gradient step on accumulator
+// fragments.  Tiles and pointers are typed `bf16` as 16-bit storage;
+// the element type E of `mma`, `pack`, `c_to_a` and `store_acc` (bf16 by
+// default, or __half) picks the arithmetic.  ldmatrix and cp.async move
+// bits, so an f16 kernel runs the same loads as a bf16 one.
 //
 // Fragments of mma.sync.m16n8k16 (bf16 in, f32 accumulate), for lane l of
 // a warp with g = l / 4 and t = l % 4:
@@ -24,11 +28,17 @@
 // (stride 36 / 68 words), and at words {0, 12, 24, 4, 16, 28, 8, 20} /
 // {0, 20, 8, 28, 16, 4, 24, 12} for D = 16 / 32 (stride 12 / 20 words):
 // eight distinct 4-word groups, so every ldmatrix phase is free of bank
-// conflicts at every head dim the kernels take.  Rows stay 16-byte
-// aligned for cp.async and ldmatrix.
+// conflicts at those head dims; every other multiple of 16 up to 256
+// gives eight distinct groups too (D = 80: stride 44 words, D = 96: 52),
+// since a stride of (D + 8) / 2 = 4 (2 (D / 16) + 1) words is 4 x an odd
+// number.  Rows stay 16-byte aligned for cp.async and ldmatrix.
 #pragma once
 
 #include "attention_common.cuh"
+
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 namespace dstt {
 namespace mma {
@@ -168,12 +178,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c[j] += a . (two n8 tiles of b): the pair a load_b_* call gives
+// c += a b  (m16 n8 k16, f16 operands, f32 accumulator)
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[j] += a . (two n8 tiles of b): the pair a load_b_* call gives, with
+// operands of type E (bf16 or __half)
+template <typename E = bf16>
 __device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
                                          const uint32_t (&a)[4],
                                          const uint32_t (&b)[4]) {
-  mma_bf16(c0, a, b[0], b[1]);
-  mma_bf16(c1, a, b[2], b[3]);
+  if constexpr (std::is_same<E, __half>::value) {
+    mma_f16(c0, a, b[0], b[1]);
+    mma_f16(c1, a, b[2], b[3]);
+  } else {
+    mma_bf16(c0, a, b[0], b[1]);
+    mma_bf16(c1, a, b[2], b[3]);
+  }
 }
 
 // Two f32 values rounded to bf16 (round to nearest even) in one register,
@@ -183,14 +210,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The A fragment (16 rows x 16 columns, rounded to bf16) held by two
+// The same rounded to E (bf16 or __half, round to nearest even).
+template <typename E = bf16>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// The A fragment (16 rows x 16 columns, rounded to E) held by two
 // neighbouring C tiles c0 (columns 0-7) and c1 (columns 8-15).
+template <typename E = bf16>
 __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
                                        const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+  a[0] = pack<E>(c0[0], c0[1]);
+  a[1] = pack<E>(c0[2], c0[3]);
+  a[2] = pack<E>(c1[0], c1[1]);
+  a[3] = pack<E>(c1[2], c1[3]);
 }
 
 // Rows of an m16 fragment held by this lane: element i of a C tile sits
@@ -215,9 +254,9 @@ __device__ __forceinline__ void softmax_grad(float& s, float& dp, float lse2,
   s = p;
 }
 
-// Store one m16 x D accumulator (D / 8 C tiles) as bf16 rows row0 + r of a
+// Store one m16 x D accumulator (D / 8 C tiles) as E rows row0 + r of a
 // [t_len, D] matrix, rows at or past t_len left out.
-template <int D>
+template <int D, typename E = bf16>
 __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, int row0,
                                           int t_len,
                                           const float (&acc)[D / 8][4]) {
@@ -229,7 +268,7 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, int row0,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+          pack<E>(acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 

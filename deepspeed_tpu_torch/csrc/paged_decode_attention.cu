@@ -56,6 +56,13 @@
 //     two launches give the same bits.  A slot with rows in rank 0 alone
 //     (and an inactive slot, which gives zero rows) needs no barrier.
 //
+// Head dims and groups (bf16 queries): every multiple of 8 up to 256 at
+// kv_bits 0, 8 and 4 (a pool row moves by cp.async of 16, 8 or 4 bytes,
+// the largest that divides it), and any kv group: a group of more than
+// 2048 output features is split into the fewest `parts` blocks of
+// g / parts heads (one cluster per (slot, kv head, part)), each reading
+// the kv head's rows again.
+//
 // f32 design (paged_decode_kernel, CUDA cores, the first port): one block
 // per (kv head, slot); four warps interleave over the slot's positions,
 // each warp split into row groups of D / N lanes (N features a lane: 16
@@ -235,7 +242,10 @@ template <int D, int KV_BITS> struct Geo {
   static constexpr int kRows = D <= 64 ? 64 : 32;
   static constexpr int kRowBytes = KV_BITS == 0 ? 2 * D
                                    : KV_BITS == 8 ? D : D / 2;
-  static constexpr int kCopy = kRowBytes < 16 ? kRowBytes : 16;
+  // bytes of one cp.async: the largest of 16, 8 and 4 that divides a row
+  static constexpr int kCopy = kRowBytes % 16 == 0  ? 16
+                               : kRowBytes % 8 == 0 ? 8
+                                                    : 4;
   static constexpr int kStride = kRowBytes + 16;
   static constexpr int kChunk = kRows * kStride;
   static constexpr int kStage = 2 * kChunk + (KV_BITS ? 2 * kRows * 4 : 0);
@@ -359,15 +369,18 @@ paged_decode_cluster_kernel(
     const typename PoolElem<tc::bf16, KV_BITS>::type* __restrict__ pv,
     const float* __restrict__ kscale, const float* __restrict__ vscale,
     const int* __restrict__ lengths, const int* __restrict__ tables,
-    tc::bf16* __restrict__ o, int H, int Hkv, int blk, int npages,
-    int split_len, float sm_scale) {
+    tc::bf16* __restrict__ o, int H, int Hkv, int parts, int blk,
+    int npages, int split_len, float sm_scale) {
   using Gm = Geo<D, KV_BITS>;
   constexpr int R = Gm::kRows, VPR = D / 8;  // 8-feature units a row
   constexpr int RB = Gm::kRowBytes, RS = Gm::kStride, CB = Gm::kCopy;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int g = H / Hkv;
+  // this block's g query heads: part blockIdx.y % parts of kv head
+  // blockIdx.y / parts's group of H / Hkv
+  const int g = H / Hkv / parts;
   const int split = blockIdx.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.y / parts, part = blockIdx.y % parts;
+  const int b = blockIdx.z;
   const int len = max(0, min(__ldg(lengths + b), npages * blk));
   const int p0 = split * split_len;
   if (split > 0 && p0 >= len) return;  // an empty rank: nothing to merge
@@ -427,23 +440,25 @@ paged_decode_cluster_kernel(
     tc::cp_async_commit();
   }
 
-  // the group's query heads kvh * g .. kvh * g + g - 1, f32, each unit's
-  // features in widen_unit's order
-  const size_t qbase = (static_cast<size_t>(b) * H + kvh * g) * D;
+  // the block's query heads (contiguous in q from kvh * (H / Hkv) +
+  // part * g), f32, each unit's features in widen_unit's order
+  const size_t qbase =
+      (static_cast<size_t>(b) * H + kvh * (H / Hkv) + part * g) * D;
   for (int i = t; i < g * D; i += kThreads) {
     const int j = i / D, e = i % D;
     qs[i] = __bfloat162float(
         q[qbase + j * D + quant_feature<KV_BITS>(e / 8, e % 8, D)]);
   }
-  if (t < g) {
-    st_m[t] = DSTT_NEG_INF;
-    st_l[t] = 0.f;
+  for (int j = t; j < g; j += kThreads) {
+    st_m[j] = DSTT_NEG_INF;
+    st_l[j] = 0.f;
   }
 
   // score layout: (row, head) pairs, SL lanes a pair over VPR / SL units
   const int pairs = R * g;
   int SL = 1;
-  while (SL < 4 && pairs * SL * 2 <= kThreads && VPR / (SL * 2) >= 1) SL *= 2;
+  while (SL < 4 && pairs * SL * 2 <= kThreads && VPR % (SL * 2) == 0)
+    SL *= 2;
   const int slice = t % SL, item = t / SL, items = kThreads / SL;
   const int upl = VPR / SL;
   // P.V layout: NV units of 8 features; thread t owns unit t % NV of row
@@ -626,10 +641,10 @@ template <int D, int KV_BITS>
 int launch_cluster(const void* q, const void* pk, const void* pv,
                    const float* ks, const float* vs, const void* lengths,
                    const void* tables, void* o, int B, int H, int Hkv,
-                   int blk, int npages, int nsplit, int split_len,
+                   int parts, int blk, int npages, int nsplit, int split_len,
                    float sm_scale, cudaStream_t stream) {
   using P = typename PoolElem<tc::bf16, KV_BITS>::type;
-  const size_t smem = cluster_smem<D, KV_BITS>(H / Hkv, split_len);
+  const size_t smem = cluster_smem<D, KV_BITS>(H / Hkv / parts, split_len);
   auto kernel = paged_decode_cluster_kernel<D, KV_BITS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -638,7 +653,7 @@ int launch_cluster(const void* q, const void* pk, const void* pv,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, Hkv, B);
+  cfg.gridDim = dim3(nsplit, Hkv * parts, B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -653,30 +668,36 @@ int launch_cluster(const void* q, const void* pk, const void* pv,
       &cfg, kernel, static_cast<const tc::bf16*>(q),
       static_cast<const P*>(pk), static_cast<const P*>(pv), ks, vs,
       static_cast<const int*>(lengths), static_cast<const int*>(tables),
-      static_cast<tc::bf16*>(o), H, Hkv, blk, npages, split_len, sm_scale);
+      static_cast<tc::bf16*>(o), H, Hkv, parts, blk, npages, split_len,
+      sm_scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 kernel: nsplit splits of split_len rows must cover the table.
+// The bf16 kernel: nsplit splits of split_len rows must cover the table;
+// a kv head's group is split into `parts` blocks of (H / Hkv) / parts heads
+// when it holds more than kMaxGroupDim output features (each part reads
+// the kv head's rows again: never a copy at query-head width).
 template <int KV_BITS>
 int launch_bf16(const void* q, const void* pk, const void* pv,
                 const float* ks, const float* vs, const void* lengths,
                 const void* tables, void* o, int B, int H, int Hkv, int D,
-                int blk, int npages, int nsplit, int split_len,
+                int parts, int blk, int npages, int nsplit, int split_len,
                 float sm_scale, cudaStream_t st) {
-  if (nsplit < 1 || nsplit > kMaxRanks || split_len < 1 ||
+  if (nsplit < 1 || nsplit > kMaxRanks || split_len < 1 || parts < 1 ||
       static_cast<long long>(nsplit) * split_len <
           static_cast<long long>(npages) * blk ||
-      (H / Hkv) * D > kMaxGroupDim || Hkv > 65535 || B > 65535)
+      (H / Hkv) % parts || (H / Hkv / parts) * D > kMaxGroupDim ||
+      static_cast<long long>(Hkv) * parts > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 8: return launch_cluster<8, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv, blk, npages, nsplit, split_len, sm_scale, st);
-    case 16: return launch_cluster<16, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv, blk, npages, nsplit, split_len, sm_scale, st);
-    case 32: return launch_cluster<32, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv, blk, npages, nsplit, split_len, sm_scale, st);
-    case 64: return launch_cluster<64, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv, blk, npages, nsplit, split_len, sm_scale, st);
-    case 128: return launch_cluster<128, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv, blk, npages, nsplit, split_len, sm_scale, st);
-    case 256: return launch_cluster<256, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv, blk, npages, nsplit, split_len, sm_scale, st);
+#define DSTT_CASE(DD)                                                     \
+  case DD:                                                                \
+    return launch_cluster<DD, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, \
+                                       o, B, H, Hkv, parts, blk, npages,  \
+                                       nsplit, split_len, sm_scale, st);
+    DSTT_DECODE_HEAD_DIMS(DSTT_CASE)
+#undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -685,15 +706,15 @@ template <int KV_BITS>
 int launch_dtype(const void* q, const void* pk, const void* pv,
                  const float* ks, const float* vs, const void* lengths,
                  const void* tables, void* o, int B, int H, int Hkv, int D,
-                 int blk, int npages, int nsplit, int split_len,
+                 int parts, int blk, int npages, int nsplit, int split_len,
                  float sm_scale, int dtype, cudaStream_t st) {
   if (dtype == 0)
     return launch<float, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B,
                                   H, Hkv, D, blk, npages, sm_scale, st);
   if (dtype == 1)
     return launch_bf16<KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H,
-                                Hkv, D, blk, npages, nsplit, split_len,
-                                sm_scale, st);
+                                Hkv, D, parts, blk, npages, nsplit,
+                                split_len, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -701,28 +722,30 @@ int launch_dtype(const void* q, const void* pk, const void* pv,
 
 // dtype: 0 = float32, 1 = bfloat16.  q/o [B, H, D]; pools
 // [num_blocks, blk, Hkv, D]; lengths [B] int32; tables [B, npages] int32.
-// bfloat16: nsplit (1..8) splits of split_len rows, nsplit * split_len >=
-// npages * blk, form one cluster per (slot, kv head); (H / Hkv) * D <=
-// 2048.  float32 ignores nsplit and split_len.
+// bfloat16: D a multiple of 8 up to 256; nsplit (1..8) splits of
+// split_len rows, nsplit * split_len >= npages * blk, form one cluster per
+// (slot, kv head, part); each kv head's group in `parts` blocks of
+// (H / Hkv) / parts heads, (H / Hkv / parts) * D <= 2048.  float32 (a
+// query group of 1, 2, 4 or 8) ignores nsplit, split_len and parts.
 extern "C" int dstt_paged_decode_attention(
     const void* q, const void* pk, const void* pv, const void* lengths,
-    const void* tables, void* o, int B, int H, int Hkv, int D, int blk,
-    int npages, int nsplit, int split_len, float sm_scale, int dtype,
-    void* stream) {
+    const void* tables, void* o, int B, int H, int Hkv, int D, int parts,
+    int blk, int npages, int nsplit, int split_len, float sm_scale,
+    int dtype, void* stream) {
   if (D > kMaxD || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   return launch_dtype<0>(q, pk, pv, nullptr, nullptr, lengths, tables, o, B,
-                         H, Hkv, D, blk, npages, nsplit, split_len, sm_scale,
-                         dtype, static_cast<cudaStream_t>(stream));
+                         H, Hkv, D, parts, blk, npages, nsplit, split_len,
+                         sm_scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The quantized pools: kv_bits 8 (int8 pools [num_blocks, blk, Hkv, D]) or
 // 4 (packed int4, [num_blocks, blk, Hkv, D / 2] int8), scales
-// [num_blocks, blk, Hkv] f32; q, o and the split plan as above.  Needs D
-// a multiple of 8 and at most 256 (D / 8 lanes a row).
+// [num_blocks, blk, Hkv] f32; q, o, the split plan and the parts as
+// above.  Needs D a multiple of 8 and at most 256.
 extern "C" int dstt_paged_decode_attention_quant(
     const void* q, const void* pk, const void* pv, const void* k_scale,
     const void* v_scale, const void* lengths, const void* tables, void* o,
-    int B, int H, int Hkv, int D, int blk, int npages, int nsplit,
+    int B, int H, int Hkv, int D, int parts, int blk, int npages, int nsplit,
     int split_len, float sm_scale, int dtype, int kv_bits, void* stream) {
   if (D > kMaxD || D % 8 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -731,11 +754,11 @@ extern "C" int dstt_paged_decode_attention_quant(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_bits == 8)
     return launch_dtype<8>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv,
-                           D, blk, npages, nsplit, split_len, sm_scale,
+                           D, parts, blk, npages, nsplit, split_len, sm_scale,
                            dtype, st);
   if (kv_bits == 4)
     return launch_dtype<4>(q, pk, pv, ks, vs, lengths, tables, o, B, H, Hkv,
-                           D, blk, npages, nsplit, split_len, sm_scale,
+                           D, parts, blk, npages, nsplit, split_len, sm_scale,
                            dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,7 +24,10 @@
 //   * one block of 4 warps per (kv head, 64-row query tile): the tile's
 //     rows are 64 / G positions x the kv head's G query heads (row r =
 //     position i0 + r / G, head kvh * G + r % G), so one K/V tile feeds
-//     the whole group; each warp owns 16 rows and keeps their Q as
+//     the whole group (a G that does not divide 64 leaves 64 % G rows
+//     of padding, zero queries never written; a G past 64 is split into
+//     the fewest parts of G / parts heads, group_parts: the kSplit
+//     instantiations); each warp owns 16 rows and keeps their Q as
 //     mma.sync A fragments (read from shared memory at each use at D 128,
 //     as B1 does, where they would spill).  At the serving chunk that is
 //     only 128 blocks; 32-row tiles (2 warps, 256 blocks) were slower on
@@ -66,9 +69,10 @@
 //   * query tiles launch last-first, so the longest walks start first.
 //
 // Shape route (by shape, never after a failure): the tensor-core kernel
-// takes bf16 at D 32, 64 and 128 with G dividing 64 (every G the
-// interface takes: G | 16).  Other shapes (D 96 and 160-256), and f32,
-// stay on the CUDA-core kernel below.
+// takes bf16 at every multiple of 16 up to 128 (k16 steps over the head
+// dim), any G.  The other head dims (multiples of 8 up to 256: D % 16 ==
+// 8, and above 128), and f32, stay on the CUDA-core kernel below, which
+// puts 16 / G positions of a group in its 16 rows the same way.
 //
 // CUDA-core design (paged_prefill_kernel, the first port): one block per
 // (query tile, kv head): 16 query rows staged in shared memory as f32;
@@ -108,6 +112,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int KV_BITS> struct PoolElem { using type = int8_t; };
 template <typename T> struct PoolElem<T, 0> { using type = T; };
 
+// Blocks a kv head's group of g query heads is split into: the fewest
+// parts whose heads (g / parts, a divisor of g) fit `rows` query rows.  A
+// tile then holds rows / (g / parts) positions of those heads; rows past
+// positions x heads are padding, zero queries never written.
+inline int group_parts(int g, int rows) {
+  int parts = (g + rows - 1) / rows;
+  while (g % parts) ++parts;
+  return parts;
+}
+
 template <typename T, int KV_BITS>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const T* __restrict__ q,
@@ -116,29 +130,32 @@ paged_prefill_kernel(const T* __restrict__ q,
                      const float* __restrict__ kscale,
                      const float* __restrict__ vscale,
                      const int* __restrict__ table, T* __restrict__ o, int C,
-                     int H, int Hkv, int D, int blk, int npages, int base,
-                     int chunk_len, float sm_scale) {
+                     int H, int Hkv, int D, int parts, int blk, int npages,
+                     int base, int chunk_len, float sm_scale) {
   constexpr int N = VecWidth<T>::N;
   extern __shared__ float smem[];
-  const int G = H / Hkv;
-  const int qt = kRows / G;  // query positions per block
+  // this block's gs query heads: part blockIdx.y % parts of kv head
+  // blockIdx.y / parts's group, from head h0; rows r < qt * gs are used
+  const int gs = H / Hkv / parts;
+  const int qt = kRows / gs;  // query positions per block
   const int ks_stride = D + 1;
   float* qs = smem;                  // [kRows][D]
   float* ks = qs + kRows * D;        // [kTk][D + 1]
   float* vs = ks + kTk * ks_stride;  // [kTk][D + 1]
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / parts;
+  const int h0 = kvh * (H / Hkv) + (blockIdx.y % parts) * gs;
   const int i0 = blockIdx.x * qt;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int total = min(base + chunk_len, npages * blk);
   const int kend = min(total, base + min(i0 + qt, C));
-  const int dpl = D / 32;
 
-  // tile row r = query position i0 + r / G, head kvh * G + r % G
+  // tile row r = query position i0 + r / gs, head h0 + r % gs
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D, i = i0 + r / G;
-    qs[idx] = i < C ? to_float(q[(static_cast<size_t>(i) * H + kvh * G +
-                                  r % G) * D + d])
-                    : 0.f;
+    const int r = idx / D, d = idx % D, i = i0 + r / gs;
+    qs[idx] = i < C && r < qt * gs
+                  ? to_float(q[(static_cast<size_t>(i) * H + h0 + r % gs) * D +
+                               d])
+                  : 0.f;
   }
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kMaxDpl];
   float prob[kRowsPerWarp];
@@ -147,7 +164,7 @@ paged_prefill_kernel(const T* __restrict__ q,
   for (int j = 0; j < kRowsPerWarp; ++j) {
     m[j] = DSTT_NEG_INF;
     l[j] = 0.f;
-    qpos[j] = base + i0 + (warp * kRowsPerWarp + j) / G;
+    qpos[j] = base + i0 + (warp * kRowsPerWarp + j) / gs;
 #pragma unroll
     for (int t = 0; t < kMaxDpl; ++t) acc[j][t] = 0.f;
   }
@@ -224,7 +241,7 @@ paged_prefill_kernel(const T* __restrict__ q,
       float vrow[kMaxDpl];
 #pragma unroll
       for (int t = 0; t < kMaxDpl; ++t)
-        vrow[t] = t < dpl ? vs[jj * ks_stride + lane + 32 * t] : 0.f;
+        vrow[t] = lane + 32 * t < D ? vs[jj * ks_stride + lane + 32 * t] : 0.f;
 #pragma unroll
       for (int j = 0; j < kRowsPerWarp; ++j) {
         const float pj = __shfl_sync(0xffffffffu, prob[j], jj);
@@ -235,13 +252,13 @@ paged_prefill_kernel(const T* __restrict__ q,
   }
 #pragma unroll
   for (int j = 0; j < kRowsPerWarp; ++j) {
-    const int r = warp * kRowsPerWarp + j, i = i0 + r / G;
-    if (i >= C) continue;
+    const int r = warp * kRowsPerWarp + j, i = i0 + r / gs;
+    if (i >= C || r >= qt * gs) continue;
     const float inv = 1.f / fmaxf(l[j], 1e-30f);
-    T* dst = o + (static_cast<size_t>(i) * H + kvh * G + r % G) * D;
+    T* dst = o + (static_cast<size_t>(i) * H + h0 + r % gs) * D;
 #pragma unroll
     for (int t = 0; t < kMaxDpl; ++t)
-      if (t < dpl) dst[lane + 32 * t] = from_float<T>(acc[j][t] * inv);
+      if (lane + 32 * t < D) dst[lane + 32 * t] = from_float<T>(acc[j][t] * inv);
   }
 }
 
@@ -251,8 +268,9 @@ int launch(const void* q, const void* pk, const void* pv, const float* ks,
            int Hkv, int D, int blk, int npages, int base, int chunk_len,
            float sm_scale, cudaStream_t stream) {
   using P = typename PoolElem<T, KV_BITS>::type;
-  const int qt = kRows / (H / Hkv);
-  const dim3 grid((C + qt - 1) / qt, Hkv);
+  const int parts = group_parts(H / Hkv, kRows);
+  const int qt = kRows / (H / Hkv / parts);
+  const dim3 grid((C + qt - 1) / qt, Hkv * parts);
   const size_t smem = sizeof(float) * (kRows * D + 2 * kTk * (D + 1));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -263,7 +281,7 @@ int launch(const void* q, const void* pk, const void* pv, const float* ks,
   paged_prefill_kernel<T, KV_BITS><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(pk),
       static_cast<const P*>(pv), ks, vs, static_cast<const int*>(table),
-      static_cast<T*>(o), C, H, Hkv, D, blk, npages, base, chunk_len,
+      static_cast<T*>(o), C, H, Hkv, D, parts, blk, npages, base, chunk_len,
       sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -280,6 +298,19 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// cp.async of N = 8 or 16 bytes, zero-filled (nothing read) when !valid
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           bool valid) {
+  if constexpr (N == 16) {
+    tc::cp_async16(dst, src, valid);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     tc::smem_u32(dst)),
+                 "l"(src), "n"(N), "r"(valid ? N : 0));
+  }
 }
 
 // Shared memory of the tensor-core kernel, in bytes: the Q tile, the K/V
@@ -348,7 +379,7 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
                      x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
-template <int D, int KV_BITS, int WARPS>
+template <int D, int KV_BITS, int WARPS, bool kSplit>
 __global__ void __launch_bounds__(32 * WARPS)
 paged_prefill_mma_kernel(
     const tc::bf16* __restrict__ q,
@@ -356,7 +387,7 @@ paged_prefill_mma_kernel(
     const typename PoolElem<tc::bf16, KV_BITS>::type* __restrict__ pv,
     const float* __restrict__ kscale, const float* __restrict__ vscale,
     const int* __restrict__ table, tc::bf16* __restrict__ o, int C, int H,
-    int Hkv, int blk, int base, int chunk_len, float sm_scale) {
+    int Hkv, int parts, int blk, int base, int chunk_len, float sm_scale) {
   using Sm = MmaSmem<D, KV_BITS, WARPS>;
   constexpr int S = Sm::kStride, QR = 16 * WARPS, NTH = 32 * WARPS;
   constexpr int NT = D / 8;  // C tiles across the head dim
@@ -365,8 +396,16 @@ paged_prefill_mma_kernel(
   tc::bf16* qs = reinterpret_cast<tc::bf16*>(smem_raw);  // [QR][D + 8]
   tc::bf16* kvs = reinterpret_cast<tc::bf16*>(smem_raw + Sm::kQBytes);
 
-  const int G = H / Hkv, qt = QR / G;  // positions a tile
-  const int kvh = blockIdx.x;
+  // kSplit (a group that does not divide the tile's rows, or is split
+  // into parts): this block's gs query heads are part blockIdx.x % parts
+  // of kv head blockIdx.x / parts's group, from head h0, and only rows
+  // r < qt * gs are used.  Otherwise gs = G and every row is used: the
+  // code the kernel had before groups were split (its registers at D 128,
+  // kv_bits 8 sit at an edge where the split's extra live values spill)
+  const int G = H / Hkv;
+  const int gs = kSplit ? G / parts : G, qt = QR / gs;  // positions a tile
+  const int kvh = kSplit ? blockIdx.x / parts : blockIdx.x;
+  const int h0 = kSplit ? kvh * G + (blockIdx.x % parts) * gs : 0;
   const int i0 = (gridDim.y - 1 - blockIdx.y) * qt;  // longest walks first
   const int total = base + chunk_len;
   const int kend = min(total, base + min(i0 + qt, C));
@@ -374,12 +413,14 @@ paged_prefill_mma_kernel(
   const int m0 = 16 * (threadIdx.x >> 5);  // this warp's rows in the tile
   const float scale2 = sm_scale * tc::kLog2e;
 
-  // the tile's query rows, zero past C
+  // the tile's query rows, zero past C and past qt * gs
   for (int idx = threadIdx.x; idx < QR * VPR; idx += NTH) {
     const int r = idx / VPR, c = (idx % VPR) * 8;
-    const int i = i0 + r / G;
-    const bool ok = i < C;
-    const size_t row = ok ? static_cast<size_t>(i) * H + kvh * G + r % G : 0;
+    const int i = i0 + r / gs;
+    const bool ok = i < C && (!kSplit || r < qt * gs);
+    const size_t row = !ok ? 0
+                       : kSplit ? static_cast<size_t>(i) * H + h0 + r % gs
+                                : static_cast<size_t>(i) * H + kvh * G + r % G;
     tc::cp_async16(qs + r * S + c, q + row * D + c, ok);
   }
   // pool row (block-table lookup) of key p < kend, in rows of Hkv heads
@@ -411,14 +452,15 @@ paged_prefill_mma_kernel(
     unsigned char* kr = raw + st * Sm::kRawStage;
     unsigned char* vr = kr + kKv * RB;
     float* sr = reinterpret_cast<float*>(vr + kKv * RB);  // [2][64]
-    constexpr int RC = RB / 16;  // 16-byte chunks of a raw row
+    // copies of CB bytes (the largest of 16 and 8 dividing a raw row)
+    constexpr int CB = RB % 16 == 0 ? 16 : 8, RC = RB / CB;
     for (int idx = threadIdx.x; idx < kKv * RC; idx += NTH) {
-      const int r = idx / RC, c = (idx % RC) * 16;
+      const int r = idx / RC, c = (idx % RC) * CB;
       const int p = k0 + r;
       const bool ok = p < kend;
       const size_t off = ok ? pool_row(p) * RB + c : 0;
-      tc::cp_async16(kr + r * RB + c, pk + off, ok);
-      tc::cp_async16(vr + r * RB + c, pv + off, ok);
+      cp_async_n<CB>(kr + r * RB + c, pk + off, ok);
+      cp_async_n<CB>(vr + r * RB + c, pv + off, ok);
     }
     for (int idx = threadIdx.x; idx < 2 * kKv; idx += NTH) {
       const int r = idx % kKv, p = k0 + r;
@@ -468,7 +510,7 @@ paged_prefill_mma_kernel(
   int lim[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    lim[h] = min(base + i0 + (m0 + tc::frag_row(2 * h)) / G, total - 1);
+    lim[h] = min(base + i0 + (m0 + tc::frag_row(2 * h)) / gs, total - 1);
   const int lim_lo = min(base + i0, total - 1);  // the tile's lowest limit
   float m[2] = {DSTT_NEG_INF, DSTT_NEG_INF}, l[2] = {0.f, 0.f};
   float acc[NT][4];
@@ -593,9 +635,11 @@ paged_prefill_mma_kernel(
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
-    const int r = m0 + tc::frag_row(2 * h), i = i0 + r / G;
-    if (i >= C) continue;
-    tc::bf16* out = o + (static_cast<size_t>(i) * H + kvh * G + r % G) * D +
+    const int r = m0 + tc::frag_row(2 * h), i = i0 + r / gs;
+    if (i >= C || (kSplit && r >= qt * gs)) continue;
+    tc::bf16* out = o + (kSplit ? static_cast<size_t>(i) * H + h0 + r % gs
+                                : static_cast<size_t>(i) * H + kvh * G + r % G) *
+                            D +
                     tc::frag_col(0);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -611,33 +655,41 @@ int launch_mma(const void* q, const void* pk, const void* pv, const float* ks,
                cudaStream_t stream) {
   using P = typename PoolElem<tc::bf16, KV_BITS>::type;
   constexpr int W = kMmaWarps;
-  auto kernel = paged_prefill_mma_kernel<D, KV_BITS, W>;
+  const int parts = group_parts(H / Hkv, 16 * W);
+  const bool split = parts > 1 || (16 * W) % (H / Hkv);
+  auto kernel = split ? paged_prefill_mma_kernel<D, KV_BITS, W, true>
+                      : paged_prefill_mma_kernel<D, KV_BITS, W, false>;
   const int smem = MmaSmem<D, KV_BITS, W>::kBytes;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int qt = 16 * W / (H / Hkv);
-  const dim3 grid(Hkv, (C + qt - 1) / qt);
+  const int qt = 16 * W / (H / Hkv / parts);
+  const dim3 grid(Hkv * parts, (C + qt - 1) / qt);
   kernel<<<grid, 32 * W, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const P*>(pk),
       static_cast<const P*>(pv), ks, vs, static_cast<const int*>(table),
-      static_cast<tc::bf16*>(o), C, H, Hkv, blk, base, chunk_len, sm_scale);
+      static_cast<tc::bf16*>(o), C, H, Hkv, parts, blk, base, chunk_len,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D 32, 64 and 128 (G | 16 divides the 64-row tile) to the
-// tensor-core kernel; every other shape, and f32, to the CUDA-core one
+// bf16 at the multiples of 16 up to 128 to the tensor-core kernel; every
+// other shape (D % 16 == 8, D > 128), and f32, to the CUDA-core one
 template <int KV_BITS>
 int launch_bf16(const void* q, const void* pk, const void* pv,
                 const float* ks, const float* vs, const void* table, void* o,
                 int C, int H, int Hkv, int D, int blk, int npages, int base,
                 int chunk_len, float sm_scale, cudaStream_t st) {
   switch (D) {
-    case 32: return launch_mma<32, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, blk, base, chunk_len, sm_scale, st);
-    case 64: return launch_mma<64, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, blk, base, chunk_len, sm_scale, st);
-    case 128: return launch_mma<128, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, blk, base, chunk_len, sm_scale, st);
+#define DSTT_CASE(DD)                                                     \
+  case DD:                                                                \
+    return launch_mma<DD, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, \
+                                   blk, base, chunk_len, sm_scale, st);
+    DSTT_CASE(16) DSTT_CASE(32) DSTT_CASE(48) DSTT_CASE(64) DSTT_CASE(80)
+    DSTT_CASE(96) DSTT_CASE(112) DSTT_CASE(128)
+#undef DSTT_CASE
   }
   return launch<__nv_bfloat16, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H,
                                         Hkv, D, blk, npages, base, chunk_len,
@@ -660,14 +712,15 @@ int launch_dtype(const void* q, const void* pk, const void* pv,
 }
 
 bool bad_shape(int C, int H, int Hkv, int D) {
-  return D % 32 || D > 32 * kMaxDpl || H % Hkv || kRows % (H / Hkv) || C < 1;
+  return D < 8 || D % 8 || D > 32 * kMaxDpl || Hkv < 1 || H % Hkv || C < 1;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q/o [C, H, D]; pools
-// [num_blocks, blk, Hkv, D]; table [npages] int32.  Needs D % 32 == 0,
-// D <= 256 and H / Hkv dividing 16.
+// [num_blocks, blk, Hkv, D]; table [npages] int32.  Needs D a multiple of
+// 8 up to 256 and H a multiple of Hkv (a group larger than a tile's rows
+// is split across blocks: group_parts).
 extern "C" int dstt_paged_prefill_attention(
     const void* q, const void* pk, const void* pv, const void* table,
     void* o, int C, int H, int Hkv, int D, int blk, int npages, int base,

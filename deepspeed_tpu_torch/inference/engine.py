@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..ops import build
 from ..models.convert import check_params, leaf_to_torch, tree_map
 from ..models.transformer import TransformerLM
 from ..ops.quantizer.quantizer import dequantize, quantize
@@ -95,6 +96,11 @@ class InferenceEngine:
         refuse_out_of_slice(self.config)
         self.device = resolve_device(device)
         self.dtype = self.config.compute_dtype()
+        if self.dtype == torch.float16:
+            raise NotImplementedError(
+                f"init_inference(dtype={self.config.dtype!r}): the serving "
+                f"kernels B5-B7 (and B8 for a block-sparse model) take "
+                f"float32 or bfloat16; {build.C2}")
         # kernel injection: flash routes t == 1 decode through kernel B5,
         # xla keeps plain attention (the JAX engine's rewrite).  Only the
         # xla/flash pair is rewritten: blocksparse is a model choice whose

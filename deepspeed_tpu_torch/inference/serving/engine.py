@@ -72,7 +72,7 @@ class ServingEngine:
         cfg = engine.config.serving
         _refuse_out_of_slice(cfg)
         model = engine.module
-        reason = model._paged_supported()
+        reason = model._paged_supported(cfg.kv_cache_bits)
         if reason is not None:
             raise NotImplementedError(
                 f"continuous-batching serving cannot run this model: "

@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..runtime.fp16.loss_scaler import LossScaleState
 from .transformer import TransformerLM
 
 
@@ -86,9 +87,10 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 def state_from_jax(tree: Dict[str, Any], model: TransformerLM,
                    device="cpu") -> Dict[str, Any]:
     """A JAX train state ``{step, skipped, params, opt: {step, m, v}}``
-    (numpy leaves, after ``jax.device_get``) → the port engine's state
-    on ``device``: counters as int32 scalars, params and moments as
-    given (float32 masters and moments)."""
+    (numpy leaves, after ``jax.device_get``; with fp16 also ``scaler``)
+    → the port engine's state on ``device``: counters as int32 scalars,
+    params and moments as given (float32 masters and moments), the loss
+    scaler's state as a :class:`LossScaleState`."""
     for tree_name in ("params", "m", "v"):
         check_params(model, tree[tree_name] if tree_name == "params"
                      else tree["opt"][tree_name])
@@ -96,12 +98,18 @@ def state_from_jax(tree: Dict[str, Any], model: TransformerLM,
     def counter(a):
         return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
                             device=device)
-    return {"step": counter(tree["step"]),
-            "skipped": counter(tree["skipped"]),
-            "params": params_from_jax(tree["params"], model, device),
-            "opt": {"step": counter(tree["opt"]["step"]),
-                    "m": params_from_jax(tree["opt"]["m"], model, device),
-                    "v": params_from_jax(tree["opt"]["v"], model, device)}}
+    state = {"step": counter(tree["step"]),
+             "skipped": counter(tree["skipped"]),
+             "params": params_from_jax(tree["params"], model, device),
+             "opt": {"step": counter(tree["opt"]["step"]),
+                     "m": params_from_jax(tree["opt"]["m"], model, device),
+                     "v": params_from_jax(tree["opt"]["v"], model, device)}}
+    if "scaler" in tree:                # fp16: (scale, good_steps, hysteresis)
+        scale, good, hys = (np.asarray(a) for a in tree["scaler"])
+        state["scaler"] = LossScaleState(
+            torch.tensor(float(scale), dtype=torch.float32, device=device),
+            counter(good), counter(hys))
+    return state
 
 
 def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -109,9 +117,14 @@ def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     (int32 counters as 0-d arrays)."""
     def counter(t):
         return np.asarray(int(t), dtype=np.int32)
-    return {"step": counter(state["step"]),
-            "skipped": counter(state["skipped"]),
-            "params": params_to_jax(state["params"]),
-            "opt": {"step": counter(state["opt"]["step"]),
-                    "m": params_to_jax(state["opt"]["m"]),
-                    "v": params_to_jax(state["opt"]["v"])}}
+    out = {"step": counter(state["step"]),
+           "skipped": counter(state["skipped"]),
+           "params": params_to_jax(state["params"]),
+           "opt": {"step": counter(state["opt"]["step"]),
+                   "m": params_to_jax(state["opt"]["m"]),
+                   "v": params_to_jax(state["opt"]["v"])}}
+    if "scaler" in state:               # as the JAX LossScaleState's fields
+        sc = state["scaler"]
+        out["scaler"] = (np.asarray(float(sc.scale), dtype=np.float32),
+                         counter(sc.good_steps), counter(sc.hysteresis))
+    return out

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from ..accelerator import resolve_device
+from ..ops import build
 from ..ops.transformer.decode_attention import decode_attention
 from ..ops.transformer.flash_attention import flash_attention_bthd
 from ..ops.transformer.fused_loss import fused_linear_xent
@@ -197,6 +198,10 @@ def check_in_slice(c: TransformerConfig) -> None:
                 f"slices of the PyTorch port so far (the GPT-2 and LLaMA "
                 f"families); the model-families slice of ROADMAP.md queue "
                 f"A brings it")
+    if c.attn_impl == "blocksparse" and c.dtype == torch.float16:
+        raise NotImplementedError(
+            "attn_impl='blocksparse' in float16: the block-sparse kernels "
+            "B8-B10 take float32 or bfloat16; " + build.C2)
     if c.remat not in REMAT_POLICIES:
         raise NotImplementedError(
             f"remat={c.remat!r}: the training slice of the PyTorch port "
@@ -649,9 +654,12 @@ class TransformerLM(nn.Module):
                 "index": 0}
 
     # -- paged serving state -------------------------------------------------
-    def _paged_supported(self) -> Optional[str]:
-        """None when the paged decode path serves this config, else the
-        reason it cannot (the JAX model's rule)."""
+    def _paged_supported(self, kv_bits: int = 0) -> Optional[str]:
+        """None when the paged decode path serves this config with a pool
+        of ``kv_bits``, else the reason it cannot: the JAX model's rule,
+        then the gate of the kernels that path runs (B5, B6, B7:
+        ``build.kernel_supports`` at the model's dtype and kv group), so a
+        server is never built at a shape its kernels refuse."""
         c = self.config
         if not c.causal:
             return "paged decode needs a causal (decoder) model"
@@ -667,6 +675,14 @@ class TransformerLM(nn.Module):
             return ("paged decode does not apply the block-sparse layout "
                     "(attn_impl='blocksparse'); generate() serves it on "
                     "the dense cache")
+        g = c.num_heads // c.kv_heads
+        for name in ("decode_attention", "paged_decode_attention",
+                     "paged_prefill_attention"):
+            why = build.kernel_supports(
+                name, c.hdim, g, c.dtype,
+                0 if name == "decode_attention" else kv_bits)
+            if why is not None:
+                return why
         return None
 
     def init_paged_cache(self, num_blocks: int, block_size: int,

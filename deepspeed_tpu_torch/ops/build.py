@@ -11,7 +11,8 @@ A failed build raises; nothing falls back.
 ``launch_counts`` holds one plain integer per kernel: each wrapper adds
 one where it launches its kernel, so a run can show which kernels its
 path went through.  The quantized variants of B6 and B7 (int8 and packed
-int4 pools) are counted under keys of their own (``COUNTERS``).
+int4 pools) and the float16 variants of B1-B4 are counted under keys of
+their own (``COUNTERS``).
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -41,9 +43,15 @@ KERNELS = ("decode_attention", "paged_decode_attention",
 QUANT_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 QUANT_BITS = (8, 4)
 
-#: every launch counter: one per kernel, one per quantized variant
-COUNTERS = KERNELS + tuple(f"{name}_int{bits}" for name in QUANT_KERNELS
-                           for bits in QUANT_BITS)
+#: the flash kernels B1-B4, the ones with float16 variants
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+#: every launch counter: one per kernel, one per quantized variant, one
+#: per float16 variant
+COUNTERS = (KERNELS + tuple(f"{name}_int{bits}" for name in QUANT_KERNELS
+                            for bits in QUANT_BITS)
+            + tuple(f"{name}_f16" for name in FLASH_KERNELS))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,9 +67,13 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def counter(kernel: str, kv_bits: int = 0) -> str:
-    """The launch counter of ``kernel`` over a pool of ``kv_bits``."""
-    return f"{kernel}_int{kv_bits}" if kv_bits else kernel
+def counter(kernel: str, kv_bits: int = 0,
+            dtype: Optional[torch.dtype] = None) -> str:
+    """The launch counter of ``kernel`` over a pool of ``kv_bits``, or on
+    operands of ``dtype`` (float16 launches count apart)."""
+    if kv_bits:
+        return f"{kernel}_int{kv_bits}"
+    return f"{kernel}_f16" if dtype == torch.float16 else kernel
 
 
 def nvcc_path() -> str:
@@ -89,7 +101,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` process per source, all started together.  The compiler's
     report (``-Xptxas -v``: registers, shared memory, spills) is kept
-    beside each library as ``<library>.log``."""
+    beside each library as ``<library>.log``, ending with the compiler's
+    wall time."""
     names = list(names)
     targets = {n: library_path(n) for n in names}
     todo = [n for n in names if not targets[n].exists()]
@@ -98,24 +111,36 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
+    started = time.perf_counter()
     for n in todo:
         tmp = tempfile.NamedTemporaryFile(
             dir=BUILD_DIR, prefix=f".{n}-", suffix=".so", delete=False)
         tmp.close()
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp.name,
                str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp.name, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        # the report goes straight to a file: through a pipe read in
+        # turn, a compiler whose report outgrew the pipe would wait for
+        # the ones before it
+        log = open(f"{targets[n]}.log", "w")
+        procs[n] = (tmp.name, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT))
     failed = []
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        Path(f"{targets[n]}.log").write_text(out)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, targets[n])
+    while procs:
+        for n, (tmp, log, proc) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            log.write(f"\nnvcc wall time: "
+                      f"{time.perf_counter() - started:.1f} s\n")
+            log.close()
+            del procs[n]
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                out = Path(f"{targets[n]}.log").read_text()
+                failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, targets[n])
+        if procs:
+            time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return targets
@@ -144,29 +169,138 @@ def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# -- the kernels' shape gate ----------------------------------------------------
+#: head dims of the flash (B1-B4) and block-sparse (B8-B10) kernels: the
+#: multiples of 16 up to 256 (``csrc`` DSTT_FLASH_HEAD_DIMS)
+FLASH_HEAD_DIMS = tuple(range(16, 257, 16))
+#: head dims of the decode kernels B5, B6, B7 at bf16: the multiples of 8
+#: up to 256, the reference's ``head_dim % 8`` gate (DSTT_DECODE_HEAD_DIMS)
+DECODE_HEAD_DIMS = tuple(range(8, 257, 8))
+#: dynamic shared memory one block can use on sm_90 (``csrc`` kMaxSmem)
+MAX_SMEM = 232448
+
+SPARSE_KERNELS = ("blocksparse_flash_fwd", "blocksparse_flash_bwd_dq",
+                  "blocksparse_flash_bwd_dkv")
+DECODE_KERNELS = ("decode_attention", "paged_decode_attention",
+                  "paged_prefill_attention")
+
+#: (f32 tiles of [64, D + 1], [64, 65] probability tiles, [64] row
+#: statistics) of each f32 CUDA-core kernel's shared memory
+_F32_TILES = {"flash_attention_fwd": (3, 1, 0),
+              "flash_attention_bwd": (4, 2, 2),
+              "flash_attention_bwd_dq": (4, 1, 2),
+              "flash_attention_bwd_dkv": (4, 2, 2),
+              "blocksparse_flash_fwd": (3, 1, 0),
+              "blocksparse_flash_bwd_dq": (4, 1, 2),
+              "blocksparse_flash_bwd_dkv": (4, 2, 2)}
+
+#: the ROADMAP queue C items that name what stays refused
+C1_REST = ("ROADMAP queue C item C1's remainder: flash head dims that are "
+           "not a multiple of 16, and any head dim above 256")
+C1_F32 = ("ROADMAP queue C item C1's remainder: the float32 kernels keep "
+          "their first designs")
+C2 = ("float16 decode, serving and block-sparse kernels (B5-B10) are "
+      "ROADMAP queue C item C2")
 
 
-def check_layout(what: str, tensors, head_dim: int, elem_size: int) -> None:
-    """What every kernel here needs of its operands: contiguous tensors,
-    16-byte aligned data (the kernels load rows with 16-byte vectors), and
-    a row of ``head_dim`` elements that a power-of-two group of at most
-    32 lanes covers at 16 bytes each."""
+def _f32_smem(name: str, d: int) -> int:
+    tiles, probs, stats = _F32_TILES[name]
+    return 4 * (tiles * 64 * (d + 1) + probs * 64 * 65 + stats * 64)
+
+
+def _pow2_lanes(d: int, elem_bytes: int) -> bool:
+    lanes, rem = divmod(d * elem_bytes, 16)
+    return not rem and 0 < lanes <= 32 and not lanes & (lanes - 1)
+
+
+def kernel_supports(name: str, d: int, g: int = 1,
+                    dtype: torch.dtype = torch.bfloat16, kv_bits: int = 0,
+                    block: Optional[int] = None) -> Optional[str]:
+    """None when kernel library ``name`` takes head dim ``d``, kv group
+    ``g`` (query heads per kv head), ``dtype``, a pool of ``kv_bits`` and
+    a block-sparse layout ``block``; else why not.  Pure Python: the
+    wrappers raise with this reason, and the model's paged path
+    (``TransformerLM._paged_supported``) reads the same rule, so a server
+    is never built at a shape its kernels refuse."""
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel library {name!r}")
+    if dtype not in DTYPE_CODES:
+        return f"{name}: dtype {dtype} (float32, bfloat16 or float16)"
+    if g < 1:
+        return f"{name}: kv group {g} < 1"
+    if name in FLASH_KERNELS or name in SPARSE_KERNELS:
+        if name in SPARSE_KERNELS and dtype == torch.float16:
+            return f"{name}: float16 ({C2})"
+        if d not in FLASH_HEAD_DIMS:
+            return f"{name}: head_dim {d} ({C1_REST})"
+        if dtype == torch.float32 and _f32_smem(name, d) > MAX_SMEM:
+            return (f"{name}: float32 at head_dim {d} needs "
+                    f"{_f32_smem(name, d)} bytes of shared memory "
+                    f"(> {MAX_SMEM}); bfloat16 takes it ({C1_F32})")
+        if name in SPARSE_KERNELS and block is not None and (
+                block < 16 or block % 16):
+            return f"{name}: layout block {block} is not a multiple of 16"
+        return None
+    if dtype == torch.float16:
+        return f"{name}: float16 ({C2})"
+    if kv_bits not in (0, 8, 4):
+        return f"{name}: kv_bits {kv_bits} not in (0, 8, 4)"
+    if name == "decode_attention" and kv_bits:
+        return f"{name}: a dense cache holds no quantized rows"
+    if dtype == torch.bfloat16 or name == "paged_prefill_attention":
+        if d not in DECODE_HEAD_DIMS:
+            return (f"{name}: head_dim {d} is not a multiple of 8 up to 256"
+                    + (f" ({C1_REST})" if d % 8 == 0 else ""))
+        return None
+    # float32 B5 and B6 keep their first designs: a warp's power-of-two
+    # lane group over a row of 16-byte vectors (8 features a lane when
+    # quantized), and B6's query group in (1, 2, 4, 8)
+    if not _pow2_lanes(d, 2 if kv_bits else 4):
+        return (f"{name}: float32 head_dim {d} is not 16 bytes x a power "
+                f"of two <= 32 ({'8 features' if kv_bits else '4'} a lane); "
+                f"bfloat16 takes every multiple of 8 up to 256 ({C1_F32})")
+    if name == "paged_decode_attention" and g not in (1, 2, 4, 8):
+        return (f"{name}: float32 kv group {g} not in (1, 2, 4, 8); "
+                f"bfloat16 takes any ({C1_F32})")
+    return None
+
+
+def check_supports(name: str, d: int, g: int = 1,
+                   dtype: torch.dtype = torch.bfloat16, kv_bits: int = 0,
+                   block: Optional[int] = None) -> None:
+    """Raise ``ValueError`` with :func:`kernel_supports`'s reason."""
+    why = kernel_supports(name, d, g, dtype, kv_bits, block)
+    if why is not None:
+        raise ValueError(f"{why} (the kernel does not take it)")
+
+
+def group_parts(g: int, d: int, max_group_dim: int) -> int:
+    """Blocks the decode kernels B5 and B6 split a kv head's group of ``g``
+    query heads into: the fewest parts whose heads (a divisor of g) hold at
+    most ``max_group_dim`` output features.  Each part reads the kv head's
+    rows again; nothing is copied at query-head width."""
+    parts = max(1, -(-g * d // max_group_dim))
+    while g % parts:
+        parts += 1
+    return parts
+
+
+def check_layout(what: str, tensors) -> None:
+    """What every kernel here needs of its operands: contiguous tensors
+    and 16-byte aligned data (the kernels load rows with 16-byte
+    vectors)."""
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} not 16-byte aligned")
-    lanes, rem = divmod(head_dim * elem_size, 16)
-    if rem or lanes > 32 or lanes & (lanes - 1):
-        raise ValueError(f"{what} kernel: head_dim {head_dim} x "
-                         f"{elem_size} bytes must be 16 x a power of two "
-                         f"<= 32")
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:
     code = DTYPE_CODES.get(t.dtype)
     if code is None:
         raise TypeError(f"{what}: dtype {t.dtype} not supported by the "
-                        f"kernel (float32 or bfloat16)")
+                        f"kernel (float32, bfloat16 or float16)")
     return code

@@ -30,9 +30,12 @@ are built on the host once per (layout, T) at that granularity and
 copied to each device once: a layout block of 64·m rows covers m x m
 tile pairs; blocks of 16 and 32 share a tile pair, which is walked when
 any of its sub-blocks is set and carries a 16-bit mask of them (bit
-``4 i + j`` for query sub-block i and key sub-block j).  The kernels run
-blocks of 16, 32 and multiples of 64, head dims ``KERNEL_HEAD_DIMS`` and
-float32 or bfloat16; anything else raises in the wrapper.  On CPU tensors
+``4 i + j`` for query sub-block i and key sub-block j); any other
+multiple of 16 (48, 80, 96, ...) is masked the same way in sub-blocks of
+16 rows, each of which lies in one layout block.  The kernels run every
+block that is a multiple of 16, head dims ``KERNEL_HEAD_DIMS`` and
+float32 or bfloat16 (``build.kernel_supports``); anything else raises in
+the wrapper.  On CPU tensors
 the wrappers run the plain versions, which take any block that divides T
 and walk the same lists one tile at a time, so their memory grows with
 the nonzero blocks and not with T².
@@ -90,9 +93,8 @@ def compress_layout(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
 
 
 def kernel_block(block: int) -> bool:
-    """True for the layout blocks the kernels run: 16, 32 and multiples
-    of 64."""
-    return block in (16, 32) or (block > 0 and block % TILE == 0)
+    """True for the layout blocks the kernels run: the multiples of 16."""
+    return block > 0 and block % 16 == 0
 
 
 def _lists(walk: np.ndarray, bits: Optional[np.ndarray]):
@@ -121,7 +123,8 @@ class TileLayout:
     layout, else one per head), ``q_walk`` = (idx, cnt, bits, order) of
     each query tile's kv tiles and ``kv_walk`` the same of each kv tile's
     query tiles; ``sub_shift`` is log2 of the kernels' sub-block (16, 32
-    or 64) or None for a block the kernels do not run.  Device copies of
+    or 64: the block itself below 64, 64 for its multiples, 16 for any
+    other multiple of 16) or None for a block the kernels do not run.  Device copies of
     the lists are made once per device (:meth:`on`)."""
 
     def __init__(self, layout: np.ndarray, block: int, t_len: int):
@@ -140,14 +143,18 @@ class TileLayout:
         bits = None
         self.sub_shift = None
         if kernel_block(block):
-            sub = min(block, TILE)
+            sub = block if block in (16, 32) or block % TILE == 0 else 16
+            sub = min(sub, TILE)
             r = TILE // sub
             self.sub_shift = int(math.log2(sub))
-            if block >= TILE:
+            if sub == TILE:
                 bits = walk.astype(np.int32)           # bit 0: whole pair
             else:
+                # the layout at sub-block granularity (block / sub rows
+                # of sub-blocks a layout block)
+                m = block // sub
                 fine = np.zeros((g, n * r, n * r), np.int32)
-                fine[:, :nq, :nk] = layout
+                fine[:, :nq * m, :nk * m] = layout.repeat(m, 1).repeat(m, 2)
                 fine = fine.reshape(g, n, r, n, r)
                 shift = (4 * np.arange(r)[:, None]
                          + np.arange(r)[None, :])       # bit 4 i + j
@@ -368,8 +375,8 @@ def blocksparse_attention_bwd_dkv_plain(q, k, v, o, lse, do, layout_c,
 # -- kernels -------------------------------------------------------------------
 def _kernel_checks(what: str, tl: TileLayout, tensors) -> None:
     if tl.sub_shift is None:
-        raise ValueError(f"{what} kernel: layout block {tl.block} is not "
-                         f"16, 32 or a multiple of {TILE}")
+        raise ValueError(f"{what} kernel: layout block {tl.block} is not a "
+                         f"multiple of 16")
     FA._check_kernel(what, tensors)
 
 

@@ -18,7 +18,9 @@ content there (NaN included) cannot reach the result, and ``length ==
 
 The bf16 kernel runs one block per (batch row, kv head, split) and
 merges a row's splits inside one thread-block cluster
-(:func:`cluster_plan`); the f32 kernel keeps one warp per head and a
+(:func:`cluster_plan`), at every head dim that is a multiple of 8 up to
+256 and any group (a group of more than 4096 output features is split
+across blocks, each reading the kv head's rows); the f32 kernel keeps one warp per head and a
 second merge launch over a scratch (:func:`split_plan`).  The paged
 decode kernel B6 splits each slot's table the same way
 (:func:`paged_split_plan`).
@@ -42,7 +44,8 @@ _HEADS_PER_BLOCK = 4
 #: a split never holds fewer positions than this
 _MIN_SPLIT_ROWS = 64
 #: the bf16 kernel's cluster holds at most this many splits (the portable
-#: cluster size) and a block at most this many output features (g * D)
+#: cluster size) and a block at most this many output features (g * D; a
+#: larger kv group is split across blocks, ``build.group_parts``)
 _MAX_SPLITS = 8
 _MAX_GROUP_DIM = 4096
 
@@ -141,8 +144,8 @@ def _kernel():
     lib = build.load_library(_NAME)
     fn = getattr(lib, _SYM)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float,
-                   I, P]
+    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                   ctypes.c_float, I, P]
     fn.restype = I
     return lib, fn
 
@@ -154,22 +157,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, length, sm_scale)
     _check(q, k, v, length)
-    code = build.dtype_code(q, "decode_attention")
-    build.check_layout(_NAME, (("q", q), ("k", k), ("v", v)), q.shape[-1],
-                       q.element_size())
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
+    build.check_supports(_NAME, d, h // hkv, q.dtype)
+    code = build.dtype_code(q, _NAME)
+    build.check_layout(_NAME, (("q", q), ("k", k), ("v", v)))
     length = int(length)
     scale = sm_scale or 1.0 / math.sqrt(d)
     sms = _sm_count(q.device.index or 0)
+    parts = 1
     if code == 0:
         nsplit, split_len = split_plan(b, h, length, sms)
     else:
-        if (h // hkv) * d > _MAX_GROUP_DIM:
-            raise ValueError(f"decode_attention kernel: a kv group of "
-                             f"{h // hkv} heads x head_dim {d} exceeds "
-                             f"{_MAX_GROUP_DIM} features a block")
-        nsplit, split_len = cluster_plan(b, hkv, length, sms)
+        parts = build.group_parts(h // hkv, d, _MAX_GROUP_DIM)
+        nsplit, split_len = cluster_plan(b, hkv * parts, length, sms)
     out = torch.empty_like(q)
     part_ml = part_acc = None
     if code == 0 and nsplit > 1:
@@ -181,7 +182,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
-            b, s, h, hkv, d, length, nsplit, split_len, scale, code,
+            b, s, h, hkv, d, parts, length, nsplit, split_len, scale, code,
             build.current_stream(q.device))
     build.check_launch(lib, _SYM, rc)
     build.launch_counts[_NAME] += 1

@@ -23,9 +23,11 @@ product; in the backward p is rounded to dO's dtype before dV and ds to
 q's dtype before dQ and dK; every sum is float32; dk and dv are summed
 over the g query heads of a group.  ``delta = rowsum(dO * O)`` is a
 PyTorch reduction outside the kernels, as in the JAX package.  Rows past
-T are never read.  On CUDA tensors the wrappers launch the kernels; on
-CPU tensors they run the plain versions, which compute the same function
-in float32 at the same rounding points.
+T are never read.  On CUDA tensors the wrappers launch the kernels (in
+float32, bfloat16 or float16, at every head dim of ``KERNEL_HEAD_DIMS``
+that ``build.kernel_supports`` admits; float16 launches count under
+``<kernel>_f16``); on CPU tensors they run the plain versions, which
+compute the same function in float32 at the same rounding points.
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ _BWD, _BWD_SYM = "flash_attention_bwd", "dstt_flash_attention_bwd"
 _DQ, _DQ_SYM = "flash_attention_bwd_dq", "dstt_flash_attention_bwd_dq"
 _DKV, _DKV_SYM = "flash_attention_bwd_dkv", "dstt_flash_attention_bwd_dkv"
 
-#: head dims the kernels are built for
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernels are built for: the multiples of 16 up to 256
+KERNEL_HEAD_DIMS = build.FLASH_HEAD_DIMS
 
 
 def _scale(d: int, sm_scale: Optional[float]) -> float:
@@ -192,15 +194,13 @@ def _check_mha(what: str, q: torch.Tensor, k: torch.Tensor) -> None:
 
 
 def _check_kernel(what: str, tensors) -> None:
-    for name, t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} not 16-byte aligned")
-    bh, t_len, d = tensors[0][1].shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what} kernel: head_dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+    """Layout, the shared gate (:func:`build.kernel_supports`: head dim,
+    dtype, f32 shared memory) and the grid limits of kernel ``what``;
+    ``tensors`` start with q, k."""
+    build.check_layout(what, tensors)
+    (_, q), (_, k) = tensors[:2]
+    bh, t_len, d = q.shape
+    build.check_supports(what, d, bh // k.shape[0], q.dtype)
     if not 1 <= bh <= 65535 or t_len < 1:
         raise ValueError(f"{what} kernel: B*H {bh} outside [1, 65535] or "
                          f"T {t_len} < 1")
@@ -235,7 +235,7 @@ def _launch(name: str, sym: str, q: torch.Tensor, ptrs, ints, sm_scale,
             _scale(q.shape[-1], sm_scale), int(causal),
             build.dtype_code(q, name), build.current_stream(q.device))
     build.check_launch(lib, sym, rc)
-    build.launch_counts[name] += 1
+    build.launch_counts[build.counter(name, dtype=q.dtype)] += 1
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True,

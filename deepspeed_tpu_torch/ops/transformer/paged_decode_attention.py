@@ -8,9 +8,13 @@ Counterpart of ``deepspeed_tpu/ops/transformer/paged_decode_attention.py``
 (kv_bits a template parameter of each; a quantized launch is counted
 under ``<kernel>_int8`` or ``<kernel>_int4``).  At bf16 queries B6 splits
 each slot's table into up to 8 ranks of one thread-block cluster
-(``decode_attention.paged_split_plan``) and B7 runs on the tensor cores
-at head dims 32, 64 and 128 (other head dims, and f32, on the CUDA-core
-kernels: a route by shape).
+(``decode_attention.paged_split_plan``), and a kv group of more than 2048
+output features into blocks of a few heads (``build.group_parts``); B7
+runs on the tensor cores at the head dims that are multiples of 16 up to
+128 (the others, multiples of 8 up to 256, and f32 on the CUDA-core
+kernel: a route by shape), any group split across blocks where it
+outgrows a tile.  The shapes each kernel takes are
+``build.kernel_supports``'s.
 
 Layout contract (the JAX package's): pools ``[num_blocks, block, Hkv,
 De]``: the activation dtype at ``De = D``, or, with ``kv_bits`` 8 or 4,
@@ -40,6 +44,10 @@ import torch
 from .. import build
 from ..quantizer.quantizer import kv_dequantize
 from .decode_attention import paged_split_plan
+
+#: output features (g * D) of one bf16 B6 block; a larger kv group is
+#: split across blocks (``build.group_parts``)
+_MAX_GROUP_DIM = 2048
 
 _DEC, _DEC_SYM = "paged_decode_attention", "dstt_paged_decode_attention"
 _PRE, _PRE_SYM = "paged_prefill_attention", "dstt_paged_prefill_attention"
@@ -113,22 +121,16 @@ def _gather_rows(pool, scale, kv_bits, index):
     return pool[index].float()
 
 
-def _quant_layout(what: str, q, pool_k, pool_v, k_scale, v_scale,
-                  d: int) -> None:
+def _quant_layout(what: str, q, pool_k, pool_v, k_scale, v_scale) -> None:
     """What the quantized kernels need of their operands: contiguous
-    tensors, 16-byte aligned q and pools, 4-byte aligned scales, and a
-    head_dim of 8 features a lane for a power of two of at most 32 lanes
-    (8 <= D <= 256)."""
+    tensors, 16-byte aligned q and pools, 4-byte aligned scales (the head
+    dim is :func:`build.kernel_supports`'s)."""
     for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
                     ("k_scale", k_scale), ("v_scale", v_scale)):
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.data_ptr() % (4 if name.endswith("scale") else 16):
             raise ValueError(f"{what}: {name} not aligned")
-    lanes, rem = divmod(d, 8)
-    if rem or lanes > 32 or lanes & (lanes - 1):
-        raise ValueError(f"{what} kernel: quantized head_dim {d} must be "
-                         f"8 x a power of two <= 32")
 
 
 def _check_index(t: torch.Tensor, name: str, shape, device) -> None:
@@ -190,8 +192,8 @@ def _decode_kernel(quant: bool):
     P, I = ctypes.c_void_p, ctypes.c_int
     ptrs = [P] * (7 if quant else 5)
     tail = [I, I] if quant else [I]          # dtype (, kv_bits)
-    fn.argtypes = (ptrs + [P, I, I, I, I, I, I, I, I, ctypes.c_float] + tail
-                   + [P])
+    fn.argtypes = (ptrs + [P, I, I, I, I, I, I, I, I, I, ctypes.c_float]
+                   + tail + [P])
     fn.restype = I
     return lib, fn
 
@@ -215,26 +217,22 @@ def paged_decode_attention(q, pool_k, pool_v, lengths, block_tables,
     npages = block_tables.shape[1]
     _check_index(lengths, "lengths", (b,), q.device)
     _check_index(block_tables, "block_tables", (b, npages), q.device)
-    code = build.dtype_code(q, "paged_decode_attention")
+    build.check_supports(_DEC, d, h // hkv, q.dtype, kv_bits)
+    code = build.dtype_code(q, _DEC)
     if kv_bits:
-        _quant_layout(_DEC, q, pool_k, pool_v, k_scale, v_scale, d)
+        _quant_layout(_DEC, q, pool_k, pool_v, k_scale, v_scale)
     else:
         build.check_layout(_DEC, (("q", q), ("pool_k", pool_k),
-                                  ("pool_v", pool_v)), d, q.element_size())
+                                  ("pool_v", pool_v)))
     if not (lengths.is_contiguous() and block_tables.is_contiguous()):
         raise ValueError(f"{_DEC}: lengths/block_tables must be contiguous")
-    if h // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"paged_decode_attention kernel: query group "
-                         f"{h // hkv} not in (1, 2, 4, 8)")
-    if d > 256:
-        raise ValueError(f"paged_decode_attention kernel: head_dim {d} "
-                         f"> 256")
+    parts = build.group_parts(h // hkv, d, _MAX_GROUP_DIM)
     out = torch.empty_like(q)
     lib, fn = _decode_kernel(bool(kv_bits))
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if kv_bits else ()
     rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *scales,
             lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-            b, h, hkv, d, blk, npages, *paged_split_plan(npages, blk),
+            b, h, hkv, d, parts, blk, npages, *paged_split_plan(npages, blk),
             sm_scale or 1.0 / math.sqrt(d), code,
             *((kv_bits,) if kv_bits else ()),
             build.current_stream(q.device))
@@ -314,18 +312,17 @@ def paged_prefill_attention(q, pool_k, pool_v, base: int, chunk_len: int,
         raise ValueError(f"paged_prefill_attention: base {base} + "
                          f"chunk_len {chunk_len} outside the table's "
                          f"{npages * blk} rows")
-    code = build.dtype_code(q, "paged_prefill_attention")
+    build.check_supports(_PRE, d, h // hkv, q.dtype, kv_bits)
+    code = build.dtype_code(q, _PRE)
     if kv_bits:
-        _quant_layout(_PRE, q, pool_k, pool_v, k_scale, v_scale, d)
+        _quant_layout(_PRE, q, pool_k, pool_v, k_scale, v_scale)
     else:
         build.check_layout(_PRE, (("q", q), ("pool_k", pool_k),
-                                  ("pool_v", pool_v)), d, q.element_size())
+                                  ("pool_v", pool_v)))
     if not block_table.is_contiguous():
         raise ValueError(f"{_PRE}: block_table must be contiguous")
-    if d % 32 or d > 256 or 16 % (h // hkv) or c < 1:
-        raise ValueError(f"paged_prefill_attention kernel: needs head_dim "
-                         f"% 32 == 0 and <= 256 (got {d}), query group "
-                         f"dividing 16 (got {h // hkv}) and C >= 1")
+    if c < 1:
+        raise ValueError(f"paged_prefill_attention kernel: C {c} < 1")
     out = torch.empty_like(q)
     lib, fn = _prefill_kernel(bool(kv_bits))
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if kv_bits else ()

@@ -12,9 +12,10 @@ given any two, the third is inferred; all three given must agree.
 This slice trains on one device.  Blocks it parses but does not run are
 refused by :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls
 it) with ``NotImplementedError`` naming the ``ROADMAP.md`` queue A slice
-that brings them: ``fp16``, ZeRO stage > 0 and offload, a mesh of more
-than one device, pipeline stages, tensor and sequence parallelism, and
-the monitor and observability blocks.
+that brings them: ZeRO stage > 0 and offload, a mesh of more than one
+device, pipeline stages, tensor and sequence parallelism, and the monitor
+and observability blocks.  ``fp16`` trains (dynamic or static loss
+scaling, ``runtime/fp16``).
 """
 from __future__ import annotations
 
@@ -504,9 +505,6 @@ class DeepSpeedConfig:
         """Raise ``NotImplementedError`` for every block this slice of
         the port parses but cannot run, naming the slice that brings it."""
         later: List[str] = []
-        if self.fp16.enabled:
-            later.append("fp16 (dynamic loss scaling): the training "
-                         "follow-ups of queue A item 1")
         if self.zero_config.stage > 0:
             later.append(f"zero_optimization.stage "
                          f"{self.zero_config.stage}: multi-device (queue A "

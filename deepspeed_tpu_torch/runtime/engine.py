@@ -10,14 +10,17 @@ compiles the step into one program, this one runs it eagerly:
   with float32 master params and moments and int32 counters, all on the
   engine's device;
 * each micro batch runs the model's loss on the params cast to the
-  compute dtype (bf16 with ``bf16.enabled``); the gradient reaches the
-  float32 masters through the cast's backward, and the gas loop sums
-  float32 gradients and scaled losses;
-* ``_apply_grads`` divides by ``scale * gas``, takes the global norm
-  before clipping, clips by ``min(1, clip / max(norm, 1e-6))``, reads
-  the lr of ``state["step"]`` before the increment, and on overflow or a
-  non-finite norm keeps params, moments and Adam's step (``torch.where``
-  on the device, no host sync) while ``skipped`` counts the step.
+  compute dtype (bf16 with ``bf16.enabled``, f16 with ``fp16.enabled``,
+  the model's activations then in float16 too) times the loss scale;
+  the gradient reaches the float32 masters through the cast's backward,
+  and the gas loop sums float32 gradients and scaled losses;
+* ``_apply_grads`` divides by ``scale * gas``, checks the gradients for
+  inf/NaN when a dynamic loss scaler runs (``runtime/fp16``), takes the
+  global norm before clipping, clips by ``min(1, clip / max(norm,
+  1e-6))``, reads the lr of ``state["step"]`` before the increment, and
+  on overflow or a non-finite norm keeps params, moments and Adam's step
+  (``torch.where`` on the device, no host sync) while ``skipped`` counts
+  the step; the scaler's state (``state["scaler"]``) moves the same way.
 
 Metrics come back as device tensors, as the JAX engine returns device
 scalars; nothing in a step waits for the card unless ``steps_per_print``
@@ -37,6 +40,7 @@ from ..models.convert import check_params, leaf_to_torch
 from ..utils.logging import logger
 from . import lr_schedules
 from .config import DeepSpeedConfig
+from .fp16.loss_scaler import DynamicLossScaler, static_loss_scaler
 from .optimizers import Optimizer, get_optimizer, tree_leaves, tree_map
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -94,7 +98,16 @@ class DeepSpeedEngine:
             self.optimizer = (get_optimizer("adamw") if oc is None else
                               get_optimizer(oc.type, **dict(oc.params)))
         self.lr_schedule = self._configure_lr_schedule(lr_scheduler)
-        self.loss_scaler = None         # fp16 is refused above
+        fp16c = self._config.fp16
+        self.loss_scaler: Optional[DynamicLossScaler] = None
+        if self.fp16_enabled:
+            self.loss_scaler = (
+                DynamicLossScaler(
+                    initial_scale_power=fp16c.initial_scale_power,
+                    scale_window=fp16c.loss_scale_window,
+                    min_scale=fp16c.min_loss_scale,
+                    hysteresis=fp16c.hysteresis)
+                if fp16c.dynamic else static_loss_scaler(fp16c.loss_scale))
         self.global_steps = 0
         self.micro_steps = 0
         self._step_times: list = []
@@ -118,8 +131,12 @@ class DeepSpeedEngine:
 
     def _apply_training_overrides(self, model):
         """Rebuild ``model`` with the ``training`` block's model-side
-        overrides (remat / fused_loss_head / loss_chunk)."""
+        overrides (remat / fused_loss_head / loss_chunk) and, with
+        ``fp16.enabled``, float16 activations (the JAX engine trains fp16
+        with the model in float16)."""
         overrides = self._config.training.model_overrides()
+        if self._config.fp16.enabled:
+            overrides["dtype"] = torch.float16
         if not overrides:
             return model
         mcfg = getattr(model, "config", None)
@@ -161,8 +178,11 @@ class DeepSpeedEngine:
         if not self._config.bf16.master_weights and self.bf16_enabled:
             params = tree_map(lambda p: p.to(torch.bfloat16), params)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        return {"step": zero.clone(), "skipped": zero.clone(),
-                "params": params, "opt": self.optimizer.init(params)}
+        state = {"step": zero.clone(), "skipped": zero.clone(),
+                 "params": params, "opt": self.optimizer.init(params)}
+        if self.loss_scaler is not None:
+            state["scaler"] = self.loss_scaler.init(self.device)
+        return state
 
     def _cast_for_compute(self, params):
         if self.compute_dtype == torch.float32:
@@ -170,7 +190,12 @@ class DeepSpeedEngine:
         return tree_map(lambda p: p.to(self.compute_dtype)
                         if p.is_floating_point() else p, params)
 
-    def _current_scale(self) -> torch.Tensor:
+    def _current_scale(self, state=None) -> torch.Tensor:
+        """The loss scale of ``state`` (default the engine's): the
+        scaler's, or 1."""
+        state = self.state if state is None else state
+        if self.loss_scaler is not None:
+            return state["scaler"].scale
         return torch.ones((), dtype=torch.float32, device=self.device)
 
     def _micro_loss_and_grads(self, params, micro_batch, scale):
@@ -202,11 +227,17 @@ class DeepSpeedEngine:
     def _apply_grads(self, state, grads, n_micro, overflow=None):
         """Summed grads → clipped AdamW update → (new state, metrics)."""
         cfg = self._config
-        scale = self._current_scale()
+        scale = self._current_scale(state)
         denom = scale * n_micro
         grads = tree_map(lambda g: g.to(torch.float32) / denom, grads)
         if overflow is None:
-            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+            if (self.loss_scaler is not None
+                    and self.loss_scaler.detect_overflow):
+                overflow = DynamicLossScaler.has_overflow(
+                    tree_leaves(grads)).to(self.device)
+            else:
+                overflow = torch.zeros((), dtype=torch.bool,
+                                       device=self.device)
         gnorm = global_norm(grads)
         if cfg.resilience.skip_nonfinite_grad_steps:
             # a NaN/Inf global norm would poison params and moments:
@@ -229,6 +260,9 @@ class DeepSpeedEngine:
             "skipped": state["skipped"] + overflow.to(torch.int32),
             "params": select(new_params, state["params"]),
             "opt": select(new_opt, state["opt"])}
+        if self.loss_scaler is not None:
+            new_state["scaler"] = self.loss_scaler.update(state["scaler"],
+                                                          overflow)
         metrics = {"grad_norm": gnorm, "lr": lr,
                    "overflow": overflow.to(torch.int32),
                    "loss_scale": scale}
@@ -373,7 +407,7 @@ class DeepSpeedEngine:
 
     @property
     def loss_scale(self) -> float:
-        return 1.0
+        return float(self._current_scale())
 
     def num_parameters(self) -> int:
         return sum(int(p.numel()) for p in tree_leaves(self.state["params"]))

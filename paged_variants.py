@@ -114,7 +114,7 @@ def decode_at(torch, build, PA, q, kp, vp, lens, tables, quant, nsplit):
               if bits else ())
     rc = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales,
             lens.data_ptr(), tables.data_ptr(), out.data_ptr(), b, h, hkv, d,
-            blk, npages, *plan, d ** -0.5,
+            1, blk, npages, *plan, d ** -0.5,
             build.DTYPE_CODES[torch.bfloat16], *((bits,) if bits else ()),
             build.current_stream(q.device))
     build.check_launch(lib, PA._DEC_SYM, rc)

@@ -363,3 +363,74 @@ def test_wrapper_errors(case, exc):
     }
     with pytest.raises(exc):
         calls[case]()
+
+
+# -- the head dims and kv groups the reference serves ------------------------
+@pytest.mark.parametrize("g", [3, 16])
+@pytest.mark.parametrize("d", [80, 96])
+def test_decode_every_head_dim_and_group_matches_jax(d, g):
+    """B5's plain version at GPT-3 2.7B's and 760M's head dims (80, 96)
+    with kv groups of 3 and 16 against the JAX kernel in interpret mode
+    (the cache expanded over the group on its side, as ``expand_kv``
+    gives it); NaN past the length."""
+    rng = np.random.default_rng(d + g)
+    b, hkv, s, length = 2, 2, 24, 17
+    h = g * hkv
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    k[:, length:] = np.nan
+    v[:, length:] = np.nan
+    ke, ve = (np.repeat(x, g, axis=2) for x in (k, v))
+    want = _np(jax_decode(jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve),
+                          length, interpret=True))
+    got = DA.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), length).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("g", [3, 16])
+@pytest.mark.parametrize("d", [80, 96])
+def test_paged_every_head_dim_and_group_matches_jax(d, g, kv_bits):
+    """B6 and B7's plain versions at head dims 80 and 96 with kv groups of
+    3 and 16, unquantized and over int8 / packed-int4 pools, against the
+    JAX kernels in interpret mode: ragged lengths with an inactive slot
+    (B6) and a chunk at a base that is not a multiple of the block (B7),
+    NaN in every unread row.  Tolerance: 1e-5 unquantized, 3e-5 quantized
+    (as above)."""
+    rng = np.random.default_rng(d + g + kv_bits)
+    hkv, bs, nb, npages = 1, 8, 16, 4
+    h = g * hkv
+    lens = [11, 0, 25]
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables(lens, bs, npages, nb, rng, pk, pv)
+    quant, jquant, tol = {}, {}, TOL
+    if kv_bits:
+        kq, vq, ks, vs = quantized(pk, pv, kv_bits)
+        pk, pv, tol = kq, vq, QTOL
+        quant = dict(k_scale=torch.from_numpy(ks),
+                     v_scale=torch.from_numpy(vs), kv_bits=kv_bits)
+        jquant = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                      kv_bits=kv_bits)
+    q = rng.standard_normal((len(lens), h, d)).astype(np.float32)
+    ln = np.asarray(lens, np.int32)
+    want = _np(jax_paged_decode(jnp.asarray(q), jnp.asarray(pk),
+                                jnp.asarray(pv), jnp.asarray(ln),
+                                jnp.asarray(bt), interpret=True, **jquant))
+    t = torch.from_numpy
+    got = PA.paged_decode_attention(t(q), t(pk), t(pv), t(ln), t(bt),
+                                    **quant).numpy()
+    assert np.isfinite(got).all() and (got[1] == 0).all()
+    np.testing.assert_allclose(got, want, **tol)
+    qc = rng.standard_normal((8, h, d)).astype(np.float32)
+    base, clen = 13, 7
+    table = bt[2]
+    want = _np(jax_paged_prefill(jnp.asarray(qc), jnp.asarray(pk),
+                                 jnp.asarray(pv), base, clen,
+                                 jnp.asarray(table), interpret=True,
+                                 **jquant))
+    got = PA.paged_prefill_attention(t(qc), t(pk), t(pv), base, clen,
+                                     t(table), **quant).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **tol)

@@ -1226,3 +1226,204 @@ def test_cuda_sampling_kept_set_equals_cpu(temp, top_k, top_p):
     draws = sample_tokens(logits.cuda(), list(range(16)), [3] * 16,
                           [temp] * 16, [top_k] * 16, [top_p] * 16).cpu()
     assert bool(kept[torch.arange(16), draws].all())
+
+
+# -- every head dim and kv group the reference runs; float16 B1-B4 --------------
+#: the limits of the float16 kernels against their plain versions: about
+#: one f16 ulp (2^-10 of a value in [1, 2)): both sides round p and ds to
+#: f16 at the same points and the f32 result once
+F16_TOL = dict(atol=5e-4, rtol=1e-3)
+#: the bf16 limit (one bf16 ulp) and the f32 one, as above
+BF16_TOL = dict(atol=4e-3, rtol=8e-3)
+F32_TOL = dict(atol=1e-4, rtol=1e-4)
+TOLS = {torch.float16: F16_TOL, torch.bfloat16: BF16_TOL,
+        torch.float32: F32_TOL}
+
+#: head dims the flash kernels took before every multiple of 16 up to 256:
+#: GPT-3 2.7B's 80, 760M's 96, GPT-J's 256 and the other multiples
+NEW_FLASH_DIMS = [48, 80, 96, 112, 144, 176, 208, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("kernel,g", [("B1", 2), ("B2", 1), ("B3/B4", 2)])
+@pytest.mark.parametrize("d", NEW_FLASH_DIMS + [64])
+def test_cuda_flash_every_head_dim_matches_plain(d, kernel, g, dtype):
+    """B1 (o, lse), B2 and B3/B4 (dq, dk, dv) at every head dim the
+    reference runs (multiples of 16 up to 256; above 128 the dk/dv walk is
+    a dV block and a dK block per kv tile), in bfloat16 and float16 on the
+    tensor cores and float32 on the CUDA cores where its tiles fit shared
+    memory (``build.kernel_supports``), causal at a ragged T of 150 with a
+    kv group of 2 (B2: 1), against their plain versions on the same inputs
+    and bit-equal on a second launch.  Tolerance: ``TOLS`` by dtype; lse
+    (f32 in both) 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops import build
+    dt = getattr(torch, dtype)
+    names = {"B1": "flash_attention_fwd", "B2": "flash_attention_bwd",
+             "B3/B4": "flash_attention_bwd_dkv"}
+    if build.kernel_supports(names[kernel], d, g, dt) is not None:
+        with pytest.raises(ValueError, match="shared memory"):
+            tensor_core_outputs(kernel, *gqa_case(150, g, d, dt, 1), True)
+        return
+    case = gqa_case(150, g, d, dt, seed=7 * d + g + len(dtype),
+                    heads=3 if kernel == "B2" else 2)
+    got, want, again = tensor_core_outputs(kernel, *case, True)
+    if kernel == "B1":
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-4)
+        got, want, again = got[:1], want[:1], again[:1]
+    for a, b in zip(got, want):
+        bad = off_limit(a, b, **TOLS[dt])
+        assert not bad, f"{len(bad)} elements off, first {bad[:8]}"
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,g", [("B1", 1), ("B1", 8), ("B2", 1),
+                                      ("B3/B4", 8)])
+@pytest.mark.parametrize("t_len", [64, 1000])
+def test_cuda_flash_f16_one_ulp_and_planted_fault(kernel, g, t_len):
+    """The float16 B1-B4 at D 64 (GPT-2's and TinyLlama's head) with kv
+    groups 1 and 8: every element within about one f16 ulp of the plain
+    version (``F16_TOL``), and the limit catches one 8 x 8 fragment of the
+    plain result transposed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    case = gqa_case(t_len, g, 64, torch.float16, seed=t_len + g)
+    got, want, again = tensor_core_outputs(kernel, *case, True)
+    outs = list(zip(got, want))[:1] if kernel == "B1" else zip(got, want)
+    for a, b in outs:
+        assert not off_limit(a, b, **F16_TOL)
+        flipped = b.clone()
+        flipped[1, 40:48, 8:16] = b[1, 40:48, 8:16].t()
+        assert off_limit(flipped, b, **F16_TOL)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+#: the B8-B10 cases of the new head dims and layout blocks: (block, T)
+NEW_SPARSE_CASES = [(48, 240), (80, 320), (128, 384), (16, 208)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,t_len", NEW_SPARSE_CASES)
+@pytest.mark.parametrize("d", [48, 80, 96, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_blocksparse_every_head_dim_and_block(d, block, t_len, causal):
+    """The bf16 B8 (o, lse), B9 (dq) and B10 (dk, dv) at the new head dims
+    (B10 split into a dV and a dK block at 256) and at layout blocks that
+    are multiples of 16 but neither 16, 32 nor a multiple of 64 (48, 80:
+    the tile pairs carry the layout in 16-row sub-blocks), ragged against
+    the 64-row tile, per-head layouts, against their plain versions and
+    bit-equal on a second launch.  Tolerance: atol 4e-3, rtol 8e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do, _, args = sparse_case(block, t_len, d, causal, True,
+                                       torch.bfloat16,
+                                       seed=d + block + t_len + causal)
+    o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+    o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+    assert not off_limit(o, o_p)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    o2, lse2 = BS.blocksparse_attention_fwd(q, k, v, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    got, want, again, _ = sparse_outputs(q, k, v, do, args)
+    for x, a, b in zip(("dq", "dk", "dv"), got, want):
+        bad = off_limit(a, b)
+        assert not bad, f"{x}: {len(bad)} elements off, first {bad[:8]}"
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3, 16, 32])
+@pytest.mark.parametrize("d", [40, 80, 96, 136, 256])
+def test_cuda_decode_every_head_dim_and_group(g, d):
+    """The bf16 B5 at head dims that are multiples of 8 but not 16 x a
+    power of two (40, 80, 96, 136) and at 256, with kv groups of 3, 16 and
+    32 (MQA at 32 heads; g x D past 4096 splits the group across blocks,
+    each reading the kv head's rows): NaN past the length, against the
+    plain version and bit-equal on a second launch.  Tolerance: atol
+    4e-3, rtol 8e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    h, length = g * (2 if g < 16 else 1), 333
+    q, k, v = decode_case(3, h, h // g, 400, d, torch.bfloat16,
+                          seed=g + d)
+    k[:, length:] = float("nan")
+    v[:, length:] = float("nan")
+    got = DA.decode_attention(q, k, v, length)
+    want = DA.decode_attention_plain(q, k, v, length)
+    assert bool(got.isfinite().all())
+    bad = off_limit(got, want)
+    assert not bad, f"{len(bad)} elements off, first {bad[:8]}"
+    assert torch.equal(got, DA.decode_attention(q, k, v, length))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("g,d,hkv", [(1, 80, 4), (3, 96, 2), (16, 64, 2),
+                                     (32, 80, 1), (4, 40, 2), (2, 256, 2),
+                                     (8, 72, 2)])
+def test_cuda_paged_every_head_dim_and_group(kv_bits, g, d, hkv):
+    """The bf16 B6 and B7 at kv_bits 0, 8 and 4 at the head dims and kv
+    groups the reference serves: D 80 (GPT-3 2.7B) and 96 (760M), 40 and
+    72 (multiples of 8 only: B7 on its CUDA-core kernel), 256, and groups
+    of 3, 16 and 32 (B6 splits a group past 2048 output features across
+    blocks; B7 puts as many positions of a group in a 64-row tile as fit
+    and splits a group past 64 heads), on ``BF16_PAGED_LENS`` and the
+    chunks of ``test_cuda_bf16_paged_kernels_match_plain``, NaN past every
+    length: against their plain versions and bit-equal on a second
+    launch.  Tolerance: atol 4e-3, rtol 8e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1000 * g + d + kv_bits)
+    h, bs, npages, nb = g * hkv, 16, 64, 200
+    lens = BF16_PAGED_LENS
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables(lens, bs, npages, nb, rng, pk, pv)
+    kp, vp, quant = paged_pools(pk, pv, kv_bits, dev)
+    q = torch.from_numpy(rng.standard_normal((len(lens), h, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = torch.from_numpy(bt).to(dev)
+    got = PA.paged_decode_attention(q, kp, vp, ln, tables, **quant)
+    want = PA.paged_decode_attention_plain(q, kp, vp, ln, tables, **quant)
+    assert bool(got.isfinite().all()) and not bool(got[0].any())
+    assert not off_limit(got, want)
+    assert torch.equal(got, PA.paged_decode_attention(q, kp, vp, ln, tables,
+                                                      **quant))
+    qc = torch.from_numpy(rng.standard_normal((100, h, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    for base, clen in ((77, 100), (0, 100), (509, 3)):
+        pk, pv = make_pool(nb, bs, hkv, d, rng)
+        bt = make_tables([base + clen], bs, npages + 1, nb, rng, pk, pv)
+        kp, vp, quant = paged_pools(pk, pv, kv_bits, dev)
+        table = torch.from_numpy(bt[0]).to(dev)
+        got = PA.paged_prefill_attention(qc, kp, vp, base, clen, table,
+                                         **quant)
+        want = PA.paged_prefill_attention_plain(qc, kp, vp, base, clen,
+                                                table, **quant)
+        assert bool(got.isfinite().all()), (base, clen)
+        bad = off_limit(got, want)
+        assert not bad, (base, clen, len(bad), bad[:8])
+        assert torch.equal(got, PA.paged_prefill_attention(
+            qc, kp, vp, base, clen, table, **quant)), (base, clen)
+
+
+@pytest.mark.cuda
+def test_cuda_shapes_outside_the_gate_raise():
+    """No fallback: on CUDA tensors a shape outside a kernel's gate raises
+    with its reason before any launch (a flash head dim that is not a
+    multiple of 16: C1's remainder; float16 decode: C2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, _ = gqa_case(64, 1, 24, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="C1"):
+        FA.flash_attention_fwd(q, k, v)
+    q, k, v = decode_case(2, 4, 4, 16, 64, torch.float16, seed=1)
+    with pytest.raises(ValueError, match="C2"):
+        DA.decode_attention(q, k, v, 8)

@@ -185,3 +185,18 @@ def test_plain_versions_keep_the_rounding_points():
     assert not torch.equal(o, unrounded)
     torch.testing.assert_close(lse, (m + torch.log(l))[..., 0], atol=0,
                                rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("d", [80, 96])
+def test_head_dims_of_the_reference_match_jax(d, g, causal):
+    """The head dims of GPT-3 2.7B (80) and 760M (96), with kv groups of 1
+    and 3, T 70 in one block (B2 at g 1, B3 + B4 at g 3): o and the three
+    gradients against JAX's VJP of its interpreted kernels."""
+    q, k, v, do = qkv_grouped(2, g, 70, d, seed=d + g + causal)
+    o_j, grads_j = jax_fwd_and_vjp(q, k, v, do, causal, (1024, 1024))
+    o_t, grads_t = port_fwd_and_grads(q, k, v, do, causal, (1024, 1024))
+    np.testing.assert_allclose(o_t, o_j, **FWD_TOL)
+    for got, want in zip(grads_t, grads_j):
+        np.testing.assert_allclose(got, want, **GRAD_TOL)

@@ -148,9 +148,9 @@ def test_empty_row_and_non_dividing_t_raise_as_in_jax():
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_run():
-    """Blocks other than 16, 32 and multiples of 64 run only in the plain
-    version: the wrappers' kernel checks name the block (the checks a
-    CUDA tensor meets before any launch)."""
+    """Blocks that are not a multiple of 16 run only in the plain version:
+    the wrappers' kernel checks name the block (the checks a CUDA tensor
+    meets before any launch)."""
     tl = PB.tile_layout(PB.compress_layout(np.ones((1, 4, 4), bool)), 8, 32)
     assert tl.sub_shift is None
     with pytest.raises(ValueError, match="block 8"):
@@ -293,3 +293,36 @@ def test_sparse_self_attention_routes_agree():
     q.requires_grad_(True)
     (dense(q, k, v) ** 2).sum().backward()
     assert bool(q.grad.isfinite().all())
+
+
+@pytest.mark.parametrize("block,t_len,d,causal", [
+    (48, 144, 80, True), (48, 192, 96, False), (16, 96, 80, True),
+    (80, 160, 16, False)])
+def test_head_dims_and_blocks_of_the_reference_match_jax(block, t_len, d,
+                                                          causal):
+    """B8-B10's plain versions at the head dims GPT-3 2.7B (80) and 760M
+    (96) run and at layout blocks that are multiples of 16 but neither
+    16, 32 nor a multiple of 64 (48, 80: the port's 64-row tile pairs hold
+    the layout in 16-row sub-blocks), against the JAX kernels in
+    interpret mode: output and dq, dk, dv within 1e-5."""
+    rng = np.random.default_rng(block + t_len + d)
+    heads, b = 2, 1
+    lay = random_layout(rng, heads, t_len // block, causal, True)
+    q, k, v, do = (rng.standard_normal((b * heads, t_len, d))
+                   .astype(np.float32) for _ in range(4))
+
+    def f(q_, k_, v_):
+        return JB.blocksparse_attention(q_, k_, v_, JB.compress_layout(lay),
+                                        block, heads, causal, None, True)
+    o_j, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    grads_j = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o_p = PB.blocksparse_attention(tq, tk, tv, PB.compress_layout(lay), block,
+                                   heads, causal)
+    o_p.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(o_p.detach().numpy(), np.asarray(o_j), **TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tl = PB.tile_layout(PB.compress_layout(lay), block, t_len)
+    assert tl.sub_shift == (4 if block % 64 and block not in (16, 32) else
+                            {16: 4, 32: 5}.get(block, 6))

@@ -370,7 +370,7 @@ def test_config_keys_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("block", [
-    {"fp16": {"enabled": True}},
+    {"sequence_parallel": {"enabled": True}},
     {"zero_optimization": {"stage": 1}},
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
