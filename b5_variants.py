@@ -88,8 +88,8 @@ def build_variants(build) -> dict:
         cu.write_text(text)
         lib = out / f"libdecode_attention_v{i}.so"
         procs[name] = (lib, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I",
+             str(build.CSRC), "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():

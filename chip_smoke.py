@@ -102,7 +102,28 @@ Phases (any failure exits non-zero and prints no result line):
    96 and no other flash kernel, the loss-scale trajectory and skipped
    steps, 3 warm steps (tokens/s, MFU); an inf planted in one embedding
    entry until the scale falls (each such step skipped, ``step`` held);
-   then 2 steps at seq 2048 (GPT-3's context): float16 B1, B3 and B4.
+   then 2 steps at seq 2048 (GPT-3's context): float16 B1, B3 and B4;
+15. fp16 serving at GPT-3 6.7B width (``init_inference(dtype=
+   "float16")``, random weights from seed 0): ``generate()`` on the
+   float16 B5 and no other B5, then phase 5's drain at ``kv_cache_bits``
+   0, 8 and 4 on the float16 B6/B7 of that width and no other (at
+   kv_bits 0 every greedy server stream equal to ``generate()``'s up to
+   a near tie): TTFT, ms/token, tokens/s; then int8 weights over the
+   same float16 weights (``forward()`` logits, ``generate()`` on f16 B5);
+16. fp16 block-sparse training: phase 9's GPT-2 125M (seq 8192, micro 8)
+   with dynamic loss scaling from 2^16: exactly 24 float16 B8, 12 B9 and
+   12 B10 a step and no other attention kernel, ms/step, MFU, the scale
+   trajectory and skipped steps; step 1 at micro 1 held against plain
+   attention masked by the layout;
+17. resume: GPT-2 125M with LAMB, ``remat="dots_no_batch"`` and fp16
+   scaling, 6 steps straight against 3, ``save_checkpoint``, a fresh
+   engine, ``load_checkpoint`` and 3 more: the later losses and the final
+   state bit-equal; the save and load seconds and the bytes written; then
+   ``init_inference(checkpoint=...)`` serves the checkpoint on the float16
+   B5;
+18. the remat policies (none, full, dots_saveable, dots_no_batch,
+   nothing_saveable) at GPT-2 125M: peak memory and ms/step, the same
+   first-step loss under each.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -124,8 +145,11 @@ configurations (``c1_flash_checks``, ``c1_decode_checks``,
 at 760M's, GPT-2's and TinyLlama's shapes (float16 within
 ``F16_TOL``); B5-B7 at D 80, 96 and 256 and kv groups 3, 16 and 32
 (MQA), B6/B7 at kv_bits 0, 8 and 4; B8-B10 at D 96 over 48-row blocks
-and D 80 over 128-row blocks; each with its planted fault, two launches
-bit-equal, its time, bound and SDPA's time where one call computes it.
+and D 80 over 128-row blocks; and the float16 B5-B7 (kv_bits 0, 8, 4) at
+GPT-3 6.7B's and 2.7B's heads and B8-B10 at phase 16's shape
+(``f16_decode_checks``, ``f16_sparse_checks``, within ``F16_TOL``); each
+with its planted fault, two launches bit-equal, its time, bound and
+SDPA's time where one call computes it.
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -161,6 +185,13 @@ KERNEL_ATOL, KERNEL_RTOL = 4e-3, 8e-3
 #: forward()'s logits (kernel B1) against generate()'s prefill (plain
 #: attention).
 LOGITS_REL_TOL = 0.05
+#: the same comparison in float16 (3 more bits of mantissa than bf16):
+#: on an H100 80GB HBM3 at 700 W, GPT-3 6.7B's first-step logits agreed
+#: within 0.0023 of max|logit| and the two streams that parted from
+#: generate() did so where generate()'s logit gap was 0.0024 and 0.0001
+#: of it.  A stream may part only where that gap is within twice this
+#: limit, the most two paths that each agree within it can differ by.
+F16_LOGITS_REL_TOL = 0.005
 
 #: flash vs plain attention through the whole training step (3 steps,
 #: each taken by both from the same state): bf16 activations are rounded
@@ -204,8 +235,9 @@ SPARSE_SEQ, SPARSE_MICRO, SPARSE_STEPS = 8192, 8, 10
 
 N_TIMED, N_WARM = 30, 5
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
-#: takes tens of ms; its time is a yardstick, not a result)
-N_TIMED_PLAIN = 10
+#: takes tens of ms; its time is a yardstick, not a result), after one
+#: warm-up call
+N_TIMED_PLAIN = 5
 
 
 def fail(msg: str) -> None:
@@ -223,14 +255,15 @@ def check(cond: bool, msg: str) -> None:
 SPIN_CYCLES = 2_000_000
 
 
-def time_ms(fn, torch, flush, n_timed: int = N_TIMED) -> float:
+def time_ms(fn, torch, flush, n_timed: int = N_TIMED,
+            n_warm: int = N_WARM) -> float:
     """Median device ms of one call of ``fn`` over ``n_timed`` calls after
-    N_WARM, each between two CUDA events.  Before each call the L2 cache
+    ``n_warm``, each between two CUDA events.  Before each call the L2 cache
     is flushed (a decode step finds it cold: 32 layers of KV exceed the
     50 MB L2), then a spin kernel holds the stream while the host
     enqueues the call, so the events bracket the call's kernels and not
     the host's launch latency."""
-    for _ in range(N_WARM):
+    for _ in range(n_warm):
         fn()
     times = []
     for _ in range(n_timed):
@@ -415,10 +448,23 @@ def kernel_checks(torch, dev, flush):
         results.setdefault(name, []).extend(cases)
     results.update(blocksparse_checks(torch, dev, flush))
     results.update(quant_kernel_checks(torch, dev, flush))
-    for extra in (c1_flash_checks, c1_decode_checks, c1_sparse_checks):
+    for extra in (c1_flash_checks, c1_decode_checks, c1_sparse_checks,
+                  f16_decode_checks, f16_sparse_checks):
         for name, cases in extra(torch, dev, flush).items():
             results.setdefault(name, []).extend(cases)
     return results
+
+
+def f16_decode_checks(torch, dev, flush):
+    """Phase 3's float16 B5, B6 and B7 (kv_bits 0, 8, 4) at the fp16
+    serving phase's heads (``F16_DECODE_CASES``)."""
+    return c1_decode_checks(torch, dev, flush, F16_DECODE_CASES, "float16")
+
+
+def f16_sparse_checks(torch, dev, flush):
+    """Phase 3's float16 B8, B9 and B10 at the fp16 block-sparse training
+    phase's attention (``F16_SPARSE_CASES``)."""
+    return c1_sparse_checks(torch, dev, flush, F16_SPARSE_CASES, "float16")
 
 
 # -- phase 3 (C1, fp16): the head dims, groups and dtypes of this slice ----
@@ -504,8 +550,22 @@ def c1_flash_checks(torch, dev, flush):
             check(rerun == 0.0, f"{kind} {case}: two launches differ by "
                                 f"{rerun}")
             del got, again, want, fault
-            ms = time_ms(run[0], torch, flush)
-            plain = time_ms(run[1], torch, flush, N_TIMED_PLAIN)
+            # timed as called: the outputs, not their f32 concatenation
+            timed = {
+                "B1": (lambda: FA.flash_attention_fwd(q, k, v, True),
+                       lambda: FA.flash_attention_fwd_plain(q, k, v, True)),
+                "B2": (lambda: FA.flash_attention_bwd(
+                    q, k, v, o_p, lse_p, do, True, None, delta),
+                       lambda: FA.flash_attention_bwd_plain(
+                           q, k, v, o_p, lse_p, do, True)),
+                "B3": run,
+                "B4": (lambda: FA.flash_attention_bwd_dkv(
+                    q, k, v, o_p, lse_p, do, True, None, delta),
+                       lambda: FA.flash_attention_bwd_dkv_plain(
+                           q, k, v, o_p, lse_p, do, True)),
+            }[kind]
+            ms = time_ms(timed[0], torch, flush)
+            plain = time_ms(timed[1], torch, flush, N_TIMED_PLAIN, 1)
             if kind == "B1":
                 lib = time_ms(lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=True, enable_gqa=grp > 1), torch,
@@ -537,44 +597,56 @@ C1_DECODE_CASES = (("GPT-3 2.7B", 32, 32, 80), ("GPT-3 760M", 16, 16, 96),
                    ("g 16", 32, 2, 128), ("g 32 (MQA)", 32, 1, 128))
 
 
-def c1_decode_checks(torch, dev, flush):
+#: the float16 decode cases: the fp16 serving phase's GPT-3 6.7B heads
+#: (its main path) and 2.7B's
+F16_DECODE_CASES = (("GPT-3 6.7B fp16", 32, 32, 128),
+                    ("GPT-3 2.7B fp16", 32, 32, 80))
+
+
+def c1_decode_checks(torch, dev, flush, cases=C1_DECODE_CASES,
+                     dtype="bfloat16"):
     """B5 (8 rows, cache 192, length 130), B6 (phase 3's 8 slots) and B7
-    (C 256 at base 256) at ``C1_DECODE_CASES``, B6 and B7 at kv_bits 0, 8
-    and 4: each against its plain version with phase 3's planted faults
-    caught, bit-equal on two launches, timed beside its bound (and B5
-    beside SDPA with ``enable_gqa``)."""
+    (C 256 at base 256) at ``cases`` in ``dtype``, B6 and B7 at kv_bits 0,
+    8 and 4: each against its plain version (bf16 limit, or ``F16_TOL``
+    for float16) with phase 3's planted faults caught, bit-equal on two
+    launches, timed beside its bound (and B5 beside SDPA with
+    ``enable_gqa``).  Results are keyed by the launch counter."""
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops.quantizer import kv_quantize
     from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
     from deepspeed_tpu_torch.ops.transformer import (
         paged_decode_attention as PA)
     F = torch.nn.functional
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype)
+    tol = F16_TOL if dt == torch.float16 else None
     g = torch.Generator(device=dev)
     g.manual_seed(2222)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(bf16)
+        return torch.randn(shape, generator=g, device=dev).to(dt)
     out = {}
     NB, BLK, NP = PAGED_POOL
-    for label, H, Hkv, D in C1_DECODE_CASES:
+    for label, H, Hkv, D in cases:
         # B5
         B, S, length = 8, 192, 130
         q, k, v = randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         k[:, length:] = float("nan")
         v[:, length:] = float("nan")
-        case = f"{label}: B={B} H={H} Hkv={Hkv} D={D} S={S} length={length}"
+        case = (f"{label}: B={B} H={H} Hkv={Hkv} D={D} S={S} "
+                f"length={length} {dtype}")
         got, again = (DA.decode_attention(q, k, v, length) for _ in range(2))
         want = DA.decode_attention_plain(q, k, v, length)
         fault = DA.decode_attention_plain(q, k, v, length - 1)
-        acc = agree(f"B5 {case}", got, want, fault)
+        acc = agree(f"B5 {case}", got, want, fault, tol)
         rerun = max_err(got, again)
         check(rerun == 0.0, f"B5 {case}: two launches differ by {rerun}")
         kt, vt = (x[:, :length].transpose(1, 2) for x in (k, v))
         bnd, by = bound_ms(2 * B * length * Hkv * D * 2 + 2 * B * H * D * 2,
                            4.0 * B * H * length * D)
-        out.setdefault("decode_attention", []).append(dict(
+        out.setdefault(build.counter("decode_attention", dtype=dt),
+                       []).append(dict(
             case=case, **acc, rerun_diff=rerun,
+            tol=tol or (KERNEL_ATOL, KERNEL_RTOL),
             ms=time_ms(lambda: DA.decode_attention(q, k, v, length), torch,
                        flush),
             plain_ms=time_ms(lambda: DA.decode_attention_plain(
@@ -609,7 +681,8 @@ def c1_decode_checks(torch, dev, flush):
         for bits in (0, 8, 4):
             rowb = 2 * D if not bits else (D if bits == 8 else D // 2) + 4
             kq, vq, quant = pools(bits, pk, pv)
-            tag = f"{case.split(':')[0]}: H={H} Hkv={Hkv} D={D} kv_bits {bits}"
+            tag = (f"{case.split(':')[0]}: H={H} Hkv={Hkv} D={D} kv_bits "
+                   f"{bits} {dtype}")
             got, again = (PA.paged_decode_attention(qd, kq, vq, lens, tables,
                                                     **quant)
                           for _ in range(2))
@@ -617,14 +690,15 @@ def c1_decode_checks(torch, dev, flush):
                                                    **quant)
             fault = PA.paged_decode_attention_plain(
                 qd, kq, vq, (lens - (lens > 0).int()).int(), tables, **quant)
-            acc = agree(f"B6 {tag}", got, want, fault)
+            acc = agree(f"B6 {tag}", got, want, fault, tol)
             rerun = max_err(got, again)
             check(rerun == 0.0, f"B6 {tag}: two launches differ by {rerun}")
             bnd, by = bound_ms(2 * rows * Hkv * rowb + 2 * 8 * H * D * 2
                                + tables.numel() * 4, 4.0 * rows * H * D)
-            out.setdefault(build.counter("paged_decode_attention", bits),
+            out.setdefault(build.counter("paged_decode_attention", bits, dt),
                            []).append(dict(
                 case=f"8 slots, {tag}", **acc, rerun_diff=rerun,
+                tol=tol or (KERNEL_ATOL, KERNEL_RTOL),
                 ms=time_ms(lambda: PA.paged_decode_attention(
                     qd, kq, vq, lens, tables, **quant), torch, flush),
                 plain_ms=time_ms(lambda: PA.paged_decode_attention_plain(
@@ -638,15 +712,16 @@ def c1_decode_checks(torch, dev, flush):
                                                     table, **quant)
             fault = PA.paged_prefill_attention_plain(qc, kq, vq, base,
                                                      clen - 1, table, **quant)
-            acc = agree(f"B7 {tag}", got, want, fault)
+            acc = agree(f"B7 {tag}", got, want, fault, tol)
             rerun = max_err(got, again)
             check(rerun == 0.0, f"B7 {tag}: two launches differ by {rerun}")
             bnd, by = bound_ms(2 * total * Hkv * rowb + 2 * 256 * H * D * 2,
                                4.0 * pairs * H * D)
-            out.setdefault(build.counter("paged_prefill_attention", bits),
-                           []).append(dict(
+            out.setdefault(build.counter("paged_prefill_attention", bits,
+                                         dt), []).append(dict(
                 case=f"C=256 base={base} chunk_len={clen}, {tag}", **acc,
                 rerun_diff=rerun,
+                tol=tol or (KERNEL_ATOL, KERNEL_RTOL),
                 ms=time_ms(lambda: PA.paged_prefill_attention(
                     qc, kq, vq, base, clen, table, **quant), torch, flush),
                 plain_ms=time_ms(lambda: PA.paged_prefill_attention_plain(
@@ -657,25 +732,39 @@ def c1_decode_checks(torch, dev, flush):
     return out
 
 
-def c1_sparse_checks(torch, dev, flush):
-    """B8, B9 and B10 at the new head dims and layout blocks: 760M's
-    heads (16 of 96) over a Fixed layout of 48-row blocks at T 3072 (the
-    tile pairs carry the layout in 16-row sub-blocks), and 2.7B's (32 of
-    80) over 128-row blocks at T 4096, micro 2, causal: against their
-    plain versions with a block left out of one layout row as the planted
-    fault, bit-equal on two launches, timed beside their bound and SDPA
-    with the layout as a boolean mask."""
+#: (label, micro, heads, T, D, layout block) of the block-sparse cases:
+#: 760M's heads over 48-row blocks, 2.7B's over 128-row blocks (bf16)
+C1_SPARSE_CASES = (("GPT-3 760M", 2, 16, 3072, 96, 48),
+                   ("GPT-3 2.7B", 2, 32, 4096, 80, 128))
+#: the float16 block-sparse case: the fp16 block-sparse training phase's
+#: attention (GPT-2 125M, micro 8, seq 8192, 64-row blocks)
+F16_SPARSE_CASES = (("GPT-2 125M fp16", 8, 12, 8192, 64, 64),)
+
+
+def c1_sparse_checks(torch, dev, flush, cases=C1_SPARSE_CASES,
+                     dtype="bfloat16"):
+    """B8, B9 and B10 at ``cases`` in ``dtype``: the new head dims and
+    layout blocks (760M's heads, 16 of 96, over a Fixed layout of 48-row
+    blocks at T 3072, where the tile pairs carry the layout in 16-row
+    sub-blocks, and 2.7B's, 32 of 80, over 128-row blocks at T 4096, micro
+    2), and the float16 kernels at the fp16 block-sparse phase's shape;
+    causal, 4 local and 1 global block: against their plain versions
+    (bf16 limit, or ``F16_TOL`` for float16) with a block left out of one
+    layout row as the planted fault, bit-equal on two launches, timed
+    beside their bound and SDPA with the layout as a boolean mask.
+    Results are keyed by the launch counter."""
     import numpy as np
     from deepspeed_tpu_torch.ops.sparse_attention import (
         FixedSparsityConfig, blocksparse_flash as BS)
     from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
+    from deepspeed_tpu_torch.ops import build
     F = torch.nn.functional
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype)
+    tol = F16_TOL if dt == torch.float16 else None
     g = torch.Generator(device=dev)
     g.manual_seed(3333)
     out = {}
-    for label, B, H, T, D, blk in (("GPT-3 760M", 2, 16, 3072, 96, 48),
-                                   ("GPT-3 2.7B", 2, 32, 4096, 80, 128)):
+    for label, B, H, T, D, blk in cases:
         cfg = FixedSparsityConfig(num_heads=H, block=blk, num_local_blocks=4,
                                   num_global_blocks=1,
                                   attention="unidirectional")
@@ -690,10 +779,10 @@ def c1_sparse_checks(torch, dev, flush):
         args, bad_args = (lc, blk, H, True), (lc_bad, blk, H, True)
         BH = B * H
         q, k, v, do = (torch.randn((BH, T, D), generator=g,
-                                   device=dev).to(bf16) for _ in range(4))
+                                   device=dev).to(dt) for _ in range(4))
         pairs = B * H * visible_pairs(lay, blk, True)
         case = (f"{label}: B*H={BH} T={T} D={D} block={blk} causal, "
-                f"{int(lay.sum())} blocks of {lay.size}")
+                f"{int(lay.sum())} blocks of {lay.size}, {dtype}")
         mask = torch.from_numpy(lay).to(dev)
         mask = (mask.repeat_interleave(blk, 1).repeat_interleave(blk, 2)
                 & torch.ones((T, T), dtype=torch.bool, device=dev).tril())
@@ -719,6 +808,12 @@ def c1_sparse_checks(torch, dev, flush):
                     q, k, v, o_p, lse_p, do, *a)), 6 * qb + 2 * rb,
                 8.0 * D * pairs),
         }
+        # B10 timed as called: its outputs, not their f32 concatenation
+        timed = {"blocksparse_flash_bwd_dkv": (
+            lambda: BS.blocksparse_attention_bwd_dkv(
+                q, k, v, o_p, lse_p, do, *args, delta=delta),
+            lambda: BS.blocksparse_attention_bwd_dkv_plain(
+                q, k, v, o_p, lse_p, do, *args))}
         m4 = mask[None]                                    # [1, 1, T, T]
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=m4), torch, flush)
@@ -730,16 +825,18 @@ def c1_sparse_checks(torch, dev, flush):
         for name, (fn, plain, nbytes, flops) in runs.items():
             got, again = fn(), fn()
             want, fault = plain(), plain(bad_args)
-            acc = agree(f"{name} {case}", got, want, fault)
+            acc = agree(f"{name} {case}", got, want, fault, tol)
             rerun = max_err(got, again)
             check(rerun == 0.0, f"{name} {case}: two launches differ by "
                                 f"{rerun}")
             del got, again, want, fault
             bnd, by = bound_ms(nbytes, flops)
-            out.setdefault(name, []).append(dict(
+            t_fn, t_plain = timed.get(name, (fn, plain))
+            out.setdefault(build.counter(name, dtype=dt), []).append(dict(
                 case=case, **acc, rerun_diff=rerun,
-                ms=time_ms(fn, torch, flush),
-                plain_ms=time_ms(plain, torch, flush, N_TIMED_PLAIN),
+                tol=tol or (KERNEL_ATOL, KERNEL_RTOL),
+                ms=time_ms(t_fn, torch, flush),
+                plain_ms=time_ms(t_plain, torch, flush, N_TIMED_PLAIN, 1),
                 library_ms=lib_fwd if name.endswith("fwd") else lib_bwd,
                 bound_ms=bnd, bound_by=by))
         del q, k, v, do, o_p, lse_p, delta, mask, m4
@@ -1089,7 +1186,7 @@ def gqa_flash_checks(torch, dev, flush):
                      flush)
         plain = time_ms(lambda: FA.flash_attention_fwd_plain(q, k, v,
                                                              causal),
-                        torch, flush, N_TIMED_PLAIN)
+                        torch, flush, N_TIMED_PLAIN, 1)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, enable_gqa=True), torch, flush)
         bnd, by = bound_ms(2 * qbytes + 2 * kvbytes + rowbytes,
@@ -1122,7 +1219,7 @@ def gqa_flash_checks(torch, dev, flush):
         ms = time_ms(lambda: FA.flash_attention_bwd_dq(
             q, k, v, o_p, lse_p, do, causal, None, delta), torch, flush)
         plain = time_ms(lambda: FA.flash_attention_bwd_dq_plain(
-            q, k, v, o_p, lse_p, do, causal), torch, flush, N_TIMED_PLAIN)
+            q, k, v, o_p, lse_p, do, causal), torch, flush, N_TIMED_PLAIN, 1)
         bnd, by = bound_ms(3 * qbytes + 2 * kvbytes + 2 * rowbytes,
                            6.0 * D * pairs)
         b3.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
@@ -1143,7 +1240,7 @@ def gqa_flash_checks(torch, dev, flush):
         ms = time_ms(lambda: FA.flash_attention_bwd_dkv(
             q, k, v, o_p, lse_p, do, causal, None, delta), torch, flush)
         plain = time_ms(lambda: FA.flash_attention_bwd_dkv_plain(
-            q, k, v, o_p, lse_p, do, causal), torch, flush, N_TIMED_PLAIN)
+            q, k, v, o_p, lse_p, do, causal), torch, flush, N_TIMED_PLAIN, 1)
         bnd, by = bound_ms(2 * qbytes + 4 * kvbytes + 2 * rowbytes,
                            8.0 * D * pairs)
         b4.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
@@ -1192,12 +1289,12 @@ def ptxas_report(log: str) -> dict:
 
 
 def tensor_core_check(build) -> dict:
-    """Phase 3's proof that the bf16 (and f16) B1, B2, B3, B4, B8, B9 and
+    """Phase 3's proof that the bf16 and f16 B1, B2, B3, B4, B8, B9 and
     B10 run on the tensor cores: ``cuobjdump -sass`` of each built
     library must hold mma instructions (``HMMA``; ``HGMMA`` for wgmma),
     ptxas must report the tensor-core kernel at every head dim of
-    ``build.FLASH_HEAD_DIMS`` (in bf16 and, for B1-B4, f16) and no spill
-    at D 64 (the main paths' head dim).  Prints the counts and each
+    ``build.FLASH_HEAD_DIMS`` in bf16 and f16 and no spill at D 64 (the
+    main paths' head dim).  Prints the counts and each
     instantiation's registers and spills."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     out = {}
@@ -1215,8 +1312,7 @@ def tensor_core_check(build) -> dict:
             m = re.search(kernel + r"ILi(\d+)E(6__half)?", fn)
             if m:
                 regs[int(m.group(1)), "f16" if m.group(2) else "bf16"] = rep
-        types = (("bf16", "f16") if name in build.FLASH_KERNELS
-                 else ("bf16",))
+        types = ("bf16", "f16")
         want = {(d, t) for d in build.FLASH_HEAD_DIMS for t in types}
         check(set(regs) == want,
               f"{name}: ptxas reported {sorted(regs)} of {kernel}'s (head "
@@ -1235,12 +1331,12 @@ def tensor_core_check(build) -> dict:
 
 
 def paged_kernel_check(build) -> dict:
-    """Phase 3's proof that the bf16 B7 runs on the tensor cores:
+    """Phase 3's proof that the bf16 and f16 B7 run on the tensor cores:
     ``cuobjdump -sass`` of its library must hold ``HMMA``, and ptxas must
     report ``paged_prefill_mma_kernel`` at every multiple of 16 up to 128
-    for kv_bits 0, 8 and 4, with no spill at D 64, 80 and 128 (the served
-    head dims) where the kv group fills the tile (the split-group
-    instantiations are printed apart).  Prints
+    for kv_bits 0, 8 and 4 in bf16 and f16, with no spill at D 64, 80 and
+    128 (the served head dims) where the kv group fills the tile (the
+    split-group instantiations are printed apart).  Prints
     the count and the registers of every instantiation of B7's
     tensor-core kernel and of B6's cluster kernel (D 8-256)."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -1256,28 +1352,32 @@ def paged_kernel_check(build) -> dict:
         hmma = len(re.findall(r"\bHMMA\.", sass))
         regs, split = {}, {}
         for fn, rep in ptxas_report(Path(f"{path}.log").read_text()).items():
-            m = re.search(kernel + r"ILi(\d+)ELi(\d+)E(?:Li4ELb([01])E)?",
-                          fn)
+            m = re.search(kernel + r"ILi(\d+)ELi(\d+)E(?:Li4ELb([01])E)?"
+                          r"(6__half)?", fn)
             if m:
                 (split if m.group(3) == "1" else regs)[
-                    int(m.group(1)), int(m.group(2))] = rep
+                    int(m.group(1)), int(m.group(2)),
+                    "f16" if m.group(4) else "bf16"] = rep
         if name == "paged_prefill_attention":
             check(hmma > 0, f"{name}: no tensor-core instruction in its SASS")
-            want = {(d, b) for d in range(16, 129, 16) for b in (0, 8, 4)}
+            want = {(d, b, t) for d in range(16, 129, 16) for b in (0, 8, 4)
+                    for t in ("bf16", "f16")}
             check(set(regs) == want, f"{name}: ptxas reported "
-                  f"{sorted(regs)} of {kernel}'s (head dim, kv_bits)")
-            for (d, b), rep in regs.items():
+                  f"{sorted(regs)} of {kernel}'s (head dim, kv_bits, "
+                  f"dtype)")
+            for (d, b, t), rep in regs.items():
                 check(d not in (64, 80, 128) or rep.get("spill", 0) == 0,
                       f"{name}: {kernel} spills {rep['spill']} bytes at D "
-                      f"{d}, kv_bits {b}")
+                      f"{d}, kv_bits {b}, {t}")
         print(f"paged kernels: {name}: {hmma} HMMA in its SASS; {kernel} "
-              + ", ".join(f"D {d} kv_bits {b}: {r.get('registers')} "
+              + ", ".join(f"D {d} kv_bits {b} {t}: {r.get('registers')} "
                           f"registers, {r.get('spill', 0)} bytes spilled"
-                          for (d, b), r in sorted(regs.items()))
+                          for (d, b, t), r in sorted(regs.items()))
               + ("; with a split group: " + ", ".join(
-                  f"D {d} kv_bits {b}: {r.get('registers')} registers, "
+                  f"D {d} kv_bits {b} {t}: {r.get('registers')} registers, "
                   f"{r.get('spill', 0)} bytes spilled"
-                  for (d, b), r in sorted(split.items())) if split else ""))
+                  for (d, b, t), r in sorted(split.items())) if split
+                 else ""))
         out[name] = dict(hmma=hmma, ptxas=regs)
     return out
 
@@ -1391,11 +1491,11 @@ def blocksparse_checks(torch, dev, flush):
         ms = time_ms(lambda: BS.blocksparse_attention_fwd(q, k, v, *args),
                      torch, flush)
         plain = time_ms(lambda: BS.blocksparse_attention_fwd_plain(
-            q, k, v, *args), torch, flush, N_TIMED_PLAIN)
+            q, k, v, *args), torch, flush, N_TIMED_PLAIN, 1)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask), torch, flush, N_TIMED_PLAIN)
+            q4, k4, v4, attn_mask=mask), torch, flush, N_TIMED_PLAIN, 1)
         dense = time_ms(lambda: FA.flash_attention_fwd(q, k, v, causal),
-                        torch, flush, N_TIMED_PLAIN)
+                        torch, flush, N_TIMED_PLAIN, 1)
         bnd, by = bound_ms(4 * qbytes + rowbytes, 4.0 * D * pairs)
         b8.append(dict(case=case, **acc, lse_err=lse_err, rerun_diff=rerun,
                        ms=ms, plain_ms=plain, library_ms=lib, dense_ms=dense,
@@ -1405,7 +1505,7 @@ def blocksparse_checks(torch, dev, flush):
         out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
         lib_bwd = time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do4, retain_graph=True), torch, flush,
-            N_TIMED_PLAIN)
+            N_TIMED_PLAIN, 1)
         del out, qg, kg, vg
         delta = (do.float() * o_p.float()).sum(dim=-1)
         bwd = (q, k, v, o_p, lse_p, do)
@@ -1423,9 +1523,9 @@ def blocksparse_checks(torch, dev, flush):
         ms = time_ms(lambda: BS.blocksparse_attention_bwd_dq(
             *bwd, *args, None, delta), torch, flush)
         plain = time_ms(lambda: BS.blocksparse_attention_bwd_dq_plain(
-            *bwd, *args), torch, flush, N_TIMED_PLAIN)
+            *bwd, *args), torch, flush, N_TIMED_PLAIN, 1)
         dense = time_ms(lambda: FA.flash_attention_bwd_dq(
-            *bwd, causal, None, delta), torch, flush, N_TIMED_PLAIN)
+            *bwd, causal, None, delta), torch, flush, N_TIMED_PLAIN, 1)
         bnd, by = bound_ms(5 * qbytes + 2 * rowbytes, 6.0 * D * pairs)
         b9.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
                        plain_ms=plain, library_ms=lib_bwd, dense_ms=dense,
@@ -1444,9 +1544,9 @@ def blocksparse_checks(torch, dev, flush):
         ms = time_ms(lambda: BS.blocksparse_attention_bwd_dkv(
             *bwd, *args, None, delta), torch, flush)
         plain = time_ms(lambda: BS.blocksparse_attention_bwd_dkv_plain(
-            *bwd, *args), torch, flush, N_TIMED_PLAIN)
+            *bwd, *args), torch, flush, N_TIMED_PLAIN, 1)
         dense = time_ms(lambda: FA.flash_attention_bwd_dkv(
-            *bwd, causal, None, delta), torch, flush, N_TIMED_PLAIN)
+            *bwd, causal, None, delta), torch, flush, N_TIMED_PLAIN, 1)
         bnd, by = bound_ms(6 * qbytes + 2 * rowbytes, 8.0 * D * pairs)
         b10.append(dict(case=case, **acc, rerun_diff=rerun, ms=ms,
                         plain_ms=plain, library_ms=lib_bwd, dense_ms=dense,
@@ -1520,6 +1620,10 @@ def main() -> int:
     print("nvcc: " + nv.stdout.strip().splitlines()[-1])
 
     # -- 2. build ----------------------------------------------------------
+    t_start = time.perf_counter()
+
+    def elapsed(what):
+        print(f"[{what} done at {time.perf_counter() - t_start:.0f} s]")
     t0 = time.perf_counter()
     libs = build.build()
     print(f"build: {len(libs)} kernel libraries in "
@@ -1529,12 +1633,16 @@ def main() -> int:
         rep = ptxas_report(log)
         spills = {short_name(fn): r["spill"] for fn, r in rep.items()
                   if r.get("spill")}
-        secs = re.search(r"nvcc wall time: ([\d.]+) s", log)
+        secs = [float(x) for x in
+                re.findall(r"nvcc wall time: ([\d.]+) s", log)]
         print(f"  {name}: {len(rep)} kernels"
-              + (f" in {secs.group(1)} s" if secs else "")
+              + (f" in {max(secs)} s" if secs else "")
+              + (f" ({len(secs)} parts)" if len(secs) > 1 else "")
               + f", at most {max(r.get('registers', 0) for r in rep.values())}"
               f" registers; spilling: " + (", ".join(
                   f"{fn} {n} bytes" for fn, n in spills.items()) or "none"))
+
+    elapsed("phase 2")
 
     # -- 3. kernels against their plain versions -----------------------
     tensor_core_check(build)
@@ -1583,8 +1691,12 @@ def main() -> int:
                      if "nibble_fault_err" in c else ""))
     del flush
 
+    elapsed("phase 3")
+
     # -- 4-5. generate(), forward() and the server at GPT-3 6.7B width --
     served = serve_phase(torch, np, "GPT-3 6.7B", gpt2_config("6.7b"))
+
+    elapsed("phases 4-5")
 
     # -- 6. training GPT-2 125M at bench.py's configuration -------------
     def gpt2_model(attn_impl):
@@ -1602,6 +1714,8 @@ def main() -> int:
                         "flash_attention_bwd_dkv": 0}, check_micro=8,
                        profile_shares={"B1": (tck["flash_attention_fwd"],),
                                        "B2": (tck["flash_attention_bwd"],)})
+
+    elapsed("phase 6")
 
     # -- 7. training TinyLlama-1.1B ---------------------------------------
     def llama_model(attn_impl):
@@ -1622,9 +1736,13 @@ def main() -> int:
                             "B3 + B4": (tck["flash_attention_bwd_dq"],
                                         tck["flash_attention_bwd_dkv"])})
 
+    elapsed("phase 7")
+
     # -- 8. generate(), forward() and the server for TinyLlama-1.1B -----
     llama_served = serve_phase(torch, np, "TinyLlama-1.1B",
                                hf_llama_config(TINYLLAMA_1_1B))
+
+    elapsed("phase 8")
 
     # -- 9. training block-sparse GPT-2 125M at seq 8192 -------------------
     def sparse_model(attn_impl):
@@ -1659,26 +1777,54 @@ def main() -> int:
                      "flash_attention_bwd_dkv": 12,
                      "blocksparse_flash_fwd": 0})
 
+    elapsed("phase 9")
+
     # -- 10. forward() and generate() of the block-sparse model ----------
     sparse_served = sparse_serve_phase(torch, np, sparse_model("blocksparse"))
+
+    elapsed("phase 10")
 
     # -- 11. quantized KV serving at GPT-3 6.7B width --------------------
     quant_served = quant_serve_phase(torch, np, "GPT-3 6.7B",
                                      gpt2_config("6.7b"))
+
+    elapsed("phase 11")
 
     # -- 12. int8 weight-only serving at GPT-3 6.7B width ----------------
     int8_served = int8_serve_phase(torch, np, "GPT-3 6.7B",
                                    gpt2_config("6.7b"),
                                    served["prefill_logits"])
 
+    elapsed("phase 12")
+
     # -- 13. generate(), forward() and the server at GPT-3 2.7B width --
     served27 = serve_phase(torch, np, "GPT-3 2.7B", gpt2_config("2.7b"))
+
+    elapsed("phase 13")
 
     # -- 14. fp16 training of GPT-3 760M ------------------------------------
     fp16 = fp16_train_phase(
         torch, np, "GPT-3 760M",
         gpt2_config("760m", max_seq_len=FP16_LONG_SEQ, remat="full",
                     attn_impl="flash", loss_chunk=256), gpt2_optimizer())
+    elapsed("phase 14")
+
+    # -- 15. fp16 serving at GPT-3 6.7B width --------------------------------
+    fp16_served = fp16_serve_phase(torch, np, "GPT-3 6.7B",
+                                   gpt2_config("6.7b"))
+    elapsed("phase 15")
+
+    # -- 16. fp16 block-sparse training of GPT-2 125M ------------------------
+    fp16_sparse = fp16_sparse_train_phase(torch, np, sparse_model, keys)
+    elapsed("phase 16")
+
+    # -- 17. save, load and resume; serve the checkpoint ---------------------
+    resume_phase(torch, np)
+    elapsed("phase 17")
+
+    # -- 18. the remat policies ----------------------------------------------
+    remat_table_phase(torch, np)
+    elapsed("phase 18")
 
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
@@ -1729,6 +1875,26 @@ def main() -> int:
             ("flash_attention_bwd_dkv", 241, fp16["long"], 1)):
         name = build.counter(kernel, dtype=torch.float16)
         rows[name] = (f"{flash}:{line} (float16)", launches[name], main)
+    # the float16 B5-B7 from phase 15's GPT-3 6.7B fp16 serving (B5 over
+    # generate(), B6/B7 over each kv_bits' drain; phase 3's 6.7B fp16
+    # case) and B8-B10 from phase 16's fp16 block-sparse training
+    for kernel, line in (("decode_attention", 56),
+                         ("paged_decode_attention", 143),
+                         ("paged_prefill_attention", 358)):
+        for bits in ((0,) if kernel == "decode_attention"
+                     else (0,) + build.QUANT_BITS):
+            name = build.counter(kernel, bits, torch.float16)
+            src = ("deepspeed_tpu/ops/transformer/decode_attention.py"
+                   if kernel == "decode_attention" else paged)
+            rows[name] = (f"{src}:{line} (float16"
+                          + (f", kv_bits {bits})" if bits else ")"),
+                          fp16_served[name], 0)
+    for kernel, line in (("blocksparse_flash_fwd", 75),
+                         ("blocksparse_flash_bwd_dq", 165),
+                         ("blocksparse_flash_bwd_dkv", 204)):
+        name = build.counter(kernel, dtype=torch.float16)
+        rows[name] = (f"{sparse_file}:{line} (float16)", fp16_sparse[name],
+                      0)
     print(f"TinyLlama serving launches: B5 "
           f"{llama_served['decode_attention']}, B6 "
           f"{llama_served['paged_decode_attention']}, B7 "
@@ -1745,6 +1911,7 @@ def main() -> int:
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
+        check(launches > 0, f"{name}: no launch on its main path")
         c = kres[name][main]
         source = name.rsplit("_int", 1)[0].removesuffix("_f16")
         kernels.append({
@@ -1988,12 +2155,12 @@ def first_step_recorder(srv, mixed, first_logits):
     return recording
 
 
-def drain(torch, srv, prompts, label, kv_bits, record=None):
+def drain(torch, srv, prompts, label, kv_bits, record=None, dtype=None):
     """Submit ``prompts`` (32 new tokens each) to ``srv`` and ``run()``:
     every request OK with 32 tokens, the allocator empty afterwards, the
-    B6/B7 variants of ``kv_bits`` launched and no other.  ``record(...)``
-    wraps the model's mixed step during the drain when given.  Returns
-    (requests, launch counts, seconds)."""
+    B6/B7 variants of ``kv_bits`` and ``dtype`` (default bf16) launched
+    and no other.  ``record(...)`` wraps the model's mixed step during the
+    drain when given.  Returns (requests, launch counts, seconds)."""
     from deepspeed_tpu_torch.ops import build
     model = srv.model
     mixed = model._apply_paged_mixed
@@ -2017,13 +2184,15 @@ def drain(torch, srv, prompts, label, kv_bits, record=None):
     check(srv.allocator.num_used == 0,
           f"{label}: allocator holds {srv.allocator.num_used} blocks after "
           f"drain")
+    dtype = dtype or torch.bfloat16
     for kernel in build.QUANT_KERNELS:
         for bits in (0,) + build.QUANT_BITS:
-            n = counts[build.counter(kernel, bits)]
-            name = build.counter(kernel, bits)
-            check(n > 0 if bits == kv_bits else n == 0,
-                  f"{label}: {name} launched {n} times at kv_bits "
-                  f"{kv_bits}")
+            for dt in (torch.bfloat16, torch.float16):
+                name = build.counter(kernel, bits, dt)
+                n = counts[name]
+                check(n > 0 if (bits, dt) == (kv_bits, dtype) else n == 0,
+                      f"{label}: {name} launched {n} times at kv_bits "
+                      f"{kv_bits}, {dtype}")
     return reqs, counts, wall
 
 
@@ -2564,6 +2733,492 @@ def fp16_train_phase(torch, np, label, cfg, optimizer) -> dict:
     return {"steps": {n: counts[n] for n in per_step},
             "long": {n: long_counts[n] for n in want},
             "ms": step_s * 1e3, "warm_ms": warm_ms}
+
+
+# -- 15. fp16 serving at GPT-3 6.7B width ---------------------------------------
+def fp16_serve_phase(torch, np, label, cfg) -> dict:
+    """``init_inference(dtype="float16")`` on ``cfg`` with random weights
+    from seed 0: ``generate()`` on phase 4's 8 x 128 prompts (64 new
+    tokens, greedy) on the float16 B5 and no other B5; then phase 5's
+    16-request drain at ``kv_cache_bits`` 0, 8 and 4 (engines sharing the
+    float16 weights) on the float16 B6/B7 of that width and no other.  At
+    kv_bits 0 the first-step logits of 4 requests must agree with
+    ``generate()``'s within ``F16_LOGITS_REL_TOL`` of their scale, and every
+    greedy server stream must equal ``generate()``'s up to its first near
+    tie: where a stream parts, ``generate()``'s logits at that token
+    (``divergence_gaps``) may favour its own token over the server's by
+    at most twice that limit, the most two paths that each agree within
+    it can differ by.  At 8 and 4 bits the token agreement is printed.
+    Then int8 weights (``quant.enabled``) over the same float16 weights:
+    ``forward()``'s logits within ``LOGITS_REL_TOL`` of the float16
+    engine's and ``generate()`` on the float16 B5.  Returns the float16
+    launch counts: B5 over ``generate()``, B6/B7 over each drain."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+    from deepspeed_tpu_torch.ops import build
+    f16 = torch.float16
+    t0 = time.perf_counter()
+    eng = init_inference(TransformerLM(cfg), {
+        "dtype": "float16", "temperature": 0.0, "serving": SERVING})
+    torch.cuda.synchronize()
+    check(eng.module.config.dtype == f16 and all(
+        t.dtype == f16 for t in _leaves(eng.params)),
+        f"{label} fp16: the engine's model or weights are not float16")
+    print(f"{label} fp16 init: "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(eng.params)) / 1e9:.2f}"
+          f" GB float16 in {time.perf_counter() - t0:.1f} s")
+    rng, prompts, lens, sprompts = serving_prompts(np, cfg.vocab_size)
+    warm_up_at_kv_head_width(eng, prompts, f"{label} fp16", cfg.kv_heads)
+    build.reset_launch_counts()
+    out = eng.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    gen = dict(build.launch_counts)
+    check(tuple(out.shape) == (8, 64) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"{label} fp16 generate: tokens {tuple(out.shape)}")
+    want = cfg.num_layers * 63
+    for name, n in gen.items():
+        expect = want if name == "decode_attention_f16" else 0
+        if name.startswith("flash_attention_fwd"):
+            continue     # generate()'s prefill runs plain attention
+        check(n == expect, f"{label} fp16 generate: {name} launches {n} != "
+                           f"{expect}")
+    stats = eng.latency_stats()
+    print(f"{label} fp16 generate: 8 x 128-token prompts, 64 new tokens: "
+          f"TTFT {stats['ttft_p50_ms']:.1f} ms, decode "
+          f"{stats['p50_ms']:.2f} ms/token "
+          f"({8 * stats['tokens_per_sec']:.0f} tokens/s over the batch); "
+          f"float16 B5 launches {gen['decode_attention_f16']}, bf16 B5 "
+          f"{gen['decode_attention']}")
+    device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
+                   f"{label} fp16 generate 8 x 128 prompts, 16 new tokens",
+                   shares={"B5": ("decode_cluster",)})
+    refs = [eng.generate(np.asarray(p)[None], max_new_tokens=32)[0].tolist()
+            for p in sprompts]
+    counts = {}
+    for bits in (0, 8, 4):
+        e = eng if not bits else init_inference(
+            TransformerLM(cfg), {"dtype": "float16", "temperature": 0.0,
+                                 "serving": {**SERVING,
+                                             "kv_cache_bits": bits}},
+            params=eng.params)
+        srv = e.serving_engine()
+        first_logits = {}
+        reqs, c, wall = drain(
+            torch, srv, sprompts, f"{label} fp16 serving kv_bits {bits}",
+            bits, None if bits else
+            (lambda mixed: first_step_recorder(srv, mixed, first_logits)),
+            dtype=f16)
+        ntok = sum(len(r.output) for r in reqs)
+        same_streams = sum(int(r.output == ref) for r, ref in
+                           zip(reqs, refs))
+        same = sum(int(a == b) for r, ref in zip(reqs, refs)
+                   for a, b in zip(r.output, ref))
+        b6 = build.counter("paged_decode_attention", bits, f16)
+        b7 = build.counter("paged_prefill_attention", bits, f16)
+        print(f"{label} fp16 serving, kv_bits {bits}: 16 requests, {ntok} "
+              f"tokens in {wall:.2f} s = {ntok / wall:.1f} tokens/s; {b6} "
+              f"{c[b6]}, {b7} {c[b7]} (every bf16 B6/B7 0); streams equal "
+              f"to generate(): {same_streams} of 16, {same} of {ntok} "
+              f"tokens")
+        if not bits:
+            worst = 0.0
+            for r in reqs[:4]:
+                want_l = prefill_logits(eng, r.prompt)
+                got_l = first_logits[r.req_id]
+                worst = max(worst, float((got_l - want_l).abs().max())
+                            / float(want_l.abs().max()))
+            print(f"  first-step logits of 4 requests within {worst!r} of "
+                  f"max|logit| (limit {F16_LOGITS_REL_TOL})")
+            check(worst <= F16_LOGITS_REL_TOL,
+                  f"{label} fp16 serving: first-step logits differ by "
+                  f"{worst:.4f} of their scale")
+            gaps = divergence_gaps(np, eng, reqs, refs)
+            for req_id, pos, gap in gaps:
+                print(f"  {req_id} parts from generate() at token {pos}: "
+                      f"generate()'s logit gap there {gap!r} of "
+                      f"max|logit| (limit {2 * F16_LOGITS_REL_TOL})")
+                check(gap <= 2 * F16_LOGITS_REL_TOL,
+                      f"{label} fp16 serving: {req_id} parts from "
+                      f"generate() at token {pos} where generate()'s gap is "
+                      f"{gap:.4f} of max|logit|, not a near tie")
+            drain_profile(torch, srv, lens, cfg.vocab_size, rng,
+                          f"{label} fp16")
+        counts[b6], counts[b7] = c[b6], c[b7]
+        del srv, e
+    counts["decode_attention_f16"] = gen["decode_attention_f16"]
+    # int8 weights (quant.enabled) over the same f16 weights: forward()'s
+    # last-position logits against the f16 engine's, generate() on f16 B5
+    q8 = init_inference(TransformerLM(cfg), {
+        "dtype": "float16", "temperature": 0.0, "quant": {"enabled": True}},
+        params=eng.params)
+    ref = eng.forward(prompts)[:, -1]
+    got = q8.forward(prompts)[:, -1]
+    rel = float((got - ref).abs().max()) / float(ref.abs().max())
+    build.reset_launch_counts()
+    out = q8.generate(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    n_b5 = build.launch_counts["decode_attention_f16"]
+    print(f"{label} fp16 int8 weights: forward() last-position logits "
+          f"within {rel:.4f} of max|logit| of the f16 engine's (limit "
+          f"{LOGITS_REL_TOL}), argmax equal on "
+          f"{int((got.argmax(-1) == ref.argmax(-1)).sum())} of 8; "
+          f"generate() 16 new tokens on {n_b5} float16 B5 launches")
+    check(rel <= LOGITS_REL_TOL and tuple(out.shape) == (8, 16)
+          and n_b5 == cfg.num_layers * 15,
+          f"{label} fp16 int8 weights: logits {rel:.4f} of their scale, "
+          f"tokens {tuple(out.shape)}, float16 B5 {n_b5}")
+    del q8, ref, got, eng
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def prefill_logits(eng, prompt):
+    """``generate()``'s last-position logits (f32, on the host) after
+    ``prompt``: its prefill, recorded."""
+    import numpy as np
+    prefill = eng._prefill
+    out = {}
+
+    def recording(ids, true_len, cache_len):
+        cache, last = prefill(ids, true_len, cache_len)
+        out["logits"] = last[0].float().cpu()
+        return cache, last
+    eng._prefill = recording
+    try:
+        eng.generate(np.asarray(list(prompt))[None], max_new_tokens=1)
+    finally:
+        eng._prefill = prefill
+    return out["logits"]
+
+
+def divergence_gaps(np, eng, reqs, refs):
+    """For each server stream that parts from ``generate()``'s stream
+    ``ref``: (request id, the first differing token's index, the gap
+    between ``generate()``'s logit for its own token and for the server's
+    there, as a share of max|logit|), from ``generate()``'s prefill over
+    the prompt and the common prefix."""
+    out = []
+    for r, ref in zip(reqs, refs):
+        if r.output == ref:
+            continue
+        pos = next(i for i, (a, b) in enumerate(zip(r.output, ref))
+                   if a != b)
+        lg = prefill_logits(eng, list(r.prompt) + list(ref[:pos]))
+        gap = float(lg[ref[pos]] - lg[r.output[pos]]) / float(lg.abs().max())
+        out.append((r.req_id, pos, gap))
+    return out
+
+
+# -- 16. fp16 block-sparse training of GPT-2 125M ----------------------------------
+#: the fp16 block-sparse phase: phase 9's model, seq, micro and steps in
+#: fp16 (on its one repeated batch both phases' losses spike at step 6
+#: and fall again)
+FP16_SPARSE_STEPS = SPARSE_STEPS
+
+
+def fp16_sparse_train_phase(torch, np, model_cfg, keys) -> dict:
+    """``initialize`` on phase 9's block-sparse GPT-2 125M (seq 8192,
+    micro 8, remat full) with ``fp16`` (``FP16_CONFIG``: float16 model over
+    f32 masters, dynamic loss scaling from 2^16), AdamW and clipping 1.0:
+    ``FP16_SPARSE_STEPS`` steps each launching exactly 24 float16 B8, 12
+    B9 and 12 B10 and no other attention kernel; ms/step, MFU (the
+    layout's ``keys`` per query), the scale trajectory and the skipped
+    steps; then one step at micro 1 from one state with the kernels and
+    with plain attention masked by the layout: loss and grad norm within
+    the step limits.  Returns the float16 launch counts."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+    from deepspeed_tpu_torch.ops import build
+    label = "fp16 block-sparse GPT-2 125M"
+    optimizer = {"type": "AdamW", "params": {"lr": 6e-4,
+                                             "weight_decay": 0.1}}
+
+    def make(mb, loss_fn=None):
+        config = {"train_micro_batch_size_per_gpu": mb,
+                  "gradient_accumulation_steps": 1, "optimizer": optimizer,
+                  "fp16": FP16_CONFIG, "zero_optimization": {"stage": 0},
+                  "gradient_clipping": 1.0, "steps_per_print": 0}
+        return initialize(model=TransformerLM(model_cfg("blocksparse")),
+                          config=config, loss_fn=loss_fn)[0]
+    eng = make(SPARSE_MICRO)
+    cfg = eng.model.config
+    check(cfg.dtype == torch.float16, f"{label}: model in {cfg.dtype}")
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size,
+                                     (SPARSE_MICRO, SPARSE_SEQ),
+                                     dtype=np.int32)}
+    n_params = eng.num_parameters()
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [eng.train_step(batch) for _ in range(FP16_SPARSE_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    per_step = {"blocksparse_flash_fwd_f16": 2 * L,
+                "blocksparse_flash_bwd_dq_f16": L,
+                "blocksparse_flash_bwd_dkv_f16": L}
+    for name in build.COUNTERS:
+        want = per_step.get(name, 0) * FP16_SPARSE_STEPS
+        check(counts[name] == want,
+              f"{label}: {name} launches {counts[name]} != {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    scales = [float(m["loss_scale"]) for m in metrics]
+    skipped = [int(m["overflow"]) for m in metrics]
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    taken = [x for x, sk in zip(losses, skipped) if not sk]
+    check(len(taken) >= 2 and taken[-1] < taken[0],
+          f"{label}: the loss over the steps taken did not fall {losses}")
+    step_s = wall / FP16_SPARSE_STEPS
+    tok_s = SPARSE_MICRO * SPARSE_SEQ / step_s
+    flops_per_tok = 6 * n_params + 12 * L * cfg.d_model * keys
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    for _ in range(2):
+        eng.train_step(batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) / 2 * 1e3
+    warm_tok_s = SPARSE_MICRO * SPARSE_SEQ / warm_ms * 1e3
+    print(f"training: {label} ({n_params / 1e6:.1f} M params), seq "
+          f"{SPARSE_SEQ}, micro {SPARSE_MICRO}, remat full, blocksparse, "
+          f"AdamW, fp16 (dynamic loss scale from 2^16): "
+          f"{FP16_SPARSE_STEPS} steps in {wall:.2f} s = "
+          f"{step_s * 1e3:.1f} ms/step (the first included), 2 warm steps "
+          f"{warm_ms:.1f} ms/step = {warm_tok_s:.0f} tokens/s, MFU "
+          f"{100 * warm_tok_s * flops_per_tok / BF16_FLOPS:.2f} % of 989 "
+          f"TF/s; peak memory {peak:.1f} GiB")
+    print(f"  loss {' '.join(f'{x:.3f}' for x in losses)}; loss scale "
+          f"{' '.join(f'{x:g}' for x in scales)}; skipped steps "
+          f"{sum(skipped)} ({skipped}); launches per step: " + ", ".join(
+              f"{n} {counts[n] // FP16_SPARSE_STEPS}" for n in per_step)
+          + "; every bf16 and f32 attention kernel 0")
+    tck = TENSOR_CORE_KERNELS
+    device_profile(torch, lambda: [eng.train_step(batch) for _ in range(2)],
+                   f"{label} training 2 steps",
+                   {"B8": (tck["blocksparse_flash_fwd"],),
+                    "B9 + B10": (tck["blocksparse_flash_bwd_dq"],
+                                 tck["blocksparse_flash_bwd_dkv"])})
+    del eng, metrics
+    torch.cuda.empty_cache()
+    # one step at micro 1 from one state: kernels against masked plain
+    import dataclasses
+    models = {"kernels": TransformerLM(dataclasses.replace(
+        model_cfg("blocksparse"), dtype=torch.float16)),
+              "plain": masked_plain_model(dataclasses.replace(
+                  model_cfg("xla"), dtype=torch.float16))}
+    impl = {"now": "kernels"}
+    e = make(1, loss_fn=lambda p, b: models[impl["now"]].loss(p, b))
+    small = {"input_ids": batch["input_ids"][:1]}
+    start = e.state
+    impl["now"] = "plain"
+    mp = e.train_step(small)
+    lp, gp = float(mp["loss"]), float(mp["grad_norm"])
+    e.state, impl["now"] = start, "kernels"
+    mk = e.train_step(small)
+    lk, gk = float(mk["loss"]), float(mk["grad_norm"])
+    print(f"  step 1 at micro 1, both from one state: loss kernels "
+          f"{lk:.5f} plain {lp:.5f} "
+          f"({abs(lk - lp) / abs(lp) / STEP_LOSS_REL_TOL:.3g} of the "
+          f"limit); grad norm kernels {gk:.4f} plain {gp:.4f} "
+          f"({abs(gk - gp) / abs(gp) / STEP_GNORM_REL_TOL:.3g} of the "
+          f"limit)")
+    check(abs(lk - lp) <= STEP_LOSS_REL_TOL * abs(lp),
+          f"{label}: loss kernels {lk} vs plain {lp}")
+    check(abs(gk - gp) <= STEP_GNORM_REL_TOL * abs(gp),
+          f"{label}: grad norm kernels {gk} vs plain {gp}")
+    del e, start, models
+    torch.cuda.empty_cache()
+    return {n: counts[n] for n in per_step}
+
+
+# -- 17. resume from a checkpoint ------------------------------------------------
+#: the resume phase: GPT-2 125M at seq 1024, micro 16, LAMB, remat
+#: dots_no_batch, fp16 with dynamic loss scaling; RESUME_STEPS straight
+#: against half, a save, a fresh engine, a load and the other half
+RESUME_STEPS, RESUME_MICRO = 6, 16
+
+
+def resume_phase(torch, np) -> None:
+    """Train straight for ``RESUME_STEPS`` steps; train another engine
+    half of them, ``save_checkpoint`` into a temporary directory, build a
+    fresh engine (another seed), ``load_checkpoint`` and take the other
+    half: the later losses, the final params, optimizer state and loss
+    scaler must be bit-equal to the straight run's.  Prints the save and
+    load seconds and the bytes written; then ``init_inference(checkpoint=
+    ...)`` serves the checkpoint: its weights equal the saved masters
+    cast to float16, and ``generate()`` runs on the float16 B5."""
+    import tempfile
+    from deepspeed_tpu_torch import init_inference, initialize
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    label = "resume GPT-2 125M"
+    cfg = gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat="dots_no_batch",
+                      attn_impl="flash", loss_chunk=256)
+    config = {"train_micro_batch_size_per_gpu": RESUME_MICRO,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "Lamb", "params": {
+                  "lr": 2e-3, "weight_decay": 0.01}},
+              "fp16": {**FP16_CONFIG, "loss_scale_window": 2},
+              "gradient_clipping": 1.0, "steps_per_print": 0}
+    rs = np.random.RandomState(5)
+    batches = [{"input_ids": rs.randint(0, cfg.vocab_size,
+                                        (RESUME_MICRO, TRAIN_SEQ),
+                                        dtype=np.int32)}
+               for _ in range(RESUME_STEPS)]
+    half = RESUME_STEPS // 2
+
+    def engine(seed):
+        return initialize(model=TransformerLM(cfg), config=config,
+                          seed=seed)[0]
+    straight = engine(0)
+    want = [float(straight.train_step(b)["loss"]) for b in batches]
+    first = engine(0)
+    got = [float(first.train_step(b)["loss"]) for b in batches[:half]]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = first.save_checkpoint(d, client_state={"half": half})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).rglob("*")
+                     if f.is_file())
+        saved = [t.to(torch.float16) for t in _leaves(first.state["params"])]
+        del first
+        torch.cuda.empty_cache()
+        second = engine(7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, client = second.load_checkpoint(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(client == {"half": half}, f"{label}: client_state {client}")
+        build.reset_launch_counts()
+        got += [float(second.train_step(b)["loss"])
+                for b in batches[half:]]
+        check(build.launch_counts["flash_attention_fwd_f16"] > 0,
+              f"{label}: the fp16 steps ran no float16 B1")
+        check(got == want, f"{label}: losses {got} != straight {want}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves({k: v for k, v in second.state.items()
+                     if k != "scaler"}),
+            _leaves({k: v for k, v in straight.state.items()
+                     if k != "scaler"})))
+        same &= all(torch.equal(a, b) for a, b in zip(
+            second.state["scaler"], straight.state["scaler"]))
+        check(same, f"{label}: the resumed state differs from the straight "
+                    f"run's")
+        print(f"{label} (LAMB, remat dots_no_batch, fp16 dynamic scale): "
+              f"{RESUME_STEPS} steps straight against {half}, save, fresh "
+              f"engine, load, {half}: later losses and final params, "
+              f"optimizer state and scaler bit-equal (losses "
+              f"{' '.join(f'{x:.4f}' for x in got)}; scale "
+              f"{second.loss_scale:g}); save {save_s:.2f} s, {nbytes} bytes "
+              f"written ({nbytes / save_s / 1e9:.2f} GB/s), load "
+              f"{load_s:.2f} s")
+        del straight, second
+        torch.cuda.empty_cache()
+        ie = init_inference(TransformerLM(gpt2_config("125m")), {
+            "dtype": "float16", "temperature": 0.0, "checkpoint": d})
+        check(all(torch.equal(a, b) for a, b in zip(_leaves(ie.params),
+                                                      saved)),
+            f"{label}: init_inference(checkpoint=...) weights differ from "
+            f"the saved masters")
+        build.reset_launch_counts()
+        out = ie.generate(batches[0]["input_ids"][:4, :64],
+                          max_new_tokens=16)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (4, 16) and
+              build.launch_counts["decode_attention_f16"] ==
+              cfg.num_layers * 15,
+              f"{label}: serving the checkpoint: {tuple(out.shape)}, "
+              f"float16 B5 {build.launch_counts['decode_attention_f16']}")
+        print(f"{label}: init_inference(checkpoint=...) serves it in "
+              f"float16: weights equal the saved masters cast, generate() "
+              f"4 x 64 prompts, 16 new tokens on "
+              f"{build.launch_counts['decode_attention_f16']} float16 B5 "
+              f"launches")
+        del ie, saved
+    torch.cuda.empty_cache()
+
+
+# -- 18. the remat policies --------------------------------------------------------
+REMAT_MICRO, REMAT_STEPS = 16, 3
+
+
+def remat_table_phase(torch, np) -> None:
+    """GPT-2 125M at seq 1024, micro ``REMAT_MICRO``, flash, bf16, AdamW,
+    under each remat policy: one warm step, then ``REMAT_STEPS`` timed;
+    peak ``max_memory_allocated`` over the timed steps and ms/step.  A
+    policy changes what is kept, not what is computed, so every policy's
+    step-1 gradient norm must be ``none``'s within STEP_GNORM_REL_TOL and
+    its step-2 loss (after an update from those gradients) within
+    STEP_LOSS_REL_TOL: the backward recomputes B1 and feeds B2 from the
+    recomputed o and lse.  The first-step losses (forward only) must be
+    equal, and the kernels launch as the policy implies: B1 twice per
+    layer and step under every policy but none."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    rs = np.random.RandomState(6)
+    batch = {"input_ids": rs.randint(0, 50257, (REMAT_MICRO, TRAIN_SEQ),
+                                     dtype=np.int32)}
+    rows = []
+    for policy in ("none", "full", "dots_saveable", "dots_no_batch",
+                   "nothing_saveable"):
+        cfg = gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat=policy,
+                          attn_impl="flash", loss_chunk=256)
+        eng = initialize(model=TransformerLM(cfg), config={
+            "train_micro_batch_size_per_gpu": REMAT_MICRO,
+            "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "AdamW", "params": {"lr": 6e-4}},
+            "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+            "steps_per_print": 0})[0]
+        m = eng.train_step(batch)
+        first, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(REMAT_STEPS):
+            m = eng.train_step(batch)
+            if i == 0:
+                second = m["loss"].clone()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / REMAT_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        b1 = build.launch_counts["flash_attention_fwd"] // REMAT_STEPS
+        want = cfg.num_layers * (1 if policy == "none" else 2)
+        check(b1 == want, f"remat {policy}: {b1} B1 launches a step, not "
+                          f"{want}")
+        rows.append((policy, first, gnorm, float(second), ms, peak, b1))
+        del eng
+        torch.cuda.empty_cache()
+    _, first0, gnorm0, second0 = rows[0][:4]
+    check(len({r[1] for r in rows}) == 1,
+          f"remat policies: first-step losses differ {[r[1] for r in rows]}")
+    for policy, _, gnorm, second, *_ in rows[1:]:
+        g_rel = abs(gnorm - gnorm0) / gnorm0
+        l_rel = abs(second - second0) / abs(second0)
+        check(g_rel <= STEP_GNORM_REL_TOL and l_rel <= STEP_LOSS_REL_TOL,
+              f"remat {policy}: step-1 grad norm {gnorm} against none's "
+              f"{gnorm0} ({g_rel:.2e}, limit {STEP_GNORM_REL_TOL}), step-2 "
+              f"loss {second} against {second0} ({l_rel:.2e}, limit "
+              f"{STEP_LOSS_REL_TOL})")
+    print(f"remat policies, GPT-2 125M seq {TRAIN_SEQ} micro {REMAT_MICRO} "
+          f"flash bf16 AdamW (first-step loss {first0!r} under every "
+          f"policy; none's step-1 grad norm {gnorm0!r}, step-2 loss "
+          f"{second0!r}): " + "; ".join(
+              f"{p}: grad norm {g!r}, step-2 loss {l2!r} ("
+              + ("bit-equal to none" if (g, l2) == (gnorm0, second0)
+                 else "differs from none")
+              + f"), {ms:.1f} ms/step, peak {peak:.2f} GiB, {b1} B1 a step"
+              for p, _, g, l2, ms, peak, b1 in rows))
 
 
 def masked_plain_model(cfg):

@@ -1,5 +1,5 @@
 // Shared device helpers for the port's attention kernels (decode,
-// paged decode, paged prefill): 16-byte vector loads of bf16/f32 rows
+// paged decode, paged prefill): 16-byte vector loads of bf16/f16/f32 rows
 // and 8-/4-byte loads of int8/packed-int4 rows (times their f32 scale)
 // into f32 registers, and the online-softmax state (running max m,
 // running sum l, f32 accumulator) with its merge rule.
@@ -14,6 +14,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,6 +43,7 @@ constexpr size_t kMaxSmem = 232448;
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct VecWidth<__half> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void load_vec(const float* p, float (&out)[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
@@ -60,6 +62,17 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
   }
 }
 
+__device__ __forceinline__ void load_vec(const __half* p, float (&out)[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store_vec(float* p, const float (&in)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
 }
@@ -73,10 +86,19 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
   *reinterpret_cast<uint4*>(p) = v;
 }
 
+__device__ __forceinline__ void store_vec(__half* p, const float (&in)[8]) {
+  uint4 v;
+  __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(in[2 * i], in[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -84,6 +106,9 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 // Merge online-softmax state (m2, l2, acc2) into (m, l, acc).  Either

@@ -97,7 +97,7 @@ struct TileList {
 // dq of query tile walk.own of head row bh over the kv tiles of `walk`
 // (B3's dq_walk at g = 1 over a list).  q/k/v/dout/dq [BH, T, D], lse and
 // delta [BH, T].  An empty walk loads nothing and writes zeros.
-template <int D>
+template <int D, typename ET = bf16>
 __device__ __forceinline__ void bsa_dq_walk(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -175,9 +175,9 @@ __device__ __forceinline__ void bsa_dq_walk(
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t b[4];
         load_b_nk<D>(b, ks, 16 * jp, 16 * kk);
-        mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
+        mma_pair<ET>(s[2 * jp], s[2 * jp + 1], a, b);
         load_b_nk<D>(b, vs, 16 * jp, 16 * kk);
-        mma_pair(dp[2 * jp], dp[2 * jp + 1], ad, b);
+        mma_pair<ET>(dp[2 * jp], dp[2 * jp + 1], ad, b);
       }
     }
 
@@ -202,17 +202,17 @@ __device__ __forceinline__ void bsa_dq_walk(
 #pragma unroll
     for (int kk = 0; kk < T64 / 16; ++kk) {
       uint32_t a[4];
-      c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+      c_to_a<ET>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int jj = 0; jj < D / 16; ++jj) {
         uint32_t b[4];
         load_b_kn<D>(b, ks, 16 * kk, 16 * jj);
-        mma_pair(acc[2 * jj], acc[2 * jj + 1], a, b);
+        mma_pair<ET>(acc[2 * jj], acc[2 * jj + 1], a, b);
       }
     }
     __syncthreads();  // every warp is done with this stage
   }
-  store_acc<D>(dq + base, q0 + m0, t_len, acc);
+  store_acc<D, ET>(dq + base, q0 + m0, t_len, acc);
 }
 
 // dk and dv of kv tile walk.own of head row bh over the query tiles of
@@ -220,7 +220,7 @@ __device__ __forceinline__ void bsa_dq_walk(
 // D], lse and delta [BH, T].  An empty walk loads nothing and writes
 // zeros.  kOut: both outputs, or (above D 128) only dV or only dK, as in
 // dkv_walk.
-template <int D, int kOut = kDkDv>
+template <int D, typename ET = bf16, int kOut = kDkDv>
 __device__ __forceinline__ void bsa_dkv_walk(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -308,10 +308,10 @@ __device__ __forceinline__ void bsa_dkv_walk(
         for (int jp = 0; jp < kChunk / 16; ++jp) {
           uint32_t b[4];
           load_b_nk<D>(b, qs, qc + 16 * jp, 16 * kk);
-          mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
+          mma_pair<ET>(s[2 * jp], s[2 * jp + 1], a, b);
           if constexpr (kDk) {
             load_b_nk<D>(b, dos, qc + 16 * jp, 16 * kk);
-            mma_pair(dp[2 * jp], dp[2 * jp + 1], av, b);
+            mma_pair<ET>(dp[2 * jp], dp[2 * jp + 1], av, b);
           }
         }
       }
@@ -335,26 +335,26 @@ __device__ __forceinline__ void bsa_dkv_walk(
 #pragma unroll
       for (int kk = 0; kk < kChunk / 16; ++kk) {
         uint32_t pa[4], da[4];
-        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+        c_to_a<ET>(pa, s[2 * kk], s[2 * kk + 1]);
+        c_to_a<ET>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
         for (int jj = 0; jj < D / 16; ++jj) {
           uint32_t b[4];
           if constexpr (kDv) {
             load_b_kn<D>(b, dos, qc + 16 * kk, 16 * jj);
-            mma_pair(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
+            mma_pair<ET>(dv_acc[2 * jj], dv_acc[2 * jj + 1], pa, b);
           }
           if constexpr (kDk) {
             load_b_kn<D>(b, qs, qc + 16 * kk, 16 * jj);
-            mma_pair(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
+            mma_pair<ET>(dk_acc[2 * jj], dk_acc[2 * jj + 1], da, b);
           }
         }
       }
     }
     __syncthreads();  // every warp is done with this stage
   }
-  if constexpr (kDk) store_acc<D>(dk + base, k0 + m0, t_len, dk_acc);
-  if constexpr (kDv) store_acc<D>(dv + base, k0 + m0, t_len, dv_acc);
+  if constexpr (kDk) store_acc<D, ET>(dk + base, k0 + m0, t_len, dk_acc);
+  if constexpr (kDv) store_acc<D, ET>(dv + base, k0 + m0, t_len, dv_acc);
 }
 
 }  // namespace mma

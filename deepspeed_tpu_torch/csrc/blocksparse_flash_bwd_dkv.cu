@@ -43,12 +43,13 @@
 //   thread, as B4), which needs the 32-column chunks as a loop, not
 //   unrolled; two blocks an SM without the cap were slower.
 //
-// Head dims and blocks: every multiple of 16 up to 256, in bf16 on the
-//   tensor cores and f32 on the CUDA cores where its tiles fit shared
-//   memory; any layout block that is a multiple of 16 (the wrapper
-//   passes 16-row sub-block masks for blocks other than 16, 32 and
-//   multiples of 64).  Above D 128 each kv tile runs as a dV and a dK
-//   block, as B4 does.  float16 is ROADMAP queue C item C2.
+// Head dims and blocks: every multiple of 16 up to 256, in bf16 and f16
+//   on the tensor cores (the f16 kernel is the bf16 one with the .f16
+//   mma.sync and p/ds packed to f16: ET in flash_mma.cuh) and f32 on the
+//   CUDA cores where its tiles fit shared memory; any layout block that
+//   is a multiple of 16 (the wrapper passes 16-row sub-block masks for
+//   blocks other than 16, 32 and multiples of 64).  Above D 128 each kv
+//   tile runs as a dV and a dK block, as B4 does.
 //
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): B4's f32 kernel with the transposed walk, one block
@@ -152,10 +153,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc = dstt::mma;
 
-// The bf16 tensor-core kernel (see the note at the top): one dk/dv walk
-// over a tile list a block, or above D 128 a dV block (z 0) and a dK
-// block (z 1) per kv tile.
-template <int D>
+// The bf16 / f16 tensor-core kernel (see the note at the top): one dk/dv
+// walk over a tile list a block, or above D 128 a dV block (z 0) and a dK
+// block (z 1) per kv tile; ET is the operands' type.
+template <int D, typename ET>
 __global__ void __launch_bounds__(tc::kThreads, D <= 64 ? 3 : 1)
 bsa_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
                        const tc::bf16* __restrict__ k,
@@ -177,19 +178,19 @@ bsa_bwd_dkv_mma_kernel(const tc::bf16* __restrict__ q,
   tc::TileList walk{idx, bits, row * jmax, cnt[row], kt, sub_shift};
   if (causal) walk.drop_before(kt);
   if constexpr (tc::dkv_outs<D>() == 1)
-    tc::bsa_dkv_walk<D>(q, k, v, dout, lse, delta, dk, dv, t_len, sm_scale,
+    tc::bsa_dkv_walk<D, ET>(q, k, v, dout, lse, delta, dk, dv, t_len, sm_scale,
                         causal, bh, walk, smem_raw);
   else if (blockIdx.z == 0)
-    tc::bsa_dkv_walk<D, tc::kDvOnly>(q, k, v, dout, lse, delta, dk, dv,
-                                     t_len, sm_scale, causal, bh, walk,
+    tc::bsa_dkv_walk<D, ET, tc::kDvOnly>(q, k, v, dout, lse, delta, dk,
+                                         dv, t_len, sm_scale, causal, bh, walk,
                                      smem_raw);
   else
-    tc::bsa_dkv_walk<D, tc::kDkOnly>(q, k, v, dout, lse, delta, dk, dv,
-                                     t_len, sm_scale, causal, bh, walk,
+    tc::bsa_dkv_walk<D, ET, tc::kDkOnly>(q, k, v, dout, lse, delta, dk,
+                                         dv, t_len, sm_scale, causal, bh, walk,
                                      smem_raw);
 }
 
-template <int D>
+template <int D, typename ET>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* idx, const void* cnt, const void* bits,
@@ -197,11 +198,11 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                int sub_shift, float sm_scale, int causal,
                cudaStream_t stream) {
   const size_t smem = tc::dkv_walk_smem<D>();
-  cudaError_t err = allow_smem(bsa_bwd_dkv_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(bsa_bwd_dkv_mma_kernel<D, ET>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh,
                   tc::dkv_outs<D>());
-  bsa_bwd_dkv_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+  bsa_bwd_dkv_mma_kernel<D, ET><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -213,7 +214,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
-// bf16 to the tensor-core one
+// bf16 and f16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
@@ -222,9 +223,9 @@ int launch_route(const void* q, const void* k, const void* v,
                  int t_len, int jmax, int sub_shift, float sm_scale,
                  int causal, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value)
-    return launch_mma<D>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
-                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
-                         causal, stream);
+    return launch_mma<D, T>(q, k, v, dout, lse, delta, dk, dv, idx, cnt,
+                            bits, order, bh, lheads, t_len, jmax, sub_shift,
+                            sm_scale, causal, stream);
   else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
@@ -254,8 +255,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/k/v/dout/dk/dv [BH, T, D]
-// contiguous; lse and delta [BH, T] float32; the transposed walk
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/k/v/dout/dk/dv
+// [BH, T, D] contiguous; lse and delta [BH, T] float32; the transposed walk
 // (idx/bits [lheads, n, jmax]: each kv tile's query tiles, cnt [lheads,
 // n], order [n], n = ceil(T / 64)).  D a multiple of 16 up to 256
 // (float32: where its tiles fit shared memory); BH <= 65535 and a
@@ -278,6 +279,10 @@ extern "C" int dstt_blocksparse_flash_bwd_dkv(
     return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, idx,
                                    cnt, bits, order, bh, lheads, t_len, jmax,
                                    d, sub_shift, sm_scale, causal, st);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, dout, lse, delta, dk, dv, idx, cnt, bits,
+                            order, bh, lheads, t_len, jmax, d, sub_shift,
+                            sm_scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -35,11 +35,12 @@
 //   launches give the same bits.  Query tiles launch in `order`, longest
 //   walk first.
 //
-// Head dims and blocks: every multiple of 16 up to 256, in bf16 on the
-//   tensor cores and f32 on the CUDA cores where its tiles fit shared
-//   memory; any layout block that is a multiple of 16 (the wrapper
-//   passes 16-row sub-block masks for blocks other than 16, 32 and
-//   multiples of 64).  float16 is ROADMAP queue C item C2.
+// Head dims and blocks: every multiple of 16 up to 256, in bf16 and f16
+//   on the tensor cores (the f16 kernel is the bf16 one with the .f16
+//   mma.sync and ds packed to f16: ET in flash_mma.cuh) and f32 on the
+//   CUDA cores where its tiles fit shared memory; any layout block that
+//   is a multiple of 16 (the wrapper passes 16-row sub-block masks for
+//   blocks other than 16, 32 and multiples of 64).
 //
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): B3's f32 kernel with the walk of B8, one block of
@@ -141,9 +142,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc = dstt::mma;
 
-// The bf16 tensor-core kernel (see the note at the top): one dq walk over
-// a tile list a block.
-template <int D>
+// The bf16 / f16 tensor-core kernel (see the note at the top): one dq
+// walk over a tile list a block; ET is the operands' type.
+template <int D, typename ET>
 __global__ void __launch_bounds__(tc::kThreads)
 bsa_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
                       const tc::bf16* __restrict__ k,
@@ -163,21 +164,21 @@ bsa_bwd_dq_mma_kernel(const tc::bf16* __restrict__ q,
   const int row = static_cast<int>(bh % lheads) * n_tiles + qt;
   tc::TileList walk{idx, bits, row * jmax, cnt[row], qt, sub_shift};
   if (causal) walk.drop_after(qt);
-  tc::bsa_dq_walk<D>(q, k, v, dout, lse, delta, dq, t_len, sm_scale, causal,
+  tc::bsa_dq_walk<D, ET>(q, k, v, dout, lse, delta, dq, t_len, sm_scale, causal,
                      bh, walk, smem_raw);
 }
 
-template <int D>
+template <int D, typename ET>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, const void* idx,
                const void* cnt, const void* bits, const void* order, int bh,
                int lheads, int t_len, int jmax, int sub_shift,
                float sm_scale, int causal, cudaStream_t stream) {
   const size_t smem = tc::dq_walk_smem<D>();
-  cudaError_t err = allow_smem(bsa_bwd_dq_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(bsa_bwd_dq_mma_kernel<D, ET>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);
-  bsa_bwd_dq_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+  bsa_bwd_dq_mma_kernel<D, ET><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -189,7 +190,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
-// bf16 to the tensor-core one
+// bf16 and f16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
@@ -198,9 +199,9 @@ int launch_route(const void* q, const void* k, const void* v,
                  int t_len, int jmax, int sub_shift, float sm_scale,
                  int causal, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value)
-    return launch_mma<D>(q, k, v, dout, lse, delta, dq, idx, cnt, bits,
-                         order, bh, lheads, t_len, jmax, sub_shift, sm_scale,
-                         causal, stream);
+    return launch_mma<D, T>(q, k, v, dout, lse, delta, dq, idx, cnt, bits,
+                            order, bh, lheads, t_len, jmax, sub_shift,
+                            sm_scale, causal, stream);
   else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, dout, lse, delta, dq, idx, cnt, bits, order,
                         bh, lheads, t_len, jmax, sub_shift, sm_scale, causal,
@@ -229,7 +230,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/k/v/dout/dq [BH, T, D] contiguous;
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/k/v/dout/dq [BH, T, D] contiguous;
 // lse and delta [BH, T] float32; the walk as in B8 (idx/bits [lheads, n,
 // jmax], cnt [lheads, n], order [n], n = ceil(T / 64)).  D a multiple of
 // 16 up to 256 (float32: where its tiles fit shared memory); BH <= 65535
@@ -252,6 +253,10 @@ extern "C" int dstt_blocksparse_flash_bwd_dq(
     return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, idx, cnt,
                                    bits, order, bh, lheads, t_len, jmax, d,
                                    sub_shift, sm_scale, causal, st);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, dout, lse, delta, dq, idx, cnt, bits,
+                            order, bh, lheads, t_len, jmax, d, sub_shift,
+                            sm_scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -54,11 +54,12 @@
 //   version).  Each output row is written once, with no atomics, so two
 //   launches give the same bits.
 //
-// Head dims and blocks: every multiple of 16 up to 256, in bf16 on the
-//   tensor cores and f32 on the CUDA cores where its tiles fit shared
-//   memory; any layout block that is a multiple of 16 (the wrapper
-//   passes 16-row sub-block masks for blocks other than 16, 32 and
-//   multiples of 64).  float16 is ROADMAP queue C item C2.
+// Head dims and blocks: every multiple of 16 up to 256, in bf16 and f16
+//   on the tensor cores (the f16 kernel is the bf16 one with the .f16
+//   mma.sync and p packed to f16: ET in flash_mma.cuh) and f32 on the
+//   CUDA cores where its tiles fit shared memory; any layout block that
+//   is a multiple of 16 (the wrapper passes 16-row sub-block masks for
+//   blocks other than 16, 32 and multiples of 64).
 //
 // f32 design (CUDA cores, kept as it was: the tensor cores would round f32
 //   operands to TF32): B1's f32 kernel with this walk, one block of 256
@@ -198,8 +199,9 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// The bf16 tensor-core kernel (see the note at the top).
-template <int D>
+// The bf16 / f16 tensor-core kernel (see the note at the top); ET is the
+// operands' type.
+template <int D, typename ET>
 __global__ void __launch_bounds__(tc::kThreads)
 bsa_fwd_mma_kernel(const tc::bf16* __restrict__ q,
                    const tc::bf16* __restrict__ k,
@@ -271,7 +273,7 @@ bsa_fwd_mma_kernel(const tc::bf16* __restrict__ q,
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t b[4];
         tc::load_b_nk<D>(b, ks, 16 * jp, 16 * kk);
-        tc::mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
+        tc::mma_pair<ET>(s[2 * jp], s[2 * jp + 1], a, b);
       }
     }
 
@@ -319,23 +321,23 @@ bsa_fwd_mma_kernel(const tc::bf16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] *= alpha[i >> 1];
 
-    // O += P V: p packed to bf16 A fragments (the rounding point), V by
+    // O += P V: p packed to ET A fragments (the rounding point), V by
     // ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < T64 / 16; ++kk) {
       uint32_t a[4];
-      tc::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+      tc::c_to_a<ET>(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int jj = 0; jj < D / 16; ++jj) {
         uint32_t b[4];
         tc::load_b_kn<D>(b, vs, 16 * kk, 16 * jj);
-        tc::mma_pair(acc[2 * jj], acc[2 * jj + 1], a, b);
+        tc::mma_pair<ET>(acc[2 * jj], acc[2 * jj + 1], a, b);
       }
     }
     __syncthreads();  // every warp is done with this stage
   }
 
-  // o = acc / l once, in bf16; lse = m ln 2 + ln l in f32 (MASK_VALUE +
+  // o = acc / l once, in ET; lse = m ln 2 + ln l in f32 (MASK_VALUE +
   // ln l for a row that saw no key: its max is MASK_VALUE itself)
   float inv[2];
 #pragma unroll
@@ -348,7 +350,7 @@ bsa_fwd_mma_kernel(const tc::bf16* __restrict__ q,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] *= inv[i >> 1];
-  tc::store_acc<D>(o + base, q0 + m0, t_len, acc);
+  tc::store_acc<D, ET>(o + base, q0 + m0, t_len, acc);
   if ((threadIdx.x & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -359,17 +361,17 @@ bsa_fwd_mma_kernel(const tc::bf16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, typename ET>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, const void* idx, const void* cnt, const void* bits,
                const void* order, int bh, int lheads, int t_len, int jmax,
                int sub_shift, float sm_scale, int causal,
                cudaStream_t stream) {
   const size_t smem = sizeof(tc::bf16) * 5 * tc::Tile<D>::kElems;
-  cudaError_t err = allow_smem(bsa_fwd_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(bsa_fwd_mma_kernel<D, ET>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + tc::kTile - 1) / tc::kTile, bh);
-  bsa_fwd_mma_kernel<D><<<grid, tc::kThreads, smem, stream>>>(
+  bsa_fwd_mma_kernel<D, ET><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o),
       static_cast<float*>(lse), static_cast<const int*>(idx),
@@ -380,7 +382,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // f32 to the CUDA-core kernel (where its f32 tiles fit shared memory),
-// bf16 to the tensor-core one
+// bf16 and f16 to the tensor-core one
 template <typename T, int D>
 int launch_route(const void* q, const void* k, const void* v, void* o,
                  void* lse, const void* idx, const void* cnt,
@@ -388,8 +390,9 @@ int launch_route(const void* q, const void* k, const void* v, void* o,
                  int t_len, int jmax, int sub_shift, float sm_scale,
                  int causal, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value)
-    return launch_mma<D>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads,
-                         t_len, jmax, sub_shift, sm_scale, causal, stream);
+    return launch_mma<D, T>(q, k, v, o, lse, idx, cnt, bits, order, bh,
+                            lheads, t_len, jmax, sub_shift, sm_scale, causal,
+                            stream);
   else if constexpr (f32_smem<D>() <= kMaxSmem)
     return launch<T, D>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads,
                         t_len, jmax, sub_shift, sm_scale, causal, stream);
@@ -417,8 +420,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/k/v/o [BH, T, D] contiguous; lse
-// [BH, T] float32.  The walk (int32, lheads layout heads, n = ceil(T /
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/k/v/o [BH, T, D]
+// contiguous; lse [BH, T] float32.  The walk (int32, lheads layout heads, n = ceil(T /
 // 64) tiles): idx/bits [lheads, n, jmax], cnt [lheads, n], order [n].
 // D a multiple of 16 up to 256 (float32: where its
 // tiles fit shared memory); BH <= 65535 and a multiple of lheads;
@@ -439,6 +442,9 @@ extern "C" int dstt_blocksparse_flash_fwd(
     return dispatch<__nv_bfloat16>(q, k, v, o, lse, idx, cnt, bits, order, bh,
                                    lheads, t_len, jmax, d, sub_shift,
                                    sm_scale, causal, st);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, o, lse, idx, cnt, bits, order, bh, lheads,
+                            t_len, jmax, d, sub_shift, sm_scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

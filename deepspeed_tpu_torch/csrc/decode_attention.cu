@@ -47,7 +47,11 @@
 //     So one launch, no scratch, no atomics: two launches give the same
 //     bits.
 //
-// Head dims and groups (bf16): every multiple of 8 up to 256, the
+// float16 runs the same kernel (ET = __half): the rows convert with
+//   __half22float2 in place of __bfloat1622float2 and the output rounds
+//   to f16; every sum is f32 as in bf16.
+//
+// Head dims and groups (bf16, f16): every multiple of 8 up to 256, the
 //   reference's gate (a row of D / 8 16-byte vectors; a score is split
 //   over SL lanes only where D / 8 divides by 2 SL), and any kv group: a
 //   group of more than 4096 output features (g x D) is split into the
@@ -68,6 +72,8 @@
 #include "flash_mma.cuh"
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 using namespace dstt;
 
@@ -221,19 +227,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Eight bf16 from shared memory, widened to f32.
+// Eight ET (bf16 or __half) from shared memory, widened to f32.
+template <typename ET>
 __device__ __forceinline__ void lds8(const tc::bf16* p, float (&out)[8]) {
   const uint4 w = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+  if constexpr (std::is_same<ET, __half>::value) {
+    const __half2* h = reinterpret_cast<const __half2*>(&w);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
   }
 }
 
-template <int D>
+// ET (bf16 or __half) is the element type; rows are 16-bit storage.
+template <int D, typename ET>
 __global__ void __launch_bounds__(kThreads)
 decode_cluster_kernel(const tc::bf16* __restrict__ q,
                       const tc::bf16* __restrict__ k,
@@ -340,8 +358,8 @@ decode_cluster_kernel(const tc::bf16* __restrict__ q,
 #pragma unroll 4
       for (int f = 0; f < fpl; f += 8) {
         float kf[8], qf[8];
-        lds8(kr + f, kf);
-        lds8(qj + f, qf);
+        lds8<ET>(kr + f, kf);
+        lds8<ET>(qj + f, qf);
 #pragma unroll
         for (int i = 0; i < 8; ++i) d = fmaf(qf[i], kf[i], d);
       }
@@ -391,7 +409,7 @@ decode_cluster_kernel(const tc::bf16* __restrict__ q,
         for (int r = rg; r < valid; r += RG) {
           const float p = pj[r];
           float vf[8];
-          lds8(vs + r * G::kStride + f0, vf);
+          lds8<ET>(vs + r * G::kStride + f0, vf);
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[u][i] = fmaf(p, vf[i], acc[u][i]);
         }
@@ -436,7 +454,7 @@ decode_cluster_kernel(const tc::bf16* __restrict__ q,
       float r[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) r[i] = fin[8 * vec + i] * inv;
-      store_vec(out + 8 * vec, r);
+      store_vec(reinterpret_cast<ET*>(out + 8 * vec), r);
     }
     return;
   }
@@ -465,18 +483,18 @@ decode_cluster_kernel(const tc::bf16* __restrict__ q,
       const float inv = 1.f / fmaxf(den, 1e-30f);
 #pragma unroll
       for (int i = 0; i < 8; ++i) num[i] *= inv;
-      store_vec(out + 8 * vec, num);
+      store_vec(reinterpret_cast<ET*>(out + 8 * vec), num);
     }
   }
   cluster.sync();  // no split leaves while split 0 reads its memory
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+template <int D, typename ET>
+int launch_16(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int H, int Hkv, int parts, int length, int nsplit,
                 int split_len, float sm_scale, cudaStream_t stream) {
   const size_t smem = cluster_smem<D>(H / Hkv / parts, split_len);
-  auto kernel = decode_cluster_kernel<D>;
+  auto kernel = decode_cluster_kernel<D, ET>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -504,10 +522,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// A kv head's group is split into `parts` blocks of (H / Hkv) / parts
-// heads when it holds more than kMaxGroupDim output features (each part
-// reads the kv head's rows again: never a copy at query-head width).
-int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+// bf16 or f16 (ET).  A kv head's group is split into `parts` blocks of
+// (H / Hkv) / parts heads when it holds more than kMaxGroupDim output
+// features (each part reads the kv head's rows again: never a copy at
+// query-head width).
+template <typename ET>
+int dispatch_16(const void* q, const void* k, const void* v, void* o,
                   int B, int S, int H, int Hkv, int D, int parts, int length,
                   int nsplit, int split_len, float sm_scale, cudaStream_t st) {
   if (nsplit < 1 || nsplit > kMaxSplits || split_len < 1 || parts < 1 ||
@@ -517,8 +537,8 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
   switch (D) {
 #define DSTT_CASE(DD)                                                     \
   case DD:                                                                \
-    return launch_bf16<DD>(q, k, v, o, B, S, H, Hkv, parts, length,      \
-                           nsplit, split_len, sm_scale, st);
+    return launch_16<DD, ET>(q, k, v, o, B, S, H, Hkv, parts, length,    \
+                             nsplit, split_len, sm_scale, st);
     DSTT_DECODE_HEAD_DIMS(DSTT_CASE)
 #undef DSTT_CASE
   }
@@ -527,10 +547,10 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/o [B, H, D], k/v [B, S, Hkv, D],
-// H a multiple of Hkv.  float32: part_ml [B*H*nsplit*2] and part_acc
-// [B*H*nsplit*D] f32 are scratch, read only when nsplit > 1; `parts` is
-// ignored.  bfloat16: D a multiple of 8 up to 256; nsplit (1..8) splits of
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/o [B, H, D], k/v
+// [B, S, Hkv, D], H a multiple of Hkv.  float32: part_ml [B*H*nsplit*2]
+// and part_acc [B*H*nsplit*D] f32 are scratch, read only when nsplit > 1;
+// `parts` is ignored.  bfloat16 and float16: D a multiple of 8 up to 256; nsplit (1..8) splits of
 // split_len positions form one cluster, no scratch (part_* ignored); each
 // kv head's group in `parts` blocks of (H / Hkv) / parts heads, (H / Hkv /
 // parts) * D <= 4096.  Returns the cudaError_t of the launches (0 =
@@ -549,8 +569,11 @@ extern "C" int dstt_decode_attention(const void* q, const void* k,
     return launch_f32(q, k, v, o, part_ml, part_acc, B, S, H, Hkv, D, length,
                       nsplit, split_len, sm_scale, st);
   if (dtype == 1)
-    return dispatch_bf16(q, k, v, o, B, S, H, Hkv, D, parts, length,
-                         nsplit, split_len, sm_scale, st);
+    return dispatch_16<tc::bf16>(q, k, v, o, B, S, H, Hkv, D, parts, length,
+                                 nsplit, split_len, sm_scale, st);
+  if (dtype == 2)
+    return dispatch_16<__half>(q, k, v, o, B, S, H, Hkv, D, parts, length,
+                               nsplit, split_len, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

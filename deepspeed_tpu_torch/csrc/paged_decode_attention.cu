@@ -56,10 +56,14 @@
 //     two launches give the same bits.  A slot with rows in rank 0 alone
 //     (and an inactive slot, which gives zero rows) needs no barrier.
 //
-// Head dims and groups (bf16 queries): every multiple of 8 up to 256 at
-// kv_bits 0, 8 and 4 (a pool row moves by cp.async of 16, 8 or 4 bytes,
-// the largest that divides it), and any kv group: a group of more than
-// 2048 output features is split into the fewest `parts` blocks of
+// float16 (queries, outputs and kv_bits 0 pools) runs the same kernel
+// (ET = __half): rows widen with __half22float2, dequantized rows go to
+// f32 as in bf16, and the output rounds to f16.
+//
+// Head dims and groups (bf16 and f16 queries): every multiple of 8 up to
+// 256 at kv_bits 0, 8 and 4 (a pool row moves by cp.async of 16, 8 or 4
+// bytes, the largest that divides it), and any kv group: a group of more
+// than 2048 output features is split into the fewest `parts` blocks of
 // g / parts heads (one cluster per (slot, kv head, part)), each reading
 // the kv head's rows again.
 //
@@ -78,6 +82,8 @@
 #include "flash_mma.cuh"
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 using namespace dstt;
 
@@ -309,14 +315,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Unit u (8 features) of a staged row, widened to f32, unscaled: bf16
-// features 8u .. 8u + 7; int8 the same; packed int4 the low nibbles of
-// bytes 4u .. 4u + 3 (features 4u .. 4u + 3) then their high nibbles
-// (features D/2 + 4u .. D/2 + 4u + 3): quant_feature's order.
-template <int KV_BITS>
+// Unit u (8 features) of a staged row, widened to f32, unscaled: ET
+// (bf16 or __half) features 8u .. 8u + 7; int8 the same; packed int4 the
+// low nibbles of bytes 4u .. 4u + 3 (features 4u .. 4u + 3) then their
+// high nibbles (features D/2 + 4u .. D/2 + 4u + 3): quant_feature's order.
+template <int KV_BITS, typename ET>
 __device__ __forceinline__ void widen_unit(const unsigned char* row, int u,
                                            float (&out)[8]) {
-  if constexpr (KV_BITS == 0) {
+  if constexpr (KV_BITS == 0 && std::is_same<ET, __half>::value) {
+    const uint4 w = *reinterpret_cast<const uint4*>(row + 16 * u);
+    const __half2* h = reinterpret_cast<const __half2*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else if constexpr (KV_BITS == 0) {
     const uint4 w = *reinterpret_cast<const uint4*>(row + 16 * u);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
@@ -344,24 +359,27 @@ __device__ __forceinline__ void widen_unit(const unsigned char* row, int u,
   }
 }
 
-// Unit u's eight values into a bf16 output row of D features.
-template <int KV_BITS>
+// Unit u's eight values into an ET (bf16 or __half) output row of D
+// features.
+template <int KV_BITS, typename ET>
 __device__ __forceinline__ void store_unit(tc::bf16* row, int u, int D,
                                            const float (&x)[8]) {
   if constexpr (KV_BITS == 4) {
     uint2 lo, hi;
-    lo.x = tc::pack_bf16(x[0], x[1]);
-    lo.y = tc::pack_bf16(x[2], x[3]);
-    hi.x = tc::pack_bf16(x[4], x[5]);
-    hi.y = tc::pack_bf16(x[6], x[7]);
+    lo.x = tc::pack<ET>(x[0], x[1]);
+    lo.y = tc::pack<ET>(x[2], x[3]);
+    hi.x = tc::pack<ET>(x[4], x[5]);
+    hi.y = tc::pack<ET>(x[6], x[7]);
     *reinterpret_cast<uint2*>(row + 4 * u) = lo;
     *reinterpret_cast<uint2*>(row + D / 2 + 4 * u) = hi;
   } else {
-    store_vec(row + 8 * u, x);
+    store_vec(reinterpret_cast<ET*>(row + 8 * u), x);
   }
 }
 
-template <int D, int KV_BITS>
+// ET (bf16 or __half) is the queries' and outputs' type (and the pools'
+// at kv_bits 0); 16-bit rows are typed bf16 as storage.
+template <int D, int KV_BITS, typename ET>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_cluster_kernel(
     const tc::bf16* __restrict__ q,
@@ -446,8 +464,8 @@ paged_decode_cluster_kernel(
       (static_cast<size_t>(b) * H + kvh * (H / Hkv) + part * g) * D;
   for (int i = t; i < g * D; i += kThreads) {
     const int j = i / D, e = i % D;
-    qs[i] = __bfloat162float(
-        q[qbase + j * D + quant_feature<KV_BITS>(e / 8, e % 8, D)]);
+    qs[i] = to_float(reinterpret_cast<const ET*>(
+        q)[qbase + j * D + quant_feature<KV_BITS>(e / 8, e % 8, D)]);
   }
   for (int j = t; j < g; j += kThreads) {
     st_m[j] = DSTT_NEG_INF;
@@ -496,7 +514,7 @@ paged_decode_cluster_kernel(
 #pragma unroll 4
       for (int u = slice * upl; u < (slice + 1) * upl; ++u) {
         float kf[8];
-        widen_unit<KV_BITS>(kr, u, kf);
+        widen_unit<KV_BITS, ET>(kr, u, kf);
         const float4 qa = *reinterpret_cast<const float4*>(qj + 8 * u);
         const float4 qb = *reinterpret_cast<const float4*>(qj + 8 * u + 4);
         d = fmaf(qa.x, kf[0], d);
@@ -559,7 +577,7 @@ paged_decode_cluster_kernel(
           float pr = pj[r];
           if constexpr (KV_BITS != 0) pr *= vsc[r];
           float vf[8];
-          widen_unit<KV_BITS>(vs + r * RS, f0, vf);
+          widen_unit<KV_BITS, ET>(vs + r * RS, f0, vf);
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[u][i] = fmaf(pr, vf[i], acc[u][i]);
         }
@@ -604,7 +622,7 @@ paged_decode_cluster_kernel(
       float r8[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) r8[i] = fin[8 * unit + i] * inv;
-      store_unit<KV_BITS>(out + (unit / VPR) * D, unit % VPR, D, r8);
+      store_unit<KV_BITS, ET>(out + (unit / VPR) * D, unit % VPR, D, r8);
     }
     return;
   }
@@ -631,13 +649,13 @@ paged_decode_cluster_kernel(
       const float inv = 1.f / fmaxf(den, 1e-30f);
 #pragma unroll
       for (int i = 0; i < 8; ++i) num[i] *= inv;
-      store_unit<KV_BITS>(out + j * D, unit % VPR, D, num);
+      store_unit<KV_BITS, ET>(out + j * D, unit % VPR, D, num);
     }
   }
   cluster.sync();  // no rank leaves while rank 0 reads its memory
 }
 
-template <int D, int KV_BITS>
+template <int D, int KV_BITS, typename ET>
 int launch_cluster(const void* q, const void* pk, const void* pv,
                    const float* ks, const float* vs, const void* lengths,
                    const void* tables, void* o, int B, int H, int Hkv,
@@ -645,7 +663,7 @@ int launch_cluster(const void* q, const void* pk, const void* pv,
                    float sm_scale, cudaStream_t stream) {
   using P = typename PoolElem<tc::bf16, KV_BITS>::type;
   const size_t smem = cluster_smem<D, KV_BITS>(H / Hkv / parts, split_len);
-  auto kernel = paged_decode_cluster_kernel<D, KV_BITS>;
+  auto kernel = paged_decode_cluster_kernel<D, KV_BITS, ET>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -674,16 +692,26 @@ int launch_cluster(const void* q, const void* pk, const void* pv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 kernel: nsplit splits of split_len rows must cover the table;
-// a kv head's group is split into `parts` blocks of (H / Hkv) / parts heads
-// when it holds more than kMaxGroupDim output features (each part reads
-// the kv head's rows again: never a copy at query-head width).
-template <int KV_BITS>
-int launch_bf16(const void* q, const void* pk, const void* pv,
-                const float* ks, const float* vs, const void* lengths,
-                const void* tables, void* o, int B, int H, int Hkv, int D,
-                int parts, int blk, int npages, int nsplit, int split_len,
-                float sm_scale, cudaStream_t st) {
+}  // namespace
+
+// The 16-bit kernels are built in parts: ops/build.py compiles this file
+// once per part with -DDSTT_PART=p (its PARTS), and each (kv_bits, ET)
+// instantiation of launch_16 lives in one part only, so the parts compile
+// in parallel; part 0 also holds the f32 kernel and the entry points.  A
+// compile without DSTT_PART holds everything.
+namespace dstt_paged_decode {
+
+// The bf16 / f16 (ET) kernel: nsplit splits of split_len rows must cover
+// the table; a kv head's group is split into `parts` blocks of
+// (H / Hkv) / parts heads when it holds more than kMaxGroupDim output
+// features (each part reads the kv head's rows again: never a copy at
+// query-head width).
+template <int KV_BITS, typename ET>
+int launch_16(const void* q, const void* pk, const void* pv,
+              const float* ks, const float* vs, const void* lengths,
+              const void* tables, void* o, int B, int H, int Hkv, int D,
+              int parts, int blk, int npages, int nsplit, int split_len,
+              float sm_scale, cudaStream_t st) {
   if (nsplit < 1 || nsplit > kMaxRanks || split_len < 1 || parts < 1 ||
       static_cast<long long>(nsplit) * split_len <
           static_cast<long long>(npages) * blk ||
@@ -693,14 +721,52 @@ int launch_bf16(const void* q, const void* pk, const void* pv,
   switch (D) {
 #define DSTT_CASE(DD)                                                     \
   case DD:                                                                \
-    return launch_cluster<DD, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, \
-                                       o, B, H, Hkv, parts, blk, npages,  \
-                                       nsplit, split_len, sm_scale, st);
+    return launch_cluster<DD, KV_BITS, ET>(q, pk, pv, ks, vs, lengths,     \
+                                           tables, o, B, H, Hkv, parts,   \
+                                           blk, npages, nsplit, split_len, \
+                                           sm_scale, st);
     DSTT_DECODE_HEAD_DIMS(DSTT_CASE)
 #undef DSTT_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef DSTT_PART
+#define DSTT_LAUNCH_16(KV, ET)                                             \
+  int launch_16<KV, ET>(const void*, const void*, const void*,            \
+                        const float*, const float*, const void*,          \
+                        const void*, void*, int, int, int, int, int, int,  \
+                        int, int, int, float, cudaStream_t)
+#if DSTT_PART == 0
+template DSTT_LAUNCH_16(0, tc::bf16);
+template DSTT_LAUNCH_16(0, __half);
+#else
+extern template DSTT_LAUNCH_16(0, tc::bf16);
+extern template DSTT_LAUNCH_16(0, __half);
+#endif
+#if DSTT_PART == 1
+template DSTT_LAUNCH_16(8, tc::bf16);
+template DSTT_LAUNCH_16(8, __half);
+#else
+extern template DSTT_LAUNCH_16(8, tc::bf16);
+extern template DSTT_LAUNCH_16(8, __half);
+#endif
+#if DSTT_PART == 2
+template DSTT_LAUNCH_16(4, tc::bf16);
+template DSTT_LAUNCH_16(4, __half);
+#else
+extern template DSTT_LAUNCH_16(4, tc::bf16);
+extern template DSTT_LAUNCH_16(4, __half);
+#endif
+#undef DSTT_LAUNCH_16
+#endif
+
+}  // namespace dstt_paged_decode
+
+#if !defined(DSTT_PART) || DSTT_PART == 0
+namespace {
+
+using dstt_paged_decode::launch_16;
 
 template <int KV_BITS>
 int launch_dtype(const void* q, const void* pk, const void* pv,
@@ -712,17 +778,21 @@ int launch_dtype(const void* q, const void* pk, const void* pv,
     return launch<float, KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B,
                                   H, Hkv, D, blk, npages, sm_scale, st);
   if (dtype == 1)
-    return launch_bf16<KV_BITS>(q, pk, pv, ks, vs, lengths, tables, o, B, H,
-                                Hkv, D, parts, blk, npages, nsplit,
-                                split_len, sm_scale, st);
+    return launch_16<KV_BITS, tc::bf16>(q, pk, pv, ks, vs, lengths, tables, o,
+                                        B, H, Hkv, D, parts, blk, npages,
+                                        nsplit, split_len, sm_scale, st);
+  if (dtype == 2)
+    return launch_16<KV_BITS, __half>(q, pk, pv, ks, vs, lengths, tables, o,
+                                      B, H, Hkv, D, parts, blk, npages,
+                                      nsplit, split_len, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/o [B, H, D]; pools
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/o [B, H, D]; pools
 // [num_blocks, blk, Hkv, D]; lengths [B] int32; tables [B, npages] int32.
-// bfloat16: D a multiple of 8 up to 256; nsplit (1..8) splits of
+// bfloat16 and float16: D a multiple of 8 up to 256; nsplit (1..8) splits of
 // split_len rows, nsplit * split_len >= npages * blk, form one cluster per
 // (slot, kv head, part); each kv head's group in `parts` blocks of
 // (H / Hkv) / parts heads, (H / Hkv / parts) * D <= 2048.  float32 (a
@@ -764,3 +834,4 @@ extern "C" int dstt_paged_decode_attention_quant(
 }
 
 DSTT_DEFINE_ERROR_STRING(dstt_paged_decode_attention)
+#endif  // part 0

@@ -68,11 +68,17 @@
 //     under half an ulp of hi, rounds back to hi;
 //   * query tiles launch last-first, so the longest walks start first.
 //
+// float16 (ET = __half) runs the same kernels: the .f16 mma.sync, p as
+// f16 hi + lo, a quantized V as f16(int x scale) to nearest plus its
+// residual toward zero (int8 values and int4 nibbles are exact in f16 as
+// in bf16), so a single fully attended row comes back exact in f16 too;
+// the CUDA-core kernel takes f16 rows by 16-byte loads.
+//
 // Shape route (by shape, never after a failure): the tensor-core kernel
-// takes bf16 at every multiple of 16 up to 128 (k16 steps over the head
-// dim), any G.  The other head dims (multiples of 8 up to 256: D % 16 ==
-// 8, and above 128), and f32, stay on the CUDA-core kernel below, which
-// puts 16 / G positions of a group in its 16 rows the same way.
+// takes bf16 and f16 at every multiple of 16 up to 128 (k16 steps over the
+// head dim), any G.  The other head dims (multiples of 8 up to 256: D %
+// 16 == 8, and above 128), and f32, stay on the CUDA-core kernel below,
+// which puts 16 / G positions of a group in its 16 rows the same way.
 //
 // CUDA-core design (paged_prefill_kernel, the first port): one block per
 // (query tile, kv head): 16 query rows staged in shared memory as f32;
@@ -83,6 +89,8 @@
 // broadcast by warp shuffles; the walk stops at the tile's last visible
 // key as above.
 #include "flash_mma.cuh"
+
+#include <type_traits>
 
 using namespace dstt;
 
@@ -341,45 +349,77 @@ __device__ __forceinline__ void widen4(unsigned w, bool high,
                        static_cast<int>(w << ((high ? 24 : 28) - 8 * i)) >> 28);
 }
 
-// Two f32 values x0, x1 rounded to bf16 (to nearest) in one register, x0
-// in the low half, and their residuals x - hi rounded toward zero in
-// another: |lo| stays below half an ulp of hi, so hi + lo (exact in f32)
-// rounds back to hi, and hi + lo is x to 16 bits.
+template <typename ET>
+constexpr bool kHalf = std::is_same<ET, __half>::value;
+
+// The low (first) and high halves of a packed pair of ET, as f32.
+template <typename ET>
+__device__ __forceinline__ float low_f32(uint32_t x) {
+  if constexpr (kHalf<ET>)
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(x)));
+  else
+    return __uint_as_float(x << 16);
+}
+template <typename ET>
+__device__ __forceinline__ float high_f32(uint32_t x) {
+  if constexpr (kHalf<ET>)
+    return __half2float(
+        __ushort_as_half(static_cast<unsigned short>(x >> 16)));
+  else
+    return __uint_as_float(x & 0xffff0000u);
+}
+
+// x rounded toward zero to ET, as its 16 bits.
+template <typename ET>
+__device__ __forceinline__ unsigned short round_rz(float x) {
+  if constexpr (kHalf<ET>)
+    return __half_as_ushort(__float2half_rz(x));
+  else
+    return __bfloat16_as_ushort(__float2bfloat16_rz(x));
+}
+
+// Two f32 values x0, x1 rounded to ET (bf16 or __half, to nearest) in one
+// register, x0 in the low half, and their residuals x - hi rounded toward
+// zero in another: |lo| stays below half an ulp of hi, so hi + lo (exact
+// in f32) rounds back to hi, and hi + lo is x to twice ET's bits.
+template <typename ET>
 __device__ __forceinline__ void split_rz(float x0, float x1, uint32_t& hi,
                                          uint32_t& lo) {
-  hi = tc::pack_bf16(x0, x1);
-  const unsigned short l0 = __bfloat16_as_ushort(
-      __float2bfloat16_rz(x0 - __uint_as_float(hi << 16)));
-  const unsigned short l1 = __bfloat16_as_ushort(
-      __float2bfloat16_rz(x1 - __uint_as_float(hi & 0xffff0000u)));
+  hi = tc::pack<ET>(x0, x1);
+  const unsigned short l0 = round_rz<ET>(x0 - low_f32<ET>(hi));
+  const unsigned short l1 = round_rz<ET>(x1 - high_f32<ET>(hi));
   lo = static_cast<uint32_t>(l0) | (static_cast<uint32_t>(l1) << 16);
 }
 
-// Eight ints times `scale` as bf16 high parts (one 16-byte store to hi)
+// Eight ints times `scale` as ET high parts (one 16-byte store to hi)
 // and, when lo is given, their residuals (one to lo).
-__device__ __forceinline__ void store8_bf16(tc::bf16* hi, tc::bf16* lo,
-                                            const float (&a)[4],
-                                            const float (&b)[4],
-                                            float scale) {
+template <typename ET>
+__device__ __forceinline__ void store8(tc::bf16* hi, tc::bf16* lo,
+                                       const float (&a)[4],
+                                       const float (&b)[4], float scale) {
   uint4 h, r;
-  split_rz(a[0] * scale, a[1] * scale, h.x, r.x);
-  split_rz(a[2] * scale, a[3] * scale, h.y, r.y);
-  split_rz(b[0] * scale, b[1] * scale, h.z, r.z);
-  split_rz(b[2] * scale, b[3] * scale, h.w, r.w);
+  split_rz<ET>(a[0] * scale, a[1] * scale, h.x, r.x);
+  split_rz<ET>(a[2] * scale, a[3] * scale, h.y, r.y);
+  split_rz<ET>(b[0] * scale, b[1] * scale, h.z, r.z);
+  split_rz<ET>(b[2] * scale, b[3] * scale, h.w, r.w);
   *reinterpret_cast<uint4*>(hi) = h;
   if (lo) *reinterpret_cast<uint4*>(lo) = r;
 }
 
-// Two f32 values as bf16 pairs hi (to nearest) and lo (the residuals, to
-// nearest) in mma.sync's operand layout: hi + lo is each value to 16 bits.
+// Two f32 values as ET pairs hi (to nearest) and lo (the residuals, to
+// nearest) in mma.sync's operand layout: hi + lo is each value to twice
+// ET's bits.
+template <typename ET>
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = tc::pack_bf16(x0, x1);
-  lo = tc::pack_bf16(x0 - __uint_as_float(hi << 16),
-                     x1 - __uint_as_float(hi & 0xffff0000u));
+  hi = tc::pack<ET>(x0, x1);
+  lo = tc::pack<ET>(x0 - low_f32<ET>(hi), x1 - high_f32<ET>(hi));
 }
 
-template <int D, int KV_BITS, int WARPS, bool kSplit>
+// ET (bf16 or __half) is the queries', outputs' and kv_bits 0 pools'
+// type and the products' operand type; 16-bit rows are typed bf16 as
+// storage.
+template <int D, int KV_BITS, int WARPS, bool kSplit, typename ET>
 __global__ void __launch_bounds__(32 * WARPS)
 paged_prefill_mma_kernel(
     const tc::bf16* __restrict__ q,
@@ -488,14 +528,14 @@ paged_prefill_mma_kernel(
       if constexpr (KV_BITS == 8) {
         widen4<8>(w.x, false, a);
         widen4<8>(w.y, false, b);
-        store8_bf16(dst + 8 * u, res ? res + 8 * u : nullptr, a, b, sc);
+        store8<ET>(dst + 8 * u, res ? res + 8 * u : nullptr, a, b, sc);
       } else {
         widen4<4>(w.x, false, a);
         widen4<4>(w.y, false, b);
-        store8_bf16(dst + 8 * u, res ? res + 8 * u : nullptr, a, b, sc);
+        store8<ET>(dst + 8 * u, res ? res + 8 * u : nullptr, a, b, sc);
         widen4<4>(w.x, true, a);
         widen4<4>(w.y, true, b);
-        store8_bf16(dst + D / 2 + 8 * u, res ? res + D / 2 + 8 * u : nullptr,
+        store8<ET>(dst + D / 2 + 8 * u, res ? res + D / 2 + 8 * u : nullptr,
                     a, b, sc);
       }
     }
@@ -555,7 +595,7 @@ paged_prefill_mma_kernel(
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t b[4];
         tc::load_b_nk<D>(b, ks, 16 * jp, 16 * kk);
-        tc::mma_pair(s[2 * jp], s[2 * jp + 1], a, b);
+        tc::mma_pair<ET>(s[2 * jp], s[2 * jp + 1], a, b);
       }
     }
 
@@ -607,19 +647,19 @@ paged_prefill_mma_kernel(
       uint32_t ah[4], al[4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        split_pair(s[2 * kk][2 * i], s[2 * kk][2 * i + 1], ah[i], al[i]);
-        split_pair(s[2 * kk + 1][2 * i], s[2 * kk + 1][2 * i + 1],
+        split_pair<ET>(s[2 * kk][2 * i], s[2 * kk][2 * i + 1], ah[i], al[i]);
+        split_pair<ET>(s[2 * kk + 1][2 * i], s[2 * kk + 1][2 * i + 1],
                    ah[2 + i], al[2 + i]);
       }
 #pragma unroll
       for (int jj = 0; jj < D / 16; ++jj) {
         uint32_t b[4];
         tc::load_b_kn<D>(b, vs, 16 * kk, 16 * jj);
-        tc::mma_pair(acc[2 * jj], acc[2 * jj + 1], ah, b);
-        tc::mma_pair(acc[2 * jj], acc[2 * jj + 1], al, b);
+        tc::mma_pair<ET>(acc[2 * jj], acc[2 * jj + 1], ah, b);
+        tc::mma_pair<ET>(acc[2 * jj], acc[2 * jj + 1], al, b);
         if constexpr (KV_BITS != 0) {
           tc::load_b_kn<D>(b, vlo, 16 * kk, 16 * jj);
-          tc::mma_pair(acc[2 * jj], acc[2 * jj + 1], ah, b);
+          tc::mma_pair<ET>(acc[2 * jj], acc[2 * jj + 1], ah, b);
         }
       }
     }
@@ -644,11 +684,11 @@ paged_prefill_mma_kernel(
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          tc::pack_bf16(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+          tc::pack<ET>(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
   }
 }
 
-template <int D, int KV_BITS>
+template <int D, int KV_BITS, typename ET>
 int launch_mma(const void* q, const void* pk, const void* pv, const float* ks,
                const float* vs, const void* table, void* o, int C, int H,
                int Hkv, int blk, int base, int chunk_len, float sm_scale,
@@ -657,8 +697,8 @@ int launch_mma(const void* q, const void* pk, const void* pv, const float* ks,
   constexpr int W = kMmaWarps;
   const int parts = group_parts(H / Hkv, 16 * W);
   const bool split = parts > 1 || (16 * W) % (H / Hkv);
-  auto kernel = split ? paged_prefill_mma_kernel<D, KV_BITS, W, true>
-                      : paged_prefill_mma_kernel<D, KV_BITS, W, false>;
+  auto kernel = split ? paged_prefill_mma_kernel<D, KV_BITS, W, true, ET>
+                      : paged_prefill_mma_kernel<D, KV_BITS, W, false, ET>;
   const int smem = MmaSmem<D, KV_BITS, W>::kBytes;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -675,25 +715,26 @@ int launch_mma(const void* q, const void* pk, const void* pv, const float* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at the multiples of 16 up to 128 to the tensor-core kernel; every
-// other shape (D % 16 == 8, D > 128), and f32, to the CUDA-core one
-template <int KV_BITS>
-int launch_bf16(const void* q, const void* pk, const void* pv,
+// bf16 and f16 (ET) at the multiples of 16 up to 128 to the tensor-core
+// kernel; every other shape (D % 16 == 8, D > 128), and f32, to the
+// CUDA-core one
+template <int KV_BITS, typename ET>
+int launch_16(const void* q, const void* pk, const void* pv,
                 const float* ks, const float* vs, const void* table, void* o,
                 int C, int H, int Hkv, int D, int blk, int npages, int base,
                 int chunk_len, float sm_scale, cudaStream_t st) {
   switch (D) {
 #define DSTT_CASE(DD)                                                     \
   case DD:                                                                \
-    return launch_mma<DD, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, \
-                                   blk, base, chunk_len, sm_scale, st);
+    return launch_mma<DD, KV_BITS, ET>(q, pk, pv, ks, vs, table, o, C, H,  \
+                                       Hkv, blk, base, chunk_len, sm_scale, \
+                                       st);
     DSTT_CASE(16) DSTT_CASE(32) DSTT_CASE(48) DSTT_CASE(64) DSTT_CASE(80)
     DSTT_CASE(96) DSTT_CASE(112) DSTT_CASE(128)
 #undef DSTT_CASE
   }
-  return launch<__nv_bfloat16, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H,
-                                        Hkv, D, blk, npages, base, chunk_len,
-                                        sm_scale, st);
+  return launch<ET, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, D, blk,
+                             npages, base, chunk_len, sm_scale, st);
 }
 
 template <int KV_BITS>
@@ -706,8 +747,13 @@ int launch_dtype(const void* q, const void* pk, const void* pv,
     return launch<float, KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, D,
                                   blk, npages, base, chunk_len, sm_scale, st);
   if (dtype == 1)
-    return launch_bf16<KV_BITS>(q, pk, pv, ks, vs, table, o, C, H, Hkv, D,
-                                blk, npages, base, chunk_len, sm_scale, st);
+    return launch_16<KV_BITS, tc::bf16>(q, pk, pv, ks, vs, table, o, C, H,
+                                        Hkv, D, blk, npages, base, chunk_len,
+                                        sm_scale, st);
+  if (dtype == 2)
+    return launch_16<KV_BITS, __half>(q, pk, pv, ks, vs, table, o, C, H, Hkv,
+                                      D, blk, npages, base, chunk_len,
+                                      sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -717,7 +763,7 @@ bool bad_shape(int C, int H, int Hkv, int D) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/o [C, H, D]; pools
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q/o [C, H, D]; pools
 // [num_blocks, blk, Hkv, D]; table [npages] int32.  Needs D a multiple of
 // 8 up to 256 and H a multiple of Hkv (a group larger than a tile's rows
 // is split across blocks: group_parts).

@@ -7,11 +7,12 @@ rejected, a ``None`` value means "use the default", and a value of the
 wrong type raises ``ValueError``.
 
 Blocks the slices of the port so far do not run (``tensor_parallel``
-beyond one device, ``moe``, ``observability``, ``checkpoint``,
-``serving.mesh`` beyond 1x1, ``serving.host_cache``, ``serving.fleet``)
-parse here and are refused with ``NotImplementedError`` by the engines
-that would run them.  ``quant`` (int8 weights) and
-``serving.kv_cache_bits`` (int8 or packed-int4 KV pools) run.
+beyond one device, ``moe``, ``observability``, ``serving.mesh`` beyond
+1x1, ``serving.host_cache``, ``serving.fleet``) parse here and are
+refused with ``NotImplementedError`` by the engines that would run them.
+``quant`` (int8 weights), ``serving.kv_cache_bits`` (int8 or packed-int4
+KV pools) and ``checkpoint`` / ``checkpoint_tag`` (the params of a
+training checkpoint of the port) run.
 """
 from __future__ import annotations
 

@@ -24,6 +24,7 @@ the rank of the stacked leaf, so each layer's biases and norm scales
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -31,10 +32,10 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
-from ..ops import build
 from ..models.convert import check_params, leaf_to_torch, tree_map
 from ..models.transformer import TransformerLM
 from ..ops.quantizer.quantizer import dequantize, quantize
+from ..runtime.checkpoint_engine.engine import latest_tag, read_state
 from ..utils.logging import logger
 from .config import DeepSpeedInferenceConfig
 from .sampling import sample_batch
@@ -49,8 +50,6 @@ def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
         later.append("moe.enabled (MoE)")
     if cfg.observability is not None:
         later.append("observability (serving observability hooks)")
-    if cfg.checkpoint is not None:
-        later.append("checkpoint (checkpoint loading)")
     if later:
         raise NotImplementedError(
             f"{', '.join(later)}: not in the slices of the PyTorch port so "
@@ -96,11 +95,6 @@ class InferenceEngine:
         refuse_out_of_slice(self.config)
         self.device = resolve_device(device)
         self.dtype = self.config.compute_dtype()
-        if self.dtype == torch.float16:
-            raise NotImplementedError(
-                f"init_inference(dtype={self.config.dtype!r}): the serving "
-                f"kernels B5-B7 (and B8 for a block-sparse model) take "
-                f"float32 or bfloat16; {build.C2}")
         # kernel injection: flash routes t == 1 decode through kernel B5,
         # xla keeps plain attention (the JAX engine's rewrite).  Only the
         # xla/flash pair is rewritten: blocksparse is a model choice whose
@@ -117,6 +111,9 @@ class InferenceEngine:
         if params is not None:
             check_params(model, params)
             self.params = tree_map(params, self._cast)
+        elif self.config.checkpoint:
+            self.params = self._load_checkpoint(self.config.checkpoint,
+                                                self.config.checkpoint_tag)
         else:
             logger.warning("init_inference without params — using fresh "
                            "random weights (seed 0)")
@@ -132,6 +129,19 @@ class InferenceEngine:
         self._latencies: list = []      # per-token DECODE-only seconds
         self._ttfts: list = []          # prefill -> first-token seconds
         self._serving = None
+
+    def _load_checkpoint(self, ckpt_dir: str, tag) -> Dict[str, Any]:
+        """The params subtree of a training checkpoint of the port
+        (``runtime/checkpoint_engine``; tag as given, else ``latest``),
+        cast to the engine's dtype on its device, as the JAX engine's
+        ``_load_checkpoint`` restores its orbax state's params."""
+        if tag is None:
+            tag = latest_tag(ckpt_dir)
+        path = os.path.join(os.path.abspath(ckpt_dir), str(tag))
+        params = read_state(path)["params"]
+        check_params(self.module, params)
+        logger.info(f"inference weights loaded from {path}")
+        return tree_map(params, self._cast)
 
     def _cast(self, x: Any) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else leaf_to_torch(x, "cpu")

@@ -6,8 +6,10 @@ for ``lax.scan``) and the port's tree have the same paths, shapes and
 layouts, so the bridge is a leaf-by-leaf numpy <-> torch map.  bfloat16
 arrays (``ml_dtypes.bfloat16`` on the numpy side) cross bit-exactly
 through their 16-bit patterns.  A train state crosses as its counters
-(``step``, ``skipped``, the optimizer's ``step``) plus three trees of the
-params' shape (``params``, ``opt.m``, ``opt.v``).
+(``step``, ``skipped``, the optimizer's ``step``) plus the trees of the
+params' shape: ``params`` and the optimizer's (Adam's and LAMB's ``m``
+and ``v``, SGD's momentum ``mom``, Adagrad's sums ``sq``); a checkpoint
+of the port holds the same state tree (``runtime/checkpoint_engine``).
 """
 from __future__ import annotations
 
@@ -84,26 +86,42 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return tree_map(params, _leaf_to_numpy)
 
 
+#: the optimizer state trees of the params' shape: Adam's and LAMB's
+#: moments, SGD's momentum, Adagrad's sums of squares
+OPT_TREES = ("m", "v", "mom", "sq")
+
+
+def _opt_keys(opt: Dict[str, Any]) -> list:
+    extra = sorted(set(opt) - set(OPT_TREES) - {"step"})
+    if extra:
+        raise ValueError(f"optimizer state keys {extra} do not cross to the "
+                         f"JAX package (a client optimizer's own state)")
+    return [k for k in OPT_TREES if k in opt]
+
+
 def state_from_jax(tree: Dict[str, Any], model: TransformerLM,
                    device="cpu") -> Dict[str, Any]:
-    """A JAX train state ``{step, skipped, params, opt: {step, m, v}}``
+    """A JAX train state ``{step, skipped, params, opt: {step, ...}}``
     (numpy leaves, after ``jax.device_get``; with fp16 also ``scaler``)
     → the port engine's state on ``device``: counters as int32 scalars,
-    params and moments as given (float32 masters and moments), the loss
-    scaler's state as a :class:`LossScaleState`."""
-    for tree_name in ("params", "m", "v"):
-        check_params(model, tree[tree_name] if tree_name == "params"
-                     else tree["opt"][tree_name])
+    params and the optimizer's trees (``OPT_TREES``) as given (float32
+    masters and moments), the loss scaler's state as a
+    :class:`LossScaleState`."""
+    keys = _opt_keys(tree["opt"])
+    check_params(model, tree["params"])
+    for k in keys:
+        check_params(model, tree["opt"][k])
 
     def counter(a):
         return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
                             device=device)
+    opt = {"step": counter(tree["opt"]["step"])}
+    for k in keys:
+        opt[k] = params_from_jax(tree["opt"][k], model, device)
     state = {"step": counter(tree["step"]),
              "skipped": counter(tree["skipped"]),
              "params": params_from_jax(tree["params"], model, device),
-             "opt": {"step": counter(tree["opt"]["step"]),
-                     "m": params_from_jax(tree["opt"]["m"], model, device),
-                     "v": params_from_jax(tree["opt"]["v"], model, device)}}
+             "opt": opt}
     if "scaler" in tree:                # fp16: (scale, good_steps, hysteresis)
         scale, good, hys = (np.asarray(a) for a in tree["scaler"])
         state["scaler"] = LossScaleState(
@@ -117,12 +135,13 @@ def state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     (int32 counters as 0-d arrays)."""
     def counter(t):
         return np.asarray(int(t), dtype=np.int32)
+    opt = {"step": counter(state["opt"]["step"])}
+    for k in _opt_keys(state["opt"]):
+        opt[k] = params_to_jax(state["opt"][k])
     out = {"step": counter(state["step"]),
            "skipped": counter(state["skipped"]),
            "params": params_to_jax(state["params"]),
-           "opt": {"step": counter(state["opt"]["step"]),
-                   "m": params_to_jax(state["opt"]["m"]),
-                   "v": params_to_jax(state["opt"]["v"])}}
+           "opt": opt}
     if "scaler" in state:               # as the JAX LossScaleState's fields
         sc = state["scaler"]
         out["scaler"] = (np.asarray(float(sc.scale), dtype=np.float32),

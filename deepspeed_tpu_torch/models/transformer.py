@@ -28,7 +28,9 @@ With ``attn_impl="flash"`` the uncached forward runs kernel B1 (k/v at
 kv-head width) and its backward kernel B2, or B3 and B4 for a sequence
 past one 1024-row block or grouped-query attention (the JAX dispatch
 rule); ``remat="full"`` recomputes each block in the backward
-(``torch.utils.checkpoint``), so B1 runs twice per layer and step.  With
+(``torch.utils.checkpoint``), so B1 runs twice per layer and step, and
+``dots_saveable``, ``dots_no_batch`` and ``nothing_saveable`` keep the
+JAX model's selective policies (``REMAT_POLICIES``).  With
 ``attn_impl="blocksparse"`` and a ``sparsity_config`` the uncached
 forward walks the layout's blocks: k/v expanded over the group, then
 kernel B8 and, in the backward, B9 and B10 when T divides by the block;
@@ -50,12 +52,14 @@ dequantizes one layer at a time, as the JAX model's scan body does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from ..accelerator import resolve_device
@@ -186,8 +190,38 @@ _OUT_OF_SLICE = (
 )
 
 
-#: remat policies of the JAX model that this slice runs
-REMAT_POLICIES = ("none", "full")
+_aten = torch.ops.aten
+#: matrix products without a batch dimension (a dense layer's GEMM, the
+#: loss head's), and the batched ones (attention's einsums)
+_DOTS_NO_BATCH = frozenset(
+    (_aten.mm, _aten.addmm, _aten.mv, _aten.addmv, _aten.dot))
+_DOTS = _DOTS_NO_BATCH | frozenset((_aten.bmm, _aten.baddbmm))
+
+
+def _save_only(ops):
+    """A selective-checkpoint policy: save the outputs of ``ops``,
+    recompute everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        del ctx, args, kwargs
+        return (CheckpointPolicy.MUST_SAVE
+                if getattr(op, "overloadpacket", None) in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+#: the JAX model's ``jax.checkpoint`` policies (``None``: no block is
+#: checkpointed; "full": only its input is kept), as the selective
+#: policies of ``torch.utils.checkpoint``.  The CUDA kernels launch
+#: through ctypes, where the dispatcher never sees them: they and the
+#: buffers they fill are recomputed under every policy, never saved, as a
+#: Pallas call is no "dot" to ``jax.checkpoint``
+REMAT_POLICIES = {
+    "none": None,
+    "full": None,
+    "dots_saveable": _save_only(_DOTS),
+    "dots_no_batch": _save_only(_DOTS_NO_BATCH),
+    "nothing_saveable": _save_only(frozenset()),
+}
 
 
 def check_in_slice(c: TransformerConfig) -> None:
@@ -198,16 +232,13 @@ def check_in_slice(c: TransformerConfig) -> None:
                 f"slices of the PyTorch port so far (the GPT-2 and LLaMA "
                 f"families); the model-families slice of ROADMAP.md queue "
                 f"A brings it")
-    if c.attn_impl == "blocksparse" and c.dtype == torch.float16:
+    if c.remat == "host_offload":
         raise NotImplementedError(
-            "attn_impl='blocksparse' in float16: the block-sparse kernels "
-            "B8-B10 take float32 or bfloat16; " + build.C2)
+            "remat='host_offload' (activations spilled to host memory) "
+            "comes with offload, ROADMAP.md queue A item 8")
     if c.remat not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat={c.remat!r}: the training slice of the PyTorch port "
-            f"runs remat 'none' and 'full'; the other policies come with "
-            f"the training follow-ups of ROADMAP.md queue A item 1 "
-            f"('host_offload' with offload, item 8)")
+        raise ValueError(f"unknown remat policy {c.remat!r} (one of "
+                         f"{sorted(REMAT_POLICIES)} or 'host_offload')")
 
 
 def layer_views(blocks: Params) -> List[Params]:
@@ -480,14 +511,21 @@ class TransformerLM(nn.Module):
     def _remat(self, fn):
         """Wrap a block function with the configured remat policy:
         "full" keeps only the block's input and recomputes the rest in
-        the backward."""
-        if self.config.remat == "none":
+        the backward; "dots_saveable" also keeps every matrix product's
+        output, "dots_no_batch" those with no batch dimension (the dense
+        layers', not attention's), "nothing_saveable" none of them
+        (``torch.utils.checkpoint``'s selective contexts)."""
+        remat = self.config.remat
+        if remat == "none":
             return fn
+        policy = REMAT_POLICIES[remat]
+        kw = {} if policy is None else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, policy)}
 
         def wrapped(*args):
             # the blocks draw no random numbers: no RNG state to replay
             return checkpoint(fn, *args, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False, **kw)
         return wrapped
 
     def _attend_full(self, q, k, v):

@@ -5,14 +5,17 @@ Counterpart of ``deepspeed_tpu/ops/op_builder.py``.  Each source
 compiled at first use by ``nvcc`` for ``sm_90a`` into its own shared
 library under ``deepspeed_tpu_torch/_build/`` (named by a hash of the
 sources and flags, so an edited kernel is rebuilt), then loaded with
-``ctypes``.  ``build()`` starts one ``nvcc`` per source, all at once.
-A failed build raises; nothing falls back.
+``ctypes``.  ``build()`` compiles every source to objects, all at once
+(one ``nvcc -c`` per source, or per part of a source listed in
+``PARTS``: ``-DDSTT_PART=p``, each part a share of its instantiations),
+and links each source's objects into its library.  A failed build
+raises; nothing falls back.
 
 ``launch_counts`` holds one plain integer per kernel: each wrapper adds
 one where it launches its kernel, so a run can show which kernels its
 path went through.  The quantized variants of B6 and B7 (int8 and packed
-int4 pools) and the float16 variants of B1-B4 are counted under keys of
-their own (``COUNTERS``).
+int4 pools) and the float16 variants of every kernel are counted under
+keys of their own (``COUNTERS``).
 """
 from __future__ import annotations
 
@@ -43,18 +46,25 @@ KERNELS = ("decode_attention", "paged_decode_attention",
 QUANT_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 QUANT_BITS = (8, 4)
 
-#: the flash kernels B1-B4, the ones with float16 variants
+#: the flash kernels B1-B4
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
-#: every launch counter: one per kernel, one per quantized variant, one
-#: per float16 variant
-COUNTERS = (KERNELS + tuple(f"{name}_int{bits}" for name in QUANT_KERNELS
-                            for bits in QUANT_BITS)
-            + tuple(f"{name}_f16" for name in FLASH_KERNELS))
+_BF16_COUNTERS = KERNELS + tuple(f"{name}_int{bits}" for name in QUANT_KERNELS
+                                 for bits in QUANT_BITS)
+#: every launch counter: one per kernel and per quantized variant, each
+#: also at float16
+COUNTERS = _BF16_COUNTERS + tuple(f"{name}_f16" for name in _BF16_COUNTERS)
 
+#: the compile flags (a whole library built in one call adds ``-shared``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: sources compiled as several objects in parallel, and how many: B6's
+#: 16-bit kernels at every head dim, kv_bits and dtype are its slowest
+#: compile by far (one part per kv_bits; the source says which part holds
+#: what)
+PARTS = {"paged_decode_attention": 3}
 
 #: launches per kernel since the last reset (see reset_launch_counts)
 launch_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
@@ -69,11 +79,10 @@ def reset_launch_counts() -> None:
 
 def counter(kernel: str, kv_bits: int = 0,
             dtype: Optional[torch.dtype] = None) -> str:
-    """The launch counter of ``kernel`` over a pool of ``kv_bits``, or on
-    operands of ``dtype`` (float16 launches count apart)."""
-    if kv_bits:
-        return f"{kernel}_int{kv_bits}"
-    return f"{kernel}_f16" if dtype == torch.float16 else kernel
+    """The launch counter of ``kernel`` over a pool of ``kv_bits`` on
+    operands of ``dtype`` (quantized and float16 launches count apart)."""
+    name = f"{kernel}_int{kv_bits}" if kv_bits else kernel
+    return f"{name}_f16" if dtype == torch.float16 else name
 
 
 def nvcc_path() -> str:
@@ -91,18 +100,27 @@ def library_path(name: str) -> Path:
     if name not in KERNELS:
         raise KeyError(f"unknown kernel library {name!r}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(f"parts {PARTS.get(name, 1)}".encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _temp(suffix: str, name: str) -> str:
+    tmp = tempfile.NamedTemporaryFile(dir=BUILD_DIR, prefix=f".{name}-",
+                                      suffix=suffix, delete=False)
+    tmp.close()
+    return tmp.name
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
-    """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together.  The compiler's
-    report (``-Xptxas -v``: registers, shared memory, spills) is kept
-    beside each library as ``<library>.log``, ending with the compiler's
-    wall time."""
+    """Compile every library of ``names`` that is not built yet: one
+    ``nvcc -c`` per source (per part of a source in ``PARTS``), all
+    started together, each source's objects linked into its library as
+    they are done.  The compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside each library as
+    ``<library>.log``, each part's ending with the compiler's wall time."""
     names = list(names)
     targets = {n: library_path(n) for n in names}
     todo = [n for n in names if not targets[n].exists()]
@@ -113,37 +131,63 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     procs = {}
     started = time.perf_counter()
     for n in todo:
-        tmp = tempfile.NamedTemporaryFile(
-            dir=BUILD_DIR, prefix=f".{n}-", suffix=".so", delete=False)
-        tmp.close()
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp.name,
-               str(CSRC / f"{n}.cu")]
-        # the report goes straight to a file: through a pipe read in
-        # turn, a compiler whose report outgrew the pipe would wait for
-        # the ones before it
-        log = open(f"{targets[n]}.log", "w")
-        procs[n] = (tmp.name, log, subprocess.Popen(
-            cmd, stdout=log, stderr=subprocess.STDOUT))
-    failed = []
+        parts = PARTS.get(n, 1)
+        for part in range(parts):
+            out = _temp(f".part{part}.o", n)
+            flags = [f"-DDSTT_PART={part}"] if parts > 1 else []
+            # the report goes straight to a file: through a pipe read in
+            # turn, a compiler whose report outgrew the pipe would wait
+            # for the ones before it
+            log = open(f"{targets[n]}.part{part}.log", "w")
+            procs[n, part] = (out, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", *flags, "-I", str(CSRC), "-o", out,
+                 str(CSRC / f"{n}.cu")], stdout=log, stderr=subprocess.STDOUT))
+    failed, done = [], {}
     while procs:
-        for n, (tmp, log, proc) in list(procs.items()):
+        for (n, part), (out, log, proc) in list(procs.items()):
             if proc.poll() is None:
                 continue
             log.write(f"\nnvcc wall time: "
                       f"{time.perf_counter() - started:.1f} s\n")
             log.close()
-            del procs[n]
+            del procs[n, part]
             if proc.returncode != 0:
-                os.unlink(tmp)
-                out = Path(f"{targets[n]}.log").read_text()
-                failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
-            else:
-                os.replace(tmp, targets[n])
+                os.unlink(out)
+                failed.append(f"{n}.cu part {part} (exit "
+                              f"{proc.returncode}):\n"
+                              f"{Path(log.name).read_text()}")
+                continue
+            done.setdefault(n, {})[part] = (out, log.name)
+            if len(done[n]) == PARTS.get(n, 1):
+                failed += _link(nvcc, n, done.pop(n), targets[n])
         if procs:
             time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return targets
+
+
+def _link(nvcc: str, name: str, parts: Dict[int, tuple],
+          target: Path) -> list:
+    """Link a source's objects into its library, their reports joined
+    into its log; the failures, if any."""
+    objs = [parts[p][0] for p in sorted(parts)]
+    out = _temp(".so", name)
+    link = subprocess.run([nvcc, "-gencode", NVCC_FLAGS[1], "-shared", "-o",
+                           out, *objs], capture_output=True, text=True)
+    with open(f"{target}.log", "w") as log:
+        for p in sorted(parts):
+            log.write(Path(parts[p][1]).read_text())
+            os.unlink(parts[p][1])
+        log.write(link.stdout + link.stderr)
+    for obj in objs:
+        os.unlink(obj)
+    if link.returncode != 0:
+        os.unlink(out)
+        return [f"{name}: linking its objects (exit {link.returncode}):\n"
+                f"{link.stdout}{link.stderr}"]
+    os.replace(out, target)
+    return []
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -175,7 +219,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: head dims of the flash (B1-B4) and block-sparse (B8-B10) kernels: the
 #: multiples of 16 up to 256 (``csrc`` DSTT_FLASH_HEAD_DIMS)
 FLASH_HEAD_DIMS = tuple(range(16, 257, 16))
-#: head dims of the decode kernels B5, B6, B7 at bf16: the multiples of 8
+#: head dims of the decode kernels B5, B6, B7 at bf16 and f16: the multiples of 8
 #: up to 256, the reference's ``head_dim % 8`` gate (DSTT_DECODE_HEAD_DIMS)
 DECODE_HEAD_DIMS = tuple(range(8, 257, 8))
 #: dynamic shared memory one block can use on sm_90 (``csrc`` kMaxSmem)
@@ -201,8 +245,6 @@ C1_REST = ("ROADMAP queue C item C1's remainder: flash head dims that are "
            "not a multiple of 16, and any head dim above 256")
 C1_F32 = ("ROADMAP queue C item C1's remainder: the float32 kernels keep "
           "their first designs")
-C2 = ("float16 decode, serving and block-sparse kernels (B5-B10) are "
-      "ROADMAP queue C item C2")
 
 
 def _f32_smem(name: str, d: int) -> int:
@@ -231,8 +273,6 @@ def kernel_supports(name: str, d: int, g: int = 1,
     if g < 1:
         return f"{name}: kv group {g} < 1"
     if name in FLASH_KERNELS or name in SPARSE_KERNELS:
-        if name in SPARSE_KERNELS and dtype == torch.float16:
-            return f"{name}: float16 ({C2})"
         if d not in FLASH_HEAD_DIMS:
             return f"{name}: head_dim {d} ({C1_REST})"
         if dtype == torch.float32 and _f32_smem(name, d) > MAX_SMEM:
@@ -243,13 +283,11 @@ def kernel_supports(name: str, d: int, g: int = 1,
                 block < 16 or block % 16):
             return f"{name}: layout block {block} is not a multiple of 16"
         return None
-    if dtype == torch.float16:
-        return f"{name}: float16 ({C2})"
     if kv_bits not in (0, 8, 4):
         return f"{name}: kv_bits {kv_bits} not in (0, 8, 4)"
     if name == "decode_attention" and kv_bits:
         return f"{name}: a dense cache holds no quantized rows"
-    if dtype == torch.bfloat16 or name == "paged_prefill_attention":
+    if dtype != torch.float32 or name == "paged_prefill_attention":
         if d not in DECODE_HEAD_DIMS:
             return (f"{name}: head_dim {d} is not a multiple of 8 up to 256"
                     + (f" ({C1_REST})" if d % 8 == 0 else ""))

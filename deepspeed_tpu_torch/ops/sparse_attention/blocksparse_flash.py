@@ -34,7 +34,7 @@ any of its sub-blocks is set and carries a 16-bit mask of them (bit
 multiple of 16 (48, 80, 96, ...) is masked the same way in sub-blocks of
 16 rows, each of which lies in one layout block.  The kernels run every
 block that is a multiple of 16, head dims ``KERNEL_HEAD_DIMS`` and
-float32 or bfloat16 (``build.kernel_supports``); anything else raises in
+float32, bfloat16 or float16 (``build.kernel_supports``); anything else raises in
 the wrapper.  On CPU tensors
 the wrappers run the plain versions, which take any block that divides T
 and walk the same lists one tile at a time, so their memory grows with

@@ -16,7 +16,7 @@ the same result).  Rows at or past ``length`` are never read, so any
 content there (NaN included) cannot reach the result, and ``length ==
 0`` gives zero rows.
 
-The bf16 kernel runs one block per (batch row, kv head, split) and
+The bf16 and f16 kernel runs one block per (batch row, kv head, split) and
 merges a row's splits inside one thread-block cluster
 (:func:`cluster_plan`), at every head dim that is a multiple of 8 up to
 256 and any group (a group of more than 4096 output features is split
@@ -185,5 +185,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, s, h, hkv, d, parts, length, nsplit, split_len, scale, code,
             build.current_stream(q.device))
     build.check_launch(lib, _SYM, rc)
-    build.launch_counts[_NAME] += 1
+    build.launch_counts[build.counter(_NAME, dtype=q.dtype)] += 1
     return out

@@ -6,7 +6,8 @@ Counterpart of ``deepspeed_tpu/ops/transformer/paged_decode_attention.py``
 `paged_prefill_attention`) at ``kv_bits`` 0, 8 and 4.  Kernels:
 ``csrc/paged_decode_attention.cu`` and ``csrc/paged_prefill_attention.cu``
 (kv_bits a template parameter of each; a quantized launch is counted
-under ``<kernel>_int8`` or ``<kernel>_int4``).  At bf16 queries B6 splits
+under ``<kernel>_int8`` or ``<kernel>_int4``, a float16 one with ``_f16``
+appended).  At bf16 and f16 queries B6 splits
 each slot's table into up to 8 ranks of one thread-block cluster
 (``decode_attention.paged_split_plan``), and a kv group of more than 2048
 output features into blocks of a few heads (``build.group_parts``); B7
@@ -45,7 +46,7 @@ from .. import build
 from ..quantizer.quantizer import kv_dequantize
 from .decode_attention import paged_split_plan
 
-#: output features (g * D) of one bf16 B6 block; a larger kv group is
+#: output features (g * D) of one bf16 or f16 B6 block; a larger kv group is
 #: split across blocks (``build.group_parts``)
 _MAX_GROUP_DIM = 2048
 
@@ -237,7 +238,7 @@ def paged_decode_attention(q, pool_k, pool_v, lengths, block_tables,
             *((kv_bits,) if kv_bits else ()),
             build.current_stream(q.device))
     build.check_launch(lib, _DEC_SYM, rc)
-    build.launch_counts[build.counter(_DEC, kv_bits)] += 1
+    build.launch_counts[build.counter(_DEC, kv_bits, q.dtype)] += 1
     return out
 
 
@@ -333,5 +334,5 @@ def paged_prefill_attention(q, pool_k, pool_v, base: int, chunk_len: int,
             *((kv_bits,) if kv_bits else ()),
             build.current_stream(q.device))
     build.check_launch(lib, _PRE_SYM, rc)
-    build.launch_counts[build.counter(_PRE, kv_bits)] += 1
+    build.launch_counts[build.counter(_PRE, kv_bits, q.dtype)] += 1
     return out

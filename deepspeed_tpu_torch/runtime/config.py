@@ -139,6 +139,27 @@ class SchedulerConfig:
     params: Dict[str, Any] = field(default_factory=dict)
 
 
+# -- checkpointing ----------------------------------------------------------------------
+@dataclass
+class CheckpointConfig:
+    """``checkpoint`` block (the JAX package's ``CheckpointConfig``):
+    ``tag_validation`` (Ignore | Warn | Fail) when a load finds no
+    ``latest``, and ``async_save`` (a writer thread commits the state;
+    ``meta.json`` and ``latest`` wait for it).  The other keys parse for
+    schema parity."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write_pipeline: bool = False
+    async_save: bool = False
+
+    def __post_init__(self):
+        if self.tag_validation.lower() not in ("ignore", "warn", "fail"):
+            raise ValueError(
+                f"checkpoint.tag_validation must be Ignore, Warn or Fail, "
+                f"got {self.tag_validation!r}")
+
+
 # -- topology ---------------------------------------------------------------------------
 @dataclass
 class MeshConfig:
@@ -281,7 +302,8 @@ class ResilienceConfig:
 
 
 # -- training hot path --------------------------------------------------------------
-#: remat policies the JAX model accepts; the port runs "none" and "full"
+#: remat policies the JAX model accepts; the port runs all but
+#: "host_offload" (offload, ROADMAP.md queue A item 8)
 TRAINING_REMAT_POLICIES = ("none", "full", "dots_saveable",
                            "dots_no_batch", "nothing_saveable",
                            "host_offload")
@@ -405,7 +427,7 @@ class DeepSpeedConfig:
         self.observability_dict = g(C.OBSERVABILITY)
         self.activation_checkpointing_dict = g(C.ACTIVATION_CHECKPOINTING)
         self.flops_profiler_dict = g(C.FLOPS_PROFILER)
-        self.checkpoint_dict = g(C.CHECKPOINT)
+        self.checkpoint_config = _block(CheckpointConfig, pd, C.CHECKPOINT)
         self.comms_logger_dict = g(C.COMMS_LOGGER)
         self.aio_dict = g(C.AIO)
         self.elasticity_dict = g(C.ELASTICITY)
@@ -529,7 +551,7 @@ class DeepSpeedConfig:
             later.append("tensor_parallel: multi-device (queue A item 7)")
         if self.monitor.enabled:
             later.append("tensorboard / wandb / csv_monitor: monitors "
-                         "(queue A item 9)")
+                         "(queue A item 9's auxiliary subsystems)")
         if self.observability_dict:
             later.append("observability: tracing and metrics (queue A "
                          "item 4)")

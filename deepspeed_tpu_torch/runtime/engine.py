@@ -6,8 +6,10 @@ semantics, the same native (``train_step``/``train_batch``) and compat
 (``forward``/``backward``/``step``) surfaces.  Where the JAX engine
 compiles the step into one program, this one runs it eagerly:
 
-* state: ``{"step", "skipped", "params", "opt": {"step", "m", "v"}}``
-  with float32 master params and moments and int32 counters, all on the
+* state: ``{"step", "skipped", "params", "opt"}`` with float32 master
+  params, the optimizer's float32 state (Adam's and LAMB's ``{"step",
+  "m", "v"}``, SGD's momentum, Adagrad's sums, or a client
+  ``torch.optim`` optimizer's own) and int32 counters, all on the
   engine's device;
 * each micro batch runs the model's loss on the params cast to the
   compute dtype (bf16 with ``bf16.enabled``, f16 with ``fp16.enabled``,
@@ -41,7 +43,8 @@ from ..utils.logging import logger
 from . import lr_schedules
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import DynamicLossScaler, static_loss_scaler
-from .optimizers import Optimizer, get_optimizer, tree_leaves, tree_map
+from .optimizers import (Optimizer, get_optimizer, tree_leaves, tree_map,
+                         wrap_torch)
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                    "float32": torch.float32}
@@ -86,17 +89,7 @@ class DeepSpeedEngine:
         self._loss_fn = loss_fn or getattr(model, "loss", None)
         if self._loss_fn is None:
             raise ValueError("Need model.loss or an explicit loss_fn")
-        if isinstance(optimizer, Optimizer):
-            self.optimizer = optimizer
-        elif optimizer is not None:
-            raise NotImplementedError(
-                "the PyTorch port takes an Optimizer from "
-                "runtime/optimizers.get_optimizer or the config's "
-                "optimizer block")
-        else:
-            oc = self._config.optimizer
-            self.optimizer = (get_optimizer("adamw") if oc is None else
-                              get_optimizer(oc.type, **dict(oc.params)))
+        self.optimizer = self._configure_optimizer(optimizer)
         self.lr_schedule = self._configure_lr_schedule(lr_scheduler)
         fp16c = self._config.fp16
         self.loss_scaler: Optional[DynamicLossScaler] = None
@@ -120,10 +113,35 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # configuration
     # ------------------------------------------------------------------
+    def _configure_optimizer(self, optimizer) -> Optimizer:
+        """An :class:`Optimizer`, a client ``torch.optim`` class or
+        factory (wrapped by ``wrap_torch``, as the JAX engine wraps an
+        optax transformation), or the config's ``optimizer`` block."""
+        if isinstance(optimizer, Optimizer):
+            return optimizer
+        if optimizer is not None:
+            if not callable(optimizer):
+                raise TypeError(
+                    f"optimizer must be an Optimizer or a torch.optim "
+                    f"class or factory of a list of tensors, got "
+                    f"{type(optimizer).__name__}")
+            return wrap_torch(optimizer)
+        oc = self._config.optimizer
+        if oc is None:
+            return get_optimizer("adamw")
+        return get_optimizer(oc.type, **dict(oc.params))
+
     def _configure_lr_schedule(self, lr_scheduler):
+        sc = self._config.scheduler
+        if self.optimizer.hyperparams.get("external_lr"):
+            if sc is not None or callable(lr_scheduler):
+                raise ValueError(
+                    "a client torch.optim optimizer carries its own "
+                    "learning rate; remove the engine scheduler (set the "
+                    "rate in the optimizer's factory instead)")
+            return lr_schedules.constant_lr(0.0)  # reported lr is N/A
         if callable(lr_scheduler):
             return lr_scheduler
-        sc = self._config.scheduler
         if sc is None:
             return lr_schedules.constant_lr(
                 self.optimizer.hyperparams.get("lr", 1e-3))
@@ -253,8 +271,17 @@ class DeepSpeedEngine:
             grads, state["opt"], state["params"], lr)
 
         def select(new, old):
-            return tree_map(lambda n, o: torch.where(overflow, o, n),
-                            new, old)
+            """``old`` where the step overflowed, else ``new``, leaf by
+            leaf on the device.  Where the two trees differ in structure
+            (a client optimizer's state, built lazily on its first step)
+            the choice is made on the host, once."""
+            if isinstance(new, dict) and isinstance(old, dict) \
+                    and new.keys() == old.keys():
+                return {k: select(new[k], old[k]) for k in new}
+            if isinstance(new, torch.Tensor) and \
+                    isinstance(old, torch.Tensor):
+                return torch.where(overflow.to(new.device), old, new)
+            return old if bool(overflow) else new
         new_state = {
             "step": state["step"] + (~overflow).to(torch.int32),
             "skipped": state["skipped"] + overflow.to(torch.int32),
@@ -411,3 +438,21 @@ class DeepSpeedEngine:
 
     def num_parameters(self) -> int:
         return sum(int(p.numel()) for p in tree_leaves(self.state["params"]))
+
+    # ------------------------------------------------------------------
+    # checkpointing (runtime/checkpoint_engine)
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None) -> str:
+        """Save the train state under ``save_dir/tag`` (default
+        ``global_step<N>``) and point ``latest`` at it once committed."""
+        from .checkpoint_engine.engine import save_checkpoint as _save
+        return _save(self, save_dir, tag=tag,
+                     client_state=client_state or {})
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        **kw):
+        """Restore the train state (``latest`` unless ``tag``); returns
+        ``(path, client_state)``."""
+        from .checkpoint_engine.engine import load_checkpoint as _load
+        return _load(self, load_dir, tag=tag, **kw)

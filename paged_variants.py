@@ -87,8 +87,8 @@ def build_variants(build) -> dict:
         cu.write_text(text)
         lib = out / f"lib{lib_name}_v{i}.so"
         procs[lib_name, name] = (lib, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I",
+             str(build.CSRC), "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():

@@ -434,3 +434,89 @@ def test_paged_every_head_dim_and_group_matches_jax(d, g, kv_bits):
                                      t(table), **quant).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **tol)
+
+
+# -- float16 ------------------------------------------------------------------
+#: float16 against float16: both sides compute in f32 and round the output
+#: to f16 once (a quantized pool dequantizes in f32 on both), so they
+#: differ by about one f16 ulp; two ulps of a value near 1 as the limit
+F16_TOL = dict(atol=2e-3, rtol=2e-3)
+
+
+def _f16(a):
+    return np.asarray(a, np.float16)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [64, 80])
+def test_f16_decode_matches_jax(d, g):
+    """B5's plain version in float16 against the JAX kernel in interpret
+    mode on the same float16 inputs (the cache expanded over the group on
+    its side); NaN past the length; the output is float16."""
+    rng = np.random.default_rng(100 + d + g)
+    b, hkv, s, length = 2, 2, 24, 17
+    h = g * hkv
+    q = _f16(rng.standard_normal((b, h, d)))
+    k = _f16(rng.standard_normal((b, s, hkv, d)))
+    v = _f16(rng.standard_normal((b, s, hkv, d)))
+    k[:, length:] = np.nan
+    v[:, length:] = np.nan
+    ke, ve = (np.repeat(x, g, axis=2) for x in (k, v))
+    want = _np(jax_decode(jnp.asarray(q), jnp.asarray(ke), jnp.asarray(ve),
+                          length, interpret=True))
+    got = DA.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), length)
+    assert got.dtype == torch.float16 and want.dtype == np.float16
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               **F16_TOL)
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 80)])
+def test_f16_paged_matches_jax(kv_bits, g, d):
+    """B6's and B7's plain versions with float16 queries (and float16
+    pools at kv_bits 0; int8 / packed int4 with f32 scales otherwise)
+    against the JAX kernels in interpret mode on the same inputs: ragged
+    lengths with an inactive slot, a chunk at a base that is not a
+    multiple of the block, NaN in every unread row; float16 out."""
+    rng = np.random.default_rng(200 + d + g + kv_bits)
+    hkv, bs, nb, npages = 2, 8, 16, 4
+    h = g * hkv
+    lens = [11, 0, 25]
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables(lens, bs, npages, nb, rng, pk, pv)
+    quant, jquant = {}, {}
+    if kv_bits:
+        kq, vq, ks, vs = quantized(pk, pv, kv_bits)
+        pk, pv = kq, vq
+        quant = dict(k_scale=torch.from_numpy(ks),
+                     v_scale=torch.from_numpy(vs), kv_bits=kv_bits)
+        jquant = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                      kv_bits=kv_bits)
+    else:
+        pk, pv = _f16(pk), _f16(pv)
+    q = _f16(rng.standard_normal((len(lens), h, d)))
+    ln = np.asarray(lens, np.int32)
+    want = _np(jax_paged_decode(jnp.asarray(q), jnp.asarray(pk),
+                                jnp.asarray(pv), jnp.asarray(ln),
+                                jnp.asarray(bt), interpret=True, **jquant))
+    t = torch.from_numpy
+    got = PA.paged_decode_attention(t(q), t(pk), t(pv), t(ln), t(bt),
+                                    **quant)
+    assert got.dtype == torch.float16
+    got = got.float().numpy()
+    assert np.isfinite(got).all() and (got[1] == 0).all()
+    np.testing.assert_allclose(got, want.astype(np.float32), **F16_TOL)
+    qc = _f16(rng.standard_normal((8, h, d)))
+    base, clen = 13, 7
+    table = bt[2]
+    want = _np(jax_paged_prefill(jnp.asarray(qc), jnp.asarray(pk),
+                                 jnp.asarray(pv), base, clen,
+                                 jnp.asarray(table), interpret=True,
+                                 **jquant))
+    got = PA.paged_prefill_attention(t(qc), t(pk), t(pv), base, clen,
+                                     t(table), **quant)
+    assert got.dtype == torch.float16
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want.astype(np.float32), **F16_TOL)

@@ -928,6 +928,35 @@ def test_cuda_logits_are_f32_products_of_bf16_operands(site):
         torch.testing.assert_close(torch.matmul(x, wb).float(), want, **tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["embedding_attend", "untied_head",
+                                  "fused_loss_logits"])
+def test_cuda_logits_are_f32_products_of_f16_operands(site):
+    """As ``test_cuda_logits_are_f32_products_of_bf16_operands`` with
+    float16 activations (fp16 serving and training): f32 results of f16
+    operands, equal to the f32 product of the same f16 values to f32
+    rounding, where rounding the product to f16 misses that limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the products are cuBLAS's")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    x = torch.randn((96, 256), generator=g, device=dev).to(torch.float16)
+    w = torch.randn((256, 500), generator=g, device=dev)   # f32 master
+    wh = w.to(torch.float16)
+    want = torch.matmul(x.float(), wh.float())
+    got = {"embedding_attend": lambda: L.embedding_attend(
+               {"embedding": w.t().contiguous()}, x),
+           "untied_head": lambda: L.f32_product(x, w),
+           "fused_loss_logits": lambda: fused_loss._logits(x, w, None,
+                                                           False)}[site]()
+    assert got.dtype == torch.float32
+    tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(got, want, **tol)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(torch.matmul(x, wh).float(), want, **tol)
+
+
 def quantized_pools(pk, pv, bits, dev):
     """``kv_quantize`` of numpy pools on the CPU, moved to ``dev``: NaN
     rows quantize to zero values and NaN scales, what a recycled block
@@ -1089,12 +1118,12 @@ def test_cuda_unquantized_paged_kernels_keep_their_bits():
     assert unquantized_digests() == UNQUANTIZED_DIGESTS
 
 
-def paged_pools(pk, pv, kv_bits, dev):
-    """bf16 pools at kv_bits 0, else ``quantized_pools``: (pool_k, pool_v,
-    the scale keywords)."""
+def paged_pools(pk, pv, kv_bits, dev, dtype=torch.bfloat16):
+    """``dtype`` pools at kv_bits 0, else ``quantized_pools``: (pool_k,
+    pool_v, the scale keywords)."""
     if kv_bits == 0:
-        return (torch.from_numpy(pk).to(dev, torch.bfloat16),
-                torch.from_numpy(pv).to(dev, torch.bfloat16), {})
+        return (torch.from_numpy(pk).to(dev, dtype),
+                torch.from_numpy(pv).to(dev, dtype), {})
     kq, vq, ks, vs = quantized_pools(pk, pv, kv_bits, dev)
     return kq, vq, dict(k_scale=ks, v_scale=vs, kv_bits=kv_bits)
 
@@ -1418,12 +1447,330 @@ def test_cuda_paged_every_head_dim_and_group(kv_bits, g, d, hkv):
 def test_cuda_shapes_outside_the_gate_raise():
     """No fallback: on CUDA tensors a shape outside a kernel's gate raises
     with its reason before any launch (a flash head dim that is not a
-    multiple of 16: C1's remainder; float16 decode: C2)."""
+    multiple of 16, a decode head dim past 256: C1's remainder, in bf16
+    and in float16 alike)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     q, k, v, _ = gqa_case(64, 1, 24, torch.bfloat16, seed=1)
     with pytest.raises(ValueError, match="C1"):
         FA.flash_attention_fwd(q, k, v)
-    q, k, v = decode_case(2, 4, 4, 16, 64, torch.float16, seed=1)
-    with pytest.raises(ValueError, match="C2"):
-        DA.decode_attention(q, k, v, 8)
+    for dt in (torch.bfloat16, torch.float16):
+        q, k, v = decode_case(2, 4, 4, 16, 264, dt, seed=1)
+        with pytest.raises(ValueError, match="C1"):
+            DA.decode_attention(q, k, v, 8)
+
+
+# -- float16 B5-B10 ----------------------------------------------------------------
+def planted(b):
+    """``b`` with one 8 x 8 block of its first row transposed: the fault
+    every f16 case's limit must catch."""
+    flipped = b.clone(memory_format=torch.contiguous_format)
+    flat = flipped.view(-1, b.shape[-1])
+    blk = flat[:8, :8].clone()
+    if blk.shape == (8, 8) and not torch.equal(blk, blk.t()):
+        flat[:8, :8] = blk.t()
+    else:  # a head dim of 8 or a degenerate block: flip a sign
+        flat[0, 0] = -flat[0, 0] - 1
+    return flipped
+
+
+#: the float16 block-sparse backward's limit: two f16 ulps.  ds = p (dP -
+#: delta) sm_scale cancels where dP nears delta, and both sides round ds to
+#: f16 before the dq and dk products: where their f32 ds (sums in another
+#: order) straddle an f16 rounding point, one ds element moves by an f16
+#: ulp of ds and carries that step into every element of its dq (or dk)
+#: row.  On an H100 one row of dq came out past one ulp in 2 of the 60
+#: cases (2 and 8 elements); ``chip_smoke.py`` holds every f16 kernel to
+#: this limit (its F16_TOL)
+F16_BWD_TOL = dict(atol=1e-3, rtol=2e-3)
+
+
+def f16_close(got, want, tol=F16_TOL):
+    """Within ``tol`` of the plain version (one f16 ulp by default), and
+    the limit catches the planted fault."""
+    bad = off_limit(got, want, **tol)
+    assert not bad, f"{len(bad)} elements off, first {bad[:8]}"
+    assert off_limit(planted(want), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3, 4, 8, 16, 32])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 80, 96, 128, 136, 256])
+@pytest.mark.parametrize("b,length", [(3, 300), (2, 1), (2, 0)])
+def test_cuda_f16_decode_matches_plain(g, d, b, length):
+    """The float16 B5 (the bf16 cluster kernel with f16 rows: ET =
+    __half) at every head dim and kv group the bf16 cases cover, NaN past
+    the length (never read): within one f16 ulp of its plain version, a
+    planted fault caught, bit-equal on a second launch, zeros at length
+    0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    h = g * (2 if g < 16 else 1)
+    q, k, v = decode_case(b, h, h // g, 400, d, torch.float16,
+                          seed=g + d + b + length)
+    k[:, length:] = float("nan")
+    v[:, length:] = float("nan")
+    from deepspeed_tpu_torch.ops import build
+    build.reset_launch_counts()
+    got = DA.decode_attention(q, k, v, length)
+    assert build.launch_counts["decode_attention_f16"] == 1
+    assert build.launch_counts["decode_attention"] == 0
+    want = DA.decode_attention_plain(q, k, v, length)
+    assert got.dtype == torch.float16 and bool(got.isfinite().all())
+    f16_close(got, want)
+    assert torch.equal(got, DA.decode_attention(q, k, v, length))
+    if length == 0:
+        assert not got.any()
+
+
+#: the float16 B6/B7 cases: the bf16 cases' (g, D, Hkv), those of
+#: ``test_cuda_bf16_paged_kernels_match_plain`` and of
+#: ``test_cuda_paged_every_head_dim_and_group``
+F16_PAGED_CASES = [(1, 128, 4), (8, 64, 2), (4, 32, 2), (2, 256, 2),
+                   (1, 80, 4), (3, 96, 2), (16, 64, 2), (32, 80, 1),
+                   (4, 40, 2), (8, 72, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("g,d,hkv", F16_PAGED_CASES)
+def test_cuda_f16_paged_kernels_match_plain(kv_bits, g, d, hkv):
+    """The float16 B6 (cluster ranks) and B7 (``mma_f16`` at D % 16 up to
+    128, p as f16 hi + lo and a quantized v as hi + residual; the
+    CUDA-core kernel at the other head dims) at kv_bits 0, 8 and 4: B6 on
+    ``BF16_PAGED_LENS``, B7 on chunks at a ragged base, the first chunk
+    and a zero-length one, NaN past every length: within one f16 ulp of
+    their plain versions, a planted fault caught, bit-equal on a second
+    launch, counted under ``<kernel>[_int<bits>]_f16``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops import build
+    dev, dt = torch.device("cuda"), torch.float16
+    rng = np.random.default_rng(2000 * g + d + kv_bits)
+    h, bs, npages, nb = g * hkv, 16, 64, 200
+    lens = BF16_PAGED_LENS
+    pk, pv = make_pool(nb, bs, hkv, d, rng)
+    bt = make_tables(lens, bs, npages, nb, rng, pk, pv)
+    kp, vp, quant = paged_pools(pk, pv, kv_bits, dev, dt)
+    q = torch.from_numpy(rng.standard_normal((len(lens), h, d)).astype(
+        np.float32)).to(dev, dt)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = torch.from_numpy(bt).to(dev)
+    build.reset_launch_counts()
+    got = PA.paged_decode_attention(q, kp, vp, ln, tables, **quant)
+    name = build.counter("paged_decode_attention", kv_bits, dt)
+    assert name.endswith("_f16") and build.launch_counts[name] == 1
+    want = PA.paged_decode_attention_plain(q, kp, vp, ln, tables, **quant)
+    assert bool(got.isfinite().all()) and not bool(got[0].any())
+    f16_close(got, want)
+    assert torch.equal(got, PA.paged_decode_attention(q, kp, vp, ln, tables,
+                                                      **quant))
+    qc = torch.from_numpy(rng.standard_normal((128, h, d)).astype(
+        np.float32)).to(dev, dt)
+    for base, clen in ((77, 100), (0, 128), (509, 3), (0, 0)):
+        pk, pv = make_pool(nb, bs, hkv, d, rng)
+        bt = make_tables([base + clen], bs, npages + 1, nb, rng, pk, pv)
+        kp, vp, quant = paged_pools(pk, pv, kv_bits, dev, dt)
+        table = torch.from_numpy(bt[0]).to(dev)
+        got = PA.paged_prefill_attention(qc, kp, vp, base, clen, table,
+                                         **quant)
+        want = PA.paged_prefill_attention_plain(qc, kp, vp, base, clen,
+                                                table, **quant)
+        assert bool(got.isfinite().all()), (base, clen)
+        if clen:
+            f16_close(got[:clen], want[:clen])
+        else:
+            assert not bool(got.any())
+        assert torch.equal(got, PA.paged_prefill_attention(
+            qc, kp, vp, base, clen, table, **quant)), (base, clen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("d", [64, 72, 128])
+def test_cuda_f16_single_row_is_exact(kv_bits, d):
+    """A single fully attended row comes back exact in float16 too: the
+    (dequantized) v row rounded to f16, through B6 (a slot of length 1)
+    and B7 (a chunk of one token at base 0; at D 64 and 128 on the tensor
+    cores, where p = 1 splits into 1 and 0 and a quantized v's hi +
+    residual rounds back to hi; at D 72 on the CUDA cores)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev, dt = torch.device("cuda"), torch.float16
+    rng = np.random.default_rng(5 + kv_bits + d)
+    pk, pv = make_pool(4, 8, 2, d, rng)
+    kp, vp, quant = paged_pools(pk, pv, kv_bits, dev, dt)
+    table = torch.tensor([[2]], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.standard_normal((1, 4, d)).astype(
+        np.float32)).to(dev, dt)
+    if kv_bits:
+        want = kv_dequantize(vp[2, 0], quant["v_scale"][2, 0], kv_bits)
+    else:
+        want = vp[2, 0]
+    want = want.repeat_interleave(2, dim=0).to(dt)
+    got = PA.paged_decode_attention(
+        q, kp, vp, torch.ones(1, dtype=torch.int32, device=dev), table,
+        **quant)
+    assert torch.equal(got[0], want)
+    got = PA.paged_prefill_attention(q, kp, vp, 0, 1, table[0], **quant)
+    assert torch.equal(got[0], want)
+
+
+#: the float16 B8-B10 cases: the bf16 tensor-core cases and the new
+#: blocks' (block, T), with the head dims each covers
+F16_SPARSE_CASES = (
+    [(c[0], c[1], c[2], c[3], c[4], d) for c in SPARSE_TC_CASES
+     for d in (16, 32, 64, 128)]
+    + [(f"block{b}-T{t}", b, t, causal, True, d)
+       for b, t in NEW_SPARSE_CASES for d in (48, 80, 96, 256)
+       for causal in (True, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,block,t_len,causal,per_head,d",
+                         F16_SPARSE_CASES,
+                         ids=[f"{c[0]}-{'c' if c[3] else 'f'}-d{c[5]}"
+                              for c in F16_SPARSE_CASES])
+def test_cuda_f16_blocksparse_matches_plain(name, block, t_len, causal,
+                                            per_head, d):
+    """The float16 B8 (o; lse in f32), B9 (dq) and B10 (dk, dv) on the
+    tensor cores (``mma_f16`` through ``blocksparse_bwd_mma.cuh``) at every
+    head dim and layout block the bf16 cases cover: o within one f16 ulp
+    of its plain version (lse 1e-4), dq, dk and dv within two
+    (``F16_BWD_TOL``), a planted fault caught, bit-equal on a second
+    launch, counted under ``<kernel>_f16``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops import build
+    q, k, v, do, _, args = sparse_case(
+        block, t_len, d, causal, per_head, torch.float16,
+        seed=300 * d + block + t_len + causal,
+        empty_kv=name == "empty-kv-tile")
+    build.reset_launch_counts()
+    o, lse = BS.blocksparse_attention_fwd(q, k, v, *args)
+    assert build.launch_counts["blocksparse_flash_fwd_f16"] == 1
+    assert build.launch_counts["blocksparse_flash_fwd"] == 0
+    o_p, lse_p = BS.blocksparse_attention_fwd_plain(q, k, v, *args)
+    assert o.dtype == torch.float16
+    f16_close(o, o_p)
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+    o2, lse2 = BS.blocksparse_attention_fwd(q, k, v, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    got, want, again, _ = sparse_outputs(q, k, v, do, args)
+    assert build.launch_counts["blocksparse_flash_bwd_dq_f16"] == 2
+    assert build.launch_counts["blocksparse_flash_bwd_dkv_f16"] == 2
+    for a, b in zip(got, want):
+        f16_close(a, b, F16_BWD_TOL)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+# -- remat policies on the card ---------------------------------------------------
+#: a remat policy against ``remat="none"`` on the card: each gradient
+#: leaf within this fraction of the leaf's largest |gradient| (float32: a
+#: reordered sum; bfloat16: two roundings of an activation, 2^-7 each),
+#: and the loss within it of its value
+REMAT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy", ["full", "dots_saveable", "dots_no_batch",
+                                    "nothing_saveable"])
+def test_cuda_remat_policy_grads_match_none(policy, dtype):
+    """A small GPT-2 (2 layers, d_model 256, T 256, flash) on the card:
+    the loss and every gradient under each remat policy equal those
+    under ``remat="none"`` within ``REMAT_TOL``.  The policies recompute
+    B1 in the backward (its launches double) and feed B2 from the
+    recomputed o and lse; the selective ones (``torch.utils.checkpoint``'s
+    contexts) must recompute what the kernels write through ``ctypes``,
+    never hand back a stale buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
+    rs = np.random.RandomState(5)
+    batch = {"input_ids": torch.from_numpy(
+        rs.randint(0, 4096, (4, 256))).long().cuda()}
+
+    def loss_and_grads(remat):
+        cfg = gpt2_config("125m", num_layers=2, d_model=256, num_heads=4,
+                          vocab_size=4096, max_seq_len=256, remat=remat,
+                          attn_impl="flash", loss_chunk=64, dtype=dtype)
+        model = TransformerLM(cfg)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        params = model.init(g, "cuda", torch.float32)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+        build.reset_launch_counts()
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.detach(), grads, build.launch_counts["flash_attention_fwd"]
+    want, want_g, want_b1 = loss_and_grads("none")
+    got, got_g, got_b1 = loss_and_grads(policy)
+    assert (want_b1, got_b1) == (2, 4)
+    tol = REMAT_TOL[dtype]
+    assert abs(float(got) - float(want)) <= tol * abs(float(want))
+    for a, b in zip(got_g, want_g):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+# -- checkpoints on the card ------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_save", [False, True])
+def test_cuda_save_load_is_bit_equal(async_save, tmp_path):
+    """A small GPT-2 (2 layers, d_model 256, T 256) trained on the card
+    with LAMB, ``remat="dots_no_batch"`` and fp16 loss scaling: after 2
+    steps ``save_checkpoint`` (sync or async) and a fresh engine's
+    ``load_checkpoint`` give the saved state bit for bit (tensors back on
+    the card), and the next step of both engines is bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the engine runs on it")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import wait_pending
+    cfg = gpt2_config("125m", num_layers=2, d_model=256, num_heads=4,
+                      max_seq_len=256, remat="dots_no_batch",
+                      attn_impl="flash", loss_chunk=64)
+    config = {"train_micro_batch_size_per_gpu": 4,
+              "optimizer": {"type": "Lamb", "params": {"lr": 2e-3}},
+              "fp16": {"enabled": True, "initial_scale_power": 8},
+              "checkpoint": {"async_save": async_save},
+              "gradient_clipping": 1.0, "steps_per_print": 0}
+    rs = np.random.RandomState(3)
+    bs = [{"input_ids": rs.randint(0, cfg.vocab_size, (4, 256))}
+          for _ in range(3)]
+
+    def engine(seed):
+        return dt.initialize(model=TransformerLM(cfg), config=config,
+                             seed=seed)[0]
+    a = engine(0)
+    for b in bs[:2]:
+        a.train_step(b)
+    a.save_checkpoint(str(tmp_path))
+    wait_pending()
+    fresh = engine(1)
+    fresh.load_checkpoint(str(tmp_path))
+
+    def leaves(state):
+        out = []
+        for k in sorted(state):
+            v = state[k]
+            if isinstance(v, dict):
+                out += leaves(v)
+            elif isinstance(v, torch.Tensor):
+                out.append(v)
+            else:
+                out += list(v)          # the scaler's fields
+        return out
+    for x, y in zip(leaves(a.state), leaves(fresh.state)):
+        assert x.device == y.device and torch.equal(x, y)
+    ma, mf = a.train_step(bs[2]), fresh.train_step(bs[2])
+    assert float(ma["loss"]) == float(mf["loss"])
+    for x, y in zip(leaves(a.state), leaves(fresh.state)):
+        assert torch.equal(x, y)

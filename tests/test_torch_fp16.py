@@ -15,10 +15,18 @@ shape gate.
   ``tests/unit/test_engine.py::TestMixedPrecision`` pins for JAX.
 * The float16 plain versions of B1-B4 against the JAX kernels in
   interpret mode, in float16.
-* ``build.kernel_supports`` admits every configuration the repo names,
+* A tiny block-sparse GPT-2 in fp16 (B8-B10's f16 plain versions)
+  against the JAX engine over 3 steps, at the same limits.
+* ``build.kernel_supports`` admits every configuration the repo names in
+  bf16 and f16 alike (float16 takes exactly the shapes bfloat16 takes),
   and the model's ``_paged_supported`` never admits what B5-B7 refuse.
+* ``build.build()`` compiles every source to objects (a source of
+  ``build.PARTS`` as parallel parts) and links them (with a stand-in
+  compiler: this host has none).
 """
+import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -285,22 +293,64 @@ def test_float16_flash_matches_jax(d, g):
                                    np.asarray(want, np.float32), **F16_TOL)
 
 
-# -- refusals naming C2 --------------------------------------------------------
-def test_float16_serving_and_blocksparse_refuse_naming_c2():
+# -- float16 serving and block-sparse training (C2 closed) --------------------
+def test_float16_serving_and_blocksparse_build():
     """float16 serving (B5-B7) and a float16 block-sparse model (B8-B10)
-    are refused up front, naming ROADMAP queue C item C2, not at the first
-    launch."""
+    build: ``init_inference(dtype="float16")`` holds f16 weights, and the
+    model's paged path is admitted at kv_bits 0, 8 and 4."""
     model = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
                                             **TINY))
-    with pytest.raises(NotImplementedError, match="C2"):
-        dt.init_inference(model, {"dtype": "float16"}, device="cpu")
+    eng = dt.init_inference(model, {"dtype": "float16"}, device="cpu")
+    assert eng.module.config.dtype == torch.float16
+    assert all(p.dtype == torch.float16 for p in tree_leaves(eng.params))
+    for kv_bits in (0, 8, 4):
+        assert eng.module._paged_supported(kv_bits) is None
     from deepspeed_tpu_torch.ops.sparse_attention import (
         FixedSparsityConfig)
-    with pytest.raises(NotImplementedError, match="C2"):
-        tt.TransformerLM(tt.gpt2_config(
-            "125m", dtype=torch.float16, attn_impl="blocksparse",
-            sparsity_config=FixedSparsityConfig(num_heads=4, block=16),
-            **TINY))
+    sparse = tt.TransformerLM(tt.gpt2_config(
+        "125m", dtype=torch.float16, attn_impl="blocksparse",
+        sparsity_config=FixedSparsityConfig(num_heads=4, block=16),
+        **TINY))
+    assert sparse.config.dtype == torch.float16
+
+
+def test_fp16_blocksparse_three_steps_match_jax():
+    """A tiny block-sparse GPT-2 (T 64, a Fixed layout of 16-row blocks)
+    trained in fp16 with dynamic loss scaling (the kernels' plain versions
+    B8-B10 in float16 here, the JAX kernels in interpret mode): three
+    steps from the JAX engine's params give its losses (1e-5), grad norms
+    (1e-3) and loss scales (exact)."""
+    from deepspeed_tpu.ops import sparse_attention as jax_sa
+    from deepspeed_tpu_torch.ops import sparse_attention as port_sa
+    skw = dict(num_heads=4, block=16, num_local_blocks=2,
+               num_global_blocks=1)
+    cfg = {**CONFIG, "fp16": {"enabled": True, "initial_scale_power": 8}}
+    jm = jax_tf.TransformerLM(jax_tf.gpt2_config(
+        "125m", dtype=jnp.float16, attn_impl="blocksparse",
+        sparsity_config=jax_sa.FixedSparsityConfig(**skw),
+        **{**TINY, "max_seq_len": 64}))
+    mesh = build_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    je, _, _, _ = ds.initialize(model=jm, config=json.loads(
+        json.dumps(cfg)), mesh=mesh)
+    init = jax.device_get(je.state)
+    pm = tt.TransformerLM(tt.gpt2_config(
+        "125m", dtype=torch.float32, attn_impl="blocksparse",
+        sparsity_config=port_sa.FixedSparsityConfig(**skw),
+        **{**TINY, "max_seq_len": 64}))
+    pe, _, _, _ = dt.initialize(model=pm, config=json.loads(
+        json.dumps(cfg)), params=params_from_jax(init["params"], pm),
+        device="cpu")
+    assert pe.model.config.dtype == torch.float16
+    rs = np.random.RandomState(12)
+    for _ in range(3):
+        b = {"input_ids": rs.randint(0, 128, (16, 64)).astype(np.int32)}
+        jmet = {k: float(v) for k, v in je.train_step(b).items()}
+        pmet = {k: float(v) for k, v in pe.train_step(b).items()}
+        np.testing.assert_allclose(pmet["loss"], jmet["loss"], **LOSS_TOL)
+        np.testing.assert_allclose(pmet["grad_norm"], jmet["grad_norm"],
+                                   **NORM_TOL)
+        assert pmet["loss_scale"] == jmet["loss_scale"]
+        assert pmet["overflow"] == jmet["overflow"]
 
 
 # -- the kernels' shape gate ---------------------------------------------------
@@ -323,24 +373,40 @@ def repo_configs():
 @pytest.mark.parametrize("name", sorted(repo_configs()))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_gate_admits_every_config_of_the_repo(name, dtype):
-    """Every GPT-2/GPT-3 size and TinyLlama-1.1B: the flash kernels B1-B4
-    take its head dim and kv group in bf16 and f16, the decode kernels
-    B5-B7 and the block-sparse ones B8-B10 in bf16 (f16 is C2), and its
-    paged path is admitted at kv_bits 0, 8 and 4."""
+    """Every GPT-2/GPT-3 size and TinyLlama-1.1B: every kernel (the flash
+    B1-B4, the decode B5-B7 at kv_bits 0, 8 and 4, the block-sparse
+    B8-B10) takes its head dim and kv group in bf16 and in f16 alike, and
+    its paged path is admitted at kv_bits 0, 8 and 4 in both."""
     c = repo_configs()[name]
     g = c.num_heads // c.kv_heads
     for k in build.FLASH_KERNELS:
         assert build.kernel_supports(
             k, c.hdim, 1 if k == "flash_attention_bwd" else g, dtype) is None
     for k in build.SPARSE_KERNELS + build.DECODE_KERNELS:
-        why = build.kernel_supports(k, c.hdim, g, dtype)
-        assert (why is None) == (dtype == torch.bfloat16), why
-        if why is not None:
-            assert "C2" in why
-    if dtype == torch.bfloat16:
-        model = tt.TransformerLM(c)
-        for kv_bits in (0, 8, 4):
-            assert model._paged_supported(kv_bits) is None
+        for kv_bits in ((0, 8, 4) if k in build.QUANT_KERNELS else (0,)):
+            assert build.kernel_supports(k, c.hdim, g, dtype,
+                                         kv_bits) is None
+    model = tt.TransformerLM(dataclasses.replace(c, dtype=dtype))
+    for kv_bits in (0, 8, 4):
+        assert model._paged_supported(kv_bits) is None
+
+
+def test_f16_takes_every_shape_bf16_takes():
+    """C2 closed: ``kernel_supports`` gives float16 exactly bfloat16's
+    answer for every B5-B10 library at every head dim up to 264, kv group
+    (1, 3, 8, 32), kv_bits and layout block tried."""
+    for k in build.SPARSE_KERNELS + build.DECODE_KERNELS:
+        for d in range(8, 265, 8):
+            for g in (1, 3, 8, 32):
+                for kv_bits in (0, 8, 4, 2):
+                    for block in ((None, 16, 48, 40) if k in
+                                  build.SPARSE_KERNELS else (None,)):
+                        bf = build.kernel_supports(k, d, g, torch.bfloat16,
+                                                   kv_bits, block)
+                        f16 = build.kernel_supports(k, d, g, torch.float16,
+                                                    kv_bits, block)
+                        assert (bf is None) == (f16 is None), (k, d, g)
+    assert not hasattr(build, "C2")
 
 
 @pytest.mark.parametrize("name", sorted(PUBLISHED))
@@ -394,3 +460,49 @@ def test_gate_refuses_with_c1_remainder():
     assert build.kernel_supports("blocksparse_flash_fwd", 64,
                                  block=48) is None
     assert build.kernel_supports("paged_decode_attention", 264) is not None
+
+
+# -- the build of a source in parts ----------------------------------------------
+def test_build_compiles_parts_and_links_them(tmp_path, monkeypatch):
+    """``build.build()`` with a stand-in ``nvcc`` (this host has none):
+    every source is compiled to objects with ``-c`` and without
+    ``-shared`` (a source listed in ``PARTS`` as that many, each with
+    ``-DDSTT_PART=p``), then its objects are linked into its library,
+    their reports joined into ``<library>.log``."""
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    calls = tmp_path / "calls.txt"
+    fake.write_text(
+        "#!/usr/bin/env python3\n"
+        "import sys\n"
+        "a = sys.argv[1:]\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(a) + '\\n')\n"
+        "print('report', ' '.join(x for x in a if x.startswith('-D')))\n"
+        "open(a[a.index('-o') + 1], 'w').write('built')\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{fake.parent}:{os.environ['PATH']}")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    libs = build.build(["paged_decode_attention", "decode_attention"])
+    lines = calls.read_text().splitlines()
+    parts = [ln for ln in lines if "-DDSTT_PART=" in ln]
+    assert len(parts) == build.PARTS["paged_decode_attention"] == 3
+    assert all(" -c " in ln and "-shared" not in ln for ln in parts)
+    whole = [ln for ln in lines if ln.endswith("decode_attention.cu")
+             and "paged" not in ln]
+    assert len(whole) == 1 and " -c " in whole[0]
+    assert "-shared" not in whole[0] and "-DDSTT_PART" not in whole[0]
+    link = [ln for ln in lines if " -c " not in ln]
+    assert len(link) == 2 and all("-shared" in ln for ln in link)
+    assert sorted(ln.count(".part") for ln in link) == [1, 3]
+    log = (libs["paged_decode_attention"].parent /
+           f"{libs['paged_decode_attention'].name}.log").read_text()
+    assert [f"-DDSTT_PART={p}" in log for p in range(3)] == [True] * 3
+    assert log.count("nvcc wall time") == 3
+    log = (libs["decode_attention"].parent /
+           f"{libs['decode_attention'].name}.log").read_text()
+    assert log.count("nvcc wall time") == 1
+    for lib in libs.values():
+        assert lib.read_text() == "built"
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [lib.name for lib in libs.values()]
+        + [f"{lib.name}.log" for lib in libs.values()])

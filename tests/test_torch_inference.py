@@ -294,7 +294,6 @@ def test_config_defaults_and_coercion_match_jax():
     {"tensor_parallel": {"tp_size": 2}},
     {"moe": {"enabled": True}},
     {"observability": {}},
-    {"checkpoint": "ckpt"},
 ])
 def test_out_of_slice_engine_options_raise(override):
     pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
@@ -642,3 +641,46 @@ def test_int8_weights_forward_generate_and_server_match_jax(int8_engines):
             qeng.generate([p], max_new_tokens=5)[0].numpy(), want)
         np.testing.assert_array_equal(r.output, want)
     assert srv.allocator.num_used == 0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f16", "f16-int8w"])
+def test_fp16_generate_forward_and_server_match_jax(quant):
+    """``init_inference(dtype="float16")`` (C2 closed: B5-B7's plain
+    versions in float16 here), with and without int8 weights
+    (``quant.enabled``), against the JAX engine in float16 on the same
+    weights: greedy ``generate()`` streams and every server stream
+    (chunked prefill, B6/B7 over a float16 pool) exactly equal to the JAX
+    ``generate()``; ``forward()``'s logits within 2e-3 (float16
+    activations rounded at other points)."""
+    jm = jax_tf.TransformerLM(jax_tf.gpt2_config("125m", dtype=jnp.float16,
+                                                 **TINY))
+    jp = jax.device_get(jm.init(jax.random.PRNGKey(7)))
+    cfg = {**BASE, "dtype": "float16",
+           **({"quant": {"enabled": True}} if quant else {})}
+    jeng = ds.init_inference(jm, config={
+        **cfg, "replace_with_kernel_inject": False}, params=jp)
+    pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
+                                         **TINY))
+    peng = dt.init_inference(pm, {**cfg, "serving": SERVING},
+                             params=params_from_jax(jp, pm), device="cpu")
+    assert peng.module.config.dtype == torch.float16
+    batch = np.random.RandomState(1).randint(0, 64, (2, 7)).astype(np.int32)
+    np.testing.assert_array_equal(
+        peng.generate(batch, max_new_tokens=8).numpy(),
+        np.asarray(jeng.generate(batch, max_new_tokens=8, temperature=0.0)))
+    x = np.random.RandomState(4).randint(0, 64, (2, 19)).astype(np.int32)
+    np.testing.assert_allclose(peng.forward(x).numpy(),
+                               np.asarray(jeng.forward(x), np.float32),
+                               atol=2e-3, rtol=2e-3)
+    srv = peng.serving_engine()
+    assert srv._pool_k.dtype == torch.float16
+    prompts = prompts_of((5, 9, 20, 33, 3, 14), 8)
+    reqs = [srv.submit(p, max_new_tokens=8) for p in prompts[:3]]
+    srv.step()
+    reqs += [srv.submit(p, max_new_tokens=8) for p in prompts[3:]]
+    assert len(srv.run(max_steps=300)) == 6
+    for p, r in zip(prompts, reqs):
+        assert r.status.value == "ok"
+        np.testing.assert_array_equal(r.output, jax_gen(jeng, p, 8),
+                                      err_msg=f"{p}")
+    srv.allocator.assert_consistent()

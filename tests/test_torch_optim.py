@@ -1,11 +1,17 @@
 """The port's optimizers and LR schedules against the JAX package's.
 
-Adam and AdamW run 5 steps from the same float32 params on the same
-numpy gradients; every LR schedule is evaluated at steps 0..N.  Both
-sides do the same float32 operations in the same order, so params,
-moments and learning rates agree to float32 rounding (atol 1e-7,
-rtol 1e-6).
+Adam, AdamW, LAMB, SGD (momentum, Nesterov) and Adagrad run several
+steps from the same float32 params on the same numpy gradients; every LR
+schedule is evaluated at steps 0..N.  Both sides do the same float32
+operations in the same order, so params, moments and learning rates
+agree to float32 rounding (atol 1e-7, rtol 1e-6); LAMB's trust ratio
+divides two norms summed in another order, so LAMB is held to 1e-5.
+The client-optimizer bridge (``wrap_torch``) is held against optax's
+own optimizers.
 """
+import functools
+
+import optax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,8 +77,7 @@ def test_apply_is_out_of_place():
 
 
 @pytest.mark.parametrize("name,err", [
-    ("lamb", NotImplementedError), ("sgd", NotImplementedError),
-    ("adagrad", NotImplementedError), ("onebitadam", NotImplementedError),
+    ("onebitadam", NotImplementedError), ("onebitlamb", NotImplementedError),
     ("nosuch", ValueError),
 ])
 def test_optimizer_dispatch_refuses(name, err):
@@ -132,3 +137,144 @@ def test_unknown_schedule_raises_like_jax():
     with pytest.raises(ValueError) as pe:
         sched.get_lr_schedule("Nope", {})
     assert str(pe.value) == str(je.value)
+
+
+def stacked_tree(rng):
+    """A params tree with stacked leaves (a layer axis first, as the
+    model's blocks), a 2-D and a 1-D leaf, one leaf all zeros (LAMB's
+    ratio then falls back to 1)."""
+    return {"blocks": {"w": rng.standard_normal((3, 6, 5)).astype(np.float32),
+                       "b": rng.standard_normal((3, 5)).astype(np.float32)},
+            "embed": rng.standard_normal((9, 4)).astype(np.float32),
+            "ln": np.zeros((4,), np.float32)}
+
+
+OTHER_OPTIMIZERS = [
+    ("lamb", dict(lr=1e-2, weight_decay=0.1)),
+    ("lamb", dict(lr=3e-3, betas=[0.8, 0.99], max_coeff=2.0,
+                  min_coeff=0.5)),
+    ("fusedlamb", dict(lr=1e-2)),
+    ("sgd", dict(lr=0.1)),
+    ("sgd", dict(lr=0.1, momentum=0.9, weight_decay=0.01)),
+    ("sgd", dict(lr=0.05, momentum=0.9, nesterov=True)),
+    ("adagrad", dict(lr=0.1)),
+    ("adagrad", dict(lr=0.05, eps=1e-6, weight_decay=0.1)),
+    ("cpuadagrad", dict(lr=0.05)),
+]
+
+
+@pytest.mark.parametrize("name,kw", OTHER_OPTIMIZERS,
+                         ids=[f"{n}-{i}" for i, (n, _) in
+                              enumerate(OTHER_OPTIMIZERS)])
+def test_other_optimizers_match_jax_over_steps(name, kw):
+    """LAMB (its trust ratio over a whole stacked leaf), SGD and Adagrad:
+    six steps of the port against the JAX package's steps, params and
+    every state leaf within 1e-5 (LAMB's norms sum in another order)."""
+    rng = np.random.default_rng(3)
+    p0 = stacked_tree(rng)
+    jo = jax_opt.get_optimizer(name, **dict(kw))
+    po = opt.get_optimizer(name, **dict(kw))
+    assert po.hyperparams == jo.hyperparams
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    pp = to_torch(p0)
+    js, ps = jo.init(jp), po.init(pp)
+    assert sorted(js) == sorted(ps)
+    lr = kw["lr"]
+    for _ in range(6):
+        g = stacked_tree(rng)
+        g["ln"] = rng.standard_normal((4,)).astype(np.float32)
+        jp, js = jo.apply(jax.tree_util.tree_map(jnp.asarray, g), js, jp,
+                          jnp.asarray(lr, jnp.float32))
+        pp, ps = po.apply(to_torch(g), ps, pp,
+                          torch.tensor(lr, dtype=torch.float32))
+        for key in [k for k in js if k != "step"]:
+            jax.tree_util.tree_map(
+                lambda x, y: np.testing.assert_allclose(
+                    y.numpy(), np.asarray(x), atol=1e-5, rtol=1e-5),
+                js[key], ps[key])
+        jax.tree_util.tree_map(
+            lambda x, y: np.testing.assert_allclose(
+                y.numpy(), np.asarray(x), atol=1e-5, rtol=1e-5), jp, pp)
+    assert int(js["step"]) == int(ps["step"]) == 6
+
+
+def test_lamb_ratio_spans_the_whole_stacked_leaf():
+    """One trust ratio per leaf, not per layer: scaling one layer of a
+    stacked leaf changes the update of the others, as in the JAX
+    package."""
+    rng = np.random.default_rng(4)
+    p0 = stacked_tree(rng)
+    g = stacked_tree(rng)
+    po = opt.get_optimizer("lamb", lr=0.1)
+    p1 = dict(p0, blocks=dict(p0["blocks"], w=p0["blocks"]["w"].copy()))
+    p1["blocks"]["w"][0] *= 50.0
+    lr = torch.tensor(0.1)
+    a, _ = po.apply(to_torch(g), po.init(to_torch(p0)), to_torch(p0), lr)
+    b, _ = po.apply(to_torch(g), po.init(to_torch(p1)), to_torch(p1), lr)
+    da = a["blocks"]["w"][1] - torch.from_numpy(p0["blocks"]["w"][1])
+    db = b["blocks"]["w"][1] - torch.from_numpy(p1["blocks"]["w"][1])
+    assert not torch.allclose(da, db)
+
+
+def test_other_optimizers_are_out_of_place():
+    rng = np.random.default_rng(5)
+    for name in ("lamb", "sgd", "adagrad"):
+        po = opt.get_optimizer(name, lr=0.1, **(
+            {"momentum": 0.9} if name == "sgd" else {}))
+        pp = to_torch(stacked_tree(rng))
+        before = opt.tree_map(torch.clone, pp)
+        st = po.init(pp)
+        st_before = opt.tree_map(torch.clone, st)
+        po.apply(to_torch(stacked_tree(rng)), st, pp, torch.tensor(0.1))
+        opt.tree_map(lambda a, b: torch.testing.assert_close(
+            a, b, atol=0, rtol=0), pp, before)
+        opt.tree_map(lambda a, b: torch.testing.assert_close(
+            a, b, atol=0, rtol=0), st, st_before)
+
+
+#: (optax optimizer, the torch.optim factory that computes the same step)
+CLIENT_PAIRS = [
+    ("sgd", lambda: optax.sgd(0.1),
+     functools.partial(torch.optim.SGD, lr=0.1)),
+    ("sgd-momentum", lambda: optax.sgd(0.05, momentum=0.9),
+     functools.partial(torch.optim.SGD, lr=0.05, momentum=0.9)),
+    ("sgd-nesterov", lambda: optax.sgd(0.05, momentum=0.9, nesterov=True),
+     functools.partial(torch.optim.SGD, lr=0.05, momentum=0.9,
+                       nesterov=True)),
+    ("adam", lambda: optax.adam(1e-2),
+     functools.partial(torch.optim.Adam, lr=1e-2)),
+    ("adam-betas", lambda: optax.adam(3e-3, b1=0.8, b2=0.99, eps=1e-6),
+     functools.partial(torch.optim.Adam, lr=3e-3, betas=(0.8, 0.99),
+                       eps=1e-6)),
+]
+
+
+@pytest.mark.parametrize("name,make_tx,factory", CLIENT_PAIRS,
+                         ids=[c[0] for c in CLIENT_PAIRS])
+def test_client_optimizer_bridge_matches_optax(name, make_tx, factory):
+    """``wrap_torch`` (the port's ``wrap_optax``) over a torch.optim
+    optimizer against the JAX package's ``wrap_optax`` over the optax
+    optimizer computing the same step: five steps, params within 1e-5
+    (the two libraries round Adam's bias corrections in another order);
+    the wrapped step leaves its inputs untouched."""
+    rng = np.random.default_rng(6)
+    p0 = stacked_tree(rng)
+    jo = jax_opt.wrap_optax(make_tx())
+    po = opt.wrap_torch(factory)
+    assert po.hyperparams["external_lr"] and jo.hyperparams["external_lr"]
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    pp = to_torch(p0)
+    js, ps = jo.init(jp), po.init(pp)
+    for i in range(5):
+        g = stacked_tree(rng)
+        jp, js = jo.apply(jax.tree_util.tree_map(jnp.asarray, g), js, jp,
+                          jnp.asarray(0.0))
+        before = opt.tree_map(torch.clone, pp)
+        pp_new, ps = po.apply(to_torch(g), ps, pp, torch.tensor(0.0))
+        opt.tree_map(lambda a, b: torch.testing.assert_close(
+            a, b, atol=0, rtol=0), pp, before)
+        pp = pp_new
+        jax.tree_util.tree_map(
+            lambda x, y: np.testing.assert_allclose(
+                y.numpy(), np.asarray(x), atol=1e-5, rtol=1e-5), jp, pp)
+    assert int(ps["step"]) == int(js["step"]) == 5

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it never imports ``jax``, ``pydantic``,
-``orbax`` or anything of ``deepspeed_tpu`` (importing any
+``orbax``, ``optax`` or anything of ``deepspeed_tpu`` (importing any
 ``deepspeed_tpu`` submodule runs the package ``__init__``, which pulls
 in jax and the training engine)."""
 import ast
@@ -13,8 +13,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "deepspeed_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "pydantic", "orbax", "deepspeed_tpu",
-             "flax", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "pydantic", "orbax", "optax",
+             "deepspeed_tpu", "flax", "ml_dtypes")
 
 
 def port_modules():

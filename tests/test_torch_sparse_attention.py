@@ -326,3 +326,40 @@ def test_head_dims_and_blocks_of_the_reference_match_jax(block, t_len, d,
     tl = PB.tile_layout(PB.compress_layout(lay), block, t_len)
     assert tl.sub_shift == (4 if block % 64 and block not in (16, 32) else
                             {16: 4, 32: 5}.get(block, 6))
+
+
+#: float16 against float16: both sides round p and ds to f16 at the same
+#: points and sum in f32, so they differ by about one f16 ulp (two as the
+#: limit, as ``test_torch_fp16.py`` holds the f16 B1-B4)
+F16_TOL = dict(atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("block,t_len,d,causal,per_head", [
+    (16, 256, 64, False, True), (32, 256, 16, True, True),
+    (64, 192, 80, True, False)])
+def test_f16_blocksparse_attention_and_vjp_match_jax(block, t_len, d,
+                                                     causal, per_head):
+    """The float16 plain versions of B8 (output) and B9/B10 (dq, dk, dv)
+    through ``blocksparse_attention`` against the JAX kernels in interpret
+    mode on the same float16 inputs; float16 out."""
+    rng = np.random.default_rng(300 + block + t_len + d)
+    heads, b = 2, 2
+    lay = random_layout(rng, heads, t_len // block, causal, per_head)
+    q, k, v, do = (rng.standard_normal((b * heads, t_len, d))
+                   .astype(np.float16) for _ in range(4))
+
+    def f(q_, k_, v_):
+        return JB.blocksparse_attention(q_, k_, v_, JB.compress_layout(lay),
+                                        block, heads, causal, None, True)
+    o_j, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    grads_j = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o_p = PB.blocksparse_attention(tq, tk, tv, PB.compress_layout(lay), block,
+                                   heads, causal)
+    o_p.backward(torch.from_numpy(do))
+    assert o_p.dtype == torch.float16 and tq.grad.dtype == torch.float16
+    np.testing.assert_allclose(o_p.detach().float().numpy(),
+                               np.asarray(o_j, np.float32), **F16_TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads_j):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **F16_TOL)

@@ -15,11 +15,13 @@ rotary) is held to
 the same limits; its grouped-query attention sends the backward to the
 two-pass kernels B3/B4 (their plain versions on the CPU).
 """
+import functools
 import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -36,8 +38,10 @@ from deepspeed_tpu.runtime.dataloader import \
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.ops.transformer import flash_attention as FA
 from deepspeed_tpu_torch.models.convert import (params_from_jax,
+                                                params_to_jax,
                                                 state_from_jax,
                                                 state_to_jax)
+from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader,
@@ -387,7 +391,7 @@ def test_out_of_slice_blocks_raise(block):
 
 
 @pytest.mark.parametrize("override,what", [
-    (dict(remat="dots_saveable"), "remat"),
+    (dict(pos_embedding="alibi"), "ALiBi"),
     (dict(remat="host_offload"), "remat"),
 ])
 def test_out_of_slice_model_options_raise(override, what):
@@ -396,10 +400,134 @@ def test_out_of_slice_model_options_raise(override, what):
 
 
 def test_optimizer_outside_the_slice_raises():
-    with pytest.raises(NotImplementedError, match="LAMB"):
+    """The 1-bit optimizers are multi-device (queue A item 7)."""
+    with pytest.raises(NotImplementedError, match="1-bit"):
         dt.initialize(model=port_model(), config={
-            "train_batch_size": 4, "optimizer": {"type": "Lamb"}},
+            "train_batch_size": 4, "optimizer": {"type": "OneBitAdam"}},
             device="cpu")
+
+
+#: the optimizers of queue A item 1's rest, by their config names
+CONFIG_OPTIMIZERS = [
+    ("Lamb", {"lr": 2e-3, "weight_decay": 0.01}),
+    ("SGD", {"lr": 0.05}),
+    ("SGD", {"lr": 0.05, "momentum": 0.9, "nesterov": True}),
+    # eps 1e-4: see test_torch_checkpoint.OPTIMIZERS (the key bias's
+    # gradient is zero but for rounding)
+    ("Adagrad", {"lr": 0.02, "eps": 1e-4, "weight_decay": 0.01}),
+]
+
+
+@pytest.mark.parametrize("name,params", CONFIG_OPTIMIZERS,
+                         ids=[f"{n}-{i}" for i, (n, _) in
+                              enumerate(CONFIG_OPTIMIZERS)])
+def test_config_optimizers_three_steps_match_jax(name, params):
+    """LAMB, SGD and Adagrad named in the config's optimizer block: three
+    train_steps (clipping, gas 2) from the JAX engine's initial params
+    give the JAX engine's losses, grad norms and final state within the
+    training limits."""
+    config = dict(CONFIG, optimizer={"type": name, "params": params})
+    je = jax_engine(config)
+    init = jax.device_get(je.state)
+    pe = port_engine(params_from_jax(init["params"], port_model()), config)
+    for b in batches(3, seed=30):
+        jm, pm = je.train_step(b), pe.train_step(b)
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(pm[key]), float(jm[key]),
+                                       rtol=REL, atol=0)
+    want = jax.device_get(je.state)
+    got = state_to_jax(pe.state)
+    jax.tree_util.tree_map(
+        lambda x, y: np.testing.assert_allclose(x, np.asarray(y),
+                                                **STATE_TOL), got, want)
+
+
+#: (optax optimizer, the torch.optim factory computing the same step)
+CLIENT_OPTIMIZERS = [
+    ("sgd-momentum", lambda: optax.sgd(0.05, momentum=0.9),
+     lambda: functools.partial(torch.optim.SGD, lr=0.05, momentum=0.9)),
+    ("adam", lambda: optax.adam(1e-3),
+     lambda: functools.partial(torch.optim.Adam, lr=1e-3)),
+]
+
+
+@pytest.mark.parametrize("name,make_tx,make_factory", CLIENT_OPTIMIZERS,
+                         ids=[c[0] for c in CLIENT_OPTIMIZERS])
+def test_client_optimizer_matches_optax_engine(name, make_tx, make_factory):
+    """``initialize(optimizer=<torch.optim factory>)`` against the JAX
+    engine's ``initialize(optimizer=<optax transformation>)``: three steps
+    from the same params give the same losses and grad norms (1e-5) and
+    params (1e-5); the reported lr is 0 on both (the rate lives in the
+    client optimizer)."""
+    config = {k: v for k, v in CONFIG.items() if k != "optimizer"}
+    jm = jax_tf.TransformerLM(jax_tf.gpt2_config("125m", dtype=jnp.float32,
+                                                 **SMALL))
+    mesh = build_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    je, _, _, _ = ds.initialize(model=jm, optimizer=make_tx(),
+                                config=json.loads(json.dumps(config)),
+                                mesh=mesh)
+    init = jax.device_get(je.state)
+    pe, popt, _, _ = dt.initialize(
+        model=port_model(), optimizer=make_factory(), config=config,
+        params=params_from_jax(init["params"], port_model()), device="cpu")
+    assert popt.hyperparams["external_lr"]
+    for b in batches(3, seed=31):
+        jmet, pmet = je.train_step(b), pe.train_step(b)
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(pmet[key]), float(jmet[key]),
+                                       rtol=REL, atol=0)
+    jax.tree_util.tree_map(
+        lambda x, y: np.testing.assert_allclose(x, np.asarray(y),
+                                                **STATE_TOL),
+        params_to_jax(pe.state["params"]),
+        jax.device_get(je.state["params"]))
+
+
+def test_client_optimizer_refuses_an_engine_schedule():
+    """As the JAX engine refuses a config scheduler beside an optax
+    optimizer: the client optimizer carries its own rate."""
+    with pytest.raises(ValueError, match="own learning rate"):
+        dt.initialize(model=port_model(), optimizer=torch.optim.SGD,
+                      config={**CONFIG, "scheduler": {
+                          "type": "WarmupLR",
+                          "params": {"warmup_num_steps": 2}}},
+                      device="cpu")
+    with pytest.raises(TypeError, match="torch.optim"):
+        dt.initialize(model=port_model(), optimizer="sgd", config=CONFIG,
+                      device="cpu")
+
+
+def test_client_optimizer_skipped_step_keeps_its_state():
+    """fp16 with an inf planted in the embedding: a skipped step leaves
+    the client optimizer's state as it was (empty before its first step,
+    then the momentum buffers of the last applied step) and the params
+    with it."""
+    config = {**{k: v for k, v in CONFIG.items() if k != "optimizer"},
+              "fp16": {"enabled": True, "initial_scale_power": 4,
+                       "hysteresis": 1}}
+    pe, _, _, _ = dt.initialize(
+        model=port_model(), config=config, device="cpu",
+        optimizer=functools.partial(torch.optim.SGD, lr=0.05, momentum=0.9))
+    b = batches(3, seed=32)
+    emb = pe.state["params"]["embed"]["embedding"]
+    saved = float(emb[0, 0])
+    emb[0, 0] = float("inf")
+    pe.train_step(b[0])
+    assert int(pe.state["skipped"]) == 1 and pe.state["opt"]["torch"] == {}
+    pe.state["params"]["embed"]["embedding"][0, 0] = saved
+    pe.train_step(b[1])
+    assert int(pe.state["opt"]["step"]) == 1
+    bufs = [v["momentum_buffer"].clone()
+            for v in pe.state["opt"]["torch"].values()]
+    pe.state["params"]["embed"]["embedding"][0, 1] = float("inf")
+    params = [p.clone() for p in tree_leaves(pe.state["params"])]
+    pe.train_step(b[2])
+    assert int(pe.state["skipped"]) == 2
+    assert int(pe.state["opt"]["step"]) == 1
+    for a, v in zip(bufs, pe.state["opt"]["torch"].values()):
+        assert torch.equal(a, v["momentum_buffer"])
+    for a, p in zip(params, tree_leaves(pe.state["params"])):
+        assert torch.equal(a, p)
 
 
 def test_initialize_needs_cuda_unless_cpu_requested():
@@ -424,10 +552,19 @@ def test_training_block_overrides_rebuild_the_model():
     dict(fused_loss_head=False, loss_chunk=16),
     dict(fused_loss_head=False, loss_chunk=0),
     dict(remat="none", attn_impl="xla", loss_chunk=0),
+    dict(remat="dots_saveable"),
+    dict(remat="dots_no_batch"),
+    dict(remat="nothing_saveable"),
+    dict(remat="dots_saveable", attn_impl="xla", fused_loss_head=False),
+    dict(remat="dots_no_batch", attn_impl="xla", fused_loss_head=False),
+    dict(remat="nothing_saveable", attn_impl="xla", loss_chunk=0),
 ])
 def test_model_loss_and_grads_match_jax(head):
-    """The three loss heads (fused, chunked with remat, dense) and both
-    attention routes give JAX's loss and gradients, with a loss mask."""
+    """The three loss heads (fused, chunked with remat, dense), both
+    attention routes and every remat policy (``dots_saveable``,
+    ``dots_no_batch``, ``nothing_saveable``: the JAX model under the same
+    ``jax.checkpoint`` policy) give JAX's loss and gradients, with a loss
+    mask."""
     kw = {**SMALL, **head}
     jm = jax_tf.TransformerLM(jax_tf.gpt2_config("125m", dtype=jnp.float32,
                                                  **kw))
