@@ -36,8 +36,11 @@ Phases (any failure exits non-zero and prints no result line):
    last-position logits checked against ``generate()``'s prefill;
 5. the continuous-batching server on the same engine: 16 greedy requests
    with prompt lengths 16-512, 32 new tokens each, drained with
-   ``run()``: decode through kernel B6, prompt chunks through kernel B7;
-   first-step logits of 4 requests checked against ``generate()``'s; the
+   ``run()``: decode through kernel B6, prompt chunks through kernel B7,
+   each exactly once a layer for each mixed step with a decode lane or a
+   chunk; first-step logits of 4 requests checked against
+   ``generate()``'s, every greedy stream equal to ``generate()``'s up to
+   a near tie, the peak device memory printed; the
    profiles of a short burst and of the drain run again on fresh prompts
    print the device time and B6's and B7's shares of it;
 6. training: ``initialize`` on GPT-2 125M (all 12 layers, seq 1024,
@@ -123,7 +126,21 @@ Phases (any failure exits non-zero and prints no result line):
    B5;
 18. the remat policies (none, full, dots_saveable, dots_no_batch,
    nothing_saveable) at GPT-2 125M: peak memory and ms/step, the same
-   first-step loss under each.
+   first-step loss under each;
+19. GPT-NeoX-20B served at full width and depth (``hf_neox_config`` on
+   its published config: 44 layers, d_model 6144, 64 heads of 96, rotary
+   on 24 of the 96 dims, rotate-half, parallel residual, untied head,
+   vocab 50432; bf16, random weights from seed 0) after every earlier
+   engine is freed: phases 4-5's protocol (B5 seeing each layer's cache
+   at 64 kv heads, ``forward()`` on B1, the drain on B6/B7 with exact
+   launch counts) with every greedy server stream equal to
+   ``generate()``'s up to a near tie, and the peak device memory;
+20. training GPT-NeoX 1.3B (``neox_config("1.3b")``: 24 layers, d_model
+   2048, 16 heads of 128, parallel residual, rotate-half rotary; seq
+   1024, micro 8, ``remat="full"``, flash, fused loss head at chunk 256,
+   AdamW, bf16 over f32 masters), 10 steps as phase 6: 48 B1 and 24 B2 a
+   step, a falling loss, the same-state step check against plain
+   attention at micro 2.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -139,12 +156,14 @@ span of SDPA's masked backward), and at phase 9's shape B10's longest
 and mean walk and B9/B10 over the layout's local blocks alone (no
 summary column: even walks); and B6 and B7 over int8 and packed-int4
 pools (``quant_kernel_checks``).  And it holds the kernels at the head
-dims, groups and dtypes of phases 13-14 and of the reference's other
-configurations (``c1_flash_checks``, ``c1_decode_checks``,
-``c1_sparse_checks``): B1-B4 at D 80, 96 and 256 in bf16 and in float16
+dims, groups and dtypes of phases 13-14, 19-20 and of the reference's
+other configurations (``c1_flash_checks``, ``c1_decode_checks``,
+``c1_sparse_checks``): B1 at GPT-NeoX-20B's forward (64 heads of 96),
+B1 and B2 at GPT-NeoX 1.3B's step (16 heads of 128), B1-B4 at D 80, 96
+and 256 in bf16 and in float16
 at 760M's, GPT-2's and TinyLlama's shapes (float16 within
-``F16_TOL``); B5-B7 at D 80, 96 and 256 and kv groups 3, 16 and 32
-(MQA), B6/B7 at kv_bits 0, 8 and 4; B8-B10 at D 96 over 48-row blocks
+``F16_TOL``); B5-B7 at D 80, 96 (GPT-NeoX-20B's 64 heads among them)
+and 256 and kv groups 3, 16 and 32 (MQA), B6/B7 at kv_bits 0, 8 and 4; B8-B10 at D 96 over 48-row blocks
 and D 80 over 128-row blocks; and the float16 B5-B7 (kv_bits 0, 8, 4) at
 GPT-3 6.7B's and 2.7B's heads and B8-B10 at phase 16's shape
 (``f16_decode_checks``, ``f16_sparse_checks``, within ``F16_TOL``); each
@@ -232,6 +251,10 @@ LLAMA_SEQ, LLAMA_MICRO, LLAMA_STEPS, LLAMA_CHECK_MICRO = 2048, 8, 10, 2
 #: tokens per step), 10 steps; kernels against masked plain attention at
 #: micro 1
 SPARSE_SEQ, SPARSE_MICRO, SPARSE_STEPS = 8192, 8, 10
+
+#: the GPT-NeoX 1.3B training phase: seq 1024, micro 8, 10 steps; flash
+#: against plain attention at micro 2
+NEOX_SEQ, NEOX_MICRO, NEOX_STEPS, NEOX_CHECK_MICRO = 1024, 8, 10, 2
 
 N_TIMED, N_WARM = 30, 5
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
@@ -468,13 +491,16 @@ def f16_sparse_checks(torch, dev, flush):
 
 
 # -- phase 3 (C1, fp16): the head dims, groups and dtypes of this slice ----
-#: (label, B*H, B*KVH, T, D, dtype, kernels) of the flash cases: GPT-3
-#: 2.7B's attention (32 heads of 80) and 760M's (16 heads of 96) at micro 8
+#: (label, B*H, B*KVH, T, D, dtype, kernels) of the flash cases:
+#: GPT-NeoX-20B's forward() (8 x 128 prompts, 64 heads of 96) and GPT-NeoX
+#: 1.3B's training step (micro 8, 16 heads of 128); GPT-3 2.7B's attention (32 heads of 80) and 760M's (16 heads of 96) at micro 8
 #: and 16, seq 1024; GPT-J's head of 256 (16 heads, micro 4); and the
 #: float16 kernels at 760M's shape, at phase 3's GPT-2 and TinyLlama
 #: shapes (the kv group of 8 takes B1, B3 and B4) and at 760M's seq 2048
 #: step (B3 and B4)
 C1_FLASH_CASES = (
+    ("GPT-NeoX-20B forward", 512, 512, 128, 96, "bfloat16", ("B1",)),
+    ("GPT-NeoX 1.3B", 128, 128, 1024, 128, "bfloat16", ("B1", "B2")),
     ("GPT-3 2.7B", 256, 256, 1024, 80, "bfloat16", ("B1", "B2", "B3", "B4")),
     ("GPT-3 760M", 256, 256, 1024, 96, "bfloat16", ("B1", "B2", "B3", "B4")),
     ("GPT-J", 64, 64, 1024, 256, "bfloat16", ("B1", "B2", "B3", "B4")),
@@ -590,9 +616,11 @@ def c1_flash_checks(torch, dev, flush):
     return out
 
 
-#: (label, H, Hkv, D) of the decode cases: GPT-3 2.7B's heads, 760M's,
-#: GPT-J's head of 256, and kv groups of 3, 16 and 32 (MQA) at D 128
-C1_DECODE_CASES = (("GPT-3 2.7B", 32, 32, 80), ("GPT-3 760M", 16, 16, 96),
+#: (label, H, Hkv, D) of the decode cases: GPT-NeoX-20B's heads, GPT-3
+#: 2.7B's, 760M's, GPT-J's head of 256, and kv groups of 3, 16 and 32
+#: (MQA) at D 128
+C1_DECODE_CASES = (("GPT-NeoX-20B", 64, 64, 96),
+                   ("GPT-3 2.7B", 32, 32, 80), ("GPT-3 760M", 16, 16, 96),
                    ("GPT-J", 16, 16, 256), ("g 3", 12, 4, 128),
                    ("g 16", 32, 2, 128), ("g 32 (MQA)", 32, 1, 128))
 
@@ -1602,10 +1630,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import numpy as np
-    from deepspeed_tpu_torch import hf_llama_config
+    from deepspeed_tpu_torch import hf_llama_config, hf_neox_config
     from deepspeed_tpu_torch.accelerator import device_report, nvidia_smi_line
-    from deepspeed_tpu_torch.models.transformer import gpt2_config
-    from deepspeed_tpu_torch.module_inject.policies import TINYLLAMA_1_1B
+    from deepspeed_tpu_torch.models.transformer import gpt2_config, neox_config
+    from deepspeed_tpu_torch.module_inject.policies import (GPT_NEOX_20B,
+                                                            TINYLLAMA_1_1B)
     from deepspeed_tpu_torch.ops import build
     dev = torch.device("cuda", 0)
 
@@ -1826,6 +1855,33 @@ def main() -> int:
     remat_table_phase(torch, np)
     elapsed("phase 18")
 
+    # -- 19. GPT-NeoX-20B served at full width and depth ----------------------
+    free_card(torch, "GPT-NeoX-20B serving")
+    neox20 = hf_neox_config(GPT_NEOX_20B)
+    check((neox20.num_layers, neox20.d_model, neox20.num_heads, neox20.hdim,
+           neox20.rotary_dim, neox20.parallel_residual,
+           neox20.tie_embeddings, neox20.vocab_size)
+          == (44, 6144, 64, 96, 24, True, False, 50432),
+          f"GPT-NeoX-20B config {neox20}")
+    neox_served = serve_phase(torch, np, "GPT-NeoX-20B", neox20)
+    elapsed("phase 19")
+
+    # -- 20. training GPT-NeoX 1.3B ---------------------------------------------
+    def neox_model(attn_impl):
+        return neox_config("1.3b", max_seq_len=NEOX_SEQ, remat="full",
+                           attn_impl=attn_impl, loss_chunk=256)
+    n_layers = neox_model("flash").num_layers
+    free_card(torch, "GPT-NeoX 1.3B training")
+    neox_train = train_phase(
+        torch, np, "GPT-NeoX 1.3B", neox_model, gpt2_optimizer(),
+        NEOX_MICRO, NEOX_SEQ, NEOX_STEPS,
+        {"flash_attention_fwd": 2 * n_layers,
+         "flash_attention_bwd": n_layers, "flash_attention_bwd_dq": 0,
+         "flash_attention_bwd_dkv": 0}, check_micro=NEOX_CHECK_MICRO,
+        profile_shares={"B1": (tck["flash_attention_fwd"],),
+                        "B2": (tck["flash_attention_bwd"],)})
+    elapsed("phase 20")
+
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
     paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
@@ -1907,7 +1963,13 @@ def main() -> int:
           f"(D 80): B5 {served27['decode_attention']}, B1 (forward) "
           f"{served27['flash_attention_fwd']}, B6 "
           f"{served27['paged_decode_attention']}, B7 "
-          f"{served27['paged_prefill_attention']}")
+          f"{served27['paged_prefill_attention']}; GPT-NeoX-20B (64 heads "
+          f"of 96): B5 {neox_served['decode_attention']}, B1 (forward) "
+          f"{neox_served['flash_attention_fwd']}, B6 "
+          f"{neox_served['paged_decode_attention']}, B7 "
+          f"{neox_served['paged_prefill_attention']}; GPT-NeoX 1.3B "
+          f"training: B1 {neox_train['flash_attention_fwd']}, B2 "
+          f"{neox_train['flash_attention_bwd']}")
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
@@ -1928,6 +1990,21 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def free_card(torch, label) -> None:
+    """Collect what earlier phases left (an engine and its server refer
+    to each other, so only the cycle collector frees them) and fail unless
+    the card holds under 8 GiB: the next phase needs the rest (GPT-NeoX-20B
+    serving 51 GB, GPT-NeoX 1.3B training 54 GiB)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"{label}: {left / 2**20:.1f} MiB held on the card by earlier "
+          f"phases")
+    check(left < 8 * 2**30, f"{label}: earlier phases still hold {left} "
+                            f"bytes")
 
 
 def warm_up_at_kv_head_width(eng, prompts, label, kv_heads) -> None:
@@ -1956,12 +2033,16 @@ def serve_phase(torch, np, label, cfg) -> dict:
     seed 0, then ``generate()`` (8 x 128 prompts, 64 new tokens, greedy:
     every decode step on B5), ``forward()`` on B1 against ``generate()``'s
     prefill, and the server (16 requests, prompts 16-512, 32 new each: B6
-    and B7).  Returns the launch counts of the main paths: B5 over the
-    64-token ``generate()``, B1 over ``forward()``, B6/B7 over the
-    drain."""
+    and B7), every greedy server stream equal to ``generate()``'s up to
+    its first near tie (``divergence_gaps`` within twice
+    ``LOGITS_REL_TOL``, as ``fp16_serve_phase`` holds float16); prints
+    the peak device memory.  Returns the launch counts of the main paths:
+    B5 over the 64-token ``generate()``, B1 over ``forward()``, B6/B7
+    over the drain."""
     from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.models.transformer import TransformerLM
     from deepspeed_tpu_torch.ops import build
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = init_inference(TransformerLM(cfg), {
         "dtype": "bfloat16", "temperature": 0.0, "serving": SERVING})
@@ -2056,9 +2137,11 @@ def serve_phase(torch, np, label, cfg) -> dict:
     same = 0
     same_streams = 0
     worst = 0.0
+    refs = []
     for i, r in enumerate(reqs):
         ref = eng.generate(np.asarray(r.prompt)[None], max_new_tokens=32)
         ref = ref[0].tolist()
+        refs.append(ref)
         same += int(sum(a == b for a, b in zip(r.output, ref)))
         same_streams += int(r.output == ref)
         if i < 4:
@@ -2077,6 +2160,14 @@ def serve_phase(torch, np, label, cfg) -> dict:
     print(f"{label} serving streams equal to generate(): {same_streams} of "
           f"16 streams, {same} of {ntok} tokens "
           f"({100.0 * same / ntok:.1f} %)")
+    for req_id, pos, gap in divergence_gaps(np, eng, reqs, refs):
+        print(f"  {req_id} parts from generate() at token {pos}: "
+              f"generate()'s logit gap there {gap!r} of max|logit| (limit "
+              f"{2 * LOGITS_REL_TOL})")
+        check(gap <= 2 * LOGITS_REL_TOL,
+              f"{label} serving: {req_id} parts from generate() at token "
+              f"{pos} where generate()'s gap is {gap:.4f} of max|logit|, "
+              f"not a near tie")
 
     # fresh prompts of the first 8 lengths for each of device_profile's
     # two runs (the served prompts sit in the prefix cache now)
@@ -2091,6 +2182,10 @@ def serve_phase(torch, np, label, cfg) -> dict:
                    f"{label} serving 8 requests, 8 new tokens",
                    shares=PAGED_SHARES)
     drain_profile(torch, srv, lens, cfg.vocab_size, rng, label)
+    print(f"{label}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
     del srv, eng
     import gc
     gc.collect()
@@ -2159,13 +2254,22 @@ def drain(torch, srv, prompts, label, kv_bits, record=None, dtype=None):
     """Submit ``prompts`` (32 new tokens each) to ``srv`` and ``run()``:
     every request OK with 32 tokens, the allocator empty afterwards, the
     B6/B7 variants of ``kv_bits`` and ``dtype`` (default bf16) launched
-    and no other.  ``record(...)`` wraps the model's mixed step during the
-    drain when given.  Returns (requests, launch counts, seconds)."""
+    exactly once a layer for each mixed step with a decode lane (B6) and
+    with a prompt chunk (B7), and no other.  ``record(...)`` wraps the
+    model's mixed step during the drain when given.  Returns (requests,
+    launch counts, seconds)."""
     from deepspeed_tpu_torch.ops import build
     model = srv.model
     mixed = model._apply_paged_mixed
-    if record is not None:
-        model._apply_paged_mixed = record(mixed)
+    lanes = {"decode": 0, "chunk": 0}
+
+    def counted(params, cache, dec_tokens, dec_active, chunk_ids, *rest):
+        lanes["decode"] += int(dec_tokens.shape[0] > 0)
+        lanes["chunk"] += int(chunk_ids.shape[0] > 0)
+        return inner(params, cache, dec_tokens, dec_active, chunk_ids,
+                     *rest)
+    inner = mixed if record is None else record(mixed)
+    model._apply_paged_mixed = counted
     build.reset_launch_counts()
     t0 = time.perf_counter()
     reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
@@ -2185,14 +2289,20 @@ def drain(torch, srv, prompts, label, kv_bits, record=None, dtype=None):
           f"{label}: allocator holds {srv.allocator.num_used} blocks after "
           f"drain")
     dtype = dtype or torch.bfloat16
+    layers = model.config.num_layers
+    steps = {"paged_decode_attention": lanes["decode"],
+             "paged_prefill_attention": lanes["chunk"]}
     for kernel in build.QUANT_KERNELS:
         for bits in (0,) + build.QUANT_BITS:
             for dt in (torch.bfloat16, torch.float16):
                 name = build.counter(kernel, bits, dt)
                 n = counts[name]
-                check(n > 0 if (bits, dt) == (kv_bits, dtype) else n == 0,
+                want = (layers * steps[kernel]
+                        if (bits, dt) == (kv_bits, dtype) else 0)
+                check(n == want and (want > 0 or (bits, dt) != (kv_bits,
+                                                                dtype)),
                       f"{label}: {name} launched {n} times at kv_bits "
-                      f"{kv_bits}, {dtype}")
+                      f"{kv_bits}, {dtype} (want {want})")
     return reqs, counts, wall
 
 
@@ -3229,7 +3339,8 @@ def masked_plain_model(cfg):
     from deepspeed_tpu_torch.models.transformer import TransformerLM
 
     class MaskedPlain(TransformerLM):
-        def _attend_full(self, q, k, v):
+        def _attend_full(self, q, k, v, window=None):
+            del window                  # a block-sparse model has none
             b, t = q.shape[0], q.shape[1]
             mask = self._sparse_mask(0, t, t, q.device)
             return L.gqa_attention(q, k, v, mask=mask).reshape(b, t, -1)

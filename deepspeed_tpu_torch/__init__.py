@@ -10,9 +10,13 @@ plain PyTorch version instead.
 Serving: ``init_inference`` → ``generate()``, ``forward()`` and the
 continuous-batching server.  Training: ``initialize`` →
 ``engine.train_step`` / ``train_batch`` (and the compat
-``forward``/``backward``/``step``).  Both for the GPT-2/GPT-3 and
-LLaMA model families (``hf_llama_config`` maps a Hugging Face LLaMA
-config; ``module_inject/policies.py`` also loads its state dict).
+``forward``/``backward``/``step``).  Both for every model family of
+the JAX package's ``module_inject/policies.py``: GPT-2/GPT-3, GPT-NeoX
+(``neox_config``), GPT-J, OPT, BLOOM, GPT-Neo, LLaMA, and the encoders
+BERT and DistilBERT (``forward()`` and training; no ``generate()``).
+The ``hf_*_config`` functions map a Hugging Face config (an object or a
+``config.json`` dict), and ``convert_hf_model`` a whole Hugging Face
+model (its config and state dict) to ``(TransformerConfig, params)``.
 """
 from __future__ import annotations
 
@@ -20,16 +24,24 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
-from .models.transformer import TransformerConfig, TransformerLM, gpt2_config
-from .module_inject.policies import hf_llama_config
+from .models.transformer import (TransformerConfig, TransformerLM,
+                                 gpt2_config, neox_config)
+from .module_inject.policies import (convert_hf_model, hf_bert_config,
+                                     hf_bloom_config, hf_distilbert_config,
+                                     hf_gpt2_config, hf_gptj_config,
+                                     hf_gptneo_config, hf_llama_config,
+                                     hf_neox_config, hf_opt_config)
 from .runtime.config import DeepSpeedConfig
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .runtime.engine import DeepSpeedEngine
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedDataLoader", "DeepSpeedEngine",
            "DeepSpeedInferenceConfig", "InferenceEngine", "RepeatingLoader",
-           "TransformerConfig", "TransformerLM", "gpt2_config",
-           "hf_llama_config", "init_inference", "initialize"]
+           "TransformerConfig", "TransformerLM", "convert_hf_model",
+           "gpt2_config", "hf_bert_config", "hf_bloom_config",
+           "hf_distilbert_config", "hf_gpt2_config", "hf_gptj_config",
+           "hf_gptneo_config", "hf_llama_config", "hf_neox_config",
+           "hf_opt_config", "init_inference", "initialize", "neox_config"]
 
 
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,

@@ -1,9 +1,11 @@
 """Inference engine of the port: weights, ``generate()``, latency stats
 and the continuous-batching server.
 
-Counterpart of ``deepspeed_tpu/inference/engine.py`` on one device.
-``forward()`` returns full-sequence logits through the uncached forward
-(kernel B1 with kernel injection).  ``generate()`` prefills a dense KV
+Counterpart of ``deepspeed_tpu/inference/engine.py`` on one device, for
+every model family of ``module_inject/policies.py``.  ``forward()``
+returns full-sequence logits through the uncached forward (kernel B1
+with kernel injection; an encoder's too, without the causal mask, and
+with its ``token_type_ids``).  ``generate()`` refuses an encoder.  ``generate()`` prefills a dense KV
 cache through plain attention and then decodes one token at a time; with
 kernel injection
 (``replace_with_kernel_inject``, the default) the model's attention is
@@ -33,7 +35,7 @@ import torch
 
 from ..accelerator import resolve_device
 from ..models.convert import check_params, leaf_to_torch, tree_map
-from ..models.transformer import TransformerLM
+from ..models.transformer import ENCODER_DECODE, TransformerLM
 from ..ops.quantizer.quantizer import dequantize, quantize
 from ..runtime.checkpoint_engine.engine import latest_tag, read_state
 from ..utils.logging import logger
@@ -47,7 +49,8 @@ def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
     if cfg.tensor_parallel.enabled and cfg.tensor_parallel.tp_size > 1:
         later.append("tensor_parallel.tp_size > 1 (multi-device)")
     if cfg.moe.enabled:
-        later.append("moe.enabled (MoE)")
+        later.append("moe.enabled (MoE: the next slice, queue A item 5's "
+                     "rest)")
     if cfg.observability is not None:
         later.append("observability (serving observability hooks)")
     if later:
@@ -98,11 +101,15 @@ class InferenceEngine:
         # kernel injection: flash routes t == 1 decode through kernel B5,
         # xla keeps plain attention (the JAX engine's rewrite).  Only the
         # xla/flash pair is rewritten: blocksparse is a model choice whose
-        # layout must survive serving.  The model's activations take the
-        # engine's dtype, the dtype of its weights, caches and pools, so
-        # the kernels never meet a cast.
-        want = model.config.attn_impl
-        if want in ("xla", "flash"):
+        # layout must survive serving, and per-layer windows or another
+        # softmax scale (GPT-Neo) pin a model to xla, as in the JAX
+        # engine.  The model's activations take the engine's dtype, the
+        # dtype of its weights, caches and pools, so the kernels never
+        # meet a cast.
+        mc = model.config
+        want = mc.attn_impl
+        if (want in ("xla", "flash") and not mc.attention_layers
+                and not mc.attn_softmax_scale):
             want = "flash" if self.config.replace_with_kernel_inject else "xla"
         if (model.config.attn_impl, model.config.dtype) != (want, self.dtype):
             model = TransformerLM(dataclasses.replace(
@@ -234,14 +241,19 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.inference_mode()
-    def forward(self, input_ids) -> torch.Tensor:
+    def forward(self, input_ids, token_type_ids=None) -> torch.Tensor:
         """Full-sequence f32 logits ``[B, T, V]`` of ``input_ids [B, T]``
-        through the uncached forward (kernel B1 with kernel injection, B8
-        on a block-sparse model)."""
-        ids = (input_ids if isinstance(input_ids, torch.Tensor)
-               else torch.as_tensor(np.asarray(input_ids)))
-        return self.module.apply(self._model_params(),
-                                 ids.to(self.device, torch.int64))
+        (an encoder's ``token_type_ids`` default to 0) through the
+        uncached forward (kernel B1 with kernel injection, B8 on a
+        block-sparse model)."""
+        def ids(x):
+            x = (x if isinstance(x, torch.Tensor)
+                 else torch.as_tensor(np.asarray(x)))
+            return x.to(self.device, torch.int64)
+        return self.module.apply(
+            self._model_params(), ids(input_ids),
+            token_type_ids=(None if token_type_ids is None
+                            else ids(token_type_ids)))
 
     __call__ = forward
 
@@ -274,6 +286,8 @@ class InferenceEngine:
                 "num_beams > 1 is not supported: the decode path holds one "
                 "KV-cache line per batch row. Use sampling (temperature / "
                 "top_k / top_p) or expand the batch with repeated prompts.")
+        if not self.module.config.causal:
+            raise NotImplementedError(ENCODER_DECODE)
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int64)
         if ids.dim() != 2:
             raise ValueError(f"input_ids must be [B, T], got "

@@ -3,7 +3,8 @@
 The JAX ``TransformerLM.init`` tree (after ``jax.device_get``: nested
 dicts of numpy arrays, block leaves stacked on the leading layer axis
 for ``lax.scan``) and the port's tree have the same paths, shapes and
-layouts, so the bridge is a leaf-by-leaf numpy <-> torch map.  bfloat16
+layouts for every family (``ln_embed``, ``type_embed``, ``mlm_head``
+and GPT-J's ``lm_head.bias`` included), so the bridge is a leaf-by-leaf numpy <-> torch map.  bfloat16
 arrays (``ml_dtypes.bfloat16`` on the numpy side) cross bit-exactly
 through their 16-bit patterns.  A train state crosses as its counters
 (``step``, ``skipped``, the optimizer's ``step``) plus the trees of the
@@ -52,7 +53,8 @@ def tree_map(tree, fn):
 
 def check_params(model: TransformerLM, params: Dict[str, Any]) -> None:
     """Raise ``ValueError`` naming the first path whose presence or shape
-    differs from the tree ``model`` expects."""
+    differs from the tree ``model`` expects (``lm_head.bias`` is the one
+    optional leaf: GPT-J's head carries it)."""
     def walk(want, got, path):
         if isinstance(want, dict):
             if not isinstance(got, dict):
@@ -67,7 +69,8 @@ def check_params(model: TransformerLM, params: Dict[str, Any]) -> None:
         elif tuple(got.shape) != tuple(want):
             raise ValueError(f"params{path}: shape {tuple(got.shape)} != "
                              f"{tuple(want)}")
-    walk(model.param_shapes(), params, "")
+    head_bias = "bias" in (params.get("lm_head") or {})
+    walk(model.param_shapes(head_bias=head_bias), params, "")
 
 
 def params_from_jax(tree: Dict[str, Any], model: TransformerLM,

@@ -1,6 +1,6 @@
 """Functional layers of the port (counterpart of
-``deepspeed_tpu/models/layers.py``, the subset the GPT-2 and LLaMA
-families use).
+``deepspeed_tpu/models/layers.py``: every piece the model families of
+``module_inject/policies.py`` use, ALiBi included).
 
 Parameters are plain nested dicts of tensors in the JAX package's
 layouts: dense kernels are ``[in, out]`` and embeddings ``[vocab, d]``,
@@ -164,25 +164,63 @@ def embedding_attend(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   *, mask: Optional[torch.Tensor] = None,
-                  kv_positions_offset: int = 0) -> torch.Tensor:
-    """Plain causal attention, q ``[B, Tq, H, D]`` with H = g KVH against
-    k/v ``[B, Tk, KVH, D]`` (multi-head attention is g = 1), through a
-    group einsum that never materialises expanded k/v: scores and softmax
-    in f32, probabilities cast to q's dtype for the value product, query
-    i at position ``kv_positions_offset + i``.  ``mask`` (bool, True =
-    visible) is broadcastable to ``[B, KVH, g, Tq, Tk]`` and hides pairs
-    on top of the causal mask.  Returns ``[B, Tq, H, D]``."""
+                  scale: Optional[float] = None,
+                  kv_positions_offset: int = 0, causal: bool = True,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain attention, q ``[B, Tq, H, D]`` with H = g KVH against k/v
+    ``[B, Tk, KVH, D]`` (multi-head attention is g = 1), through a group
+    einsum that never materialises expanded k/v: scores and softmax in
+    f32, probabilities cast to q's dtype for the value product, query i
+    at position ``kv_positions_offset + i``.  ``scale`` multiplies the
+    scores (None: ``1 / sqrt(D)``); ``bias`` (f32, broadcastable to
+    ``[B, H, Tq, Tk]``: ALiBi) is added to them, regrouped over (kv
+    heads, group); ``causal=False`` drops the causal mask (encoders);
+    ``mask`` (bool, True = visible) is broadcastable to ``[B, KVH, g, Tq,
+    Tk]`` and hides pairs on top of it.  Returns ``[B, Tq, H, D]``."""
     b, tq, nh, hd = q.shape
     nkv = k.shape[2]
-    qg = q.reshape(b, tq, nkv, nh // nkv, hd)
-    logits = (torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
-              / math.sqrt(hd))
+    g = nh // nkv
+    qg = q.reshape(b, tq, nkv, g, hd)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    logits = (logits / math.sqrt(hd) if scale is None
+              else logits * scale)
+    if bias is not None:
+        bias = bias.float().expand(*bias.shape[:-3], nh, *bias.shape[-2:])
+        logits = logits + bias.reshape(*bias.shape[:-3], nkv, g,
+                                       *bias.shape[-2:])
     tk = k.shape[1]
-    q_pos = torch.arange(tq, device=q.device) + kv_positions_offset
-    keep = q_pos[:, None] >= torch.arange(tk, device=q.device)[None, :]
-    logits = logits.masked_fill(~keep, -1e30)
+    if causal:
+        q_pos = torch.arange(tq, device=q.device) + kv_positions_offset
+        keep = q_pos[:, None] >= torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(~keep, -1e30)
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(q.dtype))
     return out.reshape(b, tq, nh, hd)
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """ALiBi head slopes ``[H]`` f32 (Press et al.; BLOOM's
+    ``build_alibi_tensor``): powers of ``2^(-8/n)`` for the largest power
+    of two n <= H, the heads past it interleaved from ``2^(-4/n)``."""
+    n = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+    slopes = [base ** (i + 1) for i in range(n)]
+    if n < num_heads:
+        extra = 2.0 ** (-(2.0 ** -(math.log2(2 * n) - 3)))
+        slopes += [extra ** (i + 1)
+                   for i in range(0, 2 * (num_heads - n), 2)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+def alibi_bias(num_heads: int, tk: int,
+               q_positions: torch.Tensor) -> torch.Tensor:
+    """``[H, Tq, Tk]`` f32 additive bias ``-slope_h * |q_pos - k_pos|``
+    for queries at ``q_positions [Tq]`` over keys 0 .. tk - 1 (a distance
+    penalty both ways, so an encoder may use it too)."""
+    dev = q_positions.device
+    slopes = alibi_slopes(num_heads).to(dev)
+    rel = -(torch.arange(tk, device=dev)[None, :]
+            - q_positions[:, None]).abs()
+    return slopes[:, None, None] * rel[None].float()

@@ -1,16 +1,23 @@
-"""Decoder-only transformer LM of the port: the GPT-2/GPT-3 and LLaMA
-families.
+"""Transformer LM of the port: every model family of the JAX package's
+``module_inject/policies.py`` (GPT-2/GPT-3, GPT-NeoX, GPT-J, OPT, BLOOM,
+GPT-Neo, LLaMA, BERT and DistilBERT).
 
-Counterpart of ``deepspeed_tpu/models/transformer.py`` for the pre-norm
-serial-residual decoders: learned positions or rotary embeddings
-(``rotary_pct``, ``rotary_base``, GPT-J interleaved or rotate-half
-pairing), LayerNorm or RMSNorm, a plain or gated (SwiGLU) MLP with any
-of the JAX package's activations, multi-head or grouped-query attention
+Counterpart of ``deepspeed_tpu/models/transformer.py``: learned
+positions, rotary embeddings (``rotary_pct``, ``rotary_base``, GPT-J
+interleaved or rotate-half pairing) or ALiBi (BLOOM; never on a kernel:
+flash and B5 are skipped for it and the paged server refuses it, as in
+the JAX model); LayerNorm or RMSNorm; pre-norm blocks with a serial or a
+parallel residual (NeoX, GPT-J: ``x + attn(ln1 x) + mlp(ln2 x)``) or
+post-norm encoder blocks (BERT: ``ln(x + f(x))``, ``causal=False``, no
+final norm, token types, the MLM head); an optional layernorm on the
+embeddings (BLOOM, BERT); a plain or gated (SwiGLU) MLP with any of the
+JAX package's activations; multi-head or grouped-query attention
 (``num_kv_heads``; the fused qkv projection is q | k | v along its
-output), tied or untied (``lm_head``) output, with or without biases;
-bf16 activations with f32 norms, rotary, softmax and logits.  ALiBi,
-parallel residual, MoE, encoders and ``attn_softmax_scale`` raise
-``NotImplementedError``.
+output); per-layer local windows and an unscaled softmax (GPT-Neo:
+``attention_layers``, ``attn_softmax_scale``, on plain attention only);
+tied or untied (``lm_head``, with GPT-J's optional bias) output, with or
+without biases; bf16 activations with f32 norms, rotary, softmax and
+logits.  MoE raises ``NotImplementedError`` (the next slice).
 
 Parameters are a nested dict in the JAX package's layout (dense kernels
 ``[in, out]``, block leaves stacked on a leading layer axis), so
@@ -86,10 +93,21 @@ class TransformerConfig:
     d_model: int = 768
     d_ff: int = 0                      # 0 -> 4 * d_model
     head_dim: int = 0                  # 0 -> d_model // num_heads
-    pos_embedding: str = "learned"     # learned | rotary (JAX also alibi|none)
+    pos_embedding: str = "learned"     # learned | rotary | alibi | none
+    # decoder (causal) vs encoder (bidirectional: BERT)
     causal: bool = True
+    # "pre": x + f(ln x) (decoders); "post": ln(x + f(x)) (BERT)
     norm_position: str = "pre"
+    # final norm after the block stack (BERT has none)
     final_layernorm: bool = True
+    # BLOOM/BERT layernorm on the embedding output (params["ln_embed"])
+    embed_layernorm: bool = False
+    # BERT token-type (segment) embeddings (params["type_embed"]); 0: none
+    token_type_vocab: int = 0
+    # BERT MLM head: dense, act, LN, the tied decoder and a vocab bias
+    # (params["mlm_head"])
+    mlm_head: bool = False
+    # NeoX/GPT-J: x + attn(ln1 x) + mlp(ln2 x)
     parallel_residual: bool = False
     norm_type: str = "layernorm"
     activation: str = "gelu"
@@ -109,7 +127,12 @@ class TransformerConfig:
     # True = GPT-J "rotate_every_two" pairing, False = rotate_half (NeoX,
     # LLaMA)
     rotary_interleaved: bool = True
+    # softmax scale: 0 = 1/sqrt(head_dim); GPT-Neo trains unscaled (1.0)
     attn_softmax_scale: float = 0.0
+    # GPT-Neo: "global"/"local" per layer; a local layer sees its last
+    # ``local_attention_window`` keys (itself included).  Empty: global
+    attention_layers: tuple = ()
+    local_attention_window: int = 256
     # chunked cross-entropy: tokens per loss chunk (0 = off)
     loss_chunk: int = 512
     # analytic loss head (ops/transformer/fused_loss.py)
@@ -169,25 +192,40 @@ GPT2_SIZES = {
 }
 
 
+NEOX_SIZES = {
+    "1.3b": dict(num_layers=24, num_heads=16, d_model=2048),
+    "20b": dict(num_layers=44, num_heads=64, d_model=6144, rotary_pct=0.25),
+}
+
+
 def gpt2_config(size: str = "125m", **kw) -> TransformerConfig:
     return TransformerConfig(**{"pos_embedding": "learned",
                                 "parallel_residual": False,
                                 **GPT2_SIZES[size], **kw})
 
 
-#: what each configuration outside the GPT-2 and LLaMA families needs,
-#: and the later slice of the port (ROADMAP.md queue A) that brings it
+def neox_config(size: str = "1.3b", **kw) -> TransformerConfig:
+    """The GPT-NeoX family: rotary (rotate-half pairing), parallel
+    residual."""
+    return TransformerConfig(**{"pos_embedding": "rotary",
+                                "parallel_residual": True,
+                                "rotary_interleaved": False,
+                                **NEOX_SIZES[size], **kw})
+
+
+#: what each configuration outside the port's slices so far needs, and
+#: the later slice (ROADMAP.md queue A) that brings it
 _OUT_OF_SLICE = (
-    (lambda c: c.pos_embedding not in ("learned", "rotary"),
-     "pos_embedding={pos_embedding!r} (ALiBi: the BLOOM family)"),
-    (lambda c: c.parallel_residual, "parallel_residual (NeoX)"),
-    (lambda c: c.moe_num_experts > 0, "moe_num_experts (MoE)"),
-    (lambda c: not c.causal or c.norm_position != "pre"
-     or not c.final_layernorm, "encoder / post-norm families (BERT)"),
-    (lambda c: c.attn_softmax_scale, "attn_softmax_scale (GPT-Neo)"),
+    (lambda c: c.moe_num_experts > 0, "moe_num_experts (MoE)",
+     "the next slice, MoE on one device (ROADMAP.md queue A item 5's "
+     "rest),"),
     (lambda c: c.attn_impl not in ("xla", "flash", "blocksparse"),
-     "attn_impl={attn_impl!r}"),
+     "attn_impl={attn_impl!r}", "multi-device (ROADMAP.md queue A item 7)"),
 )
+
+#: the message of a KV-cache decode on an encoder (the JAX model's)
+ENCODER_DECODE = ("KV-cache decode on a non-causal (encoder) model is "
+                  "meaningless — encoders have no autoregressive order")
 
 
 _aten = torch.ops.aten
@@ -225,13 +263,38 @@ REMAT_POLICIES = {
 
 
 def check_in_slice(c: TransformerConfig) -> None:
-    for test, what in _OUT_OF_SLICE:
+    """Raise for a configuration the port does not run (yet), and for
+    the ones the JAX model's constructor refuses."""
+    for test, what, where in _OUT_OF_SLICE:
         if test(c):
             raise NotImplementedError(
                 f"{what.format(**dataclasses.asdict(c))} is outside the "
-                f"slices of the PyTorch port so far (the GPT-2 and LLaMA "
-                f"families); the model-families slice of ROADMAP.md queue "
-                f"A brings it")
+                f"slices of the PyTorch port so far; {where} brings it")
+    if c.attention_layers:
+        if len(c.attention_layers) != c.num_layers:
+            raise ValueError(
+                f"attention_layers has {len(c.attention_layers)} entries "
+                f"for {c.num_layers} layers")
+        bad = set(c.attention_layers) - {"global", "local"}
+        if bad:
+            raise ValueError(f"attention_layers entries must be "
+                             f"'global'/'local', got {sorted(bad)}")
+        if c.attn_impl != "xla":
+            raise NotImplementedError(
+                f"attention_layers needs attn_impl='xla' (the kernels take "
+                f"no per-layer window operand); got {c.attn_impl!r}")
+    if c.attn_softmax_scale and c.attn_impl != "xla":
+        raise NotImplementedError(
+            "attn_softmax_scale != 1/sqrt(hd) needs attn_impl='xla' (B1 "
+            "and B5 run on the model's paths at the standard scale)")
+    if c.pos_embedding == "alibi" and c.attn_impl == "blocksparse":
+        raise NotImplementedError(
+            "ALiBi with attn_impl='blocksparse': the block-sparse kernels "
+            "take no bias (the JAX model drops it on that path)")
+    if c.pos_embedding not in ("learned", "rotary", "alibi", "none"):
+        raise ValueError(f"unknown pos_embedding {c.pos_embedding!r}")
+    if c.norm_position not in ("pre", "post"):
+        raise ValueError(f"unknown norm_position {c.norm_position!r}")
     if c.remat == "host_offload":
         raise NotImplementedError(
             "remat='host_offload' (activations spilled to host memory) "
@@ -285,11 +348,15 @@ class TransformerLM(nn.Module):
         self.block_transform = lambda bp: bp
 
     # -- parameters ---------------------------------------------------------
-    def param_shapes(self) -> Params:
+    def param_shapes(self, head_bias: bool = False) -> Params:
         """The params tree's leaf shapes (the JAX package's tree: no
-        ``pos_embed`` with rotary, RMSNorm leaves hold ``scale`` only,
-        ``mlp.fc_gate`` with a gated MLP, ``lm_head.kernel [D, V]`` when
-        untied, no biases without ``use_bias``)."""
+        ``pos_embed`` without learned positions, RMSNorm leaves hold
+        ``scale`` only, ``mlp.fc_gate`` with a gated MLP, ``lm_head.kernel
+        [D, V]`` when untied (and ``lm_head.bias [V]`` with
+        ``head_bias``: GPT-J's loader adds it, no init makes it), no
+        biases without ``use_bias``, ``ln_f`` only with a final norm,
+        ``ln_embed``, ``type_embed`` and ``mlm_head`` when
+        configured)."""
         c = self.config
         d, f, n = c.d_model, c.ff_dim, c.num_layers
         hd = c.num_heads * c.hdim
@@ -310,16 +377,26 @@ class TransformerLM(nn.Module):
             mlp["fc_gate"] = dense(d, f)
         tree = {
             "embed": {"embedding": (c.vocab_size, d)},
-            "ln_f": norm(),
             "blocks": {"ln1": norm(n), "ln2": norm(n),
                        "attn": {"qkv": dense(d, c.qkv_dim),
                                 "out": dense(hd, d)},
                        "mlp": mlp},
         }
+        if c.final_layernorm:
+            tree["ln_f"] = norm()
         if c.pos_embedding == "learned":
             tree["pos_embed"] = {"embedding": (c.max_seq_len, d)}
         if not c.tie_embeddings:
             tree["lm_head"] = {"kernel": (d, c.vocab_size)}
+            if head_bias:
+                tree["lm_head"]["bias"] = (c.vocab_size,)
+        if c.embed_layernorm:
+            tree["ln_embed"] = norm()
+        if c.token_type_vocab:
+            tree["type_embed"] = {"embedding": (c.token_type_vocab, d)}
+        if c.mlm_head:
+            tree["mlm_head"] = {"dense": {"kernel": (d, d), "bias": (d,)},
+                                "ln": norm(), "bias": (c.vocab_size,)}
         return tree
 
     def init(self, generator: torch.Generator, device=None,
@@ -329,7 +406,9 @@ class TransformerLM(nn.Module):
         by 1/sqrt(2 L), norm scales 1 and biases 0), drawn one layer at a
         time on ``device`` (default the card; raises without one) in f32
         and stored in ``dtype`` (default ``param_dtype``).  Random numbers
-        differ from the JAX init."""
+        differ from the JAX init; the leaves only some families have
+        (``ln_embed``, ``type_embed``, ``mlm_head``) are drawn last, so
+        the others keep their numbers."""
         c = self.config
         dtype = dtype or c.param_dtype
         device = resolve_device(device)
@@ -370,7 +449,8 @@ class TransformerLM(nn.Module):
         if c.pos_embedding == "learned":
             params["pos_embed"] = {"embedding": normal((c.max_seq_len, d),
                                                        0.01)}
-        params["ln_f"] = norm()
+        if c.final_layernorm:
+            params["ln_f"] = norm()
         blocks = {
             "ln1": norm(n),
             "attn": {"qkv": dense(d, c.qkv_dim),
@@ -384,6 +464,15 @@ class TransformerLM(nn.Module):
         params["blocks"] = blocks
         if not c.tie_embeddings:
             params["lm_head"] = {"kernel": normal((d, c.vocab_size), 0.02)}
+        if c.embed_layernorm:
+            params["ln_embed"] = norm()
+        if c.token_type_vocab:
+            params["type_embed"] = {"embedding": normal(
+                (c.token_type_vocab, d), 0.02)}
+        if c.mlm_head:
+            params["mlm_head"] = {
+                "dense": {"kernel": normal((d, d), 0.02), "bias": zeros(d)},
+                "ln": norm(), "bias": zeros(c.vocab_size)}
         return params
 
     # -- pieces ---------------------------------------------------------------
@@ -393,12 +482,63 @@ class TransformerLM(nn.Module):
         return norm(p, x, eps=self.config.layernorm_eps)
 
     def _embed(self, params: Params, ids: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor,
+               token_type_ids: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """Word (+ position, + token-type) embeddings, then the embedding
+        layernorm when configured (BLOOM, BERT)."""
         c = self.config
         x = L.embedding_apply(params["embed"], ids, c.dtype)
         if c.pos_embedding == "learned":
             x = x + L.embedding_apply(params["pos_embed"], positions, c.dtype)
+        if c.token_type_vocab:
+            tt = (torch.zeros_like(ids) if token_type_ids is None
+                  else token_type_ids.to(ids.device, torch.int64))
+            x = x + L.embedding_apply(params["type_embed"], tt, c.dtype)
+        if c.embed_layernorm:
+            x = self._norm(params["ln_embed"], x)
         return x
+
+    def _final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return (self._norm(params["ln_f"], x) if self.config.final_layernorm
+                else x)
+
+    @property
+    def _attn_scale(self) -> Optional[float]:
+        return self.config.attn_softmax_scale or None
+
+    def _layer_windows(self) -> List[Optional[int]]:
+        """Each layer's attention window: ``local_attention_window`` on
+        a "local" layer of ``attention_layers``, else None (every key;
+        the JAX model's ``_GLOBAL_WINDOW`` masks nothing either)."""
+        c = self.config
+        if not c.attention_layers:
+            return [None] * c.num_layers
+        return [c.local_attention_window if a == "local" else None
+                for a in c.attention_layers]
+
+    def _plain_attention(self, q, k, v, offset: int = 0,
+                         window: Optional[int] = None,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """Plain attention of queries at positions ``offset .. offset +
+        Tq - 1`` over keys 0 .. Tk - 1 with the model's causality and
+        softmax scale, the ALiBi bias at those positions, the layer's
+        ``window`` (a key ``window`` or more positions back is hidden)
+        and ``mask`` on top."""
+        c = self.config
+        tq, tk = q.shape[1], k.shape[1]
+        qpos = offset + torch.arange(tq, device=q.device)
+        bias = None
+        if c.pos_embedding == "alibi":
+            bias = L.alibi_bias(c.num_heads, tk, qpos)[None]
+        if window is not None:
+            band = (qpos[:, None] - torch.arange(tk, device=q.device)
+                    [None, :]) < window
+            mask = band if mask is None else mask & band
+        return L.gqa_attention(q, k, v, mask=mask, scale=self._attn_scale,
+                               kv_positions_offset=offset, causal=c.causal,
+                               bias=bias)
 
     def _rotary_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """f32 (cos, sin) ``[max_seq_len, rotary_dim / 2]`` on ``device``,
@@ -442,30 +582,56 @@ class TransformerLM(nn.Module):
 
     def _block(self, bp: Params, x: torch.Tensor, attend,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Pre-norm serial residual block; ``attend(q, k, v)`` returns
-        ``[.., T, H*D]`` attention output for this layer."""
-        q, k, v = self._qkv(bp["attn"], self._norm(bp["ln1"], x), positions)
-        x = x + L.dense_apply(bp["attn"]["out"], attend(q, k, v))
+        """One block: pre-norm with a serial residual, pre-norm with a
+        parallel one (NeoX, GPT-J), or post-norm (BERT); ``attend(q, k,
+        v)`` returns ``[.., T, H*D]`` attention output for this layer."""
+        c = self.config
+
+        def attn(h):
+            q, k, v = self._qkv(bp["attn"], h, positions)
+            return L.dense_apply(bp["attn"]["out"], attend(q, k, v))
+        if c.norm_position == "post":
+            x = self._norm(bp["ln1"], x + attn(x))
+            return self._norm(bp["ln2"], x + self._mlp(bp["mlp"], x))
+        if c.parallel_residual:
+            a = attn(self._norm(bp["ln1"], x))
+            return x + (a + self._mlp(bp["mlp"], self._norm(bp["ln2"], x)))
+        x = x + attn(self._norm(bp["ln1"], x))
         return x + self._mlp(bp["mlp"], self._norm(bp["ln2"], x))
 
     def _project(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits: the tied embedding or the untied ``lm_head``, from
-        operands in x's dtype."""
-        if self.config.tie_embeddings:
+        """f32 logits from operands in x's dtype: the MLM head (dense,
+        act, LN, the tied decoder, the vocab bias), the tied embedding,
+        or the untied ``lm_head`` (plus its f32 bias when it has one)."""
+        c = self.config
+        if c.mlm_head:
+            mh = params["mlm_head"]
+            h = L.ACT_FNS[c.activation](L.dense_apply(mh["dense"], x))
+            logits = L.embedding_attend(params["embed"],
+                                        self._norm(mh["ln"], h))
+            return logits + mh["bias"].float()
+        if c.tie_embeddings:
             return L.embedding_attend(params["embed"], x)
-        return L.f32_product(x, params["lm_head"]["kernel"])
+        logits = L.f32_product(x, params["lm_head"]["kernel"])
+        if "bias" in params["lm_head"]:
+            logits = logits + params["lm_head"]["bias"].float()
+        return logits
 
     # -- full forward and dense-cache decode ------------------------------
     def apply(self, params: Params, input_ids: torch.Tensor,
-              cache: Optional[Dict[str, Any]] = None):
-        """input_ids ``[B, T]`` → f32 logits ``[B, T, V]``; with ``cache``
-        (from :meth:`init_cache`) returns ``(logits, cache)`` after
-        writing the T new rows at ``cache["index"]`` in place."""
+              cache: Optional[Dict[str, Any]] = None,
+              token_type_ids: Optional[torch.Tensor] = None):
+        """input_ids ``[B, T]`` (and an encoder's ``token_type_ids``,
+        default 0) → f32 logits ``[B, T, V]``; with ``cache`` (from
+        :meth:`init_cache`) returns ``(logits, cache)`` after writing the
+        T new rows at ``cache["index"]`` in place."""
         c = self.config
         b, t = input_ids.shape
         if cache is None:
-            return self._project(params, self.hidden_states(params,
-                                                            input_ids))
+            return self._project(params, self.hidden_states(
+                params, input_ids, token_type_ids))
+        if not c.causal:
+            raise NotImplementedError(ENCODER_DECODE)
         idx = int(cache["index"])
         if idx + t > cache["k"].shape[2]:
             raise ValueError(f"cache holds {cache['k'].shape[2]} rows, "
@@ -476,21 +642,16 @@ class TransformerLM(nn.Module):
         if c.attn_impl == "blocksparse":
             sparse = self._sparse_mask(idx, t, cache["k"].shape[2],
                                        input_ids.device)[..., :idx + t]
+        windows = self._layer_windows()
         for i, bp in enumerate(layer_views(params["blocks"])):
             bp = self.block_transform(bp)
             ck, cv = cache["k"][i], cache["v"][i]
 
-            def attend(q, k, v, ck=ck, cv=cv):
+            def attend(q, k, v, ck=ck, cv=cv, window=windows[i]):
                 ck[:, idx:idx + t] = k
                 cv[:, idx:idx + t] = v
-                if sparse is not None:
-                    # the layout the model trained with, at the query
-                    # positions (the JAX model's dense-cache path)
-                    o = L.gqa_attention(q, ck[:, :idx + t], cv[:, :idx + t],
-                                        mask=sparse,
-                                        kv_positions_offset=idx)
-                    return o.reshape(b, t, -1)
-                if t == 1 and c.attn_impl == "flash":
+                if (t == 1 and c.attn_impl == "flash"
+                        and c.pos_embedding != "alibi"):
                     # token-at-a-time hot path: kernel B5 over the cache
                     # at kv-head width (query head h reads kv head h // g;
                     # the JAX model expands the cache with `expand_kv`
@@ -498,11 +659,15 @@ class TransformerLM(nn.Module):
                     o = decode_attention(q[:, 0].contiguous(), ck, cv,
                                          idx + 1)
                     return o.reshape(b, 1, -1)
-                o = L.gqa_attention(q, ck[:, :idx + t], cv[:, :idx + t],
-                                    kv_positions_offset=idx)
+                # plain attention: the layout the model trained with at
+                # the query positions (block-sparse), ALiBi, the layer's
+                # window (the JAX model's dense-cache path)
+                o = self._plain_attention(q, ck[:, :idx + t],
+                                          cv[:, :idx + t], idx, window,
+                                          sparse)
                 return o.reshape(b, t, -1)
             x = self._block(bp, x, attend, pos)
-        logits = self._project(params, self._norm(params["ln_f"], x))
+        logits = self._project(params, self._final_norm(params, x))
         return logits, {"k": cache["k"], "v": cache["v"], "index": idx + t}
 
     forward = apply
@@ -528,16 +693,18 @@ class TransformerLM(nn.Module):
                               preserve_rng_state=False, **kw)
         return wrapped
 
-    def _attend_full(self, q, k, v):
-        """Causal self-attention over a whole sequence, q ``[B, T, H, D]``
-        and k/v ``[B, T, KVH, D]`` → ``[B, T, H*D]``: kernels B1 and B2
-        (or B3/B4) with ``flash``, B8 and B9/B10 with ``blocksparse``
-        (plain attention masked by the layout when T does not divide by
-        its block), plain attention with ``xla``."""
+    def _attend_full(self, q, k, v, window: Optional[int] = None):
+        """Self-attention over a whole sequence (causal, or full on an
+        encoder), q ``[B, T, H, D]`` and k/v ``[B, T, KVH, D]`` → ``[B, T,
+        H*D]``: kernels B1 and B2 (or B3/B4) with ``flash`` (but for
+        ALiBi, which takes plain attention as in the JAX model), B8 and
+        B9/B10 with ``blocksparse`` (plain attention masked by the layout
+        when T does not divide by its block), plain attention with
+        ``xla`` (ALiBi, the layer's ``window``, the softmax scale)."""
         c = self.config
         b, t = q.shape[0], q.shape[1]
-        if c.attn_impl == "flash":
-            o = flash_attention_bthd(q, k, v, causal=True)
+        if c.attn_impl == "flash" and c.pos_embedding != "alibi":
+            o = flash_attention_bthd(q, k, v, causal=c.causal)
         elif c.attn_impl == "blocksparse":
             scfg = self._sparsity_config()
             if t % scfg.block == 0:
@@ -549,10 +716,10 @@ class TransformerLM(nn.Module):
                     v = v.repeat_interleave(g, dim=2)
                 o = blocksparse_attention_bthd(q, k, v, scfg)
             else:
-                o = L.gqa_attention(q, k, v,
+                o = L.gqa_attention(q, k, v, causal=c.causal,
                                     mask=self._sparse_mask(0, t, t, q.device))
         else:
-            o = L.gqa_attention(q, k, v)
+            o = self._plain_attention(q, k, v, 0, window)
         return o.reshape(b, t, -1)
 
     def _sparsity_config(self):
@@ -597,17 +764,21 @@ class TransformerLM(nn.Module):
             return mask[None, :, None]
         return mask.reshape(1, c.kv_heads, c.num_heads // c.kv_heads, t, tk)
 
-    def hidden_states(self, params: Params,
-                      input_ids: torch.Tensor) -> torch.Tensor:
-        """Forward up to the final norm, pre-projection: ``[B, T, D]``."""
+    def hidden_states(self, params: Params, input_ids: torch.Tensor,
+                      token_type_ids: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """Forward up to the final norm (when the model has one),
+        pre-projection: ``[B, T, D]``."""
         t = input_ids.shape[1]
         pos = torch.arange(t, device=input_ids.device)[None]
-        x = self._embed(params, input_ids, pos)
-        block = self._remat(lambda bp, x: self._block(
-            self.block_transform(bp), x, self._attend_full))
-        for bp in layer_views(params["blocks"]):
-            x = block(bp, x)
-        return self._norm(params["ln_f"], x)
+        x = self._embed(params, input_ids, pos, token_type_ids)
+        block = self._remat(lambda bp, x, window: self._block(
+            self.block_transform(bp), x,
+            functools.partial(self._attend_full, window=window)))
+        for bp, window in zip(layer_views(params["blocks"]),
+                              self._layer_windows()):
+            x = block(bp, x, window)
+        return self._final_norm(params, x)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
@@ -634,11 +805,13 @@ class TransformerLM(nn.Module):
                         labels: torch.Tensor,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Mean masked NLL from final hidden states ``[B, T, D]``: the
-        loss head alone (fused, chunked with remat, or dense)."""
+        loss head alone (fused, chunked with remat, or dense; never fused
+        for the MLM head, whose transform sits before the decoder, as in
+        the JAX model)."""
         c = self.config
         chunk = c.loss_chunk
         b, t = labels.shape
-        if c.fused_loss_head:
+        if c.fused_loss_head and not c.mlm_head:
             if c.tie_embeddings:
                 w, bias, tw = params["embed"]["embedding"], None, True
             else:
@@ -703,6 +876,9 @@ class TransformerLM(nn.Module):
             return "paged decode needs a causal (decoder) model"
         if c.moe_num_experts > 0:
             return "paged decode does not cover MoE block stacks yet"
+        if c.attention_layers:
+            return ("paged decode does not apply per-layer local windows "
+                    "(GPT-Neo family)")
         if c.pos_embedding == "alibi":
             return "paged decode does not carry the ALiBi bias yet"
         if c.hdim % 8:
@@ -837,7 +1013,8 @@ class TransformerLM(nn.Module):
                 for pool, rows in new:
                     pool.view((nb * blk,) + tuple(pool.shape[2:])).index_copy_(
                         0, write, rows)
-                quant = dict(k_scale=ks, v_scale=vs, kv_bits=kv_bits)
+                quant = dict(sm_scale=self._attn_scale, k_scale=ks,
+                             v_scale=vs, kv_bits=kv_bits)
                 parts = []
                 if bsl:
                     parts.append(paged_decode_attention(
@@ -849,7 +1026,7 @@ class TransformerLM(nn.Module):
                         chunk_len, ctable, **quant))
                 return torch.cat(parts).reshape(1, t, -1)
             x = self._block(self.block_transform(bp), x, attend, positions)
-        x = self._norm(params["ln_f"], x)
+        x = self._final_norm(params, x)
         rows = [x[0, :bsl]]
         if nc:
             last = bsl + max(chunk_len - 1, 0)

@@ -1774,3 +1774,188 @@ def test_cuda_save_load_is_bit_equal(async_save, tmp_path):
     assert float(ma["loss"]) == float(mf["loss"])
     for x, y in zip(leaves(a.state), leaves(fresh.state)):
         assert torch.equal(x, y)
+
+
+# -- the model families on the card ------------------------------------------------
+#: (family, the model's fields) at 2 layers and each family's published
+#: head dim: GPT-NeoX 1.3B's 128 (rotary on a quarter), GPT-J's 256, OPT
+#: 6.7B's 128, BLOOM's 128 (ALiBi: no kernel), GPT-Neo 1.3B's 128 (per-layer
+#: windows, unscaled softmax: pinned to plain attention)
+FAMILY_CASES = {
+    "neox": dict(num_heads=4, d_model=512, pos_embedding="rotary",
+                 rotary_pct=0.25, rotary_interleaved=False,
+                 parallel_residual=True, tie_embeddings=False),
+    "gptj": dict(num_heads=2, d_model=512, pos_embedding="rotary",
+                 rotary_pct=0.25, rotary_interleaved=True,
+                 parallel_residual=True, tie_embeddings=False),
+    "opt": dict(num_heads=4, d_model=512, activation="relu", d_ff=1024),
+    "bloom": dict(num_heads=4, d_model=512, pos_embedding="alibi",
+                  embed_layernorm=True),
+    "gptneo": dict(num_heads=4, d_model=512,
+                   attention_layers=("global", "local"),
+                   local_attention_window=8, attn_softmax_scale=1.0),
+}
+
+
+def _family_engines(family, dtype, serving=None):
+    """The family's model on the card through ``init_inference`` with
+    kernel injection and without, on the same seeded weights."""
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                        TransformerLM)
+    cfg = TransformerConfig(num_layers=2, vocab_size=512, max_seq_len=128,
+                            **FAMILY_CASES[family])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = TransformerLM(cfg).init(g, "cuda", torch.float32)
+    base = {"dtype": dtype, "max_out_tokens": 128, "temperature": 0.0}
+    if serving:
+        base["serving"] = serving
+    return [dt.init_inference(TransformerLM(cfg), {
+        **base, "replace_with_kernel_inject": inject}, params=params)
+        for inject in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILY_CASES))
+def test_cuda_family_kernels_match_plain_model(family):
+    """Each decoder family at 2 layers and its published head dim on the
+    card, float32: ``forward()`` through the injected model (B1, but for
+    ALiBi and GPT-Neo's windows, which stay on plain attention as in the
+    JAX model) against the same weights on plain attention, logits within
+    1e-4; greedy ``generate()`` (B5 decode) token for token.  GPT-J's head
+    dim of 256 has no f32 B5 (ROADMAP C1's remainder), so its
+    ``generate()`` runs in bf16 against plain attention in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops import build
+    kern, plain = _family_engines(family, "float32")
+    want_impl = "xla" if family == "gptneo" else "flash"
+    assert kern.module.config.attn_impl == want_impl
+    assert plain.module.config.attn_impl == "xla"
+    rs = np.random.RandomState(1)
+    x = rs.randint(0, 512, (2, 48))
+    build.reset_launch_counts()
+    got = kern.forward(x)
+    torch.cuda.synchronize()
+    b1 = build.launch_counts["flash_attention_fwd"]
+    assert b1 == (2 if family in ("neox", "gptj", "opt") else 0)
+    torch.testing.assert_close(got, plain.forward(x), atol=1e-4, rtol=1e-4)
+    prompts = rs.randint(0, 512, (2, 20))
+    if family == "gptj":
+        kern, plain = _family_engines(family, "bfloat16")
+    build.reset_launch_counts()
+    toks = kern.generate(prompts, max_new_tokens=8)
+    torch.cuda.synchronize()
+    b5 = sum(n for name, n in build.launch_counts.items()
+             if name.startswith("decode_attention"))
+    assert b5 == (2 * 7 if family in ("neox", "gptj", "opt") else 0)
+    assert torch.equal(toks, plain.generate(prompts, max_new_tokens=8))
+
+
+@pytest.mark.cuda
+def test_cuda_neox_server_streams_match_generate():
+    """GPT-NeoX (2 layers, 4 heads of 128, partial rotate-half rotary,
+    parallel residual) served on the card in float32: B6/B7 over the
+    pool, every greedy stream equal to ``generate()``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops import build
+    eng, _ = _family_engines("neox", "float32", serving={
+        "enabled": True, "kv_block_size": 16, "num_kv_blocks": 64,
+        "max_batch_slots": 4, "prefill_chunk_tokens": 32})
+    srv = eng.serving_engine()
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (7, 40, 19, 66, 3)]
+    build.reset_launch_counts()
+    reqs = [srv.submit(p, max_new_tokens=10) for p in prompts]
+    assert len(srv.run(max_steps=500)) == len(prompts)
+    assert build.launch_counts["paged_decode_attention"] > 0
+    assert build.launch_counts["paged_prefill_attention"] > 0
+    for p, r in zip(prompts, reqs):
+        assert r.output == eng.generate([p], max_new_tokens=10)[0].tolist()
+
+
+def _bert_model(attn_impl):
+    from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                        TransformerLM)
+    return TransformerLM(TransformerConfig(
+        num_layers=2, num_heads=4, d_model=256, d_ff=512, vocab_size=512,
+        max_seq_len=128, causal=False, norm_position="post",
+        final_layernorm=False, embed_layernorm=True, token_type_vocab=2,
+        mlm_head=True, activation="gelu_exact", attn_impl=attn_impl,
+        dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_bert_forward_on_noncausal_b1_matches_plain():
+    """BERT (post-norm encoder, token types, MLM head, 4 heads of 64) on
+    the card in float32: ``forward()`` through the non-causal B1 against
+    plain attention on the same weights, within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import build
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = _bert_model("xla").init(g, "cuda", torch.float32)
+    cfg = {"dtype": "float32"}
+    kern = dt.init_inference(_bert_model("flash"), cfg, params=params)
+    plain = dt.init_inference(_bert_model("flash"), {
+        **cfg, "replace_with_kernel_inject": False}, params=params)
+    rs = np.random.RandomState(3)
+    x, types = rs.randint(0, 512, (2, 100)), rs.randint(0, 2, (2, 100))
+    build.reset_launch_counts()
+    got = kern.forward(x, token_type_ids=types)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_attention_fwd"] == 2
+    torch.testing.assert_close(got, plain.forward(x, token_type_ids=types),
+                               atol=1e-4, rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        kern.generate(x, max_new_tokens=2)
+
+
+@pytest.mark.cuda
+def test_cuda_bert_train_step_on_noncausal_b2_matches_plain():
+    """BERT's float32 loss and gradients through the non-causal B1/B2
+    against plain attention on the same weights (every leaf within 1e-4
+    of its largest gradient), then one engine training step (AdamW,
+    clipping) of each from the same seed: loss and grad norm within
+    1e-4.  The parameters after the step are not compared: Adam's first
+    update is about lr x sign(g), so a gradient element at rounding
+    level moves its parameter by up to 2 lr either way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
+    ids = np.random.RandomState(4).randint(0, 512, (4, 96))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = _bert_model("xla").init(g, "cuda", torch.float32)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    grads = {}
+    for impl in ("flash", "xla"):
+        build.reset_launch_counts()
+        loss = _bert_model(impl).loss(
+            params, {"input_ids": torch.from_numpy(ids).cuda()})
+        grads[impl] = (loss.detach(), torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        assert build.launch_counts["flash_attention_bwd"] == (
+            2 if impl == "flash" else 0)
+    (lf, gf), (lx, gx) = grads["flash"], grads["xla"]
+    assert abs(float(lf) - float(lx)) <= 1e-4 * abs(float(lx))
+    for a, b in zip(gf, gx):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    config = {"train_micro_batch_size_per_gpu": 4,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+              "gradient_clipping": 1.0, "steps_per_print": 0}
+    out = {}
+    for impl in ("flash", "xla"):
+        eng = dt.initialize(model=_bert_model(impl), config=dict(config),
+                            seed=0)[0]
+        m = eng.train_step({"input_ids": ids})
+        out[impl] = float(m["loss"]), float(m["grad_norm"])
+    (lf, nf), (lx, nx) = out["flash"], out["xla"]
+    assert abs(lf - lx) <= 1e-4 * abs(lx)
+    assert abs(nf - nx) <= 1e-4 * abs(nx)

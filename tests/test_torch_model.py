@@ -242,10 +242,9 @@ def test_params_shape_mismatch_is_named(weights):
         params_from_jax(bad, port_model())
 
 
-#: the overrides that still raise (ALiBi, parallel residual, MoE: later
-#: slices); the others are the LLaMA family's pieces
-_STILL_OUT = (dict(pos_embedding="alibi"), dict(parallel_residual=True),
-              dict(moe_num_experts=4))
+#: the override that still raises (MoE: the next slice); the others are
+#: the LLaMA, BLOOM and NeoX families' pieces
+_STILL_OUT = (dict(moe_num_experts=4),)
 
 
 @pytest.mark.parametrize("override", [
@@ -255,10 +254,10 @@ _STILL_OUT = (dict(pos_embedding="alibi"), dict(parallel_residual=True),
     dict(moe_num_experts=4), dict(activation="silu"),
 ])
 def test_out_of_slice_families_raise(override):
-    """ALiBi, NeoX's parallel residual and MoE still raise, naming the
-    slice; rotary, RMSNorm, the gated MLP, GQA and SiLU are the LLaMA
-    family's pieces, and each alone on the GPT-2 model gives JAX's
-    logits on JAX's weights."""
+    """MoE still raises, naming the slice; rotary, RMSNorm, the gated
+    MLP, GQA and SiLU (the LLaMA family's pieces), ALiBi (BLOOM's) and
+    the parallel residual (NeoX's) each alone on the GPT-2 model give
+    JAX's logits on JAX's weights."""
     cfg = dataclasses.replace(tt.gpt2_config("125m", **TINY), **override)
     if override in _STILL_OUT:
         with pytest.raises(NotImplementedError, match="later|slice"):

@@ -117,3 +117,134 @@ def test_load_hf_llama_trees_match_jax():
         np.asarray(jax_tf.TransformerLM(jcfg).apply(theirs,
                                                     jnp.asarray(x))),
         atol=1e-5, rtol=1e-5)
+
+
+# -- every family of POLICIES ---------------------------------------------------
+def _tiny_hf(model_type):
+    """A tiny Hugging Face model of ``model_type`` from its
+    ``transformers`` config, random weights from torch seed 0 (no
+    download): 2 layers, hidden 64, 4 heads, vocab 64."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    t = transformers
+    make = {
+        "gpt2": lambda: t.GPT2LMHeadModel(t.GPT2Config(
+            n_layer=2, n_embd=64, n_head=4, vocab_size=64, n_positions=32)),
+        "gpt_neox": lambda: t.GPTNeoXForCausalLM(t.GPTNeoXConfig(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=4,
+            intermediate_size=96, vocab_size=64, max_position_embeddings=32,
+            rotary_pct=0.25, hidden_act="gelu_fast")),
+        "opt": lambda: t.OPTForCausalLM(t.OPTConfig(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=4,
+            ffn_dim=96, vocab_size=64, max_position_embeddings=32,
+            word_embed_proj_dim=64)),
+        "bloom": lambda: t.BloomForCausalLM(t.BloomConfig(
+            n_layer=2, hidden_size=64, n_head=4, vocab_size=64)),
+        "bert": lambda: t.BertForMaskedLM(t.BertConfig(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=4,
+            intermediate_size=96, vocab_size=64, max_position_embeddings=32,
+            type_vocab_size=2)),
+        "llama": lambda: t.LlamaForCausalLM(t.LlamaConfig(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=8,
+            num_key_value_heads=2, intermediate_size=96, vocab_size=64,
+            max_position_embeddings=32)),
+        "gptj": lambda: t.GPTJForCausalLM(t.GPTJConfig(
+            n_layer=2, n_embd=64, n_head=4, rotary_dim=8, vocab_size=64,
+            n_positions=32)),
+        "distilbert": lambda: t.DistilBertForMaskedLM(t.DistilBertConfig(
+            n_layers=2, dim=64, n_heads=4, hidden_dim=96, vocab_size=64,
+            max_position_embeddings=32)),
+        "gpt_neo": lambda: t.GPTNeoForCausalLM(t.GPTNeoConfig(
+            num_layers=2, hidden_size=64, num_heads=4, vocab_size=64,
+            max_position_embeddings=32,
+            attention_types=[[["global", "local"], 1]], window_size=4)),
+    }[model_type]
+    model = make().eval()
+    with torch.no_grad():
+        # spread the norms and biases the init leaves at 1 and 0, so a
+        # swapped leaf shows in the trees
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn_like(p))
+    return model
+
+
+@pytest.mark.parametrize("model_type", sorted(jax_policies.POLICIES))
+def test_convert_hf_model_matches_jax(model_type):
+    """``convert_hf_model`` on a tiny Hugging Face model of every
+    ``model_type`` of the registry: the same ``TransformerConfig`` fields
+    and the same params tree as the JAX package's (leaf for leaf, in the
+    port model's shapes), and the converted model's logits equal the
+    JAX model's on it."""
+    assert sorted(policies.POLICIES) == sorted(jax_policies.POLICIES)
+    hf = _tiny_hf(model_type)
+    cfg, ours = dt.convert_hf_model(hf, dtype=torch.float32)
+    jcfg, theirs = jax_policies.convert_hf_model(hf, dtype=jnp.float32)
+    for name in _SHARED:
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    pm = tt.TransformerLM(cfg)
+    check_params(pm, ours)
+    jax.tree_util.tree_map(np.testing.assert_array_equal,
+                           params_to_jax(ours), theirs)
+    x = np.random.default_rng(2).integers(0, 64, (2, 12))
+    np.testing.assert_allclose(
+        pm.apply(ours, torch.from_numpy(x)).numpy(),
+        np.asarray(jax_tf.TransformerLM(jcfg).apply(theirs,
+                                                    jnp.asarray(x))),
+        atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("model_type", sorted(jax_policies.POLICIES))
+def test_hf_config_dict_reads_as_the_object(model_type):
+    """A ``config.json`` dict gives the config the ``transformers``
+    object gives (GPT-Neo's dict carries ``attention_types``, which the
+    port expands as ``GPTNeoConfig`` does)."""
+    hf = _tiny_hf(model_type)
+    cfg_fn = policies.POLICIES[model_type][0]
+    as_dict = hf.config.to_dict()
+    as_dict.pop("attention_layers", None)
+    assert cfg_fn(as_dict) == cfg_fn(hf.config)
+
+
+def test_gpt_neox_20b_config_matches_jax():
+    """The published GPT-NeoX-20B dict gives the same fields on both
+    sides: 44 layers, d_model 6144, d_ff 24576, 64 heads of 96, rotary on
+    24 dims at base 10000, vocab 50432, 2048 positions, tanh GeLU,
+    parallel residual, untied head; about 20.6 B parameters."""
+    ours = dt.hf_neox_config(policies.GPT_NEOX_20B)
+    theirs = jax_policies.hf_neox_config(
+        types.SimpleNamespace(**policies.GPT_NEOX_20B))
+    for name in _SHARED:
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert (ours.num_layers, ours.d_model, ours.ff_dim, ours.num_heads,
+            ours.hdim, ours.rotary_dim, ours.vocab_size,
+            ours.max_seq_len) == (44, 6144, 24576, 64, 96, 24, 50432, 2048)
+    assert ours.parallel_residual and not ours.tie_embeddings
+    assert ours.activation == "gelu" and not ours.rotary_interleaved
+    assert ours.num_params() == theirs.num_params()
+    assert 20.5e9 < ours.num_params() < 20.7e9
+
+
+@pytest.mark.parametrize("extra,fn,error", [
+    ({"do_layer_norm_before": False}, "hf_opt_config", ValueError),
+    ({"sinusoidal_pos_embds": True}, "hf_distilbert_config",
+     NotImplementedError),
+])
+def test_unsupported_family_configs_rejected_as_in_jax(extra, fn, error):
+    """OPT's post-norm 350m variant and DistilBERT's sinusoidal
+    positions are refused on both sides."""
+    model_type = {"hf_opt_config": "opt",
+                  "hf_distilbert_config": "distilbert"}[fn]
+    cfg = {**_tiny_hf(model_type).config.to_dict(), **extra}
+    with pytest.raises(error):
+        getattr(jax_policies, fn)(types.SimpleNamespace(**cfg))
+    with pytest.raises(error):
+        getattr(policies, fn)(cfg)
+
+
+def test_convert_hf_model_refuses_an_unknown_type():
+    model = types.SimpleNamespace(
+        config=types.SimpleNamespace(model_type="t5"),
+        state_dict=lambda: {})
+    with pytest.raises(ValueError, match="t5"):
+        dt.convert_hf_model(model)

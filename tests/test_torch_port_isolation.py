@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: it never imports ``jax``, ``pydantic``,
-``orbax``, ``optax`` or anything of ``deepspeed_tpu`` (importing any
-``deepspeed_tpu`` submodule runs the package ``__init__``, which pulls
-in jax and the training engine)."""
+``orbax``, ``optax``, ``transformers`` or anything of ``deepspeed_tpu``
+(importing any ``deepspeed_tpu`` submodule runs the package
+``__init__``, which pulls in jax and the training engine; the card's
+machine has no ``transformers``, so the policies read Hugging Face
+configs and state dicts by duck typing)."""
 import ast
 import json
 import os
@@ -14,7 +16,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "deepspeed_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "pydantic", "orbax", "optax",
-             "deepspeed_tpu", "flax", "ml_dtypes")
+             "deepspeed_tpu", "flax", "ml_dtypes", "transformers")
 
 
 def port_modules():
