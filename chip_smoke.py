@@ -92,8 +92,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``kv_cache_bits`` 8, the seed-0 weights quantized): parameter bytes,
    ``generate()`` (TTFT, decode ms/token), ``forward()`` against phase
    4's bf16 prefill logits, and the 16-request drain.
-13. GPT-3 2.7B served as in phases 4-5 (all 32 layers, d_model 2560, 32
-   heads of 80; bf16, random weights from seed 0): ``generate()`` on B5,
+13. GPT-3 2.7B served as in phases 4-5 (16 of its 32 layers, cut for
+   the run's time; d_model 2560, 32 heads of 80; bf16, random weights
+   from seed 0): ``generate()`` on B5,
    ``forward()`` on B1 and the server on B6/B7, all at head dim 80, with
    the same logit checks, and B5's share of ``generate()``'s device time
    beside B6's and B7's of the drain;
@@ -140,7 +141,35 @@ Phases (any failure exits non-zero and prints no result line):
    1024, micro 8, ``remat="full"``, flash, fused loss head at chunk 256,
    AdamW, bf16 over f32 masters), 10 steps as phase 6: 48 B1 and 24 B2 a
    step, a falling loss, the same-state step check against plain
-   attention at micro 2.
+   attention at micro 2;
+21. DeepSpeed-MoE 350M+MoE-128 served (``MOE_SERVE``: 24 layers,
+   d_model 1024, 16 heads of 64, 128 experts on every other layer,
+   top-1, capacity factor 1.0, min capacity 4; 13.15 B parameters, bf16,
+   random weights from seed 0) after every earlier engine is freed: the
+   server refuses it (the JAX reason), ``generate()`` of 8 x 128 prompts,
+   64 new tokens (exactly 24 x 63 B5 launches), ``forward()`` on the same
+   prompts (24 B1), its last-position logits within ``LOGITS_REL_TOL``
+   of ``generate()``'s first step, each MoE layer's exp_counts and
+   dropped tokens, TTFT, decode ms/token, busy share, peak memory;
+22. training 125M+MoE-64 (``MOE_TRAIN``: 12 layers, d_model 768, 64
+   experts on every other layer; 1.91 B parameters; seq 2048, micro 8,
+   remat full, flash, fused loss head at chunk 256, AdamW, bf16 over f32
+   masters), 10 steps with ``moe_rng`` seeded per step (RTS): 24 B1, 12
+   B3, 12 B4 and no B2 a step (seq 2048 takes the two-pass backward),
+   a falling loss, ms/step and MFU on the active parameters, the
+   same-state step check against plain attention with the same routing
+   seed, remat none against full at step 1 (equal routing, grad norm
+   within the step check's limit);
+23. Stable Diffusion v1.x (``init_diffusion`` with the JAX defaults: UNet
+   859.5 M, VAE 83.7 M, CLIP text 123.1 M parameters, exactly; bf16,
+   random weights from seed 0): one UNet step's eps in bf16 against
+   float32 within ``DIFFUSION_EPS_REL_TOL``, ms per guided UNet step,
+   the pipeline (20 DDIM steps, guidance 7.5, 512x512) to a finite image
+   in [0, 1], seconds per image, peak memory.
+
+``python3 chip_smoke.py --only 3 21 22 23`` (any of them) builds the
+kernels and runs only those phases ("3": phase 3's cases at the MoE
+shapes), then prints no result line: a probe of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -256,7 +285,12 @@ SPARSE_SEQ, SPARSE_MICRO, SPARSE_STEPS = 8192, 8, 10
 #: against plain attention at micro 2
 NEOX_SEQ, NEOX_MICRO, NEOX_STEPS, NEOX_CHECK_MICRO = 1024, 8, 10, 2
 
-N_TIMED, N_WARM = 30, 5
+#: timed calls of a kernel in phase 3, after warm-up calls (30 and 5
+#: until the MoE and diffusion phases needed the time)
+N_TIMED, N_WARM = 20, 3
+#: phase 13 serves GPT-3 2.7B's width (32 heads of 80) at half its 32
+#: layers, cut for the run's time: the phase is there for head dim 80
+PHASE13_LAYERS = 16
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
 #: takes tens of ms; its time is a yardstick, not a result), after one
 #: warm-up call
@@ -497,7 +531,9 @@ def f16_sparse_checks(torch, dev, flush):
 #: and 16, seq 1024; GPT-J's head of 256 (16 heads, micro 4); and the
 #: float16 kernels at 760M's shape, at phase 3's GPT-2 and TinyLlama
 #: shapes (the kv group of 8 takes B1, B3 and B4) and at 760M's seq 2048
-#: step (B3 and B4)
+#: step (B3 and B4); 350M+MoE-128's forward() (8 x 128 prompts, 16 heads
+#: of 64) and 125M+MoE-64's step (micro 8, 12 heads of 64, seq 2048: B1,
+#: B3 and B4)
 C1_FLASH_CASES = (
     ("GPT-NeoX-20B forward", 512, 512, 128, 96, "bfloat16", ("B1",)),
     ("GPT-NeoX 1.3B", 128, 128, 1024, 128, "bfloat16", ("B1", "B2")),
@@ -509,10 +545,12 @@ C1_FLASH_CASES = (
     ("TinyLlama fp16", 256, 32, 2048, 64, "float16", ("B1", "B3", "B4")),
     ("GPT-3 760M fp16 seq 2048", 256, 256, 2048, 96, "float16",
      ("B3", "B4")),
+    ("350M+MoE-128 forward", 128, 128, 128, 64, "bfloat16", ("B1",)),
+    ("125M+MoE-64 step", 96, 96, 2048, 64, "bfloat16", ("B1", "B3", "B4")),
 )
 
 
-def c1_flash_checks(torch, dev, flush):
+def c1_flash_checks(torch, dev, flush, cases=None):
     """B1-B4 at ``C1_FLASH_CASES``, causal: each against its plain version
     (bf16 limit, or ``F16_TOL`` for float16) with the planted fault of
     ``flash_checks`` caught, bit-equal on two launches, timed beside its
@@ -527,7 +565,7 @@ def c1_flash_checks(torch, dev, flush):
     out = {}
     names = {"B1": "flash_attention_fwd", "B2": "flash_attention_bwd",
              "B3": "flash_attention_bwd_dq", "B4": "flash_attention_bwd_dkv"}
-    for label, BH, BKV, T, D, dtype, kinds in C1_FLASH_CASES:
+    for label, BH, BKV, T, D, dtype, kinds in cases or C1_FLASH_CASES:
         dt = getattr(torch, dtype)
         tol = F16_TOL if dt == torch.float16 else None
         grp = BH // BKV
@@ -617,12 +655,13 @@ def c1_flash_checks(torch, dev, flush):
 
 
 #: (label, H, Hkv, D) of the decode cases: GPT-NeoX-20B's heads, GPT-3
-#: 2.7B's, 760M's, GPT-J's head of 256, and kv groups of 3, 16 and 32
-#: (MQA) at D 128
+#: 2.7B's, 760M's, GPT-J's head of 256, kv groups of 3, 16 and 32 (MQA)
+#: at D 128, and 350M+MoE-128's 16 heads of 64 (phase 21's decode)
 C1_DECODE_CASES = (("GPT-NeoX-20B", 64, 64, 96),
                    ("GPT-3 2.7B", 32, 32, 80), ("GPT-3 760M", 16, 16, 96),
                    ("GPT-J", 16, 16, 256), ("g 3", 12, 4, 128),
-                   ("g 16", 32, 2, 128), ("g 32 (MQA)", 32, 1, 128))
+                   ("g 16", 32, 2, 128), ("g 32 (MQA)", 32, 1, 128),
+                   ("350M+MoE-128", 16, 16, 64))
 
 
 #: the float16 decode cases: the fp16 serving phase's GPT-3 6.7B heads
@@ -1618,7 +1657,15 @@ def blocksparse_checks(torch, dev, flush):
             "blocksparse_flash_bwd_dkv": b10}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        only = set(argv[1:])
+        if argv[0] != "--only" or not only or not only <= ONLY_PHASES:
+            print(f"usage: python3 chip_smoke.py [--only PHASE ...] with "
+                  f"PHASE in {sorted(ONLY_PHASES)}", file=sys.stderr)
+            return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1672,6 +1719,8 @@ def main() -> int:
                   f"{fn} {n} bytes" for fn, n in spills.items()) or "none"))
 
     elapsed("phase 2")
+    if only is not None:
+        return partial_run(torch, np, dev, only, elapsed)
 
     # -- 3. kernels against their plain versions -----------------------
     tensor_core_check(build)
@@ -1827,7 +1876,8 @@ def main() -> int:
     elapsed("phase 12")
 
     # -- 13. generate(), forward() and the server at GPT-3 2.7B width --
-    served27 = serve_phase(torch, np, "GPT-3 2.7B", gpt2_config("2.7b"))
+    served27 = serve_phase(torch, np, "GPT-3 2.7B (16 of 32 layers)",
+                           gpt2_config("2.7b", num_layers=PHASE13_LAYERS))
 
     elapsed("phase 13")
 
@@ -1881,6 +1931,9 @@ def main() -> int:
         profile_shares={"B1": (tck["flash_attention_fwd"],),
                         "B2": (tck["flash_attention_bwd"],)})
     elapsed("phase 20")
+
+    # -- 21-23. MoE serving and training, Stable Diffusion ---------------------
+    moe = new_phases(torch, np, elapsed)
 
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
@@ -1969,7 +2022,12 @@ def main() -> int:
           f"{neox_served['paged_decode_attention']}, B7 "
           f"{neox_served['paged_prefill_attention']}; GPT-NeoX 1.3B "
           f"training: B1 {neox_train['flash_attention_fwd']}, B2 "
-          f"{neox_train['flash_attention_bwd']}")
+          f"{neox_train['flash_attention_bwd']}; 350M+MoE-128: B5 "
+          f"{moe['served']['decode_attention']}, B1 (forward) "
+          f"{moe['served']['flash_attention_fwd']}; 125M+MoE-64 training: "
+          f"B1 {moe['trained']['flash_attention_fwd']}, B3 "
+          f"{moe['trained']['flash_attention_bwd_dq']}, B4 "
+          f"{moe['trained']['flash_attention_bwd_dkv']}")
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
@@ -3551,11 +3609,503 @@ def device_profile(torch, fn, label: str, shares=None) -> None:
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    """The tensors of a params tree (nested dicts and lists)."""
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v)
         else:
             yield v
+
+
+# -- phases 21-23: MoE serving, MoE training, Stable Diffusion -------------
+#: DeepSpeed-MoE 350M+MoE-128 (Rajbhandari et al., arXiv:2201.05596, its
+#: table of model configurations; Megatron-DeepSpeed's
+#: ds_pretrain_gpt_350M_MoE128.sh): GPT-3 350M's shape, 128 experts on
+#: every other layer, top-1, capacity factor 1.0 in training and eval, min
+#: capacity 4, aux coefficient 0.01, vocab 50257, positions to 2048
+MOE_SERVE = dict(vocab_size=50257, max_seq_len=2048, moe_num_experts=128,
+                 moe_freq=2, moe_k=1, moe_capacity_factor=1.0,
+                 moe_eval_capacity_factor=1.0, moe_min_capacity=4,
+                 moe_aux_loss_coef=0.01)
+#: 125M+MoE-64 (ds_pretrain_gpt_125M_MoE64.sh): GPT-3 125M's shape, 64
+#: experts on every other layer, the routing above, seq 2048
+MOE_TRAIN = dict(MOE_SERVE, moe_num_experts=64)
+#: the MoE training phase: seq 2048, micro 8 (the one size chosen for the
+#: run's time), 10 steps; flash against plain attention at micro 2
+MOE_SEQ, MOE_MICRO, MOE_STEPS, MOE_CHECK_MICRO = 2048, 8, 10, 2
+
+#: Stable Diffusion v1.x (the JAX defaults UNetConfig(), VAEConfig(),
+#: CLIPTextConfig()): 512x512 images (64x64 latents), batch 1 with
+#: classifier-free guidance (the UNet sees batch 2), 20 DDIM steps, bf16
+SD_STEPS, SD_GUIDANCE = 20, 7.5
+#: the parameters of SD v1.x's published components (diffusers'
+#: UNet2DConditionModel and AutoencoderKL, transformers' CLIPTextModel):
+#: the trees must hold exactly these
+SD_PARAMS = {"unet": 859_520_964, "vae": 83_653_863,
+             "text_encoder": 123_060_480}
+#: one UNet step's eps in bf16 against the same step in float32 (TF32
+#: off) on the same weights: bf16 keeps 8 bits of mantissa, so each of the
+#: step's ~70 rounded layers adds a relative error of about 2^-9, and
+#: independent roundings grow as the square root of their number: about
+#: 2^-9 x sqrt(70) = 1.6 % of the output's scale, held here to 3x that, as
+#: a share of max|eps|
+DIFFUSION_EPS_REL_TOL = 0.05
+
+
+def moe_layer_report(stats, tokens, label) -> None:
+    """Each MoE layer's routing from ``model.moe_stats``: the largest
+    expert queue, the experts no token chose, and the tokens dropped
+    (queued past the capacity), of ``tokens``."""
+    for i, (counts, kept, cap) in enumerate(stats):
+        c = counts.cpu()
+        dropped = tokens - int(kept)
+        print(f"  {label} MoE layer {i} (block {2 * i + 1}): capacity "
+              f"{cap}, largest queue {int(c.max())}, experts chosen by no "
+              f"token {int((c == 0).sum())} of {c.numel()}, dropped "
+              f"{dropped} of {tokens} tokens; exp_counts "
+              f"{' '.join(str(int(x)) for x in c)}")
+
+
+def moe_serve_phase(torch, np) -> dict:
+    """Phase 21: ``init_inference`` on 350M+MoE-128 (bf16, random weights
+    from seed 0, ``moe.enabled`` with ``ep_size`` 1): the server refuses
+    the model (the JAX reason); ``generate()`` of 8 x 128 prompts, 64 new
+    tokens, greedy (B5 exactly 24 x 63 times, B1 never), TTFT and decode
+    ms/token, the profile's busy share; ``forward()`` on the same prompts
+    (B1 exactly 24 times), its last-position logits within
+    ``LOGITS_REL_TOL`` of ``generate()``'s first step (the same S =
+    1024 routed tokens); each MoE layer's exp_counts and dropped tokens
+    for both; the peak memory."""
+    import gc
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    label = "350M+MoE-128"
+    cfg = gpt2_config("350m", **MOE_SERVE)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.hdim, cfg.ff_dim,
+           cfg.moe_num_experts, cfg.scan_length) == (24, 1024, 16, 64, 4096,
+                                                     128, 12),
+          f"{label} config {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = init_inference(TransformerLM(cfg), {
+        "dtype": "bfloat16", "temperature": 0.0,
+        "moe": {"enabled": True, "ep_size": 1},
+        "serving": {"enabled": True}})
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    print(f"{label} init: {cfg.num_params() / 1e9:.4f} B params "
+          f"({cfg.num_params(active=True) / 1e9:.4f} B active a token), "
+          f"{nbytes / 1e9:.2f} GB bf16, in {time.perf_counter() - t0:.1f} s")
+    try:
+        eng.serving_engine()
+        fail(f"{label}: the server took an MoE model")
+    except NotImplementedError as err:
+        check("MoE block stacks" in str(err), f"{label}: server refused "
+              f"with {err}")
+        print(f"{label} server refused: {err}")
+    rng, prompts, _, _ = serving_prompts(np, cfg.vocab_size)
+    warm_up_at_kv_head_width(eng, prompts, label, cfg.kv_heads)
+    build.reset_launch_counts()
+    out = eng.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    gen_counts = dict(build.launch_counts)
+    decode_stats = list(eng.module.moe_stats)
+    check(tuple(out.shape) == (8, 64), f"generate shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generate tokens out of vocab range")
+    want = cfg.num_layers * 63
+    check(gen_counts["decode_attention"] == want
+          and gen_counts["flash_attention_fwd"] == 0,
+          f"{label} generate: B5 launches {gen_counts['decode_attention']} "
+          f"(want {want}), B1 {gen_counts['flash_attention_fwd']} (want 0)")
+    stats = eng.latency_stats()
+    print(f"{label} generate: 8 x 128-token prompts, 64 new tokens: TTFT "
+          f"{stats['ttft_p50_ms']:.1f} ms, decode {stats['p50_ms']:.2f} "
+          f"ms/token ({8 * stats['tokens_per_sec']:.0f} tokens/s over the "
+          f"batch); B5 launches {gen_counts['decode_attention']}; every "
+          f"decode step reads all {cfg.moe_num_experts} experts of "
+          f"{cfg.scan_length} layers (the batched product over [E, C, M])")
+    device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
+                   f"{label} generate 8 x 128 prompts, 16 new tokens",
+                   shares={"B5": ("decode_cluster", "decode_attention")})
+
+    prefill = eng._prefill
+    gen = {}
+
+    def recording_prefill(ids, true_len, cache_len):
+        cache, last = prefill(ids, true_len, cache_len)
+        gen["logits"] = last.float()
+        gen["stats"] = list(eng.module.moe_stats)
+        return cache, last
+    eng._prefill = recording_prefill
+    eng.generate(prompts, max_new_tokens=1)
+    eng._prefill = prefill
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    fwd = eng.forward(prompts)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_counts = dict(build.launch_counts)
+    fwd_stats = list(eng.module.moe_stats)
+    check(tuple(fwd.shape) == (8, 128, cfg.vocab_size)
+          and bool(fwd.isfinite().all()), f"forward logits {fwd.shape}")
+    check(fwd_counts["flash_attention_fwd"] == cfg.num_layers,
+          f"{label} forward: B1 launches "
+          f"{fwd_counts['flash_attention_fwd']} != {cfg.num_layers}")
+    ref = gen["logits"]
+    err = float((fwd[:, -1] - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    same = int((fwd[:, -1].argmax(-1) == ref.argmax(-1)).sum())
+    same_layers = sum(bool(torch.equal(a[0], b[0]))
+                      for a, b in zip(fwd_stats, gen["stats"]))
+    print(f"{label} forward: 8 x 128 prompts in {fwd_s * 1e3:.1f} ms, B1 "
+          f"launches {fwd_counts['flash_attention_fwd']}; last-position "
+          f"logits max|forward - generate first step| {err:.4f} = "
+          f"{rel:.4f} of max|logit| (limit {LOGITS_REL_TOL}), argmax equal "
+          f"on {same} of 8; exp_counts equal to generate()'s prefill in "
+          f"{same_layers} of {len(fwd_stats)} MoE layers")
+    check(rel <= LOGITS_REL_TOL, f"{label}: forward/generate logits differ "
+                                 f"by {rel:.4f} of their scale")
+    moe_layer_report(fwd_stats, 8 * 128, "forward()")
+    moe_layer_report(gen["stats"], 8 * 128, "generate() prefill")
+    moe_layer_report(decode_stats, 8, "generate() last decode step")
+    print(f"{label}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    del eng, fwd, ref, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"decode_attention": gen_counts["decode_attention"],
+            "flash_attention_fwd": fwd_counts["flash_attention_fwd"]}
+
+
+def moe_train_phase(torch, np) -> dict:
+    """Phase 22: ``initialize`` on 125M+MoE-64 (seq 2048, micro 8, remat
+    full, flash, fused loss head at chunk 256, AdamW, bf16 over f32
+    masters, clipping 1.0, weights from seed 0), 10 steps with
+    ``batch["moe_rng"]`` = the step's number (RTS runs): exactly 24 B1,
+    12 B3, 12 B4 and no B2 a step (seq 2048 spans two of the flash
+    backward's 1024-row blocks: the JAX dispatch rule takes B3 + B4), a
+    falling loss, ms/step and MFU on the active parameters; the
+    same-state step check against plain attention at micro 2 with the
+    same routing seed; remat none against full at step 1: equal routing
+    in every MoE layer and the grad norm within the step check's
+    limit."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    label = "125M+MoE-64"
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 0,
+                "flash_attention_bwd_dq": 12, "flash_attention_bwd_dkv": 12}
+    opt = {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}}
+
+    def model_cfg(attn_impl, remat="full"):
+        return gpt2_config("125m", attn_impl=attn_impl, remat=remat,
+                           loss_chunk=256, **MOE_TRAIN)
+
+    def make(attn_impl, mb, remat="full", loss_fn=None):
+        cfg = model_cfg(attn_impl, remat)
+        eng, _, _, _ = initialize(model=TransformerLM(cfg), config={
+            "train_micro_batch_size_per_gpu": mb,
+            "gradient_accumulation_steps": 1, "optimizer": opt,
+            "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+            "gradient_clipping": 1.0, "steps_per_print": 0},
+            loss_fn=loss_fn)
+        return cfg, eng
+
+    cfg, eng = make("flash", MOE_MICRO)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.moe_num_experts,
+           cfg.scan_length) == (12, 768, 12, 64, 6), f"{label} config {cfg}")
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (MOE_MICRO, MOE_SEQ), dtype=np.int32)
+    n_params = eng.num_parameters()
+    n_active = cfg.num_params(active=True)
+    check(n_params == cfg.num_params(), f"{label}: {n_params} parameters, "
+          f"the config counts {cfg.num_params()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [eng.train_step({"input_ids": ids, "moe_rng": i})
+               for i in range(MOE_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{label} training: non-finite loss or grad norm {losses} {gnorms}")
+    check(losses[-1] < losses[0], f"{label} training: loss did not fall "
+                                  f"({losses[0]} -> {losses[-1]})")
+    for name, n in per_step.items():
+        check(counts[name] == n * MOE_STEPS,
+              f"{label} training: {name} launches {counts[name]} != "
+              f"{n * MOE_STEPS}")
+    # bench.py:212-215 with N the active parameters (non-expert ones,
+    # the gate and k = 1 expert per MoE layer), not all 64 experts
+    flops_per_tok = 6 * n_active + 12 * cfg.num_layers * cfg.d_model * MOE_SEQ
+    tok_s = MOE_MICRO * MOE_SEQ / (wall / MOE_STEPS)
+    print(f"training: {label} ({n_params / 1e9:.4f} B params, "
+          f"{n_active / 1e6:.1f} M active a token), seq {MOE_SEQ}, micro "
+          f"{MOE_MICRO}, remat full, flash, fused head chunk 256, AdamW "
+          f"bf16/f32, moe_rng per step: {MOE_STEPS} steps in {wall:.2f} s = "
+          f"{wall / MOE_STEPS * 1e3:.1f} ms/step (the first included), "
+          f"{tok_s:.0f} tokens/s, MFU on active params "
+          f"{100 * tok_s * flops_per_tok / BF16_FLOPS:.2f} %; peak memory "
+          f"{peak:.1f} GiB")
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f} (every step: "
+          f"{' '.join(f'{x:.3f}' for x in losses)}); grad norm "
+          f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}")
+    print(f"  launches over {MOE_STEPS} steps: " + ", ".join(
+        f"{name} {counts[name]} ({counts[name] // MOE_STEPS} per step)"
+        for name in per_step))
+    moe_layer_report(eng.model.moe_stats, MOE_MICRO * MOE_SEQ,
+                     f"step {MOE_STEPS}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        eng.train_step({"input_ids": ids, "moe_rng": MOE_STEPS + i})
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    warm_tok_s = MOE_MICRO * MOE_SEQ / warm_ms * 1e3
+    print(f"  3 more steps (warm): {warm_ms:.1f} ms/step = {warm_tok_s:.0f} "
+          f"tokens/s, MFU on active params "
+          f"{100 * warm_tok_s * flops_per_tok / BF16_FLOPS:.2f} % (on all "
+          f"{n_params / 1e9:.2f} B params it would read "
+          f"{100 * warm_tok_s * 6 * n_params / BF16_FLOPS:.1f} %, which no "
+          f"token runs)")
+    head = loss_head_ms(torch, eng, {"input_ids": ids}, MOE_MICRO, MOE_SEQ)
+    print(f"  loss head alone: forward {head['fwd']:.1f} ms, forward + "
+          f"backward {head['both']:.1f} ms = "
+          f"{100 * head['both'] / warm_ms:.1f} % of the warm step")
+    tck = TENSOR_CORE_KERNELS
+    device_profile(torch, lambda: [eng.train_step(
+        {"input_ids": ids, "moe_rng": 20 + i}) for i in range(2)],
+        f"{label} training 2 steps",
+        {"B1": (tck["flash_attention_fwd"],),
+         "B3 + B4": (tck["flash_attention_bwd_dq"],
+                     tck["flash_attention_bwd_dkv"])})
+    del eng, metrics
+    torch.cuda.empty_cache()
+
+    # the same-state step check: kernels against plain attention, one
+    # engine whose loss runs either model, both from each step's state
+    # with the same routing seed
+    small = {"input_ids": ids[:MOE_CHECK_MICRO]}
+    models = {k: TransformerLM(model_cfg(k)) for k in ("flash", "xla")}
+    impl = {"now": "flash"}
+    _, e = make("flash", MOE_CHECK_MICRO,
+                loss_fn=lambda p, b: models[impl["now"]].loss(p, b))
+    for i in range(3):
+        batch = {**small, "moe_rng": 100 + i}
+        start = e.state
+        impl["now"] = "xla"
+        mx = e.train_step(batch)
+        lx, gx = float(mx["loss"]), float(mx["grad_norm"])
+        e.state, impl["now"] = start, "flash"
+        mf = e.train_step(batch)
+        lf, gf = float(mf["loss"]), float(mf["grad_norm"])
+        del start, mx, mf
+        print(f"  step {i} at micro {MOE_CHECK_MICRO}, both from one state "
+              f"and routing seed: loss kernels {lf:.5f} plain {lx:.5f} "
+              f"({abs(lf - lx) / abs(lx) / STEP_LOSS_REL_TOL:.3g} of the "
+              f"limit); grad norm kernels {gf:.4f} plain {gx:.4f} "
+              f"({abs(gf - gx) / abs(gx) / STEP_GNORM_REL_TOL:.3g} of the "
+              f"limit)")
+        check(abs(lf - lx) <= STEP_LOSS_REL_TOL * abs(lx),
+              f"{label} step {i}: loss kernels {lf} vs plain {lx}")
+        check(abs(gf - gx) <= STEP_GNORM_REL_TOL * abs(gx),
+              f"{label} step {i}: grad norm kernels {gf} vs plain {gx}")
+    del e, models
+    torch.cuda.empty_cache()
+
+    # remat none against full at step 1, one routing seed
+    rec = {}
+    for remat in ("none", "full"):
+        _, e = make("flash", MOE_MICRO, remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = e.train_step({"input_ids": ids, "moe_rng": 0})
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        rec[remat] = (loss, gnorm, [(c.tolist(), int(k))
+                                    for c, k, _ in e.model.moe_stats],
+                      time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated() / 2**30)
+        del e, m
+        torch.cuda.empty_cache()
+    (ln, gn, rn, sn, pn), (lf, gf, rf, sf, pf) = rec["none"], rec["full"]
+    same = sum(a == b for a, b in zip(rn, rf))
+    print(f"  remat none vs full at step 1 (seed 0): routing equal in "
+          f"{same} of {len(rn)} MoE layers; loss {ln:.6f} / {lf:.6f}; grad "
+          f"norm {gn:.5f} / {gf:.5f} ({abs(gf - gn) / abs(gn) / STEP_GNORM_REL_TOL:.3g}"
+          f" of the limit); first step {sn:.2f} / {sf:.2f} s, peak "
+          f"{pn:.1f} / {pf:.1f} GiB")
+    check(rn == rf, f"{label}: remat none and full routed differently")
+    check(abs(gf - gn) <= STEP_GNORM_REL_TOL * abs(gn),
+          f"{label}: remat full grad norm {gf} vs none {gn}")
+    return {name: counts[name] for name in per_step}
+
+
+def diffusion_phase(torch, np) -> None:
+    """Phase 23: ``init_diffusion`` with SD v1.x's configurations (random
+    weights from seed 0, bf16, on the card): each component's parameter
+    count exactly the published one; one UNet step (batch 2, 64x64
+    latents, t 981) in bf16 against the same weights in float32 (TF32
+    off), within ``DIFFUSION_EPS_REL_TOL`` of max|eps|; seconds per
+    guided UNet step and its profile; the pipeline (20 DDIM steps,
+    guidance 7.5, batch 1) to a finite 512x512 image in [0, 1] launching
+    no attention kernel; seconds per image and the peak memory."""
+    import gc
+    from deepspeed_tpu_torch import init_diffusion
+    from deepspeed_tpu_torch.models.diffusion import prepare
+    from deepspeed_tpu_torch.ops import build
+    label = "Stable Diffusion v1.x"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe, params = init_diffusion(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    dev = pipe.device
+    sizes = {k: sum(t.numel() for t in _leaves(v))
+             for k, v in params.items()}
+    print(f"{label} init: " + ", ".join(
+        f"{k} {n / 1e6:.3f} M" for k, n in sizes.items())
+        + f" params in bf16, in {time.perf_counter() - t0:.1f} s")
+    check(sizes == SD_PARAMS, f"{label}: parameters {sizes}, want "
+                              f"{SD_PARAMS}")
+    rs = np.random.RandomState(0)
+    prompt = np.concatenate([[[49406]], rs.randint(0, 49406, (1, 20)),
+                             np.full((1, 56), 49407)], axis=1)
+    uncond = np.concatenate([[[49406]], np.full((1, 76), 49407)], axis=1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    lat = torch.randn((2, 64, 64, 4), generator=g, device=dev)
+    tt = torch.full((2,), 981, dtype=torch.int32, device=dev)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        p32 = prepare(params, dev, torch.float32)
+        ctx = pipe.encode_text(p32["text_encoder"], prompt, uncond)
+        eps32 = pipe.unet.apply(p32["unet"], lat, tt, ctx)
+        eps16 = pipe.unet.apply(params["unet"], lat.bfloat16(), tt,
+                                ctx.bfloat16()).float()
+        torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    err = float((eps16 - eps32).abs().max())
+    rel = err / float(eps32.abs().max())
+    l2 = float((eps16 - eps32).norm() / eps32.norm())
+    check(bool(eps16.isfinite().all()) and tuple(eps16.shape) == (2, 64, 64, 4),
+          f"{label}: UNet eps {tuple(eps16.shape)}")
+    print(f"{label} UNet step (batch 2, 64x64 latents, t 981): bf16 eps "
+          f"against float32 (TF32 off) max|err| {err:.4f} = {rel:.4f} of "
+          f"max|eps| {float(eps32.abs().max()):.3f} (limit "
+          f"{DIFFUSION_EPS_REL_TOL}), relative L2 {l2:.4f}")
+    check(rel <= DIFFUSION_EPS_REL_TOL, f"{label}: bf16 UNet eps differs "
+                                        f"from f32 by {rel:.4f} of max|eps|")
+    del p32, eps32, eps16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        ctx = pipe.encode_text(params["text_encoder"], prompt, uncond)
+        lat1 = lat[:1].contiguous()
+
+        def step():
+            pipe.unet_step(params["unet"], lat1, 981, 931, ctx, SD_GUIDANCE)
+        for _ in range(2):
+            step()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(5):
+            step()
+        b.record()
+        b.synchronize()
+        step_ms = a.elapsed_time(b) / 5
+    print(f"{label} guided UNet step (batch 2 through the UNet): "
+          f"{step_ms:.1f} ms")
+    device_profile(torch, lambda: torch.inference_mode()(step)(),
+                   f"{label} one guided UNet step")
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = pipe(params, prompt, uncond, num_steps=SD_STEPS,
+               guidance=SD_GUIDANCE, generator=g)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    check(tuple(img.shape) == (1, 512, 512, 3) and bool(img.isfinite().all())
+          and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+          f"{label}: image {tuple(img.shape)} in "
+          f"[{float(img.min())}, {float(img.max())}]")
+    check(not any(counts.values()), f"{label}: the pipeline launched "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"{label} pipeline: {SD_STEPS} DDIM steps, guidance {SD_GUIDANCE},"
+          f" 512x512, batch 1: {image_s:.2f} s per image "
+          f"({image_s / SD_STEPS * 1e3:.1f} ms a step with CLIP and the VAE "
+          f"decode), image in [{float(img.min()):.3f}, "
+          f"{float(img.max()):.3f}], mean {float(img.mean()):.3f}; no "
+          f"kernel of the port launched (none lies on this path); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del pipe, params, img
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the phases ``--only`` runs after the build: "3" is phase 3's cases at
+#: the MoE shapes (B1, B3, B4, B5, B6, B7)
+ONLY_PHASES = {"3", "21", "22", "23"}
+
+
+def partial_run(torch, np, dev, only, elapsed) -> int:
+    """``--only``: the listed phases after the build, and no result
+    lines (a probe of new work, not the smoke run)."""
+    if "3" in only:
+        flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+        res = c1_flash_checks(torch, dev, flush, [
+            c for c in C1_FLASH_CASES if "MoE" in c[0]])
+        for name, cases in c1_decode_checks(
+                torch, dev, flush, [c for c in C1_DECODE_CASES
+                                    if "MoE" in c[0]]).items():
+            res.setdefault(name, []).extend(cases)
+        for name, cases in res.items():
+            for c in cases:
+                print(f"kernel {name} [{c['case']}]: max|err| "
+                      f"{c['max_abs_err']:.3g} = {c['limit_share']:.3g} of "
+                      f"the limit; planted fault {c['fault_limit_share']:.3g}"
+                      f" of it; {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
+                      f"ms, library {c['library_ms']} ms, bound "
+                      f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+        del flush
+        elapsed("phase 3 (MoE shapes)")
+    for n, run in (("21", moe_serve_phase), ("22", moe_train_phase),
+                   ("23", diffusion_phase)):
+        if n in only:
+            free_card(torch, f"phase {n}")
+            run(torch, np)
+            elapsed(f"phase {n}")
+    print("chip_smoke: partial run (--only): no result lines")
+    return 0
+
+
+def new_phases(torch, np, elapsed) -> dict:
+    """Phases 21-23, after every earlier engine is freed."""
+    free_card(torch, "350M+MoE-128 serving")
+    moe_served = moe_serve_phase(torch, np)
+    elapsed("phase 21")
+    free_card(torch, "125M+MoE-64 training")
+    moe_trained = moe_train_phase(torch, np)
+    elapsed("phase 22")
+    free_card(torch, "Stable Diffusion")
+    diffusion_phase(torch, np)
+    elapsed("phase 23")
+    return {"served": moe_served, "trained": moe_trained}
 
 
 if __name__ == "__main__":

@@ -17,6 +17,9 @@ BERT and DistilBERT (``forward()`` and training; no ``generate()``).
 The ``hf_*_config`` functions map a Hugging Face config (an object or a
 ``config.json`` dict), and ``convert_hf_model`` a whole Hugging Face
 model (its config and state dict) to ``(TransformerConfig, params)``.
+Mixture-of-Experts models (``moe_num_experts``) train and serve through
+the same entry points on one card; ``init_diffusion`` builds the Stable
+Diffusion pipeline (UNet, VAE, CLIP text).
 """
 from __future__ import annotations
 
@@ -31,17 +34,19 @@ from .module_inject.policies import (convert_hf_model, hf_bert_config,
                                      hf_gpt2_config, hf_gptj_config,
                                      hf_gptneo_config, hf_llama_config,
                                      hf_neox_config, hf_opt_config)
+from .moe import MoEConfig, MoELayer
 from .runtime.config import DeepSpeedConfig
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .runtime.engine import DeepSpeedEngine
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedDataLoader", "DeepSpeedEngine",
-           "DeepSpeedInferenceConfig", "InferenceEngine", "RepeatingLoader",
-           "TransformerConfig", "TransformerLM", "convert_hf_model",
-           "gpt2_config", "hf_bert_config", "hf_bloom_config",
-           "hf_distilbert_config", "hf_gpt2_config", "hf_gptj_config",
-           "hf_gptneo_config", "hf_llama_config", "hf_neox_config",
-           "hf_opt_config", "init_inference", "initialize", "neox_config"]
+           "DeepSpeedInferenceConfig", "InferenceEngine", "MoEConfig",
+           "MoELayer", "RepeatingLoader", "TransformerConfig",
+           "TransformerLM", "convert_hf_model", "gpt2_config",
+           "hf_bert_config", "hf_bloom_config", "hf_distilbert_config",
+           "hf_gpt2_config", "hf_gptj_config", "hf_gptneo_config",
+           "hf_llama_config", "hf_neox_config", "hf_opt_config",
+           "init_diffusion", "init_inference", "initialize", "neox_config"]
 
 
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
@@ -95,3 +100,51 @@ def init_inference(model: TransformerLM,
         cfg_dict.update(kwargs)
         cfg = DeepSpeedInferenceConfig.from_dict(cfg_dict)
     return InferenceEngine(model, cfg, params=params, device=device)
+
+
+def init_diffusion(unet_config=None, vae_config=None, text_config=None,
+                   state_dicts: Optional[Dict[str, Any]] = None,
+                   params: Optional[Dict[str, Any]] = None, scheduler=None,
+                   device=None, dtype: Any = None, seed: int = 0):
+    """Build a Stable-Diffusion-class pipeline
+    (``deepspeed_tpu.init_diffusion``'s counterpart) → ``(pipeline,
+    params)``.  ``state_dicts`` may hold any of "unet" / "vae" /
+    "text_encoder" as HF-named checkpoints (diffusers / transformers
+    names; another key raises); missing parts come from ``params`` (the
+    JAX layout) or a fresh init from ``seed`` on the device.  ``device``
+    defaults to the CUDA card and raises if there is none; ``dtype``
+    (default float32) is the modules' compute dtype.  The returned
+    params are prepared once for ``F.conv2d`` on that device."""
+    import torch
+    from .accelerator import resolve_device
+    from .models.diffusion import (AutoencoderKL, CLIPTextConfig,
+                                   CLIPTextEncoder, StableDiffusionPipeline,
+                                   UNet2DCondition, UNetConfig, VAEConfig,
+                                   to_torch_tree)
+    from .module_inject import diffusion_policies as pol
+    dev = resolve_device(device)
+    unet = UNet2DCondition(unet_config or UNetConfig())
+    vae = AutoencoderKL(vae_config or VAEConfig())
+    text = CLIPTextEncoder(text_config or CLIPTextConfig())
+    sds = state_dicts or {}
+    unknown = set(sds) - {"unet", "vae", "text_encoder"}
+    if unknown:
+        raise ValueError(
+            f"init_diffusion: unknown state_dicts entries {sorted(unknown)}"
+            f" — expected a subset of ['unet', 'vae', 'text_encoder'] "
+            f"(refusing a silent partial load)")
+    params = {k: to_torch_tree(v) for k, v in (params or {}).items()}
+    loaders = {"unet": (pol.load_unet, unet), "vae": (pol.load_vae, vae),
+               "text_encoder": (pol.load_clip_text, text)}
+    for name, sd in sds.items():
+        load, mod = loaders[name]
+        params[name] = load(mod.config, sd)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for name, (_, mod) in loaders.items():
+        if name not in params:
+            params[name] = mod.init(g, dev)
+    pipe = StableDiffusionPipeline(unet, vae, text, scheduler=scheduler,
+                                   device=dev,
+                                   dtype=dtype or torch.float32)
+    return pipe, pipe.prepare(params)

@@ -7,7 +7,7 @@ rejected, a ``None`` value means "use the default", and a value of the
 wrong type raises ``ValueError``.
 
 Blocks the slices of the port so far do not run (``tensor_parallel``
-beyond one device, ``moe``, ``observability``, ``serving.mesh`` beyond
+beyond one device, ``moe.ep_size`` beyond one device, ``observability``, ``serving.mesh`` beyond
 1x1, ``serving.host_cache``, ``serving.fleet``) parse here and are
 refused with ``NotImplementedError`` by the engines that would run them.
 ``quant`` (int8 weights), ``serving.kv_cache_bits`` (int8 or packed-int4

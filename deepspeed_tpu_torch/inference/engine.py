@@ -21,7 +21,14 @@ stacked ``blocks`` quantized one layer at a time; ``forward()``,
 ``_model_params``, and the model dequantizes one layer at a time through
 its ``block_transform`` seam.  As in the JAX engine, scope is decided by
 the rank of the stacked leaf, so each layer's biases and norm scales
-(``[L, d]``) are quantized too.
+(``[L, d]``) are quantized too, and with MoE each layer's gate ``[M, E]``
+and stacked experts ``[E, M, F]``.
+
+An MoE model (``moe.enabled`` with ``ep_size`` 1; more devices are queue A
+item 7) is served by ``generate()`` and ``forward()``, routed in eval
+mode; its prompts are padded to ``prompt_bucket`` as in the JAX engine,
+and the padded positions take capacity slots there too, so both route
+the same S tokens.  The server refuses it, as the JAX server does.
 """
 from __future__ import annotations
 
@@ -48,9 +55,9 @@ def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
     later = []
     if cfg.tensor_parallel.enabled and cfg.tensor_parallel.tp_size > 1:
         later.append("tensor_parallel.tp_size > 1 (multi-device)")
-    if cfg.moe.enabled:
-        later.append("moe.enabled (MoE: the next slice, queue A item 5's "
-                     "rest)")
+    if cfg.moe.enabled and cfg.moe.ep_size > 1:
+        later.append(f"moe.ep_size {cfg.moe.ep_size} (expert parallelism: "
+                     f"multi-device, queue A item 7)")
     if cfg.observability is not None:
         later.append("observability (serving observability hooks)")
     if later:
@@ -126,7 +133,10 @@ class InferenceEngine:
                            "random weights (seed 0)")
             g = torch.Generator(device=self.device)
             g.manual_seed(0)
-            self.params = model.init(g, self.device, self.dtype)
+            # every float leaf in the engine's dtype, an MoE gate too
+            # (the JAX engine casts its fresh init the same way)
+            self.params = tree_map(model.init(g, self.device, self.dtype),
+                                   self._cast)
         # int8 weight-only serving: int8 leaves in self.params, f32
         # scales in the parallel tree self._scales
         self._quantized = False

@@ -3,8 +3,10 @@
 The JAX ``TransformerLM.init`` tree (after ``jax.device_get``: nested
 dicts of numpy arrays, block leaves stacked on the leading layer axis
 for ``lax.scan``) and the port's tree have the same paths, shapes and
-layouts for every family (``ln_embed``, ``type_embed``, ``mlm_head``
-and GPT-J's ``lm_head.bias`` included), so the bridge is a leaf-by-leaf numpy <-> torch map.  bfloat16
+layouts for every family (``ln_embed``, ``type_embed``, ``mlm_head``,
+GPT-J's ``lm_head.bias`` and an MoE model's superblocks ``blocks.dense``
+/ ``blocks.moe_blk.moe.{gate, experts, residual_mlp, coefficient}``
+included), so the bridge is a leaf-by-leaf numpy <-> torch map.  bfloat16
 arrays (``ml_dtypes.bfloat16`` on the numpy side) cross bit-exactly
 through their 16-bit patterns.  A train state crosses as its counters
 (``step``, ``skipped``, the optimizer's ``step``) plus the trees of the
@@ -45,9 +47,12 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def tree_map(tree, fn):
-    """``fn`` applied to every leaf of a nested dict."""
+    """``fn`` applied to every leaf of nested dicts (and lists: the
+    diffusion family's blocks)."""
     if isinstance(tree, dict):
         return {k: tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(v, fn) for v in tree]
     return fn(tree)
 
 

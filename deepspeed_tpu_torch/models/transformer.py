@@ -17,7 +17,13 @@ output); per-layer local windows and an unscaled softmax (GPT-Neo:
 ``attention_layers``, ``attn_softmax_scale``, on plain attention only);
 tied or untied (``lm_head``, with GPT-J's optional bias) output, with or
 without biases; bf16 activations with f32 norms, rotary, softmax and
-logits.  MoE raises ``NotImplementedError`` (the next slice).
+logits.  Mixture-of-Experts (``moe_num_experts``): every ``moe_freq``-th
+layer's MLP is an MoE layer of ``moe/layer.py`` (the JAX model's
+superblock: ``blocks = {"dense": ..., "moe_blk": {..., "moe": ...}}``
+stacked on ``num_layers / moe_freq``); ``loss`` adds
+``moe_aux_loss_coef`` times the summed load-balance loss and routes in
+train mode (``batch["moe_rng"]`` seeds the noise), while ``apply``
+routes in eval mode.
 
 Parameters are a nested dict in the JAX package's layout (dense kernels
 ``[in, out]``, block leaves stacked on a leading layer axis), so
@@ -46,7 +52,10 @@ cache (never kernel B5), as in the JAX model.  The paged server refuses
 such a model (its kernels do not apply the layout).
 
 Caches are updated IN PLACE (JAX returns new arrays): ``apply`` writes
-the new rows into the dense cache tensors it was given, and the paged
+the new rows into the dense cache tensors it was given (``[L, B, T, H,
+D]`` in layer order for an MoE model too, where the JAX model keeps
+``[scan, A, B, T, H, D]``: no cache crosses between the packages; the
+paged server refuses MoE, as the JAX one does), and the paged
 mixed step scatters every new k/v row (encoded with ``kv_quantize`` into
 values and scales for an int8 or packed-int4 pool) into the pool tensors
 it was given before the attention kernels read them.
@@ -137,11 +146,45 @@ class TransformerConfig:
     loss_chunk: int = 512
     # analytic loss head (ops/transformer/fused_loss.py)
     fused_loss_head: bool = True
-    moe_num_experts: int = 0
+    # -- MoE (``moe/``): every ``moe_freq``-th layer's MLP is an MoE
+    moe_num_experts: int = 0           # 0: a dense model
+    moe_freq: int = 2                  # 1: every layer, 2: every other
+    moe_k: int = 1                     # top-1 or top-2 gating
+    moe_capacity_factor: float = 1.0
+    moe_eval_capacity_factor: float = 1.0
+    moe_min_capacity: int = 4
+    moe_use_residual: bool = False     # PR-MoE
+    moe_noisy_gate_policy: Optional[str] = None
+    moe_use_rts: bool = True
+    moe_aux_loss_coef: float = 0.01
+    moe_d_ff: int = 0                  # 0: ff_dim
 
     @property
     def ff_dim(self) -> int:
         return self.d_ff or 4 * self.d_model
+
+    @property
+    def moe_enabled(self) -> bool:
+        return self.moe_num_experts > 0
+
+    @property
+    def scan_length(self) -> int:
+        """Stacked superblocks: ``num_layers / moe_freq`` with MoE (a
+        dense layer then an MoE layer at ``moe_freq`` 2, an MoE layer at
+        1), else ``num_layers``."""
+        if not self.moe_enabled:
+            return self.num_layers
+        if self.moe_freq not in (1, 2):
+            raise ValueError("moe_freq must be 1 or 2")
+        if self.num_layers % self.moe_freq:
+            raise ValueError(
+                f"num_layers ({self.num_layers}) must divide by moe_freq "
+                f"({self.moe_freq})")
+        return self.num_layers // self.moe_freq
+
+    @property
+    def attn_per_block(self) -> int:
+        return self.moe_freq if self.moe_enabled else 1
 
     @property
     def hdim(self) -> int:
@@ -164,21 +207,37 @@ class TransformerConfig:
         d = int(self.hdim * self.rotary_pct)
         return d - d % 2
 
-    def num_params(self) -> int:
+    def num_params(self, active: bool = False) -> int:
+        """Parameters of the model; with MoE every expert, the gate and
+        the PR-MoE leaves count.  ``active``: those one token runs
+        through (an MoE layer's gate, its k experts and the PR-MoE
+        leaves, not all E experts), the N of a step's 6 N flops."""
         d, f, v = self.d_model, self.ff_dim, self.vocab_size
         nhd = self.num_heads * self.hdim
         norm = 2 * d if self.norm_type == "layernorm" else d
-        per_layer = d * self.qkv_dim + nhd * d + 2 * d * f + 2 * norm
+        attn = d * self.qkv_dim + nhd * d + 2 * norm
+        mlp = 2 * d * f
         if self.gated_mlp:
-            per_layer += d * f
+            mlp += d * f
         if self.use_bias:
-            per_layer += self.qkv_dim + d + f + d
+            attn += self.qkv_dim + d
+            mlp += f + d
             if self.gated_mlp:
-                per_layer += f
+                mlp += f
+        n_moe = self.scan_length if self.moe_enabled else 0
+        layers = (self.num_layers - n_moe) * (attn + mlp)
+        if n_moe:
+            fe = self.moe_d_ff or f
+            expert = 2 * d * fe + fe + d       # GELU MLP with biases
+            moe = d * self.moe_num_experts + expert * (
+                self.moe_k if active else self.moe_num_experts)
+            if self.moe_use_residual:
+                moe += expert + 2 * d + 2
+            layers += n_moe * (attn + moe)
         emb = v * d + (self.max_seq_len * d
                        if self.pos_embedding == "learned" else 0)
         head = 0 if self.tie_embeddings else d * v
-        return self.num_layers * per_layer + emb + head + norm
+        return layers + emb + head + norm
 
 
 GPT2_SIZES = {
@@ -216,9 +275,6 @@ def neox_config(size: str = "1.3b", **kw) -> TransformerConfig:
 #: what each configuration outside the port's slices so far needs, and
 #: the later slice (ROADMAP.md queue A) that brings it
 _OUT_OF_SLICE = (
-    (lambda c: c.moe_num_experts > 0, "moe_num_experts (MoE)",
-     "the next slice, MoE on one device (ROADMAP.md queue A item 5's "
-     "rest),"),
     (lambda c: c.attn_impl not in ("xla", "flash", "blocksparse"),
      "attn_impl={attn_impl!r}", "multi-device (ROADMAP.md queue A item 7)"),
 )
@@ -279,6 +335,10 @@ def check_in_slice(c: TransformerConfig) -> None:
         if bad:
             raise ValueError(f"attention_layers entries must be "
                              f"'global'/'local', got {sorted(bad)}")
+        if c.moe_enabled:
+            raise NotImplementedError(
+                "attention_layers (per-layer local windows) is not "
+                "plumbed through the MoE superblock scan")
         if c.attn_impl != "xla":
             raise NotImplementedError(
                 f"attention_layers needs attn_impl='xla' (the kernels take "
@@ -302,6 +362,12 @@ def check_in_slice(c: TransformerConfig) -> None:
     if c.remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {c.remat!r} (one of "
                          f"{sorted(REMAT_POLICIES)} or 'host_offload')")
+    if c.moe_enabled:
+        _ = c.scan_length              # raises unless moe_freq is 1 or 2
+        #                                and divides num_layers
+        if c.moe_k not in (1, 2):
+            raise ValueError(f"Only top-1 and top-2 gating supported, got "
+                             f"k={c.moe_k}")
 
 
 def layer_views(blocks: Params) -> List[Params]:
@@ -329,6 +395,17 @@ def layer_views(blocks: Params) -> List[Params]:
     return layers
 
 
+def moe_generator(rng: Any, device) -> Optional[torch.Generator]:
+    """A routing generator on ``device`` from ``batch["moe_rng"]``: a
+    ``torch.Generator`` as given, a seed (int or one-element tensor) as
+    a new generator seeded with it, None as None."""
+    if rng is None or isinstance(rng, torch.Generator):
+        return rng
+    g = torch.Generator(device=device)
+    g.manual_seed(int(rng))
+    return g
+
+
 class TransformerLM(nn.Module):
     """``init`` → params tree, ``apply`` → f32 logits.  The module holds
     the config only; weights live in the tree the caller passes (the
@@ -346,6 +423,25 @@ class TransformerLM(nn.Module):
         # per-layer params hook: one layer's view of params["blocks"] to
         # the standard block tree (int8 serving dequantizes here)
         self.block_transform = lambda bp: bp
+        # each MoE layer's (exp_counts [E] int32, tokens kept, capacity)
+        # of the last forward, in layer order (device tensors: no sync)
+        self.moe_stats: List[Tuple[torch.Tensor, torch.Tensor, int]] = []
+        self._moe = None
+        if config.moe_enabled:
+            from ..moe.layer import MoEConfig, MoELayer
+            self._moe = MoELayer(
+                config.d_model,
+                MoEConfig(num_experts=config.moe_num_experts,
+                          k=config.moe_k,
+                          capacity_factor=config.moe_capacity_factor,
+                          eval_capacity_factor=config.moe_eval_capacity_factor,
+                          min_capacity=config.moe_min_capacity,
+                          use_residual=config.moe_use_residual,
+                          noisy_gate_policy=config.moe_noisy_gate_policy,
+                          use_rts=config.moe_use_rts,
+                          aux_loss_coef=config.moe_aux_loss_coef),
+                d_ff=config.moe_d_ff or config.ff_dim,
+                depth_scale=config.num_layers)
 
     # -- parameters ---------------------------------------------------------
     def param_shapes(self, head_bias: bool = False) -> Params:
@@ -355,33 +451,53 @@ class TransformerLM(nn.Module):
         [D, V]`` when untied (and ``lm_head.bias [V]`` with
         ``head_bias``: GPT-J's loader adds it, no init makes it), no
         biases without ``use_bias``, ``ln_f`` only with a final norm,
-        ``ln_embed``, ``type_embed`` and ``mlm_head`` when
-        configured)."""
+        ``ln_embed``, ``type_embed`` and ``mlm_head`` when configured;
+        with MoE ``blocks`` is ``{"dense": ..., "moe_blk": {..., "moe":
+        ...}}`` stacked on ``scan_length``, only ``moe_blk`` at
+        ``moe_freq`` 1)."""
         c = self.config
-        d, f, n = c.d_model, c.ff_dim, c.num_layers
+        d, f = c.d_model, c.ff_dim
         hd = c.num_heads * c.hdim
-
-        def dense(i, o):
-            p = {"kernel": (n, i, o)}
-            if c.use_bias:
-                p["bias"] = (n, o)
-            return p
 
         def norm(*lead):
             p = {"scale": lead + (d,)}
             if c.norm_type == "layernorm":
                 p["bias"] = lead + (d,)
             return p
-        mlp = {"fc_in": dense(d, f), "fc_out": dense(f, d)}
-        if c.gated_mlp:
-            mlp["fc_gate"] = dense(d, f)
-        tree = {
-            "embed": {"embedding": (c.vocab_size, d)},
-            "blocks": {"ln1": norm(n), "ln2": norm(n),
-                       "attn": {"qkv": dense(d, c.qkv_dim),
-                                "out": dense(hd, d)},
-                       "mlp": mlp},
-        }
+
+        def block(n, mlp=True):
+            def dense(i, o):
+                p = {"kernel": (n, i, o)}
+                if c.use_bias:
+                    p["bias"] = (n, o)
+                return p
+            blk = {"ln1": norm(n), "ln2": norm(n),
+                   "attn": {"qkv": dense(d, c.qkv_dim), "out": dense(hd, d)}}
+            if mlp:
+                blk["mlp"] = {"fc_in": dense(d, f), "fc_out": dense(f, d)}
+                if c.gated_mlp:
+                    blk["mlp"]["fc_gate"] = dense(d, f)
+            return blk
+        tree = {"embed": {"embedding": (c.vocab_size, d)}}
+        if c.moe_enabled:
+            n, e = c.scan_length, c.moe_num_experts
+            fe = c.moe_d_ff or f
+
+            def expert(*lead):
+                return {"fc_in": {"kernel": lead + (d, fe),
+                                  "bias": lead + (fe,)},
+                        "fc_out": {"kernel": lead + (fe, d),
+                                   "bias": lead + (d,)}}
+            moe = {"gate": {"kernel": (n, d, e)}, "experts": expert(n, e)}
+            if c.moe_use_residual:
+                moe["residual_mlp"] = expert(n)
+                moe["coefficient"] = {"kernel": (n, d, 2), "bias": (n, 2)}
+            blocks = {"moe_blk": {**block(n, mlp=False), "moe": moe}}
+            if c.moe_freq == 2:
+                blocks = {"dense": block(n), **blocks}
+            tree["blocks"] = blocks
+        else:
+            tree["blocks"] = block(c.num_layers)
         if c.final_layernorm:
             tree["ln_f"] = norm()
         if c.pos_embedding == "learned":
@@ -405,26 +521,18 @@ class TransformerLM(nn.Module):
         N(0, 0.02), positions N(0, 0.01), residual-branch outputs scaled
         by 1/sqrt(2 L), norm scales 1 and biases 0), drawn one layer at a
         time on ``device`` (default the card; raises without one) in f32
-        and stored in ``dtype`` (default ``param_dtype``).  Random numbers
-        differ from the JAX init; the leaves only some families have
-        (``ln_embed``, ``type_embed``, ``mlm_head``) are drawn last, so
-        the others keep their numbers."""
+        and stored in ``dtype`` (default ``param_dtype``; an MoE gate
+        stays f32, as in the JAX package).  Random numbers differ from
+        the JAX init; the leaves only some families have (``ln_embed``,
+        ``type_embed``, ``mlm_head``) are drawn last, so the others keep
+        their numbers; an MoE model draws its dense superblock part, then
+        its MoE blocks' attention, then each layer's MoE leaves."""
         c = self.config
         dtype = dtype or c.param_dtype
         device = resolve_device(device)
-        n = c.num_layers
 
         def normal(shape, std):
             return L.normal_init(shape, std, generator, device, dtype)
-
-        def stacked(shape, std, scaled=False):
-            out = torch.empty((n,) + tuple(shape), dtype=dtype,
-                              device=device)
-            for i in range(n):
-                out[i] = (L.scaled_init(shape, std, n, generator, device,
-                                        dtype) if scaled
-                          else normal(shape, std))
-            return out
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=dtype, device=device)
@@ -434,34 +542,56 @@ class TransformerLM(nn.Module):
         d, f = c.d_model, c.ff_dim
         hd = c.num_heads * c.hdim
 
-        def dense(i, o, scaled=False):
-            p = {"kernel": stacked((i, o), 0.02, scaled)}
-            if c.use_bias:
-                p["bias"] = zeros(n, o)
-            return p
-
         def norm(*lead):
             p = {"scale": ones(*lead, d)}
             if c.norm_type == "layernorm":
                 p["bias"] = zeros(*lead, d)
             return p
+
+        def block(n, mlp=True):
+            def stacked(shape, std, scaled=False):
+                out = torch.empty((n,) + tuple(shape), dtype=dtype,
+                                  device=device)
+                for i in range(n):
+                    out[i] = (L.scaled_init(shape, std, c.num_layers,
+                                            generator, device, dtype)
+                              if scaled else normal(shape, std))
+                return out
+
+            def dense(i, o, scaled=False):
+                p = {"kernel": stacked((i, o), 0.02, scaled)}
+                if c.use_bias:
+                    p["bias"] = zeros(n, o)
+                return p
+            blk = {
+                "ln1": norm(n),
+                "attn": {"qkv": dense(d, c.qkv_dim),
+                         "out": dense(hd, d, scaled=True)},
+                "ln2": norm(n),
+            }
+            if mlp:
+                blk["mlp"] = {"fc_in": dense(d, f),
+                              "fc_out": dense(f, d, scaled=True)}
+                if c.gated_mlp:
+                    blk["mlp"]["fc_gate"] = dense(d, f)
+            return blk
         params = {"embed": {"embedding": normal((c.vocab_size, d), 0.02)}}
         if c.pos_embedding == "learned":
             params["pos_embed"] = {"embedding": normal((c.max_seq_len, d),
                                                        0.01)}
         if c.final_layernorm:
             params["ln_f"] = norm()
-        blocks = {
-            "ln1": norm(n),
-            "attn": {"qkv": dense(d, c.qkv_dim),
-                     "out": dense(hd, d, scaled=True)},
-            "ln2": norm(n),
-            "mlp": {"fc_in": dense(d, f),
-                    "fc_out": dense(f, d, scaled=True)},
-        }
-        if c.gated_mlp:
-            blocks["mlp"]["fc_gate"] = dense(d, f)
-        params["blocks"] = blocks
+        if c.moe_enabled:
+            n = c.scan_length
+            blocks = {"dense": block(n)} if c.moe_freq == 2 else {}
+            moe_blk = block(n, mlp=False)
+            from ..moe.layer import stack_trees
+            moe_blk["moe"] = stack_trees(
+                n, lambda: self._moe.init(generator, device, dtype))
+            blocks["moe_blk"] = moe_blk
+            params["blocks"] = blocks
+        else:
+            params["blocks"] = block(c.num_layers)
         if not c.tie_embeddings:
             params["lm_head"] = {"kernel": normal((d, c.vocab_size), 0.02)}
         if c.embed_layernorm:
@@ -599,6 +729,36 @@ class TransformerLM(nn.Module):
         x = x + attn(self._norm(bp["ln1"], x))
         return x + self._mlp(bp["mlp"], self._norm(bp["ln2"], x))
 
+    def _moe_block(self, bp: Params, x: torch.Tensor, attend,
+                   positions: Optional[torch.Tensor], noise, train: bool):
+        """Attention and the MoE FFN (pre-norm, serial or parallel
+        residual, as the JAX model's ``_moe_block``) → ``(x, Routing)``;
+        ``noise`` is the layer's :class:`GateNoise`, drawn by the
+        caller."""
+        def attn(h):
+            q, k, v = self._qkv(bp["attn"], h, positions)
+            return L.dense_apply(bp["attn"]["out"], attend(q, k, v))
+
+        def moe(h):
+            return self._moe.apply_routed(bp["moe"], h, train=train,
+                                          noise=noise)
+        if self.config.parallel_residual:
+            a = attn(self._norm(bp["ln1"], x))
+            m, r = moe(self._norm(bp["ln2"], x))
+            return x + a + m, r
+        x = x + attn(self._norm(bp["ln1"], x))
+        m, r = moe(self._norm(bp["ln2"], x))
+        return x + m, r
+
+    def _units(self, sp: Params) -> List[Tuple[str, Params]]:
+        """The attention layers of one superblock view, in order:
+        ``("dense", block)`` or ``("moe", block)``."""
+        c = self.config
+        if not c.moe_enabled:
+            return [("dense", sp)]
+        units = [("moe", sp["moe_blk"])]
+        return [("dense", sp["dense"])] + units if c.moe_freq == 2 else units
+
     def _project(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """f32 logits from operands in x's dtype: the MLM head (dense,
         act, LN, the tied decoder, the vocab bias), the tied embedding,
@@ -628,8 +788,9 @@ class TransformerLM(nn.Module):
         c = self.config
         b, t = input_ids.shape
         if cache is None:
+            # inference semantics: eval capacity factor, no gate noise
             return self._project(params, self.hidden_states(
-                params, input_ids, token_type_ids))
+                params, input_ids, token_type_ids, train=False))
         if not c.causal:
             raise NotImplementedError(ENCODER_DECODE)
         idx = int(cache["index"])
@@ -643,30 +804,39 @@ class TransformerLM(nn.Module):
             sparse = self._sparse_mask(idx, t, cache["k"].shape[2],
                                        input_ids.device)[..., :idx + t]
         windows = self._layer_windows()
-        for i, bp in enumerate(layer_views(params["blocks"])):
-            bp = self.block_transform(bp)
-            ck, cv = cache["k"][i], cache["v"][i]
+        stats = []
+        i = 0
+        for sp in layer_views(params["blocks"]):
+            for kind, bp in self._units(self.block_transform(sp)):
+                ck, cv = cache["k"][i], cache["v"][i]
 
-            def attend(q, k, v, ck=ck, cv=cv, window=windows[i]):
-                ck[:, idx:idx + t] = k
-                cv[:, idx:idx + t] = v
-                if (t == 1 and c.attn_impl == "flash"
-                        and c.pos_embedding != "alibi"):
-                    # token-at-a-time hot path: kernel B5 over the cache
-                    # at kv-head width (query head h reads kv head h // g;
-                    # the JAX model expands the cache with `expand_kv`
-                    # first, which gives the same result)
-                    o = decode_attention(q[:, 0].contiguous(), ck, cv,
-                                         idx + 1)
-                    return o.reshape(b, 1, -1)
-                # plain attention: the layout the model trained with at
-                # the query positions (block-sparse), ALiBi, the layer's
-                # window (the JAX model's dense-cache path)
-                o = self._plain_attention(q, ck[:, :idx + t],
-                                          cv[:, :idx + t], idx, window,
-                                          sparse)
-                return o.reshape(b, t, -1)
-            x = self._block(bp, x, attend, pos)
+                def attend(q, k, v, ck=ck, cv=cv, window=windows[i]):
+                    ck[:, idx:idx + t] = k
+                    cv[:, idx:idx + t] = v
+                    if (t == 1 and c.attn_impl == "flash"
+                            and c.pos_embedding != "alibi"):
+                        # token-at-a-time hot path: kernel B5 over the
+                        # cache at kv-head width (query head h reads kv
+                        # head h // g; the JAX model expands the cache with
+                        # `expand_kv` first, which gives the same result)
+                        o = decode_attention(q[:, 0].contiguous(), ck, cv,
+                                             idx + 1)
+                        return o.reshape(b, 1, -1)
+                    # plain attention: the layout the model trained with
+                    # at the query positions (block-sparse), ALiBi, the
+                    # layer's window (the JAX model's dense-cache path)
+                    o = self._plain_attention(q, ck[:, :idx + t],
+                                              cv[:, :idx + t], idx, window,
+                                              sparse)
+                    return o.reshape(b, t, -1)
+                if kind == "moe":
+                    # inference routing: eval capacity, no noise, no RTS
+                    x, r = self._moe_block(bp, x, attend, pos, None, False)
+                    stats.append((r.exp_counts, r.kept.sum(), r.capacity))
+                else:
+                    x = self._block(bp, x, attend, pos)
+                i += 1
+        self.moe_stats = stats
         logits = self._project(params, self._final_norm(params, x))
         return logits, {"k": cache["k"], "v": cache["v"], "index": idx + t}
 
@@ -688,7 +858,9 @@ class TransformerLM(nn.Module):
             create_selective_checkpoint_contexts, policy)}
 
         def wrapped(*args):
-            # the blocks draw no random numbers: no RNG state to replay
+            # the blocks draw no random numbers (an MoE layer's routing
+            # noise is drawn outside and passed in): no RNG state to
+            # replay, and the recomputed forward routes the same tokens
             return checkpoint(fn, *args, use_reentrant=False,
                               preserve_rng_state=False, **kw)
         return wrapped
@@ -765,26 +937,67 @@ class TransformerLM(nn.Module):
         return mask.reshape(1, c.kv_heads, c.num_heads // c.kv_heads, t, tk)
 
     def hidden_states(self, params: Params, input_ids: torch.Tensor,
-                      token_type_ids: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      token_type_ids: Optional[torch.Tensor] = None,
+                      train: bool = True) -> torch.Tensor:
         """Forward up to the final norm (when the model has one),
         pre-projection: ``[B, T, D]``."""
-        t = input_ids.shape[1]
+        return self.hidden_states_and_aux(params, input_ids,
+                                          token_type_ids=token_type_ids,
+                                          train=train)[0]
+
+    def hidden_states_and_aux(self, params: Params, input_ids: torch.Tensor,
+                              generator: Optional[torch.Generator] = None,
+                              train: bool = True,
+                              token_type_ids: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward up to the final norm → ``([B, T, D], l_aux)``: l_aux
+        summed over the MoE layers (0 without MoE).  ``train`` routes
+        with the training capacity factor and, with ``generator``, the
+        noise policy and RTS; each MoE layer's noise is drawn from
+        ``generator`` before its superblock runs, outside the remat
+        function.  Each remat unit is one superblock, as in the JAX
+        model's scan."""
+        c = self.config
+        b, t = input_ids.shape
         pos = torch.arange(t, device=input_ids.device)[None]
         x = self._embed(params, input_ids, pos, token_type_ids)
-        block = self._remat(lambda bp, x, window: self._block(
-            self.block_transform(bp), x,
-            functools.partial(self._attend_full, window=window)))
-        for bp, window in zip(layer_views(params["blocks"]),
-                              self._layer_windows()):
-            x = block(bp, x, window)
-        return self._final_norm(params, x)
+        laux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if not c.moe_enabled:
+            block = self._remat(lambda bp, x, window: self._block(
+                self.block_transform(bp), x,
+                functools.partial(self._attend_full, window=window)))
+            for bp, window in zip(layer_views(params["blocks"]),
+                                  self._layer_windows()):
+                x = block(bp, x, window)
+            self.moe_stats = []
+            return self._final_norm(params, x), laux
 
-    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
-             ) -> torch.Tensor:
+        def superblock(sp, x, noise):
+            for kind, bp in self._units(self.block_transform(sp)):
+                if kind == "moe":      # one MoE layer a superblock
+                    x, r = self._moe_block(bp, x, self._attend_full, None,
+                                           noise, train)
+                else:
+                    x = self._block(bp, x, self._attend_full)
+            return x, r.l_aux, r.exp_counts, r.kept.sum(), r.capacity
+        sb = self._remat(superblock)
+        stats = []
+        for sp in layer_views(params["blocks"]):
+            noise = self._moe.draw_noise(generator, b * t, train)
+            x, la, counts, kept, cap = sb(sp, x, noise)
+            laux = laux + la
+            stats.append((counts.detach(), kept.detach(), cap))
+        self.moe_stats = stats
+        return self._final_norm(params, x), laux
+
+    def loss(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
         """Causal LM loss.  ``batch``: {"input_ids" [B, T]} (labels are
         the ids shifted left, the last position masked out) or explicit
-        {"input_ids", "labels", optional "loss_mask"}."""
+        {"input_ids", "labels", optional "loss_mask"}; with MoE the NLL
+        plus ``moe_aux_loss_coef`` times the summed l_aux, routed in
+        train mode, with the noise of ``batch["moe_rng"]`` (a seed or a
+        ``torch.Generator``; the engine gives each micro batch its own
+        seed) when given."""
         ids = batch["input_ids"]
         mask = batch.get("loss_mask")
         if "labels" in batch:
@@ -798,8 +1011,13 @@ class TransformerLM(nn.Module):
                               device=ids.device)
             last[:, -1] = 0.0
             mask = last if mask is None else mask * last
-        x = self.hidden_states(params, ids)
-        return self.nll_from_hidden(params, x, labels, mask)
+        x, laux = self.hidden_states_and_aux(
+            params, ids, generator=moe_generator(batch.get("moe_rng"),
+                                                 ids.device))
+        nll = self.nll_from_hidden(params, x, labels, mask)
+        if self.config.moe_enabled:
+            return nll + self.config.moe_aux_loss_coef * laux
+        return nll
 
     def nll_from_hidden(self, params: Params, x: torch.Tensor,
                         labels: torch.Tensor,

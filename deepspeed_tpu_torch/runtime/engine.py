@@ -16,6 +16,10 @@ compiles the step into one program, this one runs it eagerly:
   the model's activations then in float16 too) times the loss scale;
   the gradient reaches the float32 masters through the cast's backward,
   and the gas loop sums float32 gradients and scaled losses;
+* an MoE model's ``batch["moe_rng"]`` (a seed) becomes one routing seed
+  per micro batch (``moe_seeds``), kept on the host; the model's loss
+  draws each layer's RTS or Gumbel noise from a generator seeded with
+  it, so one seed gives one routing and micro batches differ;
 * ``_apply_grads`` divides by ``scale * gas``, checks the gradients for
   inf/NaN when a dynamic loss scaler runs (``runtime/fp16``), takes the
   global norm before clipping, clips by ``min(1, clip / max(norm,
@@ -54,6 +58,29 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                           for g in tree_leaves(tree)))
+
+
+def moe_seeds(rng: Any, gas: int) -> torch.Tensor:
+    """``batch["moe_rng"]`` as one routing seed per micro batch, an int64
+    CPU tensor ``[gas]`` (the JAX engine splits its key into one per
+    micro batch, so gate noise differs across gradient accumulation): a
+    seed (int, 0-d or one-element) spawns ``gas`` seeds from a generator
+    seeded with it; ``gas`` seeds are taken as given."""
+    if isinstance(rng, torch.Generator):
+        raise ValueError(
+            "batch['moe_rng'] must be a seed (an int) or one seed per "
+            f"micro batch ({gas},), not a torch.Generator")
+    t = torch.as_tensor(np.asarray(rng.cpu() if isinstance(rng, torch.Tensor)
+                                   else rng), dtype=torch.int64).reshape(-1)
+    if t.numel() == 1:
+        g = torch.Generator()
+        g.manual_seed(int(t[0]))
+        return torch.randint(0, 2**62, (gas,), generator=g,
+                             dtype=torch.int64)
+    if t.numel() != gas:
+        raise ValueError(f"moe_rng must be a seed or per-microbatch seeds "
+                         f"({gas},); got {tuple(t.shape)}")
+    return t
 
 
 class DeepSpeedEngine:
@@ -247,7 +274,11 @@ class DeepSpeedEngine:
         cfg = self._config
         scale = self._current_scale(state)
         denom = scale * n_micro
-        grads = tree_map(lambda g: g.to(torch.float32) / denom, grads)
+        # the summed grads are the engine's own float32 buffers: scaled
+        # (and clipped below) in place, so no second tree of gradients
+        # lives at the step's peak of memory
+        grads = tree_map(lambda g: (g.div_(denom) if g.dtype == torch.float32
+                                    else g.to(torch.float32) / denom), grads)
         if overflow is None:
             if (self.loss_scaler is not None
                     and self.loss_scaler.detect_overflow):
@@ -265,7 +296,7 @@ class DeepSpeedEngine:
             factor = torch.clamp(
                 cfg.gradient_clipping / torch.clamp(gnorm, min=1e-6),
                 max=1.0)
-            grads = tree_map(lambda g: g * factor, grads)
+            grads = tree_map(lambda g: g.mul_(factor), grads)
         lr = self.lr_schedule(state["step"])
         new_params, new_opt = self.optimizer.apply(
             grads, state["opt"], state["params"], lr)
@@ -280,7 +311,12 @@ class DeepSpeedEngine:
                 return {k: select(new[k], old[k]) for k in new}
             if isinstance(new, torch.Tensor) and \
                     isinstance(old, torch.Tensor):
-                return torch.where(overflow.to(new.device), old, new)
+                if new is old:
+                    return old
+                # into the optimizer's fresh tensor: no third copy of the
+                # params and moments beside the old and the new
+                return torch.where(overflow.to(new.device), old, new,
+                                   out=new)
             return old if bool(overflow) else new
         new_state = {
             "step": state["step"] + (~overflow).to(torch.int32),
@@ -317,7 +353,8 @@ class DeepSpeedEngine:
                     f"batch leading dim {t.shape[0]} matches neither the "
                     f"batch ({global_b}) nor [gas={gas}, ...] layout")
             return t.to(self.device, non_blocking=True)
-        return {k: prep(v) for k, v in batch.items()}
+        return {k: (moe_seeds(v, gas) if k == "moe_rng" else prep(v))
+                for k, v in batch.items()}
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One optimizer step over ``gas`` micro batches; returns metrics
@@ -372,7 +409,8 @@ class DeepSpeedEngine:
     def eval_loss(self, batch: Dict[str, Any]) -> torch.Tensor:
         """The loss of the whole batch (micro batches flattened), no
         gradient."""
-        sq = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+        sq = {k: (v[0] if k == "moe_rng" else
+                  v.reshape((-1,) + tuple(v.shape[2:])))
               for k, v in self.shard_batch(batch).items()}
         return self._loss_fn(self._cast_for_compute(self.state["params"]),
                              sq)
@@ -386,7 +424,8 @@ class DeepSpeedEngine:
         mb = {k: (v if isinstance(v, torch.Tensor) else
                   torch.from_numpy(np.ascontiguousarray(np.asarray(v))))
               for k, v in batch.items()}
-        mb = {k: (v if v.is_floating_point() else v.long()).to(self.device)
+        mb = {k: (v.reshape(()) if k == "moe_rng" else
+                  (v if v.is_floating_point() else v.long()).to(self.device))
               for k, v in mb.items()}
         self._last_loss, self._last_grads = self._micro_loss_and_grads(
             self.state["params"], mb, self._current_scale())

@@ -27,3 +27,11 @@ def to_f32(t: Any) -> torch.Tensor:
     if isinstance(t, torch.Tensor):
         return t.detach().to("cpu", torch.float32, copy=True)
     return torch.from_numpy(to_numpy(t).copy())
+
+
+def to_tensor(t: Any) -> torch.Tensor:
+    """torch tensor / array-like → a CPU tensor of its own in its source
+    dtype (bf16 and f16 tensors stay so)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", copy=True)
+    return torch.from_numpy(np.array(to_numpy(t, dtype=None)))

@@ -1959,3 +1959,201 @@ def test_cuda_bert_train_step_on_noncausal_b2_matches_plain():
     (lf, nf), (lx, nx) = out["flash"], out["xla"]
     assert abs(lf - lx) <= 1e-4 * abs(lx)
     assert abs(nf - nx) <= 1e-4 * abs(nx)
+
+
+# -- Mixture-of-Experts and Stable Diffusion --------------------------------
+def _moe_model(attn_impl="flash", **kw):
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    return TransformerLM(gpt2_config(
+        "125m", num_layers=4, num_heads=4, d_model=256, vocab_size=512,
+        max_seq_len=128, dtype=torch.float32, attn_impl=attn_impl,
+        moe_num_experts=8, moe_capacity_factor=0.5,
+        moe_eval_capacity_factor=1.0, moe_min_capacity=2, **kw))
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_moe_model_matches_cpu():
+    """A small MoE model (4 layers, 8 experts on every other, f32): on
+    the card (B1, B5, B2) against the same weights on the CPU (their
+    plain versions): ``forward()`` logits within 1e-4, exp_counts equal,
+    greedy ``generate()`` token for token, the train loss and its
+    gradients within 1e-4 of their scale (the gate's f32 product: TF32
+    stays off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
+    assert not torch.backends.cuda.matmul.allow_tf32
+    params = _moe_model().init(torch.Generator().manual_seed(0), "cpu")
+    cfg = {"dtype": "float32", "temperature": 0.0, "max_out_tokens": 128,
+           "moe": {"enabled": True}}
+    card = dt.init_inference(_moe_model(), cfg, params=params)
+    cpu = dt.init_inference(_moe_model(), cfg, params=params, device="cpu")
+    rs = np.random.RandomState(3)
+    x = rs.randint(0, 512, (2, 40))
+    build.reset_launch_counts()
+    got = card.forward(x)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_attention_fwd"] == 4
+    torch.testing.assert_close(got.cpu(), cpu.forward(x), atol=1e-4,
+                               rtol=1e-4)
+    for (a, ka, _), (b, kb, _) in zip(card.module.moe_stats,
+                                      cpu.module.moe_stats):
+        assert torch.equal(a.cpu(), b) and int(ka) == int(kb)
+    prompts = rs.randint(0, 512, (2, 16))
+    build.reset_launch_counts()
+    toks = card.generate(prompts, max_new_tokens=8)
+    assert build.launch_counts["decode_attention"] == 4 * 7
+    assert torch.equal(toks.cpu(), cpu.generate(prompts, max_new_tokens=8))
+    ids = torch.from_numpy(rs.randint(0, 512, (2, 64)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+        loss = _moe_model().loss(p, {"input_ids": ids.to(dev)})
+        out[dev] = (float(loss.detach()), [g.cpu() for g in torch.autograd.grad(
+            loss, leaves)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,kind", [(1, "rts"), (1, "rsample"), (2, "top2")])
+def test_cuda_moe_routing_equals_cpu(k, kind):
+    """The gate on the card routes exactly as on the CPU from the same
+    logits and the same noise (drawn on the CPU, passed in): experts,
+    slots, kept tokens, exp_counts; weights within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.moe import sharded_moe as moe
+    rs = np.random.RandomState(7)
+    logits = torch.from_numpy(rs.randn(4096, 64).astype(np.float32))
+    logits[:, 3] += 1.5
+    noise = moe.draw_noise(torch.Generator().manual_seed(1), 4096, 64, k,
+                           "RSample" if kind == "rsample" else None, True)
+    out = []
+    for dev in ("cpu", "cuda"):
+        nz = moe.GateNoise(*(None if t is None else t.to(dev)
+                             for t in noise))
+        out.append(moe.route(logits.to(dev), k, 1.0, 4,
+                             noisy_gate_policy="RSample"
+                             if kind == "rsample" else None,
+                             use_rts=kind == "rts", noise=nz))
+    a, b = out
+    for f in ("expert", "slot", "kept", "exp_counts"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+    torch.testing.assert_close(a.weight, b.weight.cpu(), atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_remat_routes_the_same_tokens():
+    """RTS and RSample under one seed on the card: ``remat="full"``'s
+    recomputed forward routes as ``remat="none"`` (noise drawn outside
+    the checkpoint): equal routing and loss, gradients within 1e-5 of
+    their scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
+    params = _moe_model().init(torch.Generator().manual_seed(1), "cpu")
+    ids = torch.from_numpy(np.random.RandomState(5).randint(0, 512, (2, 64)))
+    out = {}
+    for remat in ("none", "full"):
+        m = _moe_model(remat=remat, moe_noisy_gate_policy="RSample")
+        p = _to(params, "cuda")
+        leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+        loss = m.loss(p, {"input_ids": ids.cuda(), "moe_rng": 3})
+        grads = torch.autograd.grad(loss, leaves)
+        out[remat] = (float(loss), grads,
+                      [(c.tolist(), int(kk)) for c, kk, _ in m.moe_stats])
+    assert out["none"][2] == out["full"][2]
+    assert out["none"][0] == out["full"][0]
+    for a, b in zip(out["none"][1], out["full"][1]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            float(b.abs().max()), 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_server_refused_and_ep_size_named():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import deepspeed_tpu_torch as dt
+    eng = dt.init_inference(_moe_model(), {
+        "dtype": "float32", "serving": {"enabled": True}})
+    with pytest.raises(NotImplementedError, match="MoE block stacks"):
+        eng.serving_engine()
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        dt.init_inference(_moe_model(), {"moe": {"enabled": True,
+                                                 "ep_size": 2}})
+
+
+_TINY_UNET = dict(block_out_channels=(32, 64), layers_per_block=1,
+                  cross_attention_dim=24, attention_head_dim=2,
+                  down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                  up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                  norm_num_groups=8, sample_size=16)
+
+
+@pytest.mark.cuda
+def test_cuda_unet_and_vae_match_cpu():
+    """A narrow UNet and VAE on the card (cuDNN convolutions on
+    channels-last weights prepared once, TF32 off) against the CPU in
+    float32: eps and the decoded image within 1e-4 of their scale; the
+    bf16 pipeline on the card gives a finite image in [0, 1]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import diffusion as D
+    unet = D.UNet2DCondition(D.UNetConfig(**_TINY_UNET))
+    vae = D.AutoencoderKL(D.VAEConfig(block_out_channels=(16, 32),
+                                      layers_per_block=1, norm_num_groups=8))
+    up = unet.init(torch.Generator().manual_seed(0))
+    vp = vae.init(torch.Generator().manual_seed(1))
+    rs = np.random.RandomState(2)
+    x = torch.from_numpy(rs.randn(2, 16, 16, 4).astype(np.float32))
+    ctx = torch.from_numpy(rs.randn(2, 7, 24).astype(np.float32))
+    t = torch.tensor([10, 900])
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = torch.device("cuda")
+        want = unet.apply(up, x, t, ctx)
+        got = unet.apply(D.prepare(up, dev, torch.float32), x.to(dev),
+                         t.to(dev), ctx.to(dev)).cpu()
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+        img = vae.decode(vp, x[:1])
+        got = vae.decode(D.prepare(vp, dev, torch.float32),
+                         x[:1].to(dev)).cpu()
+        assert float((got - img).abs().max()) <= 1e-4 * float(
+            img.abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    pipe, params = dt.init_diffusion(
+        D.UNetConfig(**_TINY_UNET),
+        D.VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                    norm_num_groups=8),
+        D.CLIPTextConfig(vocab_size=64, hidden_size=24, intermediate_size=48,
+                         num_hidden_layers=2, num_attention_heads=2,
+                         max_position_embeddings=8),
+        dtype=torch.bfloat16)
+    assert pipe.device.type == "cuda"
+    assert params["unet"]["conv_in"]["weight"].is_contiguous(
+        memory_format=torch.channels_last)
+    ids = np.array([[1, 2, 3, 4, 5, 6, 7, 8]])
+    img = pipe(params, ids, np.zeros_like(ids), num_steps=3)
+    assert tuple(img.shape) == (1, 32, 32, 3)
+    assert bool(img.isfinite().all())
+    assert 0.0 <= float(img.min()) and float(img.max()) <= 1.0

@@ -473,18 +473,20 @@ def test_alibi_with_blocksparse_refused():
 @pytest.mark.parametrize("override,error", [
     (dict(attention_layers=("global",)), ValueError),
     (dict(attention_layers=("global", "sliding")), ValueError),
-    (dict(moe_num_experts=4), NotImplementedError),
+    (dict(moe_num_experts=4, attention_layers=("global", "local")),
+     NotImplementedError),
 ])
 def test_bad_or_later_configs_raise(override, error):
     """A per-layer pattern of the wrong length or with an unknown entry
-    raises as in JAX; MoE is now the only family outside the port, and
-    its message names the next slice."""
+    raises as in JAX, and so does a pattern through the MoE superblock;
+    every family is in the port now (MoE too), so only multi-device
+    attention stays outside it."""
     with pytest.raises(error) as err:
         tt.TransformerLM(tt.TransformerConfig(**BASE, **override))
     if error is NotImplementedError:
-        assert "next slice" in str(err.value)
-    assert len(tt._OUT_OF_SLICE) == 2
-    assert "MoE" in tt._OUT_OF_SLICE[0][1]
+        assert "MoE superblock" in str(err.value)
+    assert len(tt._OUT_OF_SLICE) == 1
+    assert "queue A item 7" in tt._OUT_OF_SLICE[0][2]
 
 
 def test_engine_pins_gptneo_to_plain_attention():

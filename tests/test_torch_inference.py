@@ -292,7 +292,7 @@ def test_config_defaults_and_coercion_match_jax():
 
 @pytest.mark.parametrize("override", [
     {"tensor_parallel": {"tp_size": 2}},
-    {"moe": {"enabled": True}},
+    {"moe": {"enabled": True, "ep_size": 2}},
     {"observability": {}},
 ])
 def test_out_of_slice_engine_options_raise(override):

@@ -242,9 +242,9 @@ def test_params_shape_mismatch_is_named(weights):
         params_from_jax(bad, port_model())
 
 
-#: the override that still raises (MoE: the next slice); the others are
-#: the LLaMA, BLOOM and NeoX families' pieces
-_STILL_OUT = (dict(moe_num_experts=4),)
+#: the overrides that still raise (none since MoE landed); the others
+#: are the LLaMA, BLOOM and NeoX families' pieces and MoE
+_STILL_OUT = ()
 
 
 @pytest.mark.parametrize("override", [
@@ -254,9 +254,9 @@ _STILL_OUT = (dict(moe_num_experts=4),)
     dict(moe_num_experts=4), dict(activation="silu"),
 ])
 def test_out_of_slice_families_raise(override):
-    """MoE still raises, naming the slice; rotary, RMSNorm, the gated
-    MLP, GQA and SiLU (the LLaMA family's pieces), ALiBi (BLOOM's) and
-    the parallel residual (NeoX's) each alone on the GPT-2 model give
+    """Rotary, RMSNorm, the gated MLP, GQA and SiLU (the LLaMA family's
+    pieces), ALiBi (BLOOM's), the parallel residual (NeoX's) and MoE
+    (4 experts on every other layer) each alone on the GPT-2 model give
     JAX's logits on JAX's weights."""
     cfg = dataclasses.replace(tt.gpt2_config("125m", **TINY), **override)
     if override in _STILL_OUT:

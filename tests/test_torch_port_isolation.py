@@ -95,3 +95,24 @@ def test_card_scripts_import_nothing_of_jax(script):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
     assert not [n for n in names if _forbidden(n)], names
+
+
+@pytest.mark.parametrize("module", [
+    "deepspeed_tpu_torch.moe", "deepspeed_tpu_torch.moe.layer",
+    "deepspeed_tpu_torch.moe.sharded_moe",
+    "deepspeed_tpu_torch.models.diffusion",
+    "deepspeed_tpu_torch.module_inject.diffusion_policies"])
+def test_moe_and_diffusion_modules_are_checked(module):
+    """The MoE and diffusion modules are among the modules whose imports
+    the checks above read, and import alone: loading one in a fresh
+    interpreter loads no forbidden package."""
+    assert module in dict(port_modules())
+    code = (f"import importlib, json, sys\n"
+            f"importlib.import_module({module!r})\n"
+            f"print(json.dumps(sorted(m for m in sys.modules if "
+            f"m.split('.')[0] in {FORBIDDEN!r})))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

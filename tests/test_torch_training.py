@@ -391,12 +391,14 @@ def test_out_of_slice_blocks_raise(block):
 
 
 @pytest.mark.parametrize("override,what", [
-    (dict(moe_num_experts=4), "MoE"),
+    (dict(moe_num_experts=4, attention_layers=("global", "local")), "MoE"),
     (dict(remat="host_offload"), "remat"),
 ])
 def test_out_of_slice_model_options_raise(override, what):
-    """MoE (the next slice) and host-offloaded remat (queue A item 8)
-    still raise; ALiBi, which raised here before, is the BLOOM family's
+    """Per-layer windows through the MoE superblock (which the JAX model
+    refuses too; MoE itself trains since its slice, in
+    ``tests/test_torch_moe.py``) and host-offloaded remat (queue A item
+    8) raise; ALiBi, which raised here before, is the BLOOM family's
     (``tests/test_torch_families.py``)."""
     with pytest.raises(NotImplementedError, match=what):
         port_model(**override)
