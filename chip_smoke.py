@@ -165,11 +165,37 @@ Phases (any failure exits non-zero and prints no result line):
    random weights from seed 0): one UNet step's eps in bf16 against
    float32 within ``DIFFUSION_EPS_REL_TOL``, ms per guided UNet step,
    the pipeline (20 DDIM steps, guidance 7.5, 512x512) to a finite image
-   in [0, 1], seconds per image, peak memory.
+   in [0, 1], seconds per image, peak memory;
+24. speculative serving on phase 5's GPT-3 6.7B engine (run right after
+   phase 5, on its weights): phase 5's 16 requests (32 new tokens,
+   greedy, spec_k 3) with (a) no draft, (b) the GPT-3 Small draft (12
+   layers, d_model 768, 12 heads of 64; untrained, from seed 1) and (c)
+   the target as its own draft (its module and params): streams of (b)
+   and (c) equal (a)'s up to a near tie, every proposal (c) rejects at a
+   near tie, B6/B7 launches exact against the dispatch log (target
+   layers x (a decode lane + 4 x a spec lane) B6, draft layers x (feed
+   0 + 3 x a spec lane) B6, both x a chunk B7), the pool empty after
+   each drain; tokens/s, iterations, acceptance, peak memory and the
+   overlap profiler's enqueue / device-wait shares of each; B6 at spec
+   depth 4 against its plain version with its time and bound;
+25. the multi-tenant front end on the same engine: ``bench_all.py``'s
+   ``multi_tenant_replay_bench`` mix (3 tenants, 4 slots,
+   ``max_queue_depth`` 6, 60 rounds, 16 new tokens, the GPT-3 Small
+   draft at spec_k 1, its ``SloMonitor`` windows) with tracing, metrics,
+   request tracing, overlap and the flight recorder on into a temporary
+   directory and ``DSTPU_HEARTBEAT_FILE`` set: every stream in order
+   and exactly once, the Chrome trace's serving spans and request
+   tracks, every ported ``dstpu_serving_*`` series in the textfile, the
+   heartbeat stamped; per-tenant TTFT / ITL p50 and p99, shed and
+   timeout rates, alerts fired and resolved; then phase 5's drain with
+   observability on and off (equal greedy streams, tokens/s of both).
+   Phase 6 also takes 3 more steps with tracing and metrics on (the
+   ``engine/*`` spans, ``dstpu_train_steps_total``, ms/step on and off).
 
-``python3 chip_smoke.py --only 3 21 22 23`` (any of them) builds the
+``python3 chip_smoke.py --only 3 6 21 22 23 24`` (any of them) builds the
 kernels and runs only those phases ("3": phase 3's cases at the MoE
-shapes), then prints no result line: a probe of the newest phases.
+shapes; "24": phases 24 and 25 on a fresh 6.7B engine), then prints no
+result line: a probe of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -1772,26 +1798,20 @@ def main(argv=None) -> int:
     elapsed("phase 3")
 
     # -- 4-5. generate(), forward() and the server at GPT-3 6.7B width --
-    served = serve_phase(torch, np, "GPT-3 6.7B", gpt2_config("6.7b"))
+    # -- 24-25. then on the same engine: the speculative lane, the
+    # multi-tenant front end and observability -------------------------
+    served = serve_phase(torch, np, "GPT-3 6.7B", gpt2_config("6.7b"),
+                         then=lambda eng: spec_front_phases(torch, np, eng,
+                                                            elapsed))
 
-    elapsed("phases 4-5")
+    elapsed("phases 4-5, 24-25")
 
     # -- 6. training GPT-2 125M at bench.py's configuration -------------
-    def gpt2_model(attn_impl):
-        return gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat="full",
-                           attn_impl=attn_impl, loss_chunk=256)
-
     tck = TENSOR_CORE_KERNELS
 
     def gpt2_optimizer():        # bench.py:171-180
         return {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}}
-    gpt2 = train_phase(torch, np, "GPT-2 125M", gpt2_model, gpt2_optimizer(),
-                       TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS,
-                       {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
-                        "flash_attention_bwd_dq": 0,
-                        "flash_attention_bwd_dkv": 0}, check_micro=8,
-                       profile_shares={"B1": (tck["flash_attention_fwd"],),
-                                       "B2": (tck["flash_attention_bwd"],)})
+    gpt2 = gpt2_train_phase(torch, np)
 
     elapsed("phase 6")
 
@@ -2086,7 +2106,7 @@ def warm_up_at_kv_head_width(eng, prompts, label, kv_heads) -> None:
           f"kv heads, not the model's {kv_heads}")
 
 
-def serve_phase(torch, np, label, cfg) -> dict:
+def serve_phase(torch, np, label, cfg, then=None) -> dict:
     """``init_inference`` on ``cfg`` in bf16 with random weights from
     seed 0, then ``generate()`` (8 x 128 prompts, 64 new tokens, greedy:
     every decode step on B5), ``forward()`` on B1 against ``generate()``'s
@@ -2096,7 +2116,8 @@ def serve_phase(torch, np, label, cfg) -> dict:
     ``LOGITS_REL_TOL``, as ``fp16_serve_phase`` holds float16); prints
     the peak device memory.  Returns the launch counts of the main paths:
     B5 over the 64-token ``generate()``, B1 over ``forward()``, B6/B7
-    over the drain."""
+    over the drain.  ``then(eng)``, when given, runs on the engine at the
+    end (phases 24-25), with the phase's server freed."""
     from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.models.transformer import TransformerLM
     from deepspeed_tpu_torch.ops import build
@@ -2244,11 +2265,16 @@ def serve_phase(torch, np, label, cfg) -> dict:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"(torch.cuda.max_memory_allocated) of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
-    del srv, eng
+    del srv
+    eng._serving = None
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    return {"decode_attention": gen_counts["decode_attention"],
+    after = then(eng) if then is not None else None
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"then": after, "decode_attention": gen_counts["decode_attention"],
             "flash_attention_fwd": fwd_counts["flash_attention_fwd"],
             "paged_decode_attention": srv_counts["paged_decode_attention"],
             "paged_prefill_attention": srv_counts["paged_prefill_attention"],
@@ -2604,9 +2630,67 @@ def int8_serve_phase(torch, np, label, cfg, bf16_prefill) -> dict:
     return c
 
 
+def gpt2_train_phase(torch, np) -> dict:
+    """Phase 6: GPT-2 125M at ``bench.py``'s configuration, with 3 more
+    steps under tracing and metrics."""
+    from deepspeed_tpu_torch.models.transformer import gpt2_config
+
+    def gpt2_model(attn_impl):
+        return gpt2_config("125m", max_seq_len=TRAIN_SEQ, remat="full",
+                           attn_impl=attn_impl, loss_chunk=256)
+    tck = TENSOR_CORE_KERNELS
+    # bench.py:171-180
+    optimizer = {"type": "AdamW", "params": {"lr": 6e-4,
+                                             "weight_decay": 0.1}}
+    return train_phase(torch, np, "GPT-2 125M", gpt2_model, optimizer,
+                       TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS,
+                       {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                        "flash_attention_bwd_dq": 0,
+                        "flash_attention_bwd_dkv": 0}, check_micro=8,
+                       profile_shares={"B1": (tck["flash_attention_fwd"],),
+                                       "B2": (tck["flash_attention_bwd"],)},
+                       observe=True)
+
+
+def observed_steps(torch, eng, batch, off_ms, label) -> None:
+    """3 more steps with tracing and metrics on: the trace holds the
+    ``engine/*`` spans, ``dstpu_train_steps_total`` counts the steps;
+    ms/step printed beside the unobserved warm steps'."""
+    import tempfile
+    from deepspeed_tpu_torch.observability import configure, get_registry
+    tmp = tempfile.mkdtemp(prefix="dstpu_train_obs_")
+    configure(_obs_config({
+        "tracing": {"enabled": True, "output_dir": tmp},
+        "metrics": {"enabled": True, "prometheus_dir": tmp}}))
+    reg = get_registry()
+    before = reg.counter("dstpu_train_steps_total").value
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.train_step(batch)
+    torch.cuda.synchronize()
+    on_ms = (time.perf_counter() - t0) / 3 * 1e3
+    steps = reg.counter("dstpu_train_steps_total").value - before
+    paths = eng.flush_observability()
+    names = {e["name"] for e in json.load(open(paths[0]))["traceEvents"]}
+    spans = ("engine/train_step", "engine/forward", "engine/backward",
+             "engine/optimizer_step")
+    for span in spans:
+        check(span in names, f"{label}: no {span} span in the trace")
+    check(steps == 3, f"{label}: dstpu_train_steps_total moved by {steps}, "
+                      f"not 3")
+    configure(None)
+    reg.reset()
+    print(f"  3 more steps with tracing and metrics on: {on_ms:.1f} ms/step"
+          f" (off, the warm steps: {off_ms:.1f} ms/step); the trace holds "
+          f"{', '.join(spans)} and engine/step_sync; "
+          f"dstpu_train_steps_total {steps:.0f}")
+
+
 def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
                 per_step, check_micro, plain_model=None,
-                keys_per_query=None, profile_shares=None) -> dict:
+                keys_per_query=None, profile_shares=None,
+                observe=False) -> dict:
     """``initialize`` on ``model_cfg("flash")`` (bf16 over f32 masters,
     clipping 1.0, ZeRO 0, weights from seed 0) for ``steps`` steps on one
     seeded batch ``[micro, seq]``, re-fed: the loss must fall and each
@@ -2617,8 +2701,10 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
     ``check_micro`` for 3 steps, each taken by both from the kernel
     trajectory's state.  MFU's attention term counts ``keys_per_query``
     keys (default ``seq``, as ``bench.py``); the profile prints the
-    device-time share of each group of ``profile_shares``.  Returns the
-    launch counts over the ``steps`` steps."""
+    device-time share of each group of ``profile_shares``; with
+    ``observe``, 3 more steps with tracing and metrics on
+    (``observed_steps``).  Returns the launch counts over the ``steps``
+    steps."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.transformer import TransformerLM
     from deepspeed_tpu_torch.ops import build
@@ -2693,6 +2779,8 @@ def train_phase(torch, np, label, model_cfg, optimizer, micro, seq, steps,
     print(f"  3 more steps (warm): {warm_ms:.1f} ms/step = "
           f"{warm_tok_s:.0f} tokens/s, MFU "
           f"{100 * warm_tok_s * flops_per_tok / BF16_FLOPS:.2f} %")
+    if observe:
+        observed_steps(torch, eng, batch, warm_ms, label)
     head = loss_head_ms(torch, eng, batch, micro, seq)
     print(f"  loss head alone (fused, chunk 256, f32 logits from bf16 "
           f"operands, f32 backward products): forward {head['fwd']:.1f} "
@@ -4060,7 +4148,461 @@ def diffusion_phase(torch, np) -> None:
 
 #: the phases ``--only`` runs after the build: "3" is phase 3's cases at
 #: the MoE shapes (B1, B3, B4, B5, B6, B7)
-ONLY_PHASES = {"3", "21", "22", "23"}
+# -- 24-25. the speculative lane, the front end and observability ----------
+#: phase 24's spec depth: spec_k proposals, S = spec_k + 1 verify rows a slot
+SPEC_K = 3
+
+
+def _obs_config(block):
+    from deepspeed_tpu_torch.runtime.config import ObservabilityConfig
+    from deepspeed_tpu_torch.runtime.config_utils import from_dict
+    return from_dict(ObservabilityConfig, block, "observability")
+
+
+def overlap_split(torch):
+    """The overlap profiler's records so far as (iterations, enqueue
+    share, device-wait share, host-plan share) of their summed wall time,
+    read from its Chrome events (its public export)."""
+    from deepspeed_tpu_torch.observability import get_overlap_profiler
+    its = [e for e in get_overlap_profiler().chrome_events(0, 0)
+           if e["ph"] == "X"]
+    wall = sum(e["dur"] for e in its) / 1e3 or 1.0
+    return (len(its),
+            sum(e["args"]["enqueue_ms"] for e in its) / wall,
+            sum(e["args"]["device_wait_ms"] for e in its) / wall,
+            sum(e["args"]["host_plan_ms"] for e in its) / wall)
+
+
+def spec_drain(torch, srv, prompts, label):
+    """Phase 5's requests (32 new tokens each) through ``srv``, every
+    dispatch logged (which lanes it had, each speculating slot's output
+    length before it, and the draft's proposals, kept on the card until
+    the drain ends): every request OK with 32 tokens, the allocator
+    empty, and B6/B7 launched exactly as the log says (target layers x
+    (a decode lane + S x a spec lane) B6 and x a chunk B7; with a draft,
+    its layers x (feed 0 + spec_k x a spec lane) B6 and x a chunk B7).
+    Returns (requests, log, seconds, launch counts, peak bytes)."""
+    from deepspeed_tpu_torch.observability import get_overlap_profiler
+    from deepspeed_tpu_torch.ops import build
+    log = []
+    dispatch, propose = srv._dispatch, srv._draft_propose
+
+    def proposing(*args):
+        out = propose(*args)
+        log[-1]["props"] = out
+        return out
+
+    def logged(dec, chunk, spec=()):
+        log.append({"spec": [(slot, r, len(r.output)) for slot, r in spec]})
+        out = dispatch(dec, chunk, spec)
+        if out is None:
+            log.pop()
+        else:
+            log[-1].update(dec=bool(dec), chunk=chunk is not None,
+                           after=[len(r.output) for _, r in spec])
+        return out
+    srv._dispatch, srv._draft_propose = logged, proposing
+    get_overlap_profiler().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    srv._dispatch, srv._draft_propose = dispatch, propose
+    for r in reqs:
+        check(r.status is not None and r.status.value == "ok"
+              and len(r.output) == 32,
+              f"{label} {r.req_id}: status {r.status}, {len(r.output)} "
+              f"tokens")
+    check(srv.allocator.num_used == 0,
+          f"{label}: allocator holds {srv.allocator.num_used} blocks after "
+          f"drain")
+    lt, S = srv.model.config.num_layers, SPEC_K + 1
+    draft_layers = (srv._draft_model.config.num_layers
+                    if srv._draft_model is not None else 0)
+    n_dec = sum(e["dec"] for e in log)
+    n_spec = sum(bool(e["spec"]) for e in log)
+    n_any = sum(e["dec"] or bool(e["spec"]) for e in log)
+    n_chunk = sum(e["chunk"] for e in log)
+    want6 = lt * (n_dec + S * n_spec) + draft_layers * (
+        n_any + SPEC_K * n_spec if draft_layers else 0)
+    want7 = (lt + draft_layers) * n_chunk
+    check(counts["paged_decode_attention"] == want6
+          and counts["paged_prefill_attention"] == want7,
+          f"{label}: B6 {counts['paged_decode_attention']} (want {want6}), "
+          f"B7 {counts['paged_prefill_attention']} (want {want7}) over "
+          f"{len(log)} dispatches ({n_dec} decode lanes, {n_spec} spec "
+          f"lanes, {n_chunk} chunks)")
+    return reqs, log, wall, counts, peak
+
+
+def rejections(log):
+    """(request, output index, rejected proposal, the target's token
+    there) for every rejected proposal in ``log``: a speculating slot
+    that emitted n < S tokens without finishing had d_n != s_{n-1}."""
+    out = []
+    for e in log:
+        if not e["spec"]:
+            continue
+        props = e["props"].cpu().tolist()
+        for (slot, r, before), after in zip(e["spec"], e["after"]):
+            n = after - before
+            if n <= 0 or n >= SPEC_K + 1 or after >= r.max_new_tokens:
+                continue
+            out.append((r, before + n - 1, props[slot][n],
+                        r.output[before + n - 1]))
+    return out
+
+
+def b6_spec_timing(torch, srv, capture, flush):
+    """B6 at the spec lane's depth 4 (lengths ``lens + 4`` of the
+    dispatch of phase 24 (b) with the most speculating slots, on layer
+    0's pool) against its plain version: device ms each, the bound (the
+    rows read once and q / out, or the products), max |err|."""
+    from deepspeed_tpu_torch.ops.transformer import (
+        paged_decode_attention as PA)
+    tables, lens, sact = capture["tables"], capture["lens"], capture["sact"]
+    c = srv.model.config
+    dev = tables.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    pk, pv = srv._pool_k[0], srv._pool_v[0]
+    q = torch.randn((tables.shape[0], c.num_heads, c.hdim), generator=g,
+                    device=dev).to(pk.dtype)
+    ln = torch.where(sact > 0, lens + SPEC_K + 1, torch.zeros_like(lens))
+    got = PA.paged_decode_attention(q, pk, pv, ln, tables)
+    want = PA.paged_decode_attention_plain(q, pk, pv, ln, tables)
+    ms = time_ms(lambda: PA.paged_decode_attention(q, pk, pv, ln, tables),
+                 torch, flush)
+    plain_ms = time_ms(
+        lambda: PA.paged_decode_attention_plain(q, pk, pv, ln, tables),
+        torch, flush, n_timed=N_TIMED_PLAIN, n_warm=1)
+    rows = int(ln.sum())
+    nbytes = (2 * rows * c.kv_heads * c.hdim + 2 * int((sact > 0).sum())
+              * c.num_heads * c.hdim) * pk.element_size()
+    flops = 4 * rows * c.num_heads * c.hdim
+    bound, by = bound_ms(nbytes, flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=max_err(got, want),
+                limit_share=margin(got, want), slots=int((sact > 0).sum()),
+                rows=rows)
+
+
+def spec_phase(torch, np, eng, label) -> dict:
+    """Phase 24: phase 5's 16 requests (prompts 16-512, 32 new tokens,
+    greedy) on phase 5's GPT-3 6.7B engine (bf16, phase 5's ``SERVING``,
+    spec_k 3) three ways: (a) no draft, (b) the GPT-3 Small draft (12
+    layers, d_model 768, 12 heads of 64, vocab 50257; an untrained draft
+    from seed 1), (c) the target as its own draft (its module and params,
+    no copy).  Streams of (b) and (c) equal (a)'s up to the first near
+    tie, every proposal (c) rejects at a near tie, B6/B7 launches exact
+    against the dispatch log, the pool empty after each drain; prints
+    tokens/s, iterations, acceptance, peak memory and the overlap
+    profiler's enqueue and device-wait shares; times B6 at depth 4."""
+    import dataclasses
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.observability import configure
+    cfg = eng.module.config
+    check(eng.config.serving.spec_k == SPEC_K,
+          f"phase 5's serving block has spec_k {eng.config.serving.spec_k}")
+    _, _, lens, prompts = serving_prompts(np, cfg.vocab_size)
+    configure(_obs_config({"overlap": {"enabled": True}}))
+    draft = TransformerLM(gpt2_config("125m", vocab_size=cfg.vocab_size))
+    runs, out = {}, {}
+    capture = {}
+    for way, make in (
+            ("a", lambda: ServingEngine(eng)),
+            ("b", lambda: ServingEngine(eng, draft_model=draft)),
+            ("c", lambda: ServingEngine(eng, draft_model=eng.module,
+                                        draft_params=eng.params))):
+        srv = make()
+        if way == "b":
+            mixed = srv.model._apply_paged_mixed
+
+            def capturing(*args, **kw):
+                sa = kw.get("spec_active")
+                if sa is not None and int(sa.sum()) > capture.get("n", 0):
+                    capture.update(n=int(sa.sum()), sact=sa.clone(),
+                                   tables=args[1]["block_tables"].clone(),
+                                   lens=args[1]["lens"].clone())
+                return mixed(*args, **kw)
+            srv.model._apply_paged_mixed = capturing
+        reqs, log, wall, counts, peak = spec_drain(
+            torch, srv, prompts, f"{label} spec ({way})")
+        if way == "b":
+            del srv.model._apply_paged_mixed
+            flush = torch.empty(128 * 2**20, dtype=torch.uint8,
+                                device="cuda")
+            out["b6_spec"] = b6_spec_timing(torch, srv, capture, flush)
+            del flush
+        iters, enq, wait, plan = overlap_split(torch)
+        sc = dict(srv.spec_counts)
+        ntok = sum(len(r.output) for r in reqs)
+        rate = sc["accepted"] / max(sc["proposed"], 1)
+        runs[way] = dict(reqs=reqs, log=log, sc=sc)
+        out[way] = dict(tok_s=ntok / wall, iters=iters, dispatches=len(log),
+                        rate=rate, peak=peak, enq=enq, wait=wait,
+                        b6=counts["paged_decode_attention"],
+                        b7=counts["paged_prefill_attention"])
+        print(f"{label} spec ({way}{', GPT-3 Small draft' if way == 'b' else ', self-draft' if way == 'c' else ', no draft'}): "
+              f"{ntok} tokens in {wall:.2f} s = {ntok / wall:.1f} tokens/s, "
+              f"{iters} iterations, {len(log)} dispatches; proposed "
+              f"{sc['proposed']}, accepted {sc['accepted']} (rate "
+              f"{rate:.4f}); peak {peak / 1e9:.2f} GB; overlap: enqueue "
+              f"{100 * enq:.1f} %, device wait {100 * wait:.1f} %, host plan "
+              f"{100 * plan:.1f} % of {iters} iterations' wall time; B6 "
+              f"{counts['paged_decode_attention']}, B7 "
+              f"{counts['paged_prefill_attention']} launches, exact")
+        if way == "c":
+            rej = rejections(log)
+            for r, pos, d, s in rej:
+                lg = prefill_logits(eng, list(r.prompt) + r.output[:pos])
+                gap = float(lg[s] - lg[d]) / float(lg.abs().max())
+                print(f"  (c) {r.req_id} rejects {d} for {s} at output "
+                      f"{pos}: the target's gap {gap!r} of max|logit|")
+                check(gap <= 2 * LOGITS_REL_TOL,
+                      f"{label} self-draft rejects at output {pos} of "
+                      f"{r.req_id} where the gap is {gap:.4f}, not a near "
+                      f"tie")
+            out["c"]["rejected"] = len(rej)
+            print(f"  (c): {len(rej)} rejected proposals, each at a near "
+                  f"tie (gap within {2 * LOGITS_REL_TOL} of max|logit|)")
+        del srv
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    refs = [r.output for r in runs["a"]["reqs"]]
+    for way in ("b", "c"):
+        same = sum(r.output == ref for r, ref in zip(runs[way]["reqs"],
+                                                      refs))
+        print(f"{label} spec ({way}) streams equal to (a): {same} of 16")
+        for req_id, pos, gap in divergence_gaps(np, eng, runs[way]["reqs"],
+                                                refs):
+            print(f"  ({way}) {req_id} parts from (a) at token {pos}: gap "
+                  f"{gap!r} of max|logit|")
+            check(gap <= 2 * LOGITS_REL_TOL,
+                  f"{label} spec ({way}): {req_id} parts from (a) at "
+                  f"{pos} where the gap is {gap:.4f}, not a near tie")
+    b6 = out["b6_spec"]
+    print(f"kernel paged_decode_attention [spec depth {SPEC_K + 1}, "
+          f"{b6['slots']} of 8 slots, {b6['rows']} rows]: max|err| "
+          f"{b6['max_abs_err']:.3g} = {b6['limit_share']:.3g} of the limit; "
+          f"{b6['ms']:.4f} ms, plain "
+          f"{b6['plain_ms']:.4f} ms, library - ms, bound "
+          f"{b6['bound_ms']:.4f} ms ({b6['bound_by']}); launches in (b)'s "
+          f"drain {out['b']['b6']}, (c)'s {out['c']['b6']}")
+    check(b6["limit_share"] <= 1.0,
+          f"B6 at spec depth {SPEC_K + 1}: max|err| {b6['max_abs_err']} "
+          f"({b6['limit_share']:.3g} of the limit)")
+    configure(None)
+    return out
+
+
+#: phase 25's tenants (bench_all.py multi_tenant_replay_bench)
+TENANTS = (("interactive", dict(weight=4.0, ttft_slo_s=0.5)),
+           ("standard", dict(weight=1.0)),
+           ("batch", dict(weight=1.0, max_queue_share=0.5, ttft_slo_s=0.3)))
+
+
+def frontend_phase(torch, np, eng, label) -> dict:
+    """Phase 25: ``bench_all.py``'s multi-tenant replay on phase 5's GPT-3
+    6.7B engine with the GPT-3 Small draft at spec_k 1 (4 slots,
+    max_queue_depth 6, 60 rounds, 16 new tokens; interactive sampled at
+    temperature 0.7, top-k 16, seeded; two batch bursts of 5), its
+    ``SloMonitor`` windows, tracing, metrics, request tracing, overlap and
+    the flight recorder on into a temporary directory and
+    ``DSTPU_HEARTBEAT_FILE`` set: every delivered stream in order and
+    exactly once, the trace holding the serving spans and per-request
+    tracks, the textfile every ported ``dstpu_serving_*`` series, the
+    heartbeat stamped.  Then phase 5's drain with observability on and
+    off: equal greedy streams, tokens/s of both."""
+    import copy
+    import dataclasses
+    import os
+    import tempfile
+    from deepspeed_tpu_torch.inference.serving import (ServingFrontend,
+                                                       SloMonitor,
+                                                       StreamCollector,
+                                                       TenantSpec)
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.observability import (configure, flush_all,
+                                                   get_registry)
+    cfg = eng.module.config
+    tmp = tempfile.mkdtemp(prefix="dstpu_obs_")
+    hb = os.path.join(tmp, "serving.hb")
+    os.environ["DSTPU_HEARTBEAT_FILE"] = hb
+    configure(_obs_config({
+        "tracing": {"enabled": True, "output_dir": tmp},
+        "request_tracing": {"enabled": True},
+        "metrics": {"enabled": True, "prometheus_dir": tmp},
+        "overlap": {"enabled": True},
+        "flight": {"enabled": True, "output_dir": tmp}}))
+    fe_eng = copy.copy(eng)
+    fe_eng.config = dataclasses.replace(eng.config, serving=dataclasses.replace(
+        eng.config.serving, max_batch_slots=4, max_queue_depth=6, spec_k=1))
+    fe_eng._serving = None
+    draft = TransformerLM(gpt2_config("125m", vocab_size=cfg.vocab_size))
+    srv = ServingEngine(fe_eng, draft_model=draft)
+    slo = SloMonitor(objective=0.9, fast_window_s=2.0, slow_window_s=8.0,
+                     burn_threshold=1.0, min_samples=3)
+    alerts = []
+    slo.subscribe(lambda a: alerts.append(a))
+    fe = ServingFrontend(srv, slo=slo)
+    for name, kw in TENANTS:
+        fe.register(TenantSpec(name, **kw))
+    tenants = [n for n, _ in TENANTS]
+    ttft = {t: [] for t in tenants}
+    itl = {t: [] for t in tenants}
+
+    def hook(ev):
+        if ev.token is None or ev.tenant not in ttft:
+            return
+        if ev.index == 0:
+            ttft[ev.tenant].append(ev.time_s - ev.request.submit_time)
+        elif ev.prev_time_s is not None:
+            itl[ev.tenant].append(ev.time_s - ev.prev_time_s)
+    srv.token_hooks.append(hook)
+    fe.submit([1, 2, 3], max_new_tokens=4)      # warm the path
+    srv.run()
+    rs = np.random.RandomState(7)
+    reqs = {t: [] for t in tenants}
+    pairs = []
+
+    def sub(tenant, plen, **kw):
+        col = StreamCollector()
+        p = rs.randint(0, cfg.vocab_size, (plen,)).tolist()
+        req = fe.submit(p, tenant=tenant, max_new_tokens=16, on_token=col,
+                        **kw)
+        reqs[tenant].append(req)
+        pairs.append((req, col))
+    t0 = time.perf_counter()
+    rounds = 60
+    for r in range(rounds):
+        if r % 3 == 0:
+            sub("interactive", int(rs.randint(4, 9)), temperature=0.7,
+                top_k=16, seed=100 + r)
+        if r % 5 == 0:
+            sub("standard", int(rs.randint(10, 14)))
+        if r in (2, rounds // 2):
+            for _ in range(5):
+                sub("batch", int(rs.randint(20, 25)))
+        srv.step()
+    srv.run()
+    wall = time.perf_counter() - t0
+    quiet = time.perf_counter() + 2.5 * slo.fast_window_s
+    while (any(v["state"] == "firing" for v in slo.snapshot().values())
+           and time.perf_counter() < quiet):
+        time.sleep(0.1)
+        slo.evaluate()
+    every = [r for r, _ in pairs]
+    for r, col in pairs:
+        check(col.finished and col.tokens == r.output
+              and [e.index for e in col.events if e.token is not None]
+              == list(range(len(r.output))),
+              f"{label} front end: {r.req_id}'s stream is not its output "
+              f"in order, exactly once")
+    paths = flush_all()
+    events = json.load(open(paths[0]))["traceEvents"]
+    names = {e["name"] for e in events}
+    for span in ("serving/decode", "serving/spec_decode",
+                 "serving/prefill_chunk"):
+        check(span in names, f"{label} front end: no {span} span in the "
+                             f"trace")
+    tracks = [e for e in events if e.get("name") == "thread_name"
+              and 1000 <= e["pid"] < 2000]
+    check(len(tracks) >= len(every),
+          f"{label} front end: {len(tracks)} request tracks for "
+          f"{len(every)} requests")
+    prom = open(paths[1]).read()
+    missing = [s for s in SERVING_SERIES if f"dstpu_serving_{s}" not in prom]
+    check(not missing, f"{label} front end: the textfile lacks {missing}")
+    check(os.path.exists(hb), f"{label}: heartbeat file {hb} not stamped")
+    sc = srv.spec_counts
+    ntok = sum(len(r.output) for r in every)
+    print(f"{label} front end (spec_k 1, GPT-3 Small draft): {len(every)} "
+          f"requests over {rounds} rounds, {ntok} tokens in {wall:.2f} s = "
+          f"{ntok / wall:.1f} tokens/s; acceptance {sc['accepted']}/"
+          f"{sc['proposed']}; trace {len(events)} events ({len(tracks)} "
+          f"request tracks), textfile {len(prom.splitlines())} lines, "
+          f"heartbeat stamped")
+    for t in tenants:
+        rs_t = reqs[t]
+        pct = lambda xs, q: (f"{1e3 * float(np.percentile(xs, q)):.1f}"
+                             if xs else "-")
+        shed = sum(r.status.value == "shed" for r in rs_t)
+        timed = sum(r.status.value == "timed_out" for r in rs_t)
+        fired = sum(a.state == "firing" and a.tenant == t for a in alerts)
+        resolved = sum(a.state == "resolved" and a.tenant == t
+                       for a in alerts)
+        print(f"  {t}: {len(rs_t)} requests, TTFT p50/p99 {pct(ttft[t], 50)}"
+              f"/{pct(ttft[t], 99)} ms, ITL p50/p99 {pct(itl[t], 50)}/"
+              f"{pct(itl[t], 99)} ms, shed {shed / max(len(rs_t), 1):.3f}, "
+              f"timed out {timed / max(len(rs_t), 1):.3f}, alerts fired "
+              f"{fired}, resolved {resolved}")
+    iters, enq, wait, plan = overlap_split(torch)
+    print(f"  overlap over {iters} iterations: enqueue {100 * enq:.1f} %, "
+          f"device wait {100 * wait:.1f} %, host plan {100 * plan:.1f} %")
+    result = {"tok_s": ntok / wall, "requests": len(every)}
+    del srv, fe
+    # observability on and off over phase 5's drain: the same streams
+    _, _, _, prompts = serving_prompts(np, cfg.vocab_size)
+    streams, rates = {}, {}
+    for on in (True, False):
+        if not on:
+            configure(None)
+        s2 = ServingEngine(eng)
+        t0 = time.perf_counter()
+        rr = [s2.submit(p, max_new_tokens=32) for p in prompts]
+        s2.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streams[on] = [r.output for r in rr]
+        rates[on] = sum(len(r.output) for r in rr) / wall
+        del s2
+    check(streams[True] == streams[False],
+          f"{label}: observability changed the greedy streams")
+    print(f"{label} drain with observability on: {rates[True]:.1f} tokens/s,"
+          f" off: {rates[False]:.1f} tokens/s; the 16 greedy streams equal")
+    os.environ.pop("DSTPU_HEARTBEAT_FILE", None)
+    get_registry().reset()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+#: every dstpu_serving_* series of this slice (not the host cache's, the
+#: fabric's or the mesh's)
+SERVING_SERIES = (
+    "queue_depth", "active_slots", "kv_blocks_in_use", "cached_kv_blocks",
+    "kv_pool_bytes", "kv_bits", "ttft_seconds", "inter_token_seconds",
+    "tokens_total", "preemptions_total", "prefix_cache_hit_tokens_total",
+    "prefill_tokens_total", "prefix_cache_evictions_total",
+    "cancelled_total", "timed_out_total", "shed_total", "failed_total",
+    "quarantined_total", "spec_proposed_tokens_total",
+    "spec_accepted_tokens_total", "spec_k", "host_plan_seconds",
+    "device_wait_seconds", "overlap_frac_dist")
+
+
+def spec_front_phases(torch, np, eng, elapsed) -> dict:
+    """Phases 24 and 25 on phase 5's GPT-3 6.7B engine."""
+    spec = spec_phase(torch, np, eng, "GPT-3 6.7B")
+    elapsed("phase 24")
+    front = frontend_phase(torch, np, eng, "GPT-3 6.7B")
+    elapsed("phase 25")
+    return {"spec": spec, "front": front}
+
+
+ONLY_PHASES = {"3", "6", "21", "22", "23", "24"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -4084,6 +4626,17 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
                       f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
         del flush
         elapsed("phase 3 (MoE shapes)")
+    if "6" in only:
+        gpt2_train_phase(torch, np)
+        elapsed("phase 6")
+    if "24" in only:
+        from deepspeed_tpu_torch import init_inference
+        from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                            gpt2_config)
+        eng = init_inference(TransformerLM(gpt2_config("6.7b")), {
+            "dtype": "bfloat16", "temperature": 0.0, "serving": SERVING})
+        spec_front_phases(torch, np, eng, elapsed)
+        del eng
     for n, run in (("21", moe_serve_phase), ("22", moe_train_phase),
                    ("23", diffusion_phase)):
         if n in only:

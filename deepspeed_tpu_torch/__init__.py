@@ -8,7 +8,11 @@ unless the caller passes ``device="cpu"``, which runs each kernel's
 plain PyTorch version instead.
 
 Serving: ``init_inference`` → ``generate()``, ``forward()`` and the
-continuous-batching server.  Training: ``initialize`` →
+continuous-batching server (``serving_engine(draft_model=...)`` arms
+speculative decoding; ``inference.serving.ServingFrontend`` adds
+multi-tenant fairness, SLO alerts and token streaming).  Both engines
+take the ``observability`` block (``observability/``: span tracer,
+metrics, request tracer, overlap profiler, flight recorder).  Training: ``initialize`` →
 ``engine.train_step`` / ``train_batch`` (and the compat
 ``forward``/``backward``/``step``).  Both for every model family of
 the JAX package's ``module_inject/policies.py``: GPT-2/GPT-3, GPT-NeoX

@@ -7,9 +7,12 @@ rejected, a ``None`` value means "use the default", and a value of the
 wrong type raises ``ValueError``.
 
 Blocks the slices of the port so far do not run (``tensor_parallel``
-beyond one device, ``moe.ep_size`` beyond one device, ``observability``, ``serving.mesh`` beyond
-1x1, ``serving.host_cache``, ``serving.fleet``) parse here and are
+beyond one device, ``moe.ep_size`` beyond one device, ``serving.mesh``
+beyond 1x1, ``serving.host_cache``, ``serving.fleet``) parse here and are
 refused with ``NotImplementedError`` by the engines that would run them.
+``observability`` is the training config's block
+(``runtime/config.py`` ``ObservabilityConfig``); given, the engine
+configures the process-global telemetry with it.
 ``quant`` (int8 weights), ``serving.kv_cache_bits`` (int8 or packed-int4
 KV pools) and ``checkpoint`` / ``checkpoint_tag`` (the params of a
 training checkpoint of the port) run.
@@ -21,6 +24,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..runtime.config import ObservabilityConfig
 from ..runtime.config_utils import from_dict
 from ..runtime.constants import (
     SERVING_DEFAULT_DEADLINE_S_DEFAULT, SERVING_ENABLED_DEFAULT,
@@ -54,8 +58,8 @@ class ServingMeshConfig:
 @dataclass
 class HostCacheConfig:
     """``serving.host_cache`` — parsed for schema parity; the tiered host
-    cache is not in this slice, so ``enabled`` is refused at serving
-    engine build."""
+    cache is the next slice (ROADMAP.md queue A item 4, second part), so
+    ``enabled`` is refused at serving engine build."""
     enabled: bool = False
     dram_budget_bytes: int = 0
     nvme_budget_bytes: int = 0
@@ -67,8 +71,9 @@ class HostCacheConfig:
 @dataclass
 class FleetConfig:
     """``serving.fleet`` — parsed for schema parity; the replica fleet
-    is not in this slice, so ``enabled`` is refused at serving engine
-    build."""
+    is the next slice (ROADMAP.md queue A item 4, second part), so
+    ``enabled`` is refused at serving engine build.  The serving
+    engine's heartbeat beats every ``heartbeat_interval_s``."""
     enabled: bool = False
     replicas: int = 2
     heartbeat_interval_s: float = 1.0
@@ -195,7 +200,9 @@ class DeepSpeedInferenceConfig:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
-    observability: Optional[Dict[str, Any]] = None
+    # the training config's block; None leaves the process-global
+    # telemetry as another engine configured it
+    observability: Optional[ObservabilityConfig] = None
 
     def __post_init__(self):
         if self.dtype not in DTYPES:

@@ -58,8 +58,6 @@ def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
     if cfg.moe.enabled and cfg.moe.ep_size > 1:
         later.append(f"moe.ep_size {cfg.moe.ep_size} (expert parallelism: "
                      f"multi-device, queue A item 7)")
-    if cfg.observability is not None:
-        later.append("observability (serving observability hooks)")
     if later:
         raise NotImplementedError(
             f"{', '.join(later)}: not in the slices of the PyTorch port so "
@@ -104,6 +102,13 @@ class InferenceEngine:
         self.config = config or DeepSpeedInferenceConfig()
         refuse_out_of_slice(self.config)
         self.device = resolve_device(device)
+        # an explicit observability block arms the process-global
+        # telemetry before the server is built (the server takes its
+        # tracer, registry and profiler handles at construction); None
+        # leaves them as another engine of the process configured them
+        if self.config.observability is not None:
+            from ..observability import configure as _obs_configure
+            _obs_configure(self.config.observability)
         self.dtype = self.config.compute_dtype()
         # kernel injection: flash routes t == 1 decode through kernel B5,
         # xla keeps plain attention (the JAX engine's rewrite).  Only the
@@ -380,18 +385,26 @@ class InferenceEngine:
                        draft_params=None):
         """The continuous-batching server over this engine's weights,
         gated on the ``serving`` config block.  ``seed`` is the base
-        sampling key of requests submitted without their own."""
-        if draft_model is not None or draft_params is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_model, serving.spec_k) is not "
-                "in the PyTorch port yet (queue A item 4)")
+        sampling key of requests submitted without their own.
+        ``draft_model`` (a smaller model sharing the target's vocab, its
+        params in ``draft_params`` — None draws an untrained draft from
+        seed 1) arms speculative decoding: ``serving.spec_k`` proposals
+        per slot per iteration, verified by the target in the same mixed
+        step, with streams equal to the plain server's."""
         if not self.config.serving.enabled:
             raise ValueError(
                 "continuous-batching serving is disabled — set "
                 '{"serving": {"enabled": true}} in the inference config')
         if self._serving is None:
             from .serving.engine import ServingEngine
-            self._serving = ServingEngine(self, seed=seed)
+            self._serving = ServingEngine(self, seed=seed,
+                                          draft_model=draft_model,
+                                          draft_params=draft_params)
+        elif draft_model is not None \
+                and self._serving._draft_given is not draft_model:
+            raise ValueError(
+                "serving engine already built without this draft model "
+                "— pass draft_model on the FIRST serving_engine() call")
         return self._serving
 
 

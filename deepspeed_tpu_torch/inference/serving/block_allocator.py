@@ -34,9 +34,9 @@ Invariants (``assert_consistent`` checks them, tests fuzz them):
     surfaces as a loud error, not a silently corrupted cache.
 
 Copy of ``deepspeed_tpu/inference/serving/block_allocator.py`` for the
-PyTorch port, without the tiered host cache (spill/promote), the
-fault-injection sites and copy-on-write ``fork``, which belong to later
-slices; the capacity-planning helpers take one model shard.
+PyTorch port, without the tiered host cache (spill/promote) and
+copy-on-write ``fork``, which belong to later slices; the
+capacity-planning helpers take one model shard.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ...runtime.resilience.errors import ServingError
+from ...runtime.resilience.fault_injection import get_fault_injector
 
 NULL_BLOCK = 0
 
@@ -240,6 +241,9 @@ class PagedBlockAllocator:
         """
         if seq_id in self._tables:
             raise BlockPoolError(f"sequence {seq_id!r} already has blocks")
+        # injection site BEFORE any state mutation: a fault here leaves
+        # the pool exactly as it was
+        get_fault_injector().check("serving.allocate")
         need = self.blocks_for_tokens(tokens)
         # feasibility discounts hits on LIVE blocks (pure refcount
         # sharing, no free capacity consumed) — without this a shared
@@ -318,6 +322,7 @@ class PagedBlockAllocator:
         table = self._tables.get(seq_id)
         if table is None:
             raise BlockPoolError(f"unknown sequence {seq_id!r}")
+        get_fault_injector().check("serving.append_block")
         if not self.can_allocate(1):
             raise BlockPoolError(
                 f"pool exhausted growing {seq_id!r} "

@@ -65,9 +65,13 @@ Policies (deliberately simple and deterministic, pinned by tests):
 
 Pure Python + the allocator — no device code; the engine owns device
 state.  Copy of ``deepspeed_tpu/inference/serving/scheduler.py`` for the
-PyTorch port without the request-tracer, flight-recorder and
-fault-injection hooks, the tiered-cache PROMOTING phase, the speculative
-lane's ``try_grow`` and the fleet's prefill-only leg (later slices).
+PyTorch port with the request tracer's and flight recorder's hooks, the
+fault-injection sites (``serving.admission``, and ``serving.allocate`` /
+``serving.append_block`` raised by the allocator), the front end's
+policy hooks (weighted-fair admission, prefill order, shed victim) and
+the speculative lane's :meth:`try_grow`.  Not in it: the tiered host
+cache's PROMOTING phase and the fleet's prefill-only leg (ROADMAP.md
+queue A item 4, second part).
 """
 from __future__ import annotations
 
@@ -78,7 +82,17 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+from ...observability.flight_recorder import get_flight_recorder
+from ...observability.request_trace import get_request_tracer
+from ...runtime.resilience.errors import FatalIOError, TransientIOError
+from ...runtime.resilience.fault_injection import get_fault_injector
 from .block_allocator import BlockPoolError, PagedBlockAllocator
+
+# process-global recorders (observability/) — every call site below
+# guards on ``.enabled``, so the disabled default stays one attribute
+# check per lifecycle event with no allocation or clock read
+_REQ_TRACE = get_request_tracer()
+_FLIGHT = get_flight_recorder()
 
 
 class RequestState(enum.Enum):
@@ -131,6 +145,9 @@ class Request:
     submit_time: float = field(default_factory=time.perf_counter)
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+    #: owning tenant (frontend multi-tenancy; "default" = untenanted —
+    #: every legacy submit path lands there)
+    tenant: str = "default"
     #: per-request sampling params, RESOLVED at submit (engine defaults
     #: already applied): temperature 0 = greedy, top_k 0 = off,
     #: top_p >= 1 = off.  They ride the compiled step as data, so any
@@ -142,11 +159,23 @@ class Request:
     #: ``(prng_key, j)`` (inference/sampling.py) — batch-, order- and
     #: preemption-independent, which is what makes streams reproducible
     prng_key: int = 0
+    #: streaming callback — receives a ``TokenEvent`` per emitted token
+    #: at iteration boundaries; an exception disables THIS stream (the
+    #: request keeps generating), never the batch
+    on_token: Optional[Callable] = None
+    #: wall time of the most recently streamed token (per-tenant
+    #: inter-token latency accounting)
+    last_token_time: Optional[float] = None
+    #: request-scoped trace id (observability/request_trace.py) —
+    #: assigned at submit when request tracing is enabled, doubles as
+    #: the TTFT/ITL histogram exemplar; None while tracing is off
+    trace_id: Optional[str] = None
     #: SHED back-pressure hint: seconds the caller should wait before
     #: resubmitting, derived from the queue's current drain rate (the
     #: serving 503's Retry-After header).  None on every other terminal
     #: status, and on sheds before the engine has a rate estimate.
     retry_after_s: Optional[float] = None
+
     @property
     def prefix(self) -> List[int]:
         """What prefill must cover on (re-)admission: the prompt plus
@@ -208,6 +237,26 @@ class ContinuousBatchingScheduler:
         #: ALL terminal paths (shed, cancel, timeout, fail) append here,
         #: so the engine's lifecycle counters see every event exactly once
         self.terminal_events: List[Request] = []
+        #: req_ids whose table growth hit a transient fault THIS
+        #: iteration: they sit out the decode (their write position has
+        #: no block — dispatching would scatter into the null block) and
+        #: retry growth next step.  Cleared by ensure_decode_capacity.
+        self._growth_held: set = set()
+        # -- frontend policy hooks (all None = the legacy deterministic
+        # FCFS / oldest-first / shed-the-incoming behavior; the
+        # multi-tenant frontend installs weighted-fair implementations,
+        # docs/serving.md "Multi-tenant SLOs") ------------------------
+        #: fn(waiting: Deque[Request]) -> None — reorder the waiting
+        #: queue IN PLACE before an admission pass
+        self.admission_policy: Optional[Callable] = None
+        #: fn(prefilling: List[(slot, Request)]) -> same, reordered —
+        #: which prefilling slot's chunk rides the next iteration
+        self.prefill_policy: Optional[Callable] = None
+        #: fn(incoming: Request, waiting: List[Request]) ->
+        #: Optional[Request] — under a full queue, pick a WAITING victim
+        #: to shed in the incoming request's place (None / the incoming
+        #: request itself = shed the incoming, the legacy behavior)
+        self.shed_policy: Optional[Callable] = None
         #: fn() -> Optional[float] — installed by the engine: the
         #: drain-rate-derived wait a SHED terminal should advertise via
         #: ``Request.retry_after_s`` (docs/serving.md "Fleet serving &
@@ -227,11 +276,15 @@ class ContinuousBatchingScheduler:
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
 
+    def max_tokens_per_seq(self) -> int:
+        return self.max_blocks_per_seq * self.alloc.block_size
+
     def decoding_slots(self) -> List[Tuple[int, Request]]:
         """Slots that take a decode token this iteration (admitted AND
-        past their prefill), in slot order for deterministic batches."""
+        past their prefill, not held by a transient growth fault), in
+        slot order for deterministic batches."""
         return [(s, r) for s, r in sorted(self.running.items())
-                if not r.prefilling]
+                if not r.prefilling and r.req_id not in self._growth_held]
 
     # -- lifecycle ---------------------------------------------------------
     def submit(self, req: Request) -> Request:
@@ -257,8 +310,24 @@ class ContinuousBatchingScheduler:
                 f"may hold at most "
                 f"{min(self.max_blocks_per_seq, self.alloc.usable_blocks)}"
                 f" — raise serving.num_kv_blocks / max_out_tokens")
+        if _REQ_TRACE.enabled:
+            _REQ_TRACE.on_submit(req)
         if self.max_queue_depth and \
                 len(self.waiting) >= self.max_queue_depth:
+            victim = None
+            if self.shed_policy is not None:
+                victim = self.shed_policy(req, list(self.waiting))
+            if victim is not None and victim is not req:
+                # fairness shed: a queue-hogging tenant's WAITING
+                # request yields its place to the incoming one (same
+                # bounded total, different victim)
+                self.cancel(victim, RequestStatus.SHED,
+                            f"shed by fairness policy to admit "
+                            f"{req.req_id} (queue at "
+                            f"serving.max_queue_depth "
+                            f"{self.max_queue_depth})")
+                self.waiting.append(req)
+                return req
             self._terminalize(
                 req, RequestStatus.SHED,
                 f"queue full: {len(self.waiting)} waiting >= "
@@ -279,12 +348,23 @@ class ContinuousBatchingScheduler:
         req.error = error
         if (status is RequestStatus.SHED and req.retry_after_s is None
                 and self.retry_after_hint is not None):
-            # every SHED carries the drain-rate hint
+            # both shed paths (bounded backpressure and the fairness
+            # victim) funnel here, so every SHED carries the hint
             req.retry_after_s = self.retry_after_hint()
         req.finish_time = time.perf_counter()
         self.finished.append(req)
         if status is not RequestStatus.OK:
             self.terminal_events.append(req)
+        if _REQ_TRACE.enabled:
+            _REQ_TRACE.on_terminal(req)
+        if _FLIGHT.enabled:
+            _FLIGHT.note_terminal({
+                "req_id": req.req_id, "trace_id": req.trace_id,
+                "tenant": req.tenant,
+                "status": req.status.name if req.status else None,
+                "error": req.error, "tokens": len(req.output),
+                "preemptions": req.preemptions,
+                "finish_time": req.finish_time})
         return req
 
     def terminate_slot(self, slot: int, status: RequestStatus,
@@ -348,7 +428,14 @@ class ContinuousBatchingScheduler:
         request's prefix-cache hits, so a resubmitted or shared-prefix
         request starts with ``cached_tokens`` already covering its hit
         blocks and prefills only the tail.  Returns
-        ``[(slot, request), ...]``."""
+        ``[(slot, request), ...]``.
+
+        With an ``admission_policy`` installed the waiting queue is
+        reordered (stably) before the pass — head-of-line semantics
+        within the chosen order are kept, so a policy decides WHO is at
+        the head, not whether admission blocks."""
+        if self.admission_policy is not None and len(self.waiting) > 1:
+            self.admission_policy(self.waiting)
         admitted: List[Tuple[int, Request]] = []
         while self.waiting and len(self.running) < self.num_slots:
             req = self.waiting[0]
@@ -359,6 +446,15 @@ class ContinuousBatchingScheduler:
             # probe's hash walk is skipped while the full demand fits
             # outright, so an unpressured (or uncached-and-blocked)
             # head costs no per-iteration rehash of its prefix.
+            try:
+                get_fault_injector().check("serving.admission")
+            except TransientIOError:
+                break              # whole admission pass retries next step
+            except FatalIOError as e:
+                self.waiting.popleft()
+                self._terminalize(req, RequestStatus.FAILED,
+                                  f"fatal fault at admission: {e}")
+                continue
             need = self.alloc.blocks_for_tokens(len(req.prefix) + 1)
             if not self.alloc.can_allocate(need):
                 need = self.alloc.probe_fresh_need(len(req.prefix) + 1,
@@ -366,8 +462,16 @@ class ContinuousBatchingScheduler:
             if not self.alloc.can_allocate(need):
                 break                      # head-of-line blocks: FCFS order
             slot = min(set(range(self.num_slots)) - set(self.running))
-            _, cached = self.alloc.allocate(
-                req.req_id, len(req.prefix) + 1, token_ids=req.prefix)
+            try:
+                _, cached = self.alloc.allocate(
+                    req.req_id, len(req.prefix) + 1, token_ids=req.prefix)
+            except TransientIOError:
+                break              # req stays at the head; retry next step
+            except FatalIOError as e:
+                self.waiting.popleft()
+                self._terminalize(req, RequestStatus.FAILED,
+                                  f"fatal fault allocating KV blocks: {e}")
+                continue
             self.waiting.popleft()
             req.state = RequestState.RUNNING
             req.prefill_target = len(req.prefix)
@@ -376,19 +480,24 @@ class ContinuousBatchingScheduler:
             self.running[slot] = req
             self._admit_order.append(slot)
             admitted.append((slot, req))
+            if _REQ_TRACE.enabled:
+                _REQ_TRACE.on_admit(req, slot, cached)
         return admitted
 
     def next_prefill_chunk(self, budget: int
                            ) -> Optional[Tuple[int, Request, int, int]]:
         """The next prompt chunk to compute under the per-iteration
-        token ``budget``: oldest-admitted prefilling slot, at most
-        ``budget`` tokens of its remaining prefix.  Returns
+        token ``budget``: oldest-admitted prefilling slot (or the
+        ``prefill_policy``'s choice), at most ``budget`` tokens of its
+        remaining prefix.  Returns
         ``(slot, request, start_row, n_tokens)`` or None."""
         if budget < 1:
             return None
         prefilling = [(s, self.running[s]) for s in self._admit_order
                       if self.running.get(s) is not None
                       and self.running[s].prefilling]
+        if self.prefill_policy is not None and len(prefilling) > 1:
+            prefilling = self.prefill_policy(prefilling)
         for slot, req in prefilling:
             n = min(budget, req.prefill_target - req.cached_tokens)
             return slot, req, req.cached_tokens, n
@@ -403,12 +512,17 @@ class ContinuousBatchingScheduler:
         only its uncached tail on re-admission).  Returns the preempted
         requests.
 
-        Robustness edge: when no
+        Robustness edges: a transient injected/driver fault growing the
+        table HOLDS the sequence out of this iteration's decode (its
+        write position has no block) and retries next step — no
+        recompute, and a pinned request's preemption cap cannot be
+        breached by a fault; a fatal fault fails it.  When no
         preemption victim exists because every running request is
         pinned at the preemption cap, the growing request FAILS with a
         sizing error — the thrash guard's pin-or-fail arm — instead of
         spinning forever."""
         preempted: List[Request] = []
+        self._growth_held.clear()
         for slot in list(self._admit_order):           # oldest first
             req = self.running.get(slot)
             if req is None or req.prefilling:
@@ -420,6 +534,12 @@ class ContinuousBatchingScheduler:
                     break
                 try:
                     self.alloc.append_block(req.req_id)
+                except TransientIOError:
+                    self._growth_held.add(req.req_id)  # sit out, retry
+                    break
+                except FatalIOError as e:
+                    self.terminate_slot(slot, RequestStatus.FAILED,
+                                        f"fatal fault growing KV table: {e}")
                 except BlockPoolError:
                     victim_slot = self._pick_victim()
                     if victim_slot is None:
@@ -437,6 +557,37 @@ class ContinuousBatchingScheduler:
                     self._preempt(victim_slot, victim)
                     preempted.append(victim)
         return preempted
+
+    def try_grow(self, slot: int, extra_tokens: int) -> bool:
+        """Best-effort table growth for the SPECULATIVE lane: ensure
+        ``slot`` owns blocks for ``cached_tokens + extra_tokens``
+        positions.  Unlike :meth:`ensure_decode_capacity` this NEVER
+        preempts — speculation is an optimization, so on any pressure
+        (pool dry, per-seq cap, transient fault, growth hold) it
+        returns False and the slot simply decodes plain this iteration.
+        A fatal fault still fails the request (the one non-optional
+        edge)."""
+        req = self.running.get(slot)
+        if req is None or req.state is not RequestState.RUNNING or \
+                req.req_id in self._growth_held:
+            return False
+        need = self.alloc.blocks_for_tokens(req.cached_tokens
+                                            + extra_tokens)
+        if need > self.max_blocks_per_seq:
+            return False
+        while len(self.alloc.block_table(req.req_id)) < need:
+            try:
+                self.alloc.append_block(req.req_id)
+            except TransientIOError:
+                return False
+            except FatalIOError as e:
+                self.terminate_slot(slot, RequestStatus.FAILED,
+                                    f"fatal fault growing KV table for "
+                                    f"speculation: {e}")
+                return False
+            except BlockPoolError:
+                return False
+        return True
 
     def pinned(self, req: Request) -> bool:
         """Thrash guard: at the preemption cap a request becomes
@@ -480,6 +631,8 @@ class ContinuousBatchingScheduler:
         req.prefill_target = 0
         req.preemptions += 1
         self.preemption_count += 1
+        if _REQ_TRACE.enabled:
+            _REQ_TRACE.on_preempt(req)
         # front of the queue, so the original admission order is preserved
         self.waiting.appendleft(req)
 

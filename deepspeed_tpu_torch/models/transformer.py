@@ -1162,27 +1162,38 @@ class TransformerLM(nn.Module):
                            dec_tokens: torch.Tensor,
                            dec_active: torch.Tensor,
                            chunk_ids: torch.Tensor, chunk_slot: int,
-                           chunk_start: int, chunk_len: int
-                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                      Dict[str, Any]]:
+                           chunk_start: int, chunk_len: int,
+                           spec_tokens: Optional[torch.Tensor] = None,
+                           spec_active: Optional[torch.Tensor] = None):
         """Mixed continuous-batching step: one decode token per slot
         (``dec_tokens``/``dec_active`` ``[B]`` int32, or ``[0]``: no
         decode lane) plus ``chunk_ids`` ``[C]`` of one slot's prompt at
         rows ``chunk_start ..`` (C may be 0: no chunk; ids past
-        ``chunk_len`` are padding).
+        ``chunk_len`` are padding), plus, with ``spec_tokens`` ``[B, S]``,
+        a speculative verify run per slot (Leviathan et al.): row b holds
+        the slot's last emitted token then draft proposals d_1..d_{S-1},
+        fed at positions ``lens[b] .. lens[b] + S - 1``; ``spec_active``
+        ``[B]`` selects the verifying slots (their ``dec_active`` is 0).
 
         ``cache``: {"k"/"v": pools, "block_tables": ``[S, pages]`` int32,
         "lens": ``[S]`` int32 rows already in the pool, and with a
         quantized pool "k_scale"/"v_scale"} for all S slots.  Every new
         k/v row is scattered into the pools in place in one combined write
-        per layer (decode rows at ``table[len // blk]``, chunk rows at
-        ``base + i`` of the chunk slot's table, inactive and padded rows to
-        the null block 0), encoded with ``kv_quantize`` into values and
-        scales when the pool is quantized; then kernel B6 attends for the
-        decode slots and kernel B7 for the chunk.  A lane of width 0 runs
-        no kernel.  Returns ``(dec_logits [B, V], chunk_logits [V] at the
-        chunk's last valid row or None when C is 0, cache with the new
-        lens)``."""
+        per layer (decode rows at ``table[len // blk]``, spec row i of slot
+        b at position ``lens[b] + i`` with its page clamped to the table,
+        chunk rows at ``base + i`` of the chunk slot's table, inactive and
+        padded rows to the null block 0), encoded with ``kv_quantize`` into
+        values and scales when the pool is quantized; then kernel B6
+        attends for the decode slots, B6 once per spec depth i with
+        lengths ``where(spec_active, lens + i + 1, 0)`` (the causality
+        between draft rows), and kernel B7 for the chunk.  A lane of width
+        0 runs no kernel, so without ``spec_tokens`` the step launches
+        exactly what it did before the spec lane.  Returns ``(dec_logits
+        [B, V], chunk_logits [V] at the chunk's last valid row or None
+        when C is 0, cache with the new lens)``, with ``spec_logits [B, S,
+        V]`` inserted after ``dec_logits`` when the spec lane runs (the
+        caller advances lens past accepted spec rows; rejected rows are
+        never attended and are rewritten before they can be)."""
         c = self.config
         pool_k, pool_v = cache["k"], cache["v"]
         pool_ks, pool_vs = cache.get("k_scale"), cache.get("v_scale")
@@ -1190,6 +1201,7 @@ class TransformerLM(nn.Module):
         tables, lens = cache["block_tables"], cache["lens"]
         dev = dec_tokens.device
         bsl, nc = dec_tokens.shape[0], chunk_ids.shape[0]
+        nsp, sw = (0, 0) if spec_tokens is None else spec_tokens.shape
         nb, blk = pool_k.shape[1], pool_k.shape[2]
         npages = tables.shape[1]
         act = dec_active > 0
@@ -1199,6 +1211,20 @@ class TransformerLM(nn.Module):
         page = (dlens_l // blk).clamp(max=npages - 1)
         wd = torch.where(act, dtables[slot, page].long() * blk
                          + dlens_l % blk, torch.zeros_like(dlens_l))
+        writes, pos_parts, id_parts = [wd], [dlens_l], [dec_tokens.long()]
+        if sw:
+            stables, slens = tables[:nsp], lens[:nsp]
+            sact = spec_active > 0
+            spos = slens.long()[:, None] + torch.arange(sw, device=dev)[None]
+            spage = (spos // blk).clamp(max=npages - 1)
+            ws = torch.where(sact[:, None],
+                             torch.gather(stables.long(), 1, spage) * blk
+                             + spos % blk, torch.zeros_like(spos))
+            writes.append(ws.reshape(-1))
+            # inactive slots' rows sit at position 0 (null-block rows)
+            pos_parts.append(torch.where(sact[:, None], spos,
+                                         torch.zeros_like(spos)).reshape(-1))
+            id_parts.append(spec_tokens.long().reshape(-1))
         ci = torch.arange(nc, device=dev)
         # padded chunk rows take position 0 (past chunk_len, base + i can
         # exceed the learned or rotary table) and write into the null
@@ -1209,12 +1235,13 @@ class TransformerLM(nn.Module):
         cpage = (cpos // blk).clamp(max=npages - 1)
         wc = torch.where(ci < chunk_len, ctable[cpage].long() * blk
                          + cpos % blk, torch.zeros_like(ci))
-        write = torch.cat([wd, wc])
+        write = torch.cat(writes + [wc])
         dec_lens = torch.where(act, dlens + 1, torch.zeros_like(dlens))
-        positions = torch.cat([dlens_l, cpos])[None]
-        ids = torch.cat([dec_tokens.long(), chunk_ids.long()])[None]
+        positions = torch.cat(pos_parts + [cpos])[None]
+        ids = torch.cat(id_parts + [chunk_ids.long()])[None]
         x = self._embed(params, ids, positions)
-        t = bsl + nc
+        nsample = bsl + nsp * sw
+        t = nsample + nc
 
         for i, bp in enumerate(layer_views(params["blocks"])):
             pk, pv = pool_k[i], pool_v[i]
@@ -1238,16 +1265,26 @@ class TransformerLM(nn.Module):
                     parts.append(paged_decode_attention(
                         q[0, :bsl].contiguous(), pk, pv, dec_lens, dtables,
                         **quant))
+                if sw:
+                    # spec depth i attends the prefix plus draft rows
+                    # 0..i, all in the pool since the combined scatter
+                    qs = q[0, bsl:nsample].reshape(nsp, sw, *q.shape[2:])
+                    zero = torch.zeros_like(slens)
+                    parts.append(torch.stack([paged_decode_attention(
+                        qs[:, d].contiguous(), pk, pv,
+                        torch.where(sact, slens + d + 1, zero), stables,
+                        **quant) for d in range(sw)], dim=1).reshape(
+                            nsp * sw, *q.shape[2:]))
                 if nc:
                     parts.append(paged_prefill_attention(
-                        q[0, bsl:].contiguous(), pk, pv, chunk_start,
+                        q[0, nsample:].contiguous(), pk, pv, chunk_start,
                         chunk_len, ctable, **quant))
                 return torch.cat(parts).reshape(1, t, -1)
             x = self._block(self.block_transform(bp), x, attend, positions)
         x = self._final_norm(params, x)
-        rows = [x[0, :bsl]]
+        rows = [x[0, :nsample]]
         if nc:
-            last = bsl + max(chunk_len - 1, 0)
+            last = nsample + max(chunk_len - 1, 0)
             rows.append(x[0, last:last + 1])
         logits = self._project(params, torch.cat(rows))
         new_lens = lens.clone()
@@ -1258,4 +1295,8 @@ class TransformerLM(nn.Module):
                      "lens": new_lens}
         if kv_bits:
             new_cache["k_scale"], new_cache["v_scale"] = pool_ks, pool_vs
-        return logits[:bsl], (logits[bsl] if nc else None), new_cache
+        chunk_logits = logits[nsample] if nc else None
+        if sw:
+            return (logits[:bsl], logits[bsl:nsample].reshape(nsp, sw, -1),
+                    chunk_logits, new_cache)
+        return logits[:bsl], chunk_logits, new_cache

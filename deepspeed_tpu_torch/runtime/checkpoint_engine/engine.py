@@ -24,9 +24,12 @@ from ``latest``, falls back to the newest tag that verifies.
 ``checkpoint.async_save`` copies the state to host memory at the call
 and writes it on a writer thread; ``meta.json`` and ``latest`` wait for
 that write to commit (``wait_pending``: at the next save or load, or at
-exit).  The offload branches of the JAX engine (ZeRO-Infinity, the host
-optimizer) wait for ROADMAP.md queue A item 8, its heartbeat beats and
-trace spans for item 4.
+exit).  Saves and loads bump ``dstpu_checkpoint_saves_total`` /
+``dstpu_checkpoint_loads_total`` and record the ``checkpoint/save_state``,
+``checkpoint/publish``, ``checkpoint/verify`` and ``checkpoint/load_state``
+spans (``observability/``); the engine beats its heartbeat around a save.
+The offload branches of the JAX engine (ZeRO-Infinity, the host
+optimizer, their ``offload/*`` spans) wait for ROADMAP.md queue A item 8.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ...models.convert import check_params
+from ...observability import get_registry, trace_span
 from ...utils.logging import logger
 from ..fp16.loss_scaler import LossScaleState
 from ..resilience import (CheckpointCorruptionError, FatalIOError,
@@ -102,6 +106,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     async_save = engine._config.checkpoint_config.async_save
     if async_save:
         wait_pending()   # publish the previous async save first
+    get_registry().counter("dstpu_checkpoint_saves_total").inc()
     tree = _state_tree(engine.state)
     meta = {
         "tag": tag,
@@ -122,7 +127,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             _ATEXIT_REGISTERED = True
         # the host copy is taken now, so training may go on updating the
         # state while the thread writes
-        host, failed = _to_host(tree), []
+        with trace_span("checkpoint/save_state", tag=str(tag),
+                        async_save=True):
+            host, failed = _to_host(tree), []
 
         def write():
             try:
@@ -135,7 +142,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         _PENDING.append((writer, failed, (os.path.abspath(save_dir), tag,
                                           meta, resilience)))
     else:
-        _write_state(tree, path)
+        with trace_span("checkpoint/save_state", tag=str(tag),
+                        async_save=False):
+            _write_state(tree, path)
         _publish(os.path.abspath(save_dir), tag, meta, resilience)
     logger.info(f"saved checkpoint {path}" +
                 (" (async)" if async_save else ""))
@@ -166,8 +175,10 @@ def _publish(save_dir: str, tag: str, meta: dict, resilience=None) -> None:
         atomic_write_text(os.path.join(save_dir, "latest"), str(tag))
         fsync_dir(save_dir)
 
-    retry_call(commit, policy=policy_from_config(resilience),
-               what=f"checkpoint publish '{tag}'")
+    with trace_span("checkpoint/publish", tag=str(tag),
+                    integrity=integrity, verify=verify):
+        retry_call(commit, policy=policy_from_config(resilience),
+                   what=f"checkpoint publish '{tag}'")
 
 
 def wait_pending() -> None:
@@ -274,11 +285,13 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     tag to load."""
     del load_lr_scheduler_states  # the schedule is a function of step
     wait_pending()
+    get_registry().counter("dstpu_checkpoint_loads_total").inc()
     explicit = tag is not None
     tag = _validate_tag(engine, load_dir, tag)
     if tag is None:
         return None, {}
-    tag = _resolve_verified_tag(engine, load_dir, tag, explicit)
+    with trace_span("checkpoint/verify", tag=str(tag)):
+        tag = _resolve_verified_tag(engine, load_dir, tag, explicit)
     path = _tag_path(load_dir, tag)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint {path} not found")
@@ -290,20 +303,22 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     with open(meta_path) as f:
         meta = json.load(f)
 
-    restored = read_state(path)
-    if hasattr(engine.model, "param_shapes"):
-        check_params(engine.model, restored["params"])
-    dev = engine.device
-    if load_module_only or not load_optimizer_states:
-        engine.state["params"] = _to_device(restored["params"], dev)
-        engine.state["step"] = restored["step"].to(dev)
-    else:
-        scaler = restored.pop("scaler", None)
-        restored = _to_device(restored, dev)
-        if scaler is not None and engine.loss_scaler is not None:
-            restored["scaler"] = LossScaleState(
-                **{k: v.to(dev) for k, v in scaler.items()})
-        engine.state = restored
+    partial = load_module_only or not load_optimizer_states
+    with trace_span("checkpoint/load_state", tag=str(tag), partial=partial):
+        restored = read_state(path)
+        if hasattr(engine.model, "param_shapes"):
+            check_params(engine.model, restored["params"])
+        dev = engine.device
+        if partial:
+            engine.state["params"] = _to_device(restored["params"], dev)
+            engine.state["step"] = restored["step"].to(dev)
+        else:
+            scaler = restored.pop("scaler", None)
+            restored = _to_device(restored, dev)
+            if scaler is not None and engine.loss_scaler is not None:
+                restored["scaler"] = LossScaleState(
+                    **{k: v.to(dev) for k, v in scaler.items()})
+            engine.state = restored
     engine.global_steps = meta.get("global_steps", 0)
     engine.micro_steps = meta.get("micro_steps", 0)
     logger.info(f"loaded checkpoint {path}")

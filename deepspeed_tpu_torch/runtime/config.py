@@ -13,8 +13,9 @@ This slice trains on one device.  Blocks it parses but does not run are
 refused by :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls
 it) with ``NotImplementedError`` naming the ``ROADMAP.md`` queue A slice
 that brings them: ZeRO stage > 0 and offload, a mesh of more than one
-device, pipeline stages, tensor and sequence parallelism, and the monitor
-and observability blocks.  ``fp16`` trains (dynamic or static loss
+device, pipeline stages, tensor and sequence parallelism, and the
+monitor blocks.  The ``observability`` block (span tracer, metrics,
+flight recorder, overlap profiler) runs.  ``fp16`` trains (dynamic or static loss
 scaling, ``runtime/fp16``).
 """
 from __future__ import annotations
@@ -301,6 +302,172 @@ class ResilienceConfig:
                 f"healthy worker one beat behind gets killed")
 
 
+# -- observability ------------------------------------------------------------------
+@dataclass
+class TracingConfig:
+    """``observability.tracing`` — host-side span tracer
+    (``observability/tracer.py``): spans record into a preallocated ring
+    and export as Chrome trace-event JSON (Perfetto-loadable)."""
+    enabled: bool = C.OBSERVABILITY_TRACING_ENABLED_DEFAULT
+    # ring capacity in spans; oldest spans are overwritten on wraparound
+    buffer_size: int = C.OBSERVABILITY_TRACE_BUFFER_DEFAULT
+    # directory for per-process trace_rank<r>.json files
+    output_dir: str = C.OBSERVABILITY_TRACE_DIR_DEFAULT
+
+    def __post_init__(self):
+        if self.buffer_size < 1:
+            raise ValueError(
+                f"observability.tracing.buffer_size must be >= 1, got "
+                f"{self.buffer_size}")
+
+
+@dataclass
+class ObsMetricsConfig:
+    """``observability.metrics`` — counter/gauge/histogram registry with
+    Prometheus-textfile and JSON exporters (``observability/metrics.py``)."""
+    enabled: bool = C.OBSERVABILITY_METRICS_ENABLED_DEFAULT
+    # node_exporter textfile-collector directory (dstpu_rank<r>.prom)
+    prometheus_dir: Optional[str] = C.OBSERVABILITY_PROMETHEUS_DIR_DEFAULT
+    # JSON snapshot path
+    json_path: Optional[str] = C.OBSERVABILITY_JSON_PATH_DEFAULT
+    # export every N steps (0 = only at flush/close/atexit)
+    export_interval_steps: int = C.OBSERVABILITY_EXPORT_INTERVAL_DEFAULT
+
+    def __post_init__(self):
+        if self.export_interval_steps < 0:
+            raise ValueError(
+                f"observability.metrics.export_interval_steps must be "
+                f">= 0, got {self.export_interval_steps}")
+
+
+@dataclass
+class RequestTracingConfig:
+    """``observability.request_tracing`` — per-request serving timelines
+    (``observability/request_trace.py``), exported as a Perfetto track per
+    request inside the span tracer's ``trace_rank<r>.json``.  Requires
+    ``tracing.enabled``."""
+    enabled: bool = C.OBSERVABILITY_REQUEST_TRACE_ENABLED_DEFAULT
+    # retained request timelines; oldest completed evicted first
+    capacity: int = C.OBSERVABILITY_REQUEST_TRACE_CAPACITY_DEFAULT
+    # stamped segments per request before drops are counted
+    max_segments: int = C.OBSERVABILITY_REQUEST_TRACE_SEGMENTS_DEFAULT
+
+    def __post_init__(self):
+        if self.capacity < 1 or self.max_segments < 1:
+            raise ValueError(
+                "observability.request_tracing: capacity and max_segments "
+                f"must be >= 1, got {self.capacity}/{self.max_segments}")
+
+
+@dataclass
+class SloConfig:
+    """``observability.slo`` — per-tenant multi-window burn-rate alerting
+    over the TTFT / inter-token SLOs declared in ``TenantSpec``
+    (``observability/slo.py``)."""
+    enabled: bool = C.OBSERVABILITY_SLO_ENABLED_DEFAULT
+    objective: float = C.OBSERVABILITY_SLO_OBJECTIVE_DEFAULT
+    fast_window_s: float = C.OBSERVABILITY_SLO_FAST_WINDOW_DEFAULT
+    slow_window_s: float = C.OBSERVABILITY_SLO_SLOW_WINDOW_DEFAULT
+    burn_threshold: float = C.OBSERVABILITY_SLO_BURN_THRESHOLD_DEFAULT
+    # firing -> resolved once fast burn < threshold * resolve_fraction
+    resolve_fraction: float = C.OBSERVABILITY_SLO_RESOLVE_FRACTION_DEFAULT
+    # fast-window observations required before an alert may fire
+    min_samples: int = C.OBSERVABILITY_SLO_MIN_SAMPLES_DEFAULT
+
+    def __post_init__(self):
+        if not 0.0 < self.objective < 1.0:
+            raise ValueError(
+                f"observability.slo.objective must be in (0, 1), got "
+                f"{self.objective}")
+        if self.fast_window_s <= 0 or \
+                self.slow_window_s < self.fast_window_s:
+            raise ValueError(
+                "observability.slo: need 0 < fast_window_s <= "
+                f"slow_window_s, got {self.fast_window_s}/"
+                f"{self.slow_window_s}")
+        if self.burn_threshold <= 0 or self.min_samples < 1:
+            raise ValueError(
+                "observability.slo: burn_threshold must be > 0 and "
+                f"min_samples >= 1, got {self.burn_threshold}/"
+                f"{self.min_samples}")
+        if not 0.0 <= self.resolve_fraction <= 1.0:
+            raise ValueError(
+                f"observability.slo.resolve_fraction must be in [0, 1], "
+                f"got {self.resolve_fraction}")
+
+
+@dataclass
+class FlightRecorderConfig:
+    """``observability.flight`` — black-box flight recorder
+    (``observability/flight_recorder.py``): a bounded ring of
+    per-iteration engine snapshots dumped as a manifest-sealed
+    post-mortem bundle on ``ServingError`` or a skipped-step burst."""
+    enabled: bool = C.OBSERVABILITY_FLIGHT_ENABLED_DEFAULT
+    capacity: int = C.OBSERVABILITY_FLIGHT_CAPACITY_DEFAULT
+    output_dir: str = C.OBSERVABILITY_FLIGHT_DIR_DEFAULT
+    max_terminal_events: int = C.OBSERVABILITY_FLIGHT_TERMINALS_DEFAULT
+    # consecutive skipped train steps that trip a post-mortem dump
+    skip_burst_steps: int = C.OBSERVABILITY_FLIGHT_SKIP_BURST_DEFAULT
+    max_bundles: int = C.OBSERVABILITY_FLIGHT_MAX_BUNDLES_DEFAULT
+
+    def __post_init__(self):
+        if self.capacity < 1 or self.max_terminal_events < 1 \
+                or self.max_bundles < 1:
+            raise ValueError(
+                "observability.flight: capacity, max_terminal_events and "
+                "max_bundles must be >= 1, got "
+                f"{self.capacity}/{self.max_terminal_events}/"
+                f"{self.max_bundles}")
+        if self.skip_burst_steps < 1:
+            raise ValueError(
+                f"observability.flight.skip_burst_steps must be >= 1, got "
+                f"{self.skip_burst_steps}")
+
+
+@dataclass
+class OverlapConfig:
+    """``observability.overlap`` — host/device overlap profiler
+    (``observability/overlap.py``): splits each serving iteration and
+    training step into host planning, enqueue and device wait from
+    clock reads the engines already make (no new device syncs)."""
+    enabled: bool = C.OBSERVABILITY_OVERLAP_ENABLED_DEFAULT
+    # per-iteration records retained for the trace track
+    capacity: int = C.OBSERVABILITY_OVERLAP_CAPACITY_DEFAULT
+
+    def __post_init__(self):
+        if self.capacity < 1:
+            raise ValueError(
+                f"observability.overlap.capacity must be >= 1, got "
+                f"{self.capacity}")
+
+
+@dataclass
+class ObservabilityConfig:
+    """``observability`` block (``observability/``), the same schema in
+    the training and the inference config."""
+    tracing: TracingConfig = field(default_factory=TracingConfig)
+    metrics: ObsMetricsConfig = field(default_factory=ObsMetricsConfig)
+    request_tracing: RequestTracingConfig = field(
+        default_factory=RequestTracingConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
+    flight: FlightRecorderConfig = field(
+        default_factory=FlightRecorderConfig)
+    overlap: OverlapConfig = field(default_factory=OverlapConfig)
+
+    def __post_init__(self):
+        if self.request_tracing.enabled and not self.tracing.enabled:
+            raise ValueError(
+                "observability.request_tracing.enabled requires "
+                "observability.tracing.enabled — the per-request "
+                "waterfall exports inside the span tracer's Chrome trace")
+
+    @property
+    def enabled(self) -> bool:
+        return (self.tracing.enabled or self.metrics.enabled
+                or self.request_tracing.enabled or self.slo.enabled
+                or self.flight.enabled or self.overlap.enabled)
+
+
 # -- training hot path --------------------------------------------------------------
 #: remat policies the JAX model accepts; the port runs all but
 #: "host_offload" (offload, ROADMAP.md queue A item 8)
@@ -423,8 +590,9 @@ class DeepSpeedConfig:
             csv_monitor=_block(CSVConfig, pd, C.MONITOR_CSV))
         self.resilience = _block(ResilienceConfig, pd, C.RESILIENCE)
         self.training = _block(TrainingConfig, pd, C.TRAINING)
+        self.observability = _block(ObservabilityConfig, pd,
+                                    C.OBSERVABILITY)
         # blocks whose subsystems are later slices: kept as given
-        self.observability_dict = g(C.OBSERVABILITY)
         self.activation_checkpointing_dict = g(C.ACTIVATION_CHECKPOINTING)
         self.flops_profiler_dict = g(C.FLOPS_PROFILER)
         self.checkpoint_config = _block(CheckpointConfig, pd, C.CHECKPOINT)
@@ -552,9 +720,6 @@ class DeepSpeedConfig:
         if self.monitor.enabled:
             later.append("tensorboard / wandb / csv_monitor: monitors "
                          "(queue A item 9's auxiliary subsystems)")
-        if self.observability_dict:
-            later.append("observability: tracing and metrics (queue A "
-                         "item 4)")
         if later:
             raise NotImplementedError(
                 "not in the training slice of the PyTorch port: "

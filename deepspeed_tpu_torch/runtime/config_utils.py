@@ -74,6 +74,10 @@ def from_dict(cls, data: Optional[Dict[str, Any]], path: str):
             continue
         hint = hints[name]
         sub = f"{path}.{name}" if path else name
+        if getattr(hint, "__origin__", None) is Union:
+            args = [a for a in hint.__args__ if a is not type(None)]
+            if len(args) == 1 and dataclasses.is_dataclass(args[0]):
+                hint = args[0]             # Optional[block]: given = built
         if dataclasses.is_dataclass(hint):
             kw[name] = from_dict(hint, value, sub)
         elif (hint is Any or hint == Optional[Dict[str, Any]]

@@ -93,6 +93,33 @@ RESILIENCE_SKIP_NONFINITE_DEFAULT = True
 RESILIENCE_HEARTBEAT_INTERVAL_DEFAULT = 1.0     # seconds
 RESILIENCE_WATCHDOG_TIMEOUT_DEFAULT = 0.0       # seconds; 0 disables
 
+# observability block (span tracer + metrics registry + serving hooks)
+OBSERVABILITY_TRACING_ENABLED_DEFAULT = False
+OBSERVABILITY_TRACE_BUFFER_DEFAULT = 65536      # ring capacity, spans
+OBSERVABILITY_TRACE_DIR_DEFAULT = "traces"
+OBSERVABILITY_METRICS_ENABLED_DEFAULT = False
+OBSERVABILITY_EXPORT_INTERVAL_DEFAULT = 0       # steps; 0 = flush-only
+OBSERVABILITY_PROMETHEUS_DIR_DEFAULT = None     # textfile-collector dir
+OBSERVABILITY_JSON_PATH_DEFAULT = None          # JSON snapshot path
+OBSERVABILITY_REQUEST_TRACE_ENABLED_DEFAULT = False
+OBSERVABILITY_REQUEST_TRACE_CAPACITY_DEFAULT = 512   # retained timelines
+OBSERVABILITY_REQUEST_TRACE_SEGMENTS_DEFAULT = 256   # stamps per request
+OBSERVABILITY_SLO_ENABLED_DEFAULT = False
+OBSERVABILITY_SLO_OBJECTIVE_DEFAULT = 0.9       # met-target fraction
+OBSERVABILITY_SLO_FAST_WINDOW_DEFAULT = 30.0    # seconds
+OBSERVABILITY_SLO_SLOW_WINDOW_DEFAULT = 300.0   # seconds
+OBSERVABILITY_SLO_BURN_THRESHOLD_DEFAULT = 2.0  # x budget, both windows
+OBSERVABILITY_SLO_RESOLVE_FRACTION_DEFAULT = 0.5  # hysteresis on resolve
+OBSERVABILITY_SLO_MIN_SAMPLES_DEFAULT = 5       # fast-window floor
+OBSERVABILITY_FLIGHT_ENABLED_DEFAULT = False
+OBSERVABILITY_FLIGHT_CAPACITY_DEFAULT = 256     # snapshot ring slots
+OBSERVABILITY_FLIGHT_DIR_DEFAULT = "flight_recorder"
+OBSERVABILITY_FLIGHT_TERMINALS_DEFAULT = 64     # terminal-event ring
+OBSERVABILITY_FLIGHT_SKIP_BURST_DEFAULT = 8     # skipped-step trigger
+OBSERVABILITY_FLIGHT_MAX_BUNDLES_DEFAULT = 4    # bundles kept per rank
+OBSERVABILITY_OVERLAP_ENABLED_DEFAULT = False
+OBSERVABILITY_OVERLAP_CAPACITY_DEFAULT = 2048   # iteration ring slots
+
 # training block: per-run overrides of the model's hot-path knobs
 # (None = keep the model config's setting)
 TRAINING_REMAT_DEFAULT = None

@@ -29,8 +29,18 @@ compiles the step into one program, this one runs it eagerly:
   the step; the scaler's state (``state["scaler"]``) moves the same way.
 
 Metrics come back as device tensors, as the JAX engine returns device
-scalars; nothing in a step waits for the card unless ``steps_per_print``
-or ``wall_clock_breakdown`` asks to read them.
+scalars; nothing in a step waits for the card unless ``steps_per_print``,
+``wall_clock_breakdown`` or the ``observability`` block asks to read
+them.  With that block (``observability/``) the step records the
+``engine/*`` spans (``engine/train_step`` around the step, and inside it
+``engine/forward`` and ``engine/backward`` per micro batch and
+``engine/optimizer_step``: host time of eager launches, no sync), then
+``engine/step_sync``, the one span that waits for the card, feeding
+``dstpu_step_time_seconds``, ``dstpu_train_steps_total``,
+``dstpu_train_skipped_steps_total``, the flight recorder and the overlap
+profiler; ``flush_observability()`` writes the trace and the metric
+exports.  A ``Heartbeat`` (``DSTPU_HEARTBEAT_FILE``) beats every step
+and around checkpoint writes.
 """
 from __future__ import annotations
 
@@ -43,12 +53,14 @@ import torch
 
 from ..accelerator import resolve_device
 from ..models.convert import check_params, leaf_to_torch
+from ..observability import trace_span
 from ..utils.logging import logger
 from . import lr_schedules
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import DynamicLossScaler, static_loss_scaler
 from .optimizers import (Optimizer, get_optimizer, tree_leaves, tree_map,
                          wrap_torch)
+from .resilience.heartbeat import Heartbeat
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                    "float32": torch.float32}
@@ -100,6 +112,21 @@ class DeepSpeedEngine:
                         else DeepSpeedConfig(config or {}))
         self._config.refuse_out_of_slice()
         self.device = resolve_device(device)
+        # worker side of a hung-worker watchdog: beat the file named by
+        # DSTPU_HEARTBEAT_FILE once per interval (no-op without it)
+        self._heartbeat = Heartbeat(
+            interval_s=self._config.resilience.heartbeat_interval_s)
+        # observability: the process-global tracer and registry (the
+        # newest engine's block wins), the flight recorder and the
+        # overlap profiler; each site is one attribute check when off
+        from ..observability import (configure, get_flight_recorder,
+                                     get_overlap_profiler)
+        self._tracer, self._obs = configure(self._config.observability)
+        self._flight = get_flight_recorder()
+        self._ovl = get_overlap_profiler()
+        self._skip_burst = 0
+        if self._obs.enabled:
+            self._obs.set_collector("engine", self._obs_collect)
         model = self._apply_training_overrides(model)
         self.model = model
         self.dp_world_size = 1
@@ -248,10 +275,12 @@ class DeepSpeedEngine:
         batch: the loss runs on the compute-dtype cast of the masters and
         the gradient comes back through the cast."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = self._loss_fn(self._cast_for_compute(leaves),
-                             micro_batch) * scale
+        with trace_span("engine/forward", micro_step=self.micro_steps):
+            loss = self._loss_fn(self._cast_for_compute(leaves),
+                                 micro_batch) * scale
         flat = list(tree_leaves(leaves))
-        grads = torch.autograd.grad(loss, flat)
+        with trace_span("engine/backward", micro_step=self.micro_steps):
+            grads = torch.autograd.grad(loss, flat)
         it = iter(g.to(torch.float32) for g in grads)
         return loss.detach(), tree_map(lambda _: next(it), leaves)
 
@@ -359,33 +388,107 @@ class DeepSpeedEngine:
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One optimizer step over ``gas`` micro batches; returns metrics
         as device tensors (loss, grad_norm, lr, overflow, loss_scale)."""
-        batch = self.shard_batch(batch)
+        self._heartbeat.maybe_beat()
+        with trace_span("engine/shard_batch"):
+            batch = self.shard_batch(batch)
         t0 = time.perf_counter()
-        scale = self._current_scale()
-        gsum, lsum = self._accumulate_micro_grads(self.state, batch, scale)
-        gas = self.gradient_accumulation_steps
-        self.state, metrics = self._apply_grads(self.state, gsum,
-                                                float(gas))
-        metrics["loss"] = lsum / (scale * gas)
+        with trace_span("engine/train_step", mode="eager",
+                        step=self.global_steps):
+            scale = self._current_scale()
+            gsum, lsum = self._accumulate_micro_grads(self.state, batch,
+                                                      scale)
+            gas = self.gradient_accumulation_steps
+            with trace_span("engine/optimizer_step", step=self.global_steps):
+                self.state, metrics = self._apply_grads(self.state, gsum,
+                                                        float(gas))
+            metrics["loss"] = lsum / (scale * gas)
+        # launches returned: the overlap profiler's enqueue/device-wait
+        # boundary (the wait ends at the step_sync join below)
+        t_enq = time.perf_counter()
         self.global_steps += 1
         self.micro_steps += gas
+        step_s = None
+        if self._obs.enabled or self._flight.enabled or self._ovl.enabled:
+            # the one join the telemetry needs, on the step's loss: the
+            # only span that waits for the card
+            with trace_span("engine/step_sync", step=self.global_steps):
+                metrics["loss"].item()
+            t_end = time.perf_counter()
+            step_s = t_end - t0
+            if self._ovl.enabled:
+                self._ovl.observe("train", total_s=step_s,
+                                  enqueue_s=t_enq - t0,
+                                  wait_s=t_end - t_enq)
         if self._config.wall_clock_breakdown:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._step_times.append(time.perf_counter() - t0)
         self._last_metrics = metrics
-        self._post_step_observe(metrics)
+        self._post_step_observe(metrics, step_s)
         return metrics
 
-    def _post_step_observe(self, metrics: Dict[str, torch.Tensor]) -> None:
-        """The periodic log line (reads the metrics: a host sync)."""
+    def _post_step_observe(self, metrics: Dict[str, torch.Tensor],
+                           step_s: Optional[float] = None) -> None:
+        """The periodic log line, the flight recorder's snapshot (a burst
+        of skipped steps dumps a post-mortem bundle), the step counters
+        and the step-time histogram, and the periodic metric export.
+        Reading the metrics is a host sync; it happens only when one of
+        these is on."""
         every = self._config.steps_per_print
-        if not every or self.global_steps % every:
+        do_print = bool(every) and self.global_steps % every == 0
+        obs, fr = self._obs, self._flight
+        if not (do_print or obs.enabled or fr.enabled):
             return
         m = {k: float(v) for k, v in metrics.items()}
-        logger.info(f"step={self.global_steps} loss={m['loss']:.4f} "
-                    f"lr={m['lr']:.3e} grad_norm={m['grad_norm']:.3f} "
-                    f"loss_scale={m['loss_scale']:.0f}")
+        step = self.global_steps
+        if fr.enabled:
+            fr.record({"kind": "train_step", "step": step, "t": time.time(),
+                       "loss": m.get("loss"), "grad_norm": m.get("grad_norm"),
+                       "loss_scale": m.get("loss_scale"),
+                       "overflow": bool(m.get("overflow"))})
+            if m.get("overflow"):
+                self._skip_burst += 1
+                if self._skip_burst >= fr.skip_burst_steps:
+                    fr.dump("skipped_step_burst",
+                            f"{self._skip_burst} consecutive skipped "
+                            f"steps ending at step {step}",
+                            extra={"loss_scale": m.get("loss_scale"),
+                                   "grad_norm": m.get("grad_norm")})
+                    self._skip_burst = 0
+            else:
+                self._skip_burst = 0
+        if obs.enabled:
+            obs.counter("dstpu_train_steps_total").inc()
+            if m.get("overflow"):
+                obs.counter("dstpu_train_skipped_steps_total").inc()
+            if step_s is not None:
+                obs.histogram("dstpu_step_time_seconds").observe(step_s)
+            from ..observability import export_interval_steps, export_metrics
+            ivl = export_interval_steps()
+            if ivl and step % ivl == 0:
+                export_metrics()
+        if do_print:
+            logger.info(f"step={step} loss={m['loss']:.4f} "
+                        f"lr={m['lr']:.3e} grad_norm={m['grad_norm']:.3f} "
+                        f"loss_scale={m['loss_scale']:.0f}")
+
+    def _obs_collect(self) -> None:
+        """Export-time refresh of the device-memory watermark (a host-side
+        read of the allocator's statistics; no device sync)."""
+        if self.device.type == "cuda":
+            self._obs.gauge("dstpu_device_peak_memory_bytes").set(
+                float(torch.cuda.max_memory_allocated(self.device)))
+
+    def flush_observability(self, sync: bool = True):
+        """Write the span trace and the metric exports.  ``sync=True``
+        first joins the last step's loss, the explicit flush-boundary
+        device sync, so the trace covers fully executed work.  Returns
+        the files written."""
+        from ..observability import flush_all
+        val = None
+        if sync and self._last_metrics:
+            val = self._last_metrics.get("loss")
+        return flush_all(sync=val)
 
     def train_batch(self, data_iter: Optional[Iterable] = None,
                     batch: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
@@ -446,12 +549,14 @@ class DeepSpeedEngine:
         return self._grad_acc_count >= self.gradient_accumulation_steps
 
     def step(self) -> None:
+        self._heartbeat.maybe_beat()
         if self._grad_acc is None:
             return
         n = torch.tensor(float(self._grad_acc_count), dtype=torch.float32,
                          device=self.device)
-        self.state, metrics = self._apply_grads(self.state, self._grad_acc,
-                                                n)
+        with trace_span("engine/optimizer_step", step=self.global_steps):
+            self.state, metrics = self._apply_grads(self.state,
+                                                    self._grad_acc, n)
         self._grad_acc = None
         self._grad_acc_count = 0
         self.global_steps += 1
@@ -486,12 +591,19 @@ class DeepSpeedEngine:
         """Save the train state under ``save_dir/tag`` (default
         ``global_step<N>``) and point ``latest`` at it once committed."""
         from .checkpoint_engine.engine import save_checkpoint as _save
-        return _save(self, save_dir, tag=tag,
-                     client_state=client_state or {})
+        # a long checkpoint write is the longest legitimate gap between
+        # steps: beat around it so a watchdog does not read it as a hang
+        self._heartbeat.beat_now()
+        try:
+            return _save(self, save_dir, tag=tag,
+                         client_state=client_state or {})
+        finally:
+            self._heartbeat.beat_now()
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
                         **kw):
         """Restore the train state (``latest`` unless ``tag``); returns
         ``(path, client_state)``."""
         from .checkpoint_engine.engine import load_checkpoint as _load
+        self._heartbeat.maybe_beat()
         return _load(self, load_dir, tag=tag, **kw)

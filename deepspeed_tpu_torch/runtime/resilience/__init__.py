@@ -1,18 +1,21 @@
 """Fault-tolerance layer of the port: failure taxonomy, retriable I/O,
-checkpoint integrity and fault injection.
+checkpoint integrity, fault injection and worker liveness.
 
 Copies of the jax-free modules of ``deepspeed_tpu/runtime/resilience/``
-(``errors``, ``fault_injection``, ``integrity``, ``retry``).  Wired into
-``runtime/checkpoint_engine`` (atomic commit, crc32 manifest, last-good
-fallback, retried publish) and the training step's non-finite skip; the
-heartbeat and watchdog come with the serving engine's rest (ROADMAP.md
-queue A item 4).
+(``errors``, ``fault_injection``, ``heartbeat``, ``integrity``,
+``retry``).  Wired into ``runtime/checkpoint_engine`` (atomic commit,
+crc32 manifest, last-good fallback, retried publish), the training
+step's non-finite skip and heartbeat, and the serving engine (the
+``serving.*`` fault sites and the heartbeat at every iteration
+boundary).
 """
 from .errors import (CheckpointCorruptionError, FatalIOError,
                      ServingError, TRANSIENT_ERRNOS, TransientIOError,
                      is_transient)
 from .fault_injection import (ENV_FAULTS, FaultInjector, FaultPlan,
                               get_fault_injector, install_fault_injector)
+from .heartbeat import (ENV_HEARTBEAT_FILE, Heartbeat, Watchdog, beat,
+                        heartbeat_age, is_stale, run_with_timeout)
 from .integrity import (MANIFEST_NAME, atomic_write_bytes,
                         atomic_write_json, atomic_write_text,
                         file_checksum, find_newest_verified_tag, fsync_dir,
@@ -26,6 +29,8 @@ __all__ = [
     "TRANSIENT_ERRNOS", "TransientIOError", "is_transient",
     "ENV_FAULTS", "FaultInjector", "FaultPlan", "get_fault_injector",
     "install_fault_injector",
+    "ENV_HEARTBEAT_FILE", "Heartbeat", "Watchdog", "beat", "heartbeat_age",
+    "is_stale", "run_with_timeout",
     "MANIFEST_NAME", "atomic_write_bytes", "atomic_write_json",
     "atomic_write_text", "file_checksum", "find_newest_verified_tag",
     "fsync_dir", "has_manifest", "list_tags", "verify_manifest",

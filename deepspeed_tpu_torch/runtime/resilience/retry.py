@@ -18,9 +18,8 @@ transient error so the caller sees the real failure, with the attempt
 count in the log.
 
 Copy of ``deepspeed_tpu/runtime/resilience/retry.py`` for the PyTorch
-port, without the ``retriable`` decorator (no caller yet) and the retry
-counters of the JAX package's metrics registry (observability is
-ROADMAP queue A item 4): the log lines remain.
+port, without the ``retriable`` decorator (no caller yet); the retries
+and give-ups feed the port's metrics registry as in JAX.
 """
 from __future__ import annotations
 
@@ -90,6 +89,7 @@ def retry_call(fn: Callable[[], T], *,
 
     ``sleep`` is injectable for tests (no real waiting in unit suites).
     """
+    from ...observability import get_registry
     policy = policy or DEFAULT_IO_POLICY
     last: Optional[BaseException] = None
     for attempt in range(policy.max_attempts):
@@ -99,6 +99,9 @@ def retry_call(fn: Callable[[], T], *,
             if not is_transient(e):
                 raise
             last = e
+            # rare-event metric, fed unconditionally: the retry history
+            # must exist the moment an operator turns export on
+            get_registry().counter("dstpu_io_retries_total").inc()
             if attempt + 1 >= policy.max_attempts:
                 break
             d = policy.delay(attempt)
@@ -107,6 +110,7 @@ def retry_call(fn: Callable[[], T], *,
                 f"(attempt {attempt + 1}/{policy.max_attempts}): {e} — "
                 f"retrying in {d * 1e3:.0f} ms")
             sleep(d)
+    get_registry().counter("dstpu_io_retry_giveups_total").inc()
     logger.error(f"{what} failed after {policy.max_attempts} attempts: "
                  f"{last}")
     assert last is not None

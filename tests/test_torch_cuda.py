@@ -2157,3 +2157,167 @@ def test_cuda_unet_and_vae_match_cpu():
     assert tuple(img.shape) == (1, 32, 32, 3)
     assert bool(img.isfinite().all())
     assert 0.0 <= float(img.min()) and float(img.max()) <= 1.0
+
+
+def _spec_models(dtype):
+    """Target (2 layers, 4 heads of 128) and draft (1 layer, 2 heads of
+    64) GPT-2 shaped over vocab 512, seeded weights on the card."""
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    tm = TransformerLM(gpt2_config("125m", num_layers=2, d_model=512,
+                                   num_heads=4, vocab_size=512,
+                                   max_seq_len=256, dtype=dtype))
+    dm = TransformerLM(gpt2_config("125m", num_layers=1, d_model=128,
+                                   num_heads=2, vocab_size=512,
+                                   max_seq_len=256, dtype=dtype))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return tm, tm.init(g, "cuda", dtype), dm, dm.init(g, "cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+def test_cuda_spec_lane_matches_plain_versions(dtype, kv_bits):
+    """The mixed step with a spec lane (2 verifying slots of 4 rows, a
+    plain decode slot, an 11-token chunk) on the card against the same
+    step with B6/B7's plain versions patched into the model, on the same
+    pools: decode, spec and chunk logits within 1e-4 of max|logit| in
+    float32 (bf16: 2e-2, the cast of every activation), and B6 launched
+    exactly once a layer for the decode lane plus once a layer per spec
+    depth (4), B7 once a layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.ops import build
+    dt_ = getattr(torch, dtype)
+    tm, tp, _, _ = _spec_models(dt_)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(kv_bits)
+    nslots, npages, S = 4, 8, 4
+    tables = torch.tensor([[4, 9, 2, 0, 0, 0, 0, 0], [7, 11, 0, 0, 0, 0, 0, 0],
+                           [3, 15, 16, 0, 0, 0, 0, 0],
+                           [5, 6, 0, 0, 0, 0, 0, 0]],
+                          dtype=torch.int32, device=dev)
+    lens = torch.tensor([37, 20, 30, 0], dtype=torch.int32, device=dev)
+    base = tm.init_paged_cache(24, 16, kv_bits=kv_bits, device=dev)
+    for key, pool in base.items():
+        if pool.dtype == torch.int8:
+            pool.copy_(torch.from_numpy(rng.integers(
+                -127, 128, tuple(pool.shape)).astype(np.int8)))
+        elif key.endswith("scale"):
+            pool.copy_(torch.from_numpy(rng.uniform(
+                0.002, 0.02, tuple(pool.shape)).astype(np.float32)))
+        else:
+            pool.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(pool.shape)).astype(np.float32)))
+    ids = lambda *shape: torch.from_numpy(rng.integers(
+        0, 512, shape).astype(np.int32)).to(dev)
+    dec, spec, chunk = ids(nslots), ids(nslots, S), ids(16)
+    dec_active = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
+    spec_active = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=dev)
+
+    def run():
+        cache = {k: v.clone() for k, v in base.items()}
+        return tm._apply_paged_mixed(
+            tp, {**cache, "block_tables": tables, "lens": lens}, dec,
+            dec_active, chunk, 3, 0, 11, spec_tokens=spec,
+            spec_active=spec_active)
+    build.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    b6 = build.counter("paged_decode_attention", kv_bits, dt_)
+    b7 = build.counter("paged_prefill_attention", kv_bits, dt_)
+    assert counts[b6] == 2 * (1 + S) and counts[b7] == 2
+    real = (tt.paged_decode_attention, tt.paged_prefill_attention)
+    from deepspeed_tpu_torch.ops.transformer import (
+        paged_decode_attention as PAm)
+    tt.paged_decode_attention = PAm.paged_decode_attention_plain
+    tt.paged_prefill_attention = PAm.paged_prefill_attention_plain
+    try:
+        want = run()
+    finally:
+        tt.paged_decode_attention, tt.paged_prefill_attention = real
+    rel = 1e-4 if dt_ == torch.float32 else 2e-2
+    for rows, ref in ((got[0][dec_active > 0], want[0][dec_active > 0]),
+                      (got[1][spec_active > 0], want[1][spec_active > 0]),
+                      (got[2], want[2])):
+        scale = float(ref.float().abs().max())
+        assert float((rows.float() - ref.float()).abs().max()) <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_draft", [False, True])
+def test_cuda_spec_server_streams_and_launches(self_draft):
+    """The float32 spec server on the card (spec_k 3; a 1-layer draft, or
+    the target as its own draft) against the plain server on the same
+    weights: equal greedy streams, every proposal the self-draft rejects
+    at a near tie of the target's logits there (within 1e-3 of
+    max|logit|: the draft's rows meet other GEMM shapes than the
+    target's, so f32 rounding may flip a tie), and B6/B7 launched
+    exactly as the dispatch log says:
+    target layers x (a decode lane + 4 x a spec lane) B6 and x a chunk
+    B7; draft layers x (feed 0 + 3 x a spec lane) B6 and x a chunk B7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import build
+    tm, tp, dm, dp = _spec_models(torch.float32)
+    cfg = {"dtype": "float32", "max_out_tokens": 256, "temperature": 0.0,
+           "serving": {"enabled": True, "kv_block_size": 16,
+                       "num_kv_blocks": 96, "max_batch_slots": 4,
+                       "prefill_chunk_tokens": 32, "spec_k": 3}}
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (7, 40, 19, 66, 3)]
+    plain = dt.init_inference(tm, cfg, params=tp).serving_engine()
+    want = [plain.submit(p, max_new_tokens=12) for p in prompts]
+    plain.run()
+    eng = dt.init_inference(tm, cfg, params=tp)
+    srv = (eng.serving_engine(draft_model=eng.module, draft_params=eng.params)
+           if self_draft else eng.serving_engine(draft_model=dm,
+                                                 draft_params=dp))
+    log, rejected = [], []
+    dispatch, propose = srv._dispatch, srv._draft_propose
+
+    def proposing(*args):
+        out = propose(*args)
+        props.append(out)
+        return out
+
+    def logged(dec, chunk, spec=()):
+        before = [(r, len(r.output)) for _, r in spec]
+        props.clear()
+        out = dispatch(dec, chunk, spec)
+        if out is not None:
+            log.append((bool(dec), bool(spec), chunk is not None))
+            for (slot, _), (r, n0) in zip(spec, before):
+                n = len(r.output) - n0
+                if 0 < n < 4 and len(r.output) < r.max_new_tokens:
+                    rejected.append((r, n0 + n - 1,
+                                     int(props[0][slot, n]),
+                                     r.output[n0 + n - 1]))
+        return out
+    props = []
+    srv._dispatch, srv._draft_propose = logged, proposing
+    build.reset_launch_counts()
+    got = [srv.submit(p, max_new_tokens=12) for p in prompts]
+    srv.run()
+    torch.cuda.synchronize()
+    assert [r.output for r in got] == [r.output for r in want]
+    if self_draft:
+        assert srv.spec_counts["accepted"] > 0
+        for r, pos, d, t in rejected:
+            lg = eng.forward([list(r.prompt) + r.output[:pos]])[0, -1]
+            gap = float(lg[t] - lg[d]) / float(lg.abs().max())
+            assert gap <= 1e-3, (r.req_id, pos, gap)
+    lt, ld = 2, (2 if self_draft else 1)
+    n_dec = sum(d for d, _, _ in log)
+    n_spec = sum(s for _, s, _ in log)
+    n_any = sum(d or s for d, s, _ in log)
+    n_chunk = sum(c for _, _, c in log)
+    assert build.launch_counts["paged_decode_attention"] == \
+        lt * (n_dec + 4 * n_spec) + ld * (n_any + 3 * n_spec)
+    assert build.launch_counts["paged_prefill_attention"] == \
+        (lt + ld) * n_chunk
+    assert srv.allocator.num_used == 0

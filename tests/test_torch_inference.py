@@ -296,8 +296,19 @@ def test_config_defaults_and_coercion_match_jax():
     {"observability": {}},
 ])
 def test_out_of_slice_engine_options_raise(override):
+    """Multi-device tensor and expert parallelism raise; the
+    ``observability`` block, refused until the serving engine's hooks
+    were ported, now builds an engine and configures the process
+    telemetry (an empty block: everything off)."""
     pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
                                          **TINY))
+    if "observability" in override:
+        from deepspeed_tpu_torch.observability import (get_registry,
+                                                       get_tracer)
+        eng = dt.init_inference(pm, {**BASE, **override}, device="cpu")
+        assert eng.config.observability is not None
+        assert not get_tracer().enabled and not get_registry().enabled
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         dt.init_inference(pm, {**BASE, **override}, device="cpu")
 
@@ -319,7 +330,8 @@ def test_out_of_slice_serving_options_raise(engines, serving):
 def test_out_of_slice_entry_points_raise(engines):
     """forward() past one 1024-row block runs (B1 takes any T; the
     two-pass kernels B3/B4 are its backward) and equals the JAX model's
-    logits on the same weights; speculative decoding still raises."""
+    logits on the same weights; a draft model arms speculative decoding
+    only on the first ``serving_engine()`` call, as in the JAX engine."""
     _, peng, _ = engines
     long_tiny = {**TINY, "max_seq_len": 1100}
     jm = jax_tf.TransformerLM(jax_tf.gpt2_config("125m", dtype=jnp.float32,
@@ -333,8 +345,8 @@ def test_out_of_slice_entry_points_raise(engines):
     np.testing.assert_allclose(long.forward(x).numpy(),
                                np.asarray(jm.apply(jp, jnp.asarray(x))),
                                atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError,
-                       match="speculative.*queue A item 4"):
+    peng.serving_engine()
+    with pytest.raises(ValueError, match="already built without this draft"):
         peng.serving_engine(draft_model=object())
 
 

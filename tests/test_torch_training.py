@@ -381,7 +381,7 @@ def test_config_keys_and_defaults_match_jax():
     {"mesh": {"model": 2}},
     {"pipeline": {"stages": 2}},
     {"tensorboard": {"enabled": True}},
-    {"observability": {"tracing": {"enabled": True}}},
+    {"csv_monitor": {"enabled": True}},
 ])
 def test_out_of_slice_blocks_raise(block):
     with pytest.raises(NotImplementedError, match="queue A"):
