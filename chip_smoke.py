@@ -190,11 +190,36 @@ Phases (any failure exits non-zero and prints no result line):
    timeout rates, alerts fired and resolved; then phase 5's drain with
    observability on and off (equal greedy streams, tokens/s of both).
    Phase 6 also takes 3 more steps with tracing and metrics on (the
-   ``engine/*`` spans, ``dstpu_train_steps_total``, ms/step on and off).
+   ``engine/*`` spans, ``dstpu_train_steps_total``, ms/step on and off);
+26. the tiered host KV cache on the same engine: a shared 928-token
+   prefix P (58 blocks), A = P + a 64-token tail, filler waves until every
+   block of P is evicted (spilled, and resident in the host tier), then
+   B = P + another tail (32 new tokens, greedy) as (i) an HBM hit, (ii) a
+   DRAM hit at wire 0 and wire 8, (iii) an NVMe hit (a temporary
+   directory, its filesystem and whether O_DIRECT held printed), (iv)
+   cold and (v) a kv_bits 8 pool through DRAM against its own HBM hit:
+   exact streams at wire 0, on NVMe and at kv_bits 8, near ties at wire
+   8 and cold, promoted blocks equal to the bytes gathered at their spill,
+   B7 over the tail alone on every hit (a full prefill cold) and B6/B7
+   exact; B's TTFT each way, the promote's share of B's drain and GB/s,
+   the spill's GB/s, resident bytes per tier;
+27. the replica fleet on the same engine, pumped: (a) 2 replicas over one
+   host tier, phase 5's 16 requests and 8 over a shared 512-token prefix,
+   every stream exactly once and equal to one ``ServingEngine``'s up to a
+   near tie, the later shared-prefix requests on the warm replica, B6/B7
+   exact over both replicas, tokens/s beside the single engine's; (b) r1
+   killed mid-drain by a fatal ``serving.fleet.replica_step`` plan: the
+   replayed tokens, and every replay that parts from the delivered stream
+   (``StreamReplayError``) printed with its logit gap and held to a near
+   tie; (c) disaggregated (1 prefill + 1 decode replica): the fabric's
+   entries promoted or dropped as redundant, none orphaned, every
+   handed-off prefill on the decode replica its tail alone; (d) a
+   transient ``serving.fleet.route`` plan: streams exactly once; (e) the
+   replicas on their own threads: streams exactly once.
 
 ``python3 chip_smoke.py --only 3 6 21 22 23 24`` (any of them) builds the
 kernels and runs only those phases ("3": phase 3's cases at the MoE
-shapes; "24": phases 24 and 25 on a fresh 6.7B engine), then prints no
+shapes; "24": phases 24-27 on a fresh 6.7B engine), then prints no
 result line: a probe of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
@@ -1798,13 +1823,14 @@ def main(argv=None) -> int:
     elapsed("phase 3")
 
     # -- 4-5. generate(), forward() and the server at GPT-3 6.7B width --
-    # -- 24-25. then on the same engine: the speculative lane, the
-    # multi-tenant front end and observability -------------------------
+    # -- 24-27. then on the same engine: the speculative lane, the
+    # multi-tenant front end and observability, the tiered host cache and
+    # the replica fleet ------------------------------------------------
     served = serve_phase(torch, np, "GPT-3 6.7B", gpt2_config("6.7b"),
                          then=lambda eng: spec_front_phases(torch, np, eng,
                                                             elapsed))
 
-    elapsed("phases 4-5, 24-25")
+    elapsed("phases 4-5, 24-27")
 
     # -- 6. training GPT-2 125M at bench.py's configuration -------------
     tck = TENSOR_CORE_KERNELS
@@ -2362,8 +2388,9 @@ def drain(torch, srv, prompts, label, kv_bits, record=None, dtype=None):
     wall = time.perf_counter() - t0
     counts = dict(build.launch_counts)
     model._apply_paged_mixed = mixed
-    check(len(finished) == len(prompts),
-          f"{label}: {len(finished)} of {len(prompts)} requests finished")
+    done = sum(any(r is q for q in finished) for r in reqs)
+    check(done == len(prompts),
+          f"{label}: {done} of {len(prompts)} requests finished")
     for r in reqs:
         check(r.status is not None and r.status.value == "ok"
               and len(r.output) == 32,
@@ -4580,8 +4607,375 @@ def frontend_phase(torch, np, eng, label) -> dict:
     return result
 
 
-#: every dstpu_serving_* series of this slice (not the host cache's, the
-#: fabric's or the mesh's)
+# -- 27. the replica fleet ------------------------------------------------------
+#: phase 27's shared-prefix requests: FLEET_SHARED requests over one
+#: FLEET_PREFIX-token prefix
+FLEET_PREFIX, FLEET_SHARED = 512, 8
+
+
+def fleet_prompts(np, vocab):
+    """Phase 5's 16 request prompts and phase 27's 8 over one shared
+    512-token prefix (tails of 8-63 tokens, seed 27)."""
+    _, _, _, base = serving_prompts(np, vocab)
+    rng = np.random.default_rng(27)
+    prefix = rng.integers(0, vocab, FLEET_PREFIX).tolist()
+    return base, [prefix + rng.integers(0, vocab, int(n)).tolist()
+                  for n in rng.integers(8, 64, FLEET_SHARED)]
+
+
+def fleet_run(torch, np, eng, label, base, shared, fleet_kw, kill=False,
+              plan=None, threaded=False) -> dict:
+    """One pumped fleet (``router.pump()`` until no replica has work) over
+    ``eng``'s weights and one host tier at wire 0: phase 5's requests, the
+    first shared-prefix request, then (once its first token is out, so its
+    prefix is registered) the other shared-prefix requests, 32 new tokens
+    each.  Every stream is checked delivered exactly once, in order.
+    ``kill`` arms a fatal ``serving.fleet.replica_step`` plan for r1 once
+    it streams and a quarter of the tokens are out; a replay that parts
+    from the delivered stream raises ``StreamReplayError`` in the router
+    and is logged (request, index, delivered token, replayed token).
+    ``plan`` (site, kind, at, count) is installed for the whole run.
+    B6/B7 launches, summed over the replicas, are checked against the
+    dispatch log, but for ``threaded`` replicas (``ReplicaHandle.start()``:
+    each steps on its own thread, the pump only sweeps health and places;
+    the launch counters are plain ints bumped from both threads)."""
+    import gc
+    from deepspeed_tpu_torch.inference.serving import (FleetRouter,
+                                                       ReplicaState,
+                                                       StreamCollector,
+                                                       StreamDeduper,
+                                                       host_block_bytes)
+    from deepspeed_tpu_torch.inference.serving.frontend.streaming import \
+        StreamReplayError
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.runtime.resilience import (
+        FaultInjector, install_fault_injector)
+    c = eng.module.config
+    bs = eng.config.serving.kv_block_size
+    raw = host_block_bytes(c.num_layers, bs, c.kv_heads, c.hdim, 0, 0)
+    fe = serving_copy(eng, fleet={"enabled": True, **fleet_kw},
+                      host_cache={"enabled": True, "wire_bits": 0,
+                                  "dram_budget_bytes": FLEET_ENTRIES * raw})
+    check(FLEET_ENTRIES * raw <= 6 * 2**30, "phase 27 budget over 6 GiB")
+    fleet = FleetRouter.from_engine(fe)
+    hc = fleet.shared_host_cache
+    # fabric entries a device hit makes redundant (dropped, not claimed)
+    dropped = [0]
+
+    def discard(digest, real=hc.discard):
+        gone = real(digest)
+        dropped[0] += int(gone)
+        return gone
+    hc.discard = discard
+    fi = install_fault_injector(FaultInjector())
+    if plan is not None:
+        fi.add_plan(plan[0], plan[1], at=plan[2], count=plan[3])
+    partings, chunks = [], []
+
+    class Parting(StreamDeduper):
+        def admit(self, ev):
+            try:
+                return super().admit(ev)
+            except StreamReplayError:
+                partings.append((self.freq, ev.index,
+                                 self.delivered[ev.index], ev.token))
+                raise
+    for r in fleet.replicas:
+        if threaded:
+            break
+
+        def logged(dec, chunk, spec=(), real=r.srv._dispatch,
+                   rid=r.replica_id):
+            out = real(dec, chunk, spec)
+            if out is not None and chunk is not None:
+                chunks.append((rid, tuple(chunk[1].prompt), chunk[2],
+                               chunk[3]))
+            return out
+        r.srv._dispatch = logged
+    model = eng.module
+    mixed = model._apply_paged_mixed
+    lanes = {"decode": 0, "chunk": 0}
+
+    def counted(params, cache, dec_tokens, dec_active, chunk_ids, *rest,
+                **kw):
+        lanes["decode"] += int(dec_tokens.shape[0] > 0)
+        lanes["chunk"] += int(chunk_ids.shape[0] > 0)
+        return mixed(params, cache, dec_tokens, dec_active, chunk_ids,
+                     *rest, **kw)
+    if not threaded:
+        model._apply_paged_mixed = counted
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if threaded:
+        for r in fleet.replicas:
+            r.start()
+    reqs, cols = [], []
+
+    def sub(prompt):
+        col = StreamCollector()
+        f = fleet.submit(prompt, max_new_tokens=32, on_token=col)
+        f.deduper = Parting()
+        f.deduper.freq = f
+        reqs.append(f)
+        cols.append(col)
+        return f
+
+    def pump_until(cond, what):
+        deadline = time.perf_counter() + 600
+        while time.perf_counter() < deadline:
+            if cond():
+                return
+            fleet.pump()
+            if threaded:
+                time.sleep(0.001)
+        fail(f"{label}: {what} never happened")
+    for p in base:
+        sub(p)
+    first = sub(shared[0])
+    pump_until(lambda: first.deduper.high_water > 0 or first.done,
+               "the first shared-prefix token")
+    warm = first.replica
+    placed = [sub(p).replica for p in shared[1:]]
+    total = 32 * len(reqs)
+    killed = None
+    if kill:
+        r1 = fleet.replica("r1")
+        pump_until(lambda: sum(f.deduper.high_water for f in reqs)
+                   >= total // 4 and any(f.replica is r1 and f.status is None
+                                         and f.deduper.high_water
+                                         for f in reqs),
+                   "r1 streaming with a quarter of the tokens out")
+        stepping = [r for r in fleet.replicas
+                    if r.state in (ReplicaState.HEALTHY,
+                                   ReplicaState.DRAINING)]
+        killed = [f for f in reqs if f.replica is r1 and f.status is None]
+        fi.add_plan("serving.fleet.replica_step", "fatal",
+                    at=fi.calls.get("serving.fleet.replica_step", 0)
+                    + stepping.index(r1) + 1)
+    pump_until(lambda: not fleet.has_work or not (
+        fleet._pending or any(r.has_work() for r in fleet.replicas
+                              if r.alive)), "the drain")
+    if threaded:
+        for r in fleet.replicas:
+            r.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    model._apply_paged_mixed = mixed
+    fires = {site: fi.fire_count(site) for site in ("serving.fleet.route",
+                                                    "serving.fleet.replica_step")}
+    install_fault_injector(FaultInjector())
+    parted = {id(f) for f, *_ in partings}
+    for f, col in zip(reqs, cols):
+        toks = [e for e in col.events if e.token is not None]
+        check(col.tokens == f.output
+              and [e.index for e in toks] == list(range(len(f.output))),
+              f"{label}: {f.req_id}'s stream is not delivered exactly once, "
+              f"in order")
+        if id(f) not in parted:
+            check(f.status is not None and f.status.value == "ok"
+                  and len(f.output) == 32 and col.finished,
+                  f"{label}: {f.req_id} status {f.status}, "
+                  f"{len(f.output)} tokens")
+    layers = c.num_layers
+    check(threaded or (
+          counts["paged_decode_attention"] == layers * lanes["decode"]
+          and counts["paged_prefill_attention"] == layers * lanes["chunk"]),
+          f"{label}: B6 {counts['paged_decode_attention']} (want {layers} x "
+          f"{lanes['decode']}), B7 {counts['paged_prefill_attention']} "
+          f"(want {layers} x {lanes['chunk']})")
+    live = [r for r in fleet.replicas if r.state is not ReplicaState.DEAD]
+    device = set()
+    for r in live:
+        r.srv.allocator.assert_consistent()
+        check(r.srv.allocator.num_used == 0,
+              f"{label}: {r.replica_id} holds {r.srv.allocator.num_used} "
+              f"blocks after the drain")
+        device |= set(r.srv.allocator._hash_to_block)
+    # what the phase reads of its requests' replicas, kept as ids: a fleet
+    # request refers to its replica, and so to its pool, until cut loose
+    rids = [f.replica.replica_id if f.replica is not None else None
+            for f in reqs]
+    out = {"reqs": reqs, "rids": rids, "wall": wall, "lanes": dict(lanes),
+           "tokens": sum(len(f.output) for f in reqs),
+           "counts": dict(fleet.fleet_counts), "partings": partings,
+           "killed": killed, "fires": fires, "chunks": chunks,
+           "placed": [r.replica_id if r is not None else None
+                      for r in placed],
+           "warm": warm.replica_id if warm is not None else None,
+           "replicas": {r.replica_id: (r.role, r.state.value,
+                                       dict(r.srv.host_counts),
+                                       dict(r.srv.fabric_counts),
+                                       r.srv.counts["prefill_tokens"])
+                        for r in fleet.replicas},
+           "orphans": fleet.reap_orphans(),
+           "published": hc.published_total, "dropped": dropped[0]}
+    hc.assert_consistent(device_digests=device)
+    hc.close()
+    for f in reqs:
+        f.replica = f.engine_req = None
+    del fleet, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_phase(torch, np, eng, label) -> dict:
+    """Phase 27: the replica fleet on phase 5's GPT-3 6.7B engine and
+    weights, pumped (``router.pump()``), each replica with phase 5's pool,
+    all sharing one host tier at wire 0: (a) a uniform fleet of 2 over
+    phase 5's 16 requests and 8 over a shared 512-token prefix, every
+    stream exactly once and equal to one ``ServingEngine``'s (run in the
+    same call) up to a near tie, the later shared-prefix requests placed
+    on the replica that computed the prefix, B6/B7 exact against the
+    dispatch logs, tokens/s beside the single engine's; (b) (a) again
+    with a fatal ``serving.fleet.replica_step`` plan killing r1 mid-drain:
+    every stream exactly once, the replayed tokens counted, every replay
+    that parts from the delivered stream (``StreamReplayError``) at a near
+    tie of ``generate()``'s logits there; (c) disaggregated
+    (``prefill_replicas`` 1 of 2) over the shared tier: streams equal
+    (a)'s up to a near tie, the fabric's published blocks equal to the
+    decode replica's promoted ones, every handed-off request's prefill on
+    the decode replica its tail alone, no orphan after the drain; (d) a
+    transient ``serving.fleet.route`` plan (two placements degrade to
+    queue depth): every stream exactly once, equal to (a)'s up to a near
+    tie; (e) (a) with each replica on its own thread
+    (``ReplicaHandle.start()``): every stream exactly once, equal to (a)'s
+    up to a near tie, no launch-count check."""
+    import gc
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+    torch.cuda.reset_peak_memory_stats()
+    c = eng.module.config
+    bs = eng.config.serving.kv_block_size
+    base, shared = fleet_prompts(np, c.vocab_size)
+    single = ServingEngine(serving_copy(eng))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sreqs = [single.submit(p, max_new_tokens=32) for p in base + shared]
+    single.run()
+    torch.cuda.synchronize()
+    s_wall = time.perf_counter() - t0
+    refs = [r.output for r in sreqs]
+    s_tok = sum(len(r) for r in refs)
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    uniform = {"replicas": 2}
+    runs = {"a": fleet_run(torch, np, eng, f"{label} fleet (a)", base,
+                           shared, uniform),
+            "b": fleet_run(torch, np, eng, f"{label} fleet (b) failover",
+                           base, shared, uniform, kill=True),
+            "c": fleet_run(torch, np, eng, f"{label} fleet (c) disaggregated",
+                           base, shared, {"replicas": 2,
+                                          "prefill_replicas": 1}),
+            "d": fleet_run(torch, np, eng, f"{label} fleet (d) route plan",
+                           base, shared, uniform,
+                           plan=("serving.fleet.route", "fail", 2, 2)),
+            "e": fleet_run(torch, np, eng, f"{label} fleet (e) threaded",
+                           base, shared, uniform, threaded=True)}
+    a = runs["a"]
+    parted = near_tie_partings(np, eng, a["reqs"], refs, f"{label} fleet (a)")
+    check(a["placed"] == [a["warm"]] * (FLEET_SHARED - 1),
+          f"{label} fleet (a): the later shared-prefix requests went to "
+          f"{a['placed']}, not the warm replica {a['warm']}")
+    place = {}
+    for rid in a["rids"]:
+        place[rid] = place.get(rid, 0) + 1
+    print(f"{label} fleet (a): 2 replicas, {len(a['reqs'])} requests, "
+          f"{a['tokens']} tokens in {a['wall']:.2f} s = "
+          f"{a['tokens'] / a['wall']:.1f} tokens/s (one ServingEngine in the "
+          f"same call: {s_tok / s_wall:.1f} tokens/s); placements {place}; "
+          f"the {FLEET_SHARED - 1} later shared-prefix requests on the warm "
+          f"replica {a['warm']}: {a['placed']}; {parted} of "
+          f"{len(refs)} streams part from the single engine's at a near "
+          f"tie; B6/B7 over {a['lanes']['decode']} decode lanes and "
+          f"{a['lanes']['chunk']} chunks")
+    a_refs = [f.output for f in a["reqs"]]
+    b = runs["b"]
+    check(b["counts"]["dead_replicas"] == 1 and b["fires"][
+        "serving.fleet.replica_step"] == 1 and b["killed"],
+          f"{label} fleet (b): the kill did not land mid-drain "
+          f"({b['counts']}, {b['fires']})")
+    for f, index, delivered, replay in b["partings"]:
+        lg = prefill_logits(eng, list(f.prompt) + f.output[:index])
+        gap = abs(float(lg[delivered] - lg[replay])) / float(lg.abs().max())
+        print(f"  {label} fleet (b): {f.req_id}'s replay parts at token "
+              f"{index} (delivered {delivered}, replay {replay}): logit gap "
+              f"{gap!r} of max|logit| (limit {2 * LOGITS_REL_TOL})")
+        check(gap <= 2 * LOGITS_REL_TOL,
+              f"{label} fleet (b): {f.req_id}'s replay parts at token "
+              f"{index} where the gap is {gap:.4f}, not a near tie")
+    done_b = [f for f in b["reqs"] if f not in {p[0] for p in b["partings"]}]
+    near_tie_partings(np, eng, done_b,
+                      [r for f, r in zip(b["reqs"], refs) if f in done_b],
+                      f"{label} fleet (b)")
+    print(f"{label} fleet (b): r1 killed with {len(b['killed'])} requests in "
+          f"flight; {b['counts']['failovers']} failovers, "
+          f"{b['counts']['replayed_tokens']} replayed tokens dropped at the "
+          f"high-water mark, {len(b['partings'])} of "
+          f"{len(b['killed'])} replays parted; {b['tokens']} tokens in "
+          f"{b['wall']:.2f} s")
+    cr = runs["c"]
+    p0, d0 = cr["replicas"]["p0"], cr["replicas"]["d0"]
+    # every entry the fabric took in was promoted on d0 or, published
+    # again for a chain d0 already held, dropped as redundant: none is
+    # left for the orphan sweep
+    check(cr["counts"]["handoffs"] > 0 and d0[2]["promoted_blocks"] > 0
+          and cr["published"] == d0[2]["promoted_blocks"] + cr["dropped"]
+          and cr["orphans"] == 0,
+          f"{label} fleet (c): {cr['counts']['handoffs']} handoffs, "
+          f"{cr['published']} entries published, {d0[2]['promoted_blocks']}"
+          f" promoted, {cr['dropped']} dropped as redundant, orphans "
+          f"{cr['orphans']}")
+    starts = {}
+    for rid, prompt, start, n in cr["chunks"]:
+        if rid == "d0":
+            starts.setdefault(prompt, start)
+    for f in cr["reqs"]:
+        if not f.prefill_done:
+            continue
+        start = starts.get(tuple(f.prompt))
+        want = (len(f.prompt) - 1) // bs * bs
+        check(start == want, f"{label} fleet (c): {f.req_id}'s prefill on "
+              f"d0 starts at {start}, not at its tail {want}")
+    parted_c = near_tie_partings(np, eng, cr["reqs"], a_refs,
+                                 f"{label} fleet (c)")
+    print(f"{label} fleet (c): p0 prefill, d0 decode: "
+          f"{cr['counts']['handoffs']} handoffs; p0 published "
+          f"{p0[3]['published_blocks']} blocks, {cr['published']} entries "
+          f"into the fabric = {d0[2]['promoted_blocks']} promoted on d0 + "
+          f"{cr['dropped']} dropped there as redundant (a shared prefix "
+          f"published again once d0 held it); d0 computed "
+          f"{d0[4]} prompt tokens (every handed-off request's tail alone) "
+          f"of {sum(len(p) for p in base + shared)}; orphans after the "
+          f"drain {cr['orphans']}; {parted_c} streams part from (a)'s at a "
+          f"near tie; {cr['tokens']} tokens in {cr['wall']:.2f} s = "
+          f"{cr['tokens'] / cr['wall']:.1f} tokens/s")
+    d = runs["d"]
+    check(d["fires"]["serving.fleet.route"] == 2,
+          f"{label} fleet (d): the route plan fired "
+          f"{d['fires']['serving.fleet.route']} times")
+    parted_d = near_tie_partings(np, eng, d["reqs"], a_refs,
+                                 f"{label} fleet (d)")
+    print(f"{label} fleet (d): a transient serving.fleet.route plan fired "
+          f"twice (two placements by queue depth alone); every stream "
+          f"exactly once, {parted_d} part from (a)'s at a near tie")
+    th = runs["e"]
+    parted_e = near_tie_partings(np, eng, th["reqs"], a_refs,
+                                 f"{label} fleet (e)")
+    print(f"{label} fleet (e): the replicas on their own threads "
+          f"(ReplicaHandle.start()): every stream exactly once, {parted_e} "
+          f"part from (a)'s at a near tie; {th['tokens']} tokens in "
+          f"{th['wall']:.2f} s = {th['tokens'] / th['wall']:.1f} tokens/s "
+          f"(launch counts not checked: both threads bump them)")
+    peak_memory(torch, f"{label} fleet")
+    return {"tok_s": a["tokens"] / a["wall"], "single_tok_s": s_tok / s_wall,
+            "replays_parted": len(b["partings"]),
+            "replayed_tokens": b["counts"]["replayed_tokens"]}
+
+
+#: every dstpu_serving_* series of the port (not the serving mesh's)
 SERVING_SERIES = (
     "queue_depth", "active_slots", "kv_blocks_in_use", "cached_kv_blocks",
     "kv_pool_bytes", "kv_bits", "ttft_seconds", "inter_token_seconds",
@@ -4590,16 +4984,351 @@ SERVING_SERIES = (
     "cancelled_total", "timed_out_total", "shed_total", "failed_total",
     "quarantined_total", "spec_proposed_tokens_total",
     "spec_accepted_tokens_total", "spec_k", "host_plan_seconds",
-    "device_wait_seconds", "overlap_frac_dist")
+    "device_wait_seconds", "overlap_frac_dist", "host_spills_total",
+    "host_dram_hits_total", "host_nvme_hits_total", "host_demotions_total",
+    "host_evictions_total", "host_hit_tokens_total",
+    "promoted_blocks_total", "promote_failures_total",
+    "spill_failures_total", "fabric_published_total",
+    "fabric_publish_failures_total", "host_dram_bytes", "host_nvme_bytes",
+    "promote_queue_depth")
 
 
 def spec_front_phases(torch, np, eng, elapsed) -> dict:
-    """Phases 24 and 25 on phase 5's GPT-3 6.7B engine."""
+    """Phases 24-27 on phase 5's GPT-3 6.7B engine."""
     spec = spec_phase(torch, np, eng, "GPT-3 6.7B")
     elapsed("phase 24")
     front = frontend_phase(torch, np, eng, "GPT-3 6.7B")
     elapsed("phase 25")
-    return {"spec": spec, "front": front}
+    host = host_cache_phase(torch, np, eng, "GPT-3 6.7B")
+    elapsed("phase 26")
+    fleet = fleet_phase(torch, np, eng, "GPT-3 6.7B")
+    elapsed("phase 27")
+    return {"spec": spec, "front": front, "host": host, "fleet": fleet}
+
+
+# -- 26. the tiered host KV cache ---------------------------------------------
+#: phase 26's shared prefix P (58 blocks of 16), the tails of A and B and
+#: the new tokens of every request: A and B end at 1024 tokens, the
+#: context of ``gpt2_config("6.7b")`` (its learned positions stop there)
+HC_PREFIX, HC_TAIL, HC_NEW = 928, 64, 32
+#: phase 26's filler prompts (63 full blocks; with their one new token
+#: each takes 64 blocks) and how many a wave
+HC_FILLER, HC_WAVE = 1008, 4
+#: every host budget of phases 26-27 in encoded entries: 128 (1 GiB at
+#: 8 MiB a raw bf16 entry, 0.55 GB at wire 8) holds every spilled entry
+#: of phase 26; phase 27's fleet tier holds 512 raw entries (4 GiB)
+HC_ENTRIES, FLEET_ENTRIES = 128, 512
+
+
+def serving_copy(eng, **serving):
+    """A shallow copy of ``eng`` (the same module and weights) whose
+    ``serving`` block is ``dataclasses.replace``d with ``serving`` (a
+    ``host_cache`` or ``fleet`` given as a dict replaces its fields)."""
+    import copy
+    import dataclasses
+    sv = eng.config.serving
+    for block in ("host_cache", "fleet"):
+        if isinstance(serving.get(block), dict):
+            serving[block] = dataclasses.replace(getattr(sv, block),
+                                                 **serving[block])
+    out = copy.copy(eng)
+    out.config = dataclasses.replace(
+        eng.config, serving=dataclasses.replace(sv, **serving))
+    out._serving = None
+    return out
+
+
+#: the most device memory phases 26 and 27 may hold: the weights (13.4
+#: GB) and a 4.3 GB pool for each of two replicas, with room to spare
+HOST_FLEET_PEAK_BYTES = 40e9
+
+
+def peak_memory(torch, label) -> None:
+    """Print the peak device memory since the phase began and fail past
+    ``HOST_FLEET_PEAK_BYTES``."""
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: peak device memory {peak / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated; limit "
+          f"{HOST_FLEET_PEAK_BYTES / 1e9:.0f} GB)")
+    check(peak < HOST_FLEET_PEAK_BYTES,
+          f"{label}: peak device memory {peak} bytes")
+
+
+def chain_digests(prompt, block_size):
+    """The allocator's chained content digests of ``prompt``'s full
+    blocks."""
+    from deepspeed_tpu_torch.inference.serving.block_allocator import (
+        ROOT_HASH, _chain_hash)
+    h, out = ROOT_HASH, []
+    for i in range(len(prompt) // block_size):
+        h = _chain_hash(h, tuple(prompt[i * block_size:(i + 1) * block_size]))
+        out.append(h)
+    return out
+
+
+def fs_type(path) -> str:
+    out = subprocess.run(["stat", "-f", "-c", "%T", str(path)],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip() or "unknown"
+
+
+def near_tie_partings(np, eng, reqs, refs, label) -> int:
+    """Check every stream of ``reqs`` that parts from its ``refs`` stream
+    at a near tie of ``generate()``'s logits there (within twice
+    ``LOGITS_REL_TOL`` of max|logit|); print each parting.  A stream that
+    is a prefix of its reference does not part.  Returns how many
+    parted."""
+    pairs = [(r, ref) for r, ref in zip(reqs, refs)
+             if list(r.output) != list(ref)[:len(r.output)]]
+    gaps = divergence_gaps(np, eng, [r for r, _ in pairs],
+                           [ref for _, ref in pairs])
+    for req_id, pos, gap in gaps:
+        print(f"  {label}: {req_id} parts at token {pos}: generate()'s logit "
+              f"gap there {gap!r} of max|logit| (limit "
+              f"{2 * LOGITS_REL_TOL})")
+        check(gap <= 2 * LOGITS_REL_TOL,
+              f"{label}: {req_id} parts at token {pos} where the gap is "
+              f"{gap:.4f} of max|logit|, not a near tie")
+    return len(gaps)
+
+
+def host_cache_case(torch, np, eng, label, kv_bits, host_cache, fillers,
+                    prompts, record=False, nvme_dir=None) -> dict:
+    """One run of phase 26 on a fresh server over ``eng``'s weights: A,
+    then (``fillers``) filler waves until every block of A's prefix P has
+    been evicted (spilled into the host tier, checked there), then B.
+    A and B go through ``drain`` (B6/B7 exact against the dispatch log);
+    B's B7 launches must be a tail's when P is resident (HBM or host) and
+    a full prefill's when not; every promoted block of P must hold the
+    bytes gathered at its spill when ``record``.  Returns B's request,
+    TTFT, first logits, counts and the host tier's timings."""
+    import gc
+    from deepspeed_tpu_torch.inference.serving import host_block_bytes
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.aio import odirect_fallbacks
+    A, B, filler_prompts = prompts
+    bs = eng.config.serving.kv_block_size
+    layers = eng.module.config.num_layers
+    e = serving_copy(eng, kv_cache_bits=kv_bits,
+                     host_cache=host_cache or {"enabled": False})
+    srv = ServingEngine(e)
+    hc = srv.host_cache
+    fallbacks0 = odirect_fallbacks() if nvme_dir else 0
+    out = {"label": label}
+    if A is not None:
+        drain(torch, srv, [A], f"{label} A", kv_bits)
+    p_digests = chain_digests(B[:HC_PREFIX], bs)
+    # spills timed apart while the fillers evict P and while B's claims
+    # take pool blocks (each evicting, so spilling, an LRU filler block)
+    saved, spill, spill_b = {}, {"n": 0, "s": 0.0}, {"n": 0, "s": 0.0}
+    if fillers:
+        real = srv.allocator._spill_fn
+        into = [spill]
+
+        def spilling(block, digest):
+            if record and digest in p_digests:
+                saved[digest] = [t.clone()
+                                 for t in srv._gather_block(block)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real(block, digest)
+            torch.cuda.synchronize()
+            into[0]["s"] += time.perf_counter() - t0
+            into[0]["n"] += 1
+        srv.allocator._spill_fn = spilling
+        waves = iter(filler_prompts)
+        while any(d in srv.allocator._hash_to_block for d in p_digests):
+            wave = next(waves, None)
+            check(wave is not None,
+                  f"{label}: the filler waves never evicted P")
+            for p in wave:
+                srv.submit(p, max_new_tokens=1)
+            srv.run()
+        into[0] = spill_b
+        check(hc.spills_total >= len(p_digests)
+              and all(hc.contains(d) for d in p_digests),
+              f"{label}: {hc.spills_total} spills; P's digests resident in "
+              f"the host tier: {sum(hc.contains(d) for d in p_digests)} of "
+              f"{len(p_digests)}")
+        srv.allocator.assert_consistent()
+    promoted0 = srv.host_counts["promoted_blocks"]
+    seconds0 = srv.promote_seconds
+    first = {}
+    reqs, counts, wall = drain(
+        torch, srv, [B], f"{label} B", kv_bits,
+        lambda mixed: first_step_recorder(srv, mixed, first))
+    r = reqs[0]
+    if fillers:
+        srv.allocator._spill_fn = real
+    srv.allocator.assert_consistent()
+    resident = HC_PREFIX if A is not None else 0
+    b6 = counts[build.counter("paged_decode_attention", kv_bits)]
+    b7 = counts[build.counter("paged_prefill_attention", kv_bits)]
+    computed = len(B) - resident
+    chunks = -(-computed // eng.config.serving.prefill_chunk_tokens)
+    check(b7 == layers * chunks and b6 == layers * (HC_NEW - 1),
+          f"{label} B: B7 {b7} (want {layers} x {chunks} chunks of the "
+          f"{computed} tokens past the resident prefix), B6 {b6} (want "
+          f"{layers} x {HC_NEW - 1})")
+    promoted = srv.host_counts["promoted_blocks"] - promoted0
+    check(promoted == (len(p_digests) if fillers else 0)
+          and srv.host_counts["promote_failures"] == 0
+          and (hc is None or hc.hits_total.get("dram", 0)
+               + hc.hits_total.get("nvme", 0) == promoted),
+          f"{label} B: {promoted} blocks promoted, host counts "
+          f"{srv.host_counts}")
+    same = None
+    if record:
+        same = 0
+        for d in p_digests:
+            now = srv._gather_block(srv.allocator._hash_to_block[d])
+            same += all(torch.equal(a, b) for a, b in zip(now, saved[d]))
+        check(same == len(p_digests),
+              f"{label}: {same} of {len(p_digests)} promoted blocks hold "
+              f"the bytes gathered before their spill")
+    out.update(req=r, ttft=r.first_token_time - r.submit_time, wall=wall,
+               first=first[r.req_id], b6=b6, b7=b7, promoted=promoted,
+               promote_s=srv.promote_seconds - seconds0,
+               spills=spill["n"], spill_s=spill["s"],
+               spills_b=spill_b["n"], spill_b_s=spill_b["s"], same=same,
+               entry=srv._hc_codec.nbytes if hc is not None else None,
+               raw=host_block_bytes(layers, bs, eng.module.config.kv_heads,
+                                    eng.module.config.hdim, kv_bits, 0))
+    if hc is not None:
+        out["resident"] = {t: hc.resident_bytes(t) for t in hc.tier_names}
+        if nvme_dir:
+            out["fallbacks"] = odirect_fallbacks() - fallbacks0
+        hc.close()
+    del srv, e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_cache_phase(torch, np, eng, label) -> dict:
+    """Phase 26: the tiered host KV cache on phase 5's GPT-3 6.7B engine
+    (bf16, random weights from seed 0, phase 5's ``SERVING``): a shared
+    prefix P of ``HC_PREFIX`` tokens (A and B fill the model's 1024-token
+    context with their new tokens), A = P + a tail, B = P + another tail
+    (``HC_TAIL`` tokens each, ``HC_NEW`` new tokens, greedy), B served
+    five ways: (i) an HBM hit (A then B), (ii) a DRAM hit after filler
+    waves evicted P, at wire 0 and at wire 8, (iii) an NVMe hit (no DRAM
+    tier, the slot file in a ``tempfile.mkdtemp()`` directory removed
+    afterwards), (iv) cold (a fresh server, host cache off) and (v) a
+    kv_bits 8 pool through DRAM, held to its own HBM hit.  B's stream in
+    (ii) at wire 0, in (iii) and in (v) equals its HBM hit's exactly; at
+    wire 8 and cold it equals (i)'s up to a near tie, with B's first
+    logits within ``LOGITS_REL_TOL`` of (i)'s; promoted blocks hold the
+    bytes gathered before their spill (wire 0, kv_bits 8); B7 runs the
+    tail only on every hit and the whole prompt cold.  Prints B's TTFT
+    each way, the promote's blocks, seconds, share of B's drain and
+    GB/s, the spill's GB/s, resident bytes per tier, and the NVMe
+    directory's filesystem and whether O_DIRECT held there."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.inference.serving import (BlockCodec,
+                                                       host_block_bytes)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = eng.module.config
+    V = cfg.vocab_size
+    check(HC_PREFIX + HC_TAIL + HC_NEW <= min(cfg.max_seq_len,
+                                              eng.config.max_out_tokens)
+          and HC_FILLER + 1 <= cfg.max_seq_len,
+          f"phase 26's requests outgrow the {cfg.max_seq_len}-token context")
+    rng = np.random.default_rng(26)
+    P = rng.integers(0, V, HC_PREFIX).tolist()
+    A = P + rng.integers(0, V, HC_TAIL).tolist()
+    B = P + rng.integers(0, V, HC_TAIL).tolist()
+    fill = [[rng.integers(0, V, HC_FILLER).tolist() for _ in range(HC_WAVE)]
+            for _ in range(4)]
+    geo = (cfg.num_layers, eng.config.serving.kv_block_size, cfg.kv_heads,
+           cfg.hdim)
+    raw, w8 = (BlockCodec(*geo, wire_bits=bits, dtype=torch.bfloat16).nbytes
+               for bits in (0, 8))
+    check((raw, w8) == (host_block_bytes(*geo, 0, 0),
+                        host_block_bytes(*geo, 0, 8)),
+          f"entry sizes {raw}, {w8} differ from host_block_bytes")
+    budget = {"enabled": True, "wire_bits": 0,
+              "dram_budget_bytes": HC_ENTRIES * raw}
+    check(HC_ENTRIES * raw <= 6 * 2**30, "phase 26 budgets over 6 GiB")
+    print(f"{label} host cache: one entry is {w8} bytes at 8 bits, {raw} "
+          f"raw ({geo[0]} layers x {geo[1]} tokens x {geo[2]} kv heads x "
+          f"{geo[3]}); budgets {HC_ENTRIES} entries")
+    runs = {}
+    runs["hbm"] = host_cache_case(torch, np, eng, f"{label} (i) HBM hit", 0,
+                                  None, False, (A, B, fill))
+    runs["dram0"] = host_cache_case(torch, np, eng,
+                                    f"{label} (ii) DRAM hit, wire 0", 0,
+                                    budget, True, (A, B, fill), record=True)
+    runs["dram8"] = host_cache_case(
+        torch, np, eng, f"{label} (ii) DRAM hit, wire 8", 0,
+        dict(budget, wire_bits=8, dram_budget_bytes=HC_ENTRIES * w8), True,
+        (A, B, fill))
+    nvme = tempfile.mkdtemp(prefix="dstpu_nvme_")
+    try:
+        runs["nvme"] = host_cache_case(
+            torch, np, eng, f"{label} (iii) NVMe hit, wire 0", 0,
+            dict(budget, dram_budget_bytes=0,
+                 nvme_budget_bytes=HC_ENTRIES * raw, nvme_path=nvme),
+            True, (A, B, fill), nvme_dir=nvme)
+        fs = fs_type(nvme)
+    finally:
+        shutil.rmtree(nvme, ignore_errors=True)
+    runs["cold"] = host_cache_case(torch, np, eng, f"{label} (iv) cold", 0,
+                                   None, False, (None, B, fill))
+    runs["hbm8"] = host_cache_case(torch, np, eng,
+                                   f"{label} (v) kv_bits 8, HBM hit", 8,
+                                   None, False, (A, B, fill))
+    runs["dram_kv8"] = host_cache_case(
+        torch, np, eng, f"{label} (v) kv_bits 8, DRAM hit", 8,
+        dict(budget, wire_bits=8, dram_budget_bytes=HC_ENTRIES * w8), True,
+        (A, B, fill), record=True)
+    ref = runs["hbm"]["req"].output
+    for key in ("dram0", "nvme"):
+        check(runs[key]["req"].output == ref,
+              f"{runs[key]['label']}: B's stream differs from the HBM hit's")
+    check(runs["dram_kv8"]["req"].output == runs["hbm8"]["req"].output,
+          f"{label} (v): the kv_bits 8 DRAM hit's stream differs from the "
+          f"kv_bits 8 HBM hit's")
+    scale = float(runs["hbm"]["first"].abs().max())
+    for key in ("dram8", "cold"):
+        run = runs[key]
+        rel = float((run["first"] - runs["hbm"]["first"]).abs().max()) \
+            / scale
+        print(f"  {run['label']}: B's first logits within {rel:.4g} of "
+              f"max|logit| of (i)'s (limit {LOGITS_REL_TOL})")
+        check(rel <= LOGITS_REL_TOL,
+              f"{run['label']}: first logits {rel:.4f} of max|logit| from "
+              f"(i)'s")
+        near_tie_partings(np, eng, [run["req"]], [ref], run["label"])
+    for run in runs.values():
+        line = (f"{run['label']}: B's TTFT {1e3 * run['ttft']:.1f} ms, drain "
+                f"{run['wall']:.3f} s; B7 {run['b7']}, B6 {run['b6']}")
+        if run["promoted"]:
+            line += (f"; promoted {run['promoted']} blocks in "
+                     f"{run['promote_s']:.4f} s ({100 * run['promote_s'] / run['wall']:.1f} % "
+                     f"of B's drain; {run['promoted'] * run['raw'] / run['promote_s'] / 1e9:.2f} GB/s "
+                     f"of pool bytes, {run['promoted'] * run['entry'] / run['promote_s'] / 1e9:.2f} "
+                     f"GB/s of entries); spilled {run['spills']} blocks in "
+                     f"{run['spill_s']:.3f} s ({run['spills'] * run['raw'] / run['spill_s'] / 1e9:.2f} "
+                     f"GB/s of pool bytes) under the fillers, and "
+                     f"{run['spills_b']} LRU blocks in "
+                     f"{run['spill_b_s']:.3f} s to make room for B's claims "
+                     f"({100 * run['spill_b_s'] / run['ttft']:.1f} % of its "
+                     f"TTFT); resident "
+                     + ", ".join(f"{t} {b} bytes"
+                                 for t, b in run["resident"].items()))
+        if run["same"] is not None:
+            line += (f"; {run['same']} promoted blocks equal to their "
+                     f"spilled bytes")
+        print(line)
+    print(f"  NVMe directory: {fs} filesystem; O_DIRECT "
+          + ("held" if not runs["nvme"]["fallbacks"] else
+             f"refused ({runs['nvme']['fallbacks']} chunks ran buffered)"))
+    peak_memory(torch, f"{label} host cache")
+    return {k: {kk: vv for kk, vv in v.items() if kk not in ("req", "first")}
+            for k, v in runs.items()}
 
 
 ONLY_PHASES = {"3", "6", "21", "22", "23", "24"}

@@ -8,8 +8,9 @@ wrong type raises ``ValueError``.
 
 Blocks the slices of the port so far do not run (``tensor_parallel``
 beyond one device, ``moe.ep_size`` beyond one device, ``serving.mesh``
-beyond 1x1, ``serving.host_cache``, ``serving.fleet``) parse here and are
-refused with ``NotImplementedError`` by the engines that would run them.
+beyond 1x1) parse here and are refused with ``NotImplementedError`` by
+the engines that would run them.  ``serving.host_cache`` (the tiered
+host prefix cache) and ``serving.fleet`` (the replica fleet) run.
 ``observability`` is the training config's block
 (``runtime/config.py`` ``ObservabilityConfig``); given, the engine
 configures the process-global telemetry with it.
@@ -28,6 +29,23 @@ from ..runtime.config import ObservabilityConfig
 from ..runtime.config_utils import from_dict
 from ..runtime.constants import (
     SERVING_DEFAULT_DEADLINE_S_DEFAULT, SERVING_ENABLED_DEFAULT,
+    SERVING_FLEET_AFFINITY_WEIGHT_DEFAULT, SERVING_FLEET_CHIP_BUDGET_DEFAULT,
+    SERVING_FLEET_ENABLED_DEFAULT, SERVING_FLEET_HEARTBEAT_INTERVAL_S_DEFAULT,
+    SERVING_FLEET_HEARTBEAT_TIMEOUT_S_DEFAULT,
+    SERVING_FLEET_MAX_FAILOVERS_DEFAULT,
+    SERVING_FLEET_PREFILL_REPLICAS_DEFAULT,
+    SERVING_FLEET_PROMOTE_DISCOUNT_DEFAULT, SERVING_FLEET_QUEUE_HIGH_DEFAULT,
+    SERVING_FLEET_QUEUE_LOW_DEFAULT, SERVING_FLEET_QUIET_S_DEFAULT,
+    SERVING_FLEET_REPLICAS_DEFAULT, SERVING_FLEET_RETRY_BASE_DELAY_S_DEFAULT,
+    SERVING_FLEET_RETRY_MAX_DELAY_S_DEFAULT,
+    SERVING_FLEET_SCALE_DOWN_COOLDOWN_S_DEFAULT,
+    SERVING_FLEET_SCALE_UP_COOLDOWN_S_DEFAULT,
+    SERVING_HOST_CACHE_DRAM_BUDGET_BYTES_DEFAULT,
+    SERVING_HOST_CACHE_ENABLED_DEFAULT,
+    SERVING_HOST_CACHE_NVME_BUDGET_BYTES_DEFAULT,
+    SERVING_HOST_CACHE_NVME_PATH_DEFAULT,
+    SERVING_HOST_CACHE_PROMOTE_PARALLELISM_DEFAULT,
+    SERVING_HOST_CACHE_WIRE_BITS_DEFAULT,
     SERVING_KV_BLOCK_SIZE_DEFAULT, SERVING_KV_CACHE_BITS_DEFAULT,
     SERVING_MAX_BATCH_SLOTS_DEFAULT, SERVING_MAX_PREEMPTIONS_DEFAULT,
     SERVING_MAX_QUEUE_DEPTH_DEFAULT, SERVING_MESH_DATA_DEFAULT,
@@ -57,39 +75,125 @@ class ServingMeshConfig:
 
 @dataclass
 class HostCacheConfig:
-    """``serving.host_cache`` — parsed for schema parity; the tiered host
-    cache is the next slice (ROADMAP.md queue A item 4, second part), so
-    ``enabled`` is refused at serving engine build."""
-    enabled: bool = False
-    dram_budget_bytes: int = 0
-    nvme_budget_bytes: int = 0
-    nvme_path: Optional[str] = None
-    promote_parallelism: int = 4
-    wire_bits: int = 8
+    """``serving.host_cache`` — the tiered host prefix cache: refcount-0
+    blocks the pool LRU evicts are demoted through the wire codec into a
+    host DRAM slot store (``dram_budget_bytes``), overflowing to an
+    NVMe-backed store (``nvme_budget_bytes`` at ``nvme_path``); a prefix
+    hit on a spilled chain promotes the blocks back, at most
+    ``promote_parallelism`` a step."""
+    enabled: bool = SERVING_HOST_CACHE_ENABLED_DEFAULT
+    dram_budget_bytes: int = SERVING_HOST_CACHE_DRAM_BUDGET_BYTES_DEFAULT
+    nvme_budget_bytes: int = SERVING_HOST_CACHE_NVME_BUDGET_BYTES_DEFAULT
+    nvme_path: Optional[str] = SERVING_HOST_CACHE_NVME_PATH_DEFAULT
+    promote_parallelism: int = SERVING_HOST_CACHE_PROMOTE_PARALLELISM_DEFAULT
+    wire_bits: int = SERVING_HOST_CACHE_WIRE_BITS_DEFAULT
+
+    def __post_init__(self):
+        if self.dram_budget_bytes < 0 or self.nvme_budget_bytes < 0:
+            raise ValueError(
+                "serving.host_cache budgets must be >= 0 (0 = tier off)")
+        if self.enabled and not (self.dram_budget_bytes
+                                 or self.nvme_budget_bytes):
+            raise ValueError(
+                "serving.host_cache.enabled needs dram_budget_bytes "
+                "and/or nvme_budget_bytes > 0")
+        if self.nvme_budget_bytes and not self.nvme_path:
+            raise ValueError(
+                "serving.host_cache.nvme_budget_bytes > 0 requires "
+                "nvme_path (directory for the backing file)")
+        if self.promote_parallelism < 1:
+            raise ValueError(
+                f"serving.host_cache.promote_parallelism must be >= 1, "
+                f"got {self.promote_parallelism}")
+        if self.wire_bits not in (0, 4, 8):
+            raise ValueError(
+                f"serving.host_cache.wire_bits must be one of 0 (raw "
+                f"dtype bytes), 8 (int8) or 4 (packed int4), got "
+                f"{self.wire_bits}")
 
 
 @dataclass
 class FleetConfig:
-    """``serving.fleet`` — parsed for schema parity; the replica fleet
-    is the next slice (ROADMAP.md queue A item 4, second part), so
-    ``enabled`` is refused at serving engine build.  The serving
-    engine's heartbeat beats every ``heartbeat_interval_s``."""
-    enabled: bool = False
-    replicas: int = 2
-    heartbeat_interval_s: float = 1.0
-    heartbeat_timeout_s: float = 0.0
-    affinity_weight: float = 1.0
-    max_failovers: int = 3
-    retry_base_delay_s: float = 0.05
-    retry_max_delay_s: float = 2.0
-    prefill_replicas: int = 0
-    promote_discount: float = 0.5
-    chip_budget: int = 8
-    scale_up_cooldown_s: float = 5.0
-    scale_down_cooldown_s: float = 30.0
-    queue_high: float = 8.0
-    queue_low: float = 1.0
-    quiet_s: float = 10.0
+    """``serving.fleet`` — the replica fleet (``inference/serving/
+    fleet/``): ``replicas`` serving engines behind a ``FleetRouter``
+    (prefix-affinity placement traded against queue depth, token-exact
+    failover, drain and join); the first ``prefill_replicas`` of them
+    prefill-only publishers over the host tier's KV fabric; the
+    autoscaler's knobs.  The serving engine's heartbeat beats every
+    ``heartbeat_interval_s``."""
+    enabled: bool = SERVING_FLEET_ENABLED_DEFAULT
+    replicas: int = SERVING_FLEET_REPLICAS_DEFAULT
+    heartbeat_interval_s: float = SERVING_FLEET_HEARTBEAT_INTERVAL_S_DEFAULT
+    heartbeat_timeout_s: float = SERVING_FLEET_HEARTBEAT_TIMEOUT_S_DEFAULT
+    affinity_weight: float = SERVING_FLEET_AFFINITY_WEIGHT_DEFAULT
+    max_failovers: int = SERVING_FLEET_MAX_FAILOVERS_DEFAULT
+    retry_base_delay_s: float = SERVING_FLEET_RETRY_BASE_DELAY_S_DEFAULT
+    retry_max_delay_s: float = SERVING_FLEET_RETRY_MAX_DELAY_S_DEFAULT
+    prefill_replicas: int = SERVING_FLEET_PREFILL_REPLICAS_DEFAULT
+    promote_discount: float = SERVING_FLEET_PROMOTE_DISCOUNT_DEFAULT
+    chip_budget: int = SERVING_FLEET_CHIP_BUDGET_DEFAULT
+    scale_up_cooldown_s: float = SERVING_FLEET_SCALE_UP_COOLDOWN_S_DEFAULT
+    scale_down_cooldown_s: float = \
+        SERVING_FLEET_SCALE_DOWN_COOLDOWN_S_DEFAULT
+    queue_high: float = SERVING_FLEET_QUEUE_HIGH_DEFAULT
+    queue_low: float = SERVING_FLEET_QUEUE_LOW_DEFAULT
+    quiet_s: float = SERVING_FLEET_QUIET_S_DEFAULT
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError(
+                f"serving.fleet.replicas must be >= 1, got "
+                f"{self.replicas}")
+        if self.heartbeat_interval_s <= 0:
+            raise ValueError(
+                f"serving.fleet.heartbeat_interval_s must be > 0, got "
+                f"{self.heartbeat_interval_s}")
+        if (self.heartbeat_timeout_s
+                and self.heartbeat_timeout_s
+                < 2 * self.heartbeat_interval_s):
+            # a timeout tighter than two beats declares healthy replicas
+            # dead
+            raise ValueError(
+                f"serving.fleet.heartbeat_timeout_s must be 0 or >= 2x "
+                f"heartbeat_interval_s, got {self.heartbeat_timeout_s}")
+        if self.affinity_weight < 0:
+            raise ValueError(
+                f"serving.fleet.affinity_weight must be >= 0, got "
+                f"{self.affinity_weight}")
+        if self.max_failovers < 0:
+            raise ValueError(
+                f"serving.fleet.max_failovers must be >= 0, got "
+                f"{self.max_failovers}")
+        if self.retry_base_delay_s <= 0 \
+                or self.retry_max_delay_s < self.retry_base_delay_s:
+            raise ValueError(
+                "serving.fleet retry delays must satisfy "
+                "0 < retry_base_delay_s <= retry_max_delay_s")
+        if not 0 <= self.prefill_replicas < self.replicas:
+            # a fleet of pure publishers can never stream a token
+            raise ValueError(
+                f"serving.fleet.prefill_replicas must be in "
+                f"[0, replicas), got {self.prefill_replicas} of "
+                f"{self.replicas}")
+        if not 0.0 <= self.promote_discount <= 1.0:
+            raise ValueError(
+                f"serving.fleet.promote_discount must be in [0, 1], "
+                f"got {self.promote_discount}")
+        if self.chip_budget < 1:
+            raise ValueError(
+                f"serving.fleet.chip_budget must be >= 1, got "
+                f"{self.chip_budget}")
+        if self.scale_up_cooldown_s <= 0 or self.scale_down_cooldown_s <= 0:
+            raise ValueError(
+                "serving.fleet scale cooldowns must be > 0 — a zero "
+                "cooldown lets an alert storm scale at tick rate")
+        if self.queue_low > self.queue_high:
+            raise ValueError(
+                f"serving.fleet.queue_low ({self.queue_low}) must be <= "
+                f"queue_high ({self.queue_high})")
+        if self.quiet_s < 0:
+            raise ValueError(
+                f"serving.fleet.quiet_s must be >= 0, got {self.quiet_s}")
 
 
 @dataclass

@@ -4,9 +4,9 @@ The bookkeeping half of PagedAttention (Kwon et al., SOSP '23): device
 HBM holds one preallocated pool of fixed-size KV blocks
 (``models/transformer.py init_paged_cache``); this allocator hands
 block ids to sequences and keeps the pool leak-free.  Everything here is
-pure Python over integers — no device code, so the policy is unit-testable at
-property-test speed and the scheduler can ask "does this admission fit"
-without touching the device.
+pure Python over integers — no device code, so the policy is
+unit-testable at property-test speed and the scheduler can ask "does
+this admission fit" without touching the device.
 
 Prefix caching (RadixAttention-style, SGLang / vLLM automatic prefix
 caching): FULL blocks are content-addressed by a hash chained over the
@@ -33,10 +33,24 @@ Invariants (``assert_consistent`` checks them, tests fuzz them):
     unknown sequence ids, and exhaustion — a serving scheduler bug
     surfaces as a loud error, not a silently corrupted cache.
 
+Tiered host cache: with
+:meth:`PagedBlockAllocator.attach_host_tier` wired, eviction becomes
+*demotion* — the LRU walk in :meth:`_pop_block` hands the dying
+block's bytes to the engine's spill callback (keyed by the same chain
+digest) before unregistering it, and the :meth:`allocate` hit walk
+extends past the device index into the host tier: a host hit claims a
+pool block immediately, registers the digest, and queues a *promotion
+job* (the encoded payload, engine-drained asynchronously during the
+admission/prefill window).  Until the payload lands the block is
+*pending*: refcounted and registered like any hit, but its pool bytes
+are garbage — the scheduler must not prefill past it
+(:meth:`seq_has_pending`), and a cancel (free/preempt before landing)
+returns the bytes to the host tier, never the block to the cached LRU.
+
 Copy of ``deepspeed_tpu/inference/serving/block_allocator.py`` for the
-PyTorch port, without the tiered host cache (spill/promote) and
-copy-on-write ``fork``, which belong to later slices; the
-capacity-planning helpers take one model shard.
+PyTorch port, without copy-on-write ``fork`` (no serving path of the
+port forks a sequence); the capacity-planning helpers take one model
+shard.
 """
 from __future__ import annotations
 
@@ -103,6 +117,19 @@ class BlockPoolError(ServingError):
     resilience layer's :class:`ServingError` branch."""
 
 
+class PromoteJob:
+    """One queued host->device block promotion: the claimed pool block,
+    the chain digest that keyed the host hit, and the encoded payload
+    the engine must decode + scatter into the pool."""
+
+    __slots__ = ("digest", "block", "payload")
+
+    def __init__(self, digest: bytes, block: int, payload):
+        self.digest = digest
+        self.block = block
+        self.payload = payload
+
+
 def _chain_hash(prev: bytes, token_ids: Tuple[int, ...]) -> bytes:
     """Content hash of one full block, chained on its prefix's hash —
     equal prefixes produce equal chains, the radix-tree property
@@ -147,10 +174,22 @@ class PagedBlockAllocator:
         # refcount-0 blocks whose content is still registered: insertion
         # order == least-recently-used first (move_to_end on every hit)
         self._cached_lru: "OrderedDict[int, None]" = OrderedDict()
+        # tiered host cache (attach_host_tier): spilled-block store,
+        # the engine's spill callback, and promotion bookkeeping —
+        # blocks claimed by a host hit whose payload has not landed yet
+        self._host = None
+        self._spill_fn = None
+        # prefill-class engines publish chains to the fabric but never
+        # claim from it (claiming would steal entries the decode class
+        # is about to promote); the engine flips this per role
+        self.allow_claims = True
+        self._pending_blocks: Dict[int, bytes] = {}
+        self._promote_jobs: "OrderedDict[bytes, PromoteJob]" = OrderedDict()
         # cumulative stats the serving engine polls into the metrics
-        # registry (counters there, plain ints here — no jax/obs import)
+        # registry (counters there, plain ints here — no obs import)
         self.hit_tokens_total = 0
         self.evictions_total = 0
+        self.host_hit_tokens_total = 0
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -183,6 +222,114 @@ class PagedBlockAllocator:
     def can_allocate(self, n_blocks: int) -> bool:
         return self.num_free >= n_blocks
 
+    # -- host tier ---------------------------------------------------------
+    def attach_host_tier(self, host_cache, spill_fn) -> None:
+        """Wire the tiered host cache in (engine-owned: pools must
+        exist before the spill/promote data paths do, so this is a
+        post-construction attach).  ``spill_fn(block, digest)`` is
+        called for every registered block the LRU evicts, BEFORE its
+        registration drops; it must never raise — a failed spill
+        degrades to a plain eviction inside the engine."""
+        self._host = host_cache
+        self._spill_fn = spill_fn
+
+    def _claim_host_hit(self, h: bytes) -> Optional[int]:
+        """Extend the hit walk into the host tier: claim the encoded
+        payload out of the host cache, claim a pool block for it, and
+        queue the promotion.  Returns the (pending) block id, or None
+        on a genuine miss / no pool capacity (the entry then stays
+        host-resident and warm — a miss, never an error)."""
+        if not self.allow_claims:
+            return None
+        if self._host is None or not self._host.contains(h):
+            return None
+        if not (self._free or self._cached_lru):
+            return None
+        payload = self._host.claim(h)
+        if payload is None:
+            return None
+        b = self._pop_block()
+        self._ref[b] = 1
+        self._block_hash[b] = h
+        self._hash_to_block[h] = b
+        self._pending_blocks[b] = h
+        self._promote_jobs[h] = PromoteJob(h, b, payload)
+        return b
+
+    def _drop_host_duplicate(self, h: bytes) -> None:
+        """A device hit on a digest the host tier also holds: the host
+        copy is redundant (a prefill publisher may have republished
+        content this replica never evicted) — drop it eagerly so the
+        cross-tier disjointness self-heals instead of waiting for an
+        orphan sweep."""
+        if self._host is not None:
+            self._host.discard(h)
+
+    def seq_chain(self, seq_id: str) -> List[bytes]:
+        """The chained content digests of ``seq_id``'s committed full
+        blocks, in block order — the transport keys a prefill worker
+        publishes to the KV fabric (digest i keys ``table[i]``)."""
+        return list(self._chain.get(seq_id, ()))
+
+    def pending_jobs(self) -> List[PromoteJob]:
+        """Queued promotions, oldest first (the engine drains up to
+        ``promote_parallelism`` per step)."""
+        return list(self._promote_jobs.values())
+
+    @property
+    def num_pending(self) -> int:
+        return len(self._promote_jobs)
+
+    def seq_has_pending(self, seq_id: str) -> bool:
+        """True while any block in ``seq_id``'s table awaits its
+        promotion payload — the scheduler's PROMOTING predicate: the
+        request must not prefill (its compiled gather would read
+        garbage rows) until this turns False."""
+        table = self._tables.get(seq_id)
+        if table is None:
+            return False
+        return any(b in self._pending_blocks for b in table)
+
+    def promotion_landed(self, digest: bytes) -> None:
+        """The engine scattered the payload into the pool: the block
+        graduates to a normal registered, refcounted block."""
+        job = self._promote_jobs.pop(digest, None)
+        if job is not None:
+            self._pending_blocks.pop(job.block, None)
+
+    def promotion_failed(self, digest: bytes) -> List[Tuple[str, int]]:
+        """The payload could not be landed (fatal fault / exhausted
+        retries): drop the job AND the registration — the block's pool
+        bytes are garbage, so it must never serve a future hit — and
+        report every ``(seq_id, block_index)`` holding it so the
+        engine can roll those requests back to recompute.  The host
+        entry stays dropped (it was claimed): never a wrong block,
+        recompute rewrites identical content."""
+        job = self._promote_jobs.pop(digest, None)
+        if job is None:
+            return []
+        self._pending_blocks.pop(job.block, None)
+        self._unregister(job.block)
+        affected: List[Tuple[str, int]] = []
+        for seq, table in self._tables.items():
+            for i, b in enumerate(table):
+                if b == job.block:
+                    affected.append((seq, i))
+        return affected
+
+    def _cancel_pending(self, block: int) -> None:
+        """A pending block's last reference dropped before its payload
+        landed: unregister it, give the payload back to the host tier
+        (the prefix stays warm), and return the block to the RAW free
+        list — un-landed pool bytes must never park in the cached LRU
+        where they could be spilled or hit."""
+        h = self._pending_blocks.pop(block)
+        job = self._promote_jobs.pop(h, None)
+        self._unregister(block)
+        if job is not None and self._host is not None:
+            self._host.release_claim(h, job.payload)
+        self._free.append(block)
+
     # -- internal: free-list / LRU plumbing --------------------------------
     def _pop_block(self) -> int:
         """Claim one block, always unregistered: the raw free list
@@ -194,6 +341,15 @@ class PagedBlockAllocator:
             return self._free.pop()
         if self._cached_lru:
             b, _ = self._cached_lru.popitem(last=False)   # LRU end
+            h = self._block_hash[b]
+            if h is not None and self._spill_fn is not None:
+                # demotion instead of amnesia: hand the block's bytes
+                # to the engine's spill path (device gather -> wire
+                # codec -> host tier) while the pool content is still
+                # valid.  The callback handles its own faults — by
+                # contract it never raises, so a failed spill degrades
+                # to the plain eviction below.
+                self._spill_fn(b, h)
             self._unregister(b)
             self.evictions_total += 1
             return b
@@ -269,19 +425,29 @@ class PagedBlockAllocator:
             max_hit_blocks = max(0, (len(token_ids) - 1) // bs)
             max_hit_blocks = min(max_hit_blocks, need)
             h = ROOT_HASH
+            host_tokens = 0
             for i in range(max_hit_blocks):
                 h = _chain_hash(h, tuple(token_ids[i * bs:(i + 1) * bs]))
                 b = self._hash_to_block.get(h)
                 if b is None:
-                    break
-                if self._ref[b] == 0:
+                    # past the device index: the digest may live in the
+                    # host tier — a hit there claims a pool block now
+                    # and lands the bytes asynchronously (PromoteJob)
+                    b = self._claim_host_hit(h)
+                    if b is None:
+                        break
+                    host_tokens += bs
+                elif self._ref[b] == 0:
                     self._claim_cached(b)
+                    self._drop_host_duplicate(h)
                 else:
                     self._ref[b] += 1
+                    self._drop_host_duplicate(h)
                 blocks.append(b)
                 chain.append(h)
                 cached_tokens += bs
-            self.hit_tokens_total += cached_tokens
+            self.hit_tokens_total += cached_tokens - host_tokens
+            self.host_hit_tokens_total += host_tokens
         while len(blocks) < need:
             b = self._pop_block()
             self._ref[b] = 1
@@ -314,6 +480,41 @@ class PagedBlockAllocator:
             if self._ref[b] > 0:
                 live_hits += 1
         return need - live_hits
+
+    def probe_prefix_coverage(self, token_ids: Sequence[int],
+                              split: bool = False):
+        """READ-ONLY affinity probe for the fleet router: how many
+        leading tokens of ``token_ids`` this pool (device radix index
+        OR attached host tier) already covers, walking the same chained
+        content digests :meth:`allocate`'s hit walk uses and stopping at
+        the first miss.  Mutates nothing — no claims, no LRU touches,
+        no promotions — so the fleet router may probe every replica per
+        placement decision.
+
+        With ``split=True`` returns ``(device_tokens, host_tokens)``
+        instead of their sum, so the router can discount host-resident
+        coverage by the promote cost: a block in the host tier saves
+        the recompute but still pays a claim + host->device landing.
+        Host residency only counts when this allocator may actually
+        claim it (``allow_claims``)."""
+        if not self.enable_prefix_cache or not token_ids:
+            return (0, 0) if split else 0
+        bs = self.block_size
+        max_hit_blocks = max(0, (len(token_ids) - 1) // bs)
+        h = ROOT_HASH
+        dev_blocks = host_blocks = 0
+        for i in range(max_hit_blocks):
+            h = _chain_hash(h, tuple(token_ids[i * bs:(i + 1) * bs]))
+            if h in self._hash_to_block:
+                dev_blocks += 1
+            elif (self.allow_claims and self._host is not None
+                    and self._host.contains(h)):
+                host_blocks += 1
+            else:
+                break
+        if split:
+            return dev_blocks * bs, host_blocks * bs
+        return (dev_blocks + host_blocks) * bs
 
     def append_block(self, seq_id: str) -> int:
         """Grow a sequence by one block (decode crossed a block
@@ -365,7 +566,10 @@ class PagedBlockAllocator:
                 self._unregister(b)
             self._ref[b] -= 1
             if self._ref[b] == 0:
-                self._release_block(b)
+                if b in self._pending_blocks:
+                    self._cancel_pending(b)
+                else:
+                    self._release_block(b)
 
     def commit_cached(self, seq_id: str, token_ids: Sequence[int],
                       upto_tokens: int) -> int:
@@ -402,6 +606,12 @@ class PagedBlockAllocator:
             self._unregister(b)                # drop any stale hash
             self._block_hash[b] = h
             self._hash_to_block[h] = b
+            if self._host is not None:
+                # the digest just (re-)entered the device index — drop
+                # any host copy so a digest is resident in exactly one
+                # place in the whole hierarchy (same bytes either way:
+                # content-addressed)
+                self._host.discard(h)
             new += 1
         return new
 
@@ -472,3 +682,34 @@ class PagedBlockAllocator:
             if b in free_set:
                 raise BlockPoolError(
                     f"registered block {b} sits on the raw free list")
+        # promotion bookkeeping: jobs and pending blocks are a
+        # bijection; a pending block is always live (refcounted, never
+        # free/cached — its pool bytes are garbage until landing) and,
+        # when registered at all, registered to its own digest
+        if len(self._promote_jobs) != len(self._pending_blocks):
+            raise BlockPoolError(
+                f"{len(self._promote_jobs)} promote jobs != "
+                f"{len(self._pending_blocks)} pending blocks")
+        for b, h in self._pending_blocks.items():
+            job = self._promote_jobs.get(h)
+            if job is None or job.block != b:
+                raise BlockPoolError(
+                    f"pending block {b} has no matching promote job")
+            if self._ref[b] <= 0:
+                raise BlockPoolError(f"pending block {b} unreferenced")
+            if b in free_set or b in cached_set:
+                raise BlockPoolError(
+                    f"pending block {b} parked free/cached before its "
+                    f"payload landed")
+            if self._block_hash[b] not in (h, None):
+                raise BlockPoolError(
+                    f"pending block {b} registered under a foreign digest")
+        # cross-tier disjointness: a digest lives in exactly one place —
+        # the device radix index (landed or pending) xor one host tier
+        if self._host is not None:
+            in_flight = set(self._pending_blocks.values())
+            try:
+                self._host.assert_consistent(
+                    set(self._hash_to_block) | in_flight)
+            except AssertionError as e:
+                raise BlockPoolError(f"host tier inconsistent: {e}")

@@ -43,21 +43,41 @@ check when it is off.  The heartbeat beats at every iteration boundary
 an iteration on a transient fault and raises ``ServingError`` on a fatal
 one.
 
+**Tiered host cache** (``serving.host_cache``): a registered block the
+pool's LRU evicts is demoted instead of forgotten — gathered to the host
+(``pool[:, b]`` of every layer, scale planes too when quantized),
+encoded by ``BlockCodec`` and parked in DRAM or NVMe slots
+(``HostTierCache``) under its chain digest (``_spill_block``, the
+``serving.spill`` site).  A prefix hit on a spilled chain claims a pool
+block at admission and queues the payload; ``step()`` lands up to
+``promote_parallelism`` of them a step (``_service_promotions``: decode,
+then ``pool[:, b].copy_(...)`` on the current stream, ordered before the
+next mixed step; the ``serving.promote`` site), and the scheduler holds
+the request out of prefill until its blocks have landed, so B7 computes
+only the tail past the promoted prefix.  A failed spill degrades to a
+plain eviction, a fatal promote to recompute.
+
+**The fleet's parts**: ``role`` ("prefill" runs prefill legs only and
+publishes finished chains to the shared host tier, the KV fabric;
+"decode" and "mixed" serve whole requests), ``publisher_id``,
+``shared_host_cache`` (one host tier for every replica of a fleet) and
+``submit(prefill_only=True)`` (publish the chain, finish OK, emit no
+token) — ``fleet/`` builds the router over these.
+
 Where the JAX engine compiles one program with fixed lane widths, this
 one runs eagerly and passes only the lanes a dispatch has: a step
 without a chunk runs no prefill lane, one with no plain-decoding slot
 no decode lane, one with no speculating slot no spec lane and no draft
 feed past the first; every dispatch still ends in one device-to-host
 copy.  Not in the port yet: the tensor-parallel serving mesh (ROADMAP.md
-queue A item 7), the tiered host cache, the replica fleet and its
-prefill/decode roles (queue A item 4, second part).
+queue A item 7).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,41 +89,21 @@ from ...runtime.resilience.errors import (FatalIOError, ServingError,
                                           TransientIOError)
 from ...runtime.resilience.fault_injection import get_fault_injector
 from ...runtime.resilience.heartbeat import Heartbeat
+from ...runtime.resilience.retry import retry_call
 from ...utils.logging import logger
 from ..sampling import sample_tokens
 from .block_allocator import BlockPoolError, PagedBlockAllocator
 from .frontend.streaming import TokenEvent
+from .host_cache import BlockCodec, HostTierCache
 from .scheduler import (ContinuousBatchingScheduler, Request, RequestState,
                         RequestStatus, estimate_retry_after_s)
 
-#: what the next slice of queue A item 4 brings
-_NEXT = "ROADMAP.md queue A item 4, second part"
 
-
-def _refuse_out_of_slice(cfg, shared_host_cache=None,
-                         role: str = "mixed") -> None:
-    later = []
+def _refuse_out_of_slice(cfg) -> None:
     if cfg.mesh.data != 1 or cfg.mesh.model != 1:
-        later.append("serving.mesh beyond 1x1 (multi-device serving, "
-                     "ROADMAP.md queue A item 7)")
-    if cfg.host_cache.enabled:
-        later.append(f"serving.host_cache (the tiered host prefix cache "
-                     f"and its KV wire codec, {_NEXT})")
-    if shared_host_cache is not None:
-        later.append(f"shared_host_cache (the fleet's shared host tier, "
-                     f"{_NEXT})")
-    if cfg.fleet.enabled:
-        later.append(f"serving.fleet (replica fleet, {_NEXT})")
-    if role != "mixed":
-        if role not in ("prefill", "decode"):
-            raise ValueError(f"serving role must be 'mixed', 'prefill' or "
-                             f"'decode', got {role!r}")
-        later.append(f"role={role!r} (the disaggregated fleet's replica "
-                     f"classes, {_NEXT})")
-    if later:
         raise NotImplementedError(
-            f"{', '.join(later)}: not in the slices of the PyTorch port so "
-            f"far")
+            "serving.mesh beyond 1x1 (multi-device serving, ROADMAP.md "
+            "queue A item 7): not in the slices of the PyTorch port so far")
 
 
 class ServingEngine:
@@ -121,10 +121,29 @@ class ServingEngine:
 
     def __init__(self, engine, seed: Optional[int] = None,
                  draft_model=None, draft_params=None,
-                 shared_host_cache=None, role: str = "mixed"):
+                 shared_host_cache: Optional[HostTierCache] = None,
+                 role: str = "mixed"):
         cfg = engine.config.serving
-        _refuse_out_of_slice(cfg, shared_host_cache, role)
+        _refuse_out_of_slice(cfg)
         model = engine.module
+        # disaggregated fleet replica class: a "prefill" engine runs
+        # chunked prefill only and publishes finished chains to the KV
+        # fabric; "decode"/"mixed" engines serve full requests ("decode"
+        # is a routing preference, not an engine-side restriction, so a
+        # degraded fleet can still fall back to any replica)
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(
+                f"serving role must be 'mixed', 'prefill' or 'decode', "
+                f"got {role!r}")
+        if role == "prefill" and not cfg.host_cache.enabled:
+            raise ValueError(
+                "role='prefill' requires serving.host_cache.enabled — "
+                "the host tier IS the KV fabric prefill workers publish "
+                "finished chains into")
+        self.role = role
+        #: fabric identity for published entries (orphan reaping is
+        #: publisher-scoped); the fleet router sets it to the replica id
+        self.publisher_id = f"engine-{id(self):x}"
         reason = model._paged_supported(cfg.kv_cache_bits)
         if reason is not None:
             raise NotImplementedError(
@@ -141,6 +160,10 @@ class ServingEngine:
         self.allocator = PagedBlockAllocator(
             cfg.num_kv_blocks, self.block_size,
             enable_prefix_cache=cfg.prefix_cache)
+        # a prefill worker publishes to the fabric but never claims from
+        # it: claiming would steal the very entries the decode class is
+        # about to promote
+        self.allocator.allow_claims = role != "prefill"
         self.scheduler = ContinuousBatchingScheduler(
             self.num_slots, self.allocator, self.max_pages,
             max_queue_depth=cfg.max_queue_depth,
@@ -174,6 +197,35 @@ class ServingEngine:
             f"), {self.num_slots} decode slots, {self.max_pages} pages/seq, "
             f"prefill chunk {self.chunk_tokens} tokens, prefix cache "
             f"{'on' if cfg.prefix_cache else 'off'}")
+        # -- tiered host prefix cache: LRU-evicted registered blocks
+        # demote into host DRAM/NVMe through the wire codec; hits on
+        # spilled chains promote back in the admission window ----------
+        self.host_cache: Optional[HostTierCache] = None
+        self._hc_codec: Optional[BlockCodec] = None
+        self._promote_k = cfg.host_cache.promote_parallelism
+        #: plain-int mirrors of the host-tier counters
+        self.host_counts = {"promoted_blocks": 0, "promote_failures": 0,
+                            "spill_failures": 0}
+        #: KV-fabric mirrors (disaggregated fleet): chain blocks this
+        #: engine published, publishes degraded to decode-side
+        #: recompute, and prefill-only requests completed
+        self.fabric_counts = {"published_blocks": 0,
+                              "publish_failures": 0,
+                              "prefill_only_completed": 0}
+        #: wall seconds inside _service_promotions — with
+        #: ``promoted_blocks * codec.nbytes`` the promote bandwidth
+        self.promote_seconds = 0.0
+        if cfg.host_cache.enabled:
+            if not cfg.prefix_cache:
+                raise ValueError(
+                    "serving.host_cache.enabled requires "
+                    "serving.prefix_cache — the host tier is keyed by "
+                    "the radix index's content digests")
+            # ``shared_host_cache`` is the fleet's cross-replica warm
+            # tier: the store is content-addressed and device-agnostic,
+            # so replicas sharing one instance hit prefixes their
+            # siblings spilled, and a joining replica starts warm
+            self._init_host_cache(cfg.host_cache, shared=shared_host_cache)
         self.temperature = engine.config.temperature
         self.top_k = engine.config.top_k
         self.top_p = engine.config.top_p
@@ -203,6 +255,10 @@ class ServingEngine:
         self.heartbeat = Heartbeat(interval_s=cfg.fleet.heartbeat_interval_s)
         self._drain_rate_ema: Optional[float] = None
         self._last_finish_t: Optional[float] = None
+        #: extra histograms that mirror every TTFT/ITL observation: fleet
+        #: replica handles register their per-replica series here
+        #: (observability/fleet_metrics.py merges them bucket-wise)
+        self.mirror_hists: Dict[str, List[Any]] = {}
 
         #: plain-int counters beside the metrics registry: tokens emitted,
         #: prompt tokens computed, preemptions, dispatches
@@ -213,13 +269,17 @@ class ServingEngine:
         #: acceptance_rate = accepted / proposed
         self.spec_counts = {"proposed": 0, "accepted": 0}
         self._register_metrics()
-        # counter deltas are polled off the allocator's cumulative ints
+        # counter deltas are polled off the allocator's and the host
+        # tier's cumulative ints
         self._hits_polled = 0
         self._evictions_polled = 0
+        self._host_polled = {"spills": 0, "dram_hits": 0, "nvme_hits": 0,
+                             "demotions": 0, "evictions": 0,
+                             "hit_tokens": 0}
 
     def _register_metrics(self) -> None:
-        """The JAX engine's ``dstpu_serving_*`` series but those of the
-        host cache, the KV fabric and the serving mesh."""
+        """The JAX engine's ``dstpu_serving_*`` series but the serving
+        mesh's."""
         reg = get_registry()
         self._m_queue = reg.gauge(
             "dstpu_serving_queue_depth", "requests waiting for a decode slot")
@@ -288,6 +348,52 @@ class ServingEngine:
             "draft proposals per slot per iteration (0 = speculative "
             "decoding off)").set(self.spec_k if self._draft_model is not None
                                  else 0)
+        # tiered host cache: per-tier hit/spill/evict counters,
+        # resident-bytes and promote-queue-depth gauges
+        self._m_host_spills = reg.counter(
+            "dstpu_serving_host_spills_total",
+            "evicted KV blocks demoted into the host tier (vs forgotten)")
+        self._m_host_dram_hits = reg.counter(
+            "dstpu_serving_host_dram_hits_total",
+            "prefix-hit blocks claimed out of the host DRAM tier")
+        self._m_host_nvme_hits = reg.counter(
+            "dstpu_serving_host_nvme_hits_total",
+            "prefix-hit blocks claimed out of the host NVMe tier")
+        self._m_host_demotions = reg.counter(
+            "dstpu_serving_host_demotions_total",
+            "entries pushed DRAM -> NVMe under host-tier pressure")
+        self._m_host_evictions = reg.counter(
+            "dstpu_serving_host_evictions_total",
+            "entries aged out of the host tier entirely")
+        self._m_host_hit_tokens = reg.counter(
+            "dstpu_serving_host_hit_tokens_total",
+            "prompt tokens served by host-tier promotion instead of "
+            "recompute")
+        self._m_promoted = reg.counter(
+            "dstpu_serving_promoted_blocks_total",
+            "host-tier payloads landed back into the device pool")
+        self._m_promote_failures = reg.counter(
+            "dstpu_serving_promote_failures_total",
+            "promotions dropped to recompute (fatal fault / bad payload)")
+        self._m_spill_failures = reg.counter(
+            "dstpu_serving_spill_failures_total",
+            "spills degraded to plain eviction (host store fault)")
+        # KV-fabric metrics: prefill-side publishes and their degradations
+        self._m_fabric_published = reg.counter(
+            "dstpu_serving_fabric_published_total",
+            "finished-chain blocks published into the KV fabric")
+        self._m_fabric_publish_failures = reg.counter(
+            "dstpu_serving_fabric_publish_failures_total",
+            "fabric publishes degraded to decode-side recompute")
+        self._m_host_dram_bytes = reg.gauge(
+            "dstpu_serving_host_dram_bytes",
+            "encoded KV bytes resident in the host DRAM tier")
+        self._m_host_nvme_bytes = reg.gauge(
+            "dstpu_serving_host_nvme_bytes",
+            "encoded KV bytes resident in the host NVMe tier")
+        self._m_promote_depth = reg.gauge(
+            "dstpu_serving_promote_queue_depth",
+            "claimed host payloads waiting to land in the pool")
 
     @property
     def kv_pool_bytes(self) -> int:
@@ -297,6 +403,241 @@ class ServingEngine:
         if self._pool_ks is not None:
             pools += [self._pool_ks, self._pool_vs]
         return sum(t.numel() * t.element_size() for t in pools)
+
+    # ------------------------------------------------------------------
+    # tiered host prefix cache
+    # ------------------------------------------------------------------
+    def _init_host_cache(self, hc, shared=None) -> None:
+        """Build the host tier from the pool geometry and wire it into
+        the allocator: eviction becomes demotion (``_spill_block``) and
+        the allocate hit walk extends into the host store.  ``shared``
+        injects an already-built (fleet-shared) store instead: entry
+        geometry must match, budgets were sized by whoever built it."""
+        c = self.model.config
+        self._hc_codec = BlockCodec(
+            c.num_layers, self.block_size, c.kv_heads, c.hdim,
+            kv_bits=self.kv_bits, wire_bits=hc.wire_bits,
+            dtype=self._pool_k.dtype)
+        entry = self._hc_codec.nbytes
+        if shared is not None:
+            if shared.entry_nbytes != entry:
+                raise ValueError(
+                    f"shared host cache entry size "
+                    f"{shared.entry_nbytes} != this replica's codec "
+                    f"{entry} bytes — fleet replicas must share pool "
+                    f"geometry (block size, kv heads, bits)")
+            self.host_cache = shared
+            self.allocator.attach_host_tier(self.host_cache,
+                                            self._spill_block)
+            return
+        dram_slots = hc.dram_budget_bytes // entry
+        nvme_slots = hc.nvme_budget_bytes // entry
+        if dram_slots == 0 and nvme_slots == 0:
+            raise ValueError(
+                f"serving.host_cache budgets admit zero entries — one "
+                f"encoded block is {entry} bytes ({c.num_layers} layers "
+                f"x {self.block_size} tokens x {c.kv_heads} kv heads at "
+                f"{self._hc_codec.at_rest_bits or 'raw'} bits)")
+        self.host_cache = HostTierCache(
+            entry, dram_slots, nvme_slots=nvme_slots,
+            nvme_path=hc.nvme_path,
+            buffer_count=max(4, self._promote_k))
+        self.allocator.attach_host_tier(self.host_cache, self._spill_block)
+        logger.info(
+            f"serving: tiered host cache on — entry {entry / 2**10:.1f} "
+            f"KiB at {self._hc_codec.at_rest_bits or 'raw'}-bit, "
+            f"dram {dram_slots} entries"
+            f"{f', nvme {nvme_slots} entries' if nvme_slots else ''}, "
+            f"promote parallelism {self._promote_k}")
+
+    def _block_pools(self) -> List[torch.Tensor]:
+        pools = [self._pool_k, self._pool_v]
+        if self.kv_bits:
+            pools += [self._pool_ks, self._pool_vs]
+        return pools
+
+    def _gather_block(self, block: int) -> List[torch.Tensor]:
+        """Pool block ``block`` of every layer on the host: ``[k, v]``
+        (``[L, bs, kvh, d_eff]``), and the ``[L, bs, kvh]`` scale planes
+        of a quantized pool.  The copy waits for the work queued before
+        it (the JAX design's ``np.asarray``): it runs in the admission
+        window, never per decode token."""
+        return [pool[:, block].cpu() for pool in self._block_pools()]
+
+    @torch.no_grad()
+    def _scatter_block(self, block: int, parts) -> None:
+        """Write ``parts`` (host tensors, :meth:`_gather_block`'s layout)
+        into pool block ``block`` in place, on the current stream: the
+        copies are ordered before the next mixed step's kernels."""
+        for pool, part in zip(self._block_pools(), parts):
+            pool[:, block].copy_(part)
+
+    def _encode_block(self, block: int):
+        return self._hc_codec.encode(*self._gather_block(block))
+
+    def _spill_block(self, block: int, digest: bytes) -> None:
+        """Allocator eviction callback: encode the dying block and park
+        it in the host tier under its chain digest.  NEVER raises — the
+        ``serving.spill`` fault site (transient faults retried under
+        the resilience backoff) degrades any terminal failure to a
+        plain eviction, so a sick host store costs warmth, not
+        correctness, and never a wrong block."""
+        try:
+            with trace_span("serving/spill", block=block):
+                payload = self._encode_block(block)
+
+                def _put():
+                    get_fault_injector().check("serving.spill")
+                    self.host_cache.put(digest, payload)
+                retry_call(_put, what=f"host-tier spill of block {block}")
+        except Exception as e:   # noqa: BLE001 — degrade, never raise
+            self.host_counts["spill_failures"] += 1
+            self._m_spill_failures.inc()
+            logger.warning(
+                f"serving: spill of block {block} failed ({e!r}) — "
+                f"degraded to plain eviction")
+
+    def _publish_block(self, block: int, digest: bytes) -> bool:
+        """Push one finished-chain block into the KV fabric (the
+        spill's gather and codec, through :meth:`HostTierCache.publish`
+        so the entry carries a crc32 and this engine's publisher id).
+        NEVER raises: the ``serving.fabric.publish`` site fires inside
+        ``publish`` before any fabric mutation, transient faults retry
+        under the resilience backoff, and a terminal failure degrades to
+        decode-side recompute — a handoff miss, never a wrong token."""
+        try:
+            with trace_span("serving/fabric_publish", block=block):
+                payload = self._encode_block(block)
+
+                def _pub():
+                    self.host_cache.publish(digest, payload,
+                                            publisher=self.publisher_id)
+                retry_call(_pub, what=f"fabric publish of block {block}")
+            self.fabric_counts["published_blocks"] += 1
+            self._m_fabric_published.inc()
+            return True
+        except Exception as e:   # noqa: BLE001 — degrade, never raise
+            self.fabric_counts["publish_failures"] += 1
+            self._m_fabric_publish_failures.inc()
+            logger.warning(
+                f"serving: fabric publish of block {block} failed "
+                f"({e!r}) — decode leg will recompute")
+            return False
+
+    def _publish_chain(self, req) -> int:
+        """Publish every committed full block of ``req``'s chain, in
+        block order, stopping at the first failure so published chains
+        stay prefix-contiguous (the decode-side hit walk stops at its
+        first miss — a gap would strand the tail as unclaimable
+        orphans).  Returns blocks published."""
+        if self.host_cache is None:
+            return 0
+        alloc = self.allocator
+        table = alloc.block_table(req.req_id)
+        published = 0
+        for digest, block in zip(alloc.seq_chain(req.req_id), table):
+            if not self._publish_block(block, digest):
+                break
+            published += 1
+        return published
+
+    def _finish_prefill_only(self, slot: int, req) -> None:
+        """A ``prefill_only`` request's target landed: publish the
+        finished chain to the fabric, OK-finish the slot with its blocks
+        unregistered (the digests now live fabric-side only), and close
+        the stream with a tokenless OK terminal event — the router's
+        handoff trigger.  No token is sampled or emitted on the prefill
+        leg; the decode leg starts its stream at output index 0 with the
+        pinned key."""
+        if self._rt.enabled:
+            # fabric_publish anchors the merged fleet trace's
+            # prefill->decode flow arrow (observability/fleet_trace.py)
+            t0p = time.perf_counter()
+            published = self._publish_chain(req)
+            self._rt.on_segment(
+                req, "fabric_publish", t0p, time.perf_counter() - t0p,
+                blocks=published, publisher=self.publisher_id)
+        else:
+            self._publish_chain(req)
+        self.fabric_counts["prefill_only_completed"] += 1
+        self.scheduler.finish_prefill(slot)
+        self._event_buf.append(TokenEvent(
+            request=req, token=None, index=0, status=req.status,
+            final=True, tenant=req.tenant, time_s=time.perf_counter(),
+            prev_time_s=None))
+
+    def _service_promotions(self) -> int:
+        """Land up to ``promote_parallelism`` queued host->pool block
+        promotions (the scheduler holds the owning requests in the
+        PROMOTING phase until their blocks land).  Transient
+        ``serving.promote`` faults that outlive the in-call retry budget
+        leave the job queued for next step; a fatal fault drops the job
+        AND its registration and rolls every holder back to recompute
+        (``promotion_failed``) — stale or mismatched KV is never served.
+        Returns blocks landed (watchdog progress)."""
+        alloc = self.allocator
+        if self.host_cache is None or not alloc.num_pending:
+            return 0
+        sched = self.scheduler
+        promoting = [r for r in sched.running.values()
+                     if sched.promoting(r)]
+        t0 = time.perf_counter()
+        landed = 0
+        for job in alloc.pending_jobs()[:self._promote_k]:
+            try:
+                with trace_span("serving/promote", block=job.block):
+                    def _land():
+                        # the fault site fires BEFORE the scatter, so a
+                        # fault leaves the pool untouched; the scatter
+                        # itself is idempotent under retry
+                        get_fault_injector().check("serving.promote")
+                        self._land_promotion(job)
+                    retry_call(_land, what=f"host-tier promote of block "
+                                           f"{job.block}")
+            except TransientIOError as e:
+                # retry budget exhausted but the fault is transient: the
+                # job stays queued (the request stays PROMOTING — delayed,
+                # never corrupted)
+                logger.warning(
+                    f"serving: promote of block {job.block} still "
+                    f"transient after retries — queued for next step: "
+                    f"{e}")
+                continue
+            except Exception as e:   # noqa: BLE001 — fatal: recompute
+                affected = alloc.promotion_failed(job.digest)
+                self.host_counts["promote_failures"] += 1
+                self._m_promote_failures.inc()
+                for seq_id, block_index in affected:
+                    for req in sched.running.values():
+                        if req.req_id == seq_id:
+                            # roll back to the last row BEFORE the dead
+                            # block: prefill recomputes from there
+                            # (identical content, so the chain record
+                            # stays valid)
+                            req.cached_tokens = min(
+                                req.cached_tokens,
+                                block_index * self.block_size)
+                logger.warning(
+                    f"serving: promote of block {job.block} failed "
+                    f"fatally ({e!r}) — host entry dropped, "
+                    f"{len(affected)} holder(s) fall back to recompute")
+                continue
+            alloc.promotion_landed(job.digest)
+            landed += 1
+            self.host_counts["promoted_blocks"] += 1
+            self._m_promoted.inc()
+        dur = time.perf_counter() - t0
+        self.promote_seconds += dur
+        if landed and self._rt.enabled:
+            self._rt.on_promote(promoting, t0, dur, landed)
+        return landed
+
+    def _land_promotion(self, job) -> None:
+        """Decode one claimed payload and scatter it into the pool at
+        its claimed block."""
+        k, v, ks, vs = self._hc_codec.decode(job.payload)
+        self._scatter_block(job.block,
+                            [k, v, ks, vs] if self.kv_bits else [k, v])
 
     # ------------------------------------------------------------------
     # speculative decoding (draft lane)
@@ -425,14 +766,19 @@ class ServingEngine:
         unseeded ``generate()``).  ``on_token`` receives a
         :class:`TokenEvent` per emitted token at iteration boundaries;
         ``tenant`` tags the request for the front end's fairness
-        accounting; ``trace_id`` is adopted by the request tracer.
-        ``prefill_only`` (the disaggregated fleet's prefill leg) needs the
-        KV fabric of the next slice and raises."""
-        if prefill_only:
-            raise NotImplementedError(
-                f"prefill_only (the disaggregated fleet's prefill leg over "
-                f"the KV fabric, {_NEXT}): not in the slices of the "
-                f"PyTorch port so far")
+        accounting; ``trace_id`` is adopted by the request tracer (the
+        fleet carries one id through every leg of a request).
+
+        ``prefill_only`` runs the prefill leg of a disaggregated handoff:
+        the prompt's KV is computed and published to the KV fabric (the
+        host tier), NO token is emitted, and the stream closes with a
+        tokenless OK terminal event the moment the prefill target
+        lands."""
+        if prefill_only and self.host_cache is None:
+            raise ValueError(
+                "prefill_only requires the host-tier KV fabric "
+                "(serving.host_cache.enabled) — there is nowhere to "
+                "publish the finished chain")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         total = len(prompt) + max_new_tokens
         if total > self.engine.config.max_out_tokens:
@@ -462,7 +808,8 @@ class ServingEngine:
                       deadline_s=deadline_s if deadline_s else None,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       prng_key=self._base_key if seed is None else int(seed),
-                      on_token=on_token, tenant=tenant)
+                      on_token=on_token, tenant=tenant,
+                      prefill_only=prefill_only)
         if trace_id is not None:
             # set BEFORE scheduler.submit so the tracer adopts it as-is
             req.trace_id = trace_id
@@ -783,6 +1130,8 @@ class ServingEngine:
             self._m_itl.observe(dispatch_dt,
                                 exemplar=(dec[0][1].trace_id if dec
                                           else spec[0][1].trace_id))
+            for h in self.mirror_hists.get("itl", ()):
+                h.observe(dispatch_dt)
             if progress:
                 self._m_tokens.inc(progress)
         self.counts["tokens"] += progress
@@ -801,7 +1150,14 @@ class ServingEngine:
                     self._rt.on_prefill_chunk(
                         req, t0, dispatch_dt, c_start, c_len,
                         done=req.cached_tokens >= req.prefill_target)
-                if req.cached_tokens >= req.prefill_target:
+                if (req.cached_tokens >= req.prefill_target
+                        and req.prefill_only):
+                    # prefill leg of a disaggregated handoff: publish the
+                    # chain, finish OK, emit no token — the decode leg
+                    # samples output index 0 with the same pinned key,
+                    # so the stream is a one-replica run's
+                    self._finish_prefill_only(chunk[0], req)
+                elif req.cached_tokens >= req.prefill_target:
                     # the chunk that completes the prefix carries the
                     # first token, drawn at output index len(output) with
                     # the request's own key — the token a decode step
@@ -816,6 +1172,9 @@ class ServingEngine:
                         self._m_ttft.observe(
                             req.first_token_time - req.submit_time,
                             exemplar=req.trace_id)
+                        for h in self.mirror_hists.get("ttft", ()):
+                            h.observe(req.first_token_time
+                                      - req.submit_time)
                     if req.done:
                         sched.finish(chunk[0])
         return progress
@@ -880,9 +1239,16 @@ class ServingEngine:
             logger.info(f"serving: preempted {req.req_id} on KV pressure "
                         f"({req.preemptions} time(s))")
         sched.schedule_admissions()
+        # land queued host->pool promotions in the admission window:
+        # PROMOTING requests are held out of next_prefill_chunk until
+        # their claimed blocks carry real KV again
+        promoted = self._service_promotions()
         self._drain_terminal_events()
         self._update_gauges()
-        progress = 0
+        # a landed promotion MOVED state (the request it unblocks may
+        # only prefill next iteration): a promote-only iteration never
+        # trips the watchdog
+        progress = promoted
         budget = self.chunk_tokens
         include_decode = True
         while True:
@@ -963,6 +1329,8 @@ class ServingEngine:
             "lifecycle": dict(self.lifecycle_counts),
             "spec": dict(self.spec_counts),
             "dispatches": self.counts["dispatches"],
+            "host_pending": alloc.num_pending,
+            "host": dict(self.host_counts),
         }
 
     def _update_gauges(self) -> None:
@@ -978,6 +1346,30 @@ class ServingEngine:
         if d:
             self._m_evictions.inc(d)
             self._evictions_polled += d
+        hc = self.host_cache
+        if hc is None:
+            return
+        hp = self._host_polled
+        for key, counter, cur in (
+                ("spills", self._m_host_spills, hc.spills_total),
+                ("demotions", self._m_host_demotions, hc.demotions_total),
+                ("evictions", self._m_host_evictions, hc.evictions_total),
+                ("dram_hits", self._m_host_dram_hits,
+                 hc.hits_total.get("dram", 0)),
+                ("nvme_hits", self._m_host_nvme_hits,
+                 hc.hits_total.get("nvme", 0)),
+                ("hit_tokens", self._m_host_hit_tokens,
+                 self.allocator.host_hit_tokens_total)):
+            d = cur - hp[key]
+            if d:
+                counter.inc(d)
+                hp[key] += d
+        tiers = hc.tier_names
+        if "dram" in tiers:
+            self._m_host_dram_bytes.set(hc.resident_bytes("dram"))
+        if "nvme" in tiers:
+            self._m_host_nvme_bytes.set(hc.resident_bytes("nvme"))
+        self._m_promote_depth.set(self.allocator.num_pending)
 
     def _diagnose(self, headline: str) -> str:
         sched, alloc = self.scheduler, self.allocator
@@ -1012,6 +1404,10 @@ class ServingEngine:
         for r in work:
             prefix = len(r.prompt) + r.max_new_tokens
             steps += -(-prefix // self.chunk_tokens) + r.max_new_tokens + 2
+            if self.host_cache is not None:
+                # a fully host-warm prefix promotes promote_parallelism
+                # blocks per iteration while the request waits PROMOTING
+                steps += -(-prefix // self.block_size)
         allowance = (sched.max_preemptions or 8) + 1
         return steps * allowance + 64
 

@@ -68,10 +68,10 @@ state.  Copy of ``deepspeed_tpu/inference/serving/scheduler.py`` for the
 PyTorch port with the request tracer's and flight recorder's hooks, the
 fault-injection sites (``serving.admission``, and ``serving.allocate`` /
 ``serving.append_block`` raised by the allocator), the front end's
-policy hooks (weighted-fair admission, prefill order, shed victim) and
-the speculative lane's :meth:`try_grow`.  Not in it: the tiered host
-cache's PROMOTING phase and the fleet's prefill-only leg (ROADMAP.md
-queue A item 4, second part).
+policy hooks (weighted-fair admission, prefill order, shed victim), the
+speculative lane's :meth:`try_grow`, the tiered host cache's PROMOTING
+phase (:meth:`promoting`) and the disaggregated fleet's prefill-only
+leg (:meth:`finish_prefill`).
 """
 from __future__ import annotations
 
@@ -175,6 +175,10 @@ class Request:
     #: serving 503's Retry-After header).  None on every other terminal
     #: status, and on sheds before the engine has a rate estimate.
     retry_after_s: Optional[float] = None
+    #: disaggregated-fleet prefill leg: compute (and publish) the
+    #: prompt's KV, emit NO tokens, and finish OK the moment prefill
+    #: completes — the decode leg streams on another replica
+    prefill_only: bool = False
 
     @property
     def prefix(self) -> List[int]:
@@ -490,12 +494,19 @@ class ContinuousBatchingScheduler:
         token ``budget``: oldest-admitted prefilling slot (or the
         ``prefill_policy``'s choice), at most ``budget`` tokens of its
         remaining prefix.  Returns
-        ``(slot, request, start_row, n_tokens)`` or None."""
+        ``(slot, request, start_row, n_tokens)`` or None.
+
+        A PROMOTING request — host-tier cache hits still streaming into
+        its block table — is held out: prefill attention gathers the
+        whole prefix, so computing the tail before the promoted blocks
+        land would read garbage rows.  It takes its chunk the step its
+        last payload lands, skipping straight to the uncached tail."""
         if budget < 1:
             return None
         prefilling = [(s, self.running[s]) for s in self._admit_order
                       if self.running.get(s) is not None
-                      and self.running[s].prefilling]
+                      and self.running[s].prefilling
+                      and not self.promoting(self.running[s])]
         if self.prefill_policy is not None and len(prefilling) > 1:
             prefilling = self.prefill_policy(prefilling)
         for slot, req in prefilling:
@@ -595,6 +606,15 @@ class ContinuousBatchingScheduler:
         return self.max_preemptions > 0 and \
             req.preemptions >= self.max_preemptions
 
+    def promoting(self, req: Request) -> bool:
+        """PROMOTING phase predicate: the request holds blocks whose
+        host-tier payloads have not landed in the pool yet.  Promotion
+        happens only on admission hits and hits never cover the full
+        prefix (the last token's logits must be computed), so a
+        promoting request is always still ``prefilling`` — the decode
+        path needs no extra gate, only :meth:`next_prefill_chunk`."""
+        return self.alloc.seq_has_pending(req.req_id)
+
     def _pick_victim(self) -> Optional[int]:
         """LIFO preemption, cache-residency-aware: walk latest-admitted
         first and take the first victim whose full blocks are all
@@ -644,4 +664,16 @@ class ContinuousBatchingScheduler:
         # them instead of re-prefilling
         self.alloc.commit_cached(req.req_id, req.prefix, req.cached_tokens)
         self.alloc.free(req.req_id)
+        return self._terminalize(req, RequestStatus.OK)
+
+    def finish_prefill(self, slot: int) -> Request:
+        """OK-finish a ``prefill_only`` request the moment its prefill
+        target lands.  The engine has already published the chain to
+        the KV fabric, so the blocks are freed WITH unregistration
+        (``discard=True``): the digests must live only fabric-side —
+        parking them in this replica's cached LRU too would violate the
+        cross-tier disjointness the promote path depends on."""
+        req = self.running.pop(slot)
+        self._admit_order.remove(slot)
+        self.alloc.free(req.req_id, discard=True)
         return self._terminalize(req, RequestStatus.OK)

@@ -19,9 +19,8 @@ Span naming: ``subsystem/event`` (``engine``, ``checkpoint``,
 ``trace_span`` is a single attribute check returning a shared no-op and
 nothing here touches the device.
 
-The JAX package also exports the fleet's metrics aggregator and trace
-assembler (``fleet_metrics``, ``fleet_trace``) from here; they come with
-the fleet (ROADMAP.md queue A item 4, second part).
+The fleet's metrics aggregator and trace assembler (``fleet_metrics``,
+``fleet_trace``) are exported from here, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +28,9 @@ import atexit
 import os
 from typing import Any, List, Tuple
 
+from .fleet_metrics import FleetMetricsAggregator  # noqa: F401
+from .fleet_trace import (FleetTraceAssembler,  # noqa: F401
+                          FleetTraceContext, validate_fleet_trace)
 from .flight_recorder import FlightRecorder, get_flight_recorder  # noqa: F401
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,  # noqa: F401
                       interpolate_quantile, sanitize_name,

@@ -241,8 +241,12 @@ class OverlapProfiler:
                     "dispatches": rec.dispatches}
 
     def reset(self) -> None:
+        """Drop the records, and the metric handles: the registry they
+        were bound to may have been reset since, and the next record
+        binds to the current one."""
         with self._lock:
             self._n = 0
+            self._metrics.clear()
 
     # -- export (tracer event source) --------------------------------------
     def chrome_events(self, epoch_ns: int, rank: int

@@ -16,12 +16,20 @@ one where it launches its kernel, so a run can show which kernels its
 path went through.  The quantized variants of B6 and B7 (int8 and packed
 int4 pools) and the float16 variants of every kernel are counted under
 keys of their own (``COUNTERS``).
+
+The host libraries (``HOST_LIBS``: ``csrc/<name>.cpp``, host C++ such as
+the aio thread pool under the NVMe tier) are built by ``g++`` instead,
+as the JAX package's ``ops/op_builder.py`` builds them: one shared
+library each, named by a hash of the source, the flags and the host
+CPU's fingerprint (``-march=native`` code must not run on a lesser CPU),
+loaded with ``ctypes`` by :func:`load_host_library`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -196,6 +204,67 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
         _libs[name] = lib
+    return lib
+
+
+# -- host libraries (g++) -----------------------------------------------------
+#: every host C++ source of the port, by library name
+HOST_LIBS = ("aio",)
+#: the host compile flags (the JAX package's ``op_builder.py``)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-fopenmp", "-march=native",
+             "-funroll-loops", "-std=c++17", "-pthread")
+
+_host_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _cpu_fingerprint() -> bytes:
+    """The machine and the first CPU flags line: a ``-march=native``
+    library must never be shared with a host of another CPU."""
+    out = platform.machine().encode()
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith((b"flags", b"Features", b"model name")):
+                    return out + line
+    except OSError:
+        pass
+    return out
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cpp`` lives, keyed by its
+    source, the flags and the host CPU."""
+    if name not in HOST_LIBS:
+        raise KeyError(f"unknown host library {name!r}")
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    h.update(_cpu_fingerprint())
+    return BUILD_DIR / f"lib{name}-host-{h.hexdigest()[:16]}.so"
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cpp``, compiled by
+    ``g++`` at first use into ``_build/``; a failed build raises."""
+    lib = _host_libs.get(name)
+    if lib is not None:
+        return lib
+    target = host_library_path(name)
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found on PATH: the host library "
+                               f"{name} is built from source at first use")
+        out = _temp(".so", name)
+        proc = subprocess.run([gxx, *GXX_FLAGS, str(CSRC / f"{name}.cpp"),
+                               "-o", out], capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(out)
+            raise RuntimeError(f"g++ failed for {name}.cpp (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(out, target)   # atomic: no torn library on a race
+    lib = ctypes.CDLL(str(target))
+    _host_libs[name] = lib
     return lib
 
 

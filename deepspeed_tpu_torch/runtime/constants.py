@@ -142,3 +142,62 @@ SERVING_DEFAULT_DEADLINE_S_DEFAULT = 0.0
 SERVING_KV_CACHE_BITS_DEFAULT = 0
 SERVING_MESH_DATA_DEFAULT = 1
 SERVING_MESH_MODEL_DEFAULT = 1
+# tiered host prefix cache: refcount-0 blocks the pool LRU evicts spill
+# (encoded at
+# ``wire_bits``; a quantized pool spills its own int8/int4 bytes
+# verbatim) into a host DRAM store, overflowing to an NVMe-backed store
+# when budgeted, keyed by the same chained content digest as the radix
+# index; a prefix hit on a spilled chain promotes blocks back during
+# the admission/prefill window instead of recomputing them.
+SERVING_HOST_CACHE_ENABLED_DEFAULT = False
+SERVING_HOST_CACHE_DRAM_BUDGET_BYTES_DEFAULT = 0   # 0 = DRAM tier off
+SERVING_HOST_CACHE_NVME_BUDGET_BYTES_DEFAULT = 0   # 0 = NVMe tier off
+SERVING_HOST_CACHE_NVME_PATH_DEFAULT = None        # dir for the .swp file
+# block promotions (host -> pool scatters) serviced per engine step —
+# bounds the per-iteration promote stall the decode lanes ride behind
+SERVING_HOST_CACHE_PROMOTE_PARALLELISM_DEFAULT = 4
+# wire/at-rest bits for spilling an UNQUANTIZED pool (8 = int8 with f32
+# per-row scales, 4 = packed int4, 0 = raw dtype bytes); ignored when
+# serving.kv_cache_bits already quantizes the pool (spill is then the
+# pool's own bytes, a lossless round-trip)
+SERVING_HOST_CACHE_WIRE_BITS_DEFAULT = 8
+# Resilient serving fleet (``serving.fleet`` — inference/serving/fleet/):
+# many ServingEngine replicas behind a router that places by queue depth and cached-prefix
+# affinity, declares replicas dead on missed heartbeats / ServingError,
+# and replays every in-flight request on a healthy replica with its
+# original fold_in key — the stream is bit-identical and a high-water
+# deduplicator makes delivery exactly-once.
+SERVING_FLEET_ENABLED_DEFAULT = False
+SERVING_FLEET_REPLICAS_DEFAULT = 2          # engines behind the router
+# heartbeat stamped at every serving iteration boundary; a replica whose
+# beat file goes stale past the timeout is declared DEAD (threaded
+# replicas only — cooperative stepping surfaces death synchronously)
+SERVING_FLEET_HEARTBEAT_INTERVAL_S_DEFAULT = 1.0
+SERVING_FLEET_HEARTBEAT_TIMEOUT_S_DEFAULT = 0.0    # 0 disables staleness
+# placement score = affinity_weight * covered-prefix tokens - queue cost
+# per waiting request; higher weight chases warm prefixes harder at the
+# price of queue imbalance
+SERVING_FLEET_AFFINITY_WEIGHT_DEFAULT = 1.0
+# failover attempts per request before the fleet gives up and FAILs it
+# (each resubmission replays the original key — token-exact)
+SERVING_FLEET_MAX_FAILOVERS_DEFAULT = 3
+# jittered backoff for honoring SHED retry_after_s hints when every
+# routable replica is saturated (retry_call-shaped schedule)
+SERVING_FLEET_RETRY_BASE_DELAY_S_DEFAULT = 0.05
+SERVING_FLEET_RETRY_MAX_DELAY_S_DEFAULT = 2.0
+# disaggregated serving: the first K replicas become prefill workers that
+# publish finished chains into the shared host tier (the KV fabric) and
+# the rest decode replicas that claim-and-promote them; 0 keeps the
+# uniform fleet.  Requires serving.host_cache.enabled when > 0.
+SERVING_FLEET_PREFILL_REPLICAS_DEFAULT = 0
+# affinity credit for a host/fabric-resident prefix token relative to a
+# device-resident one: it saves the recompute but pays claim + promote
+SERVING_FLEET_PROMOTE_DISCOUNT_DEFAULT = 0.5
+# autoscaler policy (fleet/autoscaler.py): burn-rate alerts + per-class
+# queue depth -> join/drain, bounded by cooldowns and the chip budget
+SERVING_FLEET_CHIP_BUDGET_DEFAULT = 8       # alive replicas x chips each
+SERVING_FLEET_SCALE_UP_COOLDOWN_S_DEFAULT = 5.0
+SERVING_FLEET_SCALE_DOWN_COOLDOWN_S_DEFAULT = 30.0
+SERVING_FLEET_QUEUE_HIGH_DEFAULT = 8.0      # per-replica depth -> scale up
+SERVING_FLEET_QUEUE_LOW_DEFAULT = 1.0       # below this the class is quiet
+SERVING_FLEET_QUIET_S_DEFAULT = 10.0        # quiet this long -> scale down

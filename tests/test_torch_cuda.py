@@ -2321,3 +2321,227 @@ def test_cuda_spec_server_streams_and_launches(self_draft):
     assert build.launch_counts["paged_prefill_attention"] == \
         (lt + ld) * n_chunk
     assert srv.allocator.num_used == 0
+
+
+# -- the tiered host cache and the fleet on the card ----------------------------
+def _host_engine(dtype, kv_bits=0, host_cache=None, fleet=None,
+                 num_kv_blocks=40):
+    """The spec tests' 2-layer target (4 heads of 128, vocab 512) as an
+    engine on the card: 16-token blocks, 4 slots, chunk 64."""
+    import deepspeed_tpu_torch as dt
+    tm, tp, _, _ = _spec_models(getattr(torch, dtype))
+    serving = {"enabled": True, "kv_block_size": 16,
+               "num_kv_blocks": num_kv_blocks, "max_batch_slots": 4,
+               "prefill_chunk_tokens": 64, "kv_cache_bits": kv_bits}
+    if host_cache is not None:
+        serving["host_cache"] = host_cache
+    if fleet is not None:
+        serving["fleet"] = fleet
+    return dt.init_inference(tm, {"dtype": dtype, "max_out_tokens": 256,
+                                  "temperature": 0.0, "serving": serving},
+                             params=tp)
+
+
+@pytest.mark.cuda
+def test_cuda_block_gather_scatter_round_trip():
+    """``_gather_block`` reads one pool block of every layer to the host
+    (``pool[:, b]``, strided across layers) and ``_scatter_block`` writes
+    it back in place on the current stream: another block receives the
+    same bytes, the blocks around it keep theirs (bf16 pool and the int8
+    pool with its scale planes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for kv_bits in (0, 8):
+        srv = _host_engine("bfloat16", kv_bits).serving_engine()
+        g = torch.Generator(device="cuda")
+        g.manual_seed(kv_bits)
+        pools = srv._block_pools()
+        for pool in pools:
+            if pool.dtype == torch.int8:
+                pool.copy_(torch.randint(-127, 128, pool.shape, generator=g,
+                                         device="cuda", dtype=torch.int8))
+            else:
+                pool.copy_(torch.rand(pool.shape, generator=g,
+                                      device="cuda").to(pool.dtype))
+        before = [p.clone() for p in pools]
+        parts = srv._gather_block(5)
+        assert all(t.device.type == "cpu" for t in parts)
+        srv._scatter_block(9, parts)
+        torch.cuda.synchronize()
+        for pool, old in zip(pools, before):
+            assert torch.equal(pool[:, 9], old[:, 5])
+            keep = [b for b in range(pool.shape[1]) if b != 9]
+            assert torch.equal(pool[:, keep], old[:, keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv_bits,wire", [
+    ("bfloat16", 0, 0), ("bfloat16", 8, 8), ("float32", 0, 0),
+    ("bfloat16", 0, 8)])
+def test_cuda_host_tier_spill_promote(dtype, kv_bits, wire, tmp_path):
+    """Phase 26 of ``chip_smoke.py`` at a small width, DRAM and NVMe: a
+    64-token prefix served, evicted by fillers (spilled into the host
+    tier) and hit again.  Lossless tiers (wire 0, kv_bits 8) give the HBM
+    hit's stream exactly and promoted blocks equal to the bytes gathered
+    at their spill; wire 8 on a bf16 pool gives first logits within 5 %
+    of max|logit|.  B7 runs the tail alone: 2 layers x 1 chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.inference.serving.block_allocator import (
+        ROOT_HASH, _chain_hash)
+    from deepspeed_tpu_torch.ops import build
+    rs = np.random.RandomState(26)
+    P = rs.randint(0, 512, 64).tolist()
+    A, B = P + rs.randint(0, 512, 10).tolist(), P + rs.randint(
+        0, 512, 10).tolist()
+    digests, h = [], ROOT_HASH
+    for i in range(4):
+        h = _chain_hash(h, tuple(P[16 * i:16 * (i + 1)]))
+        digests.append(h)
+
+    def serve(srv, first=None):
+        mixed = srv.model._apply_paged_mixed
+
+        def rec(params, cache, dec, act, chunk_ids, slot, start, n, **kw):
+            out = mixed(params, cache, dec, act, chunk_ids, slot, start, n,
+                        **kw)
+            if n and start + n == len(B) and first is not None:
+                first.append(out[1].float().cpu())
+            return out
+        srv.model._apply_paged_mixed = rec
+        try:
+            build.reset_launch_counts()
+            r = srv.submit(B, max_new_tokens=12)
+            srv.run()
+            torch.cuda.synchronize()
+        finally:
+            srv.model._apply_paged_mixed = mixed
+        return r, dict(build.launch_counts)
+    ref_first = []
+    hbm = _host_engine(dtype, kv_bits).serving_engine()
+    hbm.submit(A, max_new_tokens=12)
+    hbm.run()
+    want, _ = serve(hbm, ref_first)
+    for tier in ("dram", "nvme"):
+        hc = {"enabled": True, "wire_bits": wire}
+        if tier == "dram":
+            hc["dram_budget_bytes"] = 1 << 26
+        else:
+            hc.update(nvme_budget_bytes=1 << 26,
+                      nvme_path=str(tmp_path / "nvme"))
+        srv = _host_engine(dtype, kv_bits, hc, num_kv_blocks=16
+                           ).serving_engine()
+        srv.submit(A, max_new_tokens=12)
+        srv.run()
+        saved, real = {}, srv.allocator._spill_fn
+
+        def spilling(block, digest):
+            if digest in digests:
+                saved[digest] = [t.clone()
+                                 for t in srv._gather_block(block)]
+            real(block, digest)
+        srv.allocator._spill_fn = spilling
+        rs2 = np.random.RandomState(1)
+        while any(d in srv.allocator._hash_to_block for d in digests):
+            for _ in range(2):
+                srv.submit(rs2.randint(0, 512, 100).tolist(),
+                           max_new_tokens=1)
+            srv.run()
+        assert all(srv.host_cache.contains(d) for d in digests)
+        first = []
+        got, counts = serve(srv, first)
+        b7 = build.counter("paged_prefill_attention", kv_bits,
+                           getattr(torch, dtype))
+        assert counts[b7] == 2, counts[b7]
+        assert srv.host_counts["promoted_blocks"] == 4
+        assert srv.host_cache.hits_total[tier] == 4
+        srv.allocator.assert_consistent()
+        if wire == 0 or kv_bits:
+            assert got.output == want.output
+            for d in digests:
+                now = srv._gather_block(srv.allocator._hash_to_block[d])
+                assert all(torch.equal(a, b) for a, b in zip(now, saved[d]))
+        else:
+            scale = float(ref_first[0].abs().max())
+            assert float((first[0] - ref_first[0]).abs().max()) \
+                <= 0.05 * scale
+        srv.host_cache.close()
+
+
+def _fleet_wave():
+    rs = np.random.RandomState(27)
+    prefix = rs.randint(0, 512, 48).tolist()
+    return ([rs.randint(0, 512, n).tolist() for n in (5, 40, 19, 66, 23, 9)]
+            + [prefix + rs.randint(0, 512, n).tolist() for n in (3, 17, 30)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uniform", "failover", "disagg"])
+def test_cuda_fleet_streams_exactly_once(mode):
+    """Phase 27 of ``chip_smoke.py`` at a small width in float32: a fleet
+    of 2 (or 1 prefill + 1 decode) replicas over one host tier at wire 0,
+    every stream delivered exactly once and equal to one server's; in
+    ``failover`` r1 dies mid-drain and its requests replay token-exact;
+    in ``disagg`` every fabric entry is promoted or dropped as redundant
+    and none is orphaned.  B6/B7 launches summed over the replicas are
+    exact against the mixed steps' lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.inference.serving import (FleetRouter,
+                                                       StreamCollector)
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.runtime.resilience import (
+        FaultInjector, install_fault_injector)
+    prompts = _fleet_wave()
+    single = _host_engine("float32", num_kv_blocks=96).serving_engine()
+    want = [single.submit(p, max_new_tokens=12) for p in prompts]
+    single.run()
+    fleet_kw = {"enabled": True, "replicas": 2}
+    if mode == "disagg":
+        fleet_kw["prefill_replicas"] = 1
+    eng = _host_engine("float32", host_cache={
+        "enabled": True, "wire_bits": 0, "dram_budget_bytes": 1 << 28},
+        fleet=fleet_kw, num_kv_blocks=96)
+    fleet = FleetRouter.from_engine(eng)
+    model = eng.module
+    mixed = model._apply_paged_mixed
+    lanes = [0, 0]
+
+    def counted(params, cache, dec, act, chunk_ids, *rest, **kw):
+        lanes[0] += int(dec.shape[0] > 0)
+        lanes[1] += int(chunk_ids.shape[0] > 0)
+        return mixed(params, cache, dec, act, chunk_ids, *rest, **kw)
+    model._apply_paged_mixed = counted
+    fi = install_fault_injector(FaultInjector())
+    try:
+        build.reset_launch_counts()
+        cols = [StreamCollector() for _ in prompts]
+        reqs = [fleet.submit(p, max_new_tokens=12, on_token=c)
+                for p, c in zip(prompts, cols)]
+        if mode == "failover":
+            r1 = fleet.replica("r1")
+            while not any(f.replica is r1 and f.deduper.high_water
+                          for f in reqs):
+                fleet.pump()
+            fi.add_plan("serving.fleet.replica_step", "fatal",
+                        at=fi.calls.get("serving.fleet.replica_step", 0) + 2)
+        fleet.run()
+        torch.cuda.synchronize()
+    finally:
+        model._apply_paged_mixed = mixed
+        install_fault_injector(FaultInjector())
+    assert [f.output for f in reqs] == [r.output for r in want]
+    for f, c in zip(reqs, cols):
+        assert c.tokens == f.output and c.finished
+        assert [e.index for e in c.events if e.token is not None] == \
+            list(range(12))
+    assert build.launch_counts["paged_decode_attention"] == 2 * lanes[0]
+    assert build.launch_counts["paged_prefill_attention"] == 2 * lanes[1]
+    if mode == "failover":
+        assert fleet.fleet_counts["dead_replicas"] == 1
+        assert fleet.fleet_counts["replayed_tokens"] > 0
+    if mode == "disagg":
+        assert fleet.fleet_counts["handoffs"] > 0
+        assert fleet.reap_orphans() == 0
+        d0 = fleet.replica("d0").srv
+        assert d0.host_counts["promoted_blocks"] > 0

@@ -268,6 +268,16 @@ def test_sampling_key_schedule_and_greedy():
     ({"serving": {"mesh": {"data": 0}}}, "mesh.data must be >= 1"),
     ({"serving": {"mesh": {"data": 2}, "max_batch_slots": 3}},
      "must divide"),
+    ({"serving": {"enabled": True, "fleet": {"replicas": 0}}},
+     "serving.fleet.replicas must be >= 1, got 0"),
+    ({"serving": {"enabled": True, "host_cache": {"wire_bits": 3}}},
+     "serving.host_cache.wire_bits must be one of 0"),
+    ({"serving": {"host_cache": {"enabled": True}}},
+     "needs dram_budget_bytes"),
+    ({"serving": {"host_cache": {"nvme_budget_bytes": 1}}},
+     "requires nvme_path"),
+    ({"serving": {"fleet": {"prefill_replicas": 2}}},
+     "prefill_replicas must be in"),
     ({"bogus": 1}, "bogus"),
     ({"serving": {"bogus": 1}}, "bogus"),
     ({"serving": {"kv_block_size": 2.5}}, "kv_block_size"),
@@ -288,6 +298,23 @@ def test_config_defaults_and_coercion_match_jax():
     theirs = JaxConfig(top_k=2.0, serving={"enabled": "yes",
                                            "kv_block_size": "8"}).model_dump()
     assert ours == theirs
+
+
+@pytest.mark.parametrize("serving", [
+    {"host_cache": {"enabled": True, "dram_budget_bytes": 1 << 30,
+                    "nvme_budget_bytes": 1 << 32, "nvme_path": "/kv",
+                    "promote_parallelism": 8, "wire_bits": 4}},
+    {"fleet": {"enabled": True, "replicas": 4, "prefill_replicas": 1,
+               "heartbeat_interval_s": 0.5, "heartbeat_timeout_s": 2.0,
+               "promote_discount": 0.25, "chip_budget": 6}},
+])
+def test_valid_host_cache_and_fleet_blocks_parse_equal(serving):
+    """The valid ``host_cache`` and ``fleet`` blocks parse to the JAX
+    config's values."""
+    cfg = {"serving": {"enabled": True, **serving}}
+    ours = dataclasses.asdict(DeepSpeedInferenceConfig.from_dict(cfg))
+    theirs = JaxConfig(**cfg).model_dump()
+    assert ours["serving"] == theirs["serving"]
 
 
 @pytest.mark.parametrize("override", [
@@ -319,12 +346,28 @@ def test_out_of_slice_engine_options_raise(override):
     {"fleet": {"enabled": True}},
 ])
 def test_out_of_slice_serving_options_raise(engines, serving):
+    """A serving mesh beyond 1x1 raises; the ``host_cache`` and ``fleet``
+    blocks, refused until the tiered host cache and the fleet were
+    ported, now build a server (with its host tier) and a fleet."""
     _, peng, _ = engines
     pm = peng.module
     eng = dt.init_inference(pm, {**BASE, "serving": {**SERVING, **serving}},
                             params=peng.params, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        eng.serving_engine()
+    if "mesh" in serving:
+        with pytest.raises(NotImplementedError, match="slice"):
+            eng.serving_engine()
+        return
+    srv = eng.serving_engine()
+    if "host_cache" in serving:
+        assert srv.host_cache is not None
+        assert srv.host_cache.tier_names == ["dram"]
+        return
+    from deepspeed_tpu_torch.inference.serving import FleetRouter
+    fleet = FleetRouter.from_engine(eng)
+    assert [r.replica_id for r in fleet.replicas] == ["r0", "r1"]
+    req = fleet.submit([1, 2, 3], max_new_tokens=4)
+    fleet.run()
+    assert req.status.value == "ok" and len(req.output) == 4
 
 
 def test_out_of_slice_entry_points_raise(engines):

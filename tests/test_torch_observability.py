@@ -402,7 +402,13 @@ SERVING_SERIES = (
     "cancelled_total", "timed_out_total", "shed_total", "failed_total",
     "quarantined_total", "spec_proposed_tokens_total",
     "spec_accepted_tokens_total", "spec_k", "host_plan_seconds",
-    "device_wait_seconds", "overlap_frac_dist")
+    "device_wait_seconds", "overlap_frac_dist", "host_spills_total",
+    "host_dram_hits_total", "host_nvme_hits_total", "host_demotions_total",
+    "host_evictions_total", "host_hit_tokens_total",
+    "promoted_blocks_total", "promote_failures_total",
+    "spill_failures_total", "fabric_published_total",
+    "fabric_publish_failures_total", "host_dram_bytes", "host_nvme_bytes",
+    "promote_queue_depth")
 
 
 def _server(obs, tmp_path):
@@ -459,8 +465,8 @@ def test_serving_observability_end_to_end(tmp_path, monkeypatch):
     prom = open(paths[1]).read()
     for series in SERVING_SERIES:
         assert f"dstpu_serving_{series}" in prom, series
-    for name in ("host_cache", "fabric", "mesh", "host_dram"):
-        assert f"dstpu_serving_{name}" not in prom
+    # the serving mesh's series come with its slice (queue A item 7)
+    assert "dstpu_mesh_" not in prom
     reg = pobs.get_registry()
     assert reg.counter("dstpu_serving_tokens_total").value == 32
     assert reg.histogram("dstpu_serving_ttft_seconds").count == 4

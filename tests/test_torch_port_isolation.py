@@ -116,3 +116,102 @@ def test_moe_and_diffusion_modules_are_checked(module):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+#: the modules of the tiered host cache and the fleet
+HOST_TIER_AND_FLEET = (
+    "deepspeed_tpu_torch.ops.aio", "deepspeed_tpu_torch.ops.aio.aio_handle",
+    "deepspeed_tpu_torch.runtime.swap_tensor",
+    "deepspeed_tpu_torch.runtime.swap_tensor.slot_store",
+    "deepspeed_tpu_torch.inference.serving.host_cache",
+    "deepspeed_tpu_torch.inference.serving.fleet",
+    "deepspeed_tpu_torch.inference.serving.fleet.replica",
+    "deepspeed_tpu_torch.inference.serving.fleet.router",
+    "deepspeed_tpu_torch.inference.serving.fleet.autoscaler",
+    "deepspeed_tpu_torch.elasticity",
+    "deepspeed_tpu_torch.elasticity.serving_fleet",
+    "deepspeed_tpu_torch.observability.fleet_metrics",
+    "deepspeed_tpu_torch.observability.fleet_trace")
+
+
+#: what builds or loads a library
+BUILDERS = {"build", "load_library", "load_host_library", "_lib"}
+
+
+def _import_time_calls(tree):
+    """Names called by the statements a module runs at import (its body
+    outside functions), class bodies included."""
+    stack, names = list(tree.body), []
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Call):
+            f = node.func
+            names.append(f.id if isinstance(f, ast.Name)
+                         else getattr(f, "attr", ""))
+        stack.extend(ast.iter_child_nodes(node))
+    return names
+
+
+@pytest.mark.parametrize("module", HOST_TIER_AND_FLEET)
+def test_host_tier_and_fleet_modules_are_checked(module):
+    """The host tier's and the fleet's modules are among the modules
+    whose imports the checks above read, and none builds or loads a
+    library while it is imported (``csrc/aio.cpp`` is compiled at first
+    use, not at import)."""
+    modules = dict(port_modules())
+    assert module in modules
+    calls = _import_time_calls(ast.parse(modules[module].read_text()))
+    assert not BUILDERS & set(calls), f"{module} builds at import"
+
+
+def test_host_tier_and_fleet_import_alone():
+    """Importing the host tier's and the fleet's modules in a fresh
+    interpreter loads no forbidden package and builds or loads no
+    library."""
+    code = (f"import importlib, json, sys\n"
+            f"for m in {HOST_TIER_AND_FLEET!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"from deepspeed_tpu_torch.ops import build\n"
+            f"print(json.dumps([sorted(m for m in sys.modules if "
+            f"m.split('.')[0] in {FORBIDDEN!r}), sorted(build._host_libs),"
+            f" sorted(build._libs)]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], [], []]
+
+
+def test_aio_host_library_builds_from_its_source(tmp_path):
+    """``csrc/aio.cpp`` is the port's own copy, built by g++ through
+    ``ops/build.py`` into ``_build/`` under a name keyed by its source,
+    its flags and the host CPU; the handle reads back what it wrote."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.aio import (AsyncIOHandle, PinnedBuffer,
+                                             aio_available,
+                                             odirect_fallbacks)
+    assert (PORT / "csrc" / "aio.cpp").is_file()
+    assert "-march=native" in build.GXX_FLAGS
+    path = build.host_library_path("aio")
+    assert path.parent == build.BUILD_DIR and path.name.startswith("libaio")
+    assert aio_available() and path.exists()
+    assert build.load_host_library("aio") is build.load_host_library("aio")
+    with pytest.raises(KeyError):
+        build.host_library_path("nope")
+    before = odirect_fallbacks()
+    h = AsyncIOHandle()
+    src, dst = PinnedBuffer(8192), PinnedBuffer(8192)
+    src.array[:] = np.arange(8192) % 251
+    f = tmp_path / "slots.swp"
+    f.write_bytes(b"\0" * 16384)
+    h.sync_pwrite(src.array, str(f), 4096)
+    h.sync_pread(dst.array, str(f), 4096)
+    assert (dst.array == src.array).all()
+    assert odirect_fallbacks() >= before
+    with pytest.raises(OSError):
+        h.sync_pread(dst.array, str(tmp_path / "missing.swp"), 0)
+    h.close()

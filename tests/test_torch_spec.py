@@ -411,8 +411,11 @@ def test_dispatch_fault_site(weights, kind):
 
 def test_draft_checks_and_refusals(weights):
     """The JAX engine's draft checks (paged support, vocab, max_seq_len),
-    an untrained draft from seed 1 when no params are given, and the
-    options of the next slice refused naming it."""
+    an untrained draft from seed 1 when no params are given; the tiered
+    host cache and the fleet, refused until they were ported, now build
+    (a spec server over a host tier serves) and their preconditions are
+    refused with the JAX messages; the serving mesh is refused naming
+    its slice."""
     tp, _ = weights
     pm = tt.TransformerLM(port_cfg(TARGET))
 
@@ -433,17 +436,19 @@ def test_draft_checks_and_refusals(weights):
     assert srv._draft_params["embed"]["embedding"].dtype == torch.float32
     reqs = serve(srv, prompts()[:2], new=4)
     assert all(r.status is RequestStatus.OK for r in reqs)
-    for serving in ({"host_cache": {"enabled": True}},
-                    {"fleet": {"enabled": True}}):
-        with pytest.raises(NotImplementedError,
-                           match="queue A item 4, second part"):
-            eng(serving).serving_engine()
+    with pytest.raises(ValueError, match="needs dram_budget_bytes"):
+        eng({"host_cache": {"enabled": True}})
+    hsrv = eng({"host_cache": {"enabled": True,
+                               "dram_budget_bytes": 1 << 20}}
+               ).serving_engine(draft_model=tt.TransformerLM(port_cfg(DRAFT)))
+    assert hsrv.host_cache is not None
+    reqs = serve(hsrv, prompts()[:2], new=4)
+    assert all(r.status is RequestStatus.OK for r in reqs)
+    assert eng({"fleet": {"enabled": True}}).serving_engine() is not None
     with pytest.raises(NotImplementedError, match="queue A item 7"):
         eng({"mesh": {"model": 2}}).serving_engine()
     from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
-    for kw in ({"role": "prefill"}, {"shared_host_cache": object()}):
-        with pytest.raises(NotImplementedError,
-                           match="queue A item 4, second part"):
-            ServingEngine(eng(), **kw)
-    with pytest.raises(NotImplementedError, match="second part"):
+    with pytest.raises(ValueError, match="requires serving.host_cache"):
+        ServingEngine(eng(), role="prefill")
+    with pytest.raises(ValueError, match="prefill_only requires"):
         eng().serving_engine().submit([1, 2], prefill_only=True)
