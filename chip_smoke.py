@@ -61,7 +61,8 @@ Phases (any failure exits non-zero and prints no result line):
    grouped), never B2; the profile prints B1's and B3 + B4's shares of
    the step's device time; then flash against plain attention at micro 2;
 8. TinyLlama-1.1B served as in phases 4-5 (bf16, random weights from
-   seed 0): ``generate()`` on B5 over the cache at kv-head width (B5
+   seed 0; 6 of its 22 layers since the offload phases came, for the
+   run's time): ``generate()`` on B5 over the cache at kv-head width (B5
    must see the layer's cache of 4 kv heads, never a copy expanded over
    the group),
    ``forward()`` on B1, and the server on B6/B7 at kv-head width (the
@@ -79,7 +80,9 @@ Phases (any failure exits non-zero and prints no result line):
    on): ``forward()`` on 2 x 8192 tokens through B8, ``generate()`` on 2
    x 4096-token prompts on the dense cache with the layout as a mask,
    checked against ``forward()``; the server must refuse the model;
-11. quantized KV serving at GPT-3 6.7B width: the phase-5 server and
+11. quantized KV serving at GPT-3 6.7B width (8 of its 32 layers since
+   the offload phases came, for the run's time; the pools' MiB scale
+   with it): the phase-5 server and
    requests with ``serving.kv_cache_bits`` 8, then 4 (int8 / packed-int4
    pools with f32 scales, bf16 weights from seed 0): the int8 and int4
    variants of B6 and B7 run and the bf16 ones do not; pool bytes,
@@ -92,7 +95,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``kv_cache_bits`` 8, the seed-0 weights quantized): parameter bytes,
    ``generate()`` (TTFT, decode ms/token), ``forward()`` against phase
    4's bf16 prefill logits, and the 16-request drain.
-13. GPT-3 2.7B served as in phases 4-5 (16 of its 32 layers, cut for
+13. GPT-3 2.7B served as in phases 4-5 (8 of its 32 layers, cut for
    the run's time; d_model 2560, 32 heads of 80; bf16, random weights
    from seed 0): ``generate()`` on B5,
    ``forward()`` on B1 and the server on B6/B7, all at head dim 80, with
@@ -108,7 +111,8 @@ Phases (any failure exits non-zero and prints no result line):
    entry until the scale falls (each such step skipped, ``step`` held);
    then 2 steps at seq 2048 (GPT-3's context): float16 B1, B3 and B4;
 15. fp16 serving at GPT-3 6.7B width (``init_inference(dtype=
-   "float16")``, random weights from seed 0): ``generate()`` on the
+   "float16")``, random weights from seed 0; 8 of its 32 layers since
+   the offload phases came, for the run's time): ``generate()`` on the
    float16 B5 and no other B5, then phase 5's drain at ``kv_cache_bits``
    0, 8 and 4 on the float16 B6/B7 of that width and no other (at
    kv_bits 0 every greedy server stream equal to ``generate()``'s up to
@@ -128,8 +132,9 @@ Phases (any failure exits non-zero and prints no result line):
 18. the remat policies (none, full, dots_saveable, dots_no_batch,
    nothing_saveable) at GPT-2 125M: peak memory and ms/step, the same
    first-step loss under each;
-19. GPT-NeoX-20B served at full width and depth (``hf_neox_config`` on
-   its published config: 44 layers, d_model 6144, 64 heads of 96, rotary
+19. GPT-NeoX-20B served at full width (``hf_neox_config`` on
+   its published config: 44 layers, served at 6 of them since the
+   offload phases came, for the run's time; d_model 6144, 64 heads of 96, rotary
    on 24 of the 96 dims, rotate-half, parallel residual, untied head,
    vocab 50432; bf16, random weights from seed 0) after every earlier
    engine is freed: phases 4-5's protocol (B5 seeing each layer's cache
@@ -215,10 +220,24 @@ Phases (any failure exits non-zero and prints no result line):
    entries promoted or dropped as redundant, none orphaned, every
    handed-off prefill on the decode replica its tail alone; (d) a
    transient ``serving.fleet.route`` plan: streams exactly once; (e) the
-   replicas on their own threads: streams exactly once.
+   replicas on their own threads: streams exactly once;
+28. ZeRO-Offload (``offload_phase``): GPT-2 125M with the host optimizer
+   against the in-HBM engine (3 steps, the JAX tests' bounds), then GPT-3
+   6.7B at full width and depth on the host optimizer (seq 1024, micro 4,
+   80 GB of host Adam state): s/step split into the grads, the host
+   sweep and the upload lane, the sweep's and the wire's GB/s, 3 steps at
+   wire 0 and 2 at wire 8; B1 and B2 launches exact;
+29. ZeRO-Infinity at GPT-NeoX-20B width (``infinity_phase``): as many
+   layers as the host's memory holds (12 wanted) streamed past the card,
+   pure stream then clip-gated at gas 2; 2 layers against the in-HBM
+   engine (B1, B3, B4 exact a layer) and on the NVMe tier bit-equal to
+   DRAM;
+30. ``remat="host_offload"`` against ``remat="full"`` at GPT-NeoX 1.3B
+   (``host_offload_phase``): equal losses, lower peak memory, the step
+   ratio.
 
-``python3 chip_smoke.py --only 3 6 21 22 23 24`` (any of them) builds the
-kernels and runs only those phases ("3": phase 3's cases at the MoE
+``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30`` (any of them)
+builds the kernels and runs only those phases ("3": phase 3's cases at the MoE
 shapes; "24": phases 24-27 on a fresh 6.7B engine), then prints no
 result line: a probe of the newest phases.
 
@@ -248,7 +267,9 @@ and D 80 over 128-row blocks; and the float16 B5-B7 (kv_bits 0, 8, 4) at
 GPT-3 6.7B's and 2.7B's heads and B8-B10 at phase 16's shape
 (``f16_decode_checks``, ``f16_sparse_checks``, within ``F16_TOL``); each
 with its planted fault, two launches bit-equal, its time, bound and
-SDPA's time where one call computes it.
+SDPA's time where one call computes it; B1/B2 at the GPT-3 6.7B offload
+step's shape and B1/B3/B4 at the GPT-NeoX-20B Infinity step's.  Each
+timing is the median of ``N_TIMED`` (4) calls after ``N_WARM`` (1).
 
 The line before the last holds ``nvidia-smi``'s name and power limit,
 the last line ``{"ok": true, "device": {...}}``.
@@ -337,15 +358,23 @@ SPARSE_SEQ, SPARSE_MICRO, SPARSE_STEPS = 8192, 8, 10
 NEOX_SEQ, NEOX_MICRO, NEOX_STEPS, NEOX_CHECK_MICRO = 1024, 8, 10, 2
 
 #: timed calls of a kernel in phase 3, after warm-up calls (30 and 5
-#: until the MoE and diffusion phases needed the time)
-N_TIMED, N_WARM = 20, 3
-#: phase 13 serves GPT-3 2.7B's width (32 heads of 80) at half its 32
-#: layers, cut for the run's time: the phase is there for head dim 80
-PHASE13_LAYERS = 16
+#: until the MoE and diffusion phases needed the time, 20 and 3 until the
+#: offload phases did; the median of 4 is the time printed)
+N_TIMED, N_WARM = 4, 1
+#: phase 13 serves GPT-3 2.7B's width (32 heads of 80) at 8 of its 32
+#: layers (16 until the offload phases came), cut for the run's time: the
+#: phase is there for head dim 80
+PHASE13_LAYERS = 8
+#: depth cuts for the run's time, made when the offload phases (28-30)
+#: came; widths, heads and every check stay: phase 8 serves TinyLlama at
+#: 6 of its 22 layers, phases 11 and 15 serve GPT-3 6.7B's width at 8 of
+#: 32, phase 19 GPT-NeoX-20B's at 6 of 44
+LLAMA_SERVE_LAYERS, QUANT_SERVE_LAYERS = 6, 8
+FP16_SERVE_LAYERS, NEOX20_SERVE_LAYERS = 8, 6
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
 #: takes tens of ms; its time is a yardstick, not a result), after one
-#: warm-up call
-N_TIMED_PLAIN = 5
+#: warm-up call (5 until the offload phases came)
+N_TIMED_PLAIN = 3
 
 
 def fail(msg: str) -> None:
@@ -598,6 +627,10 @@ C1_FLASH_CASES = (
      ("B3", "B4")),
     ("350M+MoE-128 forward", 128, 128, 128, 64, "bfloat16", ("B1",)),
     ("125M+MoE-64 step", 96, 96, 2048, 64, "bfloat16", ("B1", "B3", "B4")),
+    ("GPT-3 6.7B offload step", 128, 128, 1024, 128, "bfloat16",
+     ("B1", "B2")),
+    ("GPT-NeoX-20B Infinity step", 64, 64, 2048, 96, "bfloat16",
+     ("B1", "B3", "B4")),
 )
 
 
@@ -1737,6 +1770,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     # -- 1. environment ------------------------------------------------
+    host_report()
     rep = device_report(dev)
     print(f"card: {rep['nvidia_smi']} (capability {rep['capability']}, "
           f"{rep['sms']} SMs, {rep['memory_bytes'] / 2**30:.1f} GiB)")
@@ -1863,8 +1897,10 @@ def main(argv=None) -> int:
     elapsed("phase 7")
 
     # -- 8. generate(), forward() and the server for TinyLlama-1.1B -----
-    llama_served = serve_phase(torch, np, "TinyLlama-1.1B",
-                               hf_llama_config(TINYLLAMA_1_1B))
+    llama_served = serve_phase(
+        torch, np, f"TinyLlama-1.1B ({LLAMA_SERVE_LAYERS} of 22 layers)",
+        hf_llama_config(dict(TINYLLAMA_1_1B,
+                             num_hidden_layers=LLAMA_SERVE_LAYERS)))
 
     elapsed("phase 8")
 
@@ -1909,8 +1945,9 @@ def main(argv=None) -> int:
     elapsed("phase 10")
 
     # -- 11. quantized KV serving at GPT-3 6.7B width --------------------
-    quant_served = quant_serve_phase(torch, np, "GPT-3 6.7B",
-                                     gpt2_config("6.7b"))
+    quant_served = quant_serve_phase(
+        torch, np, f"GPT-3 6.7B ({QUANT_SERVE_LAYERS} of 32 layers)",
+        gpt2_config("6.7b", num_layers=QUANT_SERVE_LAYERS))
 
     elapsed("phase 11")
 
@@ -1922,7 +1959,8 @@ def main(argv=None) -> int:
     elapsed("phase 12")
 
     # -- 13. generate(), forward() and the server at GPT-3 2.7B width --
-    served27 = serve_phase(torch, np, "GPT-3 2.7B (16 of 32 layers)",
+    served27 = serve_phase(torch, np,
+                           f"GPT-3 2.7B ({PHASE13_LAYERS} of 32 layers)",
                            gpt2_config("2.7b", num_layers=PHASE13_LAYERS))
 
     elapsed("phase 13")
@@ -1935,8 +1973,9 @@ def main(argv=None) -> int:
     elapsed("phase 14")
 
     # -- 15. fp16 serving at GPT-3 6.7B width --------------------------------
-    fp16_served = fp16_serve_phase(torch, np, "GPT-3 6.7B",
-                                   gpt2_config("6.7b"))
+    fp16_served = fp16_serve_phase(
+        torch, np, f"GPT-3 6.7B ({FP16_SERVE_LAYERS} of 32 layers)",
+        gpt2_config("6.7b", num_layers=FP16_SERVE_LAYERS))
     elapsed("phase 15")
 
     # -- 16. fp16 block-sparse training of GPT-2 125M ------------------------
@@ -1959,7 +1998,10 @@ def main(argv=None) -> int:
            neox20.tie_embeddings, neox20.vocab_size)
           == (44, 6144, 64, 96, 24, True, False, 50432),
           f"GPT-NeoX-20B config {neox20}")
-    neox_served = serve_phase(torch, np, "GPT-NeoX-20B", neox20)
+    neox_served = serve_phase(
+        torch, np, f"GPT-NeoX-20B ({NEOX20_SERVE_LAYERS} of 44 layers)",
+        hf_neox_config(dict(GPT_NEOX_20B,
+                            num_hidden_layers=NEOX20_SERVE_LAYERS)))
     elapsed("phase 19")
 
     # -- 20. training GPT-NeoX 1.3B ---------------------------------------------
@@ -1980,6 +2022,9 @@ def main(argv=None) -> int:
 
     # -- 21-23. MoE serving and training, Stable Diffusion ---------------------
     moe = new_phases(torch, np, elapsed)
+
+    # -- 28-30. ZeRO-Offload, ZeRO-Infinity, host_offload remat --------------
+    off = offload_phases(torch, np, elapsed)
 
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
@@ -2073,7 +2118,16 @@ def main(argv=None) -> int:
           f"{moe['served']['flash_attention_fwd']}; 125M+MoE-64 training: "
           f"B1 {moe['trained']['flash_attention_fwd']}, B3 "
           f"{moe['trained']['flash_attention_bwd_dq']}, B4 "
-          f"{moe['trained']['flash_attention_bwd_dkv']}")
+          f"{moe['trained']['flash_attention_bwd_dkv']}; GPT-3 6.7B offload "
+          f"(5 steps): B1 {off['offload']['flash_attention_fwd']}, B2 "
+          f"{off['offload']['flash_attention_bwd']}; GPT-NeoX-20B width "
+          f"Infinity (2 layers, 3 steps): B1 "
+          f"{off['infinity']['flash_attention_fwd']}, B3 "
+          f"{off['infinity']['flash_attention_bwd_dq']}, B4 "
+          f"{off['infinity']['flash_attention_bwd_dkv']}; GPT-NeoX 1.3B "
+          f"host_offload (3 steps): B1 "
+          f"{off['host_offload']['flash_attention_fwd']}, B2 "
+          f"{off['host_offload']['flash_attention_bwd']}")
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
@@ -2104,9 +2158,12 @@ def free_card(torch, label) -> None:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    # and the pinned host buffers torch keeps cached (the offload phases'
+    # rings), so the next phase finds the host's memory too
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
     left = torch.cuda.memory_allocated()
     print(f"{label}: {left / 2**20:.1f} MiB held on the card by earlier "
-          f"phases")
+          f"phases; host MemAvailable {mem_available() / 1e9:.1f} GB")
     check(left < 8 * 2**30, f"{label}: earlier phases still hold {left} "
                             f"bytes")
 
@@ -2464,7 +2521,7 @@ def quant_serve_phase(torch, np, label, cfg) -> dict:
             **base, "serving": {**SERVING, "kv_cache_bits": bits}},
             params=ref.params)
         srv = eng.serving_engine()
-        want_mib = {8: 2112, 4: 1088}[bits]
+        want_mib = {8: 2112, 4: 1088}[bits] * L // 32   # 66 / 34 a layer
         check(srv.kv_pool_bytes == want_mib * 2**20
               == 512 * L * kv_block_bytes(16, hkv, hd, bits),
               f"{tag}: pool {srv.kv_pool_bytes} bytes, not {want_mib} MiB")
@@ -5331,7 +5388,7 @@ def host_cache_phase(torch, np, eng, label) -> dict:
             for k, v in runs.items()}
 
 
-ONLY_PHASES = {"3", "6", "21", "22", "23", "24"}
+ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5367,7 +5424,8 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         spec_front_phases(torch, np, eng, elapsed)
         del eng
     for n, run in (("21", moe_serve_phase), ("22", moe_train_phase),
-                   ("23", diffusion_phase)):
+                   ("23", diffusion_phase), ("28", offload_phase),
+                   ("29", infinity_phase), ("30", host_offload_phase)):
         if n in only:
             free_card(torch, f"phase {n}")
             run(torch, np)
@@ -5388,6 +5446,485 @@ def new_phases(torch, np, elapsed) -> dict:
     diffusion_phase(torch, np)
     elapsed("phase 23")
     return {"served": moe_served, "trained": moe_trained}
+
+
+
+# -- 28-30. offload: ZeRO-Offload, ZeRO-Infinity, host_offload remat ----------
+#: phase 28: the tier-1 parity model (phase 6's GPT-2 125M) at seq 1024,
+#: micro 4, 3 steps; the full-width run at GPT-3 6.7B, seq 1024, micro 4,
+#: 3 steps at wire 0 then 2 at offload_wire_bits 8
+OFFLOAD_PARITY_MICRO, OFFLOAD_SEQ, OFFLOAD_67_MICRO = 4, 1024, 4
+#: the JAX tests' bounds for an offload engine against the in-HBM one
+#: (tests/unit/test_infinity.py:468-480): losses within 5e-3, grad norms
+#: within 5 % of max(1, norm)
+OFFLOAD_LOSS_TOL, OFFLOAD_GNORM_REL = 5e-3, 5e-2
+#: the parity runs' learning rate (phases 28 (a) and 29 (a))
+PARITY_LR = 1e-4
+#: phase 29: GPT-NeoX-20B's width at seq 2048, micro 1; 2 layers for the
+#: parity and NVMe checks, INFINITY_LAYERS (cut to the host's memory at
+#: run time) for the run past the card's memory
+INFINITY_SEQ, INFINITY_PARITY_LAYERS, INFINITY_LAYERS = 2048, 2, 12
+#: host bytes a parameter of a streamed layer holds in DRAM/DRAM with the
+#: clip-gated accumulator: master, m, v (12), the bf16 slot (2), the
+#: float32 gradient sum (4)
+INFINITY_HOST_BYTES_PER_PARAM = 18
+
+
+def host_report() -> dict:
+    """The host's memory, cores and temporary directory (free space and
+    filesystem type): what the offload phases are cut to."""
+    import os
+    import shutil
+    import tempfile
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable"):
+                info[k] = int(v.split()[0]) * 1024
+    tmp = tempfile.gettempdir()
+    info["cpus"] = os.cpu_count()
+    info["tmp"] = tmp
+    info["tmp_free"] = shutil.disk_usage(tmp).free
+    info["tmp_fs"] = fs_type(tmp)
+    print(f"host: MemTotal {info['MemTotal'] / 1e9:.2f} GB, MemAvailable "
+          f"{info['MemAvailable'] / 1e9:.2f} GB, {info['cpus']} CPUs; "
+          f"temporary directory {tmp}: {info['tmp_free'] / 1e9:.1f} GB "
+          f"free, filesystem {info['tmp_fs']}")
+    return info
+
+
+def mem_available(field: str = "MemAvailable") -> int:
+    """A /proc/meminfo field in bytes.  MemAvailable lags a large free
+    on the card's machine (an earlier phase's 80 GB of host state shows
+    as taken until the next large allocation reclaims it), so the offload
+    phases size themselves by MemTotal and print MemAvailable beside."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def copy_rates(torch) -> dict:
+    """Device-to-host and host-to-device GB/s of 1 GiB between the card
+    and pinned host memory on a side stream (the offload wire's copies),
+    timed with CUDA events, median of 3."""
+    dev = torch.device("cuda", 0)
+    n = 2**30
+    d = torch.empty(n, dtype=torch.uint8, device=dev)
+    h = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    s = torch.cuda.Stream(dev)
+    out = {}
+    for name, fn in (("d2h", lambda: h.copy_(d, non_blocking=True)),
+                     ("h2d", lambda: d.copy_(h, non_blocking=True))):
+        times = []
+        for _ in range(4):
+            with torch.cuda.stream(s):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record(s)
+                fn()
+                b.record(s)
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        out[name] = n / statistics.median(times[1:]) / 1e9
+    del d, h
+    return out
+
+
+def offload_config(micro, gas=1, clip=1.0, zero=None, lr=6e-4):
+    """bench.py's AdamW (lr 6e-4, weight decay 0.1), bf16, ``zero``."""
+    cfg = {"train_micro_batch_size_per_gpu": micro,
+           "gradient_accumulation_steps": gas,
+           "optimizer": {"type": "AdamW", "params": {
+               "lr": lr, "weight_decay": 0.1}},
+           "bf16": {"enabled": True}, "gradient_clipping": clip,
+           "steps_per_print": 0, "zero_optimization": zero or {"stage": 0}}
+    return cfg
+
+
+def close_parity(label, i, a, b) -> None:
+    """Hold an offload engine's step metrics to the in-HBM engine's within
+    the JAX tests' bounds."""
+    la, lb = float(a["loss"]), float(b["loss"])
+    ga, gb = float(a["grad_norm"]), float(b["grad_norm"])
+    print(f"  {label} step {i}: loss {la:.5f} against {lb:.5f} (|diff| "
+          f"{abs(la - lb):.2e}, limit {OFFLOAD_LOSS_TOL}); grad norm "
+          f"{ga:.4f} against {gb:.4f} ({abs(ga - gb) / max(1.0, gb):.2e} "
+          f"of max(1, norm), limit {OFFLOAD_GNORM_REL})")
+    check(abs(la - lb) < OFFLOAD_LOSS_TOL,
+          f"{label} step {i}: loss {la} vs {lb}")
+    check(abs(ga - gb) < OFFLOAD_GNORM_REL * max(1.0, gb),
+          f"{label} step {i}: grad norm {ga} vs {gb}")
+
+
+def offload_phase(torch, np) -> dict:
+    """Phase 28, ZeRO-Offload (tier 1): (a) GPT-2 125M with
+    ``offload_optimizer: {device: cpu}`` against the in-HBM engine from
+    the same params on the same batch (3 steps, the JAX tests' bounds);
+    (b) GPT-3 6.7B at full width and depth (32 layers, d_model 4096),
+    seq 1024, micro 4, remat full, flash, AdamW, bf16 over f32 masters on
+    the host, clipping 1.0, ZeRO stage 2 with ``offload_optimizer:
+    {device: cpu, pin_memory: true}``: 3 steps at wire 0, then the same
+    engine's ``offload_wire_bits`` set to 8 for 2 more (a second engine
+    would need a second 80 GB of host state).  Nothing is cut."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    dev = torch.device("cuda", 0)
+    rates = copy_rates(torch)
+    print(f"offload wire, 1 GiB to/from pinned host memory on a side "
+          f"stream: D2H {rates['d2h']:.2f} GB/s, H2D {rates['h2d']:.2f} "
+          f"GB/s")
+    zero = {"stage": 2, "offload_optimizer": {"device": "cpu",
+                                              "pin_memory": True}}
+    # (a) parity at GPT-2 125M
+    cfg = gpt2_config("125m", remat="full", attn_impl="flash",
+                      loss_chunk=256)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = TransformerLM(cfg).init(g, dev, torch.float32)
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size,
+                                     (OFFLOAD_PARITY_MICRO, OFFLOAD_SEQ),
+                                     dtype=np.int32)}
+
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+    # lr 1e-4: at bench.py's 6e-4 a random GPT-2 125M's third step on one
+    # batch overshoots (grad norm 91), where rounding-level differences
+    # between two correct engines grow to most of the bound
+    base, _, _, _ = initialize(model=TransformerLM(cfg), config=offload_config(
+        OFFLOAD_PARITY_MICRO, lr=PARITY_LR), params=copy(params))
+    off, _, _, _ = initialize(model=TransformerLM(cfg), config=offload_config(
+        OFFLOAD_PARITY_MICRO, zero=zero, lr=PARITY_LR), params=params)
+    del params
+    build.reset_launch_counts()
+    for i in range(3):
+        close_parity("(a) GPT-2 125M offload", i, off.train_step(batch),
+                     base.train_step(batch))
+    del base, off
+    free_card(torch, "phase 28 (b)")
+
+    # (b) GPT-3 6.7B at full width and depth
+    cfg = gpt2_config("6.7b", remat="full", attn_impl="flash",
+                      loss_chunk=256)
+    m0 = mem_available()
+    need, total = 12 * cfg.num_params(), mem_available("MemTotal")
+    check(total > 1.15 * need, f"6.7B offload needs {need / 1e9:.1f} GB "
+                               f"of host optimizer state; MemTotal is "
+                               f"{total / 1e9:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, _, _, _ = initialize(model=TransformerLM(cfg), config=offload_config(
+        OFFLOAD_67_MICRO, zero=zero))
+    init_s = time.perf_counter() - t0
+    n = eng._host_opt.opt.master
+    n_params = sum(a.size for a in n)
+    host_state = eng._host_opt.host_bytes
+    print(f"(b) GPT-3 6.7B offload: {n_params / 1e9:.3f} B params, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}; init {init_s:.1f}"
+          f" s; host optimizer state {host_state / 1e9:.2f} GB (MemAvailable"
+          f" {m0 / 1e9:.1f} GB before, {mem_available() / 1e9:.1f} after); "
+          f"device after init {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, cfg.vocab_size,
+                                     (OFFLOAD_67_MICRO, OFFLOAD_SEQ),
+                                     dtype=np.int32)}
+    build.reset_launch_counts()
+    losses, rows = [], []
+    for i in range(5):
+        if i == 3:
+            eng._config.zero_config.offload_wire_bits = 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eng.train_step(batch)
+        step_s = time.perf_counter() - t0
+        t = dict(eng.offload_timing)
+        losses.append(float(m["loss"]))
+        sweep_gbs = 30 * n_params / max(t["sweep_s"], 1e-9) / 1e9
+        rows.append((step_s, t))
+        print(f"  step {i} (wire {8 if i >= 3 else 0}): {step_s:.2f} s; "
+              f"offload/grads {t['grads_s']:.2f} s, offload/host_sweep "
+              f"{t['wall_s']:.2f} s (fetch lane {t['fetch_s']:.2f}, sweep "
+              f"{t['sweep_s']:.2f} = {sweep_gbs:.1f} GB/s of the 30 bytes "
+              f"a parameter it reads and writes, upload lane "
+              f"{t['upload_s']:.2f}; {t['pieces']} pieces), D2H "
+              f"{t['d2h_bytes'] / 1e9:.2f} GB, H2D {t['h2d_bytes'] / 1e9:.2f}"
+              f" GB; loss {losses[-1]:.4f}, grad norm "
+              f"{float(m['grad_norm']):.3f}")
+        check(np.isfinite(losses[-1]), f"6.7B offload step {i}: loss "
+                                       f"{losses[-1]}")
+    counts = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  loss on the repeated batch {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; peak device memory {peak / 1e9:.2f} GB; host "
+          f"bytes {host_state / 1e9:.2f} GB of optimizer state; launches "
+          f"over 5 steps: B1 {counts['flash_attention_fwd']}, B2 "
+          f"{counts['flash_attention_bwd']}")
+    check(losses[2] < losses[0], f"6.7B offload: loss did not fall "
+                                 f"{losses}")
+    L = cfg.num_layers
+    check(counts["flash_attention_fwd"] == 5 * 2 * L
+          and counts["flash_attention_bwd"] == 5 * L,
+          f"6.7B offload launches {counts}")
+    eng._host_opt.close()
+    del eng
+    free_card(torch, "phase 28 done")
+    return {"flash_attention_fwd": counts["flash_attention_fwd"],
+            "flash_attention_bwd": counts["flash_attention_bwd"],
+            "rows": rows}
+
+
+def infinity_phase(torch, np) -> dict:
+    """Phase 29, ZeRO-Infinity at GPT-NeoX-20B's width (the published
+    config.json: d_model 6144, 64 heads of 96, rotary, parallel residual,
+    vocab 50432, seq 2048), micro 1, flash, AdamW, bf16, ZeRO stage 3
+    with ``offload_param`` and ``offload_optimizer``.  First, while the
+    host's memory is freshest, (c) past the card's memory:
+    ``INFINITY_LAYERS`` layers, cut to what 80 % of the host's MemTotal
+    holds at ``INFINITY_HOST_BYTES_PER_PARAM`` a streamed parameter (the
+    width is never cut), DRAM/DRAM, streamed init, 3 steps pure stream, then the
+    same engine at gas 2 with clipping 1.0 (clip-gated) for 2 steps.
+    Then (a) 2 layers (1.53 B params) against the in-HBM engine from the
+    same params, 3 steps (pure stream, lr ``PARITY_LR``), the JAX tests'
+    bounds, B1 twice and B3/B4 once a layer (seq 2048 spans two 1024-row
+    blocks, so the backward is the two-pass one); (b) the NVMe tier at 2
+    layers (both stores in a temporary directory), 2 steps: its f32
+    masters bit-equal to (a)'s DRAM run after 2 steps."""
+    import tempfile
+    from deepspeed_tpu_torch import hf_neox_config, initialize
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+    from deepspeed_tpu_torch.module_inject.policies import GPT_NEOX_20B
+    from deepspeed_tpu_torch.ops import build
+    dev = torch.device("cuda", 0)
+
+    def model_cfg(layers):
+        # the published config.json with its depth cut; max_seq_len is
+        # its 2048 already
+        return hf_neox_config(dict(GPT_NEOX_20B, num_hidden_layers=layers),
+                              remat="full", attn_impl="flash",
+                              loss_chunk=256)
+
+    def zero(param="cpu", opt="cpu", path=None):
+        return {"stage": 3,
+                "offload_param": {"device": param, "nvme_path": path},
+                "offload_optimizer": {"device": opt, "nvme_path": path}}
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, GPT_NEOX_20B["vocab_size"],
+                                     (1, INFINITY_SEQ), dtype=np.int32)}
+
+    # (c) past the card's memory
+    m = TransformerLM(model_cfg(2))
+    n_layer = sum(int(np.prod(s)) for s in _leaves(m.superblock_shapes()))
+    res_params = sum(int(np.prod(s)) for s in _leaves(m.resident_shapes()))
+    mem = mem_available("MemTotal")
+    fit = int(0.8 * mem // (n_layer * INFINITY_HOST_BYTES_PER_PARAM))
+    layers = max(2, min(INFINITY_LAYERS, fit))
+    total = layers * n_layer + res_params
+    print(f"(c) depth: {layers} layers of {n_layer / 1e6:.1f} M params "
+          f"({INFINITY_LAYERS} wanted; 80 % of MemTotal {mem / 1e9:.1f} GB "
+          f"holds {fit} at {INFINITY_HOST_BYTES_PER_PARAM} bytes a streamed "
+          f"param; MemAvailable {mem_available() / 1e9:.1f} GB): "
+          f"{total / 1e9:.3f} B params, Adam state at 16 bytes a param "
+          f"{16 * total / 1e9:.1f} GB")
+    cfg = model_cfg(layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, _, _, _ = initialize(model=TransformerLM(cfg), config=
+                              offload_config(1, clip=0.0, zero=zero()))
+    st = eng._infinity
+    print(f"  init {time.perf_counter() - t0:.1f} s; host stores "
+          f"{(st.param_store.host_bytes + st.opt.host_bytes) / 1e9:.2f} GB "
+          f"(MemAvailable after {mem_available() / 1e9:.1f} GB); device "
+          f"layer cache {st.max_live_layers} layers; device after init "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rows, losses = [], []
+    for i in range(5):
+        b = batch
+        if i >= 3:
+            # the same engine at gas 2 with clipping: the clip-gated mode
+            st.gas = eng.gradient_accumulation_steps = 2
+            st.clip = 1.0
+            b = {"input_ids": np.concatenate([batch["input_ids"]] * 2)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mt = eng.train_step(b)
+        step_s = time.perf_counter() - t0
+        t = dict(st.timing)
+        losses.append(float(mt["loss"]))
+        hidden = 1.0 - t["join_s"] / max(t["sweep_s"], 1e-9)
+        rows.append((step_s, t))
+        print(f"  step {i} ({'clip-gated, gas 2' if i >= 3 else 'pure stream'}"
+              f"): {step_s:.2f} s; walk {t['walk_s']:.2f} s, device tail "
+              f"{t['device_tail_s']:.2f}, exposed sweep {t['join_s']:.2f}, "
+              f"clip sweep {t['clip_sweep_s']:.2f}; host sweep "
+              f"{t['sweep_s']:.2f} s summed over the workers, "
+              f"{100 * max(hidden, 0.0):.1f} % of it inside the backward; "
+              f"H2D {t['h2d_bytes'] / 1e9:.2f} GB "
+              f"({t['h2d_bytes'] / step_s / 1e9:.2f} GB/s of the step), D2H "
+              f"{t['d2h_bytes'] / 1e9:.2f} GB "
+              f"({t['d2h_bytes'] / step_s / 1e9:.2f} GB/s); loss "
+              f"{losses[-1]:.4f}, grad norm {float(mt['grad_norm']):.3f}")
+        check(np.isfinite(losses[-1]), f"Infinity step {i}: {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    # the resident params' float32 masters, m, v and summed grads (16
+    # bytes a param), and at their step the head's and the embedding's
+    # grad trees and the optimizer's fresh params and moments (20 more)
+    res_bytes, res_step = 16 * res_params, 20 * res_params
+    layer_bytes = st.max_live_layers * st.n_pad * 2
+    stash = layers * INFINITY_SEQ * cfg.d_model * 2
+    host = (st.param_store.host_bytes + st.opt.host_bytes
+            + (st._grad_accum.nbytes if st._grad_accum is not None else 0))
+    budget = res_bytes + res_step + layer_bytes + stash
+    print(f"  peak device memory {peak / 1e9:.2f} GB against the budget's "
+          f"{budget / 1e9:.2f} GB (resident masters, moments and grads "
+          f"{res_bytes / 1e9:.2f}, the resident step's transients "
+          f"{res_step / 1e9:.2f}, {st.max_live_layers} layer buffers "
+          f"{layer_bytes / 1e9:.2f}, {layers} stashes {stash / 1e9:.3f}) "
+          f"plus one layer's recompute; host bytes {host / 1e9:.2f} GB; "
+          f"loss {losses[0]:.4f} -> {losses[2]:.4f} over the pure-stream "
+          f"steps")
+    check(losses[2] < losses[0], f"Infinity loss did not fall {losses}")
+    st.close()
+    del eng, st
+    free_card(torch, "phase 29 (a)")
+
+    # (a) parity at 2 layers
+    cfg = model_cfg(INFINITY_PARITY_LAYERS)
+    per_step = {"flash_attention_fwd": 2 * cfg.num_layers,
+                "flash_attention_bwd": 0,
+                "flash_attention_bwd_dq": cfg.num_layers,
+                "flash_attention_bwd_dkv": cfg.num_layers}
+    params = TransformerLM(cfg).init_streamed(0, dev, torch.float32)
+    base, _, _, _ = initialize(model=TransformerLM(cfg), config=offload_config(
+        1, clip=0.0, lr=PARITY_LR), params=_clone(params))
+    inf, _, _, _ = initialize(model=TransformerLM(cfg), config=offload_config(
+        1, clip=0.0, zero=zero(), lr=PARITY_LR), params=params)
+    host_params = inf._infinity.gather_params()
+    del params
+    counts = {}
+    masters2 = None
+    for i in range(3):
+        build.reset_launch_counts()
+        mi = inf.train_step(batch)
+        step_counts = dict(build.launch_counts)
+        for k, v in per_step.items():
+            counts[k] = counts.get(k, 0) + step_counts[k]
+            check(step_counts[k] == v, f"Infinity step {i}: {k} launches "
+                                       f"{step_counts[k]} != {v}")
+        close_parity("(a) NeoX-20B width, 2 layers, Infinity", i, mi,
+                     base.train_step(batch))
+        if i == 1:
+            masters2 = inf._infinity.gather_params()["blocks"]
+    del base
+    inf._infinity.close()
+    del inf
+    free_card(torch, "phase 29 (b)")
+
+    # (b) the NVMe tier, bit for bit against the DRAM run's masters
+    with tempfile.TemporaryDirectory(prefix="dstt_infinity_") as tmp:
+        nv, _, _, _ = initialize(model=TransformerLM(cfg), config=
+                                 offload_config(1, clip=0.0, zero=zero(
+                                     "nvme", "nvme", tmp), lr=PARITY_LR),
+                                 params=host_params)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            nv.train_step(batch)
+        nvme_s = (time.perf_counter() - t0) / 2
+        got = nv._infinity.gather_params()["blocks"]
+        disk = nv._infinity.opt.disk_bytes + nv._infinity.param_store \
+            .disk_bytes
+        nv._infinity.close()
+        del nv
+    diffs = [int((a != b).sum()) for a, b in zip(_leaves(got),
+                                                 _leaves(masters2))]
+    print(f"(b) NVMe tier, 2 layers, {fs_type(tempfile.gettempdir())}: "
+          f"{nvme_s:.2f} s/step, {disk / 1e9:.2f} GB of slot files; f32 "
+          f"masters after 2 steps differ from the DRAM run's in "
+          f"{sum(diffs)} elements (must be 0)")
+    check(sum(diffs) == 0, "NVMe masters differ from DRAM's")
+    del got, masters2, host_params
+    free_card(torch, "phase 29 done")
+    return {**counts, "rows": rows, "layers": layers}
+
+
+def host_offload_phase(torch, np) -> dict:
+    """Phase 30, ``remat="host_offload"``: phase 20's GPT-NeoX 1.3B (24
+    layers, seq 1024, micro 8, flash, AdamW, bf16) for 3 steps against
+    ``remat="full"`` from the same params on the same batch: the same
+    arithmetic, so the losses agree to the step check's limit; peak
+    device memory of both and the step-time ratio."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        neox_config)
+    from deepspeed_tpu_torch.ops import build
+    dev = torch.device("cuda", 0)
+    rs = np.random.RandomState(0)
+    out = {}
+    params = None
+    for remat in ("full", "host_offload"):
+        cfg = neox_config("1.3b", max_seq_len=NEOX_SEQ, remat=remat,
+                          attn_impl="flash", loss_chunk=256)
+        if params is None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            params = TransformerLM(cfg).init(g, dev, torch.float32)
+            batch = {"input_ids": rs.randint(0, cfg.vocab_size,
+                                             (NEOX_MICRO, NEOX_SEQ),
+                                             dtype=np.int32)}
+        eng, _, _, _ = initialize(
+            model=TransformerLM(cfg), config=offload_config(NEOX_MICRO),
+            params={k: _clone(v) for k, v in params.items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_step(batch)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        out[remat] = (losses, (time.perf_counter() - t0) / 3,
+                      torch.cuda.max_memory_allocated(),
+                      dict(build.launch_counts))
+        del eng
+        torch.cuda.empty_cache()
+    (lf, sf, pf, _), (lh, sh, ph, ch) = out["full"], out["host_offload"]
+    for i, (a, b) in enumerate(zip(lh, lf)):
+        print(f"  step {i}: loss host_offload {a:.6f}, full {b:.6f} "
+              f"(|diff| {abs(a - b):.2e})")
+        check(abs(a - b) <= STEP_LOSS_REL_TOL * abs(b),
+              f"host_offload step {i}: loss {a} vs full {b}")
+    print(f"remat host_offload (GPT-NeoX 1.3B, seq {NEOX_SEQ}, micro "
+          f"{NEOX_MICRO}): peak device memory {ph / 1e9:.2f} GB against "
+          f"full's {pf / 1e9:.2f} GB; {sh * 1e3:.1f} ms/step against "
+          f"{sf * 1e3:.1f} (ratio {sh / sf:.3f}); B1 "
+          f"{ch['flash_attention_fwd']}, B2 {ch['flash_attention_bwd']} "
+          f"over 3 steps")
+    check(ph < pf, f"host_offload peak {ph} not below full's {pf}")
+    return {"flash_attention_fwd": ch["flash_attention_fwd"],
+            "flash_attention_bwd": ch["flash_attention_bwd"]}
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def offload_phases(torch, np, elapsed) -> dict:
+    """Phases 28-30, after every earlier engine is freed."""
+    free_card(torch, "ZeRO-Offload")
+    off = offload_phase(torch, np)
+    elapsed("phase 28")
+    free_card(torch, "ZeRO-Infinity")
+    inf = infinity_phase(torch, np)
+    elapsed("phase 29")
+    free_card(torch, "host_offload remat")
+    ho = host_offload_phase(torch, np)
+    elapsed("phase 30")
+    return {"offload": off, "infinity": inf, "host_offload": ho}
 
 
 if __name__ == "__main__":

@@ -43,7 +43,9 @@ past one 1024-row block or grouped-query attention (the JAX dispatch
 rule); ``remat="full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), so B1 runs twice per layer and step, and
 ``dots_saveable``, ``dots_no_batch`` and ``nothing_saveable`` keep the
-JAX model's selective policies (``REMAT_POLICIES``).  With
+JAX model's selective policies (``REMAT_POLICIES``); ``host_offload`` is
+``full`` with each block's one saved input copied to pinned host memory
+between the forward and the backward (``HostOffloadBlock``).  With
 ``attn_impl="blocksparse"`` and a ``sparsity_config`` the uncached
 forward walks the layout's blocks: k/v expanded over the group, then
 kernel B8 and, in the backward, B9 and B10 when T divides by the block;
@@ -355,11 +357,7 @@ def check_in_slice(c: TransformerConfig) -> None:
         raise ValueError(f"unknown pos_embedding {c.pos_embedding!r}")
     if c.norm_position not in ("pre", "post"):
         raise ValueError(f"unknown norm_position {c.norm_position!r}")
-    if c.remat == "host_offload":
-        raise NotImplementedError(
-            "remat='host_offload' (activations spilled to host memory) "
-            "comes with offload, ROADMAP.md queue A item 8")
-    if c.remat not in REMAT_POLICIES:
+    if c.remat not in REMAT_POLICIES and c.remat != "host_offload":
         raise ValueError(f"unknown remat policy {c.remat!r} (one of "
                          f"{sorted(REMAT_POLICIES)} or 'host_offload')")
     if c.moe_enabled:
@@ -368,6 +366,82 @@ def check_in_slice(c: TransformerConfig) -> None:
         if c.moe_k not in (1, 2):
             raise ValueError(f"Only top-1 and top-2 gating supported, got "
                              f"k={c.moe_k}")
+
+
+def _tensor_leaves(tree, out: List[torch.Tensor]):
+    """``tree`` with each tensor leaf replaced by its index in ``out``."""
+    if isinstance(tree, dict):
+        return {k: _tensor_leaves(v, out) for k, v in tree.items()}
+    out.append(tree)
+    return len(out) - 1
+
+
+def _fill(tree, leaves):
+    if isinstance(tree, dict):
+        return {k: _fill(v, leaves) for k, v in tree.items()}
+    return leaves[tree]
+
+
+class HostOffloadBlock(torch.autograd.Function):
+    """``remat="host_offload"``: the block runs without grad in the
+    forward, and its input (the residual stream, the JAX model's
+    ``block_in``) is the one tensor kept, copied to pinned host memory
+    on the current stream (a ``non_blocking`` copy, so the host never
+    touches it); the backward copies it back on the same stream and
+    recomputes the block with grad: ``remat="full"``'s arithmetic.  On the
+    CPU the input is kept as it is (no pinning was asked for)."""
+
+    @staticmethod
+    def forward(ctx, run, x, *leaves):
+        ctx.run = run
+        with torch.no_grad():
+            outs = run(x, leaves)
+        if x.is_cuda:
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+        else:
+            host = x.detach()
+        ctx.x_host, ctx.x_device = host, x.device
+        ctx.save_for_backward(*leaves)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *douts):
+        x = ctx.x_host.to(ctx.x_device, non_blocking=True)
+        x = x.detach().requires_grad_(True)
+        leaves = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.run(x, leaves)
+        pairs = [(o, g) for o, g in zip(outs, douts)
+                 if g is not None and o.requires_grad]
+        wrt = [x] + [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                         [g for _, g in pairs],
+                                         allow_unused=True))
+        dx = next(grads)
+        dleaves = [next(grads) if t.requires_grad else None for t in leaves]
+        return (None, dx, *dleaves)
+
+
+def host_offload_checkpoint(fn, params: Params, x: torch.Tensor, *rest):
+    """``fn(params, x, *rest)`` under ``HostOffloadBlock``: tensor
+    outputs pass through the autograd function, others (an MoE block's
+    capacity) come back as ``fn`` gave them."""
+    leaves: List[torch.Tensor] = []
+    skeleton = _tensor_leaves(params, leaves)
+    box = {}
+
+    def run(xx, ls):
+        out = fn(_fill(skeleton, ls), xx, *rest)
+        out = out if isinstance(out, tuple) else (out,)
+        box["kinds"] = [None if torch.is_tensor(o) else o for o in out]
+        return tuple(o for o in out if torch.is_tensor(o))
+    tensors = iter(HostOffloadBlock.apply(run, x, *leaves))
+    out = tuple(next(tensors) if k is None else k for k in box["kinds"])
+    return out if len(out) > 1 else out[0]
 
 
 def layer_views(blocks: Params) -> List[Params]:
@@ -604,6 +678,161 @@ class TransformerLM(nn.Module):
                 "dense": {"kernel": normal((d, d), 0.02), "bias": zeros(d)},
                 "ln": norm(), "bias": zeros(c.vocab_size)}
         return params
+
+    # -- the streamed pieces (ZeRO-Infinity) ---------------------------------
+    def superblock_shapes(self) -> Params:
+        """One scan layer's leaf shapes: ``param_shapes()["blocks"]``
+        without the leading layer axis."""
+        def strip(tree):
+            return {k: strip(v) if isinstance(v, dict) else tuple(v[1:])
+                    for k, v in tree.items()}
+        return strip(self.param_shapes()["blocks"])
+
+    def resident_shapes(self) -> Params:
+        """The leaf shapes of everything outside the scanned blocks."""
+        return {k: v for k, v in self.param_shapes().items()
+                if k != "blocks"}
+
+    def superblock_keys(self, seed: int) -> List[int]:
+        """The per-layer seeds of a streamed init from ``seed``: layer i is
+        ``init_superblock`` from a generator seeded with ``keys[i]``."""
+        g = torch.Generator()
+        g.manual_seed(int(seed))
+        return torch.randint(0, 2**62, (self.config.scan_length,),
+                             generator=g, dtype=torch.int64).tolist()
+
+    def init_superblock(self, generator: torch.Generator, device=None,
+                        dtype: Optional[torch.dtype] = None) -> Params:
+        """One scan layer's params (no leading axis), drawn from
+        ``generator`` as :meth:`init` draws the stack: N(0, 0.02),
+        residual-branch outputs scaled by 1/sqrt(2 L), norm scales 1,
+        biases 0, an MoE layer's gate in float32.  The streamed init draws
+        each layer from its own seed (:meth:`superblock_keys`), so its
+        numbers differ from :meth:`init`'s, which draws leaf by leaf
+        across the layers."""
+        c = self.config
+        dtype = dtype or c.param_dtype
+        device = resolve_device(device)
+        d, f = c.d_model, c.ff_dim
+        hd = c.num_heads * c.hdim
+
+        def norm():
+            p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+            if c.norm_type == "layernorm":
+                p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+            return p
+
+        def dense(i, o, scaled=False):
+            w = (L.scaled_init((i, o), 0.02, c.num_layers, generator, device,
+                               dtype) if scaled else
+                 L.normal_init((i, o), 0.02, generator, device, dtype))
+            p = {"kernel": w}
+            if c.use_bias:
+                p["bias"] = torch.zeros(o, dtype=dtype, device=device)
+            return p
+
+        def block(mlp=True):
+            blk = {"ln1": norm(),
+                   "attn": {"qkv": dense(d, c.qkv_dim),
+                            "out": dense(hd, d, scaled=True)},
+                   "ln2": norm()}
+            if mlp:
+                blk["mlp"] = {"fc_in": dense(d, f),
+                              "fc_out": dense(f, d, scaled=True)}
+                if c.gated_mlp:
+                    blk["mlp"]["fc_gate"] = dense(d, f)
+            return blk
+        if not c.moe_enabled:
+            return block()
+        moe_blk = block(mlp=False)
+        moe_blk["moe"] = self._moe.init(generator, device, dtype)
+        out = {"moe_blk": moe_blk}
+        if c.moe_freq == 2:
+            out = {"dense": block(), **out}
+        return out
+
+    def init_resident(self, generator: torch.Generator, device=None,
+                      dtype: Optional[torch.dtype] = None) -> Params:
+        """Everything outside the scanned blocks (embeddings, final norm,
+        untied head, the families' extra leaves), drawn as :meth:`init`
+        draws them: the params a streamed path keeps on the device."""
+        c = self.config
+        dtype = dtype or c.param_dtype
+        device = resolve_device(device)
+        d = c.d_model
+
+        def normal(shape, std):
+            return L.normal_init(shape, std, generator, device, dtype)
+
+        def norm():
+            p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+            if c.norm_type == "layernorm":
+                p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+            return p
+        params = {"embed": {"embedding": normal((c.vocab_size, d), 0.02)}}
+        if c.pos_embedding == "learned":
+            params["pos_embed"] = {"embedding": normal((c.max_seq_len, d),
+                                                       0.01)}
+        if c.final_layernorm:
+            params["ln_f"] = norm()
+        if not c.tie_embeddings:
+            params["lm_head"] = {"kernel": normal((d, c.vocab_size), 0.02)}
+        if c.embed_layernorm:
+            params["ln_embed"] = norm()
+        if c.token_type_vocab:
+            params["type_embed"] = {"embedding": normal(
+                (c.token_type_vocab, d), 0.02)}
+        if c.mlm_head:
+            params["mlm_head"] = {
+                "dense": {"kernel": normal((d, d), 0.02),
+                          "bias": torch.zeros(d, dtype=dtype, device=device)},
+                "ln": norm(),
+                "bias": torch.zeros(c.vocab_size, dtype=dtype,
+                                    device=device)}
+        return params
+
+    def init_streamed(self, seed: int, device=None,
+                      dtype: Optional[torch.dtype] = None) -> Params:
+        """The whole tree of a streamed init from ``seed`` (the resident
+        leaves from a generator seeded with ``seed``, layer i from
+        ``superblock_keys(seed)[i]``), stacked: what ZeRO-Infinity's
+        host stores hold after its init, for tests and export."""
+        device = resolve_device(device)
+
+        def gen(s):
+            g = torch.Generator(device=device)
+            g.manual_seed(int(s))
+            return g
+        params = self.init_resident(gen(seed), device, dtype)
+        layers = [self.init_superblock(gen(k), device, dtype)
+                  for k in self.superblock_keys(seed)]
+
+        def stack(trees):
+            if isinstance(trees[0], dict):
+                return {k: stack([t[k] for t in trees]) for k in trees[0]}
+            return torch.stack(trees)
+        params["blocks"] = stack(layers)
+        return params
+
+    def superblock_apply(self, sp: Params, x: torch.Tensor,
+                         train: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One scan unit over one layer's params ``sp`` (no layer index,
+        so no per-layer window; an MoE layer routes without noise):
+        ``(y, l_aux)``, l_aux a float32 scalar (0 without MoE)."""
+        c = self.config
+        sp = self.block_transform(sp)
+        if not c.moe_enabled:
+            return (self._block(sp, x, self._attend_full),
+                    torch.zeros((), dtype=torch.float32, device=x.device))
+        r = None
+        for kind, bp in self._units(sp):
+            if kind == "moe":
+                x, r = self._moe_block(bp, x, self._attend_full, None, None,
+                                       train)
+            else:
+                x = self._block(bp, x, self._attend_full)
+        return x, r.l_aux.to(torch.float32)
 
     # -- pieces ---------------------------------------------------------------
     def _norm(self, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -846,13 +1075,16 @@ class TransformerLM(nn.Module):
     def _remat(self, fn):
         """Wrap a block function with the configured remat policy:
         "full" keeps only the block's input and recomputes the rest in
-        the backward; "dots_saveable" also keeps every matrix product's
+        the backward, "host_offload" the same with that input in pinned
+        host memory; "dots_saveable" also keeps every matrix product's
         output, "dots_no_batch" those with no batch dimension (the dense
         layers', not attention's), "nothing_saveable" none of them
         (``torch.utils.checkpoint``'s selective contexts)."""
         remat = self.config.remat
         if remat == "none":
             return fn
+        if remat == "host_offload":
+            return functools.partial(host_offload_checkpoint, fn)
         policy = REMAT_POLICIES[remat]
         kw = {} if policy is None else {"context_fn": functools.partial(
             create_selective_checkpoint_contexts, policy)}

@@ -17,8 +17,9 @@ path went through.  The quantized variants of B6 and B7 (int8 and packed
 int4 pools) and the float16 variants of every kernel are counted under
 keys of their own (``COUNTERS``).
 
-The host libraries (``HOST_LIBS``: ``csrc/<name>.cpp``, host C++ such as
-the aio thread pool under the NVMe tier) are built by ``g++`` instead,
+The host libraries (``HOST_LIBS``: ``csrc/<name>.cpp``, host C++: the
+aio thread pool under the NVMe tier and the offload tiers' CPU Adam) are
+built by ``g++`` instead,
 as the JAX package's ``ops/op_builder.py`` builds them: one shared
 library each, named by a hash of the source, the flags and the host
 CPU's fingerprint (``-march=native`` code must not run on a lesser CPU),
@@ -209,7 +210,7 @@ def load_library(name: str) -> ctypes.CDLL:
 
 # -- host libraries (g++) -----------------------------------------------------
 #: every host C++ source of the port, by library name
-HOST_LIBS = ("aio",)
+HOST_LIBS = ("aio", "cpu_adam")
 #: the host compile flags (the JAX package's ``op_builder.py``)
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-fopenmp", "-march=native",
              "-funroll-loops", "-std=c++17", "-pthread")

@@ -28,8 +28,15 @@ exit).  Saves and loads bump ``dstpu_checkpoint_saves_total`` /
 ``dstpu_checkpoint_loads_total`` and record the ``checkpoint/save_state``,
 ``checkpoint/publish``, ``checkpoint/verify`` and ``checkpoint/load_state``
 spans (``observability/``); the engine beats its heartbeat around a save.
-The offload branches of the JAX engine (ZeRO-Infinity, the host
-optimizer, their ``offload/*`` spans) wait for ROADMAP.md queue A item 8.
+
+The offload engines save beside ``state.pt`` (synchronously, also under
+``async_save``, as the JAX engine does): ZeRO-Infinity streams its host
+stores into ``<tag>/infinity/`` in the JAX package's layout
+(``runtime/zero/infinity.py::save_to_dir``, the
+``checkpoint/infinity_stream`` span), and ZeRO-Offload's host optimizer
+writes its masters and moments to ``<tag>/host_opt.pt``; there the host
+masters are the float32 truth (``get_fp32_state_dict_from_zero_
+checkpoint`` reads them, not the device's compute-dtype params).
 """
 from __future__ import annotations
 
@@ -52,6 +59,8 @@ from ..resilience import (CheckpointCorruptionError, FatalIOError,
                           write_manifest)
 
 STATE_FILE = "state.pt"
+HOST_OPT_FILE = "host_opt.pt"
+INFINITY_DIR = "infinity"
 FORMAT = "deepspeed_tpu_torch-1"
 
 #: async saves whose state is being written: (writer thread, the error it
@@ -145,10 +154,80 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         with trace_span("checkpoint/save_state", tag=str(tag),
                         async_save=False):
             _write_state(tree, path)
+    _save_offload(engine, path, tag)
+    if not async_save:
         _publish(os.path.abspath(save_dir), tag, meta, resilience)
     logger.info(f"saved checkpoint {path}" +
                 (" (async)" if async_save else ""))
     return path
+
+
+def _save_offload(engine, path: str, tag) -> None:
+    """The offload engines' host state beside ``state.pt``."""
+    if getattr(engine, "_infinity", None) is not None:
+        # the whole model lives in the host/NVMe stores: streamed slot by
+        # slot into the tag dir (constant memory)
+        with trace_span("checkpoint/infinity_stream", tag=str(tag)):
+            engine._infinity.save_to_dir(os.path.join(path, INFINITY_DIR))
+    if getattr(engine, "_host_opt", None) is not None:
+        sd = engine._host_opt.state_dict()
+        host = {"arrays": {k: [torch.from_numpy(a) for a in arrs]
+                           for k, arrs in sd["arrays"].items()},
+                "step_count": int(sd["step_count"])}
+        hs = engine._host_scaler
+        if hs is not None:
+            host["scaler"] = {"scale": float(hs.scale),
+                              "good_steps": int(hs.good_steps),
+                              "hysteresis": int(hs.hysteresis)}
+        os.makedirs(path, exist_ok=True)
+        final = os.path.join(path, HOST_OPT_FILE)
+        tmp = f"{final}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            torch.save(host, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)
+
+
+def _load_offload(engine, path: str, load_optimizer_states: bool,
+                  load_module_only: bool) -> None:
+    """The offload engines' host state, with the JAX engine's
+    messages."""
+    if getattr(engine, "_infinity", None) is not None:
+        inf_path = os.path.join(path, INFINITY_DIR)
+        if not os.path.isdir(inf_path):
+            raise FileNotFoundError(
+                f"engine runs ZeRO-Infinity but {inf_path} is missing — "
+                f"this checkpoint was saved by a non-infinity engine")
+        engine._infinity.load_from_dir(
+            inf_path, load_optimizer_states=(load_optimizer_states
+                                             and not load_module_only))
+    if getattr(engine, "_host_opt", None) is not None:
+        host_path = os.path.join(path, HOST_OPT_FILE)
+        if load_optimizer_states and not load_module_only:
+            if not os.path.exists(host_path):
+                raise FileNotFoundError(
+                    f"engine runs with optimizer offload but {host_path} is "
+                    f"missing — checkpoint was saved without offload (load "
+                    f"with load_module_only=True to take params only)")
+            host = torch.load(host_path, weights_only=True,
+                              map_location="cpu")
+            engine._host_opt.load_state_dict(
+                {"arrays": {k: [t.numpy() for t in arrs]
+                            for k, arrs in host["arrays"].items()},
+                 "step_count": host["step_count"]})
+            hs = engine._host_scaler
+            if hs is not None and "scaler" in host:
+                hs.scale = float(host["scaler"]["scale"])
+                hs.good_steps = int(host["scaler"]["good_steps"])
+                hs.hysteresis = int(host["scaler"]["hysteresis"])
+        else:
+            # params-only load: masters from the restored device params
+            # (fresh moments), else step 1 would blend new params with
+            # stale masters
+            from ..optimizers import tree_leaves
+            engine._host_opt.reset_from_params(
+                list(tree_leaves(engine.state["params"])))
 
 
 def _publish(save_dir: str, tag: str, meta: dict, resilience=None) -> None:
@@ -306,11 +385,12 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     partial = load_module_only or not load_optimizer_states
     with trace_span("checkpoint/load_state", tag=str(tag), partial=partial):
         restored = read_state(path)
-        if hasattr(engine.model, "param_shapes"):
+        if hasattr(engine.model, "param_shapes") and "params" in restored:
             check_params(engine.model, restored["params"])
         dev = engine.device
         if partial:
-            engine.state["params"] = _to_device(restored["params"], dev)
+            if "params" in restored:
+                engine.state["params"] = _to_device(restored["params"], dev)
             engine.state["step"] = restored["step"].to(dev)
         else:
             scaler = restored.pop("scaler", None)
@@ -319,6 +399,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                 restored["scaler"] = LossScaleState(
                     **{k: v.to(dev) for k, v in scaler.items()})
             engine.state = restored
+    _load_offload(engine, path, load_optimizer_states, load_module_only)
     engine.global_steps = meta.get("global_steps", 0)
     engine.micro_steps = meta.get("micro_steps", 0)
     logger.info(f"loaded checkpoint {path}")
@@ -336,10 +417,27 @@ def get_fp32_state_dict_from_zero_checkpoint(load_dir: str,
     the host, with no engine (the reference's ``zero_to_fp32``)."""
     if tag is None:
         tag = latest_tag(load_dir)
-    state = read_state(_tag_path(load_dir, tag))
+    path = _tag_path(load_dir, tag)
+    if os.path.isdir(os.path.join(path, INFINITY_DIR)):
+        from ..zero.infinity import infinity_fp32_state_dict
+        return infinity_fp32_state_dict(os.path.join(path, INFINITY_DIR))
+    state = read_state(path)
 
     def f32(tree):
         if isinstance(tree, dict):
             return {k: f32(v) for k, v in tree.items()}
         return tree.to(torch.float32)
-    return f32(state["params"])
+    params = f32(state["params"])
+    host_path = os.path.join(path, HOST_OPT_FILE)
+    if os.path.exists(host_path):
+        # an offload checkpoint: the true float32 masters live on the
+        # host side; the device tree holds their compute-dtype copies
+        masters = iter(torch.load(host_path, weights_only=True,
+                                  map_location="cpu")["arrays"]["master"])
+
+        def take(tree):
+            if isinstance(tree, dict):
+                return {k: take(v) for k, v in tree.items()}
+            return next(masters).reshape(tree.shape)
+        params = take(params)
+    return params

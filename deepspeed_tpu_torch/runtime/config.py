@@ -12,9 +12,11 @@ given any two, the third is inferred; all three given must agree.
 This slice trains on one device.  Blocks it parses but does not run are
 refused by :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls
 it) with ``NotImplementedError`` naming the ``ROADMAP.md`` queue A slice
-that brings them: ZeRO stage > 0 and offload, a mesh of more than one
+that brings them: ZeRO stage > 0 without offload, a mesh of more than one
 device, pipeline stages, tensor and sequence parallelism, and the
-monitor blocks.  The ``observability`` block (span tracer, metrics,
+monitor blocks.  The offload blocks run (``runtime/zero/offload.py``,
+``runtime/zero/infinity.py``), at ZeRO stage 1-3: on one device every
+stage is the same program, as in the JAX package on a one-device mesh.  The ``observability`` block (span tracer, metrics,
 flight recorder, overlap profiler) runs.  ``fp16`` trains (dynamic or static loss
 scaling, ``runtime/fp16``).
 """
@@ -56,10 +58,37 @@ _OFFLOAD_DEVICES = ("none", "cpu", "nvme")
 
 
 @dataclass
+class OffloadParamConfig:
+    """``zero_optimization.offload_param`` (the JAX package's
+    ``DeepSpeedZeroOffloadParamConfig``)."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = int(1e8)
+    max_in_cpu: int = int(1e9)
+    pin_memory: bool = False
+
+
+@dataclass
+class OffloadOptimizerConfig:
+    """``zero_optimization.offload_optimizer`` (the JAX package's
+    ``DeepSpeedZeroOffloadOptimizerConfig``); ``worker_count``: host
+    optimizer-sweep threads, 0 = one per host core up to 8."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    worker_count: int = 0
+
+
+@dataclass
 class ZeroConfig:
-    """``zero_optimization`` block.  Only stage 0 (replicated state on one
-    device) runs in this slice; the offload sub-blocks are kept as
-    dicts and refused when they name a device."""
+    """``zero_optimization`` block.  Stage 0 runs on one device, and
+    stages 1-3 with an offload block (one device: the same program); the
+    offload sub-blocks are kept as dicts (:meth:`offload` parses one)."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True
@@ -125,6 +154,16 @@ class ZeroConfig:
             return "cpu" if alias else "none"
         return block.get("device", "none")
 
+    def offload(self, name: str):
+        """The parsed ``offload_param`` / ``offload_optimizer`` block
+        (its device from :meth:`offload_device`, so the deprecated
+        aliases count)."""
+        cls = (OffloadParamConfig if name == "offload_param"
+               else OffloadOptimizerConfig)
+        block = dict(getattr(self, name) or {})
+        block["device"] = self.offload_device(name)
+        return from_dict(cls, block, f"zero_optimization.{name}")
+
 
 # -- optimizer / scheduler --------------------------------------------------------
 @dataclass
@@ -141,6 +180,17 @@ class SchedulerConfig:
 
 
 # -- checkpointing ----------------------------------------------------------------------
+@dataclass
+class AioConfig:
+    """``aio`` block: the NVMe tier's IO handle (the JAX package's
+    ``AioConfig``)."""
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+
+
 @dataclass
 class CheckpointConfig:
     """``checkpoint`` block (the JAX package's ``CheckpointConfig``):
@@ -469,8 +519,8 @@ class ObservabilityConfig:
 
 
 # -- training hot path --------------------------------------------------------------
-#: remat policies the JAX model accepts; the port runs all but
-#: "host_offload" (offload, ROADMAP.md queue A item 8)
+#: remat policies the JAX model accepts (the port runs them all;
+#: "host_offload" keeps each superblock's input in pinned host memory)
 TRAINING_REMAT_POLICIES = ("none", "full", "dots_saveable",
                            "dots_no_batch", "nothing_saveable",
                            "host_offload")
@@ -598,6 +648,7 @@ class DeepSpeedConfig:
         self.checkpoint_config = _block(CheckpointConfig, pd, C.CHECKPOINT)
         self.comms_logger_dict = g(C.COMMS_LOGGER)
         self.aio_dict = g(C.AIO)
+        self.aio = _block(AioConfig, pd, C.AIO)
         self.elasticity_dict = g(C.ELASTICITY)
         self.autotuning_dict = g(C.AUTOTUNING)
         self.compression_dict = g(C.COMPRESSION_TRAINING)
@@ -695,14 +746,12 @@ class DeepSpeedConfig:
         """Raise ``NotImplementedError`` for every block this slice of
         the port parses but cannot run, naming the slice that brings it."""
         later: List[str] = []
-        if self.zero_config.stage > 0:
-            later.append(f"zero_optimization.stage "
-                         f"{self.zero_config.stage}: multi-device (queue A "
-                         f"item 7)")
-        for name in ("offload_param", "offload_optimizer"):
-            if self.zero_config.offload_device(name) != "none":
-                later.append(f"zero_optimization.{name}: offload (queue A "
-                             f"item 8)")
+        z = self.zero_config
+        offload = any(z.offload_device(name) != "none"
+                      for name in ("offload_param", "offload_optimizer"))
+        if z.stage > 0 and not offload:
+            later.append(f"zero_optimization.stage {z.stage} without "
+                         f"offload: multi-device (queue A item 7)")
         big = {k: v for k, v in self.mesh.sizes().items()
                if v not in (1, -1)}
         if big:

@@ -28,6 +28,17 @@ compiles the step into one program, this one runs it eagerly:
   (``torch.where`` on the device, no host sync) while ``skipped`` counts
   the step; the scaler's state (``state["scaler"]``) moves the same way.
 
+With an offload block (``zero_optimization`` stage 1-3: one device runs
+them as one program) the engine runs the JAX engine's offload tiers:
+``offload_optimizer`` alone is ZeRO-Offload (``zero/offload.py``: state
+``{"step", "skipped", "params"}`` with compute-dtype params on the
+device, float32 masters and moments on the host, each step's grads summed
+into one flat float32 buffer and swept by the native host Adam in
+overlapped pieces, one host sync a step), and ``offload_param`` is
+ZeRO-Infinity (``zero/infinity.py``: the params live in host or NVMe
+slot stores and stream a layer at a time); both return host metrics and
+refuse the compat ``forward``/``backward``/``step``.
+
 Metrics come back as device tensors, as the JAX engine returns device
 scalars; nothing in a step waits for the card unless ``steps_per_print``,
 ``wall_clock_breakdown`` or the ``observability`` block asks to read
@@ -158,6 +169,19 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.micro_steps = 0
         self._step_times: list = []
+        # -- ZeRO-Offload tiers (host optimizer / Infinity streaming) --
+        from .zero.offload import validate_offload_config
+        offload_mode = validate_offload_config(self._config)
+        self.offload_enabled = offload_mode == "optimizer"
+        self.infinity_enabled = offload_mode == "infinity"
+        self._host_opt = None
+        self._host_scaler = None
+        self._infinity = None
+        if offload_mode != "none" and optimizer is not None:
+            raise ValueError(
+                "offload needs a config-named optimizer (Adam/AdamW/"
+                "Adagrad) — the host step runs in native code, not "
+                "through a user optimizer object")
         self.state = self.init_state(params, seed)
         self._grad_acc = None
         self._grad_acc_count = 0
@@ -236,6 +260,11 @@ class DeepSpeedEngine:
         """The train state on the engine's device: float32 masters (bf16
         when ``bf16.master_weights`` is off), float32 moments, int32
         counters."""
+        if self.infinity_enabled:
+            from .zero.infinity import InfinityStepper
+            self._infinity = InfinityStepper(self, params, seed)
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            return {"step": zero.clone(), "skipped": zero.clone()}
         if params is None:
             g = torch.Generator(device=self.device)
             g.manual_seed(seed)
@@ -247,6 +276,8 @@ class DeepSpeedEngine:
                 lambda a: (a if isinstance(a, torch.Tensor)
                            else leaf_to_torch(a, "cpu")).to(
                     self.device, torch.float32), params)
+        if self.offload_enabled:
+            return self._init_state_offload(params)
         if not self._config.bf16.master_weights and self.bf16_enabled:
             params = tree_map(lambda p: p.to(torch.bfloat16), params)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -255,6 +286,155 @@ class DeepSpeedEngine:
         if self.loss_scaler is not None:
             state["scaler"] = self.loss_scaler.init(self.device)
         return state
+
+    def _init_state_offload(self, params) -> Dict[str, Any]:
+        """Offload init: each float32 leaf's host copy becomes a master of
+        the host optimizer and the device keeps its compute-dtype cast
+        only (the float32 leaf is dropped as soon as it is taken)."""
+        from .zero.offload import HostLossScaler, ZeroOffloadHostOptimizer
+        nodes = []
+
+        def walk(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v)
+                else:
+                    nodes.append((tree, k))
+        walk(params)
+
+        def masters():
+            for node, k in nodes:
+                leaf = node[k]
+                yield leaf
+                node[k] = leaf.to(self.compute_dtype)
+        self._host_opt = ZeroOffloadHostOptimizer(self, masters())
+        if self.loss_scaler is not None:
+            self._host_scaler = HostLossScaler(self.loss_scaler)
+        logger.info(
+            f"ZeRO-Offload: {self._host_opt.host_bytes / 2**30:.2f} GiB "
+            f"optimizer state in host memory; the device holds "
+            f"{self.compute_dtype} params and the float32 grad sum")
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        return {"step": zero.clone(), "skipped": zero.clone(),
+                "params": params}
+
+    def _offload_grads(self, batch, scale: float):
+        """The gas loop of the offload step into one flat float32 buffer
+        on the device (the leaves' concatenation, zero-padded to the wire
+        codec's chunk): ``(flat, scaled loss sum)``.  Each micro batch's
+        compute-dtype gradient is summed into it leaf by leaf and dropped,
+        so no float32 tree of gradients sits beside the buffer."""
+        from .zero.wire_codec import CHUNK
+        params = self.state["params"]
+        leaves = list(tree_leaves(params))
+        n = sum(p.numel() for p in leaves)
+        n_pad = -(-n // CHUNK) * CHUNK
+        flat = getattr(self, "_grad_flat", None)
+        if flat is None or flat.numel() != n_pad:
+            flat = self._grad_flat = torch.zeros(n_pad, dtype=torch.float32,
+                                                 device=self.device)
+        views, off = [], 0
+        for p in leaves:
+            views.append(flat[off:off + p.numel()].view(p.shape))
+            off += p.numel()
+        lsum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(self.gradient_accumulation_steps):
+            mb = {k: v[i] for k, v in batch.items()}
+            req = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            with trace_span("engine/forward", micro_step=self.micro_steps):
+                loss = self._loss_fn(req, mb) * scale
+            with trace_span("engine/backward", micro_step=self.micro_steps):
+                grads = list(torch.autograd.grad(loss,
+                                                 list(tree_leaves(req))))
+            for j, view in enumerate(views):
+                if i == 0:
+                    view.copy_(grads[j])
+                else:
+                    view.add_(grads[j])
+                grads[j] = None          # free each grad once it is summed
+            lsum = lsum + loss.detach()
+        return flat, lsum
+
+    def _offload_train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """grads on the device → the host native sweep → params back (the
+        JAX engine's ``_offload_train_step``): one host sync a step, where
+        the loss, the norm and the lr cross together."""
+        import math
+        cfg = self._config
+        gas = self.gradient_accumulation_steps
+        scale = self._host_scaler.scale if self._host_scaler else 1.0
+        step_i = int(self.state["step"])
+        t0 = time.perf_counter()
+        with trace_span("offload/grads", gas=gas):
+            flat, lsum = self._offload_grads(batch, scale)
+            gnorm_raw = torch.sqrt(torch.sum(torch.square(flat)))
+            lr_t = torch.as_tensor(self.lr_schedule(self.state["step"]),
+                                   dtype=torch.float32).to(self.device)
+            lsum_h, gnorm_h, lr = torch.stack(
+                [lsum, gnorm_raw, lr_t]).cpu().tolist()
+        self.offload_timing = {"grads_s": time.perf_counter() - t0}
+        denom = scale * gas
+        gnorm = gnorm_h / denom
+        # a non-finite norm skips the host sweep when the fp16 scaler says
+        # so or when resilience hygiene does
+        overflow = (not math.isfinite(gnorm)) and (
+            (self._host_scaler is not None
+             and self._host_scaler.detect_overflow)
+            or cfg.resilience.skip_nonfinite_grad_steps)
+        if overflow:
+            self.state["skipped"] = self.state["skipped"] + 1
+        else:
+            factor = 1.0
+            if cfg.gradient_clipping and cfg.gradient_clipping > 0 \
+                    and math.isfinite(gnorm):
+                factor = min(1.0, cfg.gradient_clipping / max(gnorm, 1e-6))
+            bits = int(cfg.zero_config.offload_wire_bits or 0)
+            with trace_span("offload/host_sweep", bucketed=True):
+                self._host_opt.step_pipelined(
+                    flat, list(tree_leaves(self.state["params"])), lr=lr,
+                    grad_scale=denom / factor,
+                    fetch=self._wire_fetch(flat, bits, step_i)
+                    if bits else None)
+            self.offload_timing.update(self._host_opt.timing)
+            self.state["step"] = self.state["step"] + 1
+        if self._host_scaler is not None:
+            self._host_scaler.update(overflow)
+        metrics = {"loss": lsum_h / denom, "grad_norm": gnorm, "lr": lr,
+                   "overflow": int(overflow), "loss_scale": scale}
+        return {k: torch.tensor(v) for k, v in metrics.items()}
+
+    def _wire_fetch(self, flat: torch.Tensor, bits: int, step_i: int):
+        """The compressed grad wire of the offload step: each piece of
+        the flat gradient is encoded on the device (stochastic rounding,
+        draws from a generator seeded with the step), its payload and
+        scales cross to pinned host buffers, and the host decodes them
+        into the piece's float32 buffer.  The JAX engine encodes the flat
+        vector in one program; the pieces are chunk-aligned, so the
+        format and the scales are the same."""
+        from .zero import wire_codec
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(step_i)
+        tr = self._host_opt.transfers
+        count = [0]
+
+        def fetch(piece, host_f32):
+            lo, n = piece.lo, piece.hi - piece.lo
+            hi = -(-piece.hi // wire_codec.CHUNK) * wire_codec.CHUNK
+            payload, scales = wire_codec.encode(flat[lo:hi], bits, gen)
+            slot = count[0] % 3
+            count[0] += 1
+            pbuf = tr.buffer("wire", slot, payload.numel(), torch.uint8)
+            sbuf = tr.buffer("scales", slot, scales.numel(), torch.float32)
+            tr.after_compute()
+            tr.to_host(pbuf, payload)
+            tr.wait(tr.to_host(sbuf, scales))   # one stream: both landed
+            out = host_f32.numpy() if hi - lo == n else \
+                np.empty(hi - lo, np.float32)
+            wire_codec.decode_into(out, pbuf.numpy(), sbuf.numpy(), bits)
+            if hi - lo != n:
+                host_f32.numpy()[:] = out[:n]
+            return None
+        return fetch
 
     def _cast_for_compute(self, params):
         if self.compute_dtype == torch.float32:
@@ -266,6 +446,8 @@ class DeepSpeedEngine:
         """The loss scale of ``state`` (default the engine's): the
         scaler's, or 1."""
         state = self.state if state is None else state
+        if self._host_scaler is not None:
+            return torch.tensor(self._host_scaler.scale, dtype=torch.float32)
         if self.loss_scaler is not None:
             return state["scaler"].scale
         return torch.ones((), dtype=torch.float32, device=self.device)
@@ -389,9 +571,20 @@ class DeepSpeedEngine:
         """One optimizer step over ``gas`` micro batches; returns metrics
         as device tensors (loss, grad_norm, lr, overflow, loss_scale)."""
         self._heartbeat.maybe_beat()
+        if self.infinity_enabled:
+            t0 = time.perf_counter()
+            with trace_span("engine/train_step", mode="infinity",
+                            step=self.global_steps):
+                metrics = self._infinity.train_step(batch)
+            return self._host_step_done(metrics, t0)
         with trace_span("engine/shard_batch"):
             batch = self.shard_batch(batch)
         t0 = time.perf_counter()
+        if self.offload_enabled:
+            with trace_span("engine/train_step", mode="offload",
+                            step=self.global_steps):
+                metrics = self._offload_train_step(batch)
+            return self._host_step_done(metrics, t0)
         with trace_span("engine/train_step", mode="eager",
                         step=self.global_steps):
             scale = self._current_scale()
@@ -423,6 +616,19 @@ class DeepSpeedEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._step_times.append(time.perf_counter() - t0)
+        self._last_metrics = metrics
+        self._post_step_observe(metrics, step_s)
+        return metrics
+
+    def _host_step_done(self, metrics: Dict[str, torch.Tensor],
+                        t0: float) -> Dict[str, torch.Tensor]:
+        """The bookkeeping after an offload or Infinity step, which is
+        synchronous already (its metrics are host values)."""
+        step_s = time.perf_counter() - t0
+        self.global_steps += 1
+        self.micro_steps += self.gradient_accumulation_steps
+        if self._config.wall_clock_breakdown:
+            self._step_times.append(step_s)
         self._last_metrics = metrics
         self._post_step_observe(metrics, step_s)
         return metrics
@@ -512,6 +718,8 @@ class DeepSpeedEngine:
     def eval_loss(self, batch: Dict[str, Any]) -> torch.Tensor:
         """The loss of the whole batch (micro batches flattened), no
         gradient."""
+        if self.infinity_enabled:
+            return torch.tensor(self._infinity.eval_loss(batch))
         sq = {k: (v[0] if k == "moe_rng" else
                   v.reshape((-1,) + tuple(v.shape[2:])))
               for k, v in self.shard_batch(batch).items()}
@@ -524,6 +732,10 @@ class DeepSpeedEngine:
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Loss and gradients of one micro batch ``[micro, ...]``; the
         gradients wait for :meth:`backward`."""
+        if self.offload_enabled or self.infinity_enabled:
+            raise NotImplementedError(
+                "the compat forward/backward/step surface is not wired for "
+                "offload — use train_step()/train_batch()")
         mb = {k: (v if isinstance(v, torch.Tensor) else
                   torch.from_numpy(np.ascontiguousarray(np.asarray(v))))
               for k, v in batch.items()}
@@ -581,6 +793,8 @@ class DeepSpeedEngine:
         return float(self._current_scale())
 
     def num_parameters(self) -> int:
+        if self.infinity_enabled:
+            return self._infinity.total_params
         return sum(int(p.numel()) for p in tree_leaves(self.state["params"]))
 
     # ------------------------------------------------------------------

@@ -19,6 +19,7 @@ iteration boundary and the training engine at every step.
 """
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
@@ -61,7 +62,9 @@ class Heartbeat:
                  interval_s: float = 1.0):
         self.path = path or os.environ.get(ENV_HEARTBEAT_FILE)
         self.interval_s = interval_s
-        self._last = 0.0
+        # -inf: the first maybe_beat always writes, however short the
+        # host's uptime (time.monotonic counts from boot)
+        self._last = -math.inf
 
     @property
     def enabled(self) -> bool:

@@ -1,11 +1,10 @@
 """Fixed-stride slot stores: the storage layer of the host tiers.
 
 Copy of ``deepspeed_tpu/runtime/swap_tensor/slot_store.py`` for the
-PyTorch port.  The unit is a *slot*: one fixed-size byte record (here one
-encoded KV block of the serving engine's host cache; the optimizer
-offload of ROADMAP.md queue A item 8 will store its per-layer vectors the
-same way), so ``offset = slot * stride`` and every transfer is one large
-aligned IO.
+PyTorch port.  The unit is a *slot*: one fixed-size byte record (one
+encoded KV block of the serving engine's host cache, or one layer's
+parameter or optimizer vector of ZeRO-Infinity), so ``offset = slot *
+stride`` and every transfer is one large aligned IO.
 
 Two backends with one API:
   - ``DramSlotStore`` — a single host allocation; acquire() is a view.
@@ -14,7 +13,10 @@ Two backends with one API:
     hides read/write latency.
 
 Access contract: ``prefetch(slot)`` → ``acquire(slot)`` → mutate →
-``release(slot, dirty=)``.  A buffer is recycled only after its
+``release(slot, dirty=)``.  ``page_lock()`` registers the store's host
+memory with CUDA (the DRAM tier's allocation, the NVMe tier's ring), so a
+``non_blocking`` host-to-device copy from a slot runs asynchronously;
+``close()`` unregisters it.  A buffer is recycled only after its
 writeback completes, so a ring of K buffers tolerates a reuse distance of
 K-1.  ``write_slot``/``read_slot`` copy in and out synchronously: a byte
 array ``read_slot`` returns belongs to the caller, never to the ring.
@@ -34,8 +36,26 @@ from ...utils.logging import logger
 from ..resilience import get_fault_injector, retry_call
 
 
+def cuda_host_register(arr: np.ndarray) -> None:
+    """Page-lock ``arr``'s memory for the card's DMA engines."""
+    import torch
+    rc = torch.cuda.cudart().cudaHostRegister(arr.ctypes.data, arr.nbytes,
+                                              0)
+    if int(rc) != 0:
+        raise RuntimeError(f"cudaHostRegister of {arr.nbytes} bytes failed "
+                           f"(CUDA error {int(rc)})")
+
+
+def cuda_host_unregister(arr: np.ndarray) -> None:
+    import torch
+    torch.cuda.cudart().cudaHostUnregister(arr.ctypes.data)
+
+
 class SlotStore:
     """Abstract fixed-stride slot store."""
+
+    #: host arrays registered by page_lock(), unregistered by close()
+    _locked: List[np.ndarray] = []
 
     #: optional RetryPolicy for transient-I/O retries on the file-backed
     #: tiers (None = runtime/resilience DEFAULT_IO_POLICY), set by the
@@ -73,8 +93,28 @@ class SlotStore:
     def flush(self) -> None:
         pass
 
+    def prefault(self) -> None:
+        """Fault the store's host memory in now (no-op but for DRAM)."""
+
+    def _host_arrays(self) -> List[np.ndarray]:
+        return []
+
+    def page_lock(self) -> None:
+        """Register the store's host memory with CUDA (once)."""
+        if self._locked:
+            return
+        arrays = self._host_arrays()
+        for a in arrays:
+            cuda_host_register(a)
+        self._locked = arrays
+
+    def _unlock(self) -> None:
+        for a in self._locked:
+            cuda_host_unregister(a)
+        self._locked = []
+
     def close(self) -> None:
-        pass
+        self._unlock()
 
     @property
     def host_bytes(self) -> int:
@@ -100,6 +140,16 @@ class DramSlotStore(SlotStore):
 
     def release(self, slot: int, dirty: bool = False) -> None:
         pass
+
+    def prefault(self) -> None:
+        """Fault every page in now, from several threads: a large store's
+        first writes otherwise pay the page faults one page at a time on
+        the writing thread."""
+        from ...ops.adam.cpu_adam import prefault
+        prefault(self._data)
+
+    def _host_arrays(self) -> List[np.ndarray]:
+        return [self._data]
 
     @property
     def host_bytes(self) -> int:
@@ -159,6 +209,9 @@ class NvmeSlotStore(SlotStore):
                     f"{slot_nbytes / 2**20:.1f} MiB at {path} "
                     f"({total / 2**30:.2f} GiB file, "
                     f"{buffer_count} pinned buffers)")
+
+    def _host_arrays(self) -> List[np.ndarray]:
+        return [b.array for b in self._bufs]
 
     # -- buffer ring ------------------------------------------------------
     def _wait_buf(self, b: int) -> None:
@@ -348,6 +401,7 @@ class NvmeSlotStore(SlotStore):
             self.flush()
             if self._own_aio:
                 self.aio.close()
+            self._unlock()
             for b in self._bufs:
                 b.free()
             self._bufs = []

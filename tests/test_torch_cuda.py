@@ -2545,3 +2545,231 @@ def test_cuda_fleet_streams_exactly_once(mode):
         assert fleet.reap_orphans() == 0
         d0 = fleet.replica("d0").srv
         assert d0.host_counts["promoted_blocks"] > 0
+
+
+# -- the offload tiers (ZeRO-Offload, ZeRO-Infinity, host_offload remat) -----
+def _offload_model(**kw):
+    from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                        TransformerLM)
+    return TransformerLM(TransformerConfig(**{
+        "vocab_size": 256, "max_seq_len": 128, "num_layers": 3,
+        "num_heads": 2, "d_model": 128, "loss_chunk": 0,
+        "attn_impl": "flash", "dtype": torch.bfloat16, **kw}))
+
+
+def _offload_cfg(zero=None, clip=0.0, lr=1e-3):
+    cfg = {"train_micro_batch_size_per_gpu": 4,
+           "gradient_accumulation_steps": 1,
+           "optimizer": {"type": "AdamW", "params": {"lr": lr}},
+           "bf16": {"enabled": True}, "gradient_clipping": clip,
+           "steps_per_print": 0}
+    if zero:
+        cfg["zero_optimization"] = zero
+    return cfg
+
+
+def _tree_clone(tree):
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_native_adam_on_card_grads_matches_plain():
+    """Gradients made on the card and fetched through the offload wire's
+    pinned buffers (the host reads them after the copy's event) step the
+    native host Adam within 1e-6 of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+    from deepspeed_tpu_torch.runtime.zero.offload import Transfers
+    dev = torch.device("cuda")
+    tr = Transfers(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(1 << 20, generator=g, device=dev)
+    masters = [torch.randn(1 << 20, generator=g, device=dev).cpu().numpy()]
+    native = DeepSpeedCPUAdam(masters, lr=1e-2, weight_decay=0.1)
+    plain = DeepSpeedCPUAdam(masters, lr=1e-2, weight_decay=0.1,
+                             impl="plain")
+    for step in range(3):
+        grad = torch.sin(w * (step + 1)) * 3.0          # made on the card
+        buf = tr.buffer("grad", 0, grad.numel(), torch.float32)
+        tr.after_compute()
+        ev = tr.to_host(buf, grad)
+        tr.wait(ev)
+        np.testing.assert_array_equal(buf.numpy(), grad.cpu().numpy())
+        native.step([buf.numpy()], grad_scale=2.0)
+        plain.step([buf.numpy()], grad_scale=2.0)
+    for a, b in zip(native.state_arrays()["master"],
+                    plain.state_arrays()["master"]):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_infinity_matches_in_hbm():
+    """A tiny ZeRO-Infinity engine on the card (3 layers, d_model 128, 2
+    heads of 64, T 128) against the in-HBM engine from the same params,
+    3 steps: losses within 5e-3, grad norms within 5 % (the JAX tests'
+    bounds); B1 twice and B2 once a layer a step, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.ops import build
+    dev = torch.device("cuda")
+    params = _offload_model().init_streamed(0, dev, torch.float32)
+    zero = {"stage": 3, "offload_param": {"device": "cpu"},
+            "offload_optimizer": {"device": "cpu"}}
+    inf, _, _, _ = dt.initialize(model=_offload_model(),
+                                 config=_offload_cfg(zero),
+                                 params=_tree_clone(params))
+    base, _, _, _ = dt.initialize(model=_offload_model(),
+                                  config=_offload_cfg(), params=params)
+    rs = np.random.RandomState(0)
+    batch = {"input_ids": rs.randint(0, 256, (4, 128)).astype(np.int32)}
+    for _ in range(3):
+        build.reset_launch_counts()
+        a = inf.train_step(batch)
+        counts = dict(build.launch_counts)
+        b = base.train_step(batch)
+        assert counts["flash_attention_fwd"] == 6
+        assert counts["flash_attention_bwd"] == 3
+        assert abs(float(a["loss"]) - float(b["loss"])) < 5e-3
+        assert abs(float(a["grad_norm"]) - float(b["grad_norm"])) < \
+            5e-2 * max(1.0, float(b["grad_norm"]))
+    inf._infinity.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planted", [False, True],
+                         ids=["waits", "planted-early-reuse"])
+def test_cuda_pinned_buffer_reuse_waits_on_its_event(planted, monkeypatch):
+    """The pipelined sweep refills a pinned buffer only after its copy's
+    event: with every copy held back on the side stream (a spin before
+    each), the updated params on the card equal the host masters' bf16
+    copies.  With the wait planted out, the host refills and reads the
+    ring under copies still in flight, and the result must differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.zero import offload as OF
+    dev = torch.device("cuda")
+
+    class Eng:
+        _config = DeepSpeedConfig({"train_batch_size": 1, "optimizer": {
+            "type": "AdamW", "params": {"lr": 1e-2}}})
+        device = dev
+    g = torch.Generator(device=dev).manual_seed(0)
+    leaves = [torch.randn(n, generator=g, device=dev)
+              for n in (300_000, 500_000, 200_000)]
+    host = OF.ZeroOffloadHostOptimizer(Eng(), leaves)
+    params = [p.to(torch.bfloat16) for p in leaves]
+    flat = torch.randn(sum(p.numel() for p in leaves), generator=g,
+                       device=dev)
+    to_host, to_device = OF.Transfers.to_host, OF.Transfers.to_device
+
+    def slow(fn):
+        def call(self, dst, src):
+            with torch.cuda.stream(self.stream):
+                torch.cuda._sleep(2_000_000)     # hold the copy back
+            return fn(self, dst, src)
+        return call
+    monkeypatch.setattr(OF.Transfers, "to_host", slow(to_host))
+    monkeypatch.setattr(OF.Transfers, "to_device", slow(to_device))
+    if planted:
+        monkeypatch.setattr(OF.Transfers, "wait", staticmethod(
+            lambda ev: None))
+    host.step_pipelined(flat, params, lr=1e-2, grad_scale=1.0,
+                        bucket_bytes=400_000)
+    torch.cuda.synchronize()
+    want = [torch.from_numpy(m).to(torch.bfloat16) for m in host.opt.master]
+    ref = OF.DeepSpeedCPUAdam([p.cpu() for p in leaves], lr=1e-2)
+    ref.step([t.numpy() for t in torch.split(
+        flat.cpu(), [p.numel() for p in leaves])])
+    same = all(torch.equal(p.cpu(), w) for p, w in zip(params, want)) and \
+        all(np.array_equal(a, b) for a, b in zip(host.opt.master,
+                                                 ref.master))
+    assert same != planted
+    host.close()
+
+
+@pytest.mark.cuda
+def test_cuda_host_offload_remat_matches_full():
+    """``remat="host_offload"`` on the card (the block input in pinned
+    host memory, copied on the compute stream) gives ``full``'s loss and
+    gradients exactly (the same kernels on the same inputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, 128))).long().to(dev)
+    out = {}
+    for remat in ("host_offload", "full"):
+        m = _offload_model(remat=remat)
+        p = m.init(torch.Generator(device=dev).manual_seed(0), dev,
+                   torch.float32)
+        leaves = [x.requires_grad_(True) for x in _leaves_of(p)]
+        loss = m.loss(p, {"input_ids": ids})
+        out[remat] = (loss.item(), torch.autograd.grad(loss, leaves))
+    assert out["host_offload"][0] == out["full"][0]
+    for a, b in zip(out["host_offload"][1], out["full"][1]):
+        assert torch.equal(a, b)
+
+
+def _leaves_of(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves_of(v)
+        else:
+            yield v
+
+
+@pytest.mark.cuda
+def test_cuda_tier1_offload_matches_in_hbm():
+    """ZeRO-Offload on the card (a tiny GPT-2, bf16 params on the card,
+    float32 masters and moments on the host) against the in-HBM engine
+    from the same params, 3 steps, the JAX tests' bounds; the device
+    params are the host masters' bf16 copies after each step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
+    dev = torch.device("cuda")
+    params = _offload_model().init(torch.Generator(device=dev).manual_seed(
+        0), dev, torch.float32)
+    off, _, _, _ = dt.initialize(model=_offload_model(), config=_offload_cfg(
+        {"stage": 2, "offload_optimizer": {"device": "cpu"}}, clip=1.0),
+        params=_tree_clone(params))
+    base, _, _, _ = dt.initialize(model=_offload_model(),
+                                  config=_offload_cfg(clip=1.0),
+                                  params=params)
+    batch = {"input_ids": np.random.RandomState(1).randint(
+        0, 256, (4, 128)).astype(np.int32)}
+    for _ in range(3):
+        a, b = off.train_step(batch), base.train_step(batch)
+        assert abs(float(a["loss"]) - float(b["loss"])) < 5e-3
+        assert abs(float(a["grad_norm"]) - float(b["grad_norm"])) < \
+            5e-2 * max(1.0, float(b["grad_norm"]))
+        for leaf, m in zip(tree_leaves(off.state["params"]),
+                           off._host_opt.opt.master):
+            assert torch.equal(leaf.cpu(),
+                               torch.from_numpy(m).to(torch.bfloat16))
+    off._host_opt.close()
+
+
+@pytest.mark.cuda
+def test_cuda_slot_store_page_lock():
+    """A DRAM slot store registered with CUDA copies a slot to the card
+    asynchronously and unregisters at close."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deepspeed_tpu_torch.runtime.swap_tensor import DramSlotStore
+    st = DramSlotStore(3, 1 << 20)
+    st.page_lock()
+    buf = st.acquire(1)
+    buf[:] = np.arange(buf.size) % 251
+    src = torch.from_numpy(buf)
+    assert src.is_pinned()
+    dst = src.to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dst.cpu(), src)
+    st.close()
+    assert not st._locked

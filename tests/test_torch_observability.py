@@ -259,6 +259,27 @@ def test_heartbeat_and_watchdog_equal_jax(tmp_path, monkeypatch):
     assert not phb.run_with_timeout(lambda: time.sleep(2.0), 0.05)
 
 
+def test_first_heartbeat_lands_on_a_freshly_booted_host(tmp_path,
+                                                       monkeypatch):
+    """``time.monotonic`` counts from boot: on a host up for less than the
+    interval the first ``maybe_beat`` still writes (the beater starts at
+    -inf), and the next one inside the interval does not."""
+    f = tmp_path / "hb"
+    clock = [5.0]
+    monkeypatch.setattr(phb.time, "monotonic", lambda: clock[0])
+    hb = phb.Heartbeat(path=str(f), interval_s=3600.0)
+    hb.maybe_beat()
+    assert f.exists()
+    first = os.path.getmtime(f)
+    os.utime(f, (first - 50, first - 50))
+    clock[0] = 3000.0
+    hb.maybe_beat()
+    assert os.path.getmtime(f) == first - 50
+    clock[0] = 3606.0
+    hb.maybe_beat()
+    assert os.path.getmtime(f) > first - 50
+
+
 def test_retry_counters():
     """``retry_call`` feeds ``dstpu_io_retries_total`` and
     ``dstpu_io_retry_giveups_total`` as in the JAX package."""

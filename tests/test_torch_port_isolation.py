@@ -215,3 +215,55 @@ def test_aio_host_library_builds_from_its_source(tmp_path):
     with pytest.raises(OSError):
         h.sync_pread(dst.array, str(tmp_path / "missing.swp"), 0)
     h.close()
+
+
+#: the offload slice's modules
+OFFLOAD = (
+    "deepspeed_tpu_torch.ops.adam", "deepspeed_tpu_torch.ops.adam.cpu_adam",
+    "deepspeed_tpu_torch.runtime.zero",
+    "deepspeed_tpu_torch.runtime.zero.offload",
+    "deepspeed_tpu_torch.runtime.zero.infinity",
+    "deepspeed_tpu_torch.runtime.zero.wire_codec",
+    "deepspeed_tpu_torch.runtime.swap_tensor.partitioned_optimizer_swapper")
+
+
+@pytest.mark.parametrize("module", OFFLOAD)
+def test_offload_modules_are_checked(module):
+    """The offload modules are among the modules whose imports the checks
+    above read, and none builds or loads a library while it is imported
+    (``csrc/cpu_adam.cpp`` is compiled at first use)."""
+    modules = dict(port_modules())
+    assert module in modules
+    calls = _import_time_calls(ast.parse(modules[module].read_text()))
+    assert not BUILDERS & set(calls), f"{module} builds at import"
+
+
+def test_offload_modules_import_alone():
+    """Importing the offload modules in a fresh interpreter loads no
+    forbidden package and builds or loads no library."""
+    code = (f"import importlib, json, sys\n"
+            f"for m in {OFFLOAD!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"from deepspeed_tpu_torch.ops import build\n"
+            f"print(json.dumps([sorted(m for m in sys.modules if "
+            f"m.split('.')[0] in {FORBIDDEN!r}), sorted(build._host_libs),"
+            f" sorted(build._libs)]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], [], []]
+
+
+def test_cpu_adam_source_is_the_ports_own_copy():
+    """``csrc/cpu_adam.cpp`` lives in the port, and its code (everything
+    after the header comment) is the JAX package's source, so both
+    libraries give the same bits; it is built from the port's file."""
+    from deepspeed_tpu_torch.ops import build
+    mine = (PORT / "csrc" / "cpu_adam.cpp").read_text()
+    ref = (REPO / "deepspeed_tpu" / "ops" / "csrc" / "cpu_adam.cpp").read_text()
+    start = "#include <cmath>"
+    assert mine[mine.index(start):] == ref[ref.index(start):]
+    assert "cpu_adam" in build.HOST_LIBS
+    path = build.host_library_path("cpu_adam")
+    assert path.parent == build.BUILD_DIR

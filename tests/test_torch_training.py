@@ -376,8 +376,12 @@ def test_config_keys_and_defaults_match_jax():
 @pytest.mark.parametrize("block", [
     {"sequence_parallel": {"enabled": True}},
     {"zero_optimization": {"stage": 1}},
-    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
-    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+    # offload runs on one device since its slice (tests/test_torch_offload.py,
+    # tests/test_torch_infinity.py); a ZeRO stage without it, and offload
+    # over a mesh of two devices, stay multi-device (queue A item 7)
+    {"zero_optimization": {"stage": 3}},
+    {"zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "cpu"}}, "mesh": {"data": 2}},
     {"mesh": {"model": 2}},
     {"pipeline": {"stages": 2}},
     {"tensorboard": {"enabled": True}},
@@ -392,14 +396,16 @@ def test_out_of_slice_blocks_raise(block):
 
 @pytest.mark.parametrize("override,what", [
     (dict(moe_num_experts=4, attention_layers=("global", "local")), "MoE"),
-    (dict(remat="host_offload"), "remat"),
+    pytest.param(dict(remat="host_offload", attn_impl="ulysses"), "ulysses",
+                 id="override1-remat"),
 ])
 def test_out_of_slice_model_options_raise(override, what):
     """Per-layer windows through the MoE superblock (which the JAX model
     refuses too; MoE itself trains since its slice, in
-    ``tests/test_torch_moe.py``) and host-offloaded remat (queue A item
-    8) raise; ALiBi, which raised here before, is the BLOOM family's
-    (``tests/test_torch_families.py``)."""
+    ``tests/test_torch_moe.py``) and Ulysses attention (queue A item 7),
+    also under host-offloaded remat, which runs since the offload slice
+    (``tests/test_torch_offload.py``), raise; ALiBi, which raised here
+    before, is the BLOOM family's (``tests/test_torch_families.py``)."""
     with pytest.raises(NotImplementedError, match=what):
         port_model(**override)
 
