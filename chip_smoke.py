@@ -46,7 +46,8 @@ Phases (any failure exits non-zero and prints no result line):
 6. training: ``initialize`` on GPT-2 125M (all 12 layers, seq 1024,
    ``remat="full"``, flash attention, fused loss head at chunk 256) with
    ``bench.py``'s config (micro batch 64, AdamW, bf16 over f32 masters,
-   clipping 1.0), weights from seed 0, 20 ``train_step``s on one seeded
+   clipping 1.0), weights from seed 0, 10 ``train_step``s (20 until
+   phase 31 came, for the run's time) on one seeded
    batch: every layer's forward (twice, with the remat recompute) runs
    kernel B1 and its backward kernel B2 (the profile prints their shares
    of the step's device time); then the same step with plain
@@ -225,18 +226,37 @@ Phases (any failure exits non-zero and prints no result line):
    against the in-HBM engine (3 steps, the JAX tests' bounds), then GPT-3
    6.7B at full width and depth on the host optimizer (seq 1024, micro 4,
    80 GB of host Adam state): s/step split into the grads, the host
-   sweep and the upload lane, the sweep's and the wire's GB/s, 3 steps at
-   wire 0 and 2 at wire 8; B1 and B2 launches exact;
+   sweep and the upload lane, the sweep's and the wire's GB/s, 1 step at
+   wire 0 and 1 at wire 8 (3 and 2 until phase 31 came, for the run's
+   time); B1 and B2 launches exact;
 29. ZeRO-Infinity at GPT-NeoX-20B width (``infinity_phase``): as many
    layers as the host's memory holds (12 wanted) streamed past the card,
-   pure stream then clip-gated at gas 2; 2 layers against the in-HBM
+   pure stream (2 steps) then clip-gated at gas 2 (1 step; 3 and 2
+   until phase 31 came, for the run's time); 2 layers against the in-HBM
    engine (B1, B3, B4 exact a layer) and on the NVMe tier bit-equal to
    DRAM;
 30. ``remat="host_offload"`` against ``remat="full"`` at GPT-NeoX 1.3B
    (``host_offload_phase``): equal losses, lower peak memory, the step
-   ratio.
+   ratio;
+31. data parallelism and ZeRO stages 0-3 (``zero_phase``) at phase 6's
+   GPT-2 125M configuration (seq 1024, flash, remat full, loss chunk 256,
+   AdamW lr 6e-4 and weight decay 0.1, bf16 over f32 masters, clipping
+   1.0; global batch 64), each world in child processes with a deadline:
+   (a) world 1 on NCCL at stage 3 against the engine without ZeRO in the
+   same process, each step from the same state (bit-equal expected: every
+   collective at world 1 is an identity; which held is printed), 3
+   steps; (b) world 4 over gloo, four ranks sharing the one card (NCCL
+   takes one card a rank) at micro 16 each, stages 0-3, 3 steps each,
+   each step from (a)'s state of that step (saved by (a), every rank
+   keeping its shards: ``adopt_state``): every rank's losses and grad
+   norms held to (a)'s engine without ZeRO within the same-state step
+   check, B1 24 and B2 12 launches a step on
+   every rank exactly, each rank's state bytes (counted from its
+   tensors) equal to the plan's count and stage 3's at most a quarter of
+   stage 0's plus its resident leaves'; per stage the bytes, peak
+   memory, ms/step and the comm log's bytes and GB/s per op and step.
 
-``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30`` (any of them)
+``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31`` (any of them)
 builds the kernels and runs only those phases ("3": phase 3's cases at the MoE
 shapes; "24": phases 24-27 on a fresh 6.7B engine), then prints no
 result line: a probe of the newest phases.
@@ -341,8 +361,9 @@ LSE_ATOL = 1e-3
 #: this limit too.
 F16_TOL = (1e-3, 2e-3)
 
-#: the training phase: bench.py's GPT-2 125M step (seq 1024, micro 64)
-TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 20
+#: the training phase: bench.py's GPT-2 125M step (seq 1024, micro 64),
+#: 10 steps (20 until phase 31 came: cut for the run's time)
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 10
 
 #: the TinyLlama-1.1B training phase: seq 2048, micro 8, 10 steps; flash
 #: against plain attention at micro 2
@@ -373,8 +394,8 @@ LLAMA_SERVE_LAYERS, QUANT_SERVE_LAYERS = 6, 8
 FP16_SERVE_LAYERS, NEOX20_SERVE_LAYERS = 8, 6
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
 #: takes tens of ms; its time is a yardstick, not a result), after one
-#: warm-up call (5 until the offload phases came)
-N_TIMED_PLAIN = 3
+#: warm-up call (5 until the offload phases came, 3 until phase 31 did)
+N_TIMED_PLAIN = 2
 
 
 def fail(msg: str) -> None:
@@ -2026,6 +2047,11 @@ def main(argv=None) -> int:
     # -- 28-30. ZeRO-Offload, ZeRO-Infinity, host_offload remat --------------
     off = offload_phases(torch, np, elapsed)
 
+    # -- 31. data parallelism and ZeRO stages 0-3 ----------------------------
+    free_card(torch, "ZeRO over data parallelism")
+    zero = zero_phase(torch, np)
+    elapsed("phase 31")
+
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
     paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
@@ -2119,7 +2145,8 @@ def main(argv=None) -> int:
           f"B1 {moe['trained']['flash_attention_fwd']}, B3 "
           f"{moe['trained']['flash_attention_bwd_dq']}, B4 "
           f"{moe['trained']['flash_attention_bwd_dkv']}; GPT-3 6.7B offload "
-          f"(5 steps): B1 {off['offload']['flash_attention_fwd']}, B2 "
+          f"({OFFLOAD_67_STEPS} steps): B1 "
+          f"{off['offload']['flash_attention_fwd']}, B2 "
           f"{off['offload']['flash_attention_bwd']}; GPT-NeoX-20B width "
           f"Infinity (2 layers, 3 steps): B1 "
           f"{off['infinity']['flash_attention_fwd']}, B3 "
@@ -2127,7 +2154,13 @@ def main(argv=None) -> int:
           f"{off['infinity']['flash_attention_bwd_dkv']}; GPT-NeoX 1.3B "
           f"host_offload (3 steps): B1 "
           f"{off['host_offload']['flash_attention_fwd']}, B2 "
-          f"{off['host_offload']['flash_attention_bwd']}")
+          f"{off['host_offload']['flash_attention_bwd']}; ZeRO world 1 "
+          f"on NCCL, stage 3 ({ZERO_STEPS} steps): B1 "
+          f"{zero['world1']['flash_attention_fwd']}, B2 "
+          f"{zero['world1']['flash_attention_bwd']}; ZeRO world 4 over "
+          f"gloo, stages 0-3 ({ZERO_STEPS} steps each), every rank: B1 "
+          f"{zero['world4']['flash_attention_fwd']}, B2 "
+          f"{zero['world4']['flash_attention_bwd']}")
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
@@ -5388,7 +5421,7 @@ def host_cache_phase(torch, np, eng, label) -> dict:
             for k, v in runs.items()}
 
 
-ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30"}
+ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5425,7 +5458,8 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         del eng
     for n, run in (("21", moe_serve_phase), ("22", moe_train_phase),
                    ("23", diffusion_phase), ("28", offload_phase),
-                   ("29", infinity_phase), ("30", host_offload_phase)):
+                   ("29", infinity_phase), ("30", host_offload_phase),
+                   ("31", zero_phase)):
         if n in only:
             free_card(torch, f"phase {n}")
             run(torch, np)
@@ -5452,7 +5486,9 @@ def new_phases(torch, np, elapsed) -> dict:
 # -- 28-30. offload: ZeRO-Offload, ZeRO-Infinity, host_offload remat ----------
 #: phase 28: the tier-1 parity model (phase 6's GPT-2 125M) at seq 1024,
 #: micro 4, 3 steps; the full-width run at GPT-3 6.7B, seq 1024, micro 4,
-#: 3 steps at wire 0 then 2 at offload_wire_bits 8
+#: 1 step at wire 0 then 1 at offload_wire_bits 8 (3 and 2 until phase 31
+#: came: cut for the run's time)
+OFFLOAD_67_STEPS, OFFLOAD_67_WIRE0 = 2, 1
 OFFLOAD_PARITY_MICRO, OFFLOAD_SEQ, OFFLOAD_67_MICRO = 4, 1024, 4
 #: the JAX tests' bounds for an offload engine against the in-HBM one
 #: (tests/unit/test_infinity.py:468-480): losses within 5e-3, grad norms
@@ -5464,6 +5500,9 @@ PARITY_LR = 1e-4
 #: parity and NVMe checks, INFINITY_LAYERS (cut to the host's memory at
 #: run time) for the run past the card's memory
 INFINITY_SEQ, INFINITY_PARITY_LAYERS, INFINITY_LAYERS = 2048, 2, 12
+#: (c)'s steps: pure stream, then clip-gated at gas 2 (3 and 2 until
+#: phase 31 came: cut for the run's time)
+INFINITY_PURE, INFINITY_CLIP = 2, 1
 #: host bytes a parameter of a streamed layer holds in DRAM/DRAM with the
 #: clip-gated accumulator: master, m, v (12), the bf16 slot (2), the
 #: float32 gradient sum (4)
@@ -5566,9 +5605,10 @@ def offload_phase(torch, np) -> dict:
     (b) GPT-3 6.7B at full width and depth (32 layers, d_model 4096),
     seq 1024, micro 4, remat full, flash, AdamW, bf16 over f32 masters on
     the host, clipping 1.0, ZeRO stage 2 with ``offload_optimizer:
-    {device: cpu, pin_memory: true}``: 3 steps at wire 0, then the same
-    engine's ``offload_wire_bits`` set to 8 for 2 more (a second engine
-    would need a second 80 GB of host state).  Nothing is cut."""
+    {device: cpu, pin_memory: true}``: ``OFFLOAD_67_WIRE0`` steps at wire
+    0, then the same engine's ``offload_wire_bits`` set to 8 for the rest
+    of ``OFFLOAD_67_STEPS`` (a second engine would need a second 80 GB of
+    host state).  Width and depth are not cut."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.transformer import (TransformerLM,
                                                         gpt2_config)
@@ -5636,8 +5676,8 @@ def offload_phase(torch, np) -> dict:
                                      dtype=np.int32)}
     build.reset_launch_counts()
     losses, rows = [], []
-    for i in range(5):
-        if i == 3:
+    for i in range(OFFLOAD_67_STEPS):
+        if i == OFFLOAD_67_WIRE0:
             eng._config.zero_config.offload_wire_bits = 8
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5647,7 +5687,8 @@ def offload_phase(torch, np) -> dict:
         losses.append(float(m["loss"]))
         sweep_gbs = 30 * n_params / max(t["sweep_s"], 1e-9) / 1e9
         rows.append((step_s, t))
-        print(f"  step {i} (wire {8 if i >= 3 else 0}): {step_s:.2f} s; "
+        print(f"  step {i} (wire {8 if i >= OFFLOAD_67_WIRE0 else 0}): "
+              f"{step_s:.2f} s; "
               f"offload/grads {t['grads_s']:.2f} s, offload/host_sweep "
               f"{t['wall_s']:.2f} s (fetch lane {t['fetch_s']:.2f}, sweep "
               f"{t['sweep_s']:.2f} = {sweep_gbs:.1f} GB/s of the 30 bytes "
@@ -5663,13 +5704,14 @@ def offload_phase(torch, np) -> dict:
     print(f"  loss on the repeated batch {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; peak device memory {peak / 1e9:.2f} GB; host "
           f"bytes {host_state / 1e9:.2f} GB of optimizer state; launches "
-          f"over 5 steps: B1 {counts['flash_attention_fwd']}, B2 "
+          f"over {OFFLOAD_67_STEPS} steps: B1 "
+          f"{counts['flash_attention_fwd']}, B2 "
           f"{counts['flash_attention_bwd']}")
-    check(losses[2] < losses[0], f"6.7B offload: loss did not fall "
+    check(losses[-1] < losses[0], f"6.7B offload: loss did not fall "
                                  f"{losses}")
     L = cfg.num_layers
-    check(counts["flash_attention_fwd"] == 5 * 2 * L
-          and counts["flash_attention_bwd"] == 5 * L,
+    check(counts["flash_attention_fwd"] == OFFLOAD_67_STEPS * 2 * L
+          and counts["flash_attention_bwd"] == OFFLOAD_67_STEPS * L,
           f"6.7B offload launches {counts}")
     eng._host_opt.close()
     del eng
@@ -5687,8 +5729,9 @@ def infinity_phase(torch, np) -> dict:
     host's memory is freshest, (c) past the card's memory:
     ``INFINITY_LAYERS`` layers, cut to what 80 % of the host's MemTotal
     holds at ``INFINITY_HOST_BYTES_PER_PARAM`` a streamed parameter (the
-    width is never cut), DRAM/DRAM, streamed init, 3 steps pure stream, then the
-    same engine at gas 2 with clipping 1.0 (clip-gated) for 2 steps.
+    width is never cut), DRAM/DRAM, streamed init, ``INFINITY_PURE`` steps
+    pure stream, then the same engine at gas 2 with clipping 1.0
+    (clip-gated) for ``INFINITY_CLIP`` steps.
     Then (a) 2 layers (1.53 B params) against the in-HBM engine from the
     same params, 3 steps (pure stream, lr ``PARITY_LR``), the JAX tests'
     bounds, B1 twice and B3/B4 once a layer (seq 2048 spans two 1024-row
@@ -5743,9 +5786,9 @@ def infinity_phase(torch, np) -> dict:
           f"layer cache {st.max_live_layers} layers; device after init "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     rows, losses = [], []
-    for i in range(5):
+    for i in range(INFINITY_PURE + INFINITY_CLIP):
         b = batch
-        if i >= 3:
+        if i >= INFINITY_PURE:
             # the same engine at gas 2 with clipping: the clip-gated mode
             st.gas = eng.gradient_accumulation_steps = 2
             st.clip = 1.0
@@ -5758,7 +5801,7 @@ def infinity_phase(torch, np) -> dict:
         losses.append(float(mt["loss"]))
         hidden = 1.0 - t["join_s"] / max(t["sweep_s"], 1e-9)
         rows.append((step_s, t))
-        print(f"  step {i} ({'clip-gated, gas 2' if i >= 3 else 'pure stream'}"
+        print(f"  step {i} ({'clip-gated, gas 2' if i >= INFINITY_PURE else 'pure stream'}"
               f"): {step_s:.2f} s; walk {t['walk_s']:.2f} s, device tail "
               f"{t['device_tail_s']:.2f}, exposed sweep {t['join_s']:.2f}, "
               f"clip sweep {t['clip_sweep_s']:.2f}; host sweep "
@@ -5786,9 +5829,11 @@ def infinity_phase(torch, np) -> dict:
           f"{res_step / 1e9:.2f}, {st.max_live_layers} layer buffers "
           f"{layer_bytes / 1e9:.2f}, {layers} stashes {stash / 1e9:.3f}) "
           f"plus one layer's recompute; host bytes {host / 1e9:.2f} GB; "
-          f"loss {losses[0]:.4f} -> {losses[2]:.4f} over the pure-stream "
+          f"loss {losses[0]:.4f} -> {losses[INFINITY_PURE - 1]:.4f} over "
+          f"the pure-stream "
           f"steps")
-    check(losses[2] < losses[0], f"Infinity loss did not fall {losses}")
+    check(losses[INFINITY_PURE - 1] < losses[0],
+          f"Infinity loss did not fall {losses}")
     st.close()
     del eng, st
     free_card(torch, "phase 29 (a)")
@@ -5925,6 +5970,267 @@ def offload_phases(torch, np, elapsed) -> dict:
     ho = host_offload_phase(torch, np)
     elapsed("phase 30")
     return {"offload": off, "infinity": inf, "host_offload": ho}
+
+
+# -- 31. data parallelism and ZeRO stages 0-3 ---------------------------------
+#: phase 6's model and batch: GPT-2 125M at seq 1024, global batch 64
+#: (micro 16 on each of 4 ranks), 3 steps a run
+ZERO_SEQ, ZERO_GLOBAL, ZERO_STEPS, ZERO_WORLD = 1024, 64, 3, 4
+#: each world's deadline (seconds): a rank that fails or hangs fails it
+ZERO_DEADLINE = 300
+
+#: the ranks' program: mode "a" is world 1 on NCCL (stage 3 against the
+#: engine without ZeRO, each step from the same state), mode "b" one rank
+#: of world 4 over gloo, all sharing card 0, stages 0-3 in turn; the
+#: result is one "P31RESULT" JSON line
+ZERO_WORKER = r'''
+import gc, json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.models.transformer import TransformerLM, gpt2_config
+from deepspeed_tpu_torch.ops import build
+from deepspeed_tpu_torch.runtime.dataloader import rank_slice
+from deepspeed_tpu_torch.runtime.optimizers import tree_leaves, tree_map
+
+mode, steps = os.environ["P31_MODE"], int(os.environ["P31_STEPS"])
+states = os.environ["P31_STATES"]
+seq, glob = int(os.environ["P31_SEQ"]), int(os.environ["P31_GLOBAL"])
+dt.init_distributed("nccl" if mode == "a" else "gloo",
+                    timeout=float(os.environ["P31_TIMEOUT"]))
+rank, world = comm.get_rank(), comm.get_world_size()
+# the ranks share the host's cores as they share the card
+torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+dev = torch.device("cuda", 0)
+cfg = gpt2_config("125m", max_seq_len=seq, remat="full", attn_impl="flash",
+                  loss_chunk=256)
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+
+def engine(stage):
+    config = {"train_micro_batch_size_per_gpu": glob // world,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {
+                  "lr": 6e-4, "weight_decay": 0.1}},
+              "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+              "steps_per_print": 0, "zero_optimization": {"stage": stage}}
+    return dt.initialize(model=TransformerLM(cfg), config=config,
+                         device=dev)[0]
+
+rs = np.random.RandomState(0)
+batch = {"input_ids": rs.randint(0, cfg.vocab_size, (glob, seq),
+                                 dtype=np.int32)}
+local = rank_slice(batch, 1, world, rank)
+out = {}
+if mode == "a":
+    z, p = engine(3), engine(0)
+    rows, counts = [], {k: 0 for k in KERNELS}
+    for i in range(steps):
+        p.state = tree_map(lambda t: t.clone(), z.state)
+        # the step's starting state, for world 4 to take the step from
+        torch.save(tree_map(lambda t: t.cpu(), z.state),
+                   os.path.join(states, f"state{i}.pt"))
+        build.reset_launch_counts()
+        mz = z.train_step(local)
+        mz = {k: float(v) for k, v in mz.items()}
+        for k in KERNELS:
+            counts[k] += build.launch_counts[k]
+        mp = {k: float(v) for k, v in p.train_step(local).items()}
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(z.state["params"]), tree_leaves(p.state["params"])))
+        rows.append({"zero": [mz["loss"], mz["grad_norm"]],
+                     "plain": [mp["loss"], mp["grad_norm"]],
+                     "params_equal": same})
+    out = {"rows": rows, "launches": counts,
+           "backend": comm.get_backend(), "zero_stage": z.zero_stage,
+           "dp": z.dp_world_size}
+else:
+    cl = comm.configure(enabled=False)
+    for stage in (0, 1, 2, 3):
+        eng = engine(stage)
+        cl.reset()
+        cl.configure(enabled=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        rows, ms = [], []
+        for i in range(steps):
+            # (a)'s state at this step, each rank keeping its shards
+            eng.adopt_state(torch.load(os.path.join(states, f"state{i}.pt"),
+                                       map_location=dev, weights_only=True),
+                            partial=False)
+            comm.barrier()
+            t0 = time.perf_counter()
+            m = eng.train_step(local)
+            rows.append([float(m["loss"]), float(m["grad_norm"])])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        log = cl.totals()
+        cl.configure(enabled=False)
+        z = eng._zero
+        resident = sum(int(np.prod(s)) for s, d in zip(
+            tree_leaves(eng._param_shapes), tree_leaves(z.master_dims))
+            if d is None)
+        out[str(stage)] = {
+            "rows": rows, "ms": ms,
+            "launches": {k: build.launch_counts[k] for k in KERNELS},
+            "bytes": eng.zero_state_bytes(),
+            "planned": z.planned_bytes(eng._param_shapes, 2),
+            "resident_params": resident,
+            "n_params": eng.num_parameters(),
+            "peak": torch.cuda.max_memory_allocated(), "log": log}
+        del eng, z
+        gc.collect()
+        torch.cuda.empty_cache()
+print("P31RESULT " + json.dumps(out), flush=True)
+comm.destroy_process_group()
+'''
+
+
+def _rank_result(text: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith("P31RESULT ")]
+    check(bool(lines), "phase 31: a rank printed no result:\n" + text[-2000:])
+    return json.loads(lines[-1][len("P31RESULT "):])
+
+
+def zero_phase(torch, np) -> dict:
+    """Phase 31: data parallelism with ZeRO stages 0-3 at phase 6's GPT-2
+    125M configuration, each world in child processes
+    (``comm/local_ranks.py``, deadline ``ZERO_DEADLINE``): (a) world 1 on
+    NCCL, (b) world 4 over gloo with four ranks sharing the card (see the
+    module docstring).  Returns the B1/B2 launches of (a) and of each
+    rank of (b) (every rank's are checked equal)."""
+    from deepspeed_tpu_torch.accelerator import nvidia_smi_line
+    import shutil
+    import tempfile
+    card = nvidia_smi_line(0)
+    # (a)'s starting state of each step (1.5 GB each) for (b): in shared
+    # memory where it has the room, else the temporary directory
+    shm = "/dev/shm"
+    base = shm if (Path(shm).is_dir() and shutil.disk_usage(shm).free
+                   > 4 * ZERO_STEPS * 2**30) else None
+    states = tempfile.mkdtemp(prefix="dstpu_zero_", dir=base)
+    env = {"P31_STEPS": str(ZERO_STEPS), "P31_SEQ": str(ZERO_SEQ),
+           "P31_GLOBAL": str(ZERO_GLOBAL), "P31_STATES": states,
+           "P31_TIMEOUT": str(ZERO_DEADLINE)}
+    try:
+        return _zero_runs(torch, np, card, env, states)
+    finally:
+        shutil.rmtree(states, ignore_errors=True)
+
+
+def _zero_runs(torch, np, card, env, states) -> dict:
+    """Phase 31's two worlds (see ``zero_phase``)."""
+    from deepspeed_tpu_torch.comm.local_ranks import run_ranks
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 12}
+
+    def within(label, got, want):
+        (lz, gz), (lp, gp) = got, want
+        ls = abs(lz - lp) / abs(lp) / STEP_LOSS_REL_TOL
+        gs = abs(gz - gp) / abs(gp) / STEP_GNORM_REL_TOL
+        check(ls <= 1 and gs <= 1, f"{label}: loss {lz} vs {lp}, grad norm "
+                                   f"{gz} vs {gp}")
+        return ls, gs
+
+    # (a) world 1 on NCCL
+    t0 = time.perf_counter()
+    (out,) = run_ranks(ZERO_WORKER, 1, ZERO_DEADLINE, cwd=str(REPO),
+                       env={**env, "P31_MODE": "a"})
+    a = _rank_result(out)
+    check(a["backend"] == "nccl" and a["zero_stage"] == 3 and a["dp"] == 1,
+          f"phase 31 (a): {a['backend']}, stage {a['zero_stage']}, dp "
+          f"{a['dp']}")
+    bit_equal = True
+    print(f"ZeRO (a) world 1 on NCCL, GPT-2 125M stage 3 against the engine "
+          f"without ZeRO, each step from the same state (seq {ZERO_SEQ}, "
+          f"micro {ZERO_GLOBAL}; {card}); {time.perf_counter() - t0:.1f} s "
+          f"with the child's start:")
+    for i, r in enumerate(a["rows"]):
+        same = r["zero"] == r["plain"] and r["params_equal"]
+        bit_equal &= same
+        ls, gs = within(f"phase 31 (a) step {i}", r["zero"], r["plain"])
+        print(f"  step {i}: loss {r['zero'][0]:.6f} against "
+              f"{r['plain'][0]:.6f}, grad norm {r['zero'][1]:.5f} against "
+              f"{r['plain'][1]:.5f} ({ls:.3g} / {gs:.3g} of the limits); "
+              + ("loss, grad norm and updated params bit-equal" if same else
+                 "not bit-equal, within the same-state check"))
+    print("  (a) held: " + ("bit-equal at every step" if bit_equal else
+                            "the same-state check (not bit-equal)"))
+    for k, n in per_step.items():
+        check(a["launches"][k] == n * ZERO_STEPS,
+              f"phase 31 (a): {k} launches {a['launches'][k]}")
+    plain = [r["plain"] for r in a["rows"]]
+
+    # (b) world 4 over gloo, sharing card 0
+    t0 = time.perf_counter()
+    outs = run_ranks(ZERO_WORKER, ZERO_WORLD, ZERO_DEADLINE, cwd=str(REPO),
+                     env={**env, "P31_MODE": "b"})
+    wall = time.perf_counter() - t0
+    ranks = [_rank_result(o) for o in outs]
+    micro = ZERO_GLOBAL // ZERO_WORLD
+    print(f"ZeRO (b) world {ZERO_WORLD} over gloo, the ranks sharing the "
+          f"card (NCCL takes one card a rank; each collective staged "
+          f"through pinned host memory), micro {micro} a rank, global batch "
+          f"{ZERO_GLOBAL}, {ZERO_STEPS} steps a stage, each from (a)'s "
+          f"state of that step (in {states}) ({card}); {wall:.1f} s with "
+          f"the children's start:")
+    totals = {}
+    for stage in ("0", "1", "2", "3"):
+        for r, res in enumerate(ranks):
+            st = res[stage]
+            for i, row in enumerate(st["rows"]):
+                within(f"phase 31 (b) stage {stage} rank {r} step {i}", row,
+                       plain[i])
+            for k, n in per_step.items():
+                check(st["launches"][k] == n * ZERO_STEPS,
+                      f"phase 31 (b) stage {stage} rank {r}: {k} launches "
+                      f"{st['launches'][k]}")
+            check(st["bytes"] == st["planned"],
+                  f"phase 31 (b) stage {stage} rank {r}: state bytes "
+                  f"{st['bytes']} against the plan's {st['planned']}")
+        r0 = ranks[0][stage]
+        n = r0["n_params"]
+        total = sum(r0["bytes"].values())
+        totals[stage] = (total, r0["resident_params"])
+        lshare = max(abs(res[stage]["rows"][i][0] - plain[i][0])
+                     / abs(plain[i][0]) / STEP_LOSS_REL_TOL
+                     for res in ranks for i in range(ZERO_STEPS))
+        gshare = max(abs(res[stage]["rows"][i][1] - plain[i][1])
+                     / abs(plain[i][1]) / STEP_GNORM_REL_TOL
+                     for res in ranks for i in range(ZERO_STEPS))
+        print(f"  stage {stage}: state "
+              + "/".join(f"{sum(res[stage]['bytes'].values()) / 1e9:.3f}"
+                         for res in ranks)
+              + f" GB (ranks 0-3) = {total / n:.2f} bytes a parameter ("
+              + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                          r0["bytes"].items())
+              + f" GB; the plan's count on every rank), whole on every "
+              f"rank {r0['resident_params'] / 1e6:.3f} M params; peak memory "
+              + "/".join(f"{res[stage]['peak'] / 2**30:.2f}" for res in ranks)
+              + " GiB (ranks 0-3); ms/step "
+              + "/".join(f"{max(res[stage]['ms'][i] for res in ranks):.0f}"
+                         for i in range(ZERO_STEPS))
+              + " (slowest rank, the first step included); loss "
+              + " ".join(f"{row[0]:.5f}" for row in r0["rows"])
+              + f"; at most {lshare:.3g} (loss) and {gshare:.3g} (grad norm)"
+              f" of the step check's limits on any rank")
+        for op, lg in sorted(r0["log"].items()):
+            print(f"    {op}: {lg['count'] // ZERO_STEPS} calls, "
+                  f"{lg['bytes'] / ZERO_STEPS / 1e6:.2f} MB a step a rank, "
+                  f"{lg['seconds'] / ZERO_STEPS * 1e3:.1f} ms a step; "
+                  f"algbw {lg['algbw_GBps']:.3f} GB/s, busbw "
+                  f"{lg['busbw_GBps']:.3f} GB/s")
+    s0, s3 = totals["0"][0], totals["3"][0]
+    res_bytes = 16 * totals["3"][1]
+    print(f"  stage 3 holds {s3 / 1e9:.3f} GB a rank against stage 0's "
+          f"{s0 / 1e9:.3f} / 4 + its resident leaves' {res_bytes / 1e9:.4f}")
+    check(s3 <= s0 / 4 + res_bytes,
+          f"phase 31: stage 3's {s3} bytes above {s0} / 4 + {res_bytes}")
+    return {"world1": a["launches"],
+            "world4": {k: sum(ranks[0][s]["launches"][k]
+                              for s in ("0", "1", "2", "3"))
+                       for k in per_step}}
 
 
 if __name__ == "__main__":

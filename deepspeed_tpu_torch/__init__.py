@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
+from .comm import init_distributed
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .models.transformer import (TransformerConfig, TransformerLM,
@@ -50,7 +51,8 @@ __all__ = ["DeepSpeedConfig", "DeepSpeedDataLoader", "DeepSpeedEngine",
            "hf_bert_config", "hf_bloom_config", "hf_distilbert_config",
            "hf_gpt2_config", "hf_gptj_config", "hf_gptneo_config",
            "hf_llama_config", "hf_neox_config", "hf_opt_config",
-           "init_diffusion", "init_inference", "initialize", "neox_config"]
+           "init_diffusion", "init_distributed", "init_inference",
+           "initialize", "neox_config"]
 
 
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
@@ -58,12 +60,18 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                lr_scheduler: Any = None, collate_fn: Any = None,
                config: Any = None, config_params: Any = None,
                loss_fn: Any = None, params: Optional[Dict[str, Any]] = None,
-               device=None, seed: int = 0) -> Tuple:
+               device=None, seed: int = 0,
+               dist_init_required: Optional[bool] = None,
+               dist_backend: str = "nccl") -> Tuple:
     """Build a training engine (``deepspeed_tpu.initialize``'s
     counterpart) and return ``(engine, optimizer, dataloader,
     lr_schedule)``.  ``params`` seeds the masters (see
-    ``models/convert.py``), else the model's init runs from ``seed``;
-    ``device`` defaults to the CUDA card and raises if there is none."""
+    ``models/convert.py``), else the model's init runs from ``seed``
+    (every rank the same); ``device`` defaults to this rank's card,
+    ``cuda:{LOCAL_RANK}``, and raises if it does not exist.
+    ``dist_init_required`` calls ``init_distributed(dist_backend)``
+    first, as the JAX ``initialize`` does; ranks that share one card
+    pass ``device="cuda:0"`` and ``dist_backend="gloo"``."""
     del model_parameters  # params are part of the engine state
     if config is None:
         config = config_params
@@ -71,6 +79,8 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         config = getattr(args, "deepspeed_config", None)
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize requires a model")
+    if dist_init_required:
+        init_distributed(dist_backend)
     ds_config = (config if isinstance(config, DeepSpeedConfig)
                  else DeepSpeedConfig(config or {}))
     engine = DeepSpeedEngine(model=model, config=ds_config,
@@ -81,7 +91,10 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(
             training_data, batch_size=engine.train_batch_size,
-            collate_fn=collate_fn)
+            collate_fn=collate_fn,
+            data_parallel_rank=engine.mesh.axis_index(("dcn_data", "data")),
+            data_parallel_world_size=engine.dp_world_size,
+            gradient_accumulation_steps=engine.gradient_accumulation_steps)
     return engine, engine.optimizer, dataloader, engine.lr_schedule
 
 

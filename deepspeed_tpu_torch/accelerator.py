@@ -16,9 +16,15 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means the card.  Raises when a CUDA device is requested
-    (explicitly or by default) and none is present."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` means the card of this rank: ``cuda:{LOCAL_RANK}``
+    (torchrun's contract; 0 without it).  Raises when a CUDA device is
+    requested (explicitly or by default) and none is present, or when
+    that card does not exist."""
+    if device is None:
+        from .comm import get_local_rank
+        dev = torch.device("cuda", get_local_rank())
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -26,6 +32,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "the plain PyTorch versions of the kernels on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"{dev} does not exist: {torch.cuda.device_count()} card(s) "
+                f"visible (ranks that share a card name it, as "
+                f"device='cuda:0', and run on dist_backend='gloo')")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev

@@ -29,6 +29,14 @@ exit).  Saves and loads bump ``dstpu_checkpoint_saves_total`` /
 ``checkpoint/publish``, ``checkpoint/verify`` and ``checkpoint/load_state``
 spans (``observability/``); the engine beats its heartbeat around a save.
 
+Under ZeRO or data parallelism a save writes the files a world-1 run
+writes: every rank takes part in gathering the whole state
+(``engine.full_state()``, collectives), rank 0 alone writes and commits
+it, and the ranks meet at a barrier.  A load reads the whole state on
+every rank and each keeps its shards (``engine.adopt_state``), so a
+save at one world size loads at any other, as the JAX engine restores
+into the current shardings.
+
 The offload engines save beside ``state.pt`` (synchronously, also under
 ``async_save``, as the JAX engine does): ZeRO-Infinity streams its host
 stores into ``<tag>/infinity/`` in the JAX package's layout
@@ -47,6 +55,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ... import comm
 from ...models.convert import check_params
 from ...observability import get_registry, trace_span
 from ...utils.logging import logger
@@ -116,7 +125,12 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     if async_save:
         wait_pending()   # publish the previous async save first
     get_registry().counter("dstpu_checkpoint_saves_total").inc()
-    tree = _state_tree(engine.state)
+    sharded = getattr(engine, "_zero", None) is not None
+    tree = _state_tree(engine.full_state() if sharded else engine.state)
+    if comm.get_rank() != 0:
+        # the whole state was gathered with every rank; rank 0 writes it
+        comm.barrier()
+        return path
     meta = {
         "tag": tag,
         "global_steps": engine.global_steps,
@@ -157,6 +171,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     _save_offload(engine, path, tag)
     if not async_save:
         _publish(os.path.abspath(save_dir), tag, meta, resilience)
+    comm.barrier()
     logger.info(f"saved checkpoint {path}" +
                 (" (async)" if async_save else ""))
     return path
@@ -364,6 +379,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     tag to load."""
     del load_lr_scheduler_states  # the schedule is a function of step
     wait_pending()
+    comm.barrier()     # rank 0's async save is published for every rank
     get_registry().counter("dstpu_checkpoint_loads_total").inc()
     explicit = tag is not None
     tag = _validate_tag(engine, load_dir, tag)
@@ -388,7 +404,12 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         if hasattr(engine.model, "param_shapes") and "params" in restored:
             check_params(engine.model, restored["params"])
         dev = engine.device
-        if partial:
+        sharded = getattr(engine, "_zero", None) is not None
+        if partial and sharded:
+            engine.adopt_state({"params": _to_device(restored["params"], dev),
+                                "step": restored["step"].to(dev)},
+                               partial=True)
+        elif partial:
             if "params" in restored:
                 engine.state["params"] = _to_device(restored["params"], dev)
             engine.state["step"] = restored["step"].to(dev)
@@ -398,7 +419,10 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             if scaler is not None and engine.loss_scaler is not None:
                 restored["scaler"] = LossScaleState(
                     **{k: v.to(dev) for k, v in scaler.items()})
-            engine.state = restored
+            if sharded:
+                engine.adopt_state(restored, partial=False)
+            else:
+                engine.state = restored
     _load_offload(engine, path, load_optimizer_states, load_module_only)
     engine.global_steps = meta.get("global_steps", 0)
     engine.micro_steps = meta.get("micro_steps", 0)

@@ -559,6 +559,13 @@ def _block(cls, pd: dict, key: str):
 
 
 # -- master config --------------------------------------------------------------------
+#: mesh axes whose size above 1 a later part of queue A item 7 brings
+_LATER_AXES = (("model", "tensor parallelism"),
+               ("pipe", "the pipeline, runtime/pipe/"),
+               ("sequence", "ring and Ulysses sequence parallelism"),
+               ("expert", "moe.ep_size above 1, expert parallelism"))
+
+
 class DeepSpeedConfig:
     """Parses the master dict (or a JSON path) and exposes the typed
     blocks, as the JAX ``DeepSpeedConfig`` does."""
@@ -742,30 +749,45 @@ class DeepSpeedConfig:
             raise ValueError("offload_param requires ZeRO stage 3")
 
     # -- this slice ------------------------------------------------------------------
-    def refuse_out_of_slice(self) -> None:
+    def refuse_out_of_slice(self, mesh_shape: Optional[Dict[str, int]] = None
+                            ) -> None:
         """Raise ``NotImplementedError`` for every block this slice of
-        the port parses but cannot run, naming the slice that brings it."""
+        the port parses but cannot run, naming the part of ROADMAP.md's
+        queue A that brings it.  ``mesh_shape``: the resolved mesh (its
+        axis sizes), once the engine has built it; before that the mesh
+        block's fixed sizes are checked."""
         later: List[str] = []
         z = self.zero_config
         offload = any(z.offload_device(name) != "none"
                       for name in ("offload_param", "offload_optimizer"))
-        if z.stage > 0 and not offload:
-            later.append(f"zero_optimization.stage {z.stage} without "
-                         f"offload: multi-device (queue A item 7)")
-        big = {k: v for k, v in self.mesh.sizes().items()
-               if v not in (1, -1)}
-        if big:
-            later.append(f"mesh {big}: a mesh of more than one device "
-                         f"(queue A item 7)")
+        sizes = mesh_shape or self.mesh.sizes()
+        for axis, part in _LATER_AXES:
+            if sizes.get(axis, 1) not in (1, -1):
+                later.append(f"mesh axis {axis}={sizes[axis]}: {part} "
+                             f"(queue A item 7)")
         if self.pipeline.stages not in ("auto", 1):
-            later.append(f"pipeline.stages {self.pipeline.stages}: pipeline "
-                         f"parallelism (queue A item 7)")
+            later.append(f"pipeline.stages {self.pipeline.stages}: the "
+                         f"pipeline, runtime/pipe/ (queue A item 7)")
         if self.sequence_parallel.enabled:
-            later.append("sequence_parallel: multi-device (queue A item 7)")
+            later.append("sequence_parallel: ring and Ulysses sequence "
+                         "parallelism (queue A item 7)")
         if self.tensor_parallel.enabled and \
                 max(self.tensor_parallel.tp_size,
                     self.tensor_parallel.autotp_size) > 1:
-            later.append("tensor_parallel: multi-device (queue A item 7)")
+            later.append("tensor_parallel: tensor parallelism "
+                         "(queue A item 7)")
+        if self.optimizer is not None and self.optimizer.type.lower() in (
+                "onebitadam", "onebitlamb", "zerooneadam"):
+            later.append(f"optimizer {self.optimizer.type}: the 1-bit "
+                         f"optimizers (queue A item 7)")
+        if offload:
+            dp = 1
+            for axis in ("data", "dcn_data", "expert"):
+                dp *= max(sizes.get(axis, 1), 1)    # -1: resolved later
+            if dp > 1:
+                later.append(f"offload at a data-parallel size of {dp}: "
+                             f"ZeRO-Infinity's dp-sharded part (queue A "
+                             f"item 7)")
         if self.monitor.enabled:
             later.append("tensorboard / wandb / csv_monitor: monitors "
                          "(queue A item 9's auxiliary subsystems)")

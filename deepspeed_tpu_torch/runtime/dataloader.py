@@ -1,9 +1,13 @@
 """Data loading.
 
-Counterpart of ``deepspeed_tpu/runtime/dataloader.py`` (numpy only): one
-host-side loader assembles the global batch ``[batch_size, ...]`` with
-deterministic shuffling, and the engine's ``shard_batch`` reshapes it to
-``[gas, micro, ...]`` and moves it to the device.
+Counterpart of ``deepspeed_tpu/runtime/dataloader.py`` (numpy only): a
+host-side loader walks the global index stream with deterministic
+shuffling, and the engine's ``shard_batch`` reshapes a batch to ``[gas,
+micro, ...]`` and moves it to the device.  With data parallelism each
+rank draws its slice of the same global index stream (``rank_slice``):
+of each micro batch's ``dp * micro`` rows, the ``micro`` rows at offset
+``rank * micro``, the rows device ``rank`` holds on the JAX engine's
+``data`` mesh (its batch sharding over dim 1 of ``[gas, micro * dp]``).
 
 Works with: numpy-array datasets (dict of arrays or (x, y) tuples),
 map-style datasets (len/__getitem__), and python iterables yielding
@@ -35,12 +39,32 @@ class RepeatingLoader:
             return next(self.data_iter)
 
 
+def rank_slice(batch: Any, gas: int, dp: int, rank: int) -> Any:
+    """This rank's rows of a global batch ``[gas * dp * micro, ...]`` (a
+    dict, tuple or list of arrays or tensors, or one array) as its
+    local batch ``[gas * micro, ...]``."""
+    if isinstance(batch, dict):
+        return {k: rank_slice(v, gas, dp, rank) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(rank_slice(v, gas, dp, rank) for v in batch)
+    if dp == 1:
+        return batch
+    n = batch.shape[0]
+    if n % (gas * dp):
+        raise ValueError(f"global batch of {n} rows is not gas ({gas}) x "
+                         f"dp ({dp}) x micro")
+    rest = tuple(batch.shape[1:])
+    local = batch.reshape((gas, dp, n // (gas * dp)) + rest)[:, rank]
+    return local.reshape((n // dp,) + rest)
+
+
 class DeepSpeedDataLoader:
     """Global-batch loader with deterministic shuffling + curriculum hook.
 
-    ``batch_size`` is the GLOBAL train batch (micro * gas * dp_world); every
-    `__next__` returns one optimizer step's data shaped
-    [batch_size, ...] (the engine reshapes to [gas, micro*dp, ...]).
+    ``batch_size`` is the GLOBAL train batch (micro * gas * dp_world);
+    every ``__next__`` returns one optimizer step's data of this rank:
+    ``[batch_size, ...]`` at one rank, its ``rank_slice`` of the step's
+    indices (``[batch_size / dp, ...]``) with data parallelism.
     """
 
     def __init__(self,
@@ -50,8 +74,24 @@ class DeepSpeedDataLoader:
                  seed: int = 0,
                  drop_last: bool = True,
                  collate_fn: Optional[Callable] = None,
-                 data_sampler: Optional[Iterator] = None):
+                 data_sampler: Optional[Iterator] = None,
+                 data_parallel_rank: int = 0,
+                 data_parallel_world_size: int = 1,
+                 gradient_accumulation_steps: int = 1):
+        if batch_size % (data_parallel_world_size
+                         * gradient_accumulation_steps):
+            raise ValueError(
+                f"batch_size {batch_size} is not a multiple of dp "
+                f"{data_parallel_world_size} x gas "
+                f"{gradient_accumulation_steps}")
+        if data_parallel_world_size > 1 and not drop_last:
+            raise ValueError("a partial last batch cannot be cut into "
+                             "equal rank slices: data parallelism needs "
+                             "drop_last=True")
         self.dataset = dataset
+        self.dp_rank = data_parallel_rank
+        self.dp_world = data_parallel_world_size
+        self.gas = gradient_accumulation_steps
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -106,6 +146,9 @@ class DeepSpeedDataLoader:
         self.epoch += 1
 
     def _collate(self, idxs):
+        if self.dp_world > 1:
+            idxs = rank_slice(np.asarray(idxs), self.gas, self.dp_world,
+                              self.dp_rank)
         items = [self.dataset[int(i)] for i in idxs]
         if self.collate_fn is not None:
             return self.collate_fn(items)

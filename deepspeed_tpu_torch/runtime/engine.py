@@ -39,6 +39,26 @@ ZeRO-Infinity (``zero/infinity.py``: the params live in host or NVMe
 slot stores and stream a layer at a time); both return host metrics and
 refuse the compat ``forward``/``backward``/``step``.
 
+Data parallelism with ZeRO stages 0-3 (``zero_optimization.stage``
+without offload, or a ``mesh`` whose ``data``/``dcn_data`` axes are
+above 1) runs one process per rank on ``torch.distributed``
+(``comm.init_distributed``): the engine builds the rank's
+``ProcessMesh`` and a ``ZeroPartition`` (``zero/partitioned.py``) from
+the JAX package's sharding policy (``zero/sharding.py``), so rank r
+holds the shards device r holds on the JAX engine's ``data`` mesh.
+Each rank runs its local slice of the global batch; the step then
+all-reduces the summed grads (stage 0, 1; stage 1 keeps its shard),
+reduce-scatters them each micro batch (stage 2), or takes them from
+stage 3's per-layer gather (``GatherCast``'s backward), updates its
+float32 master and moment shards, and all-gathers the new
+compute-dtype params (stages 1-2).  Each rank's backward runs at the
+loss scale over dp, so the sum over the ranks is the global mean's
+gradient.  The global norm sums each shard's squares over the ranks and
+counts a resident leaf once; an fp16 overflow is reduced over the
+ranks; the loss is the ranks' mean.  On
+``nccl`` nothing in the step waits for the card; ``gloo`` stages each
+collective through host memory (``comm.py``).
+
 Metrics come back as device tensors, as the JAX engine returns device
 scalars; nothing in a step waits for the card unless ``steps_per_print``,
 ``wall_clock_breakdown`` or the ``observability`` block asks to read
@@ -62,8 +82,10 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import resolve_device
-from ..models.convert import check_params, leaf_to_torch
+from ..models.convert import OPT_TREES, check_params, leaf_to_torch
+from ..parallel.topology import build_mesh, dp_world_size, mp_world_size
 from ..observability import trace_span
 from ..utils.logging import logger
 from . import lr_schedules
@@ -123,6 +145,16 @@ class DeepSpeedEngine:
                         else DeepSpeedConfig(config or {}))
         self._config.refuse_out_of_slice()
         self.device = resolve_device(device)
+        # the rank's place on the mesh (one rank, all axes 1, without
+        # torch.distributed); collectives resolve axis names against it
+        self.mesh = build_mesh(self._config.mesh)
+        comm.set_mesh(self.mesh)
+        self.dp_world_size = dp_world_size(self.mesh)
+        self.mp_world_size = mp_world_size(self.mesh)
+        self._config.refuse_out_of_slice(mesh_shape=self.mesh.shape)
+        if self._config.comms_logger_dict and \
+                self._config.comms_logger_dict.get("enabled"):
+            comm.configure(config=self._config.comms_logger_dict)
         # worker side of a hung-worker watchdog: beat the file named by
         # DSTPU_HEARTBEAT_FILE once per interval (no-op without it)
         self._heartbeat = Heartbeat(
@@ -140,7 +172,6 @@ class DeepSpeedEngine:
             self._obs.set_collector("engine", self._obs_collect)
         model = self._apply_training_overrides(model)
         self.model = model
-        self.dp_world_size = 1
         self._config.resolve_batch_sizes(self.dp_world_size)
         self.zero_stage = self._config.zero_optimization_stage
         self.fp16_enabled = self._config.fp16.enabled
@@ -182,6 +213,17 @@ class DeepSpeedEngine:
                 "offload needs a config-named optimizer (Adam/AdamW/"
                 "Adagrad) — the host step runs in native code, not "
                 "through a user optimizer object")
+        # ZeRO over the data-parallel ranks (zero/partitioned.py); built
+        # in init_state once the params' shapes are known
+        self._zero = None
+        self._live = None
+        self._zero_bytes: Dict[str, int] = {}
+        if offload_mode == "none" and (self.zero_stage >= 1
+                                       or self.dp_world_size > 1):
+            self._refuse_zero_optimizer()
+            self._zero_path = True
+        else:
+            self._zero_path = False
         self.state = self.init_state(params, seed)
         self._grad_acc = None
         self._grad_acc_count = 0
@@ -278,6 +320,8 @@ class DeepSpeedEngine:
                     self.device, torch.float32), params)
         if self.offload_enabled:
             return self._init_state_offload(params)
+        if self._zero_path:
+            return self._init_state_zero(params)
         if not self._config.bf16.master_weights and self.bf16_enabled:
             params = tree_map(lambda p: p.to(torch.bfloat16), params)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -286,6 +330,150 @@ class DeepSpeedEngine:
         if self.loss_scaler is not None:
             state["scaler"] = self.loss_scaler.init(self.device)
         return state
+
+    def _refuse_zero_optimizer(self) -> None:
+        """The optimizers a data-parallel ZeRO step cannot run on shards:
+        LAMB's trust ratio spans a whole leaf, and a client torch.optim
+        optimizer's state is not a tree of the params' shape."""
+        if self.dp_world_size == 1 or self.zero_stage == 0:
+            return
+        if self.optimizer.name == "lamb":
+            raise NotImplementedError(
+                "LAMB under ZeRO stage >= 1 at a data-parallel size above "
+                "1: its trust ratio spans a whole leaf, which no rank "
+                "holds (not in the PyTorch port yet)")
+        if self.optimizer.hyperparams.get("external_lr"):
+            raise NotImplementedError(
+                "a client torch.optim optimizer under ZeRO stage >= 1 at a "
+                "data-parallel size above 1 (not in the PyTorch port yet)")
+
+    def _init_state_zero(self, params) -> Dict[str, Any]:
+        """ZeRO init: the plans from the whole params' shapes, then this
+        rank keeps its float32 master shards, its moment shards (the
+        optimizer's init over the shards) and, at stages 1-2, the whole
+        params in the compute dtype."""
+        from .zero.partitioned import ZeroPartition, shape_tree
+        from .zero.sharding import ZeroShardingPolicy
+        zc = self._config.zero_config
+        policy = ZeroShardingPolicy(
+            self.zero_stage, self.mesh, params,
+            param_persistence_threshold=(zc.param_persistence_threshold
+                                         if self.zero_stage >= 3 else 0))
+        self._zero = ZeroPartition(policy, self.mesh)
+        self._param_shapes = shape_tree(params)
+        if not self._config.bf16.master_weights and self.bf16_enabled:
+            params = tree_map(lambda p: p.to(torch.bfloat16), params)
+        masters = self._zero.shard(params, self._zero.master_dims)
+        if self.zero_stage in (1, 2):
+            self._live = self._cast_for_compute(params)
+        del params
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        state = {"step": zero.clone(), "skipped": zero.clone(),
+                 "params": masters, "opt": self.optimizer.init(masters)}
+        if self.loss_scaler is not None:
+            state["scaler"] = self.loss_scaler.init(self.device)
+        return state
+
+    def _zero_micro(self, mb, scale):
+        """(scaled loss, float32 grads) of one micro batch on this rank
+        under ZeRO: stage 0 through the cast of the whole masters, stages
+        1-2 of the live compute-dtype params, stage 3 of the master
+        shards through the per-layer gather (sharded leaves' grads come
+        back reduce-scattered)."""
+        z, dtype = self._zero, self.compute_dtype
+        if self.zero_stage == 0:
+            return self._micro_loss_and_grads(self.state["params"], mb,
+                                              scale)
+        src = self._live if self.zero_stage < 3 else self.state["params"]
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), src)
+        with z.hooks(self.model, dtype):
+            with trace_span("engine/forward", micro_step=self.micro_steps):
+                params = (leaves if self.zero_stage < 3 else
+                          z.stage3_params(leaves, dtype))
+                loss = self._loss_fn(params, mb) * scale
+            with trace_span("engine/backward", micro_step=self.micro_steps):
+                grads = torch.autograd.grad(loss, list(tree_leaves(leaves)))
+        it = iter(g.to(torch.float32) for g in grads)
+        return loss.detach(), tree_map(lambda _: next(it), leaves)
+
+    def _zero_accumulate(self, batch, scale):
+        """The gas loop under ZeRO: each micro batch's grads, of its loss
+        times ``scale / dp``, reduced as the stage says
+        (``ZeroPartition.reduce_micro``) and summed in place; then
+        ``finish`` (the step's all-reduces) and the loss summed over the
+        ranks."""
+        gsum, lsum = None, torch.zeros((), dtype=torch.float32,
+                                       device=self.device)
+        # each rank's loss is its local mean: over dp it is 1/dp of the
+        # global mean's, so the backward runs at scale / dp and the grads
+        # summed over the ranks are the global mean's (the JAX engine's,
+        # and an fp16 overflow at the same scale)
+        scale = scale / self.dp_world_size
+        for i in range(self.gradient_accumulation_steps):
+            mb = {k: v[i] for k, v in batch.items()}
+            loss, grads = self._zero_micro(mb, scale)
+            grads = self._zero.reduce_micro(grads)
+            gsum = grads if gsum is None else tree_map(
+                lambda a, b: a.add_(b), gsum, grads)
+            lsum = lsum + loss
+        self._zero_bytes = self.zero_state_bytes(grads=gsum)
+        gsum = self._zero.finish(gsum)
+        lsum = comm.all_reduce(lsum, comm.ReduceOp.SUM, self._zero.axes)
+        return gsum, lsum
+
+    def zero_state_bytes(self, grads=None) -> Dict[str, int]:
+        """This rank's bytes by kind, counted from its tensors: float32
+        masters (``params``), the optimizer's trees of the params' shape
+        (``opt``: moments, momentum or sums; not its counters), the live
+        compute-dtype params (``live``, stages 1-2) and the last step's
+        float32 gradient sum (``grads``, as it stood before the step's
+        final reduction)."""
+        from .zero.partitioned import tree_bytes
+        b = {"params": tree_bytes(self.state["params"]),
+             "opt": sum(tree_bytes(self.state["opt"][k])
+                        for k in OPT_TREES if k in self.state["opt"]),
+             "live": tree_bytes(self._live or {})}
+        if grads is not None:
+            b["grads"] = tree_bytes(grads)
+        elif "grads" in self._zero_bytes:
+            b["grads"] = self._zero_bytes["grads"]
+        return b
+
+    def full_state(self) -> Dict[str, Any]:
+        """The train state as a world-1 run keeps it: every rank's master
+        and moment shards all-gathered (a collective: every rank calls
+        it)."""
+        if self._zero is None:
+            return self.state
+        z = self._zero
+        st = dict(self.state)
+        st["params"] = z.gather(self.state["params"], z.master_dims)
+        opt = dict(self.state["opt"])
+        for k in OPT_TREES:
+            if k in opt:
+                opt[k] = z.gather(opt[k], z.master_dims)
+        st["opt"] = opt
+        return st
+
+    def adopt_state(self, full: Dict[str, Any], partial: bool) -> None:
+        """A world-1 layout state (from a checkpoint, on the device) →
+        this rank's shards; ``partial`` takes the params and step
+        only."""
+        z = self._zero
+        if partial:
+            self.state["params"] = z.shard(full["params"], z.master_dims)
+            self.state["step"] = full["step"]
+        else:
+            st = dict(full)
+            st["params"] = z.shard(full["params"], z.master_dims)
+            opt = dict(full["opt"])
+            for k in OPT_TREES:
+                if k in opt:
+                    opt[k] = z.shard(opt[k], z.master_dims)
+            st["opt"] = opt
+            self.state = st
+        if self.zero_stage in (1, 2):
+            self._live = self._cast_for_compute(full["params"])
 
     def _init_state_offload(self, params) -> Dict[str, Any]:
         """Offload init: each float32 leaf's host copy becomes a master of
@@ -495,10 +683,15 @@ class DeepSpeedEngine:
                     and self.loss_scaler.detect_overflow):
                 overflow = DynamicLossScaler.has_overflow(
                     tree_leaves(grads)).to(self.device)
+                if self._zero is not None:
+                    # each rank checked its shards: every rank skips
+                    # the step if any saw an inf or NaN
+                    overflow = self._zero.reduce_flag(overflow)
             else:
                 overflow = torch.zeros((), dtype=torch.bool,
                                        device=self.device)
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if self._zero is None
+                 else self._zero.global_norm(grads))
         if cfg.resilience.skip_nonfinite_grad_steps:
             # a NaN/Inf global norm would poison params and moments:
             # skip the update and count it in state["skipped"]
@@ -546,11 +739,13 @@ class DeepSpeedEngine:
     # native API
     # ------------------------------------------------------------------
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Host batch ``[gas * micro, ...]`` or ``[gas, micro, ...]`` →
-        tensors ``[gas, micro, ...]`` on the engine's device (token ids
-        as int64)."""
+        """This rank's host batch ``[gas * micro, ...]`` or ``[gas, micro,
+        ...]`` → tensors ``[gas, micro, ...]`` on the engine's device
+        (token ids as int64).  With data parallelism each process passes
+        its local slice of the global batch, the JAX engine's multi-host
+        contract (``runtime/dataloader.py::rank_slice`` cuts it)."""
         gas = self.gradient_accumulation_steps
-        global_b = self.train_batch_size
+        global_b = self.train_batch_size // self.dp_world_size
 
         def prep(x):
             t = x if isinstance(x, torch.Tensor) else \
@@ -562,7 +757,9 @@ class DeepSpeedEngine:
             elif not (t.dim() >= 2 and t.shape[0] == gas):
                 raise ValueError(
                     f"batch leading dim {t.shape[0]} matches neither the "
-                    f"batch ({global_b}) nor [gas={gas}, ...] layout")
+                    f"process-local batch ({global_b}"
+                    f"{f' = {self.train_batch_size}/{self.dp_world_size} ranks' if self.dp_world_size > 1 else ''}"
+                    f") nor [gas={gas}, ...] layout")
             return t.to(self.device, non_blocking=True)
         return {k: (moe_seeds(v, gas) if k == "moe_rng" else prep(v))
                 for k, v in batch.items()}
@@ -588,12 +785,18 @@ class DeepSpeedEngine:
         with trace_span("engine/train_step", mode="eager",
                         step=self.global_steps):
             scale = self._current_scale()
-            gsum, lsum = self._accumulate_micro_grads(self.state, batch,
-                                                      scale)
+            if self._zero is None:
+                gsum, lsum = self._accumulate_micro_grads(self.state, batch,
+                                                          scale)
+            else:
+                gsum, lsum = self._zero_accumulate(batch, scale)
             gas = self.gradient_accumulation_steps
             with trace_span("engine/optimizer_step", step=self.global_steps):
                 self.state, metrics = self._apply_grads(self.state, gsum,
                                                         float(gas))
+                if self._live is not None:
+                    self._live = self._zero.live_params(
+                        self.state["params"], self.compute_dtype)
             metrics["loss"] = lsum / (scale * gas)
         # launches returned: the overlap profiler's enqueue/device-wait
         # boundary (the wait ends at the step_sync join below)
@@ -723,8 +926,18 @@ class DeepSpeedEngine:
         sq = {k: (v[0] if k == "moe_rng" else
                   v.reshape((-1,) + tuple(v.shape[2:])))
               for k, v in self.shard_batch(batch).items()}
-        return self._loss_fn(self._cast_for_compute(self.state["params"]),
-                             sq)
+        if self._zero is None:
+            return self._loss_fn(
+                self._cast_for_compute(self.state["params"]), sq)
+        z, dtype = self._zero, self.compute_dtype
+        with z.hooks(self.model, dtype):
+            if self.zero_stage in (1, 2):
+                params = self._live
+            elif self.zero_stage == 3:
+                params = z.stage3_params(self.state["params"], dtype)
+            else:
+                params = self._cast_for_compute(self.state["params"])
+            return z.mean(self._loss_fn(params, sq))
 
     # ------------------------------------------------------------------
     # compat API: forward / backward / step
@@ -736,6 +949,11 @@ class DeepSpeedEngine:
             raise NotImplementedError(
                 "the compat forward/backward/step surface is not wired for "
                 "offload — use train_step()/train_batch()")
+        if self._zero is not None:
+            raise NotImplementedError(
+                "the compat forward/backward/step surface runs ZeRO stage 0 "
+                "on one rank — use train_step()/train_batch() under ZeRO "
+                "or data parallelism")
         mb = {k: (v if isinstance(v, torch.Tensor) else
                   torch.from_numpy(np.ascontiguousarray(np.asarray(v))))
               for k, v in batch.items()}
@@ -795,6 +1013,9 @@ class DeepSpeedEngine:
     def num_parameters(self) -> int:
         if self.infinity_enabled:
             return self._infinity.total_params
+        if self._zero is not None:
+            return sum(int(np.prod(s)) for s in
+                       tree_leaves(self._param_shapes))
         return sum(int(p.numel()) for p in tree_leaves(self.state["params"]))
 
     # ------------------------------------------------------------------

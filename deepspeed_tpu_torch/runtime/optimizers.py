@@ -22,7 +22,7 @@ chosen by ``torch.where``, no host branch).
 ``wrap_torch`` is the counterpart of ``wrap_optax``: a client
 ``torch.optim.Optimizer`` (a class or factory of a list of tensors)
 becomes an :class:`Optimizer` that carries its own learning rate.  The
-1-bit optimizers are multi-device (ROADMAP queue A item 7) and raise
+1-bit optimizers are a later part of ROADMAP queue A item 7 and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -248,8 +248,8 @@ def get_optimizer(name: str, **params) -> Optimizer:
             params.pop("weight_decay", 0.0)))
     if name_l in ("onebitadam", "onebitlamb", "zerooneadam"):
         raise NotImplementedError(
-            f"optimizer {name}: the 1-bit optimizers are multi-device "
-            f"(ROADMAP.md queue A item 7), not in the PyTorch port yet")
+            f"optimizer {name}: the 1-bit optimizers (ROADMAP.md queue A "
+            f"item 7), not in the PyTorch port yet")
     raise ValueError(f"Unknown optimizer: {name}")
 
 

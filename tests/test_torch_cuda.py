@@ -2773,3 +2773,148 @@ def test_cuda_slot_store_page_lock():
     assert torch.equal(dst.cpu(), src)
     st.close()
     assert not st._locked
+
+
+# -- data parallelism and ZeRO (comm/, runtime/zero/partitioned.py) -----------
+_ZERO_SMALL = dict(num_layers=2, d_model=128, num_heads=4, vocab_size=512,
+                   max_seq_len=256, attn_impl="flash", remat="full",
+                   loss_chunk=64)
+
+#: a rank of a world sharing card 0 over gloo, or of world 1 on NCCL
+#: (``ZT_BACKEND``): a small GPT-2 at ``ZT_STAGE``, 3 steps on the global
+#: batch of 8 (its rank slice), the losses and grad norms on a
+#: "ZTRESULT" line
+_ZERO_RANK = r'''
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.models.transformer import TransformerLM, gpt2_config
+from deepspeed_tpu_torch.runtime.dataloader import rank_slice
+dt.init_distributed(os.environ["ZT_BACKEND"], timeout=120)
+world = comm.get_world_size()
+small = json.loads(os.environ["ZT_MODEL"])
+eng = dt.initialize(model=TransformerLM(gpt2_config("125m", **small)),
+                    config={"train_micro_batch_size_per_gpu": 8 // world,
+                            "gradient_accumulation_steps": 1,
+                            "bf16": {"enabled": True},
+                            "gradient_clipping": 1.0, "steps_per_print": 0,
+                            "zero_optimization": {
+                                "stage": int(os.environ["ZT_STAGE"]),
+                                "param_persistence_threshold": 0}},
+                    device="cuda:0")[0]
+batch = {"input_ids": np.random.RandomState(0).randint(
+    0, small["vocab_size"], (8, small["max_seq_len"])).astype(np.int32)}
+local = rank_slice(batch, 1, world, comm.get_rank())
+rows = [[float(v) for v in (m["loss"], m["grad_norm"])]
+        for m in (eng.train_step(local) for _ in range(3))]
+print("ZTRESULT " + json.dumps(rows), flush=True)
+comm.destroy_process_group()
+'''
+
+
+def _zero_ranks(world, backend, stage):
+    import json
+    import os
+    from deepspeed_tpu_torch.comm.local_ranks import run_ranks
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = run_ranks(_ZERO_RANK, world, timeout=300, cwd=repo,
+                     env={"ZT_BACKEND": backend, "ZT_STAGE": str(stage),
+                          "ZT_MODEL": json.dumps(_ZERO_SMALL)})
+    return [json.loads([ln for ln in o.splitlines()
+                        if ln.startswith("ZTRESULT ")][-1][9:]) for o in outs]
+
+
+@pytest.mark.cuda
+def test_cuda_zero3_two_ranks_sharing_a_card_match_world_one():
+    """Two ranks over gloo on card 0 at ZeRO stage 3 (each layer gathered
+    from the other rank's shards, through host memory) against one rank
+    on NCCL at stage 0 on the same global batch: the same losses and grad
+    norms within the same-state step check's limits (bf16; the two
+    reduce in other orders), equal on both ranks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    two = _zero_ranks(2, "gloo", 3)
+    (one,) = _zero_ranks(1, "nccl", 0)
+    assert two[0] == two[1]
+    for (l2, g2), (l1, g1) in zip(two[0], one):
+        assert abs(l2 - l1) <= 2e-3 * abs(l1)
+        assert abs(g2 - g1) <= 2e-2 * abs(g1)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_two_ranks_on_one_card_raise():
+    """NCCL takes one card a rank: two ranks on a one-card node raise and
+    name gloo, never switching backend themselves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs a node of exactly one card")
+    from deepspeed_tpu_torch.comm.local_ranks import RanksFailed
+    with pytest.raises(RanksFailed, match="share a card run on 'gloo'"):
+        _zero_ranks(2, "nccl", 0)
+
+
+_COLLECTIVES_RANK = r'''
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch import comm
+dt.init_distributed(os.environ["ZT_BACKEND"], timeout=60)
+rank, world = comm.get_rank(), comm.get_world_size()
+dev = torch.device("cuda", 0)
+out = {}
+for dtype in (torch.float32, torch.bfloat16):
+    x = (torch.arange(96, dtype=torch.float32, device=dev).reshape(4, 24)
+         + 100 * rank).to(dtype)
+    res = {"all_reduce": comm.all_reduce(x.clone()),
+           "all_gather": comm.all_gather(x, axis=1),
+           "reduce_scatter": comm.reduce_scatter(x.clone(),
+                                                 scatter_dimension=1),
+           "all_to_all": comm.all_to_all_single(x, "data", 1, 0),
+           "broadcast": comm.broadcast(x.clone(), src=world - 1)}
+    for k, v in res.items():
+        assert v.is_cuda and v.dtype == dtype, (k, v.device, v.dtype)
+        out[f"{dtype}/{k}"] = v.float().cpu().tolist()
+print("ZTRESULT " + json.dumps(out), flush=True)
+comm.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_cuda_collectives_on_card_tensors(backend, world):
+    """Every collective of ``comm`` on CUDA tensors: over gloo each goes
+    through a pinned host buffer and comes back on the card, in its
+    dtype, equal to the sum, concatenation, slice or exchange; on NCCL at
+    world 1 each is an identity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import os
+    from deepspeed_tpu_torch.comm.local_ranks import run_ranks
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = run_ranks(_COLLECTIVES_RANK, world, timeout=180, cwd=repo,
+                     env={"ZT_BACKEND": backend})
+    res = [json.loads([ln for ln in o.splitlines()
+                       if ln.startswith("ZTRESULT ")][-1][9:]) for o in outs]
+    xs = [torch.arange(96.).reshape(4, 24) + 100 * r for r in range(world)]
+    for dtype in (torch.float32, torch.bfloat16):
+        xr = [x.to(dtype).float() for x in xs]
+        total = sum(xr)
+        for r, out in enumerate(res):
+            got = {k.split("/")[1]: torch.tensor(v) for k, v in out.items()
+                   if k.startswith(f"{dtype}/")}
+            want = {"all_reduce": total.to(dtype).float(),
+                    "all_gather": torch.cat(xr, dim=1),
+                    "reduce_scatter": total.chunk(world, 1)[r].to(
+                        dtype).float(),
+                    "all_to_all": torch.cat([x.chunk(world, 1)[r]
+                                             for x in xr], dim=0),
+                    "broadcast": xr[-1]}
+            for k, w in want.items():
+                torch.testing.assert_close(got[k], w, rtol=0, atol=0,
+                                           msg=f"{backend} {dtype} {k}")

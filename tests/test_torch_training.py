@@ -375,11 +375,12 @@ def test_config_keys_and_defaults_match_jax():
 
 @pytest.mark.parametrize("block", [
     {"sequence_parallel": {"enabled": True}},
-    {"zero_optimization": {"stage": 1}},
-    # offload runs on one device since its slice (tests/test_torch_offload.py,
-    # tests/test_torch_infinity.py); a ZeRO stage without it, and offload
-    # over a mesh of two devices, stay multi-device (queue A item 7)
-    {"zero_optimization": {"stage": 3}},
+    # ZeRO stages 1-3 over data parallelism run since their slice
+    # (tests/test_torch_zero.py); the later parts of queue A item 7 stay
+    # refused: expert parallelism, tensor parallelism, and offload over a
+    # data-parallel mesh (ZeRO-Infinity's dp-sharded part)
+    {"mesh": {"expert": 2}},
+    {"tensor_parallel": {"enabled": True, "tp_size": 2}},
     {"zero_optimization": {"stage": 2, "offload_optimizer": {
         "device": "cpu"}}, "mesh": {"data": 2}},
     {"mesh": {"model": 2}},
@@ -411,7 +412,7 @@ def test_out_of_slice_model_options_raise(override, what):
 
 
 def test_optimizer_outside_the_slice_raises():
-    """The 1-bit optimizers are multi-device (queue A item 7)."""
+    """The 1-bit optimizers are a later part of queue A item 7."""
     with pytest.raises(NotImplementedError, match="1-bit"):
         dt.initialize(model=port_model(), config={
             "train_batch_size": 4, "optimizer": {"type": "OneBitAdam"}},
