@@ -224,13 +224,15 @@ Phases (any failure exits non-zero and prints no result line):
    replicas on their own threads: streams exactly once;
 28. ZeRO-Offload (``offload_phase``): GPT-2 125M with the host optimizer
    against the in-HBM engine (3 steps, the JAX tests' bounds), then GPT-3
-   6.7B at full width and depth on the host optimizer (seq 1024, micro 4,
-   80 GB of host Adam state): s/step split into the grads, the host
+   6.7B's width at 16 of its 32 layers (all 32 until phase 32 came, for
+   the run's time) on the host optimizer (seq 1024, micro 4, 40 GB of
+   host Adam state): s/step split into the grads, the host
    sweep and the upload lane, the sweep's and the wire's GB/s, 1 step at
    wire 0 and 1 at wire 8 (3 and 2 until phase 31 came, for the run's
    time); B1 and B2 launches exact;
-29. ZeRO-Infinity at GPT-NeoX-20B width (``infinity_phase``): as many
-   layers as the host's memory holds (12 wanted) streamed past the card,
+29. ZeRO-Infinity at GPT-NeoX-20B width (``infinity_phase``): 4 layers
+   (cut to the host's memory: 10 of the 12 wanted until phase 32 came,
+   cut for the run's time) streamed past the card,
    pure stream (2 steps) then clip-gated at gas 2 (1 step; 3 and 2
    until phase 31 came, for the run's time); 2 layers against the in-HBM
    engine (B1, B3, B4 exact a layer) and on the NVMe tier bit-equal to
@@ -244,9 +246,10 @@ Phases (any failure exits non-zero and prints no result line):
    1.0; global batch 64), each world in child processes with a deadline:
    (a) world 1 on NCCL at stage 3 against the engine without ZeRO in the
    same process, each step from the same state (bit-equal expected: every
-   collective at world 1 is an identity; which held is printed), 3
-   steps; (b) world 4 over gloo, four ranks sharing the one card (NCCL
-   takes one card a rank) at micro 16 each, stages 0-3, 3 steps each,
+   collective at world 1 is an identity; which held is printed), 2
+   steps (3 until phase 32 came, for the run's time); (b) world 4 over
+   gloo, four ranks sharing the one card (NCCL takes one card a rank) at
+   micro 16 each, stages 0-3, 2 steps each,
    each step from (a)'s state of that step (saved by (a), every rank
    keeping its shards: ``adopt_state``): every rank's losses and grad
    norms held to (a)'s engine without ZeRO within the same-state step
@@ -256,10 +259,34 @@ Phases (any failure exits non-zero and prints no result line):
    stage 0's plus its resident leaves'; per stage the bytes, peak
    memory, ms/step and the comm log's bytes and GB/s per op and step.
 
-``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31`` (any of them)
-builds the kernels and runs only those phases ("3": phase 3's cases at the MoE
-shapes; "24": phases 24-27 on a fresh 6.7B engine), then prints no
-result line: a probe of the newest phases.
+32. tensor parallelism (``tp_phase``), one process per rank: (a) GPT-3
+   6.7B's width (32 heads of 128, vocab 50304) at 8 of its 32 layers,
+   random weights from seed 0 (every rank draws the whole tree, keeps its
+   slice): phase 5's 16-request drain and phase 4's ``generate()`` (8 x
+   128, 32 new: 64 in phase 4) at one rank without a mesh as the
+   reference; world 1 on
+   NCCL at ``serving.mesh`` 1 x 1 bit-equal to it; then 4 gloo ranks
+   sharing the card at ``serving.mesh`` {data 1, model 4} and {data 2,
+   model 2} (the drain) and ``generate()`` at ``tensor_parallel.tp_size``
+   4: every rank's streams equal, equal to the reference's up to a near
+   tie, the first 4 requests' first-step logits within
+   ``LOGITS_REL_TOL``, B6/B7 (B5) launches exact on every rank with a spy
+   seeing ``32 / model`` kv heads, each rank's weight bytes (sharded
+   leaves at 1/model, replicated ones whole) and pool bytes
+   (``kv_block_bytes(model_shards=model)`` x blocks x layers) the plans'
+   counts; tokens/s and the comm log per op (gloo on one host, not
+   tensor parallelism across cards); (b) in phase 31's world of 4: GPT-2
+   125M at {data 1, model 4} stage 0 and {data 2, model 2} stage 2,
+   global batch 8, 2 steps each from phase 31 (a)'s state of that step:
+   losses and grad norms within the same-state step check of the engine
+   without ZeRO at that state and batch, B1 24 and B2 12 a step on every
+   rank, state bytes the plan's count.
+
+``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32`` (any of
+them) builds the kernels and runs only those phases ("3": phase 3's
+cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B engine;
+"32" without "31": phase 32 (a) alone), then prints no result line: a
+probe of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -394,8 +421,9 @@ LLAMA_SERVE_LAYERS, QUANT_SERVE_LAYERS = 6, 8
 FP16_SERVE_LAYERS, NEOX20_SERVE_LAYERS = 8, 6
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
 #: takes tens of ms; its time is a yardstick, not a result), after one
-#: warm-up call (5 until the offload phases came, 3 until phase 31 did)
-N_TIMED_PLAIN = 2
+#: warm-up call (5 until the offload phases came, 3 until phase 31 did,
+#: 2 until phase 32 did)
+N_TIMED_PLAIN = 1
 
 
 def fail(msg: str) -> None:
@@ -1460,6 +1488,25 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+#: ``cuobjdump -sass`` of each library phase 3 reads, by library name
+_SASS: dict = {}
+
+
+def dump_sass(build, names) -> None:
+    """``cuobjdump -sass`` of the libraries ``names``, all at once (one
+    process each, on the host's cores), into ``_SASS``."""
+    from concurrent.futures import ThreadPoolExecutor
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+
+    def one(name):
+        return subprocess.run([str(tool), "-sass",
+                               str(build.library_path(name))], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+    with ThreadPoolExecutor(len(names)) as pool:
+        _SASS.update(zip(names, pool.map(one, names)))
+
+
 def tensor_core_check(build) -> dict:
     """Phase 3's proof that the bf16 and f16 B1, B2, B3, B4, B8, B9 and
     B10 run on the tensor cores: ``cuobjdump -sass`` of each built
@@ -1468,15 +1515,11 @@ def tensor_core_check(build) -> dict:
     ``build.FLASH_HEAD_DIMS`` in bf16 and f16 and no spill at D 64 (the
     main paths' head dim).  Prints the counts and each
     instantiation's registers and spills."""
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
     out = {}
     for name, kernel in TENSOR_CORE_KERNELS.items():
         path = build.library_path(name)
-        sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
-                              capture_output=True, text=True,
-                              timeout=300).stdout
-        counts = {op: len(re.findall(rf"\b{op}\.", sass))
-                  for op in ("HMMA", "HGMMA")}
+        sass = _SASS[name]
+        counts = {op: sass.count(f" {op}.") for op in ("HMMA", "HGMMA")}
         check(counts["HMMA"] + counts["HGMMA"] > 0,
               f"{name}: no tensor-core instruction in its SASS")
         regs = {}
@@ -1511,17 +1554,14 @@ def paged_kernel_check(build) -> dict:
     split-group instantiations are printed apart).  Prints
     the count and the registers of every instantiation of B7's
     tensor-core kernel and of B6's cluster kernel (D 8-256)."""
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
     out = {}
     for name, kernel in (("paged_prefill_attention",
                           "paged_prefill_mma_kernel"),
                          ("paged_decode_attention",
                           "paged_decode_cluster_kernel")):
         path = build.library_path(name)
-        sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
-                              capture_output=True, text=True,
-                              timeout=300).stdout
-        hmma = len(re.findall(r"\bHMMA\.", sass))
+        sass = _SASS[name]
+        hmma = sass.count(" HMMA.")
         regs, split = {}, {}
         for fn, rep in ptxas_report(Path(f"{path}.log").read_text()).items():
             m = re.search(kernel + r"ILi(\d+)ELi(\d+)E(?:Li4ELb([01])E)?"
@@ -1829,8 +1869,12 @@ def main(argv=None) -> int:
         return partial_run(torch, np, dev, only, elapsed)
 
     # -- 3. kernels against their plain versions -----------------------
+    dump_sass(build, [*TENSOR_CORE_KERNELS, "paged_prefill_attention",
+                      "paged_decode_attention"])
+    elapsed("phase 3's cuobjdump -sass")
     tensor_core_check(build)
     paged_kernel_check(build)
+    elapsed("phase 3's SASS and ptxas checks")
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     kres = kernel_checks(torch, dev, flush)
     for name, cases in kres.items():
@@ -2052,6 +2096,12 @@ def main(argv=None) -> int:
     zero = zero_phase(torch, np)
     elapsed("phase 31")
 
+    # -- 32. tensor parallelism: serving at GPT-3 6.7B width, training
+    # GPT-2 125M (its (b) ran in phase 31's world) --------------------------
+    free_card(torch, "tensor parallelism")
+    tp = tp_phase(torch, np, zero)
+    elapsed("phase 32")
+
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
     paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
@@ -2160,7 +2210,18 @@ def main(argv=None) -> int:
           f"{zero['world1']['flash_attention_bwd']}; ZeRO world 4 over "
           f"gloo, stages 0-3 ({ZERO_STEPS} steps each), every rank: B1 "
           f"{zero['world4']['flash_attention_fwd']}, B2 "
-          f"{zero['world4']['flash_attention_bwd']}")
+          f"{zero['world4']['flash_attention_bwd']}; tensor parallelism "
+          f"over 4 gloo ranks, every rank: serving {{data 1, model 4}} B6 "
+          f"{tp['1x4']['paged_decode_attention']}, B7 "
+          f"{tp['1x4']['paged_prefill_attention']}, {{data 2, model 2}} B6 "
+          f"{tp['2x2']['paged_decode_attention']}, B7 "
+          f"{tp['2x2']['paged_prefill_attention']}, generate() at tp_size "
+          f"4 B5 {tp['generate']['decode_attention']}; training ("
+          f"{TP_TRAIN_STEPS} steps a mesh) {{data 1, model 4}} B1 "
+          f"{tp['train']['1x4']['flash_attention_fwd']}, B2 "
+          f"{tp['train']['1x4']['flash_attention_bwd']}, {{data 2, model "
+          f"2}} B1 {tp['train']['2x2']['flash_attention_fwd']}, B2 "
+          f"{tp['train']['2x2']['flash_attention_bwd']}")
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
@@ -5421,7 +5482,8 @@ def host_cache_phase(torch, np, eng, label) -> dict:
             for k, v in runs.items()}
 
 
-ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31"}
+ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31",
+               "32"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5456,14 +5518,20 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
             "dtype": "bfloat16", "temperature": 0.0, "serving": SERVING})
         spec_front_phases(torch, np, eng, elapsed)
         del eng
+    res = {}
     for n, run in (("21", moe_serve_phase), ("22", moe_train_phase),
                    ("23", diffusion_phase), ("28", offload_phase),
                    ("29", infinity_phase), ("30", host_offload_phase),
                    ("31", zero_phase)):
         if n in only:
             free_card(torch, f"phase {n}")
-            run(torch, np)
+            res[n] = run(torch, np)
             elapsed(f"phase {n}")
+    if "32" in only:
+        # (b) reads phase 31's world: without "31", (a) alone
+        free_card(torch, "phase 32")
+        tp_phase(torch, np, res.get("31"))
+        elapsed("phase 32")
     print("chip_smoke: partial run (--only): no result lines")
     return 0
 
@@ -5489,6 +5557,10 @@ def new_phases(torch, np, elapsed) -> dict:
 #: 1 step at wire 0 then 1 at offload_wire_bits 8 (3 and 2 until phase 31
 #: came: cut for the run's time)
 OFFLOAD_67_STEPS, OFFLOAD_67_WIRE0 = 2, 1
+#: (b)'s depth: GPT-3 6.7B's width at 16 of its 32 layers (all 32, with
+#: 80 GB of host Adam state, until phase 32 came: cut for the run's time;
+#: 40 GB of host state still holds the path)
+OFFLOAD_67_LAYERS = 16
 OFFLOAD_PARITY_MICRO, OFFLOAD_SEQ, OFFLOAD_67_MICRO = 4, 1024, 4
 #: the JAX tests' bounds for an offload engine against the in-HBM one
 #: (tests/unit/test_infinity.py:468-480): losses within 5e-3, grad norms
@@ -5498,8 +5570,9 @@ OFFLOAD_LOSS_TOL, OFFLOAD_GNORM_REL = 5e-3, 5e-2
 PARITY_LR = 1e-4
 #: phase 29: GPT-NeoX-20B's width at seq 2048, micro 1; 2 layers for the
 #: parity and NVMe checks, INFINITY_LAYERS (cut to the host's memory at
-#: run time) for the run past the card's memory
-INFINITY_SEQ, INFINITY_PARITY_LAYERS, INFINITY_LAYERS = 2048, 2, 12
+#: run time) for (c)'s longer stream: 4 (12 until phase 32 came, cut for
+#: the run's time; the host held 10 of them, 82 GB of Adam state)
+INFINITY_SEQ, INFINITY_PARITY_LAYERS, INFINITY_LAYERS = 2048, 2, 4
 #: (c)'s steps: pure stream, then clip-gated at gas 2 (3 and 2 until
 #: phase 31 came: cut for the run's time)
 INFINITY_PURE, INFINITY_CLIP = 2, 1
@@ -5602,7 +5675,8 @@ def offload_phase(torch, np) -> dict:
     """Phase 28, ZeRO-Offload (tier 1): (a) GPT-2 125M with
     ``offload_optimizer: {device: cpu}`` against the in-HBM engine from
     the same params on the same batch (3 steps, the JAX tests' bounds);
-    (b) GPT-3 6.7B at full width and depth (32 layers, d_model 4096),
+    (b) GPT-3 6.7B's width (d_model 4096) at ``OFFLOAD_67_LAYERS`` of its
+    32 layers,
     seq 1024, micro 4, remat full, flash, AdamW, bf16 over f32 masters on
     the host, clipping 1.0, ZeRO stage 2 with ``offload_optimizer:
     {device: cpu, pin_memory: true}``: ``OFFLOAD_67_WIRE0`` steps at wire
@@ -5649,9 +5723,9 @@ def offload_phase(torch, np) -> dict:
     del base, off
     free_card(torch, "phase 28 (b)")
 
-    # (b) GPT-3 6.7B at full width and depth
-    cfg = gpt2_config("6.7b", remat="full", attn_impl="flash",
-                      loss_chunk=256)
+    # (b) GPT-3 6.7B at full width, OFFLOAD_67_LAYERS deep
+    cfg = gpt2_config("6.7b", num_layers=OFFLOAD_67_LAYERS, remat="full",
+                      attn_impl="flash", loss_chunk=256)
     m0 = mem_available()
     need, total = 12 * cfg.num_params(), mem_available("MemTotal")
     check(total > 1.15 * need, f"6.7B offload needs {need / 1e9:.1f} GB "
@@ -5726,7 +5800,7 @@ def infinity_phase(torch, np) -> dict:
     config.json: d_model 6144, 64 heads of 96, rotary, parallel residual,
     vocab 50432, seq 2048), micro 1, flash, AdamW, bf16, ZeRO stage 3
     with ``offload_param`` and ``offload_optimizer``.  First, while the
-    host's memory is freshest, (c) past the card's memory:
+    host's memory is freshest, (c) the longer stream:
     ``INFINITY_LAYERS`` layers, cut to what 80 % of the host's MemTotal
     holds at ``INFINITY_HOST_BYTES_PER_PARAM`` a streamed parameter (the
     width is never cut), DRAM/DRAM, streamed init, ``INFINITY_PURE`` steps
@@ -5760,7 +5834,7 @@ def infinity_phase(torch, np) -> dict:
     batch = {"input_ids": rs.randint(0, GPT_NEOX_20B["vocab_size"],
                                      (1, INFINITY_SEQ), dtype=np.int32)}
 
-    # (c) past the card's memory
+    # (c) the longer stream
     m = TransformerLM(model_cfg(2))
     n_layer = sum(int(np.prod(s)) for s in _leaves(m.superblock_shapes()))
     res_params = sum(int(np.prod(s)) for s in _leaves(m.resident_shapes()))
@@ -5974,15 +6048,27 @@ def offload_phases(torch, np, elapsed) -> dict:
 
 # -- 31. data parallelism and ZeRO stages 0-3 ---------------------------------
 #: phase 6's model and batch: GPT-2 125M at seq 1024, global batch 64
-#: (micro 16 on each of 4 ranks), 3 steps a run
-ZERO_SEQ, ZERO_GLOBAL, ZERO_STEPS, ZERO_WORLD = 1024, 64, 3, 4
+#: (micro 16 on each of 4 ranks), 2 steps a run (3 until phase 32 came:
+#: cut for the run's time)
+ZERO_SEQ, ZERO_GLOBAL, ZERO_STEPS, ZERO_WORLD = 1024, 64, 2, 4
 #: each world's deadline (seconds): a rank that fails or hangs fails it
 ZERO_DEADLINE = 300
 
+#: phase 32 (b), tensor parallelism in phase 31's worlds: the meshes
+#: (mesh, ZeRO stage), its global batch (8: micro 8 a rank at {data 1,
+#: model 4}, 4 at {data 2, model 2}; phase 6 trains micro 64, cut for
+#: the time gloo takes with each layer's activations: 72 all-reduces of
+#: micro x 1024 x 768 bf16 a step) and steps (2 of phase 31 (a)'s
+#: states)
+TP_TRAIN_MESHES = (({"data": 1, "model": 4}, 0), ({"data": 2, "model": 2}, 2))
+TP_TRAIN_GLOBAL, TP_TRAIN_STEPS = 8, 2
+
 #: the ranks' program: mode "a" is world 1 on NCCL (stage 3 against the
-#: engine without ZeRO, each step from the same state), mode "b" one rank
-#: of world 4 over gloo, all sharing card 0, stages 0-3 in turn; the
-#: result is one "P31RESULT" JSON line
+#: engine without ZeRO, each step from the same state; and, for phase 32
+#: (b), the engine without ZeRO at phase 32's batch from that state),
+#: mode "b" one rank of world 4 over gloo, all sharing card 0, stages 0-3
+#: in turn, then phase 32 (b)'s tensor-parallel meshes; the result is one
+#: "P31RESULT" JSON line
 ZERO_WORKER = r'''
 import gc, json, os, sys, time
 sys.path.insert(0, os.getcwd())
@@ -5997,6 +6083,8 @@ from deepspeed_tpu_torch.runtime.optimizers import tree_leaves, tree_map
 
 mode, steps = os.environ["P31_MODE"], int(os.environ["P31_STEPS"])
 states = os.environ["P31_STATES"]
+tp_meshes = json.loads(os.environ["P32_MESHES"])
+tp_glob, tp_steps = int(os.environ["P32_GLOBAL"]), int(os.environ["P32_STEPS"])
 seq, glob = int(os.environ["P31_SEQ"]), int(os.environ["P31_GLOBAL"])
 dt.init_distributed("nccl" if mode == "a" else "gloo",
                     timeout=float(os.environ["P31_TIMEOUT"]))
@@ -6008,13 +6096,15 @@ cfg = gpt2_config("125m", max_seq_len=seq, remat="full", attn_impl="flash",
                   loss_chunk=256)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
-def engine(stage):
-    config = {"train_micro_batch_size_per_gpu": glob // world,
+def engine(stage, micro=None, mesh=None):
+    config = {"train_micro_batch_size_per_gpu": micro or glob // world,
               "gradient_accumulation_steps": 1,
               "optimizer": {"type": "AdamW", "params": {
                   "lr": 6e-4, "weight_decay": 0.1}},
               "bf16": {"enabled": True}, "gradient_clipping": 1.0,
               "steps_per_print": 0, "zero_optimization": {"stage": stage}}
+    if mesh is not None:
+        config["mesh"] = mesh
     return dt.initialize(model=TransformerLM(cfg), config=config,
                          device=dev)[0]
 
@@ -6022,11 +6112,19 @@ rs = np.random.RandomState(0)
 batch = {"input_ids": rs.randint(0, cfg.vocab_size, (glob, seq),
                                  dtype=np.int32)}
 local = rank_slice(batch, 1, world, rank)
+# phase 32 (b)'s global batch
+tp_batch = {"input_ids": np.random.RandomState(1).randint(
+    0, cfg.vocab_size, (tp_glob, seq), dtype=np.int32)}
 out = {}
 if mode == "a":
     z, p = engine(3), engine(0)
-    rows, counts = [], {k: 0 for k in KERNELS}
+    t = engine(0, micro=tp_glob)
+    rows, counts, tp_ref = [], {k: 0 for k in KERNELS}, []
     for i in range(steps):
+        if i < tp_steps:
+            t.state = tree_map(lambda x: x.clone(), z.state)
+            m = t.train_step(tp_batch)
+            tp_ref.append([float(m["loss"]), float(m["grad_norm"])])
         p.state = tree_map(lambda t: t.clone(), z.state)
         # the step's starting state, for world 4 to take the step from
         torch.save(tree_map(lambda t: t.cpu(), z.state),
@@ -6042,7 +6140,7 @@ if mode == "a":
         rows.append({"zero": [mz["loss"], mz["grad_norm"]],
                      "plain": [mp["loss"], mp["grad_norm"]],
                      "params_equal": same})
-    out = {"rows": rows, "launches": counts,
+    out = {"rows": rows, "launches": counts, "tp_ref": tp_ref,
            "backend": comm.get_backend(), "zero_stage": z.zero_stage,
            "dp": z.dp_world_size}
 else:
@@ -6083,6 +6181,43 @@ else:
         del eng, z
         gc.collect()
         torch.cuda.empty_cache()
+    # phase 32 (b): Megatron tensor parallelism, each step from (a)'s
+    # state of that step (each rank keeps its model slice's shards)
+    t_tp = time.perf_counter()
+    out["tp"] = {}
+    for mesh, stage in tp_meshes:
+        eng = engine(stage, micro=tp_glob // mesh["data"], mesh=mesh)
+        cl.reset()
+        cl.configure(enabled=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        rows, ms = [], []
+        for i in range(tp_steps):
+            eng.adopt_state(torch.load(os.path.join(states, f"state{i}.pt"),
+                                       map_location=dev, weights_only=True),
+                            partial=False)
+            comm.barrier()
+            t0 = time.perf_counter()
+            m = eng.train_step(rank_slice(tp_batch, 1, eng.dp_world_size,
+                                          eng.dp_rank))
+            rows.append([float(m["loss"]), float(m["grad_norm"])])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        log = cl.totals()
+        cl.configure(enabled=False)
+        out["tp"]["x".join(str(mesh[a]) for a in ("data", "model"))] = {
+            "rows": rows, "ms": ms, "stage": stage,
+            "launches": {k: build.launch_counts[k] for k in KERNELS},
+            "bytes": eng.zero_state_bytes(),
+            "planned": eng._zero.planned_bytes(eng._param_shapes, 2),
+            "mp": eng.mp_world_size, "dp_rank": eng.dp_rank,
+            "n_params": eng.num_parameters(),
+            "peak": torch.cuda.max_memory_allocated(), "log": log}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["tp_seconds"] = time.perf_counter() - t_tp
 print("P31RESULT " + json.dumps(out), flush=True)
 comm.destroy_process_group()
 '''
@@ -6113,7 +6248,10 @@ def zero_phase(torch, np) -> dict:
     states = tempfile.mkdtemp(prefix="dstpu_zero_", dir=base)
     env = {"P31_STEPS": str(ZERO_STEPS), "P31_SEQ": str(ZERO_SEQ),
            "P31_GLOBAL": str(ZERO_GLOBAL), "P31_STATES": states,
-           "P31_TIMEOUT": str(ZERO_DEADLINE)}
+           "P31_TIMEOUT": str(ZERO_DEADLINE),
+           "P32_MESHES": json.dumps(TP_TRAIN_MESHES),
+           "P32_GLOBAL": str(TP_TRAIN_GLOBAL),
+           "P32_STEPS": str(TP_TRAIN_STEPS)}
     try:
         return _zero_runs(torch, np, card, env, states)
     finally:
@@ -6230,8 +6368,394 @@ def _zero_runs(torch, np, card, env, states) -> dict:
     return {"world1": a["launches"],
             "world4": {k: sum(ranks[0][s]["launches"][k]
                               for s in ("0", "1", "2", "3"))
-                       for k in per_step}}
+                       for k in per_step},
+            "tp_ref": a["tp_ref"], "tp": [r["tp"] for r in ranks],
+            "tp_seconds": max(r["tp_seconds"] for r in ranks)}
 
+
+
+# -- 32. tensor parallelism -------------------------------------------------
+#: phase 32 (a): GPT-3 6.7B's width (32 heads of 128, d 4096, vocab 50304)
+#: at 8 of its 32 layers, as phases 11 and 15 cut it; 4 ranks over gloo
+#: sharing the card; each world's deadline (seconds)
+TP_SERVE_LAYERS, TP_WORLD, TP_DEADLINE = 8, 4, 300
+#: the serving meshes of (a), then generate() at tensor_parallel.tp_size 4
+#: (phase 4's 8 x 128 prompts, TP_GEN_NEW new tokens: 64 in phase 4, cut
+#: for the run's time: each decode step is 18 staged collectives a rank)
+TP_SERVE_MESHES = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
+TP_GEN_NEW = 32
+
+#: phase 32 (a)'s ranks: mode "one" is world 1 on NCCL serving at mesh
+#: 1 x 1, mode "mesh" one rank of world 4 over gloo serving each of
+#: TP_SERVE_MESHES, then generate() at tp_size 4; one "P32RESULT" line
+#: (the tokens, counts and bytes) and each rank's first-step logits in a
+#: .pt file
+TP_WORKER = r"""
+import gc, json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import chip_smoke as cs
+import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.inference.serving.block_allocator import (
+    kv_block_bytes)
+from deepspeed_tpu_torch.models import transformer as model_mod
+from deepspeed_tpu_torch.models.convert import tp_dims
+from deepspeed_tpu_torch.models.transformer import TransformerLM, gpt2_config
+from deepspeed_tpu_torch.ops import build
+
+mode, out_dir = os.environ["P32_MODE"], os.environ["P32_OUT"]
+dt.init_distributed("nccl" if mode == "one" else "gloo",
+                    timeout=float(os.environ["P32_TIMEOUT"]))
+rank, world = comm.get_rank(), comm.get_world_size()
+torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+dev = torch.device("cuda", 0)
+cfg = gpt2_config("6.7b", num_layers=int(os.environ["P32_LAYERS"]))
+new = int(os.environ["P32_NEW"])
+rng, prompts, lens, sprompts = cs.serving_prompts(np, cfg.vocab_size)
+cl = comm.configure(enabled=False)
+
+def planned_weight_bytes(shapes, dims, mp):
+    # sharded leaves at 1/mp, replicated ones whole, bf16
+    if isinstance(shapes, dict):
+        return sum(planned_weight_bytes(shapes[k], dims[k], mp)
+                   for k in shapes)
+    return int(np.prod(shapes)) // (mp if dims is not None else 1) * 2
+
+def held(tree):
+    if isinstance(tree, dict):
+        return sum(held(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+def spied(name, seen):
+    real = getattr(model_mod, name)
+    def spy(*a, **k):
+        seen.add(int(a[1].shape[-2]))
+        return real(*a, **k)
+    setattr(model_mod, name, spy)
+    return real
+
+def weights(eng):
+    mp = eng.tp_model_size
+    shapes = eng.module.param_shapes()
+    return held(eng.params), planned_weight_bytes(
+        shapes, tp_dims(eng.module.partition_specs()), mp)
+
+out, logits = {}, {}
+meshes = ([{"data": 1, "model": 1}] if mode == "one"
+          else json.loads(os.environ["P32_MESHES"]))
+for mesh in meshes:
+    key = f"{mesh['data']}x{mesh['model']}"
+    eng = dt.init_inference(TransformerLM(cfg), {
+        "dtype": "bfloat16", "temperature": 0.0,
+        "serving": {**cs.SERVING, "mesh": mesh}}, device=dev)
+    got_w, plan_w = weights(eng)
+    srv = eng.serving_engine()
+    seen, first = set(), {}
+    reals = {n: spied(n, seen) for n in ("paged_decode_attention",
+                                         "paged_prefill_attention")}
+    cl.reset()
+    cl.configure(enabled=True)
+    reqs, counts, wall = cs.drain(
+        torch, srv, sprompts, f"phase 32 (a) {key} rank {rank}", 0,
+        lambda mixed: cs.first_step_recorder(srv, mixed, first))
+    log = cl.totals()
+    cl.configure(enabled=False)
+    for n, real in reals.items():
+        setattr(model_mod, n, real)
+    pool_plan = (kv_block_bytes(cs.SERVING["kv_block_size"], cfg.kv_heads,
+                                cfg.hdim, 0, 2,
+                                model_shards=eng.tp_model_size)
+                 * cs.SERVING["num_kv_blocks"] * cfg.num_layers)
+    logits[key] = [first[r.req_id] for r in reqs[:4]]
+    out[key] = {"streams": [r.output for r in reqs],
+                "ids": [r.req_id for r in reqs],
+                "tokens": sum(len(r.output) for r in reqs), "wall": wall,
+                "dispatches": srv.counts["dispatches"],
+                "b6": counts["paged_decode_attention"],
+                "b7": counts["paged_prefill_attention"],
+                "kv_heads": sorted(seen), "pool": srv.kv_pool_bytes,
+                "pool_plan": pool_plan, "weights": got_w,
+                "weights_plan": plan_w,
+                "psum": srv.tp_psum_bytes_per_token_layer, "log": log}
+    del srv, reqs
+    eng._serving = None
+    if mode == "one":
+        out["gen"] = eng.generate(prompts, max_new_tokens=new).tolist()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+if mode == "mesh":
+    # generate() at tensor_parallel.tp_size 4: B5 at 32 / 4 kv heads
+    eng = dt.init_inference(TransformerLM(cfg), {
+        "dtype": "bfloat16", "temperature": 0.0,
+        "tensor_parallel": {"tp_size": world}}, device=dev)
+    got_w, plan_w = weights(eng)
+    cs.warm_up_at_kv_head_width(eng, prompts, f"phase 32 (a) tp_size "
+                                f"{world} rank {rank}",
+                                cfg.kv_heads // world)
+    build.reset_launch_counts()
+    cl.reset()
+    cl.configure(enabled=True)
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = cl.totals()
+    cl.configure(enabled=False)
+    out["gen"] = gen.tolist()
+    out["gen_stats"] = {"wall": wall, "b5": build.launch_counts[
+        "decode_attention"], "weights": got_w, "weights_plan": plan_w,
+        "log": log, "stats": eng.latency_stats()}
+torch.save(logits, os.path.join(out_dir, f"logits_{mode}_{rank}.pt"))
+print("P32RESULT " + json.dumps(out), flush=True)
+comm.destroy_process_group()
+"""
+
+
+def _tp_result(text: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith("P32RESULT ")]
+    check(bool(lines), "phase 32: a rank printed no result:\n" + text[-2000:])
+    return json.loads(lines[-1][len("P32RESULT "):])
+
+
+def tp_phase(torch, np, zero) -> dict:
+    """Phase 32: tensor parallelism (see the module docstring).  (a)
+    serves GPT-3 6.7B's width at ``TP_SERVE_LAYERS`` layers: the reference
+    here, world 1 on NCCL at mesh 1 x 1 in a child (bit-equal to it), then
+    4 gloo ranks sharing the card at each of ``TP_SERVE_MESHES`` and
+    ``generate()`` at tp_size 4.  (b) reads phase 31's world: GPT-2 125M
+    at each of ``TP_TRAIN_MESHES``, each step from phase 31 (a)'s state.
+    Returns the launch counts of (a) and (b) on rank 0."""
+    import gc
+    import shutil
+    import tempfile
+    import types
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.accelerator import nvidia_smi_line
+    from deepspeed_tpu_torch.comm.local_ranks import run_ranks
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    card = nvidia_smi_line(0)
+    cfg = gpt2_config("6.7b", num_layers=TP_SERVE_LAYERS)
+    label = f"GPT-3 6.7B ({TP_SERVE_LAYERS} of 32 layers)"
+    rng, prompts, lens, sprompts = serving_prompts(np, cfg.vocab_size)
+
+    # the reference: one process, no mesh
+    t0 = time.perf_counter()
+    eng = init_inference(TransformerLM(cfg), {
+        "dtype": "bfloat16", "temperature": 0.0, "serving": SERVING})
+    gen_ref = eng.generate(prompts, max_new_tokens=TP_GEN_NEW).tolist()
+    srv = eng.serving_engine()
+    first_ref = {}
+    reqs, counts, wall = drain(
+        torch, srv, sprompts, f"phase 32 (a) {label} reference", 0,
+        lambda mixed: first_step_recorder(srv, mixed, first_ref))
+    ref = {"streams": [r.output for r in reqs],
+           "tokens": sum(len(r.output) for r in reqs), "wall": wall}
+    # the first 4 requests' first-step logits, in submission order
+    first_ref = [first_ref[r.req_id] for r in reqs[:4]]
+    del srv, reqs
+    eng._serving = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 32 (a) {label}, the reference at one rank without a "
+          f"mesh: {ref['tokens']} tokens in {ref['wall']:.2f} s = "
+          f"{ref['tokens'] / ref['wall']:.1f} tokens/s; "
+          f"{time.perf_counter() - t0:.1f} s with the engine's init")
+
+    out_dir = tempfile.mkdtemp(prefix="dstpu_tp_")
+    env = {"P32_OUT": out_dir, "P32_TIMEOUT": str(TP_DEADLINE),
+           "P32_LAYERS": str(TP_SERVE_LAYERS), "P32_NEW": str(TP_GEN_NEW),
+           "P32_MESHES": json.dumps(TP_SERVE_MESHES)}
+    try:
+        # world 1 on NCCL at mesh 1 x 1: bit-equal to the reference
+        t0 = time.perf_counter()
+        (text,) = run_ranks(TP_WORKER, 1, TP_DEADLINE, cwd=str(REPO),
+                            env={**env, "P32_MODE": "one"})
+        one = _tp_result(text)["1x1"]
+        one_gen = _tp_result(text)["gen"]
+        one_logits = torch.load(f"{out_dir}/logits_one_0.pt")["1x1"]
+        same = (one["streams"] == ref["streams"] and one_gen == gen_ref
+                and all(torch.equal(a, b)
+                        for a, b in zip(one_logits, first_ref)))
+        print(f"phase 32 (a) world 1 on NCCL at mesh 1 x 1 against the "
+              f"engine without a mesh: 16 streams, generate()'s 8 x "
+              f"{TP_GEN_NEW} tokens and 4 requests' first-step logits "
+              f"{'bit-equal' if same else 'NOT bit-equal'}; "
+              f"{time.perf_counter() - t0:.1f} s with the child's start")
+        check(same, "phase 32 (a): world 1 at mesh 1 x 1 is not bit-equal "
+                    "to the engine without a mesh")
+
+        # world 4 over gloo
+        t0 = time.perf_counter()
+        outs = run_ranks(TP_WORKER, TP_WORLD, TP_DEADLINE, cwd=str(REPO),
+                         env={**env, "P32_MODE": "mesh"})
+        mesh_wall = time.perf_counter() - t0
+        ranks = [_tp_result(o) for o in outs]
+        logits = [torch.load(f"{out_dir}/logits_mesh_{r}.pt")
+                  for r in range(TP_WORLD)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 32 (a) world {TP_WORLD} over gloo, the ranks sharing the "
+          f"card (each collective staged through pinned host memory: one "
+          f"host's gloo, not tensor parallelism across cards; {card}); "
+          f"{mesh_wall:.1f} s with the children's start:")
+    counts_out = {}
+    for mesh in TP_SERVE_MESHES:
+        key = f"{mesh['data']}x{mesh['model']}"
+        mp = mesh["model"]
+        r0 = ranks[0][key]
+        for r, res in enumerate(ranks):
+            got = res[key]
+            check(got["streams"] == r0["streams"],
+                  f"phase 32 (a) {key}: rank {r}'s streams differ from rank "
+                  f"0's")
+            check(got["kv_heads"] == [cfg.kv_heads // mp],
+                  f"phase 32 (a) {key} rank {r}: B6/B7 saw {got['kv_heads']}"
+                  f" kv heads, not {cfg.kv_heads // mp}")
+            check(got["pool"] == got["pool_plan"],
+                  f"phase 32 (a) {key} rank {r}: pool {got['pool']} bytes "
+                  f"against kv_block_bytes' {got['pool_plan']}")
+            check(got["weights"] == got["weights_plan"],
+                  f"phase 32 (a) {key} rank {r}: weights {got['weights']} "
+                  f"bytes against the plan's {got['weights_plan']}")
+            check(got["b6"] == r0["b6"] and got["b7"] == r0["b7"],
+                  f"phase 32 (a) {key} rank {r}: B6/B7 {got['b6']}/"
+                  f"{got['b7']} against rank 0's {r0['b6']}/{r0['b7']}")
+        worst = 0.0
+        for i, want in enumerate(first_ref):
+            for lg in logits:
+                a = lg[key][i]
+                worst = max(worst, float((a - want).abs().max())
+                            / float(want.abs().max()))
+        check(worst <= LOGITS_REL_TOL,
+              f"phase 32 (a) {key}: first-step logits differ by {worst:.4f}"
+              f" of their scale (> {LOGITS_REL_TOL})")
+        reqs = [types.SimpleNamespace(req_id=i, prompt=p, output=o)
+                for i, p, o in zip(r0["ids"], sprompts, r0["streams"])]
+        parted = near_tie_partings(np, eng, reqs, ref["streams"],
+                                   f"phase 32 (a) {key}")
+        same = sum(a == b for a, b in zip(r0["streams"], ref["streams"]))
+        counts_out[key] = {"paged_decode_attention": r0["b6"],
+                           "paged_prefill_attention": r0["b7"]}
+        print(f"  serving.mesh {{data {mesh['data']}, model {mp}}}: "
+              f"{r0['tokens']} tokens in {r0['wall']:.2f} s = "
+              f"{r0['tokens'] / r0['wall']:.1f} tokens/s on rank 0 "
+              f"({r0['dispatches']} dispatches; the reference "
+              f"{ref['tokens'] / ref['wall']:.1f}); {same} of 16 streams "
+              f"equal to the reference's, {parted} parting at a near tie; "
+              f"every rank's streams equal; first-step logits within "
+              f"{worst:.4f} of max|logit| (limit {LOGITS_REL_TOL}); B6 "
+              f"{r0['b6']}, B7 {r0['b7']} launches on every rank at "
+              f"{cfg.kv_heads // mp} kv heads; weights "
+              f"{r0['weights'] / 1e9:.3f} GB a rank, pool "
+              f"{r0['pool'] / 2**20:.1f} MiB a rank (the plans' counts); "
+              f"{r0['psum']} bytes a token and layer over the model axis")
+        for op, lg in sorted(r0["log"].items()):
+            print(f"    {op}: {lg['count']} calls, {lg['bytes'] / 1e6:.2f} "
+                  f"MB on rank 0, {lg['seconds'] * 1e3:.1f} ms; algbw "
+                  f"{lg['algbw_GBps']:.3f} GB/s, busbw "
+                  f"{lg['busbw_GBps']:.3f} GB/s")
+    g0 = ranks[0]["gen_stats"]
+    for r, res in enumerate(ranks):
+        check(res["gen"] == ranks[0]["gen"],
+              f"phase 32 (a) tp_size {TP_WORLD}: rank {r}'s generate() "
+              f"differs from rank 0's")
+        want = TP_SERVE_LAYERS * (TP_GEN_NEW - 1)
+        check(res["gen_stats"]["b5"] == want,
+              f"phase 32 (a) tp_size {TP_WORLD} rank {r}: B5 launches "
+              f"{res['gen_stats']['b5']} != {want}")
+        check(res["gen_stats"]["weights"] == res["gen_stats"][
+            "weights_plan"], f"phase 32 (a) tp_size {TP_WORLD} rank {r}: "
+                             f"weights against the plan")
+    reqs = [types.SimpleNamespace(req_id=f"row{i}", prompt=p.tolist(),
+                                  output=o)
+            for i, (p, o) in enumerate(zip(prompts, ranks[0]["gen"]))]
+    parted = near_tie_partings(np, eng, reqs, gen_ref,
+                               f"phase 32 (a) generate() tp_size {TP_WORLD}")
+    same = sum(a == b for a, b in zip(ranks[0]["gen"], gen_ref))
+    print(f"  generate() at tensor_parallel.tp_size {TP_WORLD}: 8 x "
+          f"{TP_GEN_NEW} tokens in {g0['wall']:.2f} s on rank 0 (decode "
+          f"{g0['stats']['p50_ms']:.2f} ms/token); {same} of 8 rows equal "
+          f"to the reference's, {parted} parting at a near tie; B5 "
+          f"{g0['b5']} launches on every rank at {cfg.kv_heads // TP_WORLD}"
+          f" kv heads; weights {g0['weights'] / 1e9:.3f} GB a rank")
+    for op, lg in sorted(g0["log"].items()):
+        print(f"    {op}: {lg['count']} calls, {lg['bytes'] / 1e6:.2f} MB "
+              f"on rank 0, {lg['seconds'] * 1e3:.1f} ms; busbw "
+              f"{lg['busbw_GBps']:.3f} GB/s")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_out["generate"] = {"decode_attention": g0["b5"]}
+    if zero is not None:
+        counts_out["train"] = tp_train_report(zero, card)
+    return counts_out
+
+
+def tp_train_report(zero, card) -> dict:
+    """Phase 32 (b)'s checks and lines, from phase 31's world 4: every
+    rank's loss and grad norm against phase 31 (a)'s engine without ZeRO
+    at the same state and batch, B1/B2 launches exact, state bytes the
+    plan's count.  Returns rank 0's launches per mesh."""
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 12}
+    ref = zero["tp_ref"]
+    out = {}
+    print(f"phase 32 (b) GPT-2 125M, seq {ZERO_SEQ}, global batch "
+          f"{TP_TRAIN_GLOBAL}, {TP_TRAIN_STEPS} steps a mesh, each from "
+          f"phase 31 (a)'s state of that step, in phase 31's world of 4 "
+          f"gloo ranks sharing the card ({card}); {zero['tp_seconds']:.1f} "
+          f"s of phase 31's:")
+    for mesh, stage in TP_TRAIN_MESHES:
+        key = f"{mesh['data']}x{mesh['model']}"
+        r0 = zero["tp"][0][key]
+        for r, ranks in enumerate(zero["tp"]):
+            st = ranks[key]
+            for i, (row, want) in enumerate(zip(st["rows"], ref)):
+                ls = abs(row[0] - want[0]) / abs(want[0])
+                gs = abs(row[1] - want[1]) / abs(want[1])
+                check(ls <= STEP_LOSS_REL_TOL and gs <= STEP_GNORM_REL_TOL,
+                      f"phase 32 (b) {key} rank {r} step {i}: loss "
+                      f"{row[0]} vs {want[0]}, grad norm {row[1]} vs "
+                      f"{want[1]}")
+            for k, n in per_step.items():
+                check(st["launches"][k] == n * TP_TRAIN_STEPS,
+                      f"phase 32 (b) {key} rank {r}: {k} launches "
+                      f"{st['launches'][k]}")
+            check(st["bytes"] == st["planned"],
+                  f"phase 32 (b) {key} rank {r}: state bytes {st['bytes']}"
+                  f" against the plan's {st['planned']}")
+        total = sum(r0["bytes"].values())
+        print(f"  {{data {mesh['data']}, model {mesh['model']}}} at stage "
+              f"{stage} (micro {TP_TRAIN_GLOBAL // mesh['data']} a rank): "
+              f"loss " + " ".join(f"{row[0]:.5f}" for row in r0["rows"])
+              + " against " + " ".join(f"{w[0]:.5f}" for w in ref)
+              + ", grad norm " + " ".join(f"{row[1]:.5f}"
+                                          for row in r0["rows"])
+              + " against " + " ".join(f"{w[1]:.5f}" for w in ref)
+              + f" (every rank within {STEP_LOSS_REL_TOL} / "
+              f"{STEP_GNORM_REL_TOL}); state {total / 1e9:.3f} GB a rank = "
+              f"{total / r0['n_params']:.2f} bytes a parameter ("
+              + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                          r0["bytes"].items())
+              + " GB; the plan's count on every rank); peak memory "
+              + "/".join(f"{ranks[key]['peak'] / 2**30:.2f}"
+                         for ranks in zero["tp"])
+              + " GiB (ranks 0-3); ms/step "
+              + "/".join(f"{max(ranks[key]['ms'][i] for ranks in zero['tp']):.0f}"
+                         for i in range(TP_TRAIN_STEPS))
+              + f" (slowest rank); B1 {r0['launches']['flash_attention_fwd']}"
+              f", B2 {r0['launches']['flash_attention_bwd']} on every rank")
+        for op, lg in sorted(r0["log"].items()):
+            print(f"    {op}: {lg['count'] // TP_TRAIN_STEPS} calls, "
+                  f"{lg['bytes'] / TP_TRAIN_STEPS / 1e6:.2f} MB a step a "
+                  f"rank, {lg['seconds'] / TP_TRAIN_STEPS * 1e3:.1f} ms a "
+                  f"step; busbw {lg['busbw_GBps']:.3f} GB/s")
+        out[key] = r0["launches"]
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

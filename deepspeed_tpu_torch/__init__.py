@@ -62,7 +62,7 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                loss_fn: Any = None, params: Optional[Dict[str, Any]] = None,
                device=None, seed: int = 0,
                dist_init_required: Optional[bool] = None,
-               dist_backend: str = "nccl") -> Tuple:
+               dist_backend: str = "nccl", mesh: Any = None) -> Tuple:
     """Build a training engine (``deepspeed_tpu.initialize``'s
     counterpart) and return ``(engine, optimizer, dataloader,
     lr_schedule)``.  ``params`` seeds the masters (see
@@ -71,7 +71,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     ``cuda:{LOCAL_RANK}``, and raises if it does not exist.
     ``dist_init_required`` calls ``init_distributed(dist_backend)``
     first, as the JAX ``initialize`` does; ranks that share one card
-    pass ``device="cuda:0"`` and ``dist_backend="gloo"``."""
+    pass ``device="cuda:0"`` and ``dist_backend="gloo"``.  ``mesh`` (a
+    ``parallel.topology.ProcessMesh``) overrides the one the config's
+    ``mesh`` block (and ``tensor_parallel``) builds."""
     del model_parameters  # params are part of the engine state
     if config is None:
         config = config_params
@@ -86,13 +88,13 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     engine = DeepSpeedEngine(model=model, config=ds_config,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,
                              loss_fn=loss_fn, params=params, device=device,
-                             seed=seed)
+                             seed=seed, mesh=mesh)
     dataloader = None
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(
             training_data, batch_size=engine.train_batch_size,
             collate_fn=collate_fn,
-            data_parallel_rank=engine.mesh.axis_index(("dcn_data", "data")),
+            data_parallel_rank=engine.dp_rank,
             data_parallel_world_size=engine.dp_world_size,
             gradient_accumulation_steps=engine.gradient_accumulation_steps)
     return engine, engine.optimizer, dataloader, engine.lr_schedule
@@ -102,12 +104,17 @@ def init_inference(model: TransformerLM,
                    config: Union[None, Dict[str, Any],
                                  DeepSpeedInferenceConfig] = None,
                    params: Optional[Dict[str, Any]] = None,
-                   device=None, **kwargs) -> InferenceEngine:
+                   device=None, mesh: Any = None,
+                   **kwargs) -> InferenceEngine:
     """Build an inference engine (``deepspeed_tpu.init_inference``'s
     counterpart): ``config`` is the JSON dict (keyword arguments merge
     into it); ``params`` an explicit weights tree (see
     ``models/convert.py``), else fresh weights from seed 0; ``device``
-    defaults to the CUDA card and raises if there is none."""
+    defaults to the CUDA card and raises if there is none.
+    ``tensor_parallel.tp_size`` or ``serving.mesh`` build this rank's
+    (data, model) mesh over ``torch.distributed``'s world; ``mesh`` (a
+    ``ProcessMesh`` with ``data`` and ``model`` axes) gives it
+    instead."""
     if isinstance(config, DeepSpeedInferenceConfig):
         if kwargs:
             raise ValueError("keyword overrides need a dict config")
@@ -116,7 +123,8 @@ def init_inference(model: TransformerLM,
         cfg_dict = dict(config) if isinstance(config, dict) else {}
         cfg_dict.update(kwargs)
         cfg = DeepSpeedInferenceConfig.from_dict(cfg_dict)
-    return InferenceEngine(model, cfg, params=params, device=device)
+    return InferenceEngine(model, cfg, params=params, device=device,
+                           mesh=mesh)
 
 
 def init_diffusion(unet_config=None, vae_config=None, text_config=None,

@@ -29,6 +29,23 @@ item 7) is served by ``generate()`` and ``forward()``, routed in eval
 mode; its prompts are padded to ``prompt_bucket`` as in the JAX engine,
 and the padded positions take capacity slots there too, so both route
 the same S tokens.  The server refuses it, as the JAX server does.
+
+Tensor parallelism, one process per rank on ``torch.distributed``:
+``tensor_parallel.tp_size`` mp builds the mesh ``{data: world / mp,
+model: mp}`` and ``serving.mesh`` (with ``serving.enabled``) the mesh
+``{data, model}`` it names, which must cover the world exactly.  The
+layout is the model's Megatron ``partition_specs``.  The whole weights
+(given, from a checkpoint, or drawn from seed 0 alike on every rank) are
+cast, quantized when ``quant.enabled`` (per output channel whenever a
+model axis is live: grouped scales would cross the shard boundaries),
+then cut once into this rank's slice (``_prep_tp_params``: the fused
+qkv's columns permuted into per-shard order, the row-parallel biases
+divided by mp, each leaf's chunk along its model dim), and the whole
+tree is dropped.  ``generate()`` and ``forward()`` run the model's
+per-shard view (``tp_serving_view``) on the card's B5 and B1 at ``H /
+mp`` heads, and the server its view with the data axis
+(``serving/engine.py``).  A world that does not fit the mesh, or NCCL
+with more ranks than cards, raises; no rank runs a smaller mesh.
 """
 from __future__ import annotations
 
@@ -40,10 +57,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import resolve_device
-from ..models.convert import check_params, leaf_to_torch, tree_map
+from ..models.convert import (check_params, leaf_to_torch, tp_dims, tp_slice,
+                              tree_map)
 from ..models.transformer import ENCODER_DECODE, TransformerLM
 from ..ops.quantizer.quantizer import dequantize, quantize
+from ..parallel.collectives import qkv_shard_columns
+from ..parallel.topology import MODEL_AXIS, MeshSpec, ProcessMesh
 from ..runtime.checkpoint_engine.engine import latest_tag, read_state
 from ..utils.logging import logger
 from .config import DeepSpeedInferenceConfig
@@ -53,8 +74,6 @@ from .sampling import sample_batch
 def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
     """Config blocks this slice of the port cannot run."""
     later = []
-    if cfg.tensor_parallel.enabled and cfg.tensor_parallel.tp_size > 1:
-        later.append("tensor_parallel.tp_size > 1 (multi-device)")
     if cfg.moe.enabled and cfg.moe.ep_size > 1:
         later.append(f"moe.ep_size {cfg.moe.ep_size} (expert parallelism: "
                      f"multi-device, queue A item 7)")
@@ -70,6 +89,12 @@ def _map_with_path(tree, fn, path=()):
         return {k: _map_with_path(v, fn, path + (k,))
                 for k, v in tree.items()}
     return fn(path, tree)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _zip_map(fn, tree, *rest):
@@ -98,7 +123,8 @@ _QUANT_SKIP_ROOTS = ("embed", "pos_embed", "type_embed", "lm_head",
 class InferenceEngine:
     def __init__(self, model: TransformerLM,
                  config: Optional[DeepSpeedInferenceConfig] = None,
-                 params: Optional[Dict[str, Any]] = None, device=None):
+                 params: Optional[Dict[str, Any]] = None, device=None,
+                 mesh: Optional[ProcessMesh] = None):
         self.config = config or DeepSpeedInferenceConfig()
         refuse_out_of_slice(self.config)
         self.device = resolve_device(device)
@@ -127,6 +153,7 @@ class InferenceEngine:
             model = TransformerLM(dataclasses.replace(
                 model.config, attn_impl=want, dtype=self.dtype))
         self.module = model
+        self._init_mesh(mesh)
         if params is not None:
             check_params(model, params)
             self.params = tree_map(params, self._cast)
@@ -146,11 +173,129 @@ class InferenceEngine:
         # scales in the parallel tree self._scales
         self._quantized = False
         self._scales = None
+        #: int8 scales: "group" (one device) or "channel" (a live model
+        #: axis, the JAX engine's rule)
+        self._qmode = "channel" if self.tp_model_size > 1 else "group"
         if self.config.quant.enabled:
             self._quantize_weights()
+        # the rank's slice, and the per-shard view generate() and
+        # forward() run (made after quantization: the view shares the
+        # model's block_transform as it stands)
+        self._tp_model = model
+        if self.tp_model_size > 1:
+            self._prep_tp_params()
+            self._tp_model = model.tp_serving_view(self.tp_model_size,
+                                                   MODEL_AXIS, None)
         self._latencies: list = []      # per-token DECODE-only seconds
         self._ttfts: list = []          # prefill -> first-token seconds
         self._serving = None
+
+    # ------------------------------------------------------------------
+    # tensor parallelism
+    # ------------------------------------------------------------------
+    def _init_mesh(self, mesh: Optional[ProcessMesh]) -> None:
+        """The (data, model) mesh: ``mesh`` as given, else from
+        ``tensor_parallel.tp_size`` or ``serving.mesh``, checked against
+        the world and the model's shapes; ``tp_data_size`` x
+        ``tp_model_size`` 1 x 1 without one."""
+        cfg = self.config
+        if mesh is not None:
+            extra = {a: n for a, n in mesh.shape.items()
+                     if n > 1 and a not in ("data", "model")}
+            if extra:
+                raise ValueError(f"an inference mesh has data and model "
+                                 f"axes only, got {extra}")
+        tp = cfg.tensor_parallel.tp_size if cfg.tensor_parallel.enabled \
+            else 1
+        sdp, smp = ((cfg.serving.mesh.data, cfg.serving.mesh.model)
+                    if cfg.serving.enabled else (1, 1))
+        if tp > 1 and sdp * smp > 1 and tp != smp:
+            raise ValueError(
+                f"tensor_parallel.tp_size ({tp}) and serving.mesh.model "
+                f"({smp}) must agree: the engine holds one model slice for "
+                f"generate() and the server")
+        n = comm.get_world_size()
+        if mesh is not None:
+            dp, mp = mesh.shape["data"], mesh.shape["model"]
+            what = "the mesh's model axis"
+        elif sdp * smp > 1:
+            dp, mp, what = sdp, smp, "serving.mesh.model"
+        elif tp > 1:
+            mp, what = tp, "tensor_parallel.tp_size"
+            dp = n // tp if n % tp == 0 else 1
+        else:
+            dp = mp = 1
+        self.tp_data_size, self.tp_model_size = dp, mp
+        self.mesh = None
+        if dp * mp == 1:
+            return
+        c = self.module.config
+        if mp > 1:
+            if c.moe_enabled:
+                raise NotImplementedError(
+                    "tensor parallelism over an MoE model: the expert "
+                    "stacks' model-axis layout is queue A item 7's "
+                    "expert-parallel part")
+            for name, dim in (("kv_heads", c.kv_heads),
+                              ("num_heads", c.num_heads),
+                              ("d_ff", c.ff_dim),
+                              ("vocab_size", c.vocab_size)):
+                if dim % mp:
+                    raise ValueError(
+                        f"{what} ({mp}) must divide {name} ({dim}) — "
+                        f"heads/MLP columns/vocab partition evenly over "
+                        f"the model axis")
+        # the world must be the mesh exactly: no rank runs a smaller one
+        if mesh is None and sdp * smp > 1 and n != dp * mp:
+            raise ValueError(
+                f"serving.mesh (data={dp}, model={mp}) needs {dp * mp} "
+                f"devices, have {n}")
+        if mesh is None and tp > 1 and n % tp:
+            raise ValueError(
+                f"tp_size {tp} x ep_size 1 does not divide {n} devices")
+        self.mesh = mesh or ProcessMesh(MeshSpec(data=dp, model=mp),
+                                        comm.get_rank())
+        comm.set_mesh(self.mesh)
+
+    def _prep_tp_params(self) -> None:
+        """This rank's slice of the whole weights, once: the fused qkv's
+        columns (kernel, bias and their channel scales) permuted into
+        per-shard order (the JAX server's ``_tp_qkv_perm``: the rows of
+        ``qkv_shard_columns`` end to end), the
+        row-parallel ``out``/``fc_out`` biases divided by mp (the
+        per-layer all-reduce restores them; a quantized bias through its
+        scale), then each leaf's chunk along its model dim; a channel
+        scale follows its kernel's last dim."""
+        c, mp = self.module.config, self.tp_model_size
+        index = self.mesh.axis_index(MODEL_AXIS)
+        perm = torch.as_tensor(qkv_shard_columns(
+            c.num_heads, c.kv_heads, c.hdim, mp).reshape(-1),
+            dtype=torch.long, device=self.device)
+        flags = self._qflags if self._quantized else None
+
+        def prep(path, t, scale=False):
+            tail = path[-2:]
+            flagged = flags is not None and _at(flags, path)
+            if tail in (("qkv", "kernel"), ("qkv", "bias")) and \
+                    (not scale or flagged):
+                t = t.index_select(-1, perm)
+            if tail in (("out", "bias"), ("fc_out", "bias")) and \
+                    flagged == scale:
+                t = t / mp
+            return t
+        dims = tp_dims(self.module.partition_specs(self.params))
+        if self._quantized:
+            # a channel scale [(L,) last] is sharded where its kernel's
+            # last dim is
+            sdims = _zip_map(
+                lambda d, v, f, sc: (sc.dim() - 1 if f and d == v.dim() - 1
+                                     else None),
+                dims, self.params, flags, self._scales)
+            self._scales = tp_slice(_map_with_path(
+                self._scales, lambda p, t: prep(p, t, scale=True)), sdims,
+                mp, index)
+        self.params = tp_slice(_map_with_path(self.params, prep), dims, mp,
+                               index)
 
     def _load_checkpoint(self, ckpt_dir: str, tag) -> Dict[str, Any]:
         """The params subtree of a training checkpoint of the port
@@ -175,8 +320,8 @@ class InferenceEngine:
     # int8 weight-only
     # ------------------------------------------------------------------
     def _quantize_weights(self) -> None:
-        """Matrix leaves to int8 + f32 group scales, kept as parallel
-        trees.  A stacked ``blocks`` leaf ``[L, ...]`` quantizes per layer
+        """Matrix leaves to int8 + f32 group scales (per output channel,
+        ``[(L,) last]``, in "channel" mode), kept as parallel trees.  A stacked ``blocks`` leaf ``[L, ...]`` quantizes per layer
         (``[L, G, n / G]`` values, ``[L, G, 1]`` scales), so the model
         dequantizes one layer at a time through ``block_transform``.  A
         leaf out of scope keeps its tensor and an empty ``[(L,) 0, 1]``
@@ -194,7 +339,19 @@ class InferenceEngine:
             self.params, lambda p, l: tuple(l.shape[1:] if p[0] == "blocks"
                                             else l.shape))
 
+        levels = float(2 ** (bits - 1) - 1)
+
         def one(l, shape):
+            if self._qmode == "channel":
+                # per output channel: the max over every axis but the
+                # last (a 1-D leaf: each element its own channel)
+                x = l.to(torch.float32)
+                a = (x.abs().amax(dim=tuple(range(x.dim() - 1)))
+                     if x.dim() > 1 else x.abs())
+                s = torch.where(a > 0, a * (1.0 / levels),
+                                torch.ones_like(a))
+                q = torch.clamp(torch.round(x / s), -levels, levels)
+                return q.to(torch.int8), s
             q, s, _ = quantize(l, bits, _groups(shape), True)
             return q.to(torch.int8), s
 
@@ -207,6 +364,10 @@ class InferenceEngine:
             n = l.shape[0]
             if not flagged:
                 return l, l.new_zeros((n, 0, 1), dtype=torch.float32)
+            if self._qmode == "channel":
+                pairs = [one(l[i], tuple(l.shape[1:])) for i in range(n)]
+                return (torch.stack([p[0] for p in pairs]),
+                        torch.stack([p[1] for p in pairs]))
             g = _groups(l.shape[1:])
             q = torch.empty((n, g, l[0].numel() // g), dtype=torch.int8,
                             device=l.device)
@@ -227,6 +388,9 @@ class InferenceEngine:
     def _dequant_leaf(self, q, s, flagged, shape):
         if not flagged:
             return q
+        if self._qmode == "channel":
+            # per output channel: shard-local under tensor parallelism
+            return (q.to(torch.float32) * s).to(self.dtype)
         return dequantize(q, s, None, shape, self.dtype)
 
     def _block_dequant(self, sl):
@@ -251,6 +415,12 @@ class InferenceEngine:
         out["blocks"] = {"q": params["blocks"], "s": scales["blocks"]}
         return out
 
+    def _enter_mesh(self) -> None:
+        """Point the collectives at this engine's mesh (another engine of
+        the process may have set its own since)."""
+        if self.mesh is not None:
+            comm.set_mesh(self.mesh)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -265,7 +435,8 @@ class InferenceEngine:
             x = (x if isinstance(x, torch.Tensor)
                  else torch.as_tensor(np.asarray(x)))
             return x.to(self.device, torch.int64)
-        return self.module.apply(
+        self._enter_mesh()
+        return self._tp_model.apply(
             self._model_params(), ids(input_ids),
             token_type_ids=(None if token_type_ids is None
                             else ids(token_type_ids)))
@@ -278,10 +449,11 @@ class InferenceEngine:
     def _prefill(self, ids: torch.Tensor, true_len: int, cache_len: int):
         """Prompt forward into a fresh dense cache → (cache with index at
         the true length, f32 logits of the last true position)."""
-        cache = self.module.init_cache(ids.shape[0], cache_len,
-                                       dtype=self.dtype, device=self.device)
-        logits, cache = self.module.apply(self._model_params(), ids,
-                                          cache=cache)
+        cache = self._tp_model.init_cache(ids.shape[0], cache_len,
+                                          dtype=self.dtype,
+                                          device=self.device)
+        logits, cache = self._tp_model.apply(self._model_params(), ids,
+                                             cache=cache)
         # bucketing: rows past the true length hold padding; resetting the
         # index lets decode overwrite them, and no kernel reads past it
         cache["index"] = true_len
@@ -331,6 +503,7 @@ class InferenceEngine:
                 f"({self.config.max_batch_size}) — raise it in the config "
                 f"(it bounds the KV workspace, reference inference_context.h)")
         ids = ids.to(self.device)
+        self._enter_mesh()
 
         def sample(logits, j):
             return sample_batch(logits, seed, j, temperature, top_k, top_p)
@@ -345,8 +518,8 @@ class InferenceEngine:
         toks = [tok]
         params = self._model_params()
         for j in range(1, max_new_tokens):
-            logits, cache = self.module.apply(params, tok[:, None],
-                                              cache=cache)
+            logits, cache = self._tp_model.apply(params, tok[:, None],
+                                                 cache=cache)
             nxt = sample(logits[:, -1], j)
             if eos_token_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, eos_token_id),

@@ -74,23 +74,21 @@ _SCALE_BYTES = 4
 def kv_block_bytes(block_size: int, kv_heads: int, head_dim: int,
                    kv_bits: int = 0, cache_itemsize: int = 2,
                    model_shards: int = 1) -> int:
-    """Device bytes one pool block costs across k AND v, including the
-    per-row per-head f32 scales a quantized pool stores alongside
-    (``serving.kv_cache_bits``).  ``cache_itemsize`` is the unquantized
-    pool's dtype width (2 = bf16).  Pure ints: the capacity-planning
-    mirror of ``TransformerLM.init_paged_cache``.  ``model_shards`` > 1
-    (a model-sharded serving mesh) is the multi-device slice's."""
+    """Per-rank device bytes one pool block costs across k AND v,
+    including the per-row per-head f32 scales a quantized pool stores
+    alongside (``serving.kv_cache_bits``).  ``cache_itemsize`` is the
+    unquantized pool's dtype width (2 = bf16).  ``model_shards`` is the
+    serving mesh's model-axis size: each rank then holds ``kv_heads /
+    model_shards`` of every block (scale planes included); the data axis
+    replicates the pool and changes nothing here.  Pure ints: the
+    capacity-planning mirror of ``TransformerLM.init_paged_cache``."""
     if kv_bits not in (0, 4, 8):
         raise ValueError(f"kv_bits must be 0, 4 or 8, got {kv_bits}")
     if model_shards < 1 or kv_heads % model_shards:
         raise ValueError(
             f"model_shards ({model_shards}) must be >= 1 and divide "
             f"kv_heads ({kv_heads})")
-    if model_shards > 1:
-        raise NotImplementedError(
-            f"model_shards={model_shards}: a model-sharded serving mesh is "
-            f"not in the slices of the PyTorch port so far (ROADMAP.md "
-            f"queue A item 7)")
+    kv_heads //= model_shards
     if kv_bits == 0:
         per_row = kv_heads * head_dim * cache_itemsize
     else:
@@ -103,9 +101,10 @@ def blocks_for_budget(budget_bytes: int, block_size: int, kv_heads: int,
                       head_dim: int, kv_bits: int = 0,
                       cache_itemsize: int = 2,
                       model_shards: int = 1) -> int:
-    """Pool blocks (INCLUDING the reserved null block 0) a device memory
-    budget admits at the given KV width: the same budget holds ~2x the
-    blocks at 8-bit and ~3.8x at packed 4-bit."""
+    """Pool blocks (INCLUDING the reserved null block 0) a per-rank
+    device memory budget admits at the given KV width: the same budget
+    holds ~2x the blocks at 8-bit and ~3.8x at packed 4-bit, and
+    ``model_shards`` x the blocks on a model-sharded mesh."""
     return budget_bytes // kv_block_bytes(block_size, kv_heads, head_dim,
                                           kv_bits, cache_itemsize,
                                           model_shards)

@@ -69,8 +69,21 @@ one runs eagerly and passes only the lanes a dispatch has: a step
 without a chunk runs no prefill lane, one with no plain-decoding slot
 no decode lane, one with no speculating slot no spec lane and no draft
 feed past the first; every dispatch still ends in one device-to-host
-copy.  Not in the port yet: the tensor-parallel serving mesh (ROADMAP.md
-queue A item 7).
+copy.
+
+**The serving mesh** (``serving.mesh`` {data, model}, one process per
+rank, the engine's mesh): every rank runs the same scheduler on the same
+submissions, so every host decision is taken alike everywhere.  The
+model axis shards heads, MLP columns, vocab and the pool (each rank's
+pools hold ``kv_heads / model`` heads of every block, ``kv_pool_bytes``
+is this rank's), through the model's per-shard view; the data axis
+splits the decode slots, rank d owning slots ``d * B / data ..``, while
+the prefill chunk runs on every data rank.  The sampled tokens come from
+logits that are bit-identical on every model rank (the vocab shards
+all-gathered in vocab order), and one all-gather over ``data`` a
+dispatch hands every rank every slot's token (the chunk's token is data
+rank 0's).  The speculative lane, the host tier and the fleet refuse a
+mesh beyond 1 x 1 (queue A item 7).
 """
 from __future__ import annotations
 
@@ -82,7 +95,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ... import comm
 from ...models.convert import leaf_to_torch, tree_map
+from ...parallel.topology import DATA_AXIS, MODEL_AXIS
 from ...observability import (get_flight_recorder, get_overlap_profiler,
                               get_registry, get_request_tracer, trace_span)
 from ...runtime.resilience.errors import (FatalIOError, ServingError,
@@ -97,13 +112,6 @@ from .frontend.streaming import TokenEvent
 from .host_cache import BlockCodec, HostTierCache
 from .scheduler import (ContinuousBatchingScheduler, Request, RequestState,
                         RequestStatus, estimate_retry_after_s)
-
-
-def _refuse_out_of_slice(cfg) -> None:
-    if cfg.mesh.data != 1 or cfg.mesh.model != 1:
-        raise NotImplementedError(
-            "serving.mesh beyond 1x1 (multi-device serving, ROADMAP.md "
-            "queue A item 7): not in the slices of the PyTorch port so far")
 
 
 class ServingEngine:
@@ -124,8 +132,15 @@ class ServingEngine:
                  shared_host_cache: Optional[HostTierCache] = None,
                  role: str = "mixed"):
         cfg = engine.config.serving
-        _refuse_out_of_slice(cfg)
+        # -- the (data, model) serving mesh: the engine's -----------------
+        self.tp_data_size = engine.tp_data_size
+        self.tp_model_size = engine.tp_model_size
         model = engine.module
+        if self.tp_data_size * self.tp_model_size > 1:
+            self._init_tp_mesh(engine, cfg, draft_model, role)
+            model = model.tp_serving_view(
+                self.tp_model_size, MODEL_AXIS,
+                DATA_AXIS if self.tp_data_size > 1 else None)
         # disaggregated fleet replica class: a "prefill" engine runs
         # chunked prefill only and publishes finished chains to the KV
         # fabric; "decode"/"mixed" engines serve full requests ("decode"
@@ -268,6 +283,13 @@ class ServingEngine:
                                  "shed": 0, "failed": 0, "quarantined": 0}
         #: acceptance_rate = accepted / proposed
         self.spec_counts = {"proposed": 0, "accepted": 0}
+        # per-token per-layer model-axis all-reduce payload (bytes): one
+        # on attention + MLP for parallel-residual blocks, two for
+        # serial and post-norm ones
+        npsums = 1 if model.config.parallel_residual else 2
+        self.tp_psum_bytes_per_token_layer = (
+            0 if self.tp_model_size == 1 else model.config.d_model
+            * torch.finfo(model.config.dtype).bits // 8 * npsums)
         self._register_metrics()
         # counter deltas are polled off the allocator's and the host
         # tier's cumulative ints
@@ -277,9 +299,34 @@ class ServingEngine:
                              "demotions": 0, "evictions": 0,
                              "hit_tokens": 0}
 
+    def _init_tp_mesh(self, engine, cfg, draft_model, role: str) -> None:
+        """What a mesh beyond 1 x 1 needs beyond the engine's checks: the
+        engine's weights in channel mode, and none of the paths that do
+        not run on it yet."""
+        if self.tp_model_size > 1 and engine._quantized and \
+                engine._qmode != "channel":
+            raise NotImplementedError(
+                "tensor-parallel serving over quantized weights needs "
+                "per-output-channel scales (grouped scales cross shard "
+                "boundaries) — the engine selects channel mode when "
+                "serving.mesh.model > 1 at init_inference time; rebuild "
+                "the engine with the serving mesh in its config")
+        later = []
+        if draft_model is not None:
+            later.append("the speculative lane")
+        if cfg.host_cache.enabled:
+            later.append("the tiered host cache")
+        if cfg.fleet.enabled or role != "mixed":
+            later.append("the fleet")
+        if later:
+            raise NotImplementedError(
+                f"{', '.join(later)} on a serving mesh beyond 1x1 "
+                f"(data={self.tp_data_size}, model={self.tp_model_size}): "
+                f"not in the PyTorch port yet (ROADMAP.md queue A item 7)")
+
     def _register_metrics(self) -> None:
-        """The JAX engine's ``dstpu_serving_*`` series but the serving
-        mesh's."""
+        """The JAX engine's ``dstpu_serving_*`` and ``dstpu_mesh_*``
+        series."""
         reg = get_registry()
         self._m_queue = reg.gauge(
             "dstpu_serving_queue_depth", "requests waiting for a decode slot")
@@ -299,6 +346,16 @@ class ServingEngine:
             "dstpu_serving_kv_bits",
             "KV-cache width: 0 = engine dtype, 8 = int8, 4 = packed "
             "int4").set(self.kv_bits)
+        # serving-mesh shape gauges: the per-rank numbers above (pool
+        # bytes) read honestly only beside the mesh they were taken on
+        reg.gauge(
+            "dstpu_mesh_data_size",
+            "serving mesh data-axis size (decode-slot sharding)"
+            ).set(self.tp_data_size)
+        reg.gauge(
+            "dstpu_mesh_model_size",
+            "serving mesh model-axis size (tensor parallelism)"
+            ).set(self.tp_model_size)
         self._m_ttft = reg.histogram(
             "dstpu_serving_ttft_seconds",
             "submit -> first token (includes queueing + chunked prefill)")
@@ -397,8 +454,10 @@ class ServingEngine:
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Device memory held by the paged KV pool: values plus the
-        dequant scale planes when quantized."""
+        """Device memory this rank's paged KV pool holds: values plus the
+        dequant scale planes when quantized (on a model-sharded mesh its
+        ``kv_heads / model`` of every block; the data ranks replicate
+        the pool)."""
         pools = [self._pool_k, self._pool_v]
         if self._pool_ks is not None:
             pools += [self._pool_ks, self._pool_vs]
@@ -896,6 +955,21 @@ class ServingEngine:
             [r.top_k if r else 0 for r in reqs],
             [r.top_p if r else 1.0 for r in reqs])
 
+    def _gather_results(self, local: torch.Tensor, n_dec: int) -> list:
+        """The dispatch's results as one host list: ``[token per slot |
+        finite per slot | spec lane | chunk token, chunk finite]``.  On a
+        data-sharded mesh each rank holds its slots' rows: one all-gather
+        over ``data`` puts every rank's together in slot order, and the
+        chunk's values are data rank 0's (every data rank computed the
+        same)."""
+        if self.tp_data_size == 1:
+            return local.tolist()
+        rows = comm.all_gather(local, DATA_AXIS, axis=0,
+                               tiled=False).tolist()
+        return ([t for r in rows for t in r[:n_dec]]
+                + [f for r in rows for f in r[n_dec:2 * n_dec]]
+                + rows[0][2 * n_dec:])
+
     def _draft_propose(self, cache, decoding, reqs, dec_tokens, any_active,
                        spec_active, chunk_args) -> Optional[torch.Tensor]:
         """The draft's part of a dispatch, on its own pool: mirror the
@@ -953,10 +1027,15 @@ class ServingEngine:
         dev = self.device
         B, S = self.num_slots, self.spec_k + 1
         draft_on = self._draft_model is not None
+        if self.engine.mesh is not None:
+            comm.set_mesh(self.engine.mesh)
+        # this rank's decode slots: all B, or its 1/data of them
+        bl = B // self.tp_data_size
+        lo = comm.axis_index(DATA_AXIS) * bl if self.tp_data_size > 1 else 0
         # a step with no plain-decoding slot passes a decode lane of
         # width 0 (the way a step without a chunk runs no prefill lane);
         # with the draft armed, its feed 0 takes every decoding slot
-        n_dec = B if dec else 0
+        n_dec = bl if dec else 0
         tables = np.zeros((B, self.max_pages), np.int32)
         lens = np.zeros((B,), np.int32)
         tokens = np.zeros((B,), np.int32)
@@ -994,12 +1073,13 @@ class ServingEngine:
                 spans.enter_context(
                     trace_span("serving/prefill_chunk", slot=c_slot,
                                start=c_start, tokens=c_len))
+            mine = slice(lo, lo + bl)
             cache = {"k": self._pool_k, "v": self._pool_v,
                      "k_scale": self._pool_ks, "v_scale": self._pool_vs,
-                     "block_tables": torch.from_numpy(tables).to(dev),
-                     "lens": torch.from_numpy(lens).to(dev)}
-            tokens_d = torch.from_numpy(tokens).to(dev)
-            dec_active_d = torch.from_numpy(dec_active).to(dev)
+                     "block_tables": torch.from_numpy(tables[mine]).to(dev),
+                     "lens": torch.from_numpy(lens[mine]).to(dev)}
+            tokens_d = torch.from_numpy(tokens[mine]).to(dev)
+            dec_active_d = torch.from_numpy(dec_active[mine]).to(dev)
             chunk_d = torch.from_numpy(chunk_ids).to(dev)
             chunk_args = (chunk_d, c_slot, c_start, c_len)
             spec_active_d = spec_tokens = None
@@ -1032,7 +1112,7 @@ class ServingEngine:
             parts = []
             if n_dec:
                 dec_reqs = [r if dec_active[i] else None
-                            for i, r in enumerate(row_reqs)]
+                            for i, r in enumerate(row_reqs)][mine]
                 parts += [self._sample(dec_logits, dec_reqs),
                           torch.isfinite(dec_logits).all(dim=-1).long()]
             if spec:
@@ -1054,7 +1134,8 @@ class ServingEngine:
                 # launches returned, nothing read back yet: the
                 # enqueue/device-wait boundary of the overlap split
                 t_enq = time.perf_counter()
-            host = torch.cat(parts).tolist()
+            host = self._gather_results(torch.cat(parts), n_dec)
+            n_dec = B if dec else 0
         # ITL = dispatch wall time only, before the host bookkeeping below
         dispatch_dt = time.perf_counter() - t0
         if ovl_on:

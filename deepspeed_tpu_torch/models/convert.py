@@ -13,6 +13,12 @@ through their 16-bit patterns.  A train state crosses as its counters
 params' shape: ``params`` and the optimizer's (Adam's and LAMB's ``m``
 and ``v``, SGD's momentum ``mom``, Adagrad's sums ``sq``); a checkpoint
 of the port holds the same state tree (``runtime/checkpoint_engine``).
+
+Tensor parallelism crosses the same trees: ``tp_slice`` cuts a whole
+tree into a model rank's slice by the model's partition rule
+(``tp_dims`` of ``TransformerLM.partition_specs``) and ``tp_gather``
+puts the slices back together, so checkpoints and tests always see the
+whole tree in the JAX layout.
 """
 from __future__ import annotations
 
@@ -87,6 +93,52 @@ def params_from_jax(tree: Dict[str, Any], model: TransformerLM,
     ``init_inference(params=...)`` places them on the engine's device."""
     check_params(model, tree)
     return tree_map(tree, lambda a: leaf_to_torch(a, device, dtype))
+
+
+def tp_dims(specs) -> Dict[str, Any]:
+    """A spec tree (``TransformerLM.partition_specs``) → each leaf's
+    model-sharded dim, or None where it is replicated over ``model``."""
+    def dim(spec):
+        return spec.index("model") if "model" in spec else None
+    if isinstance(specs, dict):
+        return {k: tp_dims(v) for k, v in specs.items()}
+    return dim(specs)
+
+
+def tp_slice(tree: Dict[str, Any], dims: Dict[str, Any], mp: int,
+             index: int) -> Dict[str, Any]:
+    """Model shard ``index`` of ``mp`` of a whole tree (tensors or numpy
+    leaves): each leaf's contiguous chunk ``index`` along its dim in
+    ``dims`` (``tp_dims``), a contiguous tensor of its own; a replicated
+    leaf as it is."""
+    def one(t, d):
+        if d is None or mp == 1:
+            return t
+        if t.shape[d] % mp:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not divide "
+                             f"over {mp} model shards")
+        if not isinstance(t, torch.Tensor):
+            return np.ascontiguousarray(np.split(t, mp, axis=d)[index])
+        return t.chunk(mp, d)[index].clone(
+            memory_format=torch.contiguous_format)
+    return _zip(one, tree, dims)
+
+
+def tp_gather(tree: Dict[str, Any], dims: Dict[str, Any],
+              axis: str = "model") -> Dict[str, Any]:
+    """The whole tree from every model shard's slice (a collective over
+    ``axis``: every rank of it calls it)."""
+    from .. import comm
+
+    def one(t, d):
+        return t if d is None else comm.all_gather(t, axis, axis=d)
+    return _zip(one, tree, dims)
+
+
+def _zip(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _zip(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
 
 
 def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:

@@ -214,13 +214,15 @@ def alibi_slopes(num_heads: int) -> torch.Tensor:
     return torch.tensor(slopes, dtype=torch.float32)
 
 
-def alibi_bias(num_heads: int, tk: int,
-               q_positions: torch.Tensor) -> torch.Tensor:
+def alibi_bias(num_heads: int, tk: int, q_positions: torch.Tensor,
+               slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[H, Tq, Tk]`` f32 additive bias ``-slope_h * |q_pos - k_pos|``
     for queries at ``q_positions [Tq]`` over keys 0 .. tk - 1 (a distance
-    penalty both ways, so an encoder may use it too)."""
+    penalty both ways, so an encoder may use it too); ``slopes`` ``[H]``
+    default to ``alibi_slopes(num_heads)`` (a tensor-parallel shard
+    passes its slice of the whole model's)."""
     dev = q_positions.device
-    slopes = alibi_slopes(num_heads).to(dev)
+    slopes = (alibi_slopes(num_heads) if slopes is None else slopes).to(dev)
     rel = -(torch.arange(tk, device=dev)[None, :]
             - q_positions[:, None]).abs()
     return slopes[:, None, None] * rel[None].float()

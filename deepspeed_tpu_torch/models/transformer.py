@@ -66,9 +66,31 @@ it was given before the attention kernels read them.
 view of ``params["blocks"]`` in every layer loop: the seam through which
 the int8 weight-only engine hands the model quantized blocks and
 dequantizes one layer at a time, as the JAX model's scan body does.
+
+Tensor parallelism (Megatron's layout, ``partition_specs``): a rank runs
+the per-shard view of :meth:`TransformerLM.tp_serving_view` or
+:meth:`TransformerLM.tp_train_view`, whose config carries ``num_heads /
+mp`` and ``kv_heads / mp`` heads, over its slice of the params
+(``models/convert.py::tp_slice``; the fused qkv in per-shard column
+order, the row-parallel ``out`` and ``fc_out`` biases divided by mp).
+Every kernel then simply sees fewer heads.  Each branch output is a
+partial sum over the ``model`` ranks, reduced once a branch (``_red``:
+an all-reduce when serving, ``reduce_from`` in training, where
+``copy_to`` marks the branch inputs, ``_fin``); the embedding is a
+vocab-sharded masked lookup reduced the same way, with the position and
+type tables added after it; serving's head all-gathers the local logits
+in vocab order, and training's loss is the vocab-parallel cross-entropy
+(``_vocab_parallel_nll``), so the whole ``[.., V]`` logits never exist
+there.  ALiBi takes each shard's slice of the whole model's slopes.  On
+a serving mesh with a ``data`` axis the paged mixed step holds this
+rank's decode slots only: the block tables are all-gathered once a step
+for the chunk, and the decode rows' k/v (and their write indices and
+scales) are all-gathered over ``data`` before the scatter, so every data
+rank's pool replica applies every slot's row.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple
@@ -80,7 +102,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import layers as L
+from .. import comm
 from ..accelerator import resolve_device
+from ..parallel.collectives import copy_to, reduce_from
 from ..ops import build
 from ..ops.transformer.decode_attention import decode_attention
 from ..ops.transformer.flash_attention import flash_attention_bthd
@@ -517,6 +541,130 @@ class TransformerLM(nn.Module):
                 d_ff=config.moe_d_ff or config.ff_dim,
                 depth_scale=config.num_layers)
 
+    # -- tensor parallelism -------------------------------------------------
+    #: the model axis of a per-shard view (None: the whole model), the
+    #: serving mesh's data axis, training's conjugate collectives, and
+    #: the whole model's head count (ALiBi's slopes)
+    _tp_axis: Optional[str] = None
+    _dp_axis: Optional[str] = None
+    _tp_exact_bwd = False
+    _tp_full_heads = 0
+
+    def tp_serving_view(self, model_shards: int, tp_axis: Optional[str],
+                        dp_axis: Optional[str]) -> "TransformerLM":
+        """Shallow copy of this model whose config carries per-shard head
+        counts (``num_heads`` and ``kv_heads`` over ``model_shards``,
+        ``head_dim`` pinned), the seam tensor-parallel serving runs
+        through: the fused-qkv split, the rotary reshape and every
+        kernel's heads become shard-local with no kernel change.
+        ``tp_axis`` arms the collectives (the all-reduce of each branch,
+        the vocab-sharded embedding and head), ``dp_axis`` the paged
+        step's decode-slot sharding.  The original model is untouched;
+        rotary tables and ``block_transform`` are shared by reference."""
+        c = self.config
+        if model_shards > 1:
+            if c.kv_heads % model_shards or c.num_heads % model_shards:
+                raise ValueError(
+                    f"model_shards {model_shards} must divide num_heads "
+                    f"{c.num_heads} and kv_heads {c.kv_heads}")
+            if c.moe_enabled:
+                raise NotImplementedError(
+                    "tensor parallelism over an MoE model: the expert "
+                    "stacks' model-axis layout is queue A item 7's "
+                    "expert-parallel part")
+            if c.mlm_head:
+                raise NotImplementedError(
+                    "tensor parallelism over the MLM head (BERT): its "
+                    "vocab bias has no model-axis layout in the port "
+                    "(queue A item 7)")
+            local = dataclasses.replace(
+                c, num_heads=c.num_heads // model_shards,
+                num_kv_heads=c.kv_heads // model_shards, head_dim=c.hdim)
+        else:
+            local = c
+        view = copy.copy(self)
+        view.config = local
+        view._tp_axis = tp_axis if model_shards > 1 else None
+        view._dp_axis = dp_axis
+        view._tp_full_heads = c.num_heads
+        view._tp_exact_bwd = False
+        return view
+
+    def tp_train_view(self, model_shards: int,
+                      tp_axis: Optional[str]) -> "TransformerLM":
+        """The per-shard view for training: the serving view's heads,
+        with ``copy_to``/``reduce_from`` as the per-branch collectives
+        (so autograd sees exact gradients) and the vocab-parallel loss.
+        The fused-qkv column gather and the row-parallel bias division
+        happen inside the differentiated step
+        (``runtime/engine.py``), not here."""
+        view = self.tp_serving_view(model_shards, tp_axis, None)
+        view._tp_exact_bwd = view._tp_axis is not None
+        return view
+
+    def _red(self, u: torch.Tensor) -> torch.Tensor:
+        """Where shard-local partial outputs rejoin the replicated stream:
+        an all-reduce over the model axis (``reduce_from`` in training);
+        the identity without one."""
+        if self._tp_axis is None:
+            return u
+        if self._tp_exact_bwd:
+            return reduce_from(u, self._tp_axis)
+        return comm.all_reduce(u, comm.ReduceOp.SUM, self._tp_axis)
+
+    def _fin(self, u: torch.Tensor) -> torch.Tensor:
+        """Where the replicated stream enters shard-local compute:
+        ``copy_to`` in training, the identity otherwise."""
+        return copy_to(u, self._tp_axis) if self._tp_exact_bwd else u
+
+    # TP rules keyed on the trailing (module, weight) path pair, for the
+    # weight's own dims; leading stack axes are prepended
+    _SUFFIX_RULES = {
+        ("embed", "embedding"): ("model", None),
+        ("pos_embed", "embedding"): (None, None),
+        ("qkv", "kernel"): (None, "model"),
+        ("qkv", "bias"): ("model",),
+        ("out", "kernel"): ("model", None),
+        ("out", "bias"): (None,),
+        ("fc_in", "kernel"): (None, "model"),
+        ("fc_in", "bias"): ("model",),
+        ("fc_gate", "kernel"): (None, "model"),
+        ("fc_gate", "bias"): ("model",),
+        ("fc_out", "kernel"): ("model", None),
+        ("fc_out", "bias"): (None,),
+        ("lm_head", "kernel"): (None, "model"),
+        ("type_embed", "embedding"): (None, None),
+        ("dense", "kernel"): (None, None),     # mlm_head transform
+        ("dense", "bias"): (None,),
+        ("mlm_head", "bias"): (None,),
+    }
+
+    def partition_specs(self, params=None) -> Dict:
+        """Params-shaped tree of specs (tuples of None / ``"model"``, one
+        entry a dim): the Megatron column/row split over the ``model``
+        axis, as the JAX model's ``partition_specs``; norms replicate,
+        the leading layer axis of ``blocks`` leaves is never sharded.
+        ``params`` (any tree of shapes or tensors) defaults to the
+        model's own shapes."""
+        if self.config.moe_enabled:
+            raise NotImplementedError(
+                "partition_specs of an MoE model: the MoE layer's specs "
+                "are queue A item 7's expert-parallel part")
+        tree = self.param_shapes() if params is None else params
+
+        def walk(node, keys):
+            if isinstance(node, dict):
+                return {k: walk(v, keys + (k,)) for k, v in node.items()}
+            ndim = len(tuple(getattr(node, "shape", node)))
+            if any(k.startswith("ln") for k in keys):   # norms replicate
+                inner = (None,) * (1 if keys[0] != "blocks" else ndim - 1)
+            else:
+                inner = self._SUFFIX_RULES.get(keys[-2:])
+                if inner is None:
+                    raise KeyError(f"No partition rule for param {keys}")
+            return (None,) * (ndim - len(inner)) + tuple(inner)
+        return walk(tree, ())
+
     # -- parameters ---------------------------------------------------------
     def param_shapes(self, head_bias: bool = False) -> Params:
         """The params tree's leaf shapes (the JAX package's tree: no
@@ -847,7 +995,21 @@ class TransformerLM(nn.Module):
         """Word (+ position, + token-type) embeddings, then the embedding
         layernorm when configured (BLOOM, BERT)."""
         c = self.config
-        x = L.embedding_apply(params["embed"], ids, c.dtype)
+        if self._tp_axis is not None:
+            # the vocab-sharded table [V / mp, D]: each shard looks up
+            # the ids it owns, zeroes the rest, and one reduction over
+            # the model axis rebuilds the word embedding; the position
+            # and type tables and the embedding norm come after it
+            vloc = params["embed"]["embedding"].shape[0]
+            local = ids - comm.axis_index(self._tp_axis) * vloc
+            mine = (local >= 0) & (local < vloc)
+            x = L.embedding_apply(params["embed"],
+                                  torch.where(mine, local, 0), c.dtype)
+            x = self._red(torch.where(mine[..., None], x,
+                                      torch.zeros((), dtype=x.dtype,
+                                                  device=x.device)))
+        else:
+            x = L.embedding_apply(params["embed"], ids, c.dtype)
         if c.pos_embedding == "learned":
             x = x + L.embedding_apply(params["pos_embed"], positions, c.dtype)
         if c.token_type_vocab:
@@ -890,7 +1052,8 @@ class TransformerLM(nn.Module):
         qpos = offset + torch.arange(tq, device=q.device)
         bias = None
         if c.pos_embedding == "alibi":
-            bias = L.alibi_bias(c.num_heads, tk, qpos)[None]
+            bias = L.alibi_bias(c.num_heads, tk, qpos,
+                                slopes=self._alibi_slopes())[None]
         if window is not None:
             band = (qpos[:, None] - torch.arange(tk, device=q.device)
                     [None, :]) < window
@@ -898,6 +1061,15 @@ class TransformerLM(nn.Module):
         return L.gqa_attention(q, k, v, mask=mask, scale=self._attn_scale,
                                kv_positions_offset=offset, causal=c.causal,
                                bias=bias)
+
+    def _alibi_slopes(self) -> torch.Tensor:
+        """This shard's ALiBi slopes: its heads' slice of the whole
+        model's (a shard's own head count would give other slopes)."""
+        c = self.config
+        if self._tp_axis is None:
+            return L.alibi_slopes(c.num_heads)
+        lo = comm.axis_index(self._tp_axis) * c.num_heads
+        return L.alibi_slopes(self._tp_full_heads)[lo:lo + c.num_heads]
 
     def _rotary_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """f32 (cos, sin) ``[max_seq_len, rotary_dim / 2]`` on ``device``,
@@ -945,18 +1117,21 @@ class TransformerLM(nn.Module):
         parallel one (NeoX, GPT-J), or post-norm (BERT); ``attend(q, k,
         v)`` returns ``[.., T, H*D]`` attention output for this layer."""
         c = self.config
+        red, fin = self._red, self._fin
 
         def attn(h):
             q, k, v = self._qkv(bp["attn"], h, positions)
             return L.dense_apply(bp["attn"]["out"], attend(q, k, v))
         if c.norm_position == "post":
-            x = self._norm(bp["ln1"], x + attn(x))
-            return self._norm(bp["ln2"], x + self._mlp(bp["mlp"], x))
+            x = self._norm(bp["ln1"], x + red(attn(fin(x))))
+            return self._norm(bp["ln2"],
+                              x + red(self._mlp(bp["mlp"], fin(x))))
         if c.parallel_residual:
-            a = attn(self._norm(bp["ln1"], x))
-            return x + (a + self._mlp(bp["mlp"], self._norm(bp["ln2"], x)))
-        x = x + attn(self._norm(bp["ln1"], x))
-        return x + self._mlp(bp["mlp"], self._norm(bp["ln2"], x))
+            a = attn(fin(self._norm(bp["ln1"], x)))
+            return x + red(a + self._mlp(bp["mlp"],
+                                         fin(self._norm(bp["ln2"], x))))
+        x = x + red(attn(fin(self._norm(bp["ln1"], x))))
+        return x + red(self._mlp(bp["mlp"], fin(self._norm(bp["ln2"], x))))
 
     def _moe_block(self, bp: Params, x: torch.Tensor, attend,
                    positions: Optional[torch.Tensor], noise, train: bool):
@@ -999,7 +1174,20 @@ class TransformerLM(nn.Module):
             logits = L.embedding_attend(params["embed"],
                                         self._norm(mh["ln"], h))
             return logits + mh["bias"].float()
-        if c.tie_embeddings:
+        logits = self._project_local(params, x)
+        if self._tp_axis is not None:
+            # the vocab-sharded head's local [.., V / mp] logits tile
+            # back into the whole vocab: shard order is vocab order, so
+            # every shard holds the same bits and samples the same token
+            logits = comm.all_gather(logits, self._tp_axis, axis=-1)
+        return logits
+
+    def _project_local(self, params: Params, x: torch.Tensor
+                       ) -> torch.Tensor:
+        """f32 logits of the tied embedding or the untied ``lm_head``
+        over the vocab rows this shard holds (all of them without a
+        model axis)."""
+        if self.config.tie_embeddings:
             return L.embedding_attend(params["embed"], x)
         logits = L.f32_product(x, params["lm_head"]["kernel"])
         if "bias" in params["lm_head"]:
@@ -1261,6 +1449,8 @@ class TransformerLM(nn.Module):
         c = self.config
         chunk = c.loss_chunk
         b, t = labels.shape
+        if self._tp_axis is not None:
+            return self._vocab_parallel_nll(params, x, labels, mask)
         if c.fused_loss_head and not c.mlm_head:
             if c.tie_embeddings:
                 w, bias, tw = params["embed"]["embedding"], None, True
@@ -1300,6 +1490,49 @@ class TransformerLM(nn.Module):
             return nll.mean()
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+
+    def _vocab_parallel_nll(self, params: Params, x: torch.Tensor,
+                            labels: torch.Tensor,
+                            mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Megatron's vocab-parallel cross-entropy over the local ``[..,
+        V / mp]`` logits (the fused head is off under a model axis, as
+        in the JAX model): the max over the shards' maxima (no
+        gradient), then ``reduce_from`` on the sum of exponentials and on
+        the target logit (zero off the shard that owns the label), in
+        ``loss_chunk`` token columns recomputed in the backward as the
+        chunked head's."""
+        axis = self._tp_axis
+        b, t = labels.shape
+        chunk = self.config.loss_chunk
+        if not (chunk and t > chunk and t % chunk == 0):
+            chunk = t
+        idx = comm.axis_index(axis)
+
+        def chunk_nll(xc, yc, mc):
+            logits = self._project_local(params, self._fin(xc))
+            vloc = logits.shape[-1]
+            local = yc - idx * vloc
+            mine = (local >= 0) & (local < vloc)
+            with torch.no_grad():
+                m = comm.all_reduce(logits.amax(dim=-1), comm.ReduceOp.MAX,
+                                    axis)
+            se = torch.exp(logits - m[..., None]).sum(dim=-1)
+            lse = m + torch.log(reduce_from(se, axis))
+            tgt = logits.gather(-1, local.clamp(0, vloc - 1)[..., None])[..., 0]
+            tgt = reduce_from(torch.where(mine, tgt, torch.zeros_like(tgt)),
+                              axis)
+            return torch.sum((lse - tgt) * mc)
+        mc_all = (mask.to(torch.float32) if mask is not None else
+                  torch.ones(labels.shape, dtype=torch.float32,
+                             device=labels.device))
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, t, chunk):
+            sl = slice(c0, c0 + chunk)
+            part = (x[:, sl], labels[:, sl], mc_all[:, sl])
+            tot = tot + (checkpoint(chunk_nll, *part, use_reentrant=False,
+                                    preserve_rng_state=False)
+                         if chunk < t else chunk_nll(*part))
+        return tot / torch.clamp(mc_all.sum(), min=1.0)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None,
@@ -1436,6 +1669,21 @@ class TransformerLM(nn.Module):
         nsp, sw = (0, 0) if spec_tokens is None else spec_tokens.shape
         nb, blk = pool_k.shape[1], pool_k.shape[2]
         npages = tables.shape[1]
+        dp = self._dp_axis
+        if dp is not None and sw:
+            raise NotImplementedError(
+                "the speculative lane over data-sharded decode slots "
+                "(queue A item 7)")
+
+        def shard_cat(a):
+            # data-sharded slots: this rank's decode rows (the first bsl)
+            # tile back into global slot order, so every data rank's pool
+            # replica applies every slot's new row; the chunk's rows are
+            # the same on every data rank and stay as they are
+            if dp is None or not bsl:
+                return a
+            return torch.cat([comm.all_gather(a[:bsl].contiguous(), dp,
+                                              axis=0), a[bsl:]])
         act = dec_active > 0
         dtables, dlens = tables[:bsl], lens[:bsl]
         dlens_l = dlens.long()
@@ -1463,11 +1711,15 @@ class TransformerLM(nn.Module):
         # block
         cpos = torch.where(ci < chunk_len, chunk_start + ci,
                            torch.zeros_like(ci))
-        ctable = tables[chunk_slot] if nc else tables[0]
+        # chunk_slot is a global slot id: with data-sharded slots it
+        # indexes the block tables gathered over data, once a step
+        tables_g = (tables if dp is None or not nc else
+                    comm.all_gather(tables, dp, axis=0))
+        ctable = tables_g[chunk_slot] if nc else tables[0]
         cpage = (cpos // blk).clamp(max=npages - 1)
         wc = torch.where(ci < chunk_len, ctable[cpage].long() * blk
                          + cpos % blk, torch.zeros_like(ci))
-        write = torch.cat(writes + [wc])
+        write = shard_cat(torch.cat(writes + [wc]))
         dec_lens = torch.where(act, dlens + 1, torch.zeros_like(dlens))
         positions = torch.cat(pos_parts + [cpos])[None]
         ids = torch.cat(id_parts + [chunk_ids.long()])[None]
@@ -1487,6 +1739,7 @@ class TransformerLM(nn.Module):
                     (kq, kscale), (vq, vscale) = (kv_quantize(k[0], kv_bits),
                                                   kv_quantize(v[0], kv_bits))
                     new = [(pk, kq), (pv, vq), (ks, kscale), (vs, vscale)]
+                new = [(pool, shard_cat(rows)) for pool, rows in new]
                 for pool, rows in new:
                     pool.view((nb * blk,) + tuple(pool.shape[2:])).index_copy_(
                         0, write, rows)
@@ -1521,8 +1774,12 @@ class TransformerLM(nn.Module):
         logits = self._project(params, torch.cat(rows))
         new_lens = lens.clone()
         new_lens[:bsl] += act.to(lens.dtype)
-        if nc:
-            new_lens[chunk_slot] += chunk_len
+        # with data-sharded slots the chunk's slot is this rank's row
+        # only on its owner
+        cs = chunk_slot - (0 if dp is None else
+                           comm.axis_index(dp) * lens.shape[0])
+        if nc and 0 <= cs < lens.shape[0]:
+            new_lens[cs] += chunk_len
         new_cache = {"k": pool_k, "v": pool_v, "block_tables": tables,
                      "lens": new_lens}
         if kv_bits:

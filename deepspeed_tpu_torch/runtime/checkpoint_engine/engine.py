@@ -29,13 +29,15 @@ exit).  Saves and loads bump ``dstpu_checkpoint_saves_total`` /
 ``checkpoint/publish``, ``checkpoint/verify`` and ``checkpoint/load_state``
 spans (``observability/``); the engine beats its heartbeat around a save.
 
-Under ZeRO or data parallelism a save writes the files a world-1 run
-writes: every rank takes part in gathering the whole state
-(``engine.full_state()``, collectives), rank 0 alone writes and commits
-it, and the ranks meet at a barrier.  A load reads the whole state on
-every rank and each keeps its shards (``engine.adopt_state``), so a
-save at one world size loads at any other, as the JAX engine restores
-into the current shardings.
+Under ZeRO, data or tensor parallelism a save writes the files a
+world-1 run writes: every rank takes part in gathering the whole state
+(``engine.full_state()``: the data shards, then the model slices;
+collectives), rank 0 alone writes and commits it, and the ranks meet at
+a barrier.  A load reads the whole state on every rank and each keeps
+its model slice's shards (``engine.adopt_state``), so a save at one
+(data, model) mesh loads at any other, and serves at any
+``tensor_parallel.tp_size``, as the JAX engine restores into the current
+shardings.
 
 The offload engines save beside ``state.pt`` (synchronously, also under
 ``async_save``, as the JAX engine does): ZeRO-Infinity streams its host

@@ -9,12 +9,15 @@ JSON keys, defaults and validation messages, on ``dataclasses`` built by
 
 given any two, the third is inferred; all three given must agree.
 
-This slice trains on one device.  Blocks it parses but does not run are
-refused by :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls
-it) with ``NotImplementedError`` naming the ``ROADMAP.md`` queue A slice
-that brings them: ZeRO stage > 0 without offload, a mesh of more than one
-device, pipeline stages, tensor and sequence parallelism, and the
-monitor blocks.  The offload blocks run (``runtime/zero/offload.py``,
+Blocks it parses but does not run are refused by
+:meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls it) with
+``NotImplementedError`` naming the ``ROADMAP.md`` queue A part that
+brings them: the ``pipe``, ``sequence`` and ``expert`` mesh axes,
+pipeline stages, sequence parallelism, the 1-bit optimizers, offload
+over a data- or model-parallel mesh, ZeRO stage 3 over a model-sharded
+mesh, and the monitor blocks.  Data parallelism with ZeRO stages 0-3 and
+tensor parallelism (the ``model`` axis, or ``tensor_parallel.tp_size``,
+which sets it) with stages 0-2 run.  The offload blocks run (``runtime/zero/offload.py``,
 ``runtime/zero/infinity.py``), at ZeRO stage 1-3: on one device every
 stage is the same program, as in the JAX package on a one-device mesh.  The ``observability`` block (span tracer, metrics,
 flight recorder, overlap profiler) runs.  ``fp16`` trains (dynamic or static loss
@@ -269,6 +272,13 @@ class TensorParallelConfig:
     enabled: bool = False
     tp_size: int = 1
     autotp_size: int = 0
+
+    def degree(self) -> int:
+        """The model-axis size this block asks for (1 when disabled).
+        The port lays either size out by the model's Megatron
+        ``partition_specs``; the JAX engine takes its layout from the
+        mesh alone."""
+        return max(self.tp_size, self.autotp_size) if self.enabled else 1
 
 
 # -- monitors -----------------------------------------------------------------------
@@ -560,8 +570,7 @@ def _block(cls, pd: dict, key: str):
 
 # -- master config --------------------------------------------------------------------
 #: mesh axes whose size above 1 a later part of queue A item 7 brings
-_LATER_AXES = (("model", "tensor parallelism"),
-               ("pipe", "the pipeline, runtime/pipe/"),
+_LATER_AXES = (("pipe", "the pipeline, runtime/pipe/"),
                ("sequence", "ring and Ulysses sequence parallelism"),
                ("expert", "moe.ep_size above 1, expert parallelism"))
 
@@ -771,11 +780,20 @@ class DeepSpeedConfig:
         if self.sequence_parallel.enabled:
             later.append("sequence_parallel: ring and Ulysses sequence "
                          "parallelism (queue A item 7)")
-        if self.tensor_parallel.enabled and \
-                max(self.tensor_parallel.tp_size,
-                    self.tensor_parallel.autotp_size) > 1:
-            later.append("tensor_parallel: tensor parallelism "
-                         "(queue A item 7)")
+        model = sizes.get("model", 1)
+        tp = self.tensor_parallel.degree()
+        if z.stage >= 3:
+            if model not in (1, -1):
+                later.append(f"mesh axis model={model}: ZeRO stage 3 over "
+                             f"a model-sharded mesh, the 3D composition "
+                             f"(queue A item 7)")
+            elif tp > 1:
+                later.append(f"tensor_parallel: ZeRO stage 3 at tp_size "
+                             f"{tp}, the 3D composition (queue A item 7)")
+        if offload and max(model, tp) > 1:
+            later.append(f"offload over a model-sharded mesh (model="
+                         f"{max(model, tp)}): the 3D composition (queue A "
+                         f"item 7)")
         if self.optimizer is not None and self.optimizer.type.lower() in (
                 "onebitadam", "onebitlamb", "zerooneadam"):
             later.append(f"optimizer {self.optimizer.type}: the 1-bit "

@@ -40,9 +40,12 @@ class RepeatingLoader:
 
 
 def rank_slice(batch: Any, gas: int, dp: int, rank: int) -> Any:
-    """This rank's rows of a global batch ``[gas * dp * micro, ...]`` (a
-    dict, tuple or list of arrays or tensors, or one array) as its
-    local batch ``[gas * micro, ...]``."""
+    """Data coordinate ``rank``'s rows of a global batch ``[gas * dp *
+    micro, ...]`` (a dict, tuple or list of arrays or tensors, or one
+    array) as its local batch ``[gas * micro, ...]``.  ``rank`` is the
+    rank's coordinate on the data axes (``engine.dp_rank``), not its
+    global rank: the model ranks of one data coordinate take the same
+    rows."""
     if isinstance(batch, dict):
         return {k: rank_slice(v, gas, dp, rank) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):

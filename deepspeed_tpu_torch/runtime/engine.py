@@ -55,7 +55,22 @@ compute-dtype params (stages 1-2).  Each rank's backward runs at the
 loss scale over dp, so the sum over the ranks is the global mean's
 gradient.  The global norm sums each shard's squares over the ranks and
 counts a resident leaf once; an fp16 overflow is reduced over the
-ranks; the loss is the ranks' mean.  On
+ranks; the loss is the ranks' mean.
+
+Tensor parallelism (a ``mesh`` with ``model`` above 1, or
+``tensor_parallel.tp_size``, at ZeRO stages 0-2) composes Megatron's
+layout with ZeRO over ``data``: each rank keeps its slice of every leaf
+the model's ``partition_specs`` shards (the fused qkv stays whole over
+``model``) and ZeRO's shard of that slice, and the loss runs the model's
+per-shard view (``tp_train_view``: ``copy_to``/``reduce_from`` around
+each branch, the vocab-parallel cross-entropy).  Inside the
+differentiated function each shard gathers its own qkv columns and
+divides the row-parallel biases by mp (``_tp_localize``), so those
+leaves' gradients are partial: one all-reduce over ``model`` sums them
+after the data-axis reduction (``psum_tp_partials``).  The global norm
+sums a model-sharded leaf's squares over the model ranks and counts a
+replicated one once.  The ranks of one data coordinate take the same
+rows of the global batch (``dp_rank``).  On
 ``nccl`` nothing in the step waits for the card; ``gloo`` stages each
 collective through host memory (``comm.py``).
 
@@ -84,8 +99,12 @@ import torch
 
 from .. import comm
 from ..accelerator import resolve_device
-from ..models.convert import OPT_TREES, check_params, leaf_to_torch
-from ..parallel.topology import build_mesh, dp_world_size, mp_world_size
+from ..models.convert import (OPT_TREES, check_params, leaf_to_torch,
+                              tp_dims, tp_gather, tp_slice)
+from ..parallel.collectives import (TP_PARTIAL_SUFFIXES, psum_tp_partials,
+                                    qkv_shard_columns)
+from ..parallel.topology import (DATA_AXES, MODEL_AXIS, build_mesh,
+                                 dp_world_size, mp_world_size)
 from ..observability import trace_span
 from ..utils.logging import logger
 from . import lr_schedules
@@ -140,17 +159,30 @@ class DeepSpeedEngine:
                  lr_scheduler: Optional[Callable] = None,
                  loss_fn: Optional[Callable] = None,
                  params: Optional[Dict[str, Any]] = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, mesh=None):
         self._config = (config if isinstance(config, DeepSpeedConfig)
                         else DeepSpeedConfig(config or {}))
         self._config.refuse_out_of_slice()
         self.device = resolve_device(device)
         # the rank's place on the mesh (one rank, all axes 1, without
-        # torch.distributed); collectives resolve axis names against it
-        self.mesh = build_mesh(self._config.mesh)
+        # torch.distributed); collectives resolve axis names against it.
+        # tensor_parallel's size is the model axis's
+        mesh_cfg = self._config.mesh
+        tp = self._config.tensor_parallel.degree()
+        if tp > 1:
+            if mesh_cfg.model not in (1, tp):
+                raise ValueError(
+                    f"tensor_parallel.tp_size {tp} disagrees with mesh.model "
+                    f"{mesh_cfg.model}")
+            mesh_cfg = dataclasses.replace(mesh_cfg, model=tp)
+        self.mesh = build_mesh(mesh_cfg) if mesh is None else mesh
         comm.set_mesh(self.mesh)
         self.dp_world_size = dp_world_size(self.mesh)
         self.mp_world_size = mp_world_size(self.mesh)
+        #: this rank's data coordinate: the rows of the global batch it
+        #: takes (``dataloader.rank_slice``); the model ranks of one data
+        #: coordinate take the same rows
+        self.dp_rank = self.mesh.axis_index(DATA_AXES)
         self._config.refuse_out_of_slice(mesh_shape=self.mesh.shape)
         if self._config.comms_logger_dict and \
                 self._config.comms_logger_dict.get("enabled"):
@@ -172,6 +204,17 @@ class DeepSpeedEngine:
             self._obs.set_collector("engine", self._obs_collect)
         model = self._apply_training_overrides(model)
         self.model = model
+        # tensor parallelism: the loss runs the model's per-shard view
+        # over this rank's slice (stages 0-2)
+        self._tp_view = None
+        if self.mp_world_size > 1:
+            if loss_fn is not None or not hasattr(model, "tp_train_view"):
+                raise NotImplementedError(
+                    "tensor parallelism trains a TransformerLM through its "
+                    "own loss (a client loss_fn has no per-shard view)")
+            self._tp_view = model.tp_train_view(self.mp_world_size,
+                                                MODEL_AXIS)
+            loss_fn = self._tp_view.loss
         self._config.resolve_batch_sizes(self.dp_world_size)
         self.zero_stage = self._config.zero_optimization_stage
         self.fp16_enabled = self._config.fp16.enabled
@@ -219,7 +262,8 @@ class DeepSpeedEngine:
         self._live = None
         self._zero_bytes: Dict[str, int] = {}
         if offload_mode == "none" and (self.zero_stage >= 1
-                                       or self.dp_world_size > 1):
+                                       or self.dp_world_size > 1
+                                       or self.mp_world_size > 1):
             self._refuse_zero_optimizer()
             self._zero_path = True
         else:
@@ -332,9 +376,18 @@ class DeepSpeedEngine:
         return state
 
     def _refuse_zero_optimizer(self) -> None:
-        """The optimizers a data-parallel ZeRO step cannot run on shards:
-        LAMB's trust ratio spans a whole leaf, and a client torch.optim
-        optimizer's state is not a tree of the params' shape."""
+        """The optimizers a data-parallel ZeRO step, or a model-sharded
+        one, cannot run on shards: LAMB's trust ratio spans a whole leaf,
+        and a client torch.optim optimizer's state is not a tree of the
+        params' shape."""
+        if self.mp_world_size > 1:
+            if self.optimizer.name == "lamb" or \
+                    self.optimizer.hyperparams.get("external_lr"):
+                raise NotImplementedError(
+                    "LAMB or a client torch.optim optimizer under tensor "
+                    "parallelism: no rank holds a whole leaf (not in the "
+                    "PyTorch port yet)")
+            return
         if self.dp_world_size == 1 or self.zero_stage == 0:
             return
         if self.optimizer.name == "lamb":
@@ -355,11 +408,19 @@ class DeepSpeedEngine:
         from .zero.partitioned import ZeroPartition, shape_tree
         from .zero.sharding import ZeroShardingPolicy
         zc = self._config.zero_config
+        self._full_shapes = shape_tree(params)
+        specs = tdims = None
+        if self._tp_view is not None:
+            specs = self._tp_train_specs(params)
+            tdims = tp_dims(specs)
+            self._tp_dims = tdims
+            params = tp_slice(params, tdims, self.mp_world_size,
+                              self.mesh.axis_index(MODEL_AXIS))
         policy = ZeroShardingPolicy(
-            self.zero_stage, self.mesh, params,
+            self.zero_stage, self.mesh, self._full_shapes, specs,
             param_persistence_threshold=(zc.param_persistence_threshold
                                          if self.zero_stage >= 3 else 0))
-        self._zero = ZeroPartition(policy, self.mesh)
+        self._zero = ZeroPartition(policy, self.mesh, tp_dims=tdims)
         self._param_shapes = shape_tree(params)
         if not self._config.bf16.master_weights and self.bf16_enabled:
             params = tree_map(lambda p: p.to(torch.bfloat16), params)
@@ -373,6 +434,48 @@ class DeepSpeedEngine:
         if self.loss_scaler is not None:
             state["scaler"] = self.loss_scaler.init(self.device)
         return state
+
+    # ------------------------------------------------------------------
+    # tensor parallelism
+    # ------------------------------------------------------------------
+    def _tp_train_specs(self, params):
+        """The model's Megatron specs with the fused qkv replicated over
+        ``model``: each shard gathers its own columns inside the
+        differentiated step (``_tp_localize``), and their partial
+        gradients are summed at the step's exit."""
+        def strip(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: strip(v, path + (k,)) for k, v in tree.items()}
+            if path[-2:] in (("qkv", "kernel"), ("qkv", "bias")):
+                return tuple(None if e == MODEL_AXIS else e for e in tree)
+            return tree
+        # the params' own tree, so the specs' leaves come in its order
+        return strip(self.model.partition_specs(params))
+
+    def _tp_localize(self, params):
+        """Inside the differentiated function: each shard's fused-qkv
+        columns (``qkv_shard_columns``; the gather's backward puts the
+        partial gradient back in the whole layout) and the row-parallel
+        biases divided by mp (``reduce_from`` restores them).  The
+        identity without a model axis."""
+        if self._tp_view is None:
+            return params
+        c, mp = self.model.config, self.mp_world_size
+        cols = torch.as_tensor(
+            qkv_shard_columns(c.num_heads, c.kv_heads, c.hdim, mp)[
+                self.mesh.axis_index(MODEL_AXIS)], dtype=torch.long,
+            device=self.device)
+
+        def walk(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            tail = path[-2:]
+            if tail in (("qkv", "kernel"), ("qkv", "bias")):
+                return tree.index_select(-1, cols)
+            if tail in TP_PARTIAL_SUFFIXES:
+                return tree / mp
+            return tree
+        return walk(params)
 
     def _zero_micro(self, mb, scale):
         """(scaled loss, float32 grads) of one micro batch on this rank
@@ -390,7 +493,7 @@ class DeepSpeedEngine:
             with trace_span("engine/forward", micro_step=self.micro_steps):
                 params = (leaves if self.zero_stage < 3 else
                           z.stage3_params(leaves, dtype))
-                loss = self._loss_fn(params, mb) * scale
+                loss = self._loss_fn(self._tp_localize(params), mb) * scale
             with trace_span("engine/backward", micro_step=self.micro_steps):
                 grads = torch.autograd.grad(loss, list(tree_leaves(leaves)))
         it = iter(g.to(torch.float32) for g in grads)
@@ -418,6 +521,9 @@ class DeepSpeedEngine:
             lsum = lsum + loss
         self._zero_bytes = self.zero_state_bytes(grads=gsum)
         gsum = self._zero.finish(gsum)
+        if self._tp_view is not None:
+            # the partial leaves' exit reduction over the model ranks
+            gsum = psum_tp_partials(gsum, MODEL_AXIS)
         lsum = comm.all_reduce(lsum, comm.ReduceOp.SUM, self._zero.axes)
         return gsum, lsum
 
@@ -446,12 +552,18 @@ class DeepSpeedEngine:
         if self._zero is None:
             return self.state
         z = self._zero
+
+        def whole(tree):
+            tree = z.gather(tree, z.master_dims)
+            if self._tp_view is not None:
+                tree = tp_gather(tree, self._tp_dims, MODEL_AXIS)
+            return tree
         st = dict(self.state)
-        st["params"] = z.gather(self.state["params"], z.master_dims)
+        st["params"] = whole(self.state["params"])
         opt = dict(self.state["opt"])
         for k in OPT_TREES:
             if k in opt:
-                opt[k] = z.gather(opt[k], z.master_dims)
+                opt[k] = whole(opt[k])
         st["opt"] = opt
         return st
 
@@ -460,20 +572,28 @@ class DeepSpeedEngine:
         this rank's shards; ``partial`` takes the params and step
         only."""
         z = self._zero
+
+        def mine(tree):
+            # the model slice (tensor parallelism), then the data shard
+            if self._tp_view is not None:
+                tree = tp_slice(tree, self._tp_dims, self.mp_world_size,
+                                self.mesh.axis_index(MODEL_AXIS))
+            return tree
+        params = mine(full["params"])
         if partial:
-            self.state["params"] = z.shard(full["params"], z.master_dims)
+            self.state["params"] = z.shard(params, z.master_dims)
             self.state["step"] = full["step"]
         else:
             st = dict(full)
-            st["params"] = z.shard(full["params"], z.master_dims)
+            st["params"] = z.shard(params, z.master_dims)
             opt = dict(full["opt"])
             for k in OPT_TREES:
                 if k in opt:
-                    opt[k] = z.shard(opt[k], z.master_dims)
+                    opt[k] = z.shard(mine(opt[k]), z.master_dims)
             st["opt"] = opt
             self.state = st
         if self.zero_stage in (1, 2):
-            self._live = self._cast_for_compute(full["params"])
+            self._live = self._cast_for_compute(params)
 
     def _init_state_offload(self, params) -> Dict[str, Any]:
         """Offload init: each float32 leaf's host copy becomes a master of
@@ -646,8 +766,9 @@ class DeepSpeedEngine:
         the gradient comes back through the cast."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with trace_span("engine/forward", micro_step=self.micro_steps):
-            loss = self._loss_fn(self._cast_for_compute(leaves),
-                                 micro_batch) * scale
+            loss = self._loss_fn(
+                self._tp_localize(self._cast_for_compute(leaves)),
+                micro_batch) * scale
         flat = list(tree_leaves(leaves))
         with trace_span("engine/backward", micro_step=self.micro_steps):
             grads = torch.autograd.grad(loss, flat)
@@ -768,6 +889,7 @@ class DeepSpeedEngine:
         """One optimizer step over ``gas`` micro batches; returns metrics
         as device tensors (loss, grad_norm, lr, overflow, loss_scale)."""
         self._heartbeat.maybe_beat()
+        comm.set_mesh(self.mesh)
         if self.infinity_enabled:
             t0 = time.perf_counter()
             with trace_span("engine/train_step", mode="infinity",
@@ -937,7 +1059,7 @@ class DeepSpeedEngine:
                 params = z.stage3_params(self.state["params"], dtype)
             else:
                 params = self._cast_for_compute(self.state["params"])
-            return z.mean(self._loss_fn(params, sq))
+            return z.mean(self._loss_fn(self._tp_localize(params), sq))
 
     # ------------------------------------------------------------------
     # compat API: forward / backward / step
@@ -1015,7 +1137,7 @@ class DeepSpeedEngine:
             return self._infinity.total_params
         if self._zero is not None:
             return sum(int(np.prod(s)) for s in
-                       tree_leaves(self._param_shapes))
+                       tree_leaves(self._full_shapes))
         return sum(int(p.numel()) for p in tree_leaves(self.state["params"]))
 
     # ------------------------------------------------------------------

@@ -23,6 +23,14 @@ remat unit, so under ``remat`` the gather reruns in the backward (the
 JAX stage 3's scan gather, the reference's fetch and release); the
 leaves outside ``blocks`` are gathered once a micro batch, where the
 loss reads them.
+
+Under tensor parallelism (stages 0-2) the rank's tree is its model
+slice (``models/convert.py::tp_slice``) and the policy's specs carry the
+``model`` axis, so a leaf's data shard is its chunk of that slice along
+the data dim: rank (d, m) holds device (d, m)'s shard of the JAX
+layout.  ``tp_dims`` (each leaf's model dim, or None) makes the global
+norm count a model-sharded leaf's squares over the model ranks and a
+replicated one once, and the overflow flag reduce over both axes.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 
 from ... import comm
 from ...parallel.collectives import REDUCE_PSUM, reduce_over_data
-from ...parallel.topology import DATA_AXES
+from ...parallel.topology import DATA_AXES, MODEL_AXIS
 from ..optimizers import tree_leaves, tree_map
 from .sharding import ZeroShardingPolicy, grad_reduce_plan
 
@@ -84,8 +92,10 @@ class ZeroPartition:
     collectives of the step written from them."""
 
     def __init__(self, policy: ZeroShardingPolicy, mesh,
-                 axes: Sequence[str] = DATA_AXES):
+                 axes: Sequence[str] = DATA_AXES, tp_dims=None):
         self.policy = policy
+        self.tp_dims = tp_dims
+        self.mp = mesh.axis_size(MODEL_AXIS)
         self.stage = policy.stage
         self.axes = tuple(axes)
         self.dp = mesh.axis_size(self.axes)
@@ -199,25 +209,35 @@ class ZeroPartition:
         return tree_map(one, gsum, self.grad_plan, self.master_dims)
 
     def global_norm(self, grads) -> torch.Tensor:
-        """sqrt of the sum of squares of the whole gradient: a sharded
-        leaf's squares summed over the ranks, a resident leaf's counted
-        once (it is equal on every rank)."""
-        shard_sq, res_sq = [], []
-        for g, d in zip(tree_leaves(grads), tree_leaves(self.master_dims)):
+        """sqrt of the sum of squares of the whole gradient: a leaf's
+        squares summed over the ranks of each axis it is sharded along
+        (data, model), a leaf replicated on both counted once (it is
+        equal on every rank)."""
+        groups: Dict[tuple, list] = {}
+        tdims = (list(tree_leaves(self.tp_dims)) if self.tp_dims is not None
+                 else [None] * len(list(tree_leaves(self.master_dims))))
+        for g, d, m in zip(tree_leaves(grads),
+                           tree_leaves(self.master_dims), tdims):
             sq = torch.sum(torch.square(g.to(torch.float32)))
-            (res_sq if d is None else shard_sq).append(sq)
-        total = sum(res_sq)
-        if shard_sq:
-            part = sum(shard_sq)
-            total = comm.all_reduce(part, comm.ReduceOp.SUM, self.axes) + \
-                total
+            groups.setdefault((d is not None, m is not None), []).append(sq)
+        total = sum(groups.pop((False, False), []))
+        for (over_data, over_model), sqs in sorted(groups.items()):
+            part = sum(sqs)
+            if over_data:
+                part = comm.all_reduce(part, comm.ReduceOp.SUM, self.axes)
+            if over_model:
+                part = comm.all_reduce(part, comm.ReduceOp.SUM, MODEL_AXIS)
+            total = part + total
         return torch.sqrt(total)
 
     def reduce_flag(self, flag: torch.Tensor) -> torch.Tensor:
         """A per-rank boolean (an fp16 overflow) → true on every rank if
-        true on any."""
-        f = flag.to(torch.int32)
-        return comm.all_reduce(f, comm.ReduceOp.MAX, self.axes).bool()
+        true on any (over the data ranks, then the model ranks)."""
+        f = comm.all_reduce(flag.to(torch.int32), comm.ReduceOp.MAX,
+                            self.axes)
+        if self.mp > 1:
+            f = comm.all_reduce(f, comm.ReduceOp.MAX, MODEL_AXIS)
+        return f.bool()
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of a per-rank scalar over the ranks."""

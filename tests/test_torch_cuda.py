@@ -2918,3 +2918,73 @@ def test_cuda_collectives_on_card_tensors(backend, world):
             for k, w in want.items():
                 torch.testing.assert_close(got[k], w, rtol=0, atol=0,
                                            msg=f"{backend} {dtype} {k}")
+
+
+#: a rank of world 2 over gloo on card 0 serving a small f32 GPT-2 at
+#: serving.mesh {model 2}, or the same model at one rank without a mesh
+#: (``TPS_WORLD1``): the greedy streams of 6 requests on a "TPSRESULT" line
+_TP_SERVE_RANK = r'''
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.models.transformer import TransformerLM, gpt2_config
+one = os.environ.get("TPS_WORLD1") == "1"
+if not one:
+    dt.init_distributed("gloo", timeout=120)
+model = TransformerLM(gpt2_config("125m", num_layers=4, d_model=64,
+                                  num_heads=4, vocab_size=128,
+                                  max_seq_len=128, dtype=torch.float32))
+params = model.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+
+def scale(tree):
+    # larger kernels than the init's, so the greedy streams vary
+    return {k: scale(v) if isinstance(v, dict) else
+            (v * 30.0 if k == "kernel" else v) for k, v in tree.items()}
+serving = {"enabled": True, "kv_block_size": 8, "num_kv_blocks": 64,
+           "max_batch_slots": 4, "prefill_chunk_tokens": 16}
+if not one:
+    serving["mesh"] = {"model": 2}
+eng = dt.init_inference(model, {"dtype": "float32", "temperature": 0.0,
+                                "serving": serving},
+                        params=scale(params), device="cuda:0")
+srv = eng.serving_engine()
+rs = np.random.RandomState(5)
+reqs = [srv.submit(rs.randint(0, 128, n).tolist(), max_new_tokens=12)
+        for n in (5, 17, 30, 9, 2, 24)]
+srv.run()
+print("TPSRESULT " + json.dumps([[r.output for r in reqs],
+                                 srv.kv_pool_bytes]), flush=True)
+if not one:
+    comm.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_tp_serving_two_ranks_sharing_a_card_match_world_one():
+    """Two ranks over gloo on card 0 at ``serving.mesh`` {model 2} (each
+    rank's B6/B7 at half the kv heads, every layer's partial sums
+    all-reduced through host memory, the vocab shards all-gathered)
+    against one rank without a mesh: the f32 greedy streams equal on
+    both ranks and equal to world 1's, each rank's pool half of world
+    1's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import os
+    from deepspeed_tpu_torch.comm.local_ranks import run_ranks
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def result(text):
+        return json.loads([ln for ln in text.splitlines()
+                           if ln.startswith("TPSRESULT ")][-1][10:])
+    two = [result(o) for o in run_ranks(_TP_SERVE_RANK, 2, timeout=300,
+                                        cwd=repo)]
+    (one,) = [result(o) for o in run_ranks(_TP_SERVE_RANK, 1, timeout=300,
+                                           cwd=repo,
+                                           env={"TPS_WORLD1": "1"})]
+    assert two[0] == two[1]
+    assert two[0][0] == one[0]
+    assert 2 * two[0][1] == one[1]

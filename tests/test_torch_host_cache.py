@@ -103,9 +103,13 @@ def test_tiered_blocks_for_budget_equal_jax(budgets):
 
 
 def test_model_sharded_budget_is_the_mesh_slice():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tiered_blocks_for_budget(10**6, 10**7, 0, 2, 4, 8, 16,
-                                 model_shards=2)
+    """A model-sharded mesh (since its slice) plans the device tier at
+    the per-rank block size, as the JAX helper does."""
+    got = tiered_blocks_for_budget(10**6, 10**7, 0, 2, 4, 8, 16,
+                                   model_shards=2)
+    assert got == jax_hc.tiered_blocks_for_budget(10**6, 10**7, 0, 2, 4, 8,
+                                                  16, model_shards=2)
+    assert got[0] == blocks_for_budget(10**6, 4, 8, 16, 0, model_shards=2)
 
 
 # ---------------------------------------------------------------------------

@@ -323,10 +323,12 @@ def test_valid_host_cache_and_fleet_blocks_parse_equal(serving):
     {"observability": {}},
 ])
 def test_out_of_slice_engine_options_raise(override):
-    """Multi-device tensor and expert parallelism raise; the
-    ``observability`` block, refused until the serving engine's hooks
-    were ported, now builds an engine and configures the process
-    telemetry (an empty block: everything off)."""
+    """Expert parallelism raises; tensor parallelism, which runs since
+    its slice (``tests/test_torch_tp_serving.py``), raises in a world of
+    one rank with the JAX engine's message (no rank runs a smaller
+    mesh); the ``observability`` block, refused until the serving
+    engine's hooks were ported, now builds an engine and configures the
+    process telemetry (an empty block: everything off)."""
     pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
                                          **TINY))
     if "observability" in override:
@@ -335,6 +337,11 @@ def test_out_of_slice_engine_options_raise(override):
         eng = dt.init_inference(pm, {**BASE, **override}, device="cpu")
         assert eng.config.observability is not None
         assert not get_tracer().enabled and not get_registry().enabled
+        return
+    if "tensor_parallel" in override:
+        with pytest.raises(ValueError, match="tp_size 2 x ep_size 1 does "
+                                             "not divide 1 devices"):
+            dt.init_inference(pm, {**BASE, **override}, device="cpu")
         return
     with pytest.raises(NotImplementedError, match="slice"):
         dt.init_inference(pm, {**BASE, **override}, device="cpu")
@@ -346,17 +353,24 @@ def test_out_of_slice_engine_options_raise(override):
     {"fleet": {"enabled": True}},
 ])
 def test_out_of_slice_serving_options_raise(engines, serving):
-    """A serving mesh beyond 1x1 raises; the ``host_cache`` and ``fleet``
+    """A serving mesh beyond 1x1, which runs since its slice
+    (``tests/test_torch_tp_serving.py``), raises in a world of one rank
+    with the JAX engine's message, at ``init_inference`` (the engine
+    cuts its weights for the mesh); the ``host_cache`` and ``fleet``
     blocks, refused until the tiered host cache and the fleet were
     ported, now build a server (with its host tier) and a fleet."""
     _, peng, _ = engines
     pm = peng.module
+    if "mesh" in serving:
+        with pytest.raises(ValueError, match=r"serving.mesh \(data=1, "
+                                             r"model=2\) needs 2 devices, "
+                                             r"have 1"):
+            dt.init_inference(pm, {**BASE, "serving": {**SERVING,
+                                                       **serving}},
+                              params=peng.params, device="cpu")
+        return
     eng = dt.init_inference(pm, {**BASE, "serving": {**SERVING, **serving}},
                             params=peng.params, device="cpu")
-    if "mesh" in serving:
-        with pytest.raises(NotImplementedError, match="slice"):
-            eng.serving_engine()
-        return
     srv = eng.serving_engine()
     if "host_cache" in serving:
         assert srv.host_cache is not None
@@ -612,7 +626,9 @@ def test_kv4_server_drains_clean(engines):
 @pytest.mark.parametrize("kv_bits", [0, 8, 4])
 def test_kv_block_bytes_match_jax_and_the_pool(kv_bits):
     """The capacity helpers equal JAX's and are pinned to the bytes
-    ``init_paged_cache`` allocates; a model-sharded mesh is refused."""
+    ``init_paged_cache`` allocates; a model-sharded mesh's per-rank
+    count (since its slice) is JAX's too, and is the bytes of the
+    per-shard view's pool."""
     for blk, hkv, hd, item in ((16, 32, 128, 2), (8, 4, 8, 4),
                                (16, 4, 64, 2)):
         assert alloc.kv_block_bytes(blk, hkv, hd, kv_bits, item) == \
@@ -629,8 +645,14 @@ def test_kv_block_bytes_match_jax_and_the_pool(kv_bits):
     per_layer = alloc.kv_block_bytes(8, pm.config.kv_heads, pm.config.hdim,
                                      kv_bits, cache_itemsize=4)
     assert nbytes == 12 * pm.config.num_layers * per_layer
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        alloc.kv_block_bytes(16, 4, 64, kv_bits, model_shards=2)
+    assert alloc.kv_block_bytes(16, 4, 64, kv_bits, model_shards=2) == \
+        jax_alloc.kv_block_bytes(16, 4, 64, kv_bits, model_shards=2)
+    view = pm.tp_serving_view(2, "model", None)
+    pools = view.init_paged_cache(12, 8, kv_bits=kv_bits, device="cpu")
+    assert sum(t.numel() * t.element_size() for t in pools.values()) == \
+        12 * pm.config.num_layers * alloc.kv_block_bytes(
+            8, pm.config.kv_heads, pm.config.hdim, kv_bits,
+            cache_itemsize=4, model_shards=2)
 
 
 @pytest.fixture(scope="module")

@@ -486,8 +486,9 @@ def test_serving_observability_end_to_end(tmp_path, monkeypatch):
     prom = open(paths[1]).read()
     for series in SERVING_SERIES:
         assert f"dstpu_serving_{series}" in prom, series
-    # the serving mesh's series come with its slice (queue A item 7)
-    assert "dstpu_mesh_" not in prom
+    # the serving mesh's gauges read its shape: 1 x 1 here
+    assert "dstpu_mesh_data_size 1" in prom
+    assert "dstpu_mesh_model_size 1" in prom
     reg = pobs.get_registry()
     assert reg.counter("dstpu_serving_tokens_total").value == 32
     assert reg.histogram("dstpu_serving_ttft_seconds").count == 4

@@ -267,3 +267,47 @@ def test_cpu_adam_source_is_the_ports_own_copy():
     assert "cpu_adam" in build.HOST_LIBS
     path = build.host_library_path("cpu_adam")
     assert path.parent == build.BUILD_DIR
+
+
+#: the modules tensor parallelism runs through
+TENSOR_PARALLEL = (
+    "deepspeed_tpu_torch.comm.comm", "deepspeed_tpu_torch.parallel.topology",
+    "deepspeed_tpu_torch.parallel.collectives",
+    "deepspeed_tpu_torch.module_inject.auto_tp",
+    "deepspeed_tpu_torch.models.convert",
+    "deepspeed_tpu_torch.models.transformer",
+    "deepspeed_tpu_torch.inference.engine",
+    "deepspeed_tpu_torch.inference.serving.engine",
+    "deepspeed_tpu_torch.inference.serving.block_allocator",
+    "deepspeed_tpu_torch.runtime.engine",
+    "deepspeed_tpu_torch.runtime.zero.partitioned",
+    "deepspeed_tpu_torch.runtime.dataloader",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine.engine")
+
+
+@pytest.mark.parametrize("module", TENSOR_PARALLEL)
+def test_tensor_parallel_modules_are_checked(module):
+    """The modules of tensor parallelism are among the modules whose
+    imports the checks above read, and none builds or loads a library or
+    starts ``torch.distributed`` while it is imported."""
+    modules = dict(port_modules())
+    assert module in modules
+    calls = _import_time_calls(ast.parse(modules[module].read_text()))
+    assert not (BUILDERS | {"init_distributed", "init_process_group"}) \
+        & set(calls), f"{module} builds or starts a world at import"
+
+
+def test_tensor_parallel_modules_import_alone():
+    """Importing them in a fresh interpreter loads no forbidden package
+    and leaves ``torch.distributed`` uninitialized."""
+    code = (f"import importlib, json, sys\n"
+            f"for m in {TENSOR_PARALLEL!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"import torch.distributed as dist\n"
+            f"print(json.dumps([sorted(m for m in sys.modules if "
+            f"m.split('.')[0] in {FORBIDDEN!r}), dist.is_initialized()]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False]

@@ -414,8 +414,10 @@ def test_draft_checks_and_refusals(weights):
     an untrained draft from seed 1 when no params are given; the tiered
     host cache and the fleet, refused until they were ported, now build
     (a spec server over a host tier serves) and their preconditions are
-    refused with the JAX messages; the serving mesh is refused naming
-    its slice."""
+    refused with the JAX messages; a serving mesh, which runs since its
+    slice, raises in a world of one rank with the JAX message (the spec
+    lane on a mesh is refused naming queue A item 7,
+    ``tests/test_torch_tp_serving.py``)."""
     tp, _ = weights
     pm = tt.TransformerLM(port_cfg(TARGET))
 
@@ -445,8 +447,8 @@ def test_draft_checks_and_refusals(weights):
     reqs = serve(hsrv, prompts()[:2], new=4)
     assert all(r.status is RequestStatus.OK for r in reqs)
     assert eng({"fleet": {"enabled": True}}).serving_engine() is not None
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        eng({"mesh": {"model": 2}}).serving_engine()
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        eng({"mesh": {"model": 2}})
     from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
     with pytest.raises(ValueError, match="requires serving.host_cache"):
         ServingEngine(eng(), role="prefill")

@@ -543,8 +543,11 @@ def test_rank_slices_are_the_jax_device_rows():
 
 #: configs the slice refuses, each with the message that names its part
 REFUSED = [
-    ({"mesh": {"model": 2}},
-     "mesh axis model=2: tensor parallelism (queue A item 7)"),
+    # tensor parallelism runs at stages 0-2 (tests/test_torch_tp_training.py);
+    # stage 3 over a model-sharded mesh is the 3D composition's
+    ({"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
+     "mesh axis model=2: ZeRO stage 3 over a model-sharded mesh, the 3D "
+     "composition (queue A item 7)"),
     ({"mesh": {"pipe": 2}},
      "mesh axis pipe=2: the pipeline, runtime/pipe/ (queue A item 7)"),
     ({"mesh": {"sequence": 2}},
@@ -553,8 +556,10 @@ REFUSED = [
     ({"mesh": {"expert": 2}},
      "mesh axis expert=2: moe.ep_size above 1, expert parallelism "
      "(queue A item 7)"),
-    ({"tensor_parallel": {"enabled": True, "tp_size": 2}},
-     "tensor_parallel: tensor parallelism (queue A item 7)"),
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2},
+      "zero_optimization": {"stage": 3}},
+     "tensor_parallel: ZeRO stage 3 at tp_size 2, the 3D composition "
+     "(queue A item 7)"),
     ({"pipeline": {"stages": 2}},
      "pipeline.stages 2: the pipeline, runtime/pipe/ (queue A item 7)"),
     ({"sequence_parallel": {"enabled": True}},
