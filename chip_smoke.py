@@ -224,9 +224,9 @@ Phases (any failure exits non-zero and prints no result line):
    replicas on their own threads: streams exactly once;
 28. ZeRO-Offload (``offload_phase``): GPT-2 125M with the host optimizer
    against the in-HBM engine (3 steps, the JAX tests' bounds), then GPT-3
-   6.7B's width at 16 of its 32 layers (all 32 until phase 32 came, for
-   the run's time) on the host optimizer (seq 1024, micro 4, 40 GB of
-   host Adam state): s/step split into the grads, the host
+   6.7B's width at 8 of its 32 layers (all 32 until phase 32 came, 16
+   until phase 33 did, for the run's time) on the host optimizer (seq
+   1024, micro 4, 20 GB of host Adam state): s/step split into the grads, the host
    sweep and the upload lane, the sweep's and the wire's GB/s, 1 step at
    wire 0 and 1 at wire 8 (3 and 2 until phase 31 came, for the run's
    time); B1 and B2 launches exact;
@@ -282,11 +282,28 @@ Phases (any failure exits non-zero and prints no result line):
    without ZeRO at that state and batch, B1 24 and B2 12 a step on every
    rank, state bytes the plan's count.
 
-``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32`` (any of
-them) builds the kernels and runs only those phases ("3": phase 3's
+33. pipeline parallelism (``pipe_report``), in phase 31's world of 4
+   gloo ranks sharing the card, after phase 32 (b): GPT-2 125M at
+   phase 32 (b)'s global batch of 8 and micro 1, 2 steps each from
+   phase 31 (a)'s state of that step (stage-stacked, each rank keeping
+   its stage's slice), at {pipe 4} under 1F1B and under gpipe (8 micro
+   batches), {pipe 2, data 2} at ZeRO stage 1 (4 a data rank) and {pipe
+   2, model 2} under 1F1B (8): every rank's loss and grad norm the same
+   and within the same-state step check of phase 32 (b)'s reference, B1
+   2 x layers a stage x micro batches and B2 once that a step on every
+   rank exactly, each rank's state bytes the plan's count (blocks / S
+   beside the replicated embedding, positions and final norm), stage
+   0's schedule peak (``torch.cuda.max_memory_allocated`` above what
+   the schedule started with) under 1F1B at most gpipe's; per mesh the
+   bytes, peak memory, s/step, the sends' and receives' calls, bytes and
+   ms a call, the all-reduce over pipe; at {pipe 4} the two-point bubble
+   fit of each schedule (``measure_bubble_fraction``, M 4 and 8).
+
+``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33`` (any
+of them) builds the kernels and runs only those phases ("3": phase 3's
 cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B engine;
-"32" without "31": phase 32 (a) alone), then prints no result line: a
-probe of the newest phases.
+"32" without "31": phase 32 (a) alone; "33" needs "31", whose world it
+runs in), then prints no result line: a probe of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -2102,6 +2119,10 @@ def main(argv=None) -> int:
     tp = tp_phase(torch, np, zero)
     elapsed("phase 32")
 
+    # -- 33. pipeline parallelism (it ran in phase 31's world) --------------
+    pp = pipe_report(zero, nvidia_smi_line(0))
+    elapsed("phase 33")
+
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
     paged = "deepspeed_tpu/ops/transformer/paged_decode_attention.py"
@@ -2221,7 +2242,10 @@ def main(argv=None) -> int:
           f"{tp['train']['1x4']['flash_attention_fwd']}, B2 "
           f"{tp['train']['1x4']['flash_attention_bwd']}, {{data 2, model "
           f"2}} B1 {tp['train']['2x2']['flash_attention_fwd']}, B2 "
-          f"{tp['train']['2x2']['flash_attention_bwd']}")
+          f"{tp['train']['2x2']['flash_attention_bwd']}; the pipeline ("
+          f"{TP_TRAIN_STEPS} steps a mesh), every rank: " + ", ".join(
+              f"{k} B1 {v['flash_attention_fwd']}, B2 "
+              f"{v['flash_attention_bwd']}" for k, v in pp.items()))
     kernels = []
     for name in build.COUNTERS:
         replaces, launches, main = rows[name]
@@ -5483,7 +5507,7 @@ def host_cache_phase(torch, np, eng, label) -> dict:
 
 
 ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31",
-               "32"}
+               "32", "33"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5521,17 +5545,26 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
     res = {}
     for n, run in (("21", moe_serve_phase), ("22", moe_train_phase),
                    ("23", diffusion_phase), ("28", offload_phase),
-                   ("29", infinity_phase), ("30", host_offload_phase),
-                   ("31", zero_phase)):
+                   ("29", infinity_phase), ("30", host_offload_phase)):
         if n in only:
             free_card(torch, f"phase {n}")
             res[n] = run(torch, np)
             elapsed(f"phase {n}")
+    if "31" in only:
+        # phase 33 runs in phase 31's world
+        free_card(torch, "phase 31")
+        res["31"] = zero_phase(torch, np, pipe="33" in only)
+        elapsed("phase 31")
     if "32" in only:
         # (b) reads phase 31's world: without "31", (a) alone
         free_card(torch, "phase 32")
         tp_phase(torch, np, res.get("31"))
         elapsed("phase 32")
+    if "33" in only:
+        from deepspeed_tpu_torch.accelerator import nvidia_smi_line
+        check("31" in only, "phase 33 runs in phase 31's world: --only 31 33")
+        pipe_report(res["31"], nvidia_smi_line(0))
+        elapsed("phase 33")
     print("chip_smoke: partial run (--only): no result lines")
     return 0
 
@@ -5557,10 +5590,11 @@ def new_phases(torch, np, elapsed) -> dict:
 #: 1 step at wire 0 then 1 at offload_wire_bits 8 (3 and 2 until phase 31
 #: came: cut for the run's time)
 OFFLOAD_67_STEPS, OFFLOAD_67_WIRE0 = 2, 1
-#: (b)'s depth: GPT-3 6.7B's width at 16 of its 32 layers (all 32, with
-#: 80 GB of host Adam state, until phase 32 came: cut for the run's time;
-#: 40 GB of host state still holds the path)
-OFFLOAD_67_LAYERS = 16
+#: (b)'s depth: GPT-3 6.7B's width at 8 of its 32 layers (all 32, with
+#: 80 GB of host Adam state, until phase 32 came; 16 until phase 33 came,
+#: which takes ~21 s on an H100 80GB HBM3 at 700 W: each cut for the run's
+#: time; 20 GB of host state still holds the path)
+OFFLOAD_67_LAYERS = 8
 OFFLOAD_PARITY_MICRO, OFFLOAD_SEQ, OFFLOAD_67_MICRO = 4, 1024, 4
 #: the JAX tests' bounds for an offload engine against the in-HBM one
 #: (tests/unit/test_infinity.py:468-480): losses within 5e-3, grad norms
@@ -6063,6 +6097,20 @@ ZERO_DEADLINE = 300
 TP_TRAIN_MESHES = (({"data": 1, "model": 4}, 0), ({"data": 2, "model": 2}, 2))
 TP_TRAIN_GLOBAL, TP_TRAIN_STEPS = 8, 2
 
+#: phase 33, the pipeline in phase 31's world: (key, mesh, ZeRO stage,
+#: schedule) at phase 32 (b)'s global batch of 8 and steps (micro 1, so
+#: 8 micro batches a step, 4 a data rank at {pipe 2, data 2}), each step
+#: from phase 31 (a)'s state of that step, held to phase 32 (b)'s
+#: reference (the engine without a mesh at that state and batch); the
+#: four meshes and the bubble fits take 21-31 s of phase 31's world on an
+#: H100 80GB HBM3 at 700 W, paid for by phase 28 (b)'s depth
+PIPE_TRAIN_MESHES = (("pipe4_1f1b", {"pipe": 4}, 0, "1f1b"),
+                     ("pipe4_gpipe", {"pipe": 4}, 0, "gpipe"),
+                     ("pipe2_data2", {"pipe": 2, "data": 2}, 1, "1f1b"),
+                     ("pipe2_model2", {"pipe": 2, "model": 2}, 0, "1f1b"))
+#: the bubble fit's two micro-batch counts, at {pipe 4}, each schedule
+PIPE_BUBBLE_MICROS = (4, 8)
+
 #: the ranks' program: mode "a" is world 1 on NCCL (stage 3 against the
 #: engine without ZeRO, each step from the same state; and, for phase 32
 #: (b), the engine without ZeRO at phase 32's batch from that state),
@@ -6085,6 +6133,8 @@ mode, steps = os.environ["P31_MODE"], int(os.environ["P31_STEPS"])
 states = os.environ["P31_STATES"]
 tp_meshes = json.loads(os.environ["P32_MESHES"])
 tp_glob, tp_steps = int(os.environ["P32_GLOBAL"]), int(os.environ["P32_STEPS"])
+pp_meshes = json.loads(os.environ["P33_MESHES"])
+pp_bubble = json.loads(os.environ["P33_BUBBLE"])
 seq, glob = int(os.environ["P31_SEQ"]), int(os.environ["P31_GLOBAL"])
 dt.init_distributed("nccl" if mode == "a" else "gloo",
                     timeout=float(os.environ["P31_TIMEOUT"]))
@@ -6096,9 +6146,10 @@ cfg = gpt2_config("125m", max_seq_len=seq, remat="full", attn_impl="flash",
                   loss_chunk=256)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
-def engine(stage, micro=None, mesh=None):
+def engine(stage, micro=None, mesh=None, gas=1, schedule="auto"):
     config = {"train_micro_batch_size_per_gpu": micro or glob // world,
-              "gradient_accumulation_steps": 1,
+              "gradient_accumulation_steps": gas,
+              "pipeline": {"schedule": schedule},
               "optimizer": {"type": "AdamW", "params": {
                   "lr": 6e-4, "weight_decay": 0.1}},
               "bf16": {"enabled": True}, "gradient_clipping": 1.0,
@@ -6218,6 +6269,73 @@ else:
         gc.collect()
         torch.cuda.empty_cache()
     out["tp_seconds"] = time.perf_counter() - t_tp
+    # phase 33: the pipeline, each step from (a)'s state of that step,
+    # stage-stacked and cut to each rank's stage, model slice and shard
+    t_pp = time.perf_counter()
+    out["pipe"] = {}
+    host = [torch.load(os.path.join(states, f"state{i}.pt"),
+                       map_location="cpu", weights_only=True)
+            for i in range(tp_steps)] if pp_meshes else []
+
+    def stacked(st, eng):
+        st = dict(st, params=eng.adapter.stack(st["params"]))
+        st["opt"] = {k: eng.adapter.stack(v) if isinstance(v, dict) else v
+                     for k, v in st["opt"].items()}
+        return tree_map(lambda t: t.to(dev), st)
+
+    for key, mesh, stage, schedule in pp_meshes:
+        dp = mesh.get("data", 1)
+        eng = engine(stage, micro=1, mesh=mesh, gas=tp_glob // dp,
+                     schedule=schedule)
+        real, act = eng._interpret, []
+
+        def spied(*a, **k):
+            # the schedule's peak above what was allocated at its start
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r = real(*a, **k)
+            torch.cuda.synchronize()
+            act.append(torch.cuda.max_memory_allocated() - base)
+            return r
+        eng._interpret = spied
+        cl.reset()
+        cl.configure(enabled=True)
+        build.reset_launch_counts()
+        rows, ms, peak = [], [], 0
+        for i in range(tp_steps):
+            eng.adopt_state(stacked(host[i], eng), partial=False)
+            comm.barrier()
+            t0 = time.perf_counter()
+            m = eng.train_step(rank_slice(
+                tp_batch, eng.gradient_accumulation_steps, eng.dp_world_size,
+                eng.dp_rank))
+            rows.append([float(m["loss"]), float(m["grad_norm"])])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        torch.cuda.synchronize()
+        log, log_pipe = cl.totals(), cl.totals(axis="pipe")
+        cl.configure(enabled=False)
+        launches = {k: build.launch_counts[k] for k in KERNELS}
+        eng._interpret = real
+        res = {"rows": rows, "ms": ms, "stage": stage,
+               "schedule": eng.schedule,
+               "stage_id": eng.stage_id, "lps": eng.adapter.layers_per_stage,
+               "micro_batches": eng.micro_batches, "launches": launches,
+               "bytes": eng.zero_state_bytes(),
+               "planned": eng._zero.planned_bytes(eng._param_shapes, 2),
+               "n_params": eng.num_parameters(), "peak": peak,
+               "act_peak": max(act), "log": log, "log_pipe": log_pipe}
+        if mesh == {"pipe": 4}:
+            t0 = time.perf_counter()
+            res["bubble"] = eng.measure_bubble_fraction(
+                micro_counts=tuple(pp_bubble), repeats=2)
+            res["bubble_s"] = time.perf_counter() - t0
+        out["pipe"][key] = res
+        del eng, real, spied
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["pipe_seconds"] = time.perf_counter() - t_pp
 print("P31RESULT " + json.dumps(out), flush=True)
 comm.destroy_process_group()
 '''
@@ -6229,13 +6347,14 @@ def _rank_result(text: str) -> dict:
     return json.loads(lines[-1][len("P31RESULT "):])
 
 
-def zero_phase(torch, np) -> dict:
+def zero_phase(torch, np, pipe: bool = True) -> dict:
     """Phase 31: data parallelism with ZeRO stages 0-3 at phase 6's GPT-2
     125M configuration, each world in child processes
     (``comm/local_ranks.py``, deadline ``ZERO_DEADLINE``): (a) world 1 on
     NCCL, (b) world 4 over gloo with four ranks sharing the card (see the
-    module docstring).  Returns the B1/B2 launches of (a) and of each
-    rank of (b) (every rank's are checked equal)."""
+    module docstring); with ``pipe``, (b) also runs phase 33's meshes.
+    Returns the B1/B2 launches of (a) and of each rank of (b) (every
+    rank's are checked equal) and phases 32 (b)'s and 33's results."""
     from deepspeed_tpu_torch.accelerator import nvidia_smi_line
     import shutil
     import tempfile
@@ -6251,7 +6370,9 @@ def zero_phase(torch, np) -> dict:
            "P31_TIMEOUT": str(ZERO_DEADLINE),
            "P32_MESHES": json.dumps(TP_TRAIN_MESHES),
            "P32_GLOBAL": str(TP_TRAIN_GLOBAL),
-           "P32_STEPS": str(TP_TRAIN_STEPS)}
+           "P32_STEPS": str(TP_TRAIN_STEPS),
+           "P33_MESHES": json.dumps(PIPE_TRAIN_MESHES if pipe else ()),
+           "P33_BUBBLE": json.dumps(PIPE_BUBBLE_MICROS)}
     try:
         return _zero_runs(torch, np, card, env, states)
     finally:
@@ -6370,7 +6491,9 @@ def _zero_runs(torch, np, card, env, states) -> dict:
                               for s in ("0", "1", "2", "3"))
                        for k in per_step},
             "tp_ref": a["tp_ref"], "tp": [r["tp"] for r in ranks],
-            "tp_seconds": max(r["tp_seconds"] for r in ranks)}
+            "tp_seconds": max(r["tp_seconds"] for r in ranks),
+            "pipe": [r["pipe"] for r in ranks],
+            "pipe_seconds": max(r["pipe_seconds"] for r in ranks)}
 
 
 
@@ -6756,6 +6879,123 @@ def tp_train_report(zero, card) -> dict:
                   f"step; busbw {lg['busbw_GBps']:.3f} GB/s")
         out[key] = r0["launches"]
     return out
+
+# -- 33. pipeline parallelism ------------------------------------------------
+def pipe_report(zero, card) -> dict:
+    """Phase 33's checks and lines, from phase 31's world 4 (see the
+    module docstring): every rank's loss and grad norm against phase 32
+    (b)'s reference (the engine without a mesh at phase 31 (a)'s state
+    and the same batch), the same on every rank, B1/B2 launches exact
+    (layers a stage x micro batches x steps, twice for B1: the forward
+    and the remat recompute), state bytes the plan's count, and 1F1B's
+    schedule peak on stage 0 at most gpipe's.  Returns rank 0's
+    launches per mesh."""
+    ref = zero["tp_ref"]
+    ranks = zero["pipe"]
+    out = {}
+    print(f"phase 33 GPT-2 125M under the pipeline, seq {ZERO_SEQ}, global "
+          f"batch {TP_TRAIN_GLOBAL} at micro 1, {TP_TRAIN_STEPS} steps a "
+          f"mesh, each from phase 31 (a)'s state of that step, in phase "
+          f"31's world of 4 gloo ranks sharing the card (activations and "
+          f"their gradients sent through pinned host memory; {card}); "
+          f"{zero['pipe_seconds']:.1f} s of phase 31's:")
+    for key, mesh, stage, schedule in PIPE_TRAIN_MESHES:
+        r0 = ranks[0][key]
+        for r, res in enumerate(ranks):
+            st = res[key]
+            check(st["schedule"] == schedule,
+                  f"phase 33 {key} rank {r}: schedule {st['schedule']}")
+            check(st["rows"] == r0["rows"],
+                  f"phase 33 {key}: rank {r}'s losses {st['rows']} differ "
+                  f"from rank 0's {r0['rows']}")
+            for i, (row, want) in enumerate(zip(st["rows"], ref)):
+                ls = abs(row[0] - want[0]) / abs(want[0])
+                gs = abs(row[1] - want[1]) / abs(want[1])
+                check(ls <= STEP_LOSS_REL_TOL and gs <= STEP_GNORM_REL_TOL,
+                      f"phase 33 {key} rank {r} step {i}: loss {row[0]} vs "
+                      f"{want[0]}, grad norm {row[1]} vs {want[1]}")
+            n = st["lps"] * st["micro_batches"] * TP_TRAIN_STEPS
+            want_l = {"flash_attention_fwd": 2 * n, "flash_attention_bwd": n}
+            check(st["launches"] == want_l,
+                  f"phase 33 {key} rank {r}: launches {st['launches']} "
+                  f"against {want_l}")
+            check(st["bytes"] == st["planned"],
+                  f"phase 33 {key} rank {r}: state bytes {st['bytes']} "
+                  f"against the plan's {st['planned']}")
+        total = sum(r0["bytes"].values())
+        b1 = r0["launches"]["flash_attention_fwd"]
+        b2 = r0["launches"]["flash_attention_bwd"]
+        print(f"  {key} ({schedule}, ZeRO stage {stage}, "
+              f"{r0['micro_batches']} micro batches a step, {r0['lps']} "
+              f"layers a stage): loss " + " ".join(
+                  f"{row[0]:.5f}" for row in r0["rows"])
+              + " against " + " ".join(f"{w[0]:.5f}" for w in ref)
+              + ", grad norm " + " ".join(f"{row[1]:.5f}"
+                                          for row in r0["rows"])
+              + " against " + " ".join(f"{w[1]:.5f}" for w in ref)
+              + f" (every rank the same, within {STEP_LOSS_REL_TOL} / "
+              f"{STEP_GNORM_REL_TOL}); state " + "/".join(
+                  f"{sum(res[key]['bytes'].values()) / 1e9:.3f}"
+                  for res in ranks)
+              + f" GB (ranks 0-3; rank 0: " + ", ".join(
+                  f"{k} {v / 1e9:.3f}" for k, v in r0["bytes"].items())
+              + f" GB = {total / r0['n_params']:.2f} bytes a parameter of "
+              f"the model; the plan's count on every rank); peak memory "
+              + "/".join(f"{res[key]['peak'] / 2**30:.2f}" for res in ranks)
+              + " GiB, the schedule's own peak "
+              + "/".join(f"{res[key]['act_peak'] / 2**20:.1f}"
+                         for res in ranks)
+              + " MiB (ranks 0-3); s/step " + "/".join(
+                  f"{max(res[key]['ms'][i] for res in ranks) / 1e3:.3f}"
+                  for i in range(TP_TRAIN_STEPS))
+              + f" (slowest rank); B1 {b1} = 2 x {r0['lps']} x "
+              f"{r0['micro_batches']} x {TP_TRAIN_STEPS}, B2 {b2} = "
+              f"{r0['lps']} x {r0['micro_batches']} x {TP_TRAIN_STEPS} on "
+              f"every rank")
+        for op, lg in sorted(r0["log"].items()):
+            calls = max(lg["count"], 1)
+            print(f"    {op}: {lg['count'] // TP_TRAIN_STEPS} calls, "
+                  f"{lg['bytes'] / TP_TRAIN_STEPS / 1e6:.2f} MB a step on "
+                  f"rank 0, {lg['seconds'] / calls * 1e3:.3f} ms a call, "
+                  f"{lg['seconds'] / TP_TRAIN_STEPS * 1e3:.1f} ms a step")
+        ar = r0["log_pipe"].get("all_reduce")
+        if ar:
+            calls = ar["count"] // TP_TRAIN_STEPS
+            mb = ar["bytes"] / TP_TRAIN_STEPS / 1e6
+            ms = ar["seconds"] / TP_TRAIN_STEPS * 1e3
+            print(f"    of which over pipe: all_reduce {calls} calls, "
+                  f"{mb:.2f} MB a step (the replicated leaves' grads, the "
+                  f"loss, the norm), {ms:.1f} ms a step, busbw "
+                  f"{ar['busbw_GBps']:.3f} GB/s")
+        out[key] = r0["launches"]
+    # bounding the micro batches in flight is what 1F1B is for
+    a = [res["pipe4_1f1b"] for res in ranks if res["pipe4_1f1b"]["stage_id"]
+         == 0]
+    b = [res["pipe4_gpipe"] for res in ranks
+         if res["pipe4_gpipe"]["stage_id"] == 0]
+    for x, y in zip(a, b):
+        check(x["act_peak"] <= y["act_peak"],
+              f"phase 33: 1F1B's schedule peak on stage 0 {x['act_peak']} "
+              f"above gpipe's {y['act_peak']}")
+    from deepspeed_tpu_torch.runtime.pipe.schedule import TrainSchedule
+    m = a[0]["micro_batches"]
+    print(f"  stage 0's schedule peak at {{pipe 4}}: 1F1B "
+          f"{a[0]['act_peak'] / 2**20:.1f} MiB against gpipe's "
+          f"{b[0]['act_peak'] / 2**20:.1f} MiB (1F1B's buffers hold at "
+          f"most {TrainSchedule(m, 4, 0).num_pipe_buffers} micro batches "
+          f"on stage 0, gpipe all {m})")
+    for key in ("pipe4_1f1b", "pipe4_gpipe"):
+        bub = ranks[0][key]["bubble"]
+        m1, m2 = bub["micro_counts"]
+        print(f"  bubble fit {bub['schedule']} at {{pipe 4}}: "
+              f"{bub['bubble_frac']:.4f} of the step (M {m1} and {m2}: "
+              f"{bub['step_time_s']:.3f} s at M {m2}, {bub['per_micro_s']:.4f}"
+              f" s a micro batch; the schedule alone, without the exit "
+              f"reductions; analytic (S - 1) / (M + S - 1) = "
+              f"{3 / (m2 + 3):.4f}); the fit took "
+              f"{ranks[0][key]['bubble_s']:.1f} s")
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

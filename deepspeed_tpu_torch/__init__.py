@@ -40,9 +40,10 @@ from .module_inject.policies import (convert_hf_model, hf_bert_config,
                                      hf_gptneo_config, hf_llama_config,
                                      hf_neox_config, hf_opt_config)
 from .moe import MoEConfig, MoELayer
+from .parallel.topology import pp_world_size
 from .runtime.config import DeepSpeedConfig
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
-from .runtime.engine import DeepSpeedEngine
+from .runtime.engine import DeepSpeedEngine, config_mesh
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedDataLoader", "DeepSpeedEngine",
            "DeepSpeedInferenceConfig", "InferenceEngine", "MoEConfig",
@@ -73,7 +74,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     first, as the JAX ``initialize`` does; ranks that share one card
     pass ``device="cuda:0"`` and ``dist_backend="gloo"``.  ``mesh`` (a
     ``parallel.topology.ProcessMesh``) overrides the one the config's
-    ``mesh`` block (and ``tensor_parallel``) builds."""
+    ``mesh`` block (and ``tensor_parallel``) builds; a mesh whose
+    ``pipe`` axis is 2 or more gives a ``runtime.pipe.engine.
+    PipelineEngine``."""
     del model_parameters  # params are part of the engine state
     if config is None:
         config = config_params
@@ -85,10 +88,19 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
         init_distributed(dist_backend)
     ds_config = (config if isinstance(config, DeepSpeedConfig)
                  else DeepSpeedConfig(config or {}))
-    engine = DeepSpeedEngine(model=model, config=ds_config,
-                             optimizer=optimizer, lr_scheduler=lr_scheduler,
-                             loss_fn=loss_fn, params=params, device=device,
-                             seed=seed, mesh=mesh)
+    # the engine rides the topology: a mesh whose pipe axis is 2 or more
+    # (given, or built from the config's mesh block) trains under the
+    # pipeline schedule; no separate entry point
+    ds_config.refuse_out_of_slice()
+    mesh = config_mesh(ds_config, mesh)
+    engine_cls = DeepSpeedEngine
+    if pp_world_size(mesh) >= 2:
+        from .runtime.pipe.engine import PipelineEngine
+        engine_cls = PipelineEngine
+    engine = engine_cls(model=model, config=ds_config,
+                        optimizer=optimizer, lr_scheduler=lr_scheduler,
+                        loss_fn=loss_fn, params=params, device=device,
+                        seed=seed, mesh=mesh)
     dataloader = None
     if training_data is not None:
         dataloader = DeepSpeedDataLoader(

@@ -7,5 +7,6 @@ from .comm import (ReduceOp, SUPPORTED_DIST_BACKENDS, all_gather,
                    barrier, broadcast, configure, destroy_process_group,
                    get_backend, get_local_rank, get_mesh, get_rank,
                    get_world_size, init_distributed, is_initialized,
-                   log_summary, reduce_scatter, set_mesh)
+                   log_summary, ppermute, recv, reduce_scatter, send,
+                   send_recv_next, send_recv_prev, set_mesh, wait_sends)
 from .comms_logging import CommsLogger, calc_bw_factor, get_comms_logger

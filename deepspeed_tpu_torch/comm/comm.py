@@ -19,9 +19,18 @@ more ranks than visible cards on a node raises, naming ``gloo``; the
 backend is never switched silently.
 
 Every op records its payload bytes and its time in the comms logger
-(``comms_logging.py``) when that is enabled.  ``send_recv_next`` /
-``send_recv_prev`` / ``ppermute`` come with the pipeline part of the
-port.
+(``comms_logging.py``) when that is enabled.
+
+Point to point, for the pipeline: ``ppermute`` (and its ring shifts
+``send_recv_next`` / ``send_recv_prev``) moves each member's tensor to
+the member the permutation names, as ``jax.lax.ppermute`` does, and
+``send`` / ``recv`` move one tensor between two members of an axis.  A
+send is posted without waiting (``isend``) and completes in the
+background; ``wait_sends`` waits for every send still in flight.  So
+two neighbouring stages that both send in one step, each then waiting
+in its receive, cannot deadlock: each one's receive is posted before
+the paired send completes.  Shapes are the caller's (the pipeline knows
+them from its config): no shape handshake crosses the wire.
 """
 from __future__ import annotations
 
@@ -362,6 +371,128 @@ def broadcast(tensor: torch.Tensor, src: int = 0,
         else:
             dist.broadcast(tensor, root, group=group)
     return tensor
+
+
+# -- point to point -----------------------------------------------------------
+class _Send:
+    """A posted send: the work and the buffer it reads, kept alive until
+    the work completes."""
+
+    __slots__ = ("work", "buf")
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        if self.work is not None:
+            self.work.wait()
+            self.work = self.buf = None
+
+
+#: sends posted and not yet waited for, oldest first
+_SENDS: list = []
+
+
+def _reap() -> None:
+    """Drop the sends that have completed (their buffers are free)."""
+    _SENDS[:] = [s for s in _SENDS if s.work is not None
+                 and not s.work.is_completed()]
+
+
+def _member(axis_name, index: int) -> int:
+    """The global rank of member ``index`` of this rank's ``axis_name``
+    group."""
+    return get_mesh().axis_ranks(axis_name)[index]
+
+
+def _post(tensor: torch.Tensor, dst: int, axis_name, group) -> _Send:
+    _reap()
+    buf = tensor.contiguous()
+    if _staged(buf):
+        buf = _to_host(buf)
+    s = _Send(dist.isend(buf, _member(axis_name, dst), group=group), buf)
+    _SENDS.append(s)
+    return s
+
+
+def _take(tensor: torch.Tensor, src: int, axis_name, group) -> torch.Tensor:
+    staged = _staged(tensor)
+    buf = (torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+           if staged else tensor if tensor.is_contiguous()
+           else torch.empty_like(tensor,
+                                 memory_format=torch.contiguous_format))
+    dist.recv(buf, _member(axis_name, src), group=group)
+    if buf is not tensor:
+        tensor.copy_(buf, non_blocking=staged)
+    return tensor
+
+
+def send(tensor: torch.Tensor, dst: int, axis_name="pipe") -> _Send:
+    """Post ``tensor`` to member ``dst`` of ``axis_name`` (its index on
+    the axis) and return at once; under gloo a CUDA tensor is first
+    copied into a pinned host buffer (a host sync).  The send completes
+    in the background (``wait_sends``)."""
+    n, group = _axis(axis_name)
+    if group is None:
+        raise ValueError(f"send over axis {axis_name!r} of size {n}")
+    with _logged("send", tensor, axis_name, n):
+        return _post(tensor, dst, axis_name, group)
+
+
+def recv(tensor: torch.Tensor, src: int, axis_name="pipe") -> torch.Tensor:
+    """Receive into ``tensor`` (its shape and dtype are what member
+    ``src`` of ``axis_name`` sends) and return it; waits for the data."""
+    n, group = _axis(axis_name)
+    if group is None:
+        raise ValueError(f"recv over axis {axis_name!r} of size {n}")
+    with _logged("recv", tensor, axis_name, n):
+        return _take(tensor, src, axis_name, group)
+
+
+def wait_sends() -> None:
+    """Wait for every send still in flight."""
+    while _SENDS:
+        _SENDS.pop(0).wait()
+
+
+def ppermute(tensor: torch.Tensor, perm, axis_name="pipe") -> torch.Tensor:
+    """``jax.lax.ppermute``: member ``s`` of ``axis_name`` sends its
+    ``tensor`` to member ``d`` for each ``(s, d)`` of ``perm``; returns
+    what this member receives, zeros where no member sends to it.  A new
+    tensor."""
+    perm = [(int(s), int(d)) for s, d in perm]
+    if len({s for s, _ in perm}) != len(perm) or \
+            len({d for _, d in perm}) != len(perm):
+        raise ValueError(f"ppermute: {perm} is not a permutation")
+    n, group = _axis(axis_name)
+    me = get_mesh().axis_index(axis_name) if group is not None else 0
+    dsts = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    out = torch.zeros_like(tensor)
+    if group is None:
+        return tensor.clone() if srcs else out
+    with _logged("ppermute", tensor, axis_name, n):
+        sent = _post(tensor, dsts[0], axis_name, group) if dsts else None
+        if srcs:
+            _take(out, srcs[0], axis_name, group)
+        if sent is not None:
+            sent.wait()
+    return out
+
+
+def send_recv_next(tensor: torch.Tensor, n: Optional[int] = None,
+                   axis_name="pipe") -> torch.Tensor:
+    """Each member's ``tensor`` to the next member of the ring (i → i +
+    1): returns the previous member's."""
+    n = axis_size(axis_name) if n is None else n
+    return ppermute(tensor, [(i, (i + 1) % n) for i in range(n)], axis_name)
+
+
+def send_recv_prev(tensor: torch.Tensor, n: Optional[int] = None,
+                   axis_name="pipe") -> torch.Tensor:
+    """Each member's ``tensor`` to the previous member (i → i - 1)."""
+    n = axis_size(axis_name) if n is None else n
+    return ppermute(tensor, [(i, (i - 1) % n) for i in range(n)], axis_name)
 
 
 def axis_index(axis_name) -> int:

@@ -98,15 +98,19 @@ class CommsLogger:
             logger.info(f"comm op: {op_name} | axis: {axis_name} | "
                         f"msg size: {nbytes} bytes")
 
-    def totals(self) -> Dict[str, Dict[str, float]]:
+    def totals(self, axis: Optional[str] = None
+               ) -> Dict[str, Dict[str, float]]:
         """Per op: ``count``, ``bytes`` (payload), ``seconds`` (the timed
-        calls' sum), ``algbw_GBps`` and ``busbw_GBps``.  Reading the
-        times waits for the card's events."""
+        calls' sum), ``algbw_GBps`` and ``busbw_GBps``; with ``axis``,
+        of the calls over that axis name only.  Reading the times waits
+        for the card's events."""
         out: Dict[str, Dict[str, float]] = {}
         for op_name, sizes in sorted(self.comms_dict.items()):
             count = nbytes = 0
             secs, timed_bytes, wire = 0.0, 0, 0.0
-            for (size, _axis), rec in sizes.items():
+            for (size, ax), rec in sizes.items():
+                if axis is not None and ax != axis:
+                    continue
                 count += rec["count"]
                 nbytes += rec["volume"]
                 ts = [t.seconds() for t in rec["timers"]]
@@ -114,6 +118,8 @@ class CommsLogger:
                 timed_bytes += size * len(ts)
                 wire += size * len(ts) * calc_bw_factor(op_name,
                                                         rec.get("n", 0))
+            if not count:
+                continue
             alg = timed_bytes / secs / 1e9 if secs > 0 else 0.0
             bus = wire / secs / 1e9 if secs > 0 else 0.0
             out[op_name] = {"count": count, "bytes": nbytes,

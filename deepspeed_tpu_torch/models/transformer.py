@@ -80,7 +80,7 @@ an all-reduce when serving, ``reduce_from`` in training, where
 vocab-sharded masked lookup reduced the same way, with the position and
 type tables added after it; serving's head all-gathers the local logits
 in vocab order, and training's loss is the vocab-parallel cross-entropy
-(``_vocab_parallel_nll``), so the whole ``[.., V]`` logits never exist
+(``masked_nll_sum``), so the whole ``[.., V]`` logits never exist
 there.  ALiBi takes each shard's slice of the whole model's slopes.  On
 a serving mesh with a ``data`` axis the paged mixed step holds this
 rank's decode slots only: the block tables are all-gathered once a step
@@ -502,6 +502,49 @@ def moe_generator(rng: Any, device) -> Optional[torch.Generator]:
     g = torch.Generator(device=device)
     g.manual_seed(int(rng))
     return g
+
+
+def masked_nll_sum(proj, x: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor, chunk: int,
+                   tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Sum over the tokens of ``mask`` times the NLL of ``labels`` under
+    the f32 logits ``proj(x)``, in ``chunk``-token columns (each
+    recomputed in the backward when ``chunk`` is below T and gradients
+    are on, so one ``[B, chunk, V]`` block of logits is live).  With
+    ``tp_axis``, Megatron's vocab-parallel form: ``proj`` gives the
+    shard's ``[.., V / mp]`` logits, the max over the shards carries no
+    gradient, and the sum of exponentials and the target logit (zero off
+    the shard that owns the label) reduce through ``reduce_from``."""
+    t = labels.shape[1]
+    idx = comm.axis_index(tp_axis) if tp_axis is not None else 0
+
+    def body(xc, yc, mc):
+        logits = proj(xc)
+        if tp_axis is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, yc[..., None])[..., 0]
+            return torch.sum((lse - tgt) * mc)
+        vloc = logits.shape[-1]
+        local = yc - idx * vloc
+        mine = (local >= 0) & (local < vloc)
+        with torch.no_grad():
+            m = comm.all_reduce(logits.amax(dim=-1), comm.ReduceOp.MAX,
+                                tp_axis)
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        lse = m + torch.log(reduce_from(se, tp_axis))
+        tgt = logits.gather(-1, local.clamp(0, vloc - 1)[..., None])[..., 0]
+        tgt = reduce_from(torch.where(mine, tgt, torch.zeros_like(tgt)),
+                          tp_axis)
+        return torch.sum((lse - tgt) * mc)
+    remat = chunk < t and torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, t, chunk):
+        part = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        tot = tot + (checkpoint(body, *part, use_reentrant=False,
+                                preserve_rng_state=False)
+                     if remat else body(*part))
+    return tot
 
 
 class TransformerLM(nn.Module):
@@ -982,6 +1025,31 @@ class TransformerLM(nn.Module):
                 x = self._block(bp, x, self._attend_full)
         return x, r.l_aux.to(torch.float32)
 
+    def stage_apply(self, blocks: Params, x: torch.Tensor,
+                    windows: Optional[List[Optional[int]]] = None,
+                    train: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A run of stacked superblocks ``blocks`` (leaves ``[n, ...]``:
+        the whole model's, or a pipeline stage's slice) over ``x``, each
+        a remat unit: ``(y, l_aux)``, l_aux summed over the MoE layers
+        (0 without MoE).  ``windows``: each layer's attention window
+        (the stage's slice of ``_layer_windows``); an MoE layer routes
+        without noise."""
+        laux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if not self.config.moe_enabled:
+            block = self._remat(lambda bp, x, window: self._block(
+                self.block_transform(bp), x,
+                functools.partial(self._attend_full, window=window)))
+            views = layer_views(blocks)
+            for bp, window in zip(views, windows or [None] * len(views)):
+                x = block(bp, x, window)
+            return x, laux
+        sb = self._remat(lambda sp, x: self.superblock_apply(sp, x, train))
+        for sp in layer_views(blocks):
+            x, la = sb(sp, x)
+            laux = laux + la
+        return x, laux
+
     # -- pieces ---------------------------------------------------------------
     def _norm(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         norm = (L.layernorm_apply if self.config.norm_type == "layernorm"
@@ -1383,12 +1451,8 @@ class TransformerLM(nn.Module):
         x = self._embed(params, input_ids, pos, token_type_ids)
         laux = torch.zeros((), dtype=torch.float32, device=x.device)
         if not c.moe_enabled:
-            block = self._remat(lambda bp, x, window: self._block(
-                self.block_transform(bp), x,
-                functools.partial(self._attend_full, window=window)))
-            for bp, window in zip(layer_views(params["blocks"]),
-                                  self._layer_windows()):
-                x = block(bp, x, window)
+            x, _ = self.stage_apply(params["blocks"], x,
+                                    self._layer_windows())
             self.moe_stats = []
             return self._final_norm(params, x), laux
 
@@ -1445,13 +1509,14 @@ class TransformerLM(nn.Module):
         """Mean masked NLL from final hidden states ``[B, T, D]``: the
         loss head alone (fused, chunked with remat, or dense; never fused
         for the MLM head, whose transform sits before the decoder, as in
-        the JAX model)."""
+        the JAX model).  Under a model axis (training) the fused head is
+        off, as in the JAX model, and the loss is the vocab-parallel
+        cross-entropy over the local ``[.., V / mp]`` logits
+        (``masked_nll_sum``)."""
         c = self.config
         chunk = c.loss_chunk
         b, t = labels.shape
-        if self._tp_axis is not None:
-            return self._vocab_parallel_nll(params, x, labels, mask)
-        if c.fused_loss_head and not c.mlm_head:
+        if c.fused_loss_head and not c.mlm_head and self._tp_axis is None:
             if c.tie_embeddings:
                 w, bias, tw = params["embed"]["embedding"], None, True
             else:
@@ -1467,72 +1532,19 @@ class TransformerLM(nn.Module):
                 None if mask is None else mask.reshape(rows), bias=bias,
                 transpose_w=tw, chunk=row_chunk)
             return tot / torch.clamp(cnt, min=1.0)
-        if chunk and t > chunk and t % chunk == 0:
-            def chunk_nll(xc, yc, mc):
-                logits = self._project(params, xc)
-                lse = torch.logsumexp(logits, dim=-1)
-                tgt = logits.gather(-1, yc[..., None])[..., 0]
-                return torch.sum((lse - tgt) * mc)
-            mc_all = (mask.to(torch.float32) if mask is not None else
-                      torch.ones(labels.shape, dtype=torch.float32,
-                                 device=labels.device))
-            tot = torch.zeros((), dtype=torch.float32, device=x.device)
-            for c0 in range(0, t, chunk):
-                sl = slice(c0, c0 + chunk)
-                tot = tot + checkpoint(chunk_nll, x[:, sl], labels[:, sl],
-                                       mc_all[:, sl], use_reentrant=False,
-                                       preserve_rng_state=False)
-            return tot / torch.clamp(mc_all.sum(), min=1.0)
-        logits = self._project(params, x)
-        lse = torch.logsumexp(logits, dim=-1)
-        nll = lse - logits.gather(-1, labels[..., None])[..., 0]
-        if mask is None:
-            return nll.mean()
-        mask = mask.to(nll.dtype)
-        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
-
-    def _vocab_parallel_nll(self, params: Params, x: torch.Tensor,
-                            labels: torch.Tensor,
-                            mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Megatron's vocab-parallel cross-entropy over the local ``[..,
-        V / mp]`` logits (the fused head is off under a model axis, as
-        in the JAX model): the max over the shards' maxima (no
-        gradient), then ``reduce_from`` on the sum of exponentials and on
-        the target logit (zero off the shard that owns the label), in
-        ``loss_chunk`` token columns recomputed in the backward as the
-        chunked head's."""
-        axis = self._tp_axis
-        b, t = labels.shape
-        chunk = self.config.loss_chunk
         if not (chunk and t > chunk and t % chunk == 0):
             chunk = t
-        idx = comm.axis_index(axis)
-
-        def chunk_nll(xc, yc, mc):
-            logits = self._project_local(params, self._fin(xc))
-            vloc = logits.shape[-1]
-            local = yc - idx * vloc
-            mine = (local >= 0) & (local < vloc)
-            with torch.no_grad():
-                m = comm.all_reduce(logits.amax(dim=-1), comm.ReduceOp.MAX,
-                                    axis)
-            se = torch.exp(logits - m[..., None]).sum(dim=-1)
-            lse = m + torch.log(reduce_from(se, axis))
-            tgt = logits.gather(-1, local.clamp(0, vloc - 1)[..., None])[..., 0]
-            tgt = reduce_from(torch.where(mine, tgt, torch.zeros_like(tgt)),
-                              axis)
-            return torch.sum((lse - tgt) * mc)
-        mc_all = (mask.to(torch.float32) if mask is not None else
-                  torch.ones(labels.shape, dtype=torch.float32,
-                             device=labels.device))
-        tot = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c0 in range(0, t, chunk):
-            sl = slice(c0, c0 + chunk)
-            part = (x[:, sl], labels[:, sl], mc_all[:, sl])
-            tot = tot + (checkpoint(chunk_nll, *part, use_reentrant=False,
-                                    preserve_rng_state=False)
-                         if chunk < t else chunk_nll(*part))
-        return tot / torch.clamp(mc_all.sum(), min=1.0)
+        mc = (mask.to(torch.float32) if mask is not None else
+              torch.ones(labels.shape, dtype=torch.float32,
+                         device=labels.device))
+        if self._tp_axis is not None:
+            tot = masked_nll_sum(
+                lambda xc: self._project_local(params, self._fin(xc)), x,
+                labels, mc, chunk, self._tp_axis)
+        else:
+            tot = masked_nll_sum(lambda xc: self._project(params, xc), x,
+                                 labels, mc, chunk)
+        return tot / torch.clamp(mc.sum(), min=1.0)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None,

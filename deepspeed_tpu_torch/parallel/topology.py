@@ -203,6 +203,77 @@ def build_mesh(mesh_config=None, world_size: Optional[int] = None,
     return ProcessMesh(spec, rank)
 
 
+class ProcessTopology:
+    """Rank <-> named-coordinate map over any axes (the JAX package's
+    ``ProcessTopology``, the reference's ``runtime/pipe/topology.py:9``):
+    ranks enumerate row-major in the order of ``axes``; coordinates,
+    filters and the rank lists along one axis are pure bookkeeping (the
+    checkpoint reshape and the pipeline grid read them; at run time the
+    :class:`ProcessMesh` owns the process groups)."""
+
+    def __init__(self, axes: List[str], dims: List[int]):
+        if len(axes) != len(dims):
+            raise ValueError("axes and dims must have the same length")
+        self.axes = list(axes)
+        self.dims = list(dims)
+        self._coord_to_rank: Dict[Tuple[int, ...], int] = {
+            coord: rank for rank, coord in enumerate(
+                itertools.product(*(range(d) for d in dims)))}
+        self._rank_to_coord = {r: c for c, r in self._coord_to_rank.items()}
+
+    @property
+    def world_size(self) -> int:
+        return int(np.prod(self.dims))
+
+    def get_rank(self, **coords) -> int:
+        self._check_axes(coords)
+        return self._coord_to_rank[tuple(coords[a] for a in self.axes)]
+
+    def get_coord(self, rank: int) -> Dict[str, int]:
+        return dict(zip(self.axes, self._rank_to_coord[rank]))
+
+    def get_dim(self, axis: str) -> int:
+        return self.dims[self.axes.index(axis)]
+
+    def get_axis_list(self, axis: str, idx: int) -> List[int]:
+        """Every rank whose coordinate on ``axis`` is ``idx``."""
+        ai = self.axes.index(axis)
+        return sorted(r for c, r in self._coord_to_rank.items()
+                      if c[ai] == idx)
+
+    def get_axis_comm_lists(self, axis: str) -> List[List[int]]:
+        """The groups of ranks that differ only along ``axis``."""
+        ai = self.axes.index(axis)
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        for coord, rank in sorted(self._coord_to_rank.items(),
+                                  key=lambda kv: kv[1]):
+            groups.setdefault(coord[:ai] + coord[ai + 1:], []).append(rank)
+        return [sorted(g) for g in groups.values()]
+
+    def filter_match(self, **filter_kwargs) -> List[int]:
+        self._check_axes(filter_kwargs)
+        return sorted(r for c, r in self._coord_to_rank.items()
+                      if all(dict(zip(self.axes, c))[k] == v
+                             for k, v in filter_kwargs.items()))
+
+    def _check_axes(self, coords) -> None:
+        unknown = set(coords) - set(self.axes)
+        if unknown:
+            raise ValueError(f"Unknown axes {unknown}; have {self.axes}")
+
+    def __str__(self):
+        return f"ProcessTopology(axes={self.axes}, dims={self.dims})"
+
+
+class PipeModelDataParallelTopology(ProcessTopology):
+    """The (pipe, data, model) topology (the reference's
+    ``topology.py:243``)."""
+
+    def __init__(self, num_pp: int, num_dp: int, num_mp: int):
+        super().__init__(axes=["pipe", "data", "model"],
+                         dims=[num_pp, num_dp, num_mp])
+
+
 def dp_world_size(mesh) -> int:
     return (mesh.shape.get(DATA_AXIS, 1) * mesh.shape.get(DCN_DATA_AXIS, 1)
             * mesh.shape.get(EXPERT_AXIS, 1))

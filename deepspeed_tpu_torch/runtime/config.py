@@ -12,12 +12,13 @@ given any two, the third is inferred; all three given must agree.
 Blocks it parses but does not run are refused by
 :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls it) with
 ``NotImplementedError`` naming the ``ROADMAP.md`` queue A part that
-brings them: the ``pipe``, ``sequence`` and ``expert`` mesh axes,
-pipeline stages, sequence parallelism, the 1-bit optimizers, offload
-over a data- or model-parallel mesh, ZeRO stage 3 over a model-sharded
-mesh, and the monitor blocks.  Data parallelism with ZeRO stages 0-3 and
-tensor parallelism (the ``model`` axis, or ``tensor_parallel.tp_size``,
-which sets it) with stages 0-2 run.  The offload blocks run (``runtime/zero/offload.py``,
+brings them: the ``sequence`` and ``expert`` mesh axes, sequence
+parallelism, the 1-bit optimizers, offload over a data-, model- or
+pipe-parallel mesh, ZeRO stage 3 over a model-sharded or pipe mesh, and
+the monitor blocks.  Data parallelism with ZeRO stages 0-3, and tensor
+parallelism (the ``model`` axis, or ``tensor_parallel.tp_size``, which
+sets it) and pipeline parallelism (the ``pipe`` axis,
+``runtime/pipe/``) with stages 0-2 run.  The offload blocks run (``runtime/zero/offload.py``,
 ``runtime/zero/infinity.py``), at ZeRO stage 1-3: on one device every
 stage is the same program, as in the JAX package on a one-device mesh.  The ``observability`` block (span tracer, metrics,
 flight recorder, overlap profiler) runs.  ``fp16`` trains (dynamic or static loss
@@ -570,8 +571,7 @@ def _block(cls, pd: dict, key: str):
 
 # -- master config --------------------------------------------------------------------
 #: mesh axes whose size above 1 a later part of queue A item 7 brings
-_LATER_AXES = (("pipe", "the pipeline, runtime/pipe/"),
-               ("sequence", "ring and Ulysses sequence parallelism"),
+_LATER_AXES = (("sequence", "ring and Ulysses sequence parallelism"),
                ("expert", "moe.ep_size above 1, expert parallelism"))
 
 
@@ -774,14 +774,13 @@ class DeepSpeedConfig:
             if sizes.get(axis, 1) not in (1, -1):
                 later.append(f"mesh axis {axis}={sizes[axis]}: {part} "
                              f"(queue A item 7)")
-        if self.pipeline.stages not in ("auto", 1):
-            later.append(f"pipeline.stages {self.pipeline.stages}: the "
-                         f"pipeline, runtime/pipe/ (queue A item 7)")
         if self.sequence_parallel.enabled:
             later.append("sequence_parallel: ring and Ulysses sequence "
                          "parallelism (queue A item 7)")
         model = sizes.get("model", 1)
         tp = self.tensor_parallel.degree()
+        pipe = sizes.get("pipe", 1)
+        stages = self.pipeline.stages
         if z.stage >= 3:
             if model not in (1, -1):
                 later.append(f"mesh axis model={model}: ZeRO stage 3 over "
@@ -790,6 +789,17 @@ class DeepSpeedConfig:
             elif tp > 1:
                 later.append(f"tensor_parallel: ZeRO stage 3 at tp_size "
                              f"{tp}, the 3D composition (queue A item 7)")
+            if pipe not in (1, -1):
+                later.append(f"mesh axis pipe={pipe}: ZeRO stage 3 over a "
+                             f"pipe mesh, the 3D composition (queue A "
+                             f"item 7)")
+            elif stages not in ("auto", 1):
+                later.append(f"pipeline.stages {stages}: ZeRO stage 3 "
+                             f"under the pipeline, the 3D composition "
+                             f"(queue A item 7)")
+        if offload and pipe not in (1, -1):
+            later.append(f"offload over a pipe mesh (pipe={pipe}): the 3D "
+                         f"composition (queue A item 7)")
         if offload and max(model, tp) > 1:
             later.append(f"offload over a model-sharded mesh (model="
                          f"{max(model, tp)}): the 3D composition (queue A "

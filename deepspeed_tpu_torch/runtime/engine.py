@@ -72,7 +72,11 @@ sums a model-sharded leaf's squares over the model ranks and counts a
 replicated one once.  The ranks of one data coordinate take the same
 rows of the global batch (``dp_rank``).  On
 ``nccl`` nothing in the step waits for the card; ``gloo`` stages each
-collective through host memory (``comm.py``).
+collective through host memory (``comm.py``).  A mesh with ``pipe``
+above 1 takes the subclass ``runtime/pipe/engine.py::PipelineEngine``,
+which keeps this step's state, plans and optimizer over its stage's
+slice (``_train_specs``, ``_local_slice`` and ``_whole`` are its
+hooks) and replaces the gas loop by the pipeline schedule.
 
 Metrics come back as device tensors, as the JAX engine returns device
 scalars; nothing in a step waits for the card unless ``steps_per_print``,
@@ -104,7 +108,8 @@ from ..models.convert import (OPT_TREES, check_params, leaf_to_torch,
 from ..parallel.collectives import (TP_PARTIAL_SUFFIXES, psum_tp_partials,
                                     qkv_shard_columns)
 from ..parallel.topology import (DATA_AXES, MODEL_AXIS, build_mesh,
-                                 dp_world_size, mp_world_size)
+                                 dp_world_size, mp_world_size,
+                                 pp_world_size)
 from ..observability import trace_span
 from ..utils.logging import logger
 from . import lr_schedules
@@ -122,6 +127,22 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                           for g in tree_leaves(tree)))
+
+
+def config_mesh(config: DeepSpeedConfig, mesh=None):
+    """The rank's process mesh: ``mesh`` when given, else the config's
+    ``mesh`` block with ``tensor_parallel``'s size as its model axis."""
+    if mesh is not None:
+        return mesh
+    mesh_cfg = config.mesh
+    tp = config.tensor_parallel.degree()
+    if tp > 1:
+        if mesh_cfg.model not in (1, tp):
+            raise ValueError(
+                f"tensor_parallel.tp_size {tp} disagrees with mesh.model "
+                f"{mesh_cfg.model}")
+        mesh_cfg = dataclasses.replace(mesh_cfg, model=tp)
+    return build_mesh(mesh_cfg)
 
 
 def moe_seeds(rng: Any, gas: int) -> torch.Tensor:
@@ -165,17 +186,8 @@ class DeepSpeedEngine:
         self._config.refuse_out_of_slice()
         self.device = resolve_device(device)
         # the rank's place on the mesh (one rank, all axes 1, without
-        # torch.distributed); collectives resolve axis names against it.
-        # tensor_parallel's size is the model axis's
-        mesh_cfg = self._config.mesh
-        tp = self._config.tensor_parallel.degree()
-        if tp > 1:
-            if mesh_cfg.model not in (1, tp):
-                raise ValueError(
-                    f"tensor_parallel.tp_size {tp} disagrees with mesh.model "
-                    f"{mesh_cfg.model}")
-            mesh_cfg = dataclasses.replace(mesh_cfg, model=tp)
-        self.mesh = build_mesh(mesh_cfg) if mesh is None else mesh
+        # torch.distributed); collectives resolve axis names against it
+        self.mesh = config_mesh(self._config, mesh)
         comm.set_mesh(self.mesh)
         self.dp_world_size = dp_world_size(self.mesh)
         self.mp_world_size = mp_world_size(self.mesh)
@@ -263,7 +275,8 @@ class DeepSpeedEngine:
         self._zero_bytes: Dict[str, int] = {}
         if offload_mode == "none" and (self.zero_stage >= 1
                                        or self.dp_world_size > 1
-                                       or self.mp_world_size > 1):
+                                       or self.mp_world_size > 1
+                                       or pp_world_size(self.mesh) > 1):
             self._refuse_zero_optimizer()
             self._zero_path = True
         else:
@@ -376,17 +389,18 @@ class DeepSpeedEngine:
         return state
 
     def _refuse_zero_optimizer(self) -> None:
-        """The optimizers a data-parallel ZeRO step, or a model-sharded
-        one, cannot run on shards: LAMB's trust ratio spans a whole leaf,
-        and a client torch.optim optimizer's state is not a tree of the
-        params' shape."""
-        if self.mp_world_size > 1:
+        """The optimizers a data-parallel ZeRO step, or a model- or
+        stage-sharded one, cannot run on shards: LAMB's trust ratio
+        spans a whole leaf, and a client torch.optim optimizer's state
+        is not a tree of the params' shape."""
+        if self.mp_world_size > 1 or pp_world_size(self.mesh) > 1:
             if self.optimizer.name == "lamb" or \
                     self.optimizer.hyperparams.get("external_lr"):
+                kind = "tensor" if self.mp_world_size > 1 else "pipeline"
                 raise NotImplementedError(
-                    "LAMB or a client torch.optim optimizer under tensor "
-                    "parallelism: no rank holds a whole leaf (not in the "
-                    "PyTorch port yet)")
+                    f"LAMB or a client torch.optim optimizer under {kind} "
+                    f"parallelism: no rank holds a whole leaf (not in the "
+                    f"PyTorch port yet)")
             return
         if self.dp_world_size == 1 or self.zero_stage == 0:
             return
@@ -409,13 +423,11 @@ class DeepSpeedEngine:
         from .zero.sharding import ZeroShardingPolicy
         zc = self._config.zero_config
         self._full_shapes = shape_tree(params)
-        specs = tdims = None
+        specs = self._train_specs(params)
+        tdims = None
         if self._tp_view is not None:
-            specs = self._tp_train_specs(params)
-            tdims = tp_dims(specs)
-            self._tp_dims = tdims
-            params = tp_slice(params, tdims, self.mp_world_size,
-                              self.mesh.axis_index(MODEL_AXIS))
+            tdims = self._tp_dims = tp_dims(specs)
+        params = self._local_slice(params)
         policy = ZeroShardingPolicy(
             self.zero_stage, self.mesh, self._full_shapes, specs,
             param_persistence_threshold=(zc.param_persistence_threshold
@@ -438,6 +450,27 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # tensor parallelism
     # ------------------------------------------------------------------
+    def _train_specs(self, params):
+        """The spec tree ZeRO's policy starts from (None: every dim
+        free)."""
+        return (self._tp_train_specs(params) if self._tp_view is not None
+                else None)
+
+    def _local_slice(self, tree):
+        """A whole tree in the world-1 layout → this rank's part of it
+        before ZeRO's data shard: its model slice."""
+        if self._tp_view is not None:
+            tree = tp_slice(tree, self._tp_dims, self.mp_world_size,
+                            self.mesh.axis_index(MODEL_AXIS))
+        return tree
+
+    def _whole(self, tree):
+        """The inverse of :meth:`_local_slice` (a collective: every rank
+        calls it)."""
+        if self._tp_view is not None:
+            tree = tp_gather(tree, self._tp_dims, MODEL_AXIS)
+        return tree
+
     def _tp_train_specs(self, params):
         """The model's Megatron specs with the fused qkv replicated over
         ``model``: each shard gathers its own columns inside the
@@ -554,10 +587,7 @@ class DeepSpeedEngine:
         z = self._zero
 
         def whole(tree):
-            tree = z.gather(tree, z.master_dims)
-            if self._tp_view is not None:
-                tree = tp_gather(tree, self._tp_dims, MODEL_AXIS)
-            return tree
+            return self._whole(z.gather(tree, z.master_dims))
         st = dict(self.state)
         st["params"] = whole(self.state["params"])
         opt = dict(self.state["opt"])
@@ -572,13 +602,7 @@ class DeepSpeedEngine:
         this rank's shards; ``partial`` takes the params and step
         only."""
         z = self._zero
-
-        def mine(tree):
-            # the model slice (tensor parallelism), then the data shard
-            if self._tp_view is not None:
-                tree = tp_slice(tree, self._tp_dims, self.mp_world_size,
-                                self.mesh.axis_index(MODEL_AXIS))
-            return tree
+        mine = self._local_slice      # then the data shard
         params = mine(full["params"])
         if partial:
             self.state["params"] = z.shard(params, z.master_dims)

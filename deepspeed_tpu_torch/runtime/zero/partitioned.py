@@ -31,6 +31,13 @@ the data dim: rank (d, m) holds device (d, m)'s shard of the JAX
 layout.  ``tp_dims`` (each leaf's model dim, or None) makes the global
 norm count a model-sharded leaf's squares over the model ranks and a
 replicated one once, and the overflow flag reduce over both axes.
+
+Under pipeline parallelism the policy's specs carry ``pipe`` on the
+stage dim of the stage-stacked ``blocks`` leaves: a rank's tree is its
+stage's slice, and each of its leaves is sharded over that stage's data
+group as above.  The global norm sums a pipe-local leaf's squares over
+the stages and counts a leaf replicated over ``pipe`` once; the
+overflow flag is reduced over the stages too.
 """
 from __future__ import annotations
 
@@ -41,9 +48,9 @@ import torch
 
 from ... import comm
 from ...parallel.collectives import REDUCE_PSUM, reduce_over_data
-from ...parallel.topology import DATA_AXES, MODEL_AXIS
+from ...parallel.topology import DATA_AXES, MODEL_AXIS, PIPE_AXIS
 from ..optimizers import tree_leaves, tree_map
-from .sharding import ZeroShardingPolicy, grad_reduce_plan
+from .sharding import ZeroShardingPolicy, grad_reduce_plan, sharded_dim
 
 
 def shard_leaf(t: torch.Tensor, dim: Optional[int], n: int,
@@ -96,6 +103,10 @@ class ZeroPartition:
         self.policy = policy
         self.tp_dims = tp_dims
         self.mp = mesh.axis_size(MODEL_AXIS)
+        self.pp = mesh.axis_size(PIPE_AXIS)
+        #: each leaf's stage dim (the ``pipe`` entry of its spec), or None
+        self.pipe_dims = tree_map(lambda sp: sharded_dim(sp, (PIPE_AXIS,)),
+                                  policy.param_specs)
         self.stage = policy.stage
         self.axes = tuple(axes)
         self.dp = mesh.axis_size(self.axes)
@@ -211,32 +222,42 @@ class ZeroPartition:
     def global_norm(self, grads) -> torch.Tensor:
         """sqrt of the sum of squares of the whole gradient: a leaf's
         squares summed over the ranks of each axis it is sharded along
-        (data, model), a leaf replicated on both counted once (it is
-        equal on every rank)."""
+        (data, model, pipe), a leaf replicated on all of them counted
+        once (it is equal on every rank)."""
         groups: Dict[tuple, list] = {}
-        tdims = (list(tree_leaves(self.tp_dims)) if self.tp_dims is not None
-                 else [None] * len(list(tree_leaves(self.master_dims))))
-        for g, d, m in zip(tree_leaves(grads),
-                           tree_leaves(self.master_dims), tdims):
+        tdims = (self.tp_dims if self.tp_dims is not None
+                 else tree_map(lambda _: None, self.master_dims))
+
+        def one(g, d, m, p):
+            # paired by path, not by leaf order: a state loaded from a
+            # checkpoint may hold its keys in another order than the
+            # tree the plans were made from
             sq = torch.sum(torch.square(g.to(torch.float32)))
-            groups.setdefault((d is not None, m is not None), []).append(sq)
-        total = sum(groups.pop((False, False), []))
-        for (over_data, over_model), sqs in sorted(groups.items()):
+            groups.setdefault((d is not None, m is not None, p is not None),
+                              []).append(sq)
+        tree_map(one, grads, self.master_dims, tdims, self.pipe_dims)
+        total = sum(groups.pop((False, False, False), []))
+        for (over_data, over_model, over_pipe), sqs in sorted(groups.items()):
             part = sum(sqs)
             if over_data:
                 part = comm.all_reduce(part, comm.ReduceOp.SUM, self.axes)
             if over_model:
                 part = comm.all_reduce(part, comm.ReduceOp.SUM, MODEL_AXIS)
+            if over_pipe:
+                part = comm.all_reduce(part, comm.ReduceOp.SUM, PIPE_AXIS)
             total = part + total
         return torch.sqrt(total)
 
     def reduce_flag(self, flag: torch.Tensor) -> torch.Tensor:
         """A per-rank boolean (an fp16 overflow) → true on every rank if
-        true on any (over the data ranks, then the model ranks)."""
+        true on any (over the data ranks, then the model ranks, then the
+        stages)."""
         f = comm.all_reduce(flag.to(torch.int32), comm.ReduceOp.MAX,
                             self.axes)
         if self.mp > 1:
             f = comm.all_reduce(f, comm.ReduceOp.MAX, MODEL_AXIS)
+        if self.pp > 1:
+            f = comm.all_reduce(f, comm.ReduceOp.MAX, PIPE_AXIS)
         return f.bool()
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:

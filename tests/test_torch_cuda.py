@@ -2782,8 +2782,9 @@ _ZERO_SMALL = dict(num_layers=2, d_model=128, num_heads=4, vocab_size=512,
 
 #: a rank of a world sharing card 0 over gloo, or of world 1 on NCCL
 #: (``ZT_BACKEND``): a small GPT-2 at ``ZT_STAGE``, 3 steps on the global
-#: batch of 8 (its rank slice), the losses and grad norms on a
-#: "ZTRESULT" line
+#: batch of 8 (its rank slice; with ``ZT_PIPE`` the world is the pipe
+#: axis, 4 micro batches of 2, every rank all rows), the losses and grad
+#: norms on a "ZTRESULT" line
 _ZERO_RANK = r'''
 import json, os, sys
 sys.path.insert(0, os.getcwd())
@@ -2795,19 +2796,24 @@ from deepspeed_tpu_torch.models.transformer import TransformerLM, gpt2_config
 from deepspeed_tpu_torch.runtime.dataloader import rank_slice
 dt.init_distributed(os.environ["ZT_BACKEND"], timeout=120)
 world = comm.get_world_size()
+pipe = os.environ.get("ZT_PIPE") == "1"
 small = json.loads(os.environ["ZT_MODEL"])
+config = {"train_micro_batch_size_per_gpu": 8 // world,
+          "gradient_accumulation_steps": 1,
+          "bf16": {"enabled": True},
+          "gradient_clipping": 1.0, "steps_per_print": 0,
+          "zero_optimization": {
+              "stage": int(os.environ["ZT_STAGE"]),
+              "param_persistence_threshold": 0}}
+if pipe:
+    config.update(train_micro_batch_size_per_gpu=2,
+                  gradient_accumulation_steps=4, mesh={"pipe": world})
 eng = dt.initialize(model=TransformerLM(gpt2_config("125m", **small)),
-                    config={"train_micro_batch_size_per_gpu": 8 // world,
-                            "gradient_accumulation_steps": 1,
-                            "bf16": {"enabled": True},
-                            "gradient_clipping": 1.0, "steps_per_print": 0,
-                            "zero_optimization": {
-                                "stage": int(os.environ["ZT_STAGE"]),
-                                "param_persistence_threshold": 0}},
-                    device="cuda:0")[0]
+                    config=config, device="cuda:0")[0]
 batch = {"input_ids": np.random.RandomState(0).randint(
     0, small["vocab_size"], (8, small["max_seq_len"])).astype(np.int32)}
-local = rank_slice(batch, 1, world, comm.get_rank())
+local = (batch if pipe else
+         rank_slice(batch, 1, world, comm.get_rank()))
 rows = [[float(v) for v in (m["loss"], m["grad_norm"])]
         for m in (eng.train_step(local) for _ in range(3))]
 print("ZTRESULT " + json.dumps(rows), flush=True)
@@ -2815,14 +2821,15 @@ comm.destroy_process_group()
 '''
 
 
-def _zero_ranks(world, backend, stage):
+def _zero_ranks(world, backend, stage, pipe=False):
     import json
     import os
     from deepspeed_tpu_torch.comm.local_ranks import run_ranks
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     outs = run_ranks(_ZERO_RANK, world, timeout=300, cwd=repo,
                      env={"ZT_BACKEND": backend, "ZT_STAGE": str(stage),
-                          "ZT_MODEL": json.dumps(_ZERO_SMALL)})
+                          "ZT_MODEL": json.dumps(_ZERO_SMALL),
+                          "ZT_PIPE": "1" if pipe else "0"})
     return [json.loads([ln for ln in o.splitlines()
                         if ln.startswith("ZTRESULT ")][-1][9:]) for o in outs]
 
@@ -2837,6 +2844,23 @@ def test_cuda_zero3_two_ranks_sharing_a_card_match_world_one():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     two = _zero_ranks(2, "gloo", 3)
+    (one,) = _zero_ranks(1, "nccl", 0)
+    assert two[0] == two[1]
+    for (l2, g2), (l1, g1) in zip(two[0], one):
+        assert abs(l2 - l1) <= 2e-3 * abs(l1)
+        assert abs(g2 - g1) <= 2e-2 * abs(g1)
+
+
+@pytest.mark.cuda
+def test_cuda_pipe_two_ranks_sharing_a_card_match_world_one():
+    """Two gloo ranks on card 0 at {pipe 2} (1F1B, one stage each, the
+    activations and their gradients sent through host memory) against
+    one rank on NCCL without a mesh on the same global batch: the same
+    losses and grad norms within the same-state step check's limits,
+    equal on both ranks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    two = _zero_ranks(2, "gloo", 0, pipe=True)
     (one,) = _zero_ranks(1, "nccl", 0)
     assert two[0] == two[1]
     for (l2, g2), (l1, g1) in zip(two[0], one):

@@ -311,3 +311,69 @@ def test_tensor_parallel_modules_import_alone():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False]
+
+
+#: the modules pipeline parallelism runs through
+PIPELINE = (
+    "deepspeed_tpu_torch.runtime.pipe",
+    "deepspeed_tpu_torch.runtime.pipe.engine",
+    "deepspeed_tpu_torch.runtime.pipe.module",
+    "deepspeed_tpu_torch.runtime.pipe.schedule",
+    "deepspeed_tpu_torch.runtime.pipe.topology",
+    "deepspeed_tpu_torch.comm.comm", "deepspeed_tpu_torch.parallel.topology",
+    "deepspeed_tpu_torch.runtime.config")
+
+
+@pytest.mark.parametrize("module", PIPELINE)
+def test_pipeline_modules_are_checked(module):
+    """The pipeline's modules are among the modules whose imports the
+    checks above read, and none builds or loads a library or starts
+    ``torch.distributed`` while it is imported."""
+    modules = dict(port_modules())
+    assert module in modules
+    calls = _import_time_calls(ast.parse(modules[module].read_text()))
+    assert not (BUILDERS | {"init_distributed", "init_process_group"}) \
+        & set(calls), f"{module} builds or starts a world at import"
+
+
+def test_pipeline_modules_import_alone():
+    """Importing them in a fresh interpreter loads no forbidden package
+    and leaves ``torch.distributed`` uninitialized."""
+    code = (f"import importlib, json, sys\n"
+            f"for m in {PIPELINE!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"import torch.distributed as dist\n"
+            f"print(json.dumps([sorted(m for m in sys.modules if "
+            f"m.split('.')[0] in {FORBIDDEN!r}), dist.is_initialized()]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False]
+
+
+def _worker_source(test_file: str, name: str) -> str:
+    """The string a test file assigns to ``name`` (a worker's source),
+    read without importing the file (the test files import jax)."""
+    tree = ast.parse((REPO / "tests" / test_file).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise KeyError(f"{test_file} assigns no {name}")
+
+
+@pytest.mark.parametrize("test_file,name", [
+    ("test_torch_pipe.py", "WORKER"), ("test_torch_tp_training.py",
+                                       "WORKER")])
+def test_rank_worker_sources_import_nothing_of_jax(test_file, name):
+    """The sources the gloo ranks of the parity tests run import neither
+    jax nor the JAX package (the pipeline's files share the first)."""
+    tree = ast.parse(_worker_source(test_file, name))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert names and not [n for n in names if _forbidden(n)], names

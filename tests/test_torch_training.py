@@ -387,7 +387,9 @@ def test_config_keys_and_defaults_match_jax():
     {"zero_optimization": {"stage": 2, "offload_optimizer": {
         "device": "cpu"}}, "mesh": {"data": 2}},
     {"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
-    {"pipeline": {"stages": 2}},
+    # the pipeline runs since its slice (tests/test_torch_pipe*.py);
+    # ZeRO stage 3 under it is the 3D composition's
+    {"pipeline": {"stages": 2}, "zero_optimization": {"stage": 3}},
     {"tensorboard": {"enabled": True}},
     {"csv_monitor": {"enabled": True}},
 ])

@@ -548,8 +548,11 @@ REFUSED = [
     ({"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
      "mesh axis model=2: ZeRO stage 3 over a model-sharded mesh, the 3D "
      "composition (queue A item 7)"),
-    ({"mesh": {"pipe": 2}},
-     "mesh axis pipe=2: the pipeline, runtime/pipe/ (queue A item 7)"),
+    # the pipeline runs at stages 0-2 (tests/test_torch_pipe*.py); stage
+    # 3 with a pipe axis, or pipeline stages, is the 3D composition's
+    ({"mesh": {"pipe": 2}, "zero_optimization": {"stage": 3}},
+     "mesh axis pipe=2: ZeRO stage 3 over a pipe mesh, the 3D composition "
+     "(queue A item 7)"),
     ({"mesh": {"sequence": 2}},
      "mesh axis sequence=2: ring and Ulysses sequence parallelism "
      "(queue A item 7)"),
@@ -560,8 +563,13 @@ REFUSED = [
       "zero_optimization": {"stage": 3}},
      "tensor_parallel: ZeRO stage 3 at tp_size 2, the 3D composition "
      "(queue A item 7)"),
-    ({"pipeline": {"stages": 2}},
-     "pipeline.stages 2: the pipeline, runtime/pipe/ (queue A item 7)"),
+    ({"pipeline": {"stages": 2}, "zero_optimization": {"stage": 3}},
+     "pipeline.stages 2: ZeRO stage 3 under the pipeline, the 3D "
+     "composition (queue A item 7)"),
+    ({"mesh": {"pipe": 2}, "zero_optimization": {"stage": 1,
+      "offload_optimizer": {"device": "cpu"}}},
+     "offload over a pipe mesh (pipe=2): the 3D composition (queue A "
+     "item 7)"),
     ({"sequence_parallel": {"enabled": True}},
      "sequence_parallel: ring and Ulysses sequence parallelism "
      "(queue A item 7)"),
