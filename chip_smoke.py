@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
 2. build: every kernel in ``deepspeed_tpu_torch/csrc`` with ``nvcc``
-   (timed as set-up);
+   (timed as set-up), on a thread of its own beside phase 3, whose checks
+   each wait for their own library (``build.build_in_background``);
 3. each kernel against its plain PyTorch version at the slices' shapes
    (serving: GPT-3 6.7B heads, H=32, D=128; training: GPT-2 125M
    attention, B*H = 64 x 12, T = 1024, D = 64, and TinyLlama-1.1B
@@ -22,13 +23,17 @@ Phases (any failure exits non-zero and prints no result line):
    wrapper's call, which computes delta = rowsum(dO * O) in eager
    PyTorch, and that rowsum and the kernel alone are timed beside it,
    as is the kernel's other layout, two launches (B3 then B4 at g = 1);
-   first, the bf16 B1, B2, B3, B4, B8, B9 and B10 must show tensor-core
-   instructions (``HMMA``) in ``cuobjdump -sass`` of their libraries and
-   no ptxas spill at D 64 (registers and spills printed for every head
-   dim), and the bf16 B7 (``paged_prefill_mma_kernel``) ``HMMA`` and no
-   spill at D 64 and 128 for kv_bits 0, 8 and 4 (its registers and B6's
-   cluster kernel's printed); B5-B7 must give the same bits on two
-   launches;
+   B5-B7 must give the same bits on two launches; and, checked after
+   phase 27 (each library's dump starts as soon as it is linked and runs
+   beside the build and phases 3-5), the bf16 B1, B2, B3, B4, B8, B9 and
+   B10 must show tensor-core instructions (``HMMA``) in ``cuobjdump
+   -sass`` of their libraries and no ptxas spill at D 64 (registers and
+   spills printed for every head dim), and the bf16 B7
+   (``paged_prefill_mma_kernel``) ``HMMA`` and no spill at D 64 and 128
+   for kv_bits 0, 8 and 4 (its registers and B6's cluster kernel's
+   printed); every profile below
+   reads its device rows from the profiler's raw trace, checked against
+   ``key_averages()`` on the first;
 4. ``init_inference(TransformerLM(gpt2_config("6.7b")))`` with random
    weights from seed 0, then ``generate()`` on 8 prompts of 128 tokens,
    64 new tokens, greedy: every decode step goes through kernel B5;
@@ -46,8 +51,9 @@ Phases (any failure exits non-zero and prints no result line):
 6. training: ``initialize`` on GPT-2 125M (all 12 layers, seq 1024,
    ``remat="full"``, flash attention, fused loss head at chunk 256) with
    ``bench.py``'s config (micro batch 64, AdamW, bf16 over f32 masters,
-   clipping 1.0), weights from seed 0, 10 ``train_step``s (20 until
-   phase 31 came, for the run's time) on one seeded
+   clipping 1.0), weights from seed 0, 6 ``train_step``s (20 until
+   phase 31 came, 10 until phase 34 did, for the run's time) on one
+   seeded
    batch: every layer's forward (twice, with the remat recompute) runs
    kernel B1 and its backward kernel B2 (the profile prints their shares
    of the step's device time); then the same step with plain
@@ -56,22 +62,24 @@ Phases (any failure exits non-zero and prints no result line):
    config: all 22 layers, d_model 2048, 32 query heads over 4 kv heads,
    seq 2048, micro 8, ``remat="full"``, flash attention, fused untied
    loss head at chunk 256, AdamW lr 4e-4, weight decay 0.1, betas
-   (0.9, 0.95), clipping 1.0, bf16 over f32 masters), 10 steps on one
-   seeded batch: B1 with a kv group of 8 twice per layer, and B3 and B4
+   (0.9, 0.95), clipping 1.0, bf16 over f32 masters), 6 steps (10
+   until phase 34 came, for the run's time) on one seeded batch: B1
+   with a kv group of 8 twice per layer, and B3 and B4
    once (the sequence spans two 1024-row blocks and attention is
    grouped), never B2; the profile prints B1's and B3 + B4's shares of
    the step's device time; then flash against plain attention at micro 2;
 8. TinyLlama-1.1B served as in phases 4-5 (bf16, random weights from
-   seed 0; 6 of its 22 layers since the offload phases came, for the
-   run's time): ``generate()`` on B5 over the cache at kv-head width (B5
-   must see the layer's cache of 4 kv heads, never a copy expanded over
-   the group),
-   ``forward()`` on B1, and the server on B6/B7 at kv-head width (the
-   drain's profile with B6's and B7's shares as in phase 5);
+   seed 0; 4 of its 22 layers since phase 34 came, 6 since the offload
+   phases did, for the run's time): ``generate()`` on B5 over the cache
+   at kv-head width (B5 must see the layer's cache of 4 kv heads, never
+   a copy expanded over the group), ``forward()`` on B1, and the server
+   on B6/B7 at kv-head width (the drain's profile with B6's and B7's
+   shares as in phase 5);
 9. training block-sparse GPT-2 125M (all 12 layers, ``attn_impl=
    "blocksparse"`` with ``FixedSparsityConfig(block=64, 4 local blocks,
    1 global, unidirectional)``, seq 8192, micro 8, ``remat="full"``,
-   fused loss head at chunk 256, AdamW and bf16 as in phase 6), 10 steps:
+   fused loss head at chunk 256, AdamW and bf16 as in phase 6), 10 steps
+   (its loss rises over the first six: cut to 6 it does not fall):
    every layer runs kernel B8 twice and B9 and B10 once, never B1-B4
    (the profile prints B8's and B9 + B10's shares of the step's device
    time); then the kernels against plain attention masked by the layout
@@ -81,9 +89,9 @@ Phases (any failure exits non-zero and prints no result line):
    on): ``forward()`` on 2 x 8192 tokens through B8, ``generate()`` on 2
    x 4096-token prompts on the dense cache with the layout as a mask,
    checked against ``forward()``; the server must refuse the model;
-11. quantized KV serving at GPT-3 6.7B width (8 of its 32 layers since
-   the offload phases came, for the run's time; the pools' MiB scale
-   with it): the phase-5 server and
+11. quantized KV serving at GPT-3 6.7B width (4 of its 32 layers since
+   phase 34 came, 8 since the offload phases did, for the run's time;
+   the pools' MiB scale with it): the phase-5 server and
    requests with ``serving.kv_cache_bits`` 8, then 4 (int8 / packed-int4
    pools with f32 scales, bf16 weights from seed 0): the int8 and int4
    variants of B6 and B7 run and the bf16 ones do not; pool bytes,
@@ -96,7 +104,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``kv_cache_bits`` 8, the seed-0 weights quantized): parameter bytes,
    ``generate()`` (TTFT, decode ms/token), ``forward()`` against phase
    4's bf16 prefill logits, and the 16-request drain.
-13. GPT-3 2.7B served as in phases 4-5 (8 of its 32 layers, cut for
+13. GPT-3 2.7B served as in phases 4-5 (4 of its 32 layers, cut for
    the run's time; d_model 2560, 32 heads of 80; bf16, random weights
    from seed 0): ``generate()`` on B5,
    ``forward()`` on B1 and the server on B6/B7, all at head dim 80, with
@@ -112,8 +120,9 @@ Phases (any failure exits non-zero and prints no result line):
    entry until the scale falls (each such step skipped, ``step`` held);
    then 2 steps at seq 2048 (GPT-3's context): float16 B1, B3 and B4;
 15. fp16 serving at GPT-3 6.7B width (``init_inference(dtype=
-   "float16")``, random weights from seed 0; 8 of its 32 layers since
-   the offload phases came, for the run's time): ``generate()`` on the
+   "float16")``, random weights from seed 0; 4 of its 32 layers since
+   phase 34 came, 8 since the offload phases did, for the run's time):
+   ``generate()`` on the
    float16 B5 and no other B5, then phase 5's drain at ``kv_cache_bits``
    0, 8 and 4 on the float16 B6/B7 of that width and no other (at
    kv_bits 0 every greedy server stream equal to ``generate()``'s up to
@@ -134,8 +143,9 @@ Phases (any failure exits non-zero and prints no result line):
    nothing_saveable) at GPT-2 125M: peak memory and ms/step, the same
    first-step loss under each;
 19. GPT-NeoX-20B served at full width (``hf_neox_config`` on
-   its published config: 44 layers, served at 6 of them since the
-   offload phases came, for the run's time; d_model 6144, 64 heads of 96, rotary
+   its published config: 44 layers, served at 4 of them since phase 34
+   came, 6 since the offload phases did, for the run's time; d_model
+   6144, 64 heads of 96, rotary
    on 24 of the 96 dims, rotate-half, parallel residual, untied head,
    vocab 50432; bf16, random weights from seed 0) after every earlier
    engine is freed: phases 4-5's protocol (B5 seeing each layer's cache
@@ -224,15 +234,17 @@ Phases (any failure exits non-zero and prints no result line):
    replicas on their own threads: streams exactly once;
 28. ZeRO-Offload (``offload_phase``): GPT-2 125M with the host optimizer
    against the in-HBM engine (3 steps, the JAX tests' bounds), then GPT-3
-   6.7B's width at 8 of its 32 layers (all 32 until phase 32 came, 16
-   until phase 33 did, for the run's time) on the host optimizer (seq
-   1024, micro 4, 20 GB of host Adam state): s/step split into the grads, the host
+   6.7B's width at 4 of its 32 layers (all 32 until phase 32 came, 16
+   until phase 33 did, 8 until phase 34 did, for the run's time) on the
+   host optimizer (seq 1024, micro 4, 11 GB of host Adam state): s/step
+   split into the grads, the host
    sweep and the upload lane, the sweep's and the wire's GB/s, 1 step at
    wire 0 and 1 at wire 8 (3 and 2 until phase 31 came, for the run's
    time); B1 and B2 launches exact;
-29. ZeRO-Infinity at GPT-NeoX-20B width (``infinity_phase``): 4 layers
+29. ZeRO-Infinity at GPT-NeoX-20B width (``infinity_phase``): 3 layers
    (cut to the host's memory: 10 of the 12 wanted until phase 32 came,
-   cut for the run's time) streamed past the card,
+   4 until phase 34 did, cut for the run's time) streamed past the card
+   (its device cache holds 2),
    pure stream (2 steps) then clip-gated at gas 2 (1 step; 3 and 2
    until phase 31 came, for the run's time); 2 layers against the in-HBM
    engine (B1, B3, B4 exact a layer) and on the NVMe tier bit-equal to
@@ -260,10 +272,12 @@ Phases (any failure exits non-zero and prints no result line):
    memory, ms/step and the comm log's bytes and GB/s per op and step.
 
 32. tensor parallelism (``tp_phase``), one process per rank: (a) GPT-3
-   6.7B's width (32 heads of 128, vocab 50304) at 8 of its 32 layers,
-   random weights from seed 0 (every rank draws the whole tree, keeps its
+   6.7B's width (32 heads of 128, vocab 50304) at 4 of its 32 layers
+   (8 until phase 34 came, for the run's time), random weights from seed 0
+   (every rank draws the whole tree, keeps its
    slice): phase 5's 16-request drain and phase 4's ``generate()`` (8 x
-   128, 32 new: 64 in phase 4) at one rank without a mesh as the
+   128, 16 new: 64 in phase 4, 32 until phase 34 came, for the run's
+   time) at one rank without a mesh as the
    reference; world 1 on
    NCCL at ``serving.mesh`` 1 x 1 bit-equal to it; then 4 gloo ranks
    sharing the card at ``serving.mesh`` {data 1, model 4} and {data 2,
@@ -299,11 +313,37 @@ Phases (any failure exits non-zero and prints no result line):
    ms a call, the all-reduce over pipe; at {pipe 4} the two-point bubble
    fit of each schedule (``measure_bubble_fraction``, M 4 and 8).
 
-``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33`` (any
-of them) builds the kernels and runs only those phases ("3": phase 3's
-cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B engine;
-"32" without "31": phase 32 (a) alone; "33" needs "31", whose world it
-runs in), then prints no result line: a probe of the newest phases.
+34. the 3D composition (``p34_report``), in phase 31's world of 4 gloo
+   ranks sharing the card, after phase 33 (``P34``): (a) GPT-2 125M at
+   ZeRO stage 3 over {data 2, model 2} (each rank keeps half of its
+   model slice and gathers a layer's slice over its data pair) and
+   {pipe 2, data 2} under 1F1B (a layer at a time inside each stage),
+   (b) ZeRO-Offload's host AdamW at {pipe 2, model 2} (each rank's host
+   optimizer steps its own slice; the host sweep's seconds a rank
+   printed), each at phase 32 (b)'s global batch of 8, 2 steps each from
+   phase 31 (a)'s state of that step, held to phase 32 (b)'s reference;
+   (c) 125M+MoE-64 at 4 of its 12 layers (0.66 B parameters, the depth
+   cut for the run's time; seq 2048) under gpipe at {pipe 2, data 2},
+   ZeRO stage 1, global batch 8 in 4 micro batches, each MoE layer
+   routing the global micro batch (its rows gathered over the data
+   pair), 2 steps each from the seed's state, against one rank without
+   a mesh at micro 2 (run in phase 31 (a)'s process): losses, grad
+   norms and each MoE layer's exp_counts and dropped tokens (within
+   ``P34_ROUTING_SHARE`` of the routed tokens), B1, B3 and B4 exact and
+   no B2; (d) the compat ``forward`` + ``backward`` + ``step`` at {pipe
+   2, data 2}, ZeRO stage 1, against ``train_step`` from the same state.
+   Every rank's losses and grad norms within the same-state step check,
+   B1/B2 launches exact on every rank, each rank's state bytes the
+   plan's count, stage 3's at most stage 0's over dp of the rank's
+   slice plus its resident leaves; per part the bytes, peak memory,
+   s/step and the comm log.
+
+``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33 34``
+(any of them) builds the kernels and runs only those phases ("3": phase
+3's cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B engine;
+"32" without "31": phase 32 (a) alone; "33" and "34" need "31", whose
+world they run in), then prints no result line: a probe of the newest
+phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -340,6 +380,7 @@ the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import re
 import statistics
@@ -406,16 +447,19 @@ LSE_ATOL = 1e-3
 F16_TOL = (1e-3, 2e-3)
 
 #: the training phase: bench.py's GPT-2 125M step (seq 1024, micro 64),
-#: 10 steps (20 until phase 31 came: cut for the run's time)
-TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 10
+#: 6 steps (20 until phase 31 came, 10 until phase 34 did: cut for the
+#: run's time; the steps past the first two add no check)
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1024, 64, 6
 
-#: the TinyLlama-1.1B training phase: seq 2048, micro 8, 10 steps; flash
-#: against plain attention at micro 2
-LLAMA_SEQ, LLAMA_MICRO, LLAMA_STEPS, LLAMA_CHECK_MICRO = 2048, 8, 10, 2
+#: the TinyLlama-1.1B training phase: seq 2048, micro 8, 6 steps (10 until
+#: phase 34 came, cut for the run's time); flash against plain attention
+#: at micro 2
+LLAMA_SEQ, LLAMA_MICRO, LLAMA_STEPS, LLAMA_CHECK_MICRO = 2048, 8, 6, 2
 
 #: the block-sparse GPT-2 125M phase: seq 8192, micro 8 (bench.py's 65536
-#: tokens per step), 10 steps; kernels against masked plain attention at
-#: micro 1
+#: tokens per step), 10 steps (its loss rises over the first six, so the
+#: falling-loss check needs them all); kernels against masked plain
+#: attention at micro 1
 SPARSE_SEQ, SPARSE_MICRO, SPARSE_STEPS = 8192, 8, 10
 
 #: the GPT-NeoX 1.3B training phase: seq 1024, micro 8, 10 steps; flash
@@ -426,16 +470,17 @@ NEOX_SEQ, NEOX_MICRO, NEOX_STEPS, NEOX_CHECK_MICRO = 1024, 8, 10, 2
 #: until the MoE and diffusion phases needed the time, 20 and 3 until the
 #: offload phases did; the median of 4 is the time printed)
 N_TIMED, N_WARM = 4, 1
-#: phase 13 serves GPT-3 2.7B's width (32 heads of 80) at 8 of its 32
-#: layers (16 until the offload phases came), cut for the run's time: the
-#: phase is there for head dim 80
-PHASE13_LAYERS = 8
+#: phase 13 serves GPT-3 2.7B's width (32 heads of 80) at 4 of its 32
+#: layers (16 until the offload phases came, 8 until phase 34 did), cut
+#: for the run's time: the phase is there for head dim 80
+PHASE13_LAYERS = 4
 #: depth cuts for the run's time, made when the offload phases (28-30)
-#: came; widths, heads and every check stay: phase 8 serves TinyLlama at
-#: 6 of its 22 layers, phases 11 and 15 serve GPT-3 6.7B's width at 8 of
-#: 32, phase 19 GPT-NeoX-20B's at 6 of 44
-LLAMA_SERVE_LAYERS, QUANT_SERVE_LAYERS = 6, 8
-FP16_SERVE_LAYERS, NEOX20_SERVE_LAYERS = 8, 6
+#: came and again when phase 34 did; widths, heads and every check stay:
+#: phase 8 serves TinyLlama at 4 of its 22 layers (6 before phase 34),
+#: phases 11 and 15 serve GPT-3 6.7B's width at 4 of 32 (8), phase 19
+#: GPT-NeoX-20B's at 4 of 44 (6)
+LLAMA_SERVE_LAYERS, QUANT_SERVE_LAYERS = 4, 4
+FP16_SERVE_LAYERS, NEOX20_SERVE_LAYERS = 4, 4
 #: timed calls of a plain version over [B*H, 2048, 2048] scores (each
 #: takes tens of ms; its time is a yardstick, not a result), after one
 #: warm-up call (5 until the offload phases came, 3 until phase 31 did,
@@ -519,6 +564,13 @@ def agree(name, got, want, fault, tol=None) -> dict:
 
 # -- phase 3: each kernel against its plain version ------------------------
 def kernel_checks(torch, dev, flush):
+    # the block-sparse and flash checks first: the build runs beside this
+    # phase, and their libraries link before B5's, B7's and B6's (each
+    # check waits in load_library for its own); the results keep their
+    # order, B5-B7 first
+    early = {fn.__name__: fn(torch, dev, flush) for fn in (
+        blocksparse_checks, c1_sparse_checks, f16_sparse_checks,
+        gqa_flash_checks, flash_checks, c1_flash_checks)}
     from deepspeed_tpu_torch.ops.transformer import decode_attention as DA
     from deepspeed_tpu_torch.ops.transformer import (
         paged_decode_attention as PA)
@@ -646,14 +698,16 @@ def kernel_checks(torch, dev, flush):
                        **acc, ms=ms, plain_ms=plain,
                        library_ms=None, bound_ms=bnd, bound_by=by))
     results["paged_prefill_attention"] = b7
-    results.update(flash_checks(torch, dev, flush))
-    for name, cases in gqa_flash_checks(torch, dev, flush).items():
+    results.update(early["flash_checks"])
+    for name, cases in early["gqa_flash_checks"].items():
         results.setdefault(name, []).extend(cases)
-    results.update(blocksparse_checks(torch, dev, flush))
+    results.update(early["blocksparse_checks"])
     results.update(quant_kernel_checks(torch, dev, flush))
     for extra in (c1_flash_checks, c1_decode_checks, c1_sparse_checks,
                   f16_decode_checks, f16_sparse_checks):
-        for name, cases in extra(torch, dev, flush).items():
+        got = (early[extra.__name__] if extra.__name__ in early
+               else extra(torch, dev, flush))
+        for name, cases in got.items():
             results.setdefault(name, []).extend(cases)
     return results
 
@@ -1469,6 +1523,8 @@ def gqa_flash_checks(torch, dev, flush):
             "flash_attention_bwd_dkv": b4}
 
 
+#: the libraries of B7 and B6, whose SASS ``paged_kernel_check`` reads
+PAGED_SASS = ("paged_prefill_attention", "paged_decode_attention")
 #: the libraries whose bf16 kernels run their products on the tensor
 #: cores, and the name of that kernel in each
 TENSOR_CORE_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
@@ -1507,21 +1563,41 @@ def ptxas_report(log: str) -> dict:
 
 #: ``cuobjdump -sass`` of each library phase 3 reads, by library name
 _SASS: dict = {}
+#: the dumps started during the build: library name -> (process, file)
+_SASS_RUNS: dict = {}
 
 
-def dump_sass(build, names) -> None:
-    """``cuobjdump -sass`` of the libraries ``names``, all at once (one
-    process each, on the host's cores), into ``_SASS``."""
-    from concurrent.futures import ThreadPoolExecutor
+def start_sass(build, name, path) -> None:
+    """Start ``cuobjdump -sass`` of library ``name`` if phase 3 reads it:
+    ``build.build``'s ``on_built``, so each dump runs as soon as its
+    library is linked, while the other sources still compile."""
+    import tempfile
+    if name not in TENSOR_CORE_KERNELS and name not in PAGED_SASS:
+        return
+    import shutil
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    # at a lower priority: the last dumps run beside the first measured
+    # phases
+    nice = ["nice", "-n", "10"] if shutil.which("nice") else []
+    out = tempfile.TemporaryFile("w+")
+    _SASS_RUNS[name] = (subprocess.Popen(
+        [*nice, str(tool), "-sass", str(path)], stdout=out,
+        stderr=subprocess.STDOUT), out)
 
-    def one(name):
-        return subprocess.run([str(tool), "-sass",
-                               str(build.library_path(name))], check=True,
-                              capture_output=True, text=True,
-                              timeout=300).stdout
-    with ThreadPoolExecutor(len(names)) as pool:
-        _SASS.update(zip(names, pool.map(one, names)))
+
+def collect_sass() -> None:
+    """Wait for the dumps ``start_sass`` started, into ``_SASS``; fail on
+    a dump that failed or was never started."""
+    for name in (*TENSOR_CORE_KERNELS, *PAGED_SASS):
+        check(name in _SASS_RUNS, f"cuobjdump -sass of {name}: not started")
+        proc, out = _SASS_RUNS.pop(name)
+        code = proc.wait(timeout=300)
+        out.seek(0)
+        text = out.read()
+        out.close()
+        check(code == 0, f"cuobjdump -sass of {name}: exit {code}: "
+                         f"{text[-2000:]}")
+        _SASS[name] = text
 
 
 def tensor_core_check(build) -> dict:
@@ -1819,6 +1895,34 @@ def blocksparse_checks(torch, dev, flush):
             "blocksparse_flash_bwd_dkv": b10}
 
 
+def report_build(libs, seconds) -> None:
+    """Print the build's wall time and each library's kernels, compile
+    time, registers and spills."""
+    print(f"build: {len(libs)} kernel libraries in {seconds:.1f} s (set-up)")
+    for name, path in libs.items():
+        log = Path(f"{path}.log").read_text()
+        rep = ptxas_report(log)
+        spills = {short_name(fn): r["spill"] for fn, r in rep.items()
+                  if r.get("spill")}
+        secs = [float(x) for x in
+                re.findall(r"nvcc wall time: ([\d.]+) s", log)]
+        print(f"  {name}: {len(rep)} kernels"
+              + (f" in {max(secs)} s" if secs else "")
+              + (f" ({len(secs)} parts)" if len(secs) > 1 else "")
+              + f", at most {max(r.get('registers', 0) for r in rep.values())}"
+              f" registers; spilling: " + (", ".join(
+                  f"{fn} {n} bytes" for fn, n in spills.items()) or "none"))
+
+
+def stop_children(build) -> None:
+    """At exit, end the compilers and SASS dumps still running (a run
+    that failed before it joined them)."""
+    build.stop_builds()
+    for proc, _ in _SASS_RUNS.values():
+        if proc.poll() is None:
+            proc.kill()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = None
@@ -1862,38 +1966,33 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     def elapsed(what):
-        print(f"[{what} done at {time.perf_counter() - t_start:.0f} s]")
-    t0 = time.perf_counter()
-    libs = build.build()
-    print(f"build: {len(libs)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f} s (set-up)")
-    for name, path in libs.items():
-        log = Path(f"{path}.log").read_text()
-        rep = ptxas_report(log)
-        spills = {short_name(fn): r["spill"] for fn, r in rep.items()
-                  if r.get("spill")}
-        secs = [float(x) for x in
-                re.findall(r"nvcc wall time: ([\d.]+) s", log)]
-        print(f"  {name}: {len(rep)} kernels"
-              + (f" in {max(secs)} s" if secs else "")
-              + (f" ({len(secs)} parts)" if len(secs) > 1 else "")
-              + f", at most {max(r.get('registers', 0) for r in rep.values())}"
-              f" registers; spilling: " + (", ".join(
-                  f"{fn} {n} bytes" for fn, n in spills.items()) or "none"))
-
-    elapsed("phase 2")
+        # on both streams: where only the end of standard error is kept,
+        # it still says how far a run came and when
+        line = f"[{what} done at {time.perf_counter() - t_start:.0f} s]"
+        print(line, flush=True)
+        print(line, file=sys.stderr, flush=True)
     if only is not None:
+        t0 = time.perf_counter()
+        report_build(build.build(), time.perf_counter() - t0)
+        elapsed("phase 2")
         return partial_run(torch, np, dev, only, elapsed)
+    # the build runs on a thread of its own: phase 3 checks each kernel as
+    # soon as its library is linked (``load_library`` waits for it), and
+    # each library's SASS dump starts then too
+    atexit.register(stop_children, build)
+    build_thread = build.build_in_background(
+        on_built=lambda name, path: start_sass(build, name, path))
 
-    # -- 3. kernels against their plain versions -----------------------
-    dump_sass(build, [*TENSOR_CORE_KERNELS, "paged_prefill_attention",
-                      "paged_decode_attention"])
-    elapsed("phase 3's cuobjdump -sass")
-    tensor_core_check(build)
-    paged_kernel_check(build)
-    elapsed("phase 3's SASS and ptxas checks")
+    # -- 3. kernels against their plain versions, beside the build's
+    # tail and the SASS dumps (their checks come after phase 27) -------
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     kres = kernel_checks(torch, dev, flush)
+    build_thread.join()
+    if "error" in build_thread.result:
+        fail(f"build: {build_thread.result['error']}")
+    report_build(build_thread.result["libs"], build_thread.result["seconds"])
+    print(f"[phase 2 done at {build_thread.result['seconds']:.0f} s, beside "
+          f"phase 3]")
     for name, cases in kres.items():
         for c in cases:
             atol, rtol = c.get("tol", (KERNEL_ATOL, KERNEL_RTOL))
@@ -1947,6 +2046,13 @@ def main(argv=None) -> int:
                                                             elapsed))
 
     elapsed("phases 4-5, 24-27")
+
+    # -- 3 (end). the SASS and ptxas checks: the last dumps ran beside
+    # phases 3-5 ---------------------------------------------------------
+    collect_sass()
+    tensor_core_check(build)
+    paged_kernel_check(build)
+    elapsed("phase 3's SASS and ptxas checks")
 
     # -- 6. training GPT-2 125M at bench.py's configuration -------------
     tck = TENSOR_CORE_KERNELS
@@ -2122,6 +2228,10 @@ def main(argv=None) -> int:
     # -- 33. pipeline parallelism (it ran in phase 31's world) --------------
     pp = pipe_report(zero, nvidia_smi_line(0))
     elapsed("phase 33")
+
+    # -- 34. the 3D composition (it ran in phase 31's world) ----------------
+    p34_report(zero, nvidia_smi_line(0))
+    elapsed("phase 34")
 
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
@@ -3868,7 +3978,6 @@ def device_profile(torch, fn, label: str, shares=None) -> None:
     time), the kernels that took the most time and, for each entry of
     ``shares`` (label: kernel-name substrings), the share of device time
     of the kernels whose names hold one of them."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3878,24 +3987,79 @@ def device_profile(torch, fn, label: str, shares=None) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern)
+    kern = device_rows(prof)
+    busy = sum(us for us, _ in kern.values())
     if not busy:
         print(f"profile {label}: device time not measured (no CUDA "
               f"events in the trace)")
         return
     print(f"profile {label}: device busy {busy / 1e3:.1f} ms of "
           f"{wall_us / 1e3:.1f} ms wall ({100 * busy / wall_us:.1f} %), "
-          f"{sum(e.count for e in kern)} kernel launches")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  {100 * e.self_device_time_total / busy:5.1f} %  "
-              f"{e.count:6d} x  {e.key[:90]}")
+          f"{sum(n for _, n in kern.values())} kernel launches")
+    for key, (us, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {100 * us / busy:5.1f} %  {n:6d} x  {key[:90]}")
     for name, keys in (shares or {}).items():
-        hit = [e for e in kern if any(k in e.key for k in keys)]
-        t = sum(e.self_device_time_total for e in hit)
+        hit = [row for key, row in kern.items()
+               if any(k in key for k in keys)]
+        t = sum(us for us, _ in hit)
         print(f"  {name}: {t / 1e3:.1f} ms = {100 * t / busy:.1f} % of "
-              f"device time, {sum(e.count for e in hit)} launches")
+              f"device time, {sum(n for _, n in hit)} launches")
+
+
+def device_rows(prof) -> dict:
+    """The device events of ``prof``'s trace by name: [total us, count],
+    the CUDA rows of ``prof.key_averages()`` (its ``self_device_time_total``
+    and ``count``), read from the profiler's raw results: the same events
+    and times without building ``key_averages()``'s Python event tree,
+    which took a minute of host time over a whole run."""
+    from torch.autograd import DeviceType
+    from torch.autograd import profiler_util as pu
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None or not hasattr(pu, "_filter_name") or \
+            _RAW_ROWS["use"] is False:
+        return _averaged_rows(prof)
+    rows: dict = {}
+    rename = getattr(pu, "_rewrite_name", lambda name, **_: name)
+    for ev in raw.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        name = ev.name()
+        # the events key_averages() leaves out or counts as no time
+        if pu._filter_name(name) or \
+                getattr(ev, "is_hidden_event", lambda: False)() or \
+                ev.is_async() or ev.start_thread_id() != ev.end_thread_id():
+            continue
+        row = rows.setdefault(rename(name=name, with_wildcard=True),
+                              [0.0, 0])
+        row[0] += (ev.end_ns() - ev.start_ns()) / 1e3
+        row[1] += 1
+    if _RAW_ROWS["use"] is None:
+        # the first profile is read both ways; the raw read is kept only
+        # if it gives key_averages()'s rows
+        want = _averaged_rows(prof)
+        same = set(rows) == set(want) and all(
+            rows[k][1] == want[k][1]
+            and abs(rows[k][0] - want[k][0]) <= 1e-6 * max(1.0, want[k][0])
+            for k in want)
+        _RAW_ROWS["use"] = same
+        print(f"profile rows: the raw trace read "
+              + ("gives key_averages()'s device rows; kept" if same else
+                 "differs from key_averages()'s device rows; key_averages() "
+                 "is read from here on"))
+        return want
+    return rows
+
+
+#: whether ``device_rows`` reads the raw trace (None until the first
+#: profile has compared it with key_averages())
+_RAW_ROWS: dict = {"use": None}
+
+
+def _averaged_rows(prof) -> dict:
+    """``device_rows`` through ``prof.key_averages()``."""
+    from torch.autograd import DeviceType
+    return {e.key: [e.self_device_time_total, e.count]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def _leaves(tree):
@@ -5507,7 +5671,7 @@ def host_cache_phase(torch, np, eng, label) -> dict:
 
 
 ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31",
-               "32", "33"}
+               "32", "33", "34"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5551,9 +5715,10 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
             res[n] = run(torch, np)
             elapsed(f"phase {n}")
     if "31" in only:
-        # phase 33 runs in phase 31's world
+        # phases 33 and 34 run in phase 31's world
         free_card(torch, "phase 31")
-        res["31"] = zero_phase(torch, np, pipe="33" in only)
+        res["31"] = zero_phase(torch, np, pipe="33" in only,
+                               p34="34" in only)
         elapsed("phase 31")
     if "32" in only:
         # (b) reads phase 31's world: without "31", (a) alone
@@ -5565,6 +5730,11 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         check("31" in only, "phase 33 runs in phase 31's world: --only 31 33")
         pipe_report(res["31"], nvidia_smi_line(0))
         elapsed("phase 33")
+    if "34" in only:
+        from deepspeed_tpu_torch.accelerator import nvidia_smi_line
+        check("31" in only, "phase 34 runs in phase 31's world: --only 31 34")
+        p34_report(res["31"], nvidia_smi_line(0))
+        elapsed("phase 34")
     print("chip_smoke: partial run (--only): no result lines")
     return 0
 
@@ -5590,11 +5760,12 @@ def new_phases(torch, np, elapsed) -> dict:
 #: 1 step at wire 0 then 1 at offload_wire_bits 8 (3 and 2 until phase 31
 #: came: cut for the run's time)
 OFFLOAD_67_STEPS, OFFLOAD_67_WIRE0 = 2, 1
-#: (b)'s depth: GPT-3 6.7B's width at 8 of its 32 layers (all 32, with
+#: (b)'s depth: GPT-3 6.7B's width at 4 of its 32 layers (all 32, with
 #: 80 GB of host Adam state, until phase 32 came; 16 until phase 33 came,
-#: which takes ~21 s on an H100 80GB HBM3 at 700 W: each cut for the run's
-#: time; 20 GB of host state still holds the path)
-OFFLOAD_67_LAYERS = 8
+#: which takes ~21 s on an H100 80GB HBM3 at 700 W; 8 until phase 34
+#: came: each cut for the run's time; 11 GB of host state still holds the
+#: path)
+OFFLOAD_67_LAYERS = 4
 OFFLOAD_PARITY_MICRO, OFFLOAD_SEQ, OFFLOAD_67_MICRO = 4, 1024, 4
 #: the JAX tests' bounds for an offload engine against the in-HBM one
 #: (tests/unit/test_infinity.py:468-480): losses within 5e-3, grad norms
@@ -5604,9 +5775,10 @@ OFFLOAD_LOSS_TOL, OFFLOAD_GNORM_REL = 5e-3, 5e-2
 PARITY_LR = 1e-4
 #: phase 29: GPT-NeoX-20B's width at seq 2048, micro 1; 2 layers for the
 #: parity and NVMe checks, INFINITY_LAYERS (cut to the host's memory at
-#: run time) for (c)'s longer stream: 4 (12 until phase 32 came, cut for
-#: the run's time; the host held 10 of them, 82 GB of Adam state)
-INFINITY_SEQ, INFINITY_PARITY_LAYERS, INFINITY_LAYERS = 2048, 2, 4
+#: run time) for (c)'s longer stream: 3, one more than its device cache
+#: holds (12 until phase 32 came, 4 until phase 34 did, cut for the run's
+#: time; the host held 10 of them, 82 GB of Adam state)
+INFINITY_SEQ, INFINITY_PARITY_LAYERS, INFINITY_LAYERS = 2048, 2, 3
 #: (c)'s steps: pure stream, then clip-gated at gas 2 (3 and 2 until
 #: phase 31 came: cut for the run's time)
 INFINITY_PURE, INFINITY_CLIP = 2, 1
@@ -6111,6 +6283,28 @@ PIPE_TRAIN_MESHES = (("pipe4_1f1b", {"pipe": 4}, 0, "1f1b"),
 #: the bubble fit's two micro-batch counts, at {pipe 4}, each schedule
 PIPE_BUBBLE_MICROS = (4, 8)
 
+#: phase 34, the 3D composition in phase 31's world after phase 33, at
+#: phase 32 (b)'s global batch of 8 and steps, each step from phase 31
+#: (a)'s state of that step: (a) ZeRO stage 3 at these meshes (key, mesh,
+#: schedule); (b) ZeRO-Offload's host optimizer at ``offload`` (1F1B);
+#: (c) 125M+MoE-64 (``MOE_TRAIN``, seq ``MOE_SEQ``) at 4 of its 12 layers
+#: (0.66 B parameters: two MoE layers of 64 experts; the depth cut for
+#: the run's time) under gpipe at ``moe_mesh``, ZeRO stage 1, global
+#: batch 8 in 4 micro batches, each step from the seed's state, against
+#: one rank without a mesh at micro 2 (the global micro batch); (d) the
+#: compat forward/backward/step at ``compat``, ZeRO stage 1, against
+#: ``train_step`` from phase 31 (a)'s first state
+P34 = {"zero3": (("data2_model2", {"data": 2, "model": 2}, "1f1b"),
+                 ("pipe2_data2", {"pipe": 2, "data": 2}, "1f1b")),
+       "offload": {"pipe": 2, "model": 2},
+       "moe": MOE_TRAIN, "moe_layers": 4, "seq": MOE_SEQ, "moe_global": 8,
+       "moe_gas": 4, "moe_mesh": {"pipe": 2, "data": 2}, "steps": 2,
+       "compat": {"pipe": 2, "data": 2}}
+#: phase 34 (c): each MoE layer's exp_counts may move by this share of
+#: the routed tokens between the two (bf16 gate logits from products of
+#: other shapes, a token near a tie), and so may the dropped tokens
+P34_ROUTING_SHARE = 0.01
+
 #: the ranks' program: mode "a" is world 1 on NCCL (stage 3 against the
 #: engine without ZeRO, each step from the same state; and, for phase 32
 #: (b), the engine without ZeRO at phase 32's batch from that state),
@@ -6135,6 +6329,7 @@ tp_meshes = json.loads(os.environ["P32_MESHES"])
 tp_glob, tp_steps = int(os.environ["P32_GLOBAL"]), int(os.environ["P32_STEPS"])
 pp_meshes = json.loads(os.environ["P33_MESHES"])
 pp_bubble = json.loads(os.environ["P33_BUBBLE"])
+p34 = json.loads(os.environ["P34"])
 seq, glob = int(os.environ["P31_SEQ"]), int(os.environ["P31_GLOBAL"])
 dt.init_distributed("nccl" if mode == "a" else "gloo",
                     timeout=float(os.environ["P31_TIMEOUT"]))
@@ -6146,18 +6341,33 @@ cfg = gpt2_config("125m", max_seq_len=seq, remat="full", attn_impl="flash",
                   loss_chunk=256)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
-def engine(stage, micro=None, mesh=None, gas=1, schedule="auto"):
+def engine(stage, micro=None, mesh=None, gas=1, schedule="auto",
+           model_cfg=None, zero_extra=None):
     config = {"train_micro_batch_size_per_gpu": micro or glob // world,
               "gradient_accumulation_steps": gas,
               "pipeline": {"schedule": schedule},
               "optimizer": {"type": "AdamW", "params": {
                   "lr": 6e-4, "weight_decay": 0.1}},
               "bf16": {"enabled": True}, "gradient_clipping": 1.0,
-              "steps_per_print": 0, "zero_optimization": {"stage": stage}}
+              "steps_per_print": 0,
+              "zero_optimization": {"stage": stage, **(zero_extra or {})}}
     if mesh is not None:
         config["mesh"] = mesh
-    return dt.initialize(model=TransformerLM(cfg), config=config,
-                         device=dev)[0]
+    return dt.initialize(model=TransformerLM(model_cfg or cfg),
+                         config=config, device=dev)[0]
+
+# phase 34 (c): 125M+MoE-64 at a cut depth, its global batches, and the
+# MoE layers' routing of an engine's last forward
+moe_cfg = (gpt2_config("125m", remat="full", attn_impl="flash",
+                       loss_chunk=256, num_layers=p34["moe_layers"],
+                       **p34["moe"]) if p34 else None)
+moe_batches = ([{"input_ids": np.random.RandomState(340 + i).randint(
+    0, moe_cfg.vocab_size, (p34["moe_global"], p34["seq"]),
+    dtype=np.int32)} for i in range(p34["steps"])] if p34 else [])
+MOE_KERNELS = KERNELS + ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+def routing(model):
+    return [[c.tolist(), int(k), int(cap)] for c, k, cap in model.moe_stats]
 
 rs = np.random.RandomState(0)
 batch = {"input_ids": rs.randint(0, cfg.vocab_size, (glob, seq),
@@ -6194,6 +6404,29 @@ if mode == "a":
     out = {"rows": rows, "launches": counts, "tp_ref": tp_ref,
            "backend": comm.get_backend(), "zero_stage": z.zero_stage,
            "dp": z.dp_world_size}
+    if p34:
+        # phase 34 (c)'s reference: one rank without a mesh, micro batches
+        # of the pipeline's global micro batch, each step from the seed's
+        # state (the pipeline's ranks draw the same from the same seed)
+        del z, p, t
+        gc.collect()
+        torch.cuda.empty_cache()
+        gas = p34["moe_gas"]
+        ref = engine(0, micro=p34["moe_global"] // gas, gas=gas,
+                     model_cfg=moe_cfg)
+        init = tree_map(lambda x: x.clone(), ref.state)
+        moe = {"rows": [], "routing": [], "launches": [],
+               "n_params": ref.num_parameters()}
+        for b in moe_batches:
+            ref.state = tree_map(lambda x: x.clone(), init)
+            build.reset_launch_counts()
+            m = ref.train_step(b)
+            moe["rows"].append([float(m["loss"]), float(m["grad_norm"])])
+            moe["launches"].append({k: build.launch_counts[k]
+                                    for k in MOE_KERNELS})
+            moe["routing"].append(routing(ref.model))
+        out["moe_ref"] = moe
+        del ref, init
 else:
     cl = comm.configure(enabled=False)
     for stage in (0, 1, 2, 3):
@@ -6336,6 +6569,148 @@ else:
         gc.collect()
         torch.cuda.empty_cache()
     out["pipe_seconds"] = time.perf_counter() - t_pp
+    if p34:
+        # phase 34: the 3D composition (see the module docstring)
+        t34 = time.perf_counter()
+        host = host or [torch.load(os.path.join(states, f"state{i}.pt"),
+                                   map_location="cpu", weights_only=True)
+                        for i in range(tp_steps)]
+        out["p34"] = {}
+
+        def run34(key, eng, load, batch, kernels=KERNELS, steps=tp_steps,
+                  extra=None):
+            cl.reset()
+            cl.configure(enabled=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            rows, ms, more = [], [], []
+            for i in range(steps):
+                load(i)
+                comm.barrier()
+                t0 = time.perf_counter()
+                m = eng.train_step(batch(i))
+                rows.append([float(m["loss"]), float(m["grad_norm"])])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if extra is not None:
+                    more.append(extra())
+            torch.cuda.synchronize()
+            log = cl.totals()
+            cl.configure(enabled=False)
+            res = {"rows": rows, "ms": ms, "more": more,
+                   "launches": {k: build.launch_counts[k] for k in kernels},
+                   "n_params": eng.num_parameters(),
+                   "peak": torch.cuda.max_memory_allocated(), "log": log,
+                   "dp_rank": eng.dp_rank,
+                   "stage_id": getattr(eng, "stage_id", 0),
+                   "micro_batches": eng.gradient_accumulation_steps,
+                   "lps": (eng.adapter.layers_per_stage
+                           if hasattr(eng, "adapter") else None)}
+            if eng.offload_enabled:
+                res["bytes"] = {"params": sum(
+                    t.numel() * t.element_size()
+                    for t in tree_leaves(eng.state["params"])),
+                    "host": eng._host_opt.host_bytes}
+                res["planned"] = eng.offload_planned_bytes()
+            else:
+                z = eng._zero
+                res["bytes"] = eng.zero_state_bytes()
+                res["planned"] = z.planned_bytes(
+                    eng._param_shapes,
+                    torch.finfo(eng.compute_dtype).bits // 8)
+                res["slice_params"] = sum(int(np.prod(s_)) for s_ in
+                                          tree_leaves(eng._param_shapes))
+                res["resident_params"] = sum(
+                    int(np.prod(s_)) for s_, d_ in zip(
+                        tree_leaves(eng._param_shapes),
+                        tree_leaves(z.master_dims)) if d_ is None)
+                res["dp"] = eng.dp_world_size
+            out["p34"][key] = res
+            return res
+
+        def tp_rows(eng):
+            return lambda i: rank_slice(tp_batch,
+                                        eng.gradient_accumulation_steps,
+                                        eng.dp_world_size, eng.dp_rank)
+
+        # (a) ZeRO stage 3 over a model axis and under the pipeline
+        for key, mesh, schedule in p34["zero3"]:
+            dp = mesh.get("data", 1)
+            piped = mesh.get("pipe", 1) > 1
+            eng = engine(3, micro=1 if piped else tp_glob // dp, mesh=mesh,
+                         gas=tp_glob // dp if piped else 1,
+                         schedule=schedule)
+            run34(key, eng, lambda i: eng.adopt_state(
+                stacked(host[i], eng) if piped else tree_map(
+                    lambda t: t.to(dev), host[i]), partial=False),
+                tp_rows(eng))
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        # (b) ZeRO-Offload's host optimizer over a pipe and a model axis
+        key, mesh = "offload", p34["offload"]
+        eng = engine(2, micro=1, mesh=mesh, gas=tp_glob, schedule="1f1b",
+                     zero_extra={"offload_optimizer": {"device": "cpu"}})
+        run34(key, eng, lambda i: eng.adopt_state(stacked(host[i], eng),
+                                                  partial=False),
+              tp_rows(eng), extra=lambda: dict(eng.offload_timing))
+        eng._host_opt.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) 125M+MoE-64 under gpipe at {pipe 2, data 2}, ZeRO stage 1,
+        # each step from the seed's state
+        mesh = p34["moe_mesh"]
+        dp = mesh.get("data", 1)
+        eng = engine(1, micro=p34["moe_global"] // dp // p34["moe_gas"],
+                     mesh=mesh, gas=p34["moe_gas"], schedule="gpipe",
+                     model_cfg=moe_cfg)
+        init = tree_map(lambda t: t.to("cpu", copy=True), eng.state)
+
+        def moe_load(i):
+            eng.state = tree_map(lambda t: t.to(dev), init)
+            eng._live = eng._zero.live_params(eng.state["params"],
+                                              eng.compute_dtype)
+        run34("moe", eng, moe_load, lambda i: rank_slice(
+            moe_batches[i], eng.gradient_accumulation_steps,
+            eng.dp_world_size, eng.dp_rank), kernels=MOE_KERNELS,
+            steps=p34["steps"], extra=lambda: routing(eng._stage_model))
+        out["p34"]["moe"]["schedule"] = eng.schedule
+        del eng, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d) the compat forward/backward/step under the pipeline against
+        # train_step, both from phase 31 (a)'s first state
+        eng = engine(1, micro=1, mesh=p34["compat"], gas=tp_glob // 2,
+                     schedule="1f1b")
+        b = rank_slice(tp_batch, eng.gradient_accumulation_steps,
+                       eng.dp_world_size, eng.dp_rank)
+        eng.adopt_state(stacked(host[0], eng), partial=False)
+        comm.barrier()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(eng.forward(b))
+        eng.backward()
+        eng.step()
+        gn = float(eng._last_metrics["grad_norm"])
+        c_ms = (time.perf_counter() - t0) * 1e3
+        c_launch = {k: build.launch_counts[k] for k in KERNELS}
+        after = [t.clone() for t in tree_leaves(eng.state["params"])]
+        eng.adopt_state(stacked(host[0], eng), partial=False)
+        comm.barrier()
+        m = eng.train_step(b)
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(
+            after, tree_leaves(eng.state["params"])))
+        out["p34"]["compat"] = {
+            "compat": [loss, gn], "train_step": [float(m["loss"]),
+                                                 float(m["grad_norm"])],
+            "params_equal": same, "ms": c_ms, "launches": c_launch,
+            "lps": eng.adapter.layers_per_stage,
+            "micro_batches": eng.gradient_accumulation_steps}
+        del eng, after
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["p34_seconds"] = time.perf_counter() - t34
 print("P31RESULT " + json.dumps(out), flush=True)
 comm.destroy_process_group()
 '''
@@ -6347,7 +6722,7 @@ def _rank_result(text: str) -> dict:
     return json.loads(lines[-1][len("P31RESULT "):])
 
 
-def zero_phase(torch, np, pipe: bool = True) -> dict:
+def zero_phase(torch, np, pipe: bool = True, p34: bool = True) -> dict:
     """Phase 31: data parallelism with ZeRO stages 0-3 at phase 6's GPT-2
     125M configuration, each world in child processes
     (``comm/local_ranks.py``, deadline ``ZERO_DEADLINE``): (a) world 1 on
@@ -6372,7 +6747,8 @@ def zero_phase(torch, np, pipe: bool = True) -> dict:
            "P32_GLOBAL": str(TP_TRAIN_GLOBAL),
            "P32_STEPS": str(TP_TRAIN_STEPS),
            "P33_MESHES": json.dumps(PIPE_TRAIN_MESHES if pipe else ()),
-           "P33_BUBBLE": json.dumps(PIPE_BUBBLE_MICROS)}
+           "P33_BUBBLE": json.dumps(PIPE_BUBBLE_MICROS),
+           "P34": json.dumps(P34 if p34 else None)}
     try:
         return _zero_runs(torch, np, card, env, states)
     finally:
@@ -6493,20 +6869,25 @@ def _zero_runs(torch, np, card, env, states) -> dict:
             "tp_ref": a["tp_ref"], "tp": [r["tp"] for r in ranks],
             "tp_seconds": max(r["tp_seconds"] for r in ranks),
             "pipe": [r["pipe"] for r in ranks],
-            "pipe_seconds": max(r["pipe_seconds"] for r in ranks)}
+            "pipe_seconds": max(r["pipe_seconds"] for r in ranks),
+            "moe_ref": a.get("moe_ref"),
+            "p34": [r.get("p34") for r in ranks],
+            "p34_seconds": max(r.get("p34_seconds", 0.0) for r in ranks)}
 
 
 
 # -- 32. tensor parallelism -------------------------------------------------
 #: phase 32 (a): GPT-3 6.7B's width (32 heads of 128, d 4096, vocab 50304)
-#: at 8 of its 32 layers, as phases 11 and 15 cut it; 4 ranks over gloo
-#: sharing the card; each world's deadline (seconds)
-TP_SERVE_LAYERS, TP_WORLD, TP_DEADLINE = 8, 4, 300
+#: at 4 of its 32 layers, as phases 11 and 15 cut it (8 until phase 34
+#: came, cut for the run's time); 4 ranks over gloo sharing the card;
+#: each world's deadline (seconds)
+TP_SERVE_LAYERS, TP_WORLD, TP_DEADLINE = 4, 4, 300
 #: the serving meshes of (a), then generate() at tensor_parallel.tp_size 4
-#: (phase 4's 8 x 128 prompts, TP_GEN_NEW new tokens: 64 in phase 4, cut
-#: for the run's time: each decode step is 18 staged collectives a rank)
+#: (phase 4's 8 x 128 prompts, TP_GEN_NEW new tokens: 64 in phase 4, 32
+#: until phase 34 came, cut for the run's time: each decode step is 18
+#: staged collectives a rank)
 TP_SERVE_MESHES = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
-TP_GEN_NEW = 32
+TP_GEN_NEW = 16
 
 #: phase 32 (a)'s ranks: mode "one" is world 1 on NCCL serving at mesh
 #: 1 x 1, mode "mesh" one rank of world 4 over gloo serving each of
@@ -6994,6 +7375,179 @@ def pipe_report(zero, card) -> dict:
               f"reductions; analytic (S - 1) / (M + S - 1) = "
               f"{3 / (m2 + 3):.4f}); the fit took "
               f"{ranks[0][key]['bubble_s']:.1f} s")
+    return out
+
+
+def p34_report(zero, card) -> dict:
+    """Phase 34's checks and lines, from phase 31's world 4 (see the
+    module docstring and ``P34``): every rank's losses and grad norms
+    within the same-state step check of their reference, B1/B2 (dense)
+    and B1/B3/B4 (MoE) launches exact on every rank, each rank's state
+    bytes the plan's count (ZeRO stage 3's at most stage 0's over dp of
+    the rank's slice plus its resident leaves), each MoE layer's routing
+    within ``P34_ROUTING_SHARE`` of the reference's.  Returns rank 0's
+    launches per part."""
+    ranks = zero["p34"]
+    ref = zero["tp_ref"]
+    out = {}
+
+    def within(label, row, want):
+        ls = abs(row[0] - want[0]) / abs(want[0])
+        gs = abs(row[1] - want[1]) / abs(want[1])
+        check(ls <= STEP_LOSS_REL_TOL and gs <= STEP_GNORM_REL_TOL,
+              f"{label}: loss {row[0]} vs {want[0]}, grad norm {row[1]} vs "
+              f"{want[1]}")
+        return ls / STEP_LOSS_REL_TOL, gs / STEP_GNORM_REL_TOL
+
+    def lines(key, label, want_rows, want_launch, bound=True):
+        r0 = ranks[0][key]
+        shares = []
+        for r, res in enumerate(ranks):
+            st = res[key]
+            for i, (row, want) in enumerate(zip(st["rows"], want_rows)):
+                shares.append(within(f"phase 34 {key} rank {r} step {i}",
+                                     row, want))
+            check(st["launches"] == want_launch,
+                  f"phase 34 {key} rank {r}: launches {st['launches']} "
+                  f"against {want_launch}")
+            check(st["bytes"] == st["planned"],
+                  f"phase 34 {key} rank {r}: state bytes {st['bytes']} "
+                  f"against the plan's {st['planned']}")
+            if bound and "slice_params" in st:
+                s0 = 16 * st["slice_params"]
+                res_b = 16 * st["resident_params"]
+                got = sum(st["bytes"].values())
+                check(got <= s0 / st["dp"] + res_b,
+                      f"phase 34 {key} rank {r}: stage 3's {got} bytes above "
+                      f"stage 0's {s0} / {st['dp']} + {res_b}")
+        total = sum(r0["bytes"].values())
+        print(f"  {label}: loss " + " ".join(
+            f"{row[0]:.5f}" for row in r0["rows"]) + " against "
+            + " ".join(f"{w[0]:.5f}" for w in want_rows) + ", grad norm "
+            + " ".join(f"{row[1]:.5f}" for row in r0["rows"]) + " against "
+            + " ".join(f"{w[1]:.5f}" for w in want_rows)
+            + f" (at most {max(x for x, _ in shares):.3g} / "
+            f"{max(y for _, y in shares):.3g} of the step check's limits on "
+            f"any rank); state " + "/".join(
+                f"{sum(res[key]['bytes'].values()) / 1e9:.3f}"
+                for res in ranks)
+            + " GB (ranks 0-3; rank 0: " + ", ".join(
+                f"{k} {v / 1e9:.3f}" for k, v in r0["bytes"].items())
+            + f" GB = {total / r0['n_params']:.2f} bytes a parameter of the "
+            f"model; the plan's count on every rank)"
+            + (f", stage 0 would hold {16 * r0['slice_params'] / 1e9:.3f} "
+               f"GB of the rank's slice" if "slice_params" in r0 else "")
+            + "; peak memory " + "/".join(
+                f"{res[key]['peak'] / 2**30:.2f}" for res in ranks)
+            + " GiB (ranks 0-3); s/step " + "/".join(
+                f"{max(res[key]['ms'][i] for res in ranks) / 1e3:.3f}"
+                for i in range(len(r0["ms"])))
+            + " (slowest rank); launches " + ", ".join(
+                f"{k} {v}" for k, v in r0["launches"].items())
+            + " on every rank")
+        steps = len(r0["rows"])
+        for op, lg in sorted(r0["log"].items()):
+            calls = max(lg["count"], 1)
+            print(f"    {op}: {lg['count'] // steps} calls, "
+                  f"{lg['bytes'] / steps / 1e6:.2f} MB a step on rank 0, "
+                  f"{lg['seconds'] / calls * 1e3:.3f} ms a call, "
+                  f"{lg['seconds'] / steps * 1e3:.1f} ms a step")
+        out[key] = r0["launches"]
+        return r0
+
+    print(f"phase 34 the 3D composition, in phase 31's world of 4 gloo ranks "
+          f"sharing the card (every collective and send staged through "
+          f"pinned host memory; not NCCL across cards; {card}); "
+          f"{zero['p34_seconds']:.1f} s of phase 31's:")
+    # (a) and (b): GPT-2 125M from phase 31 (a)'s states, phase 32 (b)'s
+    # reference
+    for key, mesh, schedule in P34["zero3"] + (
+            ("offload", P34["offload"], "1f1b"),):
+        r0 = ranks[0][key]
+        n = (r0["lps"] or 12) * r0["micro_batches"] * TP_TRAIN_STEPS
+        label = (f"(a) GPT-2 125M ZeRO stage 3 at {mesh}" if key != "offload"
+                 else f"(b) GPT-2 125M ZeRO-Offload (host AdamW) at {mesh}")
+        r0 = lines(key, label + (f" ({schedule}, {r0['micro_batches']} "
+                                 f"micro batches a step)" if r0["lps"] else
+                                 ""), ref,
+                   {"flash_attention_fwd": 2 * n, "flash_attention_bwd": n})
+        if key == "offload":
+            for r, res in enumerate(ranks):
+                t = res[key]["more"]
+                print(f"    rank {r}: host sweep " + "/".join(
+                    f"{x['sweep_s']:.3f}" for x in t) + " s, the pipelined "
+                    f"host step " + "/".join(f"{x['wall_s']:.3f}" for x in t)
+                    + " s, the grads' fetch " + "/".join(
+                        f"{x['fetch_s']:.3f}" for x in t) + " s a step")
+    # (c) 125M+MoE-64 against one rank without a mesh
+    mref = zero["moe_ref"]
+    moe_mesh = P34["moe_mesh"]
+    stages = moe_mesh["pipe"]
+    attn = P34["moe_layers"] // stages
+    r0 = ranks[0]["moe"]
+    check(r0["schedule"] == "gpipe", f"phase 34 (c): {r0['schedule']}")
+    m = r0["micro_batches"]
+    n = attn * m * P34["steps"]
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd": 0,
+            "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
+    per = {"flash_attention_fwd": 2 * P34["moe_layers"] * P34["moe_gas"],
+           "flash_attention_bwd": 0,
+           "flash_attention_bwd_dq": P34["moe_layers"] * P34["moe_gas"],
+           "flash_attention_bwd_dkv": P34["moe_layers"] * P34["moe_gas"]}
+    for i, got in enumerate(mref["launches"]):
+        check(got == per, f"phase 34 (c) reference step {i}: launches {got}"
+                          f" against {per}")
+    lines("moe", f"(c) 125M+MoE-64 at {P34['moe_layers']} of its 12 layers "
+          f"({mref['n_params'] / 1e9:.3f} B params), seq {P34['seq']}, gpipe "
+          f"at {moe_mesh} ({m} micro batches a data rank, each MoE layer "
+          f"routing the global micro batch), ZeRO stage 1, each step from "
+          f"the seed's state, against one rank without a mesh",
+          mref["rows"], want, bound=False)
+    tokens = P34["moe_global"] // P34["moe_gas"] * P34["seq"]
+    moe_per_stage = P34["moe_layers"] // 2 // stages
+    for r, res in enumerate(ranks):
+        st = res["moe"]
+        for i, got in enumerate(st["more"]):
+            for j, (counts, kept, cap) in enumerate(got):
+                layer = st["stage_id"] * moe_per_stage + j
+                rc, rk, rcap = mref["routing"][i][layer]
+                moved = sum(abs(a - b) for a, b in zip(counts, rc))
+                check(cap == rcap and moved <= P34_ROUTING_SHARE * tokens
+                      and abs(kept - rk) <= P34_ROUTING_SHARE * tokens,
+                      f"phase 34 (c) rank {r} step {i} MoE layer {layer}: "
+                      f"capacity {cap}/{rcap}, kept {kept}/{rk}, "
+                      f"exp_counts moved by {moved} of {tokens} tokens")
+                if st["dp_rank"] == 0:
+                    print(f"    step {i} MoE layer {layer} (stage "
+                          f"{st['stage_id']}): capacity {cap}, dropped "
+                          f"{tokens - kept} against {tokens - rk} of "
+                          f"{tokens} tokens, exp_counts moved by {moved} "
+                          f"tokens against the reference's (largest queue "
+                          f"{max(counts)} against {max(rc)})")
+    # (d) the compat surface
+    c0 = ranks[0]["compat"]
+    n = c0["lps"] * c0["micro_batches"]
+    for r, res in enumerate(ranks):
+        c = res["compat"]
+        within(f"phase 34 (d) rank {r}: compat against train_step",
+               c["compat"], c["train_step"])
+        within(f"phase 34 (d) rank {r}: compat against the reference",
+               c["compat"], ref[0])
+        check(c["launches"] == {"flash_attention_fwd": 2 * n,
+                                "flash_attention_bwd": n},
+              f"phase 34 (d) rank {r}: launches {c['launches']}")
+    print(f"  (d) compat forward + backward + step at {P34['compat']} ZeRO "
+          f"stage 1: loss {c0['compat'][0]:.6f}, grad norm "
+          f"{c0['compat'][1]:.5f} against train_step's "
+          f"{c0['train_step'][0]:.6f} / {c0['train_step'][1]:.5f} from the "
+          f"same state ("
+          + ("updated params bit-equal" if all(
+              res["compat"]["params_equal"] for res in ranks) else
+             "within the same-state check, not bit-equal")
+          + f"); {c0['ms'] / 1e3:.3f} s on rank 0; launches "
+          + ", ".join(f"{k} {v}" for k, v in c0["launches"].items())
+          + " on every rank")
+    out["compat"] = c0["launches"]
     return out
 
 

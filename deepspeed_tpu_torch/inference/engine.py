@@ -76,7 +76,7 @@ def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
     later = []
     if cfg.moe.enabled and cfg.moe.ep_size > 1:
         later.append(f"moe.ep_size {cfg.moe.ep_size} (expert parallelism: "
-                     f"multi-device, queue A item 7)")
+                     f"multi-device, queue A item 7 part 5)")
     if later:
         raise NotImplementedError(
             f"{', '.join(later)}: not in the slices of the PyTorch port so "
@@ -234,8 +234,8 @@ class InferenceEngine:
             if c.moe_enabled:
                 raise NotImplementedError(
                     "tensor parallelism over an MoE model: the expert "
-                    "stacks' model-axis layout is queue A item 7's "
-                    "expert-parallel part")
+                    "stacks' model-axis layout is queue A item 7 part 5, "
+                    "expert parallelism")
             for name, dim in (("kv_heads", c.kv_heads),
                               ("num_heads", c.num_heads),
                               ("d_ff", c.ff_dim),

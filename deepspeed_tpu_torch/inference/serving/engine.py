@@ -322,7 +322,8 @@ class ServingEngine:
             raise NotImplementedError(
                 f"{', '.join(later)} on a serving mesh beyond 1x1 "
                 f"(data={self.tp_data_size}, model={self.tp_model_size}): "
-                f"not in the PyTorch port yet (ROADMAP.md queue A item 7)")
+                f"not in the PyTorch port yet (ROADMAP.md queue A item 7 "
+                f"part 3b)")
 
     def _register_metrics(self) -> None:
         """The JAX engine's ``dstpu_serving_*`` and ``dstpu_mesh_*``

@@ -104,7 +104,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import layers as L
 from .. import comm
 from ..accelerator import resolve_device
-from ..parallel.collectives import copy_to, reduce_from
+from ..parallel.collectives import (copy_to, gather_rows, own_rows,
+                                    reduce_from)
 from ..ops import build
 from ..ops.transformer.decode_attention import decode_attention
 from ..ops.transformer.flash_attention import flash_attention_bthd
@@ -302,7 +303,9 @@ def neox_config(size: str = "1.3b", **kw) -> TransformerConfig:
 #: the later slice (ROADMAP.md queue A) that brings it
 _OUT_OF_SLICE = (
     (lambda c: c.attn_impl not in ("xla", "flash", "blocksparse"),
-     "attn_impl={attn_impl!r}", "multi-device (ROADMAP.md queue A item 7)"),
+     "attn_impl={attn_impl!r}",
+     "ring and Ulysses sequence parallelism (ROADMAP.md queue A item 7 "
+     "part 6)"),
 )
 
 #: the message of a KV-cache decode on an encoder (the JAX model's)
@@ -592,6 +595,10 @@ class TransformerLM(nn.Module):
     _dp_axis: Optional[str] = None
     _tp_exact_bwd = False
     _tp_full_heads = 0
+    #: ``(data axes, runs)``: each MoE layer routes the rows of every data
+    #: rank (``gather_rows``), as the pipeline's view sets it; None:
+    #: this rank's rows
+    _moe_rows: Optional[Tuple[Any, int]] = None
 
     def tp_serving_view(self, model_shards: int, tp_axis: Optional[str],
                         dp_axis: Optional[str]) -> "TransformerLM":
@@ -613,13 +620,13 @@ class TransformerLM(nn.Module):
             if c.moe_enabled:
                 raise NotImplementedError(
                     "tensor parallelism over an MoE model: the expert "
-                    "stacks' model-axis layout is queue A item 7's "
-                    "expert-parallel part")
+                    "stacks' model-axis layout is queue A item 7 part 5, "
+                    "expert parallelism")
             if c.mlm_head:
                 raise NotImplementedError(
                     "tensor parallelism over the MLM head (BERT): its "
                     "vocab bias has no model-axis layout in the port "
-                    "(queue A item 7)")
+                    "(queue A item 7 part 3b)")
             local = dataclasses.replace(
                 c, num_heads=c.num_heads // model_shards,
                 num_kv_heads=c.kv_heads // model_shards, head_dim=c.hdim)
@@ -692,7 +699,7 @@ class TransformerLM(nn.Module):
         if self.config.moe_enabled:
             raise NotImplementedError(
                 "partition_specs of an MoE model: the MoE layer's specs "
-                "are queue A item 7's expert-parallel part")
+                "are queue A item 7 part 5, expert parallelism")
         tree = self.param_shapes() if params is None else params
 
         def walk(node, keys):
@@ -1016,6 +1023,12 @@ class TransformerLM(nn.Module):
         if not c.moe_enabled:
             return (self._block(sp, x, self._attend_full),
                     torch.zeros((), dtype=torch.float32, device=x.device))
+        x, r = self._moe_superblock(sp, x, train)
+        return x, r.l_aux.to(torch.float32)
+
+    def _moe_superblock(self, sp: Params, x: torch.Tensor, train: bool):
+        """An MoE model's superblock over its gathered params, routed
+        without noise: ``(y, Routing of its MoE layer)``."""
         r = None
         for kind, bp in self._units(sp):
             if kind == "moe":
@@ -1023,7 +1036,7 @@ class TransformerLM(nn.Module):
                                        train)
             else:
                 x = self._block(bp, x, self._attend_full)
-        return x, r.l_aux.to(torch.float32)
+        return x, r
 
     def stage_apply(self, blocks: Params, x: torch.Tensor,
                     windows: Optional[List[Optional[int]]] = None,
@@ -1034,7 +1047,8 @@ class TransformerLM(nn.Module):
         a remat unit: ``(y, l_aux)``, l_aux summed over the MoE layers
         (0 without MoE).  ``windows``: each layer's attention window
         (the stage's slice of ``_layer_windows``); an MoE layer routes
-        without noise."""
+        without noise (the JAX pipeline region passes none), and its
+        routing is left in ``moe_stats``."""
         laux = torch.zeros((), dtype=torch.float32, device=x.device)
         if not self.config.moe_enabled:
             block = self._remat(lambda bp, x, window: self._block(
@@ -1044,10 +1058,19 @@ class TransformerLM(nn.Module):
             for bp, window in zip(views, windows or [None] * len(views)):
                 x = block(bp, x, window)
             return x, laux
-        sb = self._remat(lambda sp, x: self.superblock_apply(sp, x, train))
+        def superblock(sp, x):
+            x, r = self._moe_superblock(self.block_transform(sp), x, train)
+            return (x, r.l_aux.to(torch.float32), r.exp_counts,
+                    r.kept.sum(), r.capacity)
+        sb = self._remat(superblock)
+        stats = []
         for sp in layer_views(blocks):
-            x, la = sb(sp, x)
+            x, la, counts, kept, cap = sb(sp, x)
             laux = laux + la
+            stats.append((counts.detach(), kept.detach(), cap))
+        # each MoE layer's routing of this call (the remat recompute's
+        # is not recorded)
+        self.moe_stats = stats
         return x, laux
 
     # -- pieces ---------------------------------------------------------------
@@ -1212,8 +1235,16 @@ class TransformerLM(nn.Module):
             return L.dense_apply(bp["attn"]["out"], attend(q, k, v))
 
         def moe(h):
-            return self._moe.apply_routed(bp["moe"], h, train=train,
-                                          noise=noise)
+            if self._moe_rows is None:
+                return self._moe.apply_routed(bp["moe"], h, train=train,
+                                              noise=noise)
+            # the whole micro batch's rows over the data ranks (the JAX
+            # pipeline region routes it whole), this rank's kept after
+            axis, groups = self._moe_rows
+            m, r = self._moe.apply_routed(
+                bp["moe"], gather_rows(h, axis, groups), train=train,
+                noise=noise)
+            return own_rows(m, axis, groups), r
         if self.config.parallel_residual:
             a = attn(self._norm(bp["ln1"], x))
             m, r = moe(self._norm(bp["ln2"], x))
@@ -1685,7 +1716,7 @@ class TransformerLM(nn.Module):
         if dp is not None and sw:
             raise NotImplementedError(
                 "the speculative lane over data-sharded decode slots "
-                "(queue A item 7)")
+                "(queue A item 7 part 3b)")
 
         def shard_cat(a):
             # data-sharded slots: this rank's decode rows (the first bsl)

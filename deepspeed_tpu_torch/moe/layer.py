@@ -20,9 +20,9 @@ einsums ``sec,sm->ecm`` and ``sec,ecm->sm``.  The experts run as one
 batched product over ``[E, C, M]``, as the JAX ``vmap`` does: every
 expert runs its C slots, filled or not.
 
-Left out, because they belong to multi-device work (ROADMAP.md queue A
-item 7): ``partition_specs`` and the ``constrain`` hooks that place the
-expert axis on a mesh.
+Left out, because they belong to expert parallelism (ROADMAP.md queue A
+item 7 part 5): ``partition_specs`` and the ``constrain`` hooks that
+place the expert axis on a mesh.
 """
 from __future__ import annotations
 

@@ -34,9 +34,10 @@ import platform
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -79,6 +80,13 @@ PARTS = {"paged_decode_attention": 3}
 launch_counts: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+#: the libraries a ``build_in_background()`` thread still compiles, each
+#: with the event set once it is linked or its build has failed:
+#: ``load_library`` waits for that instead of compiling it a second time
+_pending: Dict[str, threading.Event] = {}
+#: the compilers running now (``stop_builds`` ends them)
+_running: set = set()
 
 
 def reset_launch_counts() -> None:
@@ -123,18 +131,43 @@ def _temp(suffix: str, name: str) -> str:
     return tmp.name
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+def build(names: Iterable[str] = KERNELS,
+          on_built: Optional[Callable[[str, Path], None]] = None
+          ) -> Dict[str, Path]:
     """Compile every library of ``names`` that is not built yet: one
     ``nvcc -c`` per source (per part of a source in ``PARTS``), all
     started together, each source's objects linked into its library as
     they are done.  The compiler's report (``-Xptxas -v``: registers,
     shared memory, spills) is kept beside each library as
-    ``<library>.log``, each part's ending with the compiler's wall time."""
+    ``<library>.log``, each part's ending with the compiler's wall time.
+    ``on_built(name, path)`` is called for each library as soon as it is
+    there (at once for one built before), while the others still
+    compile."""
     names = list(names)
     targets = {n: library_path(n) for n in names}
     todo = [n for n in names if not targets[n].exists()]
+    if on_built is not None:
+        for n in names:
+            if n not in todo:
+                on_built(n, targets[n])
     if not todo:
         return targets
+    try:
+        return _compile(todo, targets, on_built)
+    finally:
+        for n in todo:
+            _release(n)
+
+
+def _release(name: str) -> None:
+    """Wake whoever waits in ``load_library`` for ``name``."""
+    event = _pending.pop(name, None)
+    if event is not None:
+        event.set()
+
+
+def _compile(todo, targets, on_built) -> Dict[str, Path]:
+    """``build``'s compile and link of the libraries ``todo``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -151,11 +184,13 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
             procs[n, part] = (out, log, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", *flags, "-I", str(CSRC), "-o", out,
                  str(CSRC / f"{n}.cu")], stdout=log, stderr=subprocess.STDOUT))
+            _running.add(procs[n, part][2])
     failed, done = [], {}
     while procs:
         for (n, part), (out, log, proc) in list(procs.items()):
             if proc.poll() is None:
                 continue
+            _running.discard(proc)
             log.write(f"\nnvcc wall time: "
                       f"{time.perf_counter() - started:.1f} s\n")
             log.close()
@@ -168,7 +203,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
                 continue
             done.setdefault(n, {})[part] = (out, log.name)
             if len(done[n]) == PARTS.get(n, 1):
-                failed += _link(nvcc, n, done.pop(n), targets[n])
+                bad = _link(nvcc, n, done.pop(n), targets[n])
+                failed += bad
+                if not bad and on_built is not None:
+                    on_built(n, targets[n])
+                _release(n)
         if procs:
             time.sleep(0.05)
     if failed:
@@ -199,10 +238,52 @@ def _link(nvcc: str, name: str, parts: Dict[int, tuple],
     return []
 
 
+def build_in_background(names: Iterable[str] = KERNELS,
+                        on_built: Optional[Callable[[str, Path], None]]
+                        = None) -> threading.Thread:
+    """``build(names, on_built)`` on a thread of its own, started before
+    this returns; the thread's ``result`` dict gets ``libs`` (or
+    ``error``) and ``seconds``.  Meanwhile ``load_library`` of a library
+    still compiling waits until it is linked, so a caller can use each
+    kernel as soon as its own library is there."""
+    names = list(names)
+    for n in names:
+        if not library_path(n).exists():
+            _pending.setdefault(n, threading.Event())
+    result: dict = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            result["libs"] = build(names, on_built)
+        except BaseException as e:      # handed to the joining thread
+            result["error"] = e
+        finally:
+            result["seconds"] = time.perf_counter() - t0
+            for n in names:
+                _release(n)
+    thread = threading.Thread(target=run, name="kernel-build", daemon=True)
+    thread.result = result
+    thread.start()
+    return thread
+
+
+def stop_builds() -> None:
+    """Kill every compiler a build still runs (a caller failing early)."""
+    for proc in list(_running):
+        if proc.poll() is None:
+            proc.kill()
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use (or,
+    while a background build compiles it, once that build has linked
+    it)."""
     lib = _libs.get(name)
     if lib is None:
+        pending = _pending.get(name)
+        if pending is not None:
+            pending.wait()
         lib = ctypes.CDLL(str(build([name])[name]))
         _libs[name] = lib
     return lib

@@ -29,6 +29,12 @@ inside a reduced term (``TP_PARTIAL_SUFFIXES``: the fused qkv, gathered
 per shard by :func:`qkv_shard_columns`, and the row-parallel biases
 pre-divided by the shard count) get partial ones that
 :func:`psum_tp_partials` sums at the step's exit.
+
+An MoE layer under a pipe mesh with a data axis routes the whole micro
+batch, as the JAX pipeline region does: :func:`gather_rows` all-gathers
+the layer's rows over the data ranks before the gate (its backward a
+reduce-scatter) and :func:`own_rows` keeps this rank's rows after the
+combine.
 """
 from __future__ import annotations
 
@@ -63,6 +69,43 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, groups):
+        ctx.axis, ctx.groups = axis, groups
+        g = x.reshape((groups, -1) + tuple(x.shape[1:]))
+        out = comm.all_gather(g, axis, axis=1)
+        return out.reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        n = comm.axis_size(ctx.axis)
+        g = g.reshape((ctx.groups, n, -1) + tuple(g.shape[1:])).flatten(1, 2)
+        out = comm.reduce_scatter(g.contiguous(), comm.ReduceOp.SUM,
+                                  ctx.axis, scatter_dimension=1)
+        return out.reshape((-1,) + tuple(g.shape[2:])), None, None
+
+
+def gather_rows(x: torch.Tensor, axis, groups: int = 1) -> torch.Tensor:
+    """Every member's rows of ``x`` (dim 0) over ``axis``, in the global
+    batch's order: ``x``'s rows are ``groups`` runs (micro batches) and
+    the result holds run 0 of every member in member order, then run 1,
+    and so on (the JAX layout ``[gas, micro * dp]``).  Backward: a
+    reduce-scatter, each member's rows summed over the members."""
+    if comm.axis_size(axis) == 1:
+        return x
+    return _GatherRows.apply(x, axis, groups)
+
+
+def own_rows(y: torch.Tensor, axis, groups: int = 1) -> torch.Tensor:
+    """This member's rows of a :func:`gather_rows` result (a view)."""
+    n = comm.axis_size(axis)
+    if n == 1:
+        return y
+    g = y.reshape((groups, n, -1) + tuple(y.shape[1:]))
+    return g[:, comm.axis_index(axis)].reshape((-1,) + tuple(y.shape[1:]))
 
 
 def copy_to(x: torch.Tensor, axis) -> torch.Tensor:

@@ -13,16 +13,18 @@ Blocks it parses but does not run are refused by
 :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls it) with
 ``NotImplementedError`` naming the ``ROADMAP.md`` queue A part that
 brings them: the ``sequence`` and ``expert`` mesh axes, sequence
-parallelism, the 1-bit optimizers, offload over a data-, model- or
-pipe-parallel mesh, ZeRO stage 3 over a model-sharded or pipe mesh, and
-the monitor blocks.  Data parallelism with ZeRO stages 0-3, and tensor
-parallelism (the ``model`` axis, or ``tensor_parallel.tp_size``, which
-sets it) and pipeline parallelism (the ``pipe`` axis,
-``runtime/pipe/``) with stages 0-2 run.  The offload blocks run (``runtime/zero/offload.py``,
-``runtime/zero/infinity.py``), at ZeRO stage 1-3: on one device every
-stage is the same program, as in the JAX package on a one-device mesh.  The ``observability`` block (span tracer, metrics,
-flight recorder, overlap profiler) runs.  ``fp16`` trains (dynamic or static loss
-scaling, ``runtime/fp16``).
+parallelism, the 1-bit optimizers, offload at a data-parallel size
+above 1, and the monitor blocks; ZeRO-Infinity (``offload_param``) over
+a model or pipe axis raises the JAX engine's own refusal.  Data
+parallelism with ZeRO stages 0-3, tensor parallelism (the ``model``
+axis, or ``tensor_parallel.tp_size``, which sets it) and pipeline
+parallelism (the ``pipe`` axis, ``runtime/pipe/``) run at every stage
+and compose.  The offload blocks run (``runtime/zero/offload.py``,
+``runtime/zero/infinity.py``), at ZeRO stage 1-3 and a data-parallel
+size of 1: ZeRO-Offload also over a model or pipe axis (each rank's
+host optimizer steps its own slice).  The ``observability`` block
+(span tracer, metrics, flight recorder, overlap profiler) runs.
+``fp16`` trains (dynamic or static loss scaling, ``runtime/fp16``).
 """
 from __future__ import annotations
 
@@ -570,9 +572,12 @@ def _block(cls, pd: dict, key: str):
 
 
 # -- master config --------------------------------------------------------------------
-#: mesh axes whose size above 1 a later part of queue A item 7 brings
-_LATER_AXES = (("sequence", "ring and Ulysses sequence parallelism"),
-               ("expert", "moe.ep_size above 1, expert parallelism"))
+#: mesh axes whose size above 1 a later part of queue A item 7 brings,
+#: with that part
+_LATER_AXES = (("sequence", "ring and Ulysses sequence parallelism "
+                             "(queue A item 7 part 6)"),
+               ("expert", "moe.ep_size above 1, expert parallelism "
+                          "(queue A item 7 part 5)"))
 
 
 class DeepSpeedConfig:
@@ -764,50 +769,35 @@ class DeepSpeedConfig:
         the port parses but cannot run, naming the part of ROADMAP.md's
         queue A that brings it.  ``mesh_shape``: the resolved mesh (its
         axis sizes), once the engine has built it; before that the mesh
-        block's fixed sizes are checked."""
+        block's fixed sizes are checked.  ZeRO-Infinity over a model,
+        pipe or sequence axis raises the JAX engine's own refusal
+        (``deepspeed_tpu/runtime/zero/infinity.py``), which it shares."""
         later: List[str] = []
         z = self.zero_config
-        offload = any(z.offload_device(name) != "none"
-                      for name in ("offload_param", "offload_optimizer"))
+        infinity = z.offload_device("offload_param") != "none"
+        offload = infinity or \
+            z.offload_device("offload_optimizer") != "none"
         sizes = mesh_shape or self.mesh.sizes()
+        model = max(sizes.get("model", 1), self.tensor_parallel.degree())
+        if infinity:
+            for axis, n in (("model", model), ("pipe", sizes.get("pipe", 1)),
+                            ("sequence", sizes.get("sequence", 1))):
+                if n > 1:
+                    raise NotImplementedError(
+                        f"ZeRO-Infinity composes with data-like sharding "
+                        f"only; mesh axis '{axis}' has size {n} — use a "
+                        f"data/expert mesh under offload_param, or drop "
+                        f"offload for tp/pp/sp")
         for axis, part in _LATER_AXES:
             if sizes.get(axis, 1) not in (1, -1):
-                later.append(f"mesh axis {axis}={sizes[axis]}: {part} "
-                             f"(queue A item 7)")
+                later.append(f"mesh axis {axis}={sizes[axis]}: {part}")
         if self.sequence_parallel.enabled:
             later.append("sequence_parallel: ring and Ulysses sequence "
-                         "parallelism (queue A item 7)")
-        model = sizes.get("model", 1)
-        tp = self.tensor_parallel.degree()
-        pipe = sizes.get("pipe", 1)
-        stages = self.pipeline.stages
-        if z.stage >= 3:
-            if model not in (1, -1):
-                later.append(f"mesh axis model={model}: ZeRO stage 3 over "
-                             f"a model-sharded mesh, the 3D composition "
-                             f"(queue A item 7)")
-            elif tp > 1:
-                later.append(f"tensor_parallel: ZeRO stage 3 at tp_size "
-                             f"{tp}, the 3D composition (queue A item 7)")
-            if pipe not in (1, -1):
-                later.append(f"mesh axis pipe={pipe}: ZeRO stage 3 over a "
-                             f"pipe mesh, the 3D composition (queue A "
-                             f"item 7)")
-            elif stages not in ("auto", 1):
-                later.append(f"pipeline.stages {stages}: ZeRO stage 3 "
-                             f"under the pipeline, the 3D composition "
-                             f"(queue A item 7)")
-        if offload and pipe not in (1, -1):
-            later.append(f"offload over a pipe mesh (pipe={pipe}): the 3D "
-                         f"composition (queue A item 7)")
-        if offload and max(model, tp) > 1:
-            later.append(f"offload over a model-sharded mesh (model="
-                         f"{max(model, tp)}): the 3D composition (queue A "
-                         f"item 7)")
+                         "parallelism (queue A item 7 part 6)")
         if self.optimizer is not None and self.optimizer.type.lower() in (
                 "onebitadam", "onebitlamb", "zerooneadam"):
             later.append(f"optimizer {self.optimizer.type}: the 1-bit "
-                         f"optimizers (queue A item 7)")
+                         f"optimizers (queue A item 7 part 7)")
         if offload:
             dp = 1
             for axis in ("data", "dcn_data", "expert"):
@@ -815,7 +805,7 @@ class DeepSpeedConfig:
             if dp > 1:
                 later.append(f"offload at a data-parallel size of {dp}: "
                              f"ZeRO-Infinity's dp-sharded part (queue A "
-                             f"item 7)")
+                             f"item 7 part 8)")
         if self.monitor.enabled:
             later.append("tensorboard / wandb / csv_monitor: monitors "
                          "(queue A item 9's auxiliary subsystems)")

@@ -1,9 +1,9 @@
-"""Training engine of the port on one device.
+"""Training engine of the port.
 
-Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``)
-for ZeRO stage 0 on one card: the same state tree, the same step
-semantics, the same native (``train_step``/``train_batch``) and compat
-(``forward``/``backward``/``step``) surfaces.  Where the JAX engine
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``):
+the same state tree, the same step semantics, the same native
+(``train_step``/``train_batch``) and compat (``forward``/``backward``/
+``step``, under every ZeRO stage) surfaces.  Where the JAX engine
 compiles the step into one program, this one runs it eagerly:
 
 * state: ``{"step", "skipped", "params", "opt"}`` with float32 master
@@ -37,7 +37,13 @@ into one flat float32 buffer and swept by the native host Adam in
 overlapped pieces, one host sync a step), and ``offload_param`` is
 ZeRO-Infinity (``zero/infinity.py``: the params live in host or NVMe
 slot stores and stream a layer at a time); both return host metrics and
-refuse the compat ``forward``/``backward``/``step``.
+refuse the compat ``forward``/``backward``/``step`` (the JAX engine's
+words).  ZeRO-Offload also runs over a model or pipe axis at a
+data-parallel size of 1: each rank keeps its slice (``_init_slices``),
+its host optimizer steps that slice's masters and uploads its
+compute-dtype copy, and a stage-0 ``ZeroPartition`` over the slices
+gives the global norm (the JAX engine gathers whole masters on one
+host; the numbers are the same).
 
 Data parallelism with ZeRO stages 0-3 (``zero_optimization.stage``
 without offload, or a ``mesh`` whose ``data``/``dcn_data`` axes are
@@ -58,7 +64,7 @@ counts a resident leaf once; an fp16 overflow is reduced over the
 ranks; the loss is the ranks' mean.
 
 Tensor parallelism (a ``mesh`` with ``model`` above 1, or
-``tensor_parallel.tp_size``, at ZeRO stages 0-2) composes Megatron's
+``tensor_parallel.tp_size``, at ZeRO stages 0-3) composes Megatron's
 layout with ZeRO over ``data``: each rank keeps its slice of every leaf
 the model's ``partition_specs`` shards (the fused qkv stays whole over
 ``model``) and ZeRO's shard of that slice, and the loss runs the model's
@@ -67,7 +73,10 @@ each branch, the vocab-parallel cross-entropy).  Inside the
 differentiated function each shard gathers its own qkv columns and
 divides the row-parallel biases by mp (``_tp_localize``), so those
 leaves' gradients are partial: one all-reduce over ``model`` sums them
-after the data-axis reduction (``psum_tp_partials``).  The global norm
+after the data-axis reduction (``psum_tp_partials``).  At stage 3 a
+layer's TP slice is gathered over ``data`` only, then localized to the
+shard (``_stage3_hooks``: the qkv columns are taken from the gathered
+layer, never from a data shard of it).  The global norm
 sums a model-sharded leaf's squares over the model ranks and counts a
 replicated one once.  The ranks of one data coordinate take the same
 rows of the global batch (``dp_rank``).  On
@@ -217,7 +226,7 @@ class DeepSpeedEngine:
         model = self._apply_training_overrides(model)
         self.model = model
         # tensor parallelism: the loss runs the model's per-shard view
-        # over this rank's slice (stages 0-2)
+        # over this rank's slice (stages 0-3)
         self._tp_view = None
         if self.mp_world_size > 1:
             if loss_fn is not None or not hasattr(model, "tp_train_view"):
@@ -271,6 +280,9 @@ class DeepSpeedEngine:
         # ZeRO over the data-parallel ranks (zero/partitioned.py); built
         # in init_state once the params' shapes are known
         self._zero = None
+        #: ZeRO-Offload over a model or pipe axis: the plans of the
+        #: rank's slice (a stage-0 ``ZeroPartition``: the global norm)
+        self._slices = None
         self._live = None
         self._zero_bytes: Dict[str, int] = {}
         if offload_mode == "none" and (self.zero_stage >= 1
@@ -376,6 +388,8 @@ class DeepSpeedEngine:
                            else leaf_to_torch(a, "cpu")).to(
                     self.device, torch.float32), params)
         if self.offload_enabled:
+            if self.mp_world_size > 1 or pp_world_size(self.mesh) > 1:
+                params = self._init_slices(params)
             return self._init_state_offload(params)
         if self._zero_path:
             return self._init_state_zero(params)
@@ -399,8 +413,8 @@ class DeepSpeedEngine:
                 kind = "tensor" if self.mp_world_size > 1 else "pipeline"
                 raise NotImplementedError(
                     f"LAMB or a client torch.optim optimizer under {kind} "
-                    f"parallelism: no rank holds a whole leaf (not in the "
-                    f"PyTorch port yet)")
+                    f"parallelism: no rank holds a whole leaf (queue A "
+                    f"item 7 part 4, optimizers on shards)")
             return
         if self.dp_world_size == 1 or self.zero_stage == 0:
             return
@@ -408,11 +422,12 @@ class DeepSpeedEngine:
             raise NotImplementedError(
                 "LAMB under ZeRO stage >= 1 at a data-parallel size above "
                 "1: its trust ratio spans a whole leaf, which no rank "
-                "holds (not in the PyTorch port yet)")
+                "holds (queue A item 7 part 4, optimizers on shards)")
         if self.optimizer.hyperparams.get("external_lr"):
             raise NotImplementedError(
                 "a client torch.optim optimizer under ZeRO stage >= 1 at a "
-                "data-parallel size above 1 (not in the PyTorch port yet)")
+                "data-parallel size above 1 (queue A item 7 part 4, "
+                "optimizers on shards)")
 
     def _init_state_zero(self, params) -> Dict[str, Any]:
         """ZeRO init: the plans from the whole params' shapes, then this
@@ -485,14 +500,19 @@ class DeepSpeedEngine:
         # the params' own tree, so the specs' leaves come in its order
         return strip(self.model.partition_specs(params))
 
-    def _tp_localize(self, params):
+    def _tp_localize(self, params, skip_blocks: bool = False):
         """Inside the differentiated function: each shard's fused-qkv
         columns (``qkv_shard_columns``; the gather's backward puts the
         partial gradient back in the whole layout) and the row-parallel
-        biases divided by mp (``reduce_from`` restores them).  The
-        identity without a model axis."""
+        biases divided by mp (``reduce_from`` restores them), in the
+        whole tree or in one layer's.  ``skip_blocks``: ``blocks`` is
+        left alone (stage 3 localizes each layer after its gather, in
+        the block hook).  The identity without a model axis."""
         if self._tp_view is None:
             return params
+        if skip_blocks:
+            return {k: (v if k == "blocks" else self._tp_localize(v))
+                    for k, v in params.items()}
         c, mp = self.model.config, self.mp_world_size
         cols = torch.as_tensor(
             qkv_shard_columns(c.num_heads, c.kv_heads, c.hdim, mp)[
@@ -522,15 +542,25 @@ class DeepSpeedEngine:
                                               scale)
         src = self._live if self.zero_stage < 3 else self.state["params"]
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), src)
-        with z.hooks(self.model, dtype):
+        with self._stage3_hooks() as gathered:
             with trace_span("engine/forward", micro_step=self.micro_steps):
                 params = (leaves if self.zero_stage < 3 else
                           z.stage3_params(leaves, dtype))
-                loss = self._loss_fn(self._tp_localize(params), mb) * scale
+                loss = self._loss_fn(self._tp_localize(
+                    params, skip_blocks=gathered), mb) * scale
             with trace_span("engine/backward", micro_step=self.micro_steps):
                 grads = torch.autograd.grad(loss, list(tree_leaves(leaves)))
         it = iter(g.to(torch.float32) for g in grads)
         return loss.detach(), tree_map(lambda _: next(it), leaves)
+
+    def _stage3_hooks(self):
+        """Stage 3's per-layer gather on the model the loss runs (the
+        per-shard view under a model axis), each layer localized to the
+        shard after its gather (``_tp_localize``): a context that yields
+        whether it gathers."""
+        runner = self.model if self._tp_view is None else self._tp_view
+        return self._zero.hooks(runner, self.compute_dtype,
+                                post=self._tp_localize)
 
     def _zero_accumulate(self, batch, scale):
         """The gas loop under ZeRO: each micro batch's grads, of its loss
@@ -578,10 +608,40 @@ class DeepSpeedEngine:
             b["grads"] = self._zero_bytes["grads"]
         return b
 
+    def offload_planned_bytes(self) -> Dict[str, int]:
+        """ZeRO-Offload's plan for this rank: the compute-dtype params on
+        the device (``params``) and the float32 masters and moments on
+        the host (``host``, 4 bytes a tree), over the rank's slice of the
+        whole shapes (a model-sharded leaf over mp, a stage's ``blocks``
+        over the stages)."""
+        shapes = (self._full_shapes if self._slices is not None else
+                  tree_map(lambda p: tuple(p.shape), self.state["params"]))
+        n = 0
+        if self._slices is None:
+            n = sum(int(np.prod(s)) for s in tree_leaves(shapes))
+        else:
+            z = self._slices
+            tdims = (z.tp_dims if z.tp_dims is not None else
+                     tree_map(lambda _: None, z.pipe_dims))
+            mp, pp = self.mp_world_size, pp_world_size(self.mesh)
+            for s, m, p in zip(tree_leaves(shapes), tree_leaves(tdims),
+                               tree_leaves(z.pipe_dims)):
+                n += int(np.prod(s)) // (mp if m is not None else 1) // (
+                    pp if p is not None else 1)
+        trees = len(self._host_opt.opt.state_arrays())   # masters, moments
+        return {"params": n * self.compute_dtype.itemsize,
+                "host": 4 * n * trees}
+
     def full_state(self) -> Dict[str, Any]:
         """The train state as a world-1 run keeps it: every rank's master
         and moment shards all-gathered (a collective: every rank calls
         it)."""
+        if self._slices is not None:
+            # ZeRO-Offload over slices: the host optimizer's masters
+            it = iter(self._host_opt.opt.master)
+            masters = tree_map(lambda p: torch.from_numpy(next(it)).to(
+                self.device), self.state["params"])
+            return dict(self.state, params=self._whole(masters))
         if self._zero is None:
             return self.state
         z = self._zero
@@ -600,7 +660,12 @@ class DeepSpeedEngine:
     def adopt_state(self, full: Dict[str, Any], partial: bool) -> None:
         """A world-1 layout state (from a checkpoint, on the device) →
         this rank's shards; ``partial`` takes the params and step
-        only."""
+        only.  Under ZeRO-Offload over a model or pipe axis: the rank's
+        slice of the masters and moments into its host optimizer, the
+        compute-dtype cast of the masters on the device."""
+        if self._slices is not None:
+            self._adopt_offload_slice(full, partial)
+            return
         z = self._zero
         mine = self._local_slice      # then the data shard
         params = mine(full["params"])
@@ -618,6 +683,42 @@ class DeepSpeedEngine:
             self.state = st
         if self.zero_stage in (1, 2):
             self._live = self._cast_for_compute(params)
+
+    def _init_slices(self, params):
+        """ZeRO-Offload over a model or pipe axis (data-parallel size 1):
+        this rank keeps its slice of the whole params (its model slice,
+        its stage's leaves), and a stage-0 partition over the slices
+        counts each leaf's squares once in the global norm."""
+        from .zero.partitioned import ZeroPartition, shape_tree
+        from .zero.sharding import ZeroShardingPolicy
+        self._full_shapes = shape_tree(params)
+        specs = self._train_specs(params)
+        tdims = None
+        if self._tp_view is not None:
+            tdims = self._tp_dims = tp_dims(specs)
+        self._slices = ZeroPartition(
+            ZeroShardingPolicy(0, self.mesh, self._full_shapes, specs),
+            self.mesh, tp_dims=tdims)
+        return self._local_slice(params)
+
+    def _adopt_offload_slice(self, full, partial: bool) -> None:
+        opt = self._host_opt.opt
+
+        def host(tree):
+            return [t.detach().to("cpu", torch.float32).numpy()
+                    for t in tree_leaves(self._local_slice(tree))]
+        masters = host(full["params"])
+        arrays = {"master": masters}
+        for name, arrs in opt.state_arrays().items():
+            if name != "master":
+                arrays[name] = (host(full["opt"][name]) if not partial else
+                                [np.zeros_like(a) for a in arrs])
+        opt.load_state_arrays(arrays, 0 if partial else
+                              int(full["opt"]["step"]))
+        for p, m in zip(tree_leaves(self.state["params"]), masters):
+            p.copy_(torch.from_numpy(m))
+        self.state["step"] = torch.as_tensor(
+            full["step"], dtype=torch.int32).to(self.device)
 
     def _init_state_offload(self, params) -> Dict[str, Any]:
         """Offload init: each float32 leaf's host copy becomes a master of
@@ -656,25 +757,14 @@ class DeepSpeedEngine:
         codec's chunk): ``(flat, scaled loss sum)``.  Each micro batch's
         compute-dtype gradient is summed into it leaf by leaf and dropped,
         so no float32 tree of gradients sits beside the buffer."""
-        from .zero.wire_codec import CHUNK
         params = self.state["params"]
-        leaves = list(tree_leaves(params))
-        n = sum(p.numel() for p in leaves)
-        n_pad = -(-n // CHUNK) * CHUNK
-        flat = getattr(self, "_grad_flat", None)
-        if flat is None or flat.numel() != n_pad:
-            flat = self._grad_flat = torch.zeros(n_pad, dtype=torch.float32,
-                                                 device=self.device)
-        views, off = [], 0
-        for p in leaves:
-            views.append(flat[off:off + p.numel()].view(p.shape))
-            off += p.numel()
+        flat, views = self._grad_flat_views()
         lsum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(self.gradient_accumulation_steps):
             mb = {k: v[i] for k, v in batch.items()}
             req = tree_map(lambda p: p.detach().requires_grad_(True), params)
             with trace_span("engine/forward", micro_step=self.micro_steps):
-                loss = self._loss_fn(req, mb) * scale
+                loss = self._loss_fn(self._tp_localize(req), mb) * scale
             with trace_span("engine/backward", micro_step=self.micro_steps):
                 grads = list(torch.autograd.grad(loss,
                                                  list(tree_leaves(req))))
@@ -685,7 +775,42 @@ class DeepSpeedEngine:
                     view.add_(grads[j])
                 grads[j] = None          # free each grad once it is summed
             lsum = lsum + loss.detach()
+        if self._tp_view is not None:
+            # the partial leaves' exit reduction over the model ranks, in
+            # place in the flat buffer
+            it = iter(views)
+            psum_tp_partials(tree_map(lambda _: next(it), params),
+                             MODEL_AXIS)
         return flat, lsum
+
+    def _grad_flat_views(self):
+        """The offload step's flat float32 gradient buffer on the device
+        (the leaves' concatenation, zero-padded to the wire codec's
+        chunk) and a view of it per leaf, in the params' order."""
+        from .zero.wire_codec import CHUNK
+        leaves = list(tree_leaves(self.state["params"]))
+        n = sum(p.numel() for p in leaves)
+        n_pad = -(-n // CHUNK) * CHUNK
+        flat = getattr(self, "_grad_flat", None)
+        if flat is None or flat.numel() != n_pad:
+            flat = self._grad_flat = torch.zeros(n_pad, dtype=torch.float32,
+                                                 device=self.device)
+        views, off = [], 0
+        for p in leaves:
+            views.append(flat[off:off + p.numel()].view(p.shape))
+            off += p.numel()
+        self._grad_views = views
+        return flat, views
+
+    def _offload_norm(self, flat: torch.Tensor) -> torch.Tensor:
+        """The raw gradient's global norm: the flat buffer's, or over a
+        model or pipe axis each leaf's squares summed over the ranks that
+        hold a part of it and a replicated leaf counted once."""
+        if self._slices is None:
+            return torch.sqrt(torch.sum(torch.square(flat)))
+        it = iter(self._grad_views)
+        return self._slices.global_norm(
+            tree_map(lambda _: next(it), self.state["params"]))
 
     def _offload_train_step(self, batch) -> Dict[str, torch.Tensor]:
         """grads on the device → the host native sweep → params back (the
@@ -699,7 +824,7 @@ class DeepSpeedEngine:
         t0 = time.perf_counter()
         with trace_span("offload/grads", gas=gas):
             flat, lsum = self._offload_grads(batch, scale)
-            gnorm_raw = torch.sqrt(torch.sum(torch.square(flat)))
+            gnorm_raw = self._offload_norm(flat)
             lr_t = torch.as_tensor(self.lr_schedule(self.state["step"]),
                                    dtype=torch.float32).to(self.device)
             lsum_h, gnorm_h, lr = torch.stack(
@@ -1076,48 +1201,64 @@ class DeepSpeedEngine:
             return self._loss_fn(
                 self._cast_for_compute(self.state["params"]), sq)
         z, dtype = self._zero, self.compute_dtype
-        with z.hooks(self.model, dtype):
+        with self._stage3_hooks() as gathered:
             if self.zero_stage in (1, 2):
                 params = self._live
             elif self.zero_stage == 3:
                 params = z.stage3_params(self.state["params"], dtype)
             else:
                 params = self._cast_for_compute(self.state["params"])
-            return z.mean(self._loss_fn(self._tp_localize(params), sq))
+            return z.mean(self._loss_fn(
+                self._tp_localize(params, skip_blocks=gathered), sq))
 
     # ------------------------------------------------------------------
     # compat API: forward / backward / step
     # ------------------------------------------------------------------
-    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Loss and gradients of one micro batch ``[micro, ...]``; the
-        gradients wait for :meth:`backward`."""
+    def _refuse_compat_offload(self) -> None:
         if self.offload_enabled or self.infinity_enabled:
             raise NotImplementedError(
                 "the compat forward/backward/step surface is not wired for "
                 "offload — use train_step()/train_batch()")
-        if self._zero is not None:
-            raise NotImplementedError(
-                "the compat forward/backward/step surface runs ZeRO stage 0 "
-                "on one rank — use train_step()/train_batch() under ZeRO "
-                "or data parallelism")
+
+    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Loss and gradients of one micro batch ``[micro, ...]`` (this
+        rank's rows of the global micro batch under data parallelism);
+        the gradients wait for :meth:`backward`.  Returns the global
+        micro batch's loss (unscaled), the same on every rank."""
+        self._refuse_compat_offload()
+        comm.set_mesh(self.mesh)
         mb = {k: (v if isinstance(v, torch.Tensor) else
                   torch.from_numpy(np.ascontiguousarray(np.asarray(v))))
               for k, v in batch.items()}
         mb = {k: (v.reshape(()) if k == "moe_rng" else
                   (v if v.is_floating_point() else v.long()).to(self.device))
               for k, v in mb.items()}
-        self._last_loss, self._last_grads = self._micro_loss_and_grads(
-            self.state["params"], mb, self._current_scale())
+        scale = self._current_scale()
+        if self._zero is None:
+            loss, self._last_grads = self._micro_loss_and_grads(
+                self.state["params"], mb, scale)
+        else:
+            # each rank's loss at scale / dp, as in the gas loop: the
+            # grads summed over the ranks are the global mean's
+            loss, self._last_grads = self._zero_micro(
+                mb, scale / self.dp_world_size)
+            loss = comm.all_reduce(loss, comm.ReduceOp.SUM, self._zero.axes)
+        self._last_loss = loss / scale
         return self._last_loss
 
     __call__ = forward
 
     def backward(self, loss=None) -> None:
-        """Accumulate the gradients of the last forward."""
+        """Accumulate the gradients of the last forward (under ZeRO stage
+        2 reduce-scattered into this rank's shards first)."""
         del loss  # the gradients were taken alongside forward
         grads = self._last_grads
+        if self._zero is not None:
+            grads = self._zero.reduce_micro(grads)
         self._grad_acc = (grads if self._grad_acc is None else
-                          tree_map(torch.add, self._grad_acc, grads))
+                          tree_map(lambda a, b: a.add_(b), self._grad_acc,
+                                   grads))
+        self._last_grads = None
         self._grad_acc_count += 1
         self.micro_steps += 1
 
@@ -1125,14 +1266,25 @@ class DeepSpeedEngine:
         return self._grad_acc_count >= self.gradient_accumulation_steps
 
     def step(self) -> None:
+        """The update of the accumulated micro batches: under ZeRO the
+        step's reductions of :meth:`train_step` first."""
         self._heartbeat.maybe_beat()
         if self._grad_acc is None:
             return
+        comm.set_mesh(self.mesh)
+        gsum = self._grad_acc
+        if self._zero is not None:
+            self._zero_bytes = self.zero_state_bytes(grads=gsum)
+            gsum = self._zero.finish(gsum)
+            if self._tp_view is not None:
+                gsum = psum_tp_partials(gsum, MODEL_AXIS)
         n = torch.tensor(float(self._grad_acc_count), dtype=torch.float32,
                          device=self.device)
         with trace_span("engine/optimizer_step", step=self.global_steps):
-            self.state, metrics = self._apply_grads(self.state,
-                                                    self._grad_acc, n)
+            self.state, metrics = self._apply_grads(self.state, gsum, n)
+            if self._live is not None:
+                self._live = self._zero.live_params(self.state["params"],
+                                                    self.compute_dtype)
         self._grad_acc = None
         self._grad_acc_count = 0
         self.global_steps += 1
@@ -1159,7 +1311,7 @@ class DeepSpeedEngine:
     def num_parameters(self) -> int:
         if self.infinity_enabled:
             return self._infinity.total_params
-        if self._zero is not None:
+        if self._zero is not None or self._slices is not None:
             return sum(int(np.prod(s)) for s in
                        tree_leaves(self._full_shapes))
         return sum(int(p.numel()) for p in tree_leaves(self.state["params"]))
@@ -1167,11 +1319,19 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # checkpointing (runtime/checkpoint_engine)
     # ------------------------------------------------------------------
+    def _refuse_sliced_offload_checkpoint(self) -> None:
+        if self._slices is not None:
+            raise NotImplementedError(
+                "a checkpoint of ZeRO-Offload over a model or pipe axis: "
+                "each rank's host optimizer holds its own slice (queue A "
+                "item 7 part 8, offload across ranks)")
+
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[dict] = None) -> str:
         """Save the train state under ``save_dir/tag`` (default
         ``global_step<N>``) and point ``latest`` at it once committed."""
         from .checkpoint_engine.engine import save_checkpoint as _save
+        self._refuse_sliced_offload_checkpoint()
         # a long checkpoint write is the longest legitimate gap between
         # steps: beat around it so a watchdog does not read it as a hang
         self._heartbeat.beat_now()
@@ -1186,5 +1346,6 @@ class DeepSpeedEngine:
         """Restore the train state (``latest`` unless ``tag``); returns
         ``(path, client_state)``."""
         from .checkpoint_engine.engine import load_checkpoint as _load
+        self._refuse_sliced_offload_checkpoint()
         self._heartbeat.maybe_beat()
         return _load(self, load_dir, tag=tag, **kw)

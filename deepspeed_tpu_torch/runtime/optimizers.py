@@ -22,8 +22,8 @@ chosen by ``torch.where``, no host branch).
 ``wrap_torch`` is the counterpart of ``wrap_optax``: a client
 ``torch.optim.Optimizer`` (a class or factory of a list of tensors)
 becomes an :class:`Optimizer` that carries its own learning rate.  The
-1-bit optimizers are a later part of ROADMAP queue A item 7 and raise
-``NotImplementedError``.
+1-bit optimizers are a later part of ROADMAP queue A item 7 (part 7)
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -249,7 +249,7 @@ def get_optimizer(name: str, **params) -> Optimizer:
     if name_l in ("onebitadam", "onebitlamb", "zerooneadam"):
         raise NotImplementedError(
             f"optimizer {name}: the 1-bit optimizers (ROADMAP.md queue A "
-            f"item 7), not in the PyTorch port yet")
+            f"item 7 part 7), not in the PyTorch port yet")
     raise ValueError(f"Unknown optimizer: {name}")
 
 

@@ -35,10 +35,26 @@ the JAX engine's:
     ``model``; the loss is summed over ``pipe`` and ``data``, so every
     rank returns the same one.
 
+ZeRO stage 3 keeps 1/dp of the stage's slice: the leaves outside
+``blocks`` are gathered whole once a step (their grads reduce-scattered
+at the exit) and each layer of the stage's ``blocks`` is gathered inside
+``stage_apply`` through the block hook (``_stage3_hooks``), its
+gradient reduce-scattered in the backward; the JAX region gathers the
+params whole at entry, which computes the same numbers.  An MoE model
+over a data axis routes the whole micro batch, as the JAX region does:
+each MoE layer gathers its rows over the stage's data group before the
+gate and keeps its own after the combine (``gather_rows``).
+ZeRO-Offload (data-parallel size 1) runs the schedule into the flat
+gradient buffer each stage's host optimizer sweeps (``_offload_grads``).
+
 The global norm sums a stage's leaves' squares over the stages and
 counts a replicated leaf once; the fp16 overflow flag is reduced over
 every axis (``zero/partitioned.py``).  ``eval_loss`` runs the
-fill-drain ``InferenceSchedule``.  ``measure_bubble_fraction`` fits the
+fill-drain ``InferenceSchedule`` (an MoE model routes the whole batch at
+once, as the JAX engine's ``eval_loss``).  The compat ``forward`` runs
+the schedule's forwards of a batch, ``backward`` its backwards and
+``step`` the exit reductions and the update.
+``measure_bubble_fraction`` fits the
 loss-and-grad program's time at two micro-batch counts (the
 ``pipe/bubble_probe`` span, the ``dstpu_train_bubble_frac`` gauge);
 each step's instruction loop is the ``pipe/schedule`` span.  The
@@ -47,6 +63,8 @@ receive.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import time
 from typing import Any, Dict, Optional
 
@@ -57,9 +75,9 @@ from ...models.convert import check_params
 from ...models.transformer import masked_nll_sum
 from ...observability import trace_span
 from ...parallel.collectives import copy_to, psum_tp_partials
-from ...parallel.topology import (AXIS_ORDER, EXPERT_AXIS, MODEL_AXIS,
-                                  PIPE_AXIS, dp_world_size, mp_world_size,
-                                  pp_world_size)
+from ...parallel.topology import (AXIS_ORDER, DATA_AXES, EXPERT_AXIS,
+                                  MODEL_AXIS, PIPE_AXIS, dp_world_size,
+                                  mp_world_size, pp_world_size)
 from ..config import DeepSpeedConfig
 from ..engine import DeepSpeedEngine, config_mesh
 from ..optimizers import tree_leaves, tree_map
@@ -67,14 +85,6 @@ from .schedule import (BackwardPass, ForwardPass, InferenceSchedule,
                        LoadMicroBatch, OptimizerStep, RecvActivation,
                        RecvGrad, ReduceGrads, ReduceTiedGrads,
                        SendActivation, SendGrad, TrainSchedule)
-
-#: the compat surface's refusal (the JAX engine runs it as a plain
-#: GSPMD program over the whole model, which no stage holds here)
-COMPAT_REFUSAL = (
-    "the compat forward/backward/step surface under a pipe mesh: no rank "
-    "holds the whole model (queue A item 7's third part, the 3D "
-    "composition) — use train_step()/train_batch()")
-
 
 def chunked_ce(proj, norm_fn, ln_params, y, tok, chunk: int,
                tp_axis: Optional[str] = None):
@@ -294,19 +304,24 @@ class PipelineEngine(DeepSpeedEngine):
             raise NotImplementedError(
                 "the pipeline trains causal LMs with a final norm (its "
                 "head is the next-token loss after ln_f)")
-        if moe and (mp > 1 or dp_world_size(mesh) > 1):
+        if moe and mp > 1:
             raise NotImplementedError(
-                "an MoE model under a pipe mesh with a data or model axis: "
-                "each data rank would route its own rows where the JAX "
-                "region routes the whole micro batch (queue A item 7's "
-                "third part, the 3D composition)")
+                "an MoE model under a pipe mesh with a model axis: the "
+                "expert stacks have no model-axis layout (queue A item 7 "
+                "part 5, expert parallelism)")
         self.stage_id = mesh.axis_index(PIPE_AXIS)
         super().__init__(model=adapter, config=config, optimizer=optimizer,
                          lr_scheduler=lr_scheduler, params=params,
                          device=device, seed=seed, mesh=mesh)
         #: the model each stage runs: the per-shard view under a model
-        #: axis
+        #: axis; an MoE model's view over data ranks routes the whole
+        #: micro batch (``gather_rows``), as the JAX region does
         self._stage_model = self._tp_view or self.adapter.model
+        if moe and self.dp_world_size > 1:
+            self._stage_model = copy.copy(self._stage_model)
+            self._stage_model._moe_rows = (DATA_AXES, 1)
+        #: whether stage 3's block hook gathers ``blocks`` this step
+        self._hooked = False
 
     @property
     def micro_batches(self) -> int:
@@ -365,12 +380,34 @@ class PipelineEngine(DeepSpeedEngine):
         return model._layer_windows()[sid * lps:(sid + 1) * lps]
 
     def _compute_params(self, grad: bool = True):
-        """The stage's params in the compute dtype, as leaves the
-        micro batches' gradients are taken against (``grad``): the live
-        copy at ZeRO stages 1-2, else the cast of the masters."""
-        src = (self._live if self._live is not None
-               else self._cast_for_compute(self.state["params"]))
+        """The stage's params, as leaves the micro batches' gradients are
+        taken against (``grad``): the live compute-dtype copy at ZeRO
+        stages 1-2; at stage 3 the leaves outside ``blocks`` gathered
+        whole in the compute dtype once a step and ``blocks`` as the
+        float32 master shards, which the block hook gathers a layer at a
+        time (``_stage3_hooks``); else the cast of the masters."""
+        if self.zero_stage == 3 and self._zero is not None:
+            src = self._zero.stage3_params(self.state["params"],
+                                           self.compute_dtype,
+                                           autograd=False)
+        else:
+            src = (self._live if self._live is not None
+                   else self._cast_for_compute(self.state["params"]))
         return tree_map(lambda p: p.detach().requires_grad_(grad), src)
+
+    def _stage3_hooks(self):
+        """Stage 3's per-layer gather on the model the stage runs: a
+        layer view of the stage's ``blocks`` drops the stage dim and the
+        layer dim."""
+        return self._zero.hooks(self._stage_model, self.compute_dtype,
+                                post=self._tp_localize, lead=2)
+
+    def _whole_keys(self):
+        """The subtrees stage 3 gathers whole once a step (their grads
+        are reduce-scattered at the exit): all but a sharded
+        ``blocks``."""
+        return {k for k in self.state["params"]
+                if not (k == "blocks" and self._hooked)}
 
     # -- the interpreter ----------------------------------------------------
     def _steps(self, m: int):
@@ -384,16 +421,19 @@ class PipelineEngine(DeepSpeedEngine):
         head's mean NLL on the last stage, the MoE aux loss), and on the
         last stage ``st["nll"]`` = (sum, count)."""
         mdl, cfg = self._stage_model, self.adapter.config
-        p = self._tp_localize(leaves)
+        p = self._tp_localize(leaves, skip_blocks=self._hooked)
         tok = st.get("tok")
         if self.is_first_stage:
             t = tok.shape[1]
             x = mdl._embed(p, tok, torch.arange(t, device=tok.device)[None])
         else:
             x = st["x"]
+        # MoE routes in train mode in evaluation too: the JAX engine's
+        # eval_loss is the model's loss
         y, laux = mdl.stage_apply(tree_map(lambda a: a[0], p["blocks"]), x,
-                                  self._windows, train=train)
+                                  self._windows, train=True)
         loss = cfg.moe_aux_loss_coef * laux if cfg.moe_enabled else None
+        st["aux"] = loss
         if self.is_last_stage:
             t = tok.shape[1]
             chunk = (cfg.loss_chunk if cfg.loss_chunk and t > cfg.loss_chunk
@@ -408,13 +448,16 @@ class PipelineEngine(DeepSpeedEngine):
             loss = nll if loss is None else nll + loss
         st["y"], st["loss"] = y, loss
 
-    def _interpret(self, steps, ids, leaves, cot=None):
+    def _interpret(self, steps, ids, leaves, cot=None, run=None):
         """Run one stage's instruction lists over the micro batches ``ids``
         ``[M, micro, T]``.  With ``cot`` (the cotangent of each micro
         batch's loss: the scale over dp) it trains: returns the float32
         gradient sums of ``leaves`` and the sum of this stage's losses
         times ``cot``; without, it evaluates: returns the last stage's
-        NLL sum and token count."""
+        NLL sum and token count, and the sum of this stage's MoE aux
+        losses.  ``run`` (a dict, filled on the first call) carries the
+        interpreter's state across calls, so the compat surface runs a
+        step's forwards and its backwards as two calls."""
         train = cot is not None
         cfg = self.adapter.config
         first, last = self.is_first_stage, self.is_last_stage
@@ -423,21 +466,25 @@ class PipelineEngine(DeepSpeedEngine):
         act = dict(size=(mb, t, cfg.d_model), dtype=cfg.dtype,
                    device=self.device)
         flat = list(tree_leaves(leaves))
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in flat] if train else None
-        lsum = torch.zeros((), dtype=torch.float32, device=self.device)
-        cnt = torch.zeros((), dtype=torch.float32, device=self.device)
-        cot_t = (torch.as_tensor(cot, dtype=torch.float32,
-                                 device=self.device) if train else None)
-        slots: Dict[int, Dict[str, Any]] = {}
-        next_micro = 0
+        run = {} if run is None else run
+        if not run:
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            run.update(
+                acc=[torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in flat]
+                if train else None,
+                lsum=zero, cnt=zero, aux=zero, slots={}, next_micro=0,
+                cot=(torch.as_tensor(cot, dtype=torch.float32,
+                                     device=self.device) if train else None))
+        acc, cot_t, slots = run["acc"], run["cot"], run["slots"]
         for cmds in steps:
             for cmd in cmds:
                 buf = getattr(cmd, "buffer_id", None)
                 if isinstance(cmd, (RecvActivation, LoadMicroBatch)) and (
                         buf not in slots or "y" in slots[buf]):
-                    slots[buf] = {"m": next_micro}   # a new micro batch
-                    next_micro += 1
+                    # a new micro batch
+                    slots[buf] = {"m": run["next_micro"]}
+                    run["next_micro"] += 1
                 st = slots.get(buf)
                 if isinstance(cmd, RecvActivation):
                     x = comm.recv(torch.empty(**act), sid - 1, PIPE_AXIS)
@@ -452,10 +499,14 @@ class PipelineEngine(DeepSpeedEngine):
                     with torch.set_grad_enabled(train):
                         self._forward(st, leaves, train)
                     if train and st["loss"] is not None:
-                        lsum = lsum + st["loss"].detach() * cot_t
-                    if not train and last:
-                        tot, n = st.pop("nll")
-                        lsum, cnt = lsum + tot, cnt + n
+                        run["lsum"] = run["lsum"] + st["loss"].detach() * cot_t
+                    if not train:
+                        if last:
+                            tot, n = st.pop("nll")
+                            run["lsum"] = run["lsum"] + tot
+                            run["cnt"] = run["cnt"] + n
+                        if st["aux"] is not None:
+                            run["aux"] = run["aux"] + st["aux"]
                 elif isinstance(cmd, SendActivation):
                     comm.send(st["y"].detach(), sid + 1, PIPE_AXIS)
                 elif isinstance(cmd, RecvGrad):
@@ -484,28 +535,67 @@ class PipelineEngine(DeepSpeedEngine):
                     comm.send(slots.pop(buf)["dx"], sid - 1, PIPE_AXIS)
         comm.wait_sends()
         if not train:
-            return lsum, cnt
+            return run["lsum"], run["cnt"], run["aux"]
         it = iter(acc)
-        return tree_map(lambda _: next(it), leaves), lsum
+        return tree_map(lambda _: next(it), leaves), run["lsum"]
 
-    def _exit_reduce(self, gsum):
-        """The step's gradient reductions: the replicated leaves summed
-        over ``pipe`` (one all-reduce of their concatenation), ZeRO's
-        reduction over ``data``, then the partial leaves over
-        ``model``."""
-        keys = [k for k in gsum if k != "blocks"]
-        reps = [g for k in keys for g in tree_leaves(gsum[k])]
+    @staticmethod
+    def _sum_replicated(gsum) -> None:
+        """The replicated leaves' gradients (all but ``blocks``) summed
+        over ``pipe`` in place, one all-reduce of their concatenation
+        (the tied embedding's two parts add there)."""
+        reps = [g for k in gsum if k != "blocks"
+                for g in tree_leaves(gsum[k])]
         if reps:
             cat = comm.all_reduce(torch.cat([g.reshape(-1) for g in reps]),
                                   comm.ReduceOp.SUM, PIPE_AXIS)
             for g, part in zip(reps, cat.split([g.numel() for g in reps])):
                 g.copy_(part.view_as(g))
-        gsum = self._zero.reduce_micro(gsum)
+
+    def _exit_reduce(self, gsum):
+        """The step's gradient reductions: the replicated leaves summed
+        over ``pipe``, ZeRO's reduction over ``data`` (at stage 3 also the
+        reduce-scatter of the leaves gathered whole for the step), then
+        the partial leaves over ``model``."""
+        self._sum_replicated(gsum)
+        gsum = self._zero.reduce_micro(
+            gsum, keys=self._whole_keys() if self.zero_stage == 3 else None)
         self._zero_bytes = self.zero_state_bytes(grads=gsum)
         gsum = self._zero.finish(gsum)
         if self._tp_view is not None:
             gsum = psum_tp_partials(gsum, MODEL_AXIS)
         return gsum
+
+    def _offload_grads(self, batch, scale: float):
+        """ZeRO-Offload's step body under the pipeline (data-parallel size
+        1): the schedule over this stage's compute-dtype params, the
+        replicated leaves summed over ``pipe`` and the partial leaves over
+        ``model``, into the flat float32 buffer the host sweep reads;
+        ``(flat, scaled loss sum over the stages)``."""
+        ids = batch["input_ids"]
+        self._windows = self._stage_windows(self._stage_model,
+                                            self.stage_id)
+        with trace_span("pipe/schedule", schedule=self.schedule,
+                        stages=self.num_stages, stage=self.stage_id,
+                        micro_batches=int(ids.shape[0])):
+            gsum, lsum = self._interpret(
+                self._steps(int(ids.shape[0])), ids, self._compute_params(),
+                cot=scale)
+        self._sum_replicated(gsum)
+        if self._tp_view is not None:
+            gsum = psum_tp_partials(gsum, MODEL_AXIS)
+        flat, views = self._grad_flat_views()
+        for view, g in zip(views, tree_leaves(gsum)):
+            view.copy_(g)
+        del gsum
+        return flat, comm.all_reduce(lsum, comm.ReduceOp.SUM, PIPE_AXIS)
+
+    def _schedule_half(self, m: int, backward: bool):
+        """The gpipe lists' forwards (every micro batch's) or backwards
+        (every one's, in reverse): the compat surface's two halves of a
+        step (gpipe and 1F1B compute one function)."""
+        steps = list(gpipe_steps(m, self.num_stages, self.stage_id))[:-1]
+        return steps[m:] if backward else steps[:m]
 
     def _zero_accumulate(self, batch, scale):
         """The pipeline's step body (the base engine's ``train_step``
@@ -516,39 +606,57 @@ class PipelineEngine(DeepSpeedEngine):
         ids = batch["input_ids"]
         self._windows = self._stage_windows(self._stage_model,
                                             self.stage_id)
-        with trace_span("pipe/schedule", schedule=self.schedule,
-                        stages=self.num_stages, stage=self.stage_id,
-                        micro_batches=int(ids.shape[0])):
-            gsum, lsum = self._interpret(
-                self._steps(int(ids.shape[0])), ids, self._compute_params(),
-                cot=scale / self.dp_world_size)
+        with self._stage3_hooks() as hooked:
+            self._hooked = hooked
+            with trace_span("pipe/schedule", schedule=self.schedule,
+                            stages=self.num_stages, stage=self.stage_id,
+                            micro_batches=int(ids.shape[0])):
+                gsum, lsum = self._interpret(
+                    self._steps(int(ids.shape[0])), ids,
+                    self._compute_params(), cot=scale / self.dp_world_size)
         gsum = self._exit_reduce(gsum)
+        self._hooked = False
+        return gsum, self._loss_over_ranks(lsum)
+
+    def _loss_over_ranks(self, lsum):
         lsum = comm.all_reduce(lsum, comm.ReduceOp.SUM, PIPE_AXIS)
-        lsum = comm.all_reduce(lsum, comm.ReduceOp.SUM, self._zero.axes)
-        return gsum, lsum
+        return comm.all_reduce(lsum, comm.ReduceOp.SUM, self._zero.axes)
 
     @torch.no_grad()
     def eval_loss(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """The token-mean loss of the whole batch through the fill-drain
-        ``InferenceSchedule``, the same on every rank."""
-        if self.adapter.config.moe_enabled:
-            raise NotImplementedError(
-                "eval_loss of an MoE model under a pipe mesh: the JAX "
-                "engine routes the whole batch at once, the stages route "
-                "a micro batch (queue A item 7's third part, the 3D "
-                "composition)")
+        """The loss of the whole batch through the fill-drain
+        ``InferenceSchedule``, the same on every rank: the token mean
+        (an MoE model's plus its aux losses, summed over the stages, the
+        whole batch routed at once as the JAX engine's ``eval_loss``
+        routes it: one run of every rank's micro batches, gathered over
+        the data ranks in the global batch's order)."""
         comm.set_mesh(self.mesh)
         ids = self.shard_batch(batch)["input_ids"]
-        self._windows = self._stage_windows(self._stage_model,
-                                            self.stage_id)
-        leaves = self._compute_params(grad=False)
-        tot, cnt = self._interpret(
-            InferenceSchedule(int(ids.shape[0]), self.num_stages,
-                              self.stage_id).steps(), ids, leaves)
-        both = torch.stack([tot, cnt])
+        moe = self.adapter.config.moe_enabled
+        mdl = self._stage_model
+        if moe:
+            m = int(ids.shape[0])
+            ids = ids.reshape((1, -1) + tuple(ids.shape[2:]))
+            if mdl._moe_rows is not None:
+                mdl._moe_rows = (DATA_AXES, m)
+        self._windows = self._stage_windows(mdl, self.stage_id)
+        try:
+            with self._stage3_hooks() as hooked:
+                self._hooked = hooked
+                tot, cnt, aux = self._interpret(
+                    InferenceSchedule(int(ids.shape[0]), self.num_stages,
+                                      self.stage_id).steps(), ids,
+                    self._compute_params(grad=False))
+        finally:
+            self._hooked = False
+            if mdl._moe_rows is not None:
+                mdl._moe_rows = (DATA_AXES, 1)
+        both = torch.stack([tot, cnt, aux])
         both = comm.all_reduce(both, comm.ReduceOp.SUM, PIPE_AXIS)
-        both = comm.all_reduce(both, comm.ReduceOp.SUM, self._zero.axes)
-        return both[0] / torch.clamp(both[1], min=1.0)
+        nll = comm.all_reduce(both[:2].contiguous(), comm.ReduceOp.SUM,
+                              self._zero.axes)
+        # the aux loss is the whole batch's, the same on every data rank
+        return nll[0] / torch.clamp(nll[1], min=1.0) + both[2]
 
     # -- measured bubble fraction -----------------------------------------
     def _max_over_ranks(self, x: float) -> float:
@@ -597,8 +705,11 @@ class PipelineEngine(DeepSpeedEngine):
             comm.barrier()
 
         def probe(ids):
-            self._interpret(self._steps(int(ids.shape[0])), ids,
-                            self._compute_params(), cot=1.0)
+            with self._stage3_hooks() as hooked:
+                self._hooked = hooked
+                self._interpret(self._steps(int(ids.shape[0])), ids,
+                                self._compute_params(), cot=1.0)
+            self._hooked = False
 
         times = {}
         with trace_span("pipe/bubble_probe", schedule=self.schedule,
@@ -631,12 +742,67 @@ class PipelineEngine(DeepSpeedEngine):
 
     # -- the compat surface --------------------------------------------------
     def forward(self, batch):
-        raise NotImplementedError(COMPAT_REFUSAL)
+        """The schedule's forwards of the batch's micro batches (``batch``
+        as :meth:`train_step` takes it: ``[M * micro, ...]`` or ``[M,
+        micro, ...]``), each stage keeping their graphs for
+        :meth:`backward`; returns the batch's loss, the same on every
+        rank.  The two halves run gpipe's order (every forward, then
+        every backward), which computes 1F1B's function."""
+        self._refuse_compat_offload()
+        comm.set_mesh(self.mesh)
+        ids = self.shard_batch(batch)["input_ids"]
+        m = int(ids.shape[0])
+        self._windows = self._stage_windows(self._stage_model,
+                                            self.stage_id)
+        scale = self._current_scale()
+        hooks = contextlib.ExitStack()
+        self._hooked = hooks.enter_context(self._stage3_hooks())
+        leaves, run = self._compute_params(), {}
+        cot = scale / self.dp_world_size
+        with trace_span("engine/forward", micro_step=self.micro_steps):
+            self._interpret(self._schedule_half(m, False), ids, leaves,
+                            cot=cot, run=run)
+        self._compat = (hooks, ids, leaves, run, cot)
+        self._last_loss = self._loss_over_ranks(run["lsum"].clone()) / (
+            scale * m)
+        return self._last_loss
 
     __call__ = forward
 
-    def backward(self, loss=None):
-        raise NotImplementedError(COMPAT_REFUSAL)
+    def backward(self, loss=None) -> None:
+        """The schedule's backwards of the last :meth:`forward`: the
+        float32 gradient sums of this stage's leaves wait for
+        :meth:`step`."""
+        del loss  # the cotangents are the schedule's own
+        hooks, ids, leaves, run, cot = self._compat
+        m = int(ids.shape[0])
+        try:
+            with trace_span("engine/backward", micro_step=self.micro_steps):
+                self._grad_acc, _ = self._interpret(
+                    self._schedule_half(m, True), ids, leaves, cot=cot,
+                    run=run)
+        finally:
+            hooks.close()
+            self._compat = None
+        self._grad_acc_count = m
+        self.micro_steps += m
 
-    def step(self):
-        raise NotImplementedError(COMPAT_REFUSAL)
+    def step(self) -> None:
+        """The exit reductions and the update of :meth:`train_step`."""
+        self._heartbeat.maybe_beat()
+        if self._grad_acc is None:
+            return
+        comm.set_mesh(self.mesh)
+        with trace_span("engine/optimizer_step", step=self.global_steps):
+            gsum = self._exit_reduce(self._grad_acc)
+            self._hooked = False
+            self.state, metrics = self._apply_grads(
+                self.state, gsum, float(self._grad_acc_count))
+            if self._live is not None:
+                self._live = self._zero.live_params(self.state["params"],
+                                                    self.compute_dtype)
+        metrics["loss"] = self._last_loss
+        self._grad_acc = None
+        self._grad_acc_count = 0
+        self.global_steps += 1
+        self._last_metrics = metrics

@@ -24,7 +24,7 @@ JAX stage 3's scan gather, the reference's fetch and release); the
 leaves outside ``blocks`` are gathered once a micro batch, where the
 loss reads them.
 
-Under tensor parallelism (stages 0-2) the rank's tree is its model
+Under tensor parallelism (stages 0-3) the rank's tree is its model
 slice (``models/convert.py::tp_slice``) and the policy's specs carry the
 ``model`` axis, so a leaf's data shard is its chunk of that slice along
 the data dim: rank (d, m) holds device (d, m)'s shard of the JAX
@@ -35,9 +35,12 @@ replicated one once, and the overflow flag reduce over both axes.
 Under pipeline parallelism the policy's specs carry ``pipe`` on the
 stage dim of the stage-stacked ``blocks`` leaves: a rank's tree is its
 stage's slice, and each of its leaves is sharded over that stage's data
-group as above.  The global norm sums a pipe-local leaf's squares over
-the stages and counts a leaf replicated over ``pipe`` once; the
-overflow flag is reduced over the stages too.
+group as above.  Stage 3's dims come from the spec after the model and
+stage cuts, so a gather runs over ``data`` only: a layer view of the
+stage's ``blocks`` drops two dims (``lead``), and the engine's ``post``
+localizes a gathered layer to its model shard.  The global norm sums a
+pipe-local leaf's squares over the stages and counts a leaf replicated
+over ``pipe`` once; the overflow flag is reduced over the stages too.
 """
 from __future__ import annotations
 
@@ -144,15 +147,22 @@ class ZeroPartition:
             return gather_leaf(c, d, self.axes)
         return tree_map(one, masters, self.master_dims)
 
-    def stage3_params(self, masters, dtype: torch.dtype):
-        """Stage 3's tree for the loss from float32 master shards that
-        require grad: each leaf outside ``blocks`` gathered (sharded) or
-        cast (resident); ``blocks`` left as shards for
-        :meth:`block_transform` to gather a layer at a time."""
+    def stage3_params(self, masters, dtype: torch.dtype,
+                      autograd: bool = True):
+        """Stage 3's tree for the loss from float32 master shards: each
+        leaf outside ``blocks`` gathered (sharded) or cast (resident);
+        ``blocks`` left as shards for :meth:`block_transform` to gather a
+        layer at a time.  ``autograd``: through :class:`GatherCast`, from
+        shards that require grad (the base engine, once a micro batch);
+        else a plain gather, its gradient summed whole and
+        reduce-scattered by :meth:`reduce_micro` at the step's exit (the
+        pipeline, once a step)."""
         def leaf(m, d):
             if d is None:
                 return m.to(dtype) if m.is_floating_point() else m
-            return GatherCast.apply(m, d, dtype, self.axes)
+            if autograd:
+                return GatherCast.apply(m, d, dtype, self.axes)
+            return gather_leaf(m.to(dtype), d, self.axes)
         out = {}
         for k, v in masters.items():
             if k == "blocks" and self.sharded(self.param_dims[k]):
@@ -161,51 +171,69 @@ class ZeroPartition:
                 out[k] = tree_map(leaf, v, self.param_dims[k])
         return out
 
-    def block_transform(self, dtype: torch.dtype):
+    def block_transform(self, dtype: torch.dtype, post=None, lead: int = 1):
         """One layer's (or superblock's) view of ``blocks`` → the whole
-        layer in ``dtype``: a sharded leaf along its dim less the layer
-        dim, gathered; a resident leaf cast."""
+        layer in ``dtype``: a sharded leaf along its dim less the ``lead``
+        dims the view dropped (the layer dim; under the pipeline also
+        the stage dim), gathered; a resident leaf cast.  ``post`` then
+        maps the gathered layer (under tensor parallelism the engine's
+        ``_tp_localize``: each shard's qkv columns are taken from the
+        whole layer, never from a data shard of it)."""
         dims = self.param_dims["blocks"]
+        for d in tree_leaves(dims):
+            if d is not None and d < lead:
+                raise ValueError(
+                    f"ZeRO stage 3 shards a blocks leaf along its dim {d}, "
+                    f"a layer (or stage) dim: a layer cannot be gathered "
+                    f"on its own")
 
         def leaf(m, d):
             if d is None:
                 return m.to(dtype) if m.is_floating_point() else m
-            return GatherCast.apply(m, d - 1, dtype, self.axes)
+            return GatherCast.apply(m, d - lead, dtype, self.axes)
 
         def transform(bp):
-            return tree_map(leaf, bp, dims)
+            bp = tree_map(leaf, bp, dims)
+            return bp if post is None else post(bp)
         return transform
 
     @contextlib.contextmanager
-    def hooks(self, model, dtype: torch.dtype):
+    def hooks(self, model, dtype: torch.dtype, post=None, lead: int = 1):
         """Stage 3: the model's ``block_transform`` gathers each layer
         for the duration of a forward and its backward (the remat
         recomputation reads the hook in the backward), then is
-        restored."""
+        restored.  Yields whether it gathers (``blocks`` sharded at
+        stage 3): the caller leaves ``blocks`` to the hook then."""
         if self.stage < 3 or not self.sharded(self.param_dims["blocks"]):
-            yield
+            yield False
             return
         old = model.block_transform
-        model.block_transform = self.block_transform(dtype)
+        model.block_transform = self.block_transform(dtype, post, lead)
         try:
-            yield
+            yield True
         finally:
             model.block_transform = old
 
     # -- gradients -----------------------------------------------------------
-    def reduce_micro(self, grads):
-        """One micro batch's float32 grads at stage 2: each sharded leaf
-        reduce-scattered into its shard (summed over the ranks) and its
-        whole gradient dropped; resident leaves as they are (all-reduced
-        once a step in :meth:`finish`).  Stage 3's sharded grads come
-        out of :class:`GatherCast` reduced already."""
-        if self.stage != 2:
+    def reduce_micro(self, grads, keys=None):
+        """Float32 grads whose sharded leaves are whole → each sharded
+        leaf reduce-scattered into its shard (summed over the ranks) and
+        its whole gradient dropped; resident leaves as they are
+        (all-reduced once a step in :meth:`finish`).  Stage 2 reduces
+        every micro batch's grads; stage 3's sharded grads come out of
+        :class:`GatherCast` reduced already, but for the subtrees
+        ``keys`` a caller gathered whole (the pipeline's leaves outside
+        ``blocks``, gathered once a step)."""
+        if self.stage != 2 and keys is None:
             return grads
 
         def one(g, plan):
             return g if plan == REDUCE_PSUM else \
                 reduce_over_data(g, plan, self.axes)
-        return tree_map(one, grads, self.grad_plan)
+        if keys is None:
+            return tree_map(one, grads, self.grad_plan)
+        return {k: (tree_map(one, v, self.grad_plan[k]) if k in keys else v)
+                for k, v in grads.items()}
 
     def finish(self, gsum):
         """The summed grads of a step → the grads of each rank's master

@@ -22,11 +22,14 @@ shape gate.
   and the model's ``_paged_supported`` never admits what B5-B7 refuse.
 * ``build.build()`` compiles every source to objects (a source of
   ``build.PARTS`` as parallel parts) and links them (with a stand-in
-  compiler: this host has none).
+  compiler: this host has none); ``build.build_in_background()``
+  compiles on a thread of its own while ``load_library`` waits for a
+  library still compiling, each compiled once.
 """
 import dataclasses
 import json
 import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -506,3 +509,47 @@ def test_build_compiles_parts_and_links_them(tmp_path, monkeypatch):
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
         [lib.name for lib in libs.values()]
         + [f"{lib.name}.log" for lib in libs.values()])
+
+
+def test_background_build_and_waiting_load(tmp_path, monkeypatch):
+    """``build.build_in_background()`` with a stand-in ``nvcc`` that takes
+    half a second a source: ``load_library`` of a library still
+    compiling waits until it is linked (never compiles it again), each
+    library is reported to ``on_built`` once, and the thread's result
+    holds the libraries and the build's seconds."""
+    import time
+    from deepspeed_tpu_torch.ops import build
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    calls = tmp_path / "calls.txt"
+    fake.write_text(
+        "#!/usr/bin/env python3\n"
+        "import sys, time\n"
+        "a = sys.argv[1:]\n"
+        "time.sleep(0.5 if '-c' in a else 0.0)\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(a) + '\\n')\n"
+        "open(a[a.index('-o') + 1], 'w').write('built')\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{fake.parent}:{os.environ['PATH']}")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("loaded", path))
+    names = ["decode_attention", "flash_attention_fwd"]
+    seen = []
+    thread = build.build_in_background(
+        names, on_built=lambda name, path: seen.append((name, path)))
+    assert set(build._pending) == set(names)    # registered before return
+    t0 = time.perf_counter()
+    kind, path = build.load_library("flash_attention_fwd")
+    waited = time.perf_counter() - t0
+    assert kind == "loaded" and path == str(
+        build.library_path("flash_attention_fwd"))
+    assert waited >= 0.3 and Path(path).read_text() == "built"
+    thread.join(timeout=60)
+    assert not thread.is_alive() and "error" not in thread.result
+    assert thread.result["libs"] == {n: build.library_path(n) for n in names}
+    assert thread.result["seconds"] >= 0.5
+    assert sorted(seen) == sorted((n, build.library_path(n)) for n in names)
+    compiles = [ln for ln in calls.read_text().splitlines() if " -c " in ln]
+    assert len(compiles) == 2 and build._pending == {}
+    assert build._running == set()

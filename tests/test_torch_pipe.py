@@ -84,7 +84,10 @@ STEPS = 3
 
 
 def zero(stage):
-    return {"zero_optimization": {"stage": stage}}
+    # stage 3 at a persistence threshold of 0: the tiny models' leaves are
+    # all below the default, which would keep every one resident
+    extra = {"param_persistence_threshold": 0} if stage == 3 else {}
+    return {"zero_optimization": {"stage": stage, **extra}}
 
 
 def fp16(power):
@@ -105,6 +108,7 @@ CASES = {
     "neo": (4, "neo", TP, {}, "pipe"),
     "fp16_0": (4, "gpt2", TP, fp16(0), None),
     "fp16_8": (4, "gpt2", TP, fp16(8), None),
+    "gpt2_s3": (4, "gpt2", TP, zero(3), "pipe"),
 }
 
 
@@ -193,33 +197,55 @@ def engine(family, mesh, config, p=True):
                                           "mesh": mesh},
                          params=params, device="cpu")[0]
 
-def step(eng, i):
+def step(eng, i, compat=False):
     b = rank_slice({"input_ids": batches[str(i)]},
                    eng.gradient_accumulation_steps, eng.dp_world_size,
                    eng.dp_rank)
-    m = eng.train_step(b)
+    if compat:
+        # the compat surface: the schedule's forwards, its backwards,
+        # then the step's reductions and update
+        eng.forward(b)
+        eng.backward()
+        eng.step()
+        m = eng._last_metrics
+    else:
+        m = eng.train_step(b)
     return [float(m["loss"]), float(m["grad_norm"])]
+
+def state_bytes(eng):
+    if eng.offload_enabled:
+        return ({"params": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(eng.state["params"])),
+                 "host": eng._host_opt.host_bytes},
+                eng.offload_planned_bytes())
+    return (eng.zero_state_bytes(),
+            eng._zero.planned_bytes(eng._param_shapes, 4))
 
 out, whole = {}, {}
 for name, (w, family, mesh, config, _) in spec["cases"].items():
     if w != world:
         continue
     eng = engine(family, mesh, config)
-    rows = [step(eng, i) for i in range(spec["steps"])]
+    rows = [step(eng, i, name.startswith("compat"))
+            for i in range(spec["steps"])]
     full = eng.full_state()
     whole.update({name + "/" + k: v for k, v in flat(
         eng.adapter.unstack(full["params"])).items()})
-    out[name] = {"rows": rows, "bytes": eng.zero_state_bytes(),
-                 "planned": eng._zero.planned_bytes(eng._param_shapes, 4),
+    got, planned = state_bytes(eng)
+    out[name] = {"rows": rows, "bytes": got, "planned": planned,
                  "n_params": eng.num_parameters(), "type": type(eng).__name__,
                  "schedule": eng.schedule, "skipped": eng.skipped_steps,
-                 "stage": eng.stage_id, "dp_rank": eng.dp_rank}
-    if name == "gpt2":
+                 "stage": eng.stage_id, "dp_rank": eng.dp_rank,
+                 "blocks_gathered": eng._zero is not None and
+                 eng._zero.stage == 3 and
+                 eng._zero.sharded(eng._zero.param_dims["blocks"])}
+    if name in spec["evals"]:
         out[name]["eval"] = float(eng.eval_loss(rank_slice(
             {"input_ids": batches["eval"]}, eng.gradient_accumulation_steps,
             eng.dp_world_size, eng.dp_rank)))
-        # a checkpoint at {pipe 2, model 2}: a fresh engine resumes it
-        ck = os.path.join(d, "ckpt")
+    if name in spec["ckpts"]:
+        # a checkpoint at the case's mesh: a fresh engine resumes it
+        ck = os.path.join(d, "ckpt_" + name)
         eng.save_checkpoint(ck)
         fresh = engine(family, mesh, config, p=False)
         fresh.load_checkpoint(ck)
@@ -271,6 +297,30 @@ def oracle_mesh(mesh, oracle):
     return mesh if oracle == "pipe" else {"data": mesh.get("data", 1)}
 
 
+#: the cases whose ``eval_loss`` is checked, and those saved to a
+#: checkpoint that a fresh engine resumes
+EVALS = ("gpt2", "moe_pipe2_data2")
+CKPTS = ("gpt2", "gpt2_s3", "pipe2_data2_s3")
+
+
+def jax_compat_run(je, batches):
+    """The JAX compat API over each step's micro batches: ``forward`` and
+    ``backward`` a micro batch at a time, then ``step``; the steps' mean
+    losses and grad norms."""
+    gas = je.gradient_accumulation_steps
+    rows = []
+    for ids in batches:
+        mbs = ids.reshape((gas, -1) + ids.shape[1:])
+        losses = []
+        for mb in mbs:
+            losses.append(float(je.forward({"input_ids": mb})))
+            je.backward()
+        je.step()
+        rows.append({"loss": float(np.mean(losses)),
+                     "grad_norm": float(je._last_metrics["grad_norm"])})
+    return rows
+
+
 def launch(tmp, cases, ring=False):
     """Run ``cases``: each world's ranks (``WORKER``, started once a world,
     in threads) while the JAX oracles run here; returns the results.
@@ -287,7 +337,8 @@ def launch(tmp, cases, ring=False):
     np.savez(os.path.join(tmp, "batches.npz"), **batches)
     with open(os.path.join(tmp, "cases.json"), "w") as fh:
         json.dump({"cases": cases, "families": FAMILIES, "base": BASE,
-                   "steps": STEPS, "ring": ring}, fh)
+                   "steps": STEPS, "ring": ring, "evals": EVALS,
+                   "ckpts": CKPTS}, fh)
     worlds = sorted({c[0] for c in cases.values()})
     box = {}
 
@@ -303,17 +354,23 @@ def launch(tmp, cases, ring=False):
         t.start()
     runs, states, extra = {}, {}, {}
     for name, (_, family, mesh, config, oracle) in cases.items():
-        if oracle not in ("pipe", "dp"):
+        if oracle not in ("pipe", "dp", "dp_compat"):
             continue
         je = jax_engine(family, oracle_mesh(mesh, oracle), config)
-        runs[name] = [{k: float(v) for k, v in je.train_step(
-            {"input_ids": batches[str(i)]}).items()} for i in range(STEPS)]
+        if oracle == "dp_compat":
+            runs[name] = jax_compat_run(je, [batches[str(i)]
+                                             for i in range(STEPS)])
+        else:
+            runs[name] = [{k: float(v) for k, v in je.train_step(
+                {"input_ids": batches[str(i)]}).items()}
+                for i in range(STEPS)]
         st = flat(jax.device_get(je.state["params"]))
         states[name] = unstack_flat(st) if oracle == "pipe" else st
         extra[name] = {"schedule": getattr(je, "schedule", None)}
-        if name == "gpt2":
+        if name in EVALS:
             extra[name]["eval"] = float(je.eval_loss(
                 {"input_ids": batches["eval"]}))
+        if name == "gpt2":
             extra[name]["stacked"] = jax.device_get(je.state["params"])
     for t in threads:
         t.join(timeout=300)
@@ -332,7 +389,7 @@ def launch(tmp, cases, ring=False):
 def source(cases, name):
     """The case whose JAX run holds ``name``'s numbers."""
     o = cases[name][4]
-    return name if o in ("pipe", "dp") else source(cases, o)
+    return name if o in ("pipe", "dp", "dp_compat") else source(cases, o)
 
 
 def check_steps(world, name, overcount=1):
@@ -381,9 +438,14 @@ def check_bytes(world, name):
     plan's count over its stage's slice (blocks / S beside the
     replicated leaves, over its model slice and data shard); the
     parameter count is the whole model's."""
-    w, family = world.cases[name][0], world.cases[name][1]
+    w, family, mesh, config, _ = world.cases[name]
+    gathers = (config.get("zero_optimization", {}).get("stage") == 3
+               and mesh.get("data", 1) > 1)
     for res in world.ranks[w]:
         assert res[name]["bytes"] == res[name]["planned"]
+        # stage 3 over a data axis gathers the stage's layers (none kept
+        # resident); without one there is nothing to gather
+        assert res[name]["blocks_gathered"] == gathers
         assert res[name]["n_params"] == sum(
             v.size for v in flat(world.inits[family]).values())
 
@@ -453,6 +515,21 @@ def test_checkpoint_resumes_bit_equal(world):
         assert r["next"][0] == r["next"][1]
 
 
+def check_resume(world, name):
+    """A state saved (gathered into the JAX layout by rank 0) and loaded
+    into a fresh engine at the same mesh (re-sharded): every leaf of
+    every rank bit-equal, the next step identical."""
+    for res in world.ranks[world.cases[name][0]]:
+        r = res[name]["resume"]
+        assert r["leaves_equal"]
+        assert r["next"][0] == r["next"][1]
+
+
+def test_zero3_checkpoint_resumes_bit_equal(world):
+    """ZeRO stage 3 at {pipe 2, model 2}."""
+    check_resume(world, "gpt2_s3")
+
+
 def test_checkpoint_holds_the_jax_stage_stacked_tree(world):
     """The file holds the stage-stacked tree the JAX engine keeps at
     that mesh: ``params_from_jax`` maps the JAX state onto it (same
@@ -460,7 +537,8 @@ def test_checkpoint_holds_the_jax_stage_stacked_tree(world):
     allowance above)."""
     adapter = pe.PipelinedLM(port_model("gpt2"), 2)
     want = params_from_jax(world.jax["gpt2"]["stacked"], adapter)
-    got = torch.load(os.path.join(world.tmp, "ckpt", f"global_step{STEPS}",
+    got = torch.load(os.path.join(world.tmp, "ckpt_gpt2",
+                                  f"global_step{STEPS}",
                                   "state.pt"), weights_only=True)["params"]
     assert tuple(got["blocks"]["attn"]["qkv"]["kernel"].shape)[:2] == (2, 2)
     fw, fg = flat(want), flat(got)
@@ -738,9 +816,25 @@ def test_constructor_refusals_word_for_word(case):
 
 
 def test_pipe_mesh_with_zero_3_stays_refused():
-    """ZeRO stage 3 with a pipe axis is the 3D composition's (queue A item
-    7's third part), before any rank is needed."""
-    with pytest.raises(NotImplementedError, match="3D composition"):
-        pe.PipelineEngine(model=port_model("gpt2"), config={
-            **BASE, "mesh": {"pipe": 2, "data": 4}, **zero(3)},
-            mesh=_mesh(pipe=2, data=4), device="cpu")
+    """ZeRO stage 3 trains under the pipeline since the 3D composition
+    came; with ZeRO-Infinity (``offload_param``) a pipe axis stays
+    refused, with the JAX engine's words, before any rank is needed."""
+    cfg = {**BASE, "mesh": {"pipe": 2}, "zero_optimization": {
+        "stage": 3, "offload_param": {"device": "cpu"}}}
+    with pytest.raises(NotImplementedError) as got:
+        pe.PipelineEngine(model=port_model("gpt2"), config=cfg,
+                          mesh=_mesh(pipe=2), device="cpu")
+    assert str(got.value) == (
+        "ZeRO-Infinity composes with data-like sharding only; mesh axis "
+        "'pipe' has size 2 — use a data/expert mesh under offload_param, "
+        "or drop offload for tp/pp/sp")
+
+
+def test_moe_under_a_model_axis_names_its_part():
+    """An MoE model under a pipe mesh with a model axis stays refused,
+    naming expert parallelism's part; with a data axis it trains
+    (``tests/test_torch_pipe_zero.py``)."""
+    with pytest.raises(NotImplementedError, match="item 7 part 5"):
+        pe.PipelineEngine(model=port_model("moe"), config={
+            **BASE, "mesh": {"pipe": 2, "model": 2}},
+            mesh=_mesh(pipe=2, model=2), device="cpu")

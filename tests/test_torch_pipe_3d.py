@@ -1,6 +1,6 @@
 """Pipeline, tensor and data parallelism together: world 8 at {pipe 2,
-data 2, model 2} under ZeRO stage 1 against the JAX ``PipelineEngine``
-at that mesh.
+data 2, model 2} under ZeRO stages 1 and 3 against the JAX
+``PipelineEngine`` at that mesh.
 
 Eight gloo ranks on the CPU (``tests/test_torch_pipe.py``'s worker and
 harness; a file of its own, so that xdist places it apart), tiny GPT-2,
@@ -13,8 +13,9 @@ from test_torch_pipe import (check_bytes, check_masters, check_no_jax,
                              check_steps, launch, zero)
 import pytest
 
-CASES = {"3d_s1": (8, "gpt2", {"pipe": 2, "data": 2, "model": 2}, zero(1),
-                   "pipe")}
+MESH = {"pipe": 2, "data": 2, "model": 2}
+CASES = {"3d_s1": (8, "gpt2", MESH, zero(1), "pipe"),
+         "3d_s3": (8, "gpt2", MESH, zero(3), "pipe")}
 
 
 @pytest.fixture(scope="module")
@@ -36,3 +37,13 @@ def test_gathered_masters_equal_jax(world):
 
 def test_state_bytes_follow_the_plan(world):
     check_bytes(world, "3d_s1")
+
+
+@pytest.mark.parametrize("check", [check_steps, check_masters, check_bytes],
+                         ids=["steps", "masters", "bytes"])
+def test_zero3_in_three_dimensions(world, check):
+    """ZeRO stage 3 at {pipe 2, data 2, model 2}: each rank keeps 1/2 of
+    its stage's model slice and gathers a layer's slice over its data
+    pair inside the stage, against the JAX PipelineEngine at that
+    mesh."""
+    check(world, "3d_s3")

@@ -13,16 +13,27 @@ loss.  Two oracles:
   clipping hide), so the port's grad norm is held to its norm over S;
 * the JAX ``DeepSpeedEngine`` at {data 1}, the same micro batches
   routed alike: loss, grad norm and masters within 1e-5.
+
+The same world trains tiny GPT-2 at {pipe 2} under ZeRO-Offload
+(``offload_optimizer: cpu``): each stage's host optimizer steps its own
+leaves.  The JAX ``PipelineEngine`` steps through its host optimizer
+there too (its ``train_step`` is the base engine's offload step, the
+whole model's loss, which the pipeline computes): losses, grad norms and
+the host masters within 1e-5, each rank's device and host bytes the
+plan's count over its stage's slice.
 """
 import pytest
 
 from test_torch_pipe import (check_bytes, check_masters, check_no_jax,
                              check_steps, launch)
 
+OFFLOAD = {"zero_optimization": {"stage": 2, "offload_optimizer": {
+    "device": "cpu"}}}
 CASES = {"moe": (2, "moe", {"pipe": 2}, {}, "pipe"),
-         "moe_dp": (2, "moe", {"pipe": 2}, {}, "dp")}
+         "moe_dp": (2, "moe", {"pipe": 2}, {}, "dp"),
+         "offload_pipe2": (2, "gpt2", {"pipe": 2}, OFFLOAD, "pipe")}
 #: the JAX MoE pipeline region's over-count of the gradient (S)
-NORM_OVERCOUNT = {"moe": 2, "moe_dp": 1}
+NORM_OVERCOUNT = {"moe": 2, "moe_dp": 1, "offload_pipe2": 1}
 
 
 @pytest.fixture(scope="module")

@@ -83,7 +83,8 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 
 @pytest.mark.parametrize("script", ["b5_variants.py", "paged_variants.py",
-                                    "drain_profile.py"])
+                                    "drain_profile.py",
+                                    "chip_smoke_sampler.py"])
 def test_card_scripts_import_nothing_of_jax(script):
     """The root scripts that run on the card's machine (which has no jax)
     import neither jax nor the JAX package."""

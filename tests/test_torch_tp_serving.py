@@ -376,7 +376,7 @@ def test_mesh_refuses_spec_lane_host_tier_and_fleet(world):
     for res in world.ranks[2]:
         assert res["refused"] == [
             f"{what} on a serving mesh beyond 1x1 (data=1, model=2): not "
-            f"in the PyTorch port yet (ROADMAP.md queue A item 7)"
+            f"in the PyTorch port yet (ROADMAP.md queue A item 7 part 3b)"
             for what in ("the speculative lane", "the fleet")]
 
 

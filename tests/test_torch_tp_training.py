@@ -59,6 +59,7 @@ from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.module_inject.auto_tp import auto_tp_specs
 from deepspeed_tpu_torch.parallel import collectives as pc
 from deepspeed_tpu_torch.runtime.dataloader import rank_slice
+from test_torch_pipe import jax_compat_run
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -81,15 +82,25 @@ BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
 
 
 def zero(stage):
-    return {"zero_optimization": {"stage": stage}}
+    # stage 3 at a persistence threshold of 0: the tiny model's leaves
+    # are all below the default, which would keep every one resident
+    extra = {"param_persistence_threshold": 0} if stage == 3 else {}
+    return {"zero_optimization": {"stage": stage, **extra}}
 
 
-#: name → (world, family, mesh, config, batch seed, steps)
+OFFLOAD = {"zero_optimization": {"stage": 2, "offload_optimizer": {
+    "device": "cpu"}}}
+#: name → (world, family, mesh, config, batch seed, steps); a "compat"
+#: case steps through forward/backward/step (and train_step beside it)
 CASES = {
     "s0": (4, "gpt2", {"data": 2, "model": 2}, zero(0), 1, 3),
     "s1": (4, "gpt2", {"data": 2, "model": 2}, zero(1), 1, 3),
     "s2": (4, "gpt2", {"data": 2, "model": 2}, zero(2), 1, 3),
+    "s3": (4, "gpt2", {"data": 2, "model": 2}, zero(3), 1, 3),
     "llama": (2, "llama", {"model": 2}, zero(0), 3, 2),
+    "offload_m2": (2, "gpt2", {"model": 2}, OFFLOAD, 4, 3),
+    "compat_s1": (2, "gpt2", {"data": 2}, zero(1), 5, 3),
+    "compat_s3": (2, "gpt2", {"data": 2}, zero(3), 5, 3),
 }
 
 
@@ -139,6 +150,7 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.parallel import collectives as pc
 from deepspeed_tpu_torch.runtime.dataloader import rank_slice
+from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
 
 d = os.environ["TP_TEST_DIR"]
 dt.init_distributed("gloo", timeout=90)
@@ -186,25 +198,69 @@ def engine(family, mesh_block, config, p=True, **kw):
                          params=params(family, m) if p else None,
                          device="cpu", **kw)
 
-out, whole = {}, {}
-for name, (w, family, mesh, config, seed, steps) in spec["cases"].items():
-    if w != world:
-        continue
-    eng = engine(family, mesh, config)[0]
-    batches = np.load(os.path.join(d, f"batches_{name}.npz"))
+def run(eng, batches, steps, compat):
     rows = []
     for i in range(steps):
         b = rank_slice({"input_ids": batches[str(i)]},
                        eng.gradient_accumulation_steps, eng.dp_world_size,
                        eng.dp_rank)
-        m = eng.train_step(b)
-        rows.append([float(m["loss"]), float(m["grad_norm"])])
+        if compat:
+            # one micro batch a forward, as the JAX compat API takes them
+            losses = []
+            for mb in b["input_ids"].reshape(
+                    (eng.gradient_accumulation_steps, -1, 64)):
+                losses.append(float(eng.forward({"input_ids": mb})))
+                eng.backward()
+            eng.step()
+            rows.append([float(np.mean(losses)),
+                         float(eng._last_metrics["grad_norm"])])
+        else:
+            m = eng.train_step(b)
+            rows.append([float(m["loss"]), float(m["grad_norm"])])
+    return rows
+
+def state_bytes(eng):
+    if eng.offload_enabled:
+        return ({"params": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(eng.state["params"])),
+                 "host": eng._host_opt.host_bytes},
+                eng.offload_planned_bytes())
+    return (eng.zero_state_bytes(),
+            eng._zero.planned_bytes(eng._param_shapes, 4))
+
+out, whole = {}, {}
+for name, (w, family, mesh, config, seed, steps) in spec["cases"].items():
+    if w != world:
+        continue
+    compat = name.startswith("compat")
+    eng = engine(family, mesh, config)[0]
+    batches = np.load(os.path.join(d, f"batches_{name}.npz"))
+    rows = run(eng, batches, steps, compat)
     full = eng.full_state()
     whole.update({name + "/" + k: v for k, v in flat(full["params"]).items()})
-    out[name] = {"rows": rows, "bytes": eng.zero_state_bytes(),
-                 "planned": eng._zero.planned_bytes(eng._param_shapes, 4),
+    got, planned = state_bytes(eng)
+    out[name] = {"rows": rows, "bytes": got, "planned": planned,
                  "n_params": eng.num_parameters(),
-                 "dp_rank": eng.dp_rank}
+                 "dp_rank": eng.dp_rank,
+                 "blocks_gathered": eng._zero is not None and
+                 eng._zero.stage == 3 and
+                 eng._zero.sharded(eng._zero.param_dims["blocks"])}
+    if compat:
+        # train_step from the same params and batches
+        out[name]["train_step"] = run(engine(family, mesh, config)[0],
+                                      batches, steps, False)
+    if name == "s3":
+        # a ZeRO-3 checkpoint at {data 2, model 2}: gathered by rank 0,
+        # re-sharded into a fresh engine; the next step on both
+        ck = os.path.join(d, "ckpt_s3")
+        eng.save_checkpoint(ck)
+        fresh = engine(family, mesh, config, p=False)[0]
+        fresh.load_checkpoint(ck)
+        again = {"0": batches["0"]}
+        out[name]["resume"] = {
+            "leaves_equal": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(eng.state), tree_leaves(fresh.state))),
+            "next": [run(e, again, 1, False)[0] for e in (eng, fresh)]}
 
 if world == 4:
     # the dataloader: every rank's first batch
@@ -336,13 +392,18 @@ def world(tmp_path_factory):
     threads = [threading.Thread(target=ranks, args=(n,)) for n in (2, 4)]
     for t in threads:
         t.start()
-    runs, states = {}, {}
+    runs, states, compat = {}, {}, {}
     for name, (_, family, mesh, config, seed, steps) in CASES.items():
         je = jax_engine(family, mesh, config)
         bs = np.load(os.path.join(tmp, f"batches_{name}.npz"))
         runs[name] = [{k: float(v) for k, v in je.train_step(
             {"input_ids": bs[str(i)]}).items()} for i in range(steps)]
         states[name] = flat(jax.device_get(je.state["params"]))
+        if name.startswith("compat"):
+            # the JAX compat API from the same params and batches
+            compat[name] = jax_compat_run(
+                jax_engine(family, mesh, config),
+                [bs[str(i)] for i in range(steps)])
     pair = jax_pair(io)
     # one rank of the port: the ALiBi model's logits
     pm = port_model("bloom")
@@ -373,6 +434,7 @@ def world(tmp_path_factory):
                              device="cpu")
     ck_gen = ieng.generate(np.arange(1, 9)[None], max_new_tokens=6).tolist()
     return types.SimpleNamespace(runs=runs, states=states, ranks=ranks_out,
+                                 compat=compat,
                                  whole=whole, pair=pair, io=io, bloom=bloom,
                                  ck_step=ck_step, ck_gen=ck_gen,
                                  inits=inits, ids=ids)
@@ -429,11 +491,41 @@ def test_state_bytes_follow_the_plan(world, name):
     """Each rank's bytes by kind, counted from its tensors, are the
     plan's count over its model slice; the parameter count is the whole
     model's."""
-    n, family = CASES[name][0], CASES[name][1]
+    n, family, config = CASES[name][0], CASES[name][1], CASES[name][3]
+    stage3 = config["zero_optimization"].get("stage") == 3
     for res in world.ranks[n]:
         assert res[name]["bytes"] == res[name]["planned"]
+        # stage 3 gathers the layers (none kept resident)
+        assert res[name]["blocks_gathered"] == stage3
         assert res[name]["n_params"] == sum(
             v.size for v in flat(world.inits[family]).values())
+
+
+def test_zero3_checkpoint_resumes_bit_equal(world):
+    """A ZeRO-3 state at {data 2, model 2} (each rank's shards of its
+    model slice) saved and loaded into a fresh engine at that mesh:
+    every leaf of every rank bit-equal, the next step identical."""
+    for res in world.ranks[4]:
+        r = res["s3"]["resume"]
+        assert r["leaves_equal"]
+        assert r["next"][0] == r["next"][1]
+
+
+@pytest.mark.parametrize("name", [n for n in CASES
+                                  if n.startswith("compat")])
+def test_compat_surface_equals_train_step_and_jax(world, name):
+    """``forward`` + ``backward`` a micro batch at a time, then ``step``,
+    under ZeRO at {data 2}: every rank's losses (the mean of its
+    forwards') and grad norms equal its ``train_step``'s from the same
+    params and batches, and the JAX compat API's, within 1e-5 (the
+    masters are held to the JAX ``train_step``'s above)."""
+    want = [[r["loss"], r["grad_norm"]] for r in world.compat[name]]
+    for res in world.ranks[CASES[name][0]]:
+        got = res[name]["rows"]
+        assert len(got) == len(want)
+        np.testing.assert_allclose(got, res[name]["train_step"], rtol=1e-5,
+                                   atol=0)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
 def test_dataloader_cuts_by_the_data_coordinate(world):

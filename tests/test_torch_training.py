@@ -375,21 +375,22 @@ def test_config_keys_and_defaults_match_jax():
 
 @pytest.mark.parametrize("block", [
     {"sequence_parallel": {"enabled": True}},
-    # ZeRO stages 1-3 over data parallelism and tensor parallelism at
-    # stages 0-2 run since their slices (tests/test_torch_zero.py,
-    # tests/test_torch_tp_training.py); the later parts of queue A item 7
-    # stay refused: expert parallelism, ZeRO stage 3 over a model-sharded
-    # mesh (the 3D composition), and offload over a data-parallel mesh
-    # (ZeRO-Infinity's dp-sharded part)
+    # ZeRO stages 1-3 over data, tensor and pipeline parallelism run
+    # since their slices and the 3D composition's (tests/test_torch_zero.py,
+    # tests/test_torch_tp_training.py, tests/test_torch_pipe*.py); the
+    # later parts of queue A item 7 stay refused: expert parallelism, the
+    # 1-bit optimizers (also with ZeRO stage 3 over a model axis or the
+    # pipeline), and offload over a data-parallel mesh (ZeRO-Infinity's
+    # dp-sharded part)
     {"mesh": {"expert": 2}},
     {"tensor_parallel": {"enabled": True, "tp_size": 2},
-     "zero_optimization": {"stage": 3}},
+     "zero_optimization": {"stage": 3}, "optimizer": {"type": "OneBitAdam"}},
     {"zero_optimization": {"stage": 2, "offload_optimizer": {
         "device": "cpu"}}, "mesh": {"data": 2}},
-    {"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
-    # the pipeline runs since its slice (tests/test_torch_pipe*.py);
-    # ZeRO stage 3 under it is the 3D composition's
-    {"pipeline": {"stages": 2}, "zero_optimization": {"stage": 3}},
+    {"mesh": {"model": 2}, "zero_optimization": {"stage": 3},
+     "optimizer": {"type": "OneBitLamb"}},
+    {"pipeline": {"stages": 2}, "zero_optimization": {"stage": 3},
+     "optimizer": {"type": "ZeroOneAdam"}},
     {"tensorboard": {"enabled": True}},
     {"csv_monitor": {"enabled": True}},
 ])

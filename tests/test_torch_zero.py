@@ -59,6 +59,7 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     rank_slice)
+from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
 from deepspeed_tpu_torch.runtime.zero import sharding as psh
 from deepspeed_tpu_torch.runtime.zero import tiling as ptiling
 
@@ -484,6 +485,46 @@ def test_policy_dims_equal_jax_specs(family, threshold, axes):
                 assert dflat[path] == _dims_of(js), (stage, path)
 
 
+@pytest.mark.parametrize("axes", [dict(data=2, model=2), dict(pipe=2, data=2),
+                                  dict(pipe=2, data=2, model=2)],
+                         ids=["data2_model2", "pipe2_data2", "3d"])
+def test_stage3_dims_on_model_and_pipe_cut_leaves_equal_jax(axes):
+    """Stage 3 over leaves already cut over ``model`` (the TP slice) or
+    ``pipe`` (the stage-stacked blocks): from the same spec tree, the
+    port's policy adds the data axes where the JAX policy does, never on
+    the layer dim, so a layer's gather runs over ``data`` only."""
+    from deepspeed_tpu_torch.runtime.pipe.engine import PipelinedLM
+    n = int(np.prod(list(axes.values())))
+    mesh = build_mesh(MeshConfig(**axes), devices=jax.devices()[:n])
+    model = port_model("gpt2")
+    if "pipe" in axes:
+        model = PipelinedLM(model, 2)
+        model.use_onehot_embed = "model" in axes
+    pshapes = model.param_shapes()
+    pspecs = psh._map(lambda _p, sp: tuple(
+        None if (e == "model" and "model" not in axes) else e
+        for e in sp), model.partition_specs())
+    is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
+    jp = jsh.ZeroShardingPolicy(
+        3, mesh, jax.tree_util.tree_map(
+            lambda sp: jax.sharding.PartitionSpec(*sp), pspecs,
+            is_leaf=is_spec),
+        jax.tree_util.tree_map(
+            lambda sh: jax.ShapeDtypeStruct(sh, jnp.float32), pshapes,
+            is_leaf=is_spec), param_persistence_threshold=0)
+    pp = psh.ZeroShardingPolicy(3, types.SimpleNamespace(
+        shape=dict(mesh.shape)), pshapes, pspecs,
+        param_persistence_threshold=0)
+    jflat = flat_specs(jax.tree_util.tree_map(
+        tuple, jp.model_param_specs(),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))
+    assert jflat == flat_specs(pp.model_param_specs())
+    lead = 2 if "pipe" in axes else 1
+    for path, d in flat(pp.model_param_dims(), conv=lambda d: d).items():
+        if path.startswith("blocks/") and d is not None:
+            assert d >= lead, path
+
+
 def test_grad_reduce_plan_equals_jax():
     jm = jax_model("gpt2")
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
@@ -543,42 +584,41 @@ def test_rank_slices_are_the_jax_device_rows():
 
 #: configs the slice refuses, each with the message that names its part
 REFUSED = [
-    # tensor parallelism runs at stages 0-2 (tests/test_torch_tp_training.py);
-    # stage 3 over a model-sharded mesh is the 3D composition's
-    ({"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
-     "mesh axis model=2: ZeRO stage 3 over a model-sharded mesh, the 3D "
-     "composition (queue A item 7)"),
-    # the pipeline runs at stages 0-2 (tests/test_torch_pipe*.py); stage
-    # 3 with a pipe axis, or pipeline stages, is the 3D composition's
-    ({"mesh": {"pipe": 2}, "zero_optimization": {"stage": 3}},
-     "mesh axis pipe=2: ZeRO stage 3 over a pipe mesh, the 3D composition "
-     "(queue A item 7)"),
     ({"mesh": {"sequence": 2}},
      "mesh axis sequence=2: ring and Ulysses sequence parallelism "
-     "(queue A item 7)"),
+     "(queue A item 7 part 6)"),
     ({"mesh": {"expert": 2}},
      "mesh axis expert=2: moe.ep_size above 1, expert parallelism "
-     "(queue A item 7)"),
-    ({"tensor_parallel": {"enabled": True, "tp_size": 2},
-      "zero_optimization": {"stage": 3}},
-     "tensor_parallel: ZeRO stage 3 at tp_size 2, the 3D composition "
-     "(queue A item 7)"),
-    ({"pipeline": {"stages": 2}, "zero_optimization": {"stage": 3}},
-     "pipeline.stages 2: ZeRO stage 3 under the pipeline, the 3D "
-     "composition (queue A item 7)"),
-    ({"mesh": {"pipe": 2}, "zero_optimization": {"stage": 1,
-      "offload_optimizer": {"device": "cpu"}}},
-     "offload over a pipe mesh (pipe=2): the 3D composition (queue A "
-     "item 7)"),
+     "(queue A item 7 part 5)"),
     ({"sequence_parallel": {"enabled": True}},
      "sequence_parallel: ring and Ulysses sequence parallelism "
-     "(queue A item 7)"),
+     "(queue A item 7 part 6)"),
     ({"optimizer": {"type": "OneBitAdam"}},
-     "optimizer OneBitAdam: the 1-bit optimizers (queue A item 7)"),
+     "optimizer OneBitAdam: the 1-bit optimizers (queue A item 7 part 7)"),
+    ({"optimizer": {"type": "OneBitLamb"}, "zero_optimization": {
+        "stage": 3}, "mesh": {"model": 2}},
+     "optimizer OneBitLamb: the 1-bit optimizers (queue A item 7 part 7)"),
     ({"zero_optimization": {"stage": 2, "offload_optimizer": {
         "device": "cpu"}}, "mesh": {"data": 2}},
      "offload at a data-parallel size of 2: ZeRO-Infinity's dp-sharded "
-     "part (queue A item 7)"),
+     "part (queue A item 7 part 8)"),
+    # ZeRO-Offload over a pipe or model axis runs at a data-parallel
+    # size of 1 (tests/test_torch_pipe_moe.py, test_torch_tp_training.py)
+    ({"mesh": {"pipe": 2, "data": 2}, "zero_optimization": {"stage": 1,
+      "offload_optimizer": {"device": "cpu"}}},
+     "offload at a data-parallel size of 2: ZeRO-Infinity's dp-sharded "
+     "part (queue A item 7 part 8)"),
+    ({"csv_monitor": {"enabled": True}, "mesh": {"pipe": 2},
+      "zero_optimization": {"stage": 3}},
+     "tensorboard / wandb / csv_monitor: monitors (queue A item 9's "
+     "auxiliary subsystems)"),
+    ({"mesh": {"expert": 2, "sequence": 2}},
+     "mesh axis sequence=2: ring and Ulysses sequence parallelism "
+     "(queue A item 7 part 6); mesh axis expert=2: moe.ep_size above 1, "
+     "expert parallelism (queue A item 7 part 5)"),
+    ({"optimizer": {"type": "ZeroOneAdam"}, "tensor_parallel": {
+        "enabled": True, "tp_size": 2}, "zero_optimization": {"stage": 3}},
+     "optimizer ZeroOneAdam: the 1-bit optimizers (queue A item 7 part 7)"),
 ]
 
 
@@ -592,13 +632,74 @@ def test_config_gate_refusals_word_for_word(block, message):
                               f"port: {message} (see ROADMAP.md queue A)")
 
 
+#: the 3D compositions the gate admits since they came: ZeRO stage 3
+#: over a model axis, a pipe axis or pipeline stages, and ZeRO-Offload
+#: over a model or pipe axis at a data-parallel size of 1
+ADMITTED = {
+    "zero3_model": {"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
+    "zero3_tp": {"tensor_parallel": {"enabled": True, "tp_size": 2},
+                 "zero_optimization": {"stage": 3}},
+    "zero3_pipe": {"mesh": {"pipe": 2}, "zero_optimization": {"stage": 3}},
+    "zero3_stages": {"pipeline": {"stages": 2},
+                     "zero_optimization": {"stage": 3}},
+    "offload_pipe": {"mesh": {"pipe": 2}, "zero_optimization": {
+        "stage": 1, "offload_optimizer": {"device": "cpu"}}},
+    "offload_model": {"mesh": {"model": 2}, "zero_optimization": {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}}},
+}
+
+
+@pytest.mark.parametrize("name", list(ADMITTED))
+def test_gate_admits_the_3d_compositions(name):
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    DeepSpeedConfig({"train_batch_size": 4,
+                     **ADMITTED[name]}).refuse_out_of_slice()
+
+
+@pytest.mark.parametrize("axis", ["model", "pipe"])
+def test_infinity_over_model_or_pipe_refuses_with_jax_words(axis):
+    """ZeRO-Infinity (``offload_param``) over a model or pipe axis: the
+    JAX engine's own refusal, word for word."""
+    from deepspeed_tpu.runtime.zero.infinity import InfinityStepper
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    cfg = {"train_batch_size": 4, "mesh": {axis: 2}, "zero_optimization": {
+        "stage": 3, "offload_param": {"device": "cpu"}}}
+    jeng = types.SimpleNamespace(mesh=types.SimpleNamespace(
+        shape={"model": 1, "pipe": 1, "sequence": 1, axis: 2}))
+    with pytest.raises(NotImplementedError) as want:
+        InfinityStepper._validate(jeng, jax_model("gpt2"), None)
+    with pytest.raises(NotImplementedError) as got:
+        DeepSpeedConfig(cfg).refuse_out_of_slice()
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("stage", [1, 2, 3])
 def test_gate_admits_zero_stages_at_world_one(stage):
-    eng = dt.initialize(model=port_model("gpt2"), config={
-        "train_batch_size": 4, **zero(stage)}, device="cpu")[0]
+    """ZeRO stages 1-3 at world 1, through the compat surface too:
+    ``forward`` + ``backward`` per micro batch then ``step`` give what
+    ``train_step`` gives from the same params and batch."""
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "gradient_clipping": 0.25, **zero(stage)}
+    eng = dt.initialize(model=port_model("gpt2"), config=cfg,
+                        device="cpu")[0]
+    ref = dt.initialize(model=port_model("gpt2"), config=cfg,
+                        device="cpu")[0]
     assert eng.zero_stage == stage and eng.dp_world_size == 1
-    with pytest.raises(NotImplementedError, match="compat forward"):
-        eng.forward({"input_ids": np.zeros((4, 64), np.int32)})
+    ids = np.random.RandomState(stage).randint(0, 256, (4, 64))
+    losses = []
+    for mb in ids.reshape(2, 2, 64):
+        losses.append(float(eng.forward({"input_ids": mb})))
+        eng.backward()
+    assert eng.is_gradient_accumulation_boundary()
+    eng.step()
+    m = ref.train_step({"input_ids": ids})
+    np.testing.assert_allclose(np.mean(losses), float(m["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(eng._last_metrics["grad_norm"]),
+                               float(m["grad_norm"]), rtol=1e-5)
+    for a, b in zip(tree_leaves(eng.state["params"]),
+                    tree_leaves(ref.state["params"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("weights,parts", [
