@@ -338,12 +338,34 @@ Phases (any failure exits non-zero and prints no result line):
    slice plus its resident leaves; per part the bytes, peak memory,
    s/step and the comm log.
 
-``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33 34``
+35. the serving mesh's rest (``p35_report``), in phase 32 (a)'s world of
+   4 gloo ranks sharing the card, after its drains and ``generate()``,
+   each part held to one rank without a mesh in the parent: (a) the
+   speculative lane at {data 2, model 2}: GPT-3 6.7B's width at
+   ``TP_SERVE_LAYERS`` layers with phase 24 (b)'s GPT-3 Small draft
+   (untrained, seed 1), ``spec_k`` 3, over ``P35_SPEC_REQS`` of phase
+   5's requests: streams equal to the one-rank spec server's up to a near
+   tie, proposed and accepted counts, B6 (once a spec depth) and B7
+   exact against the dispatch log on every rank; (b) the host tier at
+   {data 1, model 4}: phase 26's DRAM hit at wire 0 (A, the filler
+   waves, B): spills, hits and promoted blocks equal to one rank's, each
+   rank's resident host bytes a quarter of one rank's, B's TTFT printed;
+   (c) a disaggregated fleet at {data 2, model 2} over phase 27's
+   requests (``P35_FLEET`` of each kind): every stream exactly once,
+   equal to the one-rank fleet's up to a near tie, every handed-off
+   prefill on the decode replica its tail alone; (d) BERT-large
+   (``policies.BERT_LARGE_UNCASED``, random weights from seed 0)
+   ``forward()`` at ``tensor_parallel.tp_size`` 2 over the 4 ranks
+   ({data 2, model 2}), ``P35_BERT`` tokens: logits within
+   ``LOGITS_REL_TOL`` of one rank's, B1 (non-causal, 8 of 16 heads) once
+   a layer on every rank.
+
+``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33 34 35``
 (any of them) builds the kernels and runs only those phases ("3": phase
 3's cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B engine;
 "32" without "31": phase 32 (a) alone; "33" and "34" need "31", whose
-world they run in), then prints no result line: a probe of the newest
-phases.
+world they run in; "35" needs "32", whose (a) world it runs in), then
+prints no result line: a probe of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -2222,8 +2244,8 @@ def main(argv=None) -> int:
     # -- 32. tensor parallelism: serving at GPT-3 6.7B width, training
     # GPT-2 125M (its (b) ran in phase 31's world) --------------------------
     free_card(torch, "tensor parallelism")
-    tp = tp_phase(torch, np, zero)
-    elapsed("phase 32")
+    tp = tp_phase(torch, np, zero, p35=True)
+    elapsed("phase 32 and 35")
 
     # -- 33. pipeline parallelism (it ran in phase 31's world) --------------
     pp = pipe_report(zero, nvidia_smi_line(0))
@@ -5031,18 +5053,23 @@ def fleet_run(torch, np, eng, label, base, shared, fleet_kw, kill=False,
                                chunk[3]))
             return out
         r.srv._dispatch = logged
-    model = eng.module
-    mixed = model._apply_paged_mixed
+    # the replicas' models: the module itself at one rank, each server's
+    # own per-shard view on a mesh
+    models = list({id(r.srv.model): r.srv.model
+                   for r in fleet.replicas}.values())
     lanes = {"decode": 0, "chunk": 0}
 
-    def counted(params, cache, dec_tokens, dec_active, chunk_ids, *rest,
+    def counted(mixed):
+        def run(params, cache, dec_tokens, dec_active, chunk_ids, *rest,
                 **kw):
-        lanes["decode"] += int(dec_tokens.shape[0] > 0)
-        lanes["chunk"] += int(chunk_ids.shape[0] > 0)
-        return mixed(params, cache, dec_tokens, dec_active, chunk_ids,
-                     *rest, **kw)
+            lanes["decode"] += int(dec_tokens.shape[0] > 0)
+            lanes["chunk"] += int(chunk_ids.shape[0] > 0)
+            return mixed(params, cache, dec_tokens, dec_active, chunk_ids,
+                         *rest, **kw)
+        return run
     if not threaded:
-        model._apply_paged_mixed = counted
+        for m in models:
+            m._apply_paged_mixed = counted(m._apply_paged_mixed)
     build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5101,7 +5128,9 @@ def fleet_run(torch, np, eng, label, base, shared, fleet_kw, kill=False,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(build.launch_counts)
-    model._apply_paged_mixed = mixed
+    if not threaded:
+        for m in models:
+            del m._apply_paged_mixed
     fires = {site: fi.fire_count(site) for site in ("serving.fleet.route",
                                                     "serving.fleet.replica_step")}
     install_fault_injector(FaultInjector())
@@ -5536,6 +5565,8 @@ def host_cache_case(torch, np, eng, label, kv_bits, host_cache, fillers,
                                     eng.module.config.hdim, kv_bits, 0))
     if hc is not None:
         out["resident"] = {t: hc.resident_bytes(t) for t in hc.tier_names}
+        out["hits"] = dict(hc.hits_total)
+        out["spills_total"] = hc.spills_total
         if nvme_dir:
             out["fallbacks"] = odirect_fallbacks() - fallbacks0
         hc.close()
@@ -5671,7 +5702,7 @@ def host_cache_phase(torch, np, eng, label) -> dict:
 
 
 ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31",
-               "32", "33", "34"}
+               "32", "33", "34", "35"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5720,11 +5751,14 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         res["31"] = zero_phase(torch, np, pipe="33" in only,
                                p34="34" in only)
         elapsed("phase 31")
+    if "35" in only:
+        check("32" in only, "phase 35 runs in phase 32 (a)'s world: "
+                            "--only 32 35")
     if "32" in only:
         # (b) reads phase 31's world: without "31", (a) alone
         free_card(torch, "phase 32")
-        tp_phase(torch, np, res.get("31"))
-        elapsed("phase 32")
+        tp_phase(torch, np, res.get("31"), p35="35" in only)
+        elapsed("phase 32 (and 35)" if "35" in only else "phase 32")
     if "33" in only:
         from deepspeed_tpu_torch.accelerator import nvidia_smi_line
         check("31" in only, "phase 33 runs in phase 31's world: --only 31 33")
@@ -7012,6 +7046,13 @@ if mode == "mesh":
     out["gen_stats"] = {"wall": wall, "b5": build.launch_counts[
         "decode_attention"], "weights": got_w, "weights_plan": plan_w,
         "log": log, "stats": eng.latency_stats()}
+if mode == "mesh" and os.environ.get("P35") == "1":
+    # phase 35 in this world: the parts' engines on their own meshes
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["p35"] = cs.p35_cases(torch, np, None, f"rank {rank}", out_dir,
+                              dev)
 torch.save(logits, os.path.join(out_dir, f"logits_{mode}_{rank}.pt"))
 print("P32RESULT " + json.dumps(out), flush=True)
 comm.destroy_process_group()
@@ -7024,14 +7065,16 @@ def _tp_result(text: str) -> dict:
     return json.loads(lines[-1][len("P32RESULT "):])
 
 
-def tp_phase(torch, np, zero) -> dict:
+def tp_phase(torch, np, zero, p35: bool = False) -> dict:
     """Phase 32: tensor parallelism (see the module docstring).  (a)
     serves GPT-3 6.7B's width at ``TP_SERVE_LAYERS`` layers: the reference
     here, world 1 on NCCL at mesh 1 x 1 in a child (bit-equal to it), then
     4 gloo ranks sharing the card at each of ``TP_SERVE_MESHES`` and
     ``generate()`` at tp_size 4.  (b) reads phase 31's world: GPT-2 125M
     at each of ``TP_TRAIN_MESHES``, each step from phase 31 (a)'s state.
-    Returns the launch counts of (a) and (b) on rank 0."""
+    With ``p35``, phase 35 runs in (a)'s world of 4 after it, its
+    references here on (a)'s reference engine (``p35_report``).  Returns
+    the launch counts of (a) and (b) on rank 0."""
     import gc
     import shutil
     import tempfile
@@ -7071,9 +7114,16 @@ def tp_phase(torch, np, zero) -> dict:
           f"{time.perf_counter() - t0:.1f} s with the engine's init")
 
     out_dir = tempfile.mkdtemp(prefix="dstpu_tp_")
+    ref35 = None
+    if p35:
+        t35 = time.perf_counter()
+        ref35 = p35_cases(torch, np, eng, "reference", out_dir,
+                          torch.device("cuda", 0))
+        ref35["seconds"] = time.perf_counter() - t35
     env = {"P32_OUT": out_dir, "P32_TIMEOUT": str(TP_DEADLINE),
            "P32_LAYERS": str(TP_SERVE_LAYERS), "P32_NEW": str(TP_GEN_NEW),
-           "P32_MESHES": json.dumps(TP_SERVE_MESHES)}
+           "P32_MESHES": json.dumps(TP_SERVE_MESHES),
+           "P35": "1" if p35 else "0"}
     try:
         # world 1 on NCCL at mesh 1 x 1: bit-equal to the reference
         t0 = time.perf_counter()
@@ -7101,6 +7151,10 @@ def tp_phase(torch, np, zero) -> dict:
         ranks = [_tp_result(o) for o in outs]
         logits = [torch.load(f"{out_dir}/logits_mesh_{r}.pt")
                   for r in range(TP_WORLD)]
+        if p35:
+            bert = {who: torch.load(f"{out_dir}/bert_{who}.pt")
+                    for who in ["reference"] + [f"rank {r}"
+                                                for r in range(TP_WORLD)]}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print(f"phase 32 (a) world {TP_WORLD} over gloo, the ranks sharing the "
@@ -7191,6 +7245,10 @@ def tp_phase(torch, np, zero) -> dict:
         print(f"    {op}: {lg['count']} calls, {lg['bytes'] / 1e6:.2f} MB "
               f"on rank 0, {lg['seconds'] * 1e3:.1f} ms; busbw "
               f"{lg['busbw_GBps']:.3f} GB/s")
+    if p35:
+        counts_out["p35"] = p35_report(torch, np, eng, ref35,
+                                       [res["p35"] for res in ranks], bert,
+                                       card)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -7198,6 +7256,271 @@ def tp_phase(torch, np, zero) -> dict:
     if zero is not None:
         counts_out["train"] = tp_train_report(zero, card)
     return counts_out
+
+
+# -- 35. the serving mesh's rest ----------------------------------------------
+#: phase 35's meshes: (a) and (c) at {data 2, model 2}, (b) at {data 1,
+#: model 4}; (d) is ``forward()`` at tensor_parallel.tp_size 2 over the
+#: 4 ranks
+P35_MESHES = {"spec": {"data": 2, "model": 2},
+              "host": {"data": 1, "model": 4},
+              "fleet": {"data": 2, "model": 2}}
+#: (a) the first of phase 5's 16 requests (cut for the run's time), (c)
+#: the first of phase 27's base and of its shared-prefix requests each,
+#: (d) BERT-large's batch x tokens
+P35_SPEC_REQS, P35_FLEET, P35_BERT = 8, 4, (2, 128)
+
+
+def p35_cases(torch, np, eng, who, out_dir, dev) -> dict:
+    """Phase 35's parts on one rank of the world (``eng`` None: each
+    part's engine on its mesh, ``P35_MESHES``; BERT at tp_size 2) or,
+    as the reference, on phase 32 (a)'s one-rank engine ``eng`` (BERT
+    without a mesh), every engine on ``dev`` (the one card).  Returns
+    each part's results (plain values); BERT's logits go to
+    ``out_dir/bert_<who>.pt``."""
+    import gc
+    from deepspeed_tpu_torch import hf_bert_config, init_inference
+    from deepspeed_tpu_torch.inference.serving import BlockCodec
+    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.module_inject.policies import \
+        BERT_LARGE_UNCASED
+    from deepspeed_tpu_torch.ops import build
+    cfg = gpt2_config("6.7b", num_layers=TP_SERVE_LAYERS)
+    V = cfg.vocab_size
+    label = f"phase 35 {who}"
+
+    def engine(part):
+        if eng is not None:
+            return eng
+        return init_inference(TransformerLM(cfg), {
+            "dtype": "bfloat16", "temperature": 0.0,
+            "serving": {**SERVING, "mesh": P35_MESHES[part]}}, device=dev)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    out, t0 = {}, time.perf_counter()
+    # (a) the spec lane
+    e = engine("spec")
+    _, _, _, prompts = serving_prompts(np, V)
+    srv = ServingEngine(e, draft_model=TransformerLM(gpt2_config(
+        "125m", vocab_size=V)))
+    reqs, log, wall, counts, _ = spec_drain(
+        torch, srv, prompts[:P35_SPEC_REQS], f"{label} (a) spec lane")
+    out["spec"] = {
+        "streams": [r.output for r in reqs],
+        "ids": [r.req_id for r in reqs], "spec": dict(srv.spec_counts),
+        "wall": wall, "tokens": sum(len(r.output) for r in reqs),
+        "dispatches": len(log),
+        "spec_lanes": sum(bool(x["spec"]) for x in log),
+        "b6": counts["paged_decode_attention"],
+        "b7": counts["paged_prefill_attention"],
+        "decisions": srv.lockstep.broadcasts,
+        "seconds": time.perf_counter() - t0}
+    del srv, reqs, log
+    free()
+    # (c) the disaggregated fleet, on (a)'s engine
+    t1 = time.perf_counter()
+    base, shared = fleet_prompts(np, V)
+    run = fleet_run(torch, np, e, f"{label} (c) disaggregated fleet",
+                    base[:P35_FLEET], shared[:P35_FLEET],
+                    {"replicas": 2, "prefill_replicas": 1})
+    out["fleet"] = {
+        "streams": [f.output for f in run["reqs"]],
+        "ids": [f.req_id for f in run["reqs"]],
+        "prompts": [list(f.prompt) for f in run["reqs"]],
+        "prefill_done": [f.prefill_done for f in run["reqs"]],
+        "chunks": [[rid, list(p), start, n]
+                   for rid, p, start, n in run["chunks"]],
+        "counts": run["counts"], "rids": run["rids"],
+        "replicas": run["replicas"], "published": run["published"],
+        "dropped": run["dropped"], "orphans": run["orphans"],
+        "tokens": run["tokens"], "wall": run["wall"],
+        "seconds": time.perf_counter() - t1}
+    del run
+    if eng is None:
+        del e
+    free()
+    # (b) the host tier: phase 26's DRAM hit at wire 0
+    t1 = time.perf_counter()
+    e = engine("host")
+    rng = np.random.default_rng(26)
+    P = rng.integers(0, V, HC_PREFIX).tolist()
+    A = P + rng.integers(0, V, HC_TAIL).tolist()
+    B = P + rng.integers(0, V, HC_TAIL).tolist()
+    fill = [[rng.integers(0, V, HC_FILLER).tolist() for _ in range(HC_WAVE)]
+            for _ in range(4)]
+    raw = BlockCodec(cfg.num_layers, SERVING["kv_block_size"], cfg.kv_heads,
+                     cfg.hdim, wire_bits=0, dtype=torch.bfloat16).nbytes
+    run = host_cache_case(
+        torch, np, e, f"{label} (b) host tier", 0,
+        {"enabled": True, "wire_bits": 0,
+         "dram_budget_bytes": HC_ENTRIES * raw}, True, (A, B, fill))
+    out["host"] = {k: run[k] for k in (
+        "ttft", "wall", "b6", "b7", "promoted", "promote_s", "spills",
+        "spills_b", "resident", "hits", "spills_total", "entry", "raw")}
+    out["host"].update(stream=run["req"].output, prompt=B,
+                       seconds=time.perf_counter() - t1)
+    del run
+    if eng is None:
+        del e
+    free()
+    # (d) BERT-large's forward()
+    t1 = time.perf_counter()
+    bcfg = hf_bert_config(BERT_LARGE_UNCASED)
+    config = {"dtype": "bfloat16"}
+    if eng is None:
+        config["tensor_parallel"] = {"tp_size": 2}
+    be = init_inference(TransformerLM(bcfg), config, device=dev)
+    rng = np.random.default_rng(35)
+    ids = rng.integers(0, bcfg.vocab_size, P35_BERT)
+    types = rng.integers(0, 2, P35_BERT)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    logits = be.forward(ids, token_type_ids=types)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t2
+    b1 = build.launch_counts["flash_attention_fwd"]
+    check(b1 == bcfg.num_layers,
+          f"{label} (d) BERT-large forward(): B1 launched {b1} times, not "
+          f"once a layer ({bcfg.num_layers})")
+    torch.save(logits.cpu(), f"{out_dir}/bert_{who}.pt")
+    out["bert"] = {"b1": b1, "wall": bwall, "heads": be._tp_model.config
+                   .num_heads, "seconds": time.perf_counter() - t1}
+    del be, logits
+    free()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def p35_report(torch, np, eng, ref, ranks, bert, card) -> dict:
+    """Phase 35's checks and lines (see the module docstring): every
+    rank's results against rank 0's and against the one-rank reference
+    ``ref`` (taken on phase 32 (a)'s reference engine ``eng``).  Returns
+    rank 0's launch counts of each part."""
+    import types
+    r0 = ranks[0]
+    print(f"phase 35 the serving mesh's rest, in phase 32 (a)'s world of "
+          f"{TP_WORLD} gloo ranks sharing the card ({card}); the references"
+          f" at one rank took {ref['seconds']:.1f} s, rank 0's parts "
+          f"{r0['seconds']:.1f} s:")
+    # (a) the spec lane
+    a, ra = r0["spec"], ref["spec"]
+    for r, res in enumerate(ranks):
+        got = res["spec"]
+        check(got["streams"] == a["streams"] and got["spec"] == a["spec"]
+              and (got["b6"], got["b7"]) == (a["b6"], a["b7"]),
+              f"phase 35 (a) rank {r}: streams, spec counts or B6/B7 "
+              f"launches differ from rank 0's")
+    reqs = [types.SimpleNamespace(req_id=i, prompt=p, output=o)
+            for i, p, o in zip(a["ids"], serving_prompts(
+                np, eng.module.config.vocab_size)[3], a["streams"])]
+    parted = near_tie_partings(np, eng, reqs, ra["streams"],
+                               "phase 35 (a)")
+    same = sum(x == y for x, y in zip(a["streams"], ra["streams"]))
+    print(f"  (a) spec lane at {{data 2, model 2}}, GPT-3 Small draft, "
+          f"spec_k {SPEC_K}, {P35_SPEC_REQS} requests: {a['tokens']} tokens"
+          f" in {a['wall']:.2f} s = {a['tokens'] / a['wall']:.1f} tokens/s "
+          f"on rank 0 (one rank: {ra['tokens'] / ra['wall']:.1f}); proposed"
+          f" {a['spec']['proposed']}, accepted {a['spec']['accepted']} (one"
+          f" rank: {ra['spec']['proposed']}, {ra['spec']['accepted']}); "
+          f"{same} of {P35_SPEC_REQS} streams equal to one rank's, {parted}"
+          f" parting at a near tie; {a['dispatches']} dispatches, "
+          f"{a['spec_lanes']} with the spec lane, {a['decisions']} "
+          f"decisions broadcast; B6 {a['b6']}, B7 {a['b7']} on every rank, "
+          f"exact against the dispatch log; {a['seconds']:.1f} s")
+    # (b) the host tier
+    b, rb = r0["host"], ref["host"]
+    for r, res in enumerate(ranks):
+        got = res["host"]
+        check((got["spills_total"], got["hits"], got["promoted"])
+              == (rb["spills_total"], rb["hits"], rb["promoted"])
+              and got["promoted"] > 0,
+              f"phase 35 (b) rank {r}: spills {got['spills_total']}, hits "
+              f"{got['hits']}, promoted {got['promoted']} against one "
+              f"rank's {rb['spills_total']}, {rb['hits']}, "
+              f"{rb['promoted']}")
+        check(got["resident"]["dram"] * 4 == rb["resident"]["dram"]
+              and got["entry"] * 4 == rb["entry"],
+              f"phase 35 (b) rank {r}: {got['resident']['dram']} host bytes"
+              f" against a quarter of one rank's {rb['resident']['dram']}")
+        check(got["stream"] == b["stream"],
+              f"phase 35 (b) rank {r}: B's stream differs from rank 0's")
+    breq = types.SimpleNamespace(req_id="B", prompt=b["prompt"],
+                                 output=b["stream"])
+    parted = near_tie_partings(np, eng, [breq], [rb["stream"]],
+                               "phase 35 (b)")
+    print(f"  (b) host tier at {{data 1, model 4}}, phase 26's DRAM hit at "
+          f"wire 0: {b['spills_total']} spills, hits {b['hits']}, "
+          f"{b['promoted']} blocks promoted on every rank (one rank's "
+          f"counts); host bytes a rank {b['resident']['dram']} = a quarter "
+          f"of one rank's {rb['resident']['dram']} (entry {b['entry']} of "
+          f"{rb['entry']} bytes); B's TTFT {1e3 * b['ttft']:.1f} ms (one "
+          f"rank: {1e3 * rb['ttft']:.1f} ms), promote {b['promote_s']:.4f} s"
+          f" (one rank {rb['promote_s']:.4f} s); B's stream "
+          f"{'equal to' if b['stream'] == rb['stream'] else 'parting from'}"
+          f" one rank's ({parted} at a near tie); {b['seconds']:.1f} s")
+    # (c) the disaggregated fleet
+    c, rc = r0["fleet"], ref["fleet"]
+    for r, res in enumerate(ranks):
+        got = res["fleet"]
+        check(got["streams"] == c["streams"] and got["rids"] == c["rids"]
+              and got["counts"] == c["counts"],
+              f"phase 35 (c) rank {r}: streams, placements or fleet counts "
+              f"differ from rank 0's")
+    check(c["counts"]["handoffs"] == rc["counts"]["handoffs"] > 0
+          and c["orphans"] == 0,
+          f"phase 35 (c): {c['counts']['handoffs']} handoffs (one rank "
+          f"{rc['counts']['handoffs']}), orphans {c['orphans']}")
+    bs = SERVING["kv_block_size"]
+    starts = {}
+    for rid, prompt, start, n in c["chunks"]:
+        if rid == "d0":
+            starts.setdefault(tuple(prompt), start)
+    for i, (prompt, done) in enumerate(zip(c["prompts"], c["prefill_done"])):
+        if done:
+            want = (len(prompt) - 1) // bs * bs
+            got = starts.get(tuple(prompt))
+            check(got == want, f"phase 35 (c): request {i}'s prefill on d0 "
+                               f"starts at {got}, not at its tail {want}")
+    reqs = [types.SimpleNamespace(req_id=i, prompt=p, output=o)
+            for i, p, o in zip(c["ids"], c["prompts"], c["streams"])]
+    parted = near_tie_partings(np, eng, reqs, rc["streams"], "phase 35 (c)")
+    d0 = c["replicas"]["d0"]
+    print(f"  (c) disaggregated fleet at {{data 2, model 2}} (p0 + d0), "
+          f"{len(c['streams'])} requests: every stream exactly once on every"
+          f" rank, {parted} parting from one rank's at a near tie; "
+          f"{c['counts']['handoffs']} handoffs (one rank "
+          f"{rc['counts']['handoffs']}), {c['published']} entries published,"
+          f" {d0[2]['promoted_blocks']} promoted on d0, {c['dropped']} "
+          f"dropped as redundant, orphans {c['orphans']}; every handed-off "
+          f"prefill on d0 its tail alone; {c['tokens']} tokens in "
+          f"{c['wall']:.2f} s = {c['tokens'] / c['wall']:.1f} tokens/s (one "
+          f"rank {rc['tokens'] / rc['wall']:.1f}); {c['seconds']:.1f} s")
+    # (d) BERT-large
+    want = bert["reference"]
+    scale = float(want.abs().max())
+    worst = max(float((bert[f"rank {r}"] - want).abs().max()) / scale
+                for r in range(len(ranks)))
+    check(worst <= LOGITS_REL_TOL,
+          f"phase 35 (d): BERT-large logits at tp_size 2 differ by "
+          f"{worst:.4f} of max|logit| from one rank's")
+    d = r0["bert"]
+    print(f"  (d) BERT-large forward() at tp_size 2 over the 4 ranks, "
+          f"{P35_BERT[0]} x {P35_BERT[1]} tokens: logits within {worst:.4g}"
+          f" of max|logit| of one rank's (limit {LOGITS_REL_TOL}); B1 "
+          f"{d['b1']} launches on every rank at {d['heads']} of "
+          f"{ref['bert']['heads']} heads; "
+          f"{1e3 * d['wall']:.1f} ms (one rank "
+          f"{1e3 * ref['bert']['wall']:.1f} ms)")
+    print(f"[phase 35: {ref['seconds'] + r0['seconds']:.1f} s, the "
+          f"references and rank 0's parts]")
+    return {"spec": {"paged_decode_attention": a["b6"],
+                     "paged_prefill_attention": a["b7"]},
+            "bert": {"flash_attention_fwd": d["b1"]}}
 
 
 def tp_train_report(zero, card) -> dict:

@@ -31,6 +31,14 @@ two neighbouring stages that both send in one step, each then waiting
 in its receive, cannot deadlock: each one's receive is posted before
 the paired send completes.  Shapes are the caller's (the pipeline knows
 them from its config): no shape handshake crosses the wire.
+
+Host objects: ``broadcast_object`` hands one picklable object from one
+member of an axis to every member (``broadcast_object_list``), the
+serving mesh's per-iteration decisions (``inference/serving/
+lockstep.py``).  ``use_mesh`` makes a mesh current for the calling
+thread alone, so an engine that owns its process groups (a serving
+replica stepping on its own thread) resolves axis names to them while
+another thread's collectives go on over its own.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import datetime
 import ipaddress
 import os
 import socket
+import threading
 from enum import Enum
 from typing import Optional
 
@@ -82,6 +91,8 @@ class _World:
 
 
 _world = _World()
+#: a mesh made current for one thread (``use_mesh``), over ``_world.mesh``
+_local = threading.local()
 
 
 def _is_loopback(host: str) -> bool:
@@ -216,8 +227,28 @@ def set_mesh(mesh) -> None:
     _world.mesh = mesh
 
 
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the current mesh of the calling thread for the
+    block (other threads keep theirs); None leaves things as they
+    are."""
+    if mesh is None:
+        yield
+        return
+    prev = getattr(_local, "mesh", None)
+    _local.mesh = mesh
+    try:
+        yield
+    finally:
+        _local.mesh = prev
+
+
 def get_mesh():
-    """The current mesh; by default every rank on ``data``."""
+    """The current mesh: this thread's (``use_mesh``), else the
+    process's; by default every rank on ``data``."""
+    mine = getattr(_local, "mesh", None)
+    if mine is not None:
+        return mine
     if _world.mesh is None:
         from ..parallel.topology import build_mesh
         _world.mesh = build_mesh()
@@ -371,6 +402,19 @@ def broadcast(tensor: torch.Tensor, src: int = 0,
         else:
             dist.broadcast(tensor, root, group=group)
     return tensor
+
+
+def broadcast_object(obj, src: int = 0, axis_name="data"):
+    """Member ``src`` of ``axis_name``'s picklable ``obj`` on every
+    member (the others' ``obj`` is ignored); returns it.  The identity
+    outside ``torch.distributed`` or on an axis of size 1."""
+    n, group = _axis(axis_name)
+    if group is None or n == 1:
+        return obj
+    root = get_mesh().axis_ranks(axis_name)[src]
+    box = [obj]
+    dist.broadcast_object_list(box, src=root, group=group)
+    return box[0]
 
 
 # -- point to point -----------------------------------------------------------

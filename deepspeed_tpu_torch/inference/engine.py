@@ -284,6 +284,10 @@ class InferenceEngine:
                 t = t / mp
             return t
         dims = tp_dims(self.module.partition_specs(self.params))
+        if "mlm_head" in dims:
+            # the MLM decoder is the tied, vocab-sharded embedding: its
+            # vocab bias is cut beside it (added before the vocab gather)
+            dims["mlm_head"]["bias"] = 0
         if self._quantized:
             # a channel scale [(L,) last] is sharded where its kernel's
             # last dim is

@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ...runtime.resilience.errors import ServingError
 from ...runtime.resilience.fault_injection import get_fault_injector
@@ -182,6 +182,10 @@ class PagedBlockAllocator:
         # claim from it (claiming would steal entries the decode class
         # is about to promote); the engine flips this per role
         self.allow_claims = True
+        #: on a serving mesh, ``agree(ok) -> int``: a host-tier claim is
+        #: each rank's own read of its kv-head slice, and a block is
+        #: claimed only where every rank's claim hit (None: one process)
+        self.agree: Optional[Callable[[int], int]] = None
         self._pending_blocks: Dict[int, bytes] = {}
         self._promote_jobs: "OrderedDict[bytes, PromoteJob]" = OrderedDict()
         # cumulative stats the serving engine polls into the metrics
@@ -245,6 +249,11 @@ class PagedBlockAllocator:
         if not (self._free or self._cached_lru):
             return None
         payload = self._host.claim(h)
+        if self.agree is not None and not self.agree(payload is not None):
+            # another rank's slice missed: this rank's copy goes too, so
+            # every rank's tier lacks the digest alike (a cold miss)
+            self._host.discard(h)
+            return None
         if payload is None:
             return None
         b = self._pop_block()

@@ -72,18 +72,29 @@ feed past the first; every dispatch still ends in one device-to-host
 copy.
 
 **The serving mesh** (``serving.mesh`` {data, model}, one process per
-rank, the engine's mesh): every rank runs the same scheduler on the same
-submissions, so every host decision is taken alike everywhere.  The
-model axis shards heads, MLP columns, vocab and the pool (each rank's
-pools hold ``kv_heads / model`` heads of every block, ``kv_pool_bytes``
-is this rank's), through the model's per-shard view; the data axis
-splits the decode slots, rank d owning slots ``d * B / data ..``, while
-the prefill chunk runs on every data rank.  The sampled tokens come from
-logits that are bit-identical on every model rank (the vocab shards
-all-gathered in vocab order), and one all-gather over ``data`` a
-dispatch hands every rank every slot's token (the chunk's token is data
-rank 0's).  The speculative lane, the host tier and the fleet refuse a
-mesh beyond 1 x 1 (queue A item 7).
+rank, the engine's mesh, over process groups of this engine's own):
+every rank runs the same scheduler on the same submissions.  A host
+decision that reads a clock, a thread or an I/O outcome is taken once,
+by the mesh's rank 0, and broadcast at each iteration boundary before
+the dispatch (``lockstep.py``: deadline expiries here, the front end's
+at-risk boosts and firing alerts and a threaded fleet replica's inbox
+drain and stop through ``lockstep_hooks``); an I/O
+outcome each rank meets for its own slice (a spill, promote, publish or
+claim) is agreed by a MIN over the mesh.  The model axis shards heads,
+MLP columns, vocab and the pool (each rank's pools hold ``kv_heads /
+model`` heads of every block, ``kv_pool_bytes`` is this rank's),
+through the model's per-shard view; the data axis splits the decode
+slots, rank d owning slots ``d * B / data ..``, while the prefill chunk
+runs on every data rank.  The sampled tokens come from logits that are
+bit-identical on every model rank (the vocab shards all-gathered in
+vocab order), and one all-gather over ``data`` a dispatch hands every
+rank every slot's results (the chunk's are data rank 0's).  The
+speculative lane runs the same way: the draft and its pool are whole on
+every rank, its view arms only ``data``, and its spec rows are this
+rank's slots'.  The host tier stores each rank's kv-head slice of a
+block (its slot counts from the whole block's entry, so spills, hits and
+promotes are the one-rank engine's and its bytes 1/model of them), on
+every data rank.
 """
 from __future__ import annotations
 
@@ -110,8 +121,14 @@ from ..sampling import sample_tokens
 from .block_allocator import BlockPoolError, PagedBlockAllocator
 from .frontend.streaming import TokenEvent
 from .host_cache import BlockCodec, HostTierCache
+from .lockstep import Lockstep
 from .scheduler import (ContinuousBatchingScheduler, Request, RequestState,
                         RequestStatus, estimate_retry_after_s)
+
+
+#: a promotion's outcome on one rank, worst first: the mesh agrees on the
+#: least of every rank's
+_FATAL, _TRANSIENT, _LANDED = 0, 1, 2
 
 
 class ServingEngine:
@@ -136,8 +153,16 @@ class ServingEngine:
         self.tp_data_size = engine.tp_data_size
         self.tp_model_size = engine.tp_model_size
         model = engine.module
+        #: rank 0's decisions for every rank, over this engine's own
+        #: process groups (inactive at mesh 1 x 1)
+        self.lockstep = Lockstep(engine.mesh)
+        #: name -> (propose(now) on rank 0, apply(decision, live) on every
+        #: rank, ``live`` the scheduler's live requests the decision's
+        #: indices name) of decisions beyond the deadline sweep (the
+        #: front end's, a fleet replica's inbox drain)
+        self.lockstep_hooks: Dict[str, Tuple[Callable, Callable]] = {}
         if self.tp_data_size * self.tp_model_size > 1:
-            self._init_tp_mesh(engine, cfg, draft_model, role)
+            self._init_tp_mesh(engine)
             model = model.tp_serving_view(
                 self.tp_model_size, MODEL_AXIS,
                 DATA_AXIS if self.tp_data_size > 1 else None)
@@ -179,6 +204,9 @@ class ServingEngine:
         # it: claiming would steal the very entries the decode class is
         # about to promote
         self.allocator.allow_claims = role != "prefill"
+        if self.lockstep.active:
+            # a host-tier claim is each rank's own I/O: agreed
+            self.allocator.agree = self.lockstep.agree
         self.scheduler = ContinuousBatchingScheduler(
             self.num_slots, self.allocator, self.max_pages,
             max_queue_depth=cfg.max_queue_depth,
@@ -299,10 +327,9 @@ class ServingEngine:
                              "demotions": 0, "evictions": 0,
                              "hit_tokens": 0}
 
-    def _init_tp_mesh(self, engine, cfg, draft_model, role: str) -> None:
+    def _init_tp_mesh(self, engine) -> None:
         """What a mesh beyond 1 x 1 needs beyond the engine's checks: the
-        engine's weights in channel mode, and none of the paths that do
-        not run on it yet."""
+        engine's weights in channel mode."""
         if self.tp_model_size > 1 and engine._quantized and \
                 engine._qmode != "channel":
             raise NotImplementedError(
@@ -311,19 +338,6 @@ class ServingEngine:
                 "boundaries) — the engine selects channel mode when "
                 "serving.mesh.model > 1 at init_inference time; rebuild "
                 "the engine with the serving mesh in its config")
-        later = []
-        if draft_model is not None:
-            later.append("the speculative lane")
-        if cfg.host_cache.enabled:
-            later.append("the tiered host cache")
-        if cfg.fleet.enabled or role != "mixed":
-            later.append("the fleet")
-        if later:
-            raise NotImplementedError(
-                f"{', '.join(later)} on a serving mesh beyond 1x1 "
-                f"(data={self.tp_data_size}, model={self.tp_model_size}): "
-                f"not in the PyTorch port yet (ROADMAP.md queue A item 7 "
-                f"part 3b)")
 
     def _register_metrics(self) -> None:
         """The JAX engine's ``dstpu_serving_*`` and ``dstpu_mesh_*``
@@ -357,6 +371,10 @@ class ServingEngine:
             "dstpu_mesh_model_size",
             "serving mesh model-axis size (tensor parallelism)"
             ).set(self.tp_model_size)
+        self._m_decisions = reg.counter(
+            "dstpu_mesh_decisions_total",
+            "iterations whose host decisions rank 0 of the serving mesh "
+            "took and broadcast (0 at mesh 1 x 1)")
         self._m_ttft = reg.histogram(
             "dstpu_serving_ttft_seconds",
             "submit -> first token (includes queueing + chunked prefill)")
@@ -445,10 +463,12 @@ class ServingEngine:
             "fabric publishes degraded to decode-side recompute")
         self._m_host_dram_bytes = reg.gauge(
             "dstpu_serving_host_dram_bytes",
-            "encoded KV bytes resident in the host DRAM tier")
+            "encoded KV bytes resident in the host DRAM tier (this "
+            "rank's kv-head slices on a model-sharded mesh)")
         self._m_host_nvme_bytes = reg.gauge(
             "dstpu_serving_host_nvme_bytes",
-            "encoded KV bytes resident in the host NVMe tier")
+            "encoded KV bytes resident in the host NVMe tier (this "
+            "rank's kv-head slices on a model-sharded mesh)")
         self._m_promote_depth = reg.gauge(
             "dstpu_serving_promote_queue_depth",
             "claimed host payloads waiting to land in the pool")
@@ -472,13 +492,22 @@ class ServingEngine:
         the allocator: eviction becomes demotion (``_spill_block``) and
         the allocate hit walk extends into the host store.  ``shared``
         injects an already-built (fleet-shared) store instead: entry
-        geometry must match, budgets were sized by whoever built it."""
+        geometry must match, budgets were sized by whoever built it.
+
+        On a model-sharded mesh each rank encodes and stores its own
+        ``kv_heads / model`` slice of a block (the codec's scales are one
+        per layer, token and kv head, so a slice's bytes are the whole
+        entry's bytes for those heads), every data rank alike; the slot
+        counts come from the whole block's entry, so what spills, hits
+        and promotes is what one rank's engine would, at 1/model of its
+        host bytes on each rank."""
         c = self.model.config
         self._hc_codec = BlockCodec(
             c.num_layers, self.block_size, c.kv_heads, c.hdim,
             kv_bits=self.kv_bits, wire_bits=hc.wire_bits,
             dtype=self._pool_k.dtype)
         entry = self._hc_codec.nbytes
+        whole = entry * self.tp_model_size
         if shared is not None:
             if shared.entry_nbytes != entry:
                 raise ValueError(
@@ -490,13 +519,14 @@ class ServingEngine:
             self.allocator.attach_host_tier(self.host_cache,
                                             self._spill_block)
             return
-        dram_slots = hc.dram_budget_bytes // entry
-        nvme_slots = hc.nvme_budget_bytes // entry
+        dram_slots = hc.dram_budget_bytes // whole
+        nvme_slots = hc.nvme_budget_bytes // whole
         if dram_slots == 0 and nvme_slots == 0:
             raise ValueError(
                 f"serving.host_cache budgets admit zero entries — one "
-                f"encoded block is {entry} bytes ({c.num_layers} layers "
-                f"x {self.block_size} tokens x {c.kv_heads} kv heads at "
+                f"encoded block is {whole} bytes ({c.num_layers} layers "
+                f"x {self.block_size} tokens x "
+                f"{c.kv_heads * self.tp_model_size} kv heads at "
                 f"{self._hc_codec.at_rest_bits or 'raw'} bits)")
         self.host_cache = HostTierCache(
             entry, dram_slots, nvme_slots=nvme_slots,
@@ -505,7 +535,7 @@ class ServingEngine:
         self.allocator.attach_host_tier(self.host_cache, self._spill_block)
         logger.info(
             f"serving: tiered host cache on — entry {entry / 2**10:.1f} "
-            f"KiB at {self._hc_codec.at_rest_bits or 'raw'}-bit, "
+            f"KiB a rank at {self._hc_codec.at_rest_bits or 'raw'}-bit, "
             f"dram {dram_slots} entries"
             f"{f', nvme {nvme_slots} entries' if nvme_slots else ''}, "
             f"promote parallelism {self._promote_k}")
@@ -535,26 +565,50 @@ class ServingEngine:
     def _encode_block(self, block: int):
         return self._hc_codec.encode(*self._gather_block(block))
 
+    def _agreed(self, err: Optional[BaseException], what: str
+                ) -> Optional[BaseException]:
+        """``err`` (None: this rank's part succeeded), or, where another
+        rank of the mesh failed its part of ``what``, an error saying so:
+        every rank then takes the failure path together."""
+        if not self.lockstep.agree(err is None) and err is None:
+            err = RuntimeError(f"another rank of the serving mesh failed "
+                               f"its slice of {what}")
+        return err
+
     def _spill_block(self, block: int, digest: bytes) -> None:
         """Allocator eviction callback: encode the dying block and park
         it in the host tier under its chain digest.  NEVER raises — the
         ``serving.spill`` fault site (transient faults retried under
         the resilience backoff) degrades any terminal failure to a
         plain eviction, so a sick host store costs warmth, not
-        correctness, and never a wrong block."""
+        correctness, and never a wrong block.  On a mesh the fault site
+        and the store are each agreed: a rank stores its slice only
+        where every rank's is ready, and drops it again where another
+        rank's store failed."""
+        what = f"host-tier spill of block {block}"
+        err = payload = None
         try:
             with trace_span("serving/spill", block=block):
                 payload = self._encode_block(block)
-
-                def _put():
-                    get_fault_injector().check("serving.spill")
-                    self.host_cache.put(digest, payload)
-                retry_call(_put, what=f"host-tier spill of block {block}")
+                retry_call(lambda: get_fault_injector().check(
+                    "serving.spill"), what=what)
         except Exception as e:   # noqa: BLE001 — degrade, never raise
+            err = e
+        err = self._agreed(err, what)
+        if err is None:
+            try:
+                retry_call(lambda: self.host_cache.put(digest, payload),
+                           what=what)
+            except Exception as e:   # noqa: BLE001 — degrade, never raise
+                err = e
+            err = self._agreed(err, what)
+            if err is not None:
+                self.host_cache.discard(digest)
+        if err is not None:
             self.host_counts["spill_failures"] += 1
             self._m_spill_failures.inc()
             logger.warning(
-                f"serving: spill of block {block} failed ({e!r}) — "
+                f"serving: spill of block {block} failed ({err!r}) — "
                 f"degraded to plain eviction")
 
     def _publish_block(self, block: int, digest: bytes) -> bool:
@@ -564,7 +618,11 @@ class ServingEngine:
         NEVER raises: the ``serving.fabric.publish`` site fires inside
         ``publish`` before any fabric mutation, transient faults retry
         under the resilience backoff, and a terminal failure degrades to
-        decode-side recompute — a handoff miss, never a wrong token."""
+        decode-side recompute — a handoff miss, never a wrong token.
+        On a mesh each rank publishes its slice, and a block counts as
+        published only where every rank's did (the others drop theirs)."""
+        what = f"fabric publish of block {block}"
+        err = None
         try:
             with trace_span("serving/fabric_publish", block=block):
                 payload = self._encode_block(block)
@@ -572,17 +630,22 @@ class ServingEngine:
                 def _pub():
                     self.host_cache.publish(digest, payload,
                                             publisher=self.publisher_id)
-                retry_call(_pub, what=f"fabric publish of block {block}")
+                retry_call(_pub, what=what)
+        except Exception as e:   # noqa: BLE001 — degrade, never raise
+            err = e
+        agreed = self._agreed(err, what)
+        if agreed is None:
             self.fabric_counts["published_blocks"] += 1
             self._m_fabric_published.inc()
             return True
-        except Exception as e:   # noqa: BLE001 — degrade, never raise
-            self.fabric_counts["publish_failures"] += 1
-            self._m_fabric_publish_failures.inc()
-            logger.warning(
-                f"serving: fabric publish of block {block} failed "
-                f"({e!r}) — decode leg will recompute")
-            return False
+        if err is None:
+            self.host_cache.discard(digest)
+        self.fabric_counts["publish_failures"] += 1
+        self._m_fabric_publish_failures.inc()
+        logger.warning(
+            f"serving: fabric publish of block {block} failed "
+            f"({agreed!r}) — decode leg will recompute")
+        return False
 
     def _publish_chain(self, req) -> int:
         """Publish every committed full block of ``req``'s chain, in
@@ -634,7 +697,10 @@ class ServingEngine:
         leave the job queued for next step; a fatal fault drops the job
         AND its registration and rolls every holder back to recompute
         (``promotion_failed``) — stale or mismatched KV is never served.
-        Returns blocks landed (watchdog progress)."""
+        On a mesh each rank lands its own slice and the outcome is
+        agreed, the worst of every rank's (fatal, then transient, then
+        landed), so the job stays queued, or fails, on every rank
+        together.  Returns blocks landed (watchdog progress)."""
         alloc = self.allocator
         if self.host_cache is None or not alloc.num_pending:
             return 0
@@ -644,6 +710,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         landed = 0
         for job in alloc.pending_jobs()[:self._promote_k]:
+            what = f"host-tier promote of block {job.block}"
+            err, outcome = None, _LANDED
             try:
                 with trace_span("serving/promote", block=job.block):
                     def _land():
@@ -652,18 +720,25 @@ class ServingEngine:
                         # itself is idempotent under retry
                         get_fault_injector().check("serving.promote")
                         self._land_promotion(job)
-                    retry_call(_land, what=f"host-tier promote of block "
-                                           f"{job.block}")
+                    retry_call(_land, what=what)
             except TransientIOError as e:
+                err, outcome = e, _TRANSIENT
+            except Exception as e:   # noqa: BLE001 — fatal: recompute
+                err, outcome = e, _FATAL
+            agreed = self.lockstep.agree(outcome)
+            if agreed != outcome:
+                err = RuntimeError(f"another rank of the serving mesh "
+                                   f"failed its slice of {what}")
+            if agreed == _TRANSIENT:
                 # retry budget exhausted but the fault is transient: the
                 # job stays queued (the request stays PROMOTING — delayed,
                 # never corrupted)
                 logger.warning(
                     f"serving: promote of block {job.block} still "
                     f"transient after retries — queued for next step: "
-                    f"{e}")
+                    f"{err}")
                 continue
-            except Exception as e:   # noqa: BLE001 — fatal: recompute
+            if agreed == _FATAL:
                 affected = alloc.promotion_failed(job.digest)
                 self.host_counts["promote_failures"] += 1
                 self._m_promote_failures.inc()
@@ -679,7 +754,7 @@ class ServingEngine:
                                 block_index * self.block_size)
                 logger.warning(
                     f"serving: promote of block {job.block} failed "
-                    f"fatally ({e!r}) — host entry dropped, "
+                    f"fatally ({err!r}) — host entry dropped, "
                     f"{len(affected)} holder(s) fall back to recompute")
                 continue
             alloc.promotion_landed(job.digest)
@@ -709,7 +784,10 @@ class ServingEngine:
         tables and lengths.  The draft runs in the engine's dtype (a
         model of another dtype is rebuilt, as the engine rebuilds the
         target); ``params`` already in that dtype on the device are used
-        as they are, with no copy."""
+        as they are, with no copy.  On a serving mesh the draft and its
+        pool are whole on every rank (its params are the whole draft's),
+        and its view arms only ``data``: each data rank proposes for its
+        own slots and every pool replica takes every slot's rows."""
         cfg = self.engine.config.serving
         reason = draft._paged_supported(0)
         if reason is not None:
@@ -747,6 +825,9 @@ class ServingEngine:
             return t.to(self.device, dtype if t.is_floating_point()
                         else t.dtype)
         self._draft_params = tree_map(params, cast)
+        if self.tp_data_size * self.tp_model_size > 1:
+            draft = draft.tp_serving_view(
+                1, None, DATA_AXIS if self.tp_data_size > 1 else None)
         self._draft_model = draft
         with trace_span("serving/draft_pool", blocks=cfg.num_kv_blocks):
             dpools = draft.init_paged_cache(
@@ -956,20 +1037,26 @@ class ServingEngine:
             [r.top_k if r else 0 for r in reqs],
             [r.top_p if r else 1.0 for r in reqs])
 
-    def _gather_results(self, local: torch.Tensor, n_dec: int) -> list:
+    def _gather_results(self, local: torch.Tensor,
+                        widths: Sequence[int]) -> list:
         """The dispatch's results as one host list: ``[token per slot |
-        finite per slot | spec lane | chunk token, chunk finite]``.  On a
-        data-sharded mesh each rank holds its slots' rows: one all-gather
-        over ``data`` puts every rank's together in slot order, and the
-        chunk's values are data rank 0's (every data rank computed the
-        same)."""
+        finite per slot | spec lane | chunk token, chunk finite]``, where
+        ``widths`` are the values per slot of each slot-owned segment in
+        order (the chunk's values follow them).  On a data-sharded mesh
+        each rank holds its slots' values: one all-gather over ``data``
+        puts every rank's together, segment by segment in slot order,
+        and the chunk's values are data rank 0's (every data rank
+        computed the same)."""
         if self.tp_data_size == 1:
             return local.tolist()
         rows = comm.all_gather(local, DATA_AXIS, axis=0,
                                tiled=False).tolist()
-        return ([t for r in rows for t in r[:n_dec]]
-                + [f for r in rows for f in r[n_dec:2 * n_dec]]
-                + rows[0][2 * n_dec:])
+        out, pos = [], 0
+        for w in widths:
+            n = self.num_slots // self.tp_data_size * w
+            out += [v for r in rows for v in r[pos:pos + n]]
+            pos += n
+        return out + rows[0][pos:]
 
     def _draft_propose(self, cache, decoding, reqs, dec_tokens, any_active,
                        spec_active, chunk_args) -> Optional[torch.Tensor]:
@@ -1028,8 +1115,6 @@ class ServingEngine:
         dev = self.device
         B, S = self.num_slots, self.spec_k + 1
         draft_on = self._draft_model is not None
-        if self.engine.mesh is not None:
-            comm.set_mesh(self.engine.mesh)
         # this rank's decode slots: all B, or its 1/data of them
         bl = B // self.tp_data_size
         lo = comm.axis_index(DATA_AXIS) * bl if self.tp_data_size > 1 else 0
@@ -1084,13 +1169,15 @@ class ServingEngine:
             chunk_d = torch.from_numpy(chunk_ids).to(dev)
             chunk_args = (chunk_d, c_slot, c_start, c_len)
             spec_active_d = spec_tokens = None
+            # the spec lane's rows are this rank's slots', as the decode
+            # lane's are
             spec_reqs = [r if spec_active[i] else None
-                         for i, r in enumerate(row_reqs)]
+                         for i, r in enumerate(row_reqs)][mine]
             if spec:
-                spec_active_d = torch.from_numpy(spec_active).to(dev)
+                spec_active_d = torch.from_numpy(spec_active[mine]).to(dev)
             if draft_on:
-                any_active = (torch.from_numpy(dec_active | spec_active)
-                              .to(dev))
+                any_active = (torch.from_numpy((dec_active | spec_active)
+                                               [mine]).to(dev))
                 spec_tokens = self._draft_propose(
                     cache, bool(dec or spec), spec_reqs, tokens_d,
                     any_active, spec_active_d,
@@ -1110,12 +1197,13 @@ class ServingEngine:
             # token per slot | finite per slot] for the decode lane,
             # [target samples per slot and depth | tokens to emit | spec
             # finite] for the spec lane, [chunk token, chunk finite]
-            parts = []
+            parts, widths = [], []
             if n_dec:
                 dec_reqs = [r if dec_active[i] else None
                             for i, r in enumerate(row_reqs)][mine]
                 parts += [self._sample(dec_logits, dec_reqs),
                           torch.isfinite(dec_logits).all(dim=-1).long()]
+                widths += [1, 1]
             if spec:
                 # the target samples s_i at every draft position with
                 # that position's own key; d_i is accepted while it
@@ -1128,6 +1216,7 @@ class ServingEngine:
                 parts += [s.reshape(-1), n_emit,
                           torch.isfinite(spec_logits).all(dim=-1)
                           .all(dim=-1).long()]
+                widths += [S, 1, 1]
             if chunk is not None:
                 parts += [self._sample(chunk_logits[None], [chunk[1]]),
                           torch.isfinite(chunk_logits).all()[None].long()]
@@ -1135,7 +1224,7 @@ class ServingEngine:
                 # launches returned, nothing read back yet: the
                 # enqueue/device-wait boundary of the overlap split
                 t_enq = time.perf_counter()
-            host = self._gather_results(torch.cat(parts), n_dec)
+            host = self._gather_results(torch.cat(parts), widths)
             n_dec = B if dec else 0
         # ITL = dispatch wall time only, before the host bookkeeping below
         dispatch_dt = time.perf_counter() - t0
@@ -1272,9 +1361,12 @@ class ServingEngine:
         remains.  After ``serving.no_progress_steps`` consecutive
         iterations that moved nothing while work remained, raises
         :class:`ServingError` (the flight recorder, when on, dumps its
-        post-mortem bundle first)."""
+        post-mortem bundle first).  On a serving mesh every rank steps
+        together: the iteration's collectives run over this engine's own
+        process groups."""
         try:
-            result = self._step_impl()
+            with comm.use_mesh(self.lockstep.mesh):
+                result = self._step_impl()
             # iteration boundary reached with the loop alive: the
             # liveness beat (rate-limited inside maybe_beat)
             self.heartbeat.maybe_beat()
@@ -1311,7 +1403,9 @@ class ServingEngine:
         if self._ovl.enabled:
             self._ovl.begin()
         finished_before = len(sched.finished)
-        sched.sweep_deadlines()
+        # the decisions that read this process's clock: rank 0's for
+        # every rank of a mesh, this rank's own at 1 x 1
+        sched.sweep_deadlines(expired=self._decide())
         # capacity BEFORE admission: running sequences claim their next
         # block first, so a fresh admission is never immediately the
         # preemption victim
@@ -1378,6 +1472,32 @@ class ServingEngine:
         if self._ovl.enabled:
             self._ovl.end("serving")
         return sched.has_work
+
+    def _decide(self) -> Optional[list]:
+        """On a mesh, rank 0's decisions of this iteration on every rank
+        (one broadcast), each ``lockstep_hooks`` entry applied against
+        the live requests they were taken over, before the deadline
+        sweep; returns the ``(request, reason)`` pairs to time out.  None
+        at 1 x 1."""
+        if not self.lockstep.active:
+            return None
+        live = self.scheduler.live()
+        with trace_span("serving/decide"):
+            decision = self.lockstep.decide(self._propose)
+        self._m_decisions.inc()
+        for name, (_, apply) in self.lockstep_hooks.items():
+            apply(decision[name], live)
+        return [(live[i], why) for i, why in decision["expire"]]
+
+    def _propose(self) -> dict:
+        """Rank 0's decisions at this iteration boundary: the requests
+        whose deadline has passed, and each hook's, all at one reading
+        of its clock."""
+        now = time.perf_counter()
+        decision = {"expire": self.scheduler.expired(now)}
+        for name, (propose, _) in self.lockstep_hooks.items():
+            decision[name] = propose(now)
+        return decision
 
     def _update_drain_rate(self, n_finished: int) -> None:
         """EMA of wall seconds per FINISHED request: the drain rate

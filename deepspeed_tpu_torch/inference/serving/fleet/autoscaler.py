@@ -29,6 +29,13 @@ wedges the serving path or spins the spawner.
 Pure policy, synchronous, injectable clock: every decision is unit-
 testable on a synthetic timeline with a stub router, no device, no
 threads, no sleeps.
+
+On a serving mesh a tick's inputs are rank 0's, broadcast through the
+router's ``lockstep``: its time, the alerts buffered since the last
+tick (from each rank's own latencies), the drained replicas gone idle,
+each class's queue depth and each replica's (which move under replicas
+stepping on their own threads); so every rank joins, drains and retires
+the same replicas.
 """
 from __future__ import annotations
 
@@ -111,6 +118,9 @@ class FleetAutoscaler:
         #: last tick the class was NOT quiet (queue > low watermark or
         #: an alert firing) — scale-down waits quiet_s past this
         self._last_busy: Dict[str, float] = {}
+        #: each replica's queue depth as rank 0 read it this tick on a
+        #: serving mesh (None: this rank's own reads)
+        self._queue: Optional[Dict[str, float]] = None
         self._spawned = 0
         if slo_monitor is not None:
             slo_monitor.subscribe(self._on_alert)
@@ -171,16 +181,31 @@ class FleetAutoscaler:
         now = self.clock() if now is None else now
         with self._alert_lock:
             alerts, self._alerts = self._alerts, []
-        self._retire_idle_drains()
+        kinds = [a.kind for a in alerts]
+        lock = getattr(self.router, "lockstep", None)
+        agreed = None
+        if lock is not None and lock.active:
+            def propose():
+                self.aggregator.observe_router(self.router)
+                return {"now": now, "kinds": kinds,
+                        "idle": self._idle_drains(),
+                        "depth": {c: self.aggregator.class_queue_depth(
+                            c, healthy_only=True) for c in self._classes()},
+                        "queue": {r.replica_id: r.queue_depth
+                                  for r in self.router.replicas}}
+            agreed = lock.decide(propose)
+            now, kinds = agreed["now"], agreed["kinds"]
+        self._queue = None if agreed is None else agreed["queue"]
+        self._retire_idle_drains(None if agreed is None else agreed["idle"])
         # refresh the fleet metrics surface, then read policy inputs
         # from IT — the same numbers the dashboards see
         self.aggregator.observe_router(self.router)
         classes = self._classes()
-        firing = {self._kind_class(a.kind, classes) for a in alerts}
+        firing = {self._kind_class(k, classes) for k in kinds}
         before = len(self.events)
         for role in classes:
-            depth = self.aggregator.class_queue_depth(
-                role, healthy_only=True)
+            depth = (self.aggregator.class_queue_depth(role, healthy_only=True)
+                     if agreed is None else agreed["depth"].get(role, 0.0))
             n = self.aggregator.class_replicas(role, healthy_only=True)
             per_replica = depth / max(1, n)
             busy = role in firing or per_replica > self.queue_low
@@ -228,7 +253,8 @@ class FleetAutoscaler:
             return False                 # never drain the last replica
         if not self._actuate("down", role, now):
             return False
-        victim = min(healthy, key=lambda r: r.queue_depth)
+        victim = min(healthy, key=lambda r: r.queue_depth
+                     if self._queue is None else self._queue[r.replica_id])
         self.router.drain(victim, pump=False)
         self._last_down[role] = now
         self.counts["scale_downs"] += 1
@@ -263,11 +289,18 @@ class FleetAutoscaler:
                            f"abandoned on fatal actuator fault: {e}")
             return False
 
-    def _retire_idle_drains(self) -> None:
+    def _idle_drains(self) -> List[str]:
+        return [r.replica_id for r in self.router.replicas
+                if r.state is ReplicaState.DRAINING and not r.has_work()]
+
+    def _retire_idle_drains(self, idle: Optional[List[str]] = None) -> None:
         """Finish scale-downs: a replica this policy put in DRAINING
-        retires once the fleet pump has drained it dry."""
+        retires once the fleet pump has drained it dry (``idle``: rank
+        0's on a serving mesh)."""
+        idle = self._idle_drains() if idle is None else idle
         for r in self.router.replicas:
-            if r.state is ReplicaState.DRAINING and not r.has_work():
+            if r.replica_id in idle and r.state is ReplicaState.DRAINING:
+                getattr(self.router, "await_idle", lambda r: None)(r)
                 r.retire()
                 self.router._m_drains.inc()
                 self.router.fleet_counts["drains"] += 1

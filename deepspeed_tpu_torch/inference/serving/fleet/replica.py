@@ -22,12 +22,21 @@ Two stepping modes share all of that logic:
   hand work over through a thread-safe inbox drained at iteration
   boundaries, and health additionally falls to the heartbeat watchdog
   (a wedged device sync keeps the thread alive but not the beat).
+
+On a serving mesh each rank's thread would drain its inbox and stop at
+its own moment, so both are rank 0's: the engine's decision of each
+iteration (``lockstep_hooks``) carries how many inbox entries rank 0
+holds, which every rank drains in order (waiting, up to
+``INBOX_WAIT_S``, for its own router to hand the rest over), and
+whether rank 0's thread was asked to stop, which ends every rank's loop
+after that iteration.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import threading
+import time
 from typing import Callable, List, Optional, Sequence
 
 from ....observability import get_flight_recorder, get_registry
@@ -37,6 +46,11 @@ from ....runtime.resilience.errors import (FatalIOError, ServingError,
 from ....runtime.resilience.fault_injection import get_fault_injector
 from ....runtime.resilience.heartbeat import Heartbeat, is_stale
 from ..scheduler import Request
+
+
+#: the longest a rank of a serving mesh waits for its router to hand over
+#: the inbox entries rank 0 drained in an iteration
+INBOX_WAIT_S = 60.0
 
 
 class ReplicaState(enum.Enum):
@@ -115,8 +129,16 @@ class ReplicaHandle:
                 path=heartbeat_path, interval_s=heartbeat_interval_s)
         self._inbox: List[SubmitSpec] = []
         self._lock = threading.Lock()
+        self._inbox_cv = threading.Condition(self._lock)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        #: on a serving mesh: the inbox drain and the stop are rank 0's
+        lock = getattr(self.srv, "lockstep", None)
+        self._on_mesh = lock is not None and lock.active
+        self._stop_agreed = False
+        if self._on_mesh:
+            self.srv.lockstep_hooks["replica"] = (self._propose,
+                                                  self._apply)
         self._fr = get_flight_recorder()
         reg = get_registry()
         self._m_healthy = reg.gauge(
@@ -260,8 +282,9 @@ class ReplicaHandle:
             raise ServingError(
                 f"replica {self.replica_id} is {self.state.value}")
         if self._thread is not None and self._thread.is_alive():
-            with self._lock:
+            with self._inbox_cv:
                 self._inbox.append(spec)
+                self._inbox_cv.notify_all()
             return None
         return self._do_submit(spec)
 
@@ -294,6 +317,32 @@ class ReplicaHandle:
             self._do_submit(spec)
         return len(specs)
 
+    def _propose(self, now: float) -> dict:
+        """Rank 0 of a serving mesh: the inbox entries this iteration
+        drains, and whether the serving thread stops after it."""
+        with self._lock:
+            return {"drain": len(self._inbox), "stop": self._stop.is_set()}
+
+    def _apply(self, decision: dict, live) -> None:
+        """Every rank: drain rank 0's count of inbox entries in order,
+        waiting for this rank's router to hand over the ones it has not
+        yet."""
+        n = decision["drain"]
+        deadline = time.monotonic() + INBOX_WAIT_S
+        with self._inbox_cv:
+            while len(self._inbox) < n:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise ServingError(
+                        f"replica {self.replica_id}: rank 0 drained {n} "
+                        f"submissions, this rank was handed "
+                        f"{len(self._inbox)} in {INBOX_WAIT_S:.0f} s")
+                self._inbox_cv.wait(left)
+            specs, self._inbox = self._inbox[:n], self._inbox[n:]
+        for spec in specs:
+            self._do_submit(spec)
+        self._stop_agreed = decision["stop"]
+
     def step(self) -> bool:
         """One guarded engine iteration.  Never raises on replica
         failure: a fatal at the ``serving.fleet.replica_step`` site or
@@ -312,7 +361,9 @@ class ReplicaHandle:
                            f"replica_step: {e}")
             return False
         try:
-            self._drain_inbox()
+            if not self._on_mesh:
+                # on a mesh the iteration's decision drains the inbox
+                self._drain_inbox()
             has_work = self.srv.step()
         except ServingError as e:
             # the engine already sealed its own serving_error bundle;
@@ -326,13 +377,20 @@ class ReplicaHandle:
     def start(self) -> None:
         """Spawn the daemon serving thread (threaded mode).  The loop
         pumps :meth:`step` while alive, idling briefly when there is no
-        work so a quiet replica stays cheap but keeps beating."""
+        work so a quiet replica stays cheap but keeps beating.  On a
+        serving mesh the loop ends after the iteration whose decision
+        carried rank 0's stop."""
         if self._thread is not None and self._thread.is_alive():
             return
         self._stop.clear()
+        self._stop_agreed = False
+
+        def stopping() -> bool:
+            return self._stop_agreed if self._on_mesh \
+                else self._stop.is_set()
 
         def _loop():
-            while not self._stop.is_set() and self.alive:
+            while not stopping() and self.alive:
                 if not self.step() and not self.has_work():
                     # idle: keep the heartbeat fresh so idleness never
                     # reads as death, then yield

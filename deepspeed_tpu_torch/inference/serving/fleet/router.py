@@ -37,6 +37,18 @@ and streams tokens with the SAME pinned sampling key, so the handoff
 is token-exact by construction.  Every fabric failure (publish fault,
 corrupt/evicted entry, prefill replica death) degrades the decode leg
 to an ordinary cold prefill: never a wrong token, never a stall.
+
+On a serving mesh the router runs on every rank over the same
+submissions, and its replicas' engines step together.  What it decides
+from a clock (a pending request's backoff expiry, a replica's stale
+heartbeat, whether work remains) is rank 0's: each
+:meth:`FleetRouter.pump` starts with one broadcast of those decisions
+over the router's own process groups (``lockstep.py``), so every rank
+places, fails over and re-places alike.  Pumped replicas hold the same
+queue depths and prefix coverage on every rank; replicas on their own
+threads do not, so with them each placement (leg and replica) is rank
+0's too, and a placement a replica's callback asks for waits in the
+pending list for the next pump, which names it by its fleet request id.
 """
 from __future__ import annotations
 
@@ -56,8 +68,9 @@ from ....runtime.resilience.errors import (FatalIOError, ServingError,
 from ....runtime.resilience.fault_injection import get_fault_injector
 from ....runtime.resilience.retry import RetryPolicy
 from ..frontend.streaming import StreamDeduper, TokenEvent
+from ..lockstep import Lockstep
 from ..scheduler import Request, RequestStatus
-from .replica import ReplicaHandle, ReplicaState, SubmitSpec
+from .replica import INBOX_WAIT_S, ReplicaHandle, ReplicaState, SubmitSpec
 
 
 def placement_score(covered_tokens: int, queue_depth: int,
@@ -176,6 +189,8 @@ class FleetRouter:
         self._pending: List[FleetRequest] = []
         self._failover_done: set = set()
         self._lock = threading.RLock()
+        #: signalled when a request joins ``_pending``
+        self._pending_cv = threading.Condition(self._lock)
         self._req_counter = 0
         self._fr = get_flight_recorder()
         self._trace_ctx = FleetTraceContext(
@@ -228,6 +243,14 @@ class FleetRouter:
             self.replicas.append(r)
             if self.shared_host_cache is None:
                 self.shared_host_cache = r.srv.host_cache
+        #: rank 0's clock decisions for every rank when the replicas'
+        #: engines serve a mesh (inactive otherwise)
+        mesh = None
+        if self.replicas:
+            lock = getattr(self.replicas[0].srv, "lockstep", None)
+            if lock is not None and lock.active:
+                mesh = self.replicas[0].srv.engine.mesh
+        self.lockstep = Lockstep(mesh)
         self._publish_gauges()
 
     # -- construction ------------------------------------------------------
@@ -312,6 +335,21 @@ class FleetRouter:
     def has_work(self) -> bool:
         return any(f.status is None for f in self.requests)
 
+    @property
+    def _threaded_mesh(self) -> bool:
+        """Replicas on their own threads over a serving mesh: what they
+        hold moves under their threads, so placements are rank 0's."""
+        return self.lockstep.active and any(r.threaded
+                                            for r in self.replicas)
+
+    def await_idle(self, r: ReplicaHandle) -> None:
+        """On a serving mesh rank 0 found ``r`` idle: this rank's serving
+        thread may still be finishing that iteration's bookkeeping."""
+        deadline = time.monotonic() + INBOX_WAIT_S
+        while (self.lockstep.active and r.has_work()
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+
     def replica(self, replica_id: str) -> ReplicaHandle:
         for r in self.replicas:
             if r.replica_id == replica_id:
@@ -358,6 +396,11 @@ class FleetRouter:
         target = self._pick(freq)
         if freq.status is not None:
             return                       # fatal route fault terminal
+        if self._threaded_mesh:
+            leg, rid = self.lockstep.decide(lambda: (
+                freq.leg, None if target is None else target.replica_id))
+            freq.leg = leg
+            target = None if rid is None else self.replica(rid)
         if target is None:
             if not any(r.alive for r in self.replicas):
                 self._terminalize(
@@ -544,7 +587,7 @@ class FleetRouter:
                         "fleet_event": "handoff", "req_id": freq.req_id,
                         "trace_id": freq.trace_id,
                         "prefill_replica": freq.prefill_replica_id})
-                self._try_place(freq)
+                self._place_or_defer(freq)
             elif ev.status is RequestStatus.SHED:
                 self._absorb_shed(freq, ev.request)
             else:
@@ -553,7 +596,25 @@ class FleetRouter:
                 freq.engine_req = None
                 self._m_prefill_degraded.inc()
                 self.fleet_counts["prefill_degraded"] += 1
-                self._try_place(freq)
+                self._place_or_defer(freq)
+
+    def _place_or_defer(self, freq: FleetRequest) -> None:
+        """A placement a replica's callback asks for: now, or with
+        replicas on their own threads over a serving mesh, at the next
+        pump (whose placements are rank 0's)."""
+        if not self._threaded_mesh:
+            self._try_place(freq)
+            return
+        freq.retry_at = float("-inf")
+        freq.replica = None
+        freq.engine_req = None
+        self._enqueue(freq)
+
+    def _enqueue(self, freq: FleetRequest) -> None:
+        with self._pending_cv:
+            if freq not in self._pending:
+                self._pending.append(freq)
+            self._pending_cv.notify_all()
 
     def _on_stream_event(self, freq: FleetRequest,
                          ev: TokenEvent) -> None:
@@ -626,37 +687,79 @@ class FleetRouter:
         freq.retry_at = self.clock() + delay
         freq.replica = None
         freq.engine_req = None
-        if freq not in self._pending:
-            self._pending.append(freq)
+        self._enqueue(freq)
 
     # -- the pump ----------------------------------------------------------
     def pump(self) -> bool:
         """One cooperative fleet round: step every live replica, sweep
         health, run failover for newly dead replicas, and re-place
         pending requests whose backoff expired.  Returns True while any
-        fleet request is in flight."""
+        fleet request is in flight.  On a serving mesh the stale beats,
+        the expired backoffs and whether a request is in flight are rank
+        0's, taken as the round starts."""
+        decision = self.lockstep.decide(self._propose)
+        stale, due = None, None
+        if decision is not None:
+            stale = set(decision["stale"])
+            due = self._pending_named(decision["due"])
         for r in list(self.replicas):
             if (r.state in (ReplicaState.HEALTHY, ReplicaState.DRAINING)
                     and not r.threaded):
                 # threaded replicas step themselves; the pump only
                 # sweeps their health
                 r.step()
-            if r.alive and r.beat_stale():
+            if r.alive and (r.beat_stale() if stale is None
+                            else r.replica_id in stale):
                 r.mark_dead(
                     f"heartbeat stale past "
                     f"{r.heartbeat_timeout_s:.1f}s")
             if (r.state is ReplicaState.DEAD
                     and r.replica_id not in self._failover_done):
                 self._failover(r)
-        self._service_pending()
+        self._service_pending(due)
         self._publish_gauges()
-        return self.has_work
+        return self.has_work if decision is None else decision["more"]
 
-    def _service_pending(self) -> None:
+    def _propose(self) -> dict:
+        """Rank 0's clock decisions of a round: the live replicas whose
+        heartbeat is stale, the pending requests (by fleet request id)
+        whose backoff has expired, and whether any request is in
+        flight."""
         with self._lock:
             now = self.clock()
-            due = [f for f in self._pending
-                   if f.status is None and f.retry_at <= now]
+            return {"stale": [r.replica_id for r in self.replicas
+                              if r.alive and r.beat_stale()],
+                    "due": [f.req_id for f in self._pending
+                            if f.status is None and f.retry_at <= now],
+                    "more": self.has_work}
+
+    def _pending_named(self, req_ids: List[str]) -> List[FleetRequest]:
+        """The pending requests rank 0 named, waiting for a replica
+        thread's callback on this rank to queue one it has not yet."""
+        deadline = time.monotonic() + INBOX_WAIT_S
+        with self._pending_cv:
+            while True:
+                mine = {f.req_id: f for f in self._pending}
+                if all(i in mine for i in req_ids):
+                    return [mine[i] for i in req_ids]
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise ServingError(
+                        f"fleet: rank 0 re-placed {req_ids}, this rank "
+                        f"has pending {sorted(mine)} after "
+                        f"{INBOX_WAIT_S:.0f} s")
+                self._pending_cv.wait(left)
+
+    def _service_pending(self, due: Optional[List[FleetRequest]] = None
+                         ) -> None:
+        """Re-place the pending requests whose backoff expired (``due``:
+        the mesh's agreed ones; None reads this process's clock)."""
+        with self._lock:
+            if due is None:
+                now = self.clock()
+                due = [f for f in self._pending
+                       if f.status is None and f.retry_at <= now]
+            due = [f for f in due if f.status is None]
             self._pending = [f for f in self._pending
                              if f.status is None and f not in due]
             for f in due:
@@ -773,8 +876,13 @@ class FleetRouter:
                 "fleet_event": "drain", "replica": r.replica_id})
         self._publish_gauges()
         if pump:
-            while r.alive and r.has_work():
+            def busy() -> bool:
+                return r.alive and r.has_work()
+            # on a serving mesh rank 0's: replica threads move has_work
+            while (self.lockstep.decide(busy) if self.lockstep.active
+                   else busy()):
                 self.pump()
+            self.await_idle(r)
             if r.state is ReplicaState.DRAINING:
                 r.retire()
                 self._m_drains.inc()

@@ -25,6 +25,12 @@ scheduler's policy hooks and the engine's token stream (docs/serving.md
 The frontend is optional composition: without one installed the
 scheduler keeps its deterministic FCFS behavior byte-for-byte.
 
+On a serving mesh the two inputs that read a clock, a request's
+TTFT-at-risk age and the SLO monitor's firing alerts (fed by each
+rank's own latencies), are rank 0's: the frontend proposes them at
+every iteration boundary through the engine's ``lockstep_hooks`` and
+reads the agreed ones, so every rank orders and sheds alike.
+
 Copy of ``deepspeed_tpu/inference/serving/frontend/frontend.py`` for
 the PyTorch port, over the port's serving engine and observability
 package.
@@ -58,6 +64,11 @@ class ServingFrontend:
     ...                 on_token=collector)
     """
 
+    #: rank 0's late requests (by id) and firing (tenant, kind) pairs of
+    #: the current iteration on a serving mesh; None at 1 x 1, where
+    #: this process's clock decides
+    _agreed: Optional[Dict[str, object]] = None
+
     def __init__(self, srv,
                  registry: Optional[TenantRegistry] = None,
                  slo: object = "auto") -> None:
@@ -75,6 +86,9 @@ class ServingFrontend:
         srv.scheduler.shed_policy = self._pick_shed_victim
         srv.token_hooks.append(self._on_token)
         srv.lifecycle_hooks.append(self._on_terminal)
+        hooks = getattr(srv, "lockstep_hooks", None)
+        if hooks is not None and srv.lockstep.active:
+            hooks["frontend"] = (self._propose, self._apply)
 
     # -- tenant management -------------------------------------------------
     def register(self, spec: TenantSpec) -> TenantSpec:
@@ -97,10 +111,48 @@ class ServingFrontend:
         return sorted({r.tenant for r in sched.waiting}
                       | {r.tenant for r in sched.running.values()})
 
+    # -- the serving mesh's agreed inputs --------------------------------
+    def _late(self, req: Request, now: float) -> bool:
+        """The request has burned ``TTFT_RISK_FRACTION`` of its tenant's
+        TTFT target waiting."""
+        spec = self.tenants.get(req.tenant)
+        return (spec.ttft_slo_s > 0 and now - req.submit_time
+                > TTFT_RISK_FRACTION * spec.ttft_slo_s)
+
+    def _propose(self, now: float) -> Dict[str, list]:
+        """Rank 0: the live requests (by index) that are late at ``now``
+        and every firing (tenant, kind) alert."""
+        slo = self.slo
+        return {"late": [i for i, r in enumerate(self.srv.scheduler.live())
+                         if self._late(r, now)],
+                "firing": [] if slo is None else sorted(
+                    [t, k] for t, k in slo.series()
+                    if slo.firing(t, k))}
+
+    def _apply(self, decision: Dict[str, list], live: list) -> None:
+        self._agreed = {
+            "late": {id(live[i]): live[i] for i in decision["late"]},
+            "firing": {(t, k) for t, k in decision["firing"]}}
+
+    def _is_late(self, req: Request, now: float) -> bool:
+        if self._agreed is None:
+            return self._late(req, now)
+        return self._agreed["late"].get(id(req)) is req
+
+    def _firing(self, tenant: str, kind: str) -> bool:
+        if self.slo is None:
+            return False
+        if self._agreed is None:
+            return self.slo.firing(tenant, kind)
+        return (tenant, kind) in self._agreed["firing"]
+
+    def _firing_any(self, tenant: str) -> bool:
+        return (self._firing(tenant, KIND_TTFT)
+                or self._firing(tenant, KIND_ITL))
+
     # -- scheduler policies ------------------------------------------------
     def _order_admissions(self, waiting: Deque[Request]) -> None:
         now = time.perf_counter()
-        slo = self.slo
 
         def key(req: Request):
             spec = self.tenants.get(req.tenant)
@@ -108,12 +160,8 @@ class ServingFrontend:
             # at-risk: its error budget is already burning faster than
             # sustainable, so every queued request boosts within the
             # tier, not just the ones individually near the deadline
-            at_risk = int(
-                (spec.ttft_slo_s > 0
-                 and now - req.submit_time
-                 > TTFT_RISK_FRACTION * spec.ttft_slo_s)
-                or (slo is not None
-                    and slo.firing(req.tenant, KIND_TTFT)))
+            at_risk = int(self._is_late(req, now)
+                          or self._firing(req.tenant, KIND_TTFT))
             return (-spec.priority, -at_risk,
                     self.tenants.vtc.get(req.tenant, 0.0),
                     req.submit_time)
@@ -164,7 +212,7 @@ class ServingFrontend:
         # absorb the overload instead (all-firing falls through)
         if slo is not None and over_cap:
             calm = [(o, t) for o, t in over_cap
-                    if not slo.firing_any(t)]
+                    if not self._firing_any(t)]
             if calm:
                 over_cap = calm
         worst, worst_over = None, 0.0

@@ -409,22 +409,40 @@ class ContinuousBatchingScheduler:
                 return True
         return False
 
-    def sweep_deadlines(self, now: Optional[float] = None) -> List[Request]:
-        """Expire every WAITING and RUNNING request whose TTL has
-        passed (terminal status TIMED_OUT).  Called once per step(), so
-        expiry lands at an iteration boundary — a RUNNING request's
-        blocks are freed exactly like a cancellation."""
+    def live(self) -> List[Request]:
+        """Every WAITING then RUNNING request, in queue then admission
+        order: the same list on every rank of a serving mesh, whose
+        indices name requests in the mesh's decisions
+        (``lockstep.py``)."""
+        return list(self.waiting) + list(self.running.values())
+
+    def expired(self, now: Optional[float] = None
+                ) -> List[Tuple[int, str]]:
+        """``(index in live(), reason)`` of every live request whose TTL
+        has passed at ``now`` (default: this process's clock)."""
         now = time.perf_counter() if now is None else now
-        expired = [
-            r for r in list(self.waiting) + list(self.running.values())
-            if r.deadline_s is not None
-            and now - r.submit_time > r.deadline_s]
-        for r in expired:
-            self.cancel(r, RequestStatus.TIMED_OUT,
-                        f"deadline {r.deadline_s:.3g}s exceeded "
-                        f"({now - r.submit_time:.3g}s since submit, "
-                        f"state was {r.state.value})")
-        return expired
+        return [(i, f"deadline {r.deadline_s:.3g}s exceeded "
+                    f"({now - r.submit_time:.3g}s since submit, "
+                    f"state was {r.state.value})")
+                for i, r in enumerate(self.live())
+                if r.deadline_s is not None
+                and now - r.submit_time > r.deadline_s]
+
+    def sweep_deadlines(self, now: Optional[float] = None,
+                        expired: Optional[List[Tuple[Request, str]]] = None
+                        ) -> List[Request]:
+        """Expire every WAITING and RUNNING request whose TTL has
+        passed (terminal status TIMED_OUT), or, on a serving mesh, the
+        ``(request, reason)`` pairs of rank 0's :meth:`expired` (the same
+        on every rank).  Called once per step(), so expiry lands at an
+        iteration boundary — a RUNNING request's blocks are freed
+        exactly like a cancellation."""
+        if expired is None:
+            live = self.live()
+            expired = [(live[i], why) for i, why in self.expired(now)]
+        for r, why in expired:
+            self.cancel(r, RequestStatus.TIMED_OUT, why)
+        return [r for r, _ in expired]
 
     def schedule_admissions(self) -> List[Tuple[int, Request]]:
         """FCFS admission into free slots while the pool covers each

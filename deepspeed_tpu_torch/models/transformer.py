@@ -622,11 +622,6 @@ class TransformerLM(nn.Module):
                     "tensor parallelism over an MoE model: the expert "
                     "stacks' model-axis layout is queue A item 7 part 5, "
                     "expert parallelism")
-            if c.mlm_head:
-                raise NotImplementedError(
-                    "tensor parallelism over the MLM head (BERT): its "
-                    "vocab bias has no model-axis layout in the port "
-                    "(queue A item 7 part 3b)")
             local = dataclasses.replace(
                 c, num_heads=c.num_heads // model_shards,
                 num_kv_heads=c.kv_heads // model_shards, head_dim=c.hdim)
@@ -648,6 +643,11 @@ class TransformerLM(nn.Module):
         The fused-qkv column gather and the row-parallel bias division
         happen inside the differentiated step
         (``runtime/engine.py``), not here."""
+        if model_shards > 1 and self.config.mlm_head:
+            raise NotImplementedError(
+                "tensor-parallel training over the MLM head (BERT): its "
+                "vocab-parallel loss is not in the port yet (queue A item "
+                "7 part 3c); serving runs it under a model axis")
         view = self.tp_serving_view(model_shards, tp_axis, None)
         view._tp_exact_bwd = view._tp_axis is not None
         return view
@@ -1265,15 +1265,19 @@ class TransformerLM(nn.Module):
     def _project(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """f32 logits from operands in x's dtype: the MLM head (dense,
         act, LN, the tied decoder, the vocab bias), the tied embedding,
-        or the untied ``lm_head`` (plus its f32 bias when it has one)."""
+        or the untied ``lm_head`` (plus its f32 bias when it has one).
+        Under a model axis the MLM head's dense layer and LN are
+        replicated, and its decoder and vocab bias are this shard's
+        vocab rows, like the tied embedding's."""
         c = self.config
         if c.mlm_head:
             mh = params["mlm_head"]
             h = L.ACT_FNS[c.activation](L.dense_apply(mh["dense"], x))
             logits = L.embedding_attend(params["embed"],
                                         self._norm(mh["ln"], h))
-            return logits + mh["bias"].float()
-        logits = self._project_local(params, x)
+            logits = logits + mh["bias"].float()
+        else:
+            logits = self._project_local(params, x)
         if self._tp_axis is not None:
             # the vocab-sharded head's local [.., V / mp] logits tile
             # back into the whole vocab: shard order is vocab order, so
@@ -1713,20 +1717,20 @@ class TransformerLM(nn.Module):
         nb, blk = pool_k.shape[1], pool_k.shape[2]
         npages = tables.shape[1]
         dp = self._dp_axis
-        if dp is not None and sw:
-            raise NotImplementedError(
-                "the speculative lane over data-sharded decode slots "
-                "(queue A item 7 part 3b)")
+        nsample = bsl + nsp * sw
 
         def shard_cat(a):
-            # data-sharded slots: this rank's decode rows (the first bsl)
-            # tile back into global slot order, so every data rank's pool
-            # replica applies every slot's new row; the chunk's rows are
-            # the same on every data rank and stay as they are
-            if dp is None or not bsl:
+            # data-sharded slots: this rank's slot-owned rows, segment by
+            # segment (the decode rows, then the spec rows, slot-major
+            # [B_local * S]), tile back into global slot order, so every
+            # data rank's pool replica applies every slot's new rows; the
+            # chunk's rows are the same on every data rank and stay as
+            # they are
+            if dp is None or not nsample:
                 return a
-            return torch.cat([comm.all_gather(a[:bsl].contiguous(), dp,
-                                              axis=0), a[bsl:]])
+            segs = [comm.all_gather(a[lo:hi].contiguous(), dp, axis=0)
+                    for lo, hi in ((0, bsl), (bsl, nsample)) if hi > lo]
+            return torch.cat(segs + [a[nsample:]])
         act = dec_active > 0
         dtables, dlens = tables[:bsl], lens[:bsl]
         dlens_l = dlens.long()
@@ -1767,7 +1771,6 @@ class TransformerLM(nn.Module):
         positions = torch.cat(pos_parts + [cpos])[None]
         ids = torch.cat(id_parts + [chunk_ids.long()])[None]
         x = self._embed(params, ids, positions)
-        nsample = bsl + nsp * sw
         t = nsample + nc
 
         for i, bp in enumerate(layer_views(params["blocks"])):

@@ -66,6 +66,22 @@ GPT_NEOX_20B = {
     "use_parallel_residual": True,
 }
 
+#: BERT-large as published: Hugging Face ``bert-large-uncased``,
+#: ``config.json`` (the keys the conversion reads)
+BERT_LARGE_UNCASED = {
+    "model_type": "bert",
+    "architectures": ["BertForMaskedLM"],
+    "hidden_act": "gelu",
+    "hidden_size": 1024,
+    "intermediate_size": 4096,
+    "layer_norm_eps": 1e-12,
+    "max_position_embeddings": 512,
+    "num_attention_heads": 16,
+    "num_hidden_layers": 24,
+    "type_vocab_size": 2,
+    "vocab_size": 30522,
+}
+
 _MISSING = object()
 
 

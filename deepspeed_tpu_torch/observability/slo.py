@@ -228,6 +228,11 @@ class SloMonitor:
         ks = self._keys.get((tenant, kind))
         return ks is not None and ks.state == "firing"
 
+    def series(self) -> List[Tuple[str, str]]:
+        """Every (tenant, kind) observed so far, sorted."""
+        with self._lock:
+            return sorted(self._keys)
+
     def firing_any(self, tenant: str) -> bool:
         return (self.firing(tenant, KIND_TTFT)
                 or self.firing(tenant, KIND_ITL))

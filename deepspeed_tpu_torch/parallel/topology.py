@@ -155,8 +155,28 @@ class ProcessMesh:
         return [int(np.ravel_multi_index(c, self.spec.sizes))
                 for c in itertools.product(*free)]
 
-    def _build(self, key: Tuple[str, ...]) -> None:
-        if self.axis_size(key) == self.world_size:
+    def private(self) -> "ProcessMesh":
+        """A mesh of this shape and rank whose process groups are its own:
+        a fresh group (``new_group``, also for an axis that spans the
+        world) for each axis above 1, for the data-parallel product and
+        for the joint of every axis above 1, so that two engines over the
+        same ranks, each stepping on its own thread, never interleave
+        collectives on one group.  Every rank calls it, in the same
+        order, as ``new_group`` requires."""
+        mesh = object.__new__(ProcessMesh)
+        mesh.spec, mesh.rank = self.spec, self.rank
+        mesh.shape, mesh.coords = dict(self.shape), dict(self.coords)
+        mesh._groups = {}
+        keys = [(a,) for a in AXIS_ORDER if self.shape[a] > 1]
+        for joint in (self.key(DATA_AXES), self.key(AXIS_ORDER)):
+            if len(joint) > 1 and joint not in keys:
+                keys.append(joint)
+        for key in keys:
+            mesh._build(key, fresh=True)
+        return mesh
+
+    def _build(self, key: Tuple[str, ...], fresh: bool = False) -> None:
+        if not fresh and self.axis_size(key) == self.world_size:
             self._groups[key] = (dist.group.WORLD,
                                  list(range(self.world_size)))
             return

@@ -119,8 +119,10 @@ def test_moe_and_diffusion_modules_are_checked(module):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-#: the modules of the tiered host cache and the fleet
+#: the modules of the tiered host cache and the fleet, and the serving
+#: mesh's decider
 HOST_TIER_AND_FLEET = (
+    "deepspeed_tpu_torch.inference.serving.lockstep",
     "deepspeed_tpu_torch.ops.aio", "deepspeed_tpu_torch.ops.aio.aio_handle",
     "deepspeed_tpu_torch.runtime.swap_tensor",
     "deepspeed_tpu_torch.runtime.swap_tensor.slot_store",
@@ -366,10 +368,13 @@ def _worker_source(test_file: str, name: str) -> str:
 
 @pytest.mark.parametrize("test_file,name", [
     ("test_torch_pipe.py", "WORKER"), ("test_torch_tp_training.py",
-                                       "WORKER")])
+                                       "WORKER"),
+    ("test_torch_tp_serving.py", "WORKER")])
 def test_rank_worker_sources_import_nothing_of_jax(test_file, name):
     """The sources the gloo ranks of the parity tests run import neither
-    jax nor the JAX package (the pipeline's files share the first)."""
+    jax nor the JAX package (the pipeline's files share the first; the
+    serving mesh's worker runs the spec lane, the host tier, the fleet
+    and BERT too)."""
     tree = ast.parse(_worker_source(test_file, name))
     names = []
     for node in ast.walk(tree):

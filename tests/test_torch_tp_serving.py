@@ -3,19 +3,21 @@ serving mesh.
 
 The port runs its ranks as child processes on ``gloo`` on the CPU
 (``comm/local_ranks.py``), one world of 2 ranks ({model 2}, and
-``generate()`` at ``tensor_parallel.tp_size`` 2) and one of 4 ({data 2,
-model 2}), each started once for the module and running every case of
-its size in turn; the worker source imports no JAX.  The JAX side runs
-in this process on the conftest's 8-device virtual CPU mesh, with its
-paged kernels through the package's plain references (interpreted inside
-the shard_mapped step they would take minutes to compile), while the
-ranks run.
+``generate()`` / ``forward()`` at ``tensor_parallel.tp_size`` 2) and one
+of 4 ({data 2, model 2}), each started once for the module and running
+every case of its size in turn; the worker source imports no JAX.  The
+JAX side runs in this process on the conftest's 8-device virtual CPU
+mesh, with its paged kernels through the package's plain references
+(interpreted inside the shard_mapped step they would take minutes to
+compile), while the ranks run.
 
 The model is ``test_serving_tp.py``'s tiny f32 GPT-2 (4 layers, d 32, 4
 heads, vocab 64) from the JAX init with its kernels scaled by 30 and the
 ``out``/``fc_in``/``fc_out`` biases drawn non-zero (so the greedy
-streams vary, and the row-parallel bias division counts), and a tiny
-LLaMA with GQA (8 query heads over 2 kv heads).  Cases:
+streams vary, and the row-parallel bias division counts), a tiny LLaMA
+with GQA (8 query heads over 2 kv heads), a 1-layer draft (the GPT-2's
+first layer) and a tiny BERT (post-norm encoder, MLM head, tied
+embeddings).  Cases:
 
 * {model 2} and {data 2, model 2} at ``kv_cache_bits`` 0 and 8: every
   stream equal to the JAX server's on the same mesh, the first step's
@@ -27,11 +29,37 @@ LLaMA with GQA (8 query heads over 2 kv heads).  Cases:
   equal to the JAX engine's (in process), the streams equal to the JAX
   server's; a pool too small for the load on {data 2, model 2}: the
   JAX server's preemptions and streams;
-* the spec lane and the fleet refused on a mesh, naming queue A item 7;
+* the speculative lane (the 1-layer draft, ``spec_k`` 2) on {model 2}
+  and {data 2, model 2}, also at ``kv_cache_bits`` 8: the JAX spec
+  server's streams and ``spec_counts``;
+* the host tier on {data 2, model 2}: a small pool that spills, then a
+  prefix hit that promotes: the JAX server's streams, spills, DRAM hits
+  and promoted blocks, each rank's host bytes 1/2 of the JAX engine's;
+  and a fatal ``serving.spill`` fault planted on rank 1 alone (at the
+  first prompt's last block), which every rank degrades alike (the JAX
+  server's counts under the same fault);
+* ``FleetRouter.from_engine`` on {model 2} (2 replicas) and
+  disaggregated on {data 2, model 2} (1 prefill + 1 decode): each
+  request's stream once, its placements, the handoffs and the fabric
+  counts of the JAX fleet; and with each replica on its own thread on
+  {data 2, model 2}: each stream once, equal to the JAX fleet's, the
+  same placements on every rank, then the autoscaler draining and
+  retiring one replica alike on every rank;
+* a request whose deadline expires mid-stream while rank 1's serving
+  clock runs ahead of the others', also under the multi-tenant front end
+  whose TTFT-at-risk boosts read that clock: every rank times it out at
+  the same iteration and boosts the same requests (rank 0 decides), and
+  every rank's statuses, streams and first-token steps are equal;
+* BERT's ``forward()`` at ``tp_size`` 2 (the MLM head's vocab bias cut
+  beside the vocab-sharded decoder): within 1e-5 of the JAX engine's
+  at ``tp_size`` 2 and at one device;
+* MoE with a model axis and BERT's MLM head in tensor-parallel
+  training refused, naming their parts of queue A item 7;
 * ``generate()`` at ``tp_size`` 2 equal to the JAX engine's at
   ``tp_size`` 2 and to the port's at one rank;
-* in process: the validation messages word for word, and
-  ``kv_block_bytes`` / ``blocks_for_budget`` with ``model_shards``.
+* in process: the validation messages word for word,
+  ``kv_block_bytes`` / ``blocks_for_budget`` with ``model_shards``, and
+  a one-rank server that broadcasts nothing.
 """
 import json
 import os
@@ -46,9 +74,14 @@ import torch
 
 import deepspeed_tpu as ds
 import deepspeed_tpu_torch as dt
+from deepspeed_tpu.inference.serving import FleetRouter as JaxFleetRouter
 from deepspeed_tpu.inference.serving import block_allocator as jax_alloc
 from deepspeed_tpu.models import transformer as jax_tf
 from deepspeed_tpu.ops.transformer import paged_decode_attention as jax_pa
+from deepspeed_tpu.runtime.resilience import \
+    FaultInjector as JaxFaultInjector
+from deepspeed_tpu.runtime.resilience import \
+    install_fault_injector as jax_install
 from deepspeed_tpu_torch.comm.local_ranks import run_ranks
 from deepspeed_tpu_torch.inference.serving import block_allocator as alloc
 from deepspeed_tpu_torch.models import transformer as tt
@@ -62,42 +95,93 @@ LLAMA = dict(num_layers=2, d_model=64, num_heads=8, num_kv_heads=2,
              pos_embedding="rotary", rotary_interleaved=False,
              norm_type="rmsnorm", activation="silu", gated_mlp=True,
              tie_embeddings=False, use_bias=False)
-FAMILIES = {"gpt2": GPT2, "llama": LLAMA}
+#: the draft: the target's first layer alone (its weights too)
+DRAFT = dict(GPT2, num_layers=1)
+BERT = dict(num_layers=2, d_model=64, num_heads=4, vocab_size=64,
+            max_seq_len=64, causal=False, norm_position="post",
+            final_layernorm=False, embed_layernorm=True, mlm_head=True,
+            activation="gelu_exact", d_ff=96, token_type_vocab=2)
+FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "draft": DRAFT, "bert": BERT}
+#: the families built by ``gpt2_config`` (the others by
+#: ``TransformerConfig``)
+GPT2_LIKE = ("gpt2", "draft")
 SERVING = {"enabled": True, "kv_block_size": 8, "num_kv_blocks": 48,
            "max_batch_slots": 8, "prefill_chunk_tokens": 16}
 BASE = {"dtype": "float32", "max_out_tokens": 64, "temperature": 0.0,
         "replace_with_kernel_inject": False}
 NEW = 8
+HOST = {"enabled": True, "dram_budget_bytes": 1 << 20}
+D2M2 = {"data": 2, "model": 2}
 
 
 def serving(mesh, **kw):
     return {**BASE, "serving": {**SERVING, "mesh": mesh, **kw}}
 
 
-#: name → (world, family, inference config); the JAX reference of a
-#: serving case is its own config on the JAX package
+#: name → (world, family, inference config, kind); the JAX reference of
+#: a case is its own config on the JAX package.  Kinds: "serve" (the
+#: staggered drain), "gen" (``generate()``), "spec" (the drain with the
+#: draft), "host" (spill, then a promoted hit), "fleet"
+#: (``FleetRouter.from_engine``), "bert" (``forward()``), "skew" (a
+#: deadline under a skewed clock, port only)
 CASES = {
-    "m2": (2, "gpt2", serving({"model": 2})),
-    "m2_kv8": (2, "gpt2", serving({"model": 2}, kv_cache_bits=8)),
-    "m2_llama": (2, "llama", serving({"model": 2})),
-    "gen_tp2": (2, "gpt2", {**BASE, "tensor_parallel": {"tp_size": 2}}),
-    "d2m2": (4, "gpt2", serving({"data": 2, "model": 2})),
-    "d2m2_kv8": (4, "gpt2", serving({"data": 2, "model": 2},
-                                    kv_cache_bits=8)),
-    "d2m2_int8": (4, "gpt2", {**serving({"data": 2, "model": 2}),
-                              "quant": {"enabled": True, "bits": 8}}),
+    "m2": (2, "gpt2", serving({"model": 2}), "serve"),
+    "m2_kv8": (2, "gpt2", serving({"model": 2}, kv_cache_bits=8), "serve"),
+    "m2_llama": (2, "llama", serving({"model": 2}), "serve"),
+    "gen_tp2": (2, "gpt2", {**BASE, "tensor_parallel": {"tp_size": 2}},
+                "gen"),
+    "d2m2": (4, "gpt2", serving(D2M2), "serve"),
+    "d2m2_kv8": (4, "gpt2", serving(D2M2, kv_cache_bits=8), "serve"),
+    "d2m2_int8": (4, "gpt2", {**serving(D2M2),
+                              "quant": {"enabled": True, "bits": 8}},
+                  "serve"),
     # a pool too small for the load: recompute preemption while the
     # slots are data-sharded (8 usable blocks of 8 tokens; four prompts
     # admit at 7 blocks and need 13 once grown by 12 tokens)
-    "d2m2_preempt": (4, "gpt2", serving({"data": 2, "model": 2},
-                                        num_kv_blocks=9)),
+    "d2m2_preempt": (4, "gpt2", serving(D2M2, num_kv_blocks=9), "serve"),
+    "m2_spec": (2, "gpt2", serving({"model": 2}, spec_k=2), "spec"),
+    "d2m2_spec": (4, "gpt2", serving(D2M2, spec_k=2), "spec"),
+    "d2m2_spec_kv8": (4, "gpt2", serving(D2M2, spec_k=2, kv_cache_bits=8),
+                      "spec"),
+    # 11 usable blocks: the flood evicts the first prompt's cached chain
+    # into the host tier, the resubmission promotes it back
+    "d2m2_host": (4, "gpt2", serving(D2M2, num_kv_blocks=12,
+                                     kv_cache_bits=8, host_cache=HOST),
+                  "host"),
+    # the same with the first spill failing fatally on rank 1 alone
+    "d2m2_host_fault": (4, "gpt2", serving(D2M2, num_kv_blocks=12,
+                                           kv_cache_bits=8,
+                                           host_cache=HOST), "host"),
+    "m2_fleet": (2, "gpt2", serving({"model": 2}, fleet={
+        "enabled": True, "replicas": 2}), "fleet"),
+    "d2m2_disagg": (4, "gpt2", serving(D2M2, host_cache=HOST, fleet={
+        "enabled": True, "replicas": 2, "prefill_replicas": 1}), "fleet"),
+    # each replica on its own thread, then the autoscaler drains one
+    "d2m2_fleet_threaded": (4, "gpt2", serving(D2M2, fleet={
+        "enabled": True, "replicas": 2}), "fleet"),
+    "m2_bert": (2, "bert", {**BASE, "tensor_parallel": {"tp_size": 2}},
+                "bert"),
+    "d2m2_skew": (4, "gpt2", serving(D2M2), "skew"),
+    # the same clocks under the multi-tenant front end, with 4 slots for
+    # 7 requests, so its at-risk boosts order the waiting queue
+    "d2m2_skew_front": (4, "gpt2", serving(D2M2, max_batch_slots=4),
+                        "skew"),
 }
 #: the preemption case's prompts (seed, lengths) and new tokens
 PREEMPT = (5, (9, 13, 11, 7), 12)
+#: the fleet cases' prompts: most hold full blocks to hand over
+FLEET_LENS = (17, 9, 25, 12, 30, 20)
+#: the skew case: the deadline request (prompt length, new tokens,
+#: deadline in seconds), the serving clock's advance each step and rank
+#: 1's lead over it; rank 0 times the request out at step 11 (of its
+#: ~40), rank 1 alone would at step 6
+SKEW = (8, 40, 0.105, 0.01, 0.05)
 
 
 def prompts(name=""):
     seed, lens = (PREEMPT[:2] if name.endswith("_preempt")
+                  else (13, FLEET_LENS)
+                  if name in CASES and CASES[name][3] == "fleet"
                   else (11, (5, 9, 12, 16, 3, 7)))
     rs = np.random.RandomState(seed)
     return [rs.randint(0, 64, (n,)).tolist() for n in lens]
@@ -107,16 +191,30 @@ def new_tokens(name=""):
     return PREEMPT[2] if name.endswith("_preempt") else NEW
 
 
+#: the spill that fails in the host fault case (the first prompt's chain
+#: spills first, so the fourth is its last block: the three before it
+#: still promote)
+FAULT_AT = 4
+
+
+def spill_prompts():
+    """The host cases' prompt, then the six that flood the pool."""
+    rs = np.random.RandomState(0)
+    return ([rs.randint(0, 64, (28,)).tolist()]
+            + [rs.randint(0, 64, (30,)).tolist() for _ in range(6)])
+
+
 def jax_params(family):
-    """The JAX init with kernels x 30 and non-zero out/fc biases (the
-    qkv bias stays 0: the JAX engine's TP prep permutes an int8 qkv
-    bias but not its channel scale)."""
-    kw = FAMILIES[family]
-    cfg = (jax_tf.gpt2_config("125m", dtype=jnp.float32, **kw)
-           if family == "gpt2" else
-           jax_tf.TransformerConfig(dtype=jnp.float32, **kw))
-    tree = jax.device_get(jax_tf.TransformerLM(cfg).init(
-        jax.random.PRNGKey(0)))
+    """The JAX init with kernels x 30 and non-zero out/fc biases and MLM
+    vocab bias (the qkv bias stays 0: the JAX engine's TP prep permutes
+    an int8 qkv bias but not its channel scale).  The draft's are the
+    target's with the first layer alone."""
+    if family == "draft":
+        tree = jax_params("gpt2")
+        tree["blocks"] = jax.tree_util.tree_map(lambda a: a[:1],
+                                                tree["blocks"])
+        return tree
+    tree = jax.device_get(jax_model(family).init(jax.random.PRNGKey(0)))
     rs = np.random.RandomState(0)
 
     def amp(node, parent=""):
@@ -126,7 +224,8 @@ def jax_params(family):
                 out[k] = amp(v, k)
             elif k == "kernel":
                 out[k] = np.asarray(v) * 30.0
-            elif k == "bias" and parent in ("out", "fc_in", "fc_out"):
+            elif k == "bias" and parent in ("out", "fc_in", "fc_out",
+                                            "mlm_head"):
                 out[k] = (rs.randn(*v.shape) * 0.1).astype(np.float32)
             else:
                 out[k] = np.asarray(v)
@@ -137,7 +236,7 @@ def jax_params(family):
 def jax_model(family):
     kw = FAMILIES[family]
     cfg = (jax_tf.gpt2_config("125m", dtype=jnp.float32, **kw)
-           if family == "gpt2" else
+           if family in GPT2_LIKE else
            jax_tf.TransformerConfig(dtype=jnp.float32, **kw))
     return jax_tf.TransformerLM(cfg)
 
@@ -145,7 +244,7 @@ def jax_model(family):
 def port_model(family):
     kw = FAMILIES[family]
     cfg = (tt.gpt2_config("125m", dtype=torch.float32, **kw)
-           if family == "gpt2" else
+           if family in GPT2_LIKE else
            tt.TransformerConfig(dtype=torch.float32, **kw))
     return tt.TransformerLM(cfg)
 
@@ -162,18 +261,26 @@ def flat(tree, prefix=""):
 
 
 WORKER = r'''
-import json, os, sys
+import json, os, sys, time, types
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
 torch.set_num_threads(1)
 import deepspeed_tpu_torch as dt
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.inference.serving import (FleetAutoscaler,
+                                                   FleetRouter,
+                                                   ServingFrontend,
+                                                   TenantSpec)
+from deepspeed_tpu_torch.inference.serving import engine as engine_mod
+from deepspeed_tpu_torch.inference.serving import scheduler as sched_mod
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.observability import get_registry
 from deepspeed_tpu_torch.parallel.topology import build_mesh
 from deepspeed_tpu_torch.runtime.config import MeshConfig
+from deepspeed_tpu_torch.runtime.resilience import (FaultInjector,
+                                                    install_fault_injector)
 
 d = os.environ["TP_TEST_DIR"]
 dt.init_distributed("gloo", timeout=90)
@@ -193,27 +300,30 @@ def unflat(npz):
 def model(family):
     kw = spec["families"][family]
     cfg = (tt.gpt2_config("125m", dtype=torch.float32, **kw)
-           if family == "gpt2"
+           if family in spec["gpt2_like"]
            else tt.TransformerConfig(dtype=torch.float32, **kw))
     return tt.TransformerLM(cfg)
 
-out = {}
-for name, (w, family, config) in spec["cases"].items():
-    if w != world:
-        continue
-    prompts, new = spec["prompts"][name], spec["new"][name]
-    m = model(family)
+def weights(family, m):
     tree = unflat(np.load(os.path.join(d, f"params_{family}.npz")))
+    return params_from_jax(tree, m)
+
+def engine(name, family, config):
+    m = model(family)
     # one case hands init_inference its mesh instead of building it
     mesh = (build_mesh(MeshConfig(data=2, model=2)) if name == "d2m2_kv8"
             else None)
-    eng = dt.init_inference(m, config, params=params_from_jax(tree, m),
-                            device="cpu", mesh=mesh)
-    if "tensor_parallel" in config:
-        out[name] = {"gen": [eng.generate(np.asarray(p)[None],
-                                          max_new_tokens=new).tolist()[0]
-                             for p in prompts]}
-        continue
+    return dt.init_inference(m, config, params=weights(family, m),
+                             device="cpu", mesh=mesh)
+
+def drain(srv, prompts, new):
+    reqs = [srv.submit(p, max_new_tokens=new) for p in prompts[:3]]
+    srv.step()
+    reqs += [srv.submit(p, max_new_tokens=new) for p in prompts[3:]]
+    srv.run(max_steps=400)
+    return reqs
+
+def served(eng, prompts, new):
     srv = eng.serving_engine()
     first, kv_heads = [], []
     mixed = srv.model._apply_paged_mixed
@@ -225,34 +335,188 @@ for name, (w, family, config) in spec["cases"].items():
             first.append(r[1].tolist())
         return r
     srv.model._apply_paged_mixed = record
-    reqs = [srv.submit(p, max_new_tokens=new) for p in prompts[:3]]
-    srv.step()
-    reqs += [srv.submit(p, max_new_tokens=new) for p in prompts[3:]]
-    srv.run(max_steps=400)
+    reqs = drain(srv, prompts, new)
     reg = get_registry()
-    out[name] = {"streams": [r.output for r in reqs], "first": first[0],
-                 "status": [r.status.value for r in reqs],
-                 "pool": srv.kv_pool_bytes,
-                 "psum": srv.tp_psum_bytes_per_token_layer,
-                 "kv_heads": sorted(set(kv_heads)),
-                 "gauges": [reg.gauge("dstpu_mesh_data_size").value,
-                            reg.gauge("dstpu_mesh_model_size").value,
-                            reg.gauge("dstpu_serving_kv_pool_bytes").value],
-                 "qmode": eng._qmode, "used": srv.allocator.num_used,
-                 "preemptions": srv.counts["preemptions"]}
+    return {"streams": [r.output for r in reqs], "first": first[0],
+            "status": [r.status.value for r in reqs],
+            "pool": srv.kv_pool_bytes,
+            "psum": srv.tp_psum_bytes_per_token_layer,
+            "kv_heads": sorted(set(kv_heads)),
+            "gauges": [reg.gauge("dstpu_mesh_data_size").value,
+                       reg.gauge("dstpu_mesh_model_size").value,
+                       reg.gauge("dstpu_serving_kv_pool_bytes").value],
+            "qmode": eng._qmode, "used": srv.allocator.num_used,
+            "preemptions": srv.counts["preemptions"],
+            "decisions": srv.lockstep.broadcasts}
+
+def speculated(eng, prompts, new):
+    dm = model("draft")
+    srv = eng.serving_engine(draft_model=dm,
+                             draft_params=weights("draft", dm))
+    reqs = drain(srv, prompts, new)
+    return {"streams": [r.output for r in reqs],
+            "status": [r.status.value for r in reqs],
+            "spec": dict(srv.spec_counts), "used": srv.allocator.num_used}
+
+def hosted(name, eng):
+    if name.endswith("_fault") and rank == 1:
+        fi = FaultInjector()
+        fi.add_plan("serving.spill", "fatal", at=spec["fault_at"], count=1)
+        install_fault_injector(fi)
+    srv = eng.serving_engine()
+    first, *flood = spec["spill"]
+    r1 = srv.submit(first, max_new_tokens=6)
+    srv.run()
+    for p in flood:
+        srv.submit(p, max_new_tokens=4)
+    srv.run()
+    r2 = srv.submit(first, max_new_tokens=6)
+    srv.run()
+    install_fault_injector(FaultInjector())
+    hc = srv.host_cache
+    srv.allocator.assert_consistent()
+    return {"streams": [r1.output, r2.output],
+            "status": [r1.status.value, r2.status.value],
+            "stats": dict(srv.host_counts, spills=hc.spills_total,
+                          hits=dict(hc.hits_total),
+                          host_hit_tokens=srv.allocator
+                          .host_hit_tokens_total),
+            "host_bytes": hc.resident_bytes("dram"),
+            "gauge": get_registry().gauge(
+                "dstpu_serving_host_dram_bytes").value,
+            "used": srv.allocator.num_used}
+
+def fleet_run(name, eng, prompts, new):
+    fleet = FleetRouter.from_engine(eng, seed=0)
+    threaded = name.endswith("_threaded")
+    if threaded:
+        for r in fleet.replicas:
+            r.start()
+    freqs = [fleet.submit(p, max_new_tokens=new) for p in prompts]
+    if threaded:
+        while fleet.pump():
+            time.sleep(0.002)
+        for r in fleet.replicas:
+            r.stop(timeout_s=60)
+    else:
+        fleet.run()
+    scaled = []
+    if threaded:
+        # the fleet idle and quiet: one tick drains a replica, the next
+        # retires it
+        scaler = FleetAutoscaler(fleet, spawn_fn=None, quiet_s=0.0,
+                                 scale_down_cooldown_s=0.0)
+        for _ in range(2):
+            scaled += [[e["action"], e["replica"]] for e in scaler.tick()]
+        scaled.append([r.state.value for r in fleet.replicas])
+    return {"streams": [f.output for f in freqs], "scaled": scaled,
+            "status": [f.status.value for f in freqs],
+            "placed": [[f.prefill_replica_id,
+                        f.replica.replica_id if f.replica else None]
+                       for f in freqs],
+            "fleet": dict(fleet.fleet_counts),
+            "fabric": {r.replica_id: dict(r.srv.fabric_counts)
+                       for r in fleet.replicas},
+            "used": [r.srv.allocator.num_used for r in fleet.replicas]}
+
+def skewed(name, eng, prompts, new):
+    # the serving modules' clock advances a fixed step each iteration;
+    # rank 1's runs ahead of the others'
+    plen, pnew, deadline, tick, lead = spec["skew"]
+    real = time.perf_counter
+    base, steps = real(), [0]
+
+    class Clock:
+        def __getattr__(self, n):
+            return getattr(time, n)
+
+        def perf_counter(self):
+            return base + tick * steps[0] + (lead if rank == 1 else 0.0)
+    for mod in (engine_mod, sched_mod):
+        mod.time = Clock()
+    try:
+        srv = eng.serving_engine()
+        step = srv.step
+
+        def counted():
+            steps[0] += 1
+            return step()
+        srv.step = counted
+        submit, late = srv.submit, []
+        if name.endswith("_front"):
+            # an interactive tenant whose TTFT target its requests outlive
+            # while they wait: rank 0's clock says which are late
+            fe = ServingFrontend(srv, slo=None)
+            fe.register(TenantSpec("interactive", weight=4.0,
+                                   ttft_slo_s=3 * tick))
+            fe.register(TenantSpec("batch"))
+            apply = fe._apply
+
+            def applying(decision, live):
+                late.append(len(decision["late"]))
+                apply(decision, live)
+            srv.lockstep_hooks["frontend"] = (fe._propose, applying)
+
+            def submit(p, i=[0], **kw):
+                i[0] += 1
+                return fe.submit(p, tenant=("interactive", "batch")[
+                    i[0] % 2], **kw)
+        firsts = {}
+
+        def first(ev):
+            firsts.setdefault(id(ev.request), steps[0])
+        long = np.random.RandomState(3).randint(0, 64, (plen,)).tolist()
+        reqs = [submit(long, max_new_tokens=pnew, deadline_s=deadline,
+                       on_token=first)]
+        reqs += [submit(p, max_new_tokens=new, on_token=first)
+                 for p in prompts]
+        srv.run(max_steps=400)
+    finally:
+        for mod in (engine_mod, sched_mod):
+            mod.time = time
+    return {"streams": [r.output for r in reqs],
+            "status": [r.status.value for r in reqs],
+            "first_step": [firsts.get(id(r)) for r in reqs],
+            "late": max(late, default=0), "used": srv.allocator.num_used}
+
+out = {}
+for name, (w, family, config, kind) in spec["cases"].items():
+    if w != world:
+        continue
+    prompts, new = spec["prompts"][name], spec["new"][name]
+    try:
+        eng = engine(name, family, config)
+        if kind == "gen":
+            out[name] = {"gen": [eng.generate(
+                np.asarray(p)[None], max_new_tokens=new).tolist()[0]
+                for p in prompts]}
+        elif kind == "bert":
+            ids = np.asarray(spec["bert_ids"])
+            out[name] = {"logits": eng.forward(ids).tolist()}
+        elif kind == "serve":
+            out[name] = served(eng, prompts, new)
+        elif kind == "spec":
+            out[name] = speculated(eng, prompts, new)
+        elif kind == "host":
+            out[name] = hosted(name, eng)
+        elif kind == "fleet":
+            out[name] = fleet_run(name, eng, prompts, new)
+        elif kind == "skew":
+            out[name] = skewed(name, eng, prompts, new)
+    except Exception as e:
+        out[name] = {"error": repr(e)}
+        print(f"rank {rank} case {name}: {e!r}", file=sys.stderr,
+              flush=True)
 if world == 2:
-    # the paths a mesh refuses, naming their part of queue A item 7
-    from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
-    m = model("gpt2")
-    tree = unflat(np.load(os.path.join(d, "params_gpt2.npz")))
-    eng = dt.init_inference(m, spec["cases"]["m2"][2],
-                            params=params_from_jax(tree, m), device="cpu")
+    # what a mesh still refuses, naming its part of queue A item 7
     out["refused"] = []
-    for kw in ({"draft_model": m}, {"role": "prefill"}):
-        try:
-            ServingEngine(eng, **kw)
-        except NotImplementedError as e:
-            out["refused"].append(str(e))
+    moe = tt.TransformerLM(tt.gpt2_config(
+        "125m", dtype=torch.float32, moe_num_experts=4,
+        **spec["families"]["gpt2"]))
+    try:
+        dt.init_inference(moe, spec["cases"]["m2"][2], device="cpu")
+    except NotImplementedError as e:
+        out["refused"].append(str(e))
 out["jax_loaded"] = sorted(m for m in sys.modules
                            if m.split(".")[0] in ("jax", "deepspeed_tpu"))
 json.dump(out, open(os.path.join(d, f"w{world}_rank{rank}.json"), "w"))
@@ -278,20 +542,75 @@ def jax_engine(family, config, params):
                              config=json.loads(json.dumps(config)))
 
 
-def jax_run(name, family, config, params):
-    """The JAX package's streams for one case (the first step's logits
-    from its ``forward()`` of prompt 0)."""
-    eng = jax_engine(family, config, params)
-    ps, new = prompts(name), new_tokens(name)
-    if "tensor_parallel" in config:
-        return {"gen": [np.asarray(eng.generate(
-            np.asarray(p, np.int32)[None], max_new_tokens=new))[0].tolist()
-            for p in ps]}
-    srv = eng.serving_engine()
+#: BERT's input ids, batch 2 x 12
+BERT_IDS = np.random.RandomState(7).randint(0, 64, (2, 12)).tolist()
+
+
+def jax_drain(srv, ps, new):
     reqs = [srv.submit(p, max_new_tokens=new) for p in ps[:3]]
     srv.step()
     reqs += [srv.submit(p, max_new_tokens=new) for p in ps[3:]]
     srv.run(max_steps=400)
+    return reqs
+
+
+def jax_run(name, family, config, kind, params):
+    """The JAX package's results for one case (for a served case also
+    the first step's logits, from its ``forward()`` of prompt 0)."""
+    eng = jax_engine(family, config, params[family])
+    ps, new = prompts(name), new_tokens(name)
+    if kind == "gen":
+        return {"gen": [np.asarray(eng.generate(
+            np.asarray(p, np.int32)[None], max_new_tokens=new))[0].tolist()
+            for p in ps]}
+    if kind == "bert":
+        one = jax_engine(family, BASE, params[family])
+        ids = np.asarray(BERT_IDS, np.int32)
+        return {"logits": np.asarray(eng.forward(ids)),
+                "logits_one": np.asarray(one.forward(ids))}
+    if kind == "spec":
+        srv = eng.serving_engine(draft_model=jax_model("draft"),
+                                 draft_params=params["draft"])
+        reqs = jax_drain(srv, ps, new)
+        return {"streams": [r.output for r in reqs],
+                "spec": dict(srv.spec_counts)}
+    if kind == "host":
+        fi = JaxFaultInjector()
+        if name.endswith("_fault"):
+            fi.add_plan("serving.spill", "fatal", at=FAULT_AT, count=1)
+        jax_install(fi)
+        try:
+            srv = eng.serving_engine()
+            first, *flood = spill_prompts()
+            r1 = srv.submit(first, max_new_tokens=6)
+            srv.run()
+            for p in flood:
+                srv.submit(p, max_new_tokens=4)
+            srv.run()
+            r2 = srv.submit(first, max_new_tokens=6)
+            srv.run()
+        finally:
+            jax_install(JaxFaultInjector())
+        hc = srv.host_cache
+        return {"streams": [r1.output, r2.output],
+                "stats": dict(srv.host_counts, spills=hc.spills_total,
+                              hits=dict(hc.hits_total),
+                              host_hit_tokens=srv.allocator
+                              .host_hit_tokens_total),
+                "host_bytes": hc.resident_bytes("dram")}
+    if kind == "fleet":
+        fleet = JaxFleetRouter.from_engine(eng)
+        freqs = [fleet.submit(p, max_new_tokens=new) for p in ps]
+        fleet.run()
+        return {"streams": [f.output for f in freqs],
+                "placed": [[f.prefill_replica_id,
+                            f.replica.replica_id if f.replica else None]
+                           for f in freqs],
+                "fleet": dict(fleet.fleet_counts),
+                "fabric": {r.replica_id: dict(r.srv.fabric_counts)
+                           for r in fleet.replicas}}
+    srv = eng.serving_engine()
+    reqs = jax_drain(srv, ps, new)
     first = np.asarray(eng.forward(np.asarray(ps[0], np.int32)[None]))
     return {"streams": [r.output for r in reqs], "first": first[0, -1],
             "pool": srv.kv_pool_bytes,
@@ -308,8 +627,12 @@ def world(tmp_path_factory):
         np.savez(os.path.join(tmp, f"params_{f}.npz"), **flat(tree))
     with open(os.path.join(tmp, "cases.json"), "w") as fh:
         json.dump({"cases": CASES, "families": FAMILIES,
+                   "gpt2_like": GPT2_LIKE,
                    "prompts": {n: prompts(n) for n in CASES},
-                   "new": {n: new_tokens(n) for n in CASES}}, fh)
+                   "new": {n: new_tokens(n) for n in CASES},
+                   "spill": spill_prompts(), "skew": SKEW,
+                   "fault_at": FAULT_AT,
+                   "bert_ids": BERT_IDS}, fh)
     box = {}
 
     def ranks(n):
@@ -325,8 +648,9 @@ def world(tmp_path_factory):
     jax_runs = {}
     with pytest.MonkeyPatch.context() as mp:
         jax_reference(mp)
-        for name, (_, family, config) in CASES.items():
-            jax_runs[name] = jax_run(name, family, config, params[family])
+        for name, (_, family, config, kind) in CASES.items():
+            if kind != "skew":
+                jax_runs[name] = jax_run(name, family, config, kind, params)
         # the port at one rank, for generate() at tp_size 2
         pm = port_model("gpt2")
         one = dt.init_inference(pm, BASE, params=params_from_jax(
@@ -349,35 +673,163 @@ def world(tmp_path_factory):
                                  params=params)
 
 
+def case(world, name):
+    """Every rank's result of case ``name`` (each one run to its end)."""
+    res = [r[name] for r in world.ranks[CASES[name][0]]]
+    for got in res:
+        assert "error" not in got, got.get("error")
+    return res
+
+
 def test_workers_import_no_jax(world):
     for n in (2, 4):
         for res in world.ranks[n]:
             assert res["jax_loaded"] == []
 
 
-SERVED = [n for n, c in CASES.items() if "tensor_parallel" not in c[2]]
+SERVED = [n for n, c in CASES.items() if c[3] == "serve"]
 
 
 @pytest.mark.parametrize("name", SERVED)
 def test_streams_equal_jax_server_on_every_rank(world, name):
     """Every rank's greedy streams are the JAX server's on the same mesh,
-    token for token, and every rank's are the same."""
-    n = CASES[name][0]
+    token for token, and every rank's are the same; rank 0 took the
+    host decisions of every iteration."""
     want = world.jax[name]["streams"]
-    for res in world.ranks[n]:
-        got = res[name]
+    res = case(world, name)
+    for got in res:
         assert got["status"] == ["ok"] * len(want)
         assert got["streams"] == want, name
         assert got["used"] == 0
-    assert len({json.dumps(r[name]["streams"]) for r in world.ranks[n]}) == 1
+        assert got["decisions"] > 0
+    assert len({json.dumps(r["streams"]) for r in res}) == 1
 
 
-def test_mesh_refuses_spec_lane_host_tier_and_fleet(world):
+SPEC = [n for n, c in CASES.items() if c[3] == "spec"]
+
+
+@pytest.mark.parametrize("name", SPEC)
+def test_spec_lane_equals_jax_on_every_rank(world, name):
+    """The speculative lane on a mesh (the draft whole on every rank, its
+    spec rows data-sharded by slot): the JAX spec server's streams and
+    proposal and acceptance counts on every rank."""
+    want = world.jax[name]
+    assert want["spec"]["proposed"] > want["spec"]["accepted"] > 0
+    for got in case(world, name):
+        assert got["status"] == ["ok"] * len(want["streams"])
+        assert got["streams"] == want["streams"], name
+        assert got["spec"] == want["spec"]
+        assert got["used"] == 0
+
+
+@pytest.mark.parametrize("name", ["d2m2_host", "d2m2_host_fault"])
+def test_host_tier_equals_jax_on_every_rank(world, name):
+    """Spill, then a promoted prefix hit, on {data 2, model 2}: the JAX
+    server's streams, spills, DRAM hits, host-hit tokens and promoted
+    blocks on every rank, each rank holding its kv-head slice of every
+    entry (half the JAX engine's host bytes).  With a fatal spill
+    planted on rank 1 alone, every rank degrades that spill (the JAX
+    server's counts under the same fault) and the streams stay the
+    same."""
+    want = world.jax[name]
+    fault = name.endswith("_fault")
+    assert want["stats"]["promoted_blocks"] >= 3 - fault
+    assert want["stats"]["spill_failures"] == int(fault)
+    for got in case(world, name):
+        assert got["status"] == ["ok", "ok"]
+        assert got["streams"] == want["streams"]
+        assert got["streams"][0] == got["streams"][1]
+        assert got["stats"] == want["stats"]
+        assert got["host_bytes"] * 2 == want["host_bytes"] > 0
+        assert got["gauge"] == got["host_bytes"]
+        assert got["used"] == 0
+
+
+def test_threaded_fleet_on_a_mesh(world):
+    """Each replica on its own thread (``ReplicaHandle.start``) over {data
+    2, model 2}: rank 0 decides each step's inbox drain, the stop, every
+    placement and whether work remains, so every rank delivers each
+    stream once, equal to the JAX fleet's, with the same placements;
+    then the autoscaler's ticks (rank 0's time and load) drain one idle
+    replica and retire it on every rank."""
+    want = world.jax["d2m2_fleet_threaded"]
+    res = case(world, "d2m2_fleet_threaded")
+    for got in res:
+        assert got["status"] == ["ok"] * len(want["streams"])
+        assert got["streams"] == want["streams"]
+        assert got["placed"] == res[0]["placed"]
+        assert got["scaled"] == res[0]["scaled"]
+        assert got["used"] == [0, 0]
+    down = res[0]["scaled"]
+    assert down[0][0] == "down" and sorted(down[-1]) == ["healthy",
+                                                         "retired"]
+
+
+@pytest.mark.parametrize("name", ["m2_fleet", "d2m2_disagg"])
+def test_fleet_equals_jax_on_every_rank(world, name):
+    """``FleetRouter.from_engine`` on a mesh: each request's stream
+    delivered once and equal to the JAX fleet's, the same placements
+    (prefill and decode replicas), handoffs and fabric counts, on every
+    rank."""
+    want = world.jax[name]
+    if name == "d2m2_disagg":
+        assert want["fleet"]["handoffs"] > 0
+        assert want["fabric"]["p0"]["published_blocks"] > 0
+    for got in case(world, name):
+        assert got["status"] == ["ok"] * len(want["streams"])
+        assert got["streams"] == want["streams"]
+        assert got["placed"] == want["placed"]
+        assert got["fleet"] == want["fleet"]
+        assert got["fabric"] == want["fabric"]
+        assert got["used"] == [0, 0]
+
+
+def test_bert_forward_at_tp2_equals_jax(world):
+    """BERT's MLM head under a model axis (dense and LN replicated, the
+    tied decoder and its vocab bias cut by vocab rows): ``forward()``'s
+    logits within 1e-5 of the JAX engine's at ``tp_size`` 2 and at one
+    device, on both ranks."""
+    want = world.jax["m2_bert"]
+    np.testing.assert_allclose(want["logits"], want["logits_one"],
+                               rtol=1e-5, atol=1e-5)
+    for got in case(world, "m2_bert"):
+        for ref in (want["logits"], want["logits_one"]):
+            np.testing.assert_allclose(np.asarray(got["logits"]), ref,
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["d2m2_skew", "d2m2_skew_front"])
+def test_deadline_under_a_skewed_clock_is_rank_0s(world, name):
+    """Rank 1's serving clock runs ahead of the others' (its own sweep
+    would time the long request out at step 6, rank 0's at step 11):
+    rank 0 decides, so every rank times it out at the same iteration,
+    mid-stream, and every rank's statuses, streams and first-token steps
+    are equal; under the front end with 4 slots for 7 requests, rank 0
+    also says which waiting requests are late for their TTFT target."""
+    res = case(world, name)
+    plen, pnew = SKEW[:2]
+    assert res[0]["status"] == ["timed_out"] + ["ok"] * 6
+    assert 0 < len(res[0]["streams"][0]) < pnew
+    if name.endswith("_front"):
+        assert res[0]["late"] > 0
+    for got in res:
+        assert got["status"] == res[0]["status"]
+        assert got["streams"] == res[0]["streams"]
+        assert got["first_step"] == res[0]["first_step"]
+        assert got["late"] == res[0]["late"]
+        assert got["used"] == 0
+
+
+def test_mesh_refuses_moe_and_bert_tp_training(world):
+    """What a model axis still refuses, naming its part of queue A item
+    7: MoE serving (part 5, on every rank of the world of 2) and BERT's
+    MLM head in tensor-parallel training (part 3c; serving runs it)."""
     for res in world.ranks[2]:
-        assert res["refused"] == [
-            f"{what} on a serving mesh beyond 1x1 (data=1, model=2): not "
-            f"in the PyTorch port yet (ROADMAP.md queue A item 7 part 3b)"
-            for what in ("the speculative lane", "the fleet")]
+        (moe,) = res["refused"]
+        assert "expert parallelism" in moe and "part 5" in moe
+    with pytest.raises(NotImplementedError,
+                       match="MLM head .*queue A item 7 part 3c"):
+        port_model("bert").tp_train_view(2, "model")
 
 
 def test_preemption_on_a_data_sharded_mesh(world):
@@ -415,7 +867,7 @@ def test_pool_bytes_psum_and_gauges(world, name):
     its bytes are ``kv_block_bytes(model_shards=model)`` x blocks x
     layers, the JAX engine's per-chip count; the all-reduce payload per
     token and layer and the mesh gauges as the JAX engine has them."""
-    n, family, config = CASES[name]
+    n, family, config, _ = CASES[name]
     mesh = config["serving"]["mesh"]
     mp, dp = mesh["model"], mesh.get("data", 1)
     kw = FAMILIES[family]
@@ -514,6 +966,26 @@ def test_validation_messages_word_for_word():
                        match="tp_size 2 x ep_size 1 does not divide 1"):
         dt.init_inference(pm, {**BASE, "tensor_parallel": {"tp_size": 2}},
                           params=params_from_jax(params, pm), device="cpu")
+
+
+def test_one_rank_server_broadcasts_nothing():
+    """At mesh 1 x 1 the decider is off (no process group of its own,
+    nothing broadcast or agreed, the proposal never called), and the
+    deadline sweep reads this process's clock."""
+    params = jax_params("gpt2")
+    pm = port_model("gpt2")
+    srv = dt.init_inference(pm, {**BASE, "serving": SERVING},
+                            params=params_from_jax(params, pm),
+                            device="cpu").serving_engine()
+    reqs = [srv.submit(p, max_new_tokens=4) for p in prompts()[:2]]
+    late = srv.submit(prompts()[2], max_new_tokens=4, deadline_s=1e-9)
+    srv.run()
+    assert not srv.lockstep.active and srv.lockstep.mesh is None
+    assert srv.lockstep.decide(lambda: 1 / 0) is None
+    assert srv.lockstep.agree(0) == 0 and srv.lockstep.agree(2) == 2
+    assert srv.lockstep.broadcasts == srv.lockstep.agreements == 0
+    assert late.status.value == "timed_out"
+    assert [r.status.value for r in reqs] == ["ok", "ok"]
 
 
 @pytest.mark.parametrize("bits", [0, 8, 4])
