@@ -258,10 +258,10 @@ Phases (any failure exits non-zero and prints no result line):
    1.0; global batch 64), each world in child processes with a deadline:
    (a) world 1 on NCCL at stage 3 against the engine without ZeRO in the
    same process, each step from the same state (bit-equal expected: every
-   collective at world 1 is an identity; which held is printed), 2
-   steps (3 until phase 32 came, for the run's time); (b) world 4 over
-   gloo, four ranks sharing the one card (NCCL takes one card a rank) at
-   micro 16 each, stages 0-3, 2 steps each,
+   collective at world 1 is an identity; which held is printed), 1
+   step (3 until phase 32 came, 2 until phase 36 did, for the run's
+   time); (b) world 4 over gloo, four ranks sharing the one card (NCCL
+   takes one card a rank) at micro 16 each, stages 0-3, 1 step each,
    each step from (a)'s state of that step (saved by (a), every rank
    keeping its shards: ``adopt_state``): every rank's losses and grad
    norms held to (a)'s engine without ZeRO within the same-state step
@@ -291,14 +291,15 @@ Phases (any failure exits non-zero and prints no result line):
    counts; tokens/s and the comm log per op (gloo on one host, not
    tensor parallelism across cards); (b) in phase 31's world of 4: GPT-2
    125M at {data 1, model 4} stage 0 and {data 2, model 2} stage 2,
-   global batch 8, 2 steps each from phase 31 (a)'s state of that step:
+   global batch 8, 1 step each (2 until phase 36 came, for the run's
+   time) from phase 31 (a)'s state of that step:
    losses and grad norms within the same-state step check of the engine
    without ZeRO at that state and batch, B1 24 and B2 12 a step on every
    rank, state bytes the plan's count.
 
 33. pipeline parallelism (``pipe_report``), in phase 31's world of 4
    gloo ranks sharing the card, after phase 32 (b): GPT-2 125M at
-   phase 32 (b)'s global batch of 8 and micro 1, 2 steps each from
+   phase 32 (b)'s global batch of 8 and micro 1, 1 step each from
    phase 31 (a)'s state of that step (stage-stacked, each rank keeping
    its stage's slice), at {pipe 4} under 1F1B and under gpipe (8 micro
    batches), {pipe 2, data 2} at ZeRO stage 1 (4 a data rank) and {pipe
@@ -320,13 +321,14 @@ Phases (any failure exits non-zero and prints no result line):
    {pipe 2, data 2} under 1F1B (a layer at a time inside each stage),
    (b) ZeRO-Offload's host AdamW at {pipe 2, model 2} (each rank's host
    optimizer steps its own slice; the host sweep's seconds a rank
-   printed), each at phase 32 (b)'s global batch of 8, 2 steps each from
+   printed), each at phase 32 (b)'s global batch of 8, 1 step each from
    phase 31 (a)'s state of that step, held to phase 32 (b)'s reference;
    (c) 125M+MoE-64 at 4 of its 12 layers (0.66 B parameters, the depth
    cut for the run's time; seq 2048) under gpipe at {pipe 2, data 2},
    ZeRO stage 1, global batch 8 in 4 micro batches, each MoE layer
    routing the global micro batch (its rows gathered over the data
-   pair), 2 steps each from the seed's state, against one rank without
+   pair), 1 step (2 until phase 36 came, for the run's time) from the
+   seed's state, against one rank without
    a mesh at micro 2 (run in phase 31 (a)'s process): losses, grad
    norms and each MoE layer's exp_counts and dropped tokens (within
    ``P34_ROUTING_SHARE`` of the routed tokens), B1, B3 and B4 exact and
@@ -360,12 +362,31 @@ Phases (any failure exits non-zero and prints no result line):
    ``LOGITS_REL_TOL`` of one rank's, B1 (non-causal, 8 of 16 heads) once
    a layer on every rank.
 
-``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33 34 35``
-(any of them) builds the kernels and runs only those phases ("3": phase
-3's cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B engine;
-"32" without "31": phase 32 (a) alone; "33" and "34" need "31", whose
-world they run in; "35" needs "32", whose (a) world it runs in), then
-prints no result line: a probe of the newest phases.
+36. optimizers on shards and BERT's MLM head in tensor-parallel training
+   (``p36_report``, ``P36``), in phase 31's world of 4 gloo ranks sharing
+   the card, after phase 34, each part 2 consecutive steps from the
+   seed's state against one rank without a mesh (run in phase 31 (a)'s
+   process) over the same global batches: (a) GPT-2 125M with LAMB at
+   ZeRO stage 3 over {data 4} at phase 31's global batch of 64 (each
+   rank's pieces' sums of squares made whole-leaf sums in one
+   ``leaf_sums`` call a step: one all-reduce over data, checked on every
+   rank), (b) a client ``torch.optim.AdamW`` at {data 2, model 2}, ZeRO
+   stage 1, global batch 8 (each rank's optimizer steps its master
+   shards), (c) BERT-large (24 layers, d 1024, 16 heads, vocab 30522,
+   the MLM head: full width) at {data 2, model 2}, ZeRO stage 1, seq 128,
+   micro 2 a data rank.  Every rank's losses and grad norms within
+   phase 31's step check, B1 and B2 launches exact on every rank (B1
+   twice and B2 once a layer a step; BERT's non-causal at 8 of its 16
+   heads), each rank's state bytes the plan's count; per part the bytes
+   a parameter, peak memory, s/step against the reference's and the
+   comm log; (a)'s s/step against phase 31's AdamW at stage 3.
+
+``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33 34 35
+36`` (any of them) builds the kernels and runs only those phases ("3":
+phase 3's cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B
+engine; "32" without "31": phase 32 (a) alone; "33", "34" and "36" need
+"31", whose world they run in; "35" needs "32", whose (a) world it runs
+in), then prints no result line: a probe of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -2254,6 +2275,10 @@ def main(argv=None) -> int:
     # -- 34. the 3D composition (it ran in phase 31's world) ----------------
     p34_report(zero, nvidia_smi_line(0))
     elapsed("phase 34")
+
+    # -- 36. optimizers on shards, BERT in TP training (phase 31's world) ---
+    p36_report(zero, nvidia_smi_line(0))
+    elapsed("phase 36")
 
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
@@ -5702,7 +5727,7 @@ def host_cache_phase(torch, np, eng, label) -> dict:
 
 
 ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31",
-               "32", "33", "34", "35"}
+               "32", "33", "34", "35", "36"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5749,7 +5774,7 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         # phases 33 and 34 run in phase 31's world
         free_card(torch, "phase 31")
         res["31"] = zero_phase(torch, np, pipe="33" in only,
-                               p34="34" in only)
+                               p34="34" in only, p36="36" in only)
         elapsed("phase 31")
     if "35" in only:
         check("32" in only, "phase 35 runs in phase 32 (a)'s world: "
@@ -5769,6 +5794,11 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         check("31" in only, "phase 34 runs in phase 31's world: --only 31 34")
         p34_report(res["31"], nvidia_smi_line(0))
         elapsed("phase 34")
+    if "36" in only:
+        from deepspeed_tpu_torch.accelerator import nvidia_smi_line
+        check("31" in only, "phase 36 runs in phase 31's world: --only 31 36")
+        p36_report(res["31"], nvidia_smi_line(0))
+        elapsed("phase 36")
     print("chip_smoke: partial run (--only): no result lines")
     return 0
 
@@ -6288,9 +6318,9 @@ def offload_phases(torch, np, elapsed) -> dict:
 
 # -- 31. data parallelism and ZeRO stages 0-3 ---------------------------------
 #: phase 6's model and batch: GPT-2 125M at seq 1024, global batch 64
-#: (micro 16 on each of 4 ranks), 2 steps a run (3 until phase 32 came:
-#: cut for the run's time)
-ZERO_SEQ, ZERO_GLOBAL, ZERO_STEPS, ZERO_WORLD = 1024, 64, 2, 4
+#: (micro 16 on each of 4 ranks), 1 step a run (3 until phase 32 came,
+#: 2 until phase 36 did: cut for the run's time)
+ZERO_SEQ, ZERO_GLOBAL, ZERO_STEPS, ZERO_WORLD = 1024, 64, 1, 4
 #: each world's deadline (seconds): a rank that fails or hangs fails it
 ZERO_DEADLINE = 300
 
@@ -6298,10 +6328,11 @@ ZERO_DEADLINE = 300
 #: (mesh, ZeRO stage), its global batch (8: micro 8 a rank at {data 1,
 #: model 4}, 4 at {data 2, model 2}; phase 6 trains micro 64, cut for
 #: the time gloo takes with each layer's activations: 72 all-reduces of
-#: micro x 1024 x 768 bf16 a step) and steps (2 of phase 31 (a)'s
-#: states)
+#: micro x 1024 x 768 bf16 a step) and steps (1 of phase 31 (a)'s
+#: states; 2 until phase 36 came, cut for the run's time); phases 33
+#: and 34 take the same batch and steps
 TP_TRAIN_MESHES = (({"data": 1, "model": 4}, 0), ({"data": 2, "model": 2}, 2))
-TP_TRAIN_GLOBAL, TP_TRAIN_STEPS = 8, 2
+TP_TRAIN_GLOBAL, TP_TRAIN_STEPS = 8, 1
 
 #: phase 33, the pipeline in phase 31's world: (key, mesh, ZeRO stage,
 #: schedule) at phase 32 (b)'s global batch of 8 and steps (micro 1, so
@@ -6324,7 +6355,8 @@ PIPE_BUBBLE_MICROS = (4, 8)
 #: (c) 125M+MoE-64 (``MOE_TRAIN``, seq ``MOE_SEQ``) at 4 of its 12 layers
 #: (0.66 B parameters: two MoE layers of 64 experts; the depth cut for
 #: the run's time) under gpipe at ``moe_mesh``, ZeRO stage 1, global
-#: batch 8 in 4 micro batches, each step from the seed's state, against
+#: batch 8 in 4 micro batches, ``steps`` (1; 2 until phase 36 came, for
+#: the run's time) from the seed's state, against
 #: one rank without a mesh at micro 2 (the global micro batch); (d) the
 #: compat forward/backward/step at ``compat``, ZeRO stage 1, against
 #: ``train_step`` from phase 31 (a)'s first state
@@ -6332,8 +6364,23 @@ P34 = {"zero3": (("data2_model2", {"data": 2, "model": 2}, "1f1b"),
                  ("pipe2_data2", {"pipe": 2, "data": 2}, "1f1b")),
        "offload": {"pipe": 2, "model": 2},
        "moe": MOE_TRAIN, "moe_layers": 4, "seq": MOE_SEQ, "moe_global": 8,
-       "moe_gas": 4, "moe_mesh": {"pipe": 2, "data": 2}, "steps": 2,
+       "moe_gas": 4, "moe_mesh": {"pipe": 2, "data": 2}, "steps": 1,
        "compat": {"pipe": 2, "data": 2}}
+#: phase 36, optimizers on shards and BERT's MLM head in tensor-parallel
+#: training, in phase 31's world after phase 34, each part 2 steps from
+#: the seed's state against one rank without a mesh over the same global
+#: batches: (a) LAMB (``lamb``) at ZeRO stage 3 over {data 4} at phase
+#: 31's global batch of 64; (b) a client ``torch.optim.AdamW``
+#: (``client``: its arguments) at ``client_mesh``, ZeRO stage 1, at phase
+#: 32 (b)'s global batch of 8; (c) BERT-large (``BERT_LARGE_UNCASED``: 24
+#: layers, d 1024, 16 heads, vocab 30522; flash attention, remat full)
+#: at ``bert_mesh``, ZeRO stage 1, seq ``bert_seq``, micro ``bert_micro``
+#: a data rank
+P36 = {"lamb": {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+       "client": {"lr": 6e-4, "weight_decay": 0.1},
+       "client_mesh": {"data": 2, "model": 2},
+       "bert_mesh": {"data": 2, "model": 2}, "bert_seq": 128,
+       "bert_micro": 2, "steps": 2}
 #: phase 34 (c): each MoE layer's exp_counts may move by this share of
 #: the routed tokens between the two (bf16 gate logits from products of
 #: other shapes, a token near a tie), and so may the dropped tokens
@@ -6346,7 +6393,7 @@ P34_ROUTING_SHARE = 0.01
 #: in turn, then phase 32 (b)'s tensor-parallel meshes; the result is one
 #: "P31RESULT" JSON line
 ZERO_WORKER = r'''
-import gc, json, os, sys, time
+import dataclasses, functools, gc, json, os, sys, time
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
@@ -6364,6 +6411,7 @@ tp_glob, tp_steps = int(os.environ["P32_GLOBAL"]), int(os.environ["P32_STEPS"])
 pp_meshes = json.loads(os.environ["P33_MESHES"])
 pp_bubble = json.loads(os.environ["P33_BUBBLE"])
 p34 = json.loads(os.environ["P34"])
+p36 = json.loads(os.environ["P36"])
 seq, glob = int(os.environ["P31_SEQ"]), int(os.environ["P31_GLOBAL"])
 dt.init_distributed("nccl" if mode == "a" else "gloo",
                     timeout=float(os.environ["P31_TIMEOUT"]))
@@ -6376,19 +6424,70 @@ cfg = gpt2_config("125m", max_seq_len=seq, remat="full", attn_impl="flash",
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
 def engine(stage, micro=None, mesh=None, gas=1, schedule="auto",
-           model_cfg=None, zero_extra=None):
+           model_cfg=None, zero_extra=None, opt=None, client=None):
+    """``opt``: the config's optimizer block (default AdamW); ``client``:
+    a torch.optim factory in its place."""
     config = {"train_micro_batch_size_per_gpu": micro or glob // world,
               "gradient_accumulation_steps": gas,
               "pipeline": {"schedule": schedule},
-              "optimizer": {"type": "AdamW", "params": {
+              "optimizer": opt or {"type": "AdamW", "params": {
                   "lr": 6e-4, "weight_decay": 0.1}},
               "bf16": {"enabled": True}, "gradient_clipping": 1.0,
               "steps_per_print": 0,
               "zero_optimization": {"stage": stage, **(zero_extra or {})}}
+    if client is not None:
+        del config["optimizer"]
     if mesh is not None:
         config["mesh"] = mesh
     return dt.initialize(model=TransformerLM(model_cfg or cfg),
-                         config=config, device=dev)[0]
+                         config=config, device=dev, optimizer=client)[0]
+
+# phase 36: BERT-large in training, its global batches, the client
+# optimizer's factory, and the all-reduces each leaf_sums call makes
+if p36:
+    from deepspeed_tpu_torch import hf_bert_config
+    from deepspeed_tpu_torch.module_inject.policies import BERT_LARGE_UNCASED
+    bert_cfg = dataclasses.replace(hf_bert_config(BERT_LARGE_UNCASED),
+                                   attn_impl="flash", remat="full")
+    bert_glob = p36["bert_micro"] * p36["bert_mesh"].get("data", 1)
+    bert_batches = [{"input_ids": np.random.RandomState(360 + i).randint(
+        0, bert_cfg.vocab_size, (bert_glob, p36["bert_seq"]),
+        dtype=np.int32)} for i in range(p36["steps"])]
+    client36 = functools.partial(torch.optim.AdamW, **p36["client"])
+    _all_reduce, LEAF_SUMS = comm.all_reduce, {"on": False, "axes": []}
+
+    def counted_all_reduce(t, op=comm.ReduceOp.SUM, axis_name="data"):
+        if LEAF_SUMS["on"]:
+            LEAF_SUMS["axes"].append(str(axis_name))
+        return _all_reduce(t, op, axis_name)
+    comm.all_reduce = counted_all_reduce
+
+    def count_leaf_sums(eng):
+        real = eng._zero.leaf_sums
+
+        def leaf_sums(tree):
+            LEAF_SUMS["on"] = True
+            try:
+                return real(tree)
+            finally:
+                LEAF_SUMS["on"] = False
+        eng._zero.leaf_sums = leaf_sums
+        return eng
+
+def steps36(eng, batches):
+    """Phase 36: consecutive steps over ``batches`` (global), each rank
+    taking its rows: per step [loss, grad norm], ms, the leaf-sum
+    all-reduces' axes."""
+    rows, ms, sums = [], [], []
+    for b in batches:
+        comm.barrier()
+        LEAF_SUMS["axes"] = []
+        t0 = time.perf_counter()
+        m = eng.train_step(rank_slice(b, 1, eng.dp_world_size, eng.dp_rank))
+        rows.append([float(m["loss"]), float(m["grad_norm"])])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        sums.append(LEAF_SUMS["axes"])
+    return rows, ms, sums
 
 # phase 34 (c): 125M+MoE-64 at a cut depth, its global batches, and the
 # MoE layers' routing of an engine's last forward
@@ -6414,7 +6513,7 @@ out = {}
 if mode == "a":
     z, p = engine(3), engine(0)
     t = engine(0, micro=tp_glob)
-    rows, counts, tp_ref = [], {k: 0 for k in KERNELS}, []
+    rows, counts, tp_ref, z_ms = [], {k: 0 for k in KERNELS}, [], []
     for i in range(steps):
         if i < tp_steps:
             t.state = tree_map(lambda x: x.clone(), z.state)
@@ -6425,8 +6524,10 @@ if mode == "a":
         torch.save(tree_map(lambda t: t.cpu(), z.state),
                    os.path.join(states, f"state{i}.pt"))
         build.reset_launch_counts()
+        t0 = time.perf_counter()
         mz = z.train_step(local)
         mz = {k: float(v) for k, v in mz.items()}
+        z_ms.append((time.perf_counter() - t0) * 1e3)
         for k in KERNELS:
             counts[k] += build.launch_counts[k]
         mp = {k: float(v) for k, v in p.train_step(local).items()}
@@ -6437,7 +6538,7 @@ if mode == "a":
                      "params_equal": same})
     out = {"rows": rows, "launches": counts, "tp_ref": tp_ref,
            "backend": comm.get_backend(), "zero_stage": z.zero_stage,
-           "dp": z.dp_world_size}
+           "dp": z.dp_world_size, "ms": z_ms}
     if p34:
         # phase 34 (c)'s reference: one rank without a mesh, micro batches
         # of the pipeline's global micro batch, each step from the seed's
@@ -6461,6 +6562,34 @@ if mode == "a":
             moe["routing"].append(routing(ref.model))
         out["moe_ref"] = moe
         del ref, init
+    if p36:
+        # phase 36's references: one rank without a mesh, from the seed's
+        # state, over the same global batches as the ranks
+        z = p = t = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        t36 = time.perf_counter()
+        ref36 = {}
+        for key, eng_of, batches in (
+                ("lamb", lambda: engine(0, opt=p36["lamb"]), [batch] * 2),
+                ("client", lambda: engine(0, micro=tp_glob,
+                                          client=client36),
+                 [tp_batch, tp_batch]),
+                ("bert", lambda: engine(0, micro=bert_glob,
+                                        model_cfg=bert_cfg), bert_batches)):
+            e = eng_of()
+            build.reset_launch_counts()
+            rows36, ms36, _ = steps36(e, batches[:p36["steps"]])
+            ref36[key] = {"rows": rows36, "ms": ms36,
+                          "n_params": e.num_parameters(),
+                          "heads": e.model.config.num_heads,
+                          "launches": {k: build.launch_counts[k]
+                                       for k in KERNELS}}
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["p36_ref"] = ref36
+        out["p36_ref_seconds"] = time.perf_counter() - t36
 else:
     cl = comm.configure(enabled=False)
     for stage in (0, 1, 2, 3):
@@ -6745,6 +6874,46 @@ else:
         gc.collect()
         torch.cuda.empty_cache()
         out["p34_seconds"] = time.perf_counter() - t34
+    if p36:
+        # phase 36: optimizers on shards and BERT's MLM head under a
+        # model axis (see P36 in chip_smoke.py)
+        t36 = time.perf_counter()
+        out["p36"] = {}
+        for key, eng_of, batches in (
+                ("lamb", lambda: engine(3, opt=p36["lamb"]), [batch] * 2),
+                ("client", lambda: engine(
+                    1, micro=tp_glob // p36["client_mesh"]["data"],
+                    mesh=p36["client_mesh"], client=client36),
+                 [tp_batch, tp_batch]),
+                ("bert", lambda: engine(
+                    1, micro=p36["bert_micro"], mesh=p36["bert_mesh"],
+                    model_cfg=bert_cfg), bert_batches)):
+            eng = count_leaf_sums(eng_of())
+            cl.reset()
+            cl.configure(enabled=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            rows36, ms36, sums = steps36(eng, batches[:p36["steps"]])
+            torch.cuda.synchronize()
+            log = cl.totals()
+            cl.configure(enabled=False)
+            z = eng._zero
+            view = eng._tp_view or eng.model
+            out["p36"][key] = {
+                "rows": rows36, "ms": ms36, "leaf_sums": sums,
+                "launches": {k: build.launch_counts[k] for k in KERNELS},
+                "bytes": eng.zero_state_bytes(),
+                "planned": z.planned_bytes(eng._param_shapes, 2),
+                "slice_params": sum(int(np.prod(s_)) for s_ in
+                                    tree_leaves(eng._param_shapes)),
+                "n_params": eng.num_parameters(), "stage": eng.zero_stage,
+                "heads": view.config.num_heads, "dp_rank": eng.dp_rank,
+                "peak": torch.cuda.max_memory_allocated(), "log": log}
+            del eng, z, view
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["p36_seconds"] = time.perf_counter() - t36
 print("P31RESULT " + json.dumps(out), flush=True)
 comm.destroy_process_group()
 '''
@@ -6756,7 +6925,8 @@ def _rank_result(text: str) -> dict:
     return json.loads(lines[-1][len("P31RESULT "):])
 
 
-def zero_phase(torch, np, pipe: bool = True, p34: bool = True) -> dict:
+def zero_phase(torch, np, pipe: bool = True, p34: bool = True,
+               p36: bool = True) -> dict:
     """Phase 31: data parallelism with ZeRO stages 0-3 at phase 6's GPT-2
     125M configuration, each world in child processes
     (``comm/local_ranks.py``, deadline ``ZERO_DEADLINE``): (a) world 1 on
@@ -6782,7 +6952,8 @@ def zero_phase(torch, np, pipe: bool = True, p34: bool = True) -> dict:
            "P32_STEPS": str(TP_TRAIN_STEPS),
            "P33_MESHES": json.dumps(PIPE_TRAIN_MESHES if pipe else ()),
            "P33_BUBBLE": json.dumps(PIPE_BUBBLE_MICROS),
-           "P34": json.dumps(P34 if p34 else None)}
+           "P34": json.dumps(P34 if p34 else None),
+           "P36": json.dumps(P36 if p36 else None)}
     try:
         return _zero_runs(torch, np, card, env, states)
     finally:
@@ -6906,7 +7077,13 @@ def _zero_runs(torch, np, card, env, states) -> dict:
             "pipe_seconds": max(r["pipe_seconds"] for r in ranks),
             "moe_ref": a.get("moe_ref"),
             "p34": [r.get("p34") for r in ranks],
-            "p34_seconds": max(r.get("p34_seconds", 0.0) for r in ranks)}
+            "p34_seconds": max(r.get("p34_seconds", 0.0) for r in ranks),
+            "p31a_ms": a["ms"], "p31b_stage3_ms": [r["3"]["ms"]
+                                                   for r in ranks],
+            "p36_ref": a.get("p36_ref"),
+            "p36_ref_seconds": a.get("p36_ref_seconds", 0.0),
+            "p36": [r.get("p36") for r in ranks],
+            "p36_seconds": max(r.get("p36_seconds", 0.0) for r in ranks)}
 
 
 
@@ -7871,6 +8048,120 @@ def p34_report(zero, card) -> dict:
           + ", ".join(f"{k} {v}" for k, v in c0["launches"].items())
           + " on every rank")
     out["compat"] = c0["launches"]
+    return out
+
+
+def p36_report(zero, card) -> dict:
+    """Phase 36's checks and lines, from phase 31's world 4 (see ``P36``):
+    every rank's losses and grad norms over two consecutive steps within
+    phase 31's step check of one rank without a mesh over the same
+    global batches, B1/B2 launches exact on every rank (BERT-large's at 8
+    of its 16 heads), each rank's state bytes the plan's count, one
+    leaf-sum all-reduce an axis group a step for LAMB.  Returns rank 0's
+    launches per part."""
+    ranks, ref = zero["p36"], zero["p36_ref"]
+    steps = P36["steps"]
+    out = {}
+    print(f"phase 36 optimizers on shards and BERT's MLM head in "
+          f"tensor-parallel training, in phase 31's world of 4 gloo ranks "
+          f"sharing the card (every collective staged through pinned host "
+          f"memory; not NCCL across cards; {card}); "
+          f"{zero['p36_seconds']:.1f} s of phase 31's, and "
+          f"{zero['p36_ref_seconds']:.1f} s of (a)'s for the references; "
+          f"each part {steps} consecutive steps from the seed's state "
+          f"against one rank without a mesh over the same global batches:")
+    labels = {
+        "lamb": f"(a) GPT-2 125M, LAMB {P36['lamb']['params']}, ZeRO stage "
+                f"3 over {{data 4}}, global batch {ZERO_GLOBAL}",
+        "client": f"(b) GPT-2 125M, client torch.optim.AdamW "
+                  f"{P36['client']}, ZeRO stage 1 at {P36['client_mesh']}, "
+                  f"global batch {TP_TRAIN_GLOBAL}",
+        "bert": f"(c) BERT-large (24 layers, d 1024, 16 heads, vocab 30522"
+                f"), MLM head, ZeRO stage 1 at {P36['bert_mesh']}, seq "
+                f"{P36['bert_seq']}, micro {P36['bert_micro']} a data rank"}
+    for key, label in labels.items():
+        want = ref[key]["rows"]
+        r0 = ranks[0][key]
+        layers = 24 if key == "bert" else 12
+        per = {"flash_attention_fwd": 2 * layers * steps,
+               "flash_attention_bwd": layers * steps}
+        check(ref[key]["launches"] == per,
+              f"phase 36 {key} reference: launches {ref[key]['launches']} "
+              f"against {per}")
+        shares = []
+        for r, res in enumerate(ranks):
+            st = res[key]
+            for i, (row, w) in enumerate(zip(st["rows"], want)):
+                ls = abs(row[0] - w[0]) / abs(w[0]) / STEP_LOSS_REL_TOL
+                gs = abs(row[1] - w[1]) / abs(w[1]) / STEP_GNORM_REL_TOL
+                check(ls <= 1 and gs <= 1,
+                      f"phase 36 {key} rank {r} step {i}: loss {row[0]} vs "
+                      f"{w[0]}, grad norm {row[1]} vs {w[1]}")
+                shares.append((ls, gs))
+            check(st["launches"] == per,
+                  f"phase 36 {key} rank {r}: launches {st['launches']} "
+                  f"against {per}")
+            check(st["bytes"] == st["planned"],
+                  f"phase 36 {key} rank {r}: state bytes {st['bytes']} "
+                  f"against the plan's {st['planned']}")
+            want_heads = ref[key]["heads"] // (2 if key != "lamb" else 1)
+            check(st["heads"] == want_heads,
+                  f"phase 36 {key} rank {r}: {st['heads']} heads a rank, "
+                  f"not {want_heads}")
+            if key == "lamb":
+                for i, axes in enumerate(st["leaf_sums"]):
+                    check(len(axes) == 1 and "data" in axes[0],
+                          f"phase 36 (a) rank {r} step {i}: leaf-sum "
+                          f"all-reduces {axes}, not one over data")
+            else:
+                check(all(not a for a in st["leaf_sums"]),
+                      f"phase 36 {key} rank {r}: leaf sums {st['leaf_sums']}"
+                      f" from an elementwise optimizer")
+        total = sum(r0["bytes"].values())
+        print(f"  {label}: loss " + " ".join(
+            f"{row[0]:.5f}" for row in r0["rows"]) + " against " + " ".join(
+            f"{w[0]:.5f}" for w in want) + ", grad norm " + " ".join(
+            f"{row[1]:.5f}" for row in r0["rows"]) + " against " + " ".join(
+            f"{w[1]:.5f}" for w in want)
+            + f" (at most {max(x for x, _ in shares):.3g} / "
+            f"{max(y for _, y in shares):.3g} of the step check's limits on "
+            f"any rank); state " + "/".join(
+                f"{sum(res[key]['bytes'].values()) / 1e9:.3f}"
+                for res in ranks)
+            + " GB (ranks 0-3; rank 0: " + ", ".join(
+                f"{k} {v / 1e9:.3f}" for k, v in r0["bytes"].items())
+            + f" GB = {total / r0['slice_params']:.2f} bytes a parameter of "
+            f"its slice, {total / r0['n_params']:.2f} of the model's "
+            f"{r0['n_params'] / 1e6:.1f} M; the plan's count on every rank);"
+            f" {r0['heads']} heads a rank; peak memory " + "/".join(
+                f"{res[key]['peak'] / 2**30:.2f}" for res in ranks)
+            + " GiB (ranks 0-3); s/step " + "/".join(
+                f"{max(res[key]['ms'][i] for res in ranks) / 1e3:.3f}"
+                for i in range(steps))
+            + " (slowest rank, the first step included) against one rank's "
+            + "/".join(f"{x / 1e3:.3f}" for x in ref[key]["ms"])
+            + "; leaf-sum all-reduces a step "
+            + "/".join(str(len(a)) for a in r0["leaf_sums"])
+            + "; launches " + ", ".join(
+                f"{k} {v}" for k, v in r0["launches"].items())
+            + " on every rank")
+        for op, lg in sorted(r0["log"].items()):
+            print(f"    {op}: {lg['count'] // steps} calls, "
+                  f"{lg['bytes'] / steps / 1e6:.2f} MB a step on rank 0, "
+                  f"{lg['seconds'] / steps * 1e3:.1f} ms a step")
+        out[key] = r0["launches"]
+    s3 = [max(res[i] for res in zero["p31b_stage3_ms"]) / 1e3
+          for i in range(ZERO_STEPS)]
+    print(f"  (a) against AdamW: LAMB ZeRO-3 at {{data 4}} "
+          + "/".join(f"{max(res['lamb']['ms'][i] for res in ranks) / 1e3:.3f}"
+                     for i in range(steps))
+          + " s/step against phase 31 (b) stage 3's AdamW "
+          + "/".join(f"{x:.3f}" for x in s3)
+          + "; LAMB on one rank without a mesh "
+          + "/".join(f"{x / 1e3:.3f}" for x in ref["lamb"]["ms"])
+          + " against phase 31 (a)'s AdamW ZeRO-3 at world 1 "
+          + "/".join(f"{x / 1e3:.3f}" for x in zero["p31a_ms"])
+          + " s/step (the first step of each includes its warm-up)")
     return out
 
 

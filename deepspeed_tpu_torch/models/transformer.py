@@ -81,12 +81,18 @@ vocab-sharded masked lookup reduced the same way, with the position and
 type tables added after it; serving's head all-gathers the local logits
 in vocab order, and training's loss is the vocab-parallel cross-entropy
 (``masked_nll_sum``), so the whole ``[.., V]`` logits never exist
-there.  ALiBi takes each shard's slice of the whole model's slopes.  On
-a serving mesh with a ``data`` axis the paged mixed step holds this
-rank's decode slots only: the block tables are all-gathered once a step
-for the chunk, and the decode rows' k/v (and their write indices and
-scales) are all-gathered over ``data`` before the scatter, so every data
-rank's pool replica applies every slot's row.
+there.  An MLM head (BERT, DistilBERT) runs its dense layer, activation
+and norm on the replicated stream, enters shard-local compute after the
+norm (``_fin``), and decodes over the shard's vocab rows of the tied
+embedding plus its slice of the vocab bias; the bias stays whole on
+every rank (its spec is replicated, as the JAX model's) and is cut in
+the step (``scatter_to``: its gradient comes back whole).  ALiBi takes
+each shard's slice of the whole model's slopes.  On a serving mesh
+with a ``data`` axis the paged mixed step holds this rank's decode slots
+only: the block tables are all-gathered once a step for the chunk, and
+the decode rows' k/v (and their write indices and scales) are
+all-gathered over ``data`` before the scatter, so every data rank's pool
+replica applies every slot's row.
 """
 from __future__ import annotations
 
@@ -105,7 +111,7 @@ from . import layers as L
 from .. import comm
 from ..accelerator import resolve_device
 from ..parallel.collectives import (copy_to, gather_rows, own_rows,
-                                    reduce_from)
+                                    reduce_from, scatter_to)
 from ..ops import build
 from ..ops.transformer.decode_attention import decode_attention
 from ..ops.transformer.flash_attention import flash_attention_bthd
@@ -642,12 +648,8 @@ class TransformerLM(nn.Module):
         (so autograd sees exact gradients) and the vocab-parallel loss.
         The fused-qkv column gather and the row-parallel bias division
         happen inside the differentiated step
-        (``runtime/engine.py``), not here."""
-        if model_shards > 1 and self.config.mlm_head:
-            raise NotImplementedError(
-                "tensor-parallel training over the MLM head (BERT): its "
-                "vocab-parallel loss is not in the port yet (queue A item "
-                "7 part 3c); serving runs it under a model axis")
+        (``runtime/engine.py``), not here; so does the cut of an MLM
+        head's vocab bias (``nll_from_hidden``)."""
         view = self.tp_serving_view(model_shards, tp_axis, None)
         view._tp_exact_bwd = view._tp_axis is not None
         return view
@@ -1272,9 +1274,8 @@ class TransformerLM(nn.Module):
         c = self.config
         if c.mlm_head:
             mh = params["mlm_head"]
-            h = L.ACT_FNS[c.activation](L.dense_apply(mh["dense"], x))
             logits = L.embedding_attend(params["embed"],
-                                        self._norm(mh["ln"], h))
+                                        self._mlm_transform(mh, x))
             logits = logits + mh["bias"].float()
         else:
             logits = self._project_local(params, x)
@@ -1284,6 +1285,12 @@ class TransformerLM(nn.Module):
             # every shard holds the same bits and samples the same token
             logits = comm.all_gather(logits, self._tp_axis, axis=-1)
         return logits
+
+    def _mlm_transform(self, mh: Params, x: torch.Tensor) -> torch.Tensor:
+        """The MLM head's dense layer, activation and norm (BERT's
+        ``cls.predictions.transform``), before its decoder."""
+        h = L.ACT_FNS[self.config.activation](L.dense_apply(mh["dense"], x))
+        return self._norm(mh["ln"], h)
 
     def _project_local(self, params: Params, x: torch.Tensor
                        ) -> torch.Tensor:
@@ -1572,7 +1579,19 @@ class TransformerLM(nn.Module):
         mc = (mask.to(torch.float32) if mask is not None else
               torch.ones(labels.shape, dtype=torch.float32,
                          device=labels.device))
-        if self._tp_axis is not None:
+        if self._tp_axis is not None and c.mlm_head:
+            # the transform on the replicated stream (its replicated
+            # weights' gradients equal on every rank), then the shard's
+            # decoder rows and its slice of the whole vocab bias, cut
+            # once for every chunk
+            mh = params["mlm_head"]
+            bias = scatter_to(mh["bias"], self._tp_axis).float()
+            tot = masked_nll_sum(
+                lambda xc: L.embedding_attend(
+                    params["embed"],
+                    self._fin(self._mlm_transform(mh, xc))) + bias,
+                x, labels, mc, chunk, self._tp_axis)
+        elif self._tp_axis is not None:
             tot = masked_nll_sum(
                 lambda xc: self._project_local(params, self._fin(xc)), x,
                 labels, mc, chunk, self._tp_axis)

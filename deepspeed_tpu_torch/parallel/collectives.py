@@ -71,6 +71,18 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        n, i = comm.axis_size(axis), comm.axis_index(axis)
+        return x.chunk(n, -1)[i].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_gather(g, ctx.axis, axis=-1), None
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, groups):
@@ -118,6 +130,14 @@ def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
     """Megatron ``g``: all-reduce over ``axis`` forward, identity
     backward."""
     return _ReduceFrom.apply(x, axis)
+
+
+def scatter_to(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's scatter to the model-parallel region: this member's
+    chunk of ``x``'s last dim forward (member order is index order), the
+    members' gradients all-gathered along it backward, so a leaf that
+    every member holds whole gets the whole gradient on each."""
+    return _ScatterTo.apply(x, axis)
 
 
 # Transformer-block leaves whose gradients are PARTIAL per model shard

@@ -138,6 +138,17 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
+def leaf_paths(tree, prefix: str = ""):
+    """The ``/``-joined path of each leaf of nested dicts, in
+    ``tree_leaves`` order."""
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from leaf_paths(v, path)
+        else:
+            yield path
+
+
 def config_mesh(config: DeepSpeedConfig, mesh=None):
     """The rank's process mesh: ``mesh`` when given, else the config's
     ``mesh`` block with ``tensor_parallel``'s size as its model axis."""
@@ -289,7 +300,6 @@ class DeepSpeedEngine:
                                        or self.dp_world_size > 1
                                        or self.mp_world_size > 1
                                        or pp_world_size(self.mesh) > 1):
-            self._refuse_zero_optimizer()
             self._zero_path = True
         else:
             self._zero_path = False
@@ -401,33 +411,6 @@ class DeepSpeedEngine:
         if self.loss_scaler is not None:
             state["scaler"] = self.loss_scaler.init(self.device)
         return state
-
-    def _refuse_zero_optimizer(self) -> None:
-        """The optimizers a data-parallel ZeRO step, or a model- or
-        stage-sharded one, cannot run on shards: LAMB's trust ratio
-        spans a whole leaf, and a client torch.optim optimizer's state
-        is not a tree of the params' shape."""
-        if self.mp_world_size > 1 or pp_world_size(self.mesh) > 1:
-            if self.optimizer.name == "lamb" or \
-                    self.optimizer.hyperparams.get("external_lr"):
-                kind = "tensor" if self.mp_world_size > 1 else "pipeline"
-                raise NotImplementedError(
-                    f"LAMB or a client torch.optim optimizer under {kind} "
-                    f"parallelism: no rank holds a whole leaf (queue A "
-                    f"item 7 part 4, optimizers on shards)")
-            return
-        if self.dp_world_size == 1 or self.zero_stage == 0:
-            return
-        if self.optimizer.name == "lamb":
-            raise NotImplementedError(
-                "LAMB under ZeRO stage >= 1 at a data-parallel size above "
-                "1: its trust ratio spans a whole leaf, which no rank "
-                "holds (queue A item 7 part 4, optimizers on shards)")
-        if self.optimizer.hyperparams.get("external_lr"):
-            raise NotImplementedError(
-                "a client torch.optim optimizer under ZeRO stage >= 1 at a "
-                "data-parallel size above 1 (queue A item 7 part 4, "
-                "optimizers on shards)")
 
     def _init_state_zero(self, params) -> Dict[str, Any]:
         """ZeRO init: the plans from the whole params' shapes, then this
@@ -593,14 +576,19 @@ class DeepSpeedEngine:
     def zero_state_bytes(self, grads=None) -> Dict[str, int]:
         """This rank's bytes by kind, counted from its tensors: float32
         masters (``params``), the optimizer's trees of the params' shape
-        (``opt``: moments, momentum or sums; not its counters), the live
+        (``opt``: moments, momentum or sums, or a client optimizer's
+        tensors of its leaves' shapes; not its counters), the live
         compute-dtype params (``live``, stages 1-2) and the last step's
         float32 gradient sum (``grads``, as it stood before the step's
         final reduction)."""
         from .zero.partitioned import tree_bytes
+        opt = self.state["opt"]
         b = {"params": tree_bytes(self.state["params"]),
-             "opt": sum(tree_bytes(self.state["opt"][k])
-                        for k in OPT_TREES if k in self.state["opt"]),
+             "opt": sum(tree_bytes(opt[k]) for k in OPT_TREES if k in opt)
+             + sum(v.numel() * v.element_size()
+                   for ent in opt.get("torch", {}).values()
+                   for v in ent.values()
+                   if isinstance(v, torch.Tensor) and v.dim() > 0),
              "live": tree_bytes(self._live or {})}
         if grads is not None:
             b["grads"] = tree_bytes(grads)
@@ -654,8 +642,63 @@ class DeepSpeedEngine:
         for k in OPT_TREES:
             if k in opt:
                 opt[k] = whole(opt[k])
+        if "torch" in opt:
+            opt["torch"] = self._client_state_map(
+                opt["torch"], self.state["params"], whole)
         st["opt"] = opt
         return st
+
+    @staticmethod
+    def _client_state_map(tstate, params, fn):
+        """A client optimizer's state ``{leaf index: {name: value}}``
+        with ``fn`` (a collective over params-shaped trees: gather or
+        cut) applied to its leaf-shaped entries, one tree an entry name
+        (a leaf without that entry fills its place with zeros, dropped
+        after); 0-d counters and other values are kept as they are
+        (replicated, as the JAX policy replicates an optax state's
+        scalars).  Every rank calls it with the same structure."""
+        leaves = list(tree_leaves(params))
+
+        def shaped(i, v):
+            return isinstance(v, torch.Tensor) and v.dim() > 0 and \
+                tuple(v.shape) == tuple(leaves[i].shape)
+        out = {i: dict(ent) for i, ent in tstate.items()}
+        names = sorted({n for i, ent in tstate.items()
+                        for n, v in ent.items() if shaped(int(i), v)})
+        for n in names:
+            idx = iter(range(len(leaves)))
+
+            def pick(p):
+                i = next(idx)
+                v = tstate.get(str(i), {}).get(n)
+                return v if shaped(i, v) else torch.zeros_like(p)
+            mapped = list(tree_leaves(fn(tree_map(pick, params))))
+            for i, ent in out.items():
+                if shaped(int(i), tstate[i].get(n)):
+                    ent[n] = mapped[int(i)]
+        return out
+
+    def _check_client_state(self, tstate, params) -> None:
+        """A client optimizer's first state on shards: an entry shaped
+        neither like its leaf's piece nor as a scalar (factored
+        statistics, ``torch.optim.Adafactor``'s) on a leaf this rank
+        holds only a piece of cannot give the step the JAX engine takes
+        over the whole leaf."""
+        cuts = tree_leaves(self._zero.cuts(params))
+        for i, (path, p, cut) in enumerate(zip(leaf_paths(params),
+                                               tree_leaves(params), cuts)):
+            if not any(cut):
+                continue
+            for name, v in tstate.get(str(i), {}).items():
+                if isinstance(v, torch.Tensor) and v.dim() > 0 and \
+                        tuple(v.shape) != tuple(p.shape):
+                    raise NotImplementedError(
+                        f"client optimizer state {name!r} of leaf {path} "
+                        f"has shape {tuple(v.shape)}, neither the shape of "
+                        f"the piece of the leaf this rank holds "
+                        f"{tuple(p.shape)} nor a scalar: it cannot be "
+                        f"stepped on shards (queue A item 7 part 4, "
+                        f"optimizers on shards)")
 
     def adopt_state(self, full: Dict[str, Any], partial: bool) -> None:
         """A world-1 layout state (from a checkpoint, on the device) →
@@ -679,6 +722,10 @@ class DeepSpeedEngine:
             for k in OPT_TREES:
                 if k in opt:
                     opt[k] = z.shard(mine(opt[k]), z.master_dims)
+            if "torch" in opt:
+                opt["torch"] = self._client_state_map(
+                    opt["torch"], full["params"],
+                    lambda t: z.shard(mine(t), z.master_dims))
             st["opt"] = opt
             self.state = st
         if self.zero_stage in (1, 2):
@@ -972,14 +1019,22 @@ class DeepSpeedEngine:
                 max=1.0)
             grads = tree_map(lambda g: g.mul_(factor), grads)
         lr = self.lr_schedule(state["step"])
+        # under ZeRO, a model or a pipe axis each rank steps the pieces
+        # of the leaves it holds; LAMB's whole-leaf norms come from
+        # ``leaf_sums``
         new_params, new_opt = self.optimizer.apply(
-            grads, state["opt"], state["params"], lr)
+            grads, state["opt"], state["params"], lr,
+            leaf_sums=None if self._zero is None else self._zero.leaf_sums)
+        if self._zero is not None and "torch" in new_opt and \
+                not state["opt"]["torch"]:
+            self._check_client_state(new_opt["torch"], state["params"])
 
         def select(new, old):
             """``old`` where the step overflowed, else ``new``, leaf by
             leaf on the device.  Where the two trees differ in structure
             (a client optimizer's state, built lazily on its first step)
-            the choice is made on the host, once."""
+            the choice is made on the host, once, from the flag every
+            rank agreed on (``reduce_flag``, and the global norm)."""
             if isinstance(new, dict) and isinstance(old, dict) \
                     and new.keys() == old.keys():
                 return {k: select(new[k], old[k]) for k in new}

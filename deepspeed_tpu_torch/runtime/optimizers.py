@@ -16,8 +16,12 @@ are tensors on the params' device; nothing syncs with the host.
 
 LAMB's trust ratio is taken over a whole leaf, as the JAX package takes
 it: the blocks' leaves are stacked on a layer axis, so one ratio spans
-every layer of a stacked leaf (``torch.linalg.vector_norm`` of the leaf,
-chosen by ``torch.where``, no host branch).
+every layer of a stacked leaf (the square roots of the leaf's sums of
+squares, chosen by ``torch.where``, no host branch).  Where a rank holds
+a piece of a leaf (ZeRO over data, a model or a pipe axis), ``apply``'s
+``leaf_sums`` makes each piece's two sums the whole leaf's
+(``ZeroPartition.leaf_sums``: one all-reduce an axis group a step); the
+other optimizers work element by element and ignore it.
 
 ``wrap_torch`` is the counterpart of ``wrap_optax``: a client
 ``torch.optim.Optimizer`` (a class or factory of a list of tensors)
@@ -53,7 +57,11 @@ def tree_leaves(tree):
 class Optimizer:
     name: str
     init: Callable
-    apply: Callable          # (grads, state, params, lr) -> (params, state)
+    #: (grads, state, params, lr, leaf_sums=None) -> (params, state);
+    #: ``leaf_sums`` maps a tree of per-leaf partial sums over this
+    #: rank's pieces to the sums over the whole leaves (None: whole
+    #: leaves, the identity); only LAMB reads it
+    apply: Callable
     hyperparams: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -73,7 +81,8 @@ def adam(lr_default: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                 "m": _zeros_like_f32(params),
                 "v": _zeros_like_f32(params)}
 
-    def apply(grads, state, params, lr):
+    def apply(grads, state, params, lr, leaf_sums=None):
+        del leaf_sums  # elementwise: a shard's step is the leaf's
         step = state["step"] + 1
         t = step.to(torch.float32)
         if bias_correction:
@@ -120,10 +129,10 @@ def lamb(lr_default: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
                 "m": _zeros_like_f32(params),
                 "v": _zeros_like_f32(params)}
 
-    def apply(grads, state, params, lr):
+    def apply(grads, state, params, lr, leaf_sums=None):
         step = state["step"] + 1
 
-        def upd(g, m, v, p):
+        def moments(g, m, v, p):
             g32 = g.to(torch.float32)
             m = b1 * m + (1 - b1) * g32
             v = b2 * v + (1 - b2) * g32 * g32
@@ -131,17 +140,29 @@ def lamb(lr_default: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
             p32 = p.to(torch.float32)
             if weight_decay:
                 u = u + weight_decay * p32
+            return m, v, u, p32
+
+        out = tree_map(moments, grads, state["m"], state["v"], params)
+        # sum(p32^2) and sum(u^2) of the piece of each leaf this rank
+        # holds, made whole-leaf sums in one call (one all-reduce an axis
+        # group under ZeRO, a model or a pipe axis)
+        sq = tree_map(lambda o: torch.stack([torch.sum(o[3] * o[3]),
+                                             torch.sum(o[2] * o[2])]), out)
+        if leaf_sums is not None:
+            sq = leaf_sums(sq)
+
+        def upd(o, s, p):
+            m, v, u, p32 = o
             # the trust ratio of the whole leaf (every layer of a
             # stacked leaf), selected on the device
-            w_norm = torch.linalg.vector_norm(p32)
-            u_norm = torch.linalg.vector_norm(u)
+            w_norm, u_norm = torch.sqrt(s[0]), torch.sqrt(s[1])
             ratio = torch.where(
                 (w_norm > 0) & (u_norm > 0),
                 torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
                 torch.ones_like(w_norm))
             return (p32 - lr * ratio * u).to(p.dtype), m, v
 
-        out = tree_map(upd, grads, state["m"], state["v"], params)
+        out = tree_map(upd, out, sq, params)
         new_params = tree_map(lambda o: o[0], out)
         new_m = tree_map(lambda o: o[1], out)
         new_v = tree_map(lambda o: o[2], out)
@@ -161,7 +182,8 @@ def sgd(lr_default: float = 1e-2, momentum: float = 0.0,
             state["mom"] = _zeros_like_f32(params)
         return state
 
-    def apply(grads, state, params, lr):
+    def apply(grads, state, params, lr, leaf_sums=None):
+        del leaf_sums  # elementwise
         step = state["step"] + 1
 
         def upd(g, p, buf=None):
@@ -192,7 +214,8 @@ def adagrad(lr_default: float = 1e-2, eps: float = 1e-10,
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
                 "sq": _zeros_like_f32(params)}
 
-    def apply(grads, state, params, lr):
+    def apply(grads, state, params, lr, leaf_sums=None):
+        del leaf_sums  # elementwise
         step = state["step"] + 1
 
         def upd(g, sq, p):
@@ -273,8 +296,11 @@ def wrap_torch(factory: Callable) -> Optimizer:
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
                 "torch": {}}
 
-    def apply(grads, state, params, lr):
-        del lr  # the factory's optimizer holds its own rate
+    def apply(grads, state, params, lr, leaf_sums=None):
+        # the factory's optimizer holds its own rate; it steps whatever
+        # tensors it is handed (under ZeRO this rank's master shards, as
+        # the reference hands a client optimizer its fp32 partition)
+        del lr, leaf_sums
         work = [p.detach().clone() for p in tree_leaves(params)]
         for w, g in zip(work, tree_leaves(grads)):
             w.grad = g.to(w.dtype)

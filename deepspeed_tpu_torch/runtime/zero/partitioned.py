@@ -41,6 +41,12 @@ stage's ``blocks`` drops two dims (``lead``), and the engine's ``post``
 localizes a gathered layer to its model shard.  The global norm sums a
 pipe-local leaf's squares over the stages and counts a leaf replicated
 over ``pipe`` once; the overflow flag is reduced over the stages too.
+
+What a rank holds of each leaf (``cuts``: a piece along data, model or
+pipe) is written once, for the global norm and for ``leaf_sums``, which
+makes per-leaf partial sums over each rank's pieces whole-leaf sums
+(LAMB's two norms a leaf): one all-reduce an axis group over the
+concatenation of the sums cut along it, whatever the number of leaves.
 """
 from __future__ import annotations
 
@@ -247,34 +253,66 @@ class ZeroPartition:
             return g
         return tree_map(one, gsum, self.grad_plan, self.master_dims)
 
-    def global_norm(self, grads) -> torch.Tensor:
-        """sqrt of the sum of squares of the whole gradient: a leaf's
-        squares summed over the ranks of each axis it is sharded along
-        (data, model, pipe), a leaf replicated on all of them counted
-        once (it is equal on every rank)."""
-        groups: Dict[tuple, list] = {}
+    def cuts(self, tree):
+        """Each leaf of ``tree`` (any params-shaped tree) → the axes it
+        is cut along on this rank, a tuple of flags (data, model, pipe):
+        its master dim, its model dim, its stage dim.  A leaf whose dims
+        none divide by an axis' size (``shard_over_axis`` leaves it
+        whole) and a leaf several stages hold (the embedding and the
+        final norm under the pipeline, the tied embedding among them)
+        are not cut along that axis: each rank holds all of it.  Paired
+        by path, not by leaf order: a state loaded from a checkpoint may
+        hold its keys in another order than the tree the plans were made
+        from."""
         tdims = (self.tp_dims if self.tp_dims is not None
                  else tree_map(lambda _: None, self.master_dims))
+        return tree_map(lambda _, d, m, p: (d is not None, m is not None,
+                                            p is not None),
+                        tree, self.master_dims, tdims, self.pipe_dims)
 
-        def one(g, d, m, p):
-            # paired by path, not by leaf order: a state loaded from a
-            # checkpoint may hold its keys in another order than the
-            # tree the plans were made from
-            sq = torch.sum(torch.square(g.to(torch.float32)))
-            groups.setdefault((d is not None, m is not None, p is not None),
-                              []).append(sq)
-        tree_map(one, grads, self.master_dims, tdims, self.pipe_dims)
-        total = sum(groups.pop((False, False, False), []))
-        for (over_data, over_model, over_pipe), sqs in sorted(groups.items()):
-            part = sum(sqs)
-            if over_data:
-                part = comm.all_reduce(part, comm.ReduceOp.SUM, self.axes)
-            if over_model:
-                part = comm.all_reduce(part, comm.ReduceOp.SUM, MODEL_AXIS)
-            if over_pipe:
-                part = comm.all_reduce(part, comm.ReduceOp.SUM, PIPE_AXIS)
-            total = part + total
-        return torch.sqrt(total)
+    def _sum_cut(self, parts):
+        """``[(cut, vector)]`` → each vector summed over the ranks of
+        every axis its leaf is cut along: one all-reduce an axis group
+        (data, then model, then the stages) over the concatenation of
+        the vectors cut along it; an uncut vector is returned as it is
+        (it is equal on every rank)."""
+        out = [v for _, v in parts]
+        for j, axis in enumerate((self.axes, MODEL_AXIS, PIPE_AXIS)):
+            idx = [i for i, (cut, _) in enumerate(parts) if cut[j]]
+            if not idx:
+                continue
+            cat = comm.all_reduce(torch.cat([out[i].reshape(-1)
+                                             for i in idx]),
+                                  comm.ReduceOp.SUM, axis)
+            for i, piece in zip(idx, cat.split([out[i].numel()
+                                                for i in idx])):
+                out[i] = piece.view_as(out[i])
+        return out
+
+    def leaf_sums(self, tree):
+        """A tree of per-leaf partial sums (any shape, float32), each
+        taken over the piece of its leaf this rank holds → the sums over
+        the whole leaf, on every rank (LAMB's two norms a leaf).  One
+        all-reduce an axis group, whatever the number of leaves."""
+        flags = list(tree_leaves(self.cuts(tree)))
+        sums = self._sum_cut(list(zip(flags, tree_leaves(tree))))
+        it = iter(sums)
+        return tree_map(lambda _: next(it), tree)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """sqrt of the sum of squares of the whole gradient: a leaf's
+        squares summed over the ranks of each axis it is cut along
+        (:meth:`cuts`), a leaf replicated on all of them counted once
+        (it is equal on every rank)."""
+        groups: Dict[tuple, list] = {}
+        for g, cut in zip(tree_leaves(grads),
+                          tree_leaves(self.cuts(grads))):
+            groups.setdefault(cut, []).append(
+                torch.sum(torch.square(g.to(torch.float32))))
+        keys = sorted(groups)
+        parts = self._sum_cut([(k, sum(groups[k]).reshape(1))
+                               for k in keys])
+        return torch.sqrt(sum(parts).reshape(()))
 
     def reduce_flag(self, flag: torch.Tensor) -> torch.Tensor:
         """A per-rank boolean (an fp16 overflow) → true on every rank if

@@ -216,6 +216,61 @@ def test_lamb_ratio_spans_the_whole_stacked_leaf():
     assert not torch.allclose(da, db)
 
 
+@pytest.mark.parametrize("dims", [(0, 0), (1, 0), (None, 0)],
+                         ids=["both_rows", "w_columns", "w_whole"])
+def test_lamb_on_pieces_with_leaf_sums_equals_whole_leaves(dims):
+    """Two simulated ranks, each holding one half of every leaf cut along
+    ``dims`` (a leaf left whole is held by both), step LAMB with a
+    ``leaf_sums`` that adds the other rank's partial sums where a leaf is
+    cut: the halves put back together equal LAMB over the whole leaves,
+    step after step, and so do the moments (the JAX package's LAMB: the
+    whole-leaf tests above)."""
+    rng = np.random.default_rng(6)
+    po = opt.get_optimizer("lamb", lr=1e-2, weight_decay=0.01)
+    whole = to_torch(tree(rng))
+    cut = {"w": dims[0], "blk": {"b": dims[1]}}
+
+    def piece(t, d, r):
+        return t if d is None else t.chunk(2, d)[r].clone()
+
+    def join(a, b, d):
+        return a if d is None else torch.cat([a, b], d)
+    ranks = [opt.tree_map(lambda t, d, r=r: piece(t, d, r), whole, cut)
+             for r in range(2)]
+    states = [po.init(p) for p in ranks]
+    ws = po.init(whole)
+    lr = torch.tensor(1e-2)
+    for _ in range(3):
+        g = to_torch(tree(rng))
+        whole, ws = po.apply(g, ws, whole, lr)
+        gs = [opt.tree_map(lambda t, d, r=r: piece(t, d, r), g, cut)
+              for r in range(2)]
+        seen = []
+
+        def record(sums):
+            seen.append(opt.tree_map(torch.clone, sums))
+            return sums
+        # each rank's partial sums first, then the step with both
+        for r in range(2):
+            po.apply(gs[r], states[r], ranks[r], lr, leaf_sums=record)
+        out = []
+        for r in range(2):
+            other = seen[1 - r]
+            out.append(po.apply(
+                gs[r], states[r], ranks[r], lr,
+                leaf_sums=lambda sums, other=other: opt.tree_map(
+                    lambda s, o, d: s if d is None else s + o, sums, other,
+                    cut)))
+        ranks = [o[0] for o in out]
+        states = [o[1] for o in out]
+        for kind, a, b in (("params", ranks[0], ranks[1]),
+                           ("m", states[0]["m"], states[1]["m"]),
+                           ("v", states[0]["v"], states[1]["v"])):
+            want = whole if kind == "params" else ws[kind]
+            opt.tree_map(lambda x, y, d, w: torch.testing.assert_close(
+                join(x, y, d), w, atol=1e-6, rtol=1e-6), a, b, cut, want)
+
+
 def test_other_optimizers_are_out_of_place():
     rng = np.random.default_rng(5)
     for name in ("lamb", "sgd", "adagrad"):

@@ -189,6 +189,28 @@ def model(family):
     return tt.TransformerLM(tt.gpt2_config(
         "125m", dtype=torch.float32, **spec["families"][family]))
 
+# the all-reduces made inside ZeroPartition.leaf_sums, by axis group,
+# each step of a case
+_all_reduce, AR = comm.all_reduce, {"on": False, "steps": []}
+
+def counted_all_reduce(t, op=comm.ReduceOp.SUM, axis_name="data"):
+    if AR["on"]:
+        AR["steps"][-1][1].append(str(axis_name))
+    return _all_reduce(t, op, axis_name)
+comm.all_reduce = counted_all_reduce
+
+def count_leaf_sums(eng):
+    real = eng._zero.leaf_sums
+
+    def leaf_sums(tree):
+        AR["on"] = True
+        try:
+            return real(tree)
+        finally:
+            AR["on"] = False
+            AR["steps"][-1][0] += 1
+    eng._zero.leaf_sums = leaf_sums
+
 def engine(family, mesh, config, p=True):
     m = model(family)
     params = params_from_jax(unflat(np.load(os.path.join(
@@ -198,6 +220,7 @@ def engine(family, mesh, config, p=True):
                          params=params, device="cpu")[0]
 
 def step(eng, i, compat=False):
+    AR["steps"].append([0, []])
     b = rank_slice({"input_ids": batches[str(i)]},
                    eng.gradient_accumulation_steps, eng.dp_world_size,
                    eng.dp_rank)
@@ -226,8 +249,12 @@ for name, (w, family, mesh, config, _) in spec["cases"].items():
     if w != world:
         continue
     eng = engine(family, mesh, config)
+    if eng._zero is not None:
+        count_leaf_sums(eng)
+    AR["steps"] = []
     rows = [step(eng, i, name.startswith("compat"))
             for i in range(spec["steps"])]
+    leaf_sums = AR["steps"]
     full = eng.full_state()
     whole.update({name + "/" + k: v for k, v in flat(
         eng.adapter.unstack(full["params"])).items()})
@@ -236,6 +263,7 @@ for name, (w, family, mesh, config, _) in spec["cases"].items():
                  "n_params": eng.num_parameters(), "type": type(eng).__name__,
                  "schedule": eng.schedule, "skipped": eng.skipped_steps,
                  "stage": eng.stage_id, "dp_rank": eng.dp_rank,
+                 "leaf_sums": leaf_sums,
                  "blocks_gathered": eng._zero is not None and
                  eng._zero.stage == 3 and
                  eng._zero.sharded(eng._zero.param_dims["blocks"])}

@@ -18,23 +18,40 @@ The same world runs the compat ``forward``/``backward``/``step`` at
 compat API at {data 2}) and the tiny MoE GPT-2 at {pipe 2, data 2}
 under gpipe and stage 1 against the JAX ``PipelineEngine`` at that mesh
 (its grad norm over S, as ``tests/test_torch_pipe_moe.py`` holds it),
-with ``eval_loss``.
+with ``eval_loss``; and LAMB (its trust ratio over the whole
+stage-stacked leaf, each rank's pieces' sums made whole by
+``leaf_sums``) at {pipe 2, data 2} with ZeRO stage 1, held to the JAX
+data-parallel engine, and at {pipe 2, model 2}, held to the JAX
+``PipelineEngine`` there.
 """
 import numpy as np
 import pytest
 
-from test_torch_pipe import (check_bytes, check_masters, check_no_jax,
+from test_torch_pipe import (TP, check_bytes, check_masters, check_no_jax,
                              check_resume, check_steps, launch, zero)
 
 PD = {"pipe": 2, "data": 2}
+LAMB = {"optimizer": {"type": "Lamb",
+                      "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+#: stages 1-3 are held to the JAX data-parallel engine of their mesh's
+#: stage 0 case (every JAX stage computes the same function; the masters
+#: are compared gathered whole), so one engine's compilation serves them
 CASES = {
-    **{f"pipe4_s{s}": (4, "gpt2", {"pipe": 4}, zero(s), "dp")
+    **{f"pipe4_s{s}": (4, "gpt2", {"pipe": 4}, zero(s),
+                       "dp" if s == 0 else "pipe4_s0")
        for s in (0, 1, 2)},
-    **{f"pipe2_data2_s{s}": (4, "gpt2", PD, zero(s), "dp")
+    **{f"pipe2_data2_s{s}": (4, "gpt2", PD, zero(s),
+                             "dp" if s == 0 else "pipe2_data2_s0")
        for s in (0, 1, 2, 3)},
     "compat_pipe2_data2_s1": (4, "gpt2", PD, zero(1), "dp_compat"),
     "moe_pipe2_data2": (4, "moe", PD, zero(1), "pipe"),
+    "lamb_pipe2_data2_s1": (4, "gpt2", PD, {**LAMB, **zero(1)}, "dp"),
+    "lamb_pipe2_model2": (4, "gpt2", TP, LAMB, "pipe"),
 }
+#: the axis groups of LAMB's one leaf-sum call a step: the blocks' pieces
+#: over data (stage 1) or model, and over the stages
+LEAF_SUM_AXES = {"lamb_pipe2_data2_s1": ("data", "pipe"),
+                 "lamb_pipe2_model2": ("model", "pipe")}
 #: the JAX MoE pipeline region's over-count of the gradient (S)
 NORM_OVERCOUNT = {"moe_pipe2_data2": 2}
 
@@ -100,3 +117,18 @@ def test_zero3_checkpoint_resumes_bit_equal(world):
     stage's slice gathered into the JAX layout by rank 0, re-sharded on
     load."""
     check_resume(world, "pipe2_data2_s3")
+
+
+@pytest.mark.parametrize("name", list(LEAF_SUM_AXES))
+def test_lamb_makes_one_leaf_sum_all_reduce_an_axis_group(world, name):
+    """LAMB under the pipeline: one ``leaf_sums`` call a step, which makes
+    one all-reduce an axis group its leaves are cut along (the tied
+    embedding and the final norm, held whole by both stages, cross in
+    no pipe sum), on every rank."""
+    want = LEAF_SUM_AXES[name]
+    for res in world.ranks[4]:
+        for calls, axes in res[name]["leaf_sums"]:
+            assert calls == 1
+            assert len(axes) == len(want)
+            for got, axis in zip(axes, want):
+                assert axis in got, (axes, want)

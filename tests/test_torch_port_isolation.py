@@ -369,12 +369,15 @@ def _worker_source(test_file: str, name: str) -> str:
 @pytest.mark.parametrize("test_file,name", [
     ("test_torch_pipe.py", "WORKER"), ("test_torch_tp_training.py",
                                        "WORKER"),
-    ("test_torch_tp_serving.py", "WORKER")])
+    ("test_torch_tp_serving.py", "WORKER"), ("test_torch_zero.py", "WORKER"),
+    ("../chip_smoke.py", "ZERO_WORKER"), ("../chip_smoke.py", "TP_WORKER")])
 def test_rank_worker_sources_import_nothing_of_jax(test_file, name):
     """The sources the gloo ranks of the parity tests run import neither
     jax nor the JAX package (the pipeline's files share the first; the
     serving mesh's worker runs the spec lane, the host tier, the fleet
-    and BERT too)."""
+    and BERT too; the ZeRO and tensor-parallel workers run LAMB and the
+    client torch.optim optimizers on shards; ``chip_smoke.py``'s rank
+    workers run on the card's machine, which has no jax)."""
     tree = ast.parse(_worker_source(test_file, name))
     names = []
     for node in ast.walk(tree):

@@ -424,14 +424,14 @@ def skewed(name, eng, prompts, new):
     # rank 1's runs ahead of the others'
     plen, pnew, deadline, tick, lead = spec["skew"]
     real = time.perf_counter
-    base, steps = real(), [0]
+    base, steps = [real()], [0]
 
     class Clock:
         def __getattr__(self, n):
             return getattr(time, n)
 
         def perf_counter(self):
-            return base + tick * steps[0] + (lead if rank == 1 else 0.0)
+            return base[0] + tick * steps[0] + (lead if rank == 1 else 0.0)
     for mod in (engine_mod, sched_mod):
         mod.time = Clock()
     try:
@@ -466,6 +466,11 @@ def skewed(name, eng, prompts, new):
         def first(ev):
             firsts.setdefault(id(ev.request), steps[0])
         long = np.random.RandomState(3).randint(0, 64, (plen,)).tolist()
+        # a request's submit time is the real clock's (the scheduler's
+        # default factory holds the real function): the serving clock
+        # starts from it, so building the server under a loaded host
+        # does not move the deadline's step
+        base[0] = real()
         reqs = [submit(long, max_new_tokens=pnew, deadline_s=deadline,
                        on_token=first)]
         reqs += [submit(p, max_new_tokens=new, on_token=first)
@@ -822,14 +827,17 @@ def test_deadline_under_a_skewed_clock_is_rank_0s(world, name):
 
 def test_mesh_refuses_moe_and_bert_tp_training(world):
     """What a model axis still refuses, naming its part of queue A item
-    7: MoE serving (part 5, on every rank of the world of 2) and BERT's
-    MLM head in tensor-parallel training (part 3c; serving runs it)."""
+    7: MoE serving (part 5, on every rank of the world of 2).  BERT's
+    MLM head in tensor-parallel training (part 3c) is refused no more:
+    its training view is built (``tests/test_torch_tp_training.py``
+    holds its steps to the JAX engine at {model 2} and {data 2, model
+    2})."""
     for res in world.ranks[2]:
         (moe,) = res["refused"]
         assert "expert parallelism" in moe and "part 5" in moe
-    with pytest.raises(NotImplementedError,
-                       match="MLM head .*queue A item 7 part 3c"):
-        port_model("bert").tp_train_view(2, "model")
+    view = port_model("bert").tp_train_view(2, "model")
+    assert view._tp_axis == "model" and view._tp_exact_bwd
+    assert view.config.num_heads * 2 == port_model("bert").config.num_heads
 
 
 def test_preemption_on_a_data_sharded_mesh(world):

@@ -20,6 +20,15 @@ exit reduction of the partial leaves.  Cases (f32):
   the plan's count;
 * tiny LLaMA (GQA 8 over 2 kv heads, untied head, rotary) at {model 2},
   2 steps, the same checks;
+* optimizers on shards: LAMB at {model 2} (stage 0) and {data 2, model
+  2} (ZeRO-1; one ``leaf_sums`` call a step, one all-reduce an axis
+  group, pinned), a client ``torch.optim.AdamW`` at {data 2, model 2}
+  with ZeRO-3 against ``optax.adamw``; the tiny BERT (post-norm encoder,
+  token types, the MLM head) at {model 2} and {data 2, model 2} (ZeRO-1)
+  and DistilBERT at {model 2}, 2 steps, their MLM head's vocab bias cut
+  in the step; stages 1 and 2 and the compat surface at ZeRO-3 are held
+  to the JAX engine of the same mesh and batches at stage 0 and ZeRO-1
+  (``JAX_REF``);
 * the traps: the global norm (a model-sharded leaf's squares summed over
   the model ranks, a replicated one counted once: the grad norm above),
   the dataloader (the model ranks of one data coordinate take the same
@@ -74,11 +83,26 @@ LLAMA = dict(num_layers=2, d_model=64, num_heads=8, num_kv_heads=2,
 BLOOM = dict(num_layers=2, d_model=48, num_heads=6, vocab_size=64,
              max_seq_len=64, pos_embedding="alibi", embed_layernorm=True,
              attn_impl="xla")
-FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "bloom": BLOOM}
+#: tests/test_torch_families.py's tiny BERT (the post-norm encoder, the
+#: MLM head, token types) and DistilBERT (no token types), on plain
+#: attention
+ENCODER = dict(num_layers=2, d_model=64, num_heads=4, vocab_size=64,
+               max_seq_len=64, causal=False, norm_position="post",
+               final_layernorm=False, embed_layernorm=True, mlm_head=True,
+               activation="gelu_exact", d_ff=96, attn_impl="xla")
+BERT = dict(ENCODER, token_type_vocab=2)
+FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "bloom": BLOOM, "bert": BERT,
+            "distilbert": ENCODER}
 BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "AdamW",
                       "params": {"lr": 6e-4, "weight_decay": 0.1}},
         "gradient_clipping": 0.25, "steps_per_print": 0}
+LAMB = {"optimizer": {"type": "Lamb",
+                      "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+#: a client torch.optim AdamW (popped before ``initialize``) and the optax
+#: step of the JAX engine, every hyperparameter explicit
+CLIENT = {"client": {"type": "AdamW", "params": {
+    "lr": 1e-3, "betas": [0.9, 0.999], "eps": 1e-8, "weight_decay": 0.01}}}
 
 
 def zero(stage):
@@ -101,7 +125,30 @@ CASES = {
     "offload_m2": (2, "gpt2", {"model": 2}, OFFLOAD, 4, 3),
     "compat_s1": (2, "gpt2", {"data": 2}, zero(1), 5, 3),
     "compat_s3": (2, "gpt2", {"data": 2}, zero(3), 5, 3),
+    "lamb_m2": (2, "gpt2", {"model": 2}, {**LAMB, **zero(0)}, 6, 3),
+    "lamb_s1": (4, "gpt2", {"data": 2, "model": 2}, {**LAMB, **zero(1)}, 6, 3),
+    "client_s3": (4, "gpt2", {"data": 2, "model": 2}, {**CLIENT, **zero(3)},
+                  7, 3),
+    "bert_m2": (2, "bert", {"model": 2}, zero(0), 8, 2),
+    "bert_s1": (4, "bert", {"data": 2, "model": 2}, zero(1), 8, 2),
+    "distilbert_m2": (2, "distilbert", {"model": 2}, zero(0), 9, 2),
 }
+
+
+#: cases held to another case's JAX engine: the same mesh, batches and
+#: optimizer at another ZeRO stage (every JAX stage computes the same
+#: function; the masters are compared gathered whole), so one engine's
+#: compilation serves them
+JAX_REF = {name: {"s1": "s0", "s2": "s0",
+                  "compat_s3": "compat_s1"}.get(name, name)
+           for name in CASES}
+
+
+def step_lr(config):
+    """The learning rate of a case's optimizer."""
+    if "client" in config:
+        return config["client"]["params"]["lr"]
+    return config.get("optimizer", BASE["optimizer"])["params"]["lr"]
 
 
 def jax_model(family):
@@ -139,7 +186,7 @@ def flat(tree, prefix=""):
 
 
 WORKER = r'''
-import json, os, sys
+import functools, json, os, sys
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
@@ -191,12 +238,41 @@ def params(family, m):
     return params_from_jax(unflat(np.load(os.path.join(
         d, f"init_{family}.npz"))), m)
 
+# the all-reduces made inside ZeroPartition.leaf_sums, by axis group
+_all_reduce, AR = comm.all_reduce, {"on": False, "axes": [], "calls": 0}
+
+def counted_all_reduce(t, op=comm.ReduceOp.SUM, axis_name="data"):
+    if AR["on"]:
+        AR["axes"].append(str(axis_name))
+    return _all_reduce(t, op, axis_name)
+comm.all_reduce = counted_all_reduce
+
 def engine(family, mesh_block, config, p=True, **kw):
     m = model(family)
     cfg = {**spec["base"], **config, "mesh": mesh_block}
-    return dt.initialize(model=m, config=cfg,
-                         params=params(family, m) if p else None,
-                         device="cpu", **kw)
+    client = cfg.pop("client", None)
+    if client is not None:
+        del cfg["optimizer"]
+        kw["optimizer"] = functools.partial(
+            getattr(torch.optim, client["type"]), **{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in client["params"].items()})
+    out = dt.initialize(model=m, config=cfg,
+                        params=params(family, m) if p else None,
+                        device="cpu", **kw)
+    z = out[0]._zero
+    if z is not None:
+        real = z.leaf_sums
+
+        def leaf_sums(tree):
+            AR["on"] = True
+            try:
+                return real(tree)
+            finally:
+                AR["on"] = False
+                AR["calls"] += 1
+        z.leaf_sums = leaf_sums
+    return out
 
 def run(eng, batches, steps, compat):
     rows = []
@@ -215,8 +291,10 @@ def run(eng, batches, steps, compat):
             rows.append([float(np.mean(losses)),
                          float(eng._last_metrics["grad_norm"])])
         else:
+            AR.update(axes=[], calls=0)
             m = eng.train_step(b)
-            rows.append([float(m["loss"]), float(m["grad_norm"])])
+            rows.append([float(m["loss"]), float(m["grad_norm"]),
+                         AR["calls"], AR["axes"]])
     return rows
 
 def state_bytes(eng):
@@ -327,7 +405,16 @@ def jax_engine(family, mesh, config):
     n = int(np.prod(list(mesh.values())))
     jm = build_mesh(MeshConfig(**mesh), devices=jax.devices()[:n])
     cfg = json.loads(json.dumps({**BASE, **config}))
-    return ds.initialize(model=jax_model(family), config=cfg, mesh=jm)[0]
+    client = cfg.pop("client", None)
+    tx = None
+    if client is not None:
+        import optax
+        del cfg["optimizer"]
+        p = client["params"]
+        tx = optax.adamw(p["lr"], b1=p["betas"][0], b2=p["betas"][1],
+                         eps=p["eps"], weight_decay=p["weight_decay"])
+    return ds.initialize(model=jax_model(family), config=cfg, mesh=jm,
+                         optimizer=tx)[0]
 
 
 def pair_inputs():
@@ -394,6 +481,8 @@ def world(tmp_path_factory):
         t.start()
     runs, states, compat = {}, {}, {}
     for name, (_, family, mesh, config, seed, steps) in CASES.items():
+        if JAX_REF[name] != name:
+            continue
         je = jax_engine(family, mesh, config)
         bs = np.load(os.path.join(tmp, f"batches_{name}.npz"))
         runs[name] = [{k: float(v) for k, v in je.train_step(
@@ -404,6 +493,10 @@ def world(tmp_path_factory):
             compat[name] = jax_compat_run(
                 jax_engine(family, mesh, config),
                 [bs[str(i)] for i in range(steps)])
+    for name, ref in JAX_REF.items():
+        runs[name], states[name] = runs[ref], states[ref]
+        if ref in compat:
+            compat[name] = compat[ref]
     pair = jax_pair(io)
     # one rank of the port: the ALiBi model's logits
     pm = port_model("bloom")
@@ -456,7 +549,7 @@ def test_steps_match_jax_on_every_rank(world, name):
     for res in world.ranks[n]:
         got = res[name]["rows"]
         assert len(got) == len(want)
-        for (loss, gnorm), w in zip(got, want):
+        for (loss, gnorm, *_), w in zip(got, want):
             np.testing.assert_allclose(loss, w["loss"], rtol=1e-5, atol=0)
             np.testing.assert_allclose(gnorm, w["grad_norm"], rtol=1e-5,
                                        atol=0)
@@ -478,7 +571,7 @@ def test_gathered_masters_equal_jax(world, name):
            if k.startswith(name + "/")}
     want = world.states[name]
     assert set(got) == set(want)
-    bound = 2 * BASE["optimizer"]["params"]["lr"] * steps
+    bound = 2 * step_lr(CASES[name][3]) * steps
     for k, v in want.items():
         off = ~np.isclose(got[k], v, **TOL)
         assert off.sum() <= max(1, v.size // 10**4), (k, int(off.sum()))
@@ -499,6 +592,22 @@ def test_state_bytes_follow_the_plan(world, name):
         assert res[name]["blocks_gathered"] == stage3
         assert res[name]["n_params"] == sum(
             v.size for v in flat(world.inits[family]).values())
+
+
+@pytest.mark.parametrize("name", [n for n in CASES if n.startswith("lamb")])
+def test_lamb_makes_one_leaf_sum_all_reduce_an_axis_group(world, name):
+    """LAMB's whole-leaf sums cross in one ``leaf_sums`` call a step: one
+    all-reduce over ``model`` at {model 2}, one over the data axes and
+    one over ``model`` at {data 2, model 2}, on every rank."""
+    mesh = CASES[name][2]
+    for res in world.ranks[CASES[name][0]]:
+        for row in res[name]["rows"]:
+            calls, axes = row[2], row[3]
+            assert calls == 1
+            assert len(axes) == len(mesh)
+            assert axes[-1] == "model"
+            if "data" in mesh:
+                assert "data" in axes[0]
 
 
 def test_zero3_checkpoint_resumes_bit_equal(world):
@@ -523,8 +632,9 @@ def test_compat_surface_equals_train_step_and_jax(world, name):
     for res in world.ranks[CASES[name][0]]:
         got = res[name]["rows"]
         assert len(got) == len(want)
-        np.testing.assert_allclose(got, res[name]["train_step"], rtol=1e-5,
-                                   atol=0)
+        np.testing.assert_allclose(
+            got, [row[:2] for row in res[name]["train_step"]], rtol=1e-5,
+            atol=0)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
@@ -589,7 +699,7 @@ def _tuples(tree):
         is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
 
 
-@pytest.mark.parametrize("family", ["gpt2", "llama", "bloom"])
+@pytest.mark.parametrize("family", ["gpt2", "llama", "bloom", "bert"])
 def test_partition_and_auto_tp_specs_equal_jax(family):
     jm = jax_model(family)
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))

@@ -30,13 +30,25 @@ Cases, all float32 but the fp16 one (gas 2, micro 2 a rank, global batch
   skipped steps and scale trajectory on every rank as in JAX, and the
   masters kept.  Near that boundary the two may part: the port, as the
   reference, reduces each rank's float16 gradients in float32;
+* LAMB at stages 1 and 3 (held to one JAX LAMB engine at stage 3: its
+  trust ratio over the whole leaf, from each rank's pieces' sums in one
+  ``leaf_sums`` call a step, one all-reduce over data, pinned), and
+  client ``torch.optim`` optimizers on the master shards (AdamW at
+  stage 2 against ``optax.adamw``, SGD with momentum at stage 3 against
+  ``optax.sgd``, every hyperparameter explicit); ``torch.optim.Adafactor``
+  (factored state) at stage 1 raises on every rank at its first step;
 * a checkpoint saved at world 4 stage 3 that resumes bit-equal at
   world 4 and loads at world 1, and a world-1 checkpoint that loads at
-  world 4;
-* in-process: ``ZeroShardingPolicy``'s dims against the JAX policy's
-  specs, ``grad_reduce_plan``, ``TiledLinear``, the dataloader's rank
-  slices and the config gate's refusals, word for word.
+  world 4; the client AdamW's stage-2 checkpoint likewise (its state in
+  the world-1 layout);
+* in-process: ``ZeroPartition.leaf_sums`` and the global norm sum each
+  leaf over the axes the JAX policy cuts it along (a fake mesh, each
+  axis group's all-reduce a distinct factor); ``ZeroShardingPolicy``'s
+  dims against the JAX policy's specs, ``grad_reduce_plan``,
+  ``TiledLinear``, the dataloader's rank slices and the config gate's
+  refusals, word for word.
 """
+import functools
 import json
 import os
 import types
@@ -84,6 +96,17 @@ BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "AdamW",
                       "params": {"lr": 6e-4, "weight_decay": 0.1}},
         "gradient_clipping": 0.25, "steps_per_print": 0}
+#: LAMB in the config, and the client optimizers (``"client"``: a
+#: torch.optim class and its arguments, popped before ``initialize``; the
+#: JAX engine takes the optax transformation of the same step, every
+#: hyperparameter explicit, as the two libraries' defaults differ)
+LAMB = {"optimizer": {"type": "Lamb",
+                      "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+NO_OPT = {k: v for k, v in BASE.items() if k != "optimizer"}
+CLIENT_ADAMW = {"client": {"type": "AdamW", "params": {
+    "lr": 1e-3, "betas": [0.9, 0.999], "eps": 1e-8, "weight_decay": 0.01}}}
+CLIENT_SGD = {"client": {"type": "SGD", "params": {"lr": 0.05,
+                                                    "momentum": 0.9}}}
 STEPS = 3
 GLOBAL = 2 * 2 * WORLD
 #: one rank over the same global batch: micro 8 = 4 ranks x 2
@@ -107,13 +130,34 @@ CASES = {
     "fp16": ("gpt2", {**BASE, **zero(2),
                       "fp16": {"enabled": True, "initial_scale_power": 24,
                                "hysteresis": 1}}, 5),
+    "lamb_s1": ("gpt2", {**BASE, **LAMB, **zero(1)}, 1),
+    "lamb_s3": ("gpt2", {**BASE, **LAMB, **zero(3)}, 1),
+    "client_s2": ("gpt2", {**NO_OPT, **CLIENT_ADAMW, **zero(2)}, 1),
+    "client_sgd_s3": ("gpt2", {**NO_OPT, **CLIENT_SGD, **zero(3)}, 1),
 }
+CLIENTS = ("client_s2", "client_sgd_s3")
+#: a client optimizer whose state is not shaped like its leaf (factored
+#: row and column statistics) at stage 1: refused on shards
+ADAFACTOR = {**NO_OPT, **zero(1),
+             "client": {"type": "Adafactor", "params": {"lr": 1e-2}}}
 
 
 #: stages 1 and 2 are held to the JAX engine at stage 3: at threshold 0
 #: its master and moment specs are theirs (test_policy_dims_equal_jax_
 #: specs), and every JAX stage computes the same function
-JAX_REF = {name: "s3" if name in ("s1", "s2") else name for name in CASES}
+JAX_REF = {name: {"s1": "s3", "s2": "s3", "lamb_s1": "lamb_s3"}.get(name, name)
+           for name in CASES}
+
+
+def optax_of(client):
+    """The optax transformation that takes the step of ``client``'s
+    torch.optim optimizer."""
+    import optax
+    p = client["params"]
+    if client["type"] == "AdamW":
+        return optax.adamw(p["lr"], b1=p["betas"][0], b2=p["betas"][1],
+                           eps=p["eps"], weight_decay=p["weight_decay"])
+    return optax.sgd(p["lr"], momentum=p["momentum"])
 
 
 def jax_model(family, fp16=False):
@@ -174,15 +218,17 @@ def unflat(d):
 #: the ranks' program: every case in turn, then a world-4 checkpoint
 #: resumed at world 4 and a world-1 checkpoint loaded at world 4
 WORKER = r'''
-import json, os, sys
+import functools, json, os, sys
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
 torch.set_num_threads(1)
 import deepspeed_tpu_torch as dt
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.runtime.dataloader import rank_slice
+from deepspeed_tpu_torch.runtime.optimizers import tree_leaves
 
 d = os.environ["ZERO_TEST_DIR"]
 dt.init_distributed("gloo", timeout=90)
@@ -212,14 +258,43 @@ def model(family):
            else tt.gpt2_config("125m", dtype=torch.float32, **kw))
     return tt.TransformerLM(cfg)
 
-def engine(name, params=None):
-    family, config, _ = spec["cases"][name]
+# the all-reduces made inside ZeroPartition.leaf_sums, by axis group
+_all_reduce, AR = comm.all_reduce, {"on": False, "axes": []}
+
+def counted_all_reduce(t, op=comm.ReduceOp.SUM, axis_name="data"):
+    if AR["on"]:
+        AR["axes"].append(str(axis_name))
+    return _all_reduce(t, op, axis_name)
+comm.all_reduce = counted_all_reduce
+
+def count_leaf_sums(eng):
+    real = eng._zero.leaf_sums
+
+    def leaf_sums(tree):
+        AR["on"] = True
+        try:
+            return real(tree)
+        finally:
+            AR["on"] = False
+            AR["calls"] = AR.get("calls", 0) + 1
+    eng._zero.leaf_sums = leaf_sums
+
+def engine(name, params=None, config=None):
+    family, cfg, _ = spec["cases"][name]
+    config = dict(config or cfg)
+    client = config.pop("client", None)
+    opt = None
+    if client is not None:
+        opt = functools.partial(getattr(torch.optim, client["type"]), **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in client["params"].items()})
     m = model(family)
     p = None
     if params is not None:
         p = params_from_jax(unflat(np.load(os.path.join(d, params))), m)
     eng, _, _, _ = dt.initialize(model=m, config=config, params=p,
-                                 device="cpu")
+                                 optimizer=opt, device="cpu")
+    count_leaf_sums(eng)
     return eng
 
 def steps(eng, name, which):
@@ -229,8 +304,10 @@ def steps(eng, name, which):
         b = rank_slice({"input_ids": batches[str(i)]},
                        eng.gradient_accumulation_steps, eng.dp_world_size,
                        rank)
+        AR.update(axes=[], calls=0)
         m = eng.train_step(b)
         out.append({k: float(v) for k, v in m.items()})
+        out[-1]["leaf_sums"] = [AR["calls"], AR["axes"]]
     return out
 
 results, shards = {}, {}
@@ -245,15 +322,30 @@ for name in spec["cases"]:
                                   int(eng.state["skipped"])]}
     flat(eng.state["params"], name + "/params", shards)
     for k in ("m", "v"):
-        flat(eng.state["opt"][k], f"{name}/{k}", shards)
-    if name == "s3":
-        eng.save_checkpoint(os.path.join(d, "ckpt4"))
+        if k in eng.state["opt"]:
+            flat(eng.state["opt"][k], f"{name}/{k}", shards)
+    if name in ("s3", "client_s2"):
+        ck = os.path.join(d, "ckpt4" if name == "s3" else "ckpt4_client")
+        eng.save_checkpoint(ck)
         more = steps(eng, name, [spec["steps"]])
         again = engine(name)
-        again.load_checkpoint(os.path.join(d, "ckpt4"))
-        results["resume"] = {"cont": more,
-                             "resumed": steps(again, name, [spec["steps"]])}
+        again.load_checkpoint(ck)
+        resumed = steps(again, name, [spec["steps"]])
+        results["resume" if name == "s3" else "resume_client"] = {
+            "cont": more, "resumed": resumed,
+            "leaves_equal": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(eng.state), tree_leaves(again.state)))}
+        if name == "client_s2":
+            full = eng.full_state()
+            flat(full["params"], "client_cont/params", shards)
     del eng
+
+# a client optimizer whose state is not shaped like its leaf, on shards
+try:
+    steps(engine("client_s2", config=spec["adafactor"]), "client_s2", [0])
+    results["adafactor"] = None
+except NotImplementedError as e:
+    results["adafactor"] = str(e)
 
 w1 = engine("s3")
 w1.load_checkpoint(os.path.join(d, "ckpt1"))
@@ -268,9 +360,11 @@ dt.comm.destroy_process_group()
 
 def jax_engine(family, config, fp16=False):
     mesh = build_mesh(MeshConfig(data=WORLD), devices=jax.devices()[:WORLD])
+    config = json.loads(json.dumps(config))
+    client = config.pop("client", None)
     eng, _, _, _ = ds.initialize(model=jax_model(family, fp16),
-                                 config=json.loads(json.dumps(config)),
-                                 mesh=mesh)
+                                 config=config, mesh=mesh,
+                                 optimizer=client and optax_of(client))
     return eng
 
 
@@ -309,7 +403,8 @@ def world(tmp_path_factory):
     w1_ref = [{k: float(v) for k, v in w1.train_step(
         {"input_ids": b}).items()} for b in w1_batches[1:]]
     with open(os.path.join(tmp, "cases.json"), "w") as f:
-        json.dump({"cases": CASES, "families": FAMILIES, "steps": STEPS}, f)
+        json.dump({"cases": CASES, "families": FAMILIES, "steps": STEPS,
+                   "adafactor": ADAFACTOR}, f)
 
     import threading
     box = {}
@@ -387,9 +482,12 @@ def test_shards_equal_jax_device_shards(world, name):
     fp16 case's are its initial ones, every step skipped)."""
     st = world.engines[name].state
     keep = lambda a: a    # noqa: E731 - the jax.Arrays, with shards
-    trees = {"params": flat(st["params"], conv=keep),
-             "m": flat(st["opt"]["m"], conv=keep),
-             "v": flat(st["opt"]["v"], conv=keep)}
+    trees = {"params": flat(st["params"], conv=keep)}
+    if name not in CLIENTS:
+        # an optax state is not the port's: the client cases hold their
+        # masters here and their whole state in the checkpoint test
+        trees.update(m=flat(st["opt"]["m"], conv=keep),
+                     v=flat(st["opt"]["v"], conv=keep))
     for r, res in enumerate(world.ranks):
         for kind, leaves in trees.items():
             for path, arr in leaves.items():
@@ -397,6 +495,69 @@ def test_shards_equal_jax_device_shards(world, name):
                 want = device_shard(arr, r)
                 assert got.shape == want.shape, (name, kind, path)
                 np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_lamb_makes_one_leaf_sum_all_reduce_a_step(world, name):
+    """LAMB's two whole-leaf sums of every leaf cross in one call of
+    ``ZeroPartition.leaf_sums`` a step, which makes one all-reduce over
+    the data axes (the only axis group here), on every rank; no other
+    optimizer calls it."""
+    lamb = name.startswith("lamb")
+    for res in world.ranks:
+        for row in res[name]["steps"]:
+            calls, axes = row["leaf_sums"]
+            assert calls == (1 if lamb else 0), name
+            assert len(axes) == calls and len(set(axes)) <= 1, axes
+    if lamb:
+        assert "data" in world.ranks[0][name]["steps"][0]["leaf_sums"][1][0]
+
+
+def test_client_checkpoint_resumes_across_world_sizes(world):
+    """A client AdamW's stage-2 save at world 4 (the torch.optim state's
+    moments gathered into the world-1 layout, its step counters kept)
+    resumes bit-equal at world 4, and loads at world 1: the next step
+    there leaves the params the world-4 run's next step left."""
+    for res in world.ranks:
+        r = res["resume_client"]
+        assert r["leaves_equal"]
+        assert r["resumed"] == r["cont"]
+    config = {**json.loads(json.dumps(CASES["client_s2"][1])),
+              "train_micro_batch_size_per_gpu": 2 * WORLD}
+    client = config.pop("client")
+    one = dt.initialize(
+        model=port_model("gpt2"), config=config, device="cpu",
+        optimizer=functools.partial(torch.optim.AdamW, **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in client["params"].items()}))[0]
+    one.load_checkpoint(os.path.join(world.tmp, "ckpt4_client"))
+    leaves = list(tree_leaves(one.state["params"]))
+    for i, ent in one.state["opt"]["torch"].items():
+        assert ent["exp_avg"].shape == leaves[int(i)].shape
+        assert int(ent["step"]) == STEPS
+    bs = np.load(os.path.join(world.tmp, "batches_client_s2.npz"))
+    m = one.train_step({"input_ids": bs[str(STEPS)]})
+    cont = world.ranks[0]["resume_client"]["cont"][0]
+    np.testing.assert_allclose(float(m["loss"]), cont["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]), cont["grad_norm"],
+                               rtol=1e-5)
+    want = world.ranks[0]["shards"]
+    for path, got in flat(one.state["params"], conv=np.asarray).items():
+        np.testing.assert_allclose(got, want[f"client_cont/params/{path}"],
+                                   **TOL)
+
+
+def test_factored_client_state_on_shards_raises(world):
+    """torch.optim.Adafactor keeps row and column statistics of a matrix,
+    shaped like neither the rank's piece of it nor a scalar: at stage 1
+    over 4 ranks its first step raises on every rank, naming the leaf,
+    the state entry and the part of queue A that would lift it."""
+    for res in world.ranks:
+        msg = res["adafactor"]
+        assert msg is not None
+        assert "queue A item 7 part 4" in msg
+        assert "'row_var'" in msg or "'col_var'" in msg
+        assert "of leaf " in msg and "/" in msg.split("of leaf ")[1]
 
 
 def test_stage3_state_bytes_follow_the_plan(world):
@@ -523,6 +684,106 @@ def test_stage3_dims_on_model_and_pipe_cut_leaves_equal_jax(axes):
     for path, d in flat(pp.model_param_dims(), conv=lambda d: d).items():
         if path.startswith("blocks/") and d is not None:
             assert d >= lead, path
+
+
+class _FakeMesh:
+    """Axis sizes without processes: rank 0 of every axis."""
+
+    def __init__(self, **axes):
+        from deepspeed_tpu_torch.parallel.topology import AXIS_ORDER
+        self.shape = {a: axes.get(a, 1) for a in AXIS_ORDER}
+
+    def axis_size(self, axes):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def axis_index(self, axes):
+        return 0
+
+
+#: a factor each axis group's all-reduce multiplies by, so a leaf's sum
+#: names the axes it was summed over
+_AXIS_FACTOR = {"data": 3.0, "model": 5.0, "pipe": 7.0}
+
+
+@pytest.mark.parametrize("axes", [dict(data=3), dict(data=2, model=2),
+                                  dict(pipe=2, data=3),
+                                  dict(pipe=2, data=2, model=2)],
+                         ids=["data3", "data2_model2", "pipe2_data3", "3d"])
+@pytest.mark.parametrize("stage", [1, 3])
+def test_leaf_sums_sum_each_leaf_over_its_cut_axes(monkeypatch, axes,
+                                                   stage):
+    """``ZeroPartition.leaf_sums`` (and the global norm, which shares its
+    classification) sums a leaf's partial sums over exactly the axes the
+    JAX policy's master spec cuts it along, from the port's training
+    specs: over data where a dim divides (at data 3 only the fused qkv's
+    96 columns do: the others count once), over model where Megatron
+    cuts it (not the fused qkv, gathered in the step), over the stages
+    for ``blocks`` only (the tied embedding and the final norm, which
+    both stages hold, count once); one all-reduce an axis group."""
+    from deepspeed_tpu_torch import comm as pcomm
+    from deepspeed_tpu_torch.models.convert import tp_dims
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.engine import PipelinedLM
+    from deepspeed_tpu_torch.runtime.zero.partitioned import ZeroPartition
+    n = int(np.prod(list(axes.values())))
+    mesh = build_mesh(MeshConfig(**axes), devices=jax.devices()[:n])
+    model = port_model("gpt2")
+    if "pipe" in axes:
+        model = PipelinedLM(model, 2)
+        model.use_onehot_embed = "model" in axes
+    shapes = model.param_shapes()
+    specs = psh._map(lambda _p, sp: tuple(
+        None if (e == "model" and "model" not in axes) else e
+        for e in sp), DeepSpeedEngine._tp_train_specs(
+            types.SimpleNamespace(model=model), shapes))
+    fake = _FakeMesh(**axes)
+    z = ZeroPartition(psh.ZeroShardingPolicy(
+        stage, fake, shapes, specs, param_persistence_threshold=0), fake,
+        tp_dims=tp_dims(specs) if "model" in axes else None)
+    calls = []
+
+    def all_reduce(t, op=pcomm.ReduceOp.SUM, axis_name="data"):
+        key = "data" if "data" in axis_name else axis_name
+        calls.append(key)
+        return t * _AXIS_FACTOR[key]
+    monkeypatch.setattr(pcomm, "all_reduce", all_reduce)
+    got = flat(z.leaf_sums(psh._map(lambda _p, sh: torch.ones(2), shapes)),
+               conv=lambda t: float(t[0]))
+    is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
+    jp = jsh.ZeroShardingPolicy(
+        stage, mesh, jax.tree_util.tree_map(
+            lambda sp: jax.sharding.PartitionSpec(*sp), specs,
+            is_leaf=is_spec),
+        jax.tree_util.tree_map(
+            lambda sh: jax.ShapeDtypeStruct(sh, jnp.float32), shapes,
+            is_leaf=is_spec), param_persistence_threshold=0)
+    want_specs = flat_specs(jax.tree_util.tree_map(
+        tuple, jp.master_param_specs(),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))
+    groups = set()
+    for path, spec in want_specs.items():
+        names = set()
+        for e in spec:
+            names.update(e if isinstance(e, tuple) else (e,))
+        cut = [a for a in ("data", "model", "pipe")
+               if a in names or (a == "data" and "dcn_data" in names)]
+        groups.update(cut)
+        assert got[path] == np.prod([_AXIS_FACTOR[a] for a in cut]), path
+    assert calls == [a for a in ("data", "model", "pipe") if a in groups]
+    if "pipe" in axes:
+        assert got["embed/embedding"] % _AXIS_FACTOR["pipe"]
+    if axes == dict(data=3):
+        assert got["blocks/attn/qkv/kernel"] == _AXIS_FACTOR["data"]
+        assert got["ln_f/scale"] == 1.0
+    # the global norm: the same classification, one all-reduce a group
+    calls.clear()
+    grads = psh._map(lambda _p, sh: torch.ones(sh), shapes)
+    whole = sum(float(np.prod(sh)) * got[path] for path, sh in
+                flat(shapes, conv=lambda x: x).items())
+    np.testing.assert_allclose(float(z.global_norm(grads)) ** 2, whole,
+                               rtol=1e-6)
+    assert calls == [a for a in ("data", "model", "pipe") if a in groups]
 
 
 def test_grad_reduce_plan_equals_jax():
