@@ -381,12 +381,48 @@ Phases (any failure exits non-zero and prints no result line):
    a parameter, peak memory, s/step against the reference's and the
    comm log; (a)'s s/step against phase 31's AdamW at stage 3.
 
+37. expert parallelism (``p37_report``, ``P37``; ``p37_serve_report``):
+   (a) in phase 31's world of 4 gloo ranks sharing the card, after phase
+   36: 125M+MoE-64 at phase 34 (c)'s cut depth (4 of its 12 layers, the
+   depth cut for the run's time; seq 2048, bf16; the vocabulary padded
+   to 50304 as Megatron-DeepSpeed pads it; RTS from one ``moe_rng``
+   seed) at {expert 4} (ZeRO
+   stage 1) and {data 2, expert 2} (stage 2), and (b) at {data 2, model
+   2} (stage 1, each expert's FFN cut over ``model``), global batch 8
+   in one micro batch, 1 step each from the seed's state against one
+   rank without a mesh over the same batch (run in phase 31 (a)'s
+   process): every rank's loss and grad norm within phase 31's step
+   check, every rank's routing (each MoE layer's exp_counts, kept tokens
+   and capacity: the whole batch routed from its all-gathered logits),
+   of the step's batch and of three probe batches (``eval_loss`` from
+   the seed's state, before the step), the same on every rank and
+   against one rank's: the capacity equal, exp_counts and kept tokens
+   equal or moved by at most ``P37_ROUTING_MOVED`` tokens of the mesh
+   (bf16 hidden states from products of other shapes put a token
+   across a near tie; every reading printed), B1, B3 and B4 exact and
+   no B2 (counted over the step alone), each
+   rank's state bytes and its experts' masters the plan's counts (each
+   expert leaf over ep, over mp where the model axis cuts it, over dp
+   where ZeRO shards it); the all-to-all calls and bytes,
+   s/step and peak memory of every rank; (c) in phase 32 (a)'s world,
+   last: phase 21's 350M+MoE-128 (24 layers at full width) at
+   ``moe.ep_size`` 4 (the ranks' engines built in turn: each draws the
+   26 GB tree, keeps the dense part and 32 of the 128 experts),
+   ``generate()`` of phase 21's 8 x 128 prompts, ``P37_GEN_NEW`` (16)
+   new tokens, greedy (64 in phase 21: cut for the run's time): every
+   rank's streams the same and equal to phase 21's one-rank streams
+   (saved there, with the logits each token was drawn from) but where a
+   row parts at a near tie of those logits, B5 once a layer a decode
+   step on every rank, each rank's weight bytes the plan's count;
+   ms/token, TTFT and the comm log.
+
 ``python3 chip_smoke.py --only 3 6 21 22 23 24 28 29 30 31 32 33 34 35
-36`` (any of them) builds the kernels and runs only those phases ("3":
+36 37`` (any of them) builds the kernels and runs only those phases ("3":
 phase 3's cases at the MoE shapes; "24": phases 24-27 on a fresh 6.7B
 engine; "32" without "31": phase 32 (a) alone; "33", "34" and "36" need
 "31", whose world they run in; "35" needs "32", whose (a) world it runs
-in), then prints no result line: a probe of the newest phases.
+in; "37" needs "21", "31" and "32"), then prints no result line: a probe
+of the newest phases.
 
 Phase 3 holds B5 at GPT-3 6.7B's decode shape (H = Hkv 32, D 128;
 caches 192 and 1024) and at TinyLlama-1.1B's at kv-head width (H 32
@@ -2263,10 +2299,11 @@ def main(argv=None) -> int:
     elapsed("phase 31")
 
     # -- 32. tensor parallelism: serving at GPT-3 6.7B width, training
-    # GPT-2 125M (its (b) ran in phase 31's world) --------------------------
-    free_card(torch, "tensor parallelism")
-    tp = tp_phase(torch, np, zero, p35=True)
-    elapsed("phase 32 and 35")
+    # GPT-2 125M (its (b) ran in phase 31's world); phase 37 (c) in (a)'s
+    # world ------------------------------------------------------------------
+    free_card(torch, "tensor parallelism and expert-parallel serving")
+    tp = tp_phase(torch, np, zero, p35=True, p37=moe["served"])
+    elapsed("phase 32, 35 and 37 (c)")
 
     # -- 33. pipeline parallelism (it ran in phase 31's world) --------------
     pp = pipe_report(zero, nvidia_smi_line(0))
@@ -2279,6 +2316,10 @@ def main(argv=None) -> int:
     # -- 36. optimizers on shards, BERT in TP training (phase 31's world) ---
     p36_report(zero, nvidia_smi_line(0))
     elapsed("phase 36")
+
+    # -- 37. expert parallelism: (a) and (b) ran in phase 31's world ------
+    ep = p37_report(zero, nvidia_smi_line(0))
+    elapsed("phase 37 (a) and (b)")
 
     # -- result lines ------------------------------------------------------
     flash = "deepspeed_tpu/ops/transformer/flash_attention.py"
@@ -2399,7 +2440,13 @@ def main(argv=None) -> int:
           f"{tp['train']['1x4']['flash_attention_fwd']}, B2 "
           f"{tp['train']['1x4']['flash_attention_bwd']}, {{data 2, model "
           f"2}} B1 {tp['train']['2x2']['flash_attention_fwd']}, B2 "
-          f"{tp['train']['2x2']['flash_attention_bwd']}; the pipeline ("
+          f"{tp['train']['2x2']['flash_attention_bwd']}; expert "
+          f"parallelism (1 step a mesh), every rank: " + ", ".join(
+              f"{k} B1 {v['flash_attention_fwd']}, B3 "
+              f"{v['flash_attention_bwd_dq']}, B4 "
+              f"{v['flash_attention_bwd_dkv']}" for k, v in ep.items())
+          + f", 350M+MoE-128 generate() at ep_size {TP_WORLD} B5 "
+          f"{tp['p37']['decode_attention']}; the pipeline ("
           f"{TP_TRAIN_STEPS} steps a mesh), every rank: " + ", ".join(
               f"{k} B1 {v['flash_attention_fwd']}, B2 "
               f"{v['flash_attention_bwd']}" for k, v in pp.items()))
@@ -4231,6 +4278,22 @@ def moe_serve_phase(torch, np) -> dict:
     device_profile(torch, lambda: eng.generate(prompts, max_new_tokens=16),
                    f"{label} generate 8 x 128 prompts, 16 new tokens",
                    shares={"B5": ("decode_cluster", "decode_attention")})
+    # phase 37 (c)'s reference: the streams of P37_GEN_NEW new tokens and
+    # the logits each token was drawn from (f32, on the host)
+    from deepspeed_tpu_torch.inference import engine as engine_mod
+    sample, seen = engine_mod.sample_batch, []
+
+    def recording(logits, *a, **k):
+        seen.append(logits.float().cpu())
+        return sample(logits, *a, **k)
+    engine_mod.sample_batch = recording
+    try:
+        gen16 = eng.generate(prompts, max_new_tokens=P37_GEN_NEW).tolist()
+    finally:
+        engine_mod.sample_batch = sample
+    check(gen16 == out[:, :P37_GEN_NEW].tolist(),
+          f"{label}: generate() of {P37_GEN_NEW} tokens is not the first "
+          f"{P37_GEN_NEW} of the 64-token run's")
 
     prefill = eng._prefill
     gen = {}
@@ -4279,7 +4342,8 @@ def moe_serve_phase(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"decode_attention": gen_counts["decode_attention"],
-            "flash_attention_fwd": fwd_counts["flash_attention_fwd"]}
+            "flash_attention_fwd": fwd_counts["flash_attention_fwd"],
+            "gen16": gen16, "logits16": torch.stack(seen)}
 
 
 def moe_train_phase(torch, np) -> dict:
@@ -5727,7 +5791,7 @@ def host_cache_phase(torch, np, eng, label) -> dict:
 
 
 ONLY_PHASES = {"3", "6", "21", "22", "23", "24", "28", "29", "30", "31",
-               "32", "33", "34", "35", "36"}
+               "32", "33", "34", "35", "36", "37"}
 
 
 def partial_run(torch, np, dev, only, elapsed) -> int:
@@ -5774,7 +5838,8 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         # phases 33 and 34 run in phase 31's world
         free_card(torch, "phase 31")
         res["31"] = zero_phase(torch, np, pipe="33" in only,
-                               p34="34" in only, p36="36" in only)
+                               p34="34" in only, p36="36" in only,
+                               p37="37" in only)
         elapsed("phase 31")
     if "35" in only:
         check("32" in only, "phase 35 runs in phase 32 (a)'s world: "
@@ -5782,8 +5847,9 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
     if "32" in only:
         # (b) reads phase 31's world: without "31", (a) alone
         free_card(torch, "phase 32")
-        tp_phase(torch, np, res.get("31"), p35="35" in only)
-        elapsed("phase 32 (and 35)" if "35" in only else "phase 32")
+        tp_phase(torch, np, res.get("31"), p35="35" in only,
+                 p37=res.get("21") if "37" in only else None)
+        elapsed("phase 32 (and 35, 37 (c))")
     if "33" in only:
         from deepspeed_tpu_torch.accelerator import nvidia_smi_line
         check("31" in only, "phase 33 runs in phase 31's world: --only 31 33")
@@ -5799,6 +5865,13 @@ def partial_run(torch, np, dev, only, elapsed) -> int:
         check("31" in only, "phase 36 runs in phase 31's world: --only 31 36")
         p36_report(res["31"], nvidia_smi_line(0))
         elapsed("phase 36")
+    if "37" in only:
+        from deepspeed_tpu_torch.accelerator import nvidia_smi_line
+        check({"21", "31", "32"} <= only,
+              "phase 37 runs in phase 31's world (a, b) and phase 32 (a)'s "
+              "(c), held to phase 21's streams: --only 21 31 32 37")
+        p37_report(res["31"], nvidia_smi_line(0))
+        elapsed("phase 37 (a) and (b)")
     print("chip_smoke: partial run (--only): no result lines")
     return 0
 
@@ -6322,7 +6395,9 @@ def offload_phases(torch, np, elapsed) -> dict:
 #: 2 until phase 36 did: cut for the run's time)
 ZERO_SEQ, ZERO_GLOBAL, ZERO_STEPS, ZERO_WORLD = 1024, 64, 1, 4
 #: each world's deadline (seconds): a rank that fails or hangs fails it
-ZERO_DEADLINE = 300
+#: (300 until phase 37 came: world 4 took 146-193 s with phases 33, 34
+#: and 36)
+ZERO_DEADLINE = 360
 
 #: phase 32 (b), tensor parallelism in phase 31's worlds: the meshes
 #: (mesh, ZeRO stage), its global batch (8: micro 8 a rank at {data 1,
@@ -6385,6 +6460,36 @@ P36 = {"lamb": {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01}},
 #: the routed tokens between the two (bf16 gate logits from products of
 #: other shapes, a token near a tie), and so may the dropped tokens
 P34_ROUTING_SHARE = 0.01
+#: phase 37, expert parallelism: (a) and (b) in phase 31's world after
+#: phase 36: 125M+MoE-64 (``MOE_TRAIN``) at phase 34 (c)'s cut depth (4 of
+#: 12 layers, seq ``MOE_SEQ``) with the vocabulary Megatron-DeepSpeed
+#: pads GPT-2's to (``--make-vocab-size-divisible-by 128``: 50304, which
+#: the model axis of (b) divides), global batch 8 in one micro batch
+#: with one ``moe_rng`` seed (RTS drawn for the whole batch), 1 step
+#: each from the seed's state at each of ``meshes`` (key, mesh, ZeRO
+#: stage), against one rank without a mesh (run in phase 31 (a)'s
+#: process) over the same global batch
+P37 = {"meshes": (("expert4", {"expert": 4}, 1),
+                  ("data2_expert2", {"data": 2, "expert": 2}, 2),
+                  ("data2_model2", {"data": 2, "model": 2}, 1)),
+       "moe": dict(MOE_TRAIN, vocab_size=50304), "global": 8,
+       "seq": MOE_SEQ, "layers": 4, "seed": 370,
+       "probe_seeds": (371, 372, 373)}
+#: phase 37's routing against one rank's: at each mesh, each MoE layer's
+#: exp_counts (the sum of each expert's moves) and its kept tokens may
+#: move by at most this many of the 16384 tokens (bf16 hidden states
+#: from products of other shapes put a token across a near tie).  Set
+#: to twice the largest move read over the step's batch and the three
+#: probe batches (``probe_seeds``, the ``eval_loss`` of each from the
+#: seed's state) on an H100 80GB HBM3 at 700 W (PERF.md §6): 6 at the
+#: two expert meshes (the step's batch, second MoE layer; 0 in all
+#: others), 100 at {data 2, model 2} (80-100 in every layer and batch)
+P37_ROUTING_MOVED = {"expert4": 12, "data2_expert2": 12,
+                     "data2_model2": 200}
+#: (c): phase 21's 350M+MoE-128 at ``moe.ep_size`` 4 in phase 32 (a)'s
+#: world: ``generate()`` of phase 21's 8 x 128 prompts, this many new
+#: tokens, greedy, held to phase 21's one-rank streams (saved there)
+P37_GEN_NEW = 16
 
 #: the ranks' program: mode "a" is world 1 on NCCL (stage 3 against the
 #: engine without ZeRO, each step from the same state; and, for phase 32
@@ -6412,6 +6517,7 @@ pp_meshes = json.loads(os.environ["P33_MESHES"])
 pp_bubble = json.loads(os.environ["P33_BUBBLE"])
 p34 = json.loads(os.environ["P34"])
 p36 = json.loads(os.environ["P36"])
+p37 = json.loads(os.environ["P37"])
 seq, glob = int(os.environ["P31_SEQ"]), int(os.environ["P31_GLOBAL"])
 dt.init_distributed("nccl" if mode == "a" else "gloo",
                     timeout=float(os.environ["P31_TIMEOUT"]))
@@ -6498,6 +6604,45 @@ moe_batches = ([{"input_ids": np.random.RandomState(340 + i).randint(
     0, moe_cfg.vocab_size, (p34["moe_global"], p34["seq"]),
     dtype=np.int32)} for i in range(p34["steps"])] if p34 else [])
 MOE_KERNELS = KERNELS + ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# phase 37 (a) and (b): the same cut 125M+MoE-64, one global batch
+moe37_cfg = (gpt2_config("125m", remat="full", attn_impl="flash",
+                         loss_chunk=256, num_layers=p37["layers"],
+                         **p37["moe"]) if p37 else None)
+moe37_batches = {s: {"input_ids": np.random.RandomState(s).randint(
+    0, moe37_cfg.vocab_size, (p37["global"], p37["seq"]), dtype=np.int32)}
+    for s in (p37["seed"],) + tuple(p37["probe_seeds"])} if p37 else {}
+moe37_batch = moe37_batches.get(p37 and p37["seed"])
+
+def p37_probes(eng, runner, local):
+    # each probe batch's routing from the seed's state, through
+    # eval_loss (forward only), before the step and its counts
+    out = []
+    for s in p37["probe_seeds"]:
+        eng.eval_loss(dict(local(moe37_batches[s]), moe_rng=s))
+        out.append(routing(runner))
+    return out
+
+def expert_bytes(eng):
+    # this rank's bytes of the expert stacks' float32 masters, the plan's
+    # (each leaf over ep where cut over expert, mp where cut over model,
+    # dp where ZeRO shards it) and the whole stacks' at one rank
+    z = eng._zero
+
+    def experts(tree):
+        return list(tree_leaves(tree["blocks"]["moe_blk"]["moe"]["experts"]))
+    mine = sum(t.numel() * t.element_size()
+               for t in experts(eng.state["params"]))
+    shapes = experts(eng._full_shapes)
+    none = [None] * len(shapes)
+    plan = sum(4 * int(np.prod(s_)) // (eng.ep_world_size if e_ is not None
+                                        else 1)
+               // (eng.mp_world_size if m_ is not None else 1)
+               // (z.dp if d_ is not None else 1)
+               for s_, e_, m_, d_ in zip(
+                   shapes, experts(z.ep_dims) if z.ep_dims else none,
+                   experts(z.tp_dims) if z.tp_dims else none,
+                   experts(z.master_dims)))
+    return mine, plan, 4 * sum(int(np.prod(s_)) for s_ in shapes)
 
 def routing(model):
     return [[c.tolist(), int(k), int(cap)] for c, k, cap in model.moe_stats]
@@ -6590,6 +6735,26 @@ if mode == "a":
             torch.cuda.empty_cache()
         out["p36_ref"] = ref36
         out["p36_ref_seconds"] = time.perf_counter() - t36
+    if p37:
+        # phase 37's reference: one rank without a mesh, the global batch
+        # in one micro batch, from the seed's state
+        z = p = t = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        t37 = time.perf_counter()
+        ref = engine(0, micro=p37["global"], model_cfg=moe37_cfg)
+        probes = p37_probes(ref, ref.model, lambda b: b)
+        build.reset_launch_counts()
+        m = ref.train_step(dict(moe37_batch, moe_rng=p37["seed"]))
+        out["p37_ref"] = {"row": [float(m["loss"]), float(m["grad_norm"])],
+                          "routing": routing(ref.model), "probes": probes,
+                          "launches": {k: build.launch_counts[k]
+                                       for k in MOE_KERNELS},
+                          "n_params": ref.num_parameters(),
+                          "seconds": time.perf_counter() - t37}
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
 else:
     cl = comm.configure(enabled=False)
     for stage in (0, 1, 2, 3):
@@ -6914,6 +7079,48 @@ else:
             gc.collect()
             torch.cuda.empty_cache()
         out["p36_seconds"] = time.perf_counter() - t36
+    if p37:
+        # phase 37 (a) and (b): expert parallelism and the MoE under a
+        # model axis (see P37 in chip_smoke.py), each from the seed's
+        # state (every rank draws the whole tree from it, keeps its cut)
+        t37 = time.perf_counter()
+        out["p37"] = {}
+        for key, mesh, stage in p37["meshes"]:
+            bgs = mesh.get("data", 1) * mesh.get("expert", 1)
+            eng = engine(stage, micro=p37["global"] // bgs, mesh=mesh,
+                         model_cfg=moe37_cfg)
+            probes = p37_probes(eng, eng._runner, lambda b: rank_slice(
+                b, 1, eng.dp_world_size, eng.dp_rank))
+            cl.reset()
+            cl.configure(enabled=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            comm.barrier()
+            t0 = time.perf_counter()
+            m = eng.train_step(dict(rank_slice(
+                moe37_batch, 1, eng.dp_world_size, eng.dp_rank),
+                moe_rng=p37["seed"]))
+            row = [float(m["loss"]), float(m["grad_norm"])]
+            ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            log = cl.totals()
+            cl.configure(enabled=False)
+            mine, plan, whole = expert_bytes(eng)
+            out["p37"][key] = {
+                "row": row, "ms": ms, "routing": routing(eng._runner),
+                "probes": probes,
+                "launches": {k: build.launch_counts[k] for k in MOE_KERNELS},
+                "bytes": eng.zero_state_bytes(),
+                "planned": eng._zero.planned_bytes(eng._param_shapes, 2),
+                "expert_bytes": mine, "expert_plan": plan,
+                "expert_whole": whole,
+                "dp_rank": eng.dp_rank, "n_params": eng.num_parameters(),
+                "peak": torch.cuda.max_memory_allocated(), "log": log}
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["p37_seconds"] = time.perf_counter() - t37
 print("P31RESULT " + json.dumps(out), flush=True)
 comm.destroy_process_group()
 '''
@@ -6926,12 +7133,13 @@ def _rank_result(text: str) -> dict:
 
 
 def zero_phase(torch, np, pipe: bool = True, p34: bool = True,
-               p36: bool = True) -> dict:
+               p36: bool = True, p37: bool = True) -> dict:
     """Phase 31: data parallelism with ZeRO stages 0-3 at phase 6's GPT-2
     125M configuration, each world in child processes
     (``comm/local_ranks.py``, deadline ``ZERO_DEADLINE``): (a) world 1 on
     NCCL, (b) world 4 over gloo with four ranks sharing the card (see the
-    module docstring); with ``pipe``, (b) also runs phase 33's meshes.
+    module docstring); with ``pipe``, (b) also runs phase 33's meshes
+    (and with ``p34``, ``p36`` and ``p37`` those phases' parts).
     Returns the B1/B2 launches of (a) and of each rank of (b) (every
     rank's are checked equal) and phases 32 (b)'s and 33's results."""
     from deepspeed_tpu_torch.accelerator import nvidia_smi_line
@@ -6953,7 +7161,8 @@ def zero_phase(torch, np, pipe: bool = True, p34: bool = True,
            "P33_MESHES": json.dumps(PIPE_TRAIN_MESHES if pipe else ()),
            "P33_BUBBLE": json.dumps(PIPE_BUBBLE_MICROS),
            "P34": json.dumps(P34 if p34 else None),
-           "P36": json.dumps(P36 if p36 else None)}
+           "P36": json.dumps(P36 if p36 else None),
+           "P37": json.dumps(P37 if p37 else None)}
     try:
         return _zero_runs(torch, np, card, env, states)
     finally:
@@ -7083,7 +7292,10 @@ def _zero_runs(torch, np, card, env, states) -> dict:
             "p36_ref": a.get("p36_ref"),
             "p36_ref_seconds": a.get("p36_ref_seconds", 0.0),
             "p36": [r.get("p36") for r in ranks],
-            "p36_seconds": max(r.get("p36_seconds", 0.0) for r in ranks)}
+            "p36_seconds": max(r.get("p36_seconds", 0.0) for r in ranks),
+            "p37_ref": a.get("p37_ref"),
+            "p37": [r.get("p37") for r in ranks],
+            "p37_seconds": max(r.get("p37_seconds", 0.0) for r in ranks)}
 
 
 
@@ -7230,10 +7442,137 @@ if mode == "mesh" and os.environ.get("P35") == "1":
     torch.cuda.empty_cache()
     out["p35"] = cs.p35_cases(torch, np, None, f"rank {rank}", out_dir,
                               dev)
+if mode == "mesh" and os.environ.get("P37") == "1":
+    # phase 37 (c) in this world: 350M+MoE-128 at moe.ep_size 4
+    eng = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["p37"] = cs.p37_serve(torch, np, rank, world, dev)
 torch.save(logits, os.path.join(out_dir, f"logits_{mode}_{rank}.pt"))
 print("P32RESULT " + json.dumps(out), flush=True)
 comm.destroy_process_group()
 """
+
+
+def p37_serve(torch, np, rank, world, dev) -> dict:
+    """Phase 37 (c) on one rank of phase 32 (a)'s world: phase 21's
+    350M+MoE-128 (random weights from seed 0) at ``moe.ep_size`` = the
+    world, each rank holding the dense weights and 1/ep of the expert
+    stacks; the ranks build their engines in turn (each draws the whole
+    26 GB tree, keeps its experts: four at once would not fit the card);
+    ``generate()`` of phase 21's 8 x 128 prompts, ``P37_GEN_NEW`` new
+    tokens, greedy, after a warm-up: the streams, B5's launches, the
+    weight bytes against the plan, ms/token and the comm log."""
+    import gc
+    from deepspeed_tpu_torch import comm, init_inference
+    from deepspeed_tpu_torch.models.convert import tp_dims
+    from deepspeed_tpu_torch.models.transformer import (TransformerLM,
+                                                        gpt2_config)
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.parallel.topology import MeshSpec, ProcessMesh
+    cfg = gpt2_config("350m", **MOE_SERVE)
+    mesh = ProcessMesh(MeshSpec(expert=world), rank)
+    t0 = time.perf_counter()
+    eng = None
+    for r in range(world):
+        if r == rank:
+            eng = init_inference(TransformerLM(cfg), {
+                "dtype": "bfloat16", "temperature": 0.0,
+                "moe": {"enabled": True, "ep_size": world}}, device=dev,
+                mesh=mesh)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        comm.barrier()
+    build_s = time.perf_counter() - t0
+
+    def plan(shapes, dims):
+        # an expert stack at 1/ep, every other leaf whole, bf16
+        if isinstance(shapes, dict):
+            return sum(plan(shapes[k], dims[k]) for k in shapes)
+        return int(np.prod(shapes)) // (world if dims is not None else 1) * 2
+    weights = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    weights_plan = plan(eng.module.param_shapes(), tp_dims(
+        eng.module.partition_specs(), "expert"))
+    _, prompts, _, _ = serving_prompts(np, cfg.vocab_size)
+    eng.generate(prompts, max_new_tokens=2)                   # warm-up
+    cl = comm.configure(enabled=False)
+    cl.reset()
+    cl.configure(enabled=True)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = eng.generate(prompts, max_new_tokens=P37_GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = cl.totals()
+    cl.configure(enabled=False)
+    res = {"gen": gen.tolist(), "b5": build.launch_counts["decode_attention"],
+           "weights": weights, "weights_plan": weights_plan, "wall": wall,
+           "build_s": build_s, "stats": eng.latency_stats(), "log": log,
+           "peak": torch.cuda.max_memory_allocated()}
+    del eng, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def p37_serve_report(ranks, ref, card) -> dict:
+    """Phase 37 (c)'s checks and lines: every rank's streams the same,
+    equal to phase 21's one-rank streams but where a row parts at a near
+    tie of phase 21's logits there (within twice ``LOGITS_REL_TOL`` of
+    max|logit|; a row is compared up to the first step at which any row
+    parted, after which the batch's routing differs); B5 once a layer a
+    decode step on every rank; each rank's weight bytes the plan's count.
+    Returns rank 0's B5 launches."""
+    from deepspeed_tpu_torch.models.transformer import gpt2_config
+    r0 = ranks[0]
+    want_b5 = gpt2_config("350m", **MOE_SERVE).num_layers * (
+        P37_GEN_NEW - 1)
+    for r, res in enumerate(ranks):
+        check(res["gen"] == r0["gen"], f"phase 37 (c) rank {r}: streams "
+                                       f"differ from rank 0's")
+        check(res["b5"] == want_b5, f"phase 37 (c) rank {r}: B5 launches "
+                                    f"{res['b5']} != {want_b5}")
+        check(res["weights"] == res["weights_plan"],
+              f"phase 37 (c) rank {r}: weights {res['weights']} bytes "
+              f"against the plan's {res['weights_plan']}")
+    got, want, logits = r0["gen"], ref["gen16"], ref["logits16"]
+    first = min([next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+                 for g, w in zip(got, want) if g != w] or [P37_GEN_NEW])
+    parted = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g[first:first + 1] == w[first:first + 1]:
+            continue
+        lg = logits[first, i]
+        gap = float(lg[w[first]] - lg[g[first]]) / float(lg.abs().max())
+        parted += 1
+        print(f"  phase 37 (c): row {i} parts at token {first}: phase 21's "
+              f"logit gap there {gap!r} of max|logit| (limit "
+              f"{2 * LOGITS_REL_TOL})")
+        check(gap <= 2 * LOGITS_REL_TOL,
+              f"phase 37 (c): row {i} parts at token {first} where the gap "
+              f"is {gap:.4f} of max|logit|, not a near tie")
+    same = sum(g == w for g, w in zip(got, want))
+    stats = r0["stats"]
+    print(f"phase 37 (c) 350M+MoE-128 (24 layers, 128 experts on every "
+          f"other layer) at moe.ep_size {len(ranks)} in phase 32 (a)'s world "
+          f"of {len(ranks)} gloo ranks sharing the card ({card}): the ranks' "
+          f"engines built in turn in {r0['build_s']:.1f} s; weights "
+          + "/".join(f"{res['weights'] / 1e9:.3f}" for res in ranks)
+          + f" GB a rank (the dense part and 1/{len(ranks)} of the expert "
+          f"stacks: the plan's count); generate() of 8 x 128 prompts, "
+          f"{P37_GEN_NEW} new tokens: {r0['wall']:.2f} s on rank 0, decode "
+          f"{stats['p50_ms']:.2f} ms/token, TTFT {stats['ttft_p50_ms']:.1f} "
+          f"ms; {same} of 8 streams equal to phase 21's one-rank streams, "
+          f"{parted} parting at a near tie (at token {first}); every rank's "
+          f"streams equal; B5 {r0['b5']} launches on every rank; peak "
+          + "/".join(f"{res['peak'] / 2**30:.2f}" for res in ranks)
+          + " GiB (ranks 0-3)")
+    for op, lg in sorted(r0["log"].items()):
+        print(f"    {op}: {lg['count']} calls, {lg['bytes'] / 1e6:.2f} MB on "
+              f"rank 0, {lg['seconds'] * 1e3:.1f} ms")
+    return {"decode_attention": r0["b5"]}
 
 
 def _tp_result(text: str) -> dict:
@@ -7242,7 +7581,7 @@ def _tp_result(text: str) -> dict:
     return json.loads(lines[-1][len("P32RESULT "):])
 
 
-def tp_phase(torch, np, zero, p35: bool = False) -> dict:
+def tp_phase(torch, np, zero, p35: bool = False, p37=None) -> dict:
     """Phase 32: tensor parallelism (see the module docstring).  (a)
     serves GPT-3 6.7B's width at ``TP_SERVE_LAYERS`` layers: the reference
     here, world 1 on NCCL at mesh 1 x 1 in a child (bit-equal to it), then
@@ -7250,8 +7589,10 @@ def tp_phase(torch, np, zero, p35: bool = False) -> dict:
     ``generate()`` at tp_size 4.  (b) reads phase 31's world: GPT-2 125M
     at each of ``TP_TRAIN_MESHES``, each step from phase 31 (a)'s state.
     With ``p35``, phase 35 runs in (a)'s world of 4 after it, its
-    references here on (a)'s reference engine (``p35_report``).  Returns
-    the launch counts of (a) and (b) on rank 0."""
+    references here on (a)'s reference engine (``p35_report``); with
+    ``p37`` (phase 21's saved streams and logits) phase 37 (c) runs there
+    last (``p37_serve_report``).  Returns the launch counts of (a) and
+    (b) on rank 0."""
     import gc
     import shutil
     import tempfile
@@ -7300,7 +7641,7 @@ def tp_phase(torch, np, zero, p35: bool = False) -> dict:
     env = {"P32_OUT": out_dir, "P32_TIMEOUT": str(TP_DEADLINE),
            "P32_LAYERS": str(TP_SERVE_LAYERS), "P32_NEW": str(TP_GEN_NEW),
            "P32_MESHES": json.dumps(TP_SERVE_MESHES),
-           "P35": "1" if p35 else "0"}
+           "P35": "1" if p35 else "0", "P37": "1" if p37 else "0"}
     try:
         # world 1 on NCCL at mesh 1 x 1: bit-equal to the reference
         t0 = time.perf_counter()
@@ -7426,6 +7767,9 @@ def tp_phase(torch, np, zero, p35: bool = False) -> dict:
         counts_out["p35"] = p35_report(torch, np, eng, ref35,
                                        [res["p35"] for res in ranks], bert,
                                        card)
+    if p37:
+        counts_out["p37"] = p37_serve_report([res["p37"] for res in ranks],
+                                             p37, card)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -8162,6 +8506,120 @@ def p36_report(zero, card) -> dict:
           + " against phase 31 (a)'s AdamW ZeRO-3 at world 1 "
           + "/".join(f"{x / 1e3:.3f}" for x in zero["p31a_ms"])
           + " s/step (the first step of each includes its warm-up)")
+    return out
+
+
+def p37_report(zero, card) -> dict:
+    """Phase 37 (a) and (b)'s checks and lines, from phase 31's world 4
+    (see ``P37``): at each mesh every rank's loss and grad norm within
+    phase 31's step check of one rank without a mesh over the same global
+    batch; every rank's routing (each MoE layer's exp_counts, kept tokens
+    and capacity) of the step's batch and of the probe batches the same
+    on every rank, and against one rank's (the capacity equal, and every
+    layer's move of exp_counts and kept tokens printed by batch, within
+    the mesh's ``P37_ROUTING_MOVED``); B1, B3 and B4 exact and no B2 on
+    every rank;
+    each rank's state bytes and its experts' masters the plan's counts;
+    the all-to-all calls and bytes a step.  Returns rank 0's launches
+    per mesh."""
+    ranks, ref = zero["p37"], zero["p37_ref"]
+    layers = P37["layers"]
+    per = {"flash_attention_fwd": 2 * layers, "flash_attention_bwd": 0,
+           "flash_attention_bwd_dq": layers,
+           "flash_attention_bwd_dkv": layers}
+    check(ref["launches"] == per, f"phase 37 reference: launches "
+                                  f"{ref['launches']} against {per}")
+    tokens = P37["global"] * P37["seq"]
+    out = {}
+    print(f"phase 37 expert parallelism, in phase 31's world of 4 gloo ranks "
+          f"sharing the card (every collective staged through pinned host "
+          f"memory; not NCCL across cards; {card}); "
+          f"{zero['p37_seconds']:.1f} s of phase 31's, "
+          f"{ref['seconds']:.1f} s of (a)'s for the reference; 125M+MoE-64 "
+          f"at {layers} of its 12 layers ({ref['n_params'] / 1e9:.3f} B "
+          f"params), seq {P37['seq']}, global batch {P37['global']} in one "
+          f"micro batch routed whole on every rank, 1 step from the seed's "
+          f"state against one rank without a mesh (loss {ref['row'][0]:.5f},"
+          f" grad norm {ref['row'][1]:.5f}):")
+    seeds = (P37["seed"],) + tuple(P37["probe_seeds"])
+    for key, mesh, stage in P37["meshes"]:
+        r0 = ranks[0][key]
+        ep, dp = mesh.get("expert", 1), mesh.get("data", 1)
+        limit = P37_ROUTING_MOVED[key]
+        # per batch (the step's, then the probes'), each MoE layer's move
+        readings = {sd: [] for sd in seeds}
+        for sd, got, want in zip(seeds, [r0["routing"]] + r0["probes"],
+                                 [ref["routing"]] + ref["probes"]):
+            for (counts, kept, cap), (rc, rk, rcap) in zip(got, want):
+                moved = max(sum(abs(a - b) for a, b in zip(counts, rc)),
+                            abs(kept - rk))
+                readings[sd].append(moved)
+                check(cap == rcap and moved <= limit,
+                      f"phase 37 {key} batch {sd}: capacity {cap}/{rcap}, "
+                      f"kept {kept}/{rk}, exp_counts moved by {moved} "
+                      f"(limit {limit})")
+        moved_max = max(max(v) for v in readings.values())
+        for r, res in enumerate(ranks):
+            st = res[key]
+            ls = abs(st["row"][0] - ref["row"][0]) / abs(ref["row"][0])
+            gs = abs(st["row"][1] - ref["row"][1]) / abs(ref["row"][1])
+            check(ls <= STEP_LOSS_REL_TOL and gs <= STEP_GNORM_REL_TOL,
+                  f"phase 37 {key} rank {r}: loss {st['row'][0]} vs "
+                  f"{ref['row'][0]}, grad norm {st['row'][1]} vs "
+                  f"{ref['row'][1]}")
+            check(st["launches"] == per, f"phase 37 {key} rank {r}: "
+                                         f"launches {st['launches']}")
+            check(st["bytes"] == st["planned"],
+                  f"phase 37 {key} rank {r}: state bytes {st['bytes']} "
+                  f"against the plan's {st['planned']}")
+            check(st["expert_bytes"] == st["expert_plan"],
+                  f"phase 37 {key} rank {r}: expert masters "
+                  f"{st['expert_bytes']} bytes against the plan's "
+                  f"{st['expert_plan']}")
+            check(st["routing"] == r0["routing"] and
+                  st["probes"] == r0["probes"],
+                  f"phase 37 {key} rank {r}: routing differs from rank 0's")
+        a2a = r0["log"].get("all_to_all", {"count": 0, "bytes": 0,
+                                           "seconds": 0.0})
+        total = sum(r0["bytes"].values())
+        print(f"  {key} {mesh} ZeRO stage {stage}: loss "
+              + "/".join(f"{res[key]['row'][0]:.5f}" for res in ranks)
+              + ", grad norm "
+              + "/".join(f"{res[key]['row'][1]:.5f}" for res in ranks)
+              + " (ranks 0-3); routing the same on every rank and "
+              + ("equal to one rank's in every MoE layer of every batch"
+                 if moved_max == 0 else
+                 f"against one rank's: exp_counts or kept moved by at most "
+                 f"{moved_max} of {tokens} tokens in a layer (limit "
+                 f"{limit}; by batch seed, each MoE layer: "
+                 + ", ".join(f"{sd} " + "/".join(map(str, v))
+                             for sd, v in readings.items()) + ")")
+              + "; dropped " + "/".join(str(tokens - k) for _, k, _ in
+                                        r0["routing"])
+              + f" of {tokens} tokens a layer; state "
+              + "/".join(f"{sum(res[key]['bytes'].values()) / 1e9:.3f}"
+                         for res in ranks)
+              + f" GB (ranks 0-3; {total / r0['n_params']:.2f} bytes a "
+              f"parameter of the model; the plan's count), expert masters "
+              f"{r0['expert_bytes'] / 1e9:.3f} of "
+              f"{r0['expert_whole'] / 1e9:.3f} GB a rank ("
+              f"{r0['expert_whole'] / r0['expert_bytes']:.2f}x less: the "
+              f"stacks cut over expert {ep}" + (
+                  f", model {mesh['model']}" if "model" in mesh else "")
+              + (f", ZeRO over data {dp}" if stage and dp > 1 else "")
+              + "; the plan's count); all_to_all "
+              f"{a2a['count']} calls, {a2a['bytes'] / 1e6:.2f} MB, "
+              f"{a2a['seconds'] * 1e3:.1f} ms a step on rank 0; s/step "
+              + "/".join(f"{res[key]['ms'] / 1e3:.3f}" for res in ranks)
+              + "; peak " + "/".join(f"{res[key]['peak'] / 2**30:.2f}"
+                                     for res in ranks)
+              + " GiB; launches " + ", ".join(
+                  f"{k} {v}" for k, v in r0["launches"].items())
+              + " on every rank")
+        for op, lg in sorted(r0["log"].items()):
+            print(f"    {op}: {lg['count']} calls, {lg['bytes'] / 1e6:.2f} MB"
+                  f" a step on rank 0, {lg['seconds'] * 1e3:.1f} ms a step")
+        out[key] = r0["launches"]
     return out
 
 

@@ -362,26 +362,41 @@ def reduce_scatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
 
 
 def all_to_all_single(tensor: torch.Tensor, axis_name="expert",
-                      split_axis: int = 0, concat_axis: int = 0
+                      split_axis: int = 0, concat_axis: int = 0,
+                      input_split_sizes=None, output_split_sizes=None
                       ) -> torch.Tensor:
     """Split ``tensor`` along ``split_axis`` into n chunks, send chunk j
     to member j, and concatenate what arrives along ``concat_axis`` in
     the senders' order (the MoE dispatch collective, reference
-    ``comm/comm.py:361``).  A new tensor."""
+    ``comm/comm.py:361``).  With ``input_split_sizes`` (the rows this
+    member sends to each member, along dim 0) and ``output_split_sizes``
+    (the rows it receives from each) the chunks are uneven: the caller
+    knows both lists, no count crosses the wire.  A new tensor."""
     n, group = _axis(axis_name)
+    uneven = input_split_sizes is not None
+    if uneven and (split_axis or concat_axis):
+        raise ValueError("all_to_all_single: uneven splits run along dim 0")
     if group is None:
         return tensor.clone()
     x = tensor.movedim(split_axis, 0).contiguous()
-    if x.shape[0] % n:
+    if not uneven and x.shape[0] % n:
         raise ValueError(f"all_to_all_single: dim {split_axis} of "
                          f"{tuple(tensor.shape)} is not divisible by {n}")
     with _logged("all_to_all", x, axis_name, n):
         staged = _staged(x)
         h = _to_host(x) if staged else x
-        out = torch.empty_like(h)
-        dist.all_to_all_single(out, h, group=group)
+        if uneven:
+            out = torch.empty((sum(output_split_sizes),) + tuple(h.shape[1:]),
+                              dtype=h.dtype, device=h.device)
+            dist.all_to_all_single(out, h, list(output_split_sizes),
+                                   list(input_split_sizes), group=group)
+        else:
+            out = torch.empty_like(h)
+            dist.all_to_all_single(out, h, group=group)
         if staged:
             out = out.to(tensor.device, non_blocking=True)
+    if uneven:
+        return out
     parts = [c.movedim(0, split_axis) for c in out.chunk(n, 0)]
     return torch.cat(parts, dim=concat_axis)
 

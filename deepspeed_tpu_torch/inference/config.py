@@ -6,10 +6,9 @@ plain ``dataclasses`` by ``runtime/config_utils.py``: unknown keys are
 rejected, a ``None`` value means "use the default", and a value of the
 wrong type raises ``ValueError``.
 
-``tensor_parallel`` and ``serving.mesh`` (tensor parallelism and the
-(data, model) serving mesh, one process per rank) run; ``moe.ep_size``
-beyond one device parses here and is refused with
-``NotImplementedError`` by the engine.  ``serving.host_cache`` (the tiered
+``tensor_parallel``, ``moe.ep_size`` and ``serving.mesh`` (tensor and
+expert parallelism and the (data, model) serving mesh, one process per
+rank) run.  ``serving.host_cache`` (the tiered
 host prefix cache) and ``serving.fleet`` (the replica fleet) run.
 ``observability`` is the training config's block
 (``runtime/config.py`` ``ObservabilityConfig``); given, the engine

@@ -24,11 +24,19 @@ the rank of the stacked leaf, so each layer's biases and norm scales
 (``[L, d]``) are quantized too, and with MoE each layer's gate ``[M, E]``
 and stacked experts ``[E, M, F]``.
 
-An MoE model (``moe.enabled`` with ``ep_size`` 1; more devices are queue A
-item 7) is served by ``generate()`` and ``forward()``, routed in eval
-mode; its prompts are padded to ``prompt_bucket`` as in the JAX engine,
-and the padded positions take capacity slots there too, so both route
-the same S tokens.  The server refuses it, as the JAX server does.
+An MoE model is served by ``generate()`` and ``forward()``, routed in
+eval mode; its prompts are padded to ``prompt_bucket`` as in the JAX
+engine, and the padded positions take capacity slots there too, so both
+route the same S tokens.  The server refuses it, as the JAX server
+does.  ``moe.ep_size`` ep builds the JAX engine's mesh ``{data: world /
+(tp ep), expert: ep, model: tp}``: each rank keeps E / ep of every
+expert stack, every rank holds the same batch and routes the same
+tokens, runs its experts' slots, and one all-reduce over ``expert`` a
+layer sums the partial combines (``moe/layer.py``).  With
+``quant.enabled`` every rank keeps the whole int8 expert stacks (the
+grouped scales may cross the experts) and dequantizes all E experts of
+a layer before it keeps its E / ep: int8 weights are not cut over
+``expert``, and their bytes a rank are the whole stacks'.
 
 Tensor parallelism, one process per rank on ``torch.distributed``:
 ``tensor_parallel.tp_size`` mp builds the mesh ``{data: world / mp,
@@ -64,23 +72,12 @@ from ..models.convert import (check_params, leaf_to_torch, tp_dims, tp_slice,
 from ..models.transformer import ENCODER_DECODE, TransformerLM
 from ..ops.quantizer.quantizer import dequantize, quantize
 from ..parallel.collectives import qkv_shard_columns
-from ..parallel.topology import MODEL_AXIS, MeshSpec, ProcessMesh
+from ..parallel.topology import (EXPERT_AXIS, MODEL_AXIS, MeshSpec,
+                                 ProcessMesh)
 from ..runtime.checkpoint_engine.engine import latest_tag, read_state
 from ..utils.logging import logger
 from .config import DeepSpeedInferenceConfig
 from .sampling import sample_batch
-
-
-def refuse_out_of_slice(cfg: DeepSpeedInferenceConfig) -> None:
-    """Config blocks this slice of the port cannot run."""
-    later = []
-    if cfg.moe.enabled and cfg.moe.ep_size > 1:
-        later.append(f"moe.ep_size {cfg.moe.ep_size} (expert parallelism: "
-                     f"multi-device, queue A item 7 part 5)")
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: not in the slices of the PyTorch port so "
-            f"far; see ROADMAP.md queue A for the slice that brings it")
 
 
 def _map_with_path(tree, fn, path=()):
@@ -126,7 +123,6 @@ class InferenceEngine:
                  params: Optional[Dict[str, Any]] = None, device=None,
                  mesh: Optional[ProcessMesh] = None):
         self.config = config or DeepSpeedInferenceConfig()
-        refuse_out_of_slice(self.config)
         self.device = resolve_device(device)
         # an explicit observability block arms the process-global
         # telemetry before the server is built (the server takes its
@@ -186,6 +182,13 @@ class InferenceEngine:
             self._prep_tp_params()
             self._tp_model = model.tp_serving_view(self.tp_model_size,
                                                    MODEL_AXIS, None)
+        if self.ep_size > 1 and model.config.moe_enabled:
+            if not self._quantized:
+                self.params = tp_slice(
+                    self.params, tp_dims(model.partition_specs(self.params),
+                                         EXPERT_AXIS),
+                    self.ep_size, self.mesh.axis_index(EXPERT_AXIS))
+            self._tp_model = self._tp_model.moe_view((), EXPERT_AXIS)
         self._latencies: list = []      # per-token DECODE-only seconds
         self._ttfts: list = []          # prefill -> first-token seconds
         self._serving = None
@@ -201,12 +204,13 @@ class InferenceEngine:
         cfg = self.config
         if mesh is not None:
             extra = {a: n for a, n in mesh.shape.items()
-                     if n > 1 and a not in ("data", "model")}
+                     if n > 1 and a not in ("data", "expert", "model")}
             if extra:
-                raise ValueError(f"an inference mesh has data and model "
-                                 f"axes only, got {extra}")
+                raise ValueError(f"an inference mesh has data, expert and "
+                                 f"model axes only, got {extra}")
         tp = cfg.tensor_parallel.tp_size if cfg.tensor_parallel.enabled \
             else 1
+        ep = cfg.moe.ep_size if cfg.moe.enabled else 1
         sdp, smp = ((cfg.serving.mesh.data, cfg.serving.mesh.model)
                     if cfg.serving.enabled else (1, 1))
         if tp > 1 and sdp * smp > 1 and tp != smp:
@@ -217,28 +221,31 @@ class InferenceEngine:
         n = comm.get_world_size()
         if mesh is not None:
             dp, mp = mesh.shape["data"], mesh.shape["model"]
+            ep = mesh.shape["expert"]
             what = "the mesh's model axis"
         elif sdp * smp > 1:
-            dp, mp, what = sdp, smp, "serving.mesh.model"
-        elif tp > 1:
+            dp, mp, ep, what = sdp, smp, 1, "serving.mesh.model"
+        elif tp * ep > 1:
             mp, what = tp, "tensor_parallel.tp_size"
-            dp = n // tp if n % tp == 0 else 1
+            dp = n // (tp * ep) if n % (tp * ep) == 0 else 1
         else:
             dp = mp = 1
         self.tp_data_size, self.tp_model_size = dp, mp
+        self.ep_size = ep
         self.mesh = None
-        if dp * mp == 1:
+        if dp * mp * ep == 1:
             return
         c = self.module.config
+        if ep > 1 and c.moe_enabled and c.moe_num_experts % ep:
+            raise ValueError(
+                f"moe.ep_size ({ep}) must divide moe_num_experts "
+                f"({c.moe_num_experts})")
         if mp > 1:
-            if c.moe_enabled:
-                raise NotImplementedError(
-                    "tensor parallelism over an MoE model: the expert "
-                    "stacks' model-axis layout is queue A item 7 part 5, "
-                    "expert parallelism")
             for name, dim in (("kv_heads", c.kv_heads),
                               ("num_heads", c.num_heads),
                               ("d_ff", c.ff_dim),
+                              ("moe_d_ff", c.moe_d_ff if c.moe_enabled
+                               else 0),
                               ("vocab_size", c.vocab_size)):
                 if dim % mp:
                     raise ValueError(
@@ -250,11 +257,11 @@ class InferenceEngine:
             raise ValueError(
                 f"serving.mesh (data={dp}, model={mp}) needs {dp * mp} "
                 f"devices, have {n}")
-        if mesh is None and tp > 1 and n % tp:
+        if mesh is None and tp * ep > 1 and sdp * smp == 1 and n % (tp * ep):
             raise ValueError(
-                f"tp_size {tp} x ep_size 1 does not divide {n} devices")
-        self.mesh = mesh or ProcessMesh(MeshSpec(data=dp, model=mp),
-                                        comm.get_rank())
+                f"tp_size {tp} x ep_size {ep} does not divide {n} devices")
+        self.mesh = mesh or ProcessMesh(
+            MeshSpec(data=dp, expert=ep, model=mp), comm.get_rank())
         comm.set_mesh(self.mesh)
 
     def _prep_tp_params(self) -> None:
@@ -400,9 +407,17 @@ class InferenceEngine:
     def _block_dequant(self, sl):
         """The model's ``block_transform``: one layer's ``{q, s}`` view to
         the standard block tree in the engine's dtype (full precision
-        lives for one layer)."""
-        return _zip_map(self._dequant_leaf, sl["q"], sl["s"],
-                        self._qflags["blocks"], self._qshapes["blocks"])
+        lives for one layer); under an expert axis its expert stacks cut
+        to this rank's experts."""
+        layer = _zip_map(self._dequant_leaf, sl["q"], sl["s"],
+                         self._qflags["blocks"], self._qshapes["blocks"])
+        if self.ep_size > 1 and "moe_blk" in layer:
+            moe = dict(layer["moe_blk"]["moe"])
+            moe["experts"] = _zip_map(
+                lambda t: t.chunk(self.ep_size, 0)[
+                    self.mesh.axis_index(EXPERT_AXIS)], moe["experts"])
+            layer["moe_blk"] = dict(layer["moe_blk"], moe=moe)
+        return layer
 
     def _model_params(self, params=None, scales=None):
         """The params tree the model takes: as stored when unquantized;

@@ -14,11 +14,12 @@ params' shape: ``params`` and the optimizer's (Adam's and LAMB's ``m``
 and ``v``, SGD's momentum ``mom``, Adagrad's sums ``sq``); a checkpoint
 of the port holds the same state tree (``runtime/checkpoint_engine``).
 
-Tensor parallelism crosses the same trees: ``tp_slice`` cuts a whole
-tree into a model rank's slice by the model's partition rule
-(``tp_dims`` of ``TransformerLM.partition_specs``) and ``tp_gather``
-puts the slices back together, so checkpoints and tests always see the
-whole tree in the JAX layout.
+Tensor and expert parallelism cross the same trees: ``tp_slice`` cuts
+a whole tree into a model rank's slice by the model's partition rule
+(``tp_dims`` of ``TransformerLM.partition_specs``; the same pair with
+``axis="expert"`` cuts the expert stacks' E dim) and ``tp_gather`` puts
+the slices back together, so checkpoints and tests always see the whole
+tree in the JAX layout.
 """
 from __future__ import annotations
 
@@ -95,14 +96,13 @@ def params_from_jax(tree: Dict[str, Any], model: TransformerLM,
     return tree_map(tree, lambda a: leaf_to_torch(a, device, dtype))
 
 
-def tp_dims(specs) -> Dict[str, Any]:
-    """A spec tree (``TransformerLM.partition_specs``) → each leaf's
-    model-sharded dim, or None where it is replicated over ``model``."""
-    def dim(spec):
-        return spec.index("model") if "model" in spec else None
+def tp_dims(specs, axis: str = "model") -> Dict[str, Any]:
+    """A spec tree (``TransformerLM.partition_specs``) → each leaf's dim
+    sharded over ``axis`` (``model``; ``expert`` for the expert stacks'
+    E dim), or None where it is replicated over it."""
     if isinstance(specs, dict):
-        return {k: tp_dims(v) for k, v in specs.items()}
-    return dim(specs)
+        return {k: tp_dims(v, axis) for k, v in specs.items()}
+    return specs.index(axis) if axis in specs else None
 
 
 def tp_slice(tree: Dict[str, Any], dims: Dict[str, Any], mp: int,

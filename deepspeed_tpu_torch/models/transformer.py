@@ -110,8 +110,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import layers as L
 from .. import comm
 from ..accelerator import resolve_device
-from ..parallel.collectives import (copy_to, gather_rows, own_rows,
-                                    reduce_from, scatter_to)
+from ..parallel.collectives import copy_to, reduce_from, scatter_to
 from ..ops import build
 from ..ops.transformer.decode_attention import decode_attention
 from ..ops.transformer.flash_attention import flash_attention_bthd
@@ -601,10 +600,29 @@ class TransformerLM(nn.Module):
     _dp_axis: Optional[str] = None
     _tp_exact_bwd = False
     _tp_full_heads = 0
-    #: ``(data axes, runs)``: each MoE layer routes the rows of every data
-    #: rank (``gather_rows``), as the pipeline's view sets it; None:
-    #: this rank's rows
-    _moe_rows: Optional[Tuple[Any, int]] = None
+    #: where the MoE layers' tokens and experts live (``moe_view``): the
+    #: batch axes whose ranks hold different rows, their runs, and the
+    #: axis the expert stacks are cut over
+    _moe_batch: Tuple[str, ...] = ()
+    _moe_runs: int = 1
+    _moe_expert_axis: Optional[str] = None
+
+    def moe_view(self, batch_axes=(), expert_axis: Optional[str] = None,
+                 runs: int = 1) -> "TransformerLM":
+        """Shallow copy of this model (or view) whose MoE layers route the
+        whole batch over ``batch_axes`` (its rows ``runs`` runs of every
+        rank's rows) with the expert stacks cut over ``expert_axis``
+        (``moe/layer.py::Placement``)."""
+        view = copy.copy(self)
+        view._moe_batch = tuple(batch_axes)
+        view._moe_expert_axis = expert_axis
+        view._moe_runs = runs
+        return view
+
+    def _placement(self):
+        from ..moe.layer import Placement
+        return Placement(self._moe_batch, self._moe_runs,
+                         self._moe_expert_axis, self._fin, self._red)
 
     def tp_serving_view(self, model_shards: int, tp_axis: Optional[str],
                         dp_axis: Optional[str]) -> "TransformerLM":
@@ -623,11 +641,6 @@ class TransformerLM(nn.Module):
                 raise ValueError(
                     f"model_shards {model_shards} must divide num_heads "
                     f"{c.num_heads} and kv_heads {c.kv_heads}")
-            if c.moe_enabled:
-                raise NotImplementedError(
-                    "tensor parallelism over an MoE model: the expert "
-                    "stacks' model-axis layout is queue A item 7 part 5, "
-                    "expert parallelism")
             local = dataclasses.replace(
                 c, num_heads=c.num_heads // model_shards,
                 num_kv_heads=c.kv_heads // model_shards, head_dim=c.hdim)
@@ -695,20 +708,24 @@ class TransformerLM(nn.Module):
         """Params-shaped tree of specs (tuples of None / ``"model"``, one
         entry a dim): the Megatron column/row split over the ``model``
         axis, as the JAX model's ``partition_specs``; norms replicate,
-        the leading layer axis of ``blocks`` leaves is never sharded.
-        ``params`` (any tree of shapes or tensors) defaults to the
-        model's own shapes."""
-        if self.config.moe_enabled:
-            raise NotImplementedError(
-                "partition_specs of an MoE model: the MoE layer's specs "
-                "are queue A item 7 part 5, expert parallelism")
+        the leading layer axis of ``blocks`` leaves is never sharded; an
+        MoE layer's leaves take ``MoELayer.partition_specs`` (the expert
+        stacks over ``expert``).  ``params`` (any tree of shapes or
+        tensors) defaults to the model's own shapes."""
         tree = self.param_shapes() if params is None else params
+        # an MoE subtree defers to the MoE layer's own specs, the stack
+        # axes in front (the JAX model's rule)
+        moe = self._moe.partition_specs() if self._moe is not None else None
 
         def walk(node, keys):
             if isinstance(node, dict):
                 return {k: walk(v, keys + (k,)) for k, v in node.items()}
             ndim = len(tuple(getattr(node, "shape", node)))
-            if any(k.startswith("ln") for k in keys):   # norms replicate
+            if "moe" in keys:
+                inner = moe
+                for k in keys[keys.index("moe") + 1:]:
+                    inner = inner[k]
+            elif any(k.startswith("ln") for k in keys):   # norms replicate
                 inner = (None,) * (1 if keys[0] != "blocks" else ndim - 1)
             else:
                 inner = self._SUFFIX_RULES.get(keys[-2:])
@@ -1231,22 +1248,18 @@ class TransformerLM(nn.Module):
         """Attention and the MoE FFN (pre-norm, serial or parallel
         residual, as the JAX model's ``_moe_block``) → ``(x, Routing)``;
         ``noise`` is the layer's :class:`GateNoise`, drawn by the
-        caller."""
+        caller.  Under a model axis the attention is shard-local between
+        ``fin`` and ``red``, as the dense block's, and the MoE layer cuts
+        its expert FFN the same way."""
         def attn(h):
-            q, k, v = self._qkv(bp["attn"], h, positions)
-            return L.dense_apply(bp["attn"]["out"], attend(q, k, v))
+            q, k, v = self._qkv(bp["attn"], self._fin(h), positions)
+            return self._red(L.dense_apply(bp["attn"]["out"],
+                                           attend(q, k, v)))
 
         def moe(h):
-            if self._moe_rows is None:
-                return self._moe.apply_routed(bp["moe"], h, train=train,
-                                              noise=noise)
-            # the whole micro batch's rows over the data ranks (the JAX
-            # pipeline region routes it whole), this rank's kept after
-            axis, groups = self._moe_rows
-            m, r = self._moe.apply_routed(
-                bp["moe"], gather_rows(h, axis, groups), train=train,
-                noise=noise)
-            return own_rows(m, axis, groups), r
+            return self._moe.apply_routed(bp["moe"], h, train=train,
+                                          noise=noise,
+                                          place=self._placement())
         if self.config.parallel_residual:
             a = attn(self._norm(bp["ln1"], x))
             m, r = moe(self._norm(bp["ln2"], x))
@@ -1509,7 +1522,8 @@ class TransformerLM(nn.Module):
         sb = self._remat(superblock)
         stats = []
         for sp in layer_views(params["blocks"]):
-            noise = self._moe.draw_noise(generator, b * t, train)
+            noise = self._moe.draw_noise(
+                generator, b * t * self._placement().spread(), train)
             x, la, counts, kept, cap = sb(sp, x, noise)
             laux = laux + la
             stats.append((counts.detach(), kept.detach(), cap))

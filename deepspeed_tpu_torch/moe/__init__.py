@@ -1,8 +1,9 @@
-"""Mixture-of-Experts on one device: top-k gating, dispatch, PR-MoE.
+"""Mixture-of-Experts: top-k gating, dispatch, PR-MoE, expert parallelism.
 
 Counterpart of ``deepspeed_tpu/moe/``: expert weights are a stacked
-``[E, ...]`` tree, and every expert runs on the one card (the
-expert-parallel mesh is ROADMAP.md queue A item 7).
+``[E, ...]`` tree, cut over the ``expert`` mesh axis on E (and inside
+each expert over ``model``) where a mesh has those axes; every rank
+routes the whole batch (``layer.py``'s ``Placement``).
 """
 from .layer import MoEConfig, MoELayer, mlp_expert
 from .sharded_moe import GateOutput, capacity, gate, top1_gating, top2_gating

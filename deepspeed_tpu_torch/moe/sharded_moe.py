@@ -30,6 +30,11 @@ gates return their decisions per token as a :class:`Routing` (expert,
 slot and weight of each of the k choices), from which the MoE layer
 dispatches by an index gather and combines by a weighted sum: the values
 of the GShard einsums, without their ``[S, E, C]`` tensors.
+
+On a mesh every rank routes the whole batch's logits (``moe/layer.py``);
+:func:`spread_plan` then reads, from that one routing, this rank's kept
+choices in send order and the rows every member of its expert group
+sends to every other, so the exchange needs no count handshake.
 """
 from __future__ import annotations
 
@@ -288,3 +293,68 @@ def gate(logits: torch.Tensor, k: int, capacity_factor: float = 1.0,
     """k-dispatch front door (k in {1, 2}), dense ``[S, E, C]`` output."""
     return route(logits, k, capacity_factor, min_capacity, generator,
                  noisy_gate_policy, use_rts, noise).dense()
+
+
+class SpreadPlan(NamedTuple):
+    """One rank's part of the exchange of a routed batch
+    (:func:`spread_plan`): ``order`` ``[n_send]`` its kept ``(token,
+    choice)`` pairs (flat ``s * k + j`` over its rows) in send order;
+    ``pos`` ``[S_r, k]`` each pair's place in that order (``n_send``
+    where dropped); ``send`` / ``recv`` the rows to and from each member
+    of its expert group; ``slot`` ``[n_recv]`` each received row's place
+    in the packed ``[el, c_loc]`` block of its experts; ``slot_src``
+    ``[el * c_loc]`` the received row of each packed place (``n_recv``
+    where empty)."""
+    order: torch.Tensor
+    pos: torch.Tensor
+    send: list
+    recv: list
+    slot: torch.Tensor
+    slot_src: torch.Tensor
+    el: int
+    c_loc: int
+
+
+def spread_plan(r: Routing, mine: torch.Tensor, per_row: int, runs: int,
+                n: int, me: int, ep: int, el: int) -> SpreadPlan:
+    """The exchange of a batch routed whole (``r``, over S tokens in the
+    global batch's order: ``runs`` runs of the ``n`` batch-group members'
+    rows of ``per_row`` tokens each) for member ``me``, whose rows are
+    the tokens ``mine``.  The members ``me // ep * ep + x`` form its
+    expert group, member x of which holds experts ``[x * el, (x + 1) *
+    el)``.  Each member sends its kept pairs in ``(expert, slot)``
+    order; the receiver packs each of its experts' rows, senders in
+    member order, to the largest count among its experts (one host read
+    of the group's counts: the split sizes are host lists)."""
+    s, k = r.expert.shape
+    e, cap = r.exp_counts.shape[0], r.capacity
+    dev = r.expert.device
+    rows = s // per_row
+    member = torch.arange(s, device=dev) // per_row // (rows // (runs * n))
+    member = member % n
+    x = me % ep
+    sel = r.kept & (member // ep == me // ep)[:, None]
+    key = (member % ep)[:, None] * e + r.expert
+    cnt = torch.bincount(key[sel], minlength=ep * e).reshape(ep, e).cpu()
+    kept = r.kept[mine]
+    skey = torch.where(kept, r.expert[mine] * cap + r.slot[mine],
+                       torch.full_like(kept, e * cap, dtype=torch.long))
+    ranked = torch.argsort(skey.reshape(-1), stable=True)
+    n_send = int(cnt[x].sum())
+    where = torch.empty_like(ranked)
+    where[ranked] = torch.arange(ranked.numel(), device=dev)
+    pos = torch.clamp(where, max=n_send).reshape(-1, k)
+    mc = cnt[:, x * el:(x + 1) * el]                  # [ep, el] to me
+    c_loc = max(int(mc.sum(0).max()), 1)
+    flat = mc.reshape(-1)
+    n_recv = int(flat.sum())
+    blk = torch.repeat_interleave(torch.arange(ep * el), flat)
+    within = torch.arange(n_recv) - (torch.cumsum(flat, 0) - flat)[blk]
+    before = (torch.cumsum(mc, 0) - mc).reshape(-1)
+    slot = (blk % el) * c_loc + before[blk] + within
+    slot_src = torch.full((el * c_loc,), n_recv, dtype=torch.long)
+    slot_src[slot] = torch.arange(n_recv)
+    return SpreadPlan(ranked[:n_send], pos,
+                      cnt[x].reshape(ep, el).sum(1).tolist(),
+                      mc.sum(1).tolist(), slot.to(dev), slot_src.to(dev),
+                      el, c_loc)

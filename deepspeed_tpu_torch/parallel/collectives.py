@@ -30,11 +30,12 @@ per shard by :func:`qkv_shard_columns`, and the row-parallel biases
 pre-divided by the shard count) get partial ones that
 :func:`psum_tp_partials` sums at the step's exit.
 
-An MoE layer under a pipe mesh with a data axis routes the whole micro
-batch, as the JAX pipeline region does: :func:`gather_rows` all-gathers
-the layer's rows over the data ranks before the gate (its backward a
-reduce-scatter) and :func:`own_rows` keeps this rank's rows after the
-combine.
+An MoE layer over the batch axes routes the whole micro batch, as the
+JAX engine does: :func:`gather_rows` all-gathers the gate's logits over
+the batch axes (its backward a reduce-scatter) and :func:`own_rows`
+names this rank's rows in them; :func:`all_to_all` moves the routed
+rows to the ranks that hold their experts and back (its backward the
+reverse exchange).
 """
 from __future__ import annotations
 
@@ -118,6 +119,31 @@ def own_rows(y: torch.Tensor, axis, groups: int = 1) -> torch.Tensor:
         return y
     g = y.reshape((groups, n, -1) + tuple(y.shape[1:]))
     return g[:, comm.axis_index(axis)].reshape((-1,) + tuple(y.shape[1:]))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, send, recv):
+        ctx.axis, ctx.send, ctx.recv = axis, send, recv
+        return comm.all_to_all_single(x, axis, input_split_sizes=send,
+                                      output_split_sizes=recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (comm.all_to_all_single(g.contiguous(), ctx.axis,
+                                       input_split_sizes=ctx.recv,
+                                       output_split_sizes=ctx.send),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis, send, recv) -> torch.Tensor:
+    """Rows of ``x`` (dim 0) to the members of ``axis``: ``send[j]`` rows
+    to member j in order, ``recv[j]`` rows from member j concatenated in
+    member order.  Backward: the reverse exchange of the cotangent.  The
+    identity on an axis of size 1."""
+    if comm.axis_size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, axis, list(send), list(recv))
 
 
 def copy_to(x: torch.Tensor, axis) -> torch.Tensor:

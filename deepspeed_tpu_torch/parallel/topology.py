@@ -9,7 +9,10 @@ laid out row-major in ``AXIS_ORDER``, as ``build_mesh`` lays out
 devices, one process group for each axis above 1 (and one for the
 data-parallel product ``(dcn_data, data)`` when both are above 1), and
 each rank's coordinates.  So rank r of a ``data`` mesh holds what device
-r of the JAX mesh holds.
+r of the JAX mesh holds.  The batch shards over ``BATCH_AXES``, the
+data-like axes ``(dcn_data, data, expert)`` (the JAX ``batch_sharding``:
+expert-parallel ranks are data ranks too), and ZeRO partitions over
+``DATA_AXES`` only.
 
 Axis names (canonical order, outermost → innermost):
     dcn_data — replicas across hosts
@@ -39,6 +42,9 @@ DCN_DATA_AXIS = "dcn_data"
 
 #: the data-parallel product ZeRO partitions over
 DATA_AXES = (DCN_DATA_AXIS, DATA_AXIS)
+#: the axes the batch shards over (expert innermost): a rank's rows are
+#: those of its joint coordinate on them
+BATCH_AXES = (DCN_DATA_AXIS, DATA_AXIS, EXPERT_AXIS)
 
 AxisName = Union[str, Sequence[str]]
 
@@ -86,8 +92,9 @@ class ProcessMesh:
     to its size (as ``jax.sharding.Mesh.shape``), ``coords`` this rank's
     coordinate on each.  Process groups are built at construction (every
     rank must construct the mesh, in the same order, as
-    ``torch.distributed.new_group`` requires) for each axis above 1 and
-    for the data-parallel product; an axis that spans the whole world
+    ``torch.distributed.new_group`` requires) for each axis above 1, for
+    the data-parallel product and for the batch axes; an axis that spans
+    the whole world
     uses the default group.  A mesh of one rank needs no
     ``torch.distributed``; a larger one needs it initialized."""
 
@@ -113,9 +120,9 @@ class ProcessMesh:
                 f"mesh {self.shape} covers {spec.world_size} ranks, "
                 f"the process group has {dist.get_world_size()}")
         keys = [(a,) for a in AXIS_ORDER if self.shape[a] > 1]
-        joint = self.key(DATA_AXES)
-        if len(joint) > 1:
-            keys.append(joint)
+        for joint in (self.key(DATA_AXES), self.key(BATCH_AXES)):
+            if len(joint) > 1 and joint not in keys:
+                keys.append(joint)
         for key in keys:
             self._build(key)
         if initialized and spec.world_size == 1:
@@ -158,8 +165,8 @@ class ProcessMesh:
     def private(self) -> "ProcessMesh":
         """A mesh of this shape and rank whose process groups are its own:
         a fresh group (``new_group``, also for an axis that spans the
-        world) for each axis above 1, for the data-parallel product and
-        for the joint of every axis above 1, so that two engines over the
+        world) for each axis above 1, for the data-parallel product, for
+        the batch axes and for the joint of every axis above 1, so that two engines over the
         same ranks, each stepping on its own thread, never interleave
         collectives on one group.  Every rank calls it, in the same
         order, as ``new_group`` requires."""
@@ -168,7 +175,8 @@ class ProcessMesh:
         mesh.shape, mesh.coords = dict(self.shape), dict(self.coords)
         mesh._groups = {}
         keys = [(a,) for a in AXIS_ORDER if self.shape[a] > 1]
-        for joint in (self.key(DATA_AXES), self.key(AXIS_ORDER)):
+        for joint in (self.key(DATA_AXES), self.key(BATCH_AXES),
+                      self.key(AXIS_ORDER)):
             if len(joint) > 1 and joint not in keys:
                 keys.append(joint)
         for key in keys:

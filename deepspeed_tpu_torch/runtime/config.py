@@ -12,14 +12,16 @@ given any two, the third is inferred; all three given must agree.
 Blocks it parses but does not run are refused by
 :meth:`DeepSpeedConfig.refuse_out_of_slice` (the engine calls it) with
 ``NotImplementedError`` naming the ``ROADMAP.md`` queue A part that
-brings them: the ``sequence`` and ``expert`` mesh axes, sequence
-parallelism, the 1-bit optimizers, offload at a data-parallel size
-above 1, and the monitor blocks; ZeRO-Infinity (``offload_param``) over
-a model or pipe axis raises the JAX engine's own refusal.  Data
-parallelism with ZeRO stages 0-3, tensor parallelism (the ``model``
-axis, or ``tensor_parallel.tp_size``, which sets it) and pipeline
-parallelism (the ``pipe`` axis, ``runtime/pipe/``) run at every stage
-and compose.  The offload blocks run (``runtime/zero/offload.py``,
+brings them: the ``sequence`` mesh axis, sequence parallelism, the
+1-bit optimizers, offload at a data-parallel size above 1 (the
+``expert`` axis counts in it), and the monitor blocks; ZeRO-Infinity
+(``offload_param``) over a model or pipe axis raises the JAX engine's
+own refusal.  Data parallelism with ZeRO stages 0-3, expert parallelism
+(the ``expert`` axis: an MoE model's expert stacks cut over it, a dense
+model's batch sharded over it as over one more data axis), tensor
+parallelism (the ``model`` axis, or ``tensor_parallel.tp_size``, which
+sets it) and pipeline parallelism (the ``pipe`` axis,
+``runtime/pipe/``) run at every stage and compose.  The offload blocks run (``runtime/zero/offload.py``,
 ``runtime/zero/infinity.py``), at ZeRO stage 1-3 and a data-parallel
 size of 1: ZeRO-Offload also over a model or pipe axis (each rank's
 host optimizer steps its own slice).  The ``observability`` block
@@ -575,9 +577,7 @@ def _block(cls, pd: dict, key: str):
 #: mesh axes whose size above 1 a later part of queue A item 7 brings,
 #: with that part
 _LATER_AXES = (("sequence", "ring and Ulysses sequence parallelism "
-                             "(queue A item 7 part 6)"),
-               ("expert", "moe.ep_size above 1, expert parallelism "
-                          "(queue A item 7 part 5)"))
+                             "(queue A item 7 part 6)"),)
 
 
 class DeepSpeedConfig:

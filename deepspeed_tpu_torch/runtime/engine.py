@@ -19,7 +19,8 @@ compiles the step into one program, this one runs it eagerly:
 * an MoE model's ``batch["moe_rng"]`` (a seed) becomes one routing seed
   per micro batch (``moe_seeds``), kept on the host; the model's loss
   draws each layer's RTS or Gumbel noise from a generator seeded with
-  it, so one seed gives one routing and micro batches differ;
+  it (for the whole batch's tokens), so one seed gives one routing and
+  micro batches differ;
 * ``_apply_grads`` divides by ``scale * gas``, checks the gradients for
   inf/NaN when a dynamic loss scaler runs (``runtime/fp16``), takes the
   global norm before clipping, clips by ``min(1, clip / max(norm,
@@ -62,6 +63,25 @@ loss scale over dp, so the sum over the ranks is the global mean's
 gradient.  The global norm sums each shard's squares over the ranks and
 counts a resident leaf once; an fp16 overflow is reduced over the
 ranks; the loss is the ranks' mean.
+
+The batch shards over the batch axes ``(dcn_data, data, expert)``, as
+the JAX engine's: a rank's rows are those of its joint coordinate on
+them (``dp_rank``), and ``dp_world_size`` counts ``expert``.  An MoE
+model over them routes the whole micro batch, as the JAX engine's
+global program does: the loss runs the model's ``moe_view`` (each MoE
+layer all-gathers its f32 gate logits over the batch axes, every rank
+routes the whole batch, ``moe/layer.py``), so capacity, slots, counts
+and the aux loss are the global ones.  Under an ``expert`` axis above 1
+(expert parallelism) each rank keeps E / ep of every expert stack
+(``_local_slice`` cuts the leaves whose spec names ``expert``, after the
+model cut; ZeRO then shards that over data only, as the JAX policy
+does), the layer exchanges its rows with the ranks of its expert group
+(``all_to_all``), and at the step's exit every leaf without the expert
+cut is also summed over ``expert`` (``ZeroPartition.finish``): each
+rank's backward runs at the loss scale over the batch group, so the
+sums are the global mean's gradient, the gate's through the logits'
+gather (whose backward is a reduce-scatter) included.  A dense model
+takes ``expert`` as one more data axis.
 
 Tensor parallelism (a ``mesh`` with ``model`` above 1, or
 ``tensor_parallel.tp_size``, at ZeRO stages 0-3) composes Megatron's
@@ -116,8 +136,8 @@ from ..models.convert import (OPT_TREES, check_params, leaf_to_torch,
                               tp_dims, tp_gather, tp_slice)
 from ..parallel.collectives import (TP_PARTIAL_SUFFIXES, psum_tp_partials,
                                     qkv_shard_columns)
-from ..parallel.topology import (DATA_AXES, MODEL_AXIS, build_mesh,
-                                 dp_world_size, mp_world_size,
+from ..parallel.topology import (BATCH_AXES, EXPERT_AXIS, MODEL_AXIS,
+                                 build_mesh, dp_world_size, mp_world_size,
                                  pp_world_size)
 from ..observability import trace_span
 from ..utils.logging import logger
@@ -211,10 +231,12 @@ class DeepSpeedEngine:
         comm.set_mesh(self.mesh)
         self.dp_world_size = dp_world_size(self.mesh)
         self.mp_world_size = mp_world_size(self.mesh)
-        #: this rank's data coordinate: the rows of the global batch it
-        #: takes (``dataloader.rank_slice``); the model ranks of one data
+        self.ep_world_size = self.mesh.axis_size(EXPERT_AXIS)
+        #: this rank's coordinate on the batch axes ``(dcn_data, data,
+        #: expert)``: the rows of the global batch it takes
+        #: (``dataloader.rank_slice``); the model ranks of one batch
         #: coordinate take the same rows
-        self.dp_rank = self.mesh.axis_index(DATA_AXES)
+        self.dp_rank = self.mesh.axis_index(BATCH_AXES)
         self._config.refuse_out_of_slice(mesh_shape=self.mesh.shape)
         if self._config.comms_logger_dict and \
                 self._config.comms_logger_dict.get("enabled"):
@@ -247,6 +269,26 @@ class DeepSpeedEngine:
             self._tp_view = model.tp_train_view(self.mp_world_size,
                                                 MODEL_AXIS)
             loss_fn = self._tp_view.loss
+        #: the model the loss runs: the per-shard view, and for an MoE
+        #: model over the batch axes its view that routes the whole batch
+        #: with the expert stacks cut over ``expert``
+        self._runner = self._tp_view or model
+        self._moe = bool(getattr(getattr(model, "config", None),
+                                 "moe_enabled", False))
+        if self._moe and self.dp_world_size > 1 and \
+                hasattr(self._runner, "moe_view"):
+            if loss_fn is not None and self._tp_view is None:
+                raise NotImplementedError(
+                    "an MoE model over the batch axes trains through its "
+                    "own loss (a client loss_fn cannot route the whole "
+                    "batch)")
+            self._runner = self._runner.moe_view(BATCH_AXES, EXPERT_AXIS)
+            loss_fn = self._runner.loss
+        if self._moe and model.config.moe_num_experts % \
+                self.ep_world_size:
+            raise ValueError(
+                f"expert mesh axis ({self.ep_world_size}) must divide "
+                f"moe_num_experts ({model.config.moe_num_experts})")
         self._config.resolve_batch_sizes(self.dp_world_size)
         self.zero_stage = self._config.zero_optimization_stage
         self.fp16_enabled = self._config.fp16.enabled
@@ -291,6 +333,8 @@ class DeepSpeedEngine:
         # ZeRO over the data-parallel ranks (zero/partitioned.py); built
         # in init_state once the params' shapes are known
         self._zero = None
+        #: each leaf's expert dim, under an MoE model's expert axis
+        self._ep_dims = None
         #: ZeRO-Offload over a model or pipe axis: the plans of the
         #: rank's slice (a stage-0 ``ZeroPartition``: the global norm)
         self._slices = None
@@ -425,12 +469,15 @@ class DeepSpeedEngine:
         tdims = None
         if self._tp_view is not None:
             tdims = self._tp_dims = tp_dims(specs)
+        if self._ep_cut():
+            self._ep_dims = tp_dims(specs, EXPERT_AXIS)
         params = self._local_slice(params)
         policy = ZeroShardingPolicy(
             self.zero_stage, self.mesh, self._full_shapes, specs,
             param_persistence_threshold=(zc.param_persistence_threshold
                                          if self.zero_stage >= 3 else 0))
-        self._zero = ZeroPartition(policy, self.mesh, tp_dims=tdims)
+        self._zero = ZeroPartition(policy, self.mesh, tp_dims=tdims,
+                                   ep_dims=self._ep_dims)
         self._param_shapes = shape_tree(params)
         if not self._config.bf16.master_weights and self.bf16_enabled:
             params = tree_map(lambda p: p.to(torch.bfloat16), params)
@@ -450,21 +497,31 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     def _train_specs(self, params):
         """The spec tree ZeRO's policy starts from (None: every dim
-        free)."""
-        return (self._tp_train_specs(params) if self._tp_view is not None
-                else None)
+        free): the model's, under a model axis or an MoE model's expert
+        axis."""
+        return (self._tp_train_specs(params)
+                if self._tp_view is not None or self._ep_cut() else None)
+
+    def _ep_cut(self) -> bool:
+        """Whether this rank holds E / ep of the expert stacks."""
+        return self._moe and self.ep_world_size > 1
 
     def _local_slice(self, tree):
         """A whole tree in the world-1 layout → this rank's part of it
-        before ZeRO's data shard: its model slice."""
+        before ZeRO's data shard: its model slice, then its experts."""
         if self._tp_view is not None:
             tree = tp_slice(tree, self._tp_dims, self.mp_world_size,
                             self.mesh.axis_index(MODEL_AXIS))
+        if self._ep_dims is not None:
+            tree = tp_slice(tree, self._ep_dims, self.ep_world_size,
+                            self.mesh.axis_index(EXPERT_AXIS))
         return tree
 
     def _whole(self, tree):
         """The inverse of :meth:`_local_slice` (a collective: every rank
         calls it)."""
+        if self._ep_dims is not None:
+            tree = tp_gather(tree, self._ep_dims, EXPERT_AXIS)
         if self._tp_view is not None:
             tree = tp_gather(tree, self._tp_dims, MODEL_AXIS)
         return tree
@@ -541,8 +598,7 @@ class DeepSpeedEngine:
         per-shard view under a model axis), each layer localized to the
         shard after its gather (``_tp_localize``): a context that yields
         whether it gathers."""
-        runner = self.model if self._tp_view is None else self._tp_view
-        return self._zero.hooks(runner, self.compute_dtype,
+        return self._zero.hooks(self._runner, self.compute_dtype,
                                 post=self._tp_localize)
 
     def _zero_accumulate(self, batch, scale):
@@ -570,7 +626,7 @@ class DeepSpeedEngine:
         if self._tp_view is not None:
             # the partial leaves' exit reduction over the model ranks
             gsum = psum_tp_partials(gsum, MODEL_AXIS)
-        lsum = comm.all_reduce(lsum, comm.ReduceOp.SUM, self._zero.axes)
+        lsum = comm.all_reduce(lsum, comm.ReduceOp.SUM, BATCH_AXES)
         return gsum, lsum
 
     def zero_state_bytes(self, grads=None) -> Dict[str, int]:
@@ -1246,14 +1302,24 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_loss(self, batch: Dict[str, Any]) -> torch.Tensor:
         """The loss of the whole batch (micro batches flattened), no
-        gradient."""
+        gradient.  An MoE model over the batch axes routes the whole
+        batch at once in the JAX layout ``[gas, micro * dp]``: this
+        rank's ``gas`` runs of rows, each gathered with every rank's."""
         if self.infinity_enabled:
             return torch.tensor(self._infinity.eval_loss(batch))
         sq = {k: (v[0] if k == "moe_rng" else
                   v.reshape((-1,) + tuple(v.shape[2:])))
               for k, v in self.shard_batch(batch).items()}
+
+        def loss_fn(params, b):
+            # the view is taken here, after stage 3's hooks are set
+            gas = self.gradient_accumulation_steps
+            if gas > 1 and getattr(self._runner, "_moe_batch", ()):
+                return self._runner.moe_view(BATCH_AXES, EXPERT_AXIS,
+                                             gas).loss(params, b)
+            return self._loss_fn(params, b)
         if self._zero is None:
-            return self._loss_fn(
+            return loss_fn(
                 self._cast_for_compute(self.state["params"]), sq)
         z, dtype = self._zero, self.compute_dtype
         with self._stage3_hooks() as gathered:
@@ -1263,7 +1329,7 @@ class DeepSpeedEngine:
                 params = z.stage3_params(self.state["params"], dtype)
             else:
                 params = self._cast_for_compute(self.state["params"])
-            return z.mean(self._loss_fn(
+            return z.mean(loss_fn(
                 self._tp_localize(params, skip_blocks=gathered), sq))
 
     # ------------------------------------------------------------------
@@ -1297,7 +1363,7 @@ class DeepSpeedEngine:
             # grads summed over the ranks are the global mean's
             loss, self._last_grads = self._zero_micro(
                 mb, scale / self.dp_world_size)
-            loss = comm.all_reduce(loss, comm.ReduceOp.SUM, self._zero.axes)
+            loss = comm.all_reduce(loss, comm.ReduceOp.SUM, BATCH_AXES)
         self._last_loss = loss / scale
         return self._last_loss
 

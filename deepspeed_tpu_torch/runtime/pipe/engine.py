@@ -41,9 +41,13 @@ at the exit) and each layer of the stage's ``blocks`` is gathered inside
 ``stage_apply`` through the block hook (``_stage3_hooks``), its
 gradient reduce-scattered in the backward; the JAX region gathers the
 params whole at entry, which computes the same numbers.  An MoE model
-over a data axis routes the whole micro batch, as the JAX region does:
-each MoE layer gathers its rows over the stage's data group before the
-gate and keeps its own after the combine (``gather_rows``).
+over the batch axes routes the whole micro batch, as the JAX region
+(which leaves the expert, data and model axes to GSPMD) does: each MoE
+layer gathers its f32 gate logits over the stage's batch group
+(``(dcn_data, data, expert)``), every rank routes the whole micro batch,
+and the rows go to the ranks that hold their experts and back over
+``expert`` (``moe/layer.py``); under a model axis each expert's FFN is
+cut over ``model`` as the dense MLP is.
 ZeRO-Offload (data-parallel size 1) runs the schedule into the flat
 gradient buffer each stage's host optimizer sweeps (``_offload_grads``).
 
@@ -64,7 +68,6 @@ receive.
 from __future__ import annotations
 
 import contextlib
-import copy
 import time
 from typing import Any, Dict, Optional
 
@@ -75,9 +78,9 @@ from ...models.convert import check_params
 from ...models.transformer import masked_nll_sum
 from ...observability import trace_span
 from ...parallel.collectives import copy_to, psum_tp_partials
-from ...parallel.topology import (AXIS_ORDER, DATA_AXES, EXPERT_AXIS,
-                                  MODEL_AXIS, PIPE_AXIS, dp_world_size,
-                                  mp_world_size, pp_world_size)
+from ...parallel.topology import (AXIS_ORDER, BATCH_AXES, EXPERT_AXIS,
+                                  MODEL_AXIS, PIPE_AXIS, mp_world_size,
+                                  pp_world_size)
 from ..config import DeepSpeedConfig
 from ..engine import DeepSpeedEngine, config_mesh
 from ..optimizers import tree_leaves, tree_map
@@ -158,21 +161,16 @@ class PipelinedLM:
 
     def partition_specs(self, params=None):
         """The stacked tree's specs: ``pipe`` on the blocks' stage dim,
-        the model's Megatron specs behind it; the embedding and the head
-        replicated unless ``use_onehot_embed`` (a live model axis).  An
-        MoE model's leaves have no model-axis layout (every dim
-        free)."""
+        the model's Megatron specs behind it (an MoE layer's: the expert
+        stacks over ``expert``); the embedding and the head replicated
+        unless ``use_onehot_embed`` (a live model axis)."""
         tree = self.param_shapes() if params is None else params
-        if self.config.moe_enabled:
-            specs = tree_map(lambda a: (None,) * len(tuple(
-                getattr(a, "shape", a))), tree)
-        else:
-            specs = dict(self.model.partition_specs(tree))
-            if not self.use_onehot_embed:
-                for k in ("embed", "lm_head"):
-                    if k in specs:
-                        specs[k] = tree_map(lambda sp: (None,) * len(sp),
-                                            specs[k])
+        specs = dict(self.model.partition_specs(tree))
+        if not self.use_onehot_embed:
+            for k in ("embed", "lm_head"):
+                if k in specs:
+                    specs[k] = tree_map(lambda sp: (None,) * len(sp),
+                                        specs[k])
         specs["blocks"] = tree_map(lambda sp: ("pipe",) + tuple(sp[1:]),
                                    specs["blocks"])
         return specs
@@ -304,22 +302,17 @@ class PipelineEngine(DeepSpeedEngine):
             raise NotImplementedError(
                 "the pipeline trains causal LMs with a final norm (its "
                 "head is the next-token loss after ln_f)")
-        if moe and mp > 1:
-            raise NotImplementedError(
-                "an MoE model under a pipe mesh with a model axis: the "
-                "expert stacks have no model-axis layout (queue A item 7 "
-                "part 5, expert parallelism)")
         self.stage_id = mesh.axis_index(PIPE_AXIS)
         super().__init__(model=adapter, config=config, optimizer=optimizer,
                          lr_scheduler=lr_scheduler, params=params,
                          device=device, seed=seed, mesh=mesh)
         #: the model each stage runs: the per-shard view under a model
-        #: axis; an MoE model's view over data ranks routes the whole
-        #: micro batch (``gather_rows``), as the JAX region does
+        #: axis; an MoE model's view over the batch axes routes the whole
+        #: micro batch, as the JAX region does
         self._stage_model = self._tp_view or self.adapter.model
         if moe and self.dp_world_size > 1:
-            self._stage_model = copy.copy(self._stage_model)
-            self._stage_model._moe_rows = (DATA_AXES, 1)
+            self._stage_model = self._stage_model.moe_view(BATCH_AXES,
+                                                           EXPERT_AXIS)
         #: whether stage 3's block hook gathers ``blocks`` this step
         self._hooked = False
 
@@ -620,7 +613,7 @@ class PipelineEngine(DeepSpeedEngine):
 
     def _loss_over_ranks(self, lsum):
         lsum = comm.all_reduce(lsum, comm.ReduceOp.SUM, PIPE_AXIS)
-        return comm.all_reduce(lsum, comm.ReduceOp.SUM, self._zero.axes)
+        return comm.all_reduce(lsum, comm.ReduceOp.SUM, BATCH_AXES)
 
     @torch.no_grad()
     def eval_loss(self, batch: Dict[str, Any]) -> torch.Tensor:
@@ -637,8 +630,8 @@ class PipelineEngine(DeepSpeedEngine):
         if moe:
             m = int(ids.shape[0])
             ids = ids.reshape((1, -1) + tuple(ids.shape[2:]))
-            if mdl._moe_rows is not None:
-                mdl._moe_rows = (DATA_AXES, m)
+            if mdl._moe_batch:
+                self._stage_model = mdl.moe_view(BATCH_AXES, EXPERT_AXIS, m)
         self._windows = self._stage_windows(mdl, self.stage_id)
         try:
             with self._stage3_hooks() as hooked:
@@ -649,12 +642,11 @@ class PipelineEngine(DeepSpeedEngine):
                     self._compute_params(grad=False))
         finally:
             self._hooked = False
-            if mdl._moe_rows is not None:
-                mdl._moe_rows = (DATA_AXES, 1)
+            self._stage_model = mdl
         both = torch.stack([tot, cnt, aux])
         both = comm.all_reduce(both, comm.ReduceOp.SUM, PIPE_AXIS)
         nll = comm.all_reduce(both[:2].contiguous(), comm.ReduceOp.SUM,
-                              self._zero.axes)
+                              BATCH_AXES)
         # the aux loss is the whole batch's, the same on every data rank
         return nll[0] / torch.clamp(nll[1], min=1.0) + both[2]
 

@@ -42,8 +42,18 @@ localizes a gathered layer to its model shard.  The global norm sums a
 pipe-local leaf's squares over the stages and counts a leaf replicated
 over ``pipe`` once; the overflow flag is reduced over the stages too.
 
-What a rank holds of each leaf (``cuts``: a piece along data, model or
-pipe) is written once, for the global norm and for ``leaf_sums``, which
+Under expert parallelism (an ``expert`` axis above 1) an expert stack's
+leaves carry ``expert`` on their E dim (``MoELayer.partition_specs``): a
+rank's tree holds its E / ep experts (``ep_dims``), sharded over data as
+above (the JAX policy partitions over ``(dcn_data, data)`` only).  The
+batch shards over ``expert`` too, so a leaf without the expert cut (every
+dense leaf, the gate) is also summed over ``expert`` at the step's exit
+(:meth:`ZeroPartition.finish`, one all-reduce of their concatenation),
+while an expert leaf's gradient is whole once it is summed over data:
+every global slot was filled by one token of one expert group.
+
+What a rank holds of each leaf (``cuts``: a piece along data, expert,
+model or pipe) is written once, for the global norm and for ``leaf_sums``, which
 makes per-leaf partial sums over each rank's pieces whole-leaf sums
 (LAMB's two norms a leaf): one all-reduce an axis group over the
 concatenation of the sums cut along it, whatever the number of leaves.
@@ -57,7 +67,8 @@ import torch
 
 from ... import comm
 from ...parallel.collectives import REDUCE_PSUM, reduce_over_data
-from ...parallel.topology import DATA_AXES, MODEL_AXIS, PIPE_AXIS
+from ...parallel.topology import (BATCH_AXES, DATA_AXES, EXPERT_AXIS,
+                                  MODEL_AXIS, PIPE_AXIS)
 from ..optimizers import tree_leaves, tree_map
 from .sharding import ZeroShardingPolicy, grad_reduce_plan, sharded_dim
 
@@ -108,11 +119,16 @@ class ZeroPartition:
     collectives of the step written from them."""
 
     def __init__(self, policy: ZeroShardingPolicy, mesh,
-                 axes: Sequence[str] = DATA_AXES, tp_dims=None):
+                 axes: Sequence[str] = DATA_AXES, tp_dims=None,
+                 ep_dims=None):
         self.policy = policy
         self.tp_dims = tp_dims
+        #: each leaf's expert dim (its ``expert`` entry), or None: only
+        #: under an expert axis above 1
+        self.ep_dims = ep_dims
         self.mp = mesh.axis_size(MODEL_AXIS)
         self.pp = mesh.axis_size(PIPE_AXIS)
+        self.ep = mesh.axis_size(EXPERT_AXIS)
         #: each leaf's stage dim (the ``pipe`` entry of its spec), or None
         self.pipe_dims = tree_map(lambda sp: sharded_dim(sp, (PIPE_AXIS,)),
                                   policy.param_specs)
@@ -245,18 +261,45 @@ class ZeroPartition:
         """The summed grads of a step → the grads of each rank's master
         shards, summed over the ranks: stages 0-1 all-reduce every leaf
         (stage 1 then keeps its shard), stages 2-3 all-reduce the
-        resident leaves."""
-        def one(g, plan, md):
+        resident leaves.  Under an expert axis a leaf without the expert
+        cut is summed over ``expert`` too (its rows were other ranks'
+        as well): in that all-reduce, over the batch axes, where it has
+        one; else (reduce-scattered over data by the hooks) in one
+        all-reduce over ``expert`` of the concatenation of such leaves."""
+        ep_dims = self._ep_dims(gsum)
+
+        def one(g, plan, md, ed):
             if plan == REDUCE_PSUM:
-                g = reduce_over_data(g, REDUCE_PSUM, self.axes)
+                g = reduce_over_data(g, REDUCE_PSUM, self.axes
+                                     if self.ep == 1 or ed is not None
+                                     else BATCH_AXES)
                 return shard_leaf(g, md, self.dp, self.index)
             return g
-        return tree_map(one, gsum, self.grad_plan, self.master_dims)
+        out = tree_map(one, gsum, self.grad_plan, self.master_dims, ep_dims)
+        if self.ep > 1:
+            # paired by path: a loaded state may order its keys otherwise
+            flags = tree_map(lambda _, plan, d: plan != REDUCE_PSUM and
+                             d is None, out, self.grad_plan, ep_dims)
+            uncut = [g for g, f in zip(tree_leaves(out), tree_leaves(flags))
+                     if f]
+            if uncut:
+                cat = comm.all_reduce(torch.cat([g.reshape(-1)
+                                                 for g in uncut]),
+                                      comm.ReduceOp.SUM, EXPERT_AXIS)
+                for g, part in zip(uncut, cat.split([g.numel()
+                                                     for g in uncut])):
+                    g.copy_(part.view_as(g))
+        return out
+
+    def _ep_dims(self, tree):
+        return (self.ep_dims if self.ep_dims is not None
+                else tree_map(lambda _: None, self.master_dims))
 
     def cuts(self, tree):
         """Each leaf of ``tree`` (any params-shaped tree) → the axes it
-        is cut along on this rank, a tuple of flags (data, model, pipe):
-        its master dim, its model dim, its stage dim.  A leaf whose dims
+        is cut along on this rank, a tuple of flags (data, expert, model,
+        pipe): its master dim, its expert dim, its model dim, its stage
+        dim.  A leaf whose dims
         none divide by an axis' size (``shard_over_axis`` leaves it
         whole) and a leaf several stages hold (the embedding and the
         final norm under the pipeline, the tied embedding among them)
@@ -266,18 +309,20 @@ class ZeroPartition:
         from."""
         tdims = (self.tp_dims if self.tp_dims is not None
                  else tree_map(lambda _: None, self.master_dims))
-        return tree_map(lambda _, d, m, p: (d is not None, m is not None,
-                                            p is not None),
-                        tree, self.master_dims, tdims, self.pipe_dims)
+        return tree_map(lambda _, d, e, m, p: (d is not None, e is not None,
+                                               m is not None, p is not None),
+                        tree, self.master_dims, self._ep_dims(tree), tdims,
+                        self.pipe_dims)
 
     def _sum_cut(self, parts):
         """``[(cut, vector)]`` → each vector summed over the ranks of
         every axis its leaf is cut along: one all-reduce an axis group
-        (data, then model, then the stages) over the concatenation of
-        the vectors cut along it; an uncut vector is returned as it is
-        (it is equal on every rank)."""
+        (data, then expert, then model, then the stages) over the
+        concatenation of the vectors cut along it; an uncut vector is
+        returned as it is (it is equal on every rank)."""
         out = [v for _, v in parts]
-        for j, axis in enumerate((self.axes, MODEL_AXIS, PIPE_AXIS)):
+        for j, axis in enumerate((self.axes, EXPERT_AXIS, MODEL_AXIS,
+                                  PIPE_AXIS)):
             idx = [i for i, (cut, _) in enumerate(parts) if cut[j]]
             if not idx:
                 continue
@@ -316,10 +361,10 @@ class ZeroPartition:
 
     def reduce_flag(self, flag: torch.Tensor) -> torch.Tensor:
         """A per-rank boolean (an fp16 overflow) → true on every rank if
-        true on any (over the data ranks, then the model ranks, then the
+        true on any (over the batch axes, then the model ranks and the
         stages)."""
         f = comm.all_reduce(flag.to(torch.int32), comm.ReduceOp.MAX,
-                            self.axes)
+                            BATCH_AXES)
         if self.mp > 1:
             f = comm.all_reduce(f, comm.ReduceOp.MAX, MODEL_AXIS)
         if self.pp > 1:
@@ -327,14 +372,16 @@ class ZeroPartition:
         return f.bool()
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean of a per-rank scalar over the ranks."""
-        return comm.all_reduce(x.clone(), comm.ReduceOp.SUM, self.axes) / \
-            self.dp
+        """The mean of a per-rank scalar over the ranks that hold
+        different rows (the batch axes)."""
+        return comm.all_reduce(x.clone(), comm.ReduceOp.SUM, BATCH_AXES) / \
+            comm.axis_size(BATCH_AXES)
 
     # -- bytes -----------------------------------------------------------------
     def planned_bytes(self, shapes, compute_itemsize: int,
                       moments: int = 2) -> Dict[str, int]:
-        """What the plans say this rank holds: float32 masters and
+        """What the plans say this rank holds, from the shapes of its
+        slice (``shapes``: after its model and expert cuts): float32 masters and
         ``moments`` optimizer trees along the masters' dims, the step's
         float32 gradient sum along the grads' dims, and the live
         compute-dtype params (whole at stages 1-2; stages 0 and 3 keep

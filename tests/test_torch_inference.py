@@ -323,12 +323,12 @@ def test_valid_host_cache_and_fleet_blocks_parse_equal(serving):
     {"observability": {}},
 ])
 def test_out_of_slice_engine_options_raise(override):
-    """Expert parallelism raises; tensor parallelism, which runs since
-    its slice (``tests/test_torch_tp_serving.py``), raises in a world of
-    one rank with the JAX engine's message (no rank runs a smaller
-    mesh); the ``observability`` block, refused until the serving
-    engine's hooks were ported, now builds an engine and configures the
-    process telemetry (an empty block: everything off)."""
+    """Tensor and expert parallelism, which run since their slices
+    (``tests/test_torch_tp_serving.py``), raise in a world of one rank
+    with the JAX engine's message (no rank runs a smaller mesh); the
+    ``observability`` block, refused until the serving engine's hooks
+    were ported, now builds an engine and configures the process
+    telemetry (an empty block: everything off)."""
     pm = tt.TransformerLM(tt.gpt2_config("125m", dtype=torch.float32,
                                          **TINY))
     if "observability" in override:
@@ -338,12 +338,9 @@ def test_out_of_slice_engine_options_raise(override):
         assert eng.config.observability is not None
         assert not get_tracer().enabled and not get_registry().enabled
         return
-    if "tensor_parallel" in override:
-        with pytest.raises(ValueError, match="tp_size 2 x ep_size 1 does "
-                                             "not divide 1 devices"):
-            dt.init_inference(pm, {**BASE, **override}, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
+    tp, ep = (2, 1) if "tensor_parallel" in override else (1, 2)
+    with pytest.raises(ValueError, match=f"tp_size {tp} x ep_size {ep} "
+                                         f"does not divide 1 devices"):
         dt.init_inference(pm, {**BASE, **override}, device="cpu")
 
 

@@ -529,9 +529,12 @@ def test_generate_and_forward_match_jax(served, quant):
 
 def test_engine_refusals():
     """The server refuses an MoE model with the JAX reason; ``ep_size``
-    2 names multi-device work."""
+    2, which runs since expert parallelism came
+    (``tests/test_torch_tp_serving.py``), needs two ranks: in a world of
+    one it raises the JAX engine's message."""
     pm = port_model(**SERVE)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(ValueError, match="tp_size 1 x ep_size 2 does not "
+                                         "divide 1 devices"):
         dt.init_inference(pm, {**BASE, "moe": {"enabled": True,
                                                "ep_size": 2}},
                           device="cpu")

@@ -12,7 +12,9 @@ clipping at 0.25 so that it bites):
   that mesh: GPT-2 under 1F1B and under gpipe (the JAX 1F1B's numbers:
   the two schedules are one function), a GQA LLaMA with an untied head,
   a GPT-Neo-like model with per-layer windows (each stage its slice of
-  the windows), ``eval_loss``, and a checkpoint that resumes bit-equal
+  the windows), the tiny MoE under gpipe (each expert's FFN cut over
+  ``model``; its grad norm over the JAX region's over-count S),
+  ``eval_loss``, and a checkpoint that resumes bit-equal
   and holds the JAX engine's stage-stacked tree; fp16 at
   ``initial_scale_power`` 0 and 8 takes the same trajectory with no
   skipped step (the JAX ``test_pp_fp16_scale_invariant``);
@@ -109,7 +111,11 @@ CASES = {
     "fp16_0": (4, "gpt2", TP, fp16(0), None),
     "fp16_8": (4, "gpt2", TP, fp16(8), None),
     "gpt2_s3": (4, "gpt2", TP, zero(3), "pipe"),
+    "moe_tp": (4, "moe", TP, {}, "pipe"),
 }
+#: the JAX MoE pipeline region's over-count of the gradient (S: its own
+#: docstring; ``tests/test_torch_pipe_moe.py``)
+NORM_OVERCOUNT = {"moe_tp": 2}
 
 
 def jax_model(family):
@@ -496,7 +502,7 @@ def test_workers_import_no_jax(world):
 @pytest.mark.parametrize("name", [n for n, c in CASES.items()
                                   if c[4] is not None])
 def test_steps_match_jax_on_every_rank(world, name):
-    check_steps(world, name)
+    check_steps(world, name, NORM_OVERCOUNT.get(name, 1))
 
 
 @pytest.mark.parametrize("name", [n for n, c in CASES.items()
@@ -858,11 +864,21 @@ def test_pipe_mesh_with_zero_3_stays_refused():
         "or drop offload for tp/pp/sp")
 
 
-def test_moe_under_a_model_axis_names_its_part():
-    """An MoE model under a pipe mesh with a model axis stays refused,
-    naming expert parallelism's part; with a data axis it trains
-    (``tests/test_torch_pipe_zero.py``)."""
-    with pytest.raises(NotImplementedError, match="item 7 part 5"):
-        pe.PipelineEngine(model=port_model("moe"), config={
-            **BASE, "mesh": {"pipe": 2, "model": 2}},
-            mesh=_mesh(pipe=2, model=2), device="cpu")
+def test_moe_under_a_model_axis_names_its_part(world):
+    """An MoE model under a pipe mesh with a model axis trains since
+    expert parallelism came (each expert's FFN cut over ``model`` as the
+    JAX ``mlp_expert`` specs cut it): the ``moe_tp`` case above is held
+    to the JAX ``PipelineEngine`` at {pipe 2, model 2}, under gpipe, and
+    its specs name the expert and model axes where the JAX model's
+    do."""
+    for res in world.ranks[4]:
+        assert res["moe_tp"]["schedule"] == "gpipe"
+    ja = jax_pe.PipelinedLM(jax_model("moe"), 2)
+    pa = pe.PipelinedLM(port_model("moe"), 2)
+    ja.use_onehot_embed = pa.use_onehot_embed = True
+    jspecs = flat(_tuples(ja.partition_specs()))
+    pspecs = flat(pa.partition_specs())
+    assert {k: tuple(v) for k, v in pspecs.items()} == \
+        {k: tuple(v) for k, v in jspecs.items()}
+    assert tuple(pspecs["blocks/moe_blk/moe/experts/fc_in/kernel"]) == (
+        "pipe", None, "expert", None, "model")

@@ -18,7 +18,8 @@ The same world runs the compat ``forward``/``backward``/``step`` at
 compat API at {data 2}) and the tiny MoE GPT-2 at {pipe 2, data 2}
 under gpipe and stage 1 against the JAX ``PipelineEngine`` at that mesh
 (its grad norm over S, as ``tests/test_torch_pipe_moe.py`` holds it),
-with ``eval_loss``; and LAMB (its trust ratio over the whole
+with ``eval_loss``, and at {pipe 2, expert 2} (each stage's expert
+stacks cut over ``expert``, the rows exchanged by ``all_to_all``); and LAMB (its trust ratio over the whole
 stage-stacked leaf, each rank's pieces' sums made whole by
 ``leaf_sums``) at {pipe 2, data 2} with ZeRO stage 1, held to the JAX
 data-parallel engine, and at {pipe 2, model 2}, held to the JAX
@@ -45,6 +46,8 @@ CASES = {
        for s in (0, 1, 2, 3)},
     "compat_pipe2_data2_s1": (4, "gpt2", PD, zero(1), "dp_compat"),
     "moe_pipe2_data2": (4, "moe", PD, zero(1), "pipe"),
+    "moe_pipe2_expert2": (4, "moe", {"pipe": 2, "expert": 2}, zero(1),
+                          "pipe"),
     "lamb_pipe2_data2_s1": (4, "gpt2", PD, {**LAMB, **zero(1)}, "dp"),
     "lamb_pipe2_model2": (4, "gpt2", TP, LAMB, "pipe"),
 }
@@ -53,7 +56,7 @@ CASES = {
 LEAF_SUM_AXES = {"lamb_pipe2_data2_s1": ("data", "pipe"),
                  "lamb_pipe2_model2": ("model", "pipe")}
 #: the JAX MoE pipeline region's over-count of the gradient (S)
-NORM_OVERCOUNT = {"moe_pipe2_data2": 2}
+NORM_OVERCOUNT = {"moe_pipe2_data2": 2, "moe_pipe2_expert2": 2}
 
 
 @pytest.fixture(scope="module")

@@ -376,7 +376,7 @@ def test_rank_worker_sources_import_nothing_of_jax(test_file, name):
     jax nor the JAX package (the pipeline's files share the first; the
     serving mesh's worker runs the spec lane, the host tier, the fleet
     and BERT too; the ZeRO and tensor-parallel workers run LAMB and the
-    client torch.optim optimizers on shards; ``chip_smoke.py``'s rank
+    client torch.optim optimizers on shards and the expert-parallel MoE; ``chip_smoke.py``'s rank
     workers run on the card's machine, which has no jax)."""
     tree = ast.parse(_worker_source(test_file, name))
     names = []

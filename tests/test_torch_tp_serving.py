@@ -53,8 +53,12 @@ embeddings).  Cases:
 * BERT's ``forward()`` at ``tp_size`` 2 (the MLM head's vocab bias cut
   beside the vocab-sharded decoder): within 1e-5 of the JAX engine's
   at ``tp_size`` 2 and at one device;
-* MoE with a model axis and BERT's MLM head in tensor-parallel
-  training refused, naming their parts of queue A item 7;
+* a tiny MoE (``tests/unit/test_moe.py``'s serving shapes: 2 layers, d
+  32, 4 experts on every other layer, top-1) at ``moe.ep_size`` 2 (each
+  rank E / 2 experts, the partial combine summed over ``expert``) and at
+  ``tp_size`` 2 (each expert's FFN cut over ``model``): ``generate()``'s
+  greedy tokens equal the JAX engine's at the same config, and
+  ``forward()``'s logits within 1e-5, on both ranks;
 * ``generate()`` at ``tp_size`` 2 equal to the JAX engine's at
   ``tp_size`` 2 and to the port's at one rank;
 * in process: the validation messages word for word,
@@ -97,14 +101,18 @@ LLAMA = dict(num_layers=2, d_model=64, num_heads=8, num_kv_heads=2,
              tie_embeddings=False, use_bias=False)
 #: the draft: the target's first layer alone (its weights too)
 DRAFT = dict(GPT2, num_layers=1)
+MOE = dict(num_layers=2, d_model=32, num_heads=4, vocab_size=64,
+           max_seq_len=64, loss_chunk=0, moe_num_experts=4, moe_freq=2,
+           moe_k=1, moe_use_rts=False)
 BERT = dict(num_layers=2, d_model=64, num_heads=4, vocab_size=64,
             max_seq_len=64, causal=False, norm_position="post",
             final_layernorm=False, embed_layernorm=True, mlm_head=True,
             activation="gelu_exact", d_ff=96, token_type_vocab=2)
-FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "draft": DRAFT, "bert": BERT}
+FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "draft": DRAFT, "bert": BERT,
+            "moe": MOE}
 #: the families built by ``gpt2_config`` (the others by
 #: ``TransformerConfig``)
-GPT2_LIKE = ("gpt2", "draft")
+GPT2_LIKE = ("gpt2", "draft", "moe")
 SERVING = {"enabled": True, "kv_block_size": 8, "num_kv_blocks": 48,
            "max_batch_slots": 8, "prefill_chunk_tokens": 16}
 BASE = {"dtype": "float32", "max_out_tokens": 64, "temperature": 0.0,
@@ -122,8 +130,9 @@ def serving(mesh, **kw):
 #: a case is its own config on the JAX package.  Kinds: "serve" (the
 #: staggered drain), "gen" (``generate()``), "spec" (the drain with the
 #: draft), "host" (spill, then a promoted hit), "fleet"
-#: (``FleetRouter.from_engine``), "bert" (``forward()``), "skew" (a
-#: deadline under a skewed clock, port only)
+#: (``FleetRouter.from_engine``), "bert" (``forward()``), "moe"
+#: (``generate()`` and ``forward()``), "skew" (a deadline under a skewed
+#: clock, port only)
 CASES = {
     "m2": (2, "gpt2", serving({"model": 2}), "serve"),
     "m2_kv8": (2, "gpt2", serving({"model": 2}, kv_cache_bits=8), "serve"),
@@ -161,6 +170,15 @@ CASES = {
         "enabled": True, "replicas": 2}), "fleet"),
     "m2_bert": (2, "bert", {**BASE, "tensor_parallel": {"tp_size": 2}},
                 "bert"),
+    "moe_ep2": (2, "moe", {**BASE, "moe": {"enabled": True, "ep_size": 2}},
+                "moe"),
+    "moe_tp2": (2, "moe", {**BASE, "moe": {"enabled": True},
+                           "tensor_parallel": {"tp_size": 2}}, "moe"),
+    # int8 weights at ep_size 2: every rank keeps the whole int8 stacks
+    "moe_ep2_int8": (2, "moe", {**BASE, "moe": {"enabled": True,
+                                                "ep_size": 2},
+                                "quant": {"enabled": True, "bits": 8}},
+                     "moe"),
     "d2m2_skew": (4, "gpt2", serving(D2M2), "skew"),
     # the same clocks under the multi-tenant front end, with 4 slots for
     # 7 requests, so its at-risk boosts order the waiting queue
@@ -498,6 +516,14 @@ for name, (w, family, config, kind) in spec["cases"].items():
         elif kind == "bert":
             ids = np.asarray(spec["bert_ids"])
             out[name] = {"logits": eng.forward(ids).tolist()}
+        elif kind == "moe":
+            ids = np.asarray(spec["bert_ids"])
+            out[name] = {"gen": [eng.generate(
+                np.asarray(p)[None], max_new_tokens=new).tolist()[0]
+                for p in prompts], "logits": eng.forward(ids).tolist(),
+                "experts": None if eng._quantized else int(
+                    eng.params["blocks"]["moe_blk"]["moe"]["experts"][
+                        "fc_in"]["kernel"].shape[1])}
         elif kind == "serve":
             out[name] = served(eng, prompts, new)
         elif kind == "spec":
@@ -512,16 +538,6 @@ for name, (w, family, config, kind) in spec["cases"].items():
         out[name] = {"error": repr(e)}
         print(f"rank {rank} case {name}: {e!r}", file=sys.stderr,
               flush=True)
-if world == 2:
-    # what a mesh still refuses, naming its part of queue A item 7
-    out["refused"] = []
-    moe = tt.TransformerLM(tt.gpt2_config(
-        "125m", dtype=torch.float32, moe_num_experts=4,
-        **spec["families"]["gpt2"]))
-    try:
-        dt.init_inference(moe, spec["cases"]["m2"][2], device="cpu")
-    except NotImplementedError as e:
-        out["refused"].append(str(e))
 out["jax_loaded"] = sorted(m for m in sys.modules
                            if m.split(".")[0] in ("jax", "deepspeed_tpu"))
 json.dump(out, open(os.path.join(d, f"w{world}_rank{rank}.json"), "w"))
@@ -573,6 +589,12 @@ def jax_run(name, family, config, kind, params):
         ids = np.asarray(BERT_IDS, np.int32)
         return {"logits": np.asarray(eng.forward(ids)),
                 "logits_one": np.asarray(one.forward(ids))}
+    if kind == "moe":
+        return {"gen": [np.asarray(eng.generate(
+            np.asarray(p, np.int32)[None], max_new_tokens=new))[0].tolist()
+            for p in ps],
+            "logits": np.asarray(eng.forward(np.asarray(BERT_IDS,
+                                                        np.int32)))}
     if kind == "spec":
         srv = eng.serving_engine(draft_model=jax_model("draft"),
                                  draft_params=params["draft"])
@@ -803,6 +825,21 @@ def test_bert_forward_at_tp2_equals_jax(world):
                                        rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["moe_ep2", "moe_tp2", "moe_ep2_int8"])
+def test_moe_serving_equals_jax(world, name):
+    """MoE served on a mesh of 2: ``generate()``'s greedy tokens equal
+    the JAX engine's at the same config (its mesh over the 8 virtual
+    devices: {data 4, expert 2} or {data 4, model 2}; int8 weights in
+    its grouped mode at ep_size 2) and ``forward()``'s logits are within
+    1e-5 of its, on both ranks."""
+    want = world.jax[name]
+    assert sum(len(set(g)) > 1 for g in want["gen"]) >= 3   # not degenerate
+    for got in case(world, name):
+        assert got["gen"] == want["gen"]
+        np.testing.assert_allclose(np.asarray(got["logits"]),
+                                   want["logits"], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["d2m2_skew", "d2m2_skew_front"])
 def test_deadline_under_a_skewed_clock_is_rank_0s(world, name):
     """Rank 1's serving clock runs ahead of the others' (its own sweep
@@ -826,15 +863,16 @@ def test_deadline_under_a_skewed_clock_is_rank_0s(world, name):
 
 
 def test_mesh_refuses_moe_and_bert_tp_training(world):
-    """What a model axis still refuses, naming its part of queue A item
-    7: MoE serving (part 5, on every rank of the world of 2).  BERT's
-    MLM head in tensor-parallel training (part 3c) is refused no more:
-    its training view is built (``tests/test_torch_tp_training.py``
-    holds its steps to the JAX engine at {model 2} and {data 2, model
-    2})."""
+    """Neither is refused any more.  MoE serving on a mesh (part 5): at
+    ``tp_size`` 2 and at ``moe.ep_size`` 2 every rank of the world of 2
+    serves (each holding E / 2 experts at ep_size 2, all 4 at tp_size 2;
+    ``test_moe_serving_equals_jax`` holds the results).  BERT's MLM head
+    in tensor-parallel training (part 3c): its training view is built
+    (``tests/test_torch_tp_training.py`` holds its steps to the JAX
+    engine at {model 2} and {data 2, model 2})."""
     for res in world.ranks[2]:
-        (moe,) = res["refused"]
-        assert "expert parallelism" in moe and "part 5" in moe
+        assert res["moe_ep2"]["experts"] == 2
+        assert res["moe_tp2"]["experts"] == 4
     view = port_model("bert").tp_train_view(2, "model")
     assert view._tp_axis == "model" and view._tp_exact_bwd
     assert view.config.num_heads * 2 == port_model("bert").config.num_heads

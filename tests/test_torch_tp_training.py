@@ -20,6 +20,11 @@ exit reduction of the partial leaves.  Cases (f32):
   the plan's count;
 * tiny LLaMA (GQA 8 over 2 kv heads, untied head, rotary) at {model 2},
   2 steps, the same checks;
+* a tiny top-2 MoE with dropped tokens and an aux loss at {data 2, model
+  2} (ZeRO-1) and {expert 2, model 2} (ZeRO-2), 3 steps, the same
+  checks: each expert's ``fc_in`` columns and ``fc_out`` rows cut over
+  ``model`` (the JAX ``mlp_expert`` specs), the expert stacks over
+  ``expert``, the whole micro batch routed on every rank;
 * optimizers on shards: LAMB at {model 2} (stage 0) and {data 2, model
   2} (ZeRO-1; one ``leaf_sums`` call a step, one all-reduce an axis
   group, pinned), a client ``torch.optim.AdamW`` at {data 2, model 2}
@@ -91,8 +96,18 @@ ENCODER = dict(num_layers=2, d_model=64, num_heads=4, vocab_size=64,
                final_layernorm=False, embed_layernorm=True, mlm_head=True,
                activation="gelu_exact", d_ff=96, attn_impl="xla")
 BERT = dict(ENCODER, token_type_vocab=2)
+#: a tiny MoE GPT-2 (4 experts on every other layer, top-2) with dropped
+#: tokens and an aux loss
+MOE = dict(num_layers=4, d_model=32, num_heads=4, vocab_size=64,
+           max_seq_len=64, moe_num_experts=4, moe_freq=2, moe_k=2,
+           moe_capacity_factor=1.0, moe_min_capacity=1, moe_use_rts=False,
+           moe_aux_loss_coef=0.01, attn_impl="xla", remat="full",
+           loss_chunk=16)
 FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "bloom": BLOOM, "bert": BERT,
-            "distilbert": ENCODER}
+            "distilbert": ENCODER, "moe": MOE}
+#: the families built by ``gpt2_config`` (the others by
+#: ``TransformerConfig``)
+GPT2_LIKE = ("gpt2", "moe")
 BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "AdamW",
                       "params": {"lr": 6e-4, "weight_decay": 0.1}},
@@ -132,6 +147,8 @@ CASES = {
     "bert_m2": (2, "bert", {"model": 2}, zero(0), 8, 2),
     "bert_s1": (4, "bert", {"data": 2, "model": 2}, zero(1), 8, 2),
     "distilbert_m2": (2, "distilbert", {"model": 2}, zero(0), 9, 2),
+    "moe_d2m2": (4, "moe", {"data": 2, "model": 2}, zero(1), 10, 3),
+    "moe_e2m2": (4, "moe", {"expert": 2, "model": 2}, zero(2), 10, 3),
 }
 
 
@@ -154,7 +171,7 @@ def step_lr(config):
 def jax_model(family):
     kw = FAMILIES[family]
     cfg = (jax_tf.gpt2_config("125m", dtype=jnp.float32, **kw)
-           if family == "gpt2" else
+           if family in GPT2_LIKE else
            jax_tf.TransformerConfig(dtype=jnp.float32, **kw))
     return jax_tf.TransformerLM(cfg)
 
@@ -162,14 +179,14 @@ def jax_model(family):
 def port_model(family):
     kw = FAMILIES[family]
     cfg = (tt.gpt2_config("125m", dtype=torch.float32, **kw)
-           if family == "gpt2" else
+           if family in GPT2_LIKE else
            tt.TransformerConfig(dtype=torch.float32, **kw))
     return tt.TransformerLM(cfg)
 
 
 def global_batch(family, mesh, seed, i):
     rs = np.random.RandomState(seed * 100 + i)
-    n = 2 * 2 * mesh.get("data", 1)
+    n = 2 * 2 * mesh.get("data", 1) * mesh.get("expert", 1)
     return rs.randint(0, FAMILIES[family]["vocab_size"],
                       (n, 64)).astype(np.int32)
 
@@ -227,7 +244,7 @@ def flat(tree, prefix=""):
 def model(family):
     kw = spec["families"][family]
     cfg = (tt.gpt2_config("125m", dtype=torch.float32, **kw)
-           if family == "gpt2"
+           if family in spec["gpt2_like"]
            else tt.TransformerConfig(dtype=torch.float32, **kw))
     return tt.TransformerLM(cfg)
 
@@ -466,7 +483,8 @@ def world(tmp_path_factory):
     ids = np.random.RandomState(3).randint(0, 64, (2, 12))
     np.save(os.path.join(tmp, "bloom_ids.npy"), ids)
     with open(os.path.join(tmp, "cases.json"), "w") as fh:
-        json.dump({"cases": CASES, "families": FAMILIES, "base": BASE}, fh)
+        json.dump({"cases": CASES, "families": FAMILIES, "base": BASE,
+                   "gpt2_like": GPT2_LIKE}, fh)
     box = {}
 
     def ranks(n):
@@ -699,7 +717,7 @@ def _tuples(tree):
         is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
 
 
-@pytest.mark.parametrize("family", ["gpt2", "llama", "bloom", "bert"])
+@pytest.mark.parametrize("family", ["gpt2", "llama", "bloom", "bert", "moe"])
 def test_partition_and_auto_tp_specs_equal_jax(family):
     jm = jax_model(family)
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))

@@ -377,12 +377,14 @@ def test_config_keys_and_defaults_match_jax():
     {"sequence_parallel": {"enabled": True}},
     # ZeRO stages 1-3 over data, tensor and pipeline parallelism run
     # since their slices and the 3D composition's (tests/test_torch_zero.py,
-    # tests/test_torch_tp_training.py, tests/test_torch_pipe*.py); the
-    # later parts of queue A item 7 stay refused: expert parallelism, the
-    # 1-bit optimizers (also with ZeRO stage 3 over a model axis or the
-    # pipeline), and offload over a data-parallel mesh (ZeRO-Infinity's
-    # dp-sharded part)
-    {"mesh": {"expert": 2}},
+    # tests/test_torch_tp_training.py, tests/test_torch_pipe*.py), and
+    # expert parallelism since its part (tests/test_torch_zero.py); the
+    # later parts of queue A item 7 stay refused: the 1-bit optimizers
+    # (also with ZeRO stage 3 over a model axis or the pipeline), and
+    # offload over a data-parallel mesh (ZeRO-Infinity's dp-sharded part),
+    # the expert axis counted in it
+    {"zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "cpu"}}, "mesh": {"expert": 2}},
     {"tensor_parallel": {"enabled": True, "tp_size": 2},
      "zero_optimization": {"stage": 3}, "optimizer": {"type": "OneBitAdam"}},
     {"zero_optimization": {"stage": 2, "offload_optimizer": {

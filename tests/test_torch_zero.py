@@ -22,9 +22,24 @@ Cases, all float32 but the fp16 one (gas 2, micro 2 a rank, global batch
   shard on device r (its ``addressable_shards``) within 1e-5;
 * stage 3 with a ``param_persistence_threshold`` that keeps the small
   leaves resident; a tiny LLaMA (GQA, untied head) and a tiny MoE at
-  stage 3 (the MoE without aux loss, routing noise or dropped tokens:
-  the JAX layer gates the global batch, the port, as the reference,
-  each rank's tokens, and only then do the two route alike);
+  stage 3;
+* the MoE with drops (capacity factor 1.0) and an aux loss (0.01), top-1
+  and top-2, at stages 0 and 2: the JAX layer gates the whole global
+  micro batch (capacity from the global token count, slots in the
+  global batch's order), and so does every rank of the port, from the
+  logits all-gathered over the batch axes; RTS is off (the two packages
+  draw their noise from other generators); after the steps, the top-1
+  stage-2 case's and {expert 4} stage 2's ``eval_loss`` at gas 2 (the
+  whole batch routed at once, in the JAX layout ``[gas, micro * dp]``);
+* expert parallelism, the same MoE at {expert 4} (stages 0 and 2) and at
+  {data 2, expert 2} (top-2, stages 0, 2 and 3), each held to the JAX
+  engine at that mesh: losses, grad norms and master shards, every
+  rank's ``exp_counts`` and kept tokens equal to one rank's over the
+  same global batches, the expert stacks' bytes 1/ep (and 1/dp above
+  stage 0) of the whole; with RTS on and one ``moe_rng`` seed, the
+  routing at {expert 4} equals one rank's; a checkpoint saved at
+  {expert 4} loads at world 1 and one saved at world 1 loads at
+  {expert 4}, each taking the other's next step;
 * fp16 with a scale that overflows at first (2^24, four times and more
   above where this model's gradients overflow float16): the same
   skipped steps and scale trajectory on every rank as in JAX, and the
@@ -91,7 +106,12 @@ MOE = dict(num_layers=4, d_model=32, num_heads=4, vocab_size=64,
            moe_capacity_factor=4.0, moe_min_capacity=1, moe_use_rts=False,
            moe_aux_loss_coef=0.0, attn_impl="xla", remat="full",
            loss_chunk=16)
-FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "moe": MOE}
+#: the MoE with dropped tokens and an aux loss, top-1 and top-2
+MOE_DROP = dict(MOE, moe_capacity_factor=1.0, moe_aux_loss_coef=0.01)
+MOE_DROP2 = dict(MOE_DROP, moe_k=2)
+FAMILIES = {"gpt2": GPT2, "llama": LLAMA, "moe": MOE, "moe_drop": MOE_DROP,
+            "moe_drop2": MOE_DROP2,
+            "moe_rts": dict(MOE_DROP, moe_use_rts=True)}
 BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "AdamW",
                       "params": {"lr": 6e-4, "weight_decay": 0.1}},
@@ -118,6 +138,10 @@ def zero(stage, threshold=0):
                                   "param_persistence_threshold": threshold}}
 
 
+EP4 = {"mesh": {"expert": 4}}
+D2E2 = {"mesh": {"data": 2, "expert": 2}}
+
+
 #: name → (family, config, batch seed); every case runs STEPS steps
 CASES = {
     "s0": ("gpt2", {**BASE, **zero(0)}, 1),
@@ -134,7 +158,24 @@ CASES = {
     "lamb_s3": ("gpt2", {**BASE, **LAMB, **zero(3)}, 1),
     "client_s2": ("gpt2", {**NO_OPT, **CLIENT_ADAMW, **zero(2)}, 1),
     "client_sgd_s3": ("gpt2", {**NO_OPT, **CLIENT_SGD, **zero(3)}, 1),
+    "moe_drop_s0": ("moe_drop", {**BASE, **zero(0)}, 4),
+    "moe_drop_s2": ("moe_drop", {**BASE, **zero(2)}, 4),
+    "moe_drop2_s0": ("moe_drop2", {**BASE, **zero(0)}, 4),
+    "moe_drop2_s2": ("moe_drop2", {**BASE, **zero(2)}, 4),
+    "ep4_s0": ("moe_drop", {**BASE, **zero(0), **EP4}, 5),
+    "ep4_s2": ("moe_drop", {**BASE, **zero(2), **EP4}, 5),
+    "d2e2_s0": ("moe_drop2", {**BASE, **zero(0), **D2E2}, 6),
+    "d2e2_s2": ("moe_drop2", {**BASE, **zero(2), **D2E2}, 6),
+    "d2e2_s3": ("moe_drop2", {**BASE, **zero(3), **D2E2}, 6),
 }
+#: the MoE cases: every rank's routing is held to one rank's too
+MOE_CASES = [n for n, c in CASES.items() if c[0].startswith("moe_")]
+#: the MoE cases whose ``eval_loss`` (gas 2) after the steps is held to
+#: the JAX engine's
+EVALS = ("moe_drop_s2", "ep4_s2")
+#: RTS at {expert 4} with one moe_rng seed, held to one rank (port only:
+#: the JAX engine draws its noise from another generator)
+RTS = ("moe_rts", {**BASE, **zero(2), **EP4}, 7)
 CLIENTS = ("client_s2", "client_sgd_s3")
 #: a client optimizer whose state is not shaped like its leaf (factored
 #: row and column statistics) at stage 1: refused on shards
@@ -145,7 +186,10 @@ ADAFACTOR = {**NO_OPT, **zero(1),
 #: stages 1 and 2 are held to the JAX engine at stage 3: at threshold 0
 #: its master and moment specs are theirs (test_policy_dims_equal_jax_
 #: specs), and every JAX stage computes the same function
-JAX_REF = {name: {"s1": "s3", "s2": "s3", "lamb_s1": "lamb_s3"}.get(name, name)
+JAX_REF = {name: {"s1": "s3", "s2": "s3", "lamb_s1": "lamb_s3",
+                  "moe_drop_s0": "moe_drop_s2",
+                  "moe_drop2_s0": "moe_drop2_s2", "ep4_s0": "ep4_s2",
+                  "d2e2_s0": "d2e2_s3", "d2e2_s2": "d2e2_s3"}.get(name, name)
            for name in CASES}
 
 
@@ -166,7 +210,8 @@ def jax_model(family, fp16=False):
         return jax_tf.TransformerLM(jax_tf.gpt2_config("125m", dtype=dtype,
                                                        **GPT2))
     kw = FAMILIES[family]
-    cfg = (jax_tf.gpt2_config("125m", dtype=dtype, **kw) if family == "moe"
+    cfg = (jax_tf.gpt2_config("125m", dtype=dtype, **kw)
+           if family.startswith("moe")
            else jax_tf.TransformerConfig(dtype=dtype, **kw))
     return jax_tf.TransformerLM(cfg)
 
@@ -280,7 +325,8 @@ def count_leaf_sums(eng):
     eng._zero.leaf_sums = leaf_sums
 
 def engine(name, params=None, config=None):
-    family, cfg, _ = spec["cases"][name]
+    family, cfg, _ = (spec["rts"] if name == "moe_rts"
+                      else spec["cases"][name])
     config = dict(config or cfg)
     client = config.pop("client", None)
     opt = None
@@ -304,22 +350,40 @@ def steps(eng, name, which):
         b = rank_slice({"input_ids": batches[str(i)]},
                        eng.gradient_accumulation_steps, eng.dp_world_size,
                        rank)
+        if name == "moe_rts":
+            b["moe_rng"] = 1000 + i
         AR.update(axes=[], calls=0)
         m = eng.train_step(b)
         out.append({k: float(v) for k, v in m.items()})
         out[-1]["leaf_sums"] = [AR["calls"], AR["axes"]]
+        if eng._moe:
+            # each MoE layer's routing of the step's last micro batch
+            out[-1]["moe"] = [[c.tolist(), int(k), cap] for c, k, cap
+                              in eng._runner.moe_stats]
     return out
+
+def expert_bytes(eng):
+    out = {}
+    flat(eng.state["params"], "", out)
+    return int(sum(v.nbytes for k, v in out.items() if "/experts/" in k))
 
 results, shards = {}, {}
 for name in spec["cases"]:
     eng = engine(name, f"init_{name}.npz")
     results[name] = {"steps": steps(eng, name, range(spec["steps"])),
+                     "expert_bytes": expert_bytes(eng),
                      "bytes": eng.zero_state_bytes(),
                      "planned": eng._zero.planned_bytes(
                          eng._param_shapes,
                          torch.finfo(eng.compute_dtype).bits // 8),
                      "counters": [int(eng.state["step"]),
                                   int(eng.state["skipped"])]}
+    if name in spec["evals"]:
+        # after the steps: the whole batch at once, gas 2 runs a rank
+        b = np.load(os.path.join(d, f"batches_{name}.npz"))
+        results[name]["eval"] = float(eng.eval_loss(rank_slice(
+            {"input_ids": b[str(spec["steps"])]},
+            eng.gradient_accumulation_steps, eng.dp_world_size, rank)))
     flat(eng.state["params"], name + "/params", shards)
     for k in ("m", "v"):
         if k in eng.state["opt"]:
@@ -338,7 +402,23 @@ for name in spec["cases"]:
         if name == "client_s2":
             full = eng.full_state()
             flat(full["params"], "client_cont/params", shards)
+    if name == "ep4_s2":
+        # saved at {expert 4} (rank 0 gathers the expert stacks into the
+        # world-1 layout), loaded at world 1 by the test
+        eng.save_checkpoint(os.path.join(d, "ckpt_ep4"))
+        results["resume_ep4"] = {"cont": steps(eng, name,
+                                               [spec["steps"]])}
     del eng
+
+# RTS at {expert 4}: every rank draws the whole batch's noise from the
+# micro batch's seed
+results["moe_rts"] = {"steps": steps(engine("moe_rts", "init_moe_rts.npz"),
+                                     "moe_rts", range(spec["steps"]))}
+# a world-1 MoE checkpoint loaded at {expert 4}
+ep4 = engine("ep4_s2")
+ep4.load_checkpoint(os.path.join(d, "ckpt1_moe"))
+results["w1_moe_load"] = steps(ep4, "w1_moe", range(2))
+del ep4
 
 # a client optimizer whose state is not shaped like its leaf, on shards
 try:
@@ -359,7 +439,8 @@ dt.comm.destroy_process_group()
 
 
 def jax_engine(family, config, fp16=False):
-    mesh = build_mesh(MeshConfig(data=WORLD), devices=jax.devices()[:WORLD])
+    mesh = build_mesh(MeshConfig(**config.get("mesh", {"data": WORLD})),
+                      devices=jax.devices()[:WORLD])
     config = json.loads(json.dumps(config))
     client = config.pop("client", None)
     eng, _, _, _ = ds.initialize(model=jax_model(family, fp16),
@@ -372,6 +453,23 @@ def device_shard(arr, r):
     dev = jax.devices()[r]
     return np.asarray([s for s in arr.addressable_shards
                        if s.device == dev][0].data)
+
+
+def device_piece(arr, r):
+    """Device r's piece of ``arr`` over every mesh axis but the data
+    axes (a stage-0 rank's masters where the JAX reference runs a
+    sharded stage: the expert stacks cut over ``expert`` only)."""
+    mesh, spec = arr.sharding.mesh, arr.sharding.spec
+    pos = dict(zip(mesh.axis_names, np.argwhere(
+        mesh.devices == jax.devices()[r])[0]))
+    x = np.asarray(arr)
+    for dim, e in enumerate(spec):
+        for name in (() if e is None else e if isinstance(e, tuple)
+                     else (e,)):
+            if name in ("data", "dcn_data"):
+                break                    # the data axes come innermost
+            x = np.split(x, mesh.shape[name], axis=dim)[int(pos[name])]
+    return x
 
 
 @pytest.fixture(scope="module")
@@ -402,9 +500,24 @@ def world(tmp_path_factory):
              **{str(i): b for i, b in enumerate(w1_batches[1:])})
     w1_ref = [{k: float(v) for k, v in w1.train_step(
         {"input_ids": b}).items()} for b in w1_batches[1:]]
+    # the RTS case's init and batches, and a world-1 MoE checkpoint (one
+    # step) for the ranks to load at {expert 4}
+    moe_init = jax.device_get(engines["ep4_s2"].state["params"])
+    np.savez(os.path.join(tmp, "init_moe_rts.npz"), **flat(moe_init))
+    np.savez(os.path.join(tmp, "batches_moe_rts.npz"), **{
+        str(i): b for i, b in enumerate(global_batches("moe_rts", RTS[2],
+                                                       STEPS))})
+    w1_moe = port_w1("moe_drop", moe_init, zero(2))
+    w1_moe_batches = global_batches("moe_drop", 8, 3)
+    w1_moe.train_step({"input_ids": w1_moe_batches[0]})
+    w1_moe.save_checkpoint(os.path.join(tmp, "ckpt1_moe"))
+    np.savez(os.path.join(tmp, "batches_w1_moe.npz"),
+             **{str(i): b for i, b in enumerate(w1_moe_batches[1:])})
+    w1_moe_ref = [{k: float(v) for k, v in w1_moe.train_step(
+        {"input_ids": b}).items()} for b in w1_moe_batches[1:]]
     with open(os.path.join(tmp, "cases.json"), "w") as f:
         json.dump({"cases": CASES, "families": FAMILIES, "steps": STEPS,
-                   "adafactor": ADAFACTOR}, f)
+                   "adafactor": ADAFACTOR, "rts": RTS, "evals": EVALS}, f)
 
     import threading
     box = {}
@@ -418,11 +531,27 @@ def world(tmp_path_factory):
             box["error"] = e
     t = threading.Thread(target=ranks)
     t.start()
-    jax_runs = {}
+    jax_runs, jax_evals = {}, {}
     for name, je in engines.items():
         bs = np.load(os.path.join(tmp, f"batches_{name}.npz"))
         jax_runs[name] = [{k: float(v) for k, v in je.train_step(
             {"input_ids": bs[str(i)]}).items()} for i in range(STEPS)]
+        if name in EVALS:
+            jax_evals[name] = float(je.eval_loss(
+                {"input_ids": bs[str(STEPS)]}))
+    # one rank of the port over each MoE case's global batches (and the
+    # RTS case's, with its seeds): the routing every rank must hold
+    one_rank = {}
+    for name in MOE_CASES + ["moe_rts"]:
+        family, config, seed = RTS if name == "moe_rts" else CASES[name]
+        key = (family, seed)
+        if key not in one_rank:
+            init = np.load(os.path.join(tmp, f"init_{name}.npz"))
+            one_rank[key] = w1_routing(
+                port_w1(family, unflat(dict(init)), zero(0)),
+                np.load(os.path.join(tmp, f"batches_{name}.npz")),
+                rts=name == "moe_rts")
+        one_rank[name] = one_rank[key]
     t.join(timeout=300)
     assert not t.is_alive(), "the ranks outlived their deadline"
     if "error" in box:
@@ -437,7 +566,34 @@ def world(tmp_path_factory):
         res["shards"] = dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
         ranks_out.append(res)
     return types.SimpleNamespace(engines=engines, runs=jax_runs,
-                                 ranks=ranks_out, tmp=tmp, w1_ref=w1_ref)
+                                 ranks=ranks_out, tmp=tmp, w1_ref=w1_ref,
+                                 w1_moe_ref=w1_moe_ref, one_rank=one_rank,
+                                 moe_init=moe_init, evals=jax_evals)
+
+
+def port_w1(family, params, stage):
+    """One rank of the port over the global batch (micro 8 = 4 ranks x
+    2), from ``params`` (the JAX tree)."""
+    m = port_model(family)
+    return dt.initialize(model=m, config=json.loads(json.dumps(
+        {**W1, **stage})), params=params_from_jax(params, m),
+        device="cpu")[0]
+
+
+def w1_routing(eng, batches, rts=False):
+    """Each step's loss and grad norm and each MoE layer's routing of its
+    last micro batch, at one rank."""
+    out = []
+    for i in range(STEPS):
+        b = {"input_ids": batches[str(i)]}
+        if rts:
+            b["moe_rng"] = 1000 + i
+        m = eng.train_step(b)
+        out.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "moe": [[c.tolist(), int(k), cap] for c, k, cap
+                            in eng.model.moe_stats]})
+    return out
 
 
 def test_worker_imports_no_jax(world):
@@ -475,12 +631,30 @@ def test_steps_match_jax_on_every_rank(world, name):
         assert max(w["grad_norm"] for w in want) > 0.25  # clipping bites
 
 
+@pytest.mark.parametrize("name", EVALS)
+def test_moe_eval_loss_matches_jax(world, name):
+    """``eval_loss`` of a batch after the steps, at gas 2 with drops:
+    every rank routes the whole batch at once in the JAX layout ``[gas,
+    micro * dp]`` (run 0 of every rank, then run 1: the slot order
+    decides which tokens drop), so its loss is the JAX engine's within
+    2e-6 on every rank.  Routed in each rank's own order (run 0 and run
+    1 of rank 0, then of rank 1, ...) the losses part from JAX's by
+    2.3e-5 and 8.4e-6 relative on these batches; in its order by 1.1e-7
+    and 0."""
+    for res in world.ranks:
+        np.testing.assert_allclose(res[name]["eval"], world.evals[name],
+                                   rtol=2e-6, atol=0)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_shards_equal_jax_device_shards(world, name):
     """Rank r's float32 master and moment shards are the JAX state's
-    shards on device r, leaf by leaf (stage 0 holds whole leaves; the
+    shards on device r, leaf by leaf (stage 0 holds whole leaves, or
+    under an expert axis its experts' slices of the expert stacks; the
     fp16 case's are its initial ones, every step skipped)."""
     st = world.engines[name].state
+    stage0 = CASES[name][1]["zero_optimization"]["stage"] == 0
+    piece = device_piece if stage0 else device_shard
     keep = lambda a: a    # noqa: E731 - the jax.Arrays, with shards
     trees = {"params": flat(st["params"], conv=keep)}
     if name not in CLIENTS:
@@ -492,7 +666,7 @@ def test_shards_equal_jax_device_shards(world, name):
         for kind, leaves in trees.items():
             for path, arr in leaves.items():
                 got = res["shards"][f"{name}/{kind}/{path}"]
-                want = device_shard(arr, r)
+                want = piece(arr, r)
                 assert got.shape == want.shape, (name, kind, path)
                 np.testing.assert_allclose(got, want, **TOL)
 
@@ -511,6 +685,66 @@ def test_lamb_makes_one_leaf_sum_all_reduce_a_step(world, name):
             assert len(axes) == calls and len(set(axes)) <= 1, axes
     if lamb:
         assert "data" in world.ranks[0][name]["steps"][0]["leaf_sums"][1][0]
+
+
+@pytest.mark.parametrize("name", MOE_CASES + ["moe_rts"])
+def test_moe_routing_equals_one_rank(world, name):
+    """Every rank routes the whole global micro batch: each MoE layer's
+    ``exp_counts``, kept tokens and capacity, every step, equal one
+    rank's over the same global batches; at {expert 4} with RTS and one
+    ``moe_rng`` seed a step, also its losses and grad norms (the noise
+    is drawn for the whole batch from the micro batch's seed)."""
+    want = world.one_rank[name]
+    for res in world.ranks:
+        got = res[name]["steps"]
+        assert [g["moe"] for g in got] == [w["moe"] for w in want]
+        if name == "moe_rts":
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5)
+                np.testing.assert_allclose(g["grad_norm"], w["grad_norm"],
+                                           rtol=1e-5)
+    # tokens dropped: the capacity bites (a micro batch routes 8 x 64
+    # tokens, k choices each)
+    family = RTS[0] if name == "moe_rts" else CASES[name][0]
+    k = FAMILIES[family].get("moe_k", 1)
+    assert any(kept < GLOBAL // 2 * 64 * k
+               for row in want for _, kept, _ in row["moe"])
+
+
+@pytest.mark.parametrize("name", [n for n in CASES
+                                  if n.startswith(("ep4", "d2e2"))])
+def test_expert_stacks_follow_the_plan(world, name):
+    """Each rank's state bytes by kind equal the plan's count, and its
+    expert stacks are 1/ep of the whole (and 1/dp of that above stage
+    0, ZeRO's data shard of its experts)."""
+    mesh = CASES[name][1]["mesh"]
+    stage = CASES[name][1]["zero_optimization"]["stage"]
+    whole = sum(v.nbytes for k, v in flat(world.moe_init).items()
+                if "/experts/" in k)
+    cut = mesh["expert"] * (mesh.get("data", 1) if stage else 1)
+    for res in world.ranks:
+        assert res[name]["bytes"] == res[name]["planned"]
+        assert res[name]["expert_bytes"] * cut == whole
+
+
+def test_expert_checkpoint_resumes_across_world_sizes(world):
+    """Saved at {expert 4} (the expert stacks gathered whole), loaded at
+    world 1: its next step is the ranks' next step; a world-1 save
+    loaded at {expert 4} trains as the world-1 engine does."""
+    one = port_w1("moe_drop", world.moe_init, zero(2))
+    one.load_checkpoint(os.path.join(world.tmp, "ckpt_ep4"))
+    assert int(one.state["step"]) == STEPS
+    bs = np.load(os.path.join(world.tmp, "batches_ep4_s2.npz"))
+    m = one.train_step({"input_ids": bs[str(STEPS)]})
+    cont = world.ranks[0]["resume_ep4"]["cont"][0]
+    np.testing.assert_allclose(float(m["loss"]), cont["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]), cont["grad_norm"],
+                               rtol=1e-5)
+    for res in world.ranks:
+        for g, w in zip(res["w1_moe_load"], world.w1_moe_ref):
+            np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5)
+            np.testing.assert_allclose(g["grad_norm"], w["grad_norm"],
+                                       rtol=1e-5)
 
 
 def test_client_checkpoint_resumes_across_world_sizes(world):
@@ -644,6 +878,48 @@ def test_policy_dims_equal_jax_specs(family, threshold, axes):
             assert jflat == pflat, stage
             for path, js in jflat.items():
                 assert dflat[path] == _dims_of(js), (stage, path)
+
+
+@pytest.mark.parametrize("axes", [dict(expert=4), dict(data=2, expert=2),
+                                  dict(data=2, expert=2, model=2)],
+                         ids=["expert4", "data2_expert2", "d2e2m2"])
+@pytest.mark.parametrize("stage", [1, 3])
+def test_policy_dims_on_expert_cut_leaves_equal_jax(axes, stage):
+    """An MoE model's specs (the expert stacks over ``expert``, their FFN
+    over ``model``) through the port's policy and the JAX policy at the
+    same mesh (``model`` stripped where the mesh has none: at size 1 it
+    moves no dim): the same master spec trees at stages 1 and 3, and
+    the expert dims the engine cuts (``tp_dims(specs, "expert")``) where
+    the JAX specs name ``expert``, on the expert stacks alone (the model
+    specs themselves: ``test_torch_tp_training.py``)."""
+    from deepspeed_tpu_torch.models.convert import tp_dims
+    n = int(np.prod(list(axes.values())))
+    mesh = build_mesh(MeshConfig(**axes), devices=jax.devices()[:n])
+    jm = jax_model("moe_drop")
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
+    pm = port_model("moe_drop")
+    pspecs = psh._map(lambda _p, sp: tuple(
+        None if (e == "model" and "model" not in axes) else e
+        for e in sp), pm.partition_specs())
+    jspecs = jax.tree_util.tree_map(
+        lambda sp: jax.sharding.PartitionSpec(*sp), pspecs,
+        is_leaf=lambda x: isinstance(x, tuple))
+    jp = jsh.ZeroShardingPolicy(stage, mesh, jspecs, shapes,
+                                param_persistence_threshold=0)
+    pp = psh.ZeroShardingPolicy(stage, types.SimpleNamespace(
+        shape=dict(mesh.shape)), pm.param_shapes(), pspecs,
+        param_persistence_threshold=0)
+    jflat = flat_specs(jax.tree_util.tree_map(
+        tuple, jp.master_param_specs(),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))
+    assert jflat == flat_specs(pp.master_param_specs())
+    edims = flat(tp_dims(pspecs, "expert"), conv=lambda d: d)
+    for path, spec in jflat.items():
+        names = [set(e if isinstance(e, tuple) else (e,)) for e in spec]
+        want = next((d for d, ns in enumerate(names) if "expert" in ns),
+                    None)
+        assert edims[path] == want, path
+        assert (want is not None) == ("/experts/" in "/" + path), path
 
 
 @pytest.mark.parametrize("axes", [dict(data=2, model=2), dict(pipe=2, data=2),
@@ -848,9 +1124,6 @@ REFUSED = [
     ({"mesh": {"sequence": 2}},
      "mesh axis sequence=2: ring and Ulysses sequence parallelism "
      "(queue A item 7 part 6)"),
-    ({"mesh": {"expert": 2}},
-     "mesh axis expert=2: moe.ep_size above 1, expert parallelism "
-     "(queue A item 7 part 5)"),
     ({"sequence_parallel": {"enabled": True}},
      "sequence_parallel: ring and Ulysses sequence parallelism "
      "(queue A item 7 part 6)"),
@@ -875,8 +1148,7 @@ REFUSED = [
      "auxiliary subsystems)"),
     ({"mesh": {"expert": 2, "sequence": 2}},
      "mesh axis sequence=2: ring and Ulysses sequence parallelism "
-     "(queue A item 7 part 6); mesh axis expert=2: moe.ep_size above 1, "
-     "expert parallelism (queue A item 7 part 5)"),
+     "(queue A item 7 part 6)"),
     ({"optimizer": {"type": "ZeroOneAdam"}, "tensor_parallel": {
         "enabled": True, "tp_size": 2}, "zero_optimization": {"stage": 3}},
      "optimizer ZeroOneAdam: the 1-bit optimizers (queue A item 7 part 7)"),
@@ -893,10 +1165,11 @@ def test_config_gate_refusals_word_for_word(block, message):
                               f"port: {message} (see ROADMAP.md queue A)")
 
 
-#: the 3D compositions the gate admits since they came: ZeRO stage 3
-#: over a model axis, a pipe axis or pipeline stages, and ZeRO-Offload
-#: over a model or pipe axis at a data-parallel size of 1
+#: the compositions the gate admits since they came: ZeRO stage 3 over a
+#: model axis, a pipe axis or pipeline stages, ZeRO-Offload over a model
+#: or pipe axis at a data-parallel size of 1, and the expert axis
 ADMITTED = {
+    "expert": {"mesh": {"expert": 2}},
     "zero3_model": {"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
     "zero3_tp": {"tensor_parallel": {"enabled": True, "tp_size": 2},
                  "zero_optimization": {"stage": 3}},
